@@ -3,17 +3,32 @@
 
 1. Device: needs CUDA; prints the card's name and power limit (nvidia-smi)
    and the torch and nvcc versions.
-2. Build: compiles the CUDA kernels from gnn_tpu_torch/ops/csrc with nvcc.
-3. Kernels: runs K3 (propagation_loop) and K4 (propagation_step) at the
-   shapes the serving path gives them on the full MUTAG-shaped set and at
-   ragged small shapes, holds each against its plain PyTorch version on the
-   same CUDA tensors (states within 1e-5, movement flags equal) and times
-   both with CUDA events.
-4. Main path: serves the flagship graph-focus GNN (MUTAG widths 14/3/2,
+2. Build: compiles the CUDA kernels from gnn_tpu_torch/ops/csrc with nvcc,
+   one nvcc per source, all at once.
+3. Serving kernels: runs K3 (propagation_loop) and K4 (propagation_step) at
+   the shapes the serving path gives them on the full MUTAG-shaped set and
+   at ragged small shapes, holds each against its plain PyTorch version on
+   the same CUDA tensors (states within 1e-5, movement flags equal) and
+   times both with CUDA events.
+4. Serving path: serves the flagship graph-focus GNN (MUTAG widths 14/3/2,
    selu state net with BatchNorm, softmax readout, K=5, threshold 0.01,
-   seeded random weights) through Predictor: warmup, then 8 requests. Every
-   kernel must have launched; every response must match the same model run
-   on the CPU (outputs within 1e-5, iteration counts equal).
+   seeded random weights) through Predictor: warmup, then 8 requests. K3 and
+   K4 must have launched; every response must match the same model run on
+   the CPU (outputs within 1e-5, iteration counts equal).
+5. Training kernels: runs K1 (bn_forward_step) and K2 (bn_backward_step) at
+   the shapes the training step gives them on the full set and at ragged
+   shapes of every register width the kernels are built for, against their
+   plain versions (per-node outputs within 1e-5, movement flags equal, sums
+   over nodes within rtol 1e-4 with a floor of 1e-4 of the largest entry),
+   and times both.
+6. Training path: the flagship (AlphaDropout 0.1 on the state net's input,
+   dropout 0.1 on the readout's, categorical cross-entropy, Adam lr 1e-3)
+   takes 5 training_steps on one batch of the whole set. K1 and K2 must each
+   launch K=5 times per step. The same model on the CPU, fed the card's
+   dropout masks, must agree: equal iteration counts, losses within rtol
+   1e-5, moving BatchNorm statistics within 1e-5, the first step's grads
+   within rtol 2e-4 (floor 2e-5 of each tensor's largest entry), the params
+   after the last common step within 1e-5.
 
 Prints a JSON line of per-kernel numbers, then as its last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
@@ -28,6 +43,7 @@ import sys
 import time
 
 TOL = 1e-5              # kernel vs plain version, card vs CPU
+SUM_RTOL = 1e-4         # sums over nodes, kernel vs plain version
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 SEED = 0
@@ -212,9 +228,9 @@ def phase_kernels(torch, model, gb):
     return out
 
 
-def phase_profile(torch, fwd, runs=5):
-    """Device time by kernel over `runs` full-set forwards (torch.profiler),
-    and the device's busy share of the host-clock window."""
+def phase_profile(torch, fwd, runs=5, what="full-set forward"):
+    """Device time by kernel over `runs` calls of fwd (torch.profiler), and
+    the device's busy share of the host-clock window."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -228,10 +244,10 @@ def phase_profile(torch, fwd, runs=5):
     if not total:
         say("profile: the profiler recorded no device time")
         return
-    say(f"profile over {runs} full-set forwards: device busy {total / runs / 1e3:.3f} ms of "
-        f"{wall_us / runs / 1e3:.3f} ms per forward ({100 * total / wall_us:.1f}% busy)")
-    for dev_us, count, key in sorted(rows, reverse=True)[:10]:
-        say(f"  {dev_us / runs / 1e3:9.4f} ms/forward  {count // runs:4d} calls  {key[:90]}")
+    say(f"profile over {runs} x {what}: device busy {total / runs / 1e3:.3f} ms of "
+        f"{wall_us / runs / 1e3:.3f} ms per call ({100 * total / wall_us:.1f}% busy)")
+    for dev_us, count, key in sorted(rows, reverse=True)[:12]:
+        say(f"  {dev_us / runs / 1e3:9.4f} ms/call  {count // runs:4d} launches  {key[:90]}")
 
 
 def flagship(torch, device):
@@ -250,6 +266,283 @@ def flagship(torch, device):
     model.bn["state"] = {"mean": (0.1 * torch.randn(d, generator=gen)).to(device),
                          "var": (0.5 + torch.rand(d, generator=gen)).to(device)}
     return model
+
+
+def close_sum(torch, got, want, label):
+    """Block-summed partials: within SUM_RTOL of the plain version, with a
+    floor of SUM_RTOL times the largest entry (a sum can cancel far below
+    its terms). Returns the max abs difference."""
+    err = (got - want).abs()
+    bound = SUM_RTOL * (want.abs() + want.abs().max())
+    if not bool((err <= bound).all()):
+        fail(f"{label}: sum over nodes off by {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def check_bn_forward(torch, bn, x, kw, label):
+    got = bn.bn_forward_step(**x, **kw)
+    torch.cuda.synchronize()
+    ref = bn.bn_forward_step_ref(**x, **kw)
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        fail(f"K1 {label}: non-finite output")
+    errs = [float((a - b).abs().max()) for a, b in zip(got[:2], ref[:2])]
+    flips = int((got[2] != ref[2]).sum())
+    serr = close_sum(torch, got[3].sum(0), ref[3].sum(0), f"K1 {label} msum")
+    R, W, D = x["y1"].shape
+    say(f"K1 {label}: R={R} (Bl={x['adj_loop'].shape[0]}) W={W} D={D} F={x['feats'].shape[-1]} "
+        f"{kw['activation']} rate={kw['rate']} res={x['rT'] is not None}: max|y - plain| "
+        f"{errs[0]:.3e}, max|agg - plain| {errs[1]:.3e}, flags differing {flips} of "
+        f"{got[2].numel()}, summed msum {serr:.3e}")
+    if max(errs) > TOL or flips:
+        fail(f"K1 {label} disagrees with its plain version")
+    return got, max(errs)
+
+
+def check_bn_backward(torch, bn, x, kw, label):
+    got = bn.bn_backward_step(**x, **kw)
+    torch.cuda.synchronize()
+    ref = bn.bn_backward_step_ref(**x, **kw)
+    if not all(bool(torch.isfinite(t).all()) for t in got):
+        fail(f"K2 {label}: non-finite output")
+    errs = [float((got[i] - ref[i]).abs().max()) for i in (0, 2)]
+    sums = [close_sum(torch, got[i].sum(0), ref[i].sum(0), f"K2 {label} {n}")
+            for i, n in ((1, "dw"), (3, "red"))]
+    R, W, D = x["y_prev"].shape
+    say(f"K2 {label}: R={R} W={W} D={D} {kw['activation']} rate={kw['rate']} "
+        f"flag={float(x['flag'])}: max|ds - plain| {errs[0]:.3e}, max|dagg - plain| "
+        f"{errs[1]:.3e}, summed dw {sums[0]:.3e}, summed red {sums[1]:.3e}")
+    if max(errs) > TOL:
+        fail(f"K2 {label} disagrees with its plain version")
+    return max(errs)
+
+
+def random_bn_inputs(torch, gen, R, Bl, W, D, F, rate, res, dev):
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+    arcs = torch.rand(R, W, W, generator=gen) < 0.05
+    adj = (arcs / arcs.sum(1, keepdim=True).clamp_min(1)).float().to(dev)
+    aff = torch.stack([torch.stack([torch.rand(D, generator=gen) + 0.5,
+                                    0.1 * torch.randn(D, generator=gen)]) for _ in range(2)])
+    keep = ((torch.rand(R, W, 2 * D + F, generator=gen) > rate).to(torch.uint8).to(dev)
+            if rate else None)
+    fwd = dict(adj_loop=adj[:Bl].contiguous(), adj_dep=adj[Bl:].contiguous() if Bl < R else None,
+               y1=r(R, W, D), y2=r(R, W, D), aff=aff.to(dev), keep=keep,
+               rT=r(R, W, D, scale=0.3) if res else None, feats=r(R, W, F, scale=0.5),
+               w_aug=r(D, 2 * D + F + 1, scale=0.5 / D ** 0.5),
+               nm=(torch.rand(R, W, generator=gen) < 0.8).float().to(dev))
+    bwd = dict(adj_loop=fwd["adj_loop"], adj_dep=fwd["adj_dep"], y_prev=fwd["y1"], y_k=r(R, W, D),
+               agg=r(R, W, D), keep=keep, feats=fwd["feats"], w_aug=fwd["w_aug"],
+               ds_in=r(R, W, D, scale=0.1), gsel=r(R, W, D, scale=0.1),
+               bnv=(0.5 + torch.rand(9, D, generator=gen)).to(dev),
+               flag=torch.tensor(1.0, device=dev), nm=fwd["nm"])
+    return fwd, bwd
+
+
+def train_kernel_inputs(torch, model, gb):
+    """K1's operands of iterations 1 and 2 and K2's of the reverse of
+    iteration 2, as the training step forms them on the full set (masks from
+    a seeded generator, a readout-like state cotangent)."""
+    from gnn_tpu_torch.models import core
+    from gnn_tpu_torch.ops import bn
+    dev = gb.device
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    masks = core.draw_masks(model.spec, gb, gen)
+    with torch.no_grad():
+        s0, w_aug, op = bn.bn_loop_operands(model.spec, model.params["state"], gb,
+                                            masks["state"].get(0))
+        gamma, beta = model.params["state"]["bn"]["gamma"], model.params["state"]["bn"]["beta"]
+        ident = bn._ident_aff(s0.shape[-1], s0)
+        cnt = op.nm.sum().clamp_min(1.0)
+        kw = dict(op.step_kw(), threshold=op.threshold)
+        x0 = dict(adj_loop=op.adj_loop, adj_dep=op.adj_dep, y1=s0, y2=torch.ones_like(s0),
+                  aff=torch.stack([ident, ident]), keep=op.keep_k(0),
+                  rT=bn._res_term(s0, ident, op.res), feats=op.feats, w_aug=w_aug, nm=op.nm)
+        y0, agg0, _, _ = bn.bn_forward_step_ref(**x0, **kw)
+
+        def moments(y):
+            m = (y * op.nm[..., None]).sum((0, 1)) / cnt
+            v = ((y - m) ** 2 * op.nm[..., None]).sum((0, 1)) / cnt
+            return m, torch.rsqrt(v + 1e-3), bn._affine(gamma, beta, m, v)
+
+        m0, r0, a0 = moments(y0)
+        x1 = dict(x0, y1=y0, y2=s0, aff=torch.stack([a0, ident]), keep=op.keep_k(1),
+                  rT=bn._res_term(y0, a0, op.res))
+        y1, agg1, _, _ = bn.bn_forward_step_ref(**x1, **kw)
+        m1, r1, _ = moments(y1)
+        g = torch.Generator(device=dev).manual_seed(SEED + 3)
+        gsel = 0.03 * torch.randn(y1.shape, generator=g, device=dev) * op.nm[..., None]
+        s1 = gsel.sum((0, 1))
+        s2 = (gsel * (y1 - m1) * r1).sum((0, 1))
+        a = gamma * r1
+        bnv = torch.stack([a0[0], a0[1], m1, r1, a, a * s1 / cnt, a * s2 / cnt, m0, r0])
+        x2 = dict(adj_loop=op.adj_loop, adj_dep=op.adj_dep, y_prev=y0, y_k=y1, agg=agg1,
+                  keep=op.keep_k(1), feats=op.feats, w_aug=w_aug,
+                  ds_in=0.01 * torch.randn(y1.shape, generator=g, device=dev), gsel=gsel,
+                  bnv=bnv.contiguous(), flag=torch.tensor(1.0, device=dev), nm=op.nm)
+    return (x0, x1), kw, x2, op.step_kw()
+
+
+def bn_bounds(x_f, x_b):
+    """(K1, K2) least times and what sets them: inputs read once, outputs
+    written once; operations on the arcs present and the dense layer."""
+    adjs = [a for a in (x_f["adj_loop"], x_f["adj_dep"]) if a is not None]
+    nnz = sum(_nnz(a) for a in adjs)
+    R, W, D = x_f["y1"].shape
+    F = x_f["feats"].shape[-1]
+    C = 2 * D + F + 1
+    n = R * W
+    f4 = 4
+    keep_b = 0 if x_f["keep"] is None else n * (C - 1)
+    adj_b = f4 * sum(a.numel() for a in adjs)
+    shared = adj_b + keep_b + f4 * (n * F + D * C + n)          # adjacency, keep, feats, w, nm
+    rt_b = 0 if x_f["rT"] is None else f4 * n * D
+    bytes1 = shared + f4 * (2 * n * D + 4 * D) + rt_b + f4 * (2 * n * D + n + R * D)
+    flops1 = 2 * D * nnz + 2 * D * C * n + 12 * D * n
+    bytes2 = shared + f4 * (5 * n * D + 9 * D + 1) + f4 * (2 * n * D + R * D * C + 2 * R * D)
+    flops2 = 2 * D * nnz + 2 * D * C * n * 2 + 4 * D * D * n + 14 * D * n
+    return bound(bytes1, flops1), bound(bytes2, flops2)
+
+
+def phase_train_kernels(torch, model, gb):
+    """K1/K2 against their plain versions at the training step's full-set
+    shapes and at ragged shapes of each register width (16, 32, 64); times
+    and bounds at the full set."""
+    from gnn_tpu_torch.ops import bn
+    (x0, x1), kw, x2, kwb = train_kernel_inputs(torch, model, gb)
+    check_bn_forward(torch, bn, x0, kw, "full set, iteration 1")
+    _, err1 = check_bn_forward(torch, bn, x1, kw, "full set, iteration 2")
+    err2 = check_bn_backward(torch, bn, x2, kwb, "full set, reverse of iteration 2")
+    gen = torch.Generator().manual_seed(SEED + 4)
+    dev = gb.device
+    for R, Bl, W, D, F, act, alpha, rate, res in (
+            (6, 4, 32, 5, 3, "selu", True, 0.1, True), (5, 5, 96, 14, 3, "selu", True, 0.1, True),
+            (5, 3, 64, 24, 5, "relu", False, 0.2, True), (4, 2, 128, 48, 2, "tanh", True, 0.1, True),
+            (3, 3, 64, 64, 1, "linear", False, 0.0, False)):
+        f, b = random_bn_inputs(torch, gen, R, Bl, W, D, F, rate, res, dev)
+        k = dict(activation=act, alpha_drop=alpha, rate=rate)
+        check_bn_forward(torch, bn, f, dict(k, threshold=0.05), "ragged")
+        check_bn_backward(torch, bn, b, k, "ragged")
+    (b1, by1), (b2, by2) = bn_bounds(x1, x2)
+    out = {
+        "K1": dict(name="K1 bn_forward_step", route="cuda",
+                   source="gnn_tpu_torch/ops/csrc/bn_train.cu",
+                   replaces="gnn_tpu/ops/pallas_bn.py:97", max_abs_err=err1,
+                   ms=timed_ms(torch, lambda: bn.bn_forward_step(**x1, **kw)),
+                   plain_ms=timed_ms(torch, lambda: bn.bn_forward_step_ref(**x1, **kw)),
+                   bound_ms=b1, bound_by=by1, library_ms=None),
+        "K2": dict(name="K2 bn_backward_step", route="cuda",
+                   source="gnn_tpu_torch/ops/csrc/bn_train.cu",
+                   replaces="gnn_tpu/ops/pallas_bn.py:203", max_abs_err=err2,
+                   ms=timed_ms(torch, lambda: bn.bn_backward_step(**x2, **kwb)),
+                   plain_ms=timed_ms(torch, lambda: bn.bn_backward_step_ref(**x2, **kwb)),
+                   bound_ms=b2, bound_by=by2, library_ms=None),
+    }
+    shape = (x1["y1"].shape[0], x1["adj_loop"].shape[0])
+    for k, v in out.items():
+        say(f"{k} timing at {shape[0]} block rows ({shape[1]} loop): kernel {v['ms']:.4f} ms, "
+            f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})")
+    return out
+
+
+def close_rel(torch, got, want, rtol, floor, label):
+    err = (got - want).abs()
+    if not bool((err <= rtol * want.abs() + floor * want.abs().max()).all()):
+        fail(f"{label}: card and CPU differ by {float(err.max()):.3e}")
+    return float(err.max())
+
+
+def phase_training(torch, graphs, n_arcs, steps=5, cpu_budget_s=120.0):
+    """The training main path on the card, counted, then the same steps on
+    the CPU with the card's masks; step time and profile."""
+    from gnn_tpu_torch.models import core
+    from gnn_tpu_torch.ops import bn, fused
+    model = flagship(torch, "cuda")
+    cpu = flagship(torch, "cpu")
+    t0 = time.perf_counter()
+    gb = model.to_batch(graphs)
+    gb_cpu = cpu.to_batch(graphs)
+    K = model.spec.max_iteration
+    say(f"training batch: {gb.n_node_pad // gb.block_w} blocks, {gb.adj_loop.shape[0]} loop rows, "
+        f"{gb.adj_dep.shape[0]} dep ({time.perf_counter() - t0:.2f} s to pack and upload)")
+    kernels = phase_train_kernels(torch, model, gb)
+
+    # ---- main path: 5 training steps, counting kernel launches
+    masks, log, grads0 = [], [], None
+    times = []
+    bn.reset_launches()
+    fused.reset_launches()
+    for i in range(steps):
+        m = core.draw_masks(model.spec, gb, model.mask_gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = model.training_step(gb, masks=m)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        masks.append(m)
+        log.append((out["iters"], out["loss"], {k: v.clone() for k, v in model.bn["state"].items()}))
+        if i == 0:
+            grads0 = {f"{net}/{name}/{k}": p.grad.clone() for net in model.params
+                      for name, leaves in model.params[net].items() for k, p in leaves.items()}
+    launches = dict(bn.launches)
+    say(f"training path launches over {steps} steps: {launches}, serving kernels {dict(fused.launches)}")
+    for key in ("bn_forward_step", "bn_backward_step"):
+        if launches[key] != steps * K:
+            fail(f"{key} launched {launches[key]} times in {steps} steps, expected {steps * K}")
+    for p in core.param_leaves(model.params):
+        if not bool(torch.isfinite(p).all()):
+            fail("non-finite parameters after training")
+    med = sorted(times)[len(times) // 2]
+    iters = float(log[-1][0])
+    say(f"training step: {med * 1e3:.3f} ms median of {steps} (host clock, synchronized; "
+        f"each {[round(t * 1e3, 3) for t in times]} ms), iters {[float(r[0]) for r in log]}, "
+        f"losses {[round(float(r[1]), 4) for r in log]}, {n_arcs * iters / med:.4e} edges/s")
+
+    # ---- the same steps on the CPU with the card's masks
+    t0 = time.perf_counter()
+    done = 0
+    worst = {"loss": 0.0, "bn": 0.0, "grad": 0.0}
+    for i in range(steps):
+        if time.perf_counter() - t0 > cpu_budget_s:
+            break
+        m = {net: {p: v.cpu() for p, v in d.items()} for net, d in masks[i].items()}
+        out = cpu.training_step(gb_cpu, masks=m)
+        it, loss, stats = log[i]
+        if float(out["iters"]) != float(it):
+            fail(f"step {i}: iters {float(it)} on the card, {float(out['iters'])} on the CPU")
+        worst["loss"] = max(worst["loss"], close_rel(torch, loss.cpu(), out["loss"], 1e-5, 0.0,
+                                                     f"step {i} loss"))
+        for k in ("mean", "var"):
+            err = float((stats[k].cpu() - cpu.bn["state"][k]).abs().max())
+            worst["bn"] = max(worst["bn"], err)
+            if err > TOL:
+                fail(f"step {i}: moving {k} differs from the CPU by {err:.3e}")
+        if i == 0:
+            for net in cpu.params:
+                for name, leaves in cpu.params[net].items():
+                    for k, p in leaves.items():
+                        key = f"{net}/{name}/{k}"
+                        worst["grad"] = max(worst["grad"], close_rel(
+                            torch, grads0[key].cpu(), p.grad, 2e-4, 2e-5, f"grad {key}"))
+        done += 1
+    if done == 0:
+        fail("no CPU training step ran")
+    perr = 0.0
+    if done == steps:
+        for a, b in zip(core.param_leaves(model.params), core.param_leaves(cpu.params)):
+            perr = max(perr, float((a.detach().cpu() - b.detach()).abs().max()))
+        if perr > TOL:
+            fail(f"params after {done} steps differ from the CPU by {perr:.3e}")
+    say(f"training vs CPU over {done} steps ({time.perf_counter() - t0:.1f} s): iters equal, "
+        f"max loss diff {worst['loss']:.3e}, moving stats {worst['bn']:.3e}, first-step grads "
+        f"{worst['grad']:.3e}, params after the last step {perr:.3e}")
+
+    def step():
+        model.training_step(gb)
+        torch.cuda.synchronize()
+    phase_profile(torch, step, runs=3, what="training step")
+    for k in kernels:
+        kernels[k]["launches"] = launches["bn_forward_step" if k == "K1" else "bn_backward_step"]
+    return kernels
 
 
 def main():
@@ -288,9 +581,10 @@ def main():
         f"({time.perf_counter() - t0:.2f} s to pack and upload)")
     if gb.adj_dep is None:
         fail("the full set has no residual-coupled blocks: K4 would not run")
-    kernels = phase_kernels(torch, model, gb)
+    with torch.no_grad():   # the model's params are trainable leaves
+        kernels = phase_kernels(torch, model, gb)
 
-    # ---- main path: Predictor warmup + requests, counting kernel launches
+    # ---- serving path: Predictor warmup + requests, counting kernel launches
     fused.reset_launches()
     t0 = time.perf_counter()
     warmed = pred.warmup([r for _, r in requests])
@@ -307,7 +601,7 @@ def main():
         say(f"request {name!r}: {n} graphs, {ms:.3f} ms (predict), last_ms "
             f"{pred.stats['last_ms']}, iters {pred.stats['last_iters']}, launches {launched}")
     launches = dict(fused.launches)
-    say(f"main path launches: {launches}")
+    say(f"serving path launches: {launches}")
     for key in ("propagation_loop", "propagation_step"):
         if launches[key] == 0:
             fail(f"{key} never launched on the serving path")
@@ -347,6 +641,7 @@ def main():
 
     for k, v in kernels.items():
         v["launches"] = launches["propagation_loop" if k == "K3" else "propagation_step"]
+    kernels = {**phase_training(torch, graphs, n_arcs), **kernels}
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: v[k] for k in order} for v in kernels.values()]}))

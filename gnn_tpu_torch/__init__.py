@@ -1,9 +1,11 @@
-"""gnn_tpu_torch: the GNN of gnn_tpu in PyTorch, served on an NVIDIA H100.
+"""gnn_tpu_torch: the GNN of gnn_tpu in PyTorch, served and trained on an
+NVIDIA H100.
 
 The fixed-point propagation of a one-layer state net runs in hand-written
-CUDA kernels for Hopper (ops/csrc/fused_eval.cu, built with nvcc on first
-use); the rest is plain PyTorch. Entry points run on the card unless the
-caller passes device='cpu'. Module layout mirrors gnn_tpu's.
+CUDA kernels for Hopper, built with nvcc on first use: at inference
+ops/csrc/fused_eval.cu, in training with the trailing BatchNorm
+ops/csrc/bn_train.cu. The rest is plain PyTorch. Entry points run on the
+card unless the caller passes device='cpu'. Module layout mirrors gnn_tpu's.
 """
 
 from gnn_tpu_torch.graphs.graph import Graph

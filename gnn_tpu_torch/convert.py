@@ -6,6 +6,7 @@ BatchNorm statistics as {"state": {"mean", "var"}, "output": {...}}. Its save
 folder flattens them into .npz files keyed by tree paths such as
 "['state']['dense_0']['w']" (models/engine.py::tree_to_npz). The port keeps
 the same nesting with dense weights stored [out, in], PyTorch's convention.
+`params_to_jax` and `flatten` go the other way, for saves gnn_tpu can load.
 """
 
 from __future__ import annotations
@@ -67,3 +68,31 @@ def params_from_jax(params_np: dict, bn_np: dict, device="cpu"):
         params[net] = layers
     bn = {net: {k: t(v) for k, v in bn_np.get(net, {}).items()} for net in ("state", "output")}
     return params, bn
+
+
+def params_to_jax(params: dict, bn: dict):
+    """gnn_tpu's (params, bn) pytrees as nested dicts of numpy arrays from the
+    port's tensors: the inverse of params_from_jax (dense weights back to
+    [in, out])."""
+    def a(t):
+        return t.detach().cpu().numpy().astype(np.float32)
+
+    out = {}
+    for net, layers in params.items():
+        out[net] = {name: ({"w": a(leaves["w"]).T.copy(), "b": a(leaves["b"])}
+                           if name.startswith("dense_") else {k: a(v) for k, v in leaves.items()})
+                    for name, leaves in layers.items()}
+    return out, {net: {k: a(v) for k, v in stats.items()} for net, stats in bn.items()}
+
+
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """{tree path key: leaf} of nested dicts, keyed as gnn_tpu's tree_to_npz
+    keys them ("['state']['dense_0']['w']")."""
+    flat = {}
+    for k, v in tree.items():
+        key = f"{prefix}['{k}']"
+        if isinstance(v, dict):
+            flat.update(flatten(v, key))
+        else:
+            flat[key] = v
+    return flat

@@ -1,35 +1,47 @@
-"""Functional core of the GNN at inference: fixed-point propagation and the
-focus-specific readout (counterpart of gnn_tpu/models/core.py, eval only).
+"""Functional core of the GNN: fixed-point propagation, the focus-specific
+readout, the loss and the training step (counterpart of
+gnn_tpu/models/core.py).
 
 Propagation iterates state <- net_state([state, sum_nbr state, sum_nbr arc
 labels]) while any real node moved more than threshold * ||state_old|| and
 k < max_iteration (reference GNN.py:202-242). It runs a fixed K steps with an
 `active` flag, as tensor ops only, so the device never waits on the host.
 
-Dispatch follows gnn_tpu's `aggregation='auto'` at eval:
+Dispatch follows gnn_tpu's `aggregation='auto'`:
 
-* a batch with the loop/dep layout and a one-layer state net with a kernel
-  activation takes the hybrid path: K3 (`propagation_loop`) runs every
-  iteration of the residual-free blocks, K4 (`propagation_step`) one
+* at eval, a batch with the loop/dep layout and a one-layer state net with a
+  kernel activation takes the hybrid path: K3 (`propagation_loop`) runs
+  every iteration of the residual-free blocks, K4 (`propagation_step`) one
   iteration per step of the residual-coupled blocks, and the global early
   stop is rebuilt from K3's movement flags;
+* in training, such a spec with the trailing BatchNorm on and dropout only
+  at the input runs the BN training kernels K1/K2 (ops/bn.py);
 * what gnn_tpu sends to its XLA body (no loop layout, activations the
-  kernels do not take) runs the plain body here;
+  kernels do not take, dropout inside the net) runs the plain body here;
 * what gnn_tpu sends to a kernel not ported yet raises NotImplementedError.
+
+Dropout draws no random numbers here: training takes keep-masks, which
+`draw_masks` draws on the batch's device from a torch.Generator (tests pass
+masks drawn by gnn_tpu instead).
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from gnn_tpu_torch.graphs.batch import GraphBatch
 from gnn_tpu_torch.ops.aggregate import aggregate_to_nodes, pool_graphs
+from gnn_tpu_torch.ops.bn import bn_train_propagate, supports_fused_bn_train
 from gnn_tpu_torch.ops.fused import (FUSABLE_ACTIVATIONS, bn_inference_affine,
-                                     propagation_loop, propagation_step)
-from gnn_tpu_torch.ops.mlp import MLPSpec, mlp_apply, mlp_init
+                                     propagation_loop, propagation_step, supports_fused,
+                                     supports_fused_train)
+from gnn_tpu_torch.ops.mlp import (MLPSpec, dropout_widths, mlp_apply, mlp_init,
+                                   mlp_regularization)
+from gnn_tpu_torch.training.losses import get_loss
 
 AGGREGATIONS = ("auto", "segment", "onehot", "fused", "pallas")
 
@@ -92,33 +104,50 @@ def check_dims(spec: GNNSpec, nl: int, al: int, dt: int) -> None:
 
 
 def _moving_mask(state, state_old, thr: float):
-    """Convergence predicate ||state - old|| > thr * ||old|| per entity."""
+    """Convergence predicate ||state - old|| > thr * ||old|| per entity (a
+    boolean: no gradient flows through it)."""
+    state, state_old = state.detach(), state_old.detach()
     dist = torch.sqrt(torch.sum((state - state_old) ** 2, dim=-1))
     norm = torch.sqrt(torch.sum(state_old * state_old, dim=-1))
     return dist > thr * norm
 
 
-def _uses_kernels(spec: GNNSpec, gb: GraphBatch) -> bool:
-    """Static dispatch of gnn_tpu's propagate at eval (core.py:354-466)."""
+def _check_aggregation(spec: GNNSpec) -> bool:
+    """Whether the spec's aggregation dispatches to kernels ('auto', 'fused');
+    raises for the segment kernel and for specs 'fused' cannot take."""
     ss = spec.state_spec
     if spec.aggregation == "pallas":
         raise NotImplementedError(
             "aggregation='pallas' runs the segment kernel K18 "
             "(pallas_segment.py::_agg_kernel), which is not ported yet")
-    fusable = all(a in FUSABLE_ACTIVATIONS for a in ss.activations)
-    if spec.aggregation == "fused" and (ss.num_layers not in (1, 2) or not fusable):
+    if spec.aggregation == "fused" and (
+            ss.num_layers not in (1, 2)
+            or not all(a in FUSABLE_ACTIVATIONS for a in ss.activations)):
         raise ValueError("aggregation='fused' supports 1- or 2-dense-layer state "
                          f"nets with activations in {FUSABLE_ACTIVATIONS}")
-    if spec.aggregation not in ("auto", "fused"):
+    return spec.aggregation in ("auto", "fused")
+
+
+def _needs_loop_layout(spec: GNNSpec, gb: GraphBatch, kernels: str) -> bool:
+    """False when 'auto' keeps a batch without the loop/dep layout on the
+    plain body; raises when 'fused' asks the kernels for one."""
+    if gb.adj_loop is not None:
+        return True
+    if spec.aggregation == "fused":
+        raise NotImplementedError(
+            f"aggregation='fused' on a batch without the loop/dep layout runs {kernels} "
+            "over every block, which is not ported; build the batch with "
+            "fused_layout=True")
+    return False
+
+
+def _uses_kernels(spec: GNNSpec, gb: GraphBatch) -> bool:
+    """Static dispatch of gnn_tpu's propagate at eval (core.py:354-466)."""
+    ss = spec.state_spec
+    if not _check_aggregation(spec) or not _needs_loop_layout(spec, gb, "K4"):
         return False
-    if gb.adj_loop is None:
-        if spec.aggregation == "fused":
-            raise NotImplementedError(
-                "aggregation='fused' on a batch without the loop/dep layout runs "
-                "K4 over every block per step, which is not ported; build the "
-                "batch with fused_layout=True")
-        return False
-    if ss.units[-1] != gb.nodes.shape[1] or not fusable:
+    if ss.units[-1] != gb.nodes.shape[1] or not all(a in FUSABLE_ACTIVATIONS
+                                                     for a in ss.activations):
         return False
     if ss.num_layers == 2:
         raise NotImplementedError(
@@ -127,25 +156,80 @@ def _uses_kernels(spec: GNNSpec, gb: GraphBatch) -> bool:
     return ss.num_layers == 1
 
 
-def propagate(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
-              training: bool = False):
-    """Fixed-point propagation. Returns (iters, state): the realised
-    iteration count (float 0-d tensor) and the [Np, D] node states."""
-    if training:
+def _uses_bn_kernels(spec: GNNSpec, gb: GraphBatch) -> bool:
+    """Static dispatch of gnn_tpu's propagate in training (core.py:354-474):
+    True for the BN training kernels K1/K2, False for the plain body; raises
+    where gnn_tpu runs a training kernel not ported yet."""
+    ss = spec.state_spec
+    if not _check_aggregation(spec) or not _needs_loop_layout(spec, gb, "the kernels"):
+        return False
+    fusable = all(a in FUSABLE_ACTIVATIONS for a in ss.activations)
+    if ss.units[-1] != gb.nodes.shape[1] or not fusable:
+        return False
+    if ss.num_layers == 1:
+        if supports_fused(ss, training=True):
+            raise NotImplementedError(
+                "training a state net without dropout and BatchNorm runs the eval "
+                "kernels and their backward kernel K5 (pallas_fused.py::"
+                "_loop_bwd_kernel), not ported yet")
+        if not ss.batch_normalization and supports_fused_train(ss):
+            raise NotImplementedError(
+                "dropout training without BatchNorm runs the training kernels K6-K8 "
+                "(pallas_fused.py::_train_kernel_T/_loop_train_kernel_T/"
+                "_loop_train_bwd_kernel), not ported yet")
+        return supports_fused_bn_train(ss)
+    if ss.num_layers == 2 and all(p == 0 for p in ss.dropout_pos):
         raise NotImplementedError(
-            "training-mode propagation runs the BN training kernels K1/K2 "
-            "(pallas_bn.py) or the dropout kernels K6-K8, not ported yet")
+            "two-layer state nets train through the kernels K10-K15 "
+            "(pallas_fused.py::_loop2_*_kernel*, pallas_bn.py::_bn2_*_kernel), "
+            "not ported yet")
+    return False
+
+
+def draw_masks(spec: GNNSpec, gb: GraphBatch, gen: torch.Generator) -> dict:
+    """Keep-masks of one training forward, drawn on the batch's device from
+    `gen` (True = kept, with probability 1 - rate):
+    {"state": {position: bool [K, Np, width]}, "output": {position: bool
+    [rows, width]}}, rows being nodes, or arcs for focus 'a'."""
+    K, Np = spec.max_iteration, gb.n_node_pad
+    rows = gb.src.shape[0] if gb.focus == "a" else Np
+
+    def draw(shape, net, pos):
+        rate = dict(zip(net.dropout_pos, net.dropout_rate))[pos]
+        return torch.rand(shape, generator=gen, device=gb.device) < 1.0 - rate
+
+    ss, so = spec.state_spec, spec.output_spec
+    return {"state": {p: draw((K, Np, w), ss, p) for p, w in dropout_widths(ss).items()},
+            "output": {p: draw((rows, w), so, p) for p, w in dropout_widths(so).items()}}
+
+
+def propagate(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
+              training: bool = False, keep: Optional[dict] = None):
+    """Fixed-point propagation. Returns (iters, state, new_bn_state): the
+    realised iteration count (float 0-d tensor), the [Np, D] node states and
+    the state net's BatchNorm statistics (updated in training only).
+
+    :param keep: in training, the state net's keep-masks {position: bool
+        [K, Np, width]} (draw_masks(...)["state"]).
+    """
     if spec.state_dim > 0:
         raise NotImplementedError(
             "state_dim > 0 draws its initial state from the JAX PRNG and folds "
             "labels into the kernels; not ported yet")
+    keep = keep or {}
+    if training:
+        if _uses_bn_kernels(spec, gb):
+            return bn_train_propagate(spec, params_state, bn_state, gb, keep.get(0))
+        return _propagate_plain(spec, params_state, bn_state, gb, True, keep)
     if _uses_kernels(spec, gb):
-        return _propagate_hybrid(spec, params_state, bn_state, gb)
+        k, state = _propagate_hybrid(spec, params_state, bn_state, gb)
+        return k, state, bn_state
     return _propagate_plain(spec, params_state, bn_state, gb)
 
 
-def _propagate_plain(spec, params_state, bn_state, gb):
-    """Masked fixed-K loop (gnn_tpu core.py:932-951), eval mode."""
+def _propagate_plain(spec, params_state, bn_state, gb, training=False, keep=None):
+    """Masked fixed-K loop (gnn_tpu core.py:932-951); in training the
+    BatchNorm statistics follow the active steps only."""
     Np = gb.n_node_pad
     nm = gb.node_mask
     thr = float(spec.threshold)
@@ -153,16 +237,21 @@ def _propagate_plain(spec, params_state, bn_state, gb):
     state_old = torch.ones_like(state)
     active = torch.ones((), dtype=torch.bool, device=state.device)
     k = torch.zeros((), dtype=torch.float32, device=state.device)
-    for _ in range(spec.max_iteration):
+    bn = bn_state
+    for it in range(spec.max_iteration):
         # movement test before the update; padded nodes never block convergence
         active = active & (_moving_mask(state, state_old, thr) & nm).any()
         agg = aggregate_to_nodes(state[gb.src], gb.edge_w, gb.dst, Np)
-        new = mlp_apply(spec.state_spec, params_state, bn_state,
-                        torch.cat([state, agg, gb.agg_arcs_cache], dim=1))
+        new, new_bn = mlp_apply(spec.state_spec, params_state, bn,
+                                torch.cat([state, agg, gb.agg_arcs_cache], dim=1),
+                                training=training,
+                                keep={p: m[it] for p, m in (keep or {}).items()},
+                                stat_mask=nm)
         state, state_old = (torch.where(active, new, state),
                             torch.where(active, state, state_old))
+        bn = {key: torch.where(active, new_bn[key], bn[key]) for key in bn}
         k = k + active.float()
-    return k, state
+    return k, state, bn
 
 
 def hybrid_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
@@ -241,29 +330,103 @@ def _propagate_hybrid(spec, params_state, bn_state, gb):
     return k, full[gb.block_perm].reshape(Np, D)
 
 
-def gnn_forward(spec: GNNSpec, params, bn, gb: GraphBatch, training: bool = False):
-    """Full inference forward. Returns a dict with
+def _entity_mask(gb: GraphBatch) -> torch.Tensor:
+    """set_mask and output_mask at entity level (GNN.py:275), padding excluded."""
+    real = gb.edge_mask if gb.focus == "a" else gb.node_mask
+    return gb.set_mask & gb.output_mask & real
+
+
+def gnn_forward(spec: GNNSpec, params, bn, gb: GraphBatch, training: bool = False,
+                masks: Optional[dict] = None):
+    """Full forward. Returns a dict with
       iters:      realised propagation steps (0-d float tensor)
       state:      [Np, D] node states
       out_entity: per-entity outputs, [Np, DT] ('n'/'g') or [Ep, DT] ('a')
       out:        target-aligned rows [Tp, DT] (pooled per graph for 'g')
+      bn:         the BatchNorm statistics after the forward
+
+    :param training: dropout from `masks` (draw_masks; needed when a net has
+        dropout) and batch-statistic BatchNorm.
     """
     check_dims(spec, gb.nodes.shape[1], gb.arc_labels.shape[1], gb.targets.shape[1])
     if gb.device.type == "cuda":
         # the plain products (feature term, readout) in full fp32
         torch.backends.cuda.matmul.allow_tf32 = False
-    iters, state = propagate(spec, params["state"], bn["state"], gb, training)
+    masks = masks or {}
+    iters, state, bn_s = propagate(spec, params["state"], bn["state"], gb, training,
+                                   masks.get("state"))
+    out_kw = dict(training=training, keep=masks.get("output"), stat_mask=_entity_mask(gb))
     if gb.focus == "a":
         arc_inp = torch.cat([state[gb.src], state[gb.dst], gb.arc_labels], dim=1)
-        out_entity = mlp_apply(spec.output_spec, params["output"], bn["output"], arc_inp)
+        out_entity, bn_o = mlp_apply(spec.output_spec, params["output"], bn["output"], arc_inp,
+                                     **out_kw)
         out = out_entity[gb.out_index]
     else:
-        out_entity = mlp_apply(spec.output_spec, params["output"], bn["output"], state)
+        out_entity, bn_o = mlp_apply(spec.output_spec, params["output"], bn["output"], state,
+                                     **out_kw)
         if gb.focus == "g":
-            # average readout over each graph's real nodes
+            # average readout over each graph's real nodes; its gradient is the
+            # gather by graph id of gnn_tpu's _pool_csum
             out = pool_graphs(out_entity, gb.graph_ids,
                               gb.pool_w * gb.node_mask.to(out_entity.dtype),
                               gb.n_target_pad)
         else:
             out = out_entity[gb.out_index]
-    return {"iters": iters, "state": state, "out_entity": out_entity, "out": out}
+    return {"iters": iters, "state": state, "out_entity": out_entity, "out": out,
+            "bn": {"state": bn_s, "output": bn_o}}
+
+
+# ----------------------------------------------------------------------- loss
+def weighted_loss(loss_fn, loss_args: dict, gb: GraphBatch, out_rows: torch.Tensor):
+    """Sum over the selected rows of loss(target, out) * sample weight
+    (GNN.py:196-199)."""
+    per_row = loss_fn(gb.targets, out_rows, **loss_args)
+    return torch.sum(per_row * gb.sample_weights * gb.sel_mask.to(per_row.dtype))
+
+
+def regularization(spec: GNNSpec, params) -> torch.Tensor:
+    return (mlp_regularization(spec.state_spec, params["state"])
+            + mlp_regularization(spec.output_spec, params["output"]))
+
+
+def evaluate_single(spec: GNNSpec, params, bn, gb: GraphBatch, loss_name,
+                    loss_args: dict, training: bool = False, masks: Optional[dict] = None):
+    """(iters, loss, forward result) for one graph batch (reference
+    evaluate_single_graph, GNN.py:180-199)."""
+    res = gnn_forward(spec, params, bn, gb, training, masks)
+    return res["iters"], weighted_loss(get_loss(loss_name), loss_args, gb, res["out"]), res
+
+
+# ---------------------------------------------------------------- train step
+def param_leaves(tree):
+    """The tensors of a nested parameter dict, in key order."""
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from param_leaves(v)
+        else:
+            yield v
+
+
+def train_step(spec: GNNSpec, params, bn, optimizer: torch.optim.Optimizer, gb: GraphBatch,
+               masks: dict, *, loss_name, loss_args: Optional[dict] = None,
+               mean: bool = True) -> dict:
+    """One optimizer step on one batch (gnn_tpu's _train_step_body): the loss
+    plus the regularization terms is differentiated, the state net's grads
+    are divided by the realised iteration count when `mean`
+    (GNN_BaseClass.py:239-241), and `optimizer`, which holds the leaves of
+    `params`, updates them in place. Their .grad keep this step's grads.
+
+    Returns {"iters", "loss", "bn"}: device tensors, so nothing waits on
+    the device."""
+    optimizer.zero_grad(set_to_none=True)
+    iters, loss, res = evaluate_single(spec, params, bn, gb, loss_name, loss_args or {},
+                                       training=True, masks=masks)
+    (loss + regularization(spec, params)).backward()
+    if mean:
+        denom = torch.clamp_min(iters, 1.0)
+        for p in param_leaves(params["state"]):
+            if p.grad is not None:
+                p.grad.div_(denom)
+    optimizer.step()
+    new_bn = {net: {k: v.detach() for k, v in stats.items()} for net, stats in res["bn"].items()}
+    return {"iters": iters, "loss": loss.detach(), "bn": new_bn}

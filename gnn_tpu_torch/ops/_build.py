@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-`nvcc` compiles ops/csrc/*.cu for sm_90a into a shared library with a plain
-C interface, which `ctypes` loads; the build runs at the first CUDA use in a
-process, so nothing is built when the package is imported. The library goes
+`nvcc` compiles each ops/csrc/*.cu for sm_90a into an object file, all
+sources at once in parallel, and links them into one shared library with a
+plain C interface, which `ctypes` loads; the build runs at the first CUDA use
+in a process, so nothing is built when the package is imported. The library goes
 to build/gnn_tpu_torch/ of the source checkout the package runs from (listed
 in .gitignore), or, for an installed package, to gnn_tpu_torch/ in the
 user's cache directory. Its file name carries a hash of the nvcc flags, and
@@ -19,11 +20,12 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 def _build_dir() -> Path:
@@ -62,6 +64,11 @@ def _stale(sources) -> bool:
     return any(s.stat().st_mtime > built for s in sources)
 
 
+def _run(cmd):
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    return proc.returncode, proc.stdout + proc.stderr
+
+
 def build(force: bool = False) -> Path:
     """Compile the kernel library if it is missing (first build, or new nvcc
     flags) or older than a source."""
@@ -70,15 +77,23 @@ def build(force: bool = False) -> Path:
     if not (force or _stale(sources)):
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}")
-    os.replace(tmp, LIB_PATH)   # atomic: a concurrent loader never sees half a file
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, s.stem + ".o") for s in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)] for s, o in zip(sources, objs)]
+        with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
+            results = list(pool.map(_run, cmds))
+        build_log = "".join(log for _, log in results)
+        for cmd, (rc, log) in zip(cmds, results):
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
+        lib_tmp = os.path.join(tmpdir, LIB_PATH.name)
+        link = [nvcc, "-shared", "-o", lib_tmp, *objs]
+        rc, log = _run(link)
+        build_log += log
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}): {' '.join(link)}\n{log}")
+        os.replace(lib_tmp, LIB_PATH)   # atomic: a concurrent loader never sees half a file
     return LIB_PATH
 
 
@@ -93,6 +108,10 @@ def library() -> ctypes.CDLL:
             lib.gnn_propagation_loop.restype = i
             lib.gnn_propagation_step.argtypes = [p] * 7 + [i, i, i, i, i, p]
             lib.gnn_propagation_step.restype = i
+            lib.gnn_bn_forward.argtypes = [p] * 14 + [i, i, i, i, i, f, i, i, f, f, p]
+            lib.gnn_bn_forward.restype = i
+            lib.gnn_bn_backward.argtypes = [p] * 17 + [i, i, i, i, i, i, i, f, f, p]
+            lib.gnn_bn_backward.restype = i
             lib.gnn_cuda_error_string.argtypes = [i]
             lib.gnn_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

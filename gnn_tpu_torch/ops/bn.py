@@ -1,0 +1,496 @@
+"""BatchNorm-training propagation kernels K1/K2 (counterpart of
+gnn_tpu/ops/pallas_bn.py).
+
+A state net with a trailing BatchNorm couples every block each iteration
+through the batch moments, so training runs one kernel launch per iteration
+with [D]-sized glue between launches:
+
+    for k in 1..K:
+      y_k, agg_k, marg_k, msum_k = K1 (bn_forward_step)
+      mean/var -> affine_k                                  (glue, [2, D])
+
+K1 takes the previous two pre-BN activations and their affines, normalizes
+them at load, tests movement, aggregates over the block adjacency (plus the
+residual term), applies the input dropout to x3 = [s | agg | feats] and the
+bias-augmented dense w_aug = [Ws | Wa | Wf | b], and returns the pre-BN
+activation and per-block moment partials. K2 (bn_backward_step) runs one
+reverse iteration with the BatchNorm backward folded in from [9, D]
+coefficient rows, and returns per-block dw and reduction partials.
+`bn_train_loop` is the K-iteration loop as one torch.autograd.Function;
+`bn_train_propagate` drives it for models/core.py.
+
+Layout: node-major blocks [R, W, D] over the rows [loop blocks | dep blocks]
+of a fused-layout batch, the order hybrid_operands uses. The kernels read
+the two block adjacencies adjT[b, src, dst] where they lie (row r < Bl in
+adj_loop, the rest in adj_dep), so no copy of the adjacency is made. Padded
+loop rows carry node mask 0, so moments, flags and gradients ignore them.
+Keep-masks are uint8 [R, W, 2D+F] in x3 column order.
+
+Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
+launches the CUDA kernel (ops/csrc/bn_train.cu) for CUDA tensors; it never
+falls back from one to the other. `launches` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from gnn_tpu_torch.ops import _build
+from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, _act_grad, _check, _make_drop, _ptr,
+                                     _stream, supports_fused_train)
+from gnn_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM, drop_coeffs
+
+# kernel launches since the last reset, by wrapper
+launches = {"bn_forward_step": 0, "bn_backward_step": 0}
+
+# coefficient rows of bnv, the [9, D] input of K2
+BNV_ROWS = ("scale_prev", "shift_prev", "mean_k", "rstd_k", "gamma_rstd_k",
+            "b2", "c2", "mean_prev", "rstd_prev")
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def supports_fused_bn_train(state_spec) -> bool:
+    """K1/K2 take the spec: one dense layer, a kernel activation, dropout only
+    at the input, and the trailing BatchNorm on."""
+    return bool(state_spec.batch_normalization) and supports_fused_train(state_spec)
+
+
+def _affine(gamma, beta, mean, var):
+    """[2, D] (scale; shift) of the training BatchNorm for given batch moments:
+    y * scale + shift == (y - mean) * rsqrt(var + eps) * gamma + beta."""
+    scale = gamma * torch.rsqrt(var + BN_EPS)
+    return torch.stack([scale, beta - mean * scale])
+
+
+def _ident_aff(D, like):
+    return torch.stack([torch.ones(D, dtype=like.dtype, device=like.device),
+                        torch.zeros(D, dtype=like.dtype, device=like.device)])
+
+
+# ------------------------------------------------------------ plain versions
+def _agg_blocks(adj_loop, adj_dep, s):
+    """agg[b, dst] = sum_src adjT[b, src, dst] * s[b, src] over both block sets."""
+    Bl = adj_loop.shape[0]
+    parts = [torch.matmul(adj_loop.transpose(1, 2), s[:Bl])]
+    if adj_dep is not None:
+        parts.append(torch.matmul(adj_dep.transpose(1, 2), s[Bl:]))
+    return torch.cat(parts)
+
+
+def _contract_dst(adj_loop, adj_dep, g):
+    """out[b, src] = sum_dst adjT[b, src, dst] * g[b, dst] (reverse of _agg_blocks)."""
+    Bl = adj_loop.shape[0]
+    parts = [torch.matmul(adj_loop, g[:Bl])]
+    if adj_dep is not None:
+        parts.append(torch.matmul(adj_dep, g[Bl:]))
+    return torch.cat(parts)
+
+
+def _x3(s, agg, feats, keep, alpha_drop: bool, rate: float):
+    """The dense input [s | agg | feats] after the input dropout, [R, W, 2D+F]."""
+    drop, _ = _make_drop(alpha_drop, rate)
+    return drop(torch.cat([s, agg, feats], dim=-1), keep)
+
+
+def bn_forward_step_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, *,
+                        activation: str, alpha_drop: bool, rate: float, threshold: float):
+    """Plain PyTorch K1. Returns (y [R, W, D] pre-BN activation, agg [R, W, D]
+    (with the residual term, before the dropout), marg [R, W] movement flags
+    times nm, msum [R, D] per-block sums of y * nm)."""
+    s = y1 * aff[0, 0] + aff[0, 1]
+    s_old = y2 * aff[1, 0] + aff[1, 1]
+    dist = torch.sqrt(torch.sum((s - s_old) ** 2, dim=-1))
+    norm = torch.sqrt(torch.sum(s_old * s_old, dim=-1))
+    marg = torch.where(dist > threshold * norm, 1.0, 0.0) * nm
+    agg = _agg_blocks(adj_loop, adj_dep, s)
+    if rT is not None:
+        agg = agg + rT
+    x3 = _x3(s, agg, feats, keep, alpha_drop, rate)
+    y = _ACTS[activation](F.linear(x3, w_aug[:, :-1], w_aug[:, -1]))
+    return y, agg, marg, torch.sum(y * nm[..., None], dim=1)
+
+
+def bn_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds_in,
+                         gsel, bnv, flag, nm, *, activation: str, alpha_drop: bool,
+                         rate: float):
+    """Plain PyTorch K2: one reverse iteration with the BatchNorm backward
+    folded in. `bnv` [9, D] holds the rows named in BNV_ROWS; `flag` (0-d)
+    gates the state cotangent `gsel` in. Returns (ds [R, W, D], dw [R, D, C]
+    per-block partials of the w_aug cotangent, dagg [R, W, D], red [R, 2, D]
+    per-block (sum ds, sum ds * x_hat_prev))."""
+    D = y_prev.shape[-1]
+    s_prev = y_prev * bnv[0] + bnv[1]
+    gS = ds_in + flag * gsel
+    xk = (y_k - bnv[2]) * bnv[3]
+    gy = bnv[4] * gS - nm[..., None] * (bnv[5] + xk * bnv[6])
+    x3 = _x3(s_prev, agg, feats, keep, alpha_drop, rate)
+    h = F.linear(x3, w_aug[:, :-1], w_aug[:, -1])
+    dh = gy * _act_grad(activation, h)
+    dw = torch.matmul(dh.transpose(1, 2), torch.cat([x3, torch.ones_like(x3[..., :1])], -1))
+    dx2 = torch.matmul(dh, w_aug[:, :2 * D])
+    _, dmask = _make_drop(alpha_drop, rate)
+    dm = dmask(keep)
+    if rate > 0.0:
+        dxs, dagg = dx2[..., :D] * dm[..., :D], dx2[..., D:] * dm[..., D:2 * D]
+    else:
+        dxs, dagg = dx2[..., :D], dx2[..., D:]
+    ds = dxs + _contract_dst(adj_loop, adj_dep, dagg)
+    xp_hat = (y_prev - bnv[7]) * bnv[8]
+    red = torch.stack([torch.sum(ds, dim=1), torch.sum(ds * xp_hat, dim=1)], dim=1)
+    return ds, dw, dagg, red
+
+
+# ------------------------------------------------------------------ wrappers
+def _drop_args(alpha_drop: bool, rate: float):
+    """(mode, a, b) of the kernels' input dropout: 0 none, 1 alpha, 2 standard."""
+    if rate <= 0.0:
+        return 0, 1.0, 0.0
+    a, b = drop_coeffs(alpha_drop, rate)
+    return (1 if alpha_drop else 2), a, b
+
+
+def _check_blocks(adj_loop, adj_dep, R, D):
+    """(Bl, W) after checking the two adjacencies against R block rows."""
+    Bl, W, W2 = adj_loop.shape
+    if W != W2 or W % 32 or not 32 <= W <= 128:
+        raise ValueError(f"block width must be 32, 64, 96 or 128, got adjT {tuple(adj_loop.shape)}")
+    if D > 64:
+        raise ValueError(f"state widths above 64 are not supported (D={D})")
+    dev = adj_loop.device
+    _check("adj_loop", adj_loop, (Bl, W, W), dev)
+    Bd = 0
+    if adj_dep is not None:
+        Bd = adj_dep.shape[0]
+        _check("adj_dep", adj_dep, (Bd, W, W), dev)
+    if R != Bl + Bd:
+        raise ValueError(f"{R} block rows, but the adjacencies hold {Bl} + {Bd}")
+    return Bl, W
+
+
+def _check_keep(keep, shape, dev, rate):
+    if rate <= 0.0:
+        return None
+    if keep is None:
+        raise ValueError("a keep-mask is required when the dropout rate is positive")
+    if keep.device != dev or keep.dtype != torch.uint8 or tuple(keep.shape) != tuple(shape) \
+            or not keep.is_contiguous():
+        raise ValueError(f"keep must be a contiguous uint8 tensor of shape {tuple(shape)} "
+                         f"on {dev}, got {keep.dtype} {tuple(keep.shape)} on {keep.device}")
+    return keep
+
+
+def _require_cuda(t):
+    if t.device.type != "cuda":
+        raise ValueError(f"BN training kernels need CPU or CUDA tensors, got {t.device}")
+
+
+def bn_forward_step(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, *,
+                    activation: str, alpha_drop: bool, rate: float, threshold: float):
+    """K1: one BN-training iteration over every block row.
+
+    :param adj_loop / adj_dep: [Bl, W, W] / [Bd, W, W] (or None) transposed
+        block adjacencies of rows [0, Bl) and [Bl, Bl + Bd).
+    :param y1 / y2: [R, W, D] the two previous pre-BN activations.
+    :param aff: [2, 2, D] their (scale; shift) affines.
+    :param keep: uint8 [R, W, 2D+F] input keep-mask (None when rate == 0).
+    :param rT: [R, W, D] residual term (normalized, weighted, summed), or None.
+    :param feats: [R, W, F] loop-invariant feature rows; w_aug: [D, 2D+F+1].
+    :param nm: [R, W] float node mask.
+    Returns (y [R, W, D], agg [R, W, D], marg [R, W], msum [R, D]).
+    """
+    kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate, threshold=threshold)
+    if adj_loop.device.type == "cpu":
+        return bn_forward_step_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm,
+                                   **kw)
+    _require_cuda(adj_loop)
+    return _launch_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, **kw)
+
+
+def _launch_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, *,
+                    activation, alpha_drop, rate, threshold):
+    R, _, D = y1.shape
+    Fd = feats.shape[-1]
+    Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
+    dev = adj_loop.device
+    for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
+        if t is not None:
+            _check(name, t, (R, W, D), dev)
+    _check("aff", aff, (2, 2, D), dev)
+    _check("feats", feats, (R, W, Fd), dev)
+    _check("w_aug", w_aug, (D, 2 * D + Fd + 1), dev)
+    _check("nm", nm, (R, W), dev)
+    keep = _check_keep(keep, (R, W, 2 * D + Fd), dev, rate)
+    y = torch.empty((R, W, D), dtype=torch.float32, device=dev)
+    agg = torch.empty_like(y)
+    marg = torch.empty((R, W), dtype=torch.float32, device=dev)
+    msum = torch.empty((R, D), dtype=torch.float32, device=dev)
+    mode, a, b = _drop_args(alpha_drop, rate)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gnn_bn_forward(
+            _ptr(adj_loop), _ptr(adj_dep), _ptr(y1), _ptr(y2), _ptr(aff), _ptr(keep), _ptr(rT),
+            _ptr(feats), _ptr(w_aug), _ptr(nm), _ptr(y), _ptr(agg), _ptr(marg), _ptr(msum),
+            R, Bl, W, D, Fd, float(threshold), _ACT_CODE[activation], mode, a, b, _stream(dev))
+    _build.check(err, "bn_forward_step (K1)")
+    launches["bn_forward_step"] += 1
+    return y, agg, marg, msum
+
+
+def bn_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds_in, gsel,
+                     bnv, flag, nm, *, activation: str, alpha_drop: bool, rate: float):
+    """K2: one reverse BN-training iteration over every block row.
+
+    :param y_prev / y_k / agg: [R, W, D] the forward's pre-BN activations of
+        iterations k-1 and k and the aggregation of k.
+    :param ds_in: [R, W, D] the state cotangent from iteration k+1.
+    :param gsel: [R, W, D] the returned state's cotangent, added when `flag`
+        (a 0-d float tensor on the device) is 1.
+    :param bnv: [9, D] BatchNorm coefficients (BNV_ROWS).
+    Other arguments as bn_forward_step. Returns (ds [R, W, D], dw [R, D, C],
+    dagg [R, W, D], red [R, 2, D]), dw and red per block row.
+    """
+    kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate)
+    if adj_loop.device.type == "cpu":
+        return bn_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug,
+                                    ds_in, gsel, bnv, flag, nm, **kw)
+    _require_cuda(adj_loop)
+    return _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds_in,
+                            gsel, bnv, flag, nm, **kw)
+
+
+def _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds_in, gsel,
+                     bnv, flag, nm, *, activation, alpha_drop, rate):
+    R, _, D = y_prev.shape
+    Fd = feats.shape[-1]
+    C = 2 * D + Fd + 1
+    Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
+    dev = adj_loop.device
+    for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
+                    ("gsel", gsel)):
+        _check(name, t, (R, W, D), dev)
+    _check("feats", feats, (R, W, Fd), dev)
+    _check("w_aug", w_aug, (D, C), dev)
+    _check("bnv", bnv, (len(BNV_ROWS), D), dev)
+    _check("flag", flag, (), dev)
+    _check("nm", nm, (R, W), dev)
+    keep = _check_keep(keep, (R, W, C - 1), dev, rate)
+    ds = torch.empty((R, W, D), dtype=torch.float32, device=dev)
+    dagg = torch.empty_like(ds)
+    dw = torch.empty((R, D, C), dtype=torch.float32, device=dev)
+    red = torch.empty((R, 2, D), dtype=torch.float32, device=dev)
+    mode, a, b = _drop_args(alpha_drop, rate)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gnn_bn_backward(
+            _ptr(adj_loop), _ptr(adj_dep), _ptr(y_prev), _ptr(y_k), _ptr(agg), _ptr(keep),
+            _ptr(feats), _ptr(w_aug), _ptr(ds_in), _ptr(gsel), _ptr(bnv), _ptr(flag), _ptr(nm),
+            _ptr(ds), _ptr(dw), _ptr(dagg), _ptr(red), R, Bl, W, D, Fd,
+            _ACT_CODE[activation], mode, a, b, _stream(dev))
+    _build.check(err, "bn_backward_step (K2)")
+    launches["bn_backward_step"] += 1
+    return ds, dw, dagg, red
+
+
+# ------------------------------------------------------------- the K-loop
+@dataclasses.dataclass
+class BNLoopOperands:
+    """The constant operands of bn_train_loop (no gradient flows to them).
+
+    :param keep: uint8 [K, R, W, 2D+F] keep-masks, or None when rate == 0.
+    :param res: (src, dst, w) residual arcs in flat block-row node ids, or None.
+    """
+    adj_loop: torch.Tensor
+    adj_dep: Optional[torch.Tensor]
+    keep: Optional[torch.Tensor]
+    feats: torch.Tensor
+    nm: torch.Tensor
+    res: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+    K: int
+    threshold: float
+    activation: str
+    alpha_drop: bool
+    rate: float
+
+    def step_kw(self):
+        return dict(activation=self.activation, alpha_drop=self.alpha_drop, rate=self.rate)
+
+    def keep_k(self, k):
+        return None if self.keep is None else self.keep[k]
+
+
+def _res_term(y, aff, res):
+    """Residual term [R, W, D]: the sources' normalized states, weighted,
+    summed into their destinations (_res_gather + _res_scatter)."""
+    src, dst, w = res
+    R, W, D = y.shape
+    vals = (y.reshape(-1, D)[src] * aff[0] + aff[1]) * w[:, None]
+    return y.new_zeros((R * W, D)).index_add_(0, dst, vals).reshape(R, W, D)
+
+
+class _BNTrainLoop(torch.autograd.Function):
+    """K launches of K1 forward and K launches of K2 backward, with the
+    reference's global early stop and snapshot selection as tensor ops (no
+    host synchronisation): _bn_loop_fwd / _bn_loop_bwd."""
+
+    @staticmethod
+    def forward(ctx, s0, w_aug, gamma, beta, op: BNLoopOperands):
+        D = s0.shape[-1]
+        nm3 = op.nm[..., None]
+        cnt = torch.clamp_min(torch.sum(op.nm), 1.0)
+        ident = _ident_aff(D, s0)
+        y1, y2, a1, a2 = s0, torch.ones_like(s0), ident, ident
+        ys, aggs, moms, affs, margs = [], [], [], [], []
+        for k in range(op.K):
+            rT = None if op.res is None else _res_term(y1, a1, op.res)
+            y, agg, marg, msum = bn_forward_step(
+                op.adj_loop, op.adj_dep, y1, y2, torch.stack([a1, a2]), op.keep_k(k), rT,
+                op.feats, w_aug, op.nm, threshold=op.threshold, **op.step_kw())
+            mean = torch.sum(msum, dim=0) / cnt
+            var = torch.sum(torch.square(y - mean) * nm3, dim=(0, 1)) / cnt
+            y2, a2 = y1, a1
+            y1, a1 = y, _affine(gamma, beta, mean, var)
+            ys.append(y)
+            aggs.append(agg)
+            moms.append(torch.stack([mean, var]))
+            affs.append(a1)
+            margs.append(marg)
+        loop_any = (torch.stack(margs) > 0.5).flatten(1).any(dim=1)           # [K]
+        iters = torch.sum(torch.cumprod(loop_any.float(), dim=0))
+        idx = torch.clamp_min(iters.long() - 1, 0).reshape(1)
+        moms_t = torch.stack(moms)
+        y_sel = torch.stack(ys).index_select(0, idx)[0]
+        mom_sel = moms_t.index_select(0, idx)[0]
+        # centered normalize of the returned snapshot (mlp.py::_batchnorm)
+        state3 = (y_sel - mom_sel[0]) * torch.rsqrt(mom_sel[1] + BN_EPS) * gamma + beta
+        state3 = torch.where(iters >= 1.0, state3, s0)
+        ctx.op = op
+        ctx.saved = (s0, w_aug, gamma, iters, idx, ys, aggs, moms, affs, cnt)
+        ctx.mark_non_differentiable(iters, moms_t)
+        return iters, state3, moms_t
+
+    @staticmethod
+    def backward(ctx, _g_iters, g_state, _g_moms):
+        op = ctx.op
+        s0, w_aug, gamma, iters, idx, ys, aggs, moms, affs, cnt = ctx.saved
+        R, W, D = s0.shape
+        g_state = torch.zeros_like(s0) if g_state is None else g_state.contiguous()
+        active = iters >= 1.0
+        ident = _ident_aff(D, s0)
+        zero, one = ident[1], ident[0]
+        # the snapshot's cotangent enters at iteration idx: its reduction terms
+        Sg = torch.sum(g_state, dim=(0, 1))
+        rks = [torch.rsqrt(m[1] + BN_EPS) for m in moms]
+        Sgx = [torch.sum(g_state * ((ys[j] - moms[j][0]) * rks[j]), dim=(0, 1))
+               for j in range(op.K)]
+        ds = torch.zeros_like(s0)
+        red = torch.zeros((2, D), dtype=s0.dtype, device=s0.device)
+        dw = torch.zeros_like(w_aug)
+        dgamma, dbeta = torch.zeros_like(zero), torch.zeros_like(zero)
+        for k in reversed(range(op.K)):
+            flag = ((idx[0] == k) & active).float()
+            s1 = red[0] + flag * Sg
+            s2 = red[1] + flag * Sgx[k]
+            dbeta = dbeta + s1
+            dgamma = dgamma + s2
+            a = gamma * rks[k]
+            aff_p = ident if k == 0 else affs[k - 1]
+            mean_p = zero if k == 0 else moms[k - 1][0]
+            r_p = one if k == 0 else rks[k - 1]
+            bnv = torch.stack([aff_p[0], aff_p[1], moms[k][0], rks[k], a, a * s1 / cnt,
+                               a * s2 / cnt, mean_p, r_p])
+            y_prev = s0 if k == 0 else ys[k - 1]
+            ds_new, dw_k, dagg, red_part = bn_backward_step(
+                op.adj_loop, op.adj_dep, y_prev, ys[k], aggs[k], op.keep_k(k), op.feats, w_aug,
+                ds, g_state, bnv, flag, op.nm, **op.step_kw())
+            red = torch.sum(red_part, dim=0)
+            dw = dw + torch.sum(dw_k, dim=0)
+            if op.res is not None:
+                # ds[src] += w * dagg[dst]; for k > 0 the next reverse step's
+                # reduction partials take these rows too
+                src, dst, rw = op.res
+                vals = dagg.reshape(-1, D)[dst] * rw[:, None]
+                ds_new = ds_new.reshape(-1, D).index_add_(0, src, vals).reshape(R, W, D)
+                if k > 0:
+                    xp_src = (ys[k - 1].reshape(-1, D)[src] - mean_p) * r_p
+                    red = red + torch.stack([torch.sum(vals, dim=0),
+                                             torch.sum(vals * xp_src, dim=0)])
+            ds = ds_new
+        # iters == 0: the forward returned s0 itself
+        ds = ds + torch.where(active, 0.0, g_state)
+        return ds, dw, dgamma, dbeta, None
+
+
+def bn_train_loop(s0, w_aug, gamma, beta, op: BNLoopOperands):
+    """The K-iteration BN training loop (fused_bn_train_loop). Returns (iters,
+    state3 [R, W, D] the snapshot at the realised count, moms [K, 2, D] the
+    batch moments of every iteration). Gradients flow to s0, w_aug, gamma and
+    beta through K launches of K2; iters and moms carry none."""
+    return _BNTrainLoop.apply(s0, w_aug, gamma, beta, op)
+
+
+def bn_loop_operands(spec, params_state, gb, keep_state: Optional[torch.Tensor]):
+    """(s0 [R, W, D], w_aug [D, 2D+F+1], BNLoopOperands) of a fused-layout
+    batch: w_aug = [Ws | Wa | Wf | b], the keep-masks in x3 column order
+    and the block rows [loop blocks | dep blocks] with their node mask and
+    residual arcs.
+
+    :param keep_state: bool [K, Np, in_dim] input keep-masks in global node
+        order (None without input dropout)."""
+    W = gb.block_w
+    Np = gb.n_node_pad
+    B = Np // W
+    K = spec.max_iteration
+    dep = gb.adj_dep is not None
+    rows = torch.cat([gb.loop_ids, gb.dep_ids]) if dep else gb.loop_ids
+
+    def blocks(x):
+        return x.reshape(B, W, -1).index_select(0, rows)
+
+    nm = gb.loop_nm
+    if dep:
+        nm = torch.cat([nm, gb.node_mask.reshape(B, W).index_select(0, gb.dep_ids).to(nm.dtype)])
+    ss = spec.state_spec
+    rate = float(dict(zip(ss.dropout_pos, ss.dropout_rate)).get(0, 0.0))
+    keep = None
+    if rate > 0.0:
+        if keep_state is None:
+            raise ValueError("a keep-mask for dropout position 0 is required in training")
+        # [state | agg | arcs] is already x3's column order (state_dim == 0)
+        keep = keep_state.reshape(K, B, W, -1).index_select(1, rows).to(torch.uint8)
+    res = None
+    if dep:
+        off = gb.adj_loop.shape[0] * W
+        res = (gb.res_src_loc + off, gb.res_dst_loc + off, gb.res_w)
+    op = BNLoopOperands(adj_loop=gb.adj_loop, adj_dep=gb.adj_dep, keep=keep,
+                        feats=blocks(gb.agg_arcs_cache), nm=nm, res=res, K=K,
+                        threshold=float(spec.threshold), activation=ss.activations[0],
+                        alpha_drop=bool(ss.alphadropout), rate=rate)
+    dense = params_state["dense_0"]
+    return blocks(gb.nodes), torch.cat([dense["w"], dense["b"][:, None]], dim=1), op
+
+
+def bn_train_propagate(spec, params_state, bn_state, gb, keep_state: Optional[torch.Tensor]):
+    """BN training propagation of models/core.py::propagate on a fused-layout
+    batch (bn_loop_operands): runs bn_train_loop, applies the active-gated
+    moving-statistics update and returns the state in global node order.
+    Returns (iters, state [Np, D], new_bn_state)."""
+    s0, w_aug, op = bn_loop_operands(spec, params_state, gb, keep_state)
+    iters, state3, moms = bn_train_loop(s0, w_aug, params_state["bn"]["gamma"],
+                                        params_state["bn"]["beta"], op)
+    # moving statistics: updated only by the iterations that ran
+    mean_mv, var_mv = bn_state["mean"], bn_state["var"]
+    for j in range(op.K):
+        on = iters > j
+        mean_mv = torch.where(on, mean_mv * BN_MOMENTUM + moms[j, 0] * (1.0 - BN_MOMENTUM),
+                              mean_mv)
+        var_mv = torch.where(on, var_mv * BN_MOMENTUM + moms[j, 1] * (1.0 - BN_MOMENTUM), var_mv)
+    state = state3.index_select(0, gb.block_perm).reshape(gb.nodes.shape)
+    return iters, state, {"mean": mean_mv, "var": var_mv}

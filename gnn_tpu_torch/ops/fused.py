@@ -32,9 +32,7 @@ from typing import Optional
 import torch
 
 from gnn_tpu_torch.ops import _build
-
-_SELU_SCALE = 1.0507009873554805
-_SELU_ALPHA = 1.6732632423543772
+from gnn_tpu_torch.ops.mlp import ALPHA_P, SELU_ALPHA, SELU_SCALE, drop_coeffs
 
 # Activations the kernels evaluate in-kernel; selu is exp(min(x, 0)) - 1 like
 # the Pallas kernels (which lack expm1), within ~1e-7 of torch.selu.
@@ -42,11 +40,65 @@ _ACTS = {
     "linear": lambda x: x,
     "tanh": torch.tanh,
     "relu": lambda x: torch.clamp_min(x, 0.0),
-    "selu": lambda x: _SELU_SCALE * torch.where(
-        x > 0, x, _SELU_ALPHA * (torch.exp(torch.clamp_max(x, 0.0)) - 1.0)),
+    "selu": lambda x: SELU_SCALE * torch.where(
+        x > 0, x, SELU_ALPHA * (torch.exp(torch.clamp_max(x, 0.0)) - 1.0)),
 }
 FUSABLE_ACTIVATIONS = tuple(_ACTS)
 _ACT_CODE = {"linear": 0, "tanh": 1, "relu": 2, "selu": 3}
+
+
+def _act_grad(activation: str, h):
+    """d act / d h of the kernel activations, at the pre-activation h."""
+    if activation == "linear":
+        return torch.ones_like(h)
+    if activation == "tanh":
+        t = torch.tanh(h)
+        return 1.0 - t * t
+    if activation == "relu":
+        return (h > 0).to(h.dtype)
+    if activation == "selu":
+        return torch.where(h > 0, SELU_SCALE,
+                           SELU_SCALE * SELU_ALPHA * torch.exp(torch.clamp_max(h, 0.0)))
+    raise ValueError(activation)
+
+
+def _make_drop(alpha: bool, rate: float):
+    """(drop, dmask) of the training kernels' input dropout from a keep-mask
+    (bool or uint8): drop(x, keep) is ops/mlp.py's dropout written as
+    a * where(keep, x, ALPHA_P) + b or where(keep, a * x, 0), dmask(keep) its
+    derivative a * keep; both are the identity when rate <= 0."""
+    if rate <= 0.0:
+        return (lambda x, keep: x), (lambda keep: 1.0)
+    a, b = drop_coeffs(alpha, rate)
+    if alpha:
+        def drop(x, keep):
+            return a * torch.where(keep.bool(), x, ALPHA_P) + b
+    else:
+        def drop(x, keep):
+            return torch.where(keep.bool(), a * x, 0.0)
+
+    def dmask(keep):
+        return a * keep.to(torch.float32)
+
+    return drop, dmask
+
+
+def supports_fused(state_spec, training: bool) -> bool:
+    """The eval kernels K3/K4 take the spec: one dense layer, a kernel
+    activation, and in training no dropout and no BatchNorm."""
+    if state_spec.num_layers != 1 or state_spec.activations[0] not in FUSABLE_ACTIVATIONS:
+        return False
+    return not (training and (state_spec.dropout_rate or state_spec.batch_normalization))
+
+
+def supports_fused_train(state_spec) -> bool:
+    """The training kernels take the spec: one dense layer, a kernel
+    activation, dropout only at the input (position 0). BatchNorm is allowed
+    (the BN kernels K1/K2; the dropout kernels K6-K8 run it outside)."""
+    return (state_spec.num_layers == 1
+            and state_spec.activations[0] in FUSABLE_ACTIVATIONS
+            and all(p == 0 for p in state_spec.dropout_pos))
+
 
 # kernel launches since the last reset, by wrapper
 launches = {"propagation_loop": 0, "propagation_step": 0}

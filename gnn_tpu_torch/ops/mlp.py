@@ -1,4 +1,4 @@
-"""MLP description, initialisation and eval-mode apply (counterpart of
+"""MLP description, initialisation, apply and regularization (counterpart of
 gnn_tpu/ops/mlp.py).
 
 `MLPSpec` is the same static architecture record as gnn_tpu's (dense stack,
@@ -6,9 +6,10 @@ activations, initializers, dropout positions, trailing BatchNorm), so saved
 configs load unchanged. Parameters are plain dicts of tensors; a dense
 weight is stored as [out, in] and applied with `F.linear`.
 
-Only inference is ported here: dropout is inactive and BatchNorm uses its
-running statistics (eps 1e-3). Training-mode dropout and batch-statistic
-BatchNorm come with the training slice.
+At inference dropout is inactive and BatchNorm uses its running statistics
+(eps 1e-3). In training, dropout applies keep-masks the caller draws (torch
+cannot reproduce gnn_tpu's PRNG, so tests hand both packages the same
+masks) and BatchNorm uses masked batch moments with momentum 0.99.
 """
 
 from __future__ import annotations
@@ -49,6 +50,11 @@ _INITIALIZERS = tuple(_VARIANCE_SCALING) + ("zeros", "ones", "random_normal",
                                             "random_uniform")
 
 BN_EPS = 1e-3
+BN_MOMENTUM = 0.99
+# SELU alpha-dropout constants (Klambauer et al.; Keras AlphaDropout)
+SELU_ALPHA = 1.6732632423543772
+SELU_SCALE = 1.0507009873554805
+ALPHA_P = -SELU_ALPHA * SELU_SCALE   # the value dropped units saturate to
 
 
 def _as_tuple(x, n):
@@ -162,18 +168,106 @@ def mlp_init(spec: MLPSpec, gen: torch.Generator, device="cpu"):
     return params, bn_state
 
 
-def mlp_apply(spec: MLPSpec, params, bn_state, x: torch.Tensor) -> torch.Tensor:
-    """Inference-mode MLP: dense, activation per layer, then the trailing
-    BatchNorm with running statistics."""
+def dropout_widths(spec: MLPSpec):
+    """{position: width} of the spec's active dropout layers: dropout at
+    position i < num_layers acts on the input of dense i, at num_layers on
+    the output."""
+    ins = (spec.input_dim,) + spec.units
+    return {p: ins[p] for p, r in zip(spec.dropout_pos, spec.dropout_rate) if r > 0.0}
+
+
+def drop_coeffs(alpha: bool, rate: float):
+    """(a, b) with dropout(x, keep) = a * where(keep, x, ALPHA_P) + b (alpha
+    mode) or where(keep, a * x, 0) (standard mode, b = 0)."""
+    if alpha:
+        a = ((1.0 - rate) * (1.0 + rate * ALPHA_P ** 2)) ** -0.5
+        return a, -a * ALPHA_P * rate
+    return 1.0 / (1.0 - rate), 0.0
+
+
+def _dropout(x, rate: float, keep, alpha: bool):
+    """gnn_tpu's _dropout applied with a given boolean keep-mask."""
+    if not alpha:
+        return torch.where(keep, x / (1.0 - rate), 0.0)
+    a, b = drop_coeffs(alpha, rate)
+    return a * torch.where(keep, x, ALPHA_P) + b
+
+
+def _batchnorm(params, bn_state, x, training: bool, stat_mask=None):
+    """Trailing BatchNorm: training uses the two-pass moments over the rows of
+    `stat_mask` (all rows when None) and returns the momentum-updated moving
+    statistics; eval uses the moving statistics. Returns (y, new_state)."""
+    gamma, beta = params["gamma"], params["beta"]
+    if training:
+        if stat_mask is None:
+            n = float(x.shape[0])
+            mean = torch.sum(x, dim=0) / n
+            var = torch.sum(torch.square(x - mean), dim=0) / n
+        else:
+            w = stat_mask.to(x.dtype)[:, None]
+            cnt = torch.clamp_min(torch.sum(w), 1.0)
+            mean = torch.sum(x * w, dim=0) / cnt
+            var = torch.sum(torch.square(x - mean) * w, dim=0) / cnt
+        # moving statistics carry no gradient (gnn_tpu returns them as aux)
+        mean_d, var_d = mean.detach(), var.detach()
+        new_state = {"mean": bn_state["mean"] * BN_MOMENTUM + mean_d * (1.0 - BN_MOMENTUM),
+                     "var": bn_state["var"] * BN_MOMENTUM + var_d * (1.0 - BN_MOMENTUM)}
+    else:
+        mean, var = bn_state["mean"], bn_state["var"]
+        new_state = bn_state
+    return (x - mean) * torch.rsqrt(var + BN_EPS) * gamma + beta, new_state
+
+
+def mlp_apply(spec: MLPSpec, params, bn_state, x: torch.Tensor, *, training: bool = False,
+              keep: Optional[dict] = None, stat_mask=None):
+    """Apply the MLP: dense and activation per layer, dropout where the spec
+    puts it (training only) and the trailing BatchNorm. Returns
+    (y, new_bn_state).
+
+    :param training: dropout on and batch-statistic BatchNorm.
+    :param keep: {dropout position: bool keep-mask of that layer's input
+        shape}, required for each active dropout layer in training.
+    :param stat_mask: optional bool [rows], the rows in the BN moments.
+    """
+    drop = dict(zip(spec.dropout_pos, spec.dropout_rate))
+
+    def maybe_drop(h, i):
+        if training and drop.get(i, 0.0) > 0.0:
+            if keep is None or i not in keep:
+                raise ValueError(f"a keep-mask for dropout position {i} is required in training")
+            h = _dropout(h, drop[i], keep[i], spec.alphadropout)
+        return h
+
     h = x
     for i in range(spec.num_layers):
+        h = maybe_drop(h, i)
         p = params[f"dense_{i}"]
         h = _ACTIVATIONS[spec.activations[i]](F.linear(h, p["w"], p["b"]))
+    h = maybe_drop(h, spec.num_layers)
     if spec.batch_normalization:
-        bn = params["bn"]
-        h = ((h - bn_state["mean"]) * torch.rsqrt(bn_state["var"] + BN_EPS)
-             * bn["gamma"] + bn["beta"])
-    return h
+        h, bn_state = _batchnorm(params["bn"], bn_state, h, training, stat_mask)
+    return h, bn_state
+
+
+def _reg(kind, value):
+    if kind is None:
+        return 0.0
+    name, coeff = kind if isinstance(kind, (tuple, list)) else (kind, 0.01)  # Keras default
+    if name == "l2":
+        return coeff * torch.sum(torch.square(value))
+    if name == "l1":
+        return coeff * torch.sum(torch.abs(value))
+    raise ValueError(f"unknown regularizer {name!r}")
+
+
+def mlp_regularization(spec: MLPSpec, params) -> torch.Tensor:
+    """Sum of the kernel/bias regularizer terms over the dense layers, added to
+    the loss (reference GNN_BaseClass.py:223-228)."""
+    total = torch.zeros((), device=params["dense_0"]["w"].device)
+    for i in range(spec.num_layers):
+        p = params[f"dense_{i}"]
+        total = total + _reg(spec.kernel_regularizer, p["w"]) + _reg(spec.bias_regularizer, p["b"])
+    return total
 
 
 def get_inout_dims(net_name: str, dim_node_label: int, dim_arc_label: int,

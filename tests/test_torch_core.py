@@ -180,14 +180,22 @@ def test_unported_paths_raise():
     _, tgs = _graphs(0, n=4, big=False)
     tb = tbatch.from_graphs_blocked(tgs, block_w=32, fused_layout=True)
     _, (tp, tbn) = _weights(js)
-    with pytest.raises(NotImplementedError, match="K1/K2"):
-        tcore.gnn_forward(ts, tp, tbn, tb, training=True)
+    # training without BatchNorm: with input dropout the kernels K6-K8, with
+    # neither the eval kernels' backward K5 (BN training runs K1/K2)
+    no_bn = dataclasses.replace(ts.state_spec, batch_normalization=False)
+    clean = dataclasses.replace(no_bn, dropout_rate=(), dropout_pos=())
+    for ss, match in ((no_bn, "K6-K8"), (clean, "K5")):
+        with pytest.raises(NotImplementedError, match=match):
+            tcore.propagate(dataclasses.replace(ts, state_spec=ss), tp["state"], {}, tb,
+                            training=True)
     with pytest.raises(NotImplementedError, match="state_dim"):
         tcore.propagate(dataclasses.replace(ts, state_dim=4), tp["state"], tbn["state"], tb)
     js2, ts2 = _specs(act="tanh", units=(7, 5))
     _, (tp2, tbn2) = _weights(js2)
     with pytest.raises(NotImplementedError, match="K9/K10"):
         tcore.gnn_forward(ts2, tp2, tbn2, tb)
+    with pytest.raises(NotImplementedError, match="K10-K15"):
+        tcore.gnn_forward(ts2, tp2, tbn2, tb, training=True)
     with pytest.raises(NotImplementedError, match="K18"):
         tcore.gnn_forward(dataclasses.replace(ts, aggregation="pallas"), tp, tbn, tb)
 
