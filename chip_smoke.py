@@ -21,16 +21,26 @@
    plain versions (per-node outputs within 1e-5, movement flags equal, sums
    over nodes within rtol 1e-4 with a floor of 1e-4 of the largest entry),
    and times both.
-6. Training path: the flagship (AlphaDropout 0.1 on the state net's input,
-   dropout 0.1 on the readout's, categorical cross-entropy, Adam lr 1e-3)
-   takes 5 training_steps on one batch of the whole set. K1 and K2 must each
-   launch K=5 times per step. The same model on the CPU, fed the card's
-   dropout masks, must agree: equal iteration counts, losses within rtol
-   1e-5, moving BatchNorm statistics within 1e-5, the first step's grads
-   within rtol 2e-4 (floor 2e-5 of each tensor's largest entry), the params
-   after the last common step within 1e-5.
+6. BN-free training kernels: runs K5 (propagation_loop_bwd, with and
+   without the affine), K6 (train_step), K7 (train_loop) and K8
+   (train_loop_bwd) at the shapes the two BN-free training routes give them
+   on the full set and at ragged shapes of every register width, against
+   their plain versions in the same way, and times them.
+7. Training paths, each on one batch of the whole set (softmax readout with
+   dropout 0.1, categorical cross-entropy, Adam lr 1e-3):
+   - the flagship (AlphaDropout 0.1 on the state net's input, BatchNorm):
+     5 training_steps, K1 and K2 each launched K=5 times per step;
+   - the flagship without BatchNorm: 5 steps, K7 and K8 once per step and
+     K6 K times;
+   - the flagship without BatchNorm and state-net dropout: 3 steps, K3 and
+     K5 once per step and K4 K times.
+   No other kernel may launch on a path. The same model on the CPU, fed the
+   card's dropout masks, must agree: equal iteration counts, losses within
+   rtol 1e-5, moving BatchNorm statistics within 1e-5, the first step's
+   grads within rtol 2e-4 (floor 2e-5 of each tensor's largest entry), the
+   params after the last common step within 1e-5.
 
-Prints a JSON line of per-kernel numbers, then as its last line
+Prints a JSON line of per-kernel numbers (K1-K8), then as its last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 
 Usage, from the repository root: python3 chip_smoke.py
@@ -110,53 +120,48 @@ def kernel_inputs(model, gb):
     return loop, dict(dep, rT=core.residual_term(gb, dep["s"], Wa))
 
 
+def random_adj(torch, gen, B, W, dev):
+    """B sparse 'average'-mode block adjacencies adjT [B, W, W], ~5% arcs."""
+    arcs = torch.rand(B, W, W, generator=gen) < 0.05
+    return (arcs / arcs.sum(1, keepdim=True).clamp_min(1)).float().to(dev)
+
+
 def random_inputs(torch, gen, B, W, D, H, dev, res=True):
+    """Ragged K4 operands (K3 takes s as s0, with H == D and a node mask)."""
     def r(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=gen)).to(dev)
-    arcs = torch.rand(B, W, W, generator=gen) < 0.05
-    adjT = (arcs / arcs.sum(1, keepdim=True).clamp_min(1)).float().to(dev)
     aff = torch.stack([torch.rand(H, generator=gen) + 0.5, 0.1 * torch.randn(H, generator=gen)])
-    return dict(adjT=adjT, s=r(B, W, D), rT=r(B, W, H, scale=0.3) if res else None,
-                fT=r(B, W, H, scale=0.3), w2=r(2 * H, D, scale=0.7 / D ** 0.5),
-                affine=aff.to(dev),
-                nm=(torch.rand(B, W, generator=gen) < 0.8).float().to(dev))
+    return dict(adjT=random_adj(torch, gen, B, W, dev), s=r(B, W, D),
+                rT=r(B, W, H, scale=0.3) if res else None, fT=r(B, W, H, scale=0.3),
+                w2=r(2 * H, D, scale=0.7 / D ** 0.5), affine=aff.to(dev))
 
 
 def _nnz(adjT):
     return int((adjT != 0).sum())
 
 
-def check_loop(torch, fused, x, K, thr, act, label):
-    traj, marg = fused.propagation_loop(x["adjT"], x["s0"], x["fT"], x["w2"], x["affine"],
-                                        x["nm"], K, thr, act)
+def against_plain(torch, module, name, x):
+    """(kernel outputs, plain outputs) of the wrapper `name` of `module` and
+    its plain version `name`_ref on the same inputs x."""
+    got = getattr(module, name)(**x)
     torch.cuda.synchronize()
-    traj_r, marg_r = fused.propagation_loop_ref(x["adjT"], x["s0"], x["fT"], x["w2"],
-                                                x["affine"], x["nm"], K, thr, act)
-    err = float((traj - traj_r).abs().max())
-    flips = int((marg != marg_r).sum())
-    say(f"K3 {label}: adjT {tuple(x['adjT'].shape)} D={x['s0'].shape[-1]} K={K} {act}: "
-        f"max|traj - plain| = {err:.3e}, margins differing: {flips} of {marg.numel()}")
-    if not torch.isfinite(traj).all():
-        fail(f"K3 {label}: non-finite trajectory")
-    if err > TOL or flips:
-        fail(f"K3 {label} disagrees with its plain version")
-    return err
+    return got, getattr(module, name + "_ref")(**x)
+
+
+def check_loop(torch, fused, x, K, thr, act, label):
+    B, W, _ = x["adjT"].shape
+    return check_plain(torch, f"K3 {label}: adjT ({B}, {W}, {W}) D={x['s0'].shape[-1]} K={K} {act}",
+                       *against_plain(torch, fused, "propagation_loop",
+                                      dict(x, K=K, threshold=thr, activation=act)),
+                       ("traj", "margins"), exact=("margins",))
 
 
 def check_step(torch, fused, x, act, label):
-    out = fused.propagation_step(x["adjT"], x["s"], x["rT"], x["fT"], x["w2"], x["affine"], act)
-    torch.cuda.synchronize()
-    ref = fused.propagation_step_ref(x["adjT"], x["s"], x["rT"], x["fT"], x["w2"],
-                                     x["affine"], act)
-    err = float((out - ref).abs().max())
-    say(f"K4 {label}: adjT {tuple(x['adjT'].shape)} D={x['s'].shape[-1]} "
-        f"H={x['w2'].shape[0] // 2} res={x['rT'] is not None} {act}: "
-        f"max|out - plain| = {err:.3e}")
-    if not torch.isfinite(out).all():
-        fail(f"K4 {label}: non-finite output")
-    if err > TOL:
-        fail(f"K4 {label} disagrees with its plain version")
-    return err
+    B, W, _ = x["adjT"].shape
+    got, want = against_plain(torch, fused, "propagation_step", dict(x, activation=act))
+    return check_plain(torch, f"K4 {label}: adjT ({B}, {W}, {W}) D={x['s'].shape[-1]} "
+                       f"H={x['w2'].shape[0] // 2} res={x['rT'] is not None} {act}",
+                       (got,), (want,), ("out",))
 
 
 def bound(nbytes, flops):
@@ -178,8 +183,11 @@ def phase_kernels(torch, model, gb):
     err3 = check_loop(torch, fused, loop, K, thr, act, "full set")
     # ragged shapes, one per register width the kernels are built for (16, 32, 64)
     for B, W, D, act_r in ((13, 96, 5, "tanh"), (7, 128, 24, "selu"), (4, 64, 48, "relu")):
-        small = random_inputs(torch, gen, B, W, D, D, dev)
-        check_loop(torch, fused, dict(small, s0=small["s"]), 3, 0.05, act_r, "ragged")
+        small = random_inputs(torch, gen, B, W, D, D, dev, res=False)
+        nm = (torch.rand(B, W, generator=gen) < 0.8).float().to(dev)
+        check_loop(torch, fused, dict(adjT=small["adjT"], s0=small["s"], fT=small["fT"],
+                                      w2=small["w2"], affine=small["affine"], nm=nm),
+                   3, 0.05, act_r, "ragged")
     err4 = check_step(torch, fused, step, act, "full set")
     for B, W, D, H, act_r, res in ((5, 64, 6, 9, "relu", True), (3, 32, 3, 3, "linear", False),
                                    (6, 128, 24, 24, "selu", True), (4, 96, 48, 40, "tanh", True),
@@ -250,21 +258,33 @@ def phase_profile(torch, fwd, runs=5, what="full-set forward"):
         say(f"  {dev_us / runs / 1e3:9.4f} ms/call  {count // runs:4d} launches  {key[:90]}")
 
 
-def flagship(torch, device):
+# the training paths: the flagship's state net with its BatchNorm ("bn"),
+# without it ("dropout"), and without BatchNorm and dropout ("clean"); the
+# kernel wrappers each path launches, and how often a step ("K": once per
+# iteration)
+ROUTES = {"bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
+          "dropout": {"train_loop": 1, "train_loop_bwd": 1, "train_step": "K"},
+          "clean": {"propagation_loop": 1, "propagation_loop_bwd": 1, "propagation_step": "K"}}
+
+
+def flagship(torch, device, variant="bn"):
     from gnn_tpu_torch import GNNgraphBased, MLPSpec, get_inout_dims
     in_s, l_s = get_inout_dims("state", 14, 3, 2, "g", 0, None)
     in_o, l_o = get_inout_dims("output", 14, 3, 2, "g", 0, None)
+    drop = (dict(dropout_rate=(0.1,), dropout_pos=(0,), alphadropout=True)
+            if variant != "clean" else {})
     ss = MLPSpec(input_dim=in_s, units=tuple(l_s), activations="selu",
                  kernel_initializer="lecun_normal", bias_initializer="lecun_normal",
-                 dropout_rate=(0.1,), dropout_pos=(0,), alphadropout=True)
+                 batch_normalization=variant == "bn", **drop)
     so = MLPSpec(input_dim=in_o, units=tuple(l_o), activations="softmax",
                  kernel_initializer="glorot_normal", bias_initializer="glorot_normal",
                  dropout_rate=(0.1,), dropout_pos=(0,), batch_normalization=False)
     model = GNNgraphBased(ss, so, max_iteration=5, threshold=0.01, seed=SEED, device=device)
-    gen = torch.Generator().manual_seed(SEED + 1)    # non-trivial inference BN statistics
-    d = l_s[-1]
-    model.bn["state"] = {"mean": (0.1 * torch.randn(d, generator=gen)).to(device),
-                         "var": (0.5 + torch.rand(d, generator=gen)).to(device)}
+    if variant == "bn":
+        gen = torch.Generator().manual_seed(SEED + 1)    # non-trivial inference BN statistics
+        d = l_s[-1]
+        model.bn["state"] = {"mean": (0.1 * torch.randn(d, generator=gen)).to(device),
+                             "var": (0.5 + torch.rand(d, generator=gen)).to(device)}
     return model
 
 
@@ -280,47 +300,26 @@ def close_sum(torch, got, want, label):
 
 
 def check_bn_forward(torch, bn, x, kw, label):
-    got = bn.bn_forward_step(**x, **kw)
-    torch.cuda.synchronize()
-    ref = bn.bn_forward_step_ref(**x, **kw)
-    if not all(bool(torch.isfinite(t).all()) for t in got):
-        fail(f"K1 {label}: non-finite output")
-    errs = [float((a - b).abs().max()) for a, b in zip(got[:2], ref[:2])]
-    flips = int((got[2] != ref[2]).sum())
-    serr = close_sum(torch, got[3].sum(0), ref[3].sum(0), f"K1 {label} msum")
     R, W, D = x["y1"].shape
-    say(f"K1 {label}: R={R} (Bl={x['adj_loop'].shape[0]}) W={W} D={D} F={x['feats'].shape[-1]} "
-        f"{kw['activation']} rate={kw['rate']} res={x['rT'] is not None}: max|y - plain| "
-        f"{errs[0]:.3e}, max|agg - plain| {errs[1]:.3e}, flags differing {flips} of "
-        f"{got[2].numel()}, summed msum {serr:.3e}")
-    if max(errs) > TOL or flips:
-        fail(f"K1 {label} disagrees with its plain version")
-    return got, max(errs)
+    return check_plain(torch, f"K1 {label}: R={R} (Bl={x['adj_loop'].shape[0]}) W={W} D={D} "
+                       f"F={x['feats'].shape[-1]} {kw['activation']} rate={kw['rate']} "
+                       f"res={x['rT'] is not None}",
+                       *against_plain(torch, bn, "bn_forward_step", dict(x, **kw)),
+                       ("y", "agg", "flags", "msum"), summed=("msum",), exact=("flags",))
 
 
 def check_bn_backward(torch, bn, x, kw, label):
-    got = bn.bn_backward_step(**x, **kw)
-    torch.cuda.synchronize()
-    ref = bn.bn_backward_step_ref(**x, **kw)
-    if not all(bool(torch.isfinite(t).all()) for t in got):
-        fail(f"K2 {label}: non-finite output")
-    errs = [float((got[i] - ref[i]).abs().max()) for i in (0, 2)]
-    sums = [close_sum(torch, got[i].sum(0), ref[i].sum(0), f"K2 {label} {n}")
-            for i, n in ((1, "dw"), (3, "red"))]
     R, W, D = x["y_prev"].shape
-    say(f"K2 {label}: R={R} W={W} D={D} {kw['activation']} rate={kw['rate']} "
-        f"flag={float(x['flag'])}: max|ds - plain| {errs[0]:.3e}, max|dagg - plain| "
-        f"{errs[1]:.3e}, summed dw {sums[0]:.3e}, summed red {sums[1]:.3e}")
-    if max(errs) > TOL:
-        fail(f"K2 {label} disagrees with its plain version")
-    return max(errs)
+    return check_plain(torch, f"K2 {label}: R={R} W={W} D={D} {kw['activation']} "
+                       f"rate={kw['rate']} flag={float(x['flag'])}",
+                       *against_plain(torch, bn, "bn_backward_step", dict(x, **kw)),
+                       ("ds", "dw", "dagg", "red"), summed=("dw", "red"))
 
 
 def random_bn_inputs(torch, gen, R, Bl, W, D, F, rate, res, dev):
     def r(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=gen)).to(dev)
-    arcs = torch.rand(R, W, W, generator=gen) < 0.05
-    adj = (arcs / arcs.sum(1, keepdim=True).clamp_min(1)).float().to(dev)
+    adj = random_adj(torch, gen, R, W, dev)
     aff = torch.stack([torch.stack([torch.rand(D, generator=gen) + 0.5,
                                     0.1 * torch.randn(D, generator=gen)]) for _ in range(2)])
     keep = ((torch.rand(R, W, 2 * D + F, generator=gen) > rate).to(torch.uint8).to(dev)
@@ -410,7 +409,7 @@ def phase_train_kernels(torch, model, gb):
     from gnn_tpu_torch.ops import bn
     (x0, x1), kw, x2, kwb = train_kernel_inputs(torch, model, gb)
     check_bn_forward(torch, bn, x0, kw, "full set, iteration 1")
-    _, err1 = check_bn_forward(torch, bn, x1, kw, "full set, iteration 2")
+    err1 = check_bn_forward(torch, bn, x1, kw, "full set, iteration 2")
     err2 = check_bn_backward(torch, bn, x2, kwb, "full set, reverse of iteration 2")
     gen = torch.Generator().manual_seed(SEED + 4)
     dev = gb.device
@@ -444,6 +443,196 @@ def phase_train_kernels(torch, model, gb):
     return out
 
 
+def check_plain(torch, label, got, want, names, summed=(), exact=()):
+    """A kernel's outputs against its plain version's on the same inputs:
+    per-node outputs within TOL, flags (`exact`) equal, per-block partials
+    (`summed`) summed over the blocks within close_sum. Returns the largest
+    per-node difference."""
+    worst, parts = 0.0, []
+    for name, a, b in zip(names, got, want):
+        if a is None and b is None:
+            continue
+        if not bool(torch.isfinite(a).all()):
+            fail(f"{label}: non-finite {name}")
+        if name in exact:
+            flips = int((a != b).sum())
+            parts.append(f"{name} differing {flips} of {a.numel()}")
+            if flips:
+                fail(f"{label}: {name} disagrees with its plain version")
+        elif name in summed:
+            parts.append(f"summed {name} {close_sum(torch, a.sum(0), b.sum(0), f'{label} {name}'):.3e}")
+        else:
+            err = float((a - b).abs().max())
+            worst = max(worst, err)
+            parts.append(f"max|{name} - plain| {err:.3e}")
+            if err > TOL:
+                fail(f"{label}: {name} disagrees with its plain version")
+    say(f"{label}: " + ", ".join(parts))
+    return worst
+
+
+def readout_like(torch, traj, nm, seed):
+    """A cotangent of the trajectory as the readout gives it: nonzero only on
+    the returned snapshot (here the last) and on real nodes."""
+    g = torch.zeros_like(traj)
+    gen = torch.Generator(device=traj.device).manual_seed(seed)
+    g[-1] = 0.03 * torch.randn(traj.shape[1:], generator=gen, device=traj.device) * nm[..., None]
+    return g
+
+
+def bnfree_kernel_inputs(torch, gb):
+    """K5-K8 operands as the BN-free training paths form them on the full set:
+    K7/K8 and K6 (the first dep step) from the flagship without BatchNorm with
+    masks from a seeded generator, K5 from the clean flagship; the forward
+    trajectories from the plain versions and readout-like cotangents."""
+    from gnn_tpu_torch.models import core
+    from gnn_tpu_torch.ops import fused
+    drop_m, clean = flagship(torch, "cuda", "dropout"), flagship(torch, "cuda", "clean")
+    K, thr = drop_m.spec.max_iteration, float(drop_m.spec.threshold)
+    masks = core.draw_masks(drop_m.spec, gb, torch.Generator(device=gb.device).manual_seed(SEED + 5))
+    with torch.no_grad():
+        loop, dep, kw = core.dropout_operands(drop_m.spec, drop_m.params["state"], gb,
+                                              masks["state"][0])
+        k7 = dict(loop, K=K, threshold=thr, **kw)
+        traj, _, agg = fused.train_loop_ref(**k7)
+        k8 = dict(adjT=loop["adjT"], s0=loop["s0"], traj=traj, agg=agg, ms=loop["ms"],
+                  ma=loop["ma"], fT=loop["fT"], w_cat=loop["w_cat"],
+                  g_traj=readout_like(torch, traj, loop["nm"], SEED + 6), **kw)
+        drop, _ = fused._make_drop(kw["alpha_drop"], kw["rate"])
+        s = dep["s0"]
+        k6 = dict(adjT=dep["adjT"], s=s, sd=drop(s, dep["ms"][0]), m=dep["ma"][0],
+                  rT=core.residual_agg(gb, s), fT=dep["fT"][0], w_cat=dep["w_cat"], **kw)
+        l3, _, _ = core.hybrid_operands(clean.spec, clean.params["state"], clean.bn["state"], gb)
+        act = clean.spec.state_spec.activations[0]
+        traj3, _ = fused.propagation_loop_ref(**l3, K=K, threshold=thr, activation=act)
+        k5 = dict(adjT=l3["adjT"], s0=l3["s0"], traj=traj3, fT=l3["fT"], w2=l3["w2"],
+                  affine=None, g_traj=readout_like(torch, traj3, l3["nm"], SEED + 7),
+                  activation=act)
+    return k5, k6, k7, k8
+
+
+def random_bnfree_inputs(torch, gen, B, W, D, H, K, rate, alpha, act, dev):
+    """Ragged K5-K8 operands: a sparse 'average' adjacency, keep bits and
+    weights that keep the states O(1); K8's and K5's trajectories from the
+    plain forwards. K6 is H wide, the loops D wide."""
+    from gnn_tpu_torch.ops import fused
+
+    def r(*shape, scale=1.0):
+        return (scale * torch.randn(*shape, generator=gen)).to(dev)
+
+    def keep(*shape):
+        return (torch.rand(*shape, generator=gen) > rate).to(torch.uint8).to(dev) if rate else None
+    adjT = random_adj(torch, gen, B, W, dev)
+    nm = (torch.rand(B, W, generator=gen) < 0.8).float().to(dev)
+    kw = dict(activation=act, alpha_drop=alpha, rate=rate)
+    k7 = dict(adjT=adjT, s0=r(B, W, D), ms=keep(K, B, W, D), ma=keep(K, B, W, D),
+              fT=r(K, B, W, D, scale=0.3), w_cat=r(D, 2 * D, scale=0.5 / D ** 0.5), nm=nm, K=K,
+              threshold=0.05, **kw)
+    traj, _, agg = fused.train_loop_ref(**k7)
+    k8 = dict(adjT=adjT, s0=k7["s0"], traj=traj, agg=agg, ms=k7["ms"], ma=k7["ma"],
+              fT=k7["fT"], w_cat=k7["w_cat"], g_traj=r(K, B, W, D, scale=0.1), **kw)
+    k6 = dict(adjT=adjT, s=r(B, W, D), sd=r(B, W, D), m=keep(B, W, D), rT=r(B, W, D, scale=0.3),
+              fT=r(B, W, H, scale=0.3), w_cat=r(H, 2 * D, scale=0.5 / D ** 0.5), **kw)
+    w2 = r(2 * D, D, scale=0.5 / D ** 0.5)
+    aff = torch.stack([torch.rand(D, generator=gen) + 0.5, 0.1 * torch.randn(D, generator=gen)])
+    traj3, _ = fused.propagation_loop_ref(adjT, k7["s0"], k7["fT"][0], w2, aff.to(dev), nm, K,
+                                          0.05, act)
+    k5 = dict(adjT=adjT, s0=k7["s0"], traj=traj3, fT=k7["fT"][0], w2=w2, affine=aff.to(dev),
+              g_traj=r(K, B, W, D, scale=0.1), activation=act)
+    return k5, k6, k7, k8
+
+
+def check_bnfree(torch, k5, k6, k7, k8, label):
+    """K5-K8 against their plain versions. Returns their largest per-node
+    differences."""
+    from gnn_tpu_torch.ops import fused
+
+    def run(name, x):
+        return against_plain(torch, fused, name, x)
+    B, W, D = k7["s0"].shape
+    shape = f"B={B} W={W} D={D} K={k7['K']} {k7['activation']} rate={k7['rate']}"
+    return {
+        "K5": check_plain(torch, f"K5 {label} ({shape}, affine={k5['affine'] is not None})",
+                          *run("propagation_loop_bwd", k5), ("gs", "dw2", "dfT", "daff"),
+                          summed=("dw2", "daff")),
+        "K6": check_plain(torch, f"K6 {label} (Bd={k6['adjT'].shape[0]}, H={k6['fT'].shape[-1]}, "
+                          f"res={k6['rT'] is not None})", *run("train_step", k6), ("y", "agg")),
+        "K7": check_plain(torch, f"K7 {label} ({shape})", *run("train_loop", k7),
+                          ("traj", "margins", "agg"), exact=("margins",)),
+        "K8": check_plain(torch, f"K8 {label} ({shape})", *run("train_loop_bwd", k8),
+                          ("gs", "dw", "dfT"), summed=("dw",)),
+    }
+
+
+def bnfree_bounds(k5, k6, k7, k8):
+    """(K5, K6, K7, K8) least times and what sets them: each input read once
+    (the trajectories' last iteration is not an input of a reverse step),
+    each output written once; operations on the arcs present plus the dense
+    layer (4*D*D a node and iteration), its reverse and the elementwise work."""
+    f4 = 4
+    B, W, D = k7["s0"].shape
+    K = k7["K"]
+    n = B * W
+    adj, nnz = f4 * k7["adjT"].numel(), _nnz(k7["adjT"])
+    masks = 0 if k7["ms"] is None else 2 * K * n * D
+    w = f4 * 2 * D * D
+    bytes7 = adj + f4 * n * D + masks + f4 * K * n * D + w + f4 * n + f4 * K * n * (2 * D + 1)
+    flops7 = K * (2 * D * nnz + 4 * D * D * n + 12 * D * n)
+    bytes8 = (adj + f4 * n * D + f4 * (K - 1) * n * D + masks + f4 * 3 * K * n * D + w
+              + f4 * n * D + f4 * B * 2 * D * D + f4 * K * n * D)
+    flops8 = K * (2 * D * nnz + 12 * D * D * n + 16 * D * n)
+    Bd, H = k6["fT"].shape[0], k6["fT"].shape[-1]
+    nd = Bd * W
+    bytes6 = (f4 * k6["adjT"].numel() + f4 * 3 * nd * D + (0 if k6["m"] is None else nd * D)
+              + f4 * nd * H + f4 * 2 * H * D + f4 * nd * (H + D))
+    flops6 = 2 * D * _nnz(k6["adjT"]) + 4 * D * H * nd + 8 * D * nd
+    B5 = k5["adjT"].shape[0]
+    n5 = B5 * W
+    aff = 0 if k5["affine"] is None else f4 * (2 * D + B5 * 2 * D)
+    bytes5 = (f4 * k5["adjT"].numel() + f4 * n5 * D * (K + 1) + w + f4 * K * n5 * D
+              + f4 * 2 * n5 * D + f4 * B5 * 2 * D * D + aff)
+    flops5 = K * (4 * D * _nnz(k5["adjT"]) + 12 * D * D * n5 + 10 * D * n5)
+    return (bound(bytes5, flops5), bound(bytes6, flops6), bound(bytes7, flops7),
+            bound(bytes8, flops8))
+
+
+def phase_bnfree_kernels(torch, gb):
+    """K5-K8 against their plain versions at the BN-free training paths'
+    full-set shapes (K5 with and without the affine) and at ragged shapes of
+    each register width (16, 32, 64); times and bounds at the full set."""
+    from gnn_tpu_torch.ops import fused
+    k5, k6, k7, k8 = bnfree_kernel_inputs(torch, gb)
+    errs = check_bnfree(torch, k5, k6, k7, k8, "full set")
+    gen = torch.Generator().manual_seed(SEED + 8)
+    aff = torch.stack([torch.rand(k5["s0"].shape[-1], generator=gen) + 0.5,
+                       0.1 * torch.randn(k5["s0"].shape[-1], generator=gen)]).to(gb.device)
+    check_plain(torch, "K5 full set, affine", fused.propagation_loop_bwd(**dict(k5, affine=aff)),
+                fused.propagation_loop_bwd_ref(**dict(k5, affine=aff)), ("gs", "dw2", "dfT", "daff"),
+                summed=("dw2", "daff"))
+    for B, W, D, H, K, rate, alpha, act in (
+            (5, 32, 5, 7, 3, 0.2, True, "selu"), (3, 96, 14, 14, 4, 0.15, False, "tanh"),
+            (4, 64, 24, 20, 3, 0.1, True, "relu"), (2, 128, 48, 40, 2, 0.0, True, "linear"),
+            (3, 64, 64, 64, 2, 0.1, False, "selu")):
+        check_bnfree(torch, *random_bnfree_inputs(torch, gen, B, W, D, H, K, rate, alpha, act,
+                                                  gb.device), "ragged")
+    bounds = bnfree_bounds(k5, k6, k7, k8)
+    out = {}
+    for (k, name, src, line), x, (b, by) in zip(
+            (("K5", "propagation_loop_bwd", "eval_loop_bwd.cu", 517),
+             ("K6", "train_step", "train_loop.cu", 662),
+             ("K7", "train_loop", "train_loop.cu", 849),
+             ("K8", "train_loop_bwd", "train_loop.cu", 992)), (k5, k6, k7, k8), bounds):
+        kernel, plain = getattr(fused, name), getattr(fused, name + "_ref")
+        out[k] = dict(name=f"{k} {name}", route="cuda", source=f"gnn_tpu_torch/ops/csrc/{src}",
+                      replaces=f"gnn_tpu/ops/pallas_fused.py:{line}", max_abs_err=errs[k],
+                      ms=timed_ms(torch, lambda: kernel(**x)),
+                      plain_ms=timed_ms(torch, lambda: plain(**x)),
+                      bound_ms=b, bound_by=by, library_ms=None)
+        say(f"{k} timing at adjT {tuple(x['adjT'].shape)}: kernel {out[k]['ms']:.4f} ms, plain "
+            f"{out[k]['plain_ms']:.4f} ms, bound {b:.4f} ms ({by})")
+    return out
+
+
 def close_rel(torch, got, want, rtol, floor, label):
     err = (got - want).abs()
     if not bool((err <= rtol * want.abs() + floor * want.abs().max()).all()):
@@ -451,22 +640,19 @@ def close_rel(torch, got, want, rtol, floor, label):
     return float(err.max())
 
 
-def phase_training(torch, graphs, n_arcs, steps=5, cpu_budget_s=120.0):
-    """The training main path on the card, counted, then the same steps on
-    the CPU with the card's masks; step time and profile."""
+def phase_training(torch, gb, n_arcs, variant, steps):
+    """A training path on the card, counted (ROUTES[variant] launches, no
+    other kernel), then the same steps on the CPU with the card's masks;
+    step time and profile. Returns the launch counts of the steps."""
     from gnn_tpu_torch.models import core
     from gnn_tpu_torch.ops import bn, fused
-    model = flagship(torch, "cuda")
-    cpu = flagship(torch, "cpu")
-    t0 = time.perf_counter()
-    gb = model.to_batch(graphs)
-    gb_cpu = cpu.to_batch(graphs)
+    model = flagship(torch, "cuda", variant)
+    cpu = flagship(torch, "cpu", variant)
+    gb_cpu = gb.to("cpu")
     K = model.spec.max_iteration
-    say(f"training batch: {gb.n_node_pad // gb.block_w} blocks, {gb.adj_loop.shape[0]} loop rows, "
-        f"{gb.adj_dep.shape[0]} dep ({time.perf_counter() - t0:.2f} s to pack and upload)")
-    kernels = phase_train_kernels(torch, model, gb)
+    say(f"---- training path '{variant}'")
 
-    # ---- main path: 5 training steps, counting kernel launches
+    # ---- main path: training steps, counting kernel launches
     masks, log, grads0 = [], [], None
     times = []
     bn.reset_launches()
@@ -483,39 +669,40 @@ def phase_training(torch, graphs, n_arcs, steps=5, cpu_budget_s=120.0):
         if i == 0:
             grads0 = {f"{net}/{name}/{k}": p.grad.clone() for net in model.params
                       for name, leaves in model.params[net].items() for k, p in leaves.items()}
-    launches = dict(bn.launches)
-    say(f"training path launches over {steps} steps: {launches}, serving kernels {dict(fused.launches)}")
-    for key in ("bn_forward_step", "bn_backward_step"):
-        if launches[key] != steps * K:
-            fail(f"{key} launched {launches[key]} times in {steps} steps, expected {steps * K}")
+    launches = {**bn.launches, **fused.launches}
+    say(f"training path '{variant}' launches over {steps} steps: {launches}")
+    for key, n in launches.items():
+        per_step = ROUTES[variant].get(key, 0)
+        want = steps * (K if per_step == "K" else per_step)
+        if n != want:
+            fail(f"'{variant}' path: {key} launched {n} times in {steps} steps, expected {want}")
     for p in core.param_leaves(model.params):
         if not bool(torch.isfinite(p).all()):
-            fail("non-finite parameters after training")
+            fail(f"'{variant}' path: non-finite parameters after training")
     med = sorted(times)[len(times) // 2]
     iters = float(log[-1][0])
-    say(f"training step: {med * 1e3:.3f} ms median of {steps} (host clock, synchronized; "
-        f"each {[round(t * 1e3, 3) for t in times]} ms), iters {[float(r[0]) for r in log]}, "
-        f"losses {[round(float(r[1]), 4) for r in log]}, {n_arcs * iters / med:.4e} edges/s")
+    say(f"training step '{variant}': {med * 1e3:.3f} ms median of {steps} (host clock, "
+        f"synchronized; each {[round(t * 1e3, 3) for t in times]} ms), iters "
+        f"{[float(r[0]) for r in log]}, losses {[round(float(r[1]), 4) for r in log]}, "
+        f"{n_arcs * iters / med:.4e} edges/s")
 
     # ---- the same steps on the CPU with the card's masks
     t0 = time.perf_counter()
-    done = 0
     worst = {"loss": 0.0, "bn": 0.0, "grad": 0.0}
     for i in range(steps):
-        if time.perf_counter() - t0 > cpu_budget_s:
-            break
         m = {net: {p: v.cpu() for p, v in d.items()} for net, d in masks[i].items()}
         out = cpu.training_step(gb_cpu, masks=m)
         it, loss, stats = log[i]
         if float(out["iters"]) != float(it):
-            fail(f"step {i}: iters {float(it)} on the card, {float(out['iters'])} on the CPU")
+            fail(f"'{variant}' step {i}: iters {float(it)} on the card, "
+                 f"{float(out['iters'])} on the CPU")
         worst["loss"] = max(worst["loss"], close_rel(torch, loss.cpu(), out["loss"], 1e-5, 0.0,
-                                                     f"step {i} loss"))
-        for k in ("mean", "var"):
+                                                     f"'{variant}' step {i} loss"))
+        for k in stats:
             err = float((stats[k].cpu() - cpu.bn["state"][k]).abs().max())
             worst["bn"] = max(worst["bn"], err)
             if err > TOL:
-                fail(f"step {i}: moving {k} differs from the CPU by {err:.3e}")
+                fail(f"'{variant}' step {i}: moving {k} differs from the CPU by {err:.3e}")
         if i == 0:
             for net in cpu.params:
                 for name, leaves in cpu.params[net].items():
@@ -523,26 +710,20 @@ def phase_training(torch, graphs, n_arcs, steps=5, cpu_budget_s=120.0):
                         key = f"{net}/{name}/{k}"
                         worst["grad"] = max(worst["grad"], close_rel(
                             torch, grads0[key].cpu(), p.grad, 2e-4, 2e-5, f"grad {key}"))
-        done += 1
-    if done == 0:
-        fail("no CPU training step ran")
     perr = 0.0
-    if done == steps:
-        for a, b in zip(core.param_leaves(model.params), core.param_leaves(cpu.params)):
-            perr = max(perr, float((a.detach().cpu() - b.detach()).abs().max()))
-        if perr > TOL:
-            fail(f"params after {done} steps differ from the CPU by {perr:.3e}")
-    say(f"training vs CPU over {done} steps ({time.perf_counter() - t0:.1f} s): iters equal, "
-        f"max loss diff {worst['loss']:.3e}, moving stats {worst['bn']:.3e}, first-step grads "
-        f"{worst['grad']:.3e}, params after the last step {perr:.3e}")
+    for a, b in zip(core.param_leaves(model.params), core.param_leaves(cpu.params)):
+        perr = max(perr, float((a.detach().cpu() - b.detach()).abs().max()))
+    if perr > TOL:
+        fail(f"'{variant}' params after {steps} steps differ from the CPU by {perr:.3e}")
+    say(f"'{variant}' training vs CPU over {steps} steps ({time.perf_counter() - t0:.1f} s): "
+        f"iters equal, max loss diff {worst['loss']:.3e}, moving stats {worst['bn']:.3e}, "
+        f"first-step grads {worst['grad']:.3e}, params after the last step {perr:.3e}")
 
     def step():
         model.training_step(gb)
         torch.cuda.synchronize()
-    phase_profile(torch, step, runs=3, what="training step")
-    for k in kernels:
-        kernels[k]["launches"] = launches["bn_forward_step" if k == "K1" else "bn_backward_step"]
-    return kernels
+    phase_profile(torch, step, runs=3, what=f"'{variant}' training step")
+    return launches
 
 
 def main():
@@ -641,7 +822,25 @@ def main():
 
     for k, v in kernels.items():
         v["launches"] = launches["propagation_loop" if k == "K3" else "propagation_step"]
-    kernels = {**phase_training(torch, graphs, n_arcs), **kernels}
+
+    # ---- training: one batch of the whole set for every path
+    t0 = time.perf_counter()
+    gb_train = flagship(torch, "cuda").to_batch(graphs)
+    say(f"training batch: {gb_train.n_node_pad // gb_train.block_w} blocks, "
+        f"{gb_train.adj_loop.shape[0]} loop rows, {gb_train.adj_dep.shape[0]} dep "
+        f"({time.perf_counter() - t0:.2f} s to pack and upload)")
+    kernels.update(phase_train_kernels(torch, flagship(torch, "cuda"), gb_train))
+    kernels.update(phase_bnfree_kernels(torch, gb_train))
+    counted = {variant: phase_training(torch, gb_train, n_arcs, variant, steps)
+               for variant, steps in (("bn", 5), ("dropout", 5), ("clean", 3))}
+    for k, (variant, key) in {"K1": ("bn", "bn_forward_step"), "K2": ("bn", "bn_backward_step"),
+                              "K5": ("clean", "propagation_loop_bwd"),
+                              "K6": ("dropout", "train_step"), "K7": ("dropout", "train_loop"),
+                              "K8": ("dropout", "train_loop_bwd")}.items():
+        kernels[k]["launches"] = counted[variant][key]
+    say(f"clean training path: K3 {counted['clean']['propagation_loop']} and K4 "
+        f"{counted['clean']['propagation_step']} launches (the JSON line counts the serving path's)")
+    kernels = {k: kernels[k] for k in sorted(kernels)}
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: v[k] for k in order} for v in kernels.values()]}))

@@ -14,8 +14,12 @@ Dispatch follows gnn_tpu's `aggregation='auto'`:
   every iteration of the residual-free blocks, K4 (`propagation_step`) one
   iteration per step of the residual-coupled blocks, and the global early
   stop is rebuilt from K3's movement flags;
-* in training, such a spec with the trailing BatchNorm on and dropout only
-  at the input runs the BN training kernels K1/K2 (ops/bn.py);
+* in training, such a spec takes one of three routes: with neither dropout
+  nor BatchNorm the same hybrid path, differentiated through K5 (K3's
+  backward) and K4's plain backward; with input dropout and no BatchNorm
+  the dropout kernels, K7 (`train_loop`, backward K8) over the loop blocks
+  and K6 (`train_step`) per step over the dep blocks; with the trailing
+  BatchNorm and dropout only at the input the BN kernels K1/K2 (ops/bn.py);
 * what gnn_tpu sends to its XLA body (no loop layout, activations the
   kernels do not take, dropout inside the net) runs the plain body here;
 * what gnn_tpu sends to a kernel not ported yet raises NotImplementedError.
@@ -36,9 +40,10 @@ import torch.nn.functional as F
 from gnn_tpu_torch.graphs.batch import GraphBatch
 from gnn_tpu_torch.ops.aggregate import aggregate_to_nodes, pool_graphs
 from gnn_tpu_torch.ops.bn import bn_train_propagate, supports_fused_bn_train
-from gnn_tpu_torch.ops.fused import (FUSABLE_ACTIVATIONS, bn_inference_affine,
-                                     propagation_loop, propagation_step, supports_fused,
-                                     supports_fused_train)
+from gnn_tpu_torch.ops.fused import (FUSABLE_ACTIVATIONS, _make_drop, bn_inference_affine,
+                                     fused_propagation_loop, fused_propagation_step,
+                                     fused_train_loop, fused_train_step, moved,
+                                     supports_fused, supports_fused_train)
 from gnn_tpu_torch.ops.mlp import (MLPSpec, dropout_widths, mlp_apply, mlp_init,
                                    mlp_regularization)
 from gnn_tpu_torch.training.losses import get_loss
@@ -106,10 +111,7 @@ def check_dims(spec: GNNSpec, nl: int, al: int, dt: int) -> None:
 def _moving_mask(state, state_old, thr: float):
     """Convergence predicate ||state - old|| > thr * ||old|| per entity (a
     boolean: no gradient flows through it)."""
-    state, state_old = state.detach(), state_old.detach()
-    dist = torch.sqrt(torch.sum((state - state_old) ** 2, dim=-1))
-    norm = torch.sqrt(torch.sum(state_old * state_old, dim=-1))
-    return dist > thr * norm
+    return moved(state.detach(), state_old.detach(), thr) > 0.5
 
 
 def _check_aggregation(spec: GNNSpec) -> bool:
@@ -156,34 +158,29 @@ def _uses_kernels(spec: GNNSpec, gb: GraphBatch) -> bool:
     return ss.num_layers == 1
 
 
-def _uses_bn_kernels(spec: GNNSpec, gb: GraphBatch) -> bool:
+def _train_route(spec: GNNSpec, gb: GraphBatch) -> str:
     """Static dispatch of gnn_tpu's propagate in training (core.py:354-474):
-    True for the BN training kernels K1/K2, False for the plain body; raises
-    where gnn_tpu runs a training kernel not ported yet."""
+    'hybrid' (K3/K5 and K4: neither dropout nor BatchNorm), 'dropout' (K6-K8:
+    input dropout, no BatchNorm), 'bn' (K1/K2) or 'plain' (the plain body);
+    raises where gnn_tpu runs a training kernel not ported yet."""
     ss = spec.state_spec
     if not _check_aggregation(spec) or not _needs_loop_layout(spec, gb, "the kernels"):
-        return False
+        return "plain"
     fusable = all(a in FUSABLE_ACTIVATIONS for a in ss.activations)
     if ss.units[-1] != gb.nodes.shape[1] or not fusable:
-        return False
+        return "plain"
     if ss.num_layers == 1:
         if supports_fused(ss, training=True):
-            raise NotImplementedError(
-                "training a state net without dropout and BatchNorm runs the eval "
-                "kernels and their backward kernel K5 (pallas_fused.py::"
-                "_loop_bwd_kernel), not ported yet")
+            return "hybrid"
         if not ss.batch_normalization and supports_fused_train(ss):
-            raise NotImplementedError(
-                "dropout training without BatchNorm runs the training kernels K6-K8 "
-                "(pallas_fused.py::_train_kernel_T/_loop_train_kernel_T/"
-                "_loop_train_bwd_kernel), not ported yet")
-        return supports_fused_bn_train(ss)
+            return "dropout"
+        return "bn" if supports_fused_bn_train(ss) else "plain"
     if ss.num_layers == 2 and all(p == 0 for p in ss.dropout_pos):
         raise NotImplementedError(
             "two-layer state nets train through the kernels K10-K15 "
             "(pallas_fused.py::_loop2_*_kernel*, pallas_bn.py::_bn2_*_kernel), "
             "not ported yet")
-    return False
+    return "plain"
 
 
 def draw_masks(spec: GNNSpec, gb: GraphBatch, gen: torch.Generator) -> dict:
@@ -218,13 +215,18 @@ def propagate(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
             "labels into the kernels; not ported yet")
     keep = keep or {}
     if training:
-        if _uses_bn_kernels(spec, gb):
-            return bn_train_propagate(spec, params_state, bn_state, gb, keep.get(0))
-        return _propagate_plain(spec, params_state, bn_state, gb, True, keep)
-    if _uses_kernels(spec, gb):
+        route = _train_route(spec, gb)
+    else:
+        route = "hybrid" if _uses_kernels(spec, gb) else "plain"
+    if route == "bn":
+        return bn_train_propagate(spec, params_state, bn_state, gb, keep.get(0))
+    if route == "dropout":
+        k, state = _propagate_dropout(spec, params_state, gb, keep.get(0))
+        return k, state, bn_state
+    if route == "hybrid":
         k, state = _propagate_hybrid(spec, params_state, bn_state, gb)
         return k, state, bn_state
-    return _propagate_plain(spec, params_state, bn_state, gb)
+    return _propagate_plain(spec, params_state, bn_state, gb, training, keep)
 
 
 def _propagate_plain(spec, params_state, bn_state, gb, training=False, keep=None):
@@ -288,46 +290,136 @@ def hybrid_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
     return loop, dep, Wa
 
 
-def residual_term(gb: GraphBatch, sd, Wa):
-    """K4's rT [Bd, W, H]: the residual arcs' weighted sources through Wa,
-    summed into their destinations. Residual arcs couple dep blocks only and
-    use dep-local flat node ids; padding arcs add 0 to node 0."""
+def residual_agg(gb: GraphBatch, sd):
+    """K6's rT [Bd, W, D]: the residual arcs' weighted source states summed
+    into their destinations, raw (before the dense layer and the dropout).
+    Residual arcs couple dep blocks only and use dep-local flat node ids;
+    padding arcs add 0 to node 0."""
     Bd, W, D = sd.shape
     vals = sd.reshape(Bd * W, D)[gb.res_src_loc] * gb.res_w[:, None]
-    res = sd.new_zeros((Bd * W, Wa.shape[0])).index_add_(0, gb.res_dst_loc, vals @ Wa.t())
-    return res.reshape(Bd, W, -1)
+    return sd.new_zeros((Bd * W, D)).index_add_(0, gb.res_dst_loc, vals).reshape(Bd, W, D)
 
 
-def _propagate_hybrid(spec, params_state, bn_state, gb):
-    """K3 over the loop blocks, K4 per step over the dep blocks
-    (gnn_tpu core.py:475-608) in node-major blocks [B, W, D]."""
-    Np, D = gb.nodes.shape
-    K = spec.max_iteration
-    thr = float(spec.threshold)
-    act = spec.state_spec.activations[0]
-    loop, dep, Wa = hybrid_operands(spec, params_state, bn_state, gb)
-    traj, margins = propagation_loop(**loop, K=K, threshold=thr, activation=act)
+def residual_term(gb: GraphBatch, sd, Wa):
+    """K4's rT [Bd, W, H]: the raw residual aggregation (residual_agg) through
+    Wa."""
+    return torch.matmul(residual_agg(gb, sd), Wa.t())
+
+
+def _finish_hybrid(gb: GraphBatch, thr: float, traj, margins, s0_loop, sd=None, step=None):
+    """The realised count and the [Np, D] state in global node order.
+
+    The loop blocks ran all K iterations (traj, margins [K, Bl, W]); the dep
+    blocks, from states sd (None without dep blocks), take their K steps
+    `step(it, sd)` under the global early stop: a step runs while any loop
+    node moved before it or any dep node moves. The loop blocks' state is
+    the snapshot at the realised count (s0_loop when it is 0)."""
     loop_any = (margins > 0.5).flatten(1).any(dim=1)        # [K]
-    if dep is not None:
-        sd = dep["s"]
+    if sd is None:
+        k = torch.cumprod(loop_any.float(), dim=0).sum()
+    else:
         nm_dep = gb.node_mask.reshape(-1, gb.block_w)[gb.dep_ids]
         sd_old = torch.ones_like(sd)
         active = torch.ones((), dtype=torch.bool, device=sd.device)
         k = torch.zeros((), dtype=torch.float32, device=sd.device)
-        for it in range(K):
+        for it in range(loop_any.shape[0]):
             moving = _moving_mask(sd, sd_old, thr) & nm_dep
             active = active & (loop_any[it] | moving.any())
-            new = propagation_step(dep["adjT"], sd, residual_term(gb, sd, Wa), dep["fT"],
-                                   dep["w2"], dep["affine"], act)
+            new = step(it, sd)
             sd, sd_old = torch.where(active, new, sd), torch.where(active, sd, sd_old)
             k = k + active.float()
-    else:
-        k = torch.cumprod(loop_any.float(), dim=0).sum()
-    # the state after the realised iteration count (s0 when it is 0)
     idx = (k.long() - 1).clamp_min(0).reshape(1)
-    sel = torch.where(k >= 1.0, traj.index_select(0, idx)[0], loop["s0"])
-    full = torch.cat([sel, sd]) if dep is not None else sel
-    return k, full[gb.block_perm].reshape(Np, D)
+    sel = torch.where(k >= 1.0, traj.index_select(0, idx)[0], s0_loop)
+    full = sel if sd is None else torch.cat([sel, sd])
+    return k, full[gb.block_perm].reshape(gb.nodes.shape)
+
+
+def _propagate_hybrid(spec, params_state, bn_state, gb):
+    """K3 over the loop blocks, K4 per step over the dep blocks
+    (gnn_tpu core.py:475-608) in node-major blocks [B, W, D]; differentiable
+    through K5 and K4's plain backward."""
+    K = spec.max_iteration
+    thr = float(spec.threshold)
+    act = spec.state_spec.activations[0]
+    loop, dep, Wa = hybrid_operands(spec, params_state, bn_state, gb)
+    traj, margins = fused_propagation_loop(**loop, K=K, threshold=thr, activation=act)
+    if dep is None:
+        return _finish_hybrid(gb, thr, traj, margins, loop["s0"])
+
+    def step(_, sd):
+        return fused_propagation_step(dep["adjT"], sd, residual_term(gb, sd, Wa), dep["fT"],
+                                      dep["w2"], dep["affine"], act)
+    return _finish_hybrid(gb, thr, traj, margins, loop["s0"], dep["s"], step)
+
+
+def dropout_operands(spec: GNNSpec, params_state, gb: GraphBatch,
+                     keep_state: Optional[torch.Tensor]):
+    """The dropout kernels' operands (gnn_tpu core.py:727-798): (loop, dep, kw).
+
+    `loop` holds K7's tensor arguments (adjT, s0, ms, ma, fT, w_cat, nm) for
+    the loop blocks; `dep` holds K6's (adjT, s0, ms, ma, fT, w_cat) for the dep
+    blocks, with the masks and fT of every iteration ([K, Bd, ...]), or is
+    None without dep blocks; `kw` is (activation, alpha_drop, rate).
+
+    The dense input [s | agg | arcs] takes the step's keep-mask: the arc-label
+    slice is dropped here and folded into fT = Wf @ drop(arcs) + b for every
+    iteration; the state and aggregated slices' masks go to the kernels as
+    uint8 blocks ms, ma [K, B, W, D] (None without dropout).
+
+    :param keep_state: bool [K, Np, 2D + AL] input keep-masks in global node
+        order (None without input dropout)."""
+    W = gb.block_w
+    Np, D = gb.nodes.shape
+    B = Np // W
+    K = spec.max_iteration
+    ss = spec.state_spec
+    rate = float(dict(zip(ss.dropout_pos, ss.dropout_rate)).get(0, 0.0))
+    kw = dict(activation=ss.activations[0], alpha_drop=bool(ss.alphadropout), rate=rate)
+    w, b = params_state["dense_0"]["w"], params_state["dense_0"]["b"]
+    ms = ma = None
+    if rate > 0.0:
+        if keep_state is None:
+            raise ValueError("a keep-mask for dropout position 0 is required in training")
+        keep = keep_state.reshape(K, B, W, -1)
+        ms, ma = keep[..., :D].to(torch.uint8), keep[..., D:2 * D].to(torch.uint8)
+        drop, _ = _make_drop(kw["alpha_drop"], rate)
+        fT = F.linear(drop(gb.agg_arcs_cache, keep_state[..., 2 * D:]), w[:, 2 * D:], b)
+    else:
+        fT = F.linear(gb.agg_arcs_cache, w[:, 2 * D:], b).expand(K, Np, -1)
+    fT = fT.reshape(K, B, W, -1)
+    s03 = gb.nodes.reshape(B, W, D)
+    w_cat = w[:, :2 * D].contiguous()                     # [H, 2D] = [Ws | Wa]
+
+    def rows(ids):
+        return [None if x is None else x.index_select(1, ids).contiguous() for x in (ms, ma, fT)]
+
+    li = gb.loop_ids
+    loop = dict(zip(("ms", "ma", "fT"), rows(li)), adjT=gb.adj_loop, s0=s03[li], w_cat=w_cat,
+                nm=gb.loop_nm)
+    dep = None
+    if gb.adj_dep is not None:
+        di = gb.dep_ids
+        dep = dict(zip(("ms", "ma", "fT"), rows(di)), adjT=gb.adj_dep, s0=s03[di], w_cat=w_cat)
+    return loop, dep, kw
+
+
+def _propagate_dropout(spec, params_state, gb, keep_state: Optional[torch.Tensor]):
+    """Dropout training without BatchNorm (gnn_tpu core.py:727-874): K7 over
+    the loop blocks (K8 its backward), K6 per step over the dep blocks, which
+    get their state slice dropped here and the raw residual aggregation."""
+    thr = float(spec.threshold)
+    loop, dep, kw = dropout_operands(spec, params_state, gb, keep_state)
+    traj, margins = fused_train_loop(**loop, K=spec.max_iteration, threshold=thr, **kw)
+    if dep is None:
+        return _finish_hybrid(gb, thr, traj, margins, loop["s0"])
+    drop, _ = _make_drop(kw["alpha_drop"], kw["rate"])
+
+    def step(it, sd):
+        ms, ma = (None, None) if dep["ms"] is None else (dep["ms"][it], dep["ma"][it])
+        sdd = sd if ms is None else drop(sd, ms)
+        return fused_train_step(dep["adjT"], sd, sdd, ma, residual_agg(gb, sd), dep["fT"][it],
+                                dep["w_cat"], **kw)
+    return _finish_hybrid(gb, thr, traj, margins, loop["s0"], dep["s0"], step)
 
 
 def _entity_mask(gb: GraphBatch) -> torch.Tensor:

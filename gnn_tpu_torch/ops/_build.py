@@ -7,8 +7,8 @@ in a process, so nothing is built when the package is imported. The library goes
 to build/gnn_tpu_torch/ of the source checkout the package runs from (listed
 in .gitignore), or, for an installed package, to gnn_tpu_torch/ in the
 user's cache directory. Its file name carries a hash of the nvcc flags, and
-it is rebuilt when a source is newer than it. A failed build raises with
-nvcc's output.
+it is rebuilt when a source or the shared header ops/csrc/common.cuh is newer
+than it. A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -74,7 +74,7 @@ def build(force: bool = False) -> Path:
     flags) or older than a source."""
     global build_log
     sources = sorted(CSRC.glob("*.cu"))
-    if not (force or _stale(sources)):
+    if not (force or _stale(sources + sorted(CSRC.glob("*.cuh")))):
         return LIB_PATH
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -112,6 +112,14 @@ def library() -> ctypes.CDLL:
             lib.gnn_bn_forward.restype = i
             lib.gnn_bn_backward.argtypes = [p] * 17 + [i, i, i, i, i, i, i, f, f, p]
             lib.gnn_bn_backward.restype = i
+            lib.gnn_propagation_loop_bwd.argtypes = [p] * 11 + [i, i, i, i, i, p]
+            lib.gnn_propagation_loop_bwd.restype = i
+            lib.gnn_train_loop.argtypes = [p] * 10 + [i, i, i, i, f, i, i, f, f, p]
+            lib.gnn_train_loop.restype = i
+            lib.gnn_train_loop_bwd.argtypes = [p] * 12 + [i, i, i, i, i, i, f, f, p]
+            lib.gnn_train_loop_bwd.restype = i
+            lib.gnn_train_step.argtypes = [p] * 9 + [i, i, i, i, i, i, f, f, p]
+            lib.gnn_train_step.restype = i
             lib.gnn_cuda_error_string.argtypes = [i]
             lib.gnn_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

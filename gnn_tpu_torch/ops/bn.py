@@ -40,9 +40,10 @@ import torch
 import torch.nn.functional as F
 
 from gnn_tpu_torch.ops import _build
-from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, _act_grad, _check, _make_drop, _ptr,
-                                     _stream, supports_fused_train)
-from gnn_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM, drop_coeffs
+from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, _act_grad, _check, _check_keep,
+                                     _drop_args, _make_drop, _ptr, _stream, moved,
+                                     supports_fused_train)
+from gnn_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
 
 # kernel launches since the last reset, by wrapper
 launches = {"bn_forward_step": 0, "bn_backward_step": 0}
@@ -107,9 +108,7 @@ def bn_forward_step_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, 
     times nm, msum [R, D] per-block sums of y * nm)."""
     s = y1 * aff[0, 0] + aff[0, 1]
     s_old = y2 * aff[1, 0] + aff[1, 1]
-    dist = torch.sqrt(torch.sum((s - s_old) ** 2, dim=-1))
-    norm = torch.sqrt(torch.sum(s_old * s_old, dim=-1))
-    marg = torch.where(dist > threshold * norm, 1.0, 0.0) * nm
+    marg = moved(s, s_old, threshold) * nm
     agg = _agg_blocks(adj_loop, adj_dep, s)
     if rT is not None:
         agg = agg + rT
@@ -149,14 +148,6 @@ def bn_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug
 
 
 # ------------------------------------------------------------------ wrappers
-def _drop_args(alpha_drop: bool, rate: float):
-    """(mode, a, b) of the kernels' input dropout: 0 none, 1 alpha, 2 standard."""
-    if rate <= 0.0:
-        return 0, 1.0, 0.0
-    a, b = drop_coeffs(alpha_drop, rate)
-    return (1 if alpha_drop else 2), a, b
-
-
 def _check_blocks(adj_loop, adj_dep, R, D):
     """(Bl, W) after checking the two adjacencies against R block rows."""
     Bl, W, W2 = adj_loop.shape
@@ -173,18 +164,6 @@ def _check_blocks(adj_loop, adj_dep, R, D):
     if R != Bl + Bd:
         raise ValueError(f"{R} block rows, but the adjacencies hold {Bl} + {Bd}")
     return Bl, W
-
-
-def _check_keep(keep, shape, dev, rate):
-    if rate <= 0.0:
-        return None
-    if keep is None:
-        raise ValueError("a keep-mask is required when the dropout rate is positive")
-    if keep.device != dev or keep.dtype != torch.uint8 or tuple(keep.shape) != tuple(shape) \
-            or not keep.is_contiguous():
-        raise ValueError(f"keep must be a contiguous uint8 tensor of shape {tuple(shape)} "
-                         f"on {dev}, got {keep.dtype} {tuple(keep.shape)} on {keep.device}")
-    return keep
 
 
 def _require_cuda(t):

@@ -41,57 +41,11 @@
 // synchronously and contracts it densely (2*D*W*W flops per block), as K3
 // does: its time is set by shared-memory traffic and FMAs, not bytes.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kMaxW = 128;
-constexpr int kMaxSmemBytes = 232448;  // 227 KB, the most a CTA may use
-// the value alpha-dropped units saturate to: -SELU_ALPHA * SELU_SCALE
-constexpr float kAlphaP = -1.7580993408473766f;
-
-enum Activation { kLinear = 0, kTanh = 1, kRelu = 2, kSelu = 3 };
-enum DropMode { kNoDrop = 0, kAlphaDrop = 1, kStdDrop = 2 };
-
-__device__ __forceinline__ float activate(int act, float x) {
-  switch (act) {
-    case kTanh:
-      return tanhf(x);
-    case kRelu:
-      return fmaxf(x, 0.0f);
-    case kSelu:
-      // exp(min(x, 0)) - 1, not expm1: the formula of pallas_fused.py::_ACTS
-      return 1.0507009873554805f *
-             (x > 0.0f ? x : 1.6732632423543772f * (expf(fminf(x, 0.0f)) - 1.0f));
-    default:
-      return x;
-  }
-}
-
-__device__ __forceinline__ float act_grad(int act, float h) {
-  switch (act) {
-    case kTanh: {
-      const float t = tanhf(h);
-      return 1.0f - t * t;
-    }
-    case kRelu:
-      return h > 0.0f ? 1.0f : 0.0f;
-    case kSelu:
-      return h > 0.0f ? 1.0507009873554805f
-                      : 1.0507009873554805f * 1.6732632423543772f * expf(fminf(h, 0.0f));
-    default:
-      return 1.0f;
-  }
-}
-
-// The input dropout of ops/mlp.py::_dropout from a keep bit:
-// alpha a * (keep ? x : alpha') + b, standard keep ? a * x : 0.
-__device__ __forceinline__ float drop(int mode, float a, float b, float x, bool keep) {
-  if (mode == kAlphaDrop) return a * (keep ? x : kAlphaP) + b;
-  if (mode == kStdDrop) return keep ? a * x : 0.0f;
-  return x;
-}
+using namespace gnn;
 
 // Float offsets of the shared-memory buffers; the same for K1 and K2.
 struct Layout {
@@ -128,29 +82,6 @@ __host__ __device__ Layout layout(int W, int D, int F) {
   o += (W * (C - 1) + 3) / 4;
   l.total = o;
   return l;
-}
-
-// Block adjacency [W, W] (contiguous, 16-byte aligned) -> rows of stride W + 1.
-__device__ void stage_adj(const float* __restrict__ g, int W, float* sm) {
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  for (int i = threadIdx.x; i < W * W / 4; i += blockDim.x) {
-    const float4 v = g4[i];
-    float* d = sm + (4 * i / W) * (W + 1) + 4 * i % W;  // W % 4 == 0: no row crossing
-    d[0] = v.x;
-    d[1] = v.y;
-    d[2] = v.z;
-    d[3] = v.w;
-  }
-}
-
-// Contiguous [W, F] rows -> shared rows of stride P, from column c0.
-__device__ void stage_in(const float* __restrict__ g, int W, int F, float* sm, int P, int c0) {
-  for (int i = threadIdx.x; i < W * F; i += blockDim.x) sm[(i / F) * P + c0 + i % F] = g[i];
-}
-
-// Shared rows of stride P -> contiguous [W, F] rows.
-__device__ void stage_out(float* __restrict__ g, int W, int F, const float* sm, int P) {
-  for (int i = threadIdx.x; i < W * F; i += blockDim.x) g[i] = sm[(i / F) * P + i % F];
 }
 
 // Operands common to both kernels, staged once per CTA: adjacency, w_aug,
@@ -429,9 +360,6 @@ bn_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
   }
 }
 
-// Register-array width for a state width: 16, 32 or 64 (0 = unsupported).
-int width_class(int D) { return D <= 16 ? 16 : D <= 32 ? 32 : D <= 64 ? 64 : 0; }
-
 bool shape_ok(int R, int Bl, int W, int D, int F) {
   return R > 0 && Bl >= 0 && Bl <= R && W >= 32 && W <= kMaxW && W % 32 == 0 && D > 0 &&
          F >= 0 && width_class(D) != 0;
@@ -440,9 +368,7 @@ bool shape_ok(int R, int Bl, int W, int D, int F) {
 template <typename Kernel>
 cudaError_t prepare(Kernel kernel, int W, int D, int F, size_t* bytes) {
   *bytes = sizeof(float) * (size_t)layout(W, D, F).total;
-  if (*bytes > (size_t)kMaxSmemBytes) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(*bytes));
+  return set_smem(kernel, *bytes);
 }
 
 template <int MAXF>

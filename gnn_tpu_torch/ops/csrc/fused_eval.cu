@@ -32,28 +32,11 @@
 // the adjacency synchronously, fits 2 CTAs per SM and does the dense
 // contraction: its time is set by shared-memory traffic and FMAs, not bytes.
 
-#include <cuda_runtime.h>
+#include "common.cuh"
 
 namespace {
 
-constexpr int kMaxW = 128;
-
-enum Activation { kLinear = 0, kTanh = 1, kRelu = 2, kSelu = 3 };
-
-__device__ __forceinline__ float activate(int act, float x) {
-  switch (act) {
-    case kTanh:
-      return tanhf(x);
-    case kRelu:
-      return fmaxf(x, 0.0f);
-    case kSelu:
-      // exp(min(x, 0)) - 1, not expm1: the formula of pallas_fused.py::_ACTS
-      return 1.0507009873554805f *
-             (x > 0.0f ? x : 1.6732632423543772f * (expf(fminf(x, 0.0f)) - 1.0f));
-    default:
-      return x;
-  }
-}
+using namespace gnn;
 
 struct Smem {
   float* adj;    // [W][W]    adjT[src][dst]
@@ -240,12 +223,8 @@ step_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
   store_rows<MAXF>(out + row0 * H, W, H, sm.stage, y);
 }
 
-// Register-array width for a feature width: 16, 32 or 64 (0 = unsupported).
 // The 64-wide variants (and step_kernel<32>) spill to local memory under 128
 // threads per CTA; chip_smoke.py holds every variant against its plain version.
-int width_class(int F) { return F <= 16 ? 16 : F <= 32 ? 32 : F <= 64 ? 64 : 0; }
-
-bool block_ok(int B, int W) { return B > 0 && W >= 32 && W <= kMaxW && W % 32 == 0; }
 
 template <int MAXF>
 cudaError_t launch_loop(const float* adjT, const float* s0, const float* fT,

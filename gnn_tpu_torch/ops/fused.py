@@ -1,7 +1,9 @@
-"""Eval propagation kernels K3 and K4 (counterpart of gnn_tpu/ops/pallas_fused.py).
+"""Propagation kernels of a one-layer state net (counterpart of
+gnn_tpu/ops/pallas_fused.py): the eval kernels K3/K4 with K3's backward K5,
+and the dropout-training kernels K6/K7/K8.
 
-The dense layer of the state net is reassociated through the aggregation, so
-one iteration on a block of W nodes is
+Eval, and training without dropout and BatchNorm. The dense layer is
+reassociated through the aggregation, so one iteration on a block of W nodes is
 
     U = s @ [Ws; Wa]^T,   A[dst] = sum_src adjT[src, dst] * U[src, H:]
     s' = act(U[:, :H] + A + fT (+ rT)) * scale + shift
@@ -15,13 +17,37 @@ with fT = feats @ Wf^T + b hoisted out of the loop, rT the residual-arc term
   reference's global early stop.
 * `propagation_step` (K4, replaces `_step_kernel_T`): one iteration of
   residual-coupled blocks.
+* `propagation_loop_bwd` (K5, replaces `_loop_bwd_kernel`): K3's K reverse
+  iterations.
 
-Layout: node-major blocks, s [B, W, D], fT [B, W, H], adjT [B, W(src), W(dst)].
-Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
-launches the CUDA kernel (ops/csrc/fused_eval.cu) for CUDA tensors; it never
-falls back from one to the other. `launches` counts kernel launches.
-On MUTAG-shaped blocks both kernels' least time is set by the bytes they move
-(the adjacency dominates); the design and its limits are noted in the source.
+Training with input dropout and no BatchNorm. The dropout sits between the
+aggregation and Wa, so an iteration aggregates the state itself:
+
+    agg = adjT^T @ s (+ rT),  s' = act([Ws | Wa] @ [drop(s); drop(agg)] + fT)
+
+with fT = Wf @ drop(agg_arcs) + b formed outside for every iteration.
+
+* `train_loop` (K7, replaces `_loop_train_kernel_T`): all K iterations of
+  residual-free blocks; returns the states, movement flags and pre-dropout
+  aggregations.
+* `train_loop_bwd` (K8, replaces `_loop_train_bwd_kernel`): K7's K reverse
+  iterations, reading the saved aggregations.
+* `train_step` (K6, replaces `_train_kernel_T`): one iteration of
+  residual-coupled blocks; the state slice arrives dropped, rT is the raw
+  residual aggregation.
+
+The differentiable ops are torch.autograd.Functions: `fused_propagation_loop`
+(K3, backward K5), `fused_train_loop` (K7, backward K8), and
+`fused_propagation_step` (K4) and `fused_train_step` (K6), whose backwards
+are plain PyTorch as gnn_tpu's are XLA.
+
+Layout: node-major blocks, s [B, W, D], fT [B, W, H], adjT [B, W(src), W(dst)],
+keep-masks uint8 [.., W, D]. Each wrapper runs its plain PyTorch version
+(`*_ref`) for CPU tensors and launches the CUDA kernel (ops/csrc/fused_eval.cu,
+eval_loop_bwd.cu, train_loop.cu) for CUDA tensors; it never falls back from
+one to the other. `launches` counts kernel launches. On MUTAG-shaped blocks
+every kernel's least time is set by the bytes it moves (the adjacency and the
+per-iteration rows); the designs and their limits are noted in the sources.
 """
 
 from __future__ import annotations
@@ -30,6 +56,7 @@ import ctypes
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from gnn_tpu_torch.ops import _build
 from gnn_tpu_torch.ops.mlp import ALPHA_P, SELU_ALPHA, SELU_SCALE, drop_coeffs
@@ -83,9 +110,18 @@ def _make_drop(alpha: bool, rate: float):
     return drop, dmask
 
 
+def _drop_args(alpha_drop: bool, rate: float):
+    """(mode, a, b) of the kernels' input dropout: 0 none, 1 alpha, 2 standard."""
+    if rate <= 0.0:
+        return 0, 1.0, 0.0
+    a, b = drop_coeffs(alpha_drop, rate)
+    return (1 if alpha_drop else 2), a, b
+
+
 def supports_fused(state_spec, training: bool) -> bool:
     """The eval kernels K3/K4 take the spec: one dense layer, a kernel
-    activation, and in training no dropout and no BatchNorm."""
+    activation, and in training no dropout and no BatchNorm (K5 is K3's
+    backward, K4's is plain)."""
     if state_spec.num_layers != 1 or state_spec.activations[0] not in FUSABLE_ACTIVATIONS:
         return False
     return not (training and (state_spec.dropout_rate or state_spec.batch_normalization))
@@ -94,14 +130,17 @@ def supports_fused(state_spec, training: bool) -> bool:
 def supports_fused_train(state_spec) -> bool:
     """The training kernels take the spec: one dense layer, a kernel
     activation, dropout only at the input (position 0). BatchNorm is allowed
-    (the BN kernels K1/K2; the dropout kernels K6-K8 run it outside)."""
+    (the BN kernels K1/K2; without it the dropout kernels K6-K8)."""
     return (state_spec.num_layers == 1
             and state_spec.activations[0] in FUSABLE_ACTIVATIONS
             and all(p == 0 for p in state_spec.dropout_pos))
 
 
+# the kernel each wrapper launches (C entry point gnn_<wrapper>)
+_KERNEL = {"propagation_loop": "K3", "propagation_step": "K4", "propagation_loop_bwd": "K5",
+           "train_step": "K6", "train_loop": "K7", "train_loop_bwd": "K8"}
 # kernel launches since the last reset, by wrapper
-launches = {"propagation_loop": 0, "propagation_step": 0}
+launches = dict.fromkeys(_KERNEL, 0)
 
 
 def reset_launches() -> None:
@@ -123,14 +162,29 @@ def _affine(affine, H, like):
                         torch.zeros(H, dtype=like.dtype, device=like.device)])
 
 
+def _at(mask, k):
+    return None if mask is None else mask[k]
+
+
 # ------------------------------------------------------------ plain versions
+def moved(s, s_old, threshold: float):
+    """1.0 where a node moved, ||s - s_old|| > threshold * ||s_old||, else 0."""
+    dist = torch.sqrt(torch.sum((s - s_old) ** 2, dim=-1))
+    norm = torch.sqrt(torch.sum(s_old * s_old, dim=-1))
+    return torch.where(dist > threshold * norm, 1.0, 0.0)
+
+
+def _pre_activation(adjT, s, fT, w2):
+    """The eval kernels' h = s Ws^T + adjT^T (s Wa^T) + fT."""
+    H = w2.shape[0] // 2
+    u = torch.matmul(s, w2.t())                                 # [B, W, 2H]
+    return u[..., :H] + torch.matmul(adjT.transpose(1, 2), u[..., H:]) + fT
+
+
 def propagation_step_ref(adjT, s, rT, fT, w2, affine=None, activation: str = "tanh"):
     """Plain PyTorch K4: one iteration, [B, W, D] -> [B, W, H]."""
-    H = w2.shape[0] // 2
-    aff = _affine(affine, H, w2)
-    u = torch.matmul(s, w2.t())                                 # [B, W, 2H]
-    a = torch.matmul(adjT.transpose(1, 2), u[..., H:])         # [B, W, H]
-    h = u[..., :H] + a + fT
+    aff = _affine(affine, w2.shape[0] // 2, w2)
+    h = _pre_activation(adjT, s, fT, w2)
     if rT is not None:
         h = h + rT
     return _ACTS[activation](h) * aff[0] + aff[1]
@@ -139,17 +193,116 @@ def propagation_step_ref(adjT, s, rT, fT, w2, affine=None, activation: str = "ta
 def propagation_loop_ref(adjT, s0, fT, w2, affine, nm, K: int, threshold: float,
                          activation: str = "tanh"):
     """Plain PyTorch K3: (traj [K, B, W, H], margins [K, B, W]); margins[k]
-    is nm where the node moved before update k (||s - s_old|| > thr *
-    ||s_old||, s_old starting at ones), else 0."""
+    is nm where the node moved before update k (s_old starting at ones),
+    else 0."""
     s, s_old = s0, torch.ones_like(s0)
     traj, margins = [], []
     for _ in range(K):
-        dist = torch.sqrt(torch.sum((s - s_old) ** 2, dim=-1))
-        norm = torch.sqrt(torch.sum(s_old * s_old, dim=-1))
-        margins.append(torch.where(dist > threshold * norm, 1.0, 0.0) * nm)
+        margins.append(moved(s, s_old, threshold) * nm)
         s_old, s = s, propagation_step_ref(adjT, s, None, fT, w2, affine, activation)
         traj.append(s)
     return torch.stack(traj), torch.stack(margins)
+
+
+def _eval_step_vjp(adjT, s, h, g, w2, affine, activation: str):
+    """Reverse of one eval iteration at pre-activation h for the output
+    cotangent g (_fused_bwd_rule): (ds [B, W, D], dw2 [B, 2H, D] and daff
+    [B, 2, H] per block (daff None without an affine), dh [B, W, H])."""
+    daff = None
+    if affine is not None:
+        daff = torch.stack([torch.sum(g * _ACTS[activation](h), dim=1), torch.sum(g, dim=1)],
+                           dim=1)
+        g = g * affine[0]
+    dh = g * _act_grad(activation, h)
+    du = torch.cat([dh, torch.matmul(adjT, dh)], dim=-1)         # [B, W, 2H]
+    return torch.matmul(du, w2), torch.matmul(du.transpose(1, 2), s), daff, dh
+
+
+def propagation_loop_bwd_ref(adjT, s0, traj, fT, w2, affine, g_traj,
+                             activation: str = "tanh"):
+    """Plain PyTorch K5: the K reverse iterations of K3 for the trajectory's
+    cotangent g_traj [K, B, W, H]. Returns (gs [B, W, D], dw2 [B, 2H, D],
+    dfT [B, W, H], daff [B, 2, H] or None), dw2 and daff per block."""
+    B, _, D = s0.shape
+    H = w2.shape[0] // 2
+    gs = torch.zeros_like(s0)
+    dw2 = s0.new_zeros((B, 2 * H, D))
+    dfT = torch.zeros_like(fT)
+    daff = None if affine is None else s0.new_zeros((B, 2, H))
+    for k in reversed(range(traj.shape[0])):
+        s_in = traj[k - 1] if k else s0
+        h = _pre_activation(adjT, s_in, fT, w2)
+        gs, dw2_k, daff_k, dh = _eval_step_vjp(adjT, s_in, h, g_traj[k] + gs, w2, affine,
+                                               activation)
+        dw2 = dw2 + dw2_k
+        dfT = dfT + dh
+        if daff is not None:
+            daff = daff + daff_k
+    return gs, dw2, dfT, daff
+
+
+def train_loop_ref(adjT, s0, ms, ma, fT, w_cat, nm, K: int, threshold: float,
+                   activation: str = "tanh", alpha_drop: bool = True, rate: float = 0.0):
+    """Plain PyTorch K7: (traj [K, B, W, D], margins [K, B, W], agg
+    [K, B, W, D] the aggregations before the dropout)."""
+    drop, _ = _make_drop(alpha_drop, rate)
+    s, s_old = s0, torch.ones_like(s0)
+    traj, margins, aggs = [], [], []
+    for k in range(K):
+        margins.append(moved(s, s_old, threshold) * nm)
+        agg = torch.matmul(adjT.transpose(1, 2), s)
+        x2 = torch.cat([drop(s, _at(ms, k)), drop(agg, _at(ma, k))], dim=-1)
+        s_old, s = s, _ACTS[activation](F.linear(x2, w_cat) + fT[k])
+        traj.append(s)
+        aggs.append(agg)
+    return torch.stack(traj), torch.stack(margins), torch.stack(aggs)
+
+
+def train_loop_bwd_ref(adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj,
+                       activation: str = "tanh", alpha_drop: bool = True, rate: float = 0.0):
+    """Plain PyTorch K8: the K reverse iterations of K7 for the trajectory's
+    cotangent g_traj. Returns (gs [B, W, D], dw [B, H, 2D] per block, dfT
+    [K, B, W, H])."""
+    drop, dmask = _make_drop(alpha_drop, rate)
+    B, _, D = s0.shape
+    gs = torch.zeros_like(s0)
+    dw = s0.new_zeros((B, w_cat.shape[0], 2 * D))
+    dfT = [None] * traj.shape[0]
+    for k in reversed(range(traj.shape[0])):
+        s_in = traj[k - 1] if k else s0
+        x2 = torch.cat([drop(s_in, _at(ms, k)), drop(agg[k], _at(ma, k))], dim=-1)
+        dh = (g_traj[k] + gs) * _act_grad(activation, F.linear(x2, w_cat) + fT[k])
+        dfT[k] = dh
+        dw = dw + torch.matmul(dh.transpose(1, 2), x2)
+        dx2 = torch.matmul(dh, w_cat)
+        gs = (dx2[..., :D] * dmask(_at(ms, k))
+              + torch.matmul(adjT, dx2[..., D:] * dmask(_at(ma, k))))
+    return gs, dw, torch.stack(dfT)
+
+
+def train_step_ref(adjT, s, sd, m, rT, fT, w_cat, activation: str = "tanh",
+                   alpha_drop: bool = True, rate: float = 0.0):
+    """Plain PyTorch K6: (y [B, W, H], agg [B, W, D] before the dropout)."""
+    drop, _ = _make_drop(alpha_drop, rate)
+    agg = torch.matmul(adjT.transpose(1, 2), s)
+    if rT is not None:
+        agg = agg + rT
+    x2 = torch.cat([sd, drop(agg, m)], dim=-1)
+    return _ACTS[activation](F.linear(x2, w_cat) + fT), agg
+
+
+def _train_step_vjp(adjT, sd, m, fT, w_cat, agg, gy, activation, alpha_drop, rate):
+    """Plain backward of K6 (_train_bwd_rule): h recomputed from the saved
+    aggregation. Returns (ds, dsd, dagg, dfT, dw_cat); dagg is also the raw
+    residual's cotangent."""
+    drop, dmask = _make_drop(alpha_drop, rate)
+    D = sd.shape[-1]
+    x2 = torch.cat([sd, drop(agg, m)], dim=-1)
+    dh = gy * _act_grad(activation, F.linear(x2, w_cat) + fT)
+    dx2 = torch.matmul(dh, w_cat)
+    dagg = dx2[..., D:] * dmask(m)
+    return (torch.matmul(adjT, dagg), dx2[..., :D], dagg, dh,
+            torch.einsum("bwh,bwc->hc", dh, x2))
 
 
 # ------------------------------------------------------------------ wrappers
@@ -166,6 +319,20 @@ def _check(name, t, shape, device):
         raise ValueError(f"{name} must be 16-byte aligned")
 
 
+def _check_keep(keep, shape, dev, rate, name="keep"):
+    """The keep-mask a kernel reads: None without dropout, else a contiguous
+    uint8 tensor of `shape` on `dev`."""
+    if rate <= 0.0:
+        return None
+    if keep is None:
+        raise ValueError(f"a keep-mask {name} is required when the dropout rate is positive")
+    if keep.device != dev or keep.dtype != torch.uint8 or tuple(keep.shape) != tuple(shape) \
+            or not keep.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous uint8 tensor of shape {tuple(shape)} "
+                         f"on {dev}, got {keep.dtype} {tuple(keep.shape)} on {keep.device}")
+    return keep
+
+
 def _check_block(adjT, D, H):
     B, W, W2 = adjT.shape
     if W != W2 or W % 32 or not 32 <= W <= 128:
@@ -176,12 +343,27 @@ def _check_block(adjT, D, H):
         raise ValueError(f"propagation kernels need CPU or CUDA tensors, got {adjT.device}")
 
 
+def _check_loop_width(D, H):
+    if H != D:
+        raise ValueError(f"loop kernel needs state width H == D ({H} != {D})")
+
+
 def _ptr(t: Optional[torch.Tensor]):
     return ctypes.c_void_p(None if t is None else t.data_ptr())
 
 
 def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _launch(key: str, device, *args) -> None:
+    """Launch gnn_<key> on `device`'s current stream, raise on its error
+    code, and count the launch."""
+    lib = _build.library()
+    with torch.cuda.device(device):
+        err = getattr(lib, f"gnn_{key}")(*args, _stream(device))
+    _build.check(err, f"{key} ({_KERNEL[key]})")
+    launches[key] += 1
 
 
 def propagation_step(adjT, s, rT, fT, w2, affine=None, activation: str = "tanh"):
@@ -212,13 +394,9 @@ def propagation_step(adjT, s, rT, fT, w2, affine=None, activation: str = "tanh")
     out = torch.empty((B, W, H), dtype=torch.float32, device=dev)
     if B == 0:
         return out
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.gnn_propagation_step(
+    _launch("propagation_step", dev,
             _ptr(adjT), _ptr(s), _ptr(rT), _ptr(fT), _ptr(w2), _ptr(aff), _ptr(out),
-            B, W, D, H, _ACT_CODE[activation], _stream(dev))
-    _build.check(err, "propagation_step (K4)")
-    launches["propagation_step"] += 1
+            B, W, D, H, _ACT_CODE[activation])
     return out
 
 
@@ -237,8 +415,7 @@ def propagation_loop(adjT, s0, fT, w2, affine, nm, K: int, threshold: float,
         return propagation_loop_ref(adjT, s0, fT, w2, affine, nm, K, threshold, activation)
     B, W, _ = adjT.shape
     D, H = s0.shape[-1], w2.shape[0] // 2
-    if H != D:
-        raise ValueError(f"loop kernel needs state width H == D ({H} != {D})")
+    _check_loop_width(D, H)
     _check_block(adjT, D, H)
     dev = adjT.device
     aff = _affine(affine, H, w2)
@@ -252,12 +429,263 @@ def propagation_loop(adjT, s0, fT, w2, affine, nm, K: int, threshold: float,
     margins = torch.empty((K, B, W), dtype=torch.float32, device=dev)
     if B == 0 or K == 0:
         return traj, margins
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        err = lib.gnn_propagation_loop(
+    _launch("propagation_loop", dev,
             _ptr(adjT), _ptr(s0), _ptr(fT), _ptr(w2), _ptr(aff), _ptr(nm), _ptr(traj),
-            _ptr(margins), B, W, D, int(K), float(threshold), _ACT_CODE[activation],
-            _stream(dev))
-    _build.check(err, "propagation_loop (K3)")
-    launches["propagation_loop"] += 1
+            _ptr(margins), B, W, D, int(K), float(threshold), _ACT_CODE[activation])
     return traj, margins
+
+
+def propagation_loop_bwd(adjT, s0, traj, fT, w2, affine, g_traj, activation: str = "tanh"):
+    """K5: the K reverse iterations of K3 over residual-free blocks.
+
+    :param adjT, s0, fT, w2, affine: K3's operands (affine may be None).
+    :param traj: [K, B, W, D] K3's trajectory; g_traj: its cotangent.
+    Returns (gs [B, W, D], dw2 [B, 2D, D], dfT [B, W, D], daff [B, 2, D] or
+    None), dw2 and daff per block.
+    """
+    if adjT.device.type == "cpu":
+        return propagation_loop_bwd_ref(adjT, s0, traj, fT, w2, affine, g_traj, activation)
+    B, W, _ = adjT.shape
+    K = traj.shape[0]
+    D, H = s0.shape[-1], w2.shape[0] // 2
+    _check_loop_width(D, H)
+    _check_block(adjT, D, H)
+    dev = adjT.device
+    _check("adjT", adjT, (B, W, W), dev)
+    _check("s0", s0, (B, W, D), dev)
+    _check("traj", traj, (K, B, W, D), dev)
+    _check("fT", fT, (B, W, D), dev)
+    _check("w2", w2, (2 * D, D), dev)
+    if affine is not None:
+        _check("affine", affine, (2, D), dev)
+    _check("g_traj", g_traj, (K, B, W, D), dev)
+    gs = torch.empty((B, W, D), dtype=torch.float32, device=dev)
+    dw2 = torch.empty((B, 2 * D, D), dtype=torch.float32, device=dev)
+    dfT = torch.empty_like(gs)
+    daff = None if affine is None else torch.empty((B, 2, D), dtype=torch.float32, device=dev)
+    if B == 0 or K == 0:
+        return gs.zero_(), dw2.zero_(), dfT.zero_(), None if daff is None else daff.zero_()
+    _launch("propagation_loop_bwd", dev,
+            _ptr(adjT), _ptr(s0), _ptr(traj), _ptr(fT), _ptr(w2), _ptr(affine), _ptr(g_traj),
+            _ptr(gs), _ptr(dw2), _ptr(dfT), _ptr(daff), B, W, D, K, _ACT_CODE[activation])
+    return gs, dw2, dfT, daff
+
+
+def train_loop(adjT, s0, ms, ma, fT, w_cat, nm, K: int, threshold: float,
+               activation: str = "tanh", alpha_drop: bool = True, rate: float = 0.0):
+    """K7: all K dropout-training iterations over residual-free blocks.
+
+    :param adjT: [B, W, W] transposed block adjacency of the loop blocks.
+    :param s0: [B, W, D] initial states.
+    :param ms / ma: uint8 [K, B, W, D] keep-masks of the state and aggregated
+        slices of the dense input (None when rate == 0).
+    :param fT: [K, B, W, D] per-iteration feature term Wf @ drop(agg_arcs) + b.
+    :param w_cat: [D, 2D] dense columns [Ws | Wa]; nm: [B, W] float node mask.
+    Returns (traj [K, B, W, D], margins [K, B, W], agg [K, B, W, D]).
+    """
+    kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate)
+    if adjT.device.type == "cpu":
+        return train_loop_ref(adjT, s0, ms, ma, fT, w_cat, nm, K, threshold, **kw)
+    B, W, _ = adjT.shape
+    D, H = s0.shape[-1], w_cat.shape[0]
+    _check_loop_width(D, H)
+    _check_block(adjT, D, H)
+    dev = adjT.device
+    _check("adjT", adjT, (B, W, W), dev)
+    _check("s0", s0, (B, W, D), dev)
+    _check("fT", fT, (K, B, W, D), dev)
+    _check("w_cat", w_cat, (D, 2 * D), dev)
+    _check("nm", nm, (B, W), dev)
+    ms = _check_keep(ms, (K, B, W, D), dev, rate, "ms")
+    ma = _check_keep(ma, (K, B, W, D), dev, rate, "ma")
+    traj = torch.empty((K, B, W, D), dtype=torch.float32, device=dev)
+    margins = torch.empty((K, B, W), dtype=torch.float32, device=dev)
+    agg = torch.empty_like(traj)
+    if B == 0 or K == 0:
+        return traj, margins, agg
+    mode, a, b = _drop_args(alpha_drop, rate)
+    _launch("train_loop", dev,
+            _ptr(adjT), _ptr(s0), _ptr(ms), _ptr(ma), _ptr(fT), _ptr(w_cat), _ptr(nm),
+            _ptr(traj), _ptr(margins), _ptr(agg), B, W, D, int(K), float(threshold),
+            _ACT_CODE[activation], mode, a, b)
+    return traj, margins, agg
+
+
+def train_loop_bwd(adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj, activation: str = "tanh",
+                   alpha_drop: bool = True, rate: float = 0.0):
+    """K8: the K reverse iterations of K7 over residual-free blocks.
+
+    :param traj, agg: [K, B, W, D] K7's trajectory and aggregations.
+    :param g_traj: [K, B, W, D] the trajectory's cotangent.
+    Other arguments as train_loop. Returns (gs [B, W, D], dw [B, D, 2D] per
+    block, dfT [K, B, W, D]).
+    """
+    kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate)
+    if adjT.device.type == "cpu":
+        return train_loop_bwd_ref(adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj, **kw)
+    B, W, _ = adjT.shape
+    K = traj.shape[0]
+    D, H = s0.shape[-1], w_cat.shape[0]
+    _check_loop_width(D, H)
+    _check_block(adjT, D, H)
+    dev = adjT.device
+    _check("adjT", adjT, (B, W, W), dev)
+    _check("s0", s0, (B, W, D), dev)
+    for name, t in (("traj", traj), ("agg", agg), ("fT", fT), ("g_traj", g_traj)):
+        _check(name, t, (K, B, W, D), dev)
+    _check("w_cat", w_cat, (D, 2 * D), dev)
+    ms = _check_keep(ms, (K, B, W, D), dev, rate, "ms")
+    ma = _check_keep(ma, (K, B, W, D), dev, rate, "ma")
+    gs = torch.empty((B, W, D), dtype=torch.float32, device=dev)
+    dw = torch.empty((B, D, 2 * D), dtype=torch.float32, device=dev)
+    dfT = torch.empty_like(traj)
+    if B == 0 or K == 0:
+        return gs.zero_(), dw.zero_(), dfT
+    mode, a, b = _drop_args(alpha_drop, rate)
+    _launch("train_loop_bwd", dev,
+            _ptr(adjT), _ptr(s0), _ptr(traj), _ptr(agg), _ptr(ms), _ptr(ma), _ptr(fT),
+            _ptr(w_cat), _ptr(g_traj), _ptr(gs), _ptr(dw), _ptr(dfT), B, W, D, K,
+            _ACT_CODE[activation], mode, a, b)
+    return gs, dw, dfT
+
+
+def train_step(adjT, s, sd, m, rT, fT, w_cat, activation: str = "tanh", alpha_drop: bool = True,
+               rate: float = 0.0):
+    """K6: one dropout-training iteration over residual-coupled blocks.
+
+    :param adjT: [B, W, W] transposed block adjacency of the dep blocks.
+    :param s: [B, W, D] states (aggregated); sd: [B, W, D] the states after
+        the state slice's dropout.
+    :param m: uint8 [B, W, D] keep-mask of the aggregated slice (None when
+        rate == 0).
+    :param rT: [B, W, D] raw residual aggregation (before the dense layer and
+        the dropout), or None.
+    :param fT: [B, W, H] feature term; w_cat: [H, 2D] dense columns [Ws | Wa].
+    Returns (y [B, W, H], agg [B, W, D] the aggregation before the dropout).
+    """
+    kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate)
+    if adjT.device.type == "cpu":
+        return train_step_ref(adjT, s, sd, m, rT, fT, w_cat, **kw)
+    B, W, _ = adjT.shape
+    D, H = s.shape[-1], w_cat.shape[0]
+    _check_block(adjT, D, H)
+    dev = adjT.device
+    _check("adjT", adjT, (B, W, W), dev)
+    for name, t in (("s", s), ("sd", sd), ("rT", rT)):
+        if t is not None:
+            _check(name, t, (B, W, D), dev)
+    _check("fT", fT, (B, W, H), dev)
+    _check("w_cat", w_cat, (H, 2 * D), dev)
+    m = _check_keep(m, (B, W, D), dev, rate, "m")
+    y = torch.empty((B, W, H), dtype=torch.float32, device=dev)
+    agg = torch.empty((B, W, D), dtype=torch.float32, device=dev)
+    if B == 0:
+        return y, agg
+    mode, a, b = _drop_args(alpha_drop, rate)
+    _launch("train_step", dev,
+            _ptr(adjT), _ptr(s), _ptr(sd), _ptr(m), _ptr(rT), _ptr(fT), _ptr(w_cat), _ptr(y),
+            _ptr(agg), B, W, D, H, _ACT_CODE[activation], mode, a, b)
+    return y, agg
+
+
+# ------------------------------------------------------- differentiable ops
+class _PropagationLoop(torch.autograd.Function):
+    """K3 forward, K5 backward (_fused_loop_fwd / _fused_loop_bwd); the
+    movement flags carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, s0, fT, w2, affine, adjT, nm, K, threshold, activation):
+        traj, margins = propagation_loop(adjT, s0, fT, w2, affine, nm, K, threshold, activation)
+        ctx.saved = (adjT, s0, fT, w2, affine, traj, activation)
+        ctx.mark_non_differentiable(margins)
+        return traj, margins
+
+    @staticmethod
+    def backward(ctx, g_traj, _g_margins):
+        adjT, s0, fT, w2, affine, traj, activation = ctx.saved
+        gs, dw2, dfT, daff = propagation_loop_bwd(adjT, s0, traj, fT, w2, affine,
+                                                  g_traj.contiguous(), activation)
+        # fT is loop-invariant: K5 summed its cotangent over the iterations
+        return (gs, dfT, dw2.sum(0), None if daff is None else daff.sum(0)) + (None,) * 5
+
+
+class _PropagationStep(torch.autograd.Function):
+    """K4 forward, plain backward (_fused_bwd_rule)."""
+
+    @staticmethod
+    def forward(ctx, s, rT, fT, w2, affine, adjT, activation):
+        ctx.saved = (adjT, s, rT, fT, w2, affine, activation)
+        return propagation_step(adjT, s, rT, fT, w2, affine, activation)
+
+    @staticmethod
+    def backward(ctx, g):
+        adjT, s, rT, fT, w2, affine, activation = ctx.saved
+        h = _pre_activation(adjT, s, fT, w2)
+        if rT is not None:
+            h = h + rT
+        ds, dw2, daff, dh = _eval_step_vjp(adjT, s, h, g, w2, affine, activation)
+        return (ds, None if rT is None else dh, dh, dw2.sum(0),
+                None if daff is None else daff.sum(0), None, None)
+
+
+class _TrainLoop(torch.autograd.Function):
+    """K7 forward, K8 backward (_loop_train_fwd / _loop_train_bwd)."""
+
+    @staticmethod
+    def forward(ctx, s0, fT, w_cat, adjT, ms, ma, nm, K, threshold, activation, alpha_drop,
+                rate):
+        kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate)
+        traj, margins, agg = train_loop(adjT, s0, ms, ma, fT, w_cat, nm, K, threshold, **kw)
+        ctx.saved = (adjT, s0, traj, agg, ms, ma, fT, w_cat, kw)
+        ctx.mark_non_differentiable(margins)
+        return traj, margins
+
+    @staticmethod
+    def backward(ctx, g_traj, _g_margins):
+        adjT, s0, traj, agg, ms, ma, fT, w_cat, kw = ctx.saved
+        gs, dw, dfT = train_loop_bwd(adjT, s0, traj, agg, ms, ma, fT, w_cat,
+                                     g_traj.contiguous(), **kw)
+        return (gs, dfT, dw.sum(0)) + (None,) * 9
+
+
+class _TrainStep(torch.autograd.Function):
+    """K6 forward, plain backward (_train_bwd_rule)."""
+
+    @staticmethod
+    def forward(ctx, s, sd, rT, fT, w_cat, adjT, m, activation, alpha_drop, rate):
+        kw = (activation, alpha_drop, rate)
+        y, agg = train_step(adjT, s, sd, m, rT, fT, w_cat, *kw)
+        ctx.saved = (adjT, sd, m, fT, w_cat, agg, rT is not None, kw)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        adjT, sd, m, fT, w_cat, agg, has_res, kw = ctx.saved
+        ds, dsd, dagg, dfT, dw = _train_step_vjp(adjT, sd, m, fT, w_cat, agg, gy, *kw)
+        return (ds, dsd, dagg if has_res else None, dfT, dw) + (None,) * 5
+
+
+def fused_propagation_loop(adjT, s0, fT, w2, affine, nm, K: int, threshold: float,
+                           activation: str = "tanh"):
+    """propagation_loop (K3) with gradients to s0, fT, w2 and affine through
+    K5. Returns (traj, margins); margins carry none."""
+    return _PropagationLoop.apply(s0, fT, w2, affine, adjT, nm, K, threshold, activation)
+
+
+def fused_propagation_step(adjT, s, rT, fT, w2, affine=None, activation: str = "tanh"):
+    """propagation_step (K4) with gradients to s, rT, fT, w2 and affine."""
+    return _PropagationStep.apply(s, rT, fT, w2, affine, adjT, activation)
+
+
+def fused_train_loop(adjT, s0, ms, ma, fT, w_cat, nm, K: int, threshold: float,
+                     activation: str = "tanh", alpha_drop: bool = True, rate: float = 0.0):
+    """train_loop (K7) with gradients to s0, fT and w_cat through K8.
+    Returns (traj, margins); margins carry none."""
+    return _TrainLoop.apply(s0, fT, w_cat, adjT, ms, ma, nm, K, threshold, activation,
+                            alpha_drop, rate)
+
+
+def fused_train_step(adjT, s, sd, m, rT, fT, w_cat, activation: str = "tanh",
+                     alpha_drop: bool = True, rate: float = 0.0):
+    """train_step (K6) with gradients to s, sd, rT, fT and w_cat. Returns y."""
+    return _TrainStep.apply(s, sd, rT, fT, w_cat, adjT, m, activation, alpha_drop, rate)

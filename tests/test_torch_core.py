@@ -97,7 +97,7 @@ def test_hybrid_forward_matches(threshold):
     rt = _compare(js, ts, jgs, tgs)
     if threshold == 1e9:
         assert float(rt["iters"]) == 0.0
-    assert tfused.launches == {"propagation_loop": 0, "propagation_step": 0}
+    assert not any(tfused.launches.values())                 # plain versions on the CPU
 
 
 @pytest.mark.parametrize("act,focus,big", [("tanh", "g", False), ("relu", "n", True),
@@ -175,19 +175,34 @@ def test_params_round_trip(tmp_path):
     assert tuple(flat_p["output"]["dense_0"]["w"].shape) == (2, 5)
 
 
+@pytest.mark.parametrize("route", ["dropout", "hybrid"])
+def test_bn_free_specs_train(route):
+    """Training without BatchNorm: with input dropout the kernels K6-K8, with
+    neither the eval kernels and K3's backward K5. Gradients reach the state
+    net's dense layer (tests/test_torch_train_bnfree.py holds them to gnn_tpu)."""
+    _, ts = _specs()
+    _, tgs = _graphs(0, n=4)
+    tb = tbatch.from_graphs_blocked(tgs, block_w=32, fused_layout=True)
+    no_bn = dataclasses.replace(ts.state_spec, batch_normalization=False)
+    ss = no_bn if route == "dropout" else dataclasses.replace(no_bn, dropout_rate=(),
+                                                              dropout_pos=())
+    spec = dataclasses.replace(ts, state_spec=ss)
+    assert tcore._train_route(spec, tb) == route
+    params, bn = tcore.gnn_init(spec, torch.Generator().manual_seed(0))
+    w = params["state"]["dense_0"]["w"].requires_grad_()
+    masks = tcore.draw_masks(spec, tb, torch.Generator().manual_seed(1))
+    iters, state, bn_out = tcore.propagate(spec, params["state"], bn["state"], tb,
+                                           training=True, keep=masks["state"])
+    assert bn_out == {} and state.shape == tb.nodes.shape and 0 < float(iters) <= 4
+    torch.sum(torch.tanh(state)).backward()
+    assert torch.isfinite(w.grad).all() and (w.grad != 0).any()
+
+
 def test_unported_paths_raise():
     js, ts = _specs()
     _, tgs = _graphs(0, n=4, big=False)
     tb = tbatch.from_graphs_blocked(tgs, block_w=32, fused_layout=True)
     _, (tp, tbn) = _weights(js)
-    # training without BatchNorm: with input dropout the kernels K6-K8, with
-    # neither the eval kernels' backward K5 (BN training runs K1/K2)
-    no_bn = dataclasses.replace(ts.state_spec, batch_normalization=False)
-    clean = dataclasses.replace(no_bn, dropout_rate=(), dropout_pos=())
-    for ss, match in ((no_bn, "K6-K8"), (clean, "K5")):
-        with pytest.raises(NotImplementedError, match=match):
-            tcore.propagate(dataclasses.replace(ts, state_spec=ss), tp["state"], {}, tb,
-                            training=True)
     with pytest.raises(NotImplementedError, match="state_dim"):
         tcore.propagate(dataclasses.replace(ts, state_dim=4), tp["state"], tbn["state"], tb)
     js2, ts2 = _specs(act="tanh", units=(7, 5))
@@ -208,3 +223,32 @@ def test_entry_points_default_to_the_card():
         GNNgraphBased(ts.state_spec, ts.output_spec)
     model = GNNgraphBased(ts.state_spec, ts.output_spec, seed=0, device="cpu")
     assert model.params["state"]["dense_0"]["w"].device.type == "cpu"
+
+
+def test_bn_free_model_round_trip(tmp_path):
+    """A BN-free state net (no 'bn' leaves) carries across from gnn_tpu with
+    set_weights, trains, saves in gnn_tpu's format and loads back in both
+    packages with the same weights and eval outputs."""
+    from gnn_tpu.models.gnn import GNNgraphBased as JGraph
+    js, ts = _specs(bn=False)
+    (jp, jbn), _ = _weights(js)
+    assert "bn" not in jp["state"] and jbn["state"] == {}
+    jgs, tgs = _graphs(5)
+    model = GNNgraphBased(ts.state_spec, ts.output_spec, max_iteration=4, threshold=0.01, seed=0,
+                          device="cpu")
+    model.set_weights(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
+    tb = model.to_batch(tgs, block_w=32)
+    assert tcore._train_route(model.spec, tb) == "dropout"
+    for _ in range(2):
+        assert np.isfinite(float(model.training_step(tb)["loss"]))
+    model.save(str(tmp_path / "m"))
+    jm = JGraph.load(str(tmp_path / "m"), path_writer=str(tmp_path / "writer"))
+    assert "bn" not in jm.params["state"] and jm.bn["state"] == {}
+    np.testing.assert_array_equal(np.asarray(jm.params["state"]["dense_0"]["w"]),
+                                  model.params["state"]["dense_0"]["w"].detach().numpy().T)
+    back = GNNgraphBased.load(str(tmp_path / "m"), device="cpu")
+    np.testing.assert_array_equal(back.Loop(tb)[2], model.Loop(tb)[2])
+    jb = jbatch.from_graphs_blocked(jgs, block_w=32, focus="g", fused_layout=True)
+    rj = jcore.gnn_forward(jm.spec, jm.params, jm.bn, jb, jax.random.key(0))
+    np.testing.assert_allclose(model.forward(tb)["out"].numpy(), np.asarray(rj["out"]),
+                               atol=ATOL)

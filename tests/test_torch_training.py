@@ -204,7 +204,7 @@ def test_training_step_matches_gnn_tpu(threshold, state_drop):
     with torch.no_grad():
         iters_t, loss_t, res_t = tcore.evaluate_single(model.spec, model.params, model.bn, tb,
                                                        LOSS, {}, training=True, masks=masks)
-    assert tcore._uses_bn_kernels(model.spec, tb)                        # the K1/K2 route
+    assert tcore._train_route(model.spec, tb) == "bn"                     # the K1/K2 route
     tbn.reset_launches()
     out = model.training_step(tb, mean=True, masks=masks)
     assert tbn.launches == {"bn_forward_step": 0, "bn_backward_step": 0}   # plain on the CPU
