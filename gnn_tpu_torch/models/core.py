@@ -13,13 +13,18 @@ Dispatch follows gnn_tpu's `aggregation='auto'`:
   kernel activation takes the hybrid path: K3 (`propagation_loop`) runs
   every iteration of the residual-free blocks, K4 (`propagation_step`) one
   iteration per step of the residual-coupled blocks, and the global early
-  stop is rebuilt from K3's movement flags;
-* in training, such a spec takes one of three routes: with neither dropout
-  nor BatchNorm the same hybrid path, differentiated through K5 (K3's
-  backward) and K4's plain backward; with input dropout and no BatchNorm
-  the dropout kernels, K7 (`train_loop`, backward K8) over the loop blocks
-  and K6 (`train_step`) per step over the dep blocks; with the trailing
-  BatchNorm and dropout only at the input the BN kernels K1/K2 (ops/bn.py);
+  stop is rebuilt from K3's movement flags; a two-layer state net (the
+  hidden-150 recipe) takes the same path through K10 (`propagation_loop2`)
+  and K9 (`propagation_step2`), ops/fused2.py;
+* in training, a one-layer spec takes one of three routes: with neither
+  dropout nor BatchNorm the same hybrid path, differentiated through K5
+  (K3's backward) and K4's plain backward; with input dropout and no
+  BatchNorm the dropout kernels, K7 (`train_loop`, backward K8) over the loop
+  blocks and K6 (`train_step`) per step over the dep blocks; with the
+  trailing BatchNorm and dropout only at the input the BN kernels K1/K2
+  (ops/bn.py); a two-layer spec with input dropout and no BatchNorm runs K12
+  (`train_loop2`, backward K13) over the loop blocks and a plain step over
+  the dep blocks, as gnn_tpu does;
 * what gnn_tpu sends to its XLA body (no loop layout, activations the
   kernels do not take, dropout inside the net) runs the plain body here;
 * what gnn_tpu sends to a kernel not ported yet raises NotImplementedError.
@@ -44,6 +49,8 @@ from gnn_tpu_torch.ops.fused import (FUSABLE_ACTIVATIONS, _make_drop, bn_inferen
                                      fused_propagation_loop, fused_propagation_step,
                                      fused_train_loop, fused_train_step, moved,
                                      supports_fused, supports_fused_train)
+from gnn_tpu_torch.ops.fused2 import (dense2, fused_propagation_loop2, fused_propagation_step2,
+                                      fused_train_loop2, supports_fused2, supports_fused2_train)
 from gnn_tpu_torch.ops.mlp import (MLPSpec, dropout_widths, mlp_apply, mlp_init,
                                    mlp_regularization)
 from gnn_tpu_torch.training.losses import get_loss
@@ -143,26 +150,26 @@ def _needs_loop_layout(spec: GNNSpec, gb: GraphBatch, kernels: str) -> bool:
     return False
 
 
-def _uses_kernels(spec: GNNSpec, gb: GraphBatch) -> bool:
-    """Static dispatch of gnn_tpu's propagate at eval (core.py:354-466)."""
+def _eval_route(spec: GNNSpec, gb: GraphBatch) -> str:
+    """Static dispatch of gnn_tpu's propagate at eval (core.py:354-466):
+    'hybrid' (K3/K4: a one-layer state net), 'hybrid2' (K10/K9: a two-layer
+    one) or 'plain' (the plain body)."""
     ss = spec.state_spec
-    if not _check_aggregation(spec) or not _needs_loop_layout(spec, gb, "K4"):
-        return False
-    if ss.units[-1] != gb.nodes.shape[1] or not all(a in FUSABLE_ACTIVATIONS
-                                                     for a in ss.activations):
-        return False
-    if ss.num_layers == 2:
-        raise NotImplementedError(
-            "two-layer state nets run the 2-layer eval kernels K9/K10 "
-            "(pallas_fused.py::_step2_kernel_T/_loop2_kernel_T), not ported yet")
-    return ss.num_layers == 1
+    if not _check_aggregation(spec) or not _needs_loop_layout(spec, gb, "K4 or K9"):
+        return "plain"
+    if ss.units[-1] != gb.nodes.shape[1]:
+        return "plain"
+    if supports_fused(ss, training=False):
+        return "hybrid"
+    return "hybrid2" if supports_fused2(ss, training=False) else "plain"
 
 
 def _train_route(spec: GNNSpec, gb: GraphBatch) -> str:
     """Static dispatch of gnn_tpu's propagate in training (core.py:354-474):
     'hybrid' (K3/K5 and K4: neither dropout nor BatchNorm), 'dropout' (K6-K8:
-    input dropout, no BatchNorm), 'bn' (K1/K2) or 'plain' (the plain body);
-    raises where gnn_tpu runs a training kernel not ported yet."""
+    input dropout, no BatchNorm), 'bn' (K1/K2), 'dropout2' (K12/K13: a
+    two-layer net with input dropout, no BatchNorm) or 'plain' (the plain
+    body); raises where gnn_tpu runs a training kernel not ported yet."""
     ss = spec.state_spec
     if not _check_aggregation(spec) or not _needs_loop_layout(spec, gb, "the kernels"):
         return "plain"
@@ -175,11 +182,18 @@ def _train_route(spec: GNNSpec, gb: GraphBatch) -> str:
         if not ss.batch_normalization and supports_fused_train(ss):
             return "dropout"
         return "bn" if supports_fused_bn_train(ss) else "plain"
-    if ss.num_layers == 2 and all(p == 0 for p in ss.dropout_pos):
+    if ss.num_layers != 2:
+        return "plain"
+    if supports_fused2(ss, training=True):
         raise NotImplementedError(
-            "two-layer state nets train through the kernels K10-K15 "
-            "(pallas_fused.py::_loop2_*_kernel*, pallas_bn.py::_bn2_*_kernel), "
-            "not ported yet")
+            "a two-layer state net without dropout and BatchNorm trains through K10 and "
+            "its backward K11 (pallas_fused.py::_loop2_bwd_kernel), not ported yet")
+    if supports_fused2_train(ss):
+        return "dropout2"
+    if ss.batch_normalization and all(p == 0 for p in ss.dropout_pos):
+        raise NotImplementedError(
+            "a two-layer state net with BatchNorm trains through the kernels K14/K15 "
+            "(pallas_bn.py::_bn2_fwd_kernel/_bn2_bwd_kernel), not ported yet")
     return "plain"
 
 
@@ -214,19 +228,20 @@ def propagate(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
             "state_dim > 0 draws its initial state from the JAX PRNG and folds "
             "labels into the kernels; not ported yet")
     keep = keep or {}
-    if training:
-        route = _train_route(spec, gb)
-    else:
-        route = "hybrid" if _uses_kernels(spec, gb) else "plain"
+    route = _train_route(spec, gb) if training else _eval_route(spec, gb)
     if route == "bn":
         return bn_train_propagate(spec, params_state, bn_state, gb, keep.get(0))
+    if route == "plain":
+        return _propagate_plain(spec, params_state, bn_state, gb, training, keep)
     if route == "dropout":
         k, state = _propagate_dropout(spec, params_state, gb, keep.get(0))
-        return k, state, bn_state
-    if route == "hybrid":
+    elif route == "dropout2":
+        k, state = _propagate_dropout2(spec, params_state, gb, keep.get(0))
+    elif route == "hybrid":
         k, state = _propagate_hybrid(spec, params_state, bn_state, gb)
-        return k, state, bn_state
-    return _propagate_plain(spec, params_state, bn_state, gb, training, keep)
+    else:
+        k, state = _propagate_hybrid2(spec, params_state, bn_state, gb)
+    return k, state, bn_state
 
 
 def _propagate_plain(spec, params_state, bn_state, gb, training=False, keep=None):
@@ -352,6 +367,57 @@ def _propagate_hybrid(spec, params_state, bn_state, gb):
     return _finish_hybrid(gb, thr, traj, margins, loop["s0"], dep["s"], step)
 
 
+def _dense2_weights(params_state) -> dict:
+    """The two-layer kernels' weights: w0 [H1, 2D + AL] = [Ws | Wa | Wf], b0,
+    w1 [D, H1], b1 (the params themselves, made contiguous)."""
+    p0, p1 = params_state["dense_0"], params_state["dense_1"]
+    return dict(w0=p0["w"].contiguous(), b0=p0["b"], w1=p1["w"].contiguous(), b1=p1["b"])
+
+
+def hybrid2_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
+    """The two-layer eval kernels' operands (gnn_tpu core.py:475-608 with
+    `two`): (loop, dep). `loop` holds K10's tensor arguments (adjT, s0, feats,
+    w0, b0, w1, b1, affine, nm) for the loop blocks; `dep` holds K9's (adjT, s,
+    feats, the weights, affine) for the dep blocks at their initial states, or
+    is None without dep blocks. feats is the raw arc-label aggregation: the
+    kernels form Wf @ feats + b0 themselves."""
+    W = gb.block_w
+    Np, D = gb.nodes.shape
+    B = Np // W
+    affine = None
+    if spec.state_spec.batch_normalization:
+        affine = bn_inference_affine(params_state["bn"]["gamma"], params_state["bn"]["beta"],
+                                     bn_state["mean"], bn_state["var"])
+    wts = _dense2_weights(params_state)
+    s03 = gb.nodes.reshape(B, W, D)
+    f3 = gb.agg_arcs_cache.reshape(B, W, -1)
+    li = gb.loop_ids
+    loop = dict(adjT=gb.adj_loop, s0=s03[li], feats=f3[li], affine=affine, nm=gb.loop_nm, **wts)
+    dep = None
+    if gb.adj_dep is not None:
+        di = gb.dep_ids
+        dep = dict(adjT=gb.adj_dep, s=s03[di], feats=f3[di], affine=affine, **wts)
+    return loop, dep
+
+
+def _propagate_hybrid2(spec, params_state, bn_state, gb):
+    """K10 over the loop blocks, K9 per step over the dep blocks with the raw
+    residual aggregation (gnn_tpu core.py:475-608 with `two`). A backward
+    through K10 raises: its gradient is K11, not ported."""
+    thr = float(spec.threshold)
+    acts = dict(zip(("act0", "act1"), spec.state_spec.activations))
+    loop, dep = hybrid2_operands(spec, params_state, bn_state, gb)
+    traj, margins = fused_propagation_loop2(**loop, K=spec.max_iteration, threshold=thr, **acts)
+    if dep is None:
+        return _finish_hybrid(gb, thr, traj, margins, loop["s0"])
+
+    def step(_, sd):
+        return fused_propagation_step2(dep["adjT"], sd, residual_agg(gb, sd), dep["feats"],
+                                       dep["w0"], dep["b0"], dep["w1"], dep["b1"], dep["affine"],
+                                       **acts)
+    return _finish_hybrid(gb, thr, traj, margins, loop["s0"], dep["s"], step)
+
+
 def dropout_operands(spec: GNNSpec, params_state, gb: GraphBatch,
                      keep_state: Optional[torch.Tensor]):
     """The dropout kernels' operands (gnn_tpu core.py:727-798): (loop, dep, kw).
@@ -419,6 +485,80 @@ def _propagate_dropout(spec, params_state, gb, keep_state: Optional[torch.Tensor
         sdd = sd if ms is None else drop(sd, ms)
         return fused_train_step(dep["adjT"], sd, sdd, ma, residual_agg(gb, sd), dep["fT"][it],
                                 dep["w_cat"], **kw)
+    return _finish_hybrid(gb, thr, traj, margins, loop["s0"], dep["s0"], step)
+
+
+def dropout2_operands(spec: GNNSpec, params_state, gb: GraphBatch,
+                      keep_state: Optional[torch.Tensor]):
+    """The two-layer dropout kernels' operands (gnn_tpu core.py:727-798 with
+    `two`): (loop, dep, kw).
+
+    `loop` holds K12's tensor arguments (adjT, s0, ms, ma, fd, w0, b0, w1, b1,
+    nm) for the loop blocks; `dep` holds the dep blocks' (adjT, s0, ms, ma, fd
+    and the weights), with the masks and fd of every iteration ([K, Bd, ...]),
+    or is None without dep blocks; `kw` is (act0, act1, alpha_drop, rate).
+
+    The arc-label slice of the dense input is dropped here: fd [K, B, W, AL] is
+    the raw arc-label aggregation after each iteration's dropout, which the
+    kernel takes through Wf itself; the state and aggregated slices' masks go
+    to the kernel as uint8 blocks ms, ma [K, B, W, D] (None without dropout).
+
+    :param keep_state: bool [K, Np, 2D + AL] input keep-masks in global node
+        order (None without input dropout)."""
+    W = gb.block_w
+    Np, D = gb.nodes.shape
+    B = Np // W
+    K = spec.max_iteration
+    ss = spec.state_spec
+    rate = float(dict(zip(ss.dropout_pos, ss.dropout_rate)).get(0, 0.0))
+    kw = dict(act0=ss.activations[0], act1=ss.activations[1], alpha_drop=bool(ss.alphadropout),
+              rate=rate)
+    feats = gb.agg_arcs_cache
+    ms = ma = None
+    if rate > 0.0:
+        if keep_state is None:
+            raise ValueError("a keep-mask for dropout position 0 is required in training")
+        keep = keep_state.reshape(K, B, W, -1)
+        ms, ma = keep[..., :D].to(torch.uint8), keep[..., D:2 * D].to(torch.uint8)
+        fd = _make_drop(kw["alpha_drop"], rate)[0](feats, keep_state[..., 2 * D:])
+    else:
+        fd = feats.expand(K, Np, -1)
+    fd = fd.reshape(K, B, W, -1)
+    s03 = gb.nodes.reshape(B, W, D)
+    wts = _dense2_weights(params_state)
+
+    def rows(ids):
+        return [None if x is None else x.index_select(1, ids).contiguous() for x in (ms, ma, fd)]
+
+    li = gb.loop_ids
+    loop = dict(zip(("ms", "ma", "fd"), rows(li)), adjT=gb.adj_loop, s0=s03[li], nm=gb.loop_nm,
+                **wts)
+    dep = None
+    if gb.adj_dep is not None:
+        di = gb.dep_ids
+        dep = dict(zip(("ms", "ma", "fd"), rows(di)), adjT=gb.adj_dep, s0=s03[di], **wts)
+    return loop, dep, kw
+
+
+def _propagate_dropout2(spec, params_state, gb, keep_state: Optional[torch.Tensor]):
+    """Two-layer dropout training without BatchNorm (gnn_tpu core.py:727-874
+    with `two`): K12 over the loop blocks (K13 its backward); the dep blocks
+    take a plain step, as gnn_tpu's (core.py:815-845), which has no per-step
+    two-layer training kernel: the state and aggregated slices masked, fd
+    pre-dropped, dense0, act0, dense1, act1."""
+    thr = float(spec.threshold)
+    loop, dep, kw = dropout2_operands(spec, params_state, gb, keep_state)
+    traj, margins = fused_train_loop2(**loop, K=spec.max_iteration, threshold=thr, **kw)
+    if dep is None:
+        return _finish_hybrid(gb, thr, traj, margins, loop["s0"])
+    drop, _ = _make_drop(kw["alpha_drop"], kw["rate"])
+
+    def step(it, sd):
+        agg = torch.matmul(dep["adjT"].transpose(1, 2), sd) + residual_agg(gb, sd)
+        if dep["ms"] is not None:
+            sd, agg = drop(sd, dep["ms"][it]), drop(agg, dep["ma"][it])
+        return dense2(torch.cat([sd, agg, dep["fd"][it]], dim=-1), dep["w0"], dep["b0"],
+                      dep["w1"], dep["b1"], kw["act0"], kw["act1"])
     return _finish_hybrid(gb, thr, traj, margins, loop["s0"], dep["s0"], step)
 
 

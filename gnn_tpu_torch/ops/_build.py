@@ -120,6 +120,14 @@ def library() -> ctypes.CDLL:
             lib.gnn_train_loop_bwd.restype = i
             lib.gnn_train_step.argtypes = [p] * 9 + [i, i, i, i, i, i, f, f, p]
             lib.gnn_train_step.restype = i
+            lib.gnn_propagation_loop2.argtypes = [p] * 11 + [i] * 6 + [f, i, i, p]
+            lib.gnn_propagation_loop2.restype = i
+            lib.gnn_propagation_step2.argtypes = [p] * 10 + [i] * 7 + [p]
+            lib.gnn_propagation_step2.restype = i
+            lib.gnn_train_loop2.argtypes = [p] * 13 + [i] * 6 + [f, i, i, i, f, f, p]
+            lib.gnn_train_loop2.restype = i
+            lib.gnn_train_loop2_bwd.argtypes = [p] * 18 + [i] * 9 + [f, f, p]
+            lib.gnn_train_loop2_bwd.restype = i
             lib.gnn_cuda_error_string.argtypes = [i]
             lib.gnn_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,7 +1,9 @@
 // Device helpers shared by the port's propagation kernels (fused_eval.cu,
-// bn_train.cu, eval_loop_bwd.cu, train_loop.cu): the activations of the
-// Pallas kernels, the input dropout and its derivative, and the staging of
-// block adjacencies and row blocks between device and shared memory.
+// bn_train.cu, eval_loop_bwd.cu, train_loop.cu, fused2.cu,
+// train_loop2_bwd.cu): the activations of the Pallas kernels, the input
+// dropout and its derivative, the staging of block adjacencies and row blocks
+// between device and shared memory, the block aggregation by adjacency
+// columns, and the two-layer state net of one node.
 
 #pragma once
 
@@ -86,6 +88,73 @@ __device__ inline void stage_in(const float* __restrict__ g, int W, int F, float
 // Shared rows of stride P -> contiguous [W, F] rows.
 __device__ inline void stage_out(float* __restrict__ g, int W, int F, const float* sm, int P) {
   for (int i = threadIdx.x; i < W * F; i += blockDim.x) g[i] = sm[(i / F) * P + i % F];
+}
+
+// agg[t] = sum_src adjT[src][t] * rows[src] (rows of stride P), reading column
+// t of the adjacency staged by stage_adj.
+template <int MAXF>
+__device__ void aggregate_col(const float* adj, int W, const float* rows, int P, int D,
+                              float (&acc)[MAXF]) {
+#pragma unroll
+  for (int d = 0; d < MAXF; ++d) acc[d] = 0.0f;
+  for (int src = 0; src < W; ++src) {
+    const float a = adj[src * (W + 1) + threadIdx.x];
+    const float* r = rows + src * P;
+#pragma unroll
+    for (int d = 0; d < MAXF; ++d)
+      if (d < D) acc[d] = fmaf(a, r[d], acc[d]);
+  }
+}
+
+// The two-layer state net's weights in shared memory: w0 [H1][C] as given
+// (C = 2D + AL, columns [Ws | Wa | Wf]), b0 [H1], w1 [D][H1] transposed to
+// w1T [H1][D], b1 [D].
+__device__ inline void stage_dense2(const float* __restrict__ w0, const float* __restrict__ b0,
+                                    const float* __restrict__ w1, const float* __restrict__ b1,
+                                    int D, int C, int H1, float* sw0, float* sb0, float* sw1T,
+                                    float* sb1) {
+  for (int i = threadIdx.x; i < H1 * C; i += blockDim.x) sw0[i] = w0[i];
+  for (int i = threadIdx.x; i < H1; i += blockDim.x) sb0[i] = b0[i];
+  for (int i = threadIdx.x; i < D * H1; i += blockDim.x) sw1T[(i % H1) * D + i / H1] = w1[i];
+  for (int i = threadIdx.x; i < D; i += blockDim.x) sb1[i] = b1[i];
+}
+
+// Hidden unit j's pre-activation for this thread's node:
+// h0_j = w0[j] . [xs | xa | xf] + b0_j, w0j the row j of w0 in shared memory
+// (every thread reads the same weight: a broadcast), in three independent sums.
+template <int MAXF>
+__device__ __forceinline__ float dense0_unit(const float* w0j, float b0j, int D, int AL,
+                                             const float (&xs)[MAXF], const float (&xa)[MAXF],
+                                             const float (&xf)[MAXF]) {
+  float hs = 0.0f, ha = 0.0f, hf = 0.0f;
+#pragma unroll
+  for (int d = 0; d < MAXF; ++d) {
+    if (d < D) {
+      hs = fmaf(w0j[d], xs[d], hs);
+      ha = fmaf(w0j[D + d], xa[d], ha);
+    }
+    if (d < AL) hf = fmaf(w0j[2 * D + d], xf[d], hf);
+  }
+  return (hs + ha) + (hf + b0j);
+}
+
+// h1 = w1 @ act0(w0 @ x3 + b0) + b1 for this thread's node, x3 = [xs | xa | xf]:
+// a loop over the H1 hidden units, each formed, activated and added into the
+// D sums at once, so no H1-wide row is held anywhere.
+template <int MAXF>
+__device__ void dense2_h1(const float* sw0, const float* sb0, const float* sw1T, const float* sb1,
+                          int D, int AL, int H1, int act0, const float (&xs)[MAXF],
+                          const float (&xa)[MAXF], const float (&xf)[MAXF], float (&h1)[MAXF]) {
+  const int C = 2 * D + AL;
+#pragma unroll
+  for (int d = 0; d < MAXF; ++d) h1[d] = d < D ? sb1[d] : 0.0f;
+  for (int j = 0; j < H1; ++j) {
+    const float y0 = activate(act0, dense0_unit<MAXF>(sw0 + j * C, sb0[j], D, AL, xs, xa, xf));
+    const float* w1j = sw1T + j * D;
+#pragma unroll
+    for (int d = 0; d < MAXF; ++d)
+      if (d < D) h1[d] = fmaf(w1j[d], y0, h1[d]);
+  }
 }
 
 // Register-array width for a feature width: 16, 32 or 64 (0 = unsupported).

@@ -61,21 +61,6 @@ __device__ void dense_acc(const float* w, int ldw, const float* xrow, int n, int
   }
 }
 
-// agg[t] = sum_src adjT[src][t] * rows[src], reading column t of the adjacency.
-template <int MAXF>
-__device__ void aggregate_col(const float* adj, int W, const float* rows, int P, int D,
-                              float (&acc)[MAXF]) {
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) acc[d] = 0.0f;
-  for (int src = 0; src < W; ++src) {
-    const float a = adj[src * (W + 1) + threadIdx.x];
-    const float* r = rows + src * P;
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d)
-      if (d < D) acc[d] = fmaf(a, r[d], acc[d]);
-  }
-}
-
 // K7: all K dropout-training iterations of residual-free blocks (H == D).
 template <int MAXF>
 __global__ void __launch_bounds__(kMaxW)

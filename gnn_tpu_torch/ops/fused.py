@@ -356,14 +356,18 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _launch(key: str, device, *args) -> None:
+def launch_counted(counts: dict, kernels: dict, key: str, device, *args) -> None:
     """Launch gnn_<key> on `device`'s current stream, raise on its error
-    code, and count the launch."""
+    code naming the kernel kernels[key], and add the launch to counts[key]."""
     lib = _build.library()
     with torch.cuda.device(device):
         err = getattr(lib, f"gnn_{key}")(*args, _stream(device))
-    _build.check(err, f"{key} ({_KERNEL[key]})")
-    launches[key] += 1
+    _build.check(err, f"{key} ({kernels[key]})")
+    counts[key] += 1
+
+
+def _launch(key: str, device, *args) -> None:
+    launch_counted(launches, _KERNEL, key, device, *args)
 
 
 def propagation_step(adjT, s, rT, fT, w2, affine=None, activation: str = "tanh"):

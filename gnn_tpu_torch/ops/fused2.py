@@ -1,0 +1,482 @@
+"""Propagation kernels of a two-layer state net (counterpart of the
+two-layer half of gnn_tpu/ops/pallas_fused.py): the eval kernels K9/K10 and
+the dropout-training kernels K12/K13, which run the hidden-150 accuracy
+recipe.
+
+One iteration on a block of W nodes, node-major:
+
+    agg = adjT^T @ s (+ rT),   x3 = [drop(s) | drop(agg) | f]
+    s'  = act1(w1 @ act0(w0 @ x3 + b0) + b1) (* scale + shift)
+
+with w0 [H1, 2D + AL] the whole first dense layer [Ws | Wa | Wf] and w1
+[D, H1] (the params' dense_0.w and dense_1.w), f the arc-label aggregation
+and (scale, shift) the inference BatchNorm. gnn_tpu's kernels multiply first
+and contract the adjacency H1 wide, and read a hoisted H1-wide feature term
+Wf @ f + b0; these aggregate the D-wide state first and form the feature
+term from f's AL columns: the same linear map at D/H1 of the adjacency
+operations and AL/H1 of the feature bytes.
+
+* `propagation_loop2` (K10, replaces `_loop2_kernel_T`): all K eval
+  iterations of residual-free blocks, f the raw arc-label aggregation; the
+  states after every iteration and the pre-update movement flags.
+* `propagation_step2` (K9, replaces `_step2_kernel_T`): one eval iteration of
+  residual-coupled blocks. rT is the raw residual aggregation, added to agg
+  before w0; gnn_tpu passes it through W0a instead (the same linear map at
+  D/H1 of the bytes).
+* `train_loop2` (K12, replaces `_loop2_train_kernel_T`): all K
+  dropout-training iterations of residual-free blocks, f = fd[k] the dropped
+  arc-label aggregation of iteration k; also the pre-dropout aggregations.
+* `train_loop2_bwd` (K13, replaces `_loop2_train_bwd_kernel`): K12's K
+  reverse iterations: the state cotangent, per-block weight partials and
+  fd's cotangent.
+
+The differentiable ops are torch.autograd.Functions: `fused_train_loop2` (K12,
+backward K13), `fused_propagation_step2` (K9, a plain backward as gnn_tpu's
+XLA rule `_step2_bwd`) and `fused_propagation_loop2` (K10), whose backward
+is gnn_tpu's K11 `_loop2_bwd_kernel`, not ported: it raises.
+
+Layout and rules as ops/fused.py: node-major blocks s [B, W, D], f
+[(K,) B, W, AL], adjT [B, W(src), W(dst)], keep-masks uint8 [K, B, W, D]. Each
+wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and launches
+the CUDA kernel (ops/csrc/fused2.cu, train_loop2_bwd.cu) for CUDA tensors;
+`launches` counts kernel launches. D and AL are at most 64, H1 at most
+MAX_HIDDEN, and a block's rows and the weights must fit a CTA's shared
+memory (`_smem_bytes`). The dense layers set these kernels' least time.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, _act_grad, _affine,
+                                     _at, _check, _check_keep, _drop_args, _make_drop, _ptr,
+                                     launch_counted, moved)
+
+# the largest hidden width H1 the kernels take (the weights sit in shared
+# memory; at W = 128, D = 14, AL = 3, H1 = 512 the forward kernels need 176 KB)
+MAX_HIDDEN = 512
+SMEM_BYTES = 232448          # shared memory a CTA may use (227 KB)
+_CHUNK = 16                  # train_loop2_bwd.cu::kChunk
+
+# the kernel each wrapper launches (C entry point gnn_<wrapper>)
+_KERNEL = {"propagation_step2": "K9", "propagation_loop2": "K10", "train_loop2": "K12",
+           "train_loop2_bwd": "K13"}
+# kernel launches since the last reset, by wrapper
+launches = dict.fromkeys(_KERNEL, 0)
+_launch = functools.partial(launch_counted, launches, _KERNEL)
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def supports_fused2(state_spec, training: bool) -> bool:
+    """The two-layer eval kernels K9/K10 take the spec: two dense layers with
+    kernel activations; in training no dropout and no BatchNorm (at eval
+    dropout is off and the BatchNorm is an affine)."""
+    if state_spec.num_layers != 2 or any(a not in FUSABLE_ACTIVATIONS
+                                         for a in state_spec.activations):
+        return False
+    return not (training and (state_spec.dropout_rate or state_spec.batch_normalization))
+
+
+def supports_fused2_train(state_spec) -> bool:
+    """The two-layer training kernels K12/K13 take the spec: two dense layers
+    with kernel activations, dropout only at the input, no BatchNorm."""
+    return (state_spec.num_layers == 2
+            and all(a in FUSABLE_ACTIVATIONS for a in state_spec.activations)
+            and all(p == 0 for p in state_spec.dropout_pos)
+            and not state_spec.batch_normalization)
+
+
+# ------------------------------------------------------------ plain versions
+def dense2(x3, w0, b0, w1, b1, act0: str, act1: str):
+    """The two-layer state net on rows x3: act1(w1 @ act0(w0 @ x3 + b0) + b1)."""
+    return _ACTS[act1](F.linear(_ACTS[act0](F.linear(x3, w0, b0)), w1, b1))
+
+
+def _aggregate(adjT, s):
+    """agg[b, dst] = sum_src adjT[b, src, dst] * s[b, src]."""
+    return torch.matmul(adjT.transpose(1, 2), s)
+
+
+def propagation_step2_ref(adjT, s, rT, feats, w0, b0, w1, b1, affine=None, act0: str = "tanh",
+                          act1: str = "tanh"):
+    """Plain PyTorch K9: one iteration, [B, W, D] -> [B, W, D]; rT is the raw
+    residual aggregation [B, W, D] or None."""
+    aff = _affine(affine, s.shape[-1], s)
+    agg = _aggregate(adjT, s)
+    if rT is not None:
+        agg = agg + rT
+    return dense2(torch.cat([s, agg, feats], dim=-1), w0, b0, w1, b1, act0, act1) * aff[0] + aff[1]
+
+
+def propagation_loop2_ref(adjT, s0, feats, w0, b0, w1, b1, affine, nm, K: int, threshold: float,
+                          act0: str = "tanh", act1: str = "tanh"):
+    """Plain PyTorch K10: (traj [K, B, W, D], margins [K, B, W]); margins[k]
+    is nm where the node moved before update k (s_old starting at ones)."""
+    s, s_old = s0, torch.ones_like(s0)
+    traj, margins = [], []
+    for _ in range(K):
+        margins.append(moved(s, s_old, threshold) * nm)
+        s_old, s = s, propagation_step2_ref(adjT, s, None, feats, w0, b0, w1, b1, affine, act0,
+                                            act1)
+        traj.append(s)
+    return torch.stack(traj), torch.stack(margins)
+
+
+def _x3(s, agg, fd_k, ms_k, ma_k, drop):
+    return torch.cat([drop(s, ms_k), drop(agg, ma_k), fd_k], dim=-1)
+
+
+def train_loop2_ref(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K: int, threshold: float,
+                    act0: str = "tanh", act1: str = "tanh", alpha_drop: bool = True,
+                    rate: float = 0.0):
+    """Plain PyTorch K12: (traj [K, B, W, D], margins [K, B, W], agg
+    [K, B, W, D] the aggregations before the dropout)."""
+    drop, _ = _make_drop(alpha_drop, rate)
+    s, s_old = s0, torch.ones_like(s0)
+    traj, margins, aggs = [], [], []
+    for k in range(K):
+        margins.append(moved(s, s_old, threshold) * nm)
+        agg = _aggregate(adjT, s)
+        s_old, s = s, dense2(_x3(s, agg, fd[k], _at(ms, k), _at(ma, k), drop), w0, b0, w1, b1,
+                             act0, act1)
+        traj.append(s)
+        aggs.append(agg)
+    return torch.stack(traj), torch.stack(margins), torch.stack(aggs)
+
+
+def train_loop2_bwd_ref(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj,
+                        act0: str = "tanh", act1: str = "tanh", alpha_drop: bool = True,
+                        rate: float = 0.0):
+    """Plain PyTorch K13: the K reverse iterations of K12 for the trajectory's
+    cotangent g_traj. Returns (gs [B, W, D], dw0 [B, H1, 2D + AL], db0
+    [B, H1], dw1 [B, D, H1], db1 [B, D], dfd [K, B, W, AL]), the weight
+    cotangents per block."""
+    drop, dmask = _make_drop(alpha_drop, rate)
+    B, _, D = s0.shape
+    H1 = w0.shape[0]
+    gs = torch.zeros_like(s0)
+    dw0, db0 = s0.new_zeros((B,) + tuple(w0.shape)), s0.new_zeros((B, H1))
+    dw1, db1 = s0.new_zeros((B, D, H1)), s0.new_zeros((B, D))
+    dfd = [None] * traj.shape[0]
+    for k in reversed(range(traj.shape[0])):
+        x3 = _x3(traj[k - 1] if k else s0, agg[k], fd[k], _at(ms, k), _at(ma, k), drop)
+        h0 = F.linear(x3, w0, b0)
+        y0 = _ACTS[act0](h0)
+        dh1 = (g_traj[k] + gs) * _act_grad(act1, F.linear(y0, w1, b1))
+        dh0 = torch.matmul(dh1, w1) * _act_grad(act0, h0)
+        dw1 = dw1 + torch.matmul(dh1.transpose(1, 2), y0)
+        db1 = db1 + dh1.sum(1)
+        dw0 = dw0 + torch.matmul(dh0.transpose(1, 2), x3)
+        db0 = db0 + dh0.sum(1)
+        dx3 = torch.matmul(dh0, w0)
+        dfd[k] = dx3[..., 2 * D:]
+        gs = (dx3[..., :D] * dmask(_at(ms, k))
+              + torch.matmul(adjT, dx3[..., D:2 * D] * dmask(_at(ma, k))))
+    return gs, dw0, db0, dw1, db1, torch.stack(dfd)
+
+
+def _step2_vjp(adjT, s, rT, feats, w0, b0, w1, b1, affine, g, act0: str, act1: str):
+    """Plain backward of K9 (gnn_tpu's _step2_bwd, with the raw residual):
+    (ds, drT, dfeats, dw0, db0, dw1, db1, daff); drT is None without rT,
+    daff None without an affine. drT is the aggregation's cotangent."""
+    D = s.shape[-1]
+    agg = _aggregate(adjT, s)
+    if rT is not None:
+        agg = agg + rT
+    x3 = torch.cat([s, agg, feats], dim=-1)
+    h0 = F.linear(x3, w0, b0)
+    y0 = _ACTS[act0](h0)
+    h1 = F.linear(y0, w1, b1)
+    daff = None
+    if affine is not None:
+        daff = torch.stack([torch.sum(g * _ACTS[act1](h1), dim=(0, 1)), torch.sum(g, dim=(0, 1))])
+        g = g * affine[0]
+    dh1 = g * _act_grad(act1, h1)
+    dh0 = torch.matmul(dh1, w1) * _act_grad(act0, h0)
+    dx3 = torch.matmul(dh0, w0)
+    dagg = dx3[..., D:2 * D]
+    return (dx3[..., :D] + torch.matmul(adjT, dagg), None if rT is None else dagg,
+            dx3[..., 2 * D:], torch.einsum("bwh,bwc->hc", dh0, x3), dh0.sum((0, 1)),
+            torch.einsum("bwd,bwh->dh", dh1, y0), dh1.sum((0, 1)), daff)
+
+
+# ------------------------------------------------------------------ wrappers
+def _smem_bytes(W: int, D: int, AL: int, H1: int, backward: bool) -> int:
+    """Shared memory a CTA of the forward kernels (fused2.cu::fwd_smem) or of
+    K13 (train_loop2_bwd.cu::bwd_smem) needs: the adjacency, row tiles and the
+    weights."""
+    C = 2 * D + AL
+    weights = H1 * (C + D + 1)
+    if backward:
+        return 4 * (W * (C | 1) + W * (D | 1) + 2 * W * (_CHUNK | 1) + weights + D)
+    return 4 * (W * (W + 1) + W * (D | 1) + W * (max(D, AL) | 1) + weights + 3 * D)
+
+
+def _check_block2(adjT, D: int, AL: int, H1: int, backward: bool = False):
+    """The widths the kernels take."""
+    B, W, W2 = adjT.shape
+    if W != W2 or W % 32 or not 32 <= W <= 128:
+        raise ValueError(f"block width must be 32, 64, 96 or 128, got adjT {tuple(adjT.shape)}")
+    if max(D, AL) > 64:
+        raise ValueError(f"state and arc-label widths above 64 are not supported (D={D}, AL={AL})")
+    if not 1 <= H1 <= MAX_HIDDEN:
+        raise ValueError(f"hidden width H1={H1} is outside 1..{MAX_HIDDEN}")
+    need = _smem_bytes(W, D, AL, H1, backward)
+    if need > SMEM_BYTES:
+        raise ValueError(f"W={W}, D={D}, AL={AL}, H1={H1} needs {need} bytes of shared memory a "
+                         f"block, more than the {SMEM_BYTES} a CTA may use")
+    if adjT.device.type != "cuda":
+        raise ValueError(f"propagation kernels need CPU or CUDA tensors, got {adjT.device}")
+
+
+def _check_weights(w0, b0, w1, b1, D: int, AL: int, dev):
+    """w0 [H1, 2D + AL], b0 [H1], w1 [D, H1], b1 [D]."""
+    H1 = w0.shape[0]
+    _check("w0", w0, (H1, 2 * D + AL), dev)
+    _check("b0", b0, (H1,), dev)
+    _check("w1", w1, (D, H1), dev)
+    _check("b1", b1, (D,), dev)
+
+
+def propagation_step2(adjT, s, rT, feats, w0, b0, w1, b1, affine=None, act0: str = "tanh",
+                      act1: str = "tanh"):
+    """K9: one two-layer eval iteration over residual-coupled blocks.
+
+    :param adjT: [B, W, W] transposed block adjacency, adjT[b, src, dst] = w.
+    :param s: [B, W, D] node states.
+    :param rT: [B, W, D] raw residual aggregation (added to agg), or None.
+    :param feats: [B, W, AL] arc-label aggregation.
+    :param w0, b0: [H1, 2D + AL], [H1] the first dense layer [Ws | Wa | Wf].
+    :param w1, b1: [D, H1], [D] the second.
+    :param affine: optional [2, D] (scale; shift) after act1.
+    Returns [B, W, D].
+    """
+    if adjT.device.type == "cpu":
+        return propagation_step2_ref(adjT, s, rT, feats, w0, b0, w1, b1, affine, act0, act1)
+    B, W, _ = adjT.shape
+    D, AL = s.shape[-1], feats.shape[-1]
+    H1 = w0.shape[0]
+    _check_block2(adjT, D, AL, H1)
+    dev = adjT.device
+    aff = _affine(affine, D, s)
+    _check("adjT", adjT, (B, W, W), dev)
+    _check("s", s, (B, W, D), dev)
+    if rT is not None:
+        _check("rT", rT, (B, W, D), dev)
+    _check("feats", feats, (B, W, AL), dev)
+    _check_weights(w0, b0, w1, b1, D, AL, dev)
+    _check("affine", aff, (2, D), dev)
+    out = torch.empty((B, W, D), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    _launch("propagation_step2", dev,
+            _ptr(adjT), _ptr(s), _ptr(rT), _ptr(feats), _ptr(w0), _ptr(b0), _ptr(w1), _ptr(b1),
+            _ptr(aff), _ptr(out), B, W, D, AL, H1, _ACT_CODE[act0], _ACT_CODE[act1])
+    return out
+
+
+def propagation_loop2(adjT, s0, feats, w0, b0, w1, b1, affine, nm, K: int, threshold: float,
+                      act0: str = "tanh", act1: str = "tanh"):
+    """K10: all K two-layer eval iterations over residual-free blocks.
+
+    :param adjT: [B, W, W] transposed block adjacency of the loop blocks.
+    :param s0: [B, W, D] initial states; feats: [B, W, AL].
+    :param w0, b0, w1, b1, affine: as propagation_step2.
+    :param nm: [B, W] float node mask (1 real, 0 pad).
+    Returns (traj [K, B, W, D], margins [K, B, W]).
+    """
+    if adjT.device.type == "cpu":
+        return propagation_loop2_ref(adjT, s0, feats, w0, b0, w1, b1, affine, nm, K, threshold,
+                                     act0, act1)
+    B, W, _ = adjT.shape
+    D, AL = s0.shape[-1], feats.shape[-1]
+    H1 = w0.shape[0]
+    _check_block2(adjT, D, AL, H1)
+    dev = adjT.device
+    aff = _affine(affine, D, s0)
+    _check("adjT", adjT, (B, W, W), dev)
+    _check("s0", s0, (B, W, D), dev)
+    _check("feats", feats, (B, W, AL), dev)
+    _check_weights(w0, b0, w1, b1, D, AL, dev)
+    _check("affine", aff, (2, D), dev)
+    _check("nm", nm, (B, W), dev)
+    traj = torch.empty((K, B, W, D), dtype=torch.float32, device=dev)
+    margins = torch.empty((K, B, W), dtype=torch.float32, device=dev)
+    if B == 0 or K == 0:
+        return traj, margins
+    _launch("propagation_loop2", dev,
+            _ptr(adjT), _ptr(s0), _ptr(feats), _ptr(w0), _ptr(b0), _ptr(w1), _ptr(b1), _ptr(aff),
+            _ptr(nm), _ptr(traj), _ptr(margins), B, W, D, AL, H1, int(K), float(threshold),
+            _ACT_CODE[act0], _ACT_CODE[act1])
+    return traj, margins
+
+
+def train_loop2(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K: int, threshold: float,
+                act0: str = "tanh", act1: str = "tanh", alpha_drop: bool = True,
+                rate: float = 0.0):
+    """K12: all K two-layer dropout-training iterations over residual-free
+    blocks.
+
+    :param adjT: [B, W, W] transposed block adjacency of the loop blocks.
+    :param s0: [B, W, D] initial states.
+    :param ms / ma: uint8 [K, B, W, D] keep-masks of the state and aggregated
+        slices of the dense input (None when rate == 0).
+    :param fd: [K, B, W, AL] the arc-label aggregation after each iteration's
+        dropout.
+    :param w0, b0, w1, b1: as propagation_step2; nm: [B, W] float node mask.
+    Returns (traj [K, B, W, D], margins [K, B, W], agg [K, B, W, D]).
+    """
+    kw = dict(act0=act0, act1=act1, alpha_drop=alpha_drop, rate=rate)
+    if adjT.device.type == "cpu":
+        return train_loop2_ref(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K, threshold, **kw)
+    B, W, _ = adjT.shape
+    D, AL = s0.shape[-1], fd.shape[-1]
+    H1 = w0.shape[0]
+    _check_block2(adjT, D, AL, H1)
+    dev = adjT.device
+    _check("adjT", adjT, (B, W, W), dev)
+    _check("s0", s0, (B, W, D), dev)
+    _check("fd", fd, (K, B, W, AL), dev)
+    _check_weights(w0, b0, w1, b1, D, AL, dev)
+    _check("nm", nm, (B, W), dev)
+    ms = _check_keep(ms, (K, B, W, D), dev, rate, "ms")
+    ma = _check_keep(ma, (K, B, W, D), dev, rate, "ma")
+    traj = torch.empty((K, B, W, D), dtype=torch.float32, device=dev)
+    margins = torch.empty((K, B, W), dtype=torch.float32, device=dev)
+    agg = torch.empty_like(traj)
+    if B == 0 or K == 0:
+        return traj, margins, agg
+    mode, a, b = _drop_args(alpha_drop, rate)
+    _launch("train_loop2", dev,
+            _ptr(adjT), _ptr(s0), _ptr(ms), _ptr(ma), _ptr(fd), _ptr(w0), _ptr(b0), _ptr(w1),
+            _ptr(b1), _ptr(nm), _ptr(traj), _ptr(margins), _ptr(agg), B, W, D, AL, H1, int(K),
+            float(threshold), _ACT_CODE[act0], _ACT_CODE[act1], mode, a, b)
+    return traj, margins, agg
+
+
+def train_loop2_bwd(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj, act0: str = "tanh",
+                    act1: str = "tanh", alpha_drop: bool = True, rate: float = 0.0):
+    """K13: the K reverse iterations of K12 over residual-free blocks.
+
+    :param traj, agg: [K, B, W, D] K12's trajectory and aggregations.
+    :param g_traj: [K, B, W, D] the trajectory's cotangent.
+    Other arguments as train_loop2. Returns (gs [B, W, D], dw0 [B, H1, 2D + AL],
+    db0 [B, H1], dw1 [B, D, H1], db1 [B, D], dfd [K, B, W, AL]), the weight
+    cotangents per block.
+    """
+    kw = dict(act0=act0, act1=act1, alpha_drop=alpha_drop, rate=rate)
+    if adjT.device.type == "cpu":
+        return train_loop2_bwd_ref(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj, **kw)
+    B, W, _ = adjT.shape
+    K = traj.shape[0]
+    D, AL = s0.shape[-1], fd.shape[-1]
+    H1 = w0.shape[0]
+    _check_block2(adjT, D, AL, H1, backward=True)
+    dev = adjT.device
+    _check("adjT", adjT, (B, W, W), dev)
+    _check("s0", s0, (B, W, D), dev)
+    for name, t in (("traj", traj), ("agg", agg), ("g_traj", g_traj)):
+        _check(name, t, (K, B, W, D), dev)
+    _check("fd", fd, (K, B, W, AL), dev)
+    _check_weights(w0, b0, w1, b1, D, AL, dev)
+    ms = _check_keep(ms, (K, B, W, D), dev, rate, "ms")
+    ma = _check_keep(ma, (K, B, W, D), dev, rate, "ma")
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    gs, dfd = out(B, W, D), out(K, B, W, AL)
+    dw0, db0, dw1, db1 = out(B, H1, 2 * D + AL), out(B, H1), out(B, D, H1), out(B, D)
+    if B == 0 or K == 0:
+        return tuple(t.zero_() for t in (gs, dw0, db0, dw1, db1, dfd))
+    mode, a, b = _drop_args(alpha_drop, rate)
+    _launch("train_loop2_bwd", dev,
+            _ptr(adjT), _ptr(s0), _ptr(traj), _ptr(agg), _ptr(ms), _ptr(ma), _ptr(fd), _ptr(w0),
+            _ptr(b0), _ptr(w1), _ptr(b1), _ptr(g_traj), _ptr(gs), _ptr(dw0), _ptr(db0),
+            _ptr(dw1), _ptr(db1), _ptr(dfd), B, W, D, AL, H1, K, _ACT_CODE[act0],
+            _ACT_CODE[act1], mode, a, b)
+    return gs, dw0, db0, dw1, db1, dfd
+
+
+# ------------------------------------------------------- differentiable ops
+class _PropagationLoop2(torch.autograd.Function):
+    """K10 forward. Its backward is gnn_tpu's K11, not ported: it raises
+    rather than give no or wrong gradients."""
+
+    @staticmethod
+    def forward(ctx, s0, feats, w0, b0, w1, b1, affine, adjT, nm, K, threshold, act0, act1):
+        traj, margins = propagation_loop2(adjT, s0, feats, w0, b0, w1, b1, affine, nm, K,
+                                          threshold, act0, act1)
+        ctx.mark_non_differentiable(margins)
+        return traj, margins
+
+    @staticmethod
+    def backward(ctx, g_traj, _g_margins):
+        raise NotImplementedError(
+            "the gradient of the two-layer eval loop K10 is K11 "
+            "(pallas_fused.py::_loop2_bwd_kernel), which is not ported yet")
+
+
+class _PropagationStep2(torch.autograd.Function):
+    """K9 forward, plain backward (_step2_bwd)."""
+
+    @staticmethod
+    def forward(ctx, s, rT, feats, w0, b0, w1, b1, affine, adjT, act0, act1):
+        ctx.saved = (adjT, s, rT, feats, w0, b0, w1, b1, affine, act0, act1)
+        return propagation_step2(adjT, s, rT, feats, w0, b0, w1, b1, affine, act0, act1)
+
+    @staticmethod
+    def backward(ctx, g):
+        adjT, s, rT, feats, w0, b0, w1, b1, affine, act0, act1 = ctx.saved
+        return _step2_vjp(adjT, s, rT, feats, w0, b0, w1, b1, affine, g, act0, act1) + (None,) * 3
+
+
+class _TrainLoop2(torch.autograd.Function):
+    """K12 forward, K13 backward (_loop2_train_fwd / _loop2_train_bwd)."""
+
+    @staticmethod
+    def forward(ctx, s0, fd, w0, b0, w1, b1, adjT, ms, ma, nm, K, threshold, act0, act1,
+                alpha_drop, rate):
+        kw = dict(act0=act0, act1=act1, alpha_drop=alpha_drop, rate=rate)
+        traj, margins, agg = train_loop2(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K, threshold,
+                                         **kw)
+        ctx.saved = (adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, kw)
+        ctx.mark_non_differentiable(margins)
+        return traj, margins
+
+    @staticmethod
+    def backward(ctx, g_traj, _g_margins):
+        adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, kw = ctx.saved
+        gs, dw0, db0, dw1, db1, dfd = train_loop2_bwd(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1,
+                                                      b1, g_traj.contiguous(), **kw)
+        return (gs, dfd, dw0.sum(0), db0.sum(0), dw1.sum(0), db1.sum(0)) + (None,) * 10
+
+
+def fused_propagation_loop2(adjT, s0, feats, w0, b0, w1, b1, affine, nm, K: int,
+                            threshold: float, act0: str = "tanh", act1: str = "tanh"):
+    """propagation_loop2 (K10). Returns (traj, margins); a backward through
+    it raises NotImplementedError (K11 is not ported)."""
+    return _PropagationLoop2.apply(s0, feats, w0, b0, w1, b1, affine, adjT, nm, K, threshold,
+                                   act0, act1)
+
+
+def fused_propagation_step2(adjT, s, rT, feats, w0, b0, w1, b1, affine=None, act0: str = "tanh",
+                            act1: str = "tanh"):
+    """propagation_step2 (K9) with gradients to s, rT, feats, the weights and
+    affine."""
+    return _PropagationStep2.apply(s, rT, feats, w0, b0, w1, b1, affine, adjT, act0, act1)
+
+
+def fused_train_loop2(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K: int, threshold: float,
+                      act0: str = "tanh", act1: str = "tanh", alpha_drop: bool = True,
+                      rate: float = 0.0):
+    """train_loop2 (K12) with gradients to s0, fd, w0, b0, w1 and b1 through
+    K13. Returns (traj, margins); margins carry none."""
+    return _TrainLoop2.apply(s0, fd, w0, b0, w1, b1, adjT, ms, ma, nm, K, threshold, act0, act1,
+                             alpha_drop, rate)
