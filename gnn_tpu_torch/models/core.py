@@ -16,18 +16,20 @@ Dispatch follows gnn_tpu's `aggregation='auto'`:
   stop is rebuilt from K3's movement flags; a two-layer state net (the
   hidden-150 recipe) takes the same path through K10 (`propagation_loop2`)
   and K9 (`propagation_step2`), ops/fused2.py;
-* in training, a one-layer spec takes one of three routes: with neither
-  dropout nor BatchNorm the same hybrid path, differentiated through K5
-  (K3's backward) and K4's plain backward; with input dropout and no
-  BatchNorm the dropout kernels, K7 (`train_loop`, backward K8) over the loop
-  blocks and K6 (`train_step`) per step over the dep blocks; with the
-  trailing BatchNorm and dropout only at the input the BN kernels K1/K2
-  (ops/bn.py); a two-layer spec with input dropout and no BatchNorm runs K12
-  (`train_loop2`, backward K13) over the loop blocks and a plain step over
-  the dep blocks, as gnn_tpu does;
+* in training, a one- or two-layer spec takes one of three routes: with
+  neither dropout nor BatchNorm the same hybrid path, differentiated through
+  K5 (K3's backward) and K4's plain backward, or for two layers through K11
+  (K10's backward, `propagation_loop2_bwd`) and K9's plain backward; with
+  input dropout and no BatchNorm the dropout kernels, K7 (`train_loop`,
+  backward K8) over the loop blocks and K6 (`train_step`) per step over the
+  dep blocks, or for two layers K12 (`train_loop2`, backward K13) over the
+  loop blocks and a plain step over the dep blocks, as gnn_tpu does; with
+  the trailing BatchNorm and dropout only at the input the BN kernels K1/K2,
+  or K14/K15 for two layers (ops/bn.py);
 * what gnn_tpu sends to its XLA body (no loop layout, activations the
   kernels do not take, dropout inside the net) runs the plain body here;
-* what gnn_tpu sends to a kernel not ported yet raises NotImplementedError.
+* what gnn_tpu sends to a kernel not ported yet (the segment kernel K18 of
+  aggregation='pallas') raises NotImplementedError, as does state_dim > 0.
 
 Dropout draws no random numbers here: training takes keep-masks, which
 `draw_masks` draws on the batch's device from a torch.Generator (tests pass
@@ -44,7 +46,8 @@ import torch.nn.functional as F
 
 from gnn_tpu_torch.graphs.batch import GraphBatch
 from gnn_tpu_torch.ops.aggregate import aggregate_to_nodes, pool_graphs
-from gnn_tpu_torch.ops.bn import bn_train_propagate, supports_fused_bn_train
+from gnn_tpu_torch.ops.bn import (bn_train_propagate, supports_fused_bn2_train,
+                                  supports_fused_bn_train)
 from gnn_tpu_torch.ops.fused import (FUSABLE_ACTIVATIONS, _make_drop, bn_inference_affine,
                                      fused_propagation_loop, fused_propagation_step,
                                      fused_train_loop, fused_train_step, moved,
@@ -167,9 +170,10 @@ def _eval_route(spec: GNNSpec, gb: GraphBatch) -> str:
 def _train_route(spec: GNNSpec, gb: GraphBatch) -> str:
     """Static dispatch of gnn_tpu's propagate in training (core.py:354-474):
     'hybrid' (K3/K5 and K4: neither dropout nor BatchNorm), 'dropout' (K6-K8:
-    input dropout, no BatchNorm), 'bn' (K1/K2), 'dropout2' (K12/K13: a
-    two-layer net with input dropout, no BatchNorm) or 'plain' (the plain
-    body); raises where gnn_tpu runs a training kernel not ported yet."""
+    input dropout, no BatchNorm), 'bn' (K1/K2, or K14/K15 for a two-layer
+    net), 'hybrid2' (K10/K11 and K9: a two-layer net without dropout and
+    BatchNorm), 'dropout2' (K12/K13: a two-layer net with input dropout, no
+    BatchNorm) or 'plain' (the plain body)."""
     ss = spec.state_spec
     if not _check_aggregation(spec) or not _needs_loop_layout(spec, gb, "the kernels"):
         return "plain"
@@ -185,16 +189,10 @@ def _train_route(spec: GNNSpec, gb: GraphBatch) -> str:
     if ss.num_layers != 2:
         return "plain"
     if supports_fused2(ss, training=True):
-        raise NotImplementedError(
-            "a two-layer state net without dropout and BatchNorm trains through K10 and "
-            "its backward K11 (pallas_fused.py::_loop2_bwd_kernel), not ported yet")
+        return "hybrid2"
     if supports_fused2_train(ss):
         return "dropout2"
-    if ss.batch_normalization and all(p == 0 for p in ss.dropout_pos):
-        raise NotImplementedError(
-            "a two-layer state net with BatchNorm trains through the kernels K14/K15 "
-            "(pallas_bn.py::_bn2_fwd_kernel/_bn2_bwd_kernel), not ported yet")
-    return "plain"
+    return "bn" if supports_fused_bn2_train(ss) else "plain"
 
 
 def draw_masks(spec: GNNSpec, gb: GraphBatch, gen: torch.Generator) -> dict:
@@ -402,8 +400,8 @@ def hybrid2_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
 
 def _propagate_hybrid2(spec, params_state, bn_state, gb):
     """K10 over the loop blocks, K9 per step over the dep blocks with the raw
-    residual aggregation (gnn_tpu core.py:475-608 with `two`). A backward
-    through K10 raises: its gradient is K11, not ported."""
+    residual aggregation (gnn_tpu core.py:475-608 with `two`); differentiable
+    through K11 (K10's backward) and K9's plain backward."""
     thr = float(spec.threshold)
     acts = dict(zip(("act0", "act1"), spec.state_spec.activations))
     loop, dep = hybrid2_operands(spec, params_state, bn_state, gb)

@@ -128,6 +128,12 @@ def library() -> ctypes.CDLL:
             lib.gnn_train_loop2.restype = i
             lib.gnn_train_loop2_bwd.argtypes = [p] * 18 + [i] * 9 + [f, f, p]
             lib.gnn_train_loop2_bwd.restype = i
+            lib.gnn_propagation_loop2_bwd.argtypes = [p] * 17 + [i] * 8 + [p]
+            lib.gnn_propagation_loop2_bwd.restype = i
+            lib.gnn_bn2_forward.argtypes = [p] * 16 + [i] * 6 + [f, i, i, i, f, f, p]
+            lib.gnn_bn2_forward.restype = i
+            lib.gnn_bn2_backward.argtypes = [p] * 21 + [i] * 9 + [f, f, p]
+            lib.gnn_bn2_backward.restype = i
             lib.gnn_cuda_error_string.argtypes = [i]
             lib.gnn_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

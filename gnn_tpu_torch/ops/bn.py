@@ -1,5 +1,5 @@
-"""BatchNorm-training propagation kernels K1/K2 (counterpart of
-gnn_tpu/ops/pallas_bn.py).
+"""BatchNorm-training propagation kernels K1/K2 of a one-layer state net and
+K14/K15 of a two-layer one (counterpart of gnn_tpu/ops/pallas_bn.py).
 
 A state net with a trailing BatchNorm couples every block each iteration
 through the batch moments, so training runs one kernel launch per iteration
@@ -15,9 +15,12 @@ residual term), applies the input dropout to x3 = [s | agg | feats] and the
 bias-augmented dense w_aug = [Ws | Wa | Wf | b], and returns the pre-BN
 activation and per-block moment partials. K2 (bn_backward_step) runs one
 reverse iteration with the BatchNorm backward folded in from [9, D]
-coefficient rows, and returns per-block dw and reduction partials.
-`bn_train_loop` is the K-iteration loop as one torch.autograd.Function;
-`bn_train_propagate` drives it for models/core.py.
+coefficient rows, and returns per-block dw and reduction partials. K14
+(bn2_forward_step) and K15 (bn2_backward_step) are the same with a hidden
+layer: w0_aug = [Ws | Wa | Wf | b0] [H1, 2D+F+1], act0, then w1 [D, H1], b1
+and act1; K15 returns per-block dw0, dw1 and db1 partials.
+`bn_train_loop` is the K-iteration loop of either depth as one
+torch.autograd.Function; `bn_train_propagate` drives it for models/core.py.
 
 Layout: node-major blocks [R, W, D] over the rows [loop blocks | dep blocks]
 of a fused-layout batch, the order hybrid_operands uses. The kernels read
@@ -27,8 +30,10 @@ loop rows carry node mask 0, so moments, flags and gradients ignore them.
 Keep-masks are uint8 [R, W, 2D+F] in x3 column order.
 
 Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
-launches the CUDA kernel (ops/csrc/bn_train.cu) for CUDA tensors; it never
-falls back from one to the other. `launches` counts kernel launches.
+launches the CUDA kernel (ops/csrc/bn_train.cu, bn2_train.cu) for CUDA
+tensors; it never falls back from one to the other. `launches` counts kernel
+launches. K14/K15 take D and F up to 64, H1 up to fused2.MAX_HIDDEN, and a
+block's rows and the weights within a CTA's shared memory (`_smem2_bytes`).
 """
 
 from __future__ import annotations
@@ -40,13 +45,15 @@ import torch
 import torch.nn.functional as F
 
 from gnn_tpu_torch.ops import _build
-from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, _act_grad, _check, _check_keep,
-                                     _drop_args, _make_drop, _ptr, _stream, moved,
+from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, _act_grad, _check,
+                                     _check_keep, _drop_args, _make_drop, _ptr, _stream, moved,
                                      supports_fused_train)
+from gnn_tpu_torch.ops.fused2 import MAX_HIDDEN, SMEM_BYTES, _dense2_vjp, _smem_bytes, dense2
 from gnn_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
 
 # kernel launches since the last reset, by wrapper
-launches = {"bn_forward_step": 0, "bn_backward_step": 0}
+launches = {"bn_forward_step": 0, "bn_backward_step": 0, "bn2_forward_step": 0,
+            "bn2_backward_step": 0}
 
 # coefficient rows of bnv, the [9, D] input of K2
 BNV_ROWS = ("scale_prev", "shift_prev", "mean_k", "rstd_k", "gamma_rstd_k",
@@ -62,6 +69,14 @@ def supports_fused_bn_train(state_spec) -> bool:
     """K1/K2 take the spec: one dense layer, a kernel activation, dropout only
     at the input, and the trailing BatchNorm on."""
     return bool(state_spec.batch_normalization) and supports_fused_train(state_spec)
+
+
+def supports_fused_bn2_train(state_spec) -> bool:
+    """K14/K15 take the spec: two dense layers, kernel activations, dropout
+    only at the input, and the trailing BatchNorm on."""
+    return (bool(state_spec.batch_normalization) and state_spec.num_layers == 2
+            and all(a in FUSABLE_ACTIVATIONS for a in state_spec.activations)
+            and all(p == 0 for p in state_spec.dropout_pos))
 
 
 def _affine(gamma, beta, mean, var):
@@ -101,20 +116,59 @@ def _x3(s, agg, feats, keep, alpha_drop: bool, rate: float):
     return drop(torch.cat([s, agg, feats], dim=-1), keep)
 
 
-def bn_forward_step_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, *,
-                        activation: str, alpha_drop: bool, rate: float, threshold: float):
-    """Plain PyTorch K1. Returns (y [R, W, D] pre-BN activation, agg [R, W, D]
-    (with the residual term, before the dropout), marg [R, W] movement flags
-    times nm, msum [R, D] per-block sums of y * nm)."""
+def _bn_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, nm, dense, alpha_drop, rate,
+                threshold):
+    """One BN-training iteration with the state net `dense` (x3 -> y)."""
     s = y1 * aff[0, 0] + aff[0, 1]
     s_old = y2 * aff[1, 0] + aff[1, 1]
     marg = moved(s, s_old, threshold) * nm
     agg = _agg_blocks(adj_loop, adj_dep, s)
     if rT is not None:
         agg = agg + rT
-    x3 = _x3(s, agg, feats, keep, alpha_drop, rate)
-    y = _ACTS[activation](F.linear(x3, w_aug[:, :-1], w_aug[:, -1]))
+    y = dense(_x3(s, agg, feats, keep, alpha_drop, rate))
     return y, agg, marg, torch.sum(y * nm[..., None], dim=1)
+
+
+def bn_forward_step_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, *,
+                        activation: str, alpha_drop: bool, rate: float, threshold: float):
+    """Plain PyTorch K1. Returns (y [R, W, D] pre-BN activation, agg [R, W, D]
+    (with the residual term, before the dropout), marg [R, W] movement flags
+    times nm, msum [R, D] per-block sums of y * nm)."""
+    return _bn_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, nm,
+                       lambda x3: _ACTS[activation](F.linear(x3, w_aug[:, :-1], w_aug[:, -1])),
+                       alpha_drop, rate, threshold)
+
+
+def bn2_forward_step_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1, b1, nm,
+                         *, act0: str, act1: str, alpha_drop: bool, rate: float,
+                         threshold: float):
+    """Plain PyTorch K14: K1 with the two-layer state net
+    act1(w1 @ act0(w0_aug @ [x3; 1]) + b1). Returns as bn_forward_step_ref."""
+    return _bn_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, nm,
+                       lambda x3: dense2(x3, w0_aug[:, :-1], w0_aug[:, -1], w1, b1, act0, act1),
+                       alpha_drop, rate, threshold)
+
+
+def _bn_gy(y_k, ds_in, gsel, bnv, flag, nm):
+    """The pre-BN activation's cotangent from the state cotangent and the
+    BatchNorm backward coefficients (BNV_ROWS)."""
+    xk = (y_k - bnv[2]) * bnv[3]
+    return bnv[4] * (ds_in + flag * gsel) - nm[..., None] * (bnv[5] + xk * bnv[6])
+
+
+def _bn_ds(adj_loop, adj_dep, dx2, keep, y_prev, bnv, alpha_drop: bool, rate: float):
+    """(ds, dagg, red) from the cotangent dx2 [R, W, 2D] of the dense input's
+    state and aggregated slices: through the dropout's derivative, the
+    aggregation's reverse, and the per-block reduction partials
+    (sum ds, sum ds * x_hat_prev)."""
+    D = y_prev.shape[-1]
+    dxs, dagg = dx2[..., :D], dx2[..., D:]
+    if rate > 0.0:
+        dm = _make_drop(alpha_drop, rate)[1](keep)
+        dxs, dagg = dxs * dm[..., :D], dagg * dm[..., D:2 * D]
+    ds = dxs + _contract_dst(adj_loop, adj_dep, dagg)
+    xp_hat = (y_prev - bnv[7]) * bnv[8]
+    return ds, dagg, torch.stack([torch.sum(ds, dim=1), torch.sum(ds * xp_hat, dim=1)], dim=1)
 
 
 def bn_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds_in,
@@ -126,25 +180,30 @@ def bn_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug
     per-block partials of the w_aug cotangent, dagg [R, W, D], red [R, 2, D]
     per-block (sum ds, sum ds * x_hat_prev))."""
     D = y_prev.shape[-1]
-    s_prev = y_prev * bnv[0] + bnv[1]
-    gS = ds_in + flag * gsel
-    xk = (y_k - bnv[2]) * bnv[3]
-    gy = bnv[4] * gS - nm[..., None] * (bnv[5] + xk * bnv[6])
-    x3 = _x3(s_prev, agg, feats, keep, alpha_drop, rate)
+    x3 = _x3(y_prev * bnv[0] + bnv[1], agg, feats, keep, alpha_drop, rate)
     h = F.linear(x3, w_aug[:, :-1], w_aug[:, -1])
-    dh = gy * _act_grad(activation, h)
+    dh = _bn_gy(y_k, ds_in, gsel, bnv, flag, nm) * _act_grad(activation, h)
     dw = torch.matmul(dh.transpose(1, 2), torch.cat([x3, torch.ones_like(x3[..., :1])], -1))
-    dx2 = torch.matmul(dh, w_aug[:, :2 * D])
-    _, dmask = _make_drop(alpha_drop, rate)
-    dm = dmask(keep)
-    if rate > 0.0:
-        dxs, dagg = dx2[..., :D] * dm[..., :D], dx2[..., D:] * dm[..., D:2 * D]
-    else:
-        dxs, dagg = dx2[..., :D], dx2[..., D:]
-    ds = dxs + _contract_dst(adj_loop, adj_dep, dagg)
-    xp_hat = (y_prev - bnv[7]) * bnv[8]
-    red = torch.stack([torch.sum(ds, dim=1), torch.sum(ds * xp_hat, dim=1)], dim=1)
+    ds, dagg, red = _bn_ds(adj_loop, adj_dep, torch.matmul(dh, w_aug[:, :2 * D]), keep, y_prev,
+                           bnv, alpha_drop, rate)
     return ds, dw, dagg, red
+
+
+def bn2_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, w1, b1,
+                          ds_in, gsel, bnv, flag, nm, *, act0: str, act1: str, alpha_drop: bool,
+                          rate: float, act_grad=_act_grad):
+    """Plain PyTorch K15: K2 with the two-layer state net. Returns (ds
+    [R, W, D], dw0 [R, H1, C] per-block partials of the w0_aug cotangent (db0
+    its last column), dw1 [R, D, H1], db1 [R, D], dagg [R, W, D], red
+    [R, 2, D]). act_grad as fused2._dense2_vjp's (act1, then act0)."""
+    D = y_prev.shape[-1]
+    x3 = _x3(y_prev * bnv[0] + bnv[1], agg, feats, keep, alpha_drop, rate)
+    dx3, dw0, db0, dw1, db1, _ = _dense2_vjp(x3, w0_aug[:, :-1], w0_aug[:, -1], w1, b1,
+                                             _bn_gy(y_k, ds_in, gsel, bnv, flag, nm), act0, act1,
+                                             act_grad=act_grad)
+    ds, dagg, red = _bn_ds(adj_loop, adj_dep, dx3[..., :2 * D], keep, y_prev, bnv, alpha_drop,
+                           rate)
+    return ds, torch.cat([dw0, db0[..., None]], dim=-1), dw1, db1, dagg, red
 
 
 # ------------------------------------------------------------------ wrappers
@@ -278,6 +337,125 @@ def _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds
     return ds, dw, dagg, red
 
 
+def _smem2_bytes(W: int, D: int, F: int, H1: int, backward: bool) -> int:
+    """Shared memory a CTA of K14 (bn2_train.cu::fwd2_smem: the x3 rows, row
+    staging, a 32-row adjacency slab, the weights, the affines and the node
+    mask) or K15 (bn2_train.cu::bwd2_smem: the two-layer reverse layout, bnv
+    and the node mask) needs."""
+    if backward:
+        return _smem_bytes(W, D, F, H1, backward=True, extra=9 * D + W)
+    C = 2 * D + F
+    return 4 * (W * (C | 1) + W * (D | 1) + 32 * (W + 1) + H1 * (C + D + 1) + 5 * D + W)
+
+
+def _check_two_layer(adj_loop, adj_dep, R, D, F, w0_aug, w1, b1, backward):
+    """(Bl, W, H1) after checking what K14/K15 take: the widths, the hidden
+    width, the shared memory of the shape and the block rows."""
+    W = adj_loop.shape[-1]
+    H1 = w0_aug.shape[0]
+    if F > 64:
+        raise ValueError(f"arc-label widths above 64 are not supported (F={F})")
+    if not 1 <= H1 <= MAX_HIDDEN:
+        raise ValueError(f"hidden width H1={H1} is outside 1..{MAX_HIDDEN}")
+    need = _smem2_bytes(W, D, F, H1, backward)
+    if need > SMEM_BYTES:
+        raise ValueError(f"W={W}, D={D}, F={F}, H1={H1} needs {need} bytes of shared memory a "
+                         f"block, more than the {SMEM_BYTES} a CTA may use")
+    Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
+    dev = adj_loop.device
+    _check("w0_aug", w0_aug, (H1, 2 * D + F + 1), dev)
+    _check("w1", w1, (D, H1), dev)
+    _check("b1", b1, (D,), dev)
+    return Bl, W, H1
+
+
+def bn2_forward_step(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1, b1, nm, *,
+                     act0: str, act1: str, alpha_drop: bool, rate: float, threshold: float):
+    """K14: one two-layer BN-training iteration over every block row.
+
+    :param w0_aug: [H1, 2D+F+1] the first dense layer [Ws | Wa | Wf | b0].
+    :param w1, b1: [D, H1], [D] the second.
+    Other arguments and the result as bn_forward_step.
+    """
+    kw = dict(act0=act0, act1=act1, alpha_drop=alpha_drop, rate=rate, threshold=threshold)
+    if adj_loop.device.type == "cpu":
+        return bn2_forward_step_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1,
+                                    b1, nm, **kw)
+    _require_cuda(adj_loop)
+    R, _, D = y1.shape
+    Fd = feats.shape[-1]
+    Bl, W, H1 = _check_two_layer(adj_loop, adj_dep, R, D, Fd, w0_aug, w1, b1, backward=False)
+    dev = adj_loop.device
+    for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
+        if t is not None:
+            _check(name, t, (R, W, D), dev)
+    _check("aff", aff, (2, 2, D), dev)
+    _check("feats", feats, (R, W, Fd), dev)
+    _check("nm", nm, (R, W), dev)
+    keep = _check_keep(keep, (R, W, 2 * D + Fd), dev, rate)
+    y = torch.empty((R, W, D), dtype=torch.float32, device=dev)
+    agg = torch.empty_like(y)
+    marg = torch.empty((R, W), dtype=torch.float32, device=dev)
+    msum = torch.empty((R, D), dtype=torch.float32, device=dev)
+    mode, a, b = _drop_args(alpha_drop, rate)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gnn_bn2_forward(
+            _ptr(adj_loop), _ptr(adj_dep), _ptr(y1), _ptr(y2), _ptr(aff), _ptr(keep), _ptr(rT),
+            _ptr(feats), _ptr(w0_aug), _ptr(w1), _ptr(b1), _ptr(nm), _ptr(y), _ptr(agg),
+            _ptr(marg), _ptr(msum), R, Bl, W, D, Fd, H1, float(threshold), _ACT_CODE[act0],
+            _ACT_CODE[act1], mode, a, b, _stream(dev))
+    _build.check(err, "bn2_forward_step (K14)")
+    launches["bn2_forward_step"] += 1
+    return y, agg, marg, msum
+
+
+def bn2_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, w1, b1, ds_in,
+                      gsel, bnv, flag, nm, *, act0: str, act1: str, alpha_drop: bool,
+                      rate: float):
+    """K15: one reverse two-layer BN-training iteration over every block row.
+
+    Arguments as bn_backward_step with the weights of bn2_forward_step.
+    Returns (ds [R, W, D], dw0 [R, H1, 2D+F+1], dw1 [R, D, H1], db1 [R, D],
+    dagg [R, W, D], red [R, 2, D]), dw0, dw1, db1 and red per block row.
+    """
+    kw = dict(act0=act0, act1=act1, alpha_drop=alpha_drop, rate=rate)
+    if adj_loop.device.type == "cpu":
+        return bn2_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, w1,
+                                     b1, ds_in, gsel, bnv, flag, nm, **kw)
+    _require_cuda(adj_loop)
+    R, _, D = y_prev.shape
+    Fd = feats.shape[-1]
+    C = 2 * D + Fd + 1
+    Bl, W, H1 = _check_two_layer(adj_loop, adj_dep, R, D, Fd, w0_aug, w1, b1, backward=True)
+    dev = adj_loop.device
+    for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
+                    ("gsel", gsel)):
+        _check(name, t, (R, W, D), dev)
+    _check("feats", feats, (R, W, Fd), dev)
+    _check("bnv", bnv, (len(BNV_ROWS), D), dev)
+    _check("flag", flag, (), dev)
+    _check("nm", nm, (R, W), dev)
+    keep = _check_keep(keep, (R, W, C - 1), dev, rate)
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    ds, dagg, red = out(R, W, D), out(R, W, D), out(R, 2, D)
+    dw0, dw1, db1 = out(R, H1, C), out(R, D, H1), out(R, D)
+    mode, a, b = _drop_args(alpha_drop, rate)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gnn_bn2_backward(
+            _ptr(adj_loop), _ptr(adj_dep), _ptr(y_prev), _ptr(y_k), _ptr(agg), _ptr(keep),
+            _ptr(feats), _ptr(w0_aug), _ptr(w1), _ptr(b1), _ptr(ds_in), _ptr(gsel), _ptr(bnv),
+            _ptr(flag), _ptr(nm), _ptr(ds), _ptr(dw0), _ptr(dw1), _ptr(db1), _ptr(dagg),
+            _ptr(red), R, Bl, W, D, Fd, H1, _ACT_CODE[act0], _ACT_CODE[act1], mode, a, b,
+            _stream(dev))
+    _build.check(err, "bn2_backward_step (K15)")
+    launches["bn2_backward_step"] += 1
+    return ds, dw0, dw1, db1, dagg, red
+
+
 # ------------------------------------------------------------- the K-loop
 @dataclasses.dataclass
 class BNLoopOperands:
@@ -285,6 +463,7 @@ class BNLoopOperands:
 
     :param keep: uint8 [K, R, W, 2D+F] keep-masks, or None when rate == 0.
     :param res: (src, dst, w) residual arcs in flat block-row node ids, or None.
+    :param activations: the state net's, one (K1/K2) or two (K14/K15).
     """
     adj_loop: torch.Tensor
     adj_dep: Optional[torch.Tensor]
@@ -294,15 +473,32 @@ class BNLoopOperands:
     res: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
     K: int
     threshold: float
-    activation: str
+    activations: Tuple[str, ...]
     alpha_drop: bool
     rate: float
 
     def step_kw(self):
-        return dict(activation=self.activation, alpha_drop=self.alpha_drop, rate=self.rate)
+        acts = (dict(activation=self.activations[0]) if len(self.activations) == 1
+                else dict(zip(("act0", "act1"), self.activations)))
+        return dict(acts, alpha_drop=self.alpha_drop, rate=self.rate)
 
     def keep_k(self, k):
         return None if self.keep is None else self.keep[k]
+
+    def forward_step(self, k, y1, y2, aff, rT, weights):
+        """Iteration k: K1 for the weights (w_aug,), K14 for (w0_aug, w1, b1)."""
+        step = bn_forward_step if len(weights) == 1 else bn2_forward_step
+        return step(self.adj_loop, self.adj_dep, y1, y2, aff, self.keep_k(k), rT, self.feats,
+                    *weights, self.nm, threshold=self.threshold, **self.step_kw())
+
+    def backward_step(self, k, y_prev, y_k, agg, weights, ds_in, gsel, bnv, flag):
+        """The reverse of iteration k, K2 or K15: (ds, the weights' per-block
+        cotangents, dagg, red)."""
+        step = bn_backward_step if len(weights) == 1 else bn2_backward_step
+        ds, *dweights, dagg, red = step(self.adj_loop, self.adj_dep, y_prev, y_k, agg,
+                                        self.keep_k(k), self.feats, *weights, ds_in, gsel, bnv,
+                                        flag, self.nm, **self.step_kw())
+        return ds, dweights, dagg, red
 
 
 def _res_term(y, aff, res):
@@ -315,12 +511,13 @@ def _res_term(y, aff, res):
 
 
 class _BNTrainLoop(torch.autograd.Function):
-    """K launches of K1 forward and K launches of K2 backward, with the
-    reference's global early stop and snapshot selection as tensor ops (no
-    host synchronisation): _bn_loop_fwd / _bn_loop_bwd."""
+    """K launches of K1 (K14) forward and K launches of K2 (K15) backward,
+    with the reference's global early stop and snapshot selection as tensor
+    ops (no host synchronisation): _bn_loop_fwd / _bn_loop_bwd
+    (_bn2_loop_fwd / _bn2_loop_bwd)."""
 
     @staticmethod
-    def forward(ctx, s0, w_aug, gamma, beta, op: BNLoopOperands):
+    def forward(ctx, s0, gamma, beta, op: BNLoopOperands, *weights):
         D = s0.shape[-1]
         nm3 = op.nm[..., None]
         cnt = torch.clamp_min(torch.sum(op.nm), 1.0)
@@ -329,9 +526,7 @@ class _BNTrainLoop(torch.autograd.Function):
         ys, aggs, moms, affs, margs = [], [], [], [], []
         for k in range(op.K):
             rT = None if op.res is None else _res_term(y1, a1, op.res)
-            y, agg, marg, msum = bn_forward_step(
-                op.adj_loop, op.adj_dep, y1, y2, torch.stack([a1, a2]), op.keep_k(k), rT,
-                op.feats, w_aug, op.nm, threshold=op.threshold, **op.step_kw())
+            y, agg, marg, msum = op.forward_step(k, y1, y2, torch.stack([a1, a2]), rT, weights)
             mean = torch.sum(msum, dim=0) / cnt
             var = torch.sum(torch.square(y - mean) * nm3, dim=(0, 1)) / cnt
             y2, a2 = y1, a1
@@ -351,14 +546,14 @@ class _BNTrainLoop(torch.autograd.Function):
         state3 = (y_sel - mom_sel[0]) * torch.rsqrt(mom_sel[1] + BN_EPS) * gamma + beta
         state3 = torch.where(iters >= 1.0, state3, s0)
         ctx.op = op
-        ctx.saved = (s0, w_aug, gamma, iters, idx, ys, aggs, moms, affs, cnt)
+        ctx.saved = (s0, weights, gamma, iters, idx, ys, aggs, moms, affs, cnt)
         ctx.mark_non_differentiable(iters, moms_t)
         return iters, state3, moms_t
 
     @staticmethod
     def backward(ctx, _g_iters, g_state, _g_moms):
         op = ctx.op
-        s0, w_aug, gamma, iters, idx, ys, aggs, moms, affs, cnt = ctx.saved
+        s0, weights, gamma, iters, idx, ys, aggs, moms, affs, cnt = ctx.saved
         R, W, D = s0.shape
         g_state = torch.zeros_like(s0) if g_state is None else g_state.contiguous()
         active = iters >= 1.0
@@ -371,7 +566,7 @@ class _BNTrainLoop(torch.autograd.Function):
                for j in range(op.K)]
         ds = torch.zeros_like(s0)
         red = torch.zeros((2, D), dtype=s0.dtype, device=s0.device)
-        dw = torch.zeros_like(w_aug)
+        dweights = [torch.zeros_like(w) for w in weights]
         dgamma, dbeta = torch.zeros_like(zero), torch.zeros_like(zero)
         for k in reversed(range(op.K)):
             flag = ((idx[0] == k) & active).float()
@@ -386,11 +581,10 @@ class _BNTrainLoop(torch.autograd.Function):
             bnv = torch.stack([aff_p[0], aff_p[1], moms[k][0], rks[k], a, a * s1 / cnt,
                                a * s2 / cnt, mean_p, r_p])
             y_prev = s0 if k == 0 else ys[k - 1]
-            ds_new, dw_k, dagg, red_part = bn_backward_step(
-                op.adj_loop, op.adj_dep, y_prev, ys[k], aggs[k], op.keep_k(k), op.feats, w_aug,
-                ds, g_state, bnv, flag, op.nm, **op.step_kw())
+            ds_new, dw_k, dagg, red_part = op.backward_step(k, y_prev, ys[k], aggs[k], weights, ds,
+                                                            g_state, bnv, flag)
             red = torch.sum(red_part, dim=0)
-            dw = dw + torch.sum(dw_k, dim=0)
+            dweights = [a + torch.sum(b, dim=0) for a, b in zip(dweights, dw_k)]
             if op.res is not None:
                 # ds[src] += w * dagg[dst]; for k > 0 the next reverse step's
                 # reduction partials take these rows too
@@ -404,22 +598,25 @@ class _BNTrainLoop(torch.autograd.Function):
             ds = ds_new
         # iters == 0: the forward returned s0 itself
         ds = ds + torch.where(active, 0.0, g_state)
-        return ds, dw, dgamma, dbeta, None
+        return (ds, dgamma, dbeta, None, *dweights)
 
 
-def bn_train_loop(s0, w_aug, gamma, beta, op: BNLoopOperands):
-    """The K-iteration BN training loop (fused_bn_train_loop). Returns (iters,
-    state3 [R, W, D] the snapshot at the realised count, moms [K, 2, D] the
-    batch moments of every iteration). Gradients flow to s0, w_aug, gamma and
-    beta through K launches of K2; iters and moms carry none."""
-    return _BNTrainLoop.apply(s0, w_aug, gamma, beta, op)
+def bn_train_loop(s0, weights, gamma, beta, op: BNLoopOperands):
+    """The K-iteration BN training loop (fused_bn_train_loop, or
+    fused_bn2_train_loop for the weights (w0_aug, w1, b1) of a two-layer state
+    net). Returns (iters, state3 [R, W, D] the snapshot at the realised count,
+    moms [K, 2, D] the batch moments of every iteration). Gradients flow to
+    s0, the weights, gamma and beta through K launches of K2 (K15); iters and
+    moms carry none."""
+    return _BNTrainLoop.apply(s0, gamma, beta, op, *weights)
 
 
 def bn_loop_operands(spec, params_state, gb, keep_state: Optional[torch.Tensor]):
-    """(s0 [R, W, D], w_aug [D, 2D+F+1], BNLoopOperands) of a fused-layout
-    batch: w_aug = [Ws | Wa | Wf | b], the keep-masks in x3 column order
-    and the block rows [loop blocks | dep blocks] with their node mask and
-    residual arcs.
+    """(s0 [R, W, D], weights, BNLoopOperands) of a fused-layout batch: the
+    weights (w_aug,) with w_aug = [Ws | Wa | Wf | b] [D, 2D+F+1] for a
+    one-layer state net, (w0_aug, w1, b1) with w0_aug [H1, 2D+F+1] for a
+    two-layer one; the keep-masks in x3 column order and the block rows
+    [loop blocks | dep blocks] with their node mask and residual arcs.
 
     :param keep_state: bool [K, Np, in_dim] input keep-masks in global node
         order (None without input dropout)."""
@@ -450,10 +647,14 @@ def bn_loop_operands(spec, params_state, gb, keep_state: Optional[torch.Tensor])
         res = (gb.res_src_loc + off, gb.res_dst_loc + off, gb.res_w)
     op = BNLoopOperands(adj_loop=gb.adj_loop, adj_dep=gb.adj_dep, keep=keep,
                         feats=blocks(gb.agg_arcs_cache), nm=nm, res=res, K=K,
-                        threshold=float(spec.threshold), activation=ss.activations[0],
+                        threshold=float(spec.threshold), activations=tuple(ss.activations),
                         alpha_drop=bool(ss.alphadropout), rate=rate)
     dense = params_state["dense_0"]
-    return blocks(gb.nodes), torch.cat([dense["w"], dense["b"][:, None]], dim=1), op
+    weights = (torch.cat([dense["w"], dense["b"][:, None]], dim=1),)
+    if ss.num_layers == 2:
+        d1 = params_state["dense_1"]
+        weights += (d1["w"].contiguous(), d1["b"])
+    return blocks(gb.nodes), weights, op
 
 
 def bn_train_propagate(spec, params_state, bn_state, gb, keep_state: Optional[torch.Tensor]):
@@ -461,8 +662,8 @@ def bn_train_propagate(spec, params_state, bn_state, gb, keep_state: Optional[to
     batch (bn_loop_operands): runs bn_train_loop, applies the active-gated
     moving-statistics update and returns the state in global node order.
     Returns (iters, state [Np, D], new_bn_state)."""
-    s0, w_aug, op = bn_loop_operands(spec, params_state, gb, keep_state)
-    iters, state3, moms = bn_train_loop(s0, w_aug, params_state["bn"]["gamma"],
+    s0, weights, op = bn_loop_operands(spec, params_state, gb, keep_state)
+    iters, state3, moms = bn_train_loop(s0, weights, params_state["bn"]["gamma"],
                                         params_state["bn"]["beta"], op)
     # moving statistics: updated only by the iterations that ran
     mean_mv, var_mv = bn_state["mean"], bn_state["var"]

@@ -95,8 +95,7 @@ __device__ void stage_common(float* sm, const Layout& L, const float* adj_loop,
   const int r = blockIdx.x;
   const size_t row0 = (size_t)r * W;
   const int C = 2 * D + F + 1;
-  stage_adj(r < Bl ? adj_loop + row0 * W : adj_dep + (row0 - (size_t)Bl * W) * W, W,
-            sm + L.adj);
+  stage_adj(block_adj(adj_loop, adj_dep, Bl, W), W, sm + L.adj);
   for (int i = threadIdx.x; i < D * C; i += blockDim.x) sm[L.w + i] = w_aug[i];
   for (int i = threadIdx.x; i < vec_rows * D; i += blockDim.x) sm[L.vec + i] = vec[i];
   sm[L.nm + threadIdx.x] = nm[row0 + threadIdx.x];
@@ -119,12 +118,6 @@ __device__ void dense(const float* w, const float* xrow, int D, int C, float (&h
     for (int j = 0; j < MAXF; ++j)
       if (j < D) h[j] = fmaf(w[j * C + c], x, h[j]);
   }
-}
-
-// The dropout of this thread's x3 row, in place.
-__device__ void drop_row(float* xrow, const uint8_t* krow, int n, int mode, float a, float b) {
-  if (mode == kNoDrop) return;
-  for (int c = 0; c < n; ++c) xrow[c] = drop(mode, a, b, xrow[c], krow[c] != 0);
 }
 
 // K1: one BN-training iteration over every block row (row r < Bl reads

@@ -105,7 +105,7 @@ loop2_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
   const size_t row0 = (size_t)b * W;
 
   stage_adj(adjT + row0 * W, W, m.adj);
-  stage_dense2(w0, b0, w1, b1, D, 2 * D + AL, H1, m.w0, m.b0, m.w1T, m.b1);
+  stage_dense2(w0, 2 * D + AL, b0, 1, w1, b1, D, 2 * D + AL, H1, m.w0, m.b0, m.w1T, m.b1);
   if (!TRAIN) {
     for (int i = t; i < 2 * D; i += blockDim.x) m.aff[i] = aff[i];
     stage_in(f + row0 * AL, W, AL, m.R, RP, 0);
@@ -189,7 +189,7 @@ step2_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
   const size_t row0 = (size_t)blockIdx.x * W;
 
   stage_adj(adjT + row0 * W, W, m.adj);
-  stage_dense2(w0, b0, w1, b1, D, 2 * D + AL, H1, m.w0, m.b0, m.w1T, m.b1);
+  stage_dense2(w0, 2 * D + AL, b0, 1, w1, b1, D, 2 * D + AL, H1, m.w0, m.b0, m.w1T, m.b1);
   for (int i = t; i < 2 * D; i += blockDim.x) m.aff[i] = aff[i];
   stage_in(s + row0 * D, W, D, m.S, DP, 0);
   stage_in(f + row0 * AL, W, AL, m.R, RP, 0);

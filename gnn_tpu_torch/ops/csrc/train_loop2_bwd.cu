@@ -16,20 +16,20 @@
 // Design: one CTA per block, one thread per node (blockDim == W). Shared
 // memory holds the weights, every node's x3 row and its dh1 row. A thread
 // first loops over the H1 hidden units to rebuild its h1 and dh1
-// (common.cuh::dense2_h1), then again in chunks of kChunk units: it
-// recomputes h0_j and y0_j, forms dh0_j, adds w0[j] * dh0_j into its dx3, and
-// writes y0 and dh0 of the chunk into two [W][kChunk] tiles. A [W][H1] block
-// of y0 or dh0 would take 76.8 KB at
-// W = 128, H1 = 150; the tiles take 8.7 KB each. After each chunk the CTA sums
-// the chunk's dw0, db0 and dw1 entries over the block's nodes from the tiles
-// and the x3/dh1 rows; each entry belongs to one thread, the same in every
-// reverse step, which accumulates the block's partial in device memory (no
-// atomics: a result does not vary between runs; torch sums the per-block
-// partials in a fixed order). dfd[k] is written straight from registers.
-// The adjacency is read once a reverse step, by rows, for the dagg -> gs
-// contraction: it is staged 32 columns at a time through the tiles rather than
-// kept in shared memory, so a CTA takes 68.6 KB at W = 128, H1 = 150 and two
-// fit an SM (168 registers a thread).
+// (common.cuh::dense2_h1), then again in chunks of kChunk units
+// (common.cuh::bwd2_hidden, shared with K11 and K15): it recomputes h0_j and
+// y0_j, forms dh0_j, adds w0[j] * dh0_j into its dx3, and writes y0 and dh0 of
+// the chunk into two [W][kChunk] tiles. A [W][H1] block of y0 or dh0 would
+// take 76.8 KB at W = 128, H1 = 150; the tiles take 8.7 KB each. After each
+// chunk the CTA sums the chunk's dw0, db0 and dw1 entries over the block's
+// nodes from the tiles and the x3/dh1 rows; each entry belongs to one thread,
+// the same in every reverse step, which accumulates the block's partial in
+// device memory (no atomics: a result does not vary between runs; torch sums
+// the per-block partials in a fixed order). dfd[k] is written straight from
+// registers. The adjacency is read once a reverse step, by rows, for the
+// dagg -> gs contraction: it is staged 32 columns at a time through the tiles
+// (common.cuh::contract_rows) rather than kept in shared memory, so a CTA
+// takes 68.6 KB at W = 128, H1 = 150 and two fit an SM (168 registers a thread).
 //
 // Bound: the function needs 2*H1*(9D + 3AL + 1) flops a node and reverse step
 // (41 kflop on the recipe: the forward recomputed once, the reverse dense
@@ -45,13 +45,9 @@ namespace {
 
 using namespace gnn;
 
-constexpr int kChunk = 16;  // hidden units a pass of the weight-gradient sums
-
 // Floats of shared memory (fused2.py::_smem_bytes mirrors it).
 size_t bwd_smem(int W, int D, int AL, int H1) {
-  const int C = 2 * D + AL;
-  return sizeof(float) * ((size_t)W * (C | 1) + (size_t)W * (D | 1) +
-                          2 * (size_t)W * (kChunk | 1) + (size_t)H1 * (C + D + 1) + (size_t)D);
+  return sizeof(float) * bwd2_floats(W, D, 2 * D + AL, H1);
 }
 
 template <int MAXF>
@@ -67,41 +63,25 @@ train_loop2_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__
                        float* __restrict__ db1_out, float* __restrict__ dfd, int B, int W, int D,
                        int AL, int H1, int K, int act0, int act1, int mode, float da, float db) {
   extern __shared__ float4 smem_raw[];
-  const int C = 2 * D + AL, XP = C | 1, DP = D | 1, JP = kChunk | 1;
-  static_assert(2 * (kChunk | 1) >= 33, "the tiles hold a [W][33] adjacency slice");
-  float* X = reinterpret_cast<float*>(smem_raw);    // [W][XP] x3 rows
-  float* G = X + W * XP;                            // [W][DP] staging, dh1, then dagg
-  float* Y = G + W * DP;                            // [W][JP] y0 of a chunk
-  float* DH = Y + W * JP;                           // [W][JP] dh0 of a chunk
-  float* A = Y;                                     // [W][33] adjacency columns, over Y, DH
-  float* sw0 = DH + W * JP;                         // [H1][C]
-  float* sb0 = sw0 + H1 * C;                        // [H1]
-  float* sw1T = sb0 + H1;                           // [H1][D]
-  float* sb1 = sw1T + H1 * D;                       // [D]
+  const int C = 2 * D + AL;
+  const Bwd2 m = carve_bwd2(reinterpret_cast<float*>(smem_raw), W, D, C, H1);
   const int b = blockIdx.x, t = threadIdx.x;
   const size_t row0 = (size_t)b * W;
-  float* xrow = X + t * XP;
-  float* grow = G + t * DP;
-  // this block's partials; each entry written by one thread only
-  float* dw0 = dw0_out + (size_t)b * H1 * C;
-  float* db0 = db0_out + (size_t)b * H1;
-  float* dw1 = dw1_out + (size_t)b * D * H1;
-  float* db1 = db1_out + (size_t)b * D;
-
+  float* xrow = m.X + t * m.XP;
+  float* grow = m.G + t * m.DP;
   const float* adj = adjT + row0 * W;
-  stage_dense2(w0, b0, w1, b1, D, C, H1, sw0, sb0, sw1T, sb1);
+  stage_dense2(w0, C, b0, 1, w1, b1, D, C, H1, m.w0, m.b0, m.w1T, m.b1);
   float gs[MAXF], xs[MAXF], xa[MAXF], xf[MAXF], dh1[MAXF], dxs[MAXF], dxa[MAXF], dxf[MAXF];
 #pragma unroll
   for (int d = 0; d < MAXF; ++d) gs[d] = 0.0f;
 
   for (int k = K - 1; k >= 0; --k) {
-    const bool first = k == K - 1;  // the first reverse step writes the partials, later ones add
     const size_t kb = (size_t)k * B + b;
     const float* s_in = k > 0 ? traj + ((size_t)(k - 1) * B + b) * W * D : s0 + row0 * D;
-    stage_in(s_in, W, D, X, XP, 0);
-    stage_in(agg + kb * W * D, W, D, X, XP, D);
-    stage_in(fd + kb * W * AL, W, AL, X, XP, 2 * D);
-    stage_in(g_traj + kb * W * D, W, D, G, DP, 0);
+    stage_in(s_in, W, D, m.X, m.XP, 0);
+    stage_in(agg + kb * W * D, W, D, m.X, m.XP, D);
+    stage_in(fd + kb * W * AL, W, AL, m.X, m.XP, 2 * D);
+    stage_in(g_traj + kb * W * D, W, D, m.G, m.DP, 0);
     __syncthreads();
     const uint8_t* ks = mode != kNoDrop ? ms + (kb * W + t) * D : nullptr;
     const uint8_t* ka = mode != kNoDrop ? ma + (kb * W + t) * D : nullptr;
@@ -118,67 +98,16 @@ train_loop2_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__
       xf[d] = d < AL ? xrow[2 * D + d] : 0.0f;
     }
     // h1 recomputed, then dh1 = (g_traj[k] + gs) * act1'(h1) into G
-    dense2_h1<MAXF>(sw0, sb0, sw1T, sb1, D, AL, H1, act0, xs, xa, xf, dh1);
+    dense2_h1<MAXF>(m.w0, m.b0, m.w1T, m.b1, D, AL, H1, act0, xs, xa, xf, dh1);
 #pragma unroll
     for (int d = 0; d < MAXF; ++d) {
       dh1[d] = d < D ? (grow[d] + gs[d]) * act_grad(act1, dh1[d]) : 0.0f;
       if (d < D) grow[d] = dh1[d];
-      dxs[d] = dxa[d] = dxf[d] = 0.0f;
     }
     __syncthreads();  // G holds every node's dh1, X every node's x3
-    for (int d = t; d < D; d += blockDim.x) {
-      float acc = 0.0f;
-      for (int n = 0; n < W; ++n) acc += G[n * DP + d];
-      db1[d] = first ? acc : db1[d] + acc;
-    }
-
-    for (int j0 = 0; j0 < H1; j0 += kChunk) {
-      const int jc = H1 - j0 < kChunk ? H1 - j0 : kChunk;
-      for (int jj = 0; jj < jc; ++jj) {
-        const int j = j0 + jj;
-        const float* w0j = sw0 + j * C;
-        const float h0 = dense0_unit<MAXF>(w0j, sb0[j], D, AL, xs, xa, xf);
-        const float* w1j = sw1T + j * D;
-        float dy0 = 0.0f;
-#pragma unroll
-        for (int d = 0; d < MAXF; ++d)
-          if (d < D) dy0 = fmaf(w1j[d], dh1[d], dy0);
-        const float dh0 = dy0 * act_grad(act0, h0);
-        Y[t * JP + jj] = activate(act0, h0);
-        DH[t * JP + jj] = dh0;
-#pragma unroll
-        for (int d = 0; d < MAXF; ++d) {
-          if (d < D) {
-            dxs[d] = fmaf(w0j[d], dh0, dxs[d]);
-            dxa[d] = fmaf(w0j[D + d], dh0, dxa[d]);
-          }
-          if (d < AL) dxf[d] = fmaf(w0j[2 * D + d], dh0, dxf[d]);
-        }
-      }
-      __syncthreads();  // the chunk's tiles are full
-      // the chunk's dw0 [jc][C], db0 [jc] and dw1 [D][jc] entries, summed over
-      // the block's nodes; consecutive threads take consecutive columns
-      const int n_w0 = jc * C, n_b0 = n_w0 + jc, n_all = n_b0 + D * jc;
-      for (int o = t; o < n_all; o += blockDim.x) {
-        float acc = 0.0f;
-        float* dst;
-        if (o < n_w0) {
-          const int jj = o / C, c = o % C;
-          for (int n = 0; n < W; ++n) acc = fmaf(DH[n * JP + jj], X[n * XP + c], acc);
-          dst = dw0 + (size_t)(j0 + jj) * C + c;
-        } else if (o < n_b0) {
-          const int jj = o - n_w0;
-          for (int n = 0; n < W; ++n) acc += DH[n * JP + jj];
-          dst = db0 + j0 + jj;
-        } else {
-          const int q = o - n_b0, d = q / jc, jj = q % jc;
-          for (int n = 0; n < W; ++n) acc = fmaf(G[n * DP + d], Y[n * JP + jj], acc);
-          dst = dw1 + (size_t)d * H1 + j0 + jj;
-        }
-        *dst = first ? acc : *dst + acc;
-      }
-      __syncthreads();  // the tiles are rewritten by the next chunk
-    }
+    bwd2_hidden<MAXF>(m, W, D, AL, H1, act0, xs, xa, xf, dh1, dxs, dxa, dxf,
+                      dw0_out + (size_t)b * H1 * C, C, db0_out + (size_t)b * H1, 1,
+                      dw1_out + (size_t)b * D * H1, db1_out + (size_t)b * D, k == K - 1);
 
     // dfd[k] = dx3[2D:]; dagg = dx3[D:2D] * a*ma into G; dx3[:D] * a*ms
     float* dfd_row = dfd + (kb * W + t) * AL;
@@ -191,23 +120,9 @@ train_loop2_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__
       }
     }
     __syncthreads();
-    // gs[t] = dx3[:D] * a*ms + sum_dst adjT[t][dst] * dagg[dst]: row t of the
-    // adjacency, 32 columns at a time (the tiles are free after the last chunk)
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d) gs[d] = 0.0f;
-    for (int c0 = 0; c0 < W; c0 += 32) {
-      for (int i = t; i < W * 32; i += blockDim.x)
-        A[(i >> 5) * 33 + (i & 31)] = adj[(size_t)(i >> 5) * W + c0 + (i & 31)];
-      __syncthreads();
-      for (int c = 0; c < 32; ++c) {
-        const float a = A[t * 33 + c];
-        const float* r = G + (c0 + c) * DP;
-#pragma unroll
-        for (int d = 0; d < MAXF; ++d)
-          if (d < D) gs[d] = fmaf(a, r[d], gs[d]);
-      }
-      __syncthreads();  // A is restaged by the next columns, X and G by the next step
-    }
+    // gs[t] = dx3[:D] * a*ms + sum_dst adjT[t][dst] * dagg[dst] (the tiles are
+    // free after the last chunk; contract_rows leaves X and G free for the next step)
+    contract_rows<MAXF>(adj, W, m.G, m.DP, D, m.A, gs);
 #pragma unroll
     for (int d = 0; d < MAXF; ++d) gs[d] += dxs[d];
   }
@@ -215,7 +130,7 @@ train_loop2_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__
   for (int d = 0; d < MAXF; ++d)
     if (d < D) grow[d] = gs[d];
   __syncthreads();
-  stage_out(gs_out + row0 * D, W, D, G, DP);
+  stage_out(gs_out + row0 * D, W, D, m.G, m.DP);
 }
 
 template <int MAXF>

@@ -1,7 +1,7 @@
 """Propagation kernels of a two-layer state net (counterpart of the
-two-layer half of gnn_tpu/ops/pallas_fused.py): the eval kernels K9/K10 and
-the dropout-training kernels K12/K13, which run the hidden-150 accuracy
-recipe.
+two-layer half of gnn_tpu/ops/pallas_fused.py): the eval kernels K9/K10 with
+K10's reverse K11, and the dropout-training kernels K12/K13, which run the
+hidden-150 accuracy recipe.
 
 One iteration on a block of W nodes, node-major:
 
@@ -19,6 +19,10 @@ operations and AL/H1 of the feature bytes.
 * `propagation_loop2` (K10, replaces `_loop2_kernel_T`): all K eval
   iterations of residual-free blocks, f the raw arc-label aggregation; the
   states after every iteration and the pre-update movement flags.
+* `propagation_loop2_bwd` (K11, replaces `_loop2_bwd_kernel`): K10's K
+  reverse iterations, recomputing each iteration's aggregation (K10 saves
+  none): the state cotangent, per-block weight and affine partials and the
+  cotangent of f, summed over the iterations (f is loop-invariant).
 * `propagation_step2` (K9, replaces `_step2_kernel_T`): one eval iteration of
   residual-coupled blocks. rT is the raw residual aggregation, added to agg
   before w0; gnn_tpu passes it through W0a instead (the same linear map at
@@ -30,15 +34,18 @@ operations and AL/H1 of the feature bytes.
   reverse iterations: the state cotangent, per-block weight partials and
   fd's cotangent.
 
-The differentiable ops are torch.autograd.Functions: `fused_train_loop2` (K12,
-backward K13), `fused_propagation_step2` (K9, a plain backward as gnn_tpu's
-XLA rule `_step2_bwd`) and `fused_propagation_loop2` (K10), whose backward
-is gnn_tpu's K11 `_loop2_bwd_kernel`, not ported: it raises.
+The differentiable ops are torch.autograd.Functions: `fused_propagation_loop2`
+(K10, backward K11), which trains a two-layer net without dropout and
+BatchNorm, `fused_train_loop2` (K12, backward K13) and
+`fused_propagation_step2` (K9, a plain backward as gnn_tpu's XLA rule
+`_step2_bwd`). The reverse of the two dense layers is one plain function,
+`_dense2_vjp`, in every plain version.
 
 Layout and rules as ops/fused.py: node-major blocks s [B, W, D], f
 [(K,) B, W, AL], adjT [B, W(src), W(dst)], keep-masks uint8 [K, B, W, D]. Each
 wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and launches
-the CUDA kernel (ops/csrc/fused2.cu, train_loop2_bwd.cu) for CUDA tensors;
+the CUDA kernel (ops/csrc/fused2.cu, eval_loop2_bwd.cu, train_loop2_bwd.cu)
+for CUDA tensors;
 `launches` counts kernel launches. D and AL are at most 64, H1 at most
 MAX_HIDDEN, and a block's rows and the weights must fit a CTA's shared
 memory (`_smem_bytes`). The dense layers set these kernels' least time.
@@ -59,11 +66,11 @@ from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, _act
 # memory; at W = 128, D = 14, AL = 3, H1 = 512 the forward kernels need 176 KB)
 MAX_HIDDEN = 512
 SMEM_BYTES = 232448          # shared memory a CTA may use (227 KB)
-_CHUNK = 16                  # train_loop2_bwd.cu::kChunk
+_CHUNK = 16                  # common.cuh::kChunk
 
 # the kernel each wrapper launches (C entry point gnn_<wrapper>)
-_KERNEL = {"propagation_step2": "K9", "propagation_loop2": "K10", "train_loop2": "K12",
-           "train_loop2_bwd": "K13"}
+_KERNEL = {"propagation_step2": "K9", "propagation_loop2": "K10",
+           "propagation_loop2_bwd": "K11", "train_loop2": "K12", "train_loop2_bwd": "K13"}
 # kernel launches since the last reset, by wrapper
 launches = dict.fromkeys(_KERNEL, 0)
 _launch = functools.partial(launch_counted, launches, _KERNEL)
@@ -151,35 +158,82 @@ def train_loop2_ref(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K: int, threshold:
     return torch.stack(traj), torch.stack(margins), torch.stack(aggs)
 
 
+def _dense2_vjp(x3, w0, b0, w1, b1, g, act0: str, act1: str, affine=None,
+                act_grad=_act_grad):
+    """Reverse of s = act1(w1 @ act0(w0 @ x3 + b0) + b1) (* scale + shift) on
+    the rows x3 [B, W, C] for the cotangent g [B, W, D] of s: (dx3 [B, W, C],
+    dw0 [B, H1, C], db0 [B, H1], dw1 [B, D, H1], db1 [B, D], daff [B, 2, D]
+    or None without an affine), the weight cotangents per block. act_grad
+    (name, h) is the activations' derivative, taken for act1 and then act0."""
+    h0 = F.linear(x3, w0, b0)
+    y0 = _ACTS[act0](h0)
+    h1 = F.linear(y0, w1, b1)
+    daff = None
+    if affine is not None:
+        daff = torch.stack([torch.sum(g * _ACTS[act1](h1), dim=1), torch.sum(g, dim=1)], dim=1)
+        g = g * affine[0]
+    dh1 = g * act_grad(act1, h1)
+    dh0 = torch.matmul(dh1, w1) * act_grad(act0, h0)
+    return (torch.matmul(dh0, w0), torch.matmul(dh0.transpose(1, 2), x3), dh0.sum(1),
+            torch.matmul(dh1.transpose(1, 2), y0), dh1.sum(1), daff)
+
+
+def _weight_sums(s0, w0):
+    """Zero per-block cotangents of w0, b0, w1, b1 for s0's blocks."""
+    B, _, D = s0.shape
+    H1 = w0.shape[0]
+    return [s0.new_zeros((B,) + tuple(w0.shape)), s0.new_zeros((B, H1)), s0.new_zeros((B, D, H1)),
+            s0.new_zeros((B, D))]
+
+
 def train_loop2_bwd_ref(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj,
                         act0: str = "tanh", act1: str = "tanh", alpha_drop: bool = True,
-                        rate: float = 0.0):
+                        rate: float = 0.0, act_grad=_act_grad):
     """Plain PyTorch K13: the K reverse iterations of K12 for the trajectory's
     cotangent g_traj. Returns (gs [B, W, D], dw0 [B, H1, 2D + AL], db0
     [B, H1], dw1 [B, D, H1], db1 [B, D], dfd [K, B, W, AL]), the weight
-    cotangents per block."""
+    cotangents per block. act_grad as _dense2_vjp's, taken in reverse
+    iteration order."""
     drop, dmask = _make_drop(alpha_drop, rate)
-    B, _, D = s0.shape
-    H1 = w0.shape[0]
+    D = s0.shape[-1]
     gs = torch.zeros_like(s0)
-    dw0, db0 = s0.new_zeros((B,) + tuple(w0.shape)), s0.new_zeros((B, H1))
-    dw1, db1 = s0.new_zeros((B, D, H1)), s0.new_zeros((B, D))
+    sums = _weight_sums(s0, w0)
     dfd = [None] * traj.shape[0]
     for k in reversed(range(traj.shape[0])):
         x3 = _x3(traj[k - 1] if k else s0, agg[k], fd[k], _at(ms, k), _at(ma, k), drop)
-        h0 = F.linear(x3, w0, b0)
-        y0 = _ACTS[act0](h0)
-        dh1 = (g_traj[k] + gs) * _act_grad(act1, F.linear(y0, w1, b1))
-        dh0 = torch.matmul(dh1, w1) * _act_grad(act0, h0)
-        dw1 = dw1 + torch.matmul(dh1.transpose(1, 2), y0)
-        db1 = db1 + dh1.sum(1)
-        dw0 = dw0 + torch.matmul(dh0.transpose(1, 2), x3)
-        db0 = db0 + dh0.sum(1)
-        dx3 = torch.matmul(dh0, w0)
+        dx3, *parts, _ = _dense2_vjp(x3, w0, b0, w1, b1, g_traj[k] + gs, act0, act1,
+                                     act_grad=act_grad)
+        sums = [a + b for a, b in zip(sums, parts)]
         dfd[k] = dx3[..., 2 * D:]
         gs = (dx3[..., :D] * dmask(_at(ms, k))
               + torch.matmul(adjT, dx3[..., D:2 * D] * dmask(_at(ma, k))))
-    return gs, dw0, db0, dw1, db1, torch.stack(dfd)
+    return (gs, *sums, torch.stack(dfd))
+
+
+def propagation_loop2_bwd_ref(adjT, s0, traj, feats, w0, b0, w1, b1, affine, g_traj,
+                              act0: str = "tanh", act1: str = "tanh", act_grad=_act_grad):
+    """Plain PyTorch K11: the K reverse iterations of K10 for the trajectory's
+    cotangent g_traj, each recomputing its iteration's aggregation. Returns
+    (gs [B, W, D], dw0 [B, H1, 2D + AL], db0 [B, H1], dw1 [B, D, H1], db1
+    [B, D], dfeats [B, W, AL] summed over the iterations, daff [B, 2, D] or
+    None without an affine), the weight and affine cotangents per block.
+    act_grad as train_loop2_bwd_ref's."""
+    D = s0.shape[-1]
+    gs = torch.zeros_like(s0)
+    sums = _weight_sums(s0, w0)
+    dfeats = torch.zeros_like(feats)
+    daff = None if affine is None else s0.new_zeros((s0.shape[0], 2, D))
+    for k in reversed(range(traj.shape[0])):
+        s_in = traj[k - 1] if k else s0
+        x3 = torch.cat([s_in, _aggregate(adjT, s_in), feats], dim=-1)
+        dx3, *parts, daff_k = _dense2_vjp(x3, w0, b0, w1, b1, g_traj[k] + gs, act0, act1, affine,
+                                          act_grad)
+        sums = [a + b for a, b in zip(sums, parts)]
+        if daff is not None:
+            daff = daff + daff_k
+        dfeats = dfeats + dx3[..., 2 * D:]
+        gs = dx3[..., :D] + torch.matmul(adjT, dx3[..., D:2 * D])
+    return (gs, *sums, dfeats, daff)
 
 
 def _step2_vjp(adjT, s, rT, feats, w0, b0, w1, b1, affine, g, act0: str, act1: str):
@@ -190,36 +244,28 @@ def _step2_vjp(adjT, s, rT, feats, w0, b0, w1, b1, affine, g, act0: str, act1: s
     agg = _aggregate(adjT, s)
     if rT is not None:
         agg = agg + rT
-    x3 = torch.cat([s, agg, feats], dim=-1)
-    h0 = F.linear(x3, w0, b0)
-    y0 = _ACTS[act0](h0)
-    h1 = F.linear(y0, w1, b1)
-    daff = None
-    if affine is not None:
-        daff = torch.stack([torch.sum(g * _ACTS[act1](h1), dim=(0, 1)), torch.sum(g, dim=(0, 1))])
-        g = g * affine[0]
-    dh1 = g * _act_grad(act1, h1)
-    dh0 = torch.matmul(dh1, w1) * _act_grad(act0, h0)
-    dx3 = torch.matmul(dh0, w0)
+    dx3, dw0, db0, dw1, db1, daff = _dense2_vjp(torch.cat([s, agg, feats], dim=-1), w0, b0, w1,
+                                                b1, g, act0, act1, affine)
     dagg = dx3[..., D:2 * D]
     return (dx3[..., :D] + torch.matmul(adjT, dagg), None if rT is None else dagg,
-            dx3[..., 2 * D:], torch.einsum("bwh,bwc->hc", dh0, x3), dh0.sum((0, 1)),
-            torch.einsum("bwd,bwh->dh", dh1, y0), dh1.sum((0, 1)), daff)
+            dx3[..., 2 * D:], dw0.sum(0), db0.sum(0), dw1.sum(0), db1.sum(0),
+            None if daff is None else daff.sum(0))
 
 
 # ------------------------------------------------------------------ wrappers
-def _smem_bytes(W: int, D: int, AL: int, H1: int, backward: bool) -> int:
+def _smem_bytes(W: int, D: int, AL: int, H1: int, backward: bool, extra: int = 0) -> int:
     """Shared memory a CTA of the forward kernels (fused2.cu::fwd_smem) or of
-    K13 (train_loop2_bwd.cu::bwd_smem) needs: the adjacency, row tiles and the
-    weights."""
+    the reverse kernels (common.cuh::bwd2_floats and `extra` floats of the
+    kernel's own: 0 for K13, the affine's 2D for K11) needs: the adjacency or
+    its slabs, row tiles and the weights."""
     C = 2 * D + AL
     weights = H1 * (C + D + 1)
     if backward:
-        return 4 * (W * (C | 1) + W * (D | 1) + 2 * W * (_CHUNK | 1) + weights + D)
+        return 4 * (W * (C | 1) + W * (D | 1) + 2 * W * (_CHUNK | 1) + weights + D + extra)
     return 4 * (W * (W + 1) + W * (D | 1) + W * (max(D, AL) | 1) + weights + 3 * D)
 
 
-def _check_block2(adjT, D: int, AL: int, H1: int, backward: bool = False):
+def _check_block2(adjT, D: int, AL: int, H1: int, backward: bool = False, extra: int = 0):
     """The widths the kernels take."""
     B, W, W2 = adjT.shape
     if W != W2 or W % 32 or not 32 <= W <= 128:
@@ -228,7 +274,7 @@ def _check_block2(adjT, D: int, AL: int, H1: int, backward: bool = False):
         raise ValueError(f"state and arc-label widths above 64 are not supported (D={D}, AL={AL})")
     if not 1 <= H1 <= MAX_HIDDEN:
         raise ValueError(f"hidden width H1={H1} is outside 1..{MAX_HIDDEN}")
-    need = _smem_bytes(W, D, AL, H1, backward)
+    need = _smem_bytes(W, D, AL, H1, backward, extra)
     if need > SMEM_BYTES:
         raise ValueError(f"W={W}, D={D}, AL={AL}, H1={H1} needs {need} bytes of shared memory a "
                          f"block, more than the {SMEM_BYTES} a CTA may use")
@@ -316,6 +362,50 @@ def propagation_loop2(adjT, s0, feats, w0, b0, w1, b1, affine, nm, K: int, thres
             _ptr(nm), _ptr(traj), _ptr(margins), B, W, D, AL, H1, int(K), float(threshold),
             _ACT_CODE[act0], _ACT_CODE[act1])
     return traj, margins
+
+
+def propagation_loop2_bwd(adjT, s0, traj, feats, w0, b0, w1, b1, affine, g_traj,
+                          act0: str = "tanh", act1: str = "tanh"):
+    """K11: the K reverse iterations of K10 over residual-free blocks.
+
+    :param traj: [K, B, W, D] K10's trajectory; g_traj: its cotangent.
+    Other arguments as propagation_loop2. Returns (gs [B, W, D], dw0
+    [B, H1, 2D + AL], db0 [B, H1], dw1 [B, D, H1], db1 [B, D], dfeats
+    [B, W, AL], daff [B, 2, D] or None without an affine), the weight and
+    affine cotangents per block, dfeats summed over the iterations.
+    """
+    if adjT.device.type == "cpu":
+        return propagation_loop2_bwd_ref(adjT, s0, traj, feats, w0, b0, w1, b1, affine, g_traj,
+                                         act0, act1)
+    B, W, _ = adjT.shape
+    K = traj.shape[0]
+    D, AL = s0.shape[-1], feats.shape[-1]
+    H1 = w0.shape[0]
+    _check_block2(adjT, D, AL, H1, backward=True, extra=2 * D)
+    dev = adjT.device
+    _check("adjT", adjT, (B, W, W), dev)
+    _check("s0", s0, (B, W, D), dev)
+    _check("traj", traj, (K, B, W, D), dev)
+    _check("g_traj", g_traj, (K, B, W, D), dev)
+    _check("feats", feats, (B, W, AL), dev)
+    _check_weights(w0, b0, w1, b1, D, AL, dev)
+    if affine is not None:
+        _check("affine", affine, (2, D), dev)
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    gs, dfeats = out(B, W, D), out(B, W, AL)
+    dw0, db0, dw1, db1 = out(B, H1, 2 * D + AL), out(B, H1), out(B, D, H1), out(B, D)
+    daff = None if affine is None else out(B, 2, D)
+    if B == 0 or K == 0:
+        return tuple(None if t is None else t.zero_()
+                     for t in (gs, dw0, db0, dw1, db1, dfeats, daff))
+    _launch("propagation_loop2_bwd", dev,
+            _ptr(adjT), _ptr(s0), _ptr(traj), _ptr(feats), _ptr(w0), _ptr(b0), _ptr(w1),
+            _ptr(b1), _ptr(affine), _ptr(g_traj), _ptr(gs), _ptr(dw0), _ptr(db0), _ptr(dw1),
+            _ptr(db1), _ptr(dfeats), _ptr(daff), B, W, D, AL, H1, K, _ACT_CODE[act0],
+            _ACT_CODE[act1])
+    return gs, dw0, db0, dw1, db1, dfeats, daff
 
 
 def train_loop2(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K: int, threshold: float,
@@ -406,21 +496,23 @@ def train_loop2_bwd(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj, act
 
 # ------------------------------------------------------- differentiable ops
 class _PropagationLoop2(torch.autograd.Function):
-    """K10 forward. Its backward is gnn_tpu's K11, not ported: it raises
-    rather than give no or wrong gradients."""
+    """K10 forward, K11 backward (_loop2_fwd / _loop2_bwd)."""
 
     @staticmethod
     def forward(ctx, s0, feats, w0, b0, w1, b1, affine, adjT, nm, K, threshold, act0, act1):
         traj, margins = propagation_loop2(adjT, s0, feats, w0, b0, w1, b1, affine, nm, K,
                                           threshold, act0, act1)
+        ctx.saved = (adjT, s0, traj, feats, w0, b0, w1, b1, affine, act0, act1)
         ctx.mark_non_differentiable(margins)
         return traj, margins
 
     @staticmethod
     def backward(ctx, g_traj, _g_margins):
-        raise NotImplementedError(
-            "the gradient of the two-layer eval loop K10 is K11 "
-            "(pallas_fused.py::_loop2_bwd_kernel), which is not ported yet")
+        adjT, s0, traj, feats, w0, b0, w1, b1, affine, act0, act1 = ctx.saved
+        gs, dw0, db0, dw1, db1, dfeats, daff = propagation_loop2_bwd(
+            adjT, s0, traj, feats, w0, b0, w1, b1, affine, g_traj.contiguous(), act0, act1)
+        return (gs, dfeats, dw0.sum(0), db0.sum(0), dw1.sum(0), db1.sum(0),
+                None if daff is None else daff.sum(0)) + (None,) * 6
 
 
 class _PropagationStep2(torch.autograd.Function):
@@ -460,8 +552,8 @@ class _TrainLoop2(torch.autograd.Function):
 
 def fused_propagation_loop2(adjT, s0, feats, w0, b0, w1, b1, affine, nm, K: int,
                             threshold: float, act0: str = "tanh", act1: str = "tanh"):
-    """propagation_loop2 (K10). Returns (traj, margins); a backward through
-    it raises NotImplementedError (K11 is not ported)."""
+    """propagation_loop2 (K10) with gradients to s0, feats, w0, b0, w1, b1 and
+    affine through K11. Returns (traj, margins); margins carry none."""
     return _PropagationLoop2.apply(s0, feats, w0, b0, w1, b1, affine, adjT, nm, K, threshold,
                                    act0, act1)
 

@@ -97,7 +97,7 @@ def test_bn_forward_step_ref_matches_pallas(act, rate, alpha, res, Bl):
         _t(x["mc"]).to(torch.uint8) if rate else None, _t(x["rT"]) if res else None,
         _t(x["feats"]), torch.from_numpy(x["w_aug"]), torch.from_numpy(x["nm"]),
         activation=act, alpha_drop=alpha, rate=rate, threshold=thr)
-    assert tbn.launches == {"bn_forward_step": 0, "bn_backward_step": 0}
+    assert not any(tbn.launches.values())
     np.testing.assert_allclose(_fm(y), np.asarray(y_j), atol=ATOL)
     np.testing.assert_allclose(_fm(agg), np.asarray(agg_j), atol=ATOL)
     np.testing.assert_array_equal(marg.numpy(), np.asarray(marg_j)[:, 0])
@@ -190,7 +190,7 @@ def test_bn_loop_backward_matches_autograd_through_plain_body(threshold, rate):
 
     tbn.reset_launches()
     k_loop, s_loop, bn_loop, g_loop = run(spec)
-    assert tbn.launches == {"bn_forward_step": 0, "bn_backward_step": 0}   # plain on the CPU
+    assert not any(tbn.launches.values())   # plain on the CPU
     k_body, s_body, bn_body, g_body = run(dataclasses.replace(spec, aggregation="segment"))
     assert float(k_loop) == float(k_body)
     if threshold == 1e9:

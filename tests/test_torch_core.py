@@ -205,13 +205,15 @@ def test_unported_paths_raise():
     _, (tp, tbn) = _weights(js)
     with pytest.raises(NotImplementedError, match="state_dim"):
         tcore.propagate(dataclasses.replace(ts, state_dim=4), tp["state"], tbn["state"], tb)
-    # two-layer state nets serve (K9/K10); with BatchNorm they train through
-    # K14/K15, not ported (tests/test_torch_train_h150.py has the other routes)
+    # two-layer state nets serve (K9/K10) and with BatchNorm train through
+    # K14/K15 (tests/test_torch_train_h150.py and test_torch_bn2.py hold them)
     js2, ts2 = _specs(act="tanh", units=(7, 5))
     _, (tp2, tbn2) = _weights(js2)
     assert torch.isfinite(tcore.gnn_forward(ts2, tp2, tbn2, tb)["out"]).all()
-    with pytest.raises(NotImplementedError, match="K14/K15"):
-        tcore.gnn_forward(ts2, tp2, tbn2, tb, training=True)
+    assert tcore._train_route(ts2, tb) == "bn"
+    masks = tcore.draw_masks(ts2, tb, torch.Generator().manual_seed(0))
+    assert torch.isfinite(tcore.gnn_forward(ts2, tp2, tbn2, tb, training=True,
+                                            masks=masks)["out"]).all()
     with pytest.raises(NotImplementedError, match="K18"):
         tcore.gnn_forward(dataclasses.replace(ts, aggregation="pallas"), tp, tbn, tb)
 

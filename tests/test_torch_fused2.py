@@ -1,4 +1,4 @@
-"""Plain versions of the two-layer kernels K9/K10/K12/K13
+"""Plain versions of the two-layer kernels K9/K10/K11/K12/K13
 (gnn_tpu_torch/ops/fused2.py) and their autograd Functions against gnn_tpu's
 Pallas kernels and custom VJPs, which run in interpret mode on the CPU.
 
@@ -243,18 +243,60 @@ def test_step2_grads_match_jax_vjp(res, affine):
         np.testing.assert_allclose(got, np.asarray(w), rtol=RTOL, atol=ATOL_GRAD, err_msg=name)
 
 
-def test_loop2_backward_raises_naming_k11():
-    """K10's gradient is K11, not ported: a backward through it raises
-    instead of giving none or wrong ones; without grad it runs."""
+@pytest.mark.parametrize("affine,acts", [(True, ("selu", "tanh")), (False, ("tanh", "tanh")),
+                                          (True, ("tanh", "tanh")), (False, ("selu", "tanh"))])
+def test_loop2_bwd_ref_matches_jax_vjp(affine, acts):
+    """K11 on the Pallas forward's trajectory against jax.vjp of gnn_tpu's
+    fused_propagation_loop2 (its K11 in interpret mode) through the operand
+    maps, which carry the cotangent of the hoisted fT0 back through Wf to
+    feats, Wf and b0: the state and feats cotangents and the block-summed
+    weight and affine cotangents."""
     x = _inputs(7)
-    s0 = _nm(x["s0"]).requires_grad_()
-    args = (_nm(x["feats"]), *_weights(x), _t(x["aff"]), _t(x["nm"]), K, 0.05)
-    traj, _ = tf2.fused_propagation_loop2(_t(x["adjT"]), s0, *args)
-    with pytest.raises(NotImplementedError, match="K11"):
-        traj.sum().backward()
-    with torch.no_grad():
-        traj, _ = tf2.fused_propagation_loop2(_t(x["adjT"]), s0, *args)
-    assert torch.isfinite(traj).all()
+    D = x["s0"].shape[1]
+    thr = 0.05
+    adj, nm = _pack(x), jnp.asarray(x["nm"])
+    names = ("s0", "feats", "w0", "b0", "w1", "b1", "aff")
+
+    def f(s0, feats, w0, b0, w1, b1, aff):
+        w20, fT0, _ = _eval_operands(w0, b0, feats, None, D)
+        return pf.fused_propagation_loop2(adj, s0, fT0, w20, w1, b1, aff if affine else None, nm,
+                                          K, thr, *acts, 2)
+    (traj_j, _), vjp = jax.vjp(f, *[jnp.asarray(x[k]) for k in names])
+    want = vjp((jnp.asarray(x["g"]), jnp.zeros((K, 4, 32))))
+    tf2.reset_launches()
+    gs, dw0, db0, dw1, db1, dfeats, daff = tf2.propagation_loop2_bwd(
+        _t(x["adjT"]), _nm(x["s0"]), _nm(traj_j), _nm(x["feats"]), *_weights(x),
+        _t(x["aff"]) if affine else None, _nm(x["g"]), *acts)
+    assert not any(tf2.launches.values())                     # the plain version on the CPU
+    assert dw0.shape == (4, 16, 13) and (daff is None) != affine   # per-block partials
+    got = [gs, dfeats, dw0, db0, dw1, db1, daff]
+    for name, t, w in zip(names, got, want):
+        if t is None:
+            continue
+        t = _fm(t) if name in ("s0", "feats") else t.sum(0).numpy()
+        np.testing.assert_allclose(t, np.asarray(w), rtol=RTOL, atol=ATOL_GRAD, err_msg=name)
+
+
+def test_loop2_backward_raises_naming_k11():
+    """A backward through K10's autograd Function no longer raises for want
+    of K11: it runs K11 and gives the grads autograd gives through
+    propagation_loop2_ref, with and without the affine; margins carry none."""
+    x = _inputs(9)
+    args = (_t(x["nm"]), K, 0.05, "selu", "tanh")
+    for affine in (True, False):
+        grads = []
+        for fn in (tf2.fused_propagation_loop2, tf2.propagation_loop2_ref):
+            leaves = [_nm(x["s0"]).requires_grad_(), _nm(x["feats"]).requires_grad_()]
+            leaves += [w.requires_grad_() for w in _weights(x)] + [_t(x["aff"]).requires_grad_()]
+            traj, marg = fn(_t(x["adjT"]), *leaves[:6], leaves[6] if affine else None, *args)
+            assert not marg.requires_grad
+            torch.sum(traj * _nm(x["g"])).backward()
+            grads.append([t.grad for t in leaves])
+        for a, b in zip(*grads):
+            if not affine and b is None:
+                assert a is None
+                continue
+            np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=RTOL, atol=1e-6)
 
 
 def test_padded_rows_add_nothing():
@@ -297,7 +339,11 @@ def test_two_layer_kernel_widths_checked():
                             meta(K, 2, 128, 64), None, None, meta(K, 2, 128, 64),
                             meta(256, 192), meta(256), meta(64, 256), meta(64),
                             meta(K, 2, 128, 64))
+    with pytest.raises(ValueError, match="shared memory"):
+        tf2.propagation_loop2_bwd(meta(2, 128, 128), meta(2, 128, 64), meta(K, 2, 128, 64),
+                                  meta(2, 128, 64), meta(256, 192), meta(256), meta(64, 256),
+                                  meta(64), None, meta(K, 2, 128, 64))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         step(W=128, D=14, H1=tf2.MAX_HIDDEN)
-    assert tf2._smem_bytes(128, 14, 3, tf2.MAX_HIDDEN, backward=True) <= tf2.SMEM_BYTES
+    assert tf2._smem_bytes(128, 14, 3, tf2.MAX_HIDDEN, backward=True, extra=28) <= tf2.SMEM_BYTES
     assert tf2._smem_bytes(128, 14, 3, tf2.MAX_HIDDEN, backward=False) <= tf2.SMEM_BYTES

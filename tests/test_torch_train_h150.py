@@ -2,14 +2,18 @@
 gnn_tpu_torch against gnn_tpu, on the CPU.
 
 At eval a two-layer net runs K10 (`propagation_loop2`) over the loop blocks
-and K9 (`propagation_step2`) per step over the dep blocks; trained with input
+and K9 (`propagation_step2`) per step over the dep blocks; trained without
+dropout and BatchNorm it runs the same kernels, differentiated through K11
+(`propagation_loop2_bwd`) and K9's plain backward ('hybrid2'); with input
 dropout and no BatchNorm it runs K12 (`train_loop2`, backward K13) over the
-loop blocks and a plain step over the dep blocks (models/core.py 'hybrid2'
-and 'dropout2'). Both are held against gnn_tpu's exact f32 body
-(aggregation='blocked', highest matmul precision) on tests/test_fused.py's
-hybrid_workload2 shape (a hidden width of 16), with the keep-masks gnn_tpu
-draws: iteration counts equal, states and outputs atol 3e-5, the loss rtol
-1e-5, grads rtol 2e-4 (atol 1e-6), params after one Adam step atol 1e-5.
+loop blocks and a plain step over the dep blocks ('dropout2'); with the
+trailing BatchNorm K14/K15 (`bn2_forward_step`, `bn2_backward_step`) K times
+each over every block row ('bn'). Each is held against gnn_tpu's exact f32
+body (aggregation='blocked', highest matmul precision) on
+tests/test_fused.py's hybrid_workload2 shape (a hidden width of 16), with the
+keep-masks gnn_tpu draws: iteration counts equal, states and outputs atol
+3e-5, the loss rtol 1e-5, grads rtol 2e-4 (atol 1e-6), params and moving
+BatchNorm statistics after one Adam step atol 1e-5.
 """
 
 import collections
@@ -31,6 +35,7 @@ from gnn_tpu.training import optimizers as jopt
 from gnn_tpu_torch import GNNgraphBased, Predictor
 from gnn_tpu_torch.graphs import batch as tbatch
 from gnn_tpu_torch.models import core as tcore
+from gnn_tpu_torch.ops import bn as tbn
 from gnn_tpu_torch.ops import fused as tf
 from gnn_tpu_torch.ops import fused2 as tf2
 from gnn_tpu_torch.ops.mlp import MLPSpec as TSpec
@@ -40,9 +45,11 @@ torch.set_num_threads(1)
 LOSS = "categorical_crossentropy"
 ATOL = 3e-5
 K = 4
-KERNELS2 = ("propagation_loop2", "propagation_step2", "train_loop2", "train_loop2_bwd")
+KERNELS2 = ("propagation_loop2", "propagation_loop2_bwd", "propagation_step2", "train_loop2",
+            "train_loop2_bwd")
 KERNELS1 = ("propagation_loop", "propagation_step", "propagation_loop_bwd", "train_loop",
             "train_loop_bwd", "train_step")
+KERNELS_BN = ("bn_forward_step", "bn_backward_step", "bn2_forward_step", "bn2_backward_step")
 
 
 def _spec_kw(drop=0.1, bn=False, acts=("selu", "tanh")):
@@ -70,10 +77,10 @@ def _batches(seed):
     return jgs, tgs, jb, tb
 
 
-def _counted(monkeypatch, names=KERNELS2 + KERNELS1):
+def _counted(monkeypatch, names=KERNELS2 + KERNELS1 + KERNELS_BN):
     calls = collections.Counter()
     for name in names:
-        mod = tf2 if name in KERNELS2 else tf
+        mod = tf2 if name in KERNELS2 else tbn if name in KERNELS_BN else tf
         fn = getattr(mod, name)
 
         def wrapper(*args, _name=name, _fn=fn, **kwargs):
@@ -114,16 +121,15 @@ def test_eval_forward_matches_gnn_tpu(monkeypatch, threshold, bn):
     np.testing.assert_allclose(_np(rt["out"]), np.asarray(rj["out"]), atol=ATOL)
 
 
-@pytest.mark.parametrize("threshold", [0.01, 0.4])
-def test_dropout2_training_step_matches_gnn_tpu(monkeypatch, threshold):
-    """One optimizer step of the dropout2 route (K12/K13 over the loop blocks,
-    plain dep steps) against gnn_tpu's make_train_step on its exact body,
-    with the masks gnn_tpu draws."""
+def _step_against_gnn_tpu(monkeypatch, sk, ok, threshold, route, expect, jbn=None):
+    """One optimizer step of the port's model (route `route`, the wrappers
+    `expect` called so often) against gnn_tpu's make_train_step on its exact
+    body, with the masks gnn_tpu draws."""
     _, _, jb, tb = _batches(0)
-    sk, ok = _spec_kw(acts=("selu", "selu"))
     js = jcore.GNNSpec(focus="g", state_spec=JSpec(**sk), output_spec=JSpec(**ok),
                        max_iteration=K, threshold=threshold, aggregation="blocked")
-    jp, jbn = jcore.gnn_init(js, jax.random.key(0))
+    jp, jbn0 = jcore.gnn_init(js, jax.random.key(0))
+    jbn = jbn or jbn0
     rng = jax.random.key(3)
     opt_cfg = jopt.optimizer_config("adam")
     with jax.default_matmul_precision("highest"):
@@ -137,25 +143,29 @@ def test_dropout2_training_step_matches_gnn_tpu(monkeypatch, threshold):
 
         g_j, (iters_j, loss_j, res_j) = grads_fn(jp)
         step = jcore.make_train_step(js, LOSS, {}, opt_cfg, mean=True)
-        p_j, _, _, iters_s = step(jp, jbn, jopt.make_optimizer(opt_cfg).init(jp), jb, rng)
+        p_j, bn_j, _, iters_s = step(jp, jbn, jopt.make_optimizer(opt_cfg).init(jp), jb, rng)
     g_j = {**g_j, "state": jax.tree_util.tree_map(lambda g: g / jnp.maximum(iters_j, 1.0),
                                                   g_j["state"])}
     assert float(iters_s) == float(iters_j)
+    if threshold == 1e9:
+        assert float(iters_j) == 0.0
 
     model = GNNgraphBased(TSpec(**sk), TSpec(**ok), optimizer=opt_cfg, max_iteration=K,
                           threshold=threshold, seed=0, device="cpu")
     model.set_weights(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
     masks = _jax_masks(js, tb.n_node_pad, rng)
-    assert tcore._train_route(model.spec, tb) == "dropout2"
+    assert tcore._train_route(model.spec, tb) == route
     with torch.no_grad():
         _, _, res_t = tcore.evaluate_single(model.spec, model.params, model.bn, tb, LOSS, {},
                                             training=True, masks=masks)
     calls = _counted(monkeypatch)
     out = model.training_step(tb, mean=True, masks=masks)
-    assert dict(calls) == {"train_loop2": 1, "train_loop2_bwd": 1}
+    assert dict(calls) == expect
     assert float(out["iters"]) == float(iters_j)
     np.testing.assert_allclose(_np(res_t["state"]), np.asarray(res_j["state"]), atol=ATOL)
     np.testing.assert_allclose(float(out["loss"]), float(loss_j), rtol=1e-5)
+    for key, v in model.bn["state"].items():
+        np.testing.assert_allclose(_np(v), np.asarray(bn_j["state"][key]), atol=1e-5)
     for net in ("state", "output"):
         for name, leaves in model.params[net].items():
             for k, p in leaves.items():
@@ -164,6 +174,41 @@ def test_dropout2_training_step_matches_gnn_tpu(monkeypatch, threshold):
                                            rtol=2e-4, atol=1e-6, err_msg=f"grad {net}/{name}/{k}")
                 np.testing.assert_allclose(flip(_np(p)), np.asarray(p_j[net][name][k]),
                                            atol=1e-5, err_msg=f"param {net}/{name}/{k}")
+
+
+@pytest.mark.parametrize("threshold", [0.01, 0.4])
+def test_dropout2_training_step_matches_gnn_tpu(monkeypatch, threshold):
+    """One optimizer step of the dropout2 route (K12/K13 over the loop blocks,
+    plain dep steps) against gnn_tpu's make_train_step on its exact body,
+    with the masks gnn_tpu draws."""
+    sk, ok = _spec_kw(acts=("selu", "selu"))
+    _step_against_gnn_tpu(monkeypatch, sk, ok, threshold, "dropout2",
+                          {"train_loop2": 1, "train_loop2_bwd": 1})
+
+
+@pytest.mark.parametrize("threshold", [0.01, 0.4, 1e9])
+def test_clean2_training_step_matches_gnn_tpu(monkeypatch, threshold):
+    """One optimizer step of a two-layer state net without dropout and
+    BatchNorm (the recipe's dropout-free run): K10 and its backward K11 over
+    the loop blocks, K9 per step over the dep blocks, against gnn_tpu's exact
+    body; a threshold of 1e9 realises no step."""
+    sk, ok = _spec_kw(drop=0.0)
+    _step_against_gnn_tpu(monkeypatch, sk, ok, threshold, "hybrid2",
+                          {"propagation_loop2": 1, "propagation_loop2_bwd": 1,
+                           "propagation_step2": K})
+
+
+@pytest.mark.parametrize("drop", [0.1, 0.0])
+def test_bn2_training_step_matches_gnn_tpu(monkeypatch, drop):
+    """One optimizer step of a two-layer state net with the trailing
+    BatchNorm (the reference's default net with a hidden layer), with and
+    without AlphaDropout at its input: K14 and K15 K times each over every
+    block row, against gnn_tpu's exact body with non-trivial moving
+    statistics; the moving statistics after the step agree too."""
+    sk, ok = _spec_kw(drop=drop, bn=True)
+    jbn = {"state": {"mean": jnp.full((5,), 0.1), "var": jnp.full((5,), 0.8)}, "output": {}}
+    _step_against_gnn_tpu(monkeypatch, sk, ok, 0.01, "bn",
+                          {"bn2_forward_step": K, "bn2_backward_step": K}, jbn=jbn)
 
 
 def test_dropout2_grads_match_the_plain_body():
@@ -187,23 +232,22 @@ def test_dropout2_grads_match_the_plain_body():
 
 
 def test_two_layer_routes_not_ported_raise():
-    """Clean two-layer training runs K10's backward K11 and BatchNorm
-    two-layer training K14/K15 in gnn_tpu: both raise, naming the kernels;
-    the same nets serve."""
+    """No two-layer training route raises any more: gnn_tpu's dispatch gives
+    'hybrid2' (K10/K11) without dropout and BatchNorm, 'bn' (K14/K15) with
+    BatchNorm with and without input dropout, and the plain body for dropout
+    between the dense layers; each trains a finite step and serves."""
     _, _, _, tb = _batches(2)
-    for kw, match in ((dict(drop=0.0), "K11"), (dict(bn=True), "K14/K15"),
-                      (dict(drop=0.0, bn=True), "K14/K15")):
+    for kw, route in ((dict(drop=0.0), "hybrid2"), (dict(bn=True), "bn"),
+                      (dict(drop=0.0, bn=True), "bn"), (dict(pos=(1,)), "plain")):
+        pos = kw.pop("pos", None)
         sk, ok = _spec_kw(**kw)
+        if pos:
+            sk.update(dropout_pos=pos)
         model = GNNgraphBased(TSpec(**sk), TSpec(**ok), max_iteration=K, seed=0, device="cpu")
-        with pytest.raises(NotImplementedError, match=match):
-            model.training_step(tb)
+        assert tcore._train_route(model.spec, tb) == route
+        assert torch.isfinite(model.training_step(tb)["loss"])
         assert tcore._eval_route(model.spec, tb) == "hybrid2"
         assert torch.isfinite(model.forward(tb)["out"]).all()
-    # dropout between the dense layers: gnn_tpu's plain body
-    sk, ok = _spec_kw()
-    sk.update(dropout_pos=(1,))
-    spec = tcore.GNNSpec(focus="g", state_spec=TSpec(**sk), output_spec=TSpec(**ok))
-    assert tcore._train_route(spec, tb) == "plain"
 
 
 def test_two_layer_model_saves_and_loads_both_ways(tmp_path):
@@ -230,6 +274,36 @@ def test_two_layer_model_saves_and_loads_both_ways(tmp_path):
     for name in ("dense_0", "dense_1"):
         np.testing.assert_array_equal(_np(back.params["state"][name]["b"]),
                                       np.asarray(jm.params["state"][name]["b"]))
+    np.testing.assert_array_equal(back.Loop(tb)[2], model.Loop(tb)[2])
+
+
+def test_two_layer_bn_model_saves_and_loads_both_ways(tmp_path):
+    """A two-layer BatchNorm model trained in the port (K14/K15) loads in
+    gnn_tpu with the same weights, moving statistics and eval outputs, and
+    one saved by gnn_tpu loads in the port."""
+    jgs, tgs, jb, tb = _batches(5)
+    sk, ok = _spec_kw(bn=True)
+    model = GNNgraphBased(TSpec(**sk), TSpec(**ok), optimizer="adam", max_iteration=K,
+                          threshold=0.05, seed=1, device="cpu")
+    for _ in range(2):
+        model.training_step(tb)
+    model.save(str(tmp_path / "m"))
+    jm = JGraph.load(str(tmp_path / "m"), path_writer=str(tmp_path / "writer"))
+    assert jm.spec.state_spec.to_config() == TSpec(**sk).to_config()
+    for name in ("dense_0", "dense_1"):
+        np.testing.assert_array_equal(np.asarray(jm.params["state"][name]["w"]),
+                                      _np(model.params["state"][name]["w"]).T)
+    for k in ("mean", "var"):
+        np.testing.assert_array_equal(np.asarray(jm.bn["state"][k]), _np(model.bn["state"][k]))
+    with jax.default_matmul_precision("highest"):
+        rj = jcore.gnn_forward(dataclasses.replace(jm.spec, aggregation="blocked"), jm.params,
+                               jm.bn, jb, jax.random.key(0))
+    np.testing.assert_allclose(_np(model.forward(tb)["out"]), np.asarray(rj["out"]), atol=ATOL)
+
+    jm.save(str(tmp_path / "j"))
+    back = GNNgraphBased.load(str(tmp_path / "j"), device="cpu")
+    np.testing.assert_array_equal(_np(back.params["state"]["bn"]["gamma"]),
+                                  np.asarray(jm.params["state"]["bn"]["gamma"]))
     np.testing.assert_array_equal(back.Loop(tb)[2], model.Loop(tb)[2])
 
 

@@ -207,7 +207,7 @@ def test_training_step_matches_gnn_tpu(threshold, state_drop):
     assert tcore._train_route(model.spec, tb) == "bn"                     # the K1/K2 route
     tbn.reset_launches()
     out = model.training_step(tb, mean=True, masks=masks)
-    assert tbn.launches == {"bn_forward_step": 0, "bn_backward_step": 0}   # plain on the CPU
+    assert not any(tbn.launches.values())   # plain on the CPU
 
     assert float(out["iters"]) == float(iters_t) == float(iters_j)
     if threshold == 1e9:
