@@ -4,9 +4,11 @@ gnn_tpu keeps parameters as pytrees of nested dicts ({"state": {"dense_0":
 {"w": [in, out], "b": [out]}, "bn": {"gamma", "beta"}}, "output": {...}}) and
 BatchNorm statistics as {"state": {"mean", "var"}, "output": {...}}. Its save
 folder flattens them into .npz files keyed by tree paths such as
-"['state']['dense_0']['w']" (models/engine.py::tree_to_npz). The port keeps
-the same nesting with dense weights stored [out, in], PyTorch's convention.
-`params_to_jax` and `flatten` go the other way, for saves gnn_tpu can load.
+"['state']['dense_0']['w']" (models/engine.py::tree_to_npz). A composite
+model's per-type state nets are a tuple, whose entries are keyed by index:
+"['state'][0]['dense_0']['w']". The port keeps the same nesting with dense
+weights stored [out, in], PyTorch's convention. `params_to_jax` and
+`flatten` go the other way, for saves gnn_tpu can load.
 """
 
 from __future__ import annotations
@@ -16,19 +18,38 @@ import re
 import numpy as np
 import torch
 
-_KEY_PART = re.compile(r"\['([^'\]]*)'\]")
+_KEY_PART = re.compile(r"\['([^'\]]*)'\]|\[(\d+)\]")
+
+
+def _part(p) -> str:
+    return f"[{p}]" if isinstance(p, int) else f"['{p}']"
 
 
 def parse_key(key: str) -> tuple:
-    """"['state']['dense_0']['w']" -> ('state', 'dense_0', 'w')."""
-    parts = _KEY_PART.findall(key)
-    if not parts or "".join(f"['{p}']" for p in parts) != key:
+    """"['state'][0]['dense_0']['w']" -> ('state', 0, 'dense_0', 'w'):
+    dict keys as strings, sequence indices as ints."""
+    parts = tuple(name if idx == "" else int(idx) for name, idx in _KEY_PART.findall(key))
+    if not parts or "".join(_part(p) for p in parts) != key:
         raise ValueError(f"not a tree path key: {key!r}")
-    return tuple(parts)
+    return parts
+
+
+def _sequences(node):
+    """Nodes keyed 0..n-1 by index become tuples (gnn_tpu's per-type trees)."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _sequences(v) for k, v in node.items()}
+    keys = list(node)
+    if keys and all(isinstance(k, int) for k in keys):
+        if sorted(keys) != list(range(len(keys))):
+            raise ValueError(f"sequence indices {sorted(keys)} are not 0..{len(keys) - 1}")
+        return tuple(node[i] for i in range(len(keys)))
+    return node
 
 
 def nest(flat: dict) -> dict:
-    """Nested dicts from a {tree path key: array} mapping."""
+    """Nested dicts (and tuples, for index parts) from a {tree path key:
+    array} mapping."""
     out: dict = {}
     for key, value in flat.items():
         node = out
@@ -36,7 +57,7 @@ def nest(flat: dict) -> dict:
         for p in head:
             node = node.setdefault(p, {})
         node[leaf] = np.asarray(value)
-    return out
+    return _sequences(out)
 
 
 def load_npz(path: str) -> dict:
@@ -57,16 +78,21 @@ def params_from_jax(params_np: dict, bn_np: dict, device="cpu"):
     def t(x):
         return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
 
-    params = {}
+    def layers(tree):
+        return {name: ({"w": t(np.asarray(leaves["w"]).T), "b": t(leaves["b"])}
+                       if name.startswith("dense_") else {k: t(v) for k, v in leaves.items()})
+                for name, leaves in tree.items()}
+
+    def stats(tree):
+        return {k: t(v) for k, v in tree.items()}
+
+    params, bn = {}, {}
     for net in ("state", "output"):
-        layers = {}
-        for name, leaves in params_np.get(net, {}).items():
-            if name.startswith("dense_"):
-                layers[name] = {"w": t(np.asarray(leaves["w"]).T), "b": t(leaves["b"])}
-            else:
-                layers[name] = {k: t(v) for k, v in leaves.items()}
-        params[net] = layers
-    bn = {net: {k: t(v) for k, v in bn_np.get(net, {}).items()} for net in ("state", "output")}
+        p, b = params_np.get(net, {}), bn_np.get(net, {})
+        per_type = isinstance(p, (list, tuple))
+        params[net] = tuple(map(layers, p)) if per_type else layers(p)
+        # BatchNorm-free per-type nets save no statistics: () per type
+        bn[net] = tuple(stats(x) for x in (b or [{}] * len(p))) if per_type else stats(b)
     return params, bn
 
 
@@ -77,21 +103,29 @@ def params_to_jax(params: dict, bn: dict):
     def a(t):
         return t.detach().cpu().numpy().astype(np.float32)
 
-    out = {}
-    for net, layers in params.items():
-        out[net] = {name: ({"w": a(leaves["w"]).T.copy(), "b": a(leaves["b"])}
-                           if name.startswith("dense_") else {k: a(v) for k, v in leaves.items()})
-                    for name, leaves in layers.items()}
-    return out, {net: {k: a(v) for k, v in stats.items()} for net, stats in bn.items()}
+    def layers(tree):
+        return {name: ({"w": a(leaves["w"]).T.copy(), "b": a(leaves["b"])}
+                       if name.startswith("dense_") else {k: a(v) for k, v in leaves.items()})
+                for name, leaves in tree.items()}
+
+    def stats(tree):
+        return {k: a(v) for k, v in tree.items()}
+
+    def per_net(fn, tree):
+        return tuple(map(fn, tree)) if isinstance(tree, (list, tuple)) else fn(tree)
+
+    return ({net: per_net(layers, p) for net, p in params.items()},
+            {net: per_net(stats, b) for net, b in bn.items()})
 
 
-def flatten(tree: dict, prefix: str = "") -> dict:
-    """{tree path key: leaf} of nested dicts, keyed as gnn_tpu's tree_to_npz
-    keys them ("['state']['dense_0']['w']")."""
+def flatten(tree, prefix: str = "") -> dict:
+    """{tree path key: leaf} of nested dicts and tuples, keyed as gnn_tpu's
+    tree_to_npz keys them ("['state']['dense_0']['w']", "['state'][0]...")."""
     flat = {}
-    for k, v in tree.items():
-        key = f"{prefix}['{k}']"
-        if isinstance(v, dict):
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        key = prefix + _part(k)
+        if isinstance(v, (dict, list, tuple)):
             flat.update(flatten(v, key))
         else:
             flat[key] = v

@@ -64,6 +64,8 @@ class GraphBatch:
     res_dst_loc: Optional[torch.Tensor] = None  # [Er]
     # global block b sits at row block_perm[b] of cat([loop blocks, dep blocks])
     block_perm: Optional[torch.Tensor] = None   # [B]
+    # --- composite models: node type per node (0 on pad), None without types ---
+    node_types: Optional[torch.Tensor] = None   # [Np] int64
     # --- static ---
     focus: str = "n"
     block_w: int = 128
@@ -152,6 +154,8 @@ def from_graphs_blocked(glist, *, block_w: int = 128, focus: Optional[str] = Non
     node_mask = np.zeros(Np, dtype=bool)
     graph_ids = np.zeros(Np, dtype=np.int64)
     pool_w = np.zeros(Np, dtype=dt)
+    node_types = (np.zeros(Np, dtype=np.int64)
+                  if any(g.node_types is not None for g in glist) else None)
     for gi, (g, off) in enumerate(zip(glist, offsets)):
         s = g.n_nodes
         nodes[off:off + s] = g.nodes
@@ -159,6 +163,8 @@ def from_graphs_blocked(glist, *, block_w: int = 128, focus: Optional[str] = Non
         graph_ids[off:off + s] = gi
         if focus == "g":
             pool_w[off:off + s] = g.pool_weights()
+        if node_types is not None and g.node_types is not None:
+            node_types[off:off + s] = g.node_types
 
     AL = glist[0].DIM_ARC_LABEL
     src = np.concatenate([np.add(g.src, off, dtype=np.int64) for g, off in zip(glist, offsets)])
@@ -277,4 +283,5 @@ def from_graphs_blocked(glist, *, block_w: int = 128, focus: Optional[str] = Non
         targets=_t(padf(targets, Tp)), sample_weights=_t(padf(sample_weights, Tp)),
         out_index=_ix(out_index), sel_mask=_t(sel),
         agg_arcs_cache=_t(_host_agg(labs_p, w_p, dst_p, Np)), res_w=_t(res_w),
+        node_types=None if node_types is None else _t(node_types),
         focus=focus, block_w=W, n_real=(int(node_mask.sum()), E, T), **fl)

@@ -29,11 +29,13 @@ class Graph:
     :param sample_weights: scalar or (T,) per-target loss weights.
     :param node_graph: optional (N, G) pooling matrix (reference NodeGraph).
     :param aggregation_mode: 'average' | 'normalized' | 'sum'.
+    :param node_types: optional (N,) int node types of a composite model
+        (one state net per type).
     """
 
     def __init__(self, arcs, nodes, targets, focus: str = "n",
                  set_mask=None, output_mask=None, sample_weights=1,
-                 node_graph=None, aggregation_mode: str = "average"):
+                 node_graph=None, aggregation_mode: str = "average", node_types=None):
         if focus not in ("n", "a", "g"):
             raise ValueError("focus must be 'n', 'a' or 'g'")
         if aggregation_mode not in AGGREGATIONS:
@@ -69,6 +71,12 @@ class Graph:
         elif focus == "g":
             n = self.nodes.shape[0]
             self.NodeGraph = np.full((n, 1), 1.0 / max(n, 1), dtype=dt)
+
+        self.node_types = None
+        if node_types is not None:
+            self.node_types = np.asarray(node_types, dtype=np.int32).reshape(-1)
+            if len(self.node_types) != self.nodes.shape[0]:
+                raise ValueError("len(node_types) != number of nodes")
 
     @property
     def n_nodes(self) -> int:
@@ -137,7 +145,8 @@ class Graph:
     def merge(cls, glist: Sequence["Graph"], focus: Optional[str] = None,
               aggregation_mode: Optional[str] = None) -> "Graph":
         """Disjoint-union batching: node ids offset per graph, masks/targets/
-        weights concatenated, NodeGraph block-diagonal."""
+        weights and node types (0 for a graph without them) concatenated,
+        NodeGraph block-diagonal."""
         if not glist:
             raise ValueError("merge requires a non-empty list of graphs")
         focus = focus or glist[0].focus
@@ -160,6 +169,10 @@ class Graph:
                 node_graph[r:r + b.shape[0], c:c + b.shape[1]] = b
                 r += b.shape[0]
                 c += b.shape[1]
+        node_types = None
+        if any(g.node_types is not None for g in glist):
+            node_types = np.concatenate([g.node_types if g.node_types is not None
+                                         else np.zeros(g.n_nodes, np.int32) for g in glist])
         return cls(arcs=np.concatenate(arcs_list, axis=0),
                    nodes=np.concatenate([g.nodes for g in glist], axis=0),
                    targets=np.concatenate([g.targets for g in glist], axis=0),
@@ -167,7 +180,8 @@ class Graph:
                    set_mask=np.concatenate([g.set_mask for g in glist], axis=0),
                    output_mask=np.concatenate([g.output_mask for g in glist], axis=0),
                    sample_weights=np.concatenate([g.sample_weights for g in glist], axis=0),
-                   node_graph=node_graph, aggregation_mode=aggregation_mode)
+                   node_graph=node_graph, aggregation_mode=aggregation_mode,
+                   node_types=node_types)
 
     def __repr__(self) -> str:
         return (f"Graph(N={self.n_nodes}, E={self.n_arcs}, "

@@ -27,9 +27,11 @@ Dispatch follows gnn_tpu's `aggregation='auto'`:
   the trailing BatchNorm and dropout only at the input the BN kernels K1/K2,
   or K14/K15 for two layers (ops/bn.py);
 * what gnn_tpu sends to its XLA body (no loop layout, activations the
-  kernels do not take, dropout inside the net) runs the plain body here;
-* what gnn_tpu sends to a kernel not ported yet (the segment kernel K18 of
-  aggregation='pallas') raises NotImplementedError, as does state_dim > 0.
+  kernels do not take, dropout inside the net, and the aggregation names
+  'segment', 'onehot', 'pallas' and 'blocked' on a batch with blocks, which
+  every batch of the port is) runs the plain body here;
+* state_dim > 0 raises NotImplementedError, and so does training a spec
+  with grad_mode='ift' (gnn_tpu's implicit adjoint, models/ift.py).
 
 Dropout draws no random numbers here: training takes keep-masks, which
 `draw_masks` draws on the batch's device from a torch.Generator (tests pass
@@ -58,7 +60,8 @@ from gnn_tpu_torch.ops.mlp import (MLPSpec, dropout_widths, mlp_apply, mlp_init,
                                    mlp_regularization)
 from gnn_tpu_torch.training.losses import get_loss
 
-AGGREGATIONS = ("auto", "segment", "onehot", "fused", "pallas")
+AGGREGATIONS = ("auto", "segment", "onehot", "fused", "pallas", "blocked")
+GRAD_MODES = ("unroll", "ift")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,6 +74,10 @@ class GNNSpec:
     :param max_iteration: the most propagation steps.
     :param threshold: convergence threshold.
     :param aggregation: gnn_tpu's strategy name; 'auto' dispatches to the kernels.
+    :param grad_mode / ift_backward_iters: gnn_tpu's gradient mode ('unroll',
+        or 'ift': the implicit adjoint, not ported, so such a spec serves but
+        does not train) and its adjoint's iteration count, carried through
+        save and load.
     """
     focus: str
     state_spec: MLPSpec
@@ -79,14 +86,37 @@ class GNNSpec:
     max_iteration: int = 5
     threshold: float = 0.01
     aggregation: str = "auto"
+    grad_mode: str = "unroll"
+    ift_backward_iters: int = 20
 
     def __post_init__(self):
         if self.focus not in ("n", "a", "g"):
             raise ValueError("focus must be 'n', 'a' or 'g'")
         if self.state_dim < 0 or not isinstance(self.state_dim, int):
             raise TypeError("param <state_dim> must be int>=0")
-        if self.aggregation not in AGGREGATIONS:
-            raise ValueError(f"aggregation must be one of {AGGREGATIONS}")
+        check_modes(self.aggregation, self.grad_mode, (self.state_spec,))
+
+
+def check_modes(aggregation: str, grad_mode: str, state_specs) -> None:
+    """Validate the aggregation name and the gradient mode of a spec (as
+    gnn_tpu's GNNSpec and CompositeGNNSpec do)."""
+    if aggregation not in AGGREGATIONS:
+        raise ValueError(f"aggregation must be one of {AGGREGATIONS}")
+    if grad_mode not in GRAD_MODES:
+        raise ValueError("grad_mode must be 'unroll' or 'ift'")
+    if grad_mode == "ift" and any(s.dropout_rate for s in state_specs):
+        raise ValueError("grad_mode='ift' requires dropout-free state nets "
+                         "(per-iteration masks make the step non-stationary)")
+
+
+def check_trainable(spec) -> None:
+    """Raise for a spec the port cannot train: grad_mode='ift' replaces the
+    unrolled gradient with gnn_tpu's implicit adjoint (models/ift.py), which
+    is not ported. Eval does not depend on the gradient mode."""
+    if spec.grad_mode == "ift":
+        raise NotImplementedError(
+            "grad_mode='ift' trains with the implicit-function-theorem adjoint of "
+            "gnn_tpu's models/ift.py, which is not ported; the model serves as is")
 
 
 def gnn_init(spec: GNNSpec, gen: torch.Generator, device="cpu"):
@@ -126,12 +156,11 @@ def _moving_mask(state, state_old, thr: float):
 
 def _check_aggregation(spec: GNNSpec) -> bool:
     """Whether the spec's aggregation dispatches to kernels ('auto', 'fused');
-    raises for the segment kernel and for specs 'fused' cannot take."""
+    raises for specs 'fused' cannot take. Every batch of the port has blocks,
+    where gnn_tpu runs 'pallas' and 'blocked' on its XLA body
+    (gnn_tpu/models/core.py:229-259): the segment kernel K18 runs only on a
+    batch without blocks (GraphBatch.from_graph), which is not ported."""
     ss = spec.state_spec
-    if spec.aggregation == "pallas":
-        raise NotImplementedError(
-            "aggregation='pallas' runs the segment kernel K18 "
-            "(pallas_segment.py::_agg_kernel), which is not ported yet")
     if spec.aggregation == "fused" and (
             ss.num_layers not in (1, 2)
             or not all(a in FUSABLE_ACTIVATIONS for a in ss.activations)):
@@ -200,16 +229,23 @@ def draw_masks(spec: GNNSpec, gb: GraphBatch, gen: torch.Generator) -> dict:
     `gen` (True = kept, with probability 1 - rate):
     {"state": {position: bool [K, Np, width]}, "output": {position: bool
     [rows, width]}}, rows being nodes, or arcs for focus 'a'."""
-    K, Np = spec.max_iteration, gb.n_node_pad
-    rows = gb.src.shape[0] if gb.focus == "a" else Np
+    return {"state": draw_net_masks(spec.state_spec, (spec.max_iteration, gb.n_node_pad), gb,
+                                    gen),
+            "output": draw_output_masks(spec, gb, gen)}
 
-    def draw(shape, net, pos):
+
+def draw_net_masks(net: MLPSpec, lead: tuple, gb: GraphBatch, gen: torch.Generator) -> dict:
+    """{position: bool [*lead, width]} keep-masks of a net's dropout layers."""
+    def draw(pos, w):
         rate = dict(zip(net.dropout_pos, net.dropout_rate))[pos]
-        return torch.rand(shape, generator=gen, device=gb.device) < 1.0 - rate
+        return torch.rand(lead + (w,), generator=gen, device=gb.device) < 1.0 - rate
+    return {p: draw(p, w) for p, w in dropout_widths(net).items()}
 
-    ss, so = spec.state_spec, spec.output_spec
-    return {"state": {p: draw((K, Np, w), ss, p) for p, w in dropout_widths(ss).items()},
-            "output": {p: draw((rows, w), so, p) for p, w in dropout_widths(so).items()}}
+
+def draw_output_masks(spec, gb: GraphBatch, gen: torch.Generator) -> dict:
+    """The readout's keep-masks: rows are nodes, or arcs for focus 'a'."""
+    rows = gb.src.shape[0] if gb.focus == "a" else gb.n_node_pad
+    return draw_net_masks(spec.output_spec, (rows,), gb, gen)
 
 
 def propagate(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
@@ -245,6 +281,19 @@ def propagate(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
 def _propagate_plain(spec, params_state, bn_state, gb, training=False, keep=None):
     """Masked fixed-K loop (gnn_tpu core.py:932-951); in training the
     BatchNorm statistics follow the active steps only."""
+    nm = gb.node_mask
+
+    def step(it, inp, bn):
+        return mlp_apply(spec.state_spec, params_state, bn, inp, training=training,
+                         keep={p: m[it] for p, m in (keep or {}).items()}, stat_mask=nm)
+    return plain_loop(spec, gb, step, bn_state)
+
+
+def plain_loop(spec, gb: GraphBatch, step, bn_state):
+    """The plain body's masked fixed-K loop: the movement test before each
+    update (padded nodes never block convergence), the aggregation and the
+    state net(s) `step(it, [state | agg | arc aggregation], bn)` ->
+    (new state, new BatchNorm statistics). Returns (iters, state, bn)."""
     Np = gb.n_node_pad
     nm = gb.node_mask
     thr = float(spec.threshold)
@@ -254,19 +303,23 @@ def _propagate_plain(spec, params_state, bn_state, gb, training=False, keep=None
     k = torch.zeros((), dtype=torch.float32, device=state.device)
     bn = bn_state
     for it in range(spec.max_iteration):
-        # movement test before the update; padded nodes never block convergence
         active = active & (_moving_mask(state, state_old, thr) & nm).any()
         agg = aggregate_to_nodes(state[gb.src], gb.edge_w, gb.dst, Np)
-        new, new_bn = mlp_apply(spec.state_spec, params_state, bn,
-                                torch.cat([state, agg, gb.agg_arcs_cache], dim=1),
-                                training=training,
-                                keep={p: m[it] for p, m in (keep or {}).items()},
-                                stat_mask=nm)
+        new, new_bn = step(it, torch.cat([state, agg, gb.agg_arcs_cache], dim=1), bn)
         state, state_old = (torch.where(active, new, state),
                             torch.where(active, state, state_old))
-        bn = {key: torch.where(active, new_bn[key], bn[key]) for key in bn}
+        bn = _tree_where(active, new_bn, bn)
         k = k + active.float()
     return k, state, bn
+
+
+def _tree_where(pred, a, b):
+    """where(pred, a, b) over matching trees of dicts and tuples of tensors."""
+    if isinstance(a, dict):
+        return {key: _tree_where(pred, a[key], b[key]) for key in a}
+    if isinstance(a, (list, tuple)):
+        return tuple(_tree_where(pred, x, y) for x, y in zip(a, b))
+    return torch.where(pred, a, b)
 
 
 def hybrid_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
@@ -579,13 +632,26 @@ def gnn_forward(spec: GNNSpec, params, bn, gb: GraphBatch, training: bool = Fals
         dropout) and batch-statistic BatchNorm.
     """
     check_dims(spec, gb.nodes.shape[1], gb.arc_labels.shape[1], gb.targets.shape[1])
-    if gb.device.type == "cuda":
-        # the plain products (feature term, readout) in full fp32
-        torch.backends.cuda.matmul.allow_tf32 = False
+    full_fp32(gb)
     masks = masks or {}
     iters, state, bn_s = propagate(spec, params["state"], bn["state"], gb, training,
                                    masks.get("state"))
-    out_kw = dict(training=training, keep=masks.get("output"), stat_mask=_entity_mask(gb))
+    return readout(spec, params, bn, gb, iters, state, bn_s, training, masks.get("output"))
+
+
+def full_fp32(gb: GraphBatch) -> None:
+    """On the card, the plain products (feature term, readout) in full fp32."""
+    if gb.device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def readout(spec, params, bn, gb: GraphBatch, iters, state, bn_state, training: bool,
+            keep_output: Optional[dict]):
+    """The output net on the states by focus (arc rows [state_src |
+    state_dst | arc labels] for 'a', node rows otherwise, averaged per graph
+    for 'g'): gnn_forward's result dict, bn_state the state nets'
+    statistics."""
+    out_kw = dict(training=training, keep=keep_output, stat_mask=_entity_mask(gb))
     if gb.focus == "a":
         arc_inp = torch.cat([state[gb.src], state[gb.dst], gb.arc_labels], dim=1)
         out_entity, bn_o = mlp_apply(spec.output_spec, params["output"], bn["output"], arc_inp,
@@ -603,7 +669,7 @@ def gnn_forward(spec: GNNSpec, params, bn, gb: GraphBatch, training: bool = Fals
         else:
             out = out_entity[gb.out_index]
     return {"iters": iters, "state": state, "out_entity": out_entity, "out": out,
-            "bn": {"state": bn_s, "output": bn_o}}
+            "bn": {"state": bn_state, "output": bn_o}}
 
 
 # ----------------------------------------------------------------------- loss
@@ -629,9 +695,10 @@ def evaluate_single(spec: GNNSpec, params, bn, gb: GraphBatch, loss_name,
 
 # ---------------------------------------------------------------- train step
 def param_leaves(tree):
-    """The tensors of a nested parameter dict, in key order."""
-    for v in tree.values():
-        if isinstance(v, dict):
+    """The tensors of a nested parameter tree of dicts and per-type tuples
+    (composite models), in key order."""
+    for v in (tree.values() if isinstance(tree, dict) else tree):
+        if isinstance(v, (dict, list, tuple)):
             yield from param_leaves(v)
         else:
             yield v
@@ -648,15 +715,30 @@ def train_step(spec: GNNSpec, params, bn, optimizer: torch.optim.Optimizer, gb: 
 
     Returns {"iters", "loss", "bn"}: device tensors, so nothing waits on
     the device."""
+    check_trainable(spec)
     optimizer.zero_grad(set_to_none=True)
     iters, loss, res = evaluate_single(spec, params, bn, gb, loss_name, loss_args or {},
                                        training=True, masks=masks)
-    (loss + regularization(spec, params)).backward()
+    return finish_step(params, optimizer, iters, loss + regularization(spec, params), loss,
+                       res["bn"], mean)
+
+
+def finish_step(params, optimizer, iters, total, loss, new_bn, mean: bool) -> dict:
+    """Backward of `total`, the state nets' grads divided by the realised
+    count when `mean`, the optimizer step; train_step's result."""
+    total.backward()
     if mean:
         denom = torch.clamp_min(iters, 1.0)
         for p in param_leaves(params["state"]):
             if p.grad is not None:
                 p.grad.div_(denom)
     optimizer.step()
-    new_bn = {net: {k: v.detach() for k, v in stats.items()} for net, stats in res["bn"].items()}
-    return {"iters": iters, "loss": loss.detach(), "bn": new_bn}
+    return {"iters": iters, "loss": loss.detach(), "bn": _detach(new_bn)}
+
+
+def _detach(tree):
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return tuple(_detach(v) for v in tree)
+    return tree.detach()

@@ -134,6 +134,11 @@ def library() -> ctypes.CDLL:
             lib.gnn_bn2_forward.restype = i
             lib.gnn_bn2_backward.argtypes = [p] * 21 + [i] * 9 + [f, f, p]
             lib.gnn_bn2_backward.restype = i
+            u64 = ctypes.c_uint64
+            lib.gnn_bnT_forward.argtypes = [p] * 15 + [i] * 6 + [f, u64, i, f, f, p]
+            lib.gnn_bnT_forward.restype = i
+            lib.gnn_bnT_backward.argtypes = [p] * 18 + [i] * 6 + [u64, i, f, f, p]
+            lib.gnn_bnT_backward.restype = i
             lib.gnn_cuda_error_string.argtypes = [i]
             lib.gnn_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

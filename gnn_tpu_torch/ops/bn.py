@@ -20,7 +20,9 @@ coefficient rows, and returns per-block dw and reduction partials. K14
 layer: w0_aug = [Ws | Wa | Wf | b0] [H1, 2D+F+1], act0, then w1 [D, H1], b1
 and act1; K15 returns per-block dw0, dw1 and db1 partials.
 `bn_train_loop` is the K-iteration loop of either depth as one
-torch.autograd.Function; `bn_train_propagate` drives it for models/core.py.
+torch.autograd.Function, with [T, D] moments and affines per node type (T = 1
+here; ops/typed.py runs the same loop over K16/K17 for composite models);
+`bn_train_propagate` drives it for models/core.py.
 
 Layout: node-major blocks [R, W, D] over the rows [loop blocks | dep blocks]
 of a fused-layout batch, the order hybrid_operands uses. The kernels read
@@ -116,6 +118,11 @@ def _x3(s, agg, feats, keep, alpha_drop: bool, rate: float):
     return drop(torch.cat([s, agg, feats], dim=-1), keep)
 
 
+def _ones_col(x3):
+    """[x3 | 1]: the bias-augmented dense input."""
+    return torch.cat([x3, torch.ones_like(x3[..., :1])], -1)
+
+
 def _bn_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, nm, dense, alpha_drop, rate,
                 threshold):
     """One BN-training iteration with the state net `dense` (x3 -> y)."""
@@ -156,19 +163,21 @@ def _bn_gy(y_k, ds_in, gsel, bnv, flag, nm):
     return bnv[4] * (ds_in + flag * gsel) - nm[..., None] * (bnv[5] + xk * bnv[6])
 
 
-def _bn_ds(adj_loop, adj_dep, dx2, keep, y_prev, bnv, alpha_drop: bool, rate: float):
-    """(ds, dagg, red) from the cotangent dx2 [R, W, 2D] of the dense input's
-    state and aggregated slices: through the dropout's derivative, the
-    aggregation's reverse, and the per-block reduction partials
-    (sum ds, sum ds * x_hat_prev)."""
-    D = y_prev.shape[-1]
+def _bn_ds(adj_loop, adj_dep, dx2, keep, alpha_drop: bool, rate: float):
+    """(ds, dagg) from the cotangent dx2 [R, W, 2D] of the dense input's
+    state and aggregated slices: through the dropout's derivative and the
+    aggregation's reverse."""
+    D = dx2.shape[-1] // 2
     dxs, dagg = dx2[..., :D], dx2[..., D:]
     if rate > 0.0:
         dm = _make_drop(alpha_drop, rate)[1](keep)
         dxs, dagg = dxs * dm[..., :D], dagg * dm[..., D:2 * D]
-    ds = dxs + _contract_dst(adj_loop, adj_dep, dagg)
-    xp_hat = (y_prev - bnv[7]) * bnv[8]
-    return ds, dagg, torch.stack([torch.sum(ds, dim=1), torch.sum(ds * xp_hat, dim=1)], dim=1)
+    return dxs + _contract_dst(adj_loop, adj_dep, dagg), dagg
+
+
+def _red(ds, xp_hat):
+    """Per-block reduction partials [R, 2, D]: (sum ds, sum ds * x_hat_prev)."""
+    return torch.stack([torch.sum(ds, dim=1), torch.sum(ds * xp_hat, dim=1)], dim=1)
 
 
 def bn_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds_in,
@@ -183,10 +192,10 @@ def bn_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug
     x3 = _x3(y_prev * bnv[0] + bnv[1], agg, feats, keep, alpha_drop, rate)
     h = F.linear(x3, w_aug[:, :-1], w_aug[:, -1])
     dh = _bn_gy(y_k, ds_in, gsel, bnv, flag, nm) * _act_grad(activation, h)
-    dw = torch.matmul(dh.transpose(1, 2), torch.cat([x3, torch.ones_like(x3[..., :1])], -1))
-    ds, dagg, red = _bn_ds(adj_loop, adj_dep, torch.matmul(dh, w_aug[:, :2 * D]), keep, y_prev,
-                           bnv, alpha_drop, rate)
-    return ds, dw, dagg, red
+    dw = torch.matmul(dh.transpose(1, 2), _ones_col(x3))
+    ds, dagg = _bn_ds(adj_loop, adj_dep, torch.matmul(dh, w_aug[:, :2 * D]), keep, alpha_drop,
+                      rate)
+    return ds, dw, dagg, _red(ds, (y_prev - bnv[7]) * bnv[8])
 
 
 def bn2_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, w1, b1,
@@ -201,9 +210,9 @@ def bn2_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_a
     dx3, dw0, db0, dw1, db1, _ = _dense2_vjp(x3, w0_aug[:, :-1], w0_aug[:, -1], w1, b1,
                                              _bn_gy(y_k, ds_in, gsel, bnv, flag, nm), act0, act1,
                                              act_grad=act_grad)
-    ds, dagg, red = _bn_ds(adj_loop, adj_dep, dx3[..., :2 * D], keep, y_prev, bnv, alpha_drop,
-                           rate)
-    return ds, torch.cat([dw0, db0[..., None]], dim=-1), dw1, db1, dagg, red
+    ds, dagg = _bn_ds(adj_loop, adj_dep, dx3[..., :2 * D], keep, alpha_drop, rate)
+    return (ds, torch.cat([dw0, db0[..., None]], dim=-1), dw1, db1, dagg,
+            _red(ds, (y_prev - bnv[7]) * bnv[8]))
 
 
 # ------------------------------------------------------------------ wrappers
@@ -461,9 +470,18 @@ def bn2_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, 
 class BNLoopOperands:
     """The constant operands of bn_train_loop (no gradient flows to them).
 
+    The loop keeps T sets of BatchNorm moments and affines, one per node
+    type: T = 1 here (K1/K2, K14/K15); ops/typed.py::TypedLoopOperands sets
+    the node types of a composite model's typed loop (K16/K17).
+
     :param keep: uint8 [K, R, W, 2D+F] keep-masks, or None when rate == 0.
     :param res: (src, dst, w) residual arcs in flat block-row node ids, or None.
-    :param activations: the state net's, one (K1/K2) or two (K14/K15).
+    :param activations: the state net's, one (K1/K2) or two (K14/K15); per
+        type for a typed loop.
+    :param types: uint8 [R, W] node type of each block-row node (0 on pad),
+        or None: one type.
+    :param res_type: [Er] int64 type of each residual arc's source node, or
+        None: one type.
     """
     adj_loop: torch.Tensor
     adj_dep: Optional[torch.Tensor]
@@ -476,6 +494,38 @@ class BNLoopOperands:
     activations: Tuple[str, ...]
     alpha_drop: bool
     rate: float
+    types: Optional[torch.Tensor] = None
+    res_type: Optional[torch.Tensor] = None
+    n_types: int = 1
+
+    def __post_init__(self):
+        if self.types is not None:
+            self._ti = self.types.long()
+            self._onehot = [(self._ti == t).to(self.nm.dtype)[..., None]
+                            for t in range(self.n_types)]
+
+    def sel(self, coef):
+        """Per-node rows of per-type coefficients [T, D]: [R, W, D] (the one
+        row [D] when there is one type)."""
+        return coef[0] if self.types is None else coef[self._ti]
+
+    def type_sum(self, x):
+        """[T, D] sums of x [R, W, D] over the nodes of each type, padded
+        nodes counting as type 0 (mask x for real nodes only)."""
+        if self.types is None:
+            return torch.sum(x, dim=(0, 1))[None]
+        return torch.stack([torch.sum(x * m, dim=(0, 1)) for m in self._onehot])
+
+    def res_sel(self, coef):
+        """Per residual arc rows [Er, D] of per-type coefficients, by the
+        arc's source node's type."""
+        return coef[0] if self.res_type is None else coef[self.res_type]
+
+    def res_sum(self, vals):
+        """[T, D] sums of per residual arc values [Er, D] by source type."""
+        if self.res_type is None:
+            return torch.sum(vals, dim=0)[None]
+        return vals.new_zeros((self.n_types, vals.shape[1])).index_add_(0, self.res_type, vals)
 
     def step_kw(self):
         acts = (dict(activation=self.activations[0]) if len(self.activations) == 1
@@ -486,54 +536,63 @@ class BNLoopOperands:
         return None if self.keep is None else self.keep[k]
 
     def forward_step(self, k, y1, y2, aff, rT, weights):
-        """Iteration k: K1 for the weights (w_aug,), K14 for (w0_aug, w1, b1)."""
+        """Iteration k: K1 for the weights (w_aug,), K14 for (w0_aug, w1, b1).
+        aff [2, 2, 1, D]; returns (y, agg, marg, msum [R, 1, D])."""
         step = bn_forward_step if len(weights) == 1 else bn2_forward_step
-        return step(self.adj_loop, self.adj_dep, y1, y2, aff, self.keep_k(k), rT, self.feats,
-                    *weights, self.nm, threshold=self.threshold, **self.step_kw())
+        y, agg, marg, msum = step(self.adj_loop, self.adj_dep, y1, y2, aff.reshape(2, 2, -1),
+                                  self.keep_k(k), rT, self.feats, *weights, self.nm,
+                                  threshold=self.threshold, **self.step_kw())
+        return y, agg, marg, msum[:, None]
 
     def backward_step(self, k, y_prev, y_k, agg, weights, ds_in, gsel, bnv, flag):
-        """The reverse of iteration k, K2 or K15: (ds, the weights' per-block
-        cotangents, dagg, red)."""
+        """The reverse of iteration k, K2 or K15, with bnv [1, 9, D]: (ds, the
+        weights' per-block cotangents, dagg, red [R, 1, 2, D])."""
         step = bn_backward_step if len(weights) == 1 else bn2_backward_step
         ds, *dweights, dagg, red = step(self.adj_loop, self.adj_dep, y_prev, y_k, agg,
-                                        self.keep_k(k), self.feats, *weights, ds_in, gsel, bnv,
-                                        flag, self.nm, **self.step_kw())
-        return ds, dweights, dagg, red
+                                        self.keep_k(k), self.feats, *weights, ds_in, gsel,
+                                        bnv[0], flag, self.nm, **self.step_kw())
+        return ds, dweights, dagg, red[:, None]
 
 
-def _res_term(y, aff, res):
-    """Residual term [R, W, D]: the sources' normalized states, weighted,
-    summed into their destinations (_res_gather + _res_scatter)."""
+def _res_term(y, aff, res, op: BNLoopOperands):
+    """Residual term [R, W, D]: the sources' states normalized with the
+    affine aff [2, T, D] of their type, weighted, summed into their
+    destinations (_res_gather + _res_scatter)."""
     src, dst, w = res
     R, W, D = y.shape
-    vals = (y.reshape(-1, D)[src] * aff[0] + aff[1]) * w[:, None]
+    vals = (y.reshape(-1, D)[src] * op.res_sel(aff[0]) + op.res_sel(aff[1])) * w[:, None]
     return y.new_zeros((R * W, D)).index_add_(0, dst, vals).reshape(R, W, D)
 
 
 class _BNTrainLoop(torch.autograd.Function):
-    """K launches of K1 (K14) forward and K launches of K2 (K15) backward,
-    with the reference's global early stop and snapshot selection as tensor
-    ops (no host synchronisation): _bn_loop_fwd / _bn_loop_bwd
-    (_bn2_loop_fwd / _bn2_loop_bwd)."""
+    """K launches of K1 (K14, K16) forward and K launches of K2 (K15, K17)
+    backward, with the reference's global early stop and snapshot selection
+    as tensor ops (no host synchronisation): _bn_loop_fwd / _bn_loop_bwd
+    (_bn2_loop_*, pallas_typed.py::_bnT_loop_*). The moments, affines and
+    BatchNorm coefficients are per node type ([T, D] rows, T = 1 without
+    types): each type's moments are taken over its real nodes, each node
+    takes its own type's affine."""
 
     @staticmethod
     def forward(ctx, s0, gamma, beta, op: BNLoopOperands, *weights):
         D = s0.shape[-1]
+        T = op.n_types
         nm3 = op.nm[..., None]
-        cnt = torch.clamp_min(torch.sum(op.nm), 1.0)
-        ident = _ident_aff(D, s0)
+        cnt = torch.clamp_min(op.type_sum(nm3), 1.0)                       # [T, 1]
+        ident = _ident_aff(D, s0)[:, None].expand(2, T, D)
         y1, y2, a1, a2 = s0, torch.ones_like(s0), ident, ident
         ys, aggs, moms, affs, margs = [], [], [], [], []
         for k in range(op.K):
-            rT = None if op.res is None else _res_term(y1, a1, op.res)
+            rT = None if op.res is None else _res_term(y1, a1, op.res, op)
             y, agg, marg, msum = op.forward_step(k, y1, y2, torch.stack([a1, a2]), rT, weights)
             mean = torch.sum(msum, dim=0) / cnt
-            var = torch.sum(torch.square(y - mean) * nm3, dim=(0, 1)) / cnt
+            # two-pass variance, centred on each node's own type's mean
+            var = op.type_sum(torch.square(y - op.sel(mean)) * nm3) / cnt
             y2, a2 = y1, a1
             y1, a1 = y, _affine(gamma, beta, mean, var)
             ys.append(y)
             aggs.append(agg)
-            moms.append(torch.stack([mean, var]))
+            moms.append(torch.stack([mean, var], dim=1))                  # [T, 2, D]
             affs.append(a1)
             margs.append(marg)
         loop_any = (torch.stack(margs) > 0.5).flatten(1).any(dim=1)           # [K]
@@ -543,7 +602,8 @@ class _BNTrainLoop(torch.autograd.Function):
         y_sel = torch.stack(ys).index_select(0, idx)[0]
         mom_sel = moms_t.index_select(0, idx)[0]
         # centered normalize of the returned snapshot (mlp.py::_batchnorm)
-        state3 = (y_sel - mom_sel[0]) * torch.rsqrt(mom_sel[1] + BN_EPS) * gamma + beta
+        state3 = ((y_sel - op.sel(mom_sel[:, 0])) * op.sel(torch.rsqrt(mom_sel[:, 1] + BN_EPS))
+                  * op.sel(gamma) + op.sel(beta))
         state3 = torch.where(iters >= 1.0, state3, s0)
         ctx.op = op
         ctx.saved = (s0, weights, gamma, iters, idx, ys, aggs, moms, affs, cnt)
@@ -555,31 +615,32 @@ class _BNTrainLoop(torch.autograd.Function):
         op = ctx.op
         s0, weights, gamma, iters, idx, ys, aggs, moms, affs, cnt = ctx.saved
         R, W, D = s0.shape
+        T = op.n_types
         g_state = torch.zeros_like(s0) if g_state is None else g_state.contiguous()
         active = iters >= 1.0
-        ident = _ident_aff(D, s0)
+        ident = _ident_aff(D, s0)[:, None].expand(2, T, D)
         zero, one = ident[1], ident[0]
         # the snapshot's cotangent enters at iteration idx: its reduction terms
-        Sg = torch.sum(g_state, dim=(0, 1))
-        rks = [torch.rsqrt(m[1] + BN_EPS) for m in moms]
-        Sgx = [torch.sum(g_state * ((ys[j] - moms[j][0]) * rks[j]), dim=(0, 1))
+        Sg = op.type_sum(g_state)
+        rks = [torch.rsqrt(m[:, 1] + BN_EPS) for m in moms]
+        Sgx = [op.type_sum(g_state * ((ys[j] - op.sel(moms[j][:, 0])) * op.sel(rks[j])))
                for j in range(op.K)]
         ds = torch.zeros_like(s0)
-        red = torch.zeros((2, D), dtype=s0.dtype, device=s0.device)
+        red = torch.zeros((T, 2, D), dtype=s0.dtype, device=s0.device)
         dweights = [torch.zeros_like(w) for w in weights]
         dgamma, dbeta = torch.zeros_like(zero), torch.zeros_like(zero)
         for k in reversed(range(op.K)):
             flag = ((idx[0] == k) & active).float()
-            s1 = red[0] + flag * Sg
-            s2 = red[1] + flag * Sgx[k]
+            s1 = red[:, 0] + flag * Sg
+            s2 = red[:, 1] + flag * Sgx[k]
             dbeta = dbeta + s1
             dgamma = dgamma + s2
             a = gamma * rks[k]
             aff_p = ident if k == 0 else affs[k - 1]
-            mean_p = zero if k == 0 else moms[k - 1][0]
+            mean_p = zero if k == 0 else moms[k - 1][:, 0]
             r_p = one if k == 0 else rks[k - 1]
-            bnv = torch.stack([aff_p[0], aff_p[1], moms[k][0], rks[k], a, a * s1 / cnt,
-                               a * s2 / cnt, mean_p, r_p])
+            bnv = torch.stack([aff_p[0], aff_p[1], moms[k][:, 0], rks[k], a, a * s1 / cnt,
+                               a * s2 / cnt, mean_p, r_p], dim=1)                # [T, 9, D]
             y_prev = s0 if k == 0 else ys[k - 1]
             ds_new, dw_k, dagg, red_part = op.backward_step(k, y_prev, ys[k], aggs[k], weights, ds,
                                                             g_state, bnv, flag)
@@ -587,14 +648,13 @@ class _BNTrainLoop(torch.autograd.Function):
             dweights = [a + torch.sum(b, dim=0) for a, b in zip(dweights, dw_k)]
             if op.res is not None:
                 # ds[src] += w * dagg[dst]; for k > 0 the next reverse step's
-                # reduction partials take these rows too
+                # reduction partials take these rows too, by source type
                 src, dst, rw = op.res
                 vals = dagg.reshape(-1, D)[dst] * rw[:, None]
                 ds_new = ds_new.reshape(-1, D).index_add_(0, src, vals).reshape(R, W, D)
                 if k > 0:
-                    xp_src = (ys[k - 1].reshape(-1, D)[src] - mean_p) * r_p
-                    red = red + torch.stack([torch.sum(vals, dim=0),
-                                             torch.sum(vals * xp_src, dim=0)])
+                    xp_src = (ys[k - 1].reshape(-1, D)[src] - op.res_sel(mean_p)) * op.res_sel(r_p)
+                    red = red + torch.stack([op.res_sum(vals), op.res_sum(vals * xp_src)], dim=1)
             ds = ds_new
         # iters == 0: the forward returned s0 itself
         ds = ds + torch.where(active, 0.0, g_state)
@@ -604,11 +664,54 @@ class _BNTrainLoop(torch.autograd.Function):
 def bn_train_loop(s0, weights, gamma, beta, op: BNLoopOperands):
     """The K-iteration BN training loop (fused_bn_train_loop, or
     fused_bn2_train_loop for the weights (w0_aug, w1, b1) of a two-layer state
-    net). Returns (iters, state3 [R, W, D] the snapshot at the realised count,
-    moms [K, 2, D] the batch moments of every iteration). Gradients flow to
-    s0, the weights, gamma and beta through K launches of K2 (K15); iters and
-    moms carry none."""
-    return _BNTrainLoop.apply(s0, gamma, beta, op, *weights)
+    net, or fused_bn_typed_train_loop for the stacked per-type weights
+    (w_stk,) of a typed loop). gamma, beta: [D], or [T, D] per type.
+    Returns (iters, state3 [R, W, D] the snapshot at the realised count,
+    moms [K, 2, D], or [K, T, 2, D] per type, the batch moments of every
+    iteration). Gradients flow to s0, the weights, gamma and beta through K
+    launches of K2 (K15, K17); iters and moms carry none."""
+    iters, state3, moms = _BNTrainLoop.apply(s0, gamma.reshape(op.n_types, -1),
+                                             beta.reshape(op.n_types, -1), op, *weights)
+    return iters, state3, (moms if op.types is not None else moms[:, 0])
+
+
+def block_rows(gb):
+    """(blocks, nm, res) of a fused-layout batch's block rows [loop blocks |
+    dep blocks]: blocks(x) takes node rows x [..., Np, F] in global order to
+    [..., R, W, F]; nm [R, W] is the node mask (0 on padded loop rows); res
+    (src, dst, w) holds the residual arcs in flat block-row node ids, or is
+    None without dep blocks."""
+    W = gb.block_w
+    B = gb.n_node_pad // W
+    dep = gb.adj_dep is not None
+    rows = torch.cat([gb.loop_ids, gb.dep_ids]) if dep else gb.loop_ids
+
+    def blocks(x):
+        return x.reshape(*x.shape[:-2], B, W, x.shape[-1]).index_select(x.dim() - 2, rows)
+
+    nm = gb.loop_nm
+    res = None
+    if dep:
+        nm = torch.cat([nm, gb.node_mask.reshape(B, W).index_select(0, gb.dep_ids).to(nm.dtype)])
+        off = gb.adj_loop.shape[0] * W
+        res = (gb.res_src_loc + off, gb.res_dst_loc + off, gb.res_w)
+    return blocks, nm, res
+
+
+def input_rate(state_spec) -> float:
+    """The state net's dropout rate at its input (position 0), 0 without."""
+    return float(dict(zip(state_spec.dropout_pos, state_spec.dropout_rate)).get(0, 0.0))
+
+
+def block_keep(blocks, keep_state: Optional[torch.Tensor], rate: float):
+    """uint8 [K, R, W, 2D+F] block-row keep-masks of the input dropout from
+    bool [K, Np, 2D+F] masks in global node order ([state | agg | arcs] is
+    already x3's column order at state_dim == 0); None when rate == 0."""
+    if rate <= 0.0:
+        return None
+    if keep_state is None:
+        raise ValueError("a keep-mask for dropout position 0 is required in training")
+    return blocks(keep_state).to(torch.uint8)
 
 
 def bn_loop_operands(spec, params_state, gb, keep_state: Optional[torch.Tensor]):
@@ -620,41 +723,36 @@ def bn_loop_operands(spec, params_state, gb, keep_state: Optional[torch.Tensor])
 
     :param keep_state: bool [K, Np, in_dim] input keep-masks in global node
         order (None without input dropout)."""
-    W = gb.block_w
-    Np = gb.n_node_pad
-    B = Np // W
-    K = spec.max_iteration
-    dep = gb.adj_dep is not None
-    rows = torch.cat([gb.loop_ids, gb.dep_ids]) if dep else gb.loop_ids
-
-    def blocks(x):
-        return x.reshape(B, W, -1).index_select(0, rows)
-
-    nm = gb.loop_nm
-    if dep:
-        nm = torch.cat([nm, gb.node_mask.reshape(B, W).index_select(0, gb.dep_ids).to(nm.dtype)])
+    blocks, nm, res = block_rows(gb)
     ss = spec.state_spec
-    rate = float(dict(zip(ss.dropout_pos, ss.dropout_rate)).get(0, 0.0))
-    keep = None
-    if rate > 0.0:
-        if keep_state is None:
-            raise ValueError("a keep-mask for dropout position 0 is required in training")
-        # [state | agg | arcs] is already x3's column order (state_dim == 0)
-        keep = keep_state.reshape(K, B, W, -1).index_select(1, rows).to(torch.uint8)
-    res = None
-    if dep:
-        off = gb.adj_loop.shape[0] * W
-        res = (gb.res_src_loc + off, gb.res_dst_loc + off, gb.res_w)
-    op = BNLoopOperands(adj_loop=gb.adj_loop, adj_dep=gb.adj_dep, keep=keep,
-                        feats=blocks(gb.agg_arcs_cache), nm=nm, res=res, K=K,
+    rate = input_rate(ss)
+    op = BNLoopOperands(adj_loop=gb.adj_loop, adj_dep=gb.adj_dep,
+                        keep=block_keep(blocks, keep_state, rate),
+                        feats=blocks(gb.agg_arcs_cache), nm=nm, res=res, K=spec.max_iteration,
                         threshold=float(spec.threshold), activations=tuple(ss.activations),
                         alpha_drop=bool(ss.alphadropout), rate=rate)
-    dense = params_state["dense_0"]
-    weights = (torch.cat([dense["w"], dense["b"][:, None]], dim=1),)
+    weights = (augmented(params_state["dense_0"]),)
     if ss.num_layers == 2:
         d1 = params_state["dense_1"]
         weights += (d1["w"].contiguous(), d1["b"])
     return blocks(gb.nodes), weights, op
+
+
+def augmented(dense) -> torch.Tensor:
+    """[w | b] [H, in + 1]: a dense layer's bias-augmented weight."""
+    return torch.cat([dense["w"], dense["b"][:, None]], dim=1)
+
+
+def moving_stats(bn_state, moms, iters):
+    """The moving BatchNorm statistics after a loop with batch moments moms
+    [K, 2, D]: updated only by the iterations that ran (iters of them)."""
+    mean_mv, var_mv = bn_state["mean"], bn_state["var"]
+    for j in range(moms.shape[0]):
+        on = iters > j
+        mean_mv = torch.where(on, mean_mv * BN_MOMENTUM + moms[j, 0] * (1.0 - BN_MOMENTUM),
+                              mean_mv)
+        var_mv = torch.where(on, var_mv * BN_MOMENTUM + moms[j, 1] * (1.0 - BN_MOMENTUM), var_mv)
+    return {"mean": mean_mv, "var": var_mv}
 
 
 def bn_train_propagate(spec, params_state, bn_state, gb, keep_state: Optional[torch.Tensor]):
@@ -665,12 +763,5 @@ def bn_train_propagate(spec, params_state, bn_state, gb, keep_state: Optional[to
     s0, weights, op = bn_loop_operands(spec, params_state, gb, keep_state)
     iters, state3, moms = bn_train_loop(s0, weights, params_state["bn"]["gamma"],
                                         params_state["bn"]["beta"], op)
-    # moving statistics: updated only by the iterations that ran
-    mean_mv, var_mv = bn_state["mean"], bn_state["var"]
-    for j in range(op.K):
-        on = iters > j
-        mean_mv = torch.where(on, mean_mv * BN_MOMENTUM + moms[j, 0] * (1.0 - BN_MOMENTUM),
-                              mean_mv)
-        var_mv = torch.where(on, var_mv * BN_MOMENTUM + moms[j, 1] * (1.0 - BN_MOMENTUM), var_mv)
     state = state3.index_select(0, gb.block_perm).reshape(gb.nodes.shape)
-    return iters, state, {"mean": mean_mv, "var": var_mv}
+    return iters, state, moving_stats(bn_state, moms, iters)

@@ -107,19 +107,6 @@ __device__ void stage_common(float* sm, const Layout& L, const float* adj_loop,
   stage_in(feats + row0 * F, W, F, sm + L.x, (C - 1) | 1, 2 * D);
 }
 
-// This thread's dense pre-activation h = w_aug @ [x3 row; 1].
-template <int MAXF>
-__device__ void dense(const float* w, const float* xrow, int D, int C, float (&h)[MAXF]) {
-#pragma unroll
-  for (int j = 0; j < MAXF; ++j) h[j] = j < D ? w[j * C + C - 1] : 0.0f;
-  for (int c = 0; c < C - 1; ++c) {
-    const float x = xrow[c];
-#pragma unroll
-    for (int j = 0; j < MAXF; ++j)
-      if (j < D) h[j] = fmaf(w[j * C + c], x, h[j]);
-  }
-}
-
 // K1: one BN-training iteration over every block row (row r < Bl reads
 // adj_loop[r], the rest adj_dep[r - Bl]).
 template <int MAXF>
@@ -196,7 +183,7 @@ bn_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
   stage_out(agg + row0 * D, W, D, rows, DP);
 
   float h[MAXF];
-  dense<MAXF>(w, xrow, D, C, h);
+  dense_aug<MAXF>(w, xrow, D, C, h);
   __syncthreads();  // agg is out of rows
 #pragma unroll
   for (int j = 0; j < MAXF; ++j)
@@ -269,7 +256,7 @@ bn_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
   }
   {
     float h[MAXF];
-    dense<MAXF>(w, xrow, D, C, h);
+    dense_aug<MAXF>(w, xrow, D, C, h);
 #pragma unroll
     for (int j = 0; j < MAXF; ++j) g[j] *= act_grad(act, h[j]);  // g is dh from here
   }

@@ -1,11 +1,12 @@
 // Device helpers shared by the port's propagation kernels (fused_eval.cu,
-// bn_train.cu, eval_loop_bwd.cu, train_loop.cu, fused2.cu,
-// train_loop2_bwd.cu, eval_loop2_bwd.cu, bn2_train.cu): the activations of the
+// bn_train.cu, eval_loop_bwd.cu, train_loop.cu, fused2.cu, train_loop2_bwd.cu,
+// eval_loop2_bwd.cu, bn2_train.cu, bn_typed.cu): the activations of the
 // Pallas kernels, the input dropout and its derivative, the staging of block
 // adjacencies and row blocks between device and shared memory, the block
 // aggregation and its reverse through 32-row or 32-column slabs of the
-// adjacency, the two-layer state net of one node, and the hidden layer's
-// reverse with its weight sums, shared by the two-layer reverse kernels.
+// adjacency, the bias-augmented dense row of the BatchNorm kernels, the
+// two-layer state net of one node, and the hidden layer's reverse with its
+// weight sums, shared by the two-layer reverse kernels.
 
 #pragma once
 
@@ -348,6 +349,21 @@ __device__ void bwd2_hidden(const Bwd2& m, int W, int D, int AL, int H1, int act
       *dst = first ? acc : *dst + acc;
     }
     __syncthreads();  // the tiles are rewritten by the next chunk
+  }
+}
+
+// This thread's dense pre-activation h = w_aug @ [x3 row; 1] of a
+// bias-augmented weight w_aug [D][C] (the bias its last column), by rows of
+// the BatchNorm kernels (bn_train.cu, bn_typed.cu).
+template <int MAXF>
+__device__ void dense_aug(const float* w, const float* xrow, int D, int C, float (&h)[MAXF]) {
+#pragma unroll
+  for (int j = 0; j < MAXF; ++j) h[j] = j < D ? w[j * C + C - 1] : 0.0f;
+  for (int c = 0; c < C - 1; ++c) {
+    const float x = xrow[c];
+#pragma unroll
+    for (int j = 0; j < MAXF; ++j)
+      if (j < D) h[j] = fmaf(w[j * C + c], x, h[j]);
   }
 }
 

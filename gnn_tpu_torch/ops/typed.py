@@ -1,0 +1,418 @@
+"""Typed BatchNorm propagation kernels of composite (per-node-type) GNNs:
+K16/K17 (counterpart of gnn_tpu/ops/pallas_typed.py).
+
+A composite model gives each node type t its own one-layer state net, with
+its own trailing BatchNorm: y = act_t(w_t @ [drop(x3); 1]), normalized by the
+moments of type t's real nodes. Aggregation, movement flags and the dropout
+are the homogeneous chain's (ops/bn.py), computed once on the selected
+state; only the dense layer, its activation and the BatchNorm coefficients
+are selected by each node's type.
+
+* `bnT_forward_step` (K16, replaces `_bnT_fwd_kernel`): one iteration over
+  every block row. The two previous pre-BN activations are normalized with
+  each node's own type's affine (aff [2, 2, T, D]); then margins, the
+  aggregation plus the residual term, the dropped x3 = [s | agg | feats],
+  each node's own type's rows [t*D, (t+1)*D) of the stacked weights w_stk
+  [T*D, 2D+F+1] and activation, and per-block per-type moment sums msum
+  [R, T, D] over real nodes.
+* `bnT_backward_step` (K17, replaces `_bnT_bwd_kernel`): its reverse with the
+  per-type BatchNorm backward folded in from bnv [T, 9, D] (rows as
+  ops/bn.py::BNV_ROWS): ds, dagg, per-block dw [R, T*D, C] (a node adds into
+  its type's rows only) and red [R, T, 2, D] grouped by node type.
+
+gnn_tpu selects with a one-hot type mask and multiplies every node by all T
+weight slabs; here a node's type is an index (uint8 [R, W], 0 on pad, as the
+raw one-hot's padded rows select type 0) and a node meets only its own
+type's weights, so the dense work is K1's whatever T is. Moments, margins
+and the BatchNorm's moment term mask padded nodes with nm; the reduction
+partials red group ds by the raw type, pads in type 0, as gnn_tpu's do.
+
+The K-loop is ops/bn.py's `_BNTrainLoop` with per-type moments
+(`TypedLoopOperands`); `bn_typed_train_propagate` drives it in training and
+`typed_eval_propagate` runs K16 once an iteration with the fixed per-type
+inference affine at eval (rate 0, the moment sums ignored).
+
+Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
+launches the CUDA kernel (ops/csrc/bn_typed.cu) for CUDA tensors; it never
+falls back from one to the other. `launches` counts kernel launches. The
+kernels take D up to 64, at most MAX_TYPES types, and a block's rows within
+a CTA's shared memory (`typed_smem_bytes`); the stacked weights are staged
+there when they fit, else read through the L1/L2 caches.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from gnn_tpu_torch.ops import _build
+from gnn_tpu_torch.ops.bn import (BNV_ROWS, BNLoopOperands, _agg_blocks, _bn_ds, _bn_gy,
+                                  _check_blocks, _ident_aff, _ones_col, _require_cuda, _res_term,
+                                  _x3, augmented, block_keep, block_rows, bn_train_loop,
+                                  input_rate, moving_stats)
+from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, _act_grad, _check,
+                                     _check_keep, _drop_args, _ptr, _stream, bn_inference_affine,
+                                     moved)
+from gnn_tpu_torch.ops.fused2 import SMEM_BYTES
+
+MAX_TYPES = 32      # two bits of activation code per type in one 64-bit argument
+
+# kernel launches since the last reset, by wrapper
+launches = {"bnT_forward_step": 0, "bnT_backward_step": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def supports_typed_bn_train(state_specs) -> bool:
+    """K16/K17 train the specs: every per-type state net one dense layer with
+    the trailing BatchNorm, a kernel activation and dropout only at the
+    input, all types sharing the dropout configuration (the activations may
+    differ)."""
+    s0 = state_specs[0]
+    return all(
+        s.num_layers == 1
+        and bool(s.batch_normalization)
+        and s.activations[0] in FUSABLE_ACTIVATIONS
+        and all(p == 0 for p in s.dropout_pos)
+        and s.dropout_pos == s0.dropout_pos
+        and s.dropout_rate == s0.dropout_rate
+        and bool(s.alphadropout) == bool(s0.alphadropout)
+        for s in state_specs)
+
+
+def supports_typed_eval(state_specs) -> bool:
+    """K16 serves the specs: every per-type state net one dense layer with a
+    kernel activation (the BatchNorm, if any, is a fixed per-type affine at
+    inference; dropout is inactive)."""
+    return all(s.num_layers == 1 and s.activations[0] in FUSABLE_ACTIVATIONS
+               for s in state_specs)
+
+
+# ------------------------------------------------------------ plain versions
+def _per_type(fn, activations, h, ti):
+    """fn(activation, h) with each node's own type's activation."""
+    if len(set(activations)) == 1:
+        return fn(activations[0], h)
+    out = torch.empty_like(h)
+    for t, a in enumerate(activations):
+        m = ti == t
+        out[m] = fn(a, h[m])
+    return out
+
+
+def _own_pre_activation(x3, w_stk, ti, T):
+    """h [R, W, D]: each node's own type's rows of w_stk applied to [x3; 1]."""
+    D = w_stk.shape[0] // T
+    h_all = F.linear(x3, w_stk[:, :-1], w_stk[:, -1]).unflatten(-1, (T, D))
+    return torch.gather(h_all, -2, ti[..., None, None].expand(*ti.shape, 1, D))[..., 0, :]
+
+
+def _type_sums(onehot, x):
+    """[R, T, D] per-block sums of x [R, W, D] over each type's nodes."""
+    return torch.einsum("rwt,rwd->rtd", onehot, x)
+
+
+def bnT_forward_step_ref(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_stk, nm, *,
+                         activations, alpha_drop: bool, rate: float, threshold: float):
+    """Plain PyTorch K16. Returns (y [R, W, D] pre-BN activation, agg
+    [R, W, D] (with the residual term, before the dropout), marg [R, W]
+    movement flags times nm, msum [R, T, D] per-block sums of y * nm over
+    each type's nodes)."""
+    T = len(activations)
+    ti = types.long()
+    s = y1 * aff[0, 0][ti] + aff[0, 1][ti]
+    s_old = y2 * aff[1, 0][ti] + aff[1, 1][ti]
+    marg = moved(s, s_old, threshold) * nm
+    agg = _agg_blocks(adj_loop, adj_dep, s)
+    if rT is not None:
+        agg = agg + rT
+    h = _own_pre_activation(_x3(s, agg, feats, keep, alpha_drop, rate), w_stk, ti, T)
+    y = _per_type(lambda a, x: _ACTS[a](x), activations, h, ti)
+    return y, agg, marg, _type_sums(F.one_hot(ti, T).to(y.dtype) * nm[..., None], y)
+
+
+def bnT_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats, w_stk, ds_in,
+                          gsel, bnv, flag, nm, *, activations, alpha_drop: bool, rate: float,
+                          act_grad=_act_grad):
+    """Plain PyTorch K17: one reverse typed iteration with the per-type
+    BatchNorm backward folded in. `bnv` [T, 9, D] holds each type's rows
+    named in ops/bn.py::BNV_ROWS; `flag` (0-d) gates the state cotangent
+    `gsel` in. Returns (ds [R, W, D], dw [R, T*D, C] per-block partials of the
+    w_stk cotangent, dagg [R, W, D], red [R, T, 2, D] per-block (sum ds,
+    sum ds * x_hat_prev) over each type's nodes, pads in type 0). act_grad
+    is the activations' derivative (chip_smoke.py switches its branch at
+    kinks): called once on every node when the types share their
+    activation, else once per type on that type's nodes."""
+    T = len(activations)
+    D = y_prev.shape[-1]
+    ti = types.long()
+    v = bnv[ti].movedim(-2, 0)                              # [9, R, W, D] own type's rows
+    x3 = _x3(y_prev * v[0] + v[1], agg, feats, keep, alpha_drop, rate)
+    h = _own_pre_activation(x3, w_stk, ti, T)
+    dh = _bn_gy(y_k, ds_in, gsel, v, flag, nm) * _per_type(act_grad, activations, h, ti)
+    onehot = F.one_hot(ti, T).to(dh.dtype)
+    dh_all = (onehot[..., None] * dh[..., None, :]).flatten(-2)       # [R, W, T*D]
+    dw = torch.matmul(dh_all.transpose(1, 2), _ones_col(x3))
+    ds, dagg = _bn_ds(adj_loop, adj_dep, torch.matmul(dh_all, w_stk[:, :2 * D]), keep,
+                      alpha_drop, rate)
+    red = torch.stack([_type_sums(onehot, ds), _type_sums(onehot, ds * ((y_prev - v[7]) * v[8]))],
+                      dim=2)
+    return ds, dw, dagg, red
+
+
+# ------------------------------------------------------------------ wrappers
+def typed_smem_bytes(W: int, D: int, F: int, T: int, backward: bool):
+    """(bytes, weights staged) of a K16 (backward: K17) CTA's shared memory,
+    as bn_typed.cu::layout cuts it: the adjacency [W][W + 1], the x3 rows, two
+    row buffers, the per-type affines (K16, 4 rows) or bnv (K17, 9 rows), the
+    node mask and types, the nodes ordered by type, the keep bits and, when
+    they still fit the 227 KB a
+    CTA may use, the stacked weights [T*D][C]; without them the kernel reads
+    the weights through the L1/L2 caches."""
+    C = 2 * D + F + 1
+    floats = (W * (W + 1) + W * ((C - 1) | 1) + 2 * W * (D | 1) + (9 if backward else 4) * T * D
+              + 3 * W + T + 1 + (W * (C - 1) + 3) // 4)
+    if 4 * (floats + T * D * C) <= SMEM_BYTES:
+        return 4 * (floats + T * D * C), True
+    return 4 * floats, False
+
+
+def _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations, backward):
+    """(Bl, W, T) after checking what K16/K17 take: the block rows and
+    widths, the node types, at most MAX_TYPES types, the stacked weights and
+    a CTA's shared memory without the weights within the 227 KB cap
+    (typed_smem_bytes)."""
+    Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
+    T = len(activations)
+    if not 1 <= T <= MAX_TYPES:
+        raise ValueError(f"{T} node types: the typed kernels take 1..{MAX_TYPES}")
+    need, _ = typed_smem_bytes(W, D, Fd, T, backward)
+    if need > SMEM_BYTES:
+        raise ValueError(f"W={W}, D={D}, F={Fd}, T={T} needs {need} bytes of shared memory a "
+                         f"block, more than the {SMEM_BYTES} a CTA may use")
+    dev = adj_loop.device
+    if types.device != dev or types.dtype != torch.uint8 or tuple(types.shape) != (R, W) \
+            or not types.is_contiguous():
+        raise ValueError(f"types must be a contiguous uint8 tensor of shape {(R, W)} on {dev}, "
+                         f"got {types.dtype} {tuple(types.shape)} on {types.device}")
+    _check("w_stk", w_stk, (T * D, 2 * D + Fd + 1), dev)
+    return Bl, W, T
+
+
+def _act_codes(activations) -> int:
+    """The per-type activation codes, two bits each, type t at bit 2t."""
+    return sum(_ACT_CODE[a] << (2 * t) for t, a in enumerate(activations))
+
+
+def bnT_forward_step(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_stk, nm, *,
+                     activations, alpha_drop: bool, rate: float, threshold: float):
+    """K16: one typed BN-training iteration over every block row.
+
+    :param adj_loop / adj_dep: [Bl, W, W] / [Bd, W, W] (or None) transposed
+        block adjacencies of rows [0, Bl) and [Bl, Bl + Bd).
+    :param y1 / y2: [R, W, D] the two previous pre-BN activations.
+    :param aff: [2, 2, T, D] their per-type (scale; shift) affines.
+    :param types: uint8 [R, W] node types (0 on pad).
+    :param keep: uint8 [R, W, 2D+F] each node's own type's input keep-mask
+        (None when rate == 0).
+    :param rT: [R, W, D] residual term, or None.
+    :param feats: [R, W, F]; w_stk: [T*D, 2D+F+1] the per-type [Ws|Wa|Wf|b].
+    :param nm: [R, W] float node mask; activations: one name per type.
+    Returns (y [R, W, D], agg [R, W, D], marg [R, W], msum [R, T, D]).
+    """
+    kw = dict(activations=tuple(activations), alpha_drop=alpha_drop, rate=rate,
+              threshold=threshold)
+    if adj_loop.device.type == "cpu":
+        return bnT_forward_step_ref(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_stk,
+                                    nm, **kw)
+    _require_cuda(adj_loop)
+    R, _, D = y1.shape
+    Fd = feats.shape[-1]
+    Bl, W, T = _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations, False)
+    dev = adj_loop.device
+    for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
+        if t is not None:
+            _check(name, t, (R, W, D), dev)
+    _check("aff", aff, (2, 2, T, D), dev)
+    _check("feats", feats, (R, W, Fd), dev)
+    _check("nm", nm, (R, W), dev)
+    keep = _check_keep(keep, (R, W, 2 * D + Fd), dev, rate)
+    y = torch.empty((R, W, D), dtype=torch.float32, device=dev)
+    agg = torch.empty_like(y)
+    marg = torch.empty((R, W), dtype=torch.float32, device=dev)
+    msum = torch.empty((R, T, D), dtype=torch.float32, device=dev)
+    mode, a, b = _drop_args(alpha_drop, rate)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gnn_bnT_forward(
+            _ptr(adj_loop), _ptr(adj_dep), _ptr(y1), _ptr(y2), _ptr(aff), _ptr(types), _ptr(keep),
+            _ptr(rT), _ptr(feats), _ptr(w_stk), _ptr(nm), _ptr(y), _ptr(agg), _ptr(marg),
+            _ptr(msum), R, Bl, W, D, Fd, T, float(threshold), _act_codes(activations), mode, a, b,
+            _stream(dev))
+    _build.check(err, "bnT_forward_step (K16)")
+    launches["bnT_forward_step"] += 1
+    return y, agg, marg, msum
+
+
+def bnT_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats, w_stk, ds_in, gsel,
+                      bnv, flag, nm, *, activations, alpha_drop: bool, rate: float):
+    """K17: one reverse typed BN-training iteration over every block row.
+
+    :param y_prev / y_k / agg: [R, W, D] the forward's pre-BN activations of
+        iterations k-1 and k and the aggregation of k.
+    :param ds_in: [R, W, D] the state cotangent from iteration k+1.
+    :param gsel: [R, W, D] the returned state's cotangent, added when `flag`
+        (a 0-d float tensor on the device) is 1.
+    :param bnv: [T, 9, D] each type's BatchNorm coefficients (BNV_ROWS).
+    Other arguments as bnT_forward_step. Returns (ds [R, W, D], dw
+    [R, T*D, C], dagg [R, W, D], red [R, T, 2, D]), dw and red per block row.
+    """
+    kw = dict(activations=tuple(activations), alpha_drop=alpha_drop, rate=rate)
+    if adj_loop.device.type == "cpu":
+        return bnT_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats,
+                                     w_stk, ds_in, gsel, bnv, flag, nm, **kw)
+    _require_cuda(adj_loop)
+    R, _, D = y_prev.shape
+    Fd = feats.shape[-1]
+    C = 2 * D + Fd + 1
+    Bl, W, T = _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations, True)
+    dev = adj_loop.device
+    for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
+                    ("gsel", gsel)):
+        _check(name, t, (R, W, D), dev)
+    _check("feats", feats, (R, W, Fd), dev)
+    _check("bnv", bnv, (T, len(BNV_ROWS), D), dev)
+    _check("flag", flag, (), dev)
+    _check("nm", nm, (R, W), dev)
+    keep = _check_keep(keep, (R, W, C - 1), dev, rate)
+    ds = torch.empty((R, W, D), dtype=torch.float32, device=dev)
+    dagg = torch.empty_like(ds)
+    dw = torch.empty((R, T * D, C), dtype=torch.float32, device=dev)
+    red = torch.empty((R, T, 2, D), dtype=torch.float32, device=dev)
+    mode, a, b = _drop_args(alpha_drop, rate)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gnn_bnT_backward(
+            _ptr(adj_loop), _ptr(adj_dep), _ptr(y_prev), _ptr(y_k), _ptr(agg), _ptr(types),
+            _ptr(keep), _ptr(feats), _ptr(w_stk), _ptr(ds_in), _ptr(gsel), _ptr(bnv), _ptr(flag),
+            _ptr(nm), _ptr(ds), _ptr(dw), _ptr(dagg), _ptr(red), R, Bl, W, D, Fd, T,
+            _act_codes(activations), mode, a, b, _stream(dev))
+    _build.check(err, "bnT_backward_step (K17)")
+    launches["bnT_backward_step"] += 1
+    return ds, dw, dagg, red
+
+
+# ------------------------------------------------------------- the K-loop
+@dataclasses.dataclass
+class TypedLoopOperands(BNLoopOperands):
+    """bn_train_loop's operands of a typed loop: `types` set, `activations`
+    one per type, the weights (w_stk,); iterations run K16 and K17."""
+
+    def forward_step(self, k, y1, y2, aff, rT, weights):
+        return bnT_forward_step(self.adj_loop, self.adj_dep, y1, y2, aff, self.types,
+                                self.keep_k(k), rT, self.feats, *weights, self.nm,
+                                threshold=self.threshold, **self.step_kw())
+
+    def backward_step(self, k, y_prev, y_k, agg, weights, ds_in, gsel, bnv, flag):
+        ds, dw, dagg, red = bnT_backward_step(self.adj_loop, self.adj_dep, y_prev, y_k, agg,
+                                              self.types, self.keep_k(k), self.feats, *weights,
+                                              ds_in, gsel, bnv, flag, self.nm, **self.step_kw())
+        return ds, [dw], dagg, red
+
+    def step_kw(self):
+        return dict(activations=self.activations, alpha_drop=self.alpha_drop, rate=self.rate)
+
+
+def _own_type_keep(keep_states, types):
+    """bool [K, Np, C]: each node's own type's keep-mask, from one bool
+    [K, Np, C] draw per type (gnn_tpu's per-node selection of the keep
+    stream, pallas_typed.py:635-650)."""
+    sel = keep_states[0]
+    for t in range(1, len(keep_states)):
+        sel = torch.where((types == t)[None, :, None], keep_states[t], sel)
+    return sel
+
+
+def typed_operands(spec, params_state, gb, training: bool, keep_states=None):
+    """(s0 [R, W, D], w_stk [T*D, 2D+F+1], TypedLoopOperands) of a
+    fused-layout batch with node types: the per-type bias-augmented weights
+    stacked, the block rows [loop blocks | dep blocks] with their node mask,
+    types and residual arcs (with their source's type), and each node's own
+    type's keep-masks (no dropout at eval).
+
+    :param keep_states: in training, one bool [K, Np, in_dim] input keep-mask
+        per type in global node order (None without input dropout)."""
+    blocks, nm, res = block_rows(gb)
+    ss = spec.state_specs[0]
+    rate = input_rate(ss) if training else 0.0
+    keep = None
+    if rate > 0.0:
+        if keep_states is None:
+            raise ValueError("a keep-mask for dropout position 0 is required in training")
+        keep = block_keep(blocks, _own_type_keep(keep_states, gb.node_types), rate)
+    types = blocks(gb.node_types[:, None])[..., 0].to(torch.uint8)
+    res_type = None
+    if res is not None:
+        res_type = types.reshape(-1)[res[0]].long()
+    op = TypedLoopOperands(adj_loop=gb.adj_loop, adj_dep=gb.adj_dep, keep=keep,
+                           feats=blocks(gb.agg_arcs_cache), nm=nm, res=res, K=spec.max_iteration,
+                           threshold=float(spec.threshold),
+                           activations=tuple(s.activations[0] for s in spec.state_specs),
+                           alpha_drop=bool(ss.alphadropout), rate=rate, types=types,
+                           res_type=res_type, n_types=spec.n_types)
+    w_stk = torch.cat([augmented(p["dense_0"]) for p in params_state])
+    return blocks(gb.nodes), w_stk, op
+
+
+def bn_typed_train_propagate(spec, params_state, bn_state, gb, keep_states=None):
+    """Typed BN training propagation of models/composite.py on a
+    fused-layout batch with node types (gnn_tpu's bn_typed_train_propagate):
+    the K-loop of K16/K17 with per-type moments, then each type's
+    active-gated moving statistics. Returns (iters, state [Np, D], the new
+    per-type BatchNorm statistics as a tuple)."""
+    s0, w_stk, op = typed_operands(spec, params_state, gb, True, keep_states)
+    gamma = torch.stack([p["bn"]["gamma"] for p in params_state])
+    beta = torch.stack([p["bn"]["beta"] for p in params_state])
+    iters, state3, moms = bn_train_loop(s0, (w_stk,), gamma, beta, op)
+    state = state3.index_select(0, gb.block_perm).reshape(gb.nodes.shape)
+    return iters, state, tuple(moving_stats(b, moms[:, t], iters) for t, b in enumerate(bn_state))
+
+
+def typed_eval_propagate(spec, params_state, bn_state, gb):
+    """Typed inference propagation (gnn_tpu's typed_eval_propagate): K16 once
+    an iteration with rate 0, the first with the identity affine, the later
+    ones with each type's fixed inference affine (identity without
+    BatchNorm); the moment sums are not used. The early stop and snapshot
+    as the training loop's, the snapshot normalized by each node's own
+    type's affine. Returns (iters, state [Np, D], bn_state unchanged)."""
+    s0, w_stk, op = typed_operands(spec, params_state, gb, False)
+    D = s0.shape[-1]
+    T = spec.n_types
+    ident = _ident_aff(D, s0)[:, None].expand(2, T, D)
+    if spec.state_specs[0].batch_normalization:
+        aff1 = torch.stack([bn_inference_affine(p["bn"]["gamma"], p["bn"]["beta"], b["mean"],
+                                                b["var"])
+                            for p, b in zip(params_state, bn_state)], dim=1)      # [2, T, D]
+    else:
+        aff1 = ident
+    y1, y2, a1, a2 = s0, torch.ones_like(s0), ident, ident
+    ys, margs = [], []
+    for k in range(op.K):
+        rT = None if op.res is None else _res_term(y1, a1, op.res, op)
+        y, _, marg, _ = op.forward_step(k, y1, y2, torch.stack([a1, a2]), rT, (w_stk,))
+        y2, a2 = y1, a1
+        y1, a1 = y, aff1
+        ys.append(y)
+        margs.append(marg)
+    loop_any = (torch.stack(margs) > 0.5).flatten(1).any(dim=1)
+    iters = torch.sum(torch.cumprod(loop_any.float(), dim=0))
+    idx = torch.clamp_min(iters.long() - 1, 0).reshape(1)
+    y_sel = torch.stack(ys).index_select(0, idx)[0]
+    state3 = torch.where(iters >= 1.0, y_sel * op.sel(aff1[0]) + op.sel(aff1[1]), s0)
+    return iters, state3.index_select(0, gb.block_perm).reshape(gb.nodes.shape), bn_state

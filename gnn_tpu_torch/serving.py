@@ -22,7 +22,7 @@ import torch
 from gnn_tpu_torch.config import pad_size, resolve_device
 from gnn_tpu_torch.graphs.batch import GraphBatch, from_graphs_blocked, packed_block_count
 from gnn_tpu_torch.graphs.graph import Graph
-from gnn_tpu_torch.models.core import gnn_forward
+from gnn_tpu_torch.models.composite import CompositeGNNSpec, check_node_types
 
 _TOKEN_COUNTER = itertools.count()
 
@@ -54,8 +54,9 @@ class PendingPrediction:
 class Predictor:
     """Serve a model: ``Predictor(model).predict(graphs)``.
 
-    :param model: a GNNnodeBased / GNNedgeBased / GNNgraphBased; its weights
-        are copied at construction.
+    :param model: a GNNnodeBased / GNNedgeBased / GNNgraphBased or one of
+        their composite twins (Composite*Based); its weights are copied at
+        construction.
     :param block_w: block width of the packed batches.
     :param bucket_multiple: block-count bucket granularity.
     :param cache_batches: size of the packed-batch LRU (0 disables it).
@@ -66,6 +67,7 @@ class Predictor:
                  cache_batches: int = 256, device=None):
         self.device = resolve_device(device)
         self._spec = model.spec
+        self._forward = model._forward
         self._params = _copy_to(model.params, self.device)
         self._bn = _copy_to(model.bn, self.device)
         self._focus = model.spec.focus
@@ -99,6 +101,8 @@ class Predictor:
             if g.focus != self._focus:
                 raise ValueError(f"graph focus {g.focus!r} does not match "
                                  f"model focus {self._focus!r}")
+        if isinstance(self._spec, CompositeGNNSpec):
+            check_node_types(glist, self._spec.n_types)
 
     def _buckets(self, glist):
         ep = pad_size(sum(g.n_arcs for g in glist), multiple=256, pow2_from=256)
@@ -136,7 +140,7 @@ class Predictor:
 
     def _run(self, gb: GraphBatch):
         with torch.no_grad():
-            res = gnn_forward(self._spec, self._params, self._bn, gb)
+            res = self._forward(self._spec, self._params, self._bn, gb)
         return res["out"], res["iters"]
 
     def warmup(self, requests: Sequence[Union[Graph, Sequence[Graph]]]) -> int:
@@ -195,6 +199,10 @@ class Predictor:
 
 
 def _copy_to(tree, device):
-    return {k: (_copy_to(v, device) if isinstance(v, dict) else v.detach().to(device).clone())
-            for k, v in tree.items()}
+    """A copy on `device` of a tree of dicts and per-type tuples of tensors."""
+    if isinstance(tree, dict):
+        return {k: _copy_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return tuple(_copy_to(v, device) for v in tree)
+    return tree.detach().to(device).clone()
 

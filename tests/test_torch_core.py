@@ -199,10 +199,14 @@ def test_bn_free_specs_train(route):
 
 
 def test_unported_paths_raise():
+    """state_dim > 0 raises; two-layer state nets serve and train; the
+    aggregation names 'pallas' and 'blocked' run the plain body on a batch
+    with blocks, where gnn_tpu runs its XLA body (it launches K18 only on a
+    batch without blocks)."""
     js, ts = _specs()
-    _, tgs = _graphs(0, n=4, big=False)
+    jgs, tgs = _graphs(0, n=4, big=False)
     tb = tbatch.from_graphs_blocked(tgs, block_w=32, fused_layout=True)
-    _, (tp, tbn) = _weights(js)
+    (jp, jbn), (tp, tbn) = _weights(js)
     with pytest.raises(NotImplementedError, match="state_dim"):
         tcore.propagate(dataclasses.replace(ts, state_dim=4), tp["state"], tbn["state"], tb)
     # two-layer state nets serve (K9/K10) and with BatchNorm train through
@@ -214,8 +218,16 @@ def test_unported_paths_raise():
     masks = tcore.draw_masks(ts2, tb, torch.Generator().manual_seed(0))
     assert torch.isfinite(tcore.gnn_forward(ts2, tp2, tbn2, tb, training=True,
                                             masks=masks)["out"]).all()
-    with pytest.raises(NotImplementedError, match="K18"):
-        tcore.gnn_forward(dataclasses.replace(ts, aggregation="pallas"), tp, tbn, tb)
+    jb = jbatch.from_graphs_blocked(jgs, block_w=32, focus="g", fused_layout=True)
+    for name in ("pallas", "blocked"):
+        spec = dataclasses.replace(ts, aggregation=name)
+        assert tcore._eval_route(spec, tb) == "plain"
+        got = tcore.gnn_forward(spec, tp, tbn, tb)
+        want = jcore.gnn_forward(dataclasses.replace(js, aggregation=name), jp, jbn, jb,
+                                 jax.random.key(0))
+        assert float(got["iters"]) == float(want["iters"])
+        np.testing.assert_allclose(got["state"].numpy(), np.asarray(want["state"]), atol=ATOL)
+        np.testing.assert_allclose(got["out"].numpy(), np.asarray(want["out"]), atol=ATOL)
 
 
 def test_entry_points_default_to_the_card():
