@@ -100,8 +100,27 @@
    (outputs within 1e-5, iterations equal) and one K16/K17 step against K1/K2
    (iterations equal, loss rtol 1e-5, moving statistics 1e-5, grads rtol
    2e-4 with a floor of 2e-5 of each tensor's largest entry).
+14. Segment kernel: runs K18 (segment_aggregate) on the CSR plan of the whole
+   set as one batch without blocks (GraphDataGenerator(build_plan=True)),
+   forward and transpose at D = 14, then at D 1/31/64/150 and on a ragged
+   plan (unsorted arcs, a hub of 6000 in-arcs, an isolated node, weight-0
+   pads), against its plain version (within 1e-5 of each output's largest
+   entry, rows without entries exactly 0, a second launch bit-identical); times
+   it, its plain version, torch.sparse.mm on the same CSR matrix (the library
+   yardstick) and the plain body's index_add_ aggregation by device time
+   (torch.profiler), with CUDA-event times printed beside them.
+15. Serving path 'unblocked': Predictor(blocked=False) serves the flagship on
+   the same requests, merged into batches without blocks and without a plan,
+   as gnn_tpu's: the plain body, no kernel launches; outputs within 1e-5 of
+   the CPU run, equal iteration counts.
+16. The 'pallas' path: the flagship with aggregation='pallas' on the plan
+   batch of the whole set: a forward against the CPU (iterations equal,
+   outputs within 1e-5; K18 5 launches), one 32-graph generator batch
+   likewise, and 3 BatchNorm training steps as in phase 12, K18 launched 9
+   times a step (K forward, K - 1 on the transpose plan: the first iteration
+   aggregates the node labels, which need no gradient).
 
-Prints a JSON line of per-kernel numbers (K1-K17), then as its
+Prints a JSON line of per-kernel numbers (K1-K18), then as its
 last line {"ok": true, "device": {...}}. Any failed check exits non-zero
 before that.
 
@@ -303,6 +322,23 @@ def phase_kernels(torch, model, gb):
     return out
 
 
+def device_ms(torch, fn, runs=50):
+    """Device time per call of fn: the device time of every kernel
+    torch.profiler records over `runs` calls, without the host's time between
+    launches (which CUDA events over back-to-back calls include when a call's
+    host work outlasts its kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / runs / 1e3
+
+
 def phase_profile(torch, fwd, runs=5, what="full-set forward"):
     """Device time by kernel over `runs` calls of fwd (torch.profiler), and
     the device's busy share of the host-clock window."""
@@ -328,9 +364,11 @@ def phase_profile(torch, fwd, runs=5, what="full-set forward"):
 # the training paths: the flagship's state net with its BatchNorm ("bn"),
 # without it ("dropout"), without BatchNorm and dropout ("clean"), the
 # hidden-150 recipe ("h150"), the recipe without dropout ("h150_clean") and
-# with the trailing BatchNorm ("h150_bn"), and the composite flagship
-# ("composite_bn", composite_model); the kernel wrappers each path launches,
-# and how often a step ("K": once per iteration)
+# with the trailing BatchNorm ("h150_bn"), the composite flagship
+# ("composite_bn", composite_model) and the flagship with aggregation='pallas'
+# on a plan batch ("pallas"); the kernel wrappers each path launches, and how
+# often a step ("K": once per iteration; "2K-1": K forward and K - 1 on the
+# transpose plan)
 ROUTES = {"bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
           "dropout": {"train_loop": 1, "train_loop_bwd": 1, "train_step": "K"},
           "clean": {"propagation_loop": 1, "propagation_loop_bwd": 1, "propagation_step": "K"},
@@ -338,7 +376,8 @@ ROUTES = {"bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
           "h150_clean": {"propagation_loop2": 1, "propagation_loop2_bwd": 1,
                          "propagation_step2": "K"},
           "h150_bn": {"bn2_forward_step": "K", "bn2_backward_step": "K"},
-          "composite_bn": {"bnT_forward_step": "K", "bnT_backward_step": "K"}}
+          "composite_bn": {"bnT_forward_step": "K", "bnT_backward_step": "K"},
+          "pallas": {"segment_aggregate": "2K-1"}}
 
 
 def flagship(torch, device, variant="bn"):
@@ -348,7 +387,8 @@ def flagship(torch, device, variant="bn"):
     layers of 150 in both nets, no BatchNorm), "h150_clean" the same with
     dropout 0 (no dropout in either net), "h150_bn" the reference's default
     state net (starter.py: selu, AlphaDropout 0.1 at its input, the trailing
-    BatchNorm) with the recipe's hidden layer, and the recipe's readout."""
+    BatchNorm) with the recipe's hidden layer, and the recipe's readout.
+    "pallas" is the flagship with aggregation='pallas' (K18 on a plan batch)."""
     from gnn_tpu_torch import GNNgraphBased, MLPSpec, get_inout_dims
     if variant == "composite_bn":
         return composite_model(torch, device)
@@ -359,15 +399,16 @@ def flagship(torch, device, variant="bn"):
             if variant not in ("clean", "h150_clean") else {})
     ss = MLPSpec(input_dim=in_s, units=tuple(l_s), activations="selu",
                  kernel_initializer="lecun_normal", bias_initializer="lecun_normal",
-                 batch_normalization=variant in ("bn", "h150_bn"), **drop)
+                 batch_normalization=variant in ("bn", "h150_bn", "pallas"), **drop)
     out_drop = ({} if variant == "h150_clean" else
                 dict(dropout_rate=(0.1,), dropout_pos=(0,), alphadropout=bool(hidden)))
     so = MLPSpec(input_dim=in_o, units=tuple(l_o),
                  activations=("selu", "softmax") if hidden else "softmax",
                  kernel_initializer="glorot_normal", bias_initializer="glorot_normal",
                  batch_normalization=False, **out_drop)
-    model = GNNgraphBased(ss, so, max_iteration=5, threshold=0.01, seed=SEED, device=device)
-    if variant in ("bn", "h150_bn"):
+    model = GNNgraphBased(ss, so, max_iteration=5, threshold=0.01, seed=SEED, device=device,
+                          aggregation="pallas" if variant == "pallas" else "auto")
+    if variant in ("bn", "h150_bn", "pallas"):
         gen = torch.Generator().manual_seed(SEED + 1)    # non-trivial inference BN statistics
         d = l_s[-1]
         model.bn["state"] = {"mean": (0.1 * torch.randn(d, generator=gen)).to(device),
@@ -1448,21 +1489,22 @@ def phase_one_type(torch, gb, gb_train):
 
 
 def phase_serving(torch, label, model, model_cpu, gb, requests, expect, n_arcs,
-                  per_request=None):
-    """A serving path: Predictor warmup + requests on the card, counting kernel
-    launches (the wrappers `expect` must launch, no other; with `per_request`,
-    exactly those counts each request), each response against the same model
-    on the CPU; then the full-set forward's time and profile. Returns the
-    launch counts."""
+                  per_request=None, predictor_kw=None):
+    """A serving path: Predictor(**predictor_kw) warmup + requests on the card,
+    counting kernel launches (the wrappers `expect` must launch, no other;
+    with `per_request`, exactly those counts each request), each response
+    against the same model on the CPU; then the full-set forward's time and
+    profile. Returns the launch counts."""
     from gnn_tpu_torch import Predictor
-    from gnn_tpu_torch.ops import bn, fused, fused2, typed
+    from gnn_tpu_torch.ops import bn, fused, fused2, segment, typed
     say(f"---- serving path '{label}' ({elapsed()})")
-    pred = Predictor(model)
-    pred_cpu = Predictor(model_cpu, device="cpu")
+    pred = Predictor(model, **(predictor_kw or {}))
+    pred_cpu = Predictor(model_cpu, device="cpu", **(predictor_kw or {}))
 
     def counts():
-        return {**fused.launches, **fused2.launches, **bn.launches, **typed.launches}
-    for mod in (bn, fused, fused2, typed):
+        return {**fused.launches, **fused2.launches, **bn.launches, **typed.launches,
+                **segment.launches}
+    for mod in (bn, fused, fused2, typed, segment):
         mod.reset_launches()
     t0 = time.perf_counter()
     warmed = pred.warmup([r for _, r in requests])
@@ -1503,7 +1545,13 @@ def phase_serving(torch, label, model, model_cpu, gb, requests, expect, n_arcs,
                  f"{pred_cpu.stats['last_iters']} on the CPU")
     say(f"'{label}' served outputs vs CPU: max abs diff {worst:.3e} over {len(served)} requests")
 
-    # ---- full-set forward time and propagation throughput
+    forward_time(torch, label, model, gb, n_arcs)
+    return launches
+
+
+def forward_time(torch, label, model, gb, n_arcs):
+    """The full-set forward's host-clock time (median of 10, synchronized),
+    propagation throughput and profile."""
     def fwd():
         r = model.forward(gb)
         torch.cuda.synchronize()
@@ -1519,7 +1567,6 @@ def phase_serving(torch, label, model, model_cpu, gb, requests, expect, n_arcs,
     say(f"'{label}' full-set forward: {t_med * 1e3:.3f} ms median of 10 (host clock, "
         f"synchronized), iters {iters}, {n_arcs * iters / t_med:.4e} edges/s")
     phase_profile(torch, fwd, what=f"'{label}' full-set forward")
-    return launches
 
 
 def close_rel(torch, got, want, rtol, floor, label):
@@ -1609,7 +1656,7 @@ def phase_training(torch, gb, n_arcs, variant, steps):
     step time and profile. Returns the launch counts of the steps."""
     from gnn_tpu_torch.convert import flatten
     from gnn_tpu_torch.models import core
-    from gnn_tpu_torch.ops import bn, fused, fused2, typed
+    from gnn_tpu_torch.ops import bn, fused, fused2, segment, typed
     model = flagship(torch, "cuda", variant)
     cpu = flagship(torch, "cpu", variant)
     gb_cpu = gb.to("cpu")
@@ -1619,7 +1666,7 @@ def phase_training(torch, gb, n_arcs, variant, steps):
     # ---- main path: training steps, counting kernel launches
     masks, log, grads0 = [], [], None
     times = []
-    for mod in (bn, fused, fused2, typed):
+    for mod in (bn, fused, fused2, typed, segment):
         mod.reset_launches()
     for i in range(steps):
         m = model._draw_masks(model.spec, gb, model.mask_gen)
@@ -1632,11 +1679,12 @@ def phase_training(torch, gb, n_arcs, variant, steps):
         log.append((out["iters"], out["loss"], flatten(tree_map(torch.clone, model.bn["state"]))))
         if i == 0:
             grads0 = {key: p.grad.clone() for key, p in flatten(model.params).items()}
-    launches = {**bn.launches, **fused.launches, **fused2.launches, **typed.launches}
+    launches = {**bn.launches, **fused.launches, **fused2.launches, **typed.launches,
+                **segment.launches}
     say(f"training path '{variant}' launches over {steps} steps: {launches}")
     for key, n in launches.items():
         per_step = ROUTES[variant].get(key, 0)
-        want = steps * (K if per_step == "K" else per_step)
+        want = steps * {"K": K, "2K-1": 2 * K - 1}.get(per_step, per_step)
         if n != want:
             fail(f"'{variant}' path: {key} launched {n} times in {steps} steps, expected {want}")
     for p in core.param_leaves(model.params):
@@ -1684,8 +1732,161 @@ def phase_training(torch, gb, n_arcs, variant, steps):
     phase_profile(torch, step, runs=3, what=f"'{variant}' training step")
     return launches
 
+def ragged_plan(torch, gen, N=20000, E=60000, hub=5, isolated=7, hub_arcs=6000, pads=1000):
+    """(src, dst, w, N) of a ragged plan: unsorted random arcs, `hub_arcs`
+    of them into node `hub`, none touching node `isolated`, and `pads`
+    weight-0 arcs into node N - 1."""
+    src = torch.randint(0, N, (E,), generator=gen)
+    dst = torch.randint(0, N, (E,), generator=gen)
+    dst[torch.randperm(E, generator=gen)[:hub_arcs]] = hub
+    src[src == isolated] = isolated + 1
+    dst[dst == isolated] = isolated + 1
+    w = torch.rand(E, generator=gen) + 0.1
+    src = torch.cat([src, torch.zeros(pads, dtype=src.dtype)])
+    dst = torch.cat([dst, torch.full((pads,), N - 1, dtype=dst.dtype)])
+    w = torch.cat([w, torch.zeros(pads)])
+    perm = torch.randperm(len(src), generator=gen)
+    return src[perm].numpy(), dst[perm].numpy(), w[perm].numpy(), N
+
+
+def check_k18(torch, segment, x, plan, label):
+    """K18 against its plain version on the same CUDA tensors: within TOL of
+    the largest output entry, rows without entries exactly 0, a second launch
+    bit-identical. Returns the largest difference."""
+    got = segment.segment_aggregate(x, plan)
+    again = segment.segment_aggregate(x, plan)
+    torch.cuda.synchronize()
+    want = segment.segment_aggregate_ref(x, plan)
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    empty = plan.rowptr[1:] == plan.rowptr[:-1]
+    if not bool(torch.isfinite(got).all()) or not err <= TOL * scale:
+        fail(f"K18 {label}: differs from its plain version by {err:.3e} (largest entry "
+             f"{scale:.3e})")
+    if bool((got[empty] != 0).any()):
+        fail(f"K18 {label}: a row without entries is not exactly 0")
+    if not torch.equal(got, again):
+        fail(f"K18 {label}: a second launch on the same inputs differs")
+    say(f"K18 {label}: rows {plan.num_rows}, entries {plan.col.shape[0]}, D={x.shape[1]}, "
+        f"{int(empty.sum())} empty rows exactly 0, repeat bit-identical, max abs err {err:.3e} "
+        f"(largest entry {scale:.3e})")
+    return err
+
+
+def phase_segment_kernel(torch, gb):
+    """K18 against its plain version on the whole set's plan (forward and
+    transpose, D = 14, then D 1/31/64/150) and on a ragged plan; times at D =
+    14 on the forward plan, beside torch.sparse.mm on the same CSR matrix
+    and the plain body's index_add_ aggregation."""
+    from gnn_tpu_torch.ops import segment
+    from gnn_tpu_torch.ops.aggregate import aggregate_to_nodes
+    say(f"---- segment kernel K18 ({elapsed()})")
+    gen = torch.Generator().manual_seed(SEED)
+    Np = gb.n_node_pad
+    fwd, bwd = gb.agg_plan.fwd, gb.agg_plan.bwd
+    x = torch.randn(Np, 14, generator=gen).cuda()
+    err = max(check_k18(torch, segment, x, fwd, "full set, forward"),
+              check_k18(torch, segment, x, bwd, "full set, transpose"))
+    for D in (1, 31, 64, 150):
+        check_k18(torch, segment, torch.randn(Np, D, generator=gen).cuda(), fwd,
+                  "full set, forward")
+    src, dst, w, N = ragged_plan(torch, gen)
+    plans = segment.build_agg_plan(src, dst, w, N).to("cuda")
+    if int(plans.fwd.rowptr[6] - plans.fwd.rowptr[5]) < 5000:
+        fail("the ragged plan's hub has fewer than 5000 in-arcs")
+    for D in (14, 37):
+        xr = torch.randn(N, D, generator=gen).cuda()
+        check_k18(torch, segment, xr, plans.fwd, "ragged (hub, isolated node, unsorted), forward")
+        check_k18(torch, segment, xr, plans.bwd, "ragged, transpose")
+
+    D = x.shape[1]
+    lib = torch.sparse_csr_tensor(fwd.rowptr.long(), fwd.col.long(), fwd.w, size=(Np, Np))
+    lib_err = float((torch.sparse.mm(lib, x) - segment.segment_aggregate_ref(x, fwd)).abs().max())
+
+    def k18_bound(plan):
+        # the state rows the plan reads (pad rows are never read: their
+        # weight-0 arcs are dropped), every output row written, rowptr, and
+        # col and w of each entry; a multiply and an add per entry and feature
+        nnz = plan.col.shape[0]
+        read = int(torch.unique(plan.col).numel())
+        return bound(4 * (D * read + Np * D + (Np + 1) + 2 * nnz), 2 * nnz * D)
+    b, by = k18_bound(fwd)
+    b_bwd, _ = k18_bound(bwd)
+    calls = {"K18": lambda: segment.segment_aggregate(x, fwd),
+             "K18 transpose": lambda: segment.segment_aggregate(x, bwd),
+             "plain": lambda: segment.segment_aggregate_ref(x, fwd),
+             "torch.sparse.mm": lambda: torch.sparse.mm(lib, x),
+             "index_add_ over all slots":
+                 lambda: aggregate_to_nodes(x[gb.src], gb.edge_w, gb.dst, Np)}
+    # at this size a call's host work outlasts its kernel, so CUDA events
+    # over back-to-back calls time the host: the JSON row takes the
+    # profiler's device time, the events' times are printed beside it
+    dev = {k: device_ms(torch, f) for k, f in calls.items()}
+    ev = {k: timed_ms(torch, f) for k, f in calls.items()}
+    out = dict(name="K18 segment_aggregate", route="cuda",
+               source="gnn_tpu_torch/ops/csrc/segment_agg.cu",
+               replaces="gnn_tpu/ops/pallas_segment.py:164", max_abs_err=err,
+               ms=dev["K18"], plain_ms=dev["plain"], bound_ms=b, bound_by=by,
+               library_ms=dev["torch.sparse.mm"])
+    E = gb.n_real[1]
+    t_real = device_ms(torch, lambda: aggregate_to_nodes(x[gb.src[:E]], gb.edge_w[:E],
+                                                         gb.dst[:E], Np))
+    say(f"K18 at {Np} rows, {fwd.col.shape[0]} entries, D={D}: device time per call "
+        f"(torch.profiler, 50 calls) kernel {dev['K18']:.4f} ms (bound {b:.4f}, {by}), "
+        f"transpose {dev['K18 transpose']:.4f} ms (bound {b_bwd:.4f}), plain "
+        f"{dev['plain']:.4f} ms, torch.sparse.mm {dev['torch.sparse.mm']:.4f} ms (max abs "
+        f"diff {lib_err:.3e} to the plain version)")
+    say(f"plain body's aggregation (index_add_ over {gb.src.shape[0]} arc slots): "
+        f"{dev['index_add_ over all slots']:.4f} ms; over the {E} real arcs only: "
+        f"{t_real:.4f} ms (device time)")
+    say("CUDA events over back-to-back calls (host-bound at this size): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in ev.items()))
+    return {"K18": out}
+
+
+def phase_pallas(torch, graphs, gb_cpu, gb, n_arcs):
+    """The 'pallas' path: the flagship with aggregation='pallas' on the plan
+    batch of the whole set, its forward against the CPU (K18 K launches), a
+    32-graph generator batch likewise, then 3 BatchNorm training steps
+    (phase_training). Returns K18's launches over the forward and the steps."""
+    from gnn_tpu_torch.graphs.generator import GraphDataGenerator
+    from gnn_tpu_torch.ops import segment
+    say(f"---- 'pallas' path ({elapsed()})")
+    model = flagship(torch, "cuda", "pallas")
+    cpu = flagship(torch, "cpu", "pallas")
+    K = model.spec.max_iteration
+    t0 = time.perf_counter()
+    small = next(iter(GraphDataGenerator(graphs, batch_size=32, rng=SEED, build_plan=True)))
+    say(f"32-graph generator batch: {small.n_real} real (nodes, arcs, targets), pads "
+        f"{small.pad_shapes()} ({time.perf_counter() - t0:.2f} s to build)")
+    fwd_launches = 0
+    for label, b_cpu, b in (("whole set", gb_cpu, gb), ("32-graph batch", small, small.to("cuda"))):
+        segment.reset_launches()
+        res = model.forward(b)
+        torch.cuda.synchronize()
+        n = segment.launches["segment_aggregate"]
+        if n != K:
+            fail(f"'pallas' forward ({label}): K18 launched {n} times, expected {K}")
+        if label == "whole set":
+            fwd_launches = n
+        ref = cpu.forward(b_cpu)
+        sel = b_cpu.sel_mask
+        out, want = res["out"].cpu()[sel], ref["out"][sel]
+        err = float((out - want).abs().max())
+        if float(res["iters"]) != float(ref["iters"]) or not err <= TOL \
+                or not bool(torch.isfinite(out).all()):
+            fail(f"'pallas' forward ({label}): iters {float(res['iters'])} on the card, "
+                 f"{float(ref['iters'])} on the CPU; outputs differ by {err:.3e}")
+        say(f"'pallas' forward ({label}): K18 {n} launches, iters {float(res['iters'])} equal, "
+            f"{out.shape[0]} outputs within {err:.3e} of the CPU")
+    forward_time(torch, "pallas", model, gb, n_arcs)
+    counted = phase_training(torch, gb, n_arcs, "pallas", 3)
+    return fwd_launches + counted["segment_aggregate"]
+
 
 def main():
+    import dataclasses
+
     import torch
     phase_device(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1694,6 +1895,7 @@ def main():
 
     from gnn_tpu_torch import Predictor
     from gnn_tpu_torch.graphs.datasets import mutag_shaped
+    from gnn_tpu_torch.graphs.generator import GraphDataGenerator
 
     t0 = time.perf_counter()
     graphs = mutag_shaped(seed=SEED)
@@ -1729,10 +1931,18 @@ def main():
     gb_train_typed = comp.to_batch(typed)
     say(f"composite batches (T={comp.spec.n_types}): serving and training "
         f"({time.perf_counter() - t0:.2f} s to pack and upload)")
+    t0 = time.perf_counter()
+    gb_plan_cpu = next(iter(GraphDataGenerator(graphs, batch_size=len(graphs), shuffle=False,
+                                               build_plan=True)))
+    gb_plan = gb_plan_cpu.to("cuda")
+    say(f"plan batch (no blocks): {gb_plan.n_real} real (nodes, arcs, targets), pads "
+        f"{gb_plan.pad_shapes()}, plan entries {gb_plan.agg_plan.fwd.col.shape[0]} "
+        f"({time.perf_counter() - t0:.2f} s to merge, pad, plan and upload)")
     with torch.no_grad():   # the model's params are trainable leaves
         kernels = phase_kernels(torch, model, gb)
         kernels.update(phase_two_layer_kernels(torch, gb, gb_train))
         kernels.update(phase_typed_kernels(torch, comp, gb_train_typed, gb_typed))
+        kernels.update(phase_segment_kernel(torch, gb_plan))
 
     # ---- serving paths: the flagship through K3/K4, the hidden-150 recipe
     # through K10/K9
@@ -1746,6 +1956,10 @@ def main():
         torch, "composite", composite_model(torch, "cuda"), composite_model(torch, "cpu"), gb_typed,
         [(name, typed[i]) for name, i in picks], ("bnT_forward_step",), n_arcs,
         per_request={"bnT_forward_step": comp.spec.max_iteration})
+    # ---- the flagship on batches without blocks: the plain body, no kernel
+    phase_serving(torch, "unblocked", flagship(torch, "cuda"), flagship(torch, "cpu"),
+                  dataclasses.replace(gb_plan, agg_plan=None), requests, (), n_arcs,
+                  predictor_kw={"blocked": False})
 
     # ---- training: one batch of the whole set for every path
     kernels.update(phase_train_kernels(torch, model, gb_train))
@@ -1757,6 +1971,7 @@ def main():
                                       ("h150_clean", 3), ("h150_bn", 3))}
     counted["composite_bn"] = phase_training(torch, gb_train_typed, n_arcs, "composite_bn", 3)
     phase_one_type(torch, gb, gb_train)
+    k18_launches = phase_pallas(torch, graphs, gb_plan_cpu, gb_plan, n_arcs)
     for k, (path, key) in {"K1": ("bn", "bn_forward_step"), "K2": ("bn", "bn_backward_step"),
                            "K3": ("flagship", "propagation_loop"),
                            "K4": ("flagship", "propagation_step"),
@@ -1773,12 +1988,14 @@ def main():
                            "K16": ("composite_bn", "bnT_forward_step"),
                            "K17": ("composite_bn", "bnT_backward_step")}.items():
         kernels[k]["launches"] = (served if k in ("K3", "K4", "K9", "K10") else counted)[path][key]
+    kernels["K18"]["launches"] = k18_launches
     say(f"clean training path: K3 {counted['clean']['propagation_loop']} and K4 "
         f"{counted['clean']['propagation_step']} launches; h150_clean training path: K10 "
         f"{counted['h150_clean']['propagation_loop2']} and K9 "
         f"{counted['h150_clean']['propagation_step2']} (the JSON line counts the serving paths'); "
         f"composite serving path: K16 {served['composite']['bnT_forward_step']} (the JSON line "
-        f"counts the composite_bn training path's)")
+        f"counts the composite_bn training path's); 'pallas' path: K18 {k18_launches} (the "
+        f"whole-set forward and 3 training steps)")
     say(f"all phases passed ({elapsed()})")
     kernels = {k: kernels[k] for k in sorted(kernels, key=lambda k: int(k[1:]))}
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -17,6 +17,11 @@ Block adjacencies are stored transposed, adjT[b, src, dst] = w, in float32:
 a kernel thread per destination node then reads a row of adjT at
 consecutive addresses. The field values (ids, masks, loop-block padding,
 block permutation, residual ids) equal gnn_tpu's batch exactly.
+
+`GraphBatch.from_graph` builds a batch without blocks from one (merged)
+Graph, padded to config.pad_size buckets, as gnn_tpu's does: the plain body
+aggregates it over the arc arrays, and with `build_plan=True` through the
+segment kernel K18 on a CSR plan (ops/segment.py).
 """
 
 from __future__ import annotations
@@ -28,6 +33,8 @@ import numpy as np
 import torch
 
 from gnn_tpu_torch.config import floatx, pad_size
+from gnn_tpu_torch.graphs.graph import Graph
+from gnn_tpu_torch.ops.segment import AggPlanPair, build_agg_plan
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,7 +60,7 @@ class GraphBatch:
     sel_mask: torch.Tensor       # [Tp] bool
     # --- loop-invariant arc-label aggregation, sum_e w_e * label_e per dst ---
     agg_arcs_cache: torch.Tensor  # [Np, AL]
-    res_w: torch.Tensor          # [Er] residual arc weights (0 on pad)
+    res_w: Optional[torch.Tensor] = None   # [Er] residual arc weights (0 on pad); blocked only
     # --- fused layout (None unless fused_layout=True and a loop block exists) ---
     adj_loop: Optional[torch.Tensor] = None     # [Bi, W, W] adjT of loop blocks
     loop_ids: Optional[torch.Tensor] = None     # [Bi] global block ids (pad -> 0)
@@ -66,29 +73,212 @@ class GraphBatch:
     block_perm: Optional[torch.Tensor] = None   # [B]
     # --- composite models: node type per node (0 on pad), None without types ---
     node_types: Optional[torch.Tensor] = None   # [Np] int64
+    # --- segment-kernel plan (from_graph(build_plan=True) only) ---
+    agg_plan: Optional[AggPlanPair] = None
     # --- static ---
     focus: str = "n"
-    block_w: int = 128
+    block_w: int = 128                         # 0: from_graph, no blocks
     n_real: Tuple[int, int, int] = (0, 0, 0)   # (nodes, arcs, targets)
+    edges_sorted: bool = True                  # arcs stored sorted by destination
 
     @property
     def n_node_pad(self) -> int:
         return self.nodes.shape[0]
 
     @property
+    def n_edge_pad(self) -> int:
+        return self.src.shape[0]
+
+    @property
     def n_target_pad(self) -> int:
         return self.targets.shape[0]
+
+    @property
+    def has_blocks(self) -> bool:
+        """Built by from_graphs_blocked (gnn_tpu's adj_blocks is not None)."""
+        return self.block_w > 0
 
     @property
     def device(self) -> torch.device:
         return self.nodes.device
 
+    def pad_shapes(self) -> Tuple[int, int, int]:
+        return (self.n_node_pad, self.n_edge_pad, self.n_target_pad)
+
     def to(self, device) -> "GraphBatch":
-        """Copy of this batch with every tensor on `device`."""
+        """Copy of this batch with every tensor, the plan's too, on `device`."""
         moved = {f.name: getattr(self, f.name).to(device)
                  for f in dataclasses.fields(self)
-                 if isinstance(getattr(self, f.name), torch.Tensor)}
+                 if isinstance(getattr(self, f.name), (torch.Tensor, AggPlanPair))}
         return dataclasses.replace(self, **moved)
+
+    # ------------------------------------------------------------ from_graph
+    @classmethod
+    def from_graph(cls, g: Graph, *, node_pad: Optional[int] = None,
+                   edge_pad: Optional[int] = None, target_pad: Optional[int] = None,
+                   sort_edges: bool = True, build_plan: bool = False) -> "GraphBatch":
+        """A host batch without blocks from one Graph (gnn_tpu's from_graph):
+        pads are config.pad_size buckets unless given. With `sort_edges` the
+        arcs are stably sorted by destination, every arc-ordered field
+        permuted with them, and pad arcs point at node N - 1 (weight 0);
+        without, pad arcs point at node 0. `build_plan` adds K18's CSR plan
+        (ops/segment.py), which `aggregation='pallas'` runs on.
+
+        Left out of gnn_tpu's batch: agg_nodes_cache (A^T @ nodes, read only
+        with state_dim > 0, which the port does not run) and
+        pool_starts/pool_ends (the port pools with ops/aggregate.pool_graphs)."""
+        dt = floatx()
+        N, E, T = g.n_nodes, g.n_arcs, g.targets.shape[0]
+        Np = node_pad or pad_size(N)
+        Ep = edge_pad or pad_size(E)
+        Tp = target_pad or pad_size(T)
+        if Np < N or Ep < E or Tp < T:
+            raise ValueError(f"pad sizes ({Np},{Ep},{Tp}) below real sizes ({N},{E},{T})")
+
+        # perm maps a stored position to the original arc, inv the reverse
+        perm = np.argsort(g.dst, kind="stable") if sort_edges else np.arange(E)
+        inv = np.empty(E, dtype=np.int64)
+        inv[perm] = np.arange(E)
+        src = _pad(g.src[perm].astype(np.int64), Ep)
+        dst = _pad(g.dst[perm].astype(np.int64), Ep, fill=(N - 1) if sort_edges else 0)
+        arc_labels = _pad(g.arc_labels[perm].astype(dt), Ep)
+        edge_w = _pad(g.edge_weights()[perm].astype(dt), Ep)
+
+        if g.focus == "a":
+            set_mask = _pad(g.set_mask[perm], Ep, False)
+            output_mask = _pad(g.output_mask[perm], Ep, False)
+        else:
+            set_mask = _pad(g.set_mask, Np, False)
+            output_mask = _pad(g.output_mask, Np, False)
+
+        if g.focus == "g":
+            # target row t <-> pooled graph t
+            out_index = np.arange(Tp, dtype=np.int64)
+            sel = _pad(np.ones(T, dtype=bool), Tp, False)
+        else:
+            # target rows follow the output-masked entities in order
+            ent_idx = np.nonzero(g.output_mask)[0]
+            if len(ent_idx) != T:
+                raise ValueError(
+                    f"targets rows ({T}) != output-masked entities ({len(ent_idx)})")
+            sel = _pad(g.set_mask[ent_idx], Tp, False)
+            if g.focus == "a":
+                ent_idx = inv[ent_idx]
+            out_index = _pad(ent_idx.astype(np.int64), Tp)
+
+        return cls(
+            nodes=_t(_pad(g.nodes.astype(dt), Np)),
+            node_mask=_t(_pad(np.ones(N, bool), Np, False)),
+            graph_ids=_ix(_pad(g.graph_ids(), Np)),
+            pool_w=_t(_pad(g.pool_weights().astype(dt), Np)),
+            src=_t(src), dst=_t(dst), arc_labels=_t(arc_labels), edge_w=_t(edge_w),
+            edge_mask=_t(_pad(np.ones(E, bool), Ep, False)),
+            set_mask=_t(set_mask), output_mask=_t(output_mask),
+            targets=_t(_pad(g.targets.astype(dt), Tp)),
+            sample_weights=_t(_pad(g.sample_weights.astype(dt), Tp)),
+            out_index=_t(out_index), sel_mask=_t(sel),
+            agg_arcs_cache=_t(_host_agg(arc_labels, edge_w, dst, Np)),
+            node_types=(None if g.node_types is None else _ix(_pad(g.node_types, Np))),
+            agg_plan=build_agg_plan(src, dst, edge_w, Np) if build_plan else None,
+            focus=g.focus, block_w=0, n_real=(N, E, T), edges_sorted=bool(sort_edges))
+
+    # ------------------------------------------------------------- utilities
+    def with_set_mask(self, set_mask) -> "GraphBatch":
+        """The batch with another set mask (gnn_tpu's with_set_mask, LKO
+        single-graph folds): sel_mask is recomputed for the new split."""
+        sm = np.zeros(self.set_mask.shape[0], dtype=bool)
+        sm[: len(set_mask)] = np.asarray(set_mask, dtype=bool)
+        if self.focus == "g":
+            sel = self.sel_mask
+        else:
+            oi = self.out_index.cpu().numpy()
+            sel = _t(sm[oi] & (np.arange(len(oi)) < self.n_real[2])).to(self.device)
+        return dataclasses.replace(self, set_mask=_t(sm).to(self.device), sel_mask=sel)
+
+    def to_graph(self, aggregation_mode: Optional[str] = None) -> Graph:
+        """The host Graph of this batch (gnn_tpu's to_graph): padding
+        stripped, arcs in the stored order; a blocked batch's node ids are
+        compressed over its node mask. The aggregation mode is read from the
+        weights unless given."""
+        N, E, T = self.n_real
+
+        def h(x):
+            return x.detach().cpu().numpy()
+        src, dst = h(self.src)[:E], h(self.dst)[:E]
+        if self.has_blocks:
+            nm = h(self.node_mask)
+            new_id = np.cumsum(nm) - 1          # padded id -> compact id
+            src, dst = new_id[src], new_id[dst]
+            node_rows = np.nonzero(nm)[0]
+        else:
+            node_rows = np.arange(N)
+        arcs = np.concatenate([src.astype(np.float64)[:, None], dst.astype(np.float64)[:, None],
+                               h(self.arc_labels)[:E]], axis=1)
+        nodes = h(self.nodes)[node_rows]
+        targets, sample_weights = h(self.targets)[:T], h(self.sample_weights)[:T]
+        rows = slice(None, E) if self.focus == "a" else node_rows
+        set_mask, output_mask = h(self.set_mask)[rows], h(self.output_mask)[rows]
+        if self.focus == "a" and T:
+            # targets are in original arc order, the arcs in stored order
+            order = np.argsort(h(self.out_index)[:T], kind="stable")
+            targets, sample_weights = targets[order], sample_weights[order]
+        if aggregation_mode is None:
+            w = h(self.edge_w)[:E].astype(np.float64)
+            if E == 0 or np.allclose(w, 1.0):
+                aggregation_mode = "sum"
+            elif np.allclose(w, 1.0 / E):
+                aggregation_mode = "normalized"
+            else:
+                aggregation_mode = "average"
+        node_graph = None
+        if self.focus == "g":
+            gid = h(self.graph_ids)[node_rows].astype(np.int64)
+            node_graph = np.zeros((N, T), dtype=nodes.dtype)
+            node_graph[np.arange(N), gid] = h(self.pool_w)[node_rows]
+        return Graph(arcs=arcs, nodes=nodes, targets=targets, focus=self.focus,
+                     set_mask=set_mask, output_mask=output_mask, sample_weights=sample_weights,
+                     node_graph=node_graph, aggregation_mode=aggregation_mode,
+                     node_types=(None if self.node_types is None
+                                 else h(self.node_types)[node_rows]))
+
+    def repad(self, node_pad: int, edge_pad: int, target_pad: int) -> "GraphBatch":
+        """The batch grown to the given pads (shrinking raises), to put a
+        list of batches on one shape; the plan is rebuilt for the new node
+        count. Blocked batches are built at their final shape."""
+        if self.has_blocks:
+            raise ValueError("blocked batches are built at their final shape — "
+                             "pass target/edge pads to from_graphs_blocked")
+        Np0, Ep0, Tp0 = self.pad_shapes()
+        if node_pad < Np0 or edge_pad < Ep0 or target_pad < Tp0:
+            raise ValueError("repad cannot shrink padded shapes")
+        if (node_pad, edge_pad, target_pad) == (Np0, Ep0, Tp0):
+            return self
+
+        def grow(x, size, fill=0):
+            return None if x is None else _t(_pad(x.cpu().numpy(), size, fill)).to(x.device)
+
+        dst_fill = (self.n_real[0] - 1) if self.edges_sorted else 0
+        ent_pad = edge_pad if self.focus == "a" else node_pad
+        new = dataclasses.replace(
+            self,
+            nodes=grow(self.nodes, node_pad), node_mask=grow(self.node_mask, node_pad, False),
+            graph_ids=grow(self.graph_ids, node_pad), pool_w=grow(self.pool_w, node_pad),
+            src=grow(self.src, edge_pad), dst=grow(self.dst, edge_pad, dst_fill),
+            arc_labels=grow(self.arc_labels, edge_pad), edge_w=grow(self.edge_w, edge_pad),
+            edge_mask=grow(self.edge_mask, edge_pad, False),
+            set_mask=grow(self.set_mask, ent_pad, False),
+            output_mask=grow(self.output_mask, ent_pad, False),
+            targets=grow(self.targets, target_pad),
+            sample_weights=grow(self.sample_weights, target_pad),
+            out_index=grow(self.out_index, target_pad),
+            sel_mask=grow(self.sel_mask, target_pad, False),
+            agg_arcs_cache=grow(self.agg_arcs_cache, node_pad),
+            node_types=grow(self.node_types, node_pad))
+        if self.agg_plan is not None:
+            plan = build_agg_plan(new.src.cpu().numpy(), new.dst.cpu().numpy(),
+                                  new.edge_w.cpu().numpy(), node_pad)
+            new = dataclasses.replace(new, agg_plan=plan.to(self.device))
+        return new
 
 
 def _pack_offsets(sizes, W: int):
@@ -115,6 +305,14 @@ def packed_block_count(glist, block_w: int = 128) -> int:
     min_blocks), from the packing arithmetic alone."""
     _, Np = _pack_offsets([g.n_nodes for g in glist], int(block_w))
     return Np // int(block_w)
+
+
+def _pad(x, size, fill=0):
+    """x padded along its first axis to `size` rows of `fill`."""
+    x = np.asarray(x)
+    out = np.full((size,) + x.shape[1:], fill, dtype=x.dtype)
+    out[: x.shape[0]] = x
+    return out
 
 
 def _host_agg(values, weights, dst, num_nodes):
@@ -231,15 +429,10 @@ def from_graphs_blocked(glist, *, block_w: int = 128, focus: Optional[str] = Non
     order = np.argsort(dst, kind="stable")
     Ep = edge_pad or pad_size(E)
 
-    def padf(x, size, fill=0):
-        out = np.full((size,) + x.shape[1:], fill, dtype=x.dtype)
-        out[: x.shape[0]] = x
-        return out
-
-    src_p = padf(src[order], Ep)
-    dst_p = padf(dst[order], Ep, fill=Np - 1)
-    labs_p = padf(labs[order], Ep)
-    w_p = padf(w[order], Ep)
+    src_p = _pad(src[order], Ep)
+    dst_p = _pad(dst[order], Ep, fill=Np - 1)
+    labs_p = _pad(labs[order], Ep)
+    w_p = _pad(w[order], Ep)
 
     targets = np.concatenate([g.targets for g in glist]).astype(dt)
     sample_weights = np.concatenate([g.sample_weights for g in glist]).astype(dt)
@@ -250,15 +443,15 @@ def from_graphs_blocked(glist, *, block_w: int = 128, focus: Optional[str] = Non
         # output-masked arcs in the original concatenated arc order
         set_all = np.concatenate([g.set_mask for g in glist])
         out_all = np.concatenate([g.output_mask for g in glist])
-        set_mask = padf(set_all[order], Ep, False)
-        output_mask = padf(out_all[order], Ep, False)
+        set_mask = _pad(set_all[order], Ep, False)
+        output_mask = _pad(out_all[order], Ep, False)
         inv = np.empty(E, np.int64)
         inv[order] = np.arange(E)
         orig_idx = np.nonzero(out_all)[0]
         if len(orig_idx) != T:
             raise ValueError(f"targets rows ({T}) != output-masked entities ({len(orig_idx)})")
-        out_index = padf(inv[orig_idx], Tp)
-        sel = padf(set_all[orig_idx], Tp, False)
+        out_index = _pad(inv[orig_idx], Tp)
+        sel = _pad(set_all[orig_idx], Tp, False)
     else:
         set_mask = np.zeros(Np, bool)
         output_mask = np.zeros(Np, bool)
@@ -267,20 +460,20 @@ def from_graphs_blocked(glist, *, block_w: int = 128, focus: Optional[str] = Non
             output_mask[off:off + g.n_nodes] = g.output_mask
         if focus == "g":
             out_index = np.arange(Tp, dtype=np.int64)
-            sel = padf(np.ones(T, bool), Tp, False)
+            sel = _pad(np.ones(T, bool), Tp, False)
         else:
             ent_idx = np.nonzero(output_mask)[0]
             if len(ent_idx) != T:
                 raise ValueError(f"targets rows ({T}) != output-masked entities ({len(ent_idx)})")
-            out_index = padf(ent_idx, Tp)
-            sel = padf(set_mask[ent_idx], Tp, False)
+            out_index = _pad(ent_idx, Tp)
+            sel = _pad(set_mask[ent_idx], Tp, False)
 
     return GraphBatch(
         nodes=_t(nodes), node_mask=_t(node_mask), graph_ids=_t(graph_ids),
         pool_w=_t(pool_w), src=_ix(src_p), dst=_ix(dst_p), arc_labels=_t(labs_p),
-        edge_w=_t(w_p), edge_mask=_t(padf(np.ones(E, bool), Ep, False)),
+        edge_w=_t(w_p), edge_mask=_t(_pad(np.ones(E, bool), Ep, False)),
         set_mask=_t(set_mask), output_mask=_t(output_mask),
-        targets=_t(padf(targets, Tp)), sample_weights=_t(padf(sample_weights, Tp)),
+        targets=_t(_pad(targets, Tp)), sample_weights=_t(_pad(sample_weights, Tp)),
         out_index=_ix(out_index), sel_mask=_t(sel),
         agg_arcs_cache=_t(_host_agg(labs_p, w_p, dst_p, Np)), res_w=_t(res_w),
         node_types=None if node_types is None else _t(node_types),

@@ -21,7 +21,9 @@ nets' output as wide as the node labels,
 * eval with one-layer per-type nets runs K16 once an iteration
   (ops/typed.py::typed_eval_propagate);
 * everything else runs the plain body, as it runs gnn_tpu's XLA body
-  (BatchNorm-free composite training included).
+  (BatchNorm-free composite training included); its state aggregation is
+  the homogeneous one (core.state_aggregation), so a 'pallas' spec on a
+  batch with a plan aggregates through K18.
 
 state_dim > 0 raises NotImplementedError, as the homogeneous port does, and
 so does training a spec with grad_mode='ift'. Dropout keep-masks are drawn

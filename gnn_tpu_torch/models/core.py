@@ -27,9 +27,13 @@ Dispatch follows gnn_tpu's `aggregation='auto'`:
   the trailing BatchNorm and dropout only at the input the BN kernels K1/K2,
   or K14/K15 for two layers (ops/bn.py);
 * what gnn_tpu sends to its XLA body (no loop layout, activations the
-  kernels do not take, dropout inside the net, and the aggregation names
-  'segment', 'onehot', 'pallas' and 'blocked' on a batch with blocks, which
-  every batch of the port is) runs the plain body here;
+  kernels do not take, dropout inside the net, the aggregation names
+  'segment', 'onehot', 'pallas' and 'blocked' on a batch with blocks, and
+  every batch without blocks, GraphBatch.from_graph) runs the plain body
+  here; in it, a 'pallas' spec on a batch with a plan aggregates the state
+  through the segment kernel K18 (ops/segment.py::block_aggregate, backward
+  K18 on the transpose plan), as gnn_tpu's make_agg_closures does, and
+  everything else through `index_add_` over the arcs;
 * state_dim > 0 raises NotImplementedError, and so does training a spec
   with grad_mode='ift' (gnn_tpu's implicit adjoint, models/ift.py).
 
@@ -58,6 +62,7 @@ from gnn_tpu_torch.ops.fused2 import (dense2, fused_propagation_loop2, fused_pro
                                       fused_train_loop2, supports_fused2, supports_fused2_train)
 from gnn_tpu_torch.ops.mlp import (MLPSpec, dropout_widths, mlp_apply, mlp_init,
                                    mlp_regularization)
+from gnn_tpu_torch.ops.segment import block_aggregate
 from gnn_tpu_torch.training.losses import get_loss
 
 AGGREGATIONS = ("auto", "segment", "onehot", "fused", "pallas", "blocked")
@@ -155,11 +160,12 @@ def _moving_mask(state, state_old, thr: float):
 
 
 def _check_aggregation(spec: GNNSpec) -> bool:
-    """Whether the spec's aggregation dispatches to kernels ('auto', 'fused');
-    raises for specs 'fused' cannot take. Every batch of the port has blocks,
-    where gnn_tpu runs 'pallas' and 'blocked' on its XLA body
-    (gnn_tpu/models/core.py:229-259): the segment kernel K18 runs only on a
-    batch without blocks (GraphBatch.from_graph), which is not ported."""
+    """Whether the spec's aggregation dispatches to the propagation kernels
+    ('auto', 'fused'); raises for specs 'fused' cannot take. 'pallas' and
+    'blocked' run the plain body, as gnn_tpu's XLA body
+    (gnn_tpu/models/core.py:203-262): 'pallas' aggregates through K18 on a
+    batch with a plan (GraphBatch.from_graph(build_plan=True)), which has no
+    blocks, and through `index_add_` on any other batch."""
     ss = spec.state_spec
     if spec.aggregation == "fused" and (
             ss.num_layers not in (1, 2)
@@ -171,10 +177,14 @@ def _check_aggregation(spec: GNNSpec) -> bool:
 
 def _needs_loop_layout(spec: GNNSpec, gb: GraphBatch, kernels: str) -> bool:
     """False when 'auto' keeps a batch without the loop/dep layout on the
-    plain body; raises when 'fused' asks the kernels for one."""
+    plain body; raises when 'fused' asks the kernels for one: ValueError on
+    a batch without blocks, as gnn_tpu (core.py:426-429)."""
     if gb.adj_loop is not None:
         return True
     if spec.aggregation == "fused":
+        if not gb.has_blocks:
+            raise ValueError("aggregation='fused' needs a block-dense batch "
+                             "(graphs/batch.from_graphs_blocked)")
         raise NotImplementedError(
             f"aggregation='fused' on a batch without the loop/dep layout runs {kernels} "
             "over every block, which is not ported; build the batch with "
@@ -289,12 +299,22 @@ def _propagate_plain(spec, params_state, bn_state, gb, training=False, keep=None
     return plain_loop(spec, gb, step, bn_state)
 
 
+def state_aggregation(spec, gb: GraphBatch):
+    """The plain body's state aggregation A^T_w @ state (gnn_tpu's
+    make_agg_closures agg_state): K18 for a 'pallas' spec on a batch with a
+    plan, else `index_add_` over the arcs."""
+    if spec.aggregation == "pallas" and gb.agg_plan is not None:
+        return lambda s: block_aggregate(s, gb.agg_plan)
+    return lambda s: aggregate_to_nodes(s[gb.src], gb.edge_w, gb.dst, gb.n_node_pad)
+
+
 def plain_loop(spec, gb: GraphBatch, step, bn_state):
     """The plain body's masked fixed-K loop: the movement test before each
-    update (padded nodes never block convergence), the aggregation and the
-    state net(s) `step(it, [state | agg | arc aggregation], bn)` ->
-    (new state, new BatchNorm statistics). Returns (iters, state, bn)."""
-    Np = gb.n_node_pad
+    update (padded nodes never block convergence), the aggregation
+    (state_aggregation) and the state net(s) `step(it, [state | agg | arc
+    aggregation], bn)` -> (new state, new BatchNorm statistics). Returns
+    (iters, state, bn)."""
+    agg_state = state_aggregation(spec, gb)
     nm = gb.node_mask
     thr = float(spec.threshold)
     state = gb.nodes
@@ -304,8 +324,7 @@ def plain_loop(spec, gb: GraphBatch, step, bn_state):
     bn = bn_state
     for it in range(spec.max_iteration):
         active = active & (_moving_mask(state, state_old, thr) & nm).any()
-        agg = aggregate_to_nodes(state[gb.src], gb.edge_w, gb.dst, Np)
-        new, new_bn = step(it, torch.cat([state, agg, gb.agg_arcs_cache], dim=1), bn)
+        new, new_bn = step(it, torch.cat([state, agg_state(state), gb.agg_arcs_cache], dim=1), bn)
         state, state_old = (torch.where(active, new, state),
                             torch.where(active, state, state_old))
         bn = _tree_where(active, new_bn, bn)

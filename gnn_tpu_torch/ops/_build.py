@@ -139,6 +139,8 @@ def library() -> ctypes.CDLL:
             lib.gnn_bnT_forward.restype = i
             lib.gnn_bnT_backward.argtypes = [p] * 18 + [i] * 6 + [u64, i, f, f, p]
             lib.gnn_bnT_backward.restype = i
+            lib.gnn_segment_aggregate.argtypes = [p] * 5 + [i, i, p]
+            lib.gnn_segment_aggregate.restype = i
             lib.gnn_cuda_error_string.argtypes = [i]
             lib.gnn_cuda_error_string.restype = ctypes.c_char_p
             _lib = lib

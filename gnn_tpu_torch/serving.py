@@ -2,7 +2,10 @@
 (counterpart of gnn_tpu/serving.py, `Predictor` only).
 
 Requests of any size are packed onto a few block-count / arc / target
-buckets (the same log-spaced buckets as gnn_tpu). PyTorch runs eagerly, so a
+buckets (the same log-spaced buckets as gnn_tpu); with `blocked=False` a
+request is merged into one Graph and padded to config.pad_size buckets
+without blocks (GraphBatch.from_graph, no plan, as gnn_tpu), which the plain
+body aggregates with `index_add_`. PyTorch runs eagerly, so a
 bucket needs no compile; `warmup` runs one forward per bucket so the kernel
 build and CUDA start-up happen before traffic. Weights are copied to the
 device once, at construction; per request only the packed batch goes up and
@@ -57,13 +60,18 @@ class Predictor:
     :param model: a GNNnodeBased / GNNedgeBased / GNNgraphBased or one of
         their composite twins (Composite*Based); its weights are copied at
         construction.
+    :param blocked: pack block-dense batches (the kernels' path); False
+        builds batches without blocks on config.pad_size buckets.
     :param block_w: block width of the packed batches.
+    :param fused_layout: give blocked batches the loop/dep layout, so
+        aggregation='auto' specs run the propagation kernels.
     :param bucket_multiple: block-count bucket granularity.
     :param cache_batches: size of the packed-batch LRU (0 disables it).
     :param device: None means the card ('cuda'); pass 'cpu' for the CPU.
     """
 
-    def __init__(self, model, *, block_w: int = 128, bucket_multiple: int = 8,
+    def __init__(self, model, *, blocked: bool = True, block_w: int = 128,
+                 fused_layout: bool = True, bucket_multiple: int = 8,
                  cache_batches: int = 256, device=None):
         self.device = resolve_device(device)
         self._spec = model.spec
@@ -71,7 +79,9 @@ class Predictor:
         self._params = _copy_to(model.params, self.device)
         self._bn = _copy_to(model.bn, self.device)
         self._focus = model.spec.focus
+        self._blocked = bool(blocked)
         self._block_w = int(block_w)
+        self._fused = bool(fused_layout)
         self._bucket_multiple = int(bucket_multiple)
         self._warm: set = set()
         # packed-batch LRU keyed by per-Graph identity tokens: a served Graph
@@ -114,10 +124,14 @@ class Predictor:
     def build_batch(self, glist: Sequence[Graph]) -> GraphBatch:
         """Pack a request onto its shape bucket (host tensors)."""
         self._check(glist)
+        if not self._blocked:
+            g = glist[0] if len(glist) == 1 else Graph.merge(
+                list(glist), focus=self._focus, aggregation_mode=glist[0].aggregation_mode)
+            return GraphBatch.from_graph(g)
         bb, ep, tp = self._buckets(glist)
         return from_graphs_blocked(list(glist), block_w=self._block_w, focus=self._focus,
                                    edge_pad=ep, target_pad=tp, min_blocks=bb,
-                                   fused_layout=True)
+                                   fused_layout=self._fused)
 
     def _cached_batch(self, glist: Sequence[Graph]):
         """(device batch, host sel mask, bucket) of a request, LRU-cached by
@@ -130,7 +144,9 @@ class Predictor:
             return hit
         t0 = time.perf_counter()
         host = self.build_batch(glist)
-        entry = (host.to(self.device), host.sel_mask.numpy(), self._buckets(glist))
+        # a batch without blocks is shaped by from_graph's own pads
+        bucket = self._buckets(glist) if self._blocked else host.pad_shapes()
+        entry = (host.to(self.device), host.sel_mask.numpy(), bucket)
         self.stats["last_pack_ms"] = (time.perf_counter() - t0) * 1e3
         if self._cache_cap > 0:
             self._batch_cache[key] = entry

@@ -27,6 +27,7 @@ from gnn_tpu_torch.graphs import batch as tbatch
 from gnn_tpu_torch.graphs import datasets as tdata
 from gnn_tpu_torch.models import core as tcore
 from gnn_tpu_torch.ops import fused as tfused
+from gnn_tpu_torch.ops import segment as tseg
 from gnn_tpu_torch.ops.mlp import MLPSpec as TSpec
 
 torch.set_num_threads(1)
@@ -201,8 +202,9 @@ def test_bn_free_specs_train(route):
 def test_unported_paths_raise():
     """state_dim > 0 raises; two-layer state nets serve and train; the
     aggregation names 'pallas' and 'blocked' run the plain body on a batch
-    with blocks, where gnn_tpu runs its XLA body (it launches K18 only on a
-    batch without blocks)."""
+    with blocks, where gnn_tpu runs its XLA body; on a batch without blocks
+    built with a plan, 'pallas' runs the plain body with K18's plain version
+    (ops/segment.py) and equals gnn_tpu's, which launches its K18."""
     js, ts = _specs()
     jgs, tgs = _graphs(0, n=4, big=False)
     tb = tbatch.from_graphs_blocked(tgs, block_w=32, fused_layout=True)
@@ -228,6 +230,19 @@ def test_unported_paths_raise():
         assert float(got["iters"]) == float(want["iters"])
         np.testing.assert_allclose(got["state"].numpy(), np.asarray(want["state"]), atol=ATOL)
         np.testing.assert_allclose(got["out"].numpy(), np.asarray(want["out"]), atol=ATOL)
+    spec, jspec = (dataclasses.replace(s, aggregation="pallas") for s in (ts, js))
+    tg = tgs[0].merge(tgs)
+    jg = jgs[0].merge(jgs)
+    tp_b = tbatch.GraphBatch.from_graph(tg, build_plan=True)
+    jp_b = jbatch.GraphBatch.from_graph(jg, build_plan=True)
+    assert tcore._eval_route(spec, tp_b) == "plain" and tp_b.agg_plan is not None
+    tseg.reset_launches()
+    got = tcore.gnn_forward(spec, tp, tbn, tp_b)
+    assert tseg.launches == {"segment_aggregate": 0}          # plain K18 on the CPU
+    want = jcore.gnn_forward(jspec, jp, jbn, jp_b, jax.random.key(0))
+    assert float(got["iters"]) == float(want["iters"])
+    np.testing.assert_allclose(got["state"].numpy(), np.asarray(want["state"]), atol=ATOL)
+    np.testing.assert_allclose(got["out"].numpy(), np.asarray(want["out"]), atol=ATOL)
 
 
 def test_entry_points_default_to_the_card():

@@ -14,9 +14,9 @@ ROOT = Path(__file__).resolve().parents[1]
 def test_port_imports_no_jax_and_no_gnn_tpu():
     names = ["gnn_tpu_torch"] + [m.name for m in pkgutil.walk_packages(
         gnn_tpu_torch.__path__, prefix="gnn_tpu_torch.")]
-    for name in ("ops.fused", "ops.fused2", "ops.bn", "ops.typed", "ops._build", "models.core",
-                 "models.gnn", "models.composite", "graphs.typed", "serving", "training.losses",
-                 "training.optimizers"):
+    for name in ("ops.fused", "ops.fused2", "ops.bn", "ops.typed", "ops.segment", "ops._build",
+                 "models.core", "models.gnn", "models.composite", "graphs.typed",
+                 "graphs.generator", "serving", "training.losses", "training.optimizers"):
         assert f"gnn_tpu_torch.{name}" in names
     code = (
         "import importlib, sys\n"
