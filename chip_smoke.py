@@ -32,7 +32,16 @@
    at its training shapes, and all four and K11 (propagation_loop2_bwd, with
    the affine) at ragged shapes (W 32/96/128, D 5/14/64, arc-label widths
    3/5/20, H1 16/37/150 and the wrappers' cap 512), against their plain
-   versions as in phase 5, and times them. The reverse kernels K11, K13 and
+   versions as in phase 5, and times them. The register-tiled K10 and K13
+   also run at the edges of their tiling (H1 1/7/33/512, W 32 with D = AL =
+   1, D = AL = 64, a dense adjacency block, and the leanest shared-memory
+   plans, one of them at a shape only those fit), and a second launch of
+   each on the full set must be bit-identical to the first; at every case
+   the shared-memory plan the library takes must equal
+   ops/fused2.py::_tile2_plan's, and the cases must reach every plan; at
+   the full set the resident CTAs an SM, registers and local bytes a
+   thread are printed (the build's ptxas report goes to
+   chiprun_out/nvcc.log). The reverse kernels K11, K13 and
    K15 differentiate selu: a hidden pre-activation within rounding of 0 lets
    the kernel and the plain version take different, equally valid
    derivative branches there, so a block that differs from the plain version
@@ -173,7 +182,12 @@ def phase_build():
     t0 = time.perf_counter()
     _build.build(force=True)
     _build.library()
-    say(f"build: {time.perf_counter() - t0:.2f} s -> {_build.LIB_PATH}")
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "nvcc.log"), "w") as f:
+        f.write(_build.build_log)
+    say(f"build: {time.perf_counter() - t0:.2f} s -> {_build.LIB_PATH} (nvcc's report: "
+        "chiprun_out/nvcc.log)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"  ptxas: {line.strip()}")
@@ -801,10 +815,12 @@ def two_layer_kernel_inputs(torch, gb, gb_train):
     return k9, k10, k12, k13
 
 
-def random_two_layer_inputs(torch, gen, B, W, D, AL, H1, K, acts, rate, alpha, dev):
-    """Ragged K9/K10/K12/K13 and K11 operands: a sparse 'average' adjacency,
-    keep bits and weights that keep the states O(1); K13's trajectory from the
-    plain K12, K11's (with the affine) from the plain K10."""
+def random_two_layer_inputs(torch, gen, B, W, D, AL, H1, K, acts, rate, alpha, dev,
+                            dense=False):
+    """Ragged K9/K10/K12/K13 and K11 operands: a sparse 'average' adjacency
+    (every entry nonzero with `dense`), keep bits and weights that keep the
+    states O(1); K13's trajectory from the plain K12, K11's (with the affine)
+    from the plain K10."""
     from gnn_tpu_torch.ops import fused2
 
     def r(*shape, scale=1.0):
@@ -815,7 +831,11 @@ def random_two_layer_inputs(torch, gen, B, W, D, AL, H1, K, acts, rate, alpha, d
     C = 2 * D + AL
     wts = dict(w0=r(H1, C, scale=0.8 / C ** 0.5), b0=r(H1, scale=0.2),
                w1=r(D, H1, scale=1.0 / H1 ** 0.5), b1=r(D, scale=0.1))
-    adjT = random_adj(torch, gen, B, W, dev)
+    if dense:
+        a = torch.rand(B, W, W, generator=gen) + 0.1
+        adjT = (a / a.sum(1, keepdim=True)).to(dev)
+    else:
+        adjT = random_adj(torch, gen, B, W, dev)
     nm = (torch.rand(B, W, generator=gen) < 0.8).float().to(dev)
     aff = torch.stack([torch.rand(D, generator=gen) + 0.5, 0.1 * torch.randn(D, generator=gen)])
     a2 = dict(zip(("act0", "act1"), acts))
@@ -1165,6 +1185,39 @@ def phase_two_layer_train_kernels(torch, gb):
     return out
 
 
+def tiled_plan(k, W, D, AL, H1):
+    """The shared-memory plan the library takes for the tiled K10 or K13 at
+    this shape, held equal to ops/fused2.py::_tile2_plan's, and what the card
+    reports for it."""
+    from gnn_tpu_torch.ops import fused2
+    info = fused2.tile_info(k, W, D, AL, H1)
+    need, plan = fused2._tile2_plan(W, D, AL, H1, k == "K13")
+    if (info["plan"], info["smem_bytes"]) != (plan, need):
+        fail(f"{k} W={W} D={D} AL={AL} H1={H1}: the library takes plan {info['plan']} "
+             f"({info['smem_bytes']} bytes), ops/fused2.py::_tile2_plan says {plan} ({need} bytes)")
+    return info
+
+
+def check_tiled(torch, k10, k13):
+    """K10 and K13 on the full set: a second launch bit-identical to the
+    first; the plan and the occupancy the card reports."""
+    from gnn_tpu_torch.ops import fused2
+    for k, name, x, f in (("K10", "propagation_loop2", k10, "feats"),
+                          ("K13", "train_loop2_bwd", k13, "fd")):
+        kernel = getattr(fused2, name)
+        first = kernel(**x)
+        again = kernel(**x)
+        torch.cuda.synchronize()
+        if not all(bool(torch.equal(a, b)) for a, b in zip(first, again)):
+            fail(f"{k}: a second launch on the full set is not bit-identical to the first")
+        info = tiled_plan(k, x["adjT"].shape[1], x["w1"].shape[0], x[f].shape[-1],
+                          x["w0"].shape[0])
+        say(f"{k} full set: second launch bit-identical; plan {info['plan']}, "
+            f"{info['smem_bytes']} bytes of shared memory a CTA, {info['ctas_per_sm']} CTAs "
+            f"({info['ctas_per_sm'] * 8} warps) an SM, {info['registers']} registers and "
+            f"{info['local_bytes']} local bytes a thread")
+
+
 def phase_two_layer_kernels(torch, gb, gb_train):
     """K9/K10 at the h150 serving path's full-set shapes, K12/K13 at its
     training shapes, and all four and K11 at ragged shapes of each register width
@@ -1174,6 +1227,13 @@ def phase_two_layer_kernels(torch, gb, gb_train):
     from gnn_tpu_torch.ops import fused2
     k9, k10, k12, k13 = two_layer_kernel_inputs(torch, gb, gb_train)
     errs = check_two_layer(torch, k9, k10, k12, k13, "full set")
+    check_tiled(torch, k10, k13)
+    reached = {"K10": {0}, "K13": {0}}   # the tiled kernels' plans the cases take
+
+    def reach(W, D, AL, H1):
+        for k in reached:
+            reached[k].add(tiled_plan(k, W, D, AL, H1)["plan"])
+
     gen = torch.Generator().manual_seed(SEED + 11)
     for B, W, D, AL, H1, K, acts, rate, alpha in (
             (5, 32, 5, 3, 16, 3, ("selu", "tanh"), 0.2, True),
@@ -1186,10 +1246,35 @@ def phase_two_layer_kernels(torch, gb, gb_train):
         *x, k11 = random_two_layer_inputs(torch, gen, B, W, D, AL, H1, K, acts, rate, alpha,
                                           gb.device)
         check_two_layer(torch, *x, "ragged", k11)
+        reach(W, D, AL, H1)
+    # the register-tiled K10 and K13 at the edges of their tiling; the last two
+    # take the leanest plans, the last one at a shape only they fit
+    for B, W, D, AL, H1, K, acts, rate, alpha, dense in (
+            (3, 128, 14, 3, 1, 3, ("selu", "selu"), 0.1, True, False),
+            (3, 128, 14, 3, 7, 3, ("tanh", "selu"), 0.1, False, False),
+            (3, 96, 14, 3, 33, 3, ("selu", "tanh"), 0.2, True, False),
+            (2, 128, 14, 3, 512, 3, ("selu", "selu"), 0.1, True, False),
+            (4, 32, 1, 1, 16, 3, ("tanh", "tanh"), 0.1, False, False),
+            (2, 64, 64, 64, 150, 2, ("selu", "tanh"), 0.1, True, False),
+            (3, 128, 14, 3, 150, 3, ("selu", "selu"), 0.1, True, True),
+            (2, 128, 64, 33, 150, 2, ("selu", "tanh"), 0.0, True, False),
+            (2, 32, 15, 59, 511, 2, ("tanh", "selu"), 0.1, False, False)):
+        _, k10r, _, k13r, _ = random_two_layer_inputs(torch, gen, B, W, D, AL, H1, K, acts, rate,
+                                                      alpha, gb.device, dense=dense)
+        label = (f"tiling edge (B={B} W={W} D={D} AL={AL} H1={H1} K={K} {acts[0]}/{acts[1]} "
+                 f"rate={rate}{' dense adjacency' if dense else ''})")
+        check_plain(torch, f"K10 {label}", *against_plain(torch, fused2, "propagation_loop2", k10r),
+                    ("traj", "margins"), exact=("margins",))
+        check_bwd2(torch, "K13", k13r, label)
+        reach(W, D, AL, H1)
+    for k, plans in (("K10", fused2._LOOP2_PLANS), ("K13", fused2._TRAIN2_PLANS)):
+        if reached[k] != set(range(len(plans))):
+            fail(f"{k}: the cases reach plans {sorted(reached[k])} of its {len(plans)}")
+    say(f"tiled plans reached: K10 {sorted(reached['K10'])}, K13 {sorted(reached['K13'])}")
     out = {}
     for (k, name, src, line), x, (b, by) in zip(
             (("K9", "propagation_step2", "fused2.cu", 1147),
-             ("K10", "propagation_loop2", "fused2.cu", 1286),
+             ("K10", "propagation_loop2", "loop2.cu", 1286),
              ("K12", "train_loop2", "fused2.cu", 1551),
              ("K13", "train_loop2_bwd", "train_loop2_bwd.cu", 1696)), (k9, k10, k12, k13),
             two_layer_bounds(k9, k10, k12, k13)):

@@ -7,8 +7,8 @@ in a process, so nothing is built when the package is imported. The library goes
 to build/gnn_tpu_torch/ of the source checkout the package runs from (listed
 in .gitignore), or, for an installed package, to gnn_tpu_torch/ in the
 user's cache directory. Its file name carries a hash of the nvcc flags, and
-it is rebuilt when a source or the shared header ops/csrc/common.cuh is newer
-than it. A failed build raises with nvcc's output.
+it is rebuilt when a source or a header (ops/csrc/*.cuh) is newer than
+it. A failed build raises with nvcc's output.
 """
 
 from __future__ import annotations
@@ -122,6 +122,9 @@ def library() -> ctypes.CDLL:
             lib.gnn_train_step.restype = i
             lib.gnn_propagation_loop2.argtypes = [p] * 11 + [i] * 6 + [f, i, i, p]
             lib.gnn_propagation_loop2.restype = i
+            for info in ("gnn_propagation_loop2_info", "gnn_train_loop2_bwd_info"):
+                getattr(lib, info).argtypes = [i] * 4 + [p]
+                getattr(lib, info).restype = i
             lib.gnn_propagation_step2.argtypes = [p] * 10 + [i] * 7 + [p]
             lib.gnn_propagation_step2.restype = i
             lib.gnn_train_loop2.argtypes = [p] * 13 + [i] * 6 + [f, i, i, i, f, f, p]

@@ -5,9 +5,9 @@
 //
 // Replaces gnn_tpu/ops/pallas_fused.py:
 //   K9  _step2_kernel_T       (launched by _step2_impl)       -> gnn_propagation_step2
-//   K10 _loop2_kernel_T       (launched by _loop2_impl)       -> gnn_propagation_loop2
 //   K12 _loop2_train_kernel_T (launched by _loop2_train_impl) -> gnn_train_loop2
-// K12's reverse, K13, is in train_loop2_bwd.cu.
+// K12's reverse, K13, is in train_loop2_bwd.cu; K10, the eval loop, in
+// loop2.cu.
 //
 // One iteration on one W-node block, node-major rows:
 //   agg = adjT^T @ s (+ rT)              agg[dst] = sum_src adjT[src, dst] * s[src]
@@ -19,13 +19,11 @@
 // term Wf @ f + b0; these aggregate the D-wide state (2*W*W*D flops, the same
 // linear map) and form the feature term from f's AL columns, reading AL/H1 of
 // those bytes.
-// K10 runs all K eval iterations of a residual-free block (f the raw arc-label
-// aggregation, the same every iteration; the inference BatchNorm as an affine),
-// writing the state after every iteration (traj) and the pre-update movement
-// flags. K12 runs the K dropout-training iterations (f = fd[k], the dropped
-// arc-label aggregation of iteration k; the state and aggregated slices
-// dropped here from uint8 keep-masks) and also writes every pre-dropout
-// aggregation (saved for K13). K9 runs one eval iteration of a
+// K12 runs the K dropout-training iterations of a residual-free block (f =
+// fd[k], the dropped arc-label aggregation of iteration k; the state and
+// aggregated slices dropped here from uint8 keep-masks), writing the state
+// after every iteration (traj), the pre-update movement flags and every
+// pre-dropout aggregation (saved for K13). K9 runs one eval iteration of a
 // residual-coupled block; rT is the raw residual aggregation, added to agg.
 //
 // Design: one CTA per block, one thread per node (blockDim == W), as in
@@ -39,9 +37,8 @@
 // fit an SM.
 //
 // Bound: the dense layers cost 2*H1*(3D + AL) flops a node and iteration
-// (13.5 kflop on the recipe) against 4*D + 4 bytes a node and iteration
-// written by K10 (state, flag) and 10*D + 4*AL + 4 moved by K12 (masks, fd,
-// agg too): the least time is set by the operations at the card's fp32 rate.
+// (13.5 kflop on the recipe) against 10*D + 4*AL + 4 bytes a node and
+// iteration moved by K12 (state, flag, masks, fd, agg): the least time is set by the operations at the card's fp32 rate.
 // This first version does the dense adjacency contraction (2*D*W*W flops a
 // block and iteration, about a third of the dense layers' at H1 = 150) and
 // three dependent h0 sums per hidden unit per thread, with 8 warps an SM.
@@ -85,17 +82,16 @@ __device__ Fwd carve(float* base, int W, int D, int AL, int H1) {
   return m;
 }
 
-// K10 (TRAIN false) and K12 (TRAIN true): all K iterations of residual-free
-// blocks. K10 reads f [B, W, AL] once and applies aff; K12 reads fd
+// K12: all K dropout-training iterations of residual-free blocks; reads fd
 // [K, B, W, AL], the keep-masks ms/ma (null without dropout) and writes agg.
-template <int MAXF, bool TRAIN>
+template <int MAXF>
 __global__ void __launch_bounds__(kMaxW)
-loop2_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
+train_loop2_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
              const uint8_t* __restrict__ ms, const uint8_t* __restrict__ ma,
              const float* __restrict__ f, const float* __restrict__ w0,
              const float* __restrict__ b0, const float* __restrict__ w1,
-             const float* __restrict__ b1, const float* __restrict__ aff,
-             const float* __restrict__ nm, float* __restrict__ traj, float* __restrict__ marg,
+             const float* __restrict__ b1, const float* __restrict__ nm,
+             float* __restrict__ traj, float* __restrict__ marg,
              float* __restrict__ agg_out, int B, int W, int D, int AL, int H1, int K, float thr,
              int act0, int act1, int mode, float da, float db) {
   extern __shared__ float4 smem_raw[];
@@ -106,10 +102,6 @@ loop2_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
 
   stage_adj(adjT + row0 * W, W, m.adj);
   stage_dense2(w0, 2 * D + AL, b0, 1, w1, b1, D, 2 * D + AL, H1, m.w0, m.b0, m.w1T, m.b1);
-  if (!TRAIN) {
-    for (int i = t; i < 2 * D; i += blockDim.x) m.aff[i] = aff[i];
-    stage_in(f + row0 * AL, W, AL, m.R, RP, 0);
-  }
   stage_in(s0 + row0 * D, W, D, m.S, DP, 0);
   __syncthreads();
   float s[MAXF], s_old[MAXF], xs[MAXF], a[MAXF], xf[MAXF], h1[MAXF];
@@ -117,7 +109,7 @@ loop2_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
   for (int d = 0; d < MAXF; ++d) {
     s[d] = d < D ? m.S[t * DP + d] : 0.0f;
     s_old[d] = 1.0f;
-    xf[d] = !TRAIN && d < AL ? m.R[t * RP + d] : 0.0f;
+    xf[d] = 0.0f;
   }
   const float nmv = nm[row0 + t];
 
@@ -139,7 +131,7 @@ loop2_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
     __syncthreads();  // every thread is past its reads of S (and of R)
 #pragma unroll
     for (int d = 0; d < MAXF; ++d) xs[d] = s[d];
-    if (TRAIN) {
+    {
 #pragma unroll
       for (int d = 0; d < MAXF; ++d)
         if (d < D) m.R[t * RP + d] = a[d];
@@ -163,8 +155,7 @@ loop2_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
 #pragma unroll
     for (int d = 0; d < MAXF; ++d) {
       s_old[d] = s[d];
-      float y = d < D ? activate(act1, h1[d]) : 0.0f;
-      if (!TRAIN && d < D) y = y * m.aff[d] + m.aff[D + d];
+      const float y = d < D ? activate(act1, h1[d]) : 0.0f;
       s[d] = y;
       if (d < D) m.S[t * DP + d] = y;
     }
@@ -217,19 +208,18 @@ step2_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
   stage_out(out + row0 * D, W, D, m.S, DP);
 }
 
-template <int MAXF, bool TRAIN>
+template <int MAXF>
 cudaError_t launch_loop2(const float* adjT, const float* s0, const uint8_t* ms, const uint8_t* ma,
                          const float* f, const float* w0, const float* b0, const float* w1,
-                         const float* b1, const float* aff, const float* nm, float* traj,
-                         float* marg, float* agg, int B, int W, int D, int AL, int H1, int K,
-                         float thr, int act0, int act1, int mode, float da, float db,
-                         cudaStream_t stream) {
+                         const float* b1, const float* nm, float* traj, float* marg, float* agg,
+                         int B, int W, int D, int AL, int H1, int K, float thr, int act0,
+                         int act1, int mode, float da, float db, cudaStream_t stream) {
   const size_t bytes = fwd_smem(W, D, AL, H1);
-  cudaError_t err = set_smem(loop2_kernel<MAXF, TRAIN>, bytes);
+  cudaError_t err = set_smem(train_loop2_kernel<MAXF>, bytes);
   if (err != cudaSuccess) return err;
-  loop2_kernel<MAXF, TRAIN><<<B, W, bytes, stream>>>(adjT, s0, ms, ma, f, w0, b0, w1, b1, aff, nm,
-                                                     traj, marg, agg, B, W, D, AL, H1, K, thr,
-                                                     act0, act1, mode, da, db);
+  train_loop2_kernel<MAXF><<<B, W, bytes, stream>>>(adjT, s0, ms, ma, f, w0, b0, w1, b1, nm, traj,
+                                                    marg, agg, B, W, D, AL, H1, K, thr, act0,
+                                                    act1, mode, da, db);
   return cudaGetLastError();
 }
 
@@ -246,44 +236,9 @@ cudaError_t launch_step2(const float* adjT, const float* s, const float* rT, con
   return cudaGetLastError();
 }
 
-template <bool TRAIN>
-int loop2(const float* adjT, const float* s0, const uint8_t* ms, const uint8_t* ma, const float* f,
-          const float* w0, const float* b0, const float* w1, const float* b1, const float* aff,
-          const float* nm, float* traj, float* marg, float* agg, int B, int W, int D, int AL,
-          int H1, int K, float thr, int act0, int act1, int mode, float da, float db,
-          void* stream) {
-  if (!block_ok(B, W) || D <= 0 || AL <= 0 || H1 <= 0 || K <= 0) return cudaErrorInvalidValue;
-  if (mode != kNoDrop && (ms == nullptr || ma == nullptr)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (width_class(D > AL ? D : AL)) {
-    case 16:
-      return launch_loop2<16, TRAIN>(adjT, s0, ms, ma, f, w0, b0, w1, b1, aff, nm, traj, marg,
-                                     agg, B, W, D, AL, H1, K, thr, act0, act1, mode, da, db, st);
-    case 32:
-      return launch_loop2<32, TRAIN>(adjT, s0, ms, ma, f, w0, b0, w1, b1, aff, nm, traj, marg,
-                                     agg, B, W, D, AL, H1, K, thr, act0, act1, mode, da, db, st);
-    case 64:
-      return launch_loop2<64, TRAIN>(adjT, s0, ms, ma, f, w0, b0, w1, b1, aff, nm, traj, marg,
-                                     agg, B, W, D, AL, H1, K, thr, act0, act1, mode, da, db, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 extern "C" {
-
-// adjT [B, W, W], s0 [B, W, D], f [B, W, AL], w0 [H1, 2D + AL], b0 [H1],
-// w1 [D, H1], b1 [D], aff [2, D], nm [B, W] -> traj [K, B, W, D],
-// marg [K, B, W]. Returns a cudaError_t code.
-int gnn_propagation_loop2(const float* adjT, const float* s0, const float* f, const float* w0,
-                          const float* b0, const float* w1, const float* b1, const float* aff,
-                          const float* nm, float* traj, float* marg, int B, int W, int D, int AL,
-                          int H1, int K, float thr, int act0, int act1, void* stream) {
-  return loop2<false>(adjT, s0, nullptr, nullptr, f, w0, b0, w1, b1, aff, nm, traj, marg, nullptr,
-                      B, W, D, AL, H1, K, thr, act0, act1, kNoDrop, 1.0f, 0.0f, stream);
-}
 
 // adjT [B, W, W], s0 [B, W, D], ms/ma uint8 [K, B, W, D] (null when mode == 0),
 // fd [K, B, W, AL], w0 [H1, 2D + AL], b0 [H1], w1 [D, H1], b1 [D], nm [B, W]
@@ -293,8 +248,22 @@ int gnn_train_loop2(const float* adjT, const float* s0, const uint8_t* ms, const
                     const float* b1, const float* nm, float* traj, float* marg, float* agg, int B,
                     int W, int D, int AL, int H1, int K, float thr, int act0, int act1, int mode,
                     float da, float db, void* stream) {
-  return loop2<true>(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nullptr, nm, traj, marg, agg, B, W, D,
-                     AL, H1, K, thr, act0, act1, mode, da, db, stream);
+  if (!block_ok(B, W) || D <= 0 || AL <= 0 || H1 <= 0 || K <= 0) return cudaErrorInvalidValue;
+  if (mode != kNoDrop && (ms == nullptr || ma == nullptr)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (width_class(D > AL ? D : AL)) {
+    case 16:
+      return launch_loop2<16>(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, traj, marg, agg, B, W, D,
+                              AL, H1, K, thr, act0, act1, mode, da, db, st);
+    case 32:
+      return launch_loop2<32>(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, traj, marg, agg, B, W, D,
+                              AL, H1, K, thr, act0, act1, mode, da, db, st);
+    case 64:
+      return launch_loop2<64>(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, traj, marg, agg, B, W, D,
+                              AL, H1, K, thr, act0, act1, mode, da, db, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // adjT [B, W, W], s [B, W, D], rT [B, W, D] (nullable), f [B, W, AL],
