@@ -32,15 +32,16 @@
    at its training shapes, and all four and K11 (propagation_loop2_bwd, with
    the affine) at ragged shapes (W 32/96/128, D 5/14/64, arc-label widths
    3/5/20, H1 16/37/150 and the wrappers' cap 512), against their plain
-   versions as in phase 5, and times them. The register-tiled K10 and K13
-   also run at the edges of their tiling (H1 1/7/33/512, W 32 with D = AL =
-   1, D = AL = 64, a dense adjacency block, and the leanest shared-memory
-   plans, one of them at a shape only those fit), and a second launch of
-   each on the full set must be bit-identical to the first; at every case
-   the shared-memory plan the library takes must equal
-   ops/fused2.py::_tile2_plan's, and the cases must reach every plan; at
-   the full set the resident CTAs an SM, registers and local bytes a
-   thread are printed (the build's ptxas report goes to
+   versions as in phase 5, and times them. The register-tiled K10, K11, K13
+   and K15 (ops/csrc/tile2.cuh) also run at the edges of their tiling (H1
+   1/7/33/512, W 32 with D = AL = 1, D = AL = 64, a dense adjacency block,
+   and the leanest shared-memory plans, one of them at a shape only those
+   fit; K15 with a dep row); K10 must repeat bit for bit on the full set,
+   and the reverse kernels (check_bwd2: K11, K13, K15, K17) wherever they
+   run; at every tiled case the shared-memory plan the library takes must equal
+   ops/fused2.py::_tile2_plan's, and the cases must reach every plan of the
+   four lists; at the full set the resident CTAs an SM, registers and local
+   bytes a thread are printed (the build's ptxas report goes to
    chiprun_out/nvcc.log). The reverse kernels K11, K13 and
    K15 differentiate selu: a hidden pre-activation within rounding of 0 lets
    the kernel and the plain version take different, equally valid
@@ -55,7 +56,9 @@
    the BatchNorm hidden-150 route gives them (all 1214 block rows, H1 = 150),
    and K14/K15 at ragged shapes (W 32/64/96/128, D 5/14/64, F 3/20, H1
    16/37/150 and the cap), against their plain versions as in phase 7, and
-   times them.
+   times them. At the full set the tiled K11 and K15 must repeat bit for
+   bit, print their occupancy, and run every shared-memory plan that fits,
+   forced in turn (bit-identical to the default plan), timed beside it.
 9. Serving path 'h150': the hidden-150 accuracy recipe (state net 31 -> 150
    -> 14, selu, AlphaDropout 0.1 at its input, no BatchNorm; readout 14 ->
    150 -> 2, selu and softmax) served through Predictor like the flagship:
@@ -220,8 +223,12 @@ def kernel_inputs(model, gb):
     return loop, dict(dep, rT=core.residual_term(gb, dep["s"], Wa))
 
 
-def random_adj(torch, gen, B, W, dev):
-    """B sparse 'average'-mode block adjacencies adjT [B, W, W], ~5% arcs."""
+def random_adj(torch, gen, B, W, dev, dense=False):
+    """B sparse 'average'-mode block adjacencies adjT [B, W, W], ~5% arcs
+    (every entry nonzero with `dense`)."""
+    if dense:
+        a = torch.rand(B, W, W, generator=gen) + 0.1
+        return (a / a.sum(1, keepdim=True)).to(dev)
     arcs = torch.rand(B, W, W, generator=gen) < 0.05
     return (arcs / arcs.sum(1, keepdim=True).clamp_min(1)).float().to(dev)
 
@@ -462,11 +469,12 @@ def check_bn_backward(torch, bn, x, kw, label):
                        ("ds", "dw", "dagg", "red"), summed=("dw", "red"))
 
 
-def random_bn_inputs(torch, gen, R, Bl, W, D, F, rate, res, dev, H1=None):
-    """Ragged K1/K2 operands, or K14/K15 operands with a hidden width H1."""
+def random_bn_inputs(torch, gen, R, Bl, W, D, F, rate, res, dev, H1=None, dense=False):
+    """Ragged K1/K2 operands, or K14/K15 operands with a hidden width H1
+    (every adjacency entry nonzero with `dense`)."""
     def r(*shape, scale=1.0):
         return (scale * torch.randn(*shape, generator=gen)).to(dev)
-    adj = random_adj(torch, gen, R, W, dev)
+    adj = random_adj(torch, gen, R, W, dev, dense)
     aff = torch.stack([torch.stack([torch.rand(D, generator=gen) + 0.5,
                                     0.1 * torch.randn(D, generator=gen)]) for _ in range(2)])
     keep = ((torch.rand(R, W, 2 * D + F, generator=gen) > rate).to(torch.uint8).to(dev)
@@ -831,11 +839,7 @@ def random_two_layer_inputs(torch, gen, B, W, D, AL, H1, K, acts, rate, alpha, d
     C = 2 * D + AL
     wts = dict(w0=r(H1, C, scale=0.8 / C ** 0.5), b0=r(H1, scale=0.2),
                w1=r(D, H1, scale=1.0 / H1 ** 0.5), b1=r(D, scale=0.1))
-    if dense:
-        a = torch.rand(B, W, W, generator=gen) + 0.1
-        adjT = (a / a.sum(1, keepdim=True)).to(dev)
-    else:
-        adjT = random_adj(torch, gen, B, W, dev)
+    adjT = random_adj(torch, gen, B, W, dev, dense)
     nm = (torch.rand(B, W, generator=gen) < 0.8).float().to(dev)
     aff = torch.stack([torch.rand(D, generator=gen) + 0.5, 0.1 * torch.randn(D, generator=gen)])
     a2 = dict(zip(("act0", "act1"), acts))
@@ -949,12 +953,17 @@ def check_bwd2(torch, kern, x, label):
     or some of its near-kink units (at most 8, every subset tried; none: the
     plain version took the other branch) reproduces the kernel's outputs on
     that block within TOL (per node) and SUM_RTOL (its partials); every other
-    block is held to the plain version. Returns the largest per-node
-    difference over the blocks held to the plain version."""
+    block is held to the plain version. A second launch must be bit-identical
+    to the first. Returns the largest per-node difference over the blocks held
+    to the plain version."""
     import importlib
     import itertools
     mod, name, outs, _ = BWD2[kern]
-    got, want = against_plain(torch, importlib.import_module(f"gnn_tpu_torch.ops.{mod}"), name, x)
+    module = importlib.import_module(f"gnn_tpu_torch.ops.{mod}")
+    got, want = against_plain(torch, module, name, x)
+    again = getattr(module, name)(**x)
+    if not all(a is None or bool(torch.equal(a, b)) for a, b in zip(got, again)):
+        fail(f"{kern} {label}: a second launch is not bit-identical to the first")
     B = got[0].shape[0]
 
     def block_err(g, w):
@@ -1004,7 +1013,8 @@ def check_bwd2(torch, kern, x, label):
     worst = float(node[[i for i in range(B) if i not in bad]].max()) if len(bad) < B else 0.0
     sums = [f"{oname} {close_sum(torch, a.sum(0), r.sum(0), f'{kern} {label} {oname}'):.3e}"
             for (oname, _, kind), a, r in zip(outs, got, ref) if kind == "part" and a is not None]
-    say(f"{kern} {label}: max per-node difference {worst:.3e} on {B - len(bad)} blocks, summed "
+    say(f"{kern} {label}: repeat bit-identical; max per-node difference {worst:.3e} on "
+        f"{B - len(bad)} blocks, summed "
         + ", ".join(sums)
         + (f"; {len(bad)} blocks take another derivative branch at {flipped} near-kink units, "
            f"which the float64 replica reproduces within {TOL:g}" if bad else ""))
@@ -1166,6 +1176,18 @@ def phase_two_layer_train_kernels(torch, gb):
         check_bn_forward(torch, bn, f, dict(k, threshold=0.05), "ragged")
         check_bwd2(torch, "K15", dict(b, **k), f"ragged (R={R} Bl={Bl} W={W} D={D} F={F} "
                    f"H1={H1} {acts[0]}/{acts[1]} rate={rate})")
+    # the tiled K11 and K15 on the full set: a repeat bit-identical, the
+    # occupancy, and each plan that fits forced and timed
+    plans_ms = {}
+    for k, kernel, x, dims in (
+            ("K11", fused2.propagation_loop2_bwd, k11,
+             (k11["adjT"].shape[1], k11["s0"].shape[-1], k11["feats"].shape[-1],
+              k11["w0"].shape[0])),
+            ("K15", bn.bn2_backward_step, x15,
+             (x15["adj_loop"].shape[1], x15["y_prev"].shape[-1], x15["feats"].shape[-1],
+              x15["w0_aug"].shape[0]))):
+        first = check_tiled(torch, k, kernel, x, dims)
+        plans_ms[k] = time_plans(torch, k, kernel, x, dims, first)
     out = {}
     for (k, mod, name, src, rep_, x, kw, rows), (b, by) in zip(
             (("K11", fused2, "propagation_loop2_bwd", "eval_loop2_bwd.cu", "pallas_fused.py:1390",
@@ -1181,41 +1203,69 @@ def phase_two_layer_train_kernels(torch, gb):
                       plain_ms=timed_ms(torch, lambda: plain(**x, **kw)),
                       bound_ms=b, bound_by=by, library_ms=None)
         say(f"{k} timing at {rows} {tuple(x[rows].shape)}: kernel {out[k]['ms']:.4f} ms, plain "
-            f"{out[k]['plain_ms']:.4f} ms, bound {b:.4f} ms ({by})")
+            f"{out[k]['plain_ms']:.4f} ms, bound {b:.4f} ms ({by})"
+            + (f"; each plan forced: {plans_ms[k]}" if k in plans_ms else ""))
     return out
 
 
+TILED = ("K10", "K11", "K13", "K15")   # the register-tiled kernels (ops/csrc/tile2.cuh)
+
+
 def tiled_plan(k, W, D, AL, H1):
-    """The shared-memory plan the library takes for the tiled K10 or K13 at
-    this shape, held equal to ops/fused2.py::_tile2_plan's, and what the card
-    reports for it."""
+    """The shared-memory plan the library takes for the tiled kernel k at this
+    shape (AL: K15's F), held equal to ops/fused2.py::_tile2_plan's, and what
+    the card reports for it."""
     from gnn_tpu_torch.ops import fused2
     info = fused2.tile_info(k, W, D, AL, H1)
-    need, plan = fused2._tile2_plan(W, D, AL, H1, k == "K13")
+    need, plan = fused2._tile2_plan(W, D, AL, H1, k)
     if (info["plan"], info["smem_bytes"]) != (plan, need):
         fail(f"{k} W={W} D={D} AL={AL} H1={H1}: the library takes plan {info['plan']} "
              f"({info['smem_bytes']} bytes), ops/fused2.py::_tile2_plan says {plan} ({need} bytes)")
     return info
 
 
-def check_tiled(torch, k10, k13):
-    """K10 and K13 on the full set: a second launch bit-identical to the
-    first; the plan and the occupancy the card reports."""
-    from gnn_tpu_torch.ops import fused2
-    for k, name, x, f in (("K10", "propagation_loop2", k10, "feats"),
-                          ("K13", "train_loop2_bwd", k13, "fd")):
-        kernel = getattr(fused2, name)
-        first = kernel(**x)
-        again = kernel(**x)
-        torch.cuda.synchronize()
-        if not all(bool(torch.equal(a, b)) for a, b in zip(first, again)):
-            fail(f"{k}: a second launch on the full set is not bit-identical to the first")
-        info = tiled_plan(k, x["adjT"].shape[1], x["w1"].shape[0], x[f].shape[-1],
-                          x["w0"].shape[0])
-        say(f"{k} full set: second launch bit-identical; plan {info['plan']}, "
-            f"{info['smem_bytes']} bytes of shared memory a CTA, {info['ctas_per_sm']} CTAs "
-            f"({info['ctas_per_sm'] * 8} warps) an SM, {info['registers']} registers and "
-            f"{info['local_bytes']} local bytes a thread")
+def describe(info):
+    return (f"plan {info['plan']}, {info['smem_bytes']} bytes of shared memory a CTA, "
+            f"{info['ctas_per_sm']} CTAs ({info['ctas_per_sm'] * 8} warps) an SM, "
+            f"{info['registers']} registers and {info['local_bytes']} local bytes a thread")
+
+
+def check_tiled(torch, k, kernel, x, dims):
+    """A tiled kernel on the full set: a second launch bit-identical to the
+    first; the plan and the occupancy the card reports. Returns the first
+    launch's outputs."""
+    first = kernel(**x)
+    again = kernel(**x)
+    torch.cuda.synchronize()
+    if not all(a is None or bool(torch.equal(a, b)) for a, b in zip(first, again)):
+        fail(f"{k}: a second launch on the full set is not bit-identical to the first")
+    say(f"{k} full set: second launch bit-identical; {describe(tiled_plan(k, *dims))}")
+    return first
+
+
+def time_plans(torch, k, kernel, x, dims, first):
+    """Every plan of the tiled K11 or K15 that fits the full-set shape, forced
+    in turn (its outputs bit-identical to the default plan's `first`), timed
+    as the kernels' rows are; the plan list is ordered by these times."""
+    from gnn_tpu_torch.ops import _build, fused2
+    force = getattr(_build.library(), fused2._TILED[k] + "_force_plan")
+    times = {}
+    try:
+        for i, plan in enumerate(fused2._PLANS[k]):
+            if fused2._tile2_bytes(fused2._KIND[k], *dims, plan) > fused2.SMEM_BYTES:
+                continue
+            force(i)
+            got = kernel(**x)
+            torch.cuda.synchronize()
+            if not all(a is None or bool(torch.equal(a, b)) for a, b in zip(got, first)):
+                fail(f"{k}: plan {i} is not bit-identical to plan "
+                     f"{fused2._tile2_plan(*dims, k)[1]} on the full set")
+            times[i] = timed_ms(torch, lambda: kernel(**x))
+            say(f"{k} full set, plan {i} forced: {times[i]:.4f} ms, bit-identical to the default "
+                f"plan; {describe(fused2.tile_info(k, *dims))}")
+    finally:
+        force(-1)
+    return times
 
 
 def phase_two_layer_kernels(torch, gb, gb_train):
@@ -1227,8 +1277,13 @@ def phase_two_layer_kernels(torch, gb, gb_train):
     from gnn_tpu_torch.ops import fused2
     k9, k10, k12, k13 = two_layer_kernel_inputs(torch, gb, gb_train)
     errs = check_two_layer(torch, k9, k10, k12, k13, "full set")
-    check_tiled(torch, k10, k13)
-    reached = {"K10": {0}, "K13": {0}}   # the tiled kernels' plans the cases take
+    for k, name, x, f in (("K10", "propagation_loop2", k10, "feats"),
+                          ("K13", "train_loop2_bwd", k13, "fd")):
+        check_tiled(torch, k, getattr(fused2, name), x,
+                    (x["adjT"].shape[1], x["w1"].shape[0], x[f].shape[-1], x["w0"].shape[0]))
+    # the tiled kernels' plans the cases take (K11 and K15 take plan 0 at the
+    # full set, phase 8)
+    reached = {"K10": {0}, "K11": set(), "K13": {0}, "K15": set()}
 
     def reach(W, D, AL, H1):
         for k in reached:
@@ -1247,8 +1302,9 @@ def phase_two_layer_kernels(torch, gb, gb_train):
                                           gb.device)
         check_two_layer(torch, *x, "ragged", k11)
         reach(W, D, AL, H1)
-    # the register-tiled K10 and K13 at the edges of their tiling; the last two
-    # take the leanest plans, the last one at a shape only they fit
+    # the register-tiled K10, K11, K13 and K15 at the edges of their tiling (K15
+    # with a dep row); the last two take the leanest plans, the last one at a
+    # shape only they fit
     for B, W, D, AL, H1, K, acts, rate, alpha, dense in (
             (3, 128, 14, 3, 1, 3, ("selu", "selu"), 0.1, True, False),
             (3, 128, 14, 3, 7, 3, ("tanh", "selu"), 0.1, False, False),
@@ -1259,18 +1315,23 @@ def phase_two_layer_kernels(torch, gb, gb_train):
             (3, 128, 14, 3, 150, 3, ("selu", "selu"), 0.1, True, True),
             (2, 128, 64, 33, 150, 2, ("selu", "tanh"), 0.0, True, False),
             (2, 32, 15, 59, 511, 2, ("tanh", "selu"), 0.1, False, False)):
-        _, k10r, _, k13r, _ = random_two_layer_inputs(torch, gen, B, W, D, AL, H1, K, acts, rate,
-                                                      alpha, gb.device, dense=dense)
+        _, k10r, _, k13r, k11r = random_two_layer_inputs(torch, gen, B, W, D, AL, H1, K, acts,
+                                                          rate, alpha, gb.device, dense=dense)
+        _, k15r = random_bn_inputs(torch, gen, B + 1, B, W, D, AL, rate, True, gb.device, H1=H1,
+                                   dense=dense)
         label = (f"tiling edge (B={B} W={W} D={D} AL={AL} H1={H1} K={K} {acts[0]}/{acts[1]} "
                  f"rate={rate}{' dense adjacency' if dense else ''})")
         check_plain(torch, f"K10 {label}", *against_plain(torch, fused2, "propagation_loop2", k10r),
                     ("traj", "margins"), exact=("margins",))
         check_bwd2(torch, "K13", k13r, label)
+        x15 = dict(k15r, act0=acts[0], act1=acts[1], alpha_drop=alpha, rate=rate)
+        check_bwd2(torch, "K11", k11r, f"{label}, affine")
+        check_bwd2(torch, "K15", x15, f"{label}, R={B + 1} Bl={B}")
         reach(W, D, AL, H1)
-    for k, plans in (("K10", fused2._LOOP2_PLANS), ("K13", fused2._TRAIN2_PLANS)):
-        if reached[k] != set(range(len(plans))):
-            fail(f"{k}: the cases reach plans {sorted(reached[k])} of its {len(plans)}")
-    say(f"tiled plans reached: K10 {sorted(reached['K10'])}, K13 {sorted(reached['K13'])}")
+    for k in TILED:
+        if reached[k] != set(range(len(fused2._PLANS[k]))):
+            fail(f"{k}: the cases reach plans {sorted(reached[k])} of its {len(fused2._PLANS[k])}")
+    say("tiled plans reached: " + ", ".join(f"{k} {sorted(reached[k])}" for k in TILED))
     out = {}
     for (k, name, src, line), x, (b, by) in zip(
             (("K9", "propagation_step2", "fused2.cu", 1147),

@@ -122,9 +122,13 @@ def library() -> ctypes.CDLL:
             lib.gnn_train_step.restype = i
             lib.gnn_propagation_loop2.argtypes = [p] * 11 + [i] * 6 + [f, i, i, p]
             lib.gnn_propagation_loop2.restype = i
-            for info in ("gnn_propagation_loop2_info", "gnn_train_loop2_bwd_info"):
-                getattr(lib, info).argtypes = [i] * 4 + [p]
-                getattr(lib, info).restype = i
+            for tiled in ("gnn_propagation_loop2", "gnn_propagation_loop2_bwd",
+                          "gnn_train_loop2_bwd", "gnn_bn2_backward"):
+                getattr(lib, tiled + "_info").argtypes = [i] * 4 + [p]
+                getattr(lib, tiled + "_info").restype = i
+            for force in ("gnn_propagation_loop2_bwd_force_plan", "gnn_bn2_backward_force_plan"):
+                getattr(lib, force).argtypes = [i]
+                getattr(lib, force).restype = None
             lib.gnn_propagation_step2.argtypes = [p] * 10 + [i] * 7 + [p]
             lib.gnn_propagation_step2.restype = i
             lib.gnn_train_loop2.argtypes = [p] * 13 + [i] * 6 + [f, i, i, i, f, f, p]

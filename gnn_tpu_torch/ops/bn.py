@@ -50,7 +50,7 @@ from gnn_tpu_torch.ops import _build
 from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, _act_grad, _check,
                                      _check_keep, _drop_args, _make_drop, _ptr, _stream, moved,
                                      supports_fused_train)
-from gnn_tpu_torch.ops.fused2 import MAX_HIDDEN, SMEM_BYTES, _dense2_vjp, _smem_bytes, dense2
+from gnn_tpu_torch.ops.fused2 import MAX_HIDDEN, SMEM_BYTES, _dense2_vjp, _tile2_plan, dense2
 from gnn_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
 
 # kernel launches since the last reset, by wrapper
@@ -349,10 +349,10 @@ def _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds
 def _smem2_bytes(W: int, D: int, F: int, H1: int, backward: bool) -> int:
     """Shared memory a CTA of K14 (bn2_train.cu::fwd2_smem: the x3 rows, row
     staging, a 32-row adjacency slab, the weights, the affines and the node
-    mask) or K15 (bn2_train.cu::bwd2_smem: the two-layer reverse layout, bnv
-    and the node mask) needs."""
+    mask) or of the register-tiled K15 (the first of tile2.cuh's kBn2BwdPlans
+    that fits, fused2._tile2_plan) needs."""
     if backward:
-        return _smem_bytes(W, D, F, H1, backward=True, extra=9 * D + W)
+        return _tile2_plan(W, D, F, H1, "K15")[0]
     C = 2 * D + F
     return 4 * (W * (C | 1) + W * (D | 1) + 32 * (W + 1) + H1 * (C + D + 1) + 5 * D + W)
 

@@ -26,45 +26,56 @@
 //   dagg  = (dh0 @ Wa) * dmask,  ds = (dh0 @ Ws) * dmask + adjT @ dagg
 //   red   = (sum ds, sum ds * x_hat_prev)      (per-block partial)
 //
-// Design: one CTA per block, one thread per node (blockDim == W); row r < Bl
-// reads adj_loop[r], the rest adj_dep[r - Bl], where they lie. K14 is K1 with
-// the hidden layer through common.cuh::dense2_h1 (a thread loops over the H1
-// hidden units: no H1-wide row is stored), and it aggregates through 32-row
-// slabs of the adjacency (common.cuh::aggregate_slabs) rather than holding
-// the 66 KB adjacency: 64.3 KB a CTA at W = 128, D = 14, F = 3, H1 = 150. K15
-// is K2 with K13's chunked hidden-layer reverse and weight sums
-// (common.cuh::bwd2_hidden) and the row contraction through 32-column slabs
-// (common.cuh::contract_rows): 68.8 KB a CTA. Partials over nodes leave per
-// block, each entry owned by one thread (no atomics: a result does not vary
-// between runs). Keep bits are read from device memory by each node's thread.
+// Row r < Bl reads adj_loop[r], the rest adj_dep[r - Bl], where they lie.
+// K14 is K1 (bn_train.cu) with the hidden layer: one CTA per block, one
+// thread per node (blockDim == W), the hidden layer through
+// common.cuh::dense2_h1 (a thread loops over the H1 hidden units: no H1-wide
+// row is stored), the aggregation through 32-row slabs of the adjacency
+// (common.cuh::aggregate_slabs) rather than the 66 KB adjacency: 64.3 KB a
+// CTA at W = 128, D = 14, F = 3, H1 = 150.
+//
+// K15 is one reverse step of tile2.cuh (reverse_pass1, reverse_pass2, the
+// device code of K13 and K11), one CTA of 256 threads a block row: x3 and gy
+// are formed transposed in shared memory; pass 1 forms h0 on 4-node x 4-unit
+// register tiles and h1 as a block product; dh1 = gy * act1'(h1) on the owner
+// threads of h1; pass 2 forms dh0, the bias-augmented weight sums as block
+// products over the block's nodes (dw0 [H1][C + 1] with db0 its last column,
+// dw1, db1, each entry written once by its owner thread, or two fixed halves)
+// and dx3 on 4-node x C/8-column tiles; ds contracts dagg through compact row
+// lists ([16][W] weights and uint8 destinations, built once a launch; a row
+// with more than 16 arcs is read from device memory, every entry, so a dense
+// block is exact). Keep bits, bnv and the node mask are read from device
+// memory where they are used. No atomics: a result does not vary between
+// runs. h0 is formed again in pass 2 rather than kept (+2*H1*C flops a node):
+// at the recipe a CTA takes 94,936 bytes, so two CTAs of 256 threads, 16
+// warps, in at most 128 registers a thread, fit an SM and one hides the
+// other's staging (a launch is a single reverse step); keeping h0 (158,424
+// bytes, one CTA an SM) ran 34% slower. The last plan of tile2.cuh's
+// kBn2BwdPlans (no lists, 2 units a thread, w1 read from device memory) fits
+// every shape the per-node kernel that this replaces took.
 //
 // Bound: the hidden layer sets it: 2*H1*(3D + F + 1) flops a node forward and
 // 2*H1*(9D + 2F + 1) backward (the forward again, the bias-augmented weight
 // sums, dx3's state and aggregation columns: no feats cotangent), against
-// about 6*D + F + 2D + F bytes a node
-// read and written: the least time is set by the operations at the card's
-// fp32 rate. This first version contracts the adjacency densely (2*D*W*W
-// flops a block), and K15 recomputes h0 twice (as K13).
+// about 6*D + F + 2D + F bytes a node read and written: the least time is set
+// by the operations at the card's fp32 rate (chip_smoke.py
+// ::two_layer_train_bounds: K15 0.097 ms on the training batch's 1214 block
+// rows, H1 = 150). K14 still contracts the adjacency densely (2*D*W*W flops
+// a block).
 
-#include "common.cuh"
+#include "tile2.cuh"
 
 namespace {
 
 using namespace gnn;
 
-// Floats of shared memory (ops/bn.py::_smem2_bytes mirrors both).
-// K14: x3 rows, a row staging buffer, a [32][W + 1] adjacency slab, the
-// weights, the two affines [4][D] and the node mask [W].
+// Bytes of shared memory of K14 (ops/bn.py::_smem2_bytes mirrors it): x3
+// rows, a row staging buffer, a [32][W + 1] adjacency slab, the weights, the
+// two affines [4][D] and the node mask [W].
 size_t fwd2_smem(int W, int D, int F, int H1) {
   const int C = 2 * D + F;
   return sizeof(float) * ((size_t)W * (C | 1) + (size_t)W * (D | 1) + 32 * (size_t)(W + 1) +
                           (size_t)H1 * (C + D + 1) + (size_t)D + 4 * (size_t)D + (size_t)W);
-}
-
-// K15: the two-layer reverse layout (common.cuh::carve_bwd2), bnv [9][D] and
-// the node mask [W].
-size_t bwd2_smem(int W, int D, int F, int H1) {
-  return sizeof(float) * (bwd2_floats(W, D, 2 * D + F, H1) + 9 * (size_t)D + (size_t)W);
 }
 
 // K14: one two-layer BN-training iteration over every block row.
@@ -152,115 +163,140 @@ bn2_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
   }
 }
 
-// K15: one reverse two-layer BN-training iteration over every block row.
-template <int MAXF>
-__global__ void __launch_bounds__(kMaxW)
-bn2_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_dep,
-               const float* __restrict__ y_prev, const float* __restrict__ y_k,
-               const float* __restrict__ agg, const uint8_t* __restrict__ keep,
-               const float* __restrict__ feats, const float* __restrict__ w0_aug,
-               const float* __restrict__ w1, const float* __restrict__ b1,
-               const float* __restrict__ ds_in, const float* __restrict__ gsel,
-               const float* __restrict__ bnv, const float* __restrict__ flag,
-               const float* __restrict__ nm, float* __restrict__ ds, float* __restrict__ dw0,
-               float* __restrict__ dw1, float* __restrict__ db1, float* __restrict__ dagg,
-               float* __restrict__ red, int Bl, int W, int D, int F, int H1, int act0, int act1,
-               int mode, float da, float db) {
-  extern __shared__ float4 smem_raw[];
-  const int C = 2 * D + F;
-  const Bwd2 m = carve_bwd2(reinterpret_cast<float*>(smem_raw), W, D, C, H1);
-  float* v = m.rest;      // [9][D] bnv rows, ops/bn.py::BNV_ROWS
-  float* nms = v + 9 * D;  // [W]
-  const int r = blockIdx.x, t = threadIdx.x;
-  const size_t row0 = (size_t)r * W;
-  float* xrow = m.X + t * m.XP;
-  float* grow = m.G + t * m.DP;
-  const uint8_t* krow = mode != kNoDrop ? keep + (row0 + t) * C : nullptr;
+int g_force = -1;  // gnn_bn2_backward_force_plan
 
-  stage_dense2(w0_aug, C + 1, w0_aug + C, C + 1, w1, b1, D, C, H1, m.w0, m.b0, m.w1T, m.b1);
-  for (int i = t; i < 9 * D; i += blockDim.x) v[i] = bnv[i];
-  nms[t] = nm[row0 + t];
-  stage_in(y_prev + row0 * D, W, D, m.X, m.XP, 0);
-  stage_in(agg + row0 * D, W, D, m.X, m.XP, D);
-  stage_in(feats + row0 * F, W, F, m.X, m.XP, 2 * D);
-  stage_in(ds_in + row0 * D, W, D, m.G, m.DP, 0);
-  __syncthreads();
-  // the forward's dropped x3 row: s_prev (rounded as the plain version), agg, feats
-  for (int d = 0; d < D; ++d) xrow[d] = __fadd_rn(__fmul_rn(xrow[d], v[d]), v[D + d]);
-  drop_row(xrow, krow, C, mode, da, db);
-  float xs[MAXF], xa[MAXF], xf[MAXF], g[MAXF], h1[MAXF], dxs[MAXF], dxa[MAXF], dxf[MAXF];
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) {
-    xs[d] = d < D ? xrow[d] : 0.0f;
-    xa[d] = d < D ? xrow[D + d] : 0.0f;
-    xf[d] = d < F ? xrow[2 * D + d] : 0.0f;
-    g[d] = d < D ? grow[d] : 0.0f;
+// K15: one reverse two-layer BN-training iteration over every block row.
+template <int MAXF, int UT, int MINB>
+__global__ void __launch_bounds__(kTileThreads, MINB)
+bn2_bwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_dep,
+                    const float* __restrict__ y_prev, const float* __restrict__ y_k,
+                    const float* __restrict__ agg, const uint8_t* __restrict__ keep,
+                    const float* __restrict__ feats, const float* __restrict__ w0_aug,
+                    const float* __restrict__ w1, const float* __restrict__ b1,
+                    const float* __restrict__ ds_in, const float* __restrict__ gsel,
+                    const float* __restrict__ bnv, const float* __restrict__ flag,
+                    const float* __restrict__ nm, float* __restrict__ ds, float* __restrict__ dw0,
+                    float* __restrict__ dw1, float* __restrict__ db1, float* __restrict__ dagg,
+                    float* __restrict__ red, int Bl, int W, int D, int F, int H1, int act0,
+                    int act1, int mode, float da, float db, Tile2Plan p) {
+  constexpr int DG = MAXF / 8, CT = 3 * MAXF / 8;
+  extern __shared__ float4 smem_raw[];
+  float* base = reinterpret_cast<float*>(smem_raw);
+  const Tile2Layout L = tile2_layout(kReverse2, W, D, F, H1, p);
+  const int C = 2 * D + F, S = L.S;
+  float* X = base + L.x3;   // x3; then dagg in rows [0, D), ds * x_hat_prev in [D, 2D)
+  float* G = base + L.dh1;  // gy, then dh1, then ds
+  float* w0T = base + L.w0;
+  float* w1s = p.w1g ? nullptr : base + L.w1;
+  float* b0s = base + L.b0;
+  float* lw = base + L.lw;
+  float* b1s = base + L.b1;
+  uint8_t* cnt = reinterpret_cast<uint8_t*>(smem_raw) + L.cnt_b;
+  uint8_t* idx = reinterpret_cast<uint8_t*>(smem_raw) + L.idx_b;
+  const int r = blockIdx.x, t = threadIdx.x;
+  const int ng = t >> 3, jg = t & 7;  // node block; unit group / column group
+  const bool node_ok = 4 * ng < W;
+  const size_t row0 = (size_t)r * W;
+  const float* adj = block_adj(adj_loop, adj_dep, Bl, W);
+  const uint8_t* kp = mode != kNoDrop ? keep + row0 * C : nullptr;  // [W][C] x3 order
+
+  stage_tile_weights(w0_aug, C + 1, w0_aug + C, C + 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, b1s);
+  if (p.E > 0 && t < W) build_list(adj, W, t, p.E, false, lw, idx, cnt);
+  // the forward's dropped x3, transposed: s_prev (rounded as the plain
+  // version: multiply, then add), agg, feats; consecutive threads take
+  // consecutive nodes
+  for (int i = t; i < C * W; i += kTileThreads) {
+    const int c = i / W, n = i % W;
+    const size_t nr = row0 + n;
+    float v;
+    if (c < D)
+      v = __fadd_rn(__fmul_rn(y_prev[nr * D + c], bnv[c]), bnv[D + c]);
+    else if (c < 2 * D)
+      v = agg[nr * D + c - D];
+    else
+      v = feats[nr * F + c - 2 * D];
+    X[i] = drop(mode, da, db, v, kp != nullptr && kp[n * C + c] != 0);
   }
   // gy from the state cotangent and the BatchNorm backward coefficients
-  __syncthreads();
-  stage_in(gsel + row0 * D, W, D, m.G, m.DP, 0);
-  __syncthreads();
   const float f = *flag;
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d)
-    if (d < D) g[d] += f * grow[d];
-  __syncthreads();
-  stage_in(y_k + row0 * D, W, D, m.G, m.DP, 0);
-  __syncthreads();
-  const float nmv = nms[t];
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) {
-    if (d < D) {
-      const float xk = (grow[d] - v[2 * D + d]) * v[3 * D + d];
-      g[d] = v[4 * D + d] * g[d] - nmv * (v[5 * D + d] + xk * v[6 * D + d]);
-    }
+  for (int i = t; i < D * W; i += kTileThreads) {
+    const int d = i / W, n = i % W;
+    const size_t e = (row0 + n) * D + d;
+    const float g = ds_in[e] + f * gsel[e];
+    const float xk = (y_k[e] - bnv[2 * D + d]) * bnv[3 * D + d];
+    G[i] = bnv[4 * D + d] * g - nm[row0 + n] * (bnv[5 * D + d] + xk * bnv[6 * D + d]);
   }
-  // h1 recomputed, dh1 = gy * act1'(h1) into registers and G (own row only)
-  dense2_h1<MAXF>(m.w0, m.b0, m.w1T, m.b1, D, F, H1, act0, xs, xa, xf, h1);
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) {
-    g[d] = d < D ? g[d] * act_grad(act1, h1[d]) : 0.0f;
-    if (d < D) grow[d] = g[d];
-  }
-  __syncthreads();  // G holds every node's dh1, X every node's x3
-  float* dw0_r = dw0 + (size_t)r * H1 * (C + 1);  // bias-augmented: db0 is its last column
-  bwd2_hidden<MAXF>(m, W, D, F, H1, act0, xs, xa, xf, g, dxs, dxa, dxf, dw0_r, C + 1, dw0_r + C,
-                    C + 1, dw1 + (size_t)r * D * H1, db1 + (size_t)r * D, true);
+  cp_async_wait_all();
+  __syncthreads();
 
-  // dx = dh0 @ [Ws | Wa], through the dropout's derivative a * keep
+  const Tile2Rev rev{X, G, base + L.yt, base + L.ht, w0T, b0s, b1s,
+                     W1Src{w1s, w1, S, H1, p.w1g != 0}, W, C, D, H1, S, p.keep, p.nbuf};
+  float h1[4][DG];
+  reverse_pass1<UT, DG>(rev, act0, ng, jg, h1);
+  // dh1 = gy * act1'(h1) into G (each entry read and written by its owner)
+  if (node_ok)
 #pragma unroll
-  for (int d = 0; d < MAXF; ++d) {
-    if (d < D) {
-      dxs[d] *= drop_grad(mode, da, krow != nullptr && krow[d] != 0);
-      dxa[d] *= drop_grad(mode, da, krow != nullptr && krow[D + d] != 0);
-      grow[d] = dxa[d];
-    }
-  }
-  __syncthreads();
-  stage_out(dagg + row0 * D, W, D, m.G, m.DP);
-  // ds[t] = dxs[t] + sum_dst adjT[t][dst] * dagg[dst], row t of the adjacency
-  contract_rows<MAXF>(block_adj(adj_loop, adj_dep, Bl, W), W, m.G, m.DP, D, m.A, dxa);
-  // ds into G, ds * x_hat_prev into X (both free after contract_rows)
-  const float* yp = y_prev + (row0 + t) * D;
+    for (int n = 0; n < 4; ++n)
 #pragma unroll
-  for (int d = 0; d < MAXF; ++d) {
-    if (d < D) {
-      const float dsv = dxs[d] + dxa[d];
-      grow[d] = dsv;
-      xrow[d] = dsv * ((yp[d] - v[7 * D + d]) * v[8 * D + d]);
+      for (int i = 0; i < DG; ++i) {
+        const int d = jg + 8 * i;
+        if (d < D) G[d * W + 4 * ng + n] *= act_grad(act1, h1[n][i]);
+      }
+  __syncthreads();  // G holds every node's dh1
+
+  float* dw0_r = dw0 + (size_t)r * H1 * (C + 1);  // bias-augmented: db0 is its last column
+  const Tile2Parts parts{nullptr, dw0_r, dw0_r + C, dw1 + (size_t)r * D * H1,
+                         db1 + (size_t)r * D, C + 1, C + 1, false};
+  float dx[4][CT];
+  reverse_pass2<UT, CT>(rev, parts, act0, ng, jg, dx);
+
+  // dx = dh0 @ [Ws | Wa] through the dropout's derivative a * keep; dagg out
+  // and into X rows [0, D) (every reader of x3 is past the last chunk's
+  // barrier)
+  if (node_ok)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int node = 4 * ng + n;
+#pragma unroll
+      for (int i = 0; i < CT; ++i) {
+        const int c = jg + 8 * i;
+        if (c < 2 * D) {
+          const float v = dx[n][i] * drop_grad(mode, da, kp != nullptr && kp[node * C + c] != 0);
+          if (c < D) {
+            dx[n][i] = v;
+          } else {
+            X[(c - D) * W + node] = v;
+            dagg[(row0 + node) * D + c - D] = v;
+          }
+        }
+      }
     }
-  }
+  __syncthreads();  // X holds every node's dagg
+  // ds[t] = dxs[t] + sum_dst adjT[t][dst] * dagg[dst] into G, ds * x_hat_prev
+  // into X rows [D, 2D)
+  if (node_ok)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int node = 4 * ng + n;
+#pragma unroll
+      for (int i = 0; i < CT; ++i) {
+        const int c = jg + 8 * i;
+        if (c < D) {
+          const float v = dx[n][i] + line_dot(adj, W, node, false, p.E, lw, idx, cnt, X + c * W);
+          G[c * W + node] = v;
+          X[(D + c) * W + node] =
+              v * ((y_prev[(row0 + node) * D + c] - bnv[7 * D + c]) * bnv[8 * D + c]);
+        }
+      }
+    }
   __syncthreads();
-  stage_out(ds + row0 * D, W, D, m.G, m.DP);
-  // the next reverse step's reduction partials
-  for (int d = t; d < D; d += blockDim.x) {
-    float s0 = 0.0f, s1 = 0.0f;
-    for (int n = 0; n < W; ++n) {
-      s0 += m.G[n * m.DP + d];
-      s1 += m.X[n * m.XP + d];
-    }
-    red[(size_t)r * 2 * D + d] = s0;
-    red[(size_t)r * 2 * D + D + d] = s1;
+  for (int i = t; i < W * D; i += kTileThreads) ds[row0 * D + i] = G[(i % D) * W + i / D];
+  // the next reverse step's reduction partials (sum ds, sum ds * x_hat_prev)
+  if (t < 2 * D) {
+    const float* row = t < D ? G + t * W : X + t * W;
+    float acc = 0.0f;
+    for (int n = 0; n < W; ++n) acc += row[n];
+    red[(size_t)r * 2 * D + t] = acc;
   }
 }
 
@@ -285,22 +321,32 @@ cudaError_t launch_fwd(const float* adj_loop, const float* adj_dep, const float*
   return cudaGetLastError();
 }
 
+using Bn2BwdFn = void (*)(const float*, const float*, const float*, const float*, const float*,
+                          const uint8_t*, const float*, const float*, const float*, const float*,
+                          const float*, const float*, const float*, const float*, const float*,
+                          float*, float*, float*, float*, float*, float*, int, int, int, int, int,
+                          int, int, int, float, float, Tile2Plan);
+
+// 4 units a thread: two CTAs an SM, in at most 128 registers a thread; the
+// leanest plan: one.
 template <int MAXF>
-cudaError_t launch_bwd(const float* adj_loop, const float* adj_dep, const float* y_prev,
-                       const float* y_k, const float* agg, const uint8_t* keep,
-                       const float* feats, const float* w0_aug, const float* w1, const float* b1,
-                       const float* ds_in, const float* gsel, const float* bnv, const float* flag,
-                       const float* nm, float* ds, float* dw0, float* dw1, float* db1, float* dagg,
-                       float* red, int R, int Bl, int W, int D, int F, int H1, int act0, int act1,
-                       int mode, float da, float db, cudaStream_t stream) {
-  const size_t bytes = bwd2_smem(W, D, F, H1);
-  cudaError_t err = set_smem(bn2_bwd_kernel<MAXF>, bytes);
-  if (err != cudaSuccess) return err;
-  bn2_bwd_kernel<MAXF><<<R, W, bytes, stream>>>(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats,
-                                                 w0_aug, w1, b1, ds_in, gsel, bnv, flag, nm, ds,
-                                                 dw0, dw1, db1, dagg, red, Bl, W, D, F, H1, act0,
-                                                 act1, mode, da, db);
-  return cudaGetLastError();
+Bn2BwdFn pick_variant(const Tile2Plan& p) {
+  return p.ut == 2 ? bn2_bwd_tile_kernel<MAXF, 2, 1> : bn2_bwd_tile_kernel<MAXF, 4, 2>;
+}
+
+// K15's kernel and plan for a shape (nullptr if none fits).
+Bn2BwdFn pick_bwd(int W, int D, int F, int H1, Tile2Plan* p, size_t* bytes, int* index) {
+  if (!pick_plan(kReverse2, kBn2BwdPlans, W, D, F, H1, p, bytes, index, g_force)) return nullptr;
+  switch (width_class(D > F ? D : F)) {
+    case 16:
+      return pick_variant<16>(*p);
+    case 32:
+      return pick_variant<32>(*p);
+    case 64:
+      return pick_variant<64>(*p);
+    default:
+      return nullptr;
+  }
 }
 
 }  // namespace
@@ -350,21 +396,34 @@ int gnn_bn2_backward(const float* adj_loop, const float* adj_dep, const float* y
                      float db, void* stream) {
   if (!shape_ok(R, Bl, W, D, F, H1)) return cudaErrorInvalidValue;
   if (mode != kNoDrop && keep == nullptr) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (width_class(D > F ? D : F)) {
-    case 16:
-      return launch_bwd<16>(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, w1, b1,
-                            ds_in, gsel, bnv, flag, nm, ds, dw0, dw1, db1, dagg, red, R, Bl, W, D,
-                            F, H1, act0, act1, mode, da, db, st);
-    case 32:
-      return launch_bwd<32>(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, w1, b1,
-                            ds_in, gsel, bnv, flag, nm, ds, dw0, dw1, db1, dagg, red, R, Bl, W, D,
-                            F, H1, act0, act1, mode, da, db, st);
-    default:
-      return launch_bwd<64>(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, w1, b1,
-                            ds_in, gsel, bnv, flag, nm, ds, dw0, dw1, db1, dagg, red, R, Bl, W, D,
-                            F, H1, act0, act1, mode, da, db, st);
-  }
+  Tile2Plan p;
+  size_t bytes;
+  int index;
+  const Bn2BwdFn fn = pick_bwd(W, D, F, H1, &p, &bytes, &index);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(fn, bytes);
+  if (err != cudaSuccess) return err;
+  fn<<<R, kTileThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, w1, b1, ds_in, gsel, bnv, flag,
+      nm, ds, dw0, dw1, db1, dagg, red, Bl, W, D, F, H1, act0, act1, mode, da, db, p);
+  return cudaGetLastError();
 }
+
+// out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
+// a thread, local bytes a thread of the kernel gnn_bn2_backward launches for
+// this shape. Returns a cudaError_t code.
+int gnn_bn2_backward_info(int W, int D, int F, int H1, int* out) {
+  Tile2Plan p;
+  size_t bytes;
+  int index;
+  const Bn2BwdFn fn = pick_bwd(W, D, F, H1, &p, &bytes, &index);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return tile_kernel_info(fn, bytes, index, out);
+}
+
+// Launch plan `index` of kBn2BwdPlans from now on, where it fits (a launch at
+// a shape it does not fit fails), or the first plan that fits again (index
+// -1): for timing one plan against another.
+void gnn_bn2_backward_force_plan(int index) { g_force = index; }
 
 }  // extern "C"

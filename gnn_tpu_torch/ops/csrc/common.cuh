@@ -1,12 +1,11 @@
 // Device helpers shared by the port's propagation kernels (fused_eval.cu,
-// bn_train.cu, eval_loop_bwd.cu, train_loop.cu, fused2.cu, train_loop2_bwd.cu,
-// eval_loop2_bwd.cu, bn2_train.cu, bn_typed.cu): the activations of the
-// Pallas kernels, the input dropout and its derivative, the staging of block
-// adjacencies and row blocks between device and shared memory, the block
-// aggregation and its reverse through 32-row or 32-column slabs of the
-// adjacency, the bias-augmented dense row of the BatchNorm kernels, the
-// two-layer state net of one node, and the hidden layer's reverse with its
-// weight sums, shared by the two-layer reverse kernels.
+// bn_train.cu, eval_loop_bwd.cu, train_loop.cu, fused2.cu, loop2.cu,
+// train_loop2_bwd.cu, eval_loop2_bwd.cu, bn2_train.cu, bn_typed.cu): the
+// activations of the Pallas kernels, the input dropout and its derivative,
+// the staging of block adjacencies and row blocks between device and shared
+// memory, the block aggregation through 32-row slabs of the adjacency, the
+// bias-augmented dense row of the BatchNorm kernels and the two-layer state
+// net of one node. The register-tiled two-layer kernels build on tile2.cuh.
 
 #pragma once
 
@@ -207,148 +206,6 @@ __device__ void aggregate_slabs(const float* __restrict__ adj, int W, const floa
         if (d < D) acc[d] = fmaf(a, x[d], acc[d]);
     }
     __syncthreads();  // A is restaged by the next slab
-  }
-}
-
-// acc[t] = sum_dst adjT[t][dst] * rows[dst] (the reverse of the aggregation)
-// for this thread's node t: row t of adj [W][W] (device memory), staged 32
-// columns at a time into A [W][33]. Every thread must call it; it
-// synchronises.
-template <int MAXF>
-__device__ void contract_rows(const float* __restrict__ adj, int W, const float* rows, int P,
-                              int D, float* A, float (&acc)[MAXF]) {
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) acc[d] = 0.0f;
-  for (int c0 = 0; c0 < W; c0 += 32) {
-    for (int i = threadIdx.x; i < W * 32; i += blockDim.x)
-      A[(i >> 5) * 33 + (i & 31)] = adj[(size_t)(i >> 5) * W + c0 + (i & 31)];
-    __syncthreads();
-    for (int c = 0; c < 32; ++c) {
-      const float a = A[threadIdx.x * 33 + c];
-      const float* r = rows + (c0 + c) * P;
-#pragma unroll
-      for (int d = 0; d < MAXF; ++d)
-        if (d < D) acc[d] = fmaf(a, r[d], acc[d]);
-    }
-    __syncthreads();  // A is restaged by the next columns
-  }
-}
-
-// ---- the two-layer reverse kernels (train_loop2_bwd.cu, eval_loop2_bwd.cu,
-// bn2_train.cu): shared-memory layout and the hidden layer's reverse
-
-constexpr int kChunk = 16;  // hidden units a pass of the weight-gradient sums
-
-// Floats of shared memory of the layout carve_bwd2 cuts, C the dense input's
-// width (2D + AL), before a kernel's own extras (ops/fused2.py::_smem_bytes
-// and ops/bn.py::_smem2_bytes mirror it).
-__host__ __device__ inline size_t bwd2_floats(int W, int D, int C, int H1) {
-  return (size_t)W * (C | 1) + (size_t)W * (D | 1) + 2 * (size_t)W * (kChunk | 1) +
-         (size_t)H1 * (C + D + 1) + (size_t)D;
-}
-
-struct Bwd2 {
-  float* X;     // [W][XP] the dense input rows x3, XP = C | 1
-  float* G;     // [W][DP] staging, dh1, the aggregation's cotangent; DP = D | 1
-  float* Y;     // [W][kChunk | 1] y0 of a chunk of hidden units
-  float* DH;    // [W][kChunk | 1] dh0 of a chunk
-  float* A;     // adjacency slabs, over Y and DH ([32][W + 1] or [W][33])
-  float* w0;    // [H1][C]
-  float* b0;    // [H1]
-  float* w1T;   // [H1][D]
-  float* b1;    // [D]
-  float* rest;  // the kernel's own extras
-  int XP, DP;
-};
-
-__device__ inline Bwd2 carve_bwd2(float* base, int W, int D, int C, int H1) {
-  static_assert(2 * (kChunk | 1) >= 33, "the tiles hold a [W][33] or [32][W + 1] adjacency slab");
-  Bwd2 m;
-  m.XP = C | 1;
-  m.DP = D | 1;
-  m.X = base;
-  m.G = m.X + W * m.XP;
-  m.Y = m.G + W * m.DP;
-  m.DH = m.Y + W * (kChunk | 1);
-  m.A = m.Y;
-  m.w0 = m.DH + W * (kChunk | 1);
-  m.b0 = m.w0 + H1 * C;
-  m.w1T = m.b0 + H1;
-  m.b1 = m.w1T + H1 * D;
-  m.rest = m.b1 + D;
-  return m;
-}
-
-// The hidden layer's reverse for this thread's node, x3 = [xs | xa | xf] in
-// the X rows and dh1 (the cotangent of h1 = w1 @ y0 + b1) in registers and in
-// the G rows of every node of the block: db1 summed over the block's nodes,
-// then, in chunks of kChunk hidden units, h0_j recomputed, y0_j and
-// dh0_j = (w1[:, j] . dh1) * act0'(h0_j) into the Y and DH tiles, dx3 +=
-// w0[j] * dh0_j, and the chunk's dw0 [jc][C], db0 [jc] and dw1 [D][jc]
-// entries summed over the block's nodes. Each partial entry belongs to one
-// thread, which writes it (first) or adds to it: no atomics, so a result
-// does not vary between runs. dw0 rows have stride ldw0, db0 entries stride
-// ldb0 (the bias-augmented dw0 of the BatchNorm kernels holds db0 as its last
-// column). Every thread must call it; it synchronises, and leaves the tiles free.
-template <int MAXF>
-__device__ void bwd2_hidden(const Bwd2& m, int W, int D, int AL, int H1, int act0,
-                            const float (&xs)[MAXF], const float (&xa)[MAXF],
-                            const float (&xf)[MAXF], const float (&dh1)[MAXF], float (&dxs)[MAXF],
-                            float (&dxa)[MAXF], float (&dxf)[MAXF], float* dw0, int ldw0,
-                            float* db0, int ldb0, float* dw1, float* db1, bool first) {
-  const int C = 2 * D + AL, JP = kChunk | 1, t = threadIdx.x;
-  for (int d = t; d < D; d += blockDim.x) {
-    float acc = 0.0f;
-    for (int n = 0; n < W; ++n) acc += m.G[n * m.DP + d];
-    db1[d] = first ? acc : db1[d] + acc;
-  }
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) dxs[d] = dxa[d] = dxf[d] = 0.0f;
-  for (int j0 = 0; j0 < H1; j0 += kChunk) {
-    const int jc = H1 - j0 < kChunk ? H1 - j0 : kChunk;
-    for (int jj = 0; jj < jc; ++jj) {
-      const int j = j0 + jj;
-      const float* w0j = m.w0 + j * C;
-      const float h0 = dense0_unit<MAXF>(w0j, m.b0[j], D, AL, xs, xa, xf);
-      const float* w1j = m.w1T + j * D;
-      float dy0 = 0.0f;
-#pragma unroll
-      for (int d = 0; d < MAXF; ++d)
-        if (d < D) dy0 = fmaf(w1j[d], dh1[d], dy0);
-      const float dh0 = dy0 * act_grad(act0, h0);
-      m.Y[t * JP + jj] = activate(act0, h0);
-      m.DH[t * JP + jj] = dh0;
-#pragma unroll
-      for (int d = 0; d < MAXF; ++d) {
-        if (d < D) {
-          dxs[d] = fmaf(w0j[d], dh0, dxs[d]);
-          dxa[d] = fmaf(w0j[D + d], dh0, dxa[d]);
-        }
-        if (d < AL) dxf[d] = fmaf(w0j[2 * D + d], dh0, dxf[d]);
-      }
-    }
-    __syncthreads();  // the chunk's tiles are full
-    // consecutive threads take consecutive columns
-    const int n_w0 = jc * C, n_b0 = n_w0 + jc, n_all = n_b0 + D * jc;
-    for (int o = t; o < n_all; o += blockDim.x) {
-      float acc = 0.0f;
-      float* dst;
-      if (o < n_w0) {
-        const int jj = o / C, c = o % C;
-        for (int n = 0; n < W; ++n) acc = fmaf(m.DH[n * JP + jj], m.X[n * m.XP + c], acc);
-        dst = dw0 + (size_t)(j0 + jj) * ldw0 + c;
-      } else if (o < n_b0) {
-        const int jj = o - n_w0;
-        for (int n = 0; n < W; ++n) acc += m.DH[n * JP + jj];
-        dst = db0 + (size_t)(j0 + jj) * ldb0;
-      } else {
-        const int q = o - n_b0, d = q / jc, jj = q % jc;
-        for (int n = 0; n < W; ++n) acc = fmaf(m.G[n * m.DP + d], m.Y[n * JP + jj], acc);
-        dst = dw1 + (size_t)d * H1 + j0 + jj;
-      }
-      *dst = first ? acc : *dst + acc;
-    }
-    __syncthreads();  // the tiles are rewritten by the next chunk
   }
 }
 

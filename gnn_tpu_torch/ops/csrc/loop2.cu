@@ -63,7 +63,7 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
   constexpr int DG = MAXF / 8, UT = 4, CH = 8 * UT;
   extern __shared__ float4 smem_raw[];
   float* base = reinterpret_cast<float*>(smem_raw);
-  const Tile2Layout L = tile2_layout(false, W, D, AL, H1, p);
+  const Tile2Layout L = tile2_layout(kForward2, W, D, AL, H1, p);
   const int C = 2 * D + AL, S = L.S;
   float* X = base + L.x3;
   float* Y = base + L.yt;
@@ -82,7 +82,7 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
   const float* adj = adjT + row0 * W;
   const W1Src w1src{w1s, w1, S, H1, p.w1g != 0};
 
-  stage_tile_weights(w0, b0, w1, b1, C, D, H1, S, w0T, w1s, b0s, b1s);
+  stage_tile_weights(w0, C, b0, 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, b1s);
   for (int i = t; i < 2 * D; i += kTileThreads) cp_async4(affs + i, aff + i);
   stage_rowsT(s0 + row0 * D, W, D, X, 0);
   stage_rowsT(f + row0 * AL, W, AL, X, 2 * D);
@@ -195,7 +195,7 @@ using Loop2Fn = void (*)(const float*, const float*, const float*, const float*,
 
 // The kernel and plan for a shape (nullptr if none fits).
 Loop2Fn pick(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* index) {
-  if (!pick_plan(false, kLoop2Plans, W, D, AL, H1, p, bytes, index)) return nullptr;
+  if (!pick_plan(kForward2, kLoop2Plans, W, D, AL, H1, p, bytes, index)) return nullptr;
   switch (width_class(D > AL ? D : AL)) {
     case 16:
       return loop2_tile_kernel<16>;

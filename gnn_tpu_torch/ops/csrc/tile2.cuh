@@ -1,6 +1,7 @@
 // Register-tiled block products of the two-layer state net for Hopper
-// (sm_90a), in plain fp32 on the CUDA cores, shared by the redesigned K10
-// (loop2.cu) and K13 (train_loop2_bwd.cu).
+// (sm_90a), in plain fp32 on the CUDA cores, shared by K10 (loop2.cu) and the
+// three reverse kernels K13 (train_loop2_bwd.cu), K11 (eval_loop2_bwd.cu) and
+// K15 (bn2_train.cu).
 //
 // A CTA of kTileThreads = 256 threads works on one W-node block. Its dense
 // input x3 = [s | agg | f] lies in shared memory transposed, X[c][n] (C rows
@@ -19,6 +20,13 @@
 // units have zero weights and biases and add exactly 0. The leanest plans
 // leave w1 in device memory (W1Src), so that they fit every shape the
 // per-node kernels these replace took.
+//
+// One reverse step of the two-layer net (reverse_pass1, reverse_pass2) is
+// the same device code in K13, K11 and K15: pass 1 forms h0, y0 and h1 on the
+// tiles; the kernel forms dh1 from h1; pass 2 forms dy0 = dh1 @ w1, dh0, the
+// weight sums of each chunk as block products over the block's nodes, and
+// dx3 += dh0 @ w0. The kernels differ only in how they form x3 and the output
+// cotangent before pass 1, dh1 from h1, and what they do with dx3 afterwards.
 //
 // Unit-major tiles T[j][n] (y0, h0, dh0) are written by the eight threads of
 // a quarter-warp at eight different unit rows and read by threads that differ
@@ -45,12 +53,13 @@ namespace gnn {
 
 constexpr int kTileThreads = 256;
 
-// ut: units a thread owns in a chunk (4, or 2 for K13's leanest plan);
-// nbuf: Y tiles (2: K10 double-buffers them, one barrier a chunk fewer);
-// keep: K13 keeps the whole h0 block (h0 computed once a reverse step), else
-// recomputes it in the reverse pass; dw: K13 sums its weight partials in
-// shared memory and writes them once a launch, else in device memory;
-// pf: K13 prefetches the next reverse step's rows with cp.async;
+// ut: units a thread owns in a chunk (4, or 2 for the leanest plans);
+// nbuf: Y tiles (2: K10, and K11's pass 1, double-buffer them, one barrier a
+// chunk fewer);
+// keep: a reverse kernel keeps the whole h0 block (h0 computed once a reverse
+// step), else recomputes it in pass 2; dw: K13 and K11 sum their weight
+// partials in shared memory and write them once a launch, else in device
+// memory; pf: K13 and K11 prefetch the next reverse step's rows with cp.async;
 // E: room of the compact adjacency lists (0: the adjacency is read from device
 // memory); pad: S / 4 odd; w1g: w1 is read from device memory, not staged.
 struct Tile2Plan {
@@ -62,6 +71,20 @@ constexpr Tile2Plan kTrain2Plans[] = {{4, 1, 1, 1, 1, 16, 1, 0},
                                       {4, 1, 1, 1, 0, 16, 1, 0},
                                       {4, 1, 0, 0, 0, 16, 1, 0},
                                       {2, 1, 0, 0, 0, 0, 0, 1}};
+// K11 (eval_loop2_bwd.cu) and K15 (bn2_train.cu). A K15 launch is one reverse
+// step, so its plans neither prefetch nor keep partials across steps, and it
+// recomputes h0 in pass 2: two CTAs an SM hide one CTA's staging behind the
+// other's products (on an NVIDIA H100, 0.85 ms against 1.14 with h0 kept, one
+// CTA an SM, at the hidden-150 recipe on the training batch; PERF.md §6).
+constexpr Tile2Plan kLoop2BwdPlans[] = {{4, 2, 1, 1, 1, 16, 1, 0},
+                                        {4, 1, 0, 0, 0, 16, 1, 0},
+                                        {2, 1, 0, 0, 0, 0, 0, 1}};
+constexpr Tile2Plan kBn2BwdPlans[] = {{4, 1, 0, 0, 0, 16, 1, 0}, {2, 1, 0, 0, 0, 0, 0, 1}};
+
+// The layouts: K10's forward; the reverse step of K13 and K15; K11's, which
+// also recomputes the aggregation (a second list set) and sums the affine's
+// and the features' cotangents.
+enum Tile2Kind { kForward2 = 0, kReverse2 = 1, kReverse2Agg = 2 };
 
 __host__ __device__ inline int hidden_stride(int H1, int ut, int pad) {
   int s = (H1 + ut - 1) / ut * ut;
@@ -77,27 +100,30 @@ struct Tile2Layout {
   size_t cnt_b, idx_b, bytes;
 };
 
-// K10 (train false): X [C][W], Y [nbuf][CH][W], w0T [C][S], w1 [D][S] (none
-// with w1g), b0 [S],
-// lists [E][W], b1 [D], aff [2][D]. K13 (train true): X, G [D][W] (g + gs,
-// dh1, then gs), Y [CH][W], H [S or CH][W] (h0, then dh0), w0T, w1, b0,
-// prefetched rows [(3D + AL) W], lists, the weight partials
-// [H1][C + 1] + [D][H1] + [D], b1.
-__host__ __device__ inline Tile2Layout tile2_layout(bool train, int W, int D, int AL, int H1,
+// kForward2 (K10): X [C][W], Y [nbuf][CH][W], w0T [C][S], w1 [D][S] (none
+// with w1g), b0 [S], lists [E][W], b1 [D], aff [2][D]. kReverse2 (K13, K15):
+// X, G [D][W] (g + gs, dh1, then gs), Y [CH][W], H [S or CH][W] (h0, then
+// dh0), w0T, w1, b0, prefetched rows [(3D + AL) W], lists, the weight
+// partials [H1][C + 1] + [D][H1] + [D], b1. kReverse2Agg (K11): as
+// kReverse2 with prefetched rows [2D W], two list sets (columns, rows), the
+// partials followed by daff [2][D] and dfeats [AL][W], and the affine's
+// scale [D] after b1.
+__host__ __device__ inline Tile2Layout tile2_layout(int kind, int W, int D, int AL, int H1,
                                                     const Tile2Plan& p) {
   Tile2Layout L{};
-  const int C = 2 * D + AL, CH = 8 * p.ut;
+  const bool rev = kind != kForward2, agg = kind == kReverse2Agg;
+  const int C = 2 * D + AL, CH = 8 * p.ut, nl = agg ? 2 : 1;
   L.S = hidden_stride(H1, p.ut, p.pad);
   int o = 0;
   L.x3 = o;
   o += C * W;
-  if (train) {
+  if (rev) {
     L.dh1 = o;
     o += D * W;
   }
   L.yt = o;
   o += p.nbuf * CH * W;
-  if (train) {
+  if (rev) {
     L.ht = o;
     o += (p.keep ? L.S : CH) * W;
   }
@@ -107,39 +133,41 @@ __host__ __device__ inline Tile2Layout tile2_layout(bool train, int W, int D, in
   o += p.w1g ? 0 : D * L.S;
   L.b0 = o;
   o += L.S;
-  if (train && p.pf) {
+  if (rev && p.pf) {
     L.pf = o;
-    o += (3 * D + AL) * W;
+    o += (agg ? 2 * D : 3 * D + AL) * W;
   }
   L.lw = o;
-  o += p.E * W;
-  if (train && p.dw) {
+  o += nl * p.E * W;
+  if (rev && p.dw) {
     L.dw = o;
-    o += H1 * (C + 1) + D * H1 + D;
+    o += H1 * (C + 1) + D * H1 + D + (agg ? 2 * D + AL * W : 0);
   }
   L.b1 = o;
   o += D;
-  if (!train) {
+  if (!rev || agg) {
     L.aff = o;
-    o += 2 * D;
+    o += agg ? D : 2 * D;
   }
   L.cnt_b = sizeof(float) * (size_t)o;
-  L.idx_b = L.cnt_b + (p.E ? W : 0);
-  L.bytes = L.idx_b + (size_t)p.E * W;
+  L.idx_b = L.cnt_b + (p.E ? nl * W : 0);
+  L.bytes = L.idx_b + (size_t)nl * p.E * W;
   return L;
 }
 
-// The first plan of `plans` that fits a CTA; false (bytes: the last plan's) if none.
+// The first plan of `plans` that fits a CTA, or plan `force` (>= 0) if it
+// fits; false (bytes: the last plan's) if none.
 template <size_t N>
-inline bool pick_plan(bool train, const Tile2Plan (&plans)[N], int W, int D, int AL, int H1,
-                      Tile2Plan* p, size_t* bytes, int* index) {
-  for (size_t i = 0; i < N; ++i) {
-    *bytes = tile2_layout(train, W, D, AL, H1, plans[i]).bytes;
+inline bool pick_plan(int kind, const Tile2Plan (&plans)[N], int W, int D, int AL, int H1,
+                      Tile2Plan* p, size_t* bytes, int* index, int force = -1) {
+  for (size_t i = force >= 0 ? (size_t)force : 0; i < N; ++i) {
+    *bytes = tile2_layout(kind, W, D, AL, H1, plans[i]).bytes;
     if (*bytes <= (size_t)kMaxSmemBytes) {
       *p = plans[i];
       *index = static_cast<int>(i);
       return true;
     }
+    if (force >= 0) break;
   }
   *index = -1;
   return false;
@@ -235,19 +263,22 @@ __device__ __forceinline__ int tile_at(int r, int blk, int W) {
 
 // ---- staging
 
-// w0T [C][S] = w0 [H1][C] transposed, w1 [D][S] (unless w1s is null), b0 [S]
-// (zero past H1), b1 [D].
-__device__ inline void stage_tile_weights(const float* __restrict__ w0,
-                                          const float* __restrict__ b0,
+// w0T [C][S] = w0 [H1][C] transposed (rows of stride ldw0 in device memory),
+// w1 [D][S] (unless w1s is null), b0 [S] (entries of stride ldb0, zero past
+// H1: K15's bias-augmented w0_aug [H1][C + 1] holds b0 as its last column),
+// b1 [D].
+__device__ inline void stage_tile_weights(const float* __restrict__ w0, int ldw0,
+                                          const float* __restrict__ b0, int ldb0,
                                           const float* __restrict__ w1,
                                           const float* __restrict__ b1, int C, int D, int H1,
                                           int S, float* w0T, float* w1s, float* b0s, float* b1s) {
-  for (int i = threadIdx.x; i < C * S; i += blockDim.x) {
-    const int c = i / S, j = i % S;
+  // in w0's order, so a warp reads whole rows of it
+  for (int i = threadIdx.x; i < S * C; i += blockDim.x) {
+    const int j = i / C, c = i % C;
     if (j < H1)
-      cp_async4(w0T + i, w0 + (size_t)j * C + c);
+      cp_async4(w0T + c * S + j, w0 + (size_t)j * ldw0 + c);
     else
-      w0T[i] = 0.0f;
+      w0T[c * S + j] = 0.0f;
   }
   for (int i = threadIdx.x; w1s != nullptr && i < D * S; i += blockDim.x) {
     const int d = i / S, j = i % S;
@@ -258,7 +289,7 @@ __device__ inline void stage_tile_weights(const float* __restrict__ w0,
   }
   for (int j = threadIdx.x; j < S; j += blockDim.x) {
     if (j < H1)
-      cp_async4(b0s + j, b0 + j);
+      cp_async4(b0s + j, b0 + (size_t)j * ldb0);
     else
       b0s[j] = 0.0f;
   }
@@ -465,6 +496,218 @@ __device__ __forceinline__ void dx_product(const float* H, int hr, int W, const 
           for (int u = 0; u < UT; ++u) dx[n][i] = fmaf(v[n][u], w[u], dx[n][i]);
       }
     }
+  }
+}
+
+// ---- one reverse step of the two-layer net (K13, K11, K15)
+
+// A reverse step's operands in shared memory (tile2_layout's regions) and
+// widths: x3 X [C][W], the output cotangent G [D][W] (dh1 when pass 2 runs),
+// the y0 tiles Y [nbuf][CH][W] (pass 2 uses the first), H (the h0 block
+// [S][W] with keep, else a chunk's [CH][W]; dh0 in pass 2), the weights.
+struct Tile2Rev {
+  float* X;
+  float* G;
+  float* Y;
+  float* H;
+  const float* w0T;
+  const float* b0s;
+  const float* b1s;
+  W1Src w1;
+  int W, C, D, H1, S, keep, nbuf;
+};
+
+// Where pass 2 sums a reverse step's weight partials: with sm, in shared
+// memory [H1][C + 1] (db0 the last column), [D][H1], [D], each step adding;
+// else in device memory dw0 [H1] rows of stride ld0, db0 [H1] entries of
+// stride ldb0, dw1 [D][H1], db1 [D], written (add false) or added to. Each
+// entry has one owner thread, or two fixed halves summed before and after a
+// barrier.
+struct Tile2Parts {
+  float* sm;
+  float* dw0;
+  float* db0;
+  float* dw1;
+  float* db1;
+  int ld0, ldb0;
+  bool add;
+};
+
+// Pass 1: h0 = x3 @ w0^T + b0 on this thread's register tiles (kept in H
+// with keep), y0 = act0(h0) through Y a chunk at a time (two tiles in turn
+// with nbuf 2, one barrier a chunk fewer), and h1 = y0 @ w1^T + b1 for nodes
+// 4 ng + n and outputs d = jg + 8 i into h1[n][i]. Every thread must call it;
+// it synchronises, and ends past the last chunk's first barrier (X and H, and
+// with nbuf 1 also Y, are no longer read).
+template <int UT, int DG>
+__device__ __forceinline__ void reverse_pass1(const Tile2Rev& s, int act0, int ng, int jg,
+                                              float (&h1)[4][DG]) {
+  constexpr int CH = 8 * UT;
+  const bool node_ok = 4 * ng < s.W;
+#pragma unroll
+  for (int i = 0; i < DG; ++i) {
+    const int d = jg + 8 * i;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) h1[n][i] = d < s.D ? s.b1s[d] : 0.0f;
+  }
+  const int nch = (s.S + CH - 1) / CH;
+  for (int ci = 0; ci < nch; ++ci) {
+    const int j0 = ci * CH, jc = min(CH, s.S - j0);
+    float* Yb = s.Y + (s.nbuf == 2 ? (ci & 1) : 0) * CH * s.W;
+    if (node_ok && UT * jg < jc) {
+      float a[4][UT];
+      first_product<UT>(s.X, s.W, s.C, s.w0T + j0 + UT * jg, s.S, s.b0s + j0 + UT * jg, ng, a);
+      if (s.keep) store_tile<UT>(s.H, j0 + UT * jg, ng, s.W, a);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int u = 0; u < UT; ++u) a[n][u] = activate(act0, a[n][u]);
+      store_tile<UT>(Yb, UT * jg, ng, s.W, a);
+    }
+    __syncthreads();  // the chunk's y0 tile is full
+    if (node_ok) second_product<UT, DG>(Yb, s.W, s.w1, j0, jc, ng, jg, s.D, h1);
+    if (s.nbuf == 1) __syncthreads();  // the tile is rewritten by the next chunk
+  }
+}
+
+// Pass 2, once G holds every node's dh1, a chunk at a time: dy0 = dh1 @ w1
+// and dh0 = dy0 * act0'(h0) on the tiles (h0 read back, or formed again
+// without keep; y0 = act0(h0) beside it), the chunk's weight sums as block
+// products over the block's nodes, each thread owning 4 units x 4 columns of
+// [x3 | 1] or of dh1 (dw0, db0 through a column of ones, dw1), 8 16-byte
+// reads a 64 FMAs, two threads a quad (half of the nodes each) where that
+// fits; and dx3 += dh0 @ w0 on 4-node x C/8-column register tiles, dx[n][i]
+// for column jg + 8 i. db1, the sum of dh1 over the block's nodes in node
+// order, is taken by the last D threads in the first chunk's weight-sum
+// phase, which leaves them idle at the recipe's widths (a thread of warp 0
+// taking it before the first chunk held every warp at that chunk's barrier).
+// Every thread must call it; it synchronises and ends past the last chunk's
+// barrier, with X, G, Y and H free.
+template <int UT, int CT>
+__device__ __forceinline__ void reverse_pass2(const Tile2Rev& s, const Tile2Parts& parts,
+                                              int act0, int ng, int jg, float (&dx)[4][CT]) {
+  constexpr int CH = 8 * UT;
+  const int t = threadIdx.x, W = s.W, C = s.C, D = s.D, H1 = s.H1, S = s.S;
+  const bool node_ok = 4 * ng < W;
+  const bool sm = parts.sm != nullptr;
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int i = 0; i < CT; ++i) dx[n][i] = 0.0f;
+  const int nch = (S + CH - 1) / CH;
+  for (int ci = 0; ci < nch; ++ci) {
+    const int j0 = ci * CH, jc = min(CH, S - j0), hr = s.keep ? j0 : 0;
+    if (node_ok && UT * jg < jc) {
+      const int j = j0 + UT * jg;
+      float dy[4][UT], h[4][UT];
+      dy_product<UT>(s.G, W, D, s.w1, j, ng, dy);
+      if (s.keep)
+        load_tile<UT>(s.H, hr + UT * jg, ng, W, h);
+      else
+        first_product<UT>(s.X, W, C, s.w0T + j, S, s.b0s + j, ng, h);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int u = 0; u < UT; ++u) {
+          float y, g;
+          act_and_grad(act0, h[n][u], y, g);
+          dy[n][u] *= g;
+          h[n][u] = y;
+        }
+      store_tile<UT>(s.Y, UT * jg, ng, W, h);         // y0
+      store_tile<UT>(s.H, hr + UT * jg, ng, W, dy);   // dh0
+    }
+    __syncthreads();  // the chunk's y0 and dh0 tiles are full
+    if (ci == 0 && t >= kTileThreads - D) {
+      const int d = t - (kTileThreads - D);
+      float acc = 0.0f;
+      for (int n = 0; n < W; ++n) acc += s.G[d * W + n];
+      float* dst = sm ? parts.sm + H1 * (C + 1) + D * H1 + d : parts.db1 + d;
+      *dst = sm || parts.add ? *dst + acc : acc;
+    }
+    // weight sums of the chunk's units j < H1 as block products over the
+    // block's nodes: thread (4 units, 4 columns of [x3 | 1] or of dh1) for
+    // dw0 [j][q], db0 [j] (q = C, the column of ones) and dw1 [d][j]. With
+    // at most 16 column quads two threads share a quad, each summing half of
+    // the nodes: the first adds its sum at once, the second after the
+    // chunk's last barrier, so every entry is summed in a fixed order.
+    const int jr = min(CH, H1 - j0), r0 = UT * jg;
+    const int nq0 = (C + 4) / 4, nq = nq0 + (D + 3) / 4;
+    const bool split = nq <= 16;
+    const int half = split ? ng & 1 : 0;
+    auto partial = [&](int qq, int u, int i) -> float* {  // entry (unit r0 + u, column i of quad qq)
+      const int j = j0 + r0 + u;
+      if (qq >= nq0) {
+        const int d = 4 * (qq - nq0) + i;
+        return sm ? parts.sm + H1 * (C + 1) + d * H1 + j : parts.dw1 + (size_t)d * H1 + j;
+      }
+      const int q = 4 * qq + i;
+      if (sm) return parts.sm + j * (C + 1) + q;
+      return q < C ? parts.dw0 + (size_t)j * parts.ld0 + q : parts.db0 + (size_t)j * parts.ldb0;
+    };
+    auto ncols = [&](int qq) { return qq >= nq0 ? min(4, D - 4 * (qq - nq0)) : min(4, C + 1 - 4 * qq); };
+    float acc[UT][4];
+    int pending = -1;  // the quad whose second-half sum waits for the barrier
+    if (r0 < jr)
+      for (int qq = split ? ng >> 1 : ng; qq < nq; qq += split ? 16 : 32) {
+        const bool w1part = qq >= nq0;
+        const int q0 = 4 * (w1part ? qq - nq0 : qq), ncol = w1part ? D : C + 1;
+        const float* uni = w1part ? s.Y : s.H;
+        const int ur = (w1part ? 0 : hr) + r0;
+        const float* cols[4];  // null: the column of ones, or past the last column
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int q = q0 + i;
+          cols[i] = q >= ncol || (!w1part && q == C) ? nullptr : (w1part ? s.G : s.X) + q * W;
+        }
+#pragma unroll
+        for (int u = 0; u < UT; ++u)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[u][i] = 0.0f;
+        const int bb0 = half * (W / 8), bb1 = split ? bb0 + W / 8 : W / 4;
+        for (int bb = bb0; bb < bb1; ++bb) {
+          float v[UT][4];
+#pragma unroll
+          for (int u = 0; u < UT; ++u) ldv<4>(uni + tile_at<UT>(ur + u, bb, W), v[u]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            float x[4] = {1.0f, 1.0f, 1.0f, 1.0f};
+            if (cols[i] != nullptr) ldv<4>(cols[i] + 4 * bb, x);
+#pragma unroll
+            for (int u = 0; u < UT; ++u)
+#pragma unroll
+              for (int n = 0; n < 4; ++n) acc[u][i] = fmaf(v[u][n], x[n], acc[u][i]);
+          }
+        }
+        if (half == 1) {
+          pending = qq;
+          continue;
+        }
+#pragma unroll
+        for (int u = 0; u < UT; ++u) {
+          if (r0 + u >= jr) break;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if (i >= ncols(qq)) break;
+            float* dst = partial(qq, u, i);
+            *dst = sm || parts.add ? *dst + acc[u][i] : acc[u][i];
+          }
+        }
+      }
+    // dx3 += dh0 @ w0 over the chunk
+    if (node_ok) dx_product<UT, CT>(s.H, hr, W, s.w0T + j0, S, jc, C, ng, jg, dx);
+    __syncthreads();  // the tiles are rewritten by the next chunk; first halves are in
+    if (pending >= 0)
+#pragma unroll
+      for (int u = 0; u < UT; ++u) {
+        if (r0 + u >= jr) break;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (i >= ncols(pending)) break;
+          float* dst = partial(pending, u, i);
+          *dst += acc[u][i];
+        }
+      }
   }
 }
 

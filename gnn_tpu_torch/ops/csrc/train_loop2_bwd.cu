@@ -23,7 +23,8 @@
 // rows, K = 5).
 //
 // Design (tile2.cuh's building blocks), one CTA of 256 threads a block, two
-// passes over 32-unit chunks of the hidden layer a reverse step:
+// passes over 32-unit chunks of the hidden layer a reverse step
+// (tile2.cuh::reverse_pass1, reverse_pass2, the device code K11 and K15 share):
 // - pass 1 forms h0 on 4-node x 4-unit register tiles (x3 @ w0^T, 16 FMAs a
 //   pair of 16-byte reads), keeps it in a [S][W] block in shared memory and
 //   forms h1 += y0 @ w1^T as K10 does. h0 is computed once a reverse step
@@ -78,10 +79,10 @@ train2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__
                        float* __restrict__ db1_out, float* __restrict__ dfd, int B, int W, int D,
                        int AL, int H1, int K, int act0, int act1, int mode, float da, float db,
                        Tile2Plan p) {
-  constexpr int DG = MAXF / 8, CT = 3 * MAXF / 8, CH = 8 * UT;
+  constexpr int DG = MAXF / 8, CT = 3 * MAXF / 8;
   extern __shared__ float4 smem_raw[];
   float* base = reinterpret_cast<float*>(smem_raw);
-  const Tile2Layout L = tile2_layout(true, W, D, AL, H1, p);
+  const Tile2Layout L = tile2_layout(kReverse2, W, D, AL, H1, p);
   const int C = 2 * D + AL, S = L.S;
   float* X = base + L.x3;   // x3, then the dagg rows [0, D)
   float* G = base + L.dh1;  // g + gs, then dh1, then the new gs
@@ -126,7 +127,7 @@ train2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__
     cp_rows(PF + 2 * W * D + W * AL, rows(k, 3), W * D);
   };
 
-  stage_tile_weights(w0, b0, w1, b1, C, D, H1, S, w0T, w1s, b0s, b1s);
+  stage_tile_weights(w0, C, b0, 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, b1s);
   if (p.E > 0 && t < W) build_list(adj, W, t, p.E, false, lw, idx, cnt);
   if (p.dw)
     for (int i = t; i < H1 * (C + 1) + D * H1 + D; i += kTileThreads) DW[i] = 0.0f;
@@ -135,7 +136,7 @@ train2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__
   cp_async_wait_all();
   __syncthreads();
 
-  const int nch = (S + CH - 1) / CH;
+  const Tile2Rev rev{X, G, Y, H, w0T, b0s, b1s, w1src, W, C, D, H1, S, p.keep, p.nbuf};
   for (int k = K - 1; k >= 0; --k) {
     const size_t kb = (size_t)k * B + b;
     const bool first = k == K - 1;
@@ -162,28 +163,7 @@ train2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__
 
     // pass 1: h0 (kept), y0, h1 = w1 @ y0 + b1
     float h1[4][DG];
-#pragma unroll
-    for (int i = 0; i < DG; ++i) {
-      const int d = jg + 8 * i;
-#pragma unroll
-      for (int n = 0; n < 4; ++n) h1[n][i] = d < D ? b1s[d] : 0.0f;
-    }
-    for (int ci = 0; ci < nch; ++ci) {
-      const int j0 = ci * CH, jc = min(CH, S - j0);
-      if (node_ok && UT * jg < jc) {
-        float a[4][UT];
-        first_product<UT>(X, W, C, w0T + j0 + UT * jg, S, b0s + j0 + UT * jg, ng, a);
-        if (p.keep) store_tile<UT>(H, j0 + UT * jg, ng, W, a);
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int u = 0; u < UT; ++u) a[n][u] = activate(act0, a[n][u]);
-        store_tile<UT>(Y, UT * jg, ng, W, a);
-      }
-      __syncthreads();  // the chunk's y0 tile is full
-      if (node_ok) second_product<UT, DG>(Y, W, w1src, j0, jc, ng, jg, D, h1);
-      __syncthreads();  // the tile is rewritten by the next chunk
-    }
+    reverse_pass1<UT, DG>(rev, act0, ng, jg, h1);
     // dh1 = (g + gs) * act1'(h1) into G (each entry read and written by its owner)
     if (node_ok)
 #pragma unroll
@@ -194,126 +174,13 @@ train2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__
           if (d < D) G[d * W + 4 * ng + n] *= act_grad(act1, h1[n][i]);
         }
     __syncthreads();  // G holds every node's dh1
-    if (t < D) {
-      float acc = 0.0f;
-      for (int n = 0; n < W; ++n) acc += G[t * W + n];
-      float* dst = p.dw ? DB1 + t : db1_out + (size_t)b * D + t;
-      *dst = p.dw || !first ? *dst + acc : acc;
-    }
 
-    // pass 2: dh0, the weight sums and dx3, a chunk at a time
+    // pass 2: db1, then dh0, the weight sums and dx3, a chunk at a time
+    const Tile2Parts parts =
+        Tile2Parts{p.dw ? DW : nullptr, dw0_out + (size_t)b * H1 * C, db0_out + (size_t)b * H1,
+                   dw1_out + (size_t)b * D * H1, db1_out + (size_t)b * D, C, 1, !first};
     float dx[4][CT];
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int i = 0; i < CT; ++i) dx[n][i] = 0.0f;
-    for (int ci = 0; ci < nch; ++ci) {
-      const int j0 = ci * CH, jc = min(CH, S - j0), hr = p.keep ? j0 : 0;
-      if (node_ok && UT * jg < jc) {
-        const int j = j0 + UT * jg;
-        float dy[4][UT], h[4][UT];
-        dy_product<UT>(G, W, D, w1src, j, ng, dy);
-        if (p.keep)
-          load_tile<UT>(H, hr + UT * jg, ng, W, h);
-        else
-          first_product<UT>(X, W, C, w0T + j, S, b0s + j, ng, h);
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int u = 0; u < UT; ++u) {
-            float y, g;
-            act_and_grad(act0, h[n][u], y, g);
-            dy[n][u] *= g;
-            h[n][u] = y;
-          }
-        store_tile<UT>(Y, UT * jg, ng, W, h);         // y0
-        store_tile<UT>(H, hr + UT * jg, ng, W, dy);   // dh0
-      }
-      __syncthreads();  // the chunk's y0 and dh0 tiles are full
-      // weight sums of the chunk's units j < H1 as block products over the
-      // block's nodes: thread (4 units, 4 columns of [x3 | 1] or of dh1) for
-      // dw0 [j][q], db0 [j] (q = C, the column of ones) and dw1 [d][j]. With
-      // at most 16 column quads two threads share a quad, each summing half of
-      // the nodes: the first adds its sum at once, the second after the
-      // chunk's last barrier, so every entry is summed in a fixed order.
-      const int jr = min(CH, H1 - j0), r0 = UT * jg;
-      const int nq0 = (C + 4) / 4, nq = nq0 + (D + 3) / 4;
-      const bool split = nq <= 16;
-      const int half = split ? ng & 1 : 0;
-      auto partial = [&](int qq, int u, int i) -> float* {  // entry (unit r0 + u, column i of quad qq)
-        const int j = j0 + r0 + u;
-        if (qq >= nq0) {
-          const int d = 4 * (qq - nq0) + i;
-          return p.dw ? DW1 + d * H1 + j : dw1_out + ((size_t)b * D + d) * H1 + j;
-        }
-        const int q = 4 * qq + i;
-        if (p.dw) return DW + j * (C + 1) + q;
-        return q < C ? dw0_out + ((size_t)b * H1 + j) * C + q : db0_out + (size_t)b * H1 + j;
-      };
-      auto ncols = [&](int qq) { return qq >= nq0 ? min(4, D - 4 * (qq - nq0)) : min(4, C + 1 - 4 * qq); };
-      float acc[UT][4];
-      int pending = -1;  // the quad whose second-half sum waits for the barrier
-      if (r0 < jr)
-        for (int qq = split ? ng >> 1 : ng; qq < nq; qq += split ? 16 : 32) {
-          const bool w1part = qq >= nq0;
-          const int q0 = 4 * (w1part ? qq - nq0 : qq), ncol = w1part ? D : C + 1;
-          const float* uni = w1part ? Y : H;
-          const int ur = (w1part ? 0 : hr) + r0;
-          const float* cols[4];  // null: the column of ones, or past the last column
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int q = q0 + i;
-            cols[i] = q >= ncol || (!w1part && q == C) ? nullptr : (w1part ? G : X) + q * W;
-          }
-#pragma unroll
-          for (int u = 0; u < UT; ++u)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) acc[u][i] = 0.0f;
-          const int bb0 = half * (W / 8), bb1 = split ? bb0 + W / 8 : W / 4;
-          for (int bb = bb0; bb < bb1; ++bb) {
-            float v[UT][4];
-#pragma unroll
-            for (int u = 0; u < UT; ++u) ldv<4>(uni + tile_at<UT>(ur + u, bb, W), v[u]);
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              float x[4] = {1.0f, 1.0f, 1.0f, 1.0f};
-              if (cols[i] != nullptr) ldv<4>(cols[i] + 4 * bb, x);
-#pragma unroll
-              for (int u = 0; u < UT; ++u)
-#pragma unroll
-                for (int n = 0; n < 4; ++n) acc[u][i] = fmaf(v[u][n], x[n], acc[u][i]);
-            }
-          }
-          if (half == 1) {
-            pending = qq;
-            continue;
-          }
-#pragma unroll
-          for (int u = 0; u < UT; ++u) {
-            if (r0 + u >= jr) break;
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              if (i >= ncols(qq)) break;
-              float* dst = partial(qq, u, i);
-              *dst = p.dw || !first ? *dst + acc[u][i] : acc[u][i];
-            }
-          }
-        }
-      // dx3 += dh0 @ w0 over the chunk
-      if (node_ok) dx_product<UT, CT>(H, hr, W, w0T + j0, S, jc, C, ng, jg, dx);
-      __syncthreads();  // the tiles are rewritten by the next chunk; first halves are in
-      if (pending >= 0)
-#pragma unroll
-        for (int u = 0; u < UT; ++u) {
-          if (r0 + u >= jr) break;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            if (i >= ncols(pending)) break;
-            float* dst = partial(pending, u, i);
-            *dst += acc[u][i];
-          }
-        }
-    }
+    reverse_pass2<UT, CT>(rev, parts, act0, ng, jg, dx);
 
     // dfd[k] = dx3[2D:]; dagg = dx3[D:2D] * a*ma into X rows [0, D) (every
     // reader of x3 is past the last chunk's barrier); dx3[:D] * a*ms kept
@@ -374,7 +241,7 @@ Train2Fn pick_ut(int ut) {
 
 // The kernel and plan for a shape (nullptr if none fits).
 Train2Fn pick(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* index) {
-  if (!pick_plan(true, kTrain2Plans, W, D, AL, H1, p, bytes, index)) return nullptr;
+  if (!pick_plan(kReverse2, kTrain2Plans, W, D, AL, H1, p, bytes, index)) return nullptr;
   switch (width_class(D > AL ? D : AL)) {
     case 16:
       return pick_ut<16>(p->ut);

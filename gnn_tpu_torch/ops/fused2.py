@@ -48,10 +48,10 @@ the CUDA kernel (ops/csrc/fused2.cu: K9, K12; loop2.cu: K10;
 eval_loop2_bwd.cu: K11; train_loop2_bwd.cu: K13) for CUDA tensors;
 `launches` counts kernel launches. D and AL are at most 64, H1 at most
 MAX_HIDDEN, and a block's rows and the weights must fit a CTA's shared
-memory (`_smem_bytes` for K9, K11, K12; `_tile2_plan` for K10 and K13, the
-register-tiled kernels of ops/csrc/tile2.cuh, which take the first of their
-shared-memory plans that fits). The dense layers set these kernels' least
-time.
+memory (`_smem_bytes` for K9 and K12; `_tile2_plan` for K10, K11, K13 and
+ops/bn.py's K15, the register-tiled kernels of ops/csrc/tile2.cuh, which take
+the first of their shared-memory plans that fits). The dense layers set
+these kernels' least time.
 """
 
 from __future__ import annotations
@@ -71,7 +71,6 @@ from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, _act
 # memory; at W = 128, D = 14, AL = 3, H1 = 512 K9/K12 need 176 KB)
 MAX_HIDDEN = 512
 SMEM_BYTES = 232448          # shared memory a CTA may use (227 KB)
-_CHUNK = 16                  # common.cuh::kChunk
 
 # the kernel each wrapper launches (C entry point gnn_<wrapper>)
 _KERNEL = {"propagation_step2": "K9", "propagation_loop2": "K10",
@@ -258,66 +257,78 @@ def _step2_vjp(adjT, s, rT, feats, w0, b0, w1, b1, affine, g, act0: str, act1: s
 
 
 # ------------------------------------------------------------------ wrappers
-def _smem_bytes(W: int, D: int, AL: int, H1: int, backward: bool, extra: int = 0) -> int:
+def _smem_bytes(W: int, D: int, AL: int, H1: int) -> int:
     """Shared memory a CTA of the forward kernels K9/K12 (fused2.cu::fwd_smem)
-    or of the reverse kernels (common.cuh::bwd2_floats and `extra` floats of
-    the kernel's own: the affine's 2D for K11, ops/bn.py's for K15) needs: the
-    adjacency or its slabs, row tiles and the weights."""
+    needs: the adjacency, row tiles and the weights."""
     C = 2 * D + AL
-    weights = H1 * (C + D + 1)
-    if backward:
-        return 4 * (W * (C | 1) + W * (D | 1) + 2 * W * (_CHUNK | 1) + weights + D + extra)
-    return 4 * (W * (W + 1) + W * (D | 1) + W * (max(D, AL) | 1) + weights + 3 * D)
+    return 4 * (W * (W + 1) + W * (D | 1) + W * (max(D, AL) | 1) + H1 * (C + D + 1) + 3 * D)
 
 
-# tile2.cuh's kLoop2Plans (K10) and kTrain2Plans (K13), in order of
-# preference: (units a thread ut, y0 tiles, keep h0, weight partials in shared
-# memory, prefetch, adjacency list room E, hidden stride with S / 4 odd, w1
-# read from device memory). The first is the hidden-150 recipe's, the last
-# fits every shape the per-node kernels took (_smem_bytes).
-_LOOP2_PLANS = ((4, 2, 0, 0, 0, 16, 1, 0), (4, 1, 0, 0, 0, 0, 1, 1))
-_TRAIN2_PLANS = ((4, 1, 1, 1, 1, 16, 1, 0), (4, 1, 1, 1, 0, 16, 1, 0), (4, 1, 0, 0, 0, 16, 1, 0),
-                 (2, 1, 0, 0, 0, 0, 0, 1))
+# tile2.cuh's plan lists, in order of preference: (units a thread ut, y0
+# tiles, keep h0, weight partials in shared memory, prefetch, adjacency list
+# room E, hidden stride with S / 4 odd, w1 read from device memory). The first
+# is the hidden-150 recipe's, the last fits every shape the per-node kernels
+# took.
+_PLANS = {
+    "K10": ((4, 2, 0, 0, 0, 16, 1, 0), (4, 1, 0, 0, 0, 0, 1, 1)),             # kLoop2Plans
+    "K13": ((4, 1, 1, 1, 1, 16, 1, 0), (4, 1, 1, 1, 0, 16, 1, 0),             # kTrain2Plans
+            (4, 1, 0, 0, 0, 16, 1, 0), (2, 1, 0, 0, 0, 0, 0, 1)),
+    "K11": ((4, 2, 1, 1, 1, 16, 1, 0), (4, 1, 0, 0, 0, 16, 1, 0),             # kLoop2BwdPlans
+            (2, 1, 0, 0, 0, 0, 0, 1)),
+    "K15": ((4, 1, 0, 0, 0, 16, 1, 0), (2, 1, 0, 0, 0, 0, 0, 1)),             # kBn2BwdPlans
+}
+# tile2.cuh::Tile2Kind of each kernel's layout: the forward, the reverse step,
+# the reverse step with the aggregation again
+_KIND = {"K10": 0, "K13": 1, "K15": 1, "K11": 2}
 
 
-def _tile2_bytes(train: bool, W, D, AL, H1, plan):
+def _tile2_bytes(kind: int, W, D, AL, H1, plan):
     """Shared memory of tile2.cuh::tile2_layout: x3 [C][W], y0 tiles, the
     weights w0T [C][S], w1 [D][S] (unless read from device memory), b0 [S],
-    b1, K10's affine; K13's g/dh1/gs rows [D][W], h0 block (or a chunk of
-    it), prefetched rows and weight partials; the adjacency lists ([E][W]
-    floats, W counts and E*W indices as bytes). The widths may be ints or
-    numpy integer arrays."""
+    b1, K10's affine [2][D]; a reverse step's g/dh1/gs rows [D][W], h0 block
+    (or a chunk of it), prefetched rows and weight partials; K11's second list
+    set, its daff [2][D] and dfeats [AL][W] beside the partials and its scale
+    [D]; the adjacency lists ([E][W] floats, W counts and E*W indices as bytes,
+    a set). The widths may be ints or numpy integer arrays."""
     ut, nbuf, keep, dw, pf, E, pad, w1g = plan
-    C, CH = 2 * D + AL, 8 * ut
+    C, CH, nl = 2 * D + AL, 8 * ut, 2 if kind == 2 else 1
     S = -(-H1 // ut) * ut
     S = S + 4 * pad * ((S // 4) % 2 == 0)
-    floats = C * W + nbuf * CH * W + C * S + (1 - w1g) * D * S + S + E * W + D
-    if train:
-        floats = floats + (D * W + (S if keep else CH) * W + pf * (3 * D + AL) * W
-                           + dw * (H1 * (C + 1) + D * H1 + D))
-    else:
+    floats = C * W + nbuf * CH * W + C * S + (1 - w1g) * D * S + S + nl * E * W + D
+    if kind == 0:
         floats = floats + 2 * D
-    return 4 * floats + (W + E * W if E else 0)
+    else:
+        floats = floats + (D * W + (S if keep else CH) * W
+                           + pf * (2 * D if kind == 2 else 3 * D + AL) * W
+                           + dw * (H1 * (C + 1) + D * H1 + D))
+    if kind == 2:
+        floats = floats + dw * (2 * D + AL * W) + D
+    return 4 * floats + nl * (W + E * W if E else 0)
 
 
-def _tile2_plan(W: int, D: int, AL: int, H1: int, train: bool):
-    """(shared-memory bytes, plan index) of K10 (train False) or K13 at this
-    shape: the first plan that fits a CTA, or the leanest plan's bytes and
-    None."""
-    plans = _TRAIN2_PLANS if train else _LOOP2_PLANS
-    for i, plan in enumerate(plans):
-        need = _tile2_bytes(train, W, D, AL, H1, plan)
+def _tile2_plan(W: int, D: int, AL: int, H1: int, kernel: str):
+    """(shared-memory bytes, plan index) of the tiled kernel K10, K11, K13 or
+    K15 at this shape (AL: K15's F): the first plan that fits a CTA, or the
+    leanest plan's bytes and None."""
+    for i, plan in enumerate(_PLANS[kernel]):
+        need = _tile2_bytes(_KIND[kernel], W, D, AL, H1, plan)
         if need <= SMEM_BYTES:
             return need, i
     return need, None
 
 
+# the C entries of the tiled kernels, by kernel
+_TILED = {"K10": "gnn_propagation_loop2", "K11": "gnn_propagation_loop2_bwd",
+          "K13": "gnn_train_loop2_bwd", "K15": "gnn_bn2_backward"}
+
+
 def tile_info(kernel: str, W: int, D: int, AL: int, H1: int) -> dict:
-    """What the card reports for the tiled kernel K10 or K13 launches at this
-    shape: its plan index, shared-memory bytes, resident CTAs an SM,
-    registers and local-memory bytes a thread (builds the library)."""
+    """What the card reports for the tiled kernel K10, K11, K13 or K15
+    launches at this shape (AL: K15's F): its plan index, shared-memory bytes,
+    resident CTAs an SM, registers and local-memory bytes a thread (builds the
+    library)."""
     out = (ctypes.c_int * 5)()
-    entry = {"K10": "gnn_propagation_loop2_info", "K13": "gnn_train_loop2_bwd_info"}[kernel]
+    entry = _TILED[kernel] + "_info"
     _build.check(getattr(_build.library(), entry)(W, D, AL, H1, out), entry)
     return dict(zip(("plan", "smem_bytes", "ctas_per_sm", "registers", "local_bytes"), out))
 
@@ -365,7 +376,7 @@ def propagation_step2(adjT, s, rT, feats, w0, b0, w1, b1, affine=None, act0: str
     B, W, _ = adjT.shape
     D, AL = s.shape[-1], feats.shape[-1]
     H1 = w0.shape[0]
-    _check_block2(adjT, D, AL, H1, _smem_bytes(W, D, AL, H1, backward=False))
+    _check_block2(adjT, D, AL, H1, _smem_bytes(W, D, AL, H1))
     dev = adjT.device
     aff = _affine(affine, D, s)
     _check("adjT", adjT, (B, W, W), dev)
@@ -400,7 +411,7 @@ def propagation_loop2(adjT, s0, feats, w0, b0, w1, b1, affine, nm, K: int, thres
     B, W, _ = adjT.shape
     D, AL = s0.shape[-1], feats.shape[-1]
     H1 = w0.shape[0]
-    _check_block2(adjT, D, AL, H1, _tile2_plan(W, D, AL, H1, train=False)[0])
+    _check_block2(adjT, D, AL, H1, _tile2_plan(W, D, AL, H1, "K10")[0])
     dev = adjT.device
     aff = _affine(affine, D, s0)
     _check("adjT", adjT, (B, W, W), dev)
@@ -437,7 +448,7 @@ def propagation_loop2_bwd(adjT, s0, traj, feats, w0, b0, w1, b1, affine, g_traj,
     K = traj.shape[0]
     D, AL = s0.shape[-1], feats.shape[-1]
     H1 = w0.shape[0]
-    _check_block2(adjT, D, AL, H1, _smem_bytes(W, D, AL, H1, backward=True, extra=2 * D))
+    _check_block2(adjT, D, AL, H1, _tile2_plan(W, D, AL, H1, "K11")[0])
     dev = adjT.device
     _check("adjT", adjT, (B, W, W), dev)
     _check("s0", s0, (B, W, D), dev)
@@ -485,7 +496,7 @@ def train_loop2(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K: int, threshold: flo
     B, W, _ = adjT.shape
     D, AL = s0.shape[-1], fd.shape[-1]
     H1 = w0.shape[0]
-    _check_block2(adjT, D, AL, H1, _smem_bytes(W, D, AL, H1, backward=False))
+    _check_block2(adjT, D, AL, H1, _smem_bytes(W, D, AL, H1))
     dev = adjT.device
     _check("adjT", adjT, (B, W, W), dev)
     _check("s0", s0, (B, W, D), dev)
@@ -524,7 +535,7 @@ def train_loop2_bwd(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj, act
     K = traj.shape[0]
     D, AL = s0.shape[-1], fd.shape[-1]
     H1 = w0.shape[0]
-    _check_block2(adjT, D, AL, H1, _tile2_plan(W, D, AL, H1, train=True)[0])
+    _check_block2(adjT, D, AL, H1, _tile2_plan(W, D, AL, H1, "K13")[0])
     dev = adjT.device
     _check("adjT", adjT, (B, W, W), dev)
     _check("s0", s0, (B, W, D), dev)

@@ -12,8 +12,8 @@ Tolerances are gnn_tpu's own for these kernels against its f32 body
 (tests/test_fused.py): states 3e-5 for K9/K10 and 1e-4 for K12, cotangents
 rtol 2e-4 with atol 2e-5; movement flags equal. The CUDA kernels themselves
 run only on the card (chip_smoke.py holds them against these plain versions
-there). The shape-coverage tests hold the register-tiled K10 and K13's
-shared-memory plans (ops/fused2.py::_tile2_plan) to the layouts of the
+there). The shape-coverage tests hold the register-tiled K10, K11, K13 and
+K15's shared-memory plans (ops/fused2.py::_tile2_plan) to the layouts of the
 per-node kernels they replaced: every shape those fitted in a CTA is still
 taken."""
 
@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from gnn_tpu.ops import pallas_fused as pf
+from gnn_tpu_torch.ops import bn as tbn
 from gnn_tpu_torch.ops import fused2 as tf2
 
 torch.set_num_threads(1)
@@ -350,41 +351,58 @@ def test_two_layer_kernel_widths_checked():
                                   meta(64), None, meta(K, 2, 128, 64))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         step(W=128, D=14, H1=tf2.MAX_HIDDEN)
-    assert tf2._smem_bytes(128, 14, 3, tf2.MAX_HIDDEN, backward=True, extra=28) <= tf2.SMEM_BYTES
-    assert tf2._smem_bytes(128, 14, 3, tf2.MAX_HIDDEN, backward=False) <= tf2.SMEM_BYTES
+    assert tf2._tile2_plan(128, 14, 3, tf2.MAX_HIDDEN, "K11")[1] is not None
+    assert tf2._smem_bytes(128, 14, 3, tf2.MAX_HIDDEN) <= tf2.SMEM_BYTES
 
 
-def _per_node_smem_bytes(W, D, AL, H1, backward):
-    """Shared memory a CTA of the per-node K10 (forward: the resident
-    adjacency, state and staging rows, the weights) or K13 (backward: x3 and
-    dh1 rows, two 17-wide chunk tiles, the weights) took, one thread a node,
-    as fused2.py::_smem_bytes reckoned them for both; the widths may be numpy
-    arrays."""
+def _per_node_smem_bytes(kernel, W, D, AL, H1):
+    """Shared memory a CTA of the per-node K10 (the resident adjacency, state
+    and staging rows, the weights) or of the per-node reverse kernels K11, K13
+    and K15 (x3 and dh1 rows, two 17-wide chunk tiles, the weights; K11 and
+    its affine [2][D], K15 and bnv [9][D] and the node mask [W]) took, one
+    thread a node, as fused2.py::_smem_bytes and bn.py::_smem2_bytes reckoned
+    them (AL: K15's F); the widths may be numpy arrays."""
     C = 2 * D + AL
     weights = H1 * (C + D + 1)
-    if backward:
-        return 4 * (W * (C | 1) + W * (D | 1) + 2 * W * 17 + weights + D)
-    return 4 * (W * (W + 1) + W * (D | 1) + W * (np.maximum(D, AL) | 1) + weights + 3 * D)
+    if kernel == "K10":
+        return 4 * (W * (W + 1) + W * (D | 1) + W * (np.maximum(D, AL) | 1) + weights + 3 * D)
+    extra = {"K11": 2 * D, "K13": 0, "K15": 9 * D + W}[kernel]
+    return 4 * (W * (C | 1) + W * (D | 1) + 2 * W * 17 + weights + D + extra)
 
 
-def _tiled_wrapper_checks_pass(kernel, W, D, al, H1):
-    """The wrapper (K10 propagation_loop2, K13 train_loop2_bwd) passes every
-    width and shared-memory check on meta tensors of this shape and raises
-    only for their device."""
-    def meta(*shape):
-        return torch.empty(shape, device="meta")
+def _meta(*shape):
+    return torch.empty(shape, device="meta")
+
+
+def _tiled_wrapper_checks(kernel, W, D, al, H1, refused=None):
+    """Run the width and shared-memory checks of the tiled kernel's wrapper
+    (K10 propagation_loop2, K11 propagation_loop2_bwd, K13 train_loop2_bwd;
+    for K15 bn2_backward_step's _check_two_layer) on meta tensors of this
+    shape: they must pass (past them the three wrappers raise for the meta
+    device), or, given `refused`, raise a ValueError matching it."""
+    meta = _meta
     wts = (meta(H1, 2 * D + al), meta(H1), meta(D, H1), meta(D))
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        if kernel == "K10":
-            tf2.propagation_loop2(meta(2, W, W), meta(2, W, D), meta(2, W, al), *wts, None,
-                                  meta(2, W), K, 0.05)
-        else:
-            tf2.train_loop2_bwd(meta(2, W, W), meta(2, W, D), meta(K, 2, W, D),
-                                meta(K, 2, W, D), None, None, meta(K, 2, W, al), *wts,
-                                meta(K, 2, W, D))
+    calls = {
+        "K10": lambda: tf2.propagation_loop2(meta(2, W, W), meta(2, W, D), meta(2, W, al), *wts,
+                                             None, meta(2, W), K, 0.05),
+        "K11": lambda: tf2.propagation_loop2_bwd(meta(2, W, W), meta(2, W, D), meta(K, 2, W, D),
+                                                 meta(2, W, al), *wts, meta(2, D),
+                                                 meta(K, 2, W, D)),
+        "K13": lambda: tf2.train_loop2_bwd(meta(2, W, W), meta(2, W, D), meta(K, 2, W, D),
+                                           meta(K, 2, W, D), None, None, meta(K, 2, W, al), *wts,
+                                           meta(K, 2, W, D)),
+        "K15": lambda: tbn._check_two_layer(meta(2, W, W), None, 2, D, al,
+                                            meta(H1, 2 * D + al + 1), meta(D, H1), meta(D),
+                                            backward=True),
+    }
+    if kernel == "K15" and refused is None:
+        calls[kernel]()
+        return
+    with pytest.raises(ValueError, match=refused or "CPU or CUDA"):
+        calls[kernel]()
 
 
-@pytest.mark.parametrize("kernel", ["K10", "K13"])
+@pytest.mark.parametrize("kernel", ["K10", "K13", "K11", "K15"])
 @pytest.mark.parametrize("W", [32, 64, 96, 128])
 def test_tiled_kernels_take_every_shape_the_per_node_kernels_took(kernel, W):
     """Over every D, AL in 1..64 and H1 in 1..MAX_HIDDEN, each shape whose
@@ -392,12 +410,11 @@ def test_tiled_kernels_take_every_shape_the_per_node_kernels_took(kernel, W):
     (ops/fused2.py::_tile2_bytes, reckoned on the whole grid at once). The
     wrapper's own checks pass on D, AL in {1, 5, 14, 16, 17, 32, 33, 64}, H1 in
     {1, 7, 150, 512}, and on the 16 taken shapes that leave the least room."""
-    train = kernel == "K13"
     D, AL, H1 = np.meshgrid(np.arange(1, 65), np.arange(1, 65),
                             np.arange(1, tf2.MAX_HIDDEN + 1), indexing="ij")
-    took = _per_node_smem_bytes(W, D, AL, H1, train) <= tf2.SMEM_BYTES
-    plans = tf2._TRAIN2_PLANS if train else tf2._LOOP2_PLANS
-    least = np.min([tf2._tile2_bytes(train, W, D, AL, H1, p) for p in plans], axis=0)
+    took = _per_node_smem_bytes(kernel, W, D, AL, H1) <= tf2.SMEM_BYTES
+    least = np.min([tf2._tile2_bytes(tf2._KIND[kernel], W, D, AL, H1, p)
+                    for p in tf2._PLANS[kernel]], axis=0)
     refused = took & (least > tf2.SMEM_BYTES)
     assert not refused.any(), (
         f"{int(refused.sum())} shapes refused, e.g. (D, AL, H1) = "
@@ -405,23 +422,44 @@ def test_tiled_kernels_take_every_shape_the_per_node_kernels_took(kernel, W):
     widths = (1, 5, 14, 16, 17, 32, 33, 64)
     taken = 0
     for d, al, h1 in itertools.product(widths, widths, (1, 7, 150, 512)):
-        if _per_node_smem_bytes(W, d, al, h1, train) <= tf2.SMEM_BYTES:
-            _tiled_wrapper_checks_pass(kernel, W, d, al, h1)
+        if _per_node_smem_bytes(kernel, W, d, al, h1) <= tf2.SMEM_BYTES:
+            _tiled_wrapper_checks(kernel, W, d, al, h1)
             taken += 1
     assert taken > 100
     room = np.where(took, tf2.SMEM_BYTES - least, np.iinfo(np.int64).max).ravel()
     for i in np.argsort(room, kind="stable")[:16]:
-        _tiled_wrapper_checks_pass(kernel, W, *(int(v.ravel()[i]) for v in (D, AL, H1)))
+        _tiled_wrapper_checks(kernel, W, *(int(v.ravel()[i]) for v in (D, AL, H1)))
+
+
+@pytest.mark.parametrize("kernel", ["K10", "K11", "K13", "K15"])
+def test_tiled_kernels_raise_above_their_last_plan(kernel):
+    """A shape that not even the leanest plan fits (W 128, D = AL = 64, the
+    least such H1) raises the wrappers' ValueError naming the bytes it needs
+    and the CTA's limit, before any launch; one hidden unit fewer passes."""
+    bytes_at = [tf2._tile2_bytes(tf2._KIND[kernel], 128, 64, 64, h1, tf2._PLANS[kernel][-1])
+                for h1 in range(1, tf2.MAX_HIDDEN + 1)]
+    h1 = next(h for h, b in enumerate(bytes_at, 1) if b > tf2.SMEM_BYTES)
+    need, plan = tf2._tile2_plan(128, 64, 64, h1, kernel)
+    assert plan is None and need == bytes_at[h1 - 1]
+    _tiled_wrapper_checks(kernel, 128, 64, 64, h1,
+                          refused=f"W=128, D=64, (AL|F)=64, H1={h1} needs {need} bytes of shared "
+                                  f"memory a block, more than the {tf2.SMEM_BYTES}")
+    _tiled_wrapper_checks(kernel, 128, 64, 64, h1 - 1)
 
 
 def test_tiled_kernels_fit_their_ctas_at_the_recipe():
     """At the hidden-150 recipe (W 128, D 14, AL 3, H1 150) K10 takes its
     first plan (two y0 tiles, the adjacency lists) in at most 113 KB, so two
     CTAs of 256 threads, 16 warps, fit an SM's 228 KB (1 KB kept a CTA); K13
-    its first plan (h0 kept, the weight partials in shared memory, the
-    prefetch) in one CTA's 227 KB."""
-    need, plan = tf2._tile2_plan(128, 14, 3, 150, train=False)
+    and K11 their first plans (h0 kept, the weight partials in shared memory,
+    the prefetch; K11 with both list sets and two y0 tiles) in one CTA's
+    227 KB; K15 its first plan (h0 recomputed) in at most 113 KB, two CTAs an
+    SM."""
+    need, plan = tf2._tile2_plan(128, 14, 3, 150, "K10")
     assert plan == 0 and need <= 113 * 1024
     assert 2 * (need + 1024) <= 228 * 1024
-    need, plan = tf2._tile2_plan(128, 14, 3, 150, train=True)
-    assert plan == 0 and need <= tf2.SMEM_BYTES
+    for kernel in ("K13", "K11", "K15"):
+        need, plan = tf2._tile2_plan(128, 14, 3, 150, kernel)
+        assert plan == 0 and need <= tf2.SMEM_BYTES
+    need, plan = tf2._tile2_plan(128, 14, 3, 150, "K15")
+    assert tf2._PLANS["K15"][plan][2] == 0 and 2 * (need + 1024) <= 228 * 1024
