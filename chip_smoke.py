@@ -19,8 +19,11 @@
    the shapes the training step gives them on the full set and at ragged
    shapes of every register width the kernels are built for, against their
    plain versions (per-node outputs within 1e-5, movement flags equal, sums
-   over nodes within rtol 1e-4 with a floor of 1e-4 of the largest entry),
-   and times both.
+   over nodes within rtol 1e-4 with a floor of 1e-4 of the largest entry;
+   K2 through the near-kink replica of phase 7, a second launch
+   bit-identical), and times both. K2's shared-memory plan and occupancy are
+   printed, and each of its plans that fits the full set is forced and timed
+   (bit-identical to the default plan).
 6. BN-free training kernels: runs K5 (propagation_loop_bwd, with and
    without the affine), K6 (train_step), K7 (train_loop) and K8
    (train_loop_bwd) at the shapes the two BN-free training routes give them
@@ -32,17 +35,21 @@
    at its training shapes, and all four and K11 (propagation_loop2_bwd, with
    the affine) at ragged shapes (W 32/96/128, D 5/14/64, arc-label widths
    3/5/20, H1 16/37/150 and the wrappers' cap 512), against their plain
-   versions as in phase 5, and times them. The register-tiled K10, K11, K13
-   and K15 (ops/csrc/tile2.cuh) also run at the edges of their tiling (H1
+   versions as in phase 5, and times them. The register-tiled K10, K11, K12,
+   K13 and K15 (ops/csrc/tile2.cuh) also run at the edges of their tiling (H1
    1/7/33/512, W 32 with D = AL = 1, D = AL = 64, a dense adjacency block,
    and the leanest shared-memory plans, one of them at a shape only those
-   fit; K15 with a dep row); K10 must repeat bit for bit on the full set,
-   and the reverse kernels (check_bwd2: K11, K13, K15, K17) wherever they
-   run; at every tiled case the shared-memory plan the library takes must equal
-   ops/fused2.py::_tile2_plan's, and the cases must reach every plan of the
-   four lists; at the full set the resident CTAs an SM, registers and local
-   bytes a thread are printed (the build's ptxas report goes to
-   chiprun_out/nvcc.log). The reverse kernels K11, K13 and
+   fit; K15 with a dep row), and K2 at the same widths (D, F = AL) with a dep
+   row and a row of 40 arcs; K10, K12 and K13 must repeat bit for bit on the
+   full set, K12 at every edge, and the reverse kernels (check_bwd2: K2, K11,
+   K13, K15, K17) wherever they run; at every such case the shared-memory
+   plan the library takes must equal the Python mirror's
+   (ops/fused2.py::_tile2_plan, ops/bn.py::_bn_bwd_plan), and the cases must
+   reach every plan of the six lists; at the full set the resident CTAs an
+   SM, registers and local bytes a thread are printed, and each plan of K12
+   that fits is forced and timed (the build's ptxas report goes to
+   chiprun_out/nvcc.log; the registers and spills of K10, K12 and K2 are
+   printed after the build). The reverse kernels K2, K11, K13 and
    K15 differentiate selu: a hidden pre-activation within rounding of 0 lets
    the kernel and the plain version take different, equally valid
    derivative branches there, so a block that differs from the plain version
@@ -194,6 +201,39 @@ def phase_build():
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
             say(f"  ptxas: {line.strip()}")
+    for label, regs, spills in ptxas_summary(_build.build_log):
+        say(f"ptxas {label}: {regs} registers, {spills}")
+
+
+# the kernels whose registers and spills the build's report is read for, by
+# their mangled names: K10 and K12 (loop2.cu, MAXF, TRAIN), K2 (bn_train.cu,
+# MAXF, threads, rows staged)
+PTXAS_KERNELS = ((r"loop2_tile_kernelILi(\d+)ELb0E", "K10 MAXF={}"),
+                 (r"loop2_tile_kernelILi(\d+)ELb1E", "K12 MAXF={}"),
+                 (r"bn_bwd_kernelILi(\d+)ELi(\d+)ELb(\d)E", "K2 MAXF={} threads={} staged={}"))
+
+
+def ptxas_summary(log):
+    """(kernel, registers, spill stores/loads) of the PTXAS_KERNELS entries of
+    an nvcc -Xptxas -v report."""
+    import re
+    out, name, spills = [], None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spills = f"{m.group(1)}/{m.group(2)} bytes spilled (stores/loads)"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            for pat, label in PTXAS_KERNELS:
+                k = re.search(pat, name)
+                if k:
+                    out.append((label.format(*k.groups()), int(m.group(1)), spills))
+            name = None
+    return out
 
 
 def timed_ms(torch, fn, runs=20, reps=5):
@@ -461,12 +501,14 @@ def check_bn_forward(torch, bn, x, kw, label):
                        ("y", "agg", "flags", "msum"), summed=("msum",), exact=("flags",))
 
 
-def check_bn_backward(torch, bn, x, kw, label):
+def check_bn_backward(torch, x, kw, label):
+    """K2 against its plain version through check_bwd2 (a repeat launch
+    bit-identical, near-kink blocks held to the float64 replica)."""
     R, W, D = x["y_prev"].shape
-    return check_plain(torch, f"K2 {label}: R={R} W={W} D={D} {kw['activation']} "
-                       f"rate={kw['rate']} flag={float(x['flag'])}",
-                       *against_plain(torch, bn, "bn_backward_step", dict(x, **kw)),
-                       ("ds", "dw", "dagg", "red"), summed=("dw", "red"))
+    return check_bwd2(torch, "K2", dict(x, **kw),
+                      f"{label}: R={R} (Bl={x['adj_loop'].shape[0]}) W={W} D={D} "
+                      f"F={x['feats'].shape[-1]} {kw['activation']} rate={kw['rate']} "
+                      f"flag={float(x['flag'])}")
 
 
 def random_bn_inputs(torch, gen, R, Bl, W, D, F, rate, res, dev, H1=None, dense=False):
@@ -567,13 +609,19 @@ def bn_bounds(x_f, x_b):
 
 def phase_train_kernels(torch, model, gb):
     """K1/K2 against their plain versions at the training step's full-set
-    shapes and at ragged shapes of each register width (16, 32, 64); times
-    and bounds at the full set."""
+    shapes and at ragged shapes of each register width (16, 32, 64), K2
+    through check_bwd2; K2's plan and occupancy and each of its plans timed;
+    times and bounds at the full set."""
     from gnn_tpu_torch.ops import bn
     (x0, x1), kw, x2, kwb = train_kernel_inputs(torch, model, gb)
     check_bn_forward(torch, bn, x0, kw, "full set, iteration 1")
     err1 = check_bn_forward(torch, bn, x1, kw, "full set, iteration 2")
-    err2 = check_bn_backward(torch, bn, x2, kwb, "full set, reverse of iteration 2")
+    err2 = check_bn_backward(torch, x2, kwb, "full set, reverse of iteration 2")
+    # K2's plan and occupancy, and each of its plans that fits forced and timed
+    x2k = dict(x2, **kwb)
+    dims = (x2["adj_loop"].shape[1], x2["y_prev"].shape[-1], x2["feats"].shape[-1], 0)
+    first = check_tiled(torch, "K2", bn.bn_backward_step, x2k, dims)
+    plans_ms = time_plans(torch, "K2", bn.bn_backward_step, x2k, dims, first)
     gen = torch.Generator().manual_seed(SEED + 4)
     dev = gb.device
     for R, Bl, W, D, F, act, alpha, rate, res in (
@@ -583,7 +631,7 @@ def phase_train_kernels(torch, model, gb):
         f, b = random_bn_inputs(torch, gen, R, Bl, W, D, F, rate, res, dev)
         k = dict(activation=act, alpha_drop=alpha, rate=rate)
         check_bn_forward(torch, bn, f, dict(k, threshold=0.05), "ragged")
-        check_bn_backward(torch, bn, b, k, "ragged")
+        check_bn_backward(torch, b, k, "ragged")
     (b1, by1), (b2, by2) = bn_bounds(x1, x2)
     out = {
         "K1": dict(name="K1 bn_forward_step", route="cuda",
@@ -602,7 +650,8 @@ def phase_train_kernels(torch, model, gb):
     shape = (x1["y1"].shape[0], x1["adj_loop"].shape[0])
     for k, v in out.items():
         say(f"{k} timing at {shape[0]} block rows ({shape[1]} loop): kernel {v['ms']:.4f} ms, "
-            f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})")
+            f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
+            + (f"; each plan forced: {plans_ms}" if k == "K2" else ""))
     return out
 
 
@@ -861,9 +910,9 @@ def random_two_layer_inputs(torch, gen, B, W, D, AL, H1, K, acts, rate, alpha, d
 
 KINKED = ("selu", "relu")   # activations whose derivative jumps at 0
 
-# The two-layer reverse kernels: module, wrapper, its outputs (name, block
-# axis, "node" for per-node values or "part" for per-block partials) and the
-# block axis of each input a block's replica slices.
+# The reverse kernels held by check_bwd2: module, wrapper, its outputs (name,
+# block axis, "node" for per-node values or "part" for per-block partials) and
+# the block axis of each input a block's replica slices.
 BWD2 = {
     "K11": ("fused2", "propagation_loop2_bwd",
             (("gs", 0, "node"), ("dw0", 0, "part"), ("db0", 0, "part"), ("dw1", 0, "part"),
@@ -878,6 +927,10 @@ BWD2 = {
              ("dagg", 0, "node"), ("red", 0, "part")),
             {"y_prev": 0, "y_k": 0, "agg": 0, "keep": 0, "feats": 0, "ds_in": 0, "gsel": 0,
              "nm": 0}),
+    "K2": ("bn", "bn_backward_step",
+           (("ds", 0, "node"), ("dw", 0, "part"), ("dagg", 0, "node"), ("red", 0, "part")),
+           {"y_prev": 0, "y_k": 0, "agg": 0, "keep": 0, "feats": 0, "ds_in": 0, "gsel": 0,
+            "nm": 0}),
     "K17": ("typed", "bnT_backward_step",
             (("ds", 0, "node"), ("dw", 0, "part"), ("dagg", 0, "node"), ("red", 0, "part")),
             {"y_prev": 0, "y_k": 0, "agg": 0, "types": 0, "keep": 0, "feats": 0, "ds_in": 0,
@@ -916,13 +969,13 @@ def act_grad_hook(torch, flips=(), record=None):
 
 
 def block_inputs(kern, x, b):
-    """The inputs of block b alone (for K15 and K17 its own adjacency as
+    """The inputs of block b alone (for K2, K15 and K17 its own adjacency as
     adj_loop)."""
     xb = dict(x)
     for k, axis in BWD2[kern][3].items():
         if x.get(k) is not None:
             xb[k] = x[k].narrow(axis, b, 1).contiguous()
-    if kern in ("K15", "K17"):
+    if kern in ("K2", "K15", "K17"):
         Bl = x["adj_loop"].shape[0]
         xb["adj_loop"] = x["adj_loop"][b:b + 1] if b < Bl else x["adj_dep"][b - Bl:b - Bl + 1]
         xb["adj_dep"] = None
@@ -942,8 +995,8 @@ def replica(torch, kern, xb, flips=(), record=None):
 
 
 def check_bwd2(torch, kern, x, label):
-    """A reverse kernel with a kinked activation's derivative (the two-layer
-    K11, K13, K15, and K17) against its plain version.
+    """A reverse kernel with a kinked activation's derivative (K2, the
+    two-layer K11, K13, K15, and K17) against its plain version.
     Where the activations have kinks (selu, relu), a pre-activation within
     rounding of 0 lets two summation orders take different, equally valid
     derivative branches (gnn_tpu's adjudication, docs/kernels.md:241-249),
@@ -1208,61 +1261,101 @@ def phase_two_layer_train_kernels(torch, gb):
     return out
 
 
-TILED = ("K10", "K11", "K13", "K15")   # the register-tiled kernels (ops/csrc/tile2.cuh)
+# the kernels with shared-memory plans: the register-tiled ones
+# (ops/csrc/tile2.cuh) and K2 (bn_train.cu)
+TILED = ("K10", "K11", "K12", "K13", "K15", "K2")
+
+
+def plans_of(k):
+    """Kernel k's plan list, as ops/fused2.py or ops/bn.py mirror it."""
+    from gnn_tpu_torch.ops import bn, fused2
+    return bn._BN_BWD_PLANS if k == "K2" else fused2._PLANS[k]
+
+
+def plan_bytes(k, plan, W, D, AL, H1):
+    from gnn_tpu_torch.ops import bn, fused2
+    if k == "K2":
+        return int(bn._bn_bwd_bytes(W, D, AL, plan))
+    return int(fused2._tile2_bytes(fused2._KIND[k], W, D, AL, H1, plan))
+
+
+def mirrored_plan(k, W, D, AL, H1):
+    """(bytes, plan index or None) the Python mirror names for kernel k."""
+    from gnn_tpu_torch.ops import bn, fused2
+    return bn._bn_bwd_plan(W, D, AL) if k == "K2" else fused2._tile2_plan(W, D, AL, H1, k)
 
 
 def tiled_plan(k, W, D, AL, H1):
-    """The shared-memory plan the library takes for the tiled kernel k at this
-    shape (AL: K15's F), held equal to ops/fused2.py::_tile2_plan's, and what
-    the card reports for it."""
-    from gnn_tpu_torch.ops import fused2
-    info = fused2.tile_info(k, W, D, AL, H1)
-    need, plan = fused2._tile2_plan(W, D, AL, H1, k)
+    """The shared-memory plan the library takes for kernel k at this shape
+    (AL: K2's and K15's F; K2 ignores H1), held equal to the Python mirror's
+    (ops/fused2.py::_tile2_plan, ops/bn.py::_bn_bwd_plan), and what the card
+    reports for it."""
+    from gnn_tpu_torch.ops import bn, fused2
+    info = bn.backward_info(W, D, AL) if k == "K2" else fused2.tile_info(k, W, D, AL, H1)
+    need, plan = mirrored_plan(k, W, D, AL, H1)
     if (info["plan"], info["smem_bytes"]) != (plan, need):
         fail(f"{k} W={W} D={D} AL={AL} H1={H1}: the library takes plan {info['plan']} "
-             f"({info['smem_bytes']} bytes), ops/fused2.py::_tile2_plan says {plan} ({need} bytes)")
+             f"({info['smem_bytes']} bytes), the Python mirror says {plan} ({need} bytes)")
     return info
 
 
-def describe(info):
+def describe_k(k, info):
+    """Kernel k's plan and occupancy as the card reports them (info)."""
+    threads = plans_of("K2")[info["plan"]][0] if k == "K2" else 256
     return (f"plan {info['plan']}, {info['smem_bytes']} bytes of shared memory a CTA, "
-            f"{info['ctas_per_sm']} CTAs ({info['ctas_per_sm'] * 8} warps) an SM, "
+            f"{info['ctas_per_sm']} CTAs ({info['ctas_per_sm'] * threads // 32} warps) an SM, "
             f"{info['registers']} registers and {info['local_bytes']} local bytes a thread")
 
 
+def check_repeat(torch, k, kernel, x, label):
+    """A second launch of kernel k bit-identical to the first."""
+    first, again = kernel(**x), kernel(**x)
+    torch.cuda.synchronize()
+    if not all(a is None or bool(torch.equal(a, b)) for a, b in zip(first, again)):
+        fail(f"{k} {label}: a second launch is not bit-identical to the first")
+
+
 def check_tiled(torch, k, kernel, x, dims):
-    """A tiled kernel on the full set: a second launch bit-identical to the
-    first; the plan and the occupancy the card reports. Returns the first
+    """A kernel with plans on the full set: a second launch bit-identical to
+    the first; the plan and the occupancy the card reports. Returns the first
     launch's outputs."""
     first = kernel(**x)
     again = kernel(**x)
     torch.cuda.synchronize()
     if not all(a is None or bool(torch.equal(a, b)) for a, b in zip(first, again)):
         fail(f"{k}: a second launch on the full set is not bit-identical to the first")
-    say(f"{k} full set: second launch bit-identical; {describe(tiled_plan(k, *dims))}")
+    say(f"{k} full set: second launch bit-identical; {describe_k(k, tiled_plan(k, *dims))}")
     return first
 
 
+def force_entry(k):
+    """Kernel k's gnn_*_force_plan entry."""
+    from gnn_tpu_torch.ops import _build, fused2
+    name = "gnn_bn_backward" if k == "K2" else fused2._TILED[k]
+    return getattr(_build.library(), name + "_force_plan")
+
+
 def time_plans(torch, k, kernel, x, dims, first):
-    """Every plan of the tiled K11 or K15 that fits the full-set shape, forced
+    """Every plan of K11, K12, K15 or K2 that fits the full-set shape, forced
     in turn (its outputs bit-identical to the default plan's `first`), timed
     as the kernels' rows are; the plan list is ordered by these times."""
-    from gnn_tpu_torch.ops import _build, fused2
-    force = getattr(_build.library(), fused2._TILED[k] + "_force_plan")
+    from gnn_tpu_torch.ops import bn, fused2
+    force = force_entry(k)
     times = {}
     try:
-        for i, plan in enumerate(fused2._PLANS[k]):
-            if fused2._tile2_bytes(fused2._KIND[k], *dims, plan) > fused2.SMEM_BYTES:
+        for i, plan in enumerate(plans_of(k)):
+            if plan_bytes(k, plan, *dims) > fused2.SMEM_BYTES:
                 continue
             force(i)
             got = kernel(**x)
             torch.cuda.synchronize()
             if not all(a is None or bool(torch.equal(a, b)) for a, b in zip(got, first)):
                 fail(f"{k}: plan {i} is not bit-identical to plan "
-                     f"{fused2._tile2_plan(*dims, k)[1]} on the full set")
+                     f"{mirrored_plan(k, *dims)[1]} on the full set")
             times[i] = timed_ms(torch, lambda: kernel(**x))
+            info = bn.backward_info(*dims[:3]) if k == "K2" else fused2.tile_info(k, *dims)
             say(f"{k} full set, plan {i} forced: {times[i]:.4f} ms, bit-identical to the default "
-                f"plan; {describe(fused2.tile_info(k, *dims))}")
+                f"plan; {describe_k(k, info)}")
     finally:
         force(-1)
     return times
@@ -1274,20 +1367,26 @@ def phase_two_layer_kernels(torch, gb, gb_train):
     (16, 32, 64), at the wrappers' hidden-width cap and with an arc-label
     width above D; against their plain versions; times and bounds at the
     full set."""
-    from gnn_tpu_torch.ops import fused2
+    from gnn_tpu_torch.ops import bn, fused2
     k9, k10, k12, k13 = two_layer_kernel_inputs(torch, gb, gb_train)
     errs = check_two_layer(torch, k9, k10, k12, k13, "full set")
+    plans_ms = {}
     for k, name, x, f in (("K10", "propagation_loop2", k10, "feats"),
+                          ("K12", "train_loop2", k12, "fd"),
                           ("K13", "train_loop2_bwd", k13, "fd")):
-        check_tiled(torch, k, getattr(fused2, name), x,
-                    (x["adjT"].shape[1], x["w1"].shape[0], x[f].shape[-1], x["w0"].shape[0]))
-    # the tiled kernels' plans the cases take (K11 and K15 take plan 0 at the
-    # full set, phase 8)
-    reached = {"K10": {0}, "K11": set(), "K13": {0}, "K15": set()}
+        dims = (x["adjT"].shape[1], x["w1"].shape[0], x[f].shape[-1], x["w0"].shape[0])
+        first = check_tiled(torch, k, getattr(fused2, name), x, dims)
+        if k == "K12":
+            plans_ms[k] = time_plans(torch, k, fused2.train_loop2, x, dims, first)
+    # the plans the cases take (K11, K15 and K2 take plan 0 at the full set,
+    # phases 5 and 8)
+    reached = {k: set() for k in TILED}
+    reached.update(K10={0}, K12={0}, K13={0})
 
-    def reach(W, D, AL, H1):
-        for k in reached:
-            reached[k].add(tiled_plan(k, W, D, AL, H1)["plan"])
+    def reach(W, D, AL, H1, kernels=TILED):
+        for k in kernels:
+            if mirrored_plan(k, W, D, AL, H1)[1] is not None:   # K2 runs where a plan fits
+                reached[k].add(tiled_plan(k, W, D, AL, H1)["plan"])
 
     gen = torch.Generator().manual_seed(SEED + 11)
     for B, W, D, AL, H1, K, acts, rate, alpha in (
@@ -1301,10 +1400,11 @@ def phase_two_layer_kernels(torch, gb, gb_train):
         *x, k11 = random_two_layer_inputs(torch, gen, B, W, D, AL, H1, K, acts, rate, alpha,
                                           gb.device)
         check_two_layer(torch, *x, "ragged", k11)
-        reach(W, D, AL, H1)
-    # the register-tiled K10, K11, K13 and K15 at the edges of their tiling (K15
-    # with a dep row); the last two take the leanest plans, the last one at a
-    # shape only they fit
+        reach(W, D, AL, H1, [k for k in TILED if k != "K2"])
+    # the register-tiled K10, K11, K12, K13 and K15 at the edges of their
+    # tiling (K15 with a dep row), and K2 at the same widths (W, D, F = AL)
+    # with a dep row and a row of 40 arcs in every block; the last two take
+    # the leanest plans, the last one at a shape only they fit
     for B, W, D, AL, H1, K, acts, rate, alpha, dense in (
             (3, 128, 14, 3, 1, 3, ("selu", "selu"), 0.1, True, False),
             (3, 128, 14, 3, 7, 3, ("tanh", "selu"), 0.1, False, False),
@@ -1315,28 +1415,37 @@ def phase_two_layer_kernels(torch, gb, gb_train):
             (3, 128, 14, 3, 150, 3, ("selu", "selu"), 0.1, True, True),
             (2, 128, 64, 33, 150, 2, ("selu", "tanh"), 0.0, True, False),
             (2, 32, 15, 59, 511, 2, ("tanh", "selu"), 0.1, False, False)):
-        _, k10r, _, k13r, k11r = random_two_layer_inputs(torch, gen, B, W, D, AL, H1, K, acts,
-                                                          rate, alpha, gb.device, dense=dense)
+        _, k10r, k12r, k13r, k11r = random_two_layer_inputs(
+            torch, gen, B, W, D, AL, H1, K, acts, rate, alpha, gb.device, dense=dense)
         _, k15r = random_bn_inputs(torch, gen, B + 1, B, W, D, AL, rate, True, gb.device, H1=H1,
                                    dense=dense)
         label = (f"tiling edge (B={B} W={W} D={D} AL={AL} H1={H1} K={K} {acts[0]}/{acts[1]} "
                  f"rate={rate}{' dense adjacency' if dense else ''})")
         check_plain(torch, f"K10 {label}", *against_plain(torch, fused2, "propagation_loop2", k10r),
                     ("traj", "margins"), exact=("margins",))
+        check_plain(torch, f"K12 {label}", *against_plain(torch, fused2, "train_loop2", k12r),
+                    ("traj", "margins", "agg"), exact=("margins",))
+        check_repeat(torch, "K12", fused2.train_loop2, k12r, label)
+        if bn._bn_bwd_plan(W, D, AL)[1] is not None:
+            _, k2r = random_bn_inputs(torch, gen, B + 1, B, W, D, AL, rate, True, gb.device,
+                                      dense=dense)
+            k2r["adj_loop"][:, 3, :40] = 0.05   # a row of 40 arcs: read from device memory
+            check_bn_backward(torch, k2r, dict(activation=acts[0], alpha_drop=alpha, rate=rate),
+                              f"tiling edge ({'dense adjacency, ' if dense else ''}a 40-arc row)")
         check_bwd2(torch, "K13", k13r, label)
         x15 = dict(k15r, act0=acts[0], act1=acts[1], alpha_drop=alpha, rate=rate)
         check_bwd2(torch, "K11", k11r, f"{label}, affine")
         check_bwd2(torch, "K15", x15, f"{label}, R={B + 1} Bl={B}")
         reach(W, D, AL, H1)
     for k in TILED:
-        if reached[k] != set(range(len(fused2._PLANS[k]))):
-            fail(f"{k}: the cases reach plans {sorted(reached[k])} of its {len(fused2._PLANS[k])}")
+        if reached[k] != set(range(len(plans_of(k)))):
+            fail(f"{k}: the cases reach plans {sorted(reached[k])} of its {len(plans_of(k))}")
     say("tiled plans reached: " + ", ".join(f"{k} {sorted(reached[k])}" for k in TILED))
     out = {}
     for (k, name, src, line), x, (b, by) in zip(
             (("K9", "propagation_step2", "fused2.cu", 1147),
              ("K10", "propagation_loop2", "loop2.cu", 1286),
-             ("K12", "train_loop2", "fused2.cu", 1551),
+             ("K12", "train_loop2", "loop2.cu", 1551),
              ("K13", "train_loop2_bwd", "train_loop2_bwd.cu", 1696)), (k9, k10, k12, k13),
             two_layer_bounds(k9, k10, k12, k13)):
         kernel, plain = getattr(fused2, name), getattr(fused2, name + "_ref")
@@ -1346,7 +1455,8 @@ def phase_two_layer_kernels(torch, gb, gb_train):
                       plain_ms=timed_ms(torch, lambda: plain(**x)),
                       bound_ms=b, bound_by=by, library_ms=None)
         say(f"{k} timing at adjT {tuple(x['adjT'].shape)}: kernel {out[k]['ms']:.4f} ms, plain "
-            f"{out[k]['plain_ms']:.4f} ms, bound {b:.4f} ms ({by})")
+            f"{out[k]['plain_ms']:.4f} ms, bound {b:.4f} ms ({by})"
+            + (f"; each plan forced: {plans_ms[k]}" if k in plans_ms else ""))
     return out
 
 

@@ -97,60 +97,57 @@ def build(force: bool = False) -> Path:
     return LIB_PATH
 
 
+def _signatures():
+    """{C entry: (argtypes, restype)} of the kernel library."""
+    p, i, f, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint64
+    sig = {
+        "gnn_propagation_loop": [p] * 8 + [i, i, i, i, f, i, p],
+        "gnn_propagation_step": [p] * 7 + [i, i, i, i, i, p],
+        "gnn_bn_forward": [p] * 14 + [i, i, i, i, i, f, i, i, f, f, p],
+        "gnn_bn_backward": [p] * 17 + [i, i, i, i, i, i, i, f, f, p],
+        "gnn_propagation_loop_bwd": [p] * 11 + [i, i, i, i, i, p],
+        "gnn_train_loop": [p] * 10 + [i, i, i, i, f, i, i, f, f, p],
+        "gnn_train_loop_bwd": [p] * 12 + [i, i, i, i, i, i, f, f, p],
+        "gnn_train_step": [p] * 9 + [i, i, i, i, i, i, f, f, p],
+        "gnn_propagation_loop2": [p] * 11 + [i] * 6 + [f, i, i, p],
+        "gnn_propagation_step2": [p] * 10 + [i] * 7 + [p],
+        "gnn_train_loop2": [p] * 13 + [i] * 6 + [f, i, i, i, f, f, p],
+        "gnn_train_loop2_bwd": [p] * 18 + [i] * 9 + [f, f, p],
+        "gnn_propagation_loop2_bwd": [p] * 17 + [i] * 8 + [p],
+        "gnn_bn2_forward": [p] * 16 + [i] * 6 + [f, i, i, i, f, f, p],
+        "gnn_bn2_backward": [p] * 21 + [i] * 9 + [f, f, p],
+        "gnn_bnT_forward": [p] * 15 + [i] * 6 + [f, u64, i, f, f, p],
+        "gnn_bnT_backward": [p] * 18 + [i] * 6 + [u64, i, f, f, p],
+        "gnn_segment_aggregate": [p] * 5 + [i, i, p],
+    }
+    out = {name: (args, i) for name, args in sig.items()}
+    # the tiled kernels' and K2's plan reports (W, D, AL or F, H1, out) and forced plans
+    for name in ("gnn_propagation_loop2", "gnn_propagation_loop2_bwd", "gnn_train_loop2",
+                 "gnn_train_loop2_bwd", "gnn_bn2_backward", "gnn_bn_backward"):
+        out[name + "_info"] = ([i] * 4 + [p], i)
+    for name in ("gnn_propagation_loop2_bwd", "gnn_bn2_backward", "gnn_train_loop2",
+                 "gnn_bn_backward"):
+        out[name + "_force_plan"] = ([i], None)
+    out["gnn_cuda_error_string"] = ([i], ctypes.c_char_p)
+    return out
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the C entries `lib` has (a
+    library built from some of the sources has some)."""
+    for name, (args, res) in _signatures().items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, res
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first use."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.gnn_propagation_loop.argtypes = [p] * 8 + [i, i, i, i, f, i, p]
-            lib.gnn_propagation_loop.restype = i
-            lib.gnn_propagation_step.argtypes = [p] * 7 + [i, i, i, i, i, p]
-            lib.gnn_propagation_step.restype = i
-            lib.gnn_bn_forward.argtypes = [p] * 14 + [i, i, i, i, i, f, i, i, f, f, p]
-            lib.gnn_bn_forward.restype = i
-            lib.gnn_bn_backward.argtypes = [p] * 17 + [i, i, i, i, i, i, i, f, f, p]
-            lib.gnn_bn_backward.restype = i
-            lib.gnn_propagation_loop_bwd.argtypes = [p] * 11 + [i, i, i, i, i, p]
-            lib.gnn_propagation_loop_bwd.restype = i
-            lib.gnn_train_loop.argtypes = [p] * 10 + [i, i, i, i, f, i, i, f, f, p]
-            lib.gnn_train_loop.restype = i
-            lib.gnn_train_loop_bwd.argtypes = [p] * 12 + [i, i, i, i, i, i, f, f, p]
-            lib.gnn_train_loop_bwd.restype = i
-            lib.gnn_train_step.argtypes = [p] * 9 + [i, i, i, i, i, i, f, f, p]
-            lib.gnn_train_step.restype = i
-            lib.gnn_propagation_loop2.argtypes = [p] * 11 + [i] * 6 + [f, i, i, p]
-            lib.gnn_propagation_loop2.restype = i
-            for tiled in ("gnn_propagation_loop2", "gnn_propagation_loop2_bwd",
-                          "gnn_train_loop2_bwd", "gnn_bn2_backward"):
-                getattr(lib, tiled + "_info").argtypes = [i] * 4 + [p]
-                getattr(lib, tiled + "_info").restype = i
-            for force in ("gnn_propagation_loop2_bwd_force_plan", "gnn_bn2_backward_force_plan"):
-                getattr(lib, force).argtypes = [i]
-                getattr(lib, force).restype = None
-            lib.gnn_propagation_step2.argtypes = [p] * 10 + [i] * 7 + [p]
-            lib.gnn_propagation_step2.restype = i
-            lib.gnn_train_loop2.argtypes = [p] * 13 + [i] * 6 + [f, i, i, i, f, f, p]
-            lib.gnn_train_loop2.restype = i
-            lib.gnn_train_loop2_bwd.argtypes = [p] * 18 + [i] * 9 + [f, f, p]
-            lib.gnn_train_loop2_bwd.restype = i
-            lib.gnn_propagation_loop2_bwd.argtypes = [p] * 17 + [i] * 8 + [p]
-            lib.gnn_propagation_loop2_bwd.restype = i
-            lib.gnn_bn2_forward.argtypes = [p] * 16 + [i] * 6 + [f, i, i, i, f, f, p]
-            lib.gnn_bn2_forward.restype = i
-            lib.gnn_bn2_backward.argtypes = [p] * 21 + [i] * 9 + [f, f, p]
-            lib.gnn_bn2_backward.restype = i
-            u64 = ctypes.c_uint64
-            lib.gnn_bnT_forward.argtypes = [p] * 15 + [i] * 6 + [f, u64, i, f, f, p]
-            lib.gnn_bnT_forward.restype = i
-            lib.gnn_bnT_backward.argtypes = [p] * 18 + [i] * 6 + [u64, i, f, f, p]
-            lib.gnn_bnT_backward.restype = i
-            lib.gnn_segment_aggregate.argtypes = [p] * 5 + [i, i, p]
-            lib.gnn_segment_aggregate.restype = i
-            lib.gnn_cuda_error_string.argtypes = [i]
-            lib.gnn_cuda_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            _lib = bind(ctypes.CDLL(str(build())))
         return _lib
 
 

@@ -34,15 +34,19 @@ Keep-masks are uint8 [R, W, 2D+F] in x3 column order.
 Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
 launches the CUDA kernel (ops/csrc/bn_train.cu, bn2_train.cu) for CUDA
 tensors; it never falls back from one to the other. `launches` counts kernel
-launches. K14/K15 take D and F up to 64, H1 up to fused2.MAX_HIDDEN, and a
-block's rows and the weights within a CTA's shared memory (`_smem2_bytes`).
+launches. K2 takes the first of its shared-memory plans that fits a CTA
+(`_bn_bwd_plan`); K14/K15 take D and F up to 64, H1 up to
+fused2.MAX_HIDDEN, and a block's rows and the weights within a CTA's shared
+memory (`_smem2_bytes`).
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -182,16 +186,17 @@ def _red(ds, xp_hat):
 
 def bn_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds_in,
                          gsel, bnv, flag, nm, *, activation: str, alpha_drop: bool,
-                         rate: float):
+                         rate: float, act_grad=_act_grad):
     """Plain PyTorch K2: one reverse iteration with the BatchNorm backward
     folded in. `bnv` [9, D] holds the rows named in BNV_ROWS; `flag` (0-d)
     gates the state cotangent `gsel` in. Returns (ds [R, W, D], dw [R, D, C]
     per-block partials of the w_aug cotangent, dagg [R, W, D], red [R, 2, D]
-    per-block (sum ds, sum ds * x_hat_prev))."""
+    per-block (sum ds, sum ds * x_hat_prev)). act_grad (name, h) is the
+    activation's derivative."""
     D = y_prev.shape[-1]
     x3 = _x3(y_prev * bnv[0] + bnv[1], agg, feats, keep, alpha_drop, rate)
     h = F.linear(x3, w_aug[:, :-1], w_aug[:, -1])
-    dh = _bn_gy(y_k, ds_in, gsel, bnv, flag, nm) * _act_grad(activation, h)
+    dh = _bn_gy(y_k, ds_in, gsel, bnv, flag, nm) * act_grad(activation, h)
     dw = torch.matmul(dh.transpose(1, 2), _ones_col(x3))
     ds, dagg = _bn_ds(adj_loop, adj_dep, torch.matmul(dh, w_aug[:, :2 * D]), keep, alpha_drop,
                       rate)
@@ -216,6 +221,63 @@ def bn2_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_a
 
 
 # ------------------------------------------------------------------ wrappers
+# bn_train.cu's kBnBwdPlans, K2's shared-memory plans in order of preference:
+# (threads a CTA, room of the row lists, rows and keep bytes staged). The
+# first is the flagship's; the last fits every shape the per-node K2 took.
+_BN_BWD_PLANS = ((256, 16, 1), (128, 0, 0))
+
+
+def _r4(n):
+    return (n + 3) // 4 * 4
+
+
+def _bn_bwd_bytes(W, D, F, plan):
+    """Shared memory of bn_train.cu::bwd_layout: x3 [C1][W], dh [D][W], w_aug
+    transposed [C][D rounded up to 4], bnv [9][D], nm [W]; staged, y_prev [W][D] and the keep bytes;
+    the late region (ds_in, gsel, y_k, or dagg [W][D|1] and, staged, the
+    partials of the 8 node ranges);
+    the row lists ([E][W] floats, W counts and E*W destinations as bytes);
+    each region a multiple of 16 bytes. The widths may be ints or numpy
+    integer arrays."""
+    nt, E, st = plan
+    C1 = 2 * D + F
+    C = C1 + 1
+    floats = _r4(C1 * W) + _r4(D * W) + C * _r4(D) + _r4(9 * D) + _r4(W)
+    if st:
+        floats = floats + _r4(W * D) + _r4((W * C1 + 3) // 4)
+    part = st * 8 * D * C           # the partials of 8 node ranges (D * C >= 2D)
+    floats = floats + np.maximum(st * 3 * _r4(W * D), _r4(W * (D | 1)) + _r4(part)) + E * W
+    return 4 * floats + (W + E * W if E else 0)
+
+
+def _bn_bwd_plan(W: int, D: int, F: int):
+    """(shared-memory bytes, plan index) K2 takes at this shape: the first
+    plan of _BN_BWD_PLANS that fits a CTA, or the leanest plan's bytes and
+    None."""
+    for i, plan in enumerate(_BN_BWD_PLANS):
+        need = int(_bn_bwd_bytes(W, D, F, plan))
+        if need <= SMEM_BYTES:
+            return need, i
+    return need, None
+
+
+def _check_bn_bwd_plan(W: int, D: int, F: int) -> None:
+    """Raise before any launch at a shape no K2 plan fits."""
+    need, plan = _bn_bwd_plan(W, D, F)
+    if plan is None:
+        raise ValueError(f"W={W}, D={D}, F={F} needs {need} bytes of shared memory a block, "
+                         f"more than the {SMEM_BYTES} a CTA may use")
+
+
+def backward_info(W: int, D: int, F: int) -> dict:
+    """What the card reports for the K2 kernel launched at this shape: its
+    plan index, shared-memory bytes, resident CTAs an SM, registers and
+    local-memory bytes a thread (builds the library)."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().gnn_bn_backward_info(W, D, F, 0, out), "gnn_bn_backward_info")
+    return dict(zip(("plan", "smem_bytes", "ctas_per_sm", "registers", "local_bytes"), out))
+
+
 def _check_blocks(adj_loop, adj_dep, R, D):
     """(Bl, W) after checking the two adjacencies against R block rows."""
     Bl, W, W2 = adj_loop.shape
@@ -319,6 +381,7 @@ def _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds
     Fd = feats.shape[-1]
     C = 2 * D + Fd + 1
     Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
+    _check_bn_bwd_plan(W, D, Fd)
     dev = adj_loop.device
     for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
                     ("gsel", gsel)):

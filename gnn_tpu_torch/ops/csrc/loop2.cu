@@ -1,24 +1,33 @@
-// K10, the two-layer eval loop, for Hopper (sm_90a), in plain fp32 on the
-// CUDA cores (no TF32, no bf16), as register-tiled block products.
+// K10, the two-layer eval loop, and K12, the two-layer dropout-training
+// loop, for Hopper (sm_90a), in plain fp32 on the CUDA cores (no TF32, no
+// bf16), as register-tiled block products: one kernel, K12 its TRAIN
+// instantiation.
 //
 // Replaces gnn_tpu/ops/pallas_fused.py:
-//   K10 _loop2_kernel_T (launched by _loop2_impl) -> gnn_propagation_loop2
+//   K10 _loop2_kernel_T       (launched by _loop2_impl)       -> gnn_propagation_loop2
+//   K12 _loop2_train_kernel_T (launched by _loop2_train_impl) -> gnn_train_loop2
+// K12's reverse, K13, is in train_loop2_bwd.cu.
 //
-// All K eval iterations of a residual-free W-node block, f the raw arc-label
-// aggregation (the same every iteration), (scale, shift) the inference
-// BatchNorm; iteration k on the state s (traj[k - 1], or s0):
+// K10: all K eval iterations of a residual-free W-node block, f the raw
+// arc-label aggregation (the same every iteration), (scale, shift) the
+// inference BatchNorm; iteration k on the state s (traj[k - 1], or s0):
 //   marg[k] = nm where ||s - s_old|| > thr ||s_old|| (s_old: the state before
 //             s, ones at k = 0), else 0
 //   agg     = adjT^T @ s
 //   s'      = act1(w1 @ act0(w0 @ [s | agg | f] + b0) + b1) * scale + shift
 //   traj[k] = s'
+// K12: the same iterations in training, with no affine: x3 = [drop(s) |
+// drop(agg) | fd[k]] from the uint8 keep-masks ms[k], ma[k] and the dropped
+// arc-label aggregation fd[k] of iteration k; agg[k], before the dropout, is
+// written out (K13 reads it). The movement test reads the undropped state.
 //
 // Bound: the dense layers cost 2*H1*(3D + AL) flops a node and iteration
 // (13.5 kflop on the hidden-150 recipe, W = 128, D = 14, AL = 3, H1 = 150)
 // and the block's arcs 2*D each, against 4*D + 4 bytes written a node and
-// iteration: the least time is the operations at the card's 67 TFLOP/s fp32
-// (chip_smoke.py::two_layer_bounds: 0.196 ms on the serving batch's 1440 loop
-// rows, K = 5).
+// iteration (K12: also 4*D of agg, 2*D mask and 4*AL fd bytes): the least
+// time is the operations at the card's 67 TFLOP/s fp32
+// (chip_smoke.py::two_layer_bounds: K10 0.196 ms on the serving batch's 1440
+// loop rows, K = 5; K12 0.151 ms on the training batch's 1104).
 //
 // Design (tile2.cuh's building blocks), one CTA of 256 threads a block:
 // - the dense layers are block products on register tiles: thread t owns 4
@@ -39,9 +48,16 @@
 //   alone is 66 KB), so two CTAs of 256 threads, 16 warps, fit an SM;
 // - the movement test is summed over each node's D/8 owner threads into
 //   shared memory and finished by one thread a node, with no atomics.
+// - K12: the owner thread of (node, output column) keeps that node's
+//   undropped state in registers (4 nodes x D/8 values), so x3's state rows
+//   can take the dropped copy; after the aggregation it writes agg[k] and the
+//   dropped agg and state into x3, from keep bits it loaded at the start of
+//   the iteration; fd[k] is copied into x3's last AL rows with cp.async while
+//   the aggregation runs.
 // Shapes whose layout does not fit take the leaner plan (tile2.cuh
-// kLoop2Plans: one y0 tile, no lists, w1 read from device memory), which fits
-// every shape the per-node kernel that this replaces took.
+// kLoop2Plans, kTrainLoop2Plans: one y0 tile, no lists, w1 read from device
+// memory), which fits every shape the per-node kernels that these replace
+// took.
 
 #include "tile2.cuh"
 
@@ -50,16 +66,25 @@ namespace {
 using namespace gnn;
 
 static_assert(kLoop2Plans[0].ut == 4 && kLoop2Plans[1].ut == 4, "K10 owns 4 units a thread");
+static_assert(kTrainLoop2Plans[0].ut == 4 && kTrainLoop2Plans[1].ut == 4,
+              "K12 owns 4 units a thread");
 
-template <int MAXF>
+int g_force = -1;  // gnn_train_loop2_force_plan
+
+// TRAIN false: K10 (f [B, W, AL], aff; ms, ma, agg_out unused); TRAIN true:
+// K12 (f = fd [K, B, W, AL], the keep-masks ms/ma [K, B, W, D] (null when
+// mode == kNoDrop), agg_out [K, B, W, D]; aff unused).
+template <int MAXF, bool TRAIN>
 __global__ void __launch_bounds__(kTileThreads, 2)
 loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
                   const float* __restrict__ f, const float* __restrict__ w0,
                   const float* __restrict__ b0, const float* __restrict__ w1,
                   const float* __restrict__ b1, const float* __restrict__ aff,
+                  const uint8_t* __restrict__ ms, const uint8_t* __restrict__ ma,
                   const float* __restrict__ nm, float* __restrict__ traj,
-                  float* __restrict__ marg, int B, int W, int D, int AL, int H1, int K, float thr,
-                  int act0, int act1, Tile2Plan p) {
+                  float* __restrict__ marg, float* __restrict__ agg_out, int B, int W, int D,
+                  int AL, int H1, int K, float thr, int act0, int act1, int mode, float da,
+                  float db, Tile2Plan p) {
   constexpr int DG = MAXF / 8, UT = 4, CH = 8 * UT;
   extern __shared__ float4 smem_raw[];
   float* base = reinterpret_cast<float*>(smem_raw);
@@ -83,9 +108,11 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
   const W1Src w1src{w1s, w1, S, H1, p.w1g != 0};
 
   stage_tile_weights(w0, C, b0, 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, b1s);
-  for (int i = t; i < 2 * D; i += kTileThreads) cp_async4(affs + i, aff + i);
+  if constexpr (!TRAIN) {
+    for (int i = t; i < 2 * D; i += kTileThreads) cp_async4(affs + i, aff + i);
+  }
   stage_rowsT(s0 + row0 * D, W, D, X, 0);
-  stage_rowsT(f + row0 * AL, W, AL, X, 2 * D);
+  if constexpr (!TRAIN) stage_rowsT(f + row0 * AL, W, AL, X, 2 * D);
   if (p.E > 0 && t < W) build_list(adj, W, t, p.E, true, lw, idx, cnt);
   cp_async_wait_all();
   __syncthreads();
@@ -110,6 +137,18 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
       marg[((size_t)k * B + b) * W + t] = sqrtf(d2) > thr * sqrtf(n2) ? nm[row0 + t] : 0.0f;
     }
   };
+  // K12: the owner's undropped state, sv[n][i] of node 4 ng + n, column dg + 8 i
+  float sv[4][DG];
+  if constexpr (TRAIN) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+#pragma unroll
+      for (int i = 0; i < DG; ++i) {
+        const int d = dg + 8 * i;
+        sv[n][i] = node_ok && d < D ? X[d * W + 4 * ng + n] : 0.0f;
+      }
+    }
+  }
   // before update 0 the old state is ones
 #pragma unroll
   for (int n = 0; n < 4; ++n) {
@@ -129,6 +168,27 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
   const int nch = (S + CH - 1) / CH;
   for (int k = 0; k < K; ++k) {
     const size_t kb = (size_t)k * B + b;
+    // K12: fd[k] into X rows [2D, 2D + AL) (no thread reads them until the
+    // chunks) and this iteration's keep bits, bit n * DG + i of node 4 ng + n,
+    // column dg + 8 i, while the aggregation runs
+    uint32_t kept_s = 0, kept_a = 0;
+    if constexpr (TRAIN) {
+      stage_rowsT(f + kb * W * AL, W, AL, X, 2 * D);
+      if (mode != kNoDrop && node_ok) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+#pragma unroll
+          for (int i = 0; i < DG; ++i) {
+            const int d = dg + 8 * i;
+            if (d < D) {
+              const size_t e = (kb * W + 4 * ng + n) * D + d;
+              kept_s |= (ms[e] != 0 ? 1u : 0u) << (n * DG + i);
+              kept_a |= (ma[e] != 0 ? 1u : 0u) << (n * DG + i);
+            }
+          }
+        }
+      }
+    }
     // agg = adjT^T @ s into X rows [D, 2D): thread (node, half of the columns)
     {
       const int n = t & (kMaxW - 1);
@@ -136,7 +196,29 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
         for (int d = t >> 7; d < D; d += 2)
           X[(D + d) * W + n] = line_dot(adj, W, n, true, p.E, lw, idx, cnt, X + d * W);
     }
-    __syncthreads();  // X holds x3; the movement sums are read
+    __syncthreads();  // X holds x3 (K12: undropped); the movement sums are read
+    if constexpr (TRAIN) {
+      // agg[k] before the dropout, then the dropped state and aggregation
+      // into X rows [0, 2D), each entry by its owner
+      if (node_ok) {
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int node = 4 * ng + n;
+#pragma unroll
+          for (int i = 0; i < DG; ++i) {
+            const int d = dg + 8 * i;
+            if (d < D) {
+              const float a = X[(D + d) * W + node];
+              agg_out[(kb * W + node) * D + d] = a;
+              X[(D + d) * W + node] = drop(mode, da, db, a, (kept_a >> (n * DG + i)) & 1u);
+              X[d * W + node] = drop(mode, da, db, sv[n][i], (kept_s >> (n * DG + i)) & 1u);
+            }
+          }
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();  // X holds the dropped x3 and fd[k]
+    }
 
     float h1[4][DG];
 #pragma unroll
@@ -164,8 +246,8 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
       if (p.nbuf == 1) __syncthreads();
     }
 
-    // s' = act1(h1) * scale + shift into X rows [0, D) and traj[k]; every
-    // thread is past its reads of X (the last chunk's barrier)
+    // s' = act1(h1) * scale + shift (K12: act1(h1)) into X rows [0, D) and
+    // traj[k]; every thread is past its reads of X (the last chunk's barrier)
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       dist[n] = norm[n] = 0.0f;
@@ -174,8 +256,15 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
       for (int i = 0; i < DG; ++i) {
         const int d = dg + 8 * i;
         if (node_ok && d < D) {
-          const float y = activate(act1, h1[n][i]) * affs[d] + affs[D + d];
-          const float old = X[d * W + node];
+          float y, old;
+          if constexpr (TRAIN) {
+            y = activate(act1, h1[n][i]);
+            old = sv[n][i];
+            sv[n][i] = y;
+          } else {
+            y = activate(act1, h1[n][i]) * affs[d] + affs[D + d];
+            old = X[d * W + node];
+          }
           const float diff = y - old;
           dist[n] = __fadd_rn(dist[n], __fmul_rn(diff, diff));
           norm[n] = __fadd_rn(norm[n], __fmul_rn(old, old));
@@ -190,19 +279,25 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
 }
 
 using Loop2Fn = void (*)(const float*, const float*, const float*, const float*, const float*,
-                         const float*, const float*, const float*, const float*, float*, float*,
-                         int, int, int, int, int, int, float, int, int, Tile2Plan);
+                         const float*, const float*, const float*, const uint8_t*, const uint8_t*,
+                         const float*, float*, float*, float*, int, int, int, int, int, int, float,
+                         int, int, int, float, float, Tile2Plan);
 
-// The kernel and plan for a shape (nullptr if none fits).
+// The kernel and plan of K10 (TRAIN false) or K12 for a shape (nullptr if
+// none fits); K12 takes plan g_force where it is set.
+template <bool TRAIN>
 Loop2Fn pick(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* index) {
-  if (!pick_plan(kForward2, kLoop2Plans, W, D, AL, H1, p, bytes, index)) return nullptr;
+  const bool ok = TRAIN ? pick_plan(kForward2, kTrainLoop2Plans, W, D, AL, H1, p, bytes, index,
+                                    g_force)
+                        : pick_plan(kForward2, kLoop2Plans, W, D, AL, H1, p, bytes, index);
+  if (!ok) return nullptr;
   switch (width_class(D > AL ? D : AL)) {
     case 16:
-      return loop2_tile_kernel<16>;
+      return loop2_tile_kernel<16, TRAIN>;
     case 32:
-      return loop2_tile_kernel<32>;
+      return loop2_tile_kernel<32, TRAIN>;
     case 64:
-      return loop2_tile_kernel<64>;
+      return loop2_tile_kernel<64, TRAIN>;
     default:
       return nullptr;
   }
@@ -223,12 +318,13 @@ int gnn_propagation_loop2(const float* adjT, const float* s0, const float* f, co
   Tile2Plan p;
   size_t bytes;
   int index;
-  const Loop2Fn fn = pick(W, D, AL, H1, &p, &bytes, &index);
+  const Loop2Fn fn = pick<false>(W, D, AL, H1, &p, &bytes, &index);
   if (fn == nullptr) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
   fn<<<B, kTileThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      adjT, s0, f, w0, b0, w1, b1, aff, nm, traj, marg, B, W, D, AL, H1, K, thr, act0, act1, p);
+      adjT, s0, f, w0, b0, w1, b1, aff, nullptr, nullptr, nm, traj, marg, nullptr, B, W, D, AL,
+      H1, K, thr, act0, act1, kNoDrop, 1.0f, 0.0f, p);
   return cudaGetLastError();
 }
 
@@ -239,9 +335,47 @@ int gnn_propagation_loop2_info(int W, int D, int AL, int H1, int* out) {
   Tile2Plan p;
   size_t bytes;
   int index;
-  const Loop2Fn fn = pick(W, D, AL, H1, &p, &bytes, &index);
+  const Loop2Fn fn = pick<false>(W, D, AL, H1, &p, &bytes, &index);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return tile_kernel_info(fn, bytes, index, out);
 }
+
+// adjT [B, W, W], s0 [B, W, D], ms/ma uint8 [K, B, W, D] (null when mode == 0),
+// fd [K, B, W, AL], w0 [H1, 2D + AL], b0 [H1], w1 [D, H1], b1 [D], nm [B, W]
+// -> traj, agg [K, B, W, D], marg [K, B, W]. Returns a cudaError_t code.
+int gnn_train_loop2(const float* adjT, const float* s0, const uint8_t* ms, const uint8_t* ma,
+                    const float* fd, const float* w0, const float* b0, const float* w1,
+                    const float* b1, const float* nm, float* traj, float* marg, float* agg, int B,
+                    int W, int D, int AL, int H1, int K, float thr, int act0, int act1, int mode,
+                    float da, float db, void* stream) {
+  if (!block_ok(B, W) || D <= 0 || AL <= 0 || H1 <= 0 || K <= 0) return cudaErrorInvalidValue;
+  if (mode != kNoDrop && (ms == nullptr || ma == nullptr)) return cudaErrorInvalidValue;
+  Tile2Plan p;
+  size_t bytes;
+  int index;
+  const Loop2Fn fn = pick<true>(W, D, AL, H1, &p, &bytes, &index);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(fn, bytes);
+  if (err != cudaSuccess) return err;
+  fn<<<B, kTileThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      adjT, s0, fd, w0, b0, w1, b1, nullptr, ms, ma, nm, traj, marg, agg, B, W, D, AL, H1, K,
+      thr, act0, act1, mode, da, db, p);
+  return cudaGetLastError();
+}
+
+// As gnn_propagation_loop2_info, for the kernel gnn_train_loop2 launches.
+int gnn_train_loop2_info(int W, int D, int AL, int H1, int* out) {
+  Tile2Plan p;
+  size_t bytes;
+  int index;
+  const Loop2Fn fn = pick<true>(W, D, AL, H1, &p, &bytes, &index);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return tile_kernel_info(fn, bytes, index, out);
+}
+
+// Launch plan `index` of kTrainLoop2Plans from now on, where it fits (a
+// launch at a shape it does not fit fails), or the first plan that fits
+// again (index -1): for timing one plan against another.
+void gnn_train_loop2_force_plan(int index) { g_force = index; }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
 // Register-tiled block products of the two-layer state net for Hopper
-// (sm_90a), in plain fp32 on the CUDA cores, shared by K10 (loop2.cu) and the
-// three reverse kernels K13 (train_loop2_bwd.cu), K11 (eval_loop2_bwd.cu) and
-// K15 (bn2_train.cu).
+// (sm_90a), in plain fp32 on the CUDA cores, shared by the forward loops K10
+// and K12 (loop2.cu), the three reverse kernels K13 (train_loop2_bwd.cu), K11
+// (eval_loop2_bwd.cu) and K15 (bn2_train.cu), and, for its staging and
+// adjacency lists, the one-layer K2 (bn_train.cu).
 //
 // A CTA of kTileThreads = 256 threads works on one W-node block. Its dense
 // input x3 = [s | agg | f] lies in shared memory transposed, X[c][n] (C rows
@@ -35,7 +36,8 @@
 //
 // The staging of weights and rows uses cp.async (device builds; a host build
 // of the same source copies synchronously). Nothing here uses atomics or warp
-// shuffles: every sum runs in a fixed order, so a launch repeats bit for bit.
+// shuffles (build_row_lists takes warp votes): every sum runs in a fixed
+// order, so a launch repeats bit for bit.
 //
 // Shared-memory plans (tile2_layout): a kernel takes the first plan of its
 // list whose layout fits a CTA's 227 KB; ops/fused2.py::_tile2_plan mirrors
@@ -67,6 +69,9 @@ struct Tile2Plan {
 };
 
 constexpr Tile2Plan kLoop2Plans[] = {{4, 2, 0, 0, 0, 16, 1, 0}, {4, 1, 0, 0, 0, 0, 1, 1}};
+// K12 (loop2.cu), K10's forward in training: the same layout (kForward2; its
+// affine rows go unused).
+constexpr Tile2Plan kTrainLoop2Plans[] = {{4, 2, 0, 0, 0, 16, 1, 0}, {4, 1, 0, 0, 0, 0, 1, 1}};
 constexpr Tile2Plan kTrain2Plans[] = {{4, 1, 1, 1, 1, 16, 1, 0},
                                       {4, 1, 1, 1, 0, 16, 1, 0},
                                       {4, 1, 0, 0, 0, 16, 1, 0},
@@ -81,9 +86,9 @@ constexpr Tile2Plan kLoop2BwdPlans[] = {{4, 2, 1, 1, 1, 16, 1, 0},
                                         {2, 1, 0, 0, 0, 0, 0, 1}};
 constexpr Tile2Plan kBn2BwdPlans[] = {{4, 1, 0, 0, 0, 16, 1, 0}, {2, 1, 0, 0, 0, 0, 0, 1}};
 
-// The layouts: K10's forward; the reverse step of K13 and K15; K11's, which
-// also recomputes the aggregation (a second list set) and sums the affine's
-// and the features' cotangents.
+// The layouts: K10's and K12's forward; the reverse step of K13 and K15;
+// K11's, which also recomputes the aggregation (a second list set) and sums
+// the affine's and the features' cotangents.
 enum Tile2Kind { kForward2 = 0, kReverse2 = 1, kReverse2Agg = 2 };
 
 __host__ __device__ inline int hidden_stride(int H1, int ut, int pad) {
@@ -100,7 +105,7 @@ struct Tile2Layout {
   size_t cnt_b, idx_b, bytes;
 };
 
-// kForward2 (K10): X [C][W], Y [nbuf][CH][W], w0T [C][S], w1 [D][S] (none
+// kForward2 (K10, K12): X [C][W], Y [nbuf][CH][W], w0T [C][S], w1 [D][S] (none
 // with w1g), b0 [S], lists [E][W], b1 [D], aff [2][D]. kReverse2 (K13, K15):
 // X, G [D][W] (g + gs, dh1, then gs), Y [CH][W], H [S or CH][W] (h0, then
 // dh0), w0T, w1, b0, prefetched rows [(3D + AL) W], lists, the weight
@@ -174,16 +179,18 @@ inline bool pick_plan(int kind, const Tile2Plan (&plans)[N], int W, int D, int A
 }
 
 // Smem bytes, plan index, resident CTAs an SM, registers a thread and local
-// bytes a thread of a tiled kernel, into out[0..4].
+// bytes a thread of a kernel with plans, launched with `threads` threads a
+// CTA, into out[0..4].
 template <typename Kernel>
-int tile_kernel_info(Kernel kernel, size_t bytes, int index, int* out) {
+int tile_kernel_info(Kernel kernel, size_t bytes, int index, int* out,
+                     int threads = kTileThreads) {
   cudaError_t err = set_smem(kernel, bytes);
   if (err != cudaSuccess) return err;
   cudaFuncAttributes a;
   err = cudaFuncGetAttributes(&a, kernel);
   if (err != cudaSuccess) return err;
   int ctas = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kTileThreads, bytes);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, threads, bytes);
   if (err != cudaSuccess) return err;
   out[0] = index;
   out[1] = static_cast<int>(bytes);
@@ -329,6 +336,58 @@ __device__ inline void build_list(const float* __restrict__ adj, int W, int n, i
     }
   }
   cnt[n] = static_cast<uint8_t>(c);  // W <= 128
+}
+
+// The row lists of the block adjacency adj [W][W] (device memory, rows
+// 16-byte aligned) exactly as build_list(..., by_col = false) builds them,
+// from coalesced reads: each warp takes rows in turn, eight in flight, lane l
+// reading columns 4l .. 4l + 3 of a row as one 16-byte load (W / 4 lanes),
+// and places its nonzero entries after those of the lanes before it, which
+// a __ballot_sync vote a column counts. Every thread of the CTA must call it
+// (whole warps); the lists are complete after the next __syncthreads.
+__device__ inline void build_row_lists(const float* __restrict__ adj, int W, int E, float* w,
+                                       uint8_t* idx, uint8_t* cnt) {
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const bool on = lane < W / 4;
+  const unsigned below = (1u << lane) - 1u;
+  constexpr int R = 8;
+  for (int n0 = threadIdx.x >> 5; n0 < W; n0 += R * nw) {
+    float a[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int n = n0 + r * nw;
+      float4 v = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (on && n < W) v = reinterpret_cast<const float4*>(adj + (size_t)n * W)[lane];
+      a[r][0] = v.x;
+      a[r][1] = v.y;
+      a[r][2] = v.z;
+      a[r][3] = v.w;
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int n = n0 + r * nw;
+      if (n < W) {  // the same for the whole warp
+        int pos = 0, total = 0;
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const unsigned votes = __ballot_sync(0xffffffffu, a[r][u] != 0.0f);
+          pos += __popc(votes & below);
+          total += __popc(votes);
+        }
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (a[r][u] != 0.0f) {
+            if (pos < E) {
+              w[pos * W + n] = a[r][u];
+              idx[pos * W + n] = static_cast<uint8_t>(4 * lane + u);
+            }
+            ++pos;
+          }
+        }
+        if (lane == 0) cnt[n] = static_cast<uint8_t>(total);  // W <= 128
+      }
+    }
+  }
 }
 
 // sum over line n of adj(n, m) * xs[m]: from the list when it holds the

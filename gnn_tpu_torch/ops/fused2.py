@@ -44,11 +44,11 @@ BatchNorm, `fused_train_loop2` (K12, backward K13) and
 Layout and rules as ops/fused.py: node-major blocks s [B, W, D], f
 [(K,) B, W, AL], adjT [B, W(src), W(dst)], keep-masks uint8 [K, B, W, D]. Each
 wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and launches
-the CUDA kernel (ops/csrc/fused2.cu: K9, K12; loop2.cu: K10;
+the CUDA kernel (ops/csrc/fused2.cu: K9; loop2.cu: K10, K12;
 eval_loop2_bwd.cu: K11; train_loop2_bwd.cu: K13) for CUDA tensors;
 `launches` counts kernel launches. D and AL are at most 64, H1 at most
 MAX_HIDDEN, and a block's rows and the weights must fit a CTA's shared
-memory (`_smem_bytes` for K9 and K12; `_tile2_plan` for K10, K11, K13 and
+memory (`_smem_bytes` for K9; `_tile2_plan` for K10, K11, K12, K13 and
 ops/bn.py's K15, the register-tiled kernels of ops/csrc/tile2.cuh, which take
 the first of their shared-memory plans that fits). The dense layers set
 these kernels' least time.
@@ -68,7 +68,7 @@ from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, _act
                                      launch_counted, moved)
 
 # the largest hidden width H1 the kernels take (the weights sit in shared
-# memory; at W = 128, D = 14, AL = 3, H1 = 512 K9/K12 need 176 KB)
+# memory; at W = 128, D = 14, AL = 3, H1 = 512 K9 needs 176 KB)
 MAX_HIDDEN = 512
 SMEM_BYTES = 232448          # shared memory a CTA may use (227 KB)
 
@@ -258,8 +258,8 @@ def _step2_vjp(adjT, s, rT, feats, w0, b0, w1, b1, affine, g, act0: str, act1: s
 
 # ------------------------------------------------------------------ wrappers
 def _smem_bytes(W: int, D: int, AL: int, H1: int) -> int:
-    """Shared memory a CTA of the forward kernels K9/K12 (fused2.cu::fwd_smem)
-    needs: the adjacency, row tiles and the weights."""
+    """Shared memory a CTA of K9 (fused2.cu::fwd_smem) needs: the adjacency,
+    row tiles and the weights."""
     C = 2 * D + AL
     return 4 * (W * (W + 1) + W * (D | 1) + W * (max(D, AL) | 1) + H1 * (C + D + 1) + 3 * D)
 
@@ -271,6 +271,7 @@ def _smem_bytes(W: int, D: int, AL: int, H1: int) -> int:
 # took.
 _PLANS = {
     "K10": ((4, 2, 0, 0, 0, 16, 1, 0), (4, 1, 0, 0, 0, 0, 1, 1)),             # kLoop2Plans
+    "K12": ((4, 2, 0, 0, 0, 16, 1, 0), (4, 1, 0, 0, 0, 0, 1, 1)),             # kTrainLoop2Plans
     "K13": ((4, 1, 1, 1, 1, 16, 1, 0), (4, 1, 1, 1, 0, 16, 1, 0),             # kTrain2Plans
             (4, 1, 0, 0, 0, 16, 1, 0), (2, 1, 0, 0, 0, 0, 0, 1)),
     "K11": ((4, 2, 1, 1, 1, 16, 1, 0), (4, 1, 0, 0, 0, 16, 1, 0),             # kLoop2BwdPlans
@@ -279,17 +280,18 @@ _PLANS = {
 }
 # tile2.cuh::Tile2Kind of each kernel's layout: the forward, the reverse step,
 # the reverse step with the aggregation again
-_KIND = {"K10": 0, "K13": 1, "K15": 1, "K11": 2}
+_KIND = {"K10": 0, "K12": 0, "K13": 1, "K15": 1, "K11": 2}
 
 
 def _tile2_bytes(kind: int, W, D, AL, H1, plan):
     """Shared memory of tile2.cuh::tile2_layout: x3 [C][W], y0 tiles, the
     weights w0T [C][S], w1 [D][S] (unless read from device memory), b0 [S],
-    b1, K10's affine [2][D]; a reverse step's g/dh1/gs rows [D][W], h0 block
-    (or a chunk of it), prefetched rows and weight partials; K11's second list
-    set, its daff [2][D] and dfeats [AL][W] beside the partials and its scale
-    [D]; the adjacency lists ([E][W] floats, W counts and E*W indices as bytes,
-    a set). The widths may be ints or numpy integer arrays."""
+    b1, the forward's affine [2][D] (unused by K12); a reverse step's
+    g/dh1/gs rows [D][W], h0 block (or a chunk of it), prefetched rows and
+    weight partials; K11's second list set, its daff [2][D] and dfeats
+    [AL][W] beside the partials and its scale [D]; the adjacency lists
+    ([E][W] floats, W counts and E*W indices as bytes, a set). The widths may
+    be ints or numpy integer arrays."""
     ut, nbuf, keep, dw, pf, E, pad, w1g = plan
     C, CH, nl = 2 * D + AL, 8 * ut, 2 if kind == 2 else 1
     S = -(-H1 // ut) * ut
@@ -307,8 +309,8 @@ def _tile2_bytes(kind: int, W, D, AL, H1, plan):
 
 
 def _tile2_plan(W: int, D: int, AL: int, H1: int, kernel: str):
-    """(shared-memory bytes, plan index) of the tiled kernel K10, K11, K13 or
-    K15 at this shape (AL: K15's F): the first plan that fits a CTA, or the
+    """(shared-memory bytes, plan index) of the tiled kernel K10, K11, K12,
+    K13 or K15 at this shape (AL: K15's F): the first plan that fits a CTA, or the
     leanest plan's bytes and None."""
     for i, plan in enumerate(_PLANS[kernel]):
         need = _tile2_bytes(_KIND[kernel], W, D, AL, H1, plan)
@@ -319,11 +321,11 @@ def _tile2_plan(W: int, D: int, AL: int, H1: int, kernel: str):
 
 # the C entries of the tiled kernels, by kernel
 _TILED = {"K10": "gnn_propagation_loop2", "K11": "gnn_propagation_loop2_bwd",
-          "K13": "gnn_train_loop2_bwd", "K15": "gnn_bn2_backward"}
+          "K12": "gnn_train_loop2", "K13": "gnn_train_loop2_bwd", "K15": "gnn_bn2_backward"}
 
 
 def tile_info(kernel: str, W: int, D: int, AL: int, H1: int) -> dict:
-    """What the card reports for the tiled kernel K10, K11, K13 or K15
+    """What the card reports for the tiled kernel K10, K11, K12, K13 or K15
     launches at this shape (AL: K15's F): its plan index, shared-memory bytes,
     resident CTAs an SM, registers and local-memory bytes a thread (builds the
     library)."""
@@ -496,7 +498,7 @@ def train_loop2(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K: int, threshold: flo
     B, W, _ = adjT.shape
     D, AL = s0.shape[-1], fd.shape[-1]
     H1 = w0.shape[0]
-    _check_block2(adjT, D, AL, H1, _smem_bytes(W, D, AL, H1))
+    _check_block2(adjT, D, AL, H1, _tile2_plan(W, D, AL, H1, "K12")[0])
     dev = adjT.device
     _check("adjT", adjT, (B, W, W), dev)
     _check("s0", s0, (B, W, D), dev)

@@ -13,6 +13,7 @@ kernels themselves run only on the card (chip_smoke.py holds them against
 these plain versions there)."""
 
 import dataclasses
+import itertools
 
 import jax.numpy as jnp
 import numpy as np
@@ -200,3 +201,68 @@ def test_bn_loop_backward_matches_autograd_through_plain_body(threshold, rate):
         np.testing.assert_allclose(bn_loop[key].numpy(), bn_body[key].numpy(), atol=1e-5)
     for a, b in zip(g_loop, g_body):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-4, atol=1e-6)
+
+
+def _per_node_k2_bytes(W, D, F):
+    """Shared memory a CTA of the per-node K2 took, one thread a node: the
+    resident adjacency [W][W + 1], x3 rows of odd stride, two row buffers
+    [W][D | 1], w_aug [D][C], bnv [9][D], the node mask [W] and the keep bytes
+    (bn_train.cu's Layout, which K1 keeps); the widths may be numpy arrays."""
+    C1 = 2 * D + F
+    return 4 * (W * (W + 1) + W * (C1 | 1) + 2 * W * (D | 1) + D * (C1 + 1) + 9 * D + W
+                + (W * C1 + 3) // 4)
+
+
+@pytest.mark.parametrize("W", [32, 64, 96, 128])
+def test_k2_plans_take_every_shape_the_per_node_kernel_took(W):
+    """Over every D in 1..64 and F in 0..64, each shape whose per-node K2
+    layout fitted 227 KB fits one of K2's plans (ops/bn.py::_bn_bwd_bytes,
+    reckoned on the whole grid at once), and the wrapper's plan check passes
+    on the 16 taken shapes that leave the least room and on D in {1, 5, 14,
+    16, 17, 33, 64}, F in {0, 3, 20, 64}."""
+    D, F = np.meshgrid(np.arange(1, 65), np.arange(0, 65), indexing="ij")
+    took = _per_node_k2_bytes(W, D, F) <= tbn.SMEM_BYTES
+    least = np.min([tbn._bn_bwd_bytes(W, D, F, p) for p in tbn._BN_BWD_PLANS], axis=0)
+    refused = took & (least > tbn.SMEM_BYTES)
+    assert not refused.any(), (
+        f"{int(refused.sum())} shapes refused, e.g. (D, F) = "
+        f"{tuple(int(v[refused][0]) for v in (D, F))}")
+    assert took.sum() > 100
+    room = np.where(took, tbn.SMEM_BYTES - least, np.iinfo(np.int64).max).ravel()
+    for i in np.argsort(room, kind="stable")[:16]:
+        tbn._check_bn_bwd_plan(W, int(D.ravel()[i]), int(F.ravel()[i]))
+    for d, f in itertools.product((1, 5, 14, 16, 17, 33, 64), (0, 3, 20, 64)):
+        if _per_node_k2_bytes(W, d, f) <= tbn.SMEM_BYTES:
+            tbn._check_bn_bwd_plan(W, d, f)
+
+
+def test_k2_raises_above_its_last_plan():
+    """A shape that not even K2's leanest plan fits (W 128, D 64, the least
+    such F) raises the wrapper's ValueError naming the bytes it needs and the
+    CTA's limit, before any launch (on meta tensors, which no kernel takes);
+    one arc-label column fewer passes."""
+    last = tbn._BN_BWD_PLANS[-1]
+    f = next(f for f in range(0, 512) if tbn._bn_bwd_bytes(128, 64, f, last) > tbn.SMEM_BYTES)
+    need, plan = tbn._bn_bwd_plan(128, 64, f)
+    assert plan is None and need == tbn._bn_bwd_bytes(128, 64, f, last)
+
+    def meta(*shape, dtype=torch.float32):
+        return torch.empty(shape, device="meta", dtype=dtype)
+    R, W, D, C = 2, 128, 64, 2 * 64 + f + 1
+    rows = [meta(R, W, D) for _ in range(3)]
+    with pytest.raises(ValueError, match=f"W=128, D=64, F={f} needs {need} bytes of shared "
+                                         f"memory a block, more than the {tbn.SMEM_BYTES}"):
+        tbn._launch_backward(meta(R, W, W), None, *rows, None, meta(R, W, f), meta(D, C),
+                             meta(R, W, D), meta(R, W, D), meta(9, D), meta(), meta(R, W),
+                             activation="selu", alpha_drop=True, rate=0.0)
+    tbn._check_bn_bwd_plan(128, 64, f - 1)
+
+
+def test_k2_fits_its_ctas_at_the_flagship():
+    """At the flagship's widths (W 128, D 14, F 3) K2 takes its first plan
+    (the row lists, the rows staged) in at most 74 KB, so three CTAs fit an
+    SM's 228 KB (1 KB kept a CTA), against the per-node kernel's two."""
+    need, plan = tbn._bn_bwd_plan(128, 14, 3)
+    assert plan == 0 and 3 * (need + 1024) <= 228 * 1024
+    assert 2 * (_per_node_k2_bytes(128, 14, 3) + 1024) <= 228 * 1024 < 3 * (
+        _per_node_k2_bytes(128, 14, 3) + 1024)

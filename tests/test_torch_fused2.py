@@ -12,8 +12,8 @@ Tolerances are gnn_tpu's own for these kernels against its f32 body
 (tests/test_fused.py): states 3e-5 for K9/K10 and 1e-4 for K12, cotangents
 rtol 2e-4 with atol 2e-5; movement flags equal. The CUDA kernels themselves
 run only on the card (chip_smoke.py holds them against these plain versions
-there). The shape-coverage tests hold the register-tiled K10, K11, K13 and
-K15's shared-memory plans (ops/fused2.py::_tile2_plan) to the layouts of the
+there). The shape-coverage tests hold the register-tiled K10, K11, K12, K13
+and K15's shared-memory plans (ops/fused2.py::_tile2_plan) to the layouts of the
 per-node kernels they replaced: every shape those fitted in a CTA is still
 taken."""
 
@@ -356,15 +356,16 @@ def test_two_layer_kernel_widths_checked():
 
 
 def _per_node_smem_bytes(kernel, W, D, AL, H1):
-    """Shared memory a CTA of the per-node K10 (the resident adjacency, state
-    and staging rows, the weights) or of the per-node reverse kernels K11, K13
-    and K15 (x3 and dh1 rows, two 17-wide chunk tiles, the weights; K11 and
-    its affine [2][D], K15 and bnv [9][D] and the node mask [W]) took, one
-    thread a node, as fused2.py::_smem_bytes and bn.py::_smem2_bytes reckoned
-    them (AL: K15's F); the widths may be numpy arrays."""
+    """Shared memory a CTA of the per-node K10 and K12 (the resident
+    adjacency, state and staging rows, the weights: fused2.py::_smem_bytes,
+    which K9 still takes) or of the per-node reverse kernels K11, K13 and K15
+    (x3 and dh1 rows, two 17-wide chunk tiles, the weights; K11 and its affine
+    [2][D], K15 and bnv [9][D] and the node mask [W]) took, one thread a node,
+    as fused2.py::_smem_bytes and bn.py::_smem2_bytes reckoned them (AL: K15's
+    F); the widths may be numpy arrays."""
     C = 2 * D + AL
     weights = H1 * (C + D + 1)
-    if kernel == "K10":
+    if kernel in ("K10", "K12"):
         return 4 * (W * (W + 1) + W * (D | 1) + W * (np.maximum(D, AL) | 1) + weights + 3 * D)
     extra = {"K11": 2 * D, "K13": 0, "K15": 9 * D + W}[kernel]
     return 4 * (W * (C | 1) + W * (D | 1) + 2 * W * 17 + weights + D + extra)
@@ -376,10 +377,11 @@ def _meta(*shape):
 
 def _tiled_wrapper_checks(kernel, W, D, al, H1, refused=None):
     """Run the width and shared-memory checks of the tiled kernel's wrapper
-    (K10 propagation_loop2, K11 propagation_loop2_bwd, K13 train_loop2_bwd;
-    for K15 bn2_backward_step's _check_two_layer) on meta tensors of this
-    shape: they must pass (past them the three wrappers raise for the meta
-    device), or, given `refused`, raise a ValueError matching it."""
+    (K10 propagation_loop2, K11 propagation_loop2_bwd, K12 train_loop2, K13
+    train_loop2_bwd; for K15 bn2_backward_step's _check_two_layer) on meta
+    tensors of this shape: they must pass (past them the four wrappers raise
+    for the meta device), or, given `refused`, raise a ValueError matching
+    it."""
     meta = _meta
     wts = (meta(H1, 2 * D + al), meta(H1), meta(D, H1), meta(D))
     calls = {
@@ -388,6 +390,8 @@ def _tiled_wrapper_checks(kernel, W, D, al, H1, refused=None):
         "K11": lambda: tf2.propagation_loop2_bwd(meta(2, W, W), meta(2, W, D), meta(K, 2, W, D),
                                                  meta(2, W, al), *wts, meta(2, D),
                                                  meta(K, 2, W, D)),
+        "K12": lambda: tf2.train_loop2(meta(2, W, W), meta(2, W, D), None, None,
+                                       meta(K, 2, W, al), *wts, meta(2, W), K, 0.05),
         "K13": lambda: tf2.train_loop2_bwd(meta(2, W, W), meta(2, W, D), meta(K, 2, W, D),
                                            meta(K, 2, W, D), None, None, meta(K, 2, W, al), *wts,
                                            meta(K, 2, W, D)),
@@ -402,7 +406,7 @@ def _tiled_wrapper_checks(kernel, W, D, al, H1, refused=None):
         calls[kernel]()
 
 
-@pytest.mark.parametrize("kernel", ["K10", "K13", "K11", "K15"])
+@pytest.mark.parametrize("kernel", ["K10", "K13", "K11", "K15", "K12"])
 @pytest.mark.parametrize("W", [32, 64, 96, 128])
 def test_tiled_kernels_take_every_shape_the_per_node_kernels_took(kernel, W):
     """Over every D, AL in 1..64 and H1 in 1..MAX_HIDDEN, each shape whose
@@ -431,7 +435,7 @@ def test_tiled_kernels_take_every_shape_the_per_node_kernels_took(kernel, W):
         _tiled_wrapper_checks(kernel, W, *(int(v.ravel()[i]) for v in (D, AL, H1)))
 
 
-@pytest.mark.parametrize("kernel", ["K10", "K11", "K13", "K15"])
+@pytest.mark.parametrize("kernel", ["K10", "K11", "K13", "K15", "K12"])
 def test_tiled_kernels_raise_above_their_last_plan(kernel):
     """A shape that not even the leanest plan fits (W 128, D = AL = 64, the
     least such H1) raises the wrappers' ValueError naming the bytes it needs
@@ -448,16 +452,17 @@ def test_tiled_kernels_raise_above_their_last_plan(kernel):
 
 
 def test_tiled_kernels_fit_their_ctas_at_the_recipe():
-    """At the hidden-150 recipe (W 128, D 14, AL 3, H1 150) K10 takes its
-    first plan (two y0 tiles, the adjacency lists) in at most 113 KB, so two
-    CTAs of 256 threads, 16 warps, fit an SM's 228 KB (1 KB kept a CTA); K13
-    and K11 their first plans (h0 kept, the weight partials in shared memory,
-    the prefetch; K11 with both list sets and two y0 tiles) in one CTA's
-    227 KB; K15 its first plan (h0 recomputed) in at most 113 KB, two CTAs an
-    SM."""
-    need, plan = tf2._tile2_plan(128, 14, 3, 150, "K10")
-    assert plan == 0 and need <= 113 * 1024
-    assert 2 * (need + 1024) <= 228 * 1024
+    """At the hidden-150 recipe (W 128, D 14, AL 3, H1 150) K10 and K12 take
+    their first plans (two y0 tiles, the adjacency lists) in at most 113 KB,
+    so two CTAs of 256 threads, 16 warps, fit an SM's 228 KB (1 KB kept a
+    CTA); K13 and K11 their first plans (h0 kept, the weight partials in
+    shared memory, the prefetch; K11 with both list sets and two y0 tiles) in
+    one CTA's 227 KB; K15 its first plan (h0 recomputed) in at most 113 KB,
+    two CTAs an SM."""
+    for kernel in ("K10", "K12"):
+        need, plan = tf2._tile2_plan(128, 14, 3, 150, kernel)
+        assert plan == 0 and need <= 113 * 1024
+        assert 2 * (need + 1024) <= 228 * 1024
     for kernel in ("K13", "K11", "K15"):
         need, plan = tf2._tile2_plan(128, 14, 3, 150, kernel)
         assert plan == 0 and need <= tf2.SMEM_BYTES

@@ -1,0 +1,165 @@
+#!/usr/bin/env python3
+"""Phase breakdown of one kernel on one CUDA card, from a marked copy of its source.
+
+The kernel's source (found in the tree by its C entry, as tools/tiled_ab.py finds
+it) is copied to build/phase_marks/<name>/ with a clock64 mark by thread 0 after
+every __syncthreads() written in the kernel's own body; each mark adds the cycles
+since the previous mark to its own slot, so a barrier inside a loop sums over the
+iterations, and barriers inside called helpers fall into the enclosing segment.
+The copy is built alone with the port's nvcc flags, and the kernel's wrapper runs it
+on chip_smoke.py's full-set operands (K2 at the flagship's BatchNorm route, K12 at
+the h150 training route). Printed: the instrumented and the unmarked launch's times
+(the marks' cost), then each segment's share of the cycles summed over the CTAs and
+its cycles a CTA, named by the source lines of the barriers that end it.
+
+Usage, from the repository root (a tree defaults to gnn_tpu_torch/ops/csrc):
+    python3 tools/phase_marks.py K2 [name=tree ...]
+"""
+
+import ctypes
+import importlib.util
+import os
+import re
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# kernel: its C entry and the __global__ functions that may implement it
+KERNELS = {"K2": ("gnn_bn_backward", ("bn_bwd_kernel",)),
+           "K12": ("gnn_train_loop2", ("train_loop2_kernel", "loop2_tile_kernel"))}
+HEAD = """
+namespace {
+__device__ unsigned long long* g_phase;
+__device__ int g_nph;
+}
+#define PHASE_MARK(i)                                                              \\
+  do {                                                                             \\
+    if (threadIdx.x == 0) {                                                        \\
+      const long long now_ = clock64();                                            \\
+      g_phase[(size_t)blockIdx.x * g_nph + (i)] += now_ - phase_last_;             \\
+      phase_last_ = now_;                                                          \\
+    }                                                                              \\
+  } while (0)
+"""
+TAIL = """
+extern "C" int phase_marks_set(unsigned long long* p, int n) {
+  cudaMemcpyToSymbol(g_phase, &p, sizeof(p));
+  cudaMemcpyToSymbol(g_nph, &n, sizeof(int));
+  return cudaGetLastError();
+}
+"""
+
+
+def marked(src, names):
+    """(source with marks, [line of the barrier ending each segment]) of the first
+    kernel of `names` defined in src."""
+    for name in names:
+        m = re.search(rf"__global__[^;{{]*?\b{name}\s*\(", src)
+        if m:
+            break
+    else:
+        raise SystemExit(f"none of {names} is defined")
+    start = src.index("{", src.index(")", m.end()))
+    depth, end = 0, start
+    for end in range(start, len(src)):
+        depth += {"{": 1, "}": -1}.get(src[end], 0)
+        if depth == 0:
+            break
+    body, lines = src[start + 1:end], []
+    base = src[:start].count("\n") + 1
+
+    def mark(b):
+        lines.append(base + body[:b.start()].count("\n"))
+        return f"__syncthreads(); PHASE_MARK({len(lines) - 1});"
+    body = re.sub(r"__syncthreads\(\);", mark, body)
+    lines.append(src[:end].count("\n") + 1)
+    body = ("\n  long long phase_last_ = clock64();" + body
+            + f"  __syncthreads(); PHASE_MARK({len(lines) - 1});\n")
+    inc = src.index("\n", src.index("#include")) + 1
+    out = src[:inc] + HEAD + src[inc:start + 1] + body + src[end:] + TAIL
+    return out, lines
+
+
+def main():
+    sys.path.insert(0, ROOT)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import torch
+    from gnn_tpu_torch import Predictor
+    from gnn_tpu_torch.graphs.datasets import mutag_shaped
+    from gnn_tpu_torch.ops import _build, bn, fused2
+    kernel = sys.argv[1]
+    entry, names = KERNELS[kernel]
+    trees = dict(a.split("=", 1) for a in sys.argv[2:]) or {"tree": str(_build.CSRC)}
+    cs.phase_device(torch)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    graphs = mutag_shaped(seed=cs.SEED)
+    model = cs.flagship(torch, "cuda")
+    gb_train = model.to_batch(graphs)
+    with torch.no_grad():
+        if kernel == "K2":
+            _, _, x, kw = cs.train_kernel_inputs(torch, model, gb_train)
+            fn, x, rows = bn.bn_backward_step, dict(x, **kw), x["y_prev"].shape[0]
+        else:
+            gb = Predictor(model).build_batch(graphs).to("cuda")
+            x = cs.two_layer_kernel_inputs(torch, gb, gb_train)[2]
+            fn, rows = fused2.train_loop2, x["adjT"].shape[0]
+
+    class One:
+        """The library the wrapper launches through."""
+
+        def __init__(self, lib):
+            self.lib = lib
+
+        def __getattr__(self, name):
+            return getattr(self.lib, name)
+
+    for tname, tree in trees.items():
+        src_path = next(os.path.join(tree, f) for f in sorted(os.listdir(tree))
+                        if f.endswith(".cu")
+                        and re.search(rf"\bint {entry}\(", open(os.path.join(tree, f)).read()))
+        out_dir = os.path.join(ROOT, "build", "phase_marks", tname)
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.copytree(tree, out_dir)
+        src, lines = marked(open(src_path).read(), names)
+        copy = os.path.join(out_dir, os.path.basename(src_path))
+        with open(copy, "w") as f:
+            f.write(src)
+        libs = {}
+        for label, path in (("marked", copy), ("unmarked", src_path)):
+            so = os.path.join(out_dir, f"lib_{label}.so")
+            r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", tree, "-shared", "-o", so,
+                                path], capture_output=True, text=True)
+            if r.returncode:
+                cs.fail(f"{tname} {label}: nvcc failed\n{r.stdout[-2000:]}{r.stderr[-2000:]}")
+            libs[label] = _build.bind(ctypes.CDLL(so))
+        n = len(lines)
+        slots = torch.zeros(rows * n, dtype=torch.int64, device="cuda")
+        libs["marked"].phase_marks_set(ctypes.c_void_p(slots.data_ptr()), n)
+        try:
+            with torch.no_grad():
+                ms = {}
+                for label in ("unmarked", "marked", "marked", "unmarked"):
+                    _build._lib = One(libs[label])
+                    ms.setdefault(label, []).append(round(cs.timed_ms(torch, lambda: fn(**x)), 4))
+                _build._lib = One(libs["marked"])
+                slots.zero_()
+                fn(**x)
+                torch.cuda.synchronize()
+        finally:
+            _build._lib = None
+        seg = slots.view(rows, n).double().sum(0)
+        total = float(seg.sum())
+        cs.say(f"{kernel} {tname} ({os.path.basename(src_path)}): ms {ms}")
+        prev = None
+        for i, (line, v) in enumerate(zip(lines, seg.tolist())):
+            span = f"lines {prev}-{line}" if prev else f"to line {line}"
+            cs.say(f"  segment {i:2d} {span:16s} {100 * v / total:6.2f}%  {v / rows:10.0f} cycles a CTA")
+            prev = line
+    cs.say(f"done {cs.elapsed()}")
+
+
+if __name__ == "__main__":
+    main()

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
-"""Time the register-tiled reverse kernels of two or more kernel source trees
-against each other on one CUDA card.
+"""Time the redesigned kernels of two or more kernel source trees against each
+other on one CUDA card: K10 and K12 (the two-layer forward loops), the
+register-tiled reverse kernels K13, K11 and K15, and the BatchNorm step K1
+and its reverse K2.
 
-Each tree's train_loop2_bwd.cu (K13), eval_loop2_bwd.cu (K11) and
-bn2_train.cu (K15) is built alone with the port's nvcc flags, all at once,
-into a library of its own under build/tiled_ab/; a tree that lacks a source
-is skipped for that kernel. On chip_smoke.py's full-set operands (the
-MUTAG-shaped set, K13 at the h150 training route's shapes, K11 at
-h150_clean's, K15 at h150_bn's) every tree's K13 outputs must be
-bit-identical to the first tree's (K11's and K15's are reported); then each
-kernel is timed with CUDA events as chip_smoke.py
-times it, the trees in turn and back (a, b, b, a), and, for K11 and K15, at
-each shared-memory plan of the current plan lists (ops/fused2.py::_PLANS)
-through the tree's gnn_*_force_plan entry, where it has one; every such plan
-must fit the full-set shapes.
+Each tree's source that holds a kernel's C entry (a kernel may move between
+files: K12 lies in fused2.cu in older trees, in loop2.cu in newer ones) is
+built alone with the port's nvcc flags, all at once, into a library of its own
+under build/tiled_ab/; a tree without the entry is skipped for that kernel. On
+chip_smoke.py's full-set operands (the MUTAG-shaped set: K10 at the h150
+serving path's shapes, K12 and K13 at the h150 training route's, K11 at
+h150_clean's, K15 at h150_bn's, K1 and K2 at the flagship's BatchNorm
+route's) every tree's outputs are held to the first tree's, bit for bit for
+K13, K10 and K1 (one design in every tree), reported for the others, and each
+tree's largest per-node difference from the plain version is printed; then
+each kernel is timed with CUDA events as chip_smoke.py times it, the trees
+in turn and back (a, b, b, a), and, for K11, K15, K12 and K2, at each plan of
+the current plan lists (ops/fused2.py::_PLANS, ops/bn.py::_BN_BWD_PLANS)
+through the tree's gnn_*_force_plan entry, where it has one and the plan fits.
 ptxas's report of each build goes to build/tiled_ab/ptxas.log.
 
 Usage, from the repository root, with a parent checkout unpacked under build/:
@@ -24,13 +28,27 @@ Usage, from the repository root, with a parent checkout unpacked under build/:
 import ctypes
 import importlib.util
 import os
+import re
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FILES = {"K13": "train_loop2_bwd.cu", "K11": "eval_loop2_bwd.cu", "K15": "bn2_train.cu"}
+# kernel: its C entry, and whether every tree must give the same bits
+KERNELS = {"K10": ("gnn_propagation_loop2", True), "K12": ("gnn_train_loop2", False),
+           "K13": ("gnn_train_loop2_bwd", True), "K11": ("gnn_propagation_loop2_bwd", False),
+           "K15": ("gnn_bn2_backward", False), "K1": ("gnn_bn_forward", True),
+           "K2": ("gnn_bn_backward", False)}
+
+
+def source_of(tree, entry):
+    """The .cu file of `tree` that defines the C entry, or None."""
+    for f in sorted(os.listdir(tree)):
+        if f.endswith(".cu") and re.search(rf"\bint {entry}\(",
+                                           open(os.path.join(tree, f)).read()):
+            return os.path.join(tree, f)
+    return None
 
 
 def main():
@@ -49,13 +67,15 @@ def main():
         cs.fail("name two or more source trees as name=path")
     out_dir = os.path.join(ROOT, "build", "tiled_ab")
     os.makedirs(out_dir, exist_ok=True)
-    jobs = [(t, k, os.path.join(path, f), os.path.join(out_dir, f"lib_{t}_{k}.so"))
-            for t, path in trees.items() for k, f in FILES.items()
-            if os.path.isfile(os.path.join(path, f))]
+    srcs = {(t, k): source_of(path, entry) for t, path in trees.items()
+            for k, (entry, _) in KERNELS.items()}
+    jobs = sorted({(t, src) for (t, _), src in srcs.items() if src is not None})
+    so_of = {job: os.path.join(out_dir, f"lib_{job[0]}_{os.path.basename(job[1])[:-3]}.so")
+             for job in jobs}
 
     def nvcc(job):
-        r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", job[3], job[2]],
-                           capture_output=True, text=True)
+        r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so_of[job],
+                            job[1]], capture_output=True, text=True)
         return r.returncode, r.stdout + r.stderr
 
     t0 = time.perf_counter()
@@ -63,25 +83,12 @@ def main():
         built = list(pool.map(nvcc, jobs))
     cs.say(f"built {len(jobs)} libraries in {time.perf_counter() - t0:.1f} s")
     with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
-        for (t, k, src, _), (rc, log) in zip(jobs, built):
-            f.write(f"==== {t} {k} {src} rc={rc}\n{log}\n")
+        for (t, src), (rc, log) in zip(jobs, built):
+            f.write(f"==== {t} {src} rc={rc}\n{log}\n")
             if rc:
-                cs.fail(f"{t} {k}: nvcc failed\n{log[-3000:]}")
-
-    p_, i_, f_ = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    sig = {"K13": ("gnn_train_loop2_bwd", [p_] * 18 + [i_] * 9 + [f_, f_, p_]),
-           "K11": ("gnn_propagation_loop2_bwd", [p_] * 17 + [i_] * 8 + [p_]),
-           "K15": ("gnn_bn2_backward", [p_] * 21 + [i_] * 9 + [f_, f_, p_])}
-    libs = {}
-    for t, k, _, so in jobs:
-        lib = ctypes.CDLL(so)
-        entry, argtypes = sig[k]
-        getattr(lib, entry).argtypes = argtypes
-        getattr(lib, entry).restype = i_
-        force = getattr(lib, entry + "_force_plan", None)
-        if force is not None:
-            force.argtypes, force.restype = [i_], None
-        libs[t, k] = (lib, force)
+                cs.fail(f"{t} {src}: nvcc failed\n{log[-3000:]}")
+    loaded = {job: _build.bind(ctypes.CDLL(so_of[job])) for job in jobs}
+    libs = {key: loaded[key[0], src] for key, src in srcs.items() if src is not None}
 
     class One:
         """The library the wrappers launch through: one tree's, for one kernel."""
@@ -97,28 +104,61 @@ def main():
     gb = Predictor(model).build_batch(graphs).to("cuda")
     gb_train = model.to_batch(graphs)
     with torch.no_grad():
-        k13 = cs.two_layer_kernel_inputs(torch, gb, gb_train)[3]
+        _, k10, k12, k13 = cs.two_layer_kernel_inputs(torch, gb, gb_train)
         k11, _, _, x15 = cs.two_layer_train_kernel_inputs(torch, gb_train)
-        runs = {"K13": (fused2.train_loop2_bwd, k13), "K11": (fused2.propagation_loop2_bwd, k11),
-                "K15": (bn.bn2_backward_step, x15)}
+        (_, x1), kw1, x2, kw2 = cs.train_kernel_inputs(torch, model, gb_train)
+        runs = {"K10": (fused2, "propagation_loop2", k10), "K12": (fused2, "train_loop2", k12),
+                "K13": (fused2, "train_loop2_bwd", k13),
+                "K11": (fused2, "propagation_loop2_bwd", k11),
+                "K15": (bn, "bn2_backward_step", x15),
+                "K1": (bn, "bn_forward_step", dict(x1, **kw1)),
+                "K2": (bn, "bn_backward_step", dict(x2, **kw2))}
+        plan_lists = {"K11": fused2._PLANS["K11"], "K15": fused2._PLANS["K15"],
+                      "K12": fused2._PLANS["K12"], "K2": bn._BN_BWD_PLANS}
+        dims = {"K11": (k11["adjT"].shape[1], k11["s0"].shape[-1], k11["feats"].shape[-1],
+                        k11["w0"].shape[0]),
+                "K15": (x15["adj_loop"].shape[1], x15["y_prev"].shape[-1],
+                        x15["feats"].shape[-1], x15["w0_aug"].shape[0]),
+                "K12": (k12["adjT"].shape[1], k12["s0"].shape[-1], k12["fd"].shape[-1],
+                        k12["w0"].shape[0]),
+                "K2": (x2["adj_loop"].shape[1], x2["y_prev"].shape[-1], x2["feats"].shape[-1])}
+
+        def fits(k, plan):
+            if k == "K2":
+                return bn._bn_bwd_bytes(*dims[k], plan) <= fused2.SMEM_BYTES
+            return fused2._tile2_bytes(fused2._KIND[k], *dims[k], plan) <= fused2.SMEM_BYTES
+
+        failed = []
         try:
-            for k, (fn, x) in runs.items():
+            for k, (mod, name, x) in runs.items():
+                fn = getattr(mod, name)
                 names = [t for t in trees if (t, k) in libs]
                 outs = {}
+                want = getattr(mod, name + "_ref")(**x)
                 for t in names:
-                    _build._lib = One(libs[t, k][0])
+                    _build._lib = One(libs[t, k])
                     outs[t] = fn(**x)
+                    torch.cuda.synchronize()
+                    cs.say(f"{k} {t}: largest per-node difference from the plain version "
+                           f"{float((outs[t][0] - want[0]).abs().max()):.3e}")
                 for t in names[1:]:
-                    same = all(a is None or torch.equal(a.view(torch.int32), b.view(torch.int32))
-                               for a, b in zip(outs[t], outs[names[0]]))
-                    cs.say(f"{k}: {t} bit-identical to {names[0]}: {same}")
-                    if k == "K13" and not same:   # one design in both trees: the same sums
-                        cs.fail(f"{k}: {t} differs from {names[0]}")
-                plans = [None] + (list(range(len(fused2._PLANS[k]))) if k != "K13" else [])
+                    diff = [(i, int((a != b).sum()), float((a - b).abs().max()))
+                            for i, (a, b) in enumerate(zip(outs[t], outs[names[0]]))
+                            if a is not None and not torch.equal(a.view(torch.int32),
+                                                                 b.view(torch.int32))]
+                    cs.say(f"{k}: {t} bit-identical to {names[0]}: {not diff}"
+                           + "".join(f"; output {i}: {n} entries differ, by up to {d:.3e}"
+                                     for i, n, d in diff))
+                    if KERNELS[k][1] and diff:   # one design in every tree: the same sums
+                        failed.append(f"{k}: {t} differs from {names[0]}")
+                plans = [None] + list(range(len(plan_lists.get(k, ()))))
                 for plan in plans:
+                    if plan is not None and not fits(k, plan_lists[k][plan]):
+                        continue
                     times = []
                     for t in names + names[::-1]:
-                        lib, force = libs[t, k]
+                        lib = libs[t, k]
+                        force = getattr(lib, KERNELS[k][0] + "_force_plan", None)
                         if plan is not None and force is None:
                             continue
                         _build._lib = One(lib)
@@ -129,10 +169,13 @@ def main():
                         finally:
                             if plan is not None:
                                 force(-1)
-                    cs.say(f"{k} {'default plan' if plan is None else f'plan {plan} forced'}, "
-                           f"ms in turn: {times}")
+                    if times:
+                        cs.say(f"{k} {'default plan' if plan is None else f'plan {plan} forced'}, "
+                               f"ms in turn: {times}")
         finally:
             _build._lib = None
+    if failed:
+        cs.fail("; ".join(failed))
     cs.say(f"done {cs.elapsed()}")
 
 
