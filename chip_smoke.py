@@ -36,21 +36,22 @@
    the affine) at ragged shapes (W 32/96/128, D 5/14/64, arc-label widths
    3/5/20, H1 16/37/150 and the wrappers' cap 512), against their plain
    versions as in phase 5, and times them. The register-tiled K10, K11, K12,
-   K13 and K15 (ops/csrc/tile2.cuh) also run at the edges of their tiling (H1
-   1/7/33/512, W 32 with D = AL = 1, D = AL = 64, a dense adjacency block,
+   K13, K14 and K15 (ops/csrc/tile2.cuh) also run at the edges of their tiling
+   (H1 1/7/33/512, W 32 with D = AL = 1, D = AL = 64, a dense adjacency block,
    and the leanest shared-memory plans, one of them at a shape only those
-   fit; K15 with a dep row), and K2 at the same widths (D, F = AL) with a dep
-   row and a row of 40 arcs; K10, K12 and K13 must repeat bit for bit on the
-   full set, K12 at every edge, and the reverse kernels (check_bwd2: K2, K11,
-   K13, K15, K17) wherever they run; at every such case the shared-memory
-   plan the library takes must equal the Python mirror's
-   (ops/fused2.py::_tile2_plan, ops/bn.py::_bn_bwd_plan), and the cases must
-   reach every plan of the six lists; at the full set the resident CTAs an
-   SM, registers and local bytes a thread are printed, and each plan of K12
-   that fits is forced and timed (the build's ptxas report goes to
-   chiprun_out/nvcc.log; the registers and spills of K10, K12 and K2 are
-   printed after the build). The reverse kernels K2, K11, K13 and
-   K15 differentiate selu: a hidden pre-activation within rounding of 0 lets
+   fit; K14 and K15 with a dep row, K14 at W 96 without loop rows), and K2 at
+   the same widths (D, F = AL) with a dep row and a row of 40 arcs; K10, K12
+   and K13 must repeat bit for bit on the full set, K12 and K14 at every
+   edge, and the reverse kernels (check_bwd2: K2, K11, K13, K15, K17)
+   wherever they run; at every such case the shared-memory plan the library
+   takes must equal the Python mirror's (ops/fused2.py::_tile2_plan,
+   ops/bn.py::_bn_bwd_plan), and the cases must reach every plan of the seven
+   lists; at the full set the resident CTAs an SM, registers and local bytes
+   a thread are printed, and each plan of K12 that fits is forced and timed
+   (the build's ptxas report goes to chiprun_out/nvcc.log; the registers and
+   spills of K10, K12, K2, K14 and K17 are printed after the build). The
+   reverse kernels K2, K11, K13 and K15 differentiate selu: a hidden
+   pre-activation within rounding of 0 lets
    the kernel and the plain version take different, equally valid
    derivative branches there, so a block that differs from the plain version
    passes only if the float64 replica of the plain version with the branch
@@ -63,7 +64,7 @@
    the BatchNorm hidden-150 route gives them (all 1214 block rows, H1 = 150),
    and K14/K15 at ragged shapes (W 32/64/96/128, D 5/14/64, F 3/20, H1
    16/37/150 and the cap), against their plain versions as in phase 7, and
-   times them. At the full set the tiled K11 and K15 must repeat bit for
+   times them. At the full set the tiled K11, K14 and K15 must repeat bit for
    bit, print their occupancy, and run every shared-memory plan that fits,
    forced in turn (bit-identical to the default plan), timed beside it.
 9. Serving path 'h150': the hidden-150 accuracy recipe (state net 31 -> 150
@@ -75,11 +76,14 @@
    the shapes the composite paths give them on the full set with node types
    drawn as benchmarks/composite_bench.py:107-119 does (training: iterations 1
    and 2 and the reverse of 2; serving: the second iteration) and at ragged
-   shapes (W 32/64/96/128, D 5/14/64, F 3/20, T 1/2/3/8, mixed per-type
-   activations, with and without keep-masks and residual rows, an absent type,
-   the stacked weights in shared memory or read through the caches), against
-   their plain versions as in phase 5 (K17 through the near-kink replica of
-   phase 7), and times them.
+   shapes (W 32/64/96/128, D 1/5/14/64, F 0/3/20, T 1/2/3/4/8/32, mixed
+   per-type activations, with and without keep-masks and residual rows, an
+   absent type, without loop rows, a dense adjacency, the stacked weights in
+   shared memory or read through the caches), against their plain versions
+   as in phase 5 (K17 through the near-kink replica of phase 7, a repeat
+   bit-identical, its plan equal to ops/typed.py::_bnT_bwd_plan's, the cases
+   reaching its three plans), and times them; at the full set K17 prints its
+   occupancy and runs each of its plans, forced and timed (bit-identical).
 11. Serving path 'composite': the composite flagship (T = 4 copies of the
    flagship's state net, its readout, non-trivial per-type moving statistics)
    through Predictor on the same requests: K16 must launch K = 5 times a
@@ -138,6 +142,17 @@
    likewise, and 3 BatchNorm training steps as in phase 12, K18 launched 9
    times a step (K forward, K - 1 on the transpose plan: the first iteration
    aggregates the node labels, which need no gradient).
+
+17. Flat layout (after phase 12): blocked batches without the loop/dep layout
+   (from_graphs_blocked(..., fused_layout=False): every block a dep block)
+   under aggregation='fused', as gnn_tpu's per-step fused path: the flagship
+   served through K4 and h150 through K9, K launches a request and no other
+   kernel (Predictor(fused_layout=False), outputs within 1e-5 of the CPU run);
+   one BatchNorm step (K1/K2 over every block row), one dropout step (K6 per
+   step over every block row) and one composite_bn step (K16/K17) on the
+   whole set, counted and held to the CPU as phase 12 holds its paths; K4,
+   K9 and K6 against their plain versions and timed at these shapes beside
+   their dep-row times.
 
 Prints a JSON line of per-kernel numbers (K1-K18), then as its
 last line {"ok": true, "device": {...}}. Any failed check exits non-zero
@@ -207,10 +222,13 @@ def phase_build():
 
 # the kernels whose registers and spills the build's report is read for, by
 # their mangled names: K10 and K12 (loop2.cu, MAXF, TRAIN), K2 (bn_train.cu,
+# MAXF, threads, rows staged), K14 (bn2_fwd.cu, MAXF), K17 (bn_typed.cu,
 # MAXF, threads, rows staged)
 PTXAS_KERNELS = ((r"loop2_tile_kernelILi(\d+)ELb0E", "K10 MAXF={}"),
                  (r"loop2_tile_kernelILi(\d+)ELb1E", "K12 MAXF={}"),
-                 (r"bn_bwd_kernelILi(\d+)ELi(\d+)ELb(\d)E", "K2 MAXF={} threads={} staged={}"))
+                 (r"bn_bwd_kernelILi(\d+)ELi(\d+)ELb(\d)E", "K2 MAXF={} threads={} staged={}"),
+                 (r"bn2_fwd_tile_kernelILi(\d+)E", "K14 MAXF={}"),
+                 (r"bnT_bwd_kernelILi(\d+)ELi(\d+)ELb(\d)E", "K17 MAXF={} threads={} staged={}"))
 
 
 def ptxas_summary(log):
@@ -438,7 +456,9 @@ ROUTES = {"bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
                          "propagation_step2": "K"},
           "h150_bn": {"bn2_forward_step": "K", "bn2_backward_step": "K"},
           "composite_bn": {"bnT_forward_step": "K", "bnT_backward_step": "K"},
-          "pallas": {"segment_aggregate": "2K-1"}}
+          "pallas": {"segment_aggregate": "2K-1"},
+          "flat_bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
+          "flat_dropout": {"train_step": "K"}}
 
 
 def flagship(torch, device, variant="bn"):
@@ -449,10 +469,14 @@ def flagship(torch, device, variant="bn"):
     dropout 0 (no dropout in either net), "h150_bn" the reference's default
     state net (starter.py: selu, AlphaDropout 0.1 at its input, the trailing
     BatchNorm) with the recipe's hidden layer, and the recipe's readout.
-    "pallas" is the flagship with aggregation='pallas' (K18 on a plan batch)."""
+    "pallas" is the flagship with aggregation='pallas' (K18 on a plan batch).
+    A variant "flat_<v>" is <v> with aggregation='fused', which runs the
+    kernels on batches without the loop/dep layout (the all-dep layout)."""
     from gnn_tpu_torch import GNNgraphBased, MLPSpec, get_inout_dims
     if variant == "composite_bn":
         return composite_model(torch, device)
+    fused = variant.startswith("flat_")
+    variant = variant[5:] if fused else variant
     hidden = 150 if variant.startswith("h150") else None
     in_s, l_s = get_inout_dims("state", 14, 3, 2, "g", 0, hidden)
     in_o, l_o = get_inout_dims("output", 14, 3, 2, "g", 0, hidden)
@@ -468,7 +492,8 @@ def flagship(torch, device, variant="bn"):
                  kernel_initializer="glorot_normal", bias_initializer="glorot_normal",
                  batch_normalization=False, **out_drop)
     model = GNNgraphBased(ss, so, max_iteration=5, threshold=0.01, seed=SEED, device=device,
-                          aggregation="pallas" if variant == "pallas" else "auto")
+                          aggregation="pallas" if variant == "pallas" else
+                          "fused" if fused else "auto")
     if variant in ("bn", "h150_bn", "pallas"):
         gen = torch.Generator().manual_seed(SEED + 1)    # non-trivial inference BN statistics
         d = l_s[-1]
@@ -494,11 +519,16 @@ def check_bn_forward(torch, bn, x, kw, label):
     k, name, net = (("K1", "bn_forward_step", kw.get("activation")) if "w_aug" in x else
                     ("K14", "bn2_forward_step",
                      f"H1={x['w0_aug'].shape[0]} {kw.get('act0')}/{kw.get('act1')}"))
-    return check_plain(torch, f"{k} {label}: R={R} (Bl={x['adj_loop'].shape[0]}) W={W} D={D} "
+    return check_plain(torch, f"{k} {label}: R={R} (Bl={loop_rows(x)}) W={W} D={D} "
                        f"F={x['feats'].shape[-1]} {net} rate={kw['rate']} "
                        f"res={x['rT'] is not None}",
                        *against_plain(torch, bn, name, dict(x, **kw)),
                        ("y", "agg", "flags", "msum"), summed=("msum",), exact=("flags",))
+
+
+def loop_rows(x):
+    """The loop rows of a BatchNorm kernel's operands (0 without adj_loop)."""
+    return 0 if x["adj_loop"] is None else x["adj_loop"].shape[0]
 
 
 def check_bn_backward(torch, x, kw, label):
@@ -506,7 +536,7 @@ def check_bn_backward(torch, x, kw, label):
     bit-identical, near-kink blocks held to the float64 replica)."""
     R, W, D = x["y_prev"].shape
     return check_bwd2(torch, "K2", dict(x, **kw),
-                      f"{label}: R={R} (Bl={x['adj_loop'].shape[0]}) W={W} D={D} "
+                      f"{label}: R={R} (Bl={loop_rows(x)}) W={W} D={D} "
                       f"F={x['feats'].shape[-1]} {kw['activation']} rate={kw['rate']} "
                       f"flag={float(x['flag'])}")
 
@@ -976,7 +1006,7 @@ def block_inputs(kern, x, b):
         if x.get(k) is not None:
             xb[k] = x[k].narrow(axis, b, 1).contiguous()
     if kern in ("K2", "K15", "K17"):
-        Bl = x["adj_loop"].shape[0]
+        Bl = loop_rows(x)
         xb["adj_loop"] = x["adj_loop"][b:b + 1] if b < Bl else x["adj_dep"][b - Bl:b - Bl + 1]
         xb["adj_dep"] = None
     return xb
@@ -1229,13 +1259,16 @@ def phase_two_layer_train_kernels(torch, gb):
         check_bn_forward(torch, bn, f, dict(k, threshold=0.05), "ragged")
         check_bwd2(torch, "K15", dict(b, **k), f"ragged (R={R} Bl={Bl} W={W} D={D} F={F} "
                    f"H1={H1} {acts[0]}/{acts[1]} rate={rate})")
-    # the tiled K11 and K15 on the full set: a repeat bit-identical, the
+    # the tiled K11, K14 and K15 on the full set: a repeat bit-identical, the
     # occupancy, and each plan that fits forced and timed
     plans_ms = {}
     for k, kernel, x, dims in (
             ("K11", fused2.propagation_loop2_bwd, k11,
              (k11["adjT"].shape[1], k11["s0"].shape[-1], k11["feats"].shape[-1],
               k11["w0"].shape[0])),
+            ("K14", bn.bn2_forward_step, dict(x14, **kw14),
+             (x14["adj_loop"].shape[1], x14["y1"].shape[-1], x14["feats"].shape[-1],
+              x14["w0_aug"].shape[0])),
             ("K15", bn.bn2_backward_step, x15,
              (x15["adj_loop"].shape[1], x15["y_prev"].shape[-1], x15["feats"].shape[-1],
               x15["w0_aug"].shape[0]))):
@@ -1245,7 +1278,7 @@ def phase_two_layer_train_kernels(torch, gb):
     for (k, mod, name, src, rep_, x, kw, rows), (b, by) in zip(
             (("K11", fused2, "propagation_loop2_bwd", "eval_loop2_bwd.cu", "pallas_fused.py:1390",
               k11, {}, "adjT"),
-             ("K14", bn, "bn2_forward_step", "bn2_train.cu", "pallas_bn.py:568", x14, kw14, "y1"),
+             ("K14", bn, "bn2_forward_step", "bn2_fwd.cu", "pallas_bn.py:568", x14, kw14, "y1"),
              ("K15", bn, "bn2_backward_step", "bn2_train.cu", "pallas_bn.py:677", x15, {},
               "y_prev")),
             two_layer_train_bounds(k11, x14, x15)):
@@ -1262,36 +1295,54 @@ def phase_two_layer_train_kernels(torch, gb):
 
 
 # the kernels with shared-memory plans: the register-tiled ones
-# (ops/csrc/tile2.cuh) and K2 (bn_train.cu)
-TILED = ("K10", "K11", "K12", "K13", "K15", "K2")
+# (ops/csrc/tile2.cuh; K14 in bn2_fwd.cu), K2 (bn_train.cu) and K17
+# (bn_typed.cu); a shape is (W, D, AL or F, H1), K17's (W, D, F, T)
+TILED = ("K10", "K11", "K12", "K13", "K14", "K15", "K2", "K17")
 
 
 def plans_of(k):
-    """Kernel k's plan list, as ops/fused2.py or ops/bn.py mirror it."""
-    from gnn_tpu_torch.ops import bn, fused2
-    return bn._BN_BWD_PLANS if k == "K2" else fused2._PLANS[k]
+    """Kernel k's plan list, as ops/fused2.py, ops/bn.py or ops/typed.py
+    mirror it."""
+    from gnn_tpu_torch.ops import bn, fused2, typed
+    return {"K2": bn._BN_BWD_PLANS, "K17": typed._BNT_BWD_PLANS}.get(k) or fused2._PLANS[k]
 
 
 def plan_bytes(k, plan, W, D, AL, H1):
-    from gnn_tpu_torch.ops import bn, fused2
+    from gnn_tpu_torch.ops import bn, fused2, typed
     if k == "K2":
         return int(bn._bn_bwd_bytes(W, D, AL, plan))
+    if k == "K17":
+        return int(typed._bnT_bwd_bytes(W, D, AL, H1, plan))
     return int(fused2._tile2_bytes(fused2._KIND[k], W, D, AL, H1, plan))
 
 
 def mirrored_plan(k, W, D, AL, H1):
     """(bytes, plan index or None) the Python mirror names for kernel k."""
-    from gnn_tpu_torch.ops import bn, fused2
-    return bn._bn_bwd_plan(W, D, AL) if k == "K2" else fused2._tile2_plan(W, D, AL, H1, k)
+    from gnn_tpu_torch.ops import bn, fused2, typed
+    if k == "K2":
+        return bn._bn_bwd_plan(W, D, AL)
+    if k == "K17":
+        return typed._bnT_bwd_plan(W, D, AL, H1)
+    return fused2._tile2_plan(W, D, AL, H1, k)
+
+
+def plan_info(k, W, D, AL, H1):
+    """What the card reports for the plan kernel k takes at this shape."""
+    from gnn_tpu_torch.ops import bn, fused2, typed
+    if k == "K2":
+        return bn.backward_info(W, D, AL)
+    if k == "K17":
+        return typed.backward_info(W, D, AL, H1)
+    return fused2.tile_info(k, W, D, AL, H1)
 
 
 def tiled_plan(k, W, D, AL, H1):
     """The shared-memory plan the library takes for kernel k at this shape
-    (AL: K2's and K15's F; K2 ignores H1), held equal to the Python mirror's
-    (ops/fused2.py::_tile2_plan, ops/bn.py::_bn_bwd_plan), and what the card
-    reports for it."""
-    from gnn_tpu_torch.ops import bn, fused2
-    info = bn.backward_info(W, D, AL) if k == "K2" else fused2.tile_info(k, W, D, AL, H1)
+    (AL: K2's, K14's, K15's and K17's F; K2 ignores H1, K17 takes the types
+    T in its place), held equal to the Python mirror's
+    (ops/fused2.py::_tile2_plan, ops/bn.py::_bn_bwd_plan,
+    ops/typed.py::_bnT_bwd_plan), and what the card reports for it."""
+    info = plan_info(k, W, D, AL, H1)
     need, plan = mirrored_plan(k, W, D, AL, H1)
     if (info["plan"], info["smem_bytes"]) != (plan, need):
         fail(f"{k} W={W} D={D} AL={AL} H1={H1}: the library takes plan {info['plan']} "
@@ -1301,7 +1352,7 @@ def tiled_plan(k, W, D, AL, H1):
 
 def describe_k(k, info):
     """Kernel k's plan and occupancy as the card reports them (info)."""
-    threads = plans_of("K2")[info["plan"]][0] if k == "K2" else 256
+    threads = plans_of(k)[info["plan"]][0] if k in ("K2", "K17") else 256
     return (f"plan {info['plan']}, {info['smem_bytes']} bytes of shared memory a CTA, "
             f"{info['ctas_per_sm']} CTAs ({info['ctas_per_sm'] * threads // 32} warps) an SM, "
             f"{info['registers']} registers and {info['local_bytes']} local bytes a thread")
@@ -1331,15 +1382,16 @@ def check_tiled(torch, k, kernel, x, dims):
 def force_entry(k):
     """Kernel k's gnn_*_force_plan entry."""
     from gnn_tpu_torch.ops import _build, fused2
-    name = "gnn_bn_backward" if k == "K2" else fused2._TILED[k]
+    name = {"K2": "gnn_bn_backward", "K17": "gnn_bnT_backward"}.get(k) or fused2._TILED[k]
     return getattr(_build.library(), name + "_force_plan")
 
 
 def time_plans(torch, k, kernel, x, dims, first):
-    """Every plan of K11, K12, K15 or K2 that fits the full-set shape, forced
-    in turn (its outputs bit-identical to the default plan's `first`), timed
-    as the kernels' rows are; the plan list is ordered by these times."""
-    from gnn_tpu_torch.ops import bn, fused2
+    """Every plan of K11, K12, K14, K15, K2 or K17 that fits the full-set
+    shape, forced in turn (its outputs bit-identical to the default plan's
+    `first`), timed as the kernels' rows are; the plan list is ordered by
+    these times."""
+    from gnn_tpu_torch.ops import fused2
     force = force_entry(k)
     times = {}
     try:
@@ -1353,7 +1405,7 @@ def time_plans(torch, k, kernel, x, dims, first):
                 fail(f"{k}: plan {i} is not bit-identical to plan "
                      f"{mirrored_plan(k, *dims)[1]} on the full set")
             times[i] = timed_ms(torch, lambda: kernel(**x))
-            info = bn.backward_info(*dims[:3]) if k == "K2" else fused2.tile_info(k, *dims)
+            info = plan_info(k, *dims)
             say(f"{k} full set, plan {i} forced: {times[i]:.4f} ms, bit-identical to the default "
                 f"plan; {describe_k(k, info)}")
     finally:
@@ -1378,12 +1430,13 @@ def phase_two_layer_kernels(torch, gb, gb_train):
         first = check_tiled(torch, k, getattr(fused2, name), x, dims)
         if k == "K12":
             plans_ms[k] = time_plans(torch, k, fused2.train_loop2, x, dims, first)
-    # the plans the cases take (K11, K15 and K2 take plan 0 at the full set,
-    # phases 5 and 8)
-    reached = {k: set() for k in TILED}
+    # the plans the cases take (K11, K14, K15 and K2 take plan 0 at the full
+    # set, phases 5 and 8; K17's cases are phase 10's)
+    two = [k for k in TILED if k != "K17"]
+    reached = {k: set() for k in two}
     reached.update(K10={0}, K12={0}, K13={0})
 
-    def reach(W, D, AL, H1, kernels=TILED):
+    def reach(W, D, AL, H1, kernels=two):
         for k in kernels:
             if mirrored_plan(k, W, D, AL, H1)[1] is not None:   # K2 runs where a plan fits
                 reached[k].add(tiled_plan(k, W, D, AL, H1)["plan"])
@@ -1400,7 +1453,7 @@ def phase_two_layer_kernels(torch, gb, gb_train):
         *x, k11 = random_two_layer_inputs(torch, gen, B, W, D, AL, H1, K, acts, rate, alpha,
                                           gb.device)
         check_two_layer(torch, *x, "ragged", k11)
-        reach(W, D, AL, H1, [k for k in TILED if k != "K2"])
+        reach(W, D, AL, H1, [k for k in two if k not in ("K2", "K14")])
     # the register-tiled K10, K11, K12, K13 and K15 at the edges of their
     # tiling (K15 with a dep row), and K2 at the same widths (W, D, F = AL)
     # with a dep row and a row of 40 arcs in every block; the last two take
@@ -1417,10 +1470,16 @@ def phase_two_layer_kernels(torch, gb, gb_train):
             (2, 32, 15, 59, 511, 2, ("tanh", "selu"), 0.1, False, False)):
         _, k10r, k12r, k13r, k11r = random_two_layer_inputs(
             torch, gen, B, W, D, AL, H1, K, acts, rate, alpha, gb.device, dense=dense)
-        _, k15r = random_bn_inputs(torch, gen, B + 1, B, W, D, AL, rate, True, gb.device, H1=H1,
-                                   dense=dense)
+        k14r, k15r = random_bn_inputs(torch, gen, B + 1, B, W, D, AL, rate, True, gb.device,
+                                      H1=H1, dense=dense)
         label = (f"tiling edge (B={B} W={W} D={D} AL={AL} H1={H1} K={K} {acts[0]}/{acts[1]} "
                  f"rate={rate}{' dense adjacency' if dense else ''})")
+        kw14 = dict(act0=acts[0], act1=acts[1], alpha_drop=alpha, rate=rate, threshold=0.05)
+        if W == 96:     # the all-dep layout: no loop rows (Bl = 0, adj_loop None)
+            k14r = dict(k14r, adj_loop=None,
+                        adj_dep=torch.cat([k14r["adj_loop"], k14r["adj_dep"]]).contiguous())
+        check_bn_forward(torch, bn, k14r, kw14, label)
+        check_repeat(torch, "K14", bn.bn2_forward_step, dict(k14r, **kw14), label)
         check_plain(torch, f"K10 {label}", *against_plain(torch, fused2, "propagation_loop2", k10r),
                     ("traj", "margins"), exact=("margins",))
         check_plain(torch, f"K12 {label}", *against_plain(torch, fused2, "train_loop2", k12r),
@@ -1437,10 +1496,10 @@ def phase_two_layer_kernels(torch, gb, gb_train):
         check_bwd2(torch, "K11", k11r, f"{label}, affine")
         check_bwd2(torch, "K15", x15, f"{label}, R={B + 1} Bl={B}")
         reach(W, D, AL, H1)
-    for k in TILED:
+    for k in two:
         if reached[k] != set(range(len(plans_of(k)))):
             fail(f"{k}: the cases reach plans {sorted(reached[k])} of its {len(plans_of(k))}")
-    say("tiled plans reached: " + ", ".join(f"{k} {sorted(reached[k])}" for k in TILED))
+    say("tiled plans reached: " + ", ".join(f"{k} {sorted(reached[k])}" for k in two))
     out = {}
     for (k, name, src, line), x, (b, by) in zip(
             (("K9", "propagation_step2", "fused2.cu", 1147),
@@ -1596,10 +1655,10 @@ def check_typed_forward(torch, x, kw, label):
     from gnn_tpu_torch.ops import typed
     R, W, D = x["y1"].shape
     T = x["aff"].shape[2]
-    return check_plain(torch, f"K16 {label}: R={R} (Bl={x['adj_loop'].shape[0]}) W={W} D={D} "
+    return check_plain(torch, f"K16 {label}: R={R} (Bl={loop_rows(x)}) W={W} D={D} "
                        f"F={x['feats'].shape[-1]} T={T} {'/'.join(kw['activations'])} "
                        f"rate={kw['rate']} res={x['rT'] is not None} weights in shared memory "
-                       f"{typed.typed_smem_bytes(W, D, x['feats'].shape[-1], T, False)[1]}",
+                       f"{typed.typed_smem_bytes(W, D, x['feats'].shape[-1], T)[1]}",
                        *against_plain(torch, typed, "bnT_forward_step", dict(x, **kw)),
                        ("y", "agg", "flags", "msum"), summed=("msum",), exact=("flags",))
 
@@ -1646,27 +1705,44 @@ def phase_typed_kernels(torch, model, gb, gb_serve):
     err17 = check_bwd2(torch, "K17", dict(x2, **kwb),
                        f"full set, reverse of iteration 2 (R={R} W={W} D={D} T={model.spec.n_types})")
     gen = torch.Generator().manual_seed(SEED + 24)
-    for R, Bl, W, D, F, acts, alpha, rate, res, absent in (
-            (6, 4, 32, 5, 3, ("selu", "tanh", "relu"), True, 0.1, True, None),
-            (5, 5, 96, 14, 3, ("selu",) * 8, True, 0.1, True, 3),
-            (4, 2, 128, 64, 3, ("tanh", "linear"), False, 0.2, True, None),
-            (3, 1, 64, 64, 20, ("relu", "selu", "tanh"), True, 0.0, False, None),
-            (4, 3, 32, 14, 20, ("selu",), True, 0.1, True, None),
-            (3, 3, 128, 14, 3, ("selu", "selu"), True, 0.1, False, 1),
-            (3, 2, 32, 64, 20, ("selu", "relu") * 4, True, 0.1, True, 5)):
+    reached = {0}     # K17's plan at the full set; the cases below take the others
+    for R, Bl, W, D, F, acts, alpha, rate, res, absent, dense in (
+            (6, 4, 32, 5, 3, ("selu", "tanh", "relu"), True, 0.1, True, None, False),
+            (5, 5, 96, 14, 3, ("selu",) * 8, True, 0.1, True, 3, False),
+            (4, 2, 128, 64, 3, ("tanh", "linear"), False, 0.2, True, None, False),
+            (3, 1, 64, 64, 20, ("relu", "selu", "tanh"), True, 0.0, False, None, False),
+            (4, 3, 32, 14, 20, ("selu",), True, 0.1, True, None, False),
+            (3, 3, 128, 14, 3, ("selu", "selu"), True, 0.1, False, 1, False),
+            (3, 2, 32, 64, 20, ("selu", "relu") * 4, True, 0.1, True, 5, False),
+            (3, 0, 128, 14, 3, ("selu",) * 4, True, 0.1, True, None, False),
+            (2, 0, 32, 1, 0, ("tanh", "selu"), False, 0.1, True, None, True),
+            (2, 1, 64, 14, 3, ("selu",) * 32, True, 0.1, True, None, False)):
         f, b, k = random_typed_inputs(torch, gen, R, Bl, W, D, F, acts, rate, alpha, res, absent,
                                       gb.device)
+        if Bl == 0:     # the all-dep layout: no loop rows (adj_loop None)
+            f, b = (dict(z, adj_loop=None) for z in (f, b))
+        if dense:       # every row's entries read from device memory
+            b["adj_dep"] = torch.full_like(b["adj_dep"], 1.0 / W)
         check_typed_forward(torch, f, dict(k, threshold=0.05), "ragged")
-        check_bwd2(torch, "K17", b, f"ragged (R={R} Bl={Bl} W={W} D={D} F={F} T={len(acts)} "
-                   f"{'/'.join(acts)} rate={rate} absent={absent} weights in shared memory "
-                   f"{typed.typed_smem_bytes(W, D, F, len(acts), True)[1]})")
+        T = len(acts)
+        check_bwd2(torch, "K17", b, f"ragged (R={R} Bl={Bl} W={W} D={D} F={F} T={T} "
+                   f"{'/'.join(acts)} rate={rate} absent={absent}"
+                   f"{' dense adjacency' if dense else ''}, plan "
+                   f"{typed._bnT_bwd_plan(W, D, F, T)[1]})")
+        check_repeat(torch, "K17", typed.bnT_backward_step, b, "ragged")
+        reached.add(tiled_plan("K17", W, D, F, T)["plan"])
+    if reached != set(range(len(plans_of("K17")))):
+        fail(f"K17: the cases reach plans {sorted(reached)} of its {len(plans_of('K17'))}")
     R, W, D = x1["y1"].shape
     T, Fd = model.spec.n_types, x1["feats"].shape[-1]
-    for name, back in (("K16", False), ("K17", True)):
-        nbytes, staged = typed.typed_smem_bytes(W, D, Fd, T, back)
-        say(f"{name} at W={W} D={D} F={Fd} T={T}: {nbytes} bytes of shared memory a CTA "
-            f"(weights {'staged' if staged else 'read through the caches'}), "
-            f"{min(228 * 1024 // (nbytes + 1024), 2048 // W)} CTAs an SM")
+    nbytes, staged = typed.typed_smem_bytes(W, D, Fd, T)
+    say(f"K16 at W={W} D={D} F={Fd} T={T}: {nbytes} bytes of shared memory a CTA "
+        f"(weights {'staged' if staged else 'read through the caches'}), "
+        f"{min(228 * 1024 // (nbytes + 1024), 2048 // W)} CTAs an SM")
+    x2k = dict(x2, **kwb)
+    dims = (W, D, Fd, T)
+    plans_ms = time_plans(torch, "K17", typed.bnT_backward_step, x2k, dims,
+                          check_tiled(torch, "K17", typed.bnT_backward_step, x2k, dims))
     (b16, by16), (b17, by17) = typed_bounds(x1, x2)
     out = {
         "K16": dict(name="K16 bnT_forward_step", route="cuda",
@@ -1684,7 +1760,8 @@ def phase_typed_kernels(torch, model, gb, gb_serve):
     }
     for k, v in out.items():
         say(f"{k} timing at {R} block rows, T={T}: kernel {v['ms']:.4f} ms, plain "
-            f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})")
+            f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
+            + (f"; each plan forced: {plans_ms}" if k == "K17" else ""))
     return out
 
 
@@ -1823,6 +1900,74 @@ def forward_time(torch, label, model, gb, n_arcs):
     say(f"'{label}' full-set forward: {t_med * 1e3:.3f} ms median of 10 (host clock, "
         f"synchronized), iters {iters}, {n_arcs * iters / t_med:.4e} edges/s")
     phase_profile(torch, fwd, what=f"'{label}' full-set forward")
+
+
+def phase_flat_layout(torch, graphs, typed, requests, n_arcs, dep_ms):
+    """Blocked batches without the loop/dep layout (from_graphs_blocked(...,
+    fused_layout=False): the all-dep layout, every block a dep block) under
+    aggregation='fused', as gnn_tpu's per-step fused path: the flagship served
+    through K4 every iteration and h150 through K9 (Predictor(fused_layout=
+    False), K launches a request, no other kernel, outputs against the CPU);
+    one BatchNorm step (K1/K2 over every block row) and one dropout step (K6
+    per step over every block row) on the whole set, and one composite_bn
+    step (K16/K17), each counted and held to the CPU as phase 12 holds its
+    paths; K4, K9 and K6 against their plain versions and timed at these
+    all-dep shapes beside their dep-row times `dep_ms` (phases 3, 6, 7)."""
+    from gnn_tpu_torch import Predictor
+    from gnn_tpu_torch.graphs.batch import from_graphs_blocked
+    from gnn_tpu_torch.models import core
+    from gnn_tpu_torch.ops import fused, fused2
+    say(f"---- flat layout: 'fused' specs without loop blocks ({elapsed()})")
+    model = flagship(torch, "cuda", "flat_bn")
+    t0 = time.perf_counter()
+    gb = Predictor(model, fused_layout=False).build_batch(graphs).to("cuda")
+    gb_train = from_graphs_blocked(graphs, block_w=128, focus="g").to("cuda")
+    gb_typed = from_graphs_blocked(typed, block_w=128, focus="g").to("cuda")
+    say(f"all-dep batches: serving {gb.adj_dep.shape[0]} blocks, training "
+        f"{gb_train.adj_dep.shape[0]}, composite training {gb_typed.adj_dep.shape[0]} "
+        f"({time.perf_counter() - t0:.2f} s to pack and upload)")
+    for b in (gb, gb_train, gb_typed):
+        if b.adj_loop is not None or b.adj_dep.shape[0] != b.n_node_pad // b.block_w:
+            fail("a batch without the loop/dep layout does not hold every block as a dep block")
+    K = model.spec.max_iteration
+    for label, variant, key in (("flat flagship", "flat_bn", "propagation_step"),
+                                ("flat h150", "flat_h150", "propagation_step2")):
+        phase_serving(torch, label, flagship(torch, "cuda", variant),
+                      flagship(torch, "cpu", variant), gb, requests, (key,), n_arcs,
+                      per_request={key: K}, predictor_kw={"fused_layout": False})
+    for variant, b in (("flat_bn", gb_train), ("flat_dropout", gb_train),
+                       ("composite_bn", gb_typed)):
+        phase_training(torch, b, n_arcs, variant, 1)
+    # the per-step kernels at the all-dep shapes
+    h150 = flagship(torch, "cuda", "flat_h150")
+    drop_m = flagship(torch, "cuda", "flat_dropout")
+    masks = core.draw_masks(drop_m.spec, gb_train,
+                            torch.Generator(device="cuda").manual_seed(SEED + 31))
+    with torch.no_grad():
+        _, k4 = kernel_inputs(model, gb)
+        k4 = dict(k4, activation=model.spec.state_spec.activations[0])
+        _, dep = core.hybrid2_operands(h150.spec, h150.params["state"], h150.bn["state"], gb)
+        k9 = dict(dep, rT=core.residual_agg(gb, dep["s"]),
+                  **dict(zip(("act0", "act1"), h150.spec.state_spec.activations)))
+        _, dep, kw = core.dropout_operands(drop_m.spec, drop_m.params["state"], gb_train,
+                                           masks["state"][0])
+        s = dep["s0"]
+        k6 = dict(adjT=dep["adjT"], s=s, sd=fused._make_drop(kw["alpha_drop"], kw["rate"])[0](
+                      s, dep["ms"][0]), m=dep["ma"][0], rT=core.residual_agg(gb_train, s),
+                  fT=dep["fT"][0], w_cat=dep["w_cat"], **kw)
+        for k, mod, name, x in (("K4", fused, "propagation_step", k4),
+                                ("K9", fused2, "propagation_step2", k9),
+                                ("K6", fused, "train_step", k6)):
+            got, want = against_plain(torch, mod, name, x)
+            got, want = (got if isinstance(got, tuple) else (got,),
+                         want if isinstance(want, tuple) else (want,))
+            err = check_plain(torch, f"{k} all-dep {tuple(x['adjT'].shape)}", got[:1], want[:1],
+                              ("out",))
+            ms = timed_ms(torch, lambda: getattr(mod, name)(**x))
+            plain = timed_ms(torch, lambda: getattr(mod, name + "_ref")(**x))
+            say(f"{k} at the all-dep shape adjT {tuple(x['adjT'].shape)}: kernel {ms:.4f} ms, "
+                f"plain {plain:.4f} ms, max per-node difference {err:.3e}; at the dep rows "
+                f"{dep_ms[k]:.4f} ms")
 
 
 def close_rel(torch, got, want, rtol, floor, label):
@@ -2226,6 +2371,8 @@ def main():
                for variant, steps in (("bn", 5), ("dropout", 5), ("clean", 3), ("h150", 4),
                                       ("h150_clean", 3), ("h150_bn", 3))}
     counted["composite_bn"] = phase_training(torch, gb_train_typed, n_arcs, "composite_bn", 3)
+    phase_flat_layout(torch, graphs, typed, requests, n_arcs,
+                      {k: kernels[k]["ms"] for k in ("K4", "K6", "K9")})
     phase_one_type(torch, gb, gb_train)
     k18_launches = phase_pallas(torch, graphs, gb_plan_cpu, gb_plan, n_arcs)
     for k, (path, key) in {"K1": ("bn", "bn_forward_step"), "K2": ("bn", "bn_backward_step"),

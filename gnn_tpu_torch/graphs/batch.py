@@ -13,6 +13,15 @@ kernels (ops/fused.py):
 * "dep" blocks are coupled by residual arcs and iterate one step per launch
   (K4) with the residual term added between steps.
 
+Without that layout (`fused_layout=False`, the default, or a batch in which
+every block touches a residual arc) the batch gets the all-dep layout: every
+block is a dep block (adj_dep holds all B adjacencies, dep_ids = arange(B),
+block_perm the identity, the residual arcs in global node ids) and adj_loop
+stays None, so `aggregation='fused'` runs K4/K9 (or the BatchNorm and typed
+kernels) over every block each iteration, as gnn_tpu's per-step fused path
+does, while `'auto'` still finds no loop layout and runs the plain body. It
+costs 4 * W * W bytes a block (64 KiB at W = 128), as gnn_tpu's adj_blocks.
+
 Block adjacencies are stored transposed, adjT[b, src, dst] = w, in float32:
 a kernel thread per destination node then reads a row of adjT at
 consecutive addresses. The field values (ids, masks, loop-block padding,
@@ -61,7 +70,9 @@ class GraphBatch:
     # --- loop-invariant arc-label aggregation, sum_e w_e * label_e per dst ---
     agg_arcs_cache: torch.Tensor  # [Np, AL]
     res_w: Optional[torch.Tensor] = None   # [Er] residual arc weights (0 on pad); blocked only
-    # --- fused layout (None unless fused_layout=True and a loop block exists) ---
+    # --- fused layout: the loop fields are None unless fused_layout=True and a
+    # loop block exists; the dep fields then hold the dep blocks, else (the
+    # all-dep layout of a blocked batch) every block ---
     adj_loop: Optional[torch.Tensor] = None     # [Bi, W, W] adjT of loop blocks
     loop_ids: Optional[torch.Tensor] = None     # [Bi] global block ids (pad -> 0)
     loop_nm: Optional[torch.Tensor] = None      # [Bi, W] float node mask
@@ -336,7 +347,10 @@ def from_graphs_blocked(glist, *, block_w: int = 128, focus: Optional[str] = Non
                         fused_layout: bool = False) -> GraphBatch:
     """Build a host (CPU) GraphBatch with graph-aligned node packing; move it
     with `.to(device)`. Supervision semantics equal Graph.merge: padding slots
-    are excluded everywhere by the masks."""
+    are excluded everywhere by the masks. `fused_layout=True` splits the
+    blocks into loop and dep blocks where a loop block exists; otherwise the
+    batch carries the all-dep layout (module docstring), 64 KiB a block at
+    W = 128."""
     dt = floatx()
     W = int(block_w)
     focus = focus or glist[0].focus
@@ -398,10 +412,16 @@ def from_graphs_blocked(glist, *, block_w: int = 128, focus: Optional[str] = Non
     dep_set = np.unique(np.concatenate([r_src // W, r_dst // W])).astype(np.int64)
     loop_ids_np = np.setdiff1d(np.arange(B, dtype=np.int64), dep_set)
     Bi = len(loop_ids_np)
-    if fused_layout and Bi > 0:
-        si, di, wi = src[intra], dst[intra], w[intra]
-        adjT = np.zeros((B, W, W), dtype=np.float32)
-        np.add.at(adjT, (di // W, si % W, di % W), wi)
+    si, di, wi = src[intra], dst[intra], w[intra]
+    adjT = np.zeros((B, W, W), dtype=np.float32)
+    np.add.at(adjT, (di // W, si % W, di % W), wi)
+    if not (fused_layout and Bi > 0):
+        # the all-dep layout: every block a dep block, residual arcs in global ids
+        fl.update(adj_dep=_t(adjT), dep_ids=_t(np.arange(B, dtype=np.int64)),
+                  res_src_loc=_ix(np.pad(r_src, (0, Er - len(r_src)))),
+                  res_dst_loc=_ix(np.pad(r_dst, (0, Er - len(r_dst)))),
+                  block_perm=_t(np.arange(B, dtype=np.int64)))
+    else:
         # loop-block count padding of gnn_tpu's batch (its kernel grid groups);
         # padded rows carry node mask 0 and block_perm never points at them
         GRP = 24 if Bi > 24 else 8

@@ -124,8 +124,10 @@ def check_node_types(glist, n_types: int) -> None:
 
 def _route(spec: CompositeGNNSpec, gb: GraphBatch, training: bool) -> str:
     """gnn_tpu's dispatch (composite.py:170-196): 'typed_bn' (K16/K17),
-    'typed_eval' (K16) or 'plain'."""
-    if (gb.adj_loop is None or spec.aggregation != "auto" or spec.grad_mode == "ift"
+    'typed_eval' (K16) or 'plain'. Every blocked batch takes the typed
+    kernels, with the loop/dep layout or the all-dep one (graphs/batch.py);
+    a batch without blocks (GraphBatch.from_graph) runs the plain body."""
+    if (not gb.has_blocks or spec.aggregation != "auto" or spec.grad_mode == "ift"
             or spec.state_specs[0].units[-1] != gb.nodes.shape[1]):
         return "plain"
     if training:

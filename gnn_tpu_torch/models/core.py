@@ -26,11 +26,17 @@ Dispatch follows gnn_tpu's `aggregation='auto'`:
   loop blocks and a plain step over the dep blocks, as gnn_tpu does; with
   the trailing BatchNorm and dropout only at the input the BN kernels K1/K2,
   or K14/K15 for two layers (ops/bn.py);
-* what gnn_tpu sends to its XLA body (no loop layout, activations the
-  kernels do not take, dropout inside the net, the aggregation names
-  'segment', 'onehot', 'pallas' and 'blocked' on a batch with blocks, and
-  every batch without blocks, GraphBatch.from_graph) runs the plain body
-  here; in it, a 'pallas' spec on a batch with a plan aggregates the state
+* `aggregation='fused'` on a blocked batch without the loop/dep layout
+  (graphs/batch.py's all-dep layout: every block a dep block) takes the same
+  routes with no loop blocks, as gnn_tpu's per-step fused path: K4 or K9
+  every iteration at eval and on the clean routes, K6 per step with input
+  dropout, K1/K2 or K14/K15 with BatchNorm; two-layer dropout training runs
+  the plain body there, as gnn_tpu's;
+* what gnn_tpu sends to its XLA body ('auto' without a loop layout,
+  activations the kernels do not take, dropout inside the net, the
+  aggregation names 'segment', 'onehot', 'pallas' and 'blocked' on a batch
+  with blocks, and every batch without blocks, GraphBatch.from_graph) runs
+  the plain body here; in it, a 'pallas' spec on a batch with a plan aggregates the state
   through the segment kernel K18 (ops/segment.py::block_aggregate, backward
   K18 on the transpose plan), as gnn_tpu's make_agg_closures does, and
   everything else through `index_add_` over the arcs;
@@ -175,21 +181,18 @@ def _check_aggregation(spec: GNNSpec) -> bool:
     return spec.aggregation in ("auto", "fused")
 
 
-def _needs_loop_layout(spec: GNNSpec, gb: GraphBatch, kernels: str) -> bool:
-    """False when 'auto' keeps a batch without the loop/dep layout on the
-    plain body; raises when 'fused' asks the kernels for one: ValueError on
-    a batch without blocks, as gnn_tpu (core.py:426-429)."""
-    if gb.adj_loop is not None:
-        return True
+def _kernel_layout(spec: GNNSpec, gb: GraphBatch) -> bool:
+    """Whether the kernels take the batch: 'auto' needs the loop/dep layout
+    (gnn_tpu sends it to its XLA body otherwise, core.py:354); 'fused' runs
+    on any blocked batch, over every block per step without loop blocks (the
+    all-dep layout; gnn_tpu's per-step fused path, core.py:610-643), and
+    raises ValueError on a batch without blocks, as gnn_tpu (core.py:426-429)."""
     if spec.aggregation == "fused":
         if not gb.has_blocks:
             raise ValueError("aggregation='fused' needs a block-dense batch "
                              "(graphs/batch.from_graphs_blocked)")
-        raise NotImplementedError(
-            f"aggregation='fused' on a batch without the loop/dep layout runs {kernels} "
-            "over every block, which is not ported; build the batch with "
-            "fused_layout=True")
-    return False
+        return True
+    return gb.adj_loop is not None
 
 
 def _eval_route(spec: GNNSpec, gb: GraphBatch) -> str:
@@ -197,7 +200,7 @@ def _eval_route(spec: GNNSpec, gb: GraphBatch) -> str:
     'hybrid' (K3/K4: a one-layer state net), 'hybrid2' (K10/K9: a two-layer
     one) or 'plain' (the plain body)."""
     ss = spec.state_spec
-    if not _check_aggregation(spec) or not _needs_loop_layout(spec, gb, "K4 or K9"):
+    if not _check_aggregation(spec) or not _kernel_layout(spec, gb):
         return "plain"
     if ss.units[-1] != gb.nodes.shape[1]:
         return "plain"
@@ -212,9 +215,10 @@ def _train_route(spec: GNNSpec, gb: GraphBatch) -> str:
     input dropout, no BatchNorm), 'bn' (K1/K2, or K14/K15 for a two-layer
     net), 'hybrid2' (K10/K11 and K9: a two-layer net without dropout and
     BatchNorm), 'dropout2' (K12/K13: a two-layer net with input dropout, no
-    BatchNorm) or 'plain' (the plain body)."""
+    BatchNorm; without loop blocks gnn_tpu runs its XLA body, core.py:457-461)
+    or 'plain' (the plain body)."""
     ss = spec.state_spec
-    if not _check_aggregation(spec) or not _needs_loop_layout(spec, gb, "the kernels"):
+    if not _check_aggregation(spec) or not _kernel_layout(spec, gb):
         return "plain"
     fusable = all(a in FUSABLE_ACTIVATIONS for a in ss.activations)
     if ss.units[-1] != gb.nodes.shape[1] or not fusable:
@@ -230,7 +234,7 @@ def _train_route(spec: GNNSpec, gb: GraphBatch) -> str:
     if supports_fused2(ss, training=True):
         return "hybrid2"
     if supports_fused2_train(ss):
-        return "dropout2"
+        return "dropout2" if gb.adj_loop is not None else "plain"
     return "bn" if supports_fused_bn2_train(ss) else "plain"
 
 
@@ -345,8 +349,9 @@ def hybrid_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
     """The kernels' operands on the hybrid path: (loop, dep, Wa).
 
     `loop` holds K3's tensor arguments (adjT, s0, fT, w2, affine, nm) for the
-    loop blocks; `dep` holds K4's (adjT, s, fT, w2, affine) for the dep blocks
-    at their initial states, or is None without dep blocks; `Wa` [H, D] takes
+    loop blocks, or is None without loop blocks (the all-dep layout); `dep`
+    holds K4's (adjT, s, fT, w2, affine) for the dep blocks at their initial
+    states, or is None without dep blocks; `Wa` [H, D] takes
     the residual term through the aggregation weights (`residual_term`).
 
     The dense layer is reassociated through the aggregation: [Ws; Wa] enters
@@ -365,10 +370,11 @@ def hybrid_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
     fT3 = F.linear(gb.agg_arcs_cache, w[:, 2 * D:], params_state["dense_0"]["b"])
     fT3 = fT3.reshape(B, W, D)
     s03 = gb.nodes.reshape(B, W, D)
-    li = gb.loop_ids
-    loop = dict(adjT=gb.adj_loop, s0=s03[li], fT=fT3[li], w2=w2, affine=affine,
-                nm=gb.loop_nm)
-    dep = None
+    loop = dep = None
+    if gb.adj_loop is not None:
+        li = gb.loop_ids
+        loop = dict(adjT=gb.adj_loop, s0=s03[li], fT=fT3[li], w2=w2, affine=affine,
+                    nm=gb.loop_nm)
     if gb.adj_dep is not None:
         di = gb.dep_ids
         dep = dict(adjT=gb.adj_dep, s=s03[di], fT=fT3[di], w2=w2, affine=affine)
@@ -391,15 +397,20 @@ def residual_term(gb: GraphBatch, sd, Wa):
     return torch.matmul(residual_agg(gb, sd), Wa.t())
 
 
-def _finish_hybrid(gb: GraphBatch, thr: float, traj, margins, s0_loop, sd=None, step=None):
+def _finish_hybrid(gb: GraphBatch, thr: float, K: int, looped=None, sd=None, step=None):
     """The realised count and the [Np, D] state in global node order.
 
-    The loop blocks ran all K iterations (traj, margins [K, Bl, W]); the dep
-    blocks, from states sd (None without dep blocks), take their K steps
+    The loop blocks ran all K iterations, looped = (traj, margins [K, Bl, W],
+    s0_loop), or there are none (None: the all-dep layout); the dep blocks,
+    from states sd (None without dep blocks), take their K steps
     `step(it, sd)` under the global early stop: a step runs while any loop
     node moved before it or any dep node moves. The loop blocks' state is
     the snapshot at the realised count (s0_loop when it is 0)."""
-    loop_any = (margins > 0.5).flatten(1).any(dim=1)        # [K]
+    if looped is None:
+        loop_any = torch.zeros(K, dtype=torch.bool, device=gb.device)
+    else:
+        traj, margins, s0_loop = looped
+        loop_any = (margins > 0.5).flatten(1).any(dim=1)    # [K]
     if sd is None:
         k = torch.cumprod(loop_any.float(), dim=0).sum()
     else:
@@ -413,6 +424,8 @@ def _finish_hybrid(gb: GraphBatch, thr: float, traj, margins, s0_loop, sd=None, 
             new = step(it, sd)
             sd, sd_old = torch.where(active, new, sd), torch.where(active, sd, sd_old)
             k = k + active.float()
+    if looped is None:
+        return k, sd[gb.block_perm].reshape(gb.nodes.shape)
     idx = (k.long() - 1).clamp_min(0).reshape(1)
     sel = torch.where(k >= 1.0, traj.index_select(0, idx)[0], s0_loop)
     full = sel if sd is None else torch.cat([sel, sd])
@@ -427,14 +440,17 @@ def _propagate_hybrid(spec, params_state, bn_state, gb):
     thr = float(spec.threshold)
     act = spec.state_spec.activations[0]
     loop, dep, Wa = hybrid_operands(spec, params_state, bn_state, gb)
-    traj, margins = fused_propagation_loop(**loop, K=K, threshold=thr, activation=act)
+    looped = None
+    if loop is not None:
+        looped = (*fused_propagation_loop(**loop, K=K, threshold=thr, activation=act),
+                  loop["s0"])
     if dep is None:
-        return _finish_hybrid(gb, thr, traj, margins, loop["s0"])
+        return _finish_hybrid(gb, thr, K, looped)
 
     def step(_, sd):
         return fused_propagation_step(dep["adjT"], sd, residual_term(gb, sd, Wa), dep["fT"],
                                       dep["w2"], dep["affine"], act)
-    return _finish_hybrid(gb, thr, traj, margins, loop["s0"], dep["s"], step)
+    return _finish_hybrid(gb, thr, K, looped, dep["s"], step)
 
 
 def _dense2_weights(params_state) -> dict:
@@ -447,7 +463,8 @@ def _dense2_weights(params_state) -> dict:
 def hybrid2_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
     """The two-layer eval kernels' operands (gnn_tpu core.py:475-608 with
     `two`): (loop, dep). `loop` holds K10's tensor arguments (adjT, s0, feats,
-    w0, b0, w1, b1, affine, nm) for the loop blocks; `dep` holds K9's (adjT, s,
+    w0, b0, w1, b1, affine, nm) for the loop blocks, or is None without loop
+    blocks; `dep` holds K9's (adjT, s,
     feats, the weights, affine) for the dep blocks at their initial states, or
     is None without dep blocks. feats is the raw arc-label aggregation: the
     kernels form Wf @ feats + b0 themselves."""
@@ -461,9 +478,11 @@ def hybrid2_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
     wts = _dense2_weights(params_state)
     s03 = gb.nodes.reshape(B, W, D)
     f3 = gb.agg_arcs_cache.reshape(B, W, -1)
-    li = gb.loop_ids
-    loop = dict(adjT=gb.adj_loop, s0=s03[li], feats=f3[li], affine=affine, nm=gb.loop_nm, **wts)
-    dep = None
+    loop = dep = None
+    if gb.adj_loop is not None:
+        li = gb.loop_ids
+        loop = dict(adjT=gb.adj_loop, s0=s03[li], feats=f3[li], affine=affine, nm=gb.loop_nm,
+                    **wts)
     if gb.adj_dep is not None:
         di = gb.dep_ids
         dep = dict(adjT=gb.adj_dep, s=s03[di], feats=f3[di], affine=affine, **wts)
@@ -474,18 +493,21 @@ def _propagate_hybrid2(spec, params_state, bn_state, gb):
     """K10 over the loop blocks, K9 per step over the dep blocks with the raw
     residual aggregation (gnn_tpu core.py:475-608 with `two`); differentiable
     through K11 (K10's backward) and K9's plain backward."""
+    K = spec.max_iteration
     thr = float(spec.threshold)
     acts = dict(zip(("act0", "act1"), spec.state_spec.activations))
     loop, dep = hybrid2_operands(spec, params_state, bn_state, gb)
-    traj, margins = fused_propagation_loop2(**loop, K=spec.max_iteration, threshold=thr, **acts)
+    looped = None
+    if loop is not None:
+        looped = (*fused_propagation_loop2(**loop, K=K, threshold=thr, **acts), loop["s0"])
     if dep is None:
-        return _finish_hybrid(gb, thr, traj, margins, loop["s0"])
+        return _finish_hybrid(gb, thr, K, looped)
 
     def step(_, sd):
         return fused_propagation_step2(dep["adjT"], sd, residual_agg(gb, sd), dep["feats"],
                                        dep["w0"], dep["b0"], dep["w1"], dep["b1"], dep["affine"],
                                        **acts)
-    return _finish_hybrid(gb, thr, traj, margins, loop["s0"], dep["s"], step)
+    return _finish_hybrid(gb, thr, K, looped, dep["s"], step)
 
 
 def dropout_operands(spec: GNNSpec, params_state, gb: GraphBatch,
@@ -493,7 +515,7 @@ def dropout_operands(spec: GNNSpec, params_state, gb: GraphBatch,
     """The dropout kernels' operands (gnn_tpu core.py:727-798): (loop, dep, kw).
 
     `loop` holds K7's tensor arguments (adjT, s0, ms, ma, fT, w_cat, nm) for
-    the loop blocks; `dep` holds K6's (adjT, s0, ms, ma, fT, w_cat) for the dep
+    the loop blocks, or is None without loop blocks; `dep` holds K6's (adjT, s0, ms, ma, fT, w_cat) for the dep
     blocks, with the masks and fT of every iteration ([K, Bd, ...]), or is
     None without dep blocks; `kw` is (activation, alpha_drop, rate).
 
@@ -529,10 +551,11 @@ def dropout_operands(spec: GNNSpec, params_state, gb: GraphBatch,
     def rows(ids):
         return [None if x is None else x.index_select(1, ids).contiguous() for x in (ms, ma, fT)]
 
-    li = gb.loop_ids
-    loop = dict(zip(("ms", "ma", "fT"), rows(li)), adjT=gb.adj_loop, s0=s03[li], w_cat=w_cat,
-                nm=gb.loop_nm)
-    dep = None
+    loop = dep = None
+    if gb.adj_loop is not None:
+        li = gb.loop_ids
+        loop = dict(zip(("ms", "ma", "fT"), rows(li)), adjT=gb.adj_loop, s0=s03[li],
+                    w_cat=w_cat, nm=gb.loop_nm)
     if gb.adj_dep is not None:
         di = gb.dep_ids
         dep = dict(zip(("ms", "ma", "fT"), rows(di)), adjT=gb.adj_dep, s0=s03[di], w_cat=w_cat)
@@ -542,12 +565,17 @@ def dropout_operands(spec: GNNSpec, params_state, gb: GraphBatch,
 def _propagate_dropout(spec, params_state, gb, keep_state: Optional[torch.Tensor]):
     """Dropout training without BatchNorm (gnn_tpu core.py:727-874): K7 over
     the loop blocks (K8 its backward), K6 per step over the dep blocks, which
-    get their state slice dropped here and the raw residual aggregation."""
+    get their state slice dropped here and the raw residual aggregation;
+    without loop blocks K6 per step over every block (gnn_tpu's per-step
+    training path, core.py:880-927)."""
+    K = spec.max_iteration
     thr = float(spec.threshold)
     loop, dep, kw = dropout_operands(spec, params_state, gb, keep_state)
-    traj, margins = fused_train_loop(**loop, K=spec.max_iteration, threshold=thr, **kw)
+    looped = None
+    if loop is not None:
+        looped = (*fused_train_loop(**loop, K=K, threshold=thr, **kw), loop["s0"])
     if dep is None:
-        return _finish_hybrid(gb, thr, traj, margins, loop["s0"])
+        return _finish_hybrid(gb, thr, K, looped)
     drop, _ = _make_drop(kw["alpha_drop"], kw["rate"])
 
     def step(it, sd):
@@ -555,7 +583,7 @@ def _propagate_dropout(spec, params_state, gb, keep_state: Optional[torch.Tensor
         sdd = sd if ms is None else drop(sd, ms)
         return fused_train_step(dep["adjT"], sd, sdd, ma, residual_agg(gb, sd), dep["fT"][it],
                                 dep["w_cat"], **kw)
-    return _finish_hybrid(gb, thr, traj, margins, loop["s0"], dep["s0"], step)
+    return _finish_hybrid(gb, thr, K, looped, dep["s0"], step)
 
 
 def dropout2_operands(spec: GNNSpec, params_state, gb: GraphBatch,
@@ -616,11 +644,12 @@ def _propagate_dropout2(spec, params_state, gb, keep_state: Optional[torch.Tenso
     take a plain step, as gnn_tpu's (core.py:815-845), which has no per-step
     two-layer training kernel: the state and aggregated slices masked, fd
     pre-dropped, dense0, act0, dense1, act1."""
+    K = spec.max_iteration
     thr = float(spec.threshold)
     loop, dep, kw = dropout2_operands(spec, params_state, gb, keep_state)
-    traj, margins = fused_train_loop2(**loop, K=spec.max_iteration, threshold=thr, **kw)
+    looped = (*fused_train_loop2(**loop, K=K, threshold=thr, **kw), loop["s0"])
     if dep is None:
-        return _finish_hybrid(gb, thr, traj, margins, loop["s0"])
+        return _finish_hybrid(gb, thr, K, looped)
     drop, _ = _make_drop(kw["alpha_drop"], kw["rate"])
 
     def step(it, sd):
@@ -629,7 +658,7 @@ def _propagate_dropout2(spec, params_state, gb, keep_state: Optional[torch.Tenso
             sd, agg = drop(sd, dep["ms"][it]), drop(agg, dep["ma"][it])
         return dense2(torch.cat([sd, agg, dep["fd"][it]], dim=-1), dep["w0"], dep["b0"],
                       dep["w1"], dep["b1"], kw["act0"], kw["act1"])
-    return _finish_hybrid(gb, thr, traj, margins, loop["s0"], dep["s0"], step)
+    return _finish_hybrid(gb, thr, K, looped, dep["s0"], step)
 
 
 def _entity_mask(gb: GraphBatch) -> torch.Tensor:

@@ -25,10 +25,12 @@ here; ops/typed.py runs the same loop over K16/K17 for composite models);
 `bn_train_propagate` drives it for models/core.py.
 
 Layout: node-major blocks [R, W, D] over the rows [loop blocks | dep blocks]
-of a fused-layout batch, the order hybrid_operands uses. The kernels read
-the two block adjacencies adjT[b, src, dst] where they lie (row r < Bl in
-adj_loop, the rest in adj_dep), so no copy of the adjacency is made. Padded
-loop rows carry node mask 0, so moments, flags and gradients ignore them.
+of a fused-layout batch, the order hybrid_operands uses, or over every block
+in order (the all-dep layout of graphs/batch.py: no loop rows, adj_loop
+None, Bl = 0). The kernels read the two block adjacencies adjT[b, src, dst]
+where they lie (row r < Bl in adj_loop, the rest in adj_dep), so no copy of
+the adjacency is made. Padded loop rows carry node mask 0, so moments, flags
+and gradients ignore them.
 Keep-masks are uint8 [R, W, 2D+F] in x3 column order.
 
 Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
@@ -54,7 +56,8 @@ from gnn_tpu_torch.ops import _build
 from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, _act_grad, _check,
                                      _check_keep, _drop_args, _make_drop, _ptr, _stream, moved,
                                      supports_fused_train)
-from gnn_tpu_torch.ops.fused2 import MAX_HIDDEN, SMEM_BYTES, _dense2_vjp, _tile2_plan, dense2
+from gnn_tpu_torch.ops.fused2 import (MAX_HIDDEN, SMEM_BYTES, _dense2_vjp, _r4, _tile2_plan,
+                                      dense2)
 from gnn_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
 
 # kernel launches since the last reset, by wrapper
@@ -98,22 +101,22 @@ def _ident_aff(D, like):
 
 
 # ------------------------------------------------------------ plain versions
+def _by_block_set(adj_loop, adj_dep, x, fn):
+    """fn(adjT, rows) over the loop rows [0, Bl) and the dep rows, either set
+    None when it has no rows, concatenated."""
+    Bl = 0 if adj_loop is None else adj_loop.shape[0]
+    parts = [fn(a, r) for a, r in ((adj_loop, x[:Bl]), (adj_dep, x[Bl:])) if a is not None]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+
 def _agg_blocks(adj_loop, adj_dep, s):
     """agg[b, dst] = sum_src adjT[b, src, dst] * s[b, src] over both block sets."""
-    Bl = adj_loop.shape[0]
-    parts = [torch.matmul(adj_loop.transpose(1, 2), s[:Bl])]
-    if adj_dep is not None:
-        parts.append(torch.matmul(adj_dep.transpose(1, 2), s[Bl:]))
-    return torch.cat(parts)
+    return _by_block_set(adj_loop, adj_dep, s, lambda a, x: torch.matmul(a.transpose(1, 2), x))
 
 
 def _contract_dst(adj_loop, adj_dep, g):
     """out[b, src] = sum_dst adjT[b, src, dst] * g[b, dst] (reverse of _agg_blocks)."""
-    Bl = adj_loop.shape[0]
-    parts = [torch.matmul(adj_loop, g[:Bl])]
-    if adj_dep is not None:
-        parts.append(torch.matmul(adj_dep, g[Bl:]))
-    return torch.cat(parts)
+    return _by_block_set(adj_loop, adj_dep, g, torch.matmul)
 
 
 def _x3(s, agg, feats, keep, alpha_drop: bool, rate: float):
@@ -227,10 +230,6 @@ def bn2_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_a
 _BN_BWD_PLANS = ((256, 16, 1), (128, 0, 0))
 
 
-def _r4(n):
-    return (n + 3) // 4 * 4
-
-
 def _bn_bwd_bytes(W, D, F, plan):
     """Shared memory of bn_train.cu::bwd_layout: x3 [C1][W], dh [D][W], w_aug
     transposed [C][D rounded up to 4], bnv [9][D], nm [W]; staged, y_prev [W][D] and the keep bytes;
@@ -279,15 +278,21 @@ def backward_info(W: int, D: int, F: int) -> dict:
 
 
 def _check_blocks(adj_loop, adj_dep, R, D):
-    """(Bl, W) after checking the two adjacencies against R block rows."""
-    Bl, W, W2 = adj_loop.shape
+    """(Bl, W) after checking the two adjacencies (either None: no rows of
+    that set) against R block rows."""
+    adj = adj_loop if adj_loop is not None else adj_dep
+    if adj is None:
+        raise ValueError("the BatchNorm kernels need a block adjacency")
+    W, W2 = adj.shape[-2:]
     if W != W2 or W % 32 or not 32 <= W <= 128:
-        raise ValueError(f"block width must be 32, 64, 96 or 128, got adjT {tuple(adj_loop.shape)}")
+        raise ValueError(f"block width must be 32, 64, 96 or 128, got adjT {tuple(adj.shape)}")
     if D > 64:
         raise ValueError(f"state widths above 64 are not supported (D={D})")
-    dev = adj_loop.device
-    _check("adj_loop", adj_loop, (Bl, W, W), dev)
-    Bd = 0
+    dev = adj.device
+    Bl = Bd = 0
+    if adj_loop is not None:
+        Bl = adj_loop.shape[0]
+        _check("adj_loop", adj_loop, (Bl, W, W), dev)
     if adj_dep is not None:
         Bd = adj_dep.shape[0]
         _check("adj_dep", adj_dep, (Bd, W, W), dev)
@@ -316,10 +321,10 @@ def bn_forward_step(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, 
     Returns (y [R, W, D], agg [R, W, D], marg [R, W], msum [R, D]).
     """
     kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate, threshold=threshold)
-    if adj_loop.device.type == "cpu":
+    if y1.device.type == "cpu":
         return bn_forward_step_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm,
                                    **kw)
-    _require_cuda(adj_loop)
+    _require_cuda(y1)
     return _launch_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, **kw)
 
 
@@ -328,7 +333,7 @@ def _launch_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, 
     R, _, D = y1.shape
     Fd = feats.shape[-1]
     Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
-    dev = adj_loop.device
+    dev = y1.device
     for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
         if t is not None:
             _check(name, t, (R, W, D), dev)
@@ -367,10 +372,10 @@ def bn_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds
     dagg [R, W, D], red [R, 2, D]), dw and red per block row.
     """
     kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate)
-    if adj_loop.device.type == "cpu":
+    if y_prev.device.type == "cpu":
         return bn_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug,
                                     ds_in, gsel, bnv, flag, nm, **kw)
-    _require_cuda(adj_loop)
+    _require_cuda(y_prev)
     return _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds_in,
                             gsel, bnv, flag, nm, **kw)
 
@@ -382,7 +387,7 @@ def _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds
     C = 2 * D + Fd + 1
     Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
     _check_bn_bwd_plan(W, D, Fd)
-    dev = adj_loop.device
+    dev = y_prev.device
     for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
                     ("gsel", gsel)):
         _check(name, t, (R, W, D), dev)
@@ -410,20 +415,16 @@ def _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds
 
 
 def _smem2_bytes(W: int, D: int, F: int, H1: int, backward: bool) -> int:
-    """Shared memory a CTA of K14 (bn2_train.cu::fwd2_smem: the x3 rows, row
-    staging, a 32-row adjacency slab, the weights, the affines and the node
-    mask) or of the register-tiled K15 (the first of tile2.cuh's kBn2BwdPlans
-    that fits, fused2._tile2_plan) needs."""
-    if backward:
-        return _tile2_plan(W, D, F, H1, "K15")[0]
-    C = 2 * D + F
-    return 4 * (W * (C | 1) + W * (D | 1) + 32 * (W + 1) + H1 * (C + D + 1) + 5 * D + W)
+    """Shared memory a CTA of the register-tiled K14 or K15 needs: the first
+    of tile2.cuh's kBn2FwdPlans or kBn2BwdPlans that fits, or the leanest's
+    (fused2._tile2_plan)."""
+    return _tile2_plan(W, D, F, H1, "K15" if backward else "K14")[0]
 
 
 def _check_two_layer(adj_loop, adj_dep, R, D, F, w0_aug, w1, b1, backward):
     """(Bl, W, H1) after checking what K14/K15 take: the widths, the hidden
     width, the shared memory of the shape and the block rows."""
-    W = adj_loop.shape[-1]
+    W = (adj_loop if adj_loop is not None else adj_dep).shape[-1]
     H1 = w0_aug.shape[0]
     if F > 64:
         raise ValueError(f"arc-label widths above 64 are not supported (F={F})")
@@ -434,7 +435,7 @@ def _check_two_layer(adj_loop, adj_dep, R, D, F, w0_aug, w1, b1, backward):
         raise ValueError(f"W={W}, D={D}, F={F}, H1={H1} needs {need} bytes of shared memory a "
                          f"block, more than the {SMEM_BYTES} a CTA may use")
     Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
-    dev = adj_loop.device
+    dev = w0_aug.device
     _check("w0_aug", w0_aug, (H1, 2 * D + F + 1), dev)
     _check("w1", w1, (D, H1), dev)
     _check("b1", b1, (D,), dev)
@@ -450,14 +451,14 @@ def bn2_forward_step(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1
     Other arguments and the result as bn_forward_step.
     """
     kw = dict(act0=act0, act1=act1, alpha_drop=alpha_drop, rate=rate, threshold=threshold)
-    if adj_loop.device.type == "cpu":
+    if y1.device.type == "cpu":
         return bn2_forward_step_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1,
                                     b1, nm, **kw)
-    _require_cuda(adj_loop)
+    _require_cuda(y1)
     R, _, D = y1.shape
     Fd = feats.shape[-1]
     Bl, W, H1 = _check_two_layer(adj_loop, adj_dep, R, D, Fd, w0_aug, w1, b1, backward=False)
-    dev = adj_loop.device
+    dev = y1.device
     for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
         if t is not None:
             _check(name, t, (R, W, D), dev)
@@ -492,15 +493,15 @@ def bn2_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, 
     dagg [R, W, D], red [R, 2, D]), dw0, dw1, db1 and red per block row.
     """
     kw = dict(act0=act0, act1=act1, alpha_drop=alpha_drop, rate=rate)
-    if adj_loop.device.type == "cpu":
+    if y_prev.device.type == "cpu":
         return bn2_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, w1,
                                      b1, ds_in, gsel, bnv, flag, nm, **kw)
-    _require_cuda(adj_loop)
+    _require_cuda(y_prev)
     R, _, D = y_prev.shape
     Fd = feats.shape[-1]
     C = 2 * D + Fd + 1
     Bl, W, H1 = _check_two_layer(adj_loop, adj_dep, R, D, Fd, w0_aug, w1, b1, backward=True)
-    dev = adj_loop.device
+    dev = y_prev.device
     for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
                     ("gsel", gsel)):
         _check(name, t, (R, W, D), dev)
@@ -739,26 +740,28 @@ def bn_train_loop(s0, weights, gamma, beta, op: BNLoopOperands):
 
 
 def block_rows(gb):
-    """(blocks, nm, res) of a fused-layout batch's block rows [loop blocks |
-    dep blocks]: blocks(x) takes node rows x [..., Np, F] in global order to
-    [..., R, W, F]; nm [R, W] is the node mask (0 on padded loop rows); res
-    (src, dst, w) holds the residual arcs in flat block-row node ids, or is
-    None without dep blocks."""
+    """(blocks, nm, res) of a blocked batch's block rows [loop blocks | dep
+    blocks] (every block in order in the all-dep layout): blocks(x) takes
+    node rows x [..., Np, F] in global order to [..., R, W, F]; nm [R, W] is
+    the float node mask (0 on padded loop rows); res (src, dst, w) holds the
+    residual arcs in flat block-row node ids, or is None without dep
+    blocks."""
     W = gb.block_w
     B = gb.n_node_pad // W
-    dep = gb.adj_dep is not None
-    rows = torch.cat([gb.loop_ids, gb.dep_ids]) if dep else gb.loop_ids
+    loop, dep = gb.adj_loop is not None, gb.adj_dep is not None
+    ids = [x for x, on in ((gb.loop_ids, loop), (gb.dep_ids, dep)) if on]
+    rows = torch.cat(ids) if len(ids) > 1 else ids[0]
 
     def blocks(x):
         return x.reshape(*x.shape[:-2], B, W, x.shape[-1]).index_select(x.dim() - 2, rows)
 
-    nm = gb.loop_nm
+    nms = [gb.loop_nm] if loop else []
     res = None
     if dep:
-        nm = torch.cat([nm, gb.node_mask.reshape(B, W).index_select(0, gb.dep_ids).to(nm.dtype)])
-        off = gb.adj_loop.shape[0] * W
+        nms.append(gb.node_mask.reshape(B, W).index_select(0, gb.dep_ids).to(torch.float32))
+        off = gb.adj_loop.shape[0] * W if loop else 0
         res = (gb.res_src_loc + off, gb.res_dst_loc + off, gb.res_w)
-    return blocks, nm, res
+    return blocks, torch.cat(nms) if len(nms) > 1 else nms[0], res
 
 
 def input_rate(state_spec) -> float:
@@ -778,7 +781,7 @@ def block_keep(blocks, keep_state: Optional[torch.Tensor], rate: float):
 
 
 def bn_loop_operands(spec, params_state, gb, keep_state: Optional[torch.Tensor]):
-    """(s0 [R, W, D], weights, BNLoopOperands) of a fused-layout batch: the
+    """(s0 [R, W, D], weights, BNLoopOperands) of a blocked batch: the
     weights (w_aug,) with w_aug = [Ws | Wa | Wf | b] [D, 2D+F+1] for a
     one-layer state net, (w0_aug, w1, b1) with w0_aug [H1, 2D+F+1] for a
     two-layer one; the keep-masks in x3 column order and the block rows
@@ -819,7 +822,7 @@ def moving_stats(bn_state, moms, iters):
 
 
 def bn_train_propagate(spec, params_state, bn_state, gb, keep_state: Optional[torch.Tensor]):
-    """BN training propagation of models/core.py::propagate on a fused-layout
+    """BN training propagation of models/core.py::propagate on a blocked
     batch (bn_loop_operands): runs bn_train_loop, applies the active-gated
     moving-statistics update and returns the state in global node order.
     Returns (iters, state [Np, D], new_bn_state)."""

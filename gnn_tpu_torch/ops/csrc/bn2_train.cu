@@ -1,25 +1,19 @@
-// BatchNorm-training propagation kernels of a two-layer state net for Hopper
-// (sm_90a), in plain fp32 on the CUDA cores (no TF32, no bf16): the
-// reference's default state net (trailing BatchNorm, input dropout) with a
-// hidden layer of width H1.
+// The reverse of the BatchNorm-training iteration of a two-layer state net
+// for Hopper (sm_90a), in plain fp32 on the CUDA cores (no TF32, no bf16):
+// the reference's default state net (trailing BatchNorm, input dropout) with
+// a hidden layer of width H1.
 //
 // Replaces gnn_tpu/ops/pallas_bn.py:
-//   K14 _bn2_fwd_kernel (launched by _bn2_fwd_call) -> gnn_bn2_forward
 //   K15 _bn2_bwd_kernel (launched by _bn2_bwd_call) -> gnn_bn2_backward
+// Its forward, K14, is in bn2_fwd.cu.
 //
 // As K1/K2 (bn_train.cu), one launch runs one iteration over every block row,
 // since the BatchNorm couples every block through the batch moments, and
 // [D]-sized glue (ops/bn.py) runs between launches. C = 2D + F is the width
 // of the dense input x3 = [s | agg | feats]; w0_aug = [Ws | Wa | Wf | b0]
-// [H1, C + 1], w1 [D, H1], b1 [D].
-// K14, one iteration on one W-node block:
-//   s     = y1 * scale1 + shift1,  s_old = y2 * scale2 + shift2
-//   marg  = nm if ||s - s_old|| > thr * ||s_old|| else 0
-//   agg   = adjT^T @ s (+ rT)                  written before the dropout
-//   y     = act1(w1 @ act0(w0_aug @ [drop(x3); 1]) + b1)   the pre-BN activation
-//   msum  = sum over the block's nodes of y * nm
-// K15, its reverse with the BatchNorm backward folded in from the [9, D]
-// coefficient rows bnv (ops/bn.py::BNV_ROWS), h0 and h1 recomputed:
+// [H1, C + 1], w1 [D, H1], b1 [D]. K15, the reverse of K14 with the
+// BatchNorm backward folded in from the [9, D] coefficient rows bnv
+// (ops/bn.py::BNV_ROWS), h0 and h1 recomputed:
 //   gy    = gamma_rstd * (ds_in + flag * gsel) - nm * (b2 + x_hat_k * c2)
 //   dh1   = gy * act1'(h1)                     -> db1, dw1 (per-block partials)
 //   dh0   = (w1^T @ dh1) * act0'(h0)           -> dw0 = dh0^T @ [drop(x3); 1]
@@ -27,13 +21,6 @@
 //   red   = (sum ds, sum ds * x_hat_prev)      (per-block partial)
 //
 // Row r < Bl reads adj_loop[r], the rest adj_dep[r - Bl], where they lie.
-// K14 is K1 (bn_train.cu) with the hidden layer: one CTA per block, one
-// thread per node (blockDim == W), the hidden layer through
-// common.cuh::dense2_h1 (a thread loops over the H1 hidden units: no H1-wide
-// row is stored), the aggregation through 32-row slabs of the adjacency
-// (common.cuh::aggregate_slabs) rather than the 66 KB adjacency: 64.3 KB a
-// CTA at W = 128, D = 14, F = 3, H1 = 150.
-//
 // K15 is one reverse step of tile2.cuh (reverse_pass1, reverse_pass2, the
 // device code of K13 and K11), one CTA of 256 threads a block row: x3 and gy
 // are formed transposed in shared memory; pass 1 forms h0 on 4-node x 4-unit
@@ -54,114 +41,19 @@
 // kBn2BwdPlans (no lists, 2 units a thread, w1 read from device memory) fits
 // every shape the per-node kernel that this replaces took.
 //
-// Bound: the hidden layer sets it: 2*H1*(3D + F + 1) flops a node forward and
-// 2*H1*(9D + 2F + 1) backward (the forward again, the bias-augmented weight
-// sums, dx3's state and aggregation columns: no feats cotangent), against
-// about 6*D + F + 2D + F bytes a node read and written: the least time is set
+// Bound: the hidden layer sets it: 2*H1*(9D + 2F + 1) flops a node (the
+// forward again, the bias-augmented weight sums, dx3's state and aggregation
+// columns: no feats cotangent), against about 7*D + F floats a node read and
+// written and the adjacency read once: the least time is set
 // by the operations at the card's fp32 rate (chip_smoke.py
 // ::two_layer_train_bounds: K15 0.097 ms on the training batch's 1214 block
-// rows, H1 = 150). K14 still contracts the adjacency densely (2*D*W*W flops
-// a block).
+// rows, H1 = 150).
 
 #include "tile2.cuh"
 
 namespace {
 
 using namespace gnn;
-
-// Bytes of shared memory of K14 (ops/bn.py::_smem2_bytes mirrors it): x3
-// rows, a row staging buffer, a [32][W + 1] adjacency slab, the weights, the
-// two affines [4][D] and the node mask [W].
-size_t fwd2_smem(int W, int D, int F, int H1) {
-  const int C = 2 * D + F;
-  return sizeof(float) * ((size_t)W * (C | 1) + (size_t)W * (D | 1) + 32 * (size_t)(W + 1) +
-                          (size_t)H1 * (C + D + 1) + (size_t)D + 4 * (size_t)D + (size_t)W);
-}
-
-// K14: one two-layer BN-training iteration over every block row.
-template <int MAXF>
-__global__ void __launch_bounds__(kMaxW)
-bn2_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_dep,
-               const float* __restrict__ y1, const float* __restrict__ y2,
-               const float* __restrict__ aff, const uint8_t* __restrict__ keep,
-               const float* __restrict__ rT, const float* __restrict__ feats,
-               const float* __restrict__ w0_aug, const float* __restrict__ w1,
-               const float* __restrict__ b1, const float* __restrict__ nm, float* __restrict__ y,
-               float* __restrict__ agg, float* __restrict__ marg, float* __restrict__ msum,
-               int Bl, int W, int D, int F, int H1, float thr, int act0, int act1, int mode,
-               float da, float db) {
-  extern __shared__ float4 smem_raw[];
-  const int C = 2 * D + F, XP = C | 1, DP = D | 1;
-  float* X = reinterpret_cast<float*>(smem_raw);  // [W][XP] x3 rows
-  float* rows = X + W * XP;                       // [W][DP] staging
-  float* A = rows + W * DP;                       // [32][W + 1] adjacency slab
-  float* sw0 = A + 32 * (W + 1);                  // [H1][C]
-  float* sb0 = sw0 + H1 * C;                      // [H1]
-  float* sw1T = sb0 + H1;                         // [H1][D]
-  float* sb1 = sw1T + H1 * D;                     // [D]
-  float* vec = sb1 + D;                           // [4][D] scale1; shift1; scale2; shift2
-  float* nms = vec + 4 * D;                       // [W]
-  const int r = blockIdx.x, t = threadIdx.x;
-  const size_t row0 = (size_t)r * W;
-  float* xrow = X + t * XP;
-  float* rrow = rows + t * DP;
-
-  stage_dense2(w0_aug, C + 1, w0_aug + C, C + 1, w1, b1, D, C, H1, sw0, sb0, sw1T, sb1);
-  for (int i = t; i < 4 * D; i += blockDim.x) vec[i] = aff[i];
-  nms[t] = nm[row0 + t];
-  stage_in(feats + row0 * F, W, F, X, XP, 2 * D);
-  stage_in(y1 + row0 * D, W, D, rows, DP, 0);
-  __syncthreads();
-  // s -> x3 columns [0, D); rounded as the plain version's multiply, then add
-  for (int d = 0; d < D; ++d) xrow[d] = __fadd_rn(__fmul_rn(rrow[d], vec[d]), vec[D + d]);
-  __syncthreads();
-  stage_in(y2 + row0 * D, W, D, rows, DP, 0);
-  __syncthreads();
-  float dist2 = 0.0f, norm2 = 0.0f;
-  for (int d = 0; d < D; ++d) {
-    const float so = __fadd_rn(__fmul_rn(rrow[d], vec[2 * D + d]), vec[3 * D + d]);
-    const float diff = __fsub_rn(xrow[d], so);
-    dist2 = __fadd_rn(dist2, __fmul_rn(diff, diff));
-    norm2 = __fadd_rn(norm2, __fmul_rn(so, so));
-  }
-  marg[row0 + t] = sqrtf(dist2) > thr * sqrtf(norm2) ? nms[t] : 0.0f;
-  __syncthreads();
-  if (rT != nullptr) stage_in(rT + row0 * D, W, D, rows, DP, 0);
-  // (aggregate_slabs synchronises before it reads any row)
-
-  // agg[t] = sum_src adjT[src][t] * s[src] (+ rT), before the dropout
-  float xs[MAXF], xa[MAXF], xf[MAXF], h1[MAXF];
-  aggregate_slabs<MAXF>(block_adj(adj_loop, adj_dep, Bl, W), W, X, XP, D, A, xa);
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) {
-    if (d < D) {
-      if (rT != nullptr) xa[d] += rrow[d];
-      rrow[d] = xa[d];
-      xrow[D + d] = xa[d];
-    }
-  }
-  if (keep != nullptr) drop_row(xrow, keep + (row0 + t) * C, C, mode, da, db);
-  __syncthreads();
-  stage_out(agg + row0 * D, W, D, rows, DP);
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) {
-    xs[d] = d < D ? xrow[d] : 0.0f;
-    xa[d] = d < D ? xrow[D + d] : 0.0f;
-    xf[d] = d < F ? xrow[2 * D + d] : 0.0f;
-  }
-  dense2_h1<MAXF>(sw0, sb0, sw1T, sb1, D, F, H1, act0, xs, xa, xf, h1);
-  __syncthreads();  // agg is out of rows
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d)
-    if (d < D) rrow[d] = activate(act1, h1[d]);
-  __syncthreads();
-  stage_out(y + row0 * D, W, D, rows, DP);
-  for (int d = t; d < D; d += blockDim.x) {
-    float s = 0.0f;
-    for (int n = 0; n < W; ++n) s = fmaf(rows[n * DP + d], nms[n], s);
-    msum[(size_t)r * D + d] = s;
-  }
-}
 
 int g_force = -1;  // gnn_bn2_backward_force_plan
 
@@ -305,22 +197,6 @@ bool shape_ok(int R, int Bl, int W, int D, int F, int H1) {
          F >= 0 && H1 > 0 && width_class(D > F ? D : F) != 0;
 }
 
-template <int MAXF>
-cudaError_t launch_fwd(const float* adj_loop, const float* adj_dep, const float* y1,
-                       const float* y2, const float* aff, const uint8_t* keep, const float* rT,
-                       const float* feats, const float* w0_aug, const float* w1, const float* b1,
-                       const float* nm, float* y, float* agg, float* marg, float* msum, int R,
-                       int Bl, int W, int D, int F, int H1, float thr, int act0, int act1,
-                       int mode, float da, float db, cudaStream_t stream) {
-  const size_t bytes = fwd2_smem(W, D, F, H1);
-  cudaError_t err = set_smem(bn2_fwd_kernel<MAXF>, bytes);
-  if (err != cudaSuccess) return err;
-  bn2_fwd_kernel<MAXF><<<R, W, bytes, stream>>>(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats,
-                                                 w0_aug, w1, b1, nm, y, agg, marg, msum, Bl, W, D,
-                                                 F, H1, thr, act0, act1, mode, da, db);
-  return cudaGetLastError();
-}
-
 using Bn2BwdFn = void (*)(const float*, const float*, const float*, const float*, const float*,
                           const uint8_t*, const float*, const float*, const float*, const float*,
                           const float*, const float*, const float*, const float*, const float*,
@@ -352,36 +228,6 @@ Bn2BwdFn pick_bwd(int W, int D, int F, int H1, Tile2Plan* p, size_t* bytes, int*
 }  // namespace
 
 extern "C" {
-
-// adj_loop [Bl, W, W], adj_dep [R - Bl, W, W] (null when Bl == R); y1, y2,
-// rT (nullable) [R, W, D]; aff [2, 2, D]; keep uint8 [R, W, 2D + F] (null
-// when mode == 0); feats [R, W, F]; w0_aug [H1, 2D + F + 1]; w1 [D, H1];
-// b1 [D]; nm [R, W] -> y, agg [R, W, D], marg [R, W], msum [R, D]. Returns a
-// cudaError_t code.
-int gnn_bn2_forward(const float* adj_loop, const float* adj_dep, const float* y1,
-                    const float* y2, const float* aff, const uint8_t* keep, const float* rT,
-                    const float* feats, const float* w0_aug, const float* w1, const float* b1,
-                    const float* nm, float* y, float* agg, float* marg, float* msum, int R,
-                    int Bl, int W, int D, int F, int H1, float thr, int act0, int act1, int mode,
-                    float da, float db, void* stream) {
-  if (!shape_ok(R, Bl, W, D, F, H1)) return cudaErrorInvalidValue;
-  if (mode != kNoDrop && keep == nullptr) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (width_class(D > F ? D : F)) {
-    case 16:
-      return launch_fwd<16>(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1, b1, nm, y,
-                            agg, marg, msum, R, Bl, W, D, F, H1, thr, act0, act1, mode, da, db,
-                            st);
-    case 32:
-      return launch_fwd<32>(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1, b1, nm, y,
-                            agg, marg, msum, R, Bl, W, D, F, H1, thr, act0, act1, mode, da, db,
-                            st);
-    default:
-      return launch_fwd<64>(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1, b1, nm, y,
-                            agg, marg, msum, R, Bl, W, D, F, H1, thr, act0, act1, mode, da, db,
-                            st);
-  }
-}
 
 // As gnn_bn2_forward, plus y_prev, y_k, agg, ds_in, gsel [R, W, D]; bnv [9, D];
 // flag a device float (0 or 1) -> ds, dagg [R, W, D] and the per-block

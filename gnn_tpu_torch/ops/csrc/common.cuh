@@ -1,11 +1,11 @@
 // Device helpers shared by the port's propagation kernels (fused_eval.cu,
 // bn_train.cu, eval_loop_bwd.cu, train_loop.cu, fused2.cu, loop2.cu,
-// train_loop2_bwd.cu, eval_loop2_bwd.cu, bn2_train.cu, bn_typed.cu): the
-// activations of the Pallas kernels, the input dropout and its derivative,
-// the staging of block adjacencies and row blocks between device and shared
-// memory, the block aggregation through 32-row slabs of the adjacency, the
-// bias-augmented dense row of the BatchNorm kernels and the two-layer state
-// net of one node. The register-tiled two-layer kernels build on tile2.cuh.
+// train_loop2_bwd.cu, eval_loop2_bwd.cu, bn2_fwd.cu, bn2_train.cu,
+// bn_typed.cu): the activations of the Pallas kernels, the input dropout and
+// its derivative, the staging of block adjacencies and row blocks between
+// device and shared memory, the bias-augmented dense row of the BatchNorm
+// kernels and the two-layer state net of one node (K9). The register-tiled
+// two-layer kernels build on tile2.cuh.
 
 #pragma once
 
@@ -175,38 +175,6 @@ __device__ inline void drop_row(float* xrow, const uint8_t* krow, int n, int mod
                                 float b) {
   if (mode == kNoDrop) return;
   for (int c = 0; c < n; ++c) xrow[c] = drop(mode, a, b, xrow[c], krow[c] != 0);
-}
-
-// agg[t] = sum_src adjT[src][t] * rows[src] (rows of stride P in shared
-// memory) for this thread's node t, reading the block adjacency adj [W][W]
-// (device memory, 16-byte aligned) 32 source rows at a time into A
-// [32][W + 1], so a CTA never holds the whole adjacency. Every thread of the
-// CTA must call it; it synchronises.
-template <int MAXF>
-__device__ void aggregate_slabs(const float* __restrict__ adj, int W, const float* rows, int P,
-                                int D, float* A, float (&acc)[MAXF]) {
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) acc[d] = 0.0f;
-  const float4* g4 = reinterpret_cast<const float4*>(adj);
-  for (int r0 = 0; r0 < W; r0 += 32) {
-    for (int i = threadIdx.x; i < 8 * W; i += blockDim.x) {
-      const float4 v = g4[r0 * W / 4 + i];
-      float* d = A + (4 * i / W) * (W + 1) + 4 * i % W;  // W % 4 == 0: no row crossing
-      d[0] = v.x;
-      d[1] = v.y;
-      d[2] = v.z;
-      d[3] = v.w;
-    }
-    __syncthreads();
-    for (int r = 0; r < 32; ++r) {
-      const float a = A[r * (W + 1) + threadIdx.x];
-      const float* x = rows + (r0 + r) * P;
-#pragma unroll
-      for (int d = 0; d < MAXF; ++d)
-        if (d < D) acc[d] = fmaf(a, x[d], acc[d]);
-    }
-    __syncthreads();  // A is restaged by the next slab
-  }
 }
 
 // This thread's dense pre-activation h = w_aug @ [x3 row; 1] of a

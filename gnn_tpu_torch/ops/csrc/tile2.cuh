@@ -1,8 +1,9 @@
 // Register-tiled block products of the two-layer state net for Hopper
 // (sm_90a), in plain fp32 on the CUDA cores, shared by the forward loops K10
-// and K12 (loop2.cu), the three reverse kernels K13 (train_loop2_bwd.cu), K11
-// (eval_loop2_bwd.cu) and K15 (bn2_train.cu), and, for its staging and
-// adjacency lists, the one-layer K2 (bn_train.cu).
+// and K12 (loop2.cu), the two-layer BatchNorm iteration K14 (bn2_fwd.cu), the
+// three reverse kernels K13 (train_loop2_bwd.cu), K11 (eval_loop2_bwd.cu) and
+// K15 (bn2_train.cu), and, for their staging and adjacency lists, the
+// one-layer K2 (bn_train.cu) and the typed K17 (bn_typed.cu).
 //
 // A CTA of kTileThreads = 256 threads works on one W-node block. Its dense
 // input x3 = [s | agg | f] lies in shared memory transposed, X[c][n] (C rows
@@ -64,6 +65,7 @@ constexpr int kTileThreads = 256;
 // memory; pf: K13 and K11 prefetch the next reverse step's rows with cp.async;
 // E: room of the compact adjacency lists (0: the adjacency is read from device
 // memory); pad: S / 4 odd; w1g: w1 is read from device memory, not staged.
+// K14 (kBnForward2) reads pf as: the block's keep bytes are staged.
 struct Tile2Plan {
   int ut, nbuf, keep, dw, pf, E, pad, w1g;
 };
@@ -85,11 +87,18 @@ constexpr Tile2Plan kLoop2BwdPlans[] = {{4, 2, 1, 1, 1, 16, 1, 0},
                                         {4, 1, 0, 0, 0, 16, 1, 0},
                                         {2, 1, 0, 0, 0, 0, 0, 1}};
 constexpr Tile2Plan kBn2BwdPlans[] = {{4, 1, 0, 0, 0, 16, 1, 0}, {2, 1, 0, 0, 0, 0, 0, 1}};
+// K14 (bn2_fwd.cu), one BatchNorm-training iteration on K10's forward
+// products: its lists, its rows and keep bytes staged, two y0 tiles; the
+// leanest stages no keep bytes, builds no lists and reads w1 from device
+// memory, and fits every shape the per-node K14 took.
+constexpr Tile2Plan kBn2FwdPlans[] = {{4, 2, 0, 0, 1, 16, 1, 0}, {4, 1, 0, 0, 0, 0, 0, 1}};
 
 // The layouts: K10's and K12's forward; the reverse step of K13 and K15;
 // K11's, which also recomputes the aggregation (a second list set) and sums
-// the affine's and the features' cotangents.
-enum Tile2Kind { kForward2 = 0, kReverse2 = 1, kReverse2Agg = 2 };
+// the affine's and the features' cotangents; K14's, the forward with the two
+// BatchNorm affines, the node mask, a node-major row buffer and the keep
+// bytes.
+enum Tile2Kind { kForward2 = 0, kReverse2 = 1, kReverse2Agg = 2, kBnForward2 = 3 };
 
 __host__ __device__ inline int hidden_stride(int H1, int ut, int pad) {
   int s = (H1 + ut - 1) / ut * ut;
@@ -101,7 +110,7 @@ __host__ __device__ inline int hidden_stride(int H1, int ut, int pad) {
 // counts and source indices, after the floats).
 struct Tile2Layout {
   int S;
-  int x3, dh1, yt, ht, w0, w1, b0, pf, lw, dw, b1, aff;
+  int x3, dh1, yt, ht, w0, w1, b0, pf, lw, dw, b1, aff, nm, ab, kp;
   size_t cnt_b, idx_b, bytes;
 };
 
@@ -112,11 +121,14 @@ struct Tile2Layout {
 // partials [H1][C + 1] + [D][H1] + [D], b1. kReverse2Agg (K11): as
 // kReverse2 with prefetched rows [2D W], two list sets (columns, rows), the
 // partials followed by daff [2][D] and dfeats [AL][W], and the affine's
-// scale [D] after b1.
+// scale [D] after b1. kBnForward2 (K14): as kForward2 with the affines
+// [4][D], then from a 16-byte boundary the node mask [W], a row buffer
+// [W][D | 1] and, with pf, the keep bytes [W][C] (16-byte aligned, rounded
+// up to 16 bytes).
 __host__ __device__ inline Tile2Layout tile2_layout(int kind, int W, int D, int AL, int H1,
                                                     const Tile2Plan& p) {
   Tile2Layout L{};
-  const bool rev = kind != kForward2, agg = kind == kReverse2Agg;
+  const bool rev = kind == kReverse2 || kind == kReverse2Agg, agg = kind == kReverse2Agg;
   const int C = 2 * D + AL, CH = 8 * p.ut, nl = agg ? 2 : 1;
   L.S = hidden_stride(H1, p.ut, p.pad);
   int o = 0;
@@ -152,7 +164,17 @@ __host__ __device__ inline Tile2Layout tile2_layout(int kind, int W, int D, int 
   o += D;
   if (!rev || agg) {
     L.aff = o;
-    o += agg ? D : 2 * D;
+    o += agg ? D : kind == kBnForward2 ? 4 * D : 2 * D;
+  }
+  if (kind == kBnForward2) {
+    o = (o + 3) & ~3;
+    L.nm = o;
+    o += W;
+    L.ab = o;
+    o += W * (D | 1);
+    o = (o + 3) & ~3;
+    L.kp = o;
+    o += p.pf ? (W * C + 15) / 16 * 4 : 0;
   }
   L.cnt_b = sizeof(float) * (size_t)o;
   L.idx_b = L.cnt_b + (p.E ? nl * W : 0);
@@ -387,6 +409,78 @@ __device__ inline void build_row_lists(const float* __restrict__ adj, int W, int
         if (lane == 0) cnt[n] = static_cast<uint8_t>(total);  // W <= 128
       }
     }
+  }
+}
+
+// The column lists of the block adjacency adj [W][W] (device memory, rows
+// 16-byte aligned) exactly as build_list(..., by_col = true) builds them,
+// from coalesced reads: warp w of the CTA's nw takes rows [w W / nw,
+// (w + 1) W / nw), lane l columns 4l .. 4l + 3 of a row as one 16-byte load
+// (W / 4 lanes), four rows in flight; a first pass counts each column's
+// nonzeros in the warp's rows into part [nw][W] (bytes of shared memory that
+// nothing else uses until the lists are complete), the second reads the rows
+// again and places each entry after those of the warps before, so each list
+// holds its column's entries in row order. Every thread of the CTA must call
+// it (W % nw == 0, W / nw % 4 == 0); it synchronises, and the lists are
+// complete after the next __syncthreads.
+__device__ inline void build_col_lists(const float* __restrict__ adj, int W, int E, float* w,
+                                       uint8_t* idx, uint8_t* cnt, uint8_t* part) {
+  const int lane = threadIdx.x & 31, wp = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  const bool on = lane < W / 4;
+  const int per = W / nw, m0 = wp * per;
+  auto rows4 = [&](int m, float (&a)[4][4]) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      float4 v = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (on) v = reinterpret_cast<const float4*>(adj + (size_t)(m + r) * W)[lane];
+      a[r][0] = v.x;
+      a[r][1] = v.y;
+      a[r][2] = v.z;
+      a[r][3] = v.w;
+    }
+  };
+  int c[4] = {0, 0, 0, 0};
+  for (int m = m0; m < m0 + per; m += 4) {
+    float a[4][4];
+    rows4(m, a);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) c[u] += a[r][u] != 0.0f;
+  }
+  if (on)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) part[wp * W + 4 * lane + u] = static_cast<uint8_t>(c[u]);
+  __syncthreads();
+  if (!on) return;
+  int pos[4];
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    int before = 0, total = 0;
+    for (int g = 0; g < nw; ++g) {
+      const int k = part[g * W + 4 * lane + u];
+      before += g < wp ? k : 0;
+      total += k;
+    }
+    pos[u] = before;
+    if (wp == 0) cnt[4 * lane + u] = static_cast<uint8_t>(total);  // W <= 128
+  }
+  for (int m = m0; m < m0 + per; m += 4) {
+    float a[4][4];
+    rows4(m, a);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (a[r][u] != 0.0f) {
+          const int n = 4 * lane + u;
+          if (pos[u] < E) {
+            w[pos[u] * W + n] = a[r][u];
+            idx[pos[u] * W + n] = static_cast<uint8_t>(m + r);
+          }
+          ++pos[u];
+        }
+      }
   }
 }
 

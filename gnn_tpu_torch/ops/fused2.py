@@ -277,10 +277,16 @@ _PLANS = {
     "K11": ((4, 2, 1, 1, 1, 16, 1, 0), (4, 1, 0, 0, 0, 16, 1, 0),             # kLoop2BwdPlans
             (2, 1, 0, 0, 0, 0, 0, 1)),
     "K15": ((4, 1, 0, 0, 0, 16, 1, 0), (2, 1, 0, 0, 0, 0, 0, 1)),             # kBn2BwdPlans
+    "K14": ((4, 2, 0, 0, 1, 16, 1, 0), (4, 1, 0, 0, 0, 0, 0, 1)),             # kBn2FwdPlans
 }
 # tile2.cuh::Tile2Kind of each kernel's layout: the forward, the reverse step,
-# the reverse step with the aggregation again
-_KIND = {"K10": 0, "K12": 0, "K13": 1, "K15": 1, "K11": 2}
+# the reverse step with the aggregation again, K14's BatchNorm forward
+_KIND = {"K10": 0, "K12": 0, "K13": 1, "K15": 1, "K11": 2, "K14": 3}
+
+
+def _r4(n):
+    """n rounded up to a multiple of 4 (a 16-byte boundary, in floats)."""
+    return (n + 3) // 4 * 4
 
 
 def _tile2_bytes(kind: int, W, D, AL, H1, plan):
@@ -289,9 +295,11 @@ def _tile2_bytes(kind: int, W, D, AL, H1, plan):
     b1, the forward's affine [2][D] (unused by K12); a reverse step's
     g/dh1/gs rows [D][W], h0 block (or a chunk of it), prefetched rows and
     weight partials; K11's second list set, its daff [2][D] and dfeats
-    [AL][W] beside the partials and its scale [D]; the adjacency lists
-    ([E][W] floats, W counts and E*W indices as bytes, a set). The widths may
-    be ints or numpy integer arrays."""
+    [AL][W] beside the partials and its scale [D]; K14's affines [4][D], then
+    from a 16-byte boundary its node mask [W], row buffer [W][D | 1] and,
+    with pf, keep bytes [W][C] (AL: its F) in 16-byte units; the adjacency
+    lists ([E][W] floats, W counts and E*W indices as bytes, a set). The
+    widths may be ints or numpy integer arrays."""
     ut, nbuf, keep, dw, pf, E, pad, w1g = plan
     C, CH, nl = 2 * D + AL, 8 * ut, 2 if kind == 2 else 1
     S = -(-H1 // ut) * ut
@@ -299,6 +307,8 @@ def _tile2_bytes(kind: int, W, D, AL, H1, plan):
     floats = C * W + nbuf * CH * W + C * S + (1 - w1g) * D * S + S + nl * E * W + D
     if kind == 0:
         floats = floats + 2 * D
+    elif kind == 3:
+        floats = _r4(_r4(floats + 4 * D) + W + W * (D | 1)) + pf * (W * C + 15) // 16 * 4
     else:
         floats = floats + (D * W + (S if keep else CH) * W
                            + pf * (2 * D if kind == 2 else 3 * D + AL) * W
@@ -310,8 +320,8 @@ def _tile2_bytes(kind: int, W, D, AL, H1, plan):
 
 def _tile2_plan(W: int, D: int, AL: int, H1: int, kernel: str):
     """(shared-memory bytes, plan index) of the tiled kernel K10, K11, K12,
-    K13 or K15 at this shape (AL: K15's F): the first plan that fits a CTA, or the
-    leanest plan's bytes and None."""
+    K13, K14 or K15 at this shape (AL: K14's and K15's F): the first plan that
+    fits a CTA, or the leanest plan's bytes and None."""
     for i, plan in enumerate(_PLANS[kernel]):
         need = _tile2_bytes(_KIND[kernel], W, D, AL, H1, plan)
         if need <= SMEM_BYTES:
@@ -321,12 +331,13 @@ def _tile2_plan(W: int, D: int, AL: int, H1: int, kernel: str):
 
 # the C entries of the tiled kernels, by kernel
 _TILED = {"K10": "gnn_propagation_loop2", "K11": "gnn_propagation_loop2_bwd",
-          "K12": "gnn_train_loop2", "K13": "gnn_train_loop2_bwd", "K15": "gnn_bn2_backward"}
+          "K12": "gnn_train_loop2", "K13": "gnn_train_loop2_bwd", "K14": "gnn_bn2_forward",
+          "K15": "gnn_bn2_backward"}
 
 
 def tile_info(kernel: str, W: int, D: int, AL: int, H1: int) -> dict:
-    """What the card reports for the tiled kernel K10, K11, K12, K13 or K15
-    launches at this shape (AL: K15's F): its plan index, shared-memory bytes,
+    """What the card reports for the tiled kernel K10, K11, K12, K13, K14 or
+    K15 launches at this shape (AL: K14's and K15's F): its plan index, shared-memory bytes,
     resident CTAs an SM, registers and local-memory bytes a thread (builds the
     library)."""
     out = (ctypes.c_int * 5)()

@@ -42,9 +42,11 @@ there when they fit, else read through the L1/L2 caches.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -56,7 +58,7 @@ from gnn_tpu_torch.ops.bn import (BNV_ROWS, BNLoopOperands, _agg_blocks, _bn_ds,
 from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, _act_grad, _check,
                                      _check_keep, _drop_args, _ptr, _stream, bn_inference_affine,
                                      moved)
-from gnn_tpu_torch.ops.fused2 import SMEM_BYTES
+from gnn_tpu_torch.ops.fused2 import SMEM_BYTES, _r4
 
 MAX_TYPES = 32      # two bits of activation code per type in one 64-bit argument
 
@@ -167,36 +169,80 @@ def bnT_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feat
 
 
 # ------------------------------------------------------------------ wrappers
-def typed_smem_bytes(W: int, D: int, F: int, T: int, backward: bool):
-    """(bytes, weights staged) of a K16 (backward: K17) CTA's shared memory,
-    as bn_typed.cu::layout cuts it: the adjacency [W][W + 1], the x3 rows, two
-    row buffers, the per-type affines (K16, 4 rows) or bnv (K17, 9 rows), the
-    node mask and types, the nodes ordered by type, the keep bits and, when
-    they still fit the 227 KB a
-    CTA may use, the stacked weights [T*D][C]; without them the kernel reads
-    the weights through the L1/L2 caches."""
+def typed_smem_bytes(W: int, D: int, F: int, T: int):
+    """(bytes, weights staged) of a K16 CTA's shared memory, as
+    bn_typed.cu::layout cuts it: the adjacency [W][W + 1], the x3 rows, a row
+    buffer, the per-type affines [2][2][T][D], the node mask and types,
+    the nodes ordered by type, the keep bits and, when they still fit the 227
+    KB a CTA may use, the stacked weights [T*D][C]; without them the kernel
+    reads the weights through the L1/L2 caches."""
     C = 2 * D + F + 1
-    floats = (W * (W + 1) + W * ((C - 1) | 1) + 2 * W * (D | 1) + (9 if backward else 4) * T * D
+    floats = (W * (W + 1) + W * ((C - 1) | 1) + W * (D | 1) + 4 * T * D
               + 3 * W + T + 1 + (W * (C - 1) + 3) // 4)
     if 4 * (floats + T * D * C) <= SMEM_BYTES:
         return 4 * (floats + T * D * C), True
     return 4 * floats, False
 
 
+# bn_typed.cu's kBnTBwdPlans, K17's shared-memory plans in order of
+# preference: (threads a CTA, room of the row lists, rows and keep bytes
+# staged, stacked weights staged). The first is the composite recipe's; the
+# last fits every shape the per-node K17 took.
+_BNT_BWD_PLANS = ((256, 8, 1, 1), (256, 8, 1, 0), (128, 0, 0, 0))
+
+
+def _bnT_bwd_bytes(W, D, F, T, plan):
+    """Shared memory of bn_typed.cu::bwdT_layout: x3 [C1][W], dh [D][W], with
+    ws the weights transposed [T][C][D rounded up to 4], bnv [T][9][D], nm
+    [W], the types, their order and starts ([W], [W], [T + 1] ints); staged,
+    y_prev [W][D] and the keep bytes; the late region (ds_in, gsel, y_k, or
+    dagg [W][D|1]); the row lists ([E][W] floats, W counts and E*W
+    destinations as bytes); each region a multiple of 16 bytes. The widths
+    may be ints or numpy integer arrays."""
+    nt, E, st, ws = plan
+    C1 = 2 * D + F
+    floats = (_r4(C1 * W) + _r4(D * W) + ws * T * (C1 + 1) * _r4(D) + _r4(T * 9 * D) + _r4(W)
+              + 2 * W + _r4(T + 1))
+    if st:
+        floats = floats + _r4(W * D) + _r4((W * C1 + 3) // 4)
+    floats = floats + np.maximum(st * 3 * _r4(W * D), _r4(W * (D | 1))) + E * W
+    return 4 * floats + (W + E * W if E else 0)
+
+
+def _bnT_bwd_plan(W: int, D: int, F: int, T: int):
+    """(shared-memory bytes, plan index) K17 takes at this shape: the first
+    plan of _BNT_BWD_PLANS that fits a CTA, or the leanest plan's bytes and
+    None."""
+    for i, plan in enumerate(_BNT_BWD_PLANS):
+        need = int(_bnT_bwd_bytes(W, D, F, T, plan))
+        if need <= SMEM_BYTES:
+            return need, i
+    return need, None
+
+
+def backward_info(W: int, D: int, F: int, T: int) -> dict:
+    """What the card reports for the K17 kernel launched at this shape: its
+    plan index, shared-memory bytes, resident CTAs an SM, registers and
+    local-memory bytes a thread (builds the library)."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().gnn_bnT_backward_info(W, D, F, T, out), "gnn_bnT_backward_info")
+    return dict(zip(("plan", "smem_bytes", "ctas_per_sm", "registers", "local_bytes"), out))
+
+
 def _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations, backward):
     """(Bl, W, T) after checking what K16/K17 take: the block rows and
     widths, the node types, at most MAX_TYPES types, the stacked weights and
-    a CTA's shared memory without the weights within the 227 KB cap
-    (typed_smem_bytes)."""
+    a CTA's shared memory within the 227 KB cap (K16: without the weights,
+    typed_smem_bytes; K17: its leanest plan, _bnT_bwd_plan)."""
     Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
     T = len(activations)
     if not 1 <= T <= MAX_TYPES:
         raise ValueError(f"{T} node types: the typed kernels take 1..{MAX_TYPES}")
-    need, _ = typed_smem_bytes(W, D, Fd, T, backward)
+    need = _bnT_bwd_plan(W, D, Fd, T)[0] if backward else typed_smem_bytes(W, D, Fd, T)[0]
     if need > SMEM_BYTES:
         raise ValueError(f"W={W}, D={D}, F={Fd}, T={T} needs {need} bytes of shared memory a "
                          f"block, more than the {SMEM_BYTES} a CTA may use")
-    dev = adj_loop.device
+    dev = w_stk.device
     if types.device != dev or types.dtype != torch.uint8 or tuple(types.shape) != (R, W) \
             or not types.is_contiguous():
         raise ValueError(f"types must be a contiguous uint8 tensor of shape {(R, W)} on {dev}, "
@@ -228,14 +274,14 @@ def bnT_forward_step(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_s
     """
     kw = dict(activations=tuple(activations), alpha_drop=alpha_drop, rate=rate,
               threshold=threshold)
-    if adj_loop.device.type == "cpu":
+    if y1.device.type == "cpu":
         return bnT_forward_step_ref(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_stk,
                                     nm, **kw)
-    _require_cuda(adj_loop)
+    _require_cuda(y1)
     R, _, D = y1.shape
     Fd = feats.shape[-1]
     Bl, W, T = _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations, False)
-    dev = adj_loop.device
+    dev = y1.device
     for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
         if t is not None:
             _check(name, t, (R, W, D), dev)
@@ -274,15 +320,15 @@ def bnT_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats, w
     [R, T*D, C], dagg [R, W, D], red [R, T, 2, D]), dw and red per block row.
     """
     kw = dict(activations=tuple(activations), alpha_drop=alpha_drop, rate=rate)
-    if adj_loop.device.type == "cpu":
+    if y_prev.device.type == "cpu":
         return bnT_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats,
                                      w_stk, ds_in, gsel, bnv, flag, nm, **kw)
-    _require_cuda(adj_loop)
+    _require_cuda(y_prev)
     R, _, D = y_prev.shape
     Fd = feats.shape[-1]
     C = 2 * D + Fd + 1
     Bl, W, T = _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations, True)
-    dev = adj_loop.device
+    dev = y_prev.device
     for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
                     ("gsel", gsel)):
         _check(name, t, (R, W, D), dev)
@@ -341,7 +387,7 @@ def _own_type_keep(keep_states, types):
 
 def typed_operands(spec, params_state, gb, training: bool, keep_states=None):
     """(s0 [R, W, D], w_stk [T*D, 2D+F+1], TypedLoopOperands) of a
-    fused-layout batch with node types: the per-type bias-augmented weights
+    blocked batch with node types: the per-type bias-augmented weights
     stacked, the block rows [loop blocks | dep blocks] with their node mask,
     types and residual arcs (with their source's type), and each node's own
     type's keep-masks (no dropout at eval).
@@ -372,7 +418,7 @@ def typed_operands(spec, params_state, gb, training: bool, keep_states=None):
 
 def bn_typed_train_propagate(spec, params_state, bn_state, gb, keep_states=None):
     """Typed BN training propagation of models/composite.py on a
-    fused-layout batch with node types (gnn_tpu's bn_typed_train_propagate):
+    blocked batch with node types (gnn_tpu's bn_typed_train_propagate):
     the K-loop of K16/K17 with per-type moments, then each type's
     active-gated moving statistics. Returns (iters, state [Np, D], the new
     per-type BatchNorm statistics as a tuple)."""

@@ -28,6 +28,8 @@ from gnn_tpu.models import composite as jcomp
 from gnn_tpu.ops import pallas_fused as pf
 from gnn_tpu.ops import pallas_typed as pt
 from gnn_tpu_torch import CompositeGNNgraphBased, GNNgraphBased
+from gnn_tpu_torch.graphs import batch as tbatch
+from gnn_tpu_torch.graphs.graph import Graph as TGraph
 from gnn_tpu_torch.models import composite as tcomp
 from gnn_tpu_torch.models import core as tcore
 from gnn_tpu_torch.ops import bn as tbn
@@ -137,17 +139,18 @@ def test_bnT_backward_step_ref_matches_pallas(acts, rate, alpha, flag, Bl):
 def test_typed_kernel_shapes_checked():
     """K16/K17 stage the stacked weights in shared memory when they fit, read
     them through the caches when they do not, and refuse shapes whose rows
-    alone exceed a CTA's 227 KB, and more than MAX_TYPES types."""
-    assert ttyped.typed_smem_bytes(128, 14, 3, 4, False) == (
-        4 * (128 * 129 + 128 * 31 + 2 * 128 * 15 + 4 * 4 * 14 + 3 * 128 + 5 + 128 * 31 // 4
+    alone exceed a CTA's 227 KB (K17: whose leanest plan does not fit,
+    ops/typed.py::_bnT_bwd_plan), and more than MAX_TYPES types."""
+    assert ttyped.typed_smem_bytes(128, 14, 3, 4) == (
+        4 * (128 * 129 + 128 * 31 + 128 * 15 + 4 * 4 * 14 + 3 * 128 + 5 + 128 * 31 // 4
              + 4 * 14 * 32), True)
-    need, staged = ttyped.typed_smem_bytes(96, 64, 3, 8, True)
+    need, staged = ttyped.typed_smem_bytes(96, 64, 3, 8)
     assert not staged and need <= SMEM_BYTES
     types = torch.zeros((2, 128), dtype=torch.uint8)
     adj = torch.zeros((2, 128, 128))
     with pytest.raises(ValueError, match=f"more than the {SMEM_BYTES}"):
-        ttyped._check_typed(adj, None, 2, 64, 20, types, torch.zeros((8 * 64, 149)),
-                            ("selu",) * 8, True)
+        ttyped._check_typed(adj, None, 2, 64, 64, types, torch.zeros((32 * 64, 193)),
+                            ("selu",) * 32, True)
     with pytest.raises(ValueError, match="1..32"):
         ttyped._check_typed(adj, None, 2, 14, 3, types, torch.zeros((33 * 14, 32)),
                             ("selu",) * 33, False)
@@ -327,4 +330,9 @@ def test_typed_routes_dispatch_as_gnn_tpu():
     nodrop = dataclasses.replace(ts, state_specs=tuple(
         dataclasses.replace(s, dropout_rate=(), dropout_pos=()) for s in ts.state_specs))
     assert tcomp._route(dataclasses.replace(nodrop, grad_mode="ift"), gb, True) == "plain"
-    assert tcomp._route(ts, dataclasses.replace(gb, adj_loop=None), False) == "plain"
+    # a block-dense batch without the loop/dep layout routes the typed kernels,
+    # as gnn_tpu (composite.py:170); a batch without blocks the plain body
+    flat = tbatch.from_graphs_blocked(tgs, block_w=32)
+    assert (tcomp._route(ts, flat, True), tcomp._route(ts, flat, False)) == ("typed_bn",
+                                                                             "typed_eval")
+    assert tcomp._route(ts, tbatch.GraphBatch.from_graph(TGraph.merge(tgs)), False) == "plain"

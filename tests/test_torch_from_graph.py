@@ -350,8 +350,9 @@ def test_unblocked_predictor_matches_gnn_tpu(tmp_path, focus):
 
 def test_fused_on_a_batch_without_blocks_raises_as_gnn_tpu():
     """aggregation='fused' on a from_graph batch raises gnn_tpu's ValueError
-    (gnn_tpu/models/core.py:426-429); a blocked batch without the loop/dep
-    layout still raises NotImplementedError."""
+    (gnn_tpu/models/core.py:426-429); on a blocked batch without the loop/dep
+    layout it runs K4 over every block each iteration and matches gnn_tpu's
+    per-step fused path."""
     js, ts = _specs(focus="g", aggregation="fused")
     (jp, jbn), (tp, tbn) = _weights(js)
     jg, tg = graph_pair(30, "g", masks=False)
@@ -360,7 +361,16 @@ def test_fused_on_a_batch_without_blocks_raises_as_gnn_tpu():
     with pytest.raises(ValueError, match="needs a block-dense batch") as terr:
         tcore.gnn_forward(ts, tp, tbn, TGB.from_graph(tg))
     assert str(terr.value) == str(jerr.value)
-    with pytest.raises(NotImplementedError, match="fused_layout=True"):
-        tcore.gnn_forward(ts, tp, tbn, tbatch.from_graphs_blocked([tg], block_w=32))
+    tb, jb = (m.from_graphs_blocked([g], block_w=32) for m, g in ((tbatch, tg), (jbatch, jg)))
+    assert tb.n_node_pad > 32 and tb.adj_loop is None
+    got = tcore.gnn_forward(ts, tp, tbn, tb)
+    kern = jcore.gnn_forward(js, jp, jbn, jb, jax.random.key(0))
+    with jax.default_matmul_precision("highest"):
+        body = jcore.gnn_forward(dataclasses.replace(js, aggregation="blocked"), jp, jbn, jb,
+                                 jax.random.key(0))
+    assert float(got["iters"]) == float(kern["iters"]) == float(body["iters"])
+    for key in ("state", "out"):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(body[key]), atol=ATOL)
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(kern[key]), atol=2e-4)
     assert tcore._eval_route(dataclasses.replace(ts, aggregation="auto"),
                              TGB.from_graph(tg)) == "plain"

@@ -6,14 +6,16 @@ it) is copied to build/phase_marks/<name>/ with a clock64 mark by thread 0 after
 every __syncthreads() written in the kernel's own body; each mark adds the cycles
 since the previous mark to its own slot, so a barrier inside a loop sums over the
 iterations, and barriers inside called helpers fall into the enclosing segment.
-The copy is built alone with the port's nvcc flags, and the kernel's wrapper runs it
-on chip_smoke.py's full-set operands (K2 at the flagship's BatchNorm route, K12 at
-the h150 training route). Printed: the instrumented and the unmarked launch's times
-(the marks' cost), then each segment's share of the cycles summed over the CTAs and
-its cycles a CTA, named by the source lines of the barriers that end it.
+The copy and the unmarked source of every tree are built alone with the port's nvcc
+flags, all at once, and the kernel's wrapper runs each on chip_smoke.py's full-set
+operands (K2 at the flagship's BatchNorm route, K12 at the h150 training route, K14 at
+the h150_bn route, K17 at the composite_bn route). Printed: the instrumented and the
+unmarked launch's times (the marks' cost), then each segment's share of the cycles
+summed over the CTAs and its cycles a CTA, named by the source lines of the barriers
+that end it.
 
 Usage, from the repository root (a tree defaults to gnn_tpu_torch/ops/csrc):
-    python3 tools/phase_marks.py K2 [name=tree ...]
+    python3 tools/phase_marks.py K2|K12|K14|K17 [name=tree ...]
 """
 
 import ctypes
@@ -23,11 +25,14 @@ import re
 import shutil
 import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # kernel: its C entry and the __global__ functions that may implement it
 KERNELS = {"K2": ("gnn_bn_backward", ("bn_bwd_kernel",)),
-           "K12": ("gnn_train_loop2", ("train_loop2_kernel", "loop2_tile_kernel"))}
+           "K12": ("gnn_train_loop2", ("train_loop2_kernel", "loop2_tile_kernel")),
+           "K14": ("gnn_bn2_forward", ("bn2_fwd_tile_kernel", "bn2_fwd_kernel")),
+           "K17": ("gnn_bnT_backward", ("bnT_bwd_kernel",))}
 HEAD = """
 namespace {
 __device__ unsigned long long* g_phase;
@@ -89,7 +94,7 @@ def main():
     import torch
     from gnn_tpu_torch import Predictor
     from gnn_tpu_torch.graphs.datasets import mutag_shaped
-    from gnn_tpu_torch.ops import _build, bn, fused2
+    from gnn_tpu_torch.ops import _build, bn, fused2, typed
     kernel = sys.argv[1]
     entry, names = KERNELS[kernel]
     trees = dict(a.split("=", 1) for a in sys.argv[2:]) or {"tree": str(_build.CSRC)}
@@ -102,6 +107,15 @@ def main():
         if kernel == "K2":
             _, _, x, kw = cs.train_kernel_inputs(torch, model, gb_train)
             fn, x, rows = bn.bn_backward_step, dict(x, **kw), x["y_prev"].shape[0]
+        elif kernel == "K14":
+            _, x, kw, _ = cs.two_layer_train_kernel_inputs(torch, gb_train)
+            fn, x, rows = bn.bn2_forward_step, dict(x, **kw), x["y1"].shape[0]
+        elif kernel == "K17":
+            comp = cs.composite_model(torch, "cuda")
+            typed_gs = cs.typed_graphs(graphs)
+            gb_typed = Predictor(comp).build_batch(typed_gs).to("cuda")
+            _, _, x, kw, _ = cs.typed_kernel_inputs(torch, comp, comp.to_batch(typed_gs), gb_typed)
+            fn, x, rows = typed.bnT_backward_step, dict(x, **kw), x["y_prev"].shape[0]
         else:
             gb = Predictor(model).build_batch(graphs).to("cuda")
             x = cs.two_layer_kernel_inputs(torch, gb, gb_train)[2]
@@ -116,6 +130,8 @@ def main():
         def __getattr__(self, name):
             return getattr(self.lib, name)
 
+    # every tree's marked and unmarked copies, built all at once
+    jobs, plan = [], {}
     for tname, tree in trees.items():
         src_path = next(os.path.join(tree, f) for f in sorted(os.listdir(tree))
                         if f.endswith(".cu")
@@ -127,14 +143,23 @@ def main():
         copy = os.path.join(out_dir, os.path.basename(src_path))
         with open(copy, "w") as f:
             f.write(src)
-        libs = {}
-        for label, path in (("marked", copy), ("unmarked", src_path)):
-            so = os.path.join(out_dir, f"lib_{label}.so")
-            r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", tree, "-shared", "-o", so,
-                                path], capture_output=True, text=True)
-            if r.returncode:
-                cs.fail(f"{tname} {label}: nvcc failed\n{r.stdout[-2000:]}{r.stderr[-2000:]}")
-            libs[label] = _build.bind(ctypes.CDLL(so))
+        plan[tname] = (src_path, lines)
+        jobs += [(tname, label, path, tree, os.path.join(out_dir, f"lib_{label}.so"))
+                 for label, path in (("marked", copy), ("unmarked", src_path))]
+
+    def nvcc(job):
+        tname, label, path, tree, so = job
+        return subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", tree, "-shared", "-o", so,
+                               path], capture_output=True, text=True)
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        built = list(pool.map(nvcc, jobs))
+    libs_of = {}
+    for (tname, label, _, _, so), r in zip(jobs, built):
+        if r.returncode:
+            cs.fail(f"{tname} {label}: nvcc failed\n{r.stdout[-2000:]}{r.stderr[-2000:]}")
+        libs_of.setdefault(tname, {})[label] = _build.bind(ctypes.CDLL(so))
+    for tname, (src_path, lines) in plan.items():
+        libs = libs_of[tname]
         n = len(lines)
         slots = torch.zeros(rows * n, dtype=torch.int64, device="cuda")
         libs["marked"].phase_marks_set(ctypes.c_void_p(slots.data_ptr()), n)
