@@ -21,14 +21,24 @@
    plain versions (per-node outputs within 1e-5, movement flags equal, sums
    over nodes within rtol 1e-4 with a floor of 1e-4 of the largest entry;
    K2 through the near-kink replica of phase 7, a second launch
-   bit-identical), and times both. K2's shared-memory plan and occupancy are
-   printed, and each of its plans that fits the full set is forced and timed
-   (bit-identical to the default plan).
+   bit-identical), and times both. K1's and K2's shared-memory plans and
+   occupancy are printed, and each of their plans that fits the full set is
+   forced and timed (bit-identical to the default plan). K1 also runs at the
+   edges of its design (W 32 with D = 1, D = 64, a dense block, a destination
+   of 40 arcs, no loop rows, a shape only its leanest plan fits): a repeat
+   launch bit-identical, its plan equal to ops/bn.py::_bn_plan's, the cases
+   reaching both plans.
 6. BN-free training kernels: runs K5 (propagation_loop_bwd, with and
    without the affine), K6 (train_step), K7 (train_loop) and K8
    (train_loop_bwd) at the shapes the two BN-free training routes give them
    on the full set and at ragged shapes of every register width, against
-   their plain versions in the same way, and times them.
+   their plain versions in the same way, and times them. K8's plans and
+   occupancy are printed and each plan that fits the full set is forced and
+   timed (bit-identical); K8 runs at the edges of its design (W 32 with
+   D = 1, D = 64 at W 64 and 128, a dense block, a source of 40 arcs, K = 1
+   and 5) through the near-kink replica of phase 7 (check_bwd2), its plan
+   equal to ops/fused.py::_train_bwd_plan's, the cases reaching both its
+   plans.
 7. Two-layer kernels: runs K9 (propagation_step2) and K10
    (propagation_loop2) at the shapes the hidden-150 recipe's serving path
    gives them on the full set, K12 (train_loop2) and K13 (train_loop2_bwd)
@@ -45,11 +55,11 @@
    edge, and the reverse kernels (check_bwd2: K2, K11, K13, K15, K17)
    wherever they run; at every such case the shared-memory plan the library
    takes must equal the Python mirror's (ops/fused2.py::_tile2_plan,
-   ops/bn.py::_bn_bwd_plan), and the cases must reach every plan of the seven
+   ops/bn.py::_bn_plan), and the cases must reach every plan of the seven
    lists; at the full set the resident CTAs an SM, registers and local bytes
    a thread are printed, and each plan of K12 that fits is forced and timed
    (the build's ptxas report goes to chiprun_out/nvcc.log; the registers and
-   spills of K10, K12, K2, K14 and K17 are printed after the build). The
+   spills of K10, K12, K1, K2, K8, K14 and K17 are printed after the build). The
    reverse kernels K2, K11, K13 and K15 differentiate selu: a hidden
    pre-activation within rounding of 0 lets
    the kernel and the plain version take different, equally valid
@@ -173,6 +183,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 SEED = 0
 T_START = time.perf_counter()
+BUILD_S = [0.0]         # the kernels' build, seconds
 
 
 def fail(msg):
@@ -211,7 +222,8 @@ def phase_build():
     os.makedirs(out, exist_ok=True)
     with open(os.path.join(out, "nvcc.log"), "w") as f:
         f.write(_build.build_log)
-    say(f"build: {time.perf_counter() - t0:.2f} s -> {_build.LIB_PATH} (nvcc's report: "
+    BUILD_S[0] = time.perf_counter() - t0
+    say(f"build: {BUILD_S[0]:.2f} s -> {_build.LIB_PATH} (nvcc's report: "
         "chiprun_out/nvcc.log)")
     for line in _build.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -221,11 +233,14 @@ def phase_build():
 
 
 # the kernels whose registers and spills the build's report is read for, by
-# their mangled names: K10 and K12 (loop2.cu, MAXF, TRAIN), K2 (bn_train.cu,
-# MAXF, threads, rows staged), K14 (bn2_fwd.cu, MAXF), K17 (bn_typed.cu,
-# MAXF, threads, rows staged)
+# their mangled names: K10 and K12 (loop2.cu, MAXF, TRAIN), K1 (bn_fwd.cu,
+# MAXF, threads, keep bytes staged), K2 (bn_train.cu, MAXF, threads, rows
+# staged), K8 (train_loop_bwd.cu, one kernel), K14 (bn2_fwd.cu,
+# MAXF), K17 (bn_typed.cu, MAXF, threads, rows staged)
 PTXAS_KERNELS = ((r"loop2_tile_kernelILi(\d+)ELb0E", "K10 MAXF={}"),
                  (r"loop2_tile_kernelILi(\d+)ELb1E", "K12 MAXF={}"),
+                 (r"bn_fwd_kernelILi(\d+)ELi(\d+)ELb(\d)E", "K1 MAXF={} threads={} staged={}"),
+                 (r"16train_bwd_kernelEPKf", "K8"),
                  (r"bn_bwd_kernelILi(\d+)ELi(\d+)ELb(\d)E", "K2 MAXF={} threads={} staged={}"),
                  (r"bn2_fwd_tile_kernelILi(\d+)E", "K14 MAXF={}"),
                  (r"bnT_bwd_kernelILi(\d+)ELi(\d+)ELb(\d)E", "K17 MAXF={} threads={} staged={}"))
@@ -640,20 +655,49 @@ def bn_bounds(x_f, x_b):
 def phase_train_kernels(torch, model, gb):
     """K1/K2 against their plain versions at the training step's full-set
     shapes and at ragged shapes of each register width (16, 32, 64), K2
-    through check_bwd2; K2's plan and occupancy and each of its plans timed;
-    times and bounds at the full set."""
+    through check_bwd2, K1 at the edges of its design; K1's and K2's plans and
+    occupancy and each of their plans timed; times and bounds at the full
+    set."""
     from gnn_tpu_torch.ops import bn
     (x0, x1), kw, x2, kwb = train_kernel_inputs(torch, model, gb)
     check_bn_forward(torch, bn, x0, kw, "full set, iteration 1")
     err1 = check_bn_forward(torch, bn, x1, kw, "full set, iteration 2")
     err2 = check_bn_backward(torch, x2, kwb, "full set, reverse of iteration 2")
-    # K2's plan and occupancy, and each of its plans that fits forced and timed
-    x2k = dict(x2, **kwb)
+    # K1's and K2's plan and occupancy, and each of their plans that fits
+    # forced and timed
     dims = (x2["adj_loop"].shape[1], x2["y_prev"].shape[-1], x2["feats"].shape[-1], 0)
-    first = check_tiled(torch, "K2", bn.bn_backward_step, x2k, dims)
-    plans_ms = time_plans(torch, "K2", bn.bn_backward_step, x2k, dims, first)
+    plans_ms = {}
+    for k, kernel, x in (("K1", bn.bn_forward_step, dict(x1, **kw)),
+                         ("K2", bn.bn_backward_step, dict(x2, **kwb))):
+        first = check_tiled(torch, k, kernel, x, dims)
+        plans_ms[k] = time_plans(torch, k, kernel, x, dims, first)
     gen = torch.Generator().manual_seed(SEED + 4)
     dev = gb.device
+    # K1 at the edges of its design: W 32 with D 1, D 64, a dense block, a
+    # destination of 40 arcs (its column read from device memory), no loop
+    # rows (Bl = 0), and a shape only the leanest plan fits; a repeat launch
+    # bit-identical, the plan the library takes held to the mirror's, the cases
+    # reaching every plan
+    reached = {0}
+    for R, Bl, W, D, F, act, alpha, rate, edge in (
+            (4, 3, 32, 1, 1, "tanh", False, 0.1, "W 32, D 1"),
+            (3, 2, 128, 64, 3, "selu", True, 0.1, "D 64"),
+            (3, 2, 128, 14, 3, "selu", True, 0.1, "a dense block"),
+            (3, 3, 128, 14, 3, "selu", True, 0.1, "a destination of 40 arcs"),
+            (3, 0, 96, 14, 3, "relu", False, 0.2, "no loop rows"),
+            (2, 1, 128, 64, 80, "tanh", True, 0.1, "a shape only the leanest plan fits")):
+        f, _ = random_bn_inputs(torch, gen, R, Bl, W, D, F, rate, True, dev,
+                                dense=edge == "a dense block")
+        if edge == "a destination of 40 arcs":
+            f["adj_loop"][:, :40, 5] = 0.05
+        if Bl == 0:     # the all-dep layout: adj_loop None
+            f = dict(f, adj_loop=None, adj_dep=torch.cat([f["adj_loop"], f["adj_dep"]]))
+        k = dict(activation=act, alpha_drop=alpha, rate=rate, threshold=0.05)
+        check_bn_forward(torch, bn, f, k, f"tiling edge ({edge})")
+        check_repeat(torch, "K1", bn.bn_forward_step, dict(f, **k), edge)
+        reached.add(tiled_plan("K1", W, D, F, 0)["plan"])
+    if reached != set(range(len(bn._BN_FWD_PLANS))):
+        fail(f"K1: the cases reach plans {sorted(reached)} of its {len(bn._BN_FWD_PLANS)}")
     for R, Bl, W, D, F, act, alpha, rate, res in (
             (6, 4, 32, 5, 3, "selu", True, 0.1, True), (5, 5, 96, 14, 3, "selu", True, 0.1, True),
             (5, 3, 64, 24, 5, "relu", False, 0.2, True), (4, 2, 128, 48, 2, "tanh", True, 0.1, True),
@@ -665,7 +709,7 @@ def phase_train_kernels(torch, model, gb):
     (b1, by1), (b2, by2) = bn_bounds(x1, x2)
     out = {
         "K1": dict(name="K1 bn_forward_step", route="cuda",
-                   source="gnn_tpu_torch/ops/csrc/bn_train.cu",
+                   source="gnn_tpu_torch/ops/csrc/bn_fwd.cu",
                    replaces="gnn_tpu/ops/pallas_bn.py:97", max_abs_err=err1,
                    ms=timed_ms(torch, lambda: bn.bn_forward_step(**x1, **kw)),
                    plain_ms=timed_ms(torch, lambda: bn.bn_forward_step_ref(**x1, **kw)),
@@ -681,7 +725,7 @@ def phase_train_kernels(torch, model, gb):
     for k, v in out.items():
         say(f"{k} timing at {shape[0]} block rows ({shape[1]} loop): kernel {v['ms']:.4f} ms, "
             f"plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
-            + (f"; each plan forced: {plans_ms}" if k == "K2" else ""))
+            f"; each plan forced: {plans_ms[k]}")
     return out
 
 
@@ -754,10 +798,12 @@ def bnfree_kernel_inputs(torch, gb):
     return k5, k6, k7, k8
 
 
-def random_bnfree_inputs(torch, gen, B, W, D, H, K, rate, alpha, act, dev):
-    """Ragged K5-K8 operands: a sparse 'average' adjacency, keep bits and
-    weights that keep the states O(1); K8's and K5's trajectories from the
-    plain forwards. K6 is H wide, the loops D wide."""
+def random_bnfree_inputs(torch, gen, B, W, D, H, K, rate, alpha, act, dev, dense=False,
+                         line=False):
+    """Ragged K5-K8 operands: a sparse 'average' adjacency (every entry
+    nonzero with `dense`; with `line` source 3 of every block has 40 arcs),
+    keep bits and weights that keep the states O(1); K8's and K5's
+    trajectories from the plain forwards. K6 is H wide, the loops D wide."""
     from gnn_tpu_torch.ops import fused
 
     def r(*shape, scale=1.0):
@@ -765,7 +811,9 @@ def random_bnfree_inputs(torch, gen, B, W, D, H, K, rate, alpha, act, dev):
 
     def keep(*shape):
         return (torch.rand(*shape, generator=gen) > rate).to(torch.uint8).to(dev) if rate else None
-    adjT = random_adj(torch, gen, B, W, dev)
+    adjT = random_adj(torch, gen, B, W, dev, dense)
+    if line:
+        adjT[:, 3, :40] = 0.05   # a row of 40 arcs: read from device memory
     nm = (torch.rand(B, W, generator=gen) < 0.8).float().to(dev)
     kw = dict(activation=act, alpha_drop=alpha, rate=rate)
     k7 = dict(adjT=adjT, s0=r(B, W, D), ms=keep(K, B, W, D), ma=keep(K, B, W, D),
@@ -842,7 +890,9 @@ def bnfree_bounds(k5, k6, k7, k8):
 def phase_bnfree_kernels(torch, gb):
     """K5-K8 against their plain versions at the BN-free training paths'
     full-set shapes (K5 with and without the affine) and at ragged shapes of
-    each register width (16, 32, 64); times and bounds at the full set."""
+    each register width (16, 32, 64), K8 at the edges of its design; K8's
+    plans and occupancy and each of its plans timed; times and bounds at the
+    full set."""
     from gnn_tpu_torch.ops import fused
     k5, k6, k7, k8 = bnfree_kernel_inputs(torch, gb)
     errs = check_bnfree(torch, k5, k6, k7, k8, "full set")
@@ -858,13 +908,38 @@ def phase_bnfree_kernels(torch, gb):
             (3, 64, 64, 64, 2, 0.1, False, "selu")):
         check_bnfree(torch, *random_bnfree_inputs(torch, gen, B, W, D, H, K, rate, alpha, act,
                                                   gb.device), "ragged")
+    # K8's plan and occupancy and each of its plans that fits forced and
+    # timed; then K8 at the edges of its design (W 32 with D 1, D 64, a
+    # dense block, a source of 40 arcs, K 1 and 5) through check_bwd2, the
+    # plan the library takes held to the mirror's, the cases reaching every
+    # plan
+    dims = (k8["adjT"].shape[1], k8["s0"].shape[-1], 0, 0)
+    plans_ms = time_plans(torch, "K8", fused.train_loop_bwd, k8, dims,
+                          check_tiled(torch, "K8", fused.train_loop_bwd, k8, dims))
+    reached = {0}
+    for B, W, D, K, rate, alpha, act, edge in (
+            (4, 32, 1, 3, 0.1, False, "tanh", "W 32, D 1"),
+            (2, 64, 64, 2, 0.1, True, "selu", "D 64 at W 64"),
+            (2, 128, 64, 2, 0.1, False, "selu", "D 64"),
+            (3, 128, 14, 3, 0.1, True, "selu", "a dense block"),
+            (3, 128, 14, 3, 0.15, False, "relu", "a source of 40 arcs"),
+            (3, 128, 14, 1, 0.1, True, "selu", "K 1"),
+            (3, 128, 14, 5, 0.1, True, "selu", "K 5")):
+        x = random_bnfree_inputs(torch, gen, B, W, D, D, K, rate, alpha, act, gb.device,
+                                 dense=edge == "a dense block",
+                                 line=edge == "a source of 40 arcs")[3]
+        check_bwd2(torch, "K8", x, f"tiling edge ({edge}: B={B} W={W} D={D} K={K} {act} "
+                                   f"rate={rate})")
+        reached.add(tiled_plan("K8", W, D, 0, 0)["plan"])
+    if reached != set(range(len(fused._TRAIN_BWD_PLANS))):
+        fail(f"K8: the cases reach plans {sorted(reached)} of its {len(fused._TRAIN_BWD_PLANS)}")
     bounds = bnfree_bounds(k5, k6, k7, k8)
     out = {}
     for (k, name, src, line), x, (b, by) in zip(
             (("K5", "propagation_loop_bwd", "eval_loop_bwd.cu", 517),
              ("K6", "train_step", "train_loop.cu", 662),
              ("K7", "train_loop", "train_loop.cu", 849),
-             ("K8", "train_loop_bwd", "train_loop.cu", 992)), (k5, k6, k7, k8), bounds):
+             ("K8", "train_loop_bwd", "train_loop_bwd.cu", 992)), (k5, k6, k7, k8), bounds):
         kernel, plain = getattr(fused, name), getattr(fused, name + "_ref")
         out[k] = dict(name=f"{k} {name}", route="cuda", source=f"gnn_tpu_torch/ops/csrc/{src}",
                       replaces=f"gnn_tpu/ops/pallas_fused.py:{line}", max_abs_err=errs[k],
@@ -872,7 +947,8 @@ def phase_bnfree_kernels(torch, gb):
                       plain_ms=timed_ms(torch, lambda: plain(**x)),
                       bound_ms=b, bound_by=by, library_ms=None)
         say(f"{k} timing at adjT {tuple(x['adjT'].shape)}: kernel {out[k]['ms']:.4f} ms, plain "
-            f"{out[k]['plain_ms']:.4f} ms, bound {b:.4f} ms ({by})")
+            f"{out[k]['plain_ms']:.4f} ms, bound {b:.4f} ms ({by})"
+            + (f"; each plan forced: {plans_ms}" if k == "K8" else ""))
     return out
 
 
@@ -957,6 +1033,8 @@ BWD2 = {
              ("dagg", 0, "node"), ("red", 0, "part")),
             {"y_prev": 0, "y_k": 0, "agg": 0, "keep": 0, "feats": 0, "ds_in": 0, "gsel": 0,
              "nm": 0}),
+    "K8": ("fused", "train_loop_bwd", (("gs", 0, "node"), ("dw", 0, "part"), ("dfT", 1, "node")),
+           {"adjT": 0, "s0": 0, "traj": 1, "agg": 1, "ms": 1, "ma": 1, "fT": 1, "g_traj": 1}),
     "K2": ("bn", "bn_backward_step",
            (("ds", 0, "node"), ("dw", 0, "part"), ("dagg", 0, "node"), ("red", 0, "part")),
            {"y_prev": 0, "y_k": 0, "agg": 0, "keep": 0, "feats": 0, "ds_in": 0, "gsel": 0,
@@ -1025,7 +1103,7 @@ def replica(torch, kern, xb, flips=(), record=None):
 
 
 def check_bwd2(torch, kern, x, label):
-    """A reverse kernel with a kinked activation's derivative (K2, the
+    """A reverse kernel with a kinked activation's derivative (K2, K8, the
     two-layer K11, K13, K15, and K17) against its plain version.
     Where the activations have kinks (selu, relu), a pre-activation within
     rounding of 0 lets two summation orders take different, equally valid
@@ -1295,52 +1373,55 @@ def phase_two_layer_train_kernels(torch, gb):
 
 
 # the kernels with shared-memory plans: the register-tiled ones
-# (ops/csrc/tile2.cuh; K14 in bn2_fwd.cu), K2 (bn_train.cu) and K17
-# (bn_typed.cu); a shape is (W, D, AL or F, H1), K17's (W, D, F, T)
-TILED = ("K10", "K11", "K12", "K13", "K14", "K15", "K2", "K17")
+# (ops/csrc/tile2.cuh; K14 in bn2_fwd.cu), K1 (bn_fwd.cu), K2 (bn_train.cu),
+# K8 (train_loop_bwd.cu) and K17 (bn_typed.cu); a shape is (W, D, AL or F,
+# H1), K17's (W, D, F, T), K1's and K2's H1 and K8's AL and H1 unused
+TILED = ("K10", "K11", "K12", "K13", "K14", "K15", "K1", "K2", "K8", "K17")
+
+
+def plan_kernel(k):
+    """(plan list, layout bytes (W, D, AL, H1, plan), C entry) of kernel k, as
+    ops/fused2.py, ops/bn.py, ops/fused.py or ops/typed.py mirror it."""
+    import functools
+    from gnn_tpu_torch.ops import bn, fused, fused2, typed
+    if k in fused2._TILED:
+        return (fused2._PLANS[k], functools.partial(fused2._tile2_bytes, fused2._KIND[k]),
+                fused2._TILED[k])
+    return {"K1": (bn._BN_FWD_PLANS, lambda W, D, F, H1, p: bn._bn_fwd_bytes(W, D, F, p),
+                   "gnn_bn_forward"),
+            "K2": (bn._BN_BWD_PLANS, lambda W, D, F, H1, p: bn._bn_bwd_bytes(W, D, F, p),
+                   "gnn_bn_backward"),
+            "K8": (fused._TRAIN_BWD_PLANS, lambda W, D, AL, H1, p: fused._train_bwd_bytes(W, D, p),
+                   "gnn_train_loop_bwd"),
+            "K17": (typed._BNT_BWD_PLANS, typed._bnT_bwd_bytes, "gnn_bnT_backward")}[k]
 
 
 def plans_of(k):
-    """Kernel k's plan list, as ops/fused2.py, ops/bn.py or ops/typed.py
-    mirror it."""
-    from gnn_tpu_torch.ops import bn, fused2, typed
-    return {"K2": bn._BN_BWD_PLANS, "K17": typed._BNT_BWD_PLANS}.get(k) or fused2._PLANS[k]
+    """Kernel k's plan list, as the Python mirror holds it."""
+    return plan_kernel(k)[0]
 
 
 def plan_bytes(k, plan, W, D, AL, H1):
-    from gnn_tpu_torch.ops import bn, fused2, typed
-    if k == "K2":
-        return int(bn._bn_bwd_bytes(W, D, AL, plan))
-    if k == "K17":
-        return int(typed._bnT_bwd_bytes(W, D, AL, H1, plan))
-    return int(fused2._tile2_bytes(fused2._KIND[k], W, D, AL, H1, plan))
+    return int(plan_kernel(k)[1](W, D, AL, H1, plan))
 
 
 def mirrored_plan(k, W, D, AL, H1):
     """(bytes, plan index or None) the Python mirror names for kernel k."""
-    from gnn_tpu_torch.ops import bn, fused2, typed
-    if k == "K2":
-        return bn._bn_bwd_plan(W, D, AL)
-    if k == "K17":
-        return typed._bnT_bwd_plan(W, D, AL, H1)
-    return fused2._tile2_plan(W, D, AL, H1, k)
+    from gnn_tpu_torch.ops import fused
+    plans, nbytes, _ = plan_kernel(k)
+    return fused._first_plan(plans, nbytes, W, D, AL, H1)
 
 
 def plan_info(k, W, D, AL, H1):
     """What the card reports for the plan kernel k takes at this shape."""
-    from gnn_tpu_torch.ops import bn, fused2, typed
-    if k == "K2":
-        return bn.backward_info(W, D, AL)
-    if k == "K17":
-        return typed.backward_info(W, D, AL, H1)
-    return fused2.tile_info(k, W, D, AL, H1)
+    from gnn_tpu_torch.ops import fused
+    return fused._plan_info(plan_kernel(k)[2], W, D, AL, H1)
 
 
 def tiled_plan(k, W, D, AL, H1):
-    """The shared-memory plan the library takes for kernel k at this shape
-    (AL: K2's, K14's, K15's and K17's F; K2 ignores H1, K17 takes the types
-    T in its place), held equal to the Python mirror's
-    (ops/fused2.py::_tile2_plan, ops/bn.py::_bn_bwd_plan,
+    """The shared-memory plan the library takes for kernel k at this shape,
+    held equal to the Python mirror's (ops/fused2.py::_tile2_plan,
+    ops/bn.py::_bn_plan, ops/fused.py::_train_bwd_plan,
     ops/typed.py::_bnT_bwd_plan), and what the card reports for it."""
     info = plan_info(k, W, D, AL, H1)
     need, plan = mirrored_plan(k, W, D, AL, H1)
@@ -1352,7 +1433,7 @@ def tiled_plan(k, W, D, AL, H1):
 
 def describe_k(k, info):
     """Kernel k's plan and occupancy as the card reports them (info)."""
-    threads = plans_of(k)[info["plan"]][0] if k in ("K2", "K17") else 256
+    threads = plans_of(k)[info["plan"]][0] if k in ("K1", "K2", "K17") else 256
     return (f"plan {info['plan']}, {info['smem_bytes']} bytes of shared memory a CTA, "
             f"{info['ctas_per_sm']} CTAs ({info['ctas_per_sm'] * threads // 32} warps) an SM, "
             f"{info['registers']} registers and {info['local_bytes']} local bytes a thread")
@@ -1381,13 +1462,12 @@ def check_tiled(torch, k, kernel, x, dims):
 
 def force_entry(k):
     """Kernel k's gnn_*_force_plan entry."""
-    from gnn_tpu_torch.ops import _build, fused2
-    name = {"K2": "gnn_bn_backward", "K17": "gnn_bnT_backward"}.get(k) or fused2._TILED[k]
-    return getattr(_build.library(), name + "_force_plan")
+    from gnn_tpu_torch.ops import _build
+    return getattr(_build.library(), plan_kernel(k)[2] + "_force_plan")
 
 
 def time_plans(torch, k, kernel, x, dims, first):
-    """Every plan of K11, K12, K14, K15, K2 or K17 that fits the full-set
+    """Every plan of K11, K12, K14, K15, K1, K2, K8 or K17 that fits the full-set
     shape, forced in turn (its outputs bit-identical to the default plan's
     `first`), timed as the kernels' rows are; the plan list is ordered by
     these times."""
@@ -1431,8 +1511,9 @@ def phase_two_layer_kernels(torch, gb, gb_train):
         if k == "K12":
             plans_ms[k] = time_plans(torch, k, fused2.train_loop2, x, dims, first)
     # the plans the cases take (K11, K14, K15 and K2 take plan 0 at the full
-    # set, phases 5 and 8; K17's cases are phase 10's)
-    two = [k for k in TILED if k != "K17"]
+    # set, phases 5 and 8; K1's cases are phase 5's, K8's phase 6's, K17's
+    # phase 10's)
+    two = [k for k in TILED if k not in ("K1", "K8", "K17")]
     reached = {k: set() for k in two}
     reached.update(K10={0}, K12={0}, K13={0})
 
@@ -2399,8 +2480,14 @@ def main():
         f"composite serving path: K16 {served['composite']['bnT_forward_step']} (the JSON line "
         f"counts the composite_bn training path's); 'pallas' path: K18 {k18_launches} (the "
         f"whole-set forward and 3 training steps)")
-    say(f"all phases passed ({elapsed()})")
+    say(f"all phases passed ({elapsed()} of a 900 s time limit; the build took "
+        f"{BUILD_S[0]:.1f} s)")
     kernels = {k: kernels[k] for k in sorted(kernels, key=lambda k: int(k[1:]))}
+    # the time the main paths lose in each kernel against its bound, the
+    # measure by which the next kernels to redesign are chosen
+    loss = {k: v["launches"] * (v["ms"] - v["bound_ms"]) for k, v in kernels.items()}
+    say("launches x (ms - bound ms), largest first: "
+        + ", ".join(f"{k} {loss[k]:.2f}" for k in sorted(loss, key=loss.get, reverse=True)))
     order = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
              "plain_ms", "bound_ms", "bound_by", "library_ms"]
     print(json.dumps({"kernels": [{k: v[k] for k in order} for v in kernels.values()]}))

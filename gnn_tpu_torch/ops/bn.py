@@ -34,17 +34,16 @@ and gradients ignore them.
 Keep-masks are uint8 [R, W, 2D+F] in x3 column order.
 
 Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
-launches the CUDA kernel (ops/csrc/bn_train.cu, bn2_train.cu) for CUDA
-tensors; it never falls back from one to the other. `launches` counts kernel
-launches. K2 takes the first of its shared-memory plans that fits a CTA
-(`_bn_bwd_plan`); K14/K15 take D and F up to 64, H1 up to
-fused2.MAX_HIDDEN, and a block's rows and the weights within a CTA's shared
-memory (`_smem2_bytes`).
+launches the CUDA kernel (ops/csrc/bn_fwd.cu, bn_train.cu, bn2_fwd.cu,
+bn2_train.cu) for CUDA tensors; it never falls back from one to the other.
+`launches` counts kernel launches. K1 and K2 take the first of their
+shared-memory plans that fits a CTA (`_bn_plan`); K14/K15 take D and F up
+to 64, H1 up to fused2.MAX_HIDDEN, and a block's rows and the weights within
+a CTA's shared memory (`_smem2_bytes`).
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import Optional, Tuple
 
@@ -53,11 +52,11 @@ import torch
 import torch.nn.functional as F
 
 from gnn_tpu_torch.ops import _build
-from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, _act_grad, _check,
-                                     _check_keep, _drop_args, _make_drop, _ptr, _stream, moved,
-                                     supports_fused_train)
-from gnn_tpu_torch.ops.fused2 import (MAX_HIDDEN, SMEM_BYTES, _dense2_vjp, _r4, _tile2_plan,
-                                      dense2)
+from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, SMEM_BYTES,
+                                     _act_grad, _check, _check_fits, _check_keep, _drop_args,
+                                     _first_plan, _make_drop, _plan_info, _ptr, _r4, _stream,
+                                     moved, supports_fused_train)
+from gnn_tpu_torch.ops.fused2 import MAX_HIDDEN, _dense2_vjp, _tile2_plan, dense2
 from gnn_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
 
 # kernel launches since the last reset, by wrapper
@@ -224,10 +223,27 @@ def bn2_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_a
 
 
 # ------------------------------------------------------------------ wrappers
-# bn_train.cu's kBnBwdPlans, K2's shared-memory plans in order of preference:
-# (threads a CTA, room of the row lists, rows and keep bytes staged). The
-# first is the flagship's; the last fits every shape the per-node K2 took.
+# bn_fwd.cu's kBnFwdPlans, K1's shared-memory plans in order of preference:
+# (threads a CTA, room of the column lists, keep bytes staged). The first is
+# the flagship's; the last fits every shape the per-node K1 took.
+_BN_FWD_PLANS = ((256, 16, 1), (128, 0, 0))
+# bn_train.cu's kBnBwdPlans, K2's: (threads a CTA, room of the row lists,
+# rows and keep bytes staged), likewise.
 _BN_BWD_PLANS = ((256, 16, 1), (128, 0, 0))
+
+
+def _bn_fwd_bytes(W, D, F, plan):
+    """Shared memory of bn_fwd.cu::fwd_layout: x3 [C1][W], w_aug transposed
+    [C1 + 1][D rounded up to 4], the affines [4][D], nm [W], the row buffer
+    [W][D|1]; staged, the keep bytes; the column lists ([E][W] floats, then W
+    counts, E*W sources and the list build's counts [threads / 32][W] as
+    bytes); each region a multiple of 16 bytes. The widths may be ints or
+    numpy integer arrays."""
+    nt, E, st = plan
+    C1 = 2 * D + F
+    floats = (_r4(C1 * W) + (C1 + 1) * _r4(D) + _r4(4 * D) + _r4(W) + _r4(W * (D | 1))
+              + st * _r4((W * C1 + 3) // 4) + E * W)
+    return 4 * floats + ((W + E * W + nt // 32 * W) if E else 0)
 
 
 def _bn_bwd_bytes(W, D, F, plan):
@@ -249,32 +265,37 @@ def _bn_bwd_bytes(W, D, F, plan):
     return 4 * floats + (W + E * W if E else 0)
 
 
+# K1's and K2's plan lists and their layouts' bytes (W, D, F, plan)
+_BN_PLANS = {"K1": (_BN_FWD_PLANS, _bn_fwd_bytes), "K2": (_BN_BWD_PLANS, _bn_bwd_bytes)}
+
+
+def _bn_plan(kernel: str, W: int, D: int, F: int):
+    """(shared-memory bytes, plan index) K1 or K2 takes at this shape
+    (fused._first_plan)."""
+    return _first_plan(*_BN_PLANS[kernel], W, D, F)
+
+
 def _bn_bwd_plan(W: int, D: int, F: int):
-    """(shared-memory bytes, plan index) K2 takes at this shape: the first
-    plan of _BN_BWD_PLANS that fits a CTA, or the leanest plan's bytes and
-    None."""
-    for i, plan in enumerate(_BN_BWD_PLANS):
-        need = int(_bn_bwd_bytes(W, D, F, plan))
-        if need <= SMEM_BYTES:
-            return need, i
-    return need, None
+    return _bn_plan("K2", W, D, F)
+
+
+def _check_bn_plan(kernel: str, W: int, D: int, F: int) -> None:
+    """Raise before any launch at a shape no plan of K1 or K2 fits."""
+    _check_fits(*_bn_plan(kernel, W, D, F), f"W={W}, D={D}, F={F}")
 
 
 def _check_bn_bwd_plan(W: int, D: int, F: int) -> None:
-    """Raise before any launch at a shape no K2 plan fits."""
-    need, plan = _bn_bwd_plan(W, D, F)
-    if plan is None:
-        raise ValueError(f"W={W}, D={D}, F={F} needs {need} bytes of shared memory a block, "
-                         f"more than the {SMEM_BYTES} a CTA may use")
+    _check_bn_plan("K2", W, D, F)
+
+
+def forward_info(W: int, D: int, F: int) -> dict:
+    """fused._plan_info of K1 (gnn_bn_forward)."""
+    return _plan_info("gnn_bn_forward", W, D, F)
 
 
 def backward_info(W: int, D: int, F: int) -> dict:
-    """What the card reports for the K2 kernel launched at this shape: its
-    plan index, shared-memory bytes, resident CTAs an SM, registers and
-    local-memory bytes a thread (builds the library)."""
-    out = (ctypes.c_int * 5)()
-    _build.check(_build.library().gnn_bn_backward_info(W, D, F, 0, out), "gnn_bn_backward_info")
-    return dict(zip(("plan", "smem_bytes", "ctas_per_sm", "registers", "local_bytes"), out))
+    """fused._plan_info of K2 (gnn_bn_backward)."""
+    return _plan_info("gnn_bn_backward", W, D, F)
 
 
 def _check_blocks(adj_loop, adj_dep, R, D):
@@ -333,6 +354,7 @@ def _launch_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, 
     R, _, D = y1.shape
     Fd = feats.shape[-1]
     Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
+    _check_bn_plan("K1", W, D, Fd)
     dev = y1.device
     for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
         if t is not None:
@@ -386,7 +408,7 @@ def _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds
     Fd = feats.shape[-1]
     C = 2 * D + Fd + 1
     Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
-    _check_bn_bwd_plan(W, D, Fd)
+    _check_bn_plan("K2", W, D, Fd)
     dev = y_prev.device
     for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
                     ("gsel", gsel)):

@@ -1,22 +1,15 @@
-// BatchNorm-training propagation kernels of the GNN fixed-point loop for
-// Hopper (sm_90a), in plain fp32 on the CUDA cores (no TF32, no bf16).
+// K2, the reverse of the BatchNorm-training iteration of a one-layer state
+// net, for Hopper (sm_90a), in plain fp32 on the CUDA cores (no TF32, no bf16).
 //
 // Replaces gnn_tpu/ops/pallas_bn.py:
-//   K1 _bn_fwd_kernel (launched by _bn_fwd_call) -> gnn_bn_forward
 //   K2 _bn_bwd_kernel (launched by _bn_bwd_call) -> gnn_bn_backward
+// Its forward, K1, is in bn_fwd.cu.
 //
 // A state net with a trailing BatchNorm couples every block each iteration
-// through the batch moments, so one launch runs one iteration over every
-// block row, and [D]-sized glue (ops/bn.py) runs between launches.
-//
-// K1, one iteration on one W-node block, node-major rows (x3 = the dense
-// input [s | agg | feats], C = 2D + F + 1 columns of w_aug = [Ws|Wa|Wf|b]):
-//   s     = y1 * scale1 + shift1,  s_old = y2 * scale2 + shift2
-//   marg  = nm if ||s - s_old|| > thr * ||s_old|| else 0
-//   agg   = adjT^T @ s (+ rT)                  written before the dropout
-//   y     = act(w_aug @ [drop(x3); 1])         the pre-BN activation
-//   msum  = sum over the block's nodes of y * nm
-// K2, the reverse of K1 with the BatchNorm backward folded in from the [9, D]
+// through the batch moments, so one launch runs one reverse iteration over
+// every block row, and [D]-sized glue (ops/bn.py) runs between launches.
+// K2 is the reverse of K1 (x3 = [s | agg | feats] the dense input, w_aug =
+// [Ws | Wa | Wf | b]) with the BatchNorm backward folded in from the [9, D]
 // coefficient rows bnv (ops/bn.py::BNV_ROWS):
 //   gy    = gamma_rstd * (ds_in + flag * gsel) - nm * (b2 + x_hat_k * c2)
 //   dh    = gy * act'(h),  dw = dh^T @ [drop(x3); 1]   (per-block partial)
@@ -24,14 +17,6 @@
 //   red   = (sum ds, sum ds * x_hat_prev)              (per-block partial)
 // Sums over nodes leave as per-block partials that the caller adds up in
 // order: no float atomics, so a result does not vary between runs.
-//
-// K1's design: one CTA per block, one thread per node (blockDim == W). The
-// block adjacency is staged in shared memory with a padded row stride W + 1,
-// so reading a column (a thread per destination) is free of bank conflicts.
-// Row blocks move between device memory and shared memory as contiguous
-// copies; x3 rows keep an odd stride so a thread reading its own row does not
-// conflict either. A thread keeps its node's accumulators in registers sized
-// by a template (16, 32 or 64 wide, unrolled with width guards).
 //
 // K2's design (one launch, every block row; tile2.cuh's staging and lists):
 // - no resident adjacency: each row's nonzero entries go into a compact list
@@ -63,167 +48,14 @@
 //
 // Bound: a launch reads every block's adjacency (W*W*4 bytes, 64 KiB at
 // W = 128) once, which dominates the bytes moved; the arcs present need
-// 2*D flops each per direction, and the dense layer 2*D*C per node, so the
-// least time is set by bytes. K1 stages the adjacency synchronously and
-// contracts it densely (2*D*W*W flops per block), as K3 does: its time is set
-// by shared-memory traffic and FMAs, not bytes.
+// 2*D flops each, and the dense layer 4*D*C per node, so the least time is
+// set by bytes.
 
 #include "tile2.cuh"
 
 namespace {
 
 using namespace gnn;
-
-// Float offsets of K1's shared-memory buffers.
-struct Layout {
-  int adj;    // [W][W + 1]  adjT[src][dst]
-  int x;      // [W][XP]     x3 rows [s | agg | feats], XP = (2D + F) | 1
-  int rows;   // [W][DP]     staging of [W, D] row blocks, DP = D | 1
-  int rows2;  // [W][DP]     a second row buffer
-  int w;      // [D][C]      w_aug
-  int vec;    // [9][D]      K1: the two affines; K2: bnv
-  int nm;     // [W]         node mask
-  int keep;   // W * (2D + F) bytes of keep bits
-  int total;
-};
-
-__host__ __device__ Layout layout(int W, int D, int F) {
-  const int C = 2 * D + F + 1;
-  Layout l;
-  int o = 0;
-  l.adj = o;
-  o += W * (W + 1);
-  l.x = o;
-  o += W * ((C - 1) | 1);
-  l.rows = o;
-  o += W * (D | 1);
-  l.rows2 = o;
-  o += W * (D | 1);
-  l.w = o;
-  o += D * C;
-  l.vec = o;
-  o += 9 * D;
-  l.nm = o;
-  o += W;
-  l.keep = o;
-  o += (W * (C - 1) + 3) / 4;
-  l.total = o;
-  return l;
-}
-
-// K1's operands staged once per CTA: adjacency, w_aug, the [rows, D]
-// coefficient vectors, node mask, keep bits and the feats columns of x3.
-__device__ void stage_common(float* sm, const Layout& L, const float* adj_loop,
-                             const float* adj_dep, int Bl, const float* __restrict__ w_aug,
-                             const float* __restrict__ vec, int vec_rows,
-                             const float* __restrict__ nm, const uint8_t* __restrict__ keep,
-                             const float* __restrict__ feats, int W, int D, int F, int mode) {
-  const int r = blockIdx.x;
-  const size_t row0 = (size_t)r * W;
-  const int C = 2 * D + F + 1;
-  stage_adj(block_adj(adj_loop, adj_dep, Bl, W), W, sm + L.adj);
-  for (int i = threadIdx.x; i < D * C; i += blockDim.x) sm[L.w + i] = w_aug[i];
-  for (int i = threadIdx.x; i < vec_rows * D; i += blockDim.x) sm[L.vec + i] = vec[i];
-  sm[L.nm + threadIdx.x] = nm[row0 + threadIdx.x];
-  if (mode != kNoDrop) {
-    uint8_t* kp = reinterpret_cast<uint8_t*>(sm + L.keep);
-    const uint8_t* kg = keep + row0 * (C - 1);
-    for (int i = threadIdx.x; i < W * (C - 1); i += blockDim.x) kp[i] = kg[i];
-  }
-  stage_in(feats + row0 * F, W, F, sm + L.x, (C - 1) | 1, 2 * D);
-}
-
-// K1: one BN-training iteration over every block row (row r < Bl reads
-// adj_loop[r], the rest adj_dep[r - Bl]).
-template <int MAXF>
-__global__ void __launch_bounds__(kMaxW)
-bn_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_dep,
-              const float* __restrict__ y1, const float* __restrict__ y2,
-              const float* __restrict__ aff, const uint8_t* __restrict__ keep,
-              const float* __restrict__ rT, const float* __restrict__ feats,
-              const float* __restrict__ w_aug, const float* __restrict__ nm,
-              float* __restrict__ y, float* __restrict__ agg, float* __restrict__ marg,
-              float* __restrict__ msum, int Bl, int W, int D, int F, float thr, int act,
-              int mode, float da, float db) {
-  extern __shared__ float4 smem_raw[];
-  float* sm = reinterpret_cast<float*>(smem_raw);
-  const Layout L = layout(W, D, F);
-  const int C = 2 * D + F + 1, XP = (C - 1) | 1, DP = D | 1;
-  const int r = blockIdx.x, t = threadIdx.x;
-  const size_t row0 = (size_t)r * W;
-  const float* adj = sm + L.adj;
-  float* xs = sm + L.x;
-  float* xrow = xs + t * XP;
-  float* rows = sm + L.rows;
-  const float* w = sm + L.w;
-  const float* vec = sm + L.vec;  // [scale1; shift1; scale2; shift2]
-  const float* nms = sm + L.nm;
-  const uint8_t* krow = reinterpret_cast<const uint8_t*>(sm + L.keep) + t * (C - 1);
-
-  stage_common(sm, L, adj_loop, adj_dep, Bl, w_aug, aff, 4, nm, keep, feats, W, D, F, mode);
-  stage_in(y1 + row0 * D, W, D, rows, DP, 0);
-  __syncthreads();
-  // s -> x3 columns [0, D); rounded as the plain version's multiply, then add
-  for (int d = 0; d < D; ++d) xrow[d] = __fadd_rn(__fmul_rn(rows[t * DP + d], vec[d]), vec[D + d]);
-  __syncthreads();
-  stage_in(y2 + row0 * D, W, D, rows, DP, 0);
-  __syncthreads();
-  float dist2 = 0.0f, norm2 = 0.0f;
-  for (int d = 0; d < D; ++d) {
-    const float so = __fadd_rn(__fmul_rn(rows[t * DP + d], vec[2 * D + d]), vec[3 * D + d]);
-    const float diff = __fsub_rn(xrow[d], so);
-    dist2 = __fadd_rn(dist2, __fmul_rn(diff, diff));
-    norm2 = __fadd_rn(norm2, __fmul_rn(so, so));
-  }
-  marg[row0 + t] = sqrtf(dist2) > thr * sqrtf(norm2) ? nms[t] : 0.0f;
-  __syncthreads();
-  if (rT != nullptr) stage_in(rT + row0 * D, W, D, rows, DP, 0);
-  __syncthreads();
-
-  // agg[t] = sum_src adjT[src][t] * s[src], reading column t of the adjacency
-  float acc[MAXF];
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) acc[d] = 0.0f;
-  for (int src = 0; src < W; ++src) {
-    const float a = adj[src * (W + 1) + t];
-    const float* srow = xs + src * XP;
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d)
-      if (d < D) acc[d] = fmaf(a, srow[d], acc[d]);
-  }
-  if (rT != nullptr) {
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d)
-      if (d < D) acc[d] += rows[t * DP + d];
-  }
-  __syncthreads();  // every thread is done with the s columns and rows
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) {
-    if (d < D) {
-      rows[t * DP + d] = acc[d];
-      xrow[D + d] = acc[d];
-    }
-  }
-  drop_row(xrow, krow, C - 1, mode, da, db);
-  __syncthreads();
-  stage_out(agg + row0 * D, W, D, rows, DP);
-
-  float h[MAXF];
-  dense_aug<MAXF>(w, xrow, D, C, h);
-  __syncthreads();  // agg is out of rows
-#pragma unroll
-  for (int j = 0; j < MAXF; ++j)
-    if (j < D) rows[t * DP + j] = activate(act, h[j]);
-  __syncthreads();
-  stage_out(y + row0 * D, W, D, rows, DP);
-  for (int d = t; d < D; d += blockDim.x) {
-    float s = 0.0f;
-    for (int n = 0; n < W; ++n) s = fmaf(rows[n * DP + d], nms[n], s);
-    msum[(size_t)r * D + d] = s;
-  }
-}
-
-// ---- K2
 
 // A K2 plan: threads a CTA, room of the row lists (0: the adjacency is read
 // from device memory), whether the rows and keep bytes are staged.
@@ -629,54 +461,9 @@ BnBwdFn pick_bwd(int W, int D, int F, BnBwdPlan* p, size_t* bytes, int* index) {
   }
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int W, int D, int F, size_t* bytes) {
-  *bytes = sizeof(float) * (size_t)layout(W, D, F).total;
-  return set_smem(kernel, *bytes);
-}
-
-template <int MAXF>
-cudaError_t launch_fwd(const float* adj_loop, const float* adj_dep, const float* y1,
-                       const float* y2, const float* aff, const uint8_t* keep, const float* rT,
-                       const float* feats, const float* w_aug, const float* nm, float* y,
-                       float* agg, float* marg, float* msum, int R, int Bl, int W, int D, int F,
-                       float thr, int act, int mode, float da, float db, cudaStream_t stream) {
-  size_t bytes;
-  cudaError_t err = prepare(bn_fwd_kernel<MAXF>, W, D, F, &bytes);
-  if (err != cudaSuccess) return err;
-  bn_fwd_kernel<MAXF><<<R, W, bytes, stream>>>(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats,
-                                                w_aug, nm, y, agg, marg, msum, Bl, W, D, F, thr,
-                                                act, mode, da, db);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
-
-// adj_loop [Bl, W, W], adj_dep [R - Bl, W, W] (null when Bl == R); y1, y2,
-// rT (nullable) [R, W, D]; aff [2, 2, D]; keep uint8 [R, W, 2D + F]
-// (null when mode == 0); feats [R, W, F]; w_aug [D, 2D + F + 1]; nm [R, W]
-// -> y, agg [R, W, D], marg [R, W], msum [R, D]. Returns a cudaError_t code.
-int gnn_bn_forward(const float* adj_loop, const float* adj_dep, const float* y1,
-                   const float* y2, const float* aff, const uint8_t* keep, const float* rT,
-                   const float* feats, const float* w_aug, const float* nm, float* y,
-                   float* agg, float* marg, float* msum, int R, int Bl, int W, int D, int F,
-                   float thr, int act, int mode, float da, float db, void* stream) {
-  if (!shape_ok(R, Bl, W, D, F)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (width_class(D)) {
-    case 16:
-      return launch_fwd<16>(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, y, agg,
-                            marg, msum, R, Bl, W, D, F, thr, act, mode, da, db, st);
-    case 32:
-      return launch_fwd<32>(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, y, agg,
-                            marg, msum, R, Bl, W, D, F, thr, act, mode, da, db, st);
-    default:
-      return launch_fwd<64>(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, y, agg,
-                            marg, msum, R, Bl, W, D, F, thr, act, mode, da, db, st);
-  }
-}
 
 // As gnn_bn_forward, plus y_prev, y_k, agg, ds_in, gsel [R, W, D]; bnv [9, D];
 // flag a device float (0 or 1) -> ds, dagg [R, W, D], dw [R, D, 2D + F + 1],

@@ -1,7 +1,7 @@
 // Device helpers shared by the port's propagation kernels (fused_eval.cu,
-// bn_train.cu, eval_loop_bwd.cu, train_loop.cu, fused2.cu, loop2.cu,
-// train_loop2_bwd.cu, eval_loop2_bwd.cu, bn2_fwd.cu, bn2_train.cu,
-// bn_typed.cu): the activations of the Pallas kernels, the input dropout and
+// bn_fwd.cu, bn_train.cu, eval_loop_bwd.cu, train_loop.cu, train_loop_bwd.cu,
+// fused2.cu, loop2.cu, train_loop2_bwd.cu, eval_loop2_bwd.cu, bn2_fwd.cu,
+// bn2_train.cu, bn_typed.cu): the activations of the Pallas kernels, the input dropout and
 // its derivative, the staging of block adjacencies and row blocks between
 // device and shared memory, the bias-augmented dense row of the BatchNorm
 // kernels and the two-layer state net of one node (K9). The register-tiled

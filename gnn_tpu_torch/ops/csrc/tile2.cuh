@@ -3,7 +3,8 @@
 // and K12 (loop2.cu), the two-layer BatchNorm iteration K14 (bn2_fwd.cu), the
 // three reverse kernels K13 (train_loop2_bwd.cu), K11 (eval_loop2_bwd.cu) and
 // K15 (bn2_train.cu), and, for their staging and adjacency lists, the
-// one-layer K2 (bn_train.cu) and the typed K17 (bn_typed.cu).
+// one-layer K1 (bn_fwd.cu), K2 (bn_train.cu) and K8 (train_loop_bwd.cu) and
+// the typed K17 (bn_typed.cu).
 //
 // A CTA of kTileThreads = 256 threads works on one W-node block. Its dense
 // input x3 = [s | agg | f] lies in shared memory transposed, X[c][n] (C rows

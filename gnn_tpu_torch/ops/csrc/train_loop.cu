@@ -5,7 +5,7 @@
 // Replaces gnn_tpu/ops/pallas_fused.py:
 //   K6 _train_kernel_T        (launched by _train_fwd_impl)      -> gnn_train_step
 //   K7 _loop_train_kernel_T   (launched by _loop_train_impl)     -> gnn_train_loop
-//   K8 _loop_train_bwd_kernel (launched by _loop_train_bwd_impl) -> gnn_train_loop_bwd
+// K7's reverse, K8, is in train_loop_bwd.cu.
 //
 // One training iteration on one W-node block, node-major rows; the arc-label
 // slice of the dense input is dropped and folded into fT outside:
@@ -17,31 +17,25 @@
 // K7 runs all K iterations of a residual-free block on its adjacency staged
 // once, with a fresh fT[k] and masks per iteration, and writes the state after
 // every iteration (traj), the pre-update movement flags and the pre-dropout
-// aggregations (saved for K8). K8 runs the K reverse iterations:
-//   x2, h recomputed from traj[k-1] (s0) and the saved agg[k]
-//   dh  = (g_traj[k] + gs) * act'(h)    -> dfT[k];  dw += dh^T @ x2
-//   dx2 = dh @ w_cat,  dagg = dx2[D:] * a*ma,  gs = dx2[:D] * a*ms + adjT @ dagg
+// aggregations (saved for K8).
 // K6 runs one iteration of a residual-coupled block: the state slice arrives
 // dropped (sd), the raw residual aggregation rT is added before the aggregated
 // slice's dropout; its backward is plain PyTorch, as gnn_tpu's is XLA.
 //
-// Design: one CTA per block, one thread per node (blockDim == W), as in
-// bn_train.cu. The adjacency is staged in shared memory with row stride W + 1:
-// K6/K7 read a column (a thread per destination), K8 a row (a thread per
-// source), both free of bank conflicts. A thread's x2 row lives in shared
-// memory (odd stride) so the dense layer loops over it at run time; its
-// accumulators are registers sized by a template (16, 32 or 64 wide). Each
-// thread reads its own keep bytes straight from device memory. The dw partial
-// of a block is accumulated in the output by the thread that owns each entry:
-// no atomics, so a result does not vary between runs.
+// Design: one CTA per block, one thread per node (blockDim == W). The
+// adjacency is staged in shared memory with row stride W + 1, so reading a
+// column (a thread per destination) is free of bank conflicts. A thread's x2
+// row lives in shared memory (odd stride) so the dense layer loops over it at
+// run time; its accumulators are registers sized by a template (16, 32 or 64
+// wide). Each thread reads its own keep bytes straight from device memory.
 //
-// Bound: K7 and K8 read each block's adjacency (64 KiB at W = 128) once for all
-// K iterations and stream K per-iteration rows (fT, masks, traj, agg, and in K8
-// the cotangents and dfT); the dense layer costs 4*D*D flops per node and
-// iteration and the arcs present 2*D each, so the least time is set by bytes.
-// This first version stages synchronously and contracts the adjacency densely
-// (2*D*W*W flops per block and iteration), as K1-K3 do: its time is set by
-// shared-memory traffic and FMAs, not bytes.
+// Bound: K7 reads each block's adjacency (64 KiB at W = 128) once for all K
+// iterations and streams K per-iteration rows (fT, masks, traj, agg); the
+// dense layer costs 4*D*D flops per node and iteration and the arcs present
+// 2*D each, so the least time is set by bytes. This first version stages
+// synchronously and contracts the adjacency densely (2*D*W*W flops per block
+// and iteration), as K3 does: its time is set by shared-memory traffic and
+// FMAs, not bytes.
 
 #include "common.cuh"
 
@@ -142,127 +136,6 @@ train_loop_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
   }
 }
 
-// K8: the K reverse iterations of K7 (H == D).
-template <int MAXF>
-__global__ void __launch_bounds__(kMaxW)
-train_loop_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
-                      const float* __restrict__ traj, const float* __restrict__ agg,
-                      const uint8_t* __restrict__ ms, const uint8_t* __restrict__ ma,
-                      const float* __restrict__ fT, const float* __restrict__ w_cat,
-                      const float* __restrict__ g_traj, float* __restrict__ gs_out,
-                      float* __restrict__ dw_out, float* __restrict__ dfT, int B, int W, int D,
-                      int K, int act, int mode, float da, float db) {
-  extern __shared__ float4 smem_raw[];
-  const int DP = D | 1, C2 = 2 * D, XP = C2 | 1;
-  float* adj = reinterpret_cast<float*>(smem_raw);  // [W][W + 1]
-  float* X = adj + W * (W + 1);                     // [W][XP] x2 rows
-  float* G = X + W * XP;                            // [W][DP] staging, dh, dagg
-  float* w = G + W * DP;                            // [D][2D]
-  const int b = blockIdx.x, t = threadIdx.x;
-  const size_t row0 = (size_t)b * W;
-  float* xrow = X + t * XP;
-  float* grow = G + t * DP;
-  float* dw = dw_out + (size_t)b * D * C2;
-
-  stage_adj(adjT + row0 * W, W, adj);
-  for (int i = t; i < D * C2; i += blockDim.x) {
-    w[i] = w_cat[i];
-    dw[i] = 0.0f;  // owned by this thread from here on
-  }
-  float gs[MAXF], h[MAXF], dxs[MAXF], dxa[MAXF];
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) gs[d] = 0.0f;
-
-  for (int k = K - 1; k >= 0; --k) {
-    const size_t kb = (size_t)k * B + b;
-    const float* s_in = k > 0 ? traj + ((size_t)(k - 1) * B + b) * W * D : s0 + row0 * D;
-    stage_in(s_in, W, D, X, XP, 0);
-    stage_in(agg + kb * W * D, W, D, X, XP, D);
-    stage_in(fT + kb * W * D, W, D, G, DP, 0);
-    __syncthreads();
-    const uint8_t* ks = mode != kNoDrop ? ms + (kb * W + t) * D : nullptr;
-    const uint8_t* ka = mode != kNoDrop ? ma + (kb * W + t) * D : nullptr;
-    if (mode != kNoDrop) {
-      for (int d = 0; d < D; ++d) {
-        xrow[d] = drop(mode, da, db, xrow[d], ks[d] != 0);
-        xrow[D + d] = drop(mode, da, db, xrow[D + d], ka[d] != 0);
-      }
-    }
-    // h as K7 formed it: the dense sum, then fT[k]
-#pragma unroll
-    for (int j = 0; j < MAXF; ++j) h[j] = 0.0f;
-    dense_acc<MAXF>(w, C2, xrow, C2, D, h);
-#pragma unroll
-    for (int j = 0; j < MAXF; ++j)
-      if (j < D) h[j] += grow[j];
-    __syncthreads();  // G is free
-    stage_in(g_traj + kb * W * D, W, D, G, DP, 0);
-    __syncthreads();
-    // dh = (g_traj[k] + gs) * act'(h), into G for dfT[k], the dw sums and dx2
-#pragma unroll
-    for (int j = 0; j < MAXF; ++j) {
-      h[j] = j < D ? (grow[j] + gs[j]) * act_grad(act, h[j]) : 0.0f;
-      if (j < D) grow[j] = h[j];
-    }
-    __syncthreads();
-    stage_out(dfT + kb * W * D, W, D, G, DP);
-    // this block's dw[j][c] += sum_n dh[n][j] * x2[n][c]
-    for (int o = t; o < D * C2; o += blockDim.x) {
-      const int j = o / C2, c = o % C2;
-      float acc = 0.0f;
-      for (int n = 0; n < W; ++n) acc = fmaf(G[n * DP + j], X[n * XP + c], acc);
-      dw[o] += acc;
-    }
-    // dx2 = dh @ w_cat, through the dropout's derivative a * keep
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d) dxs[d] = dxa[d] = 0.0f;
-#pragma unroll
-    for (int j = 0; j < MAXF; ++j) {
-      if (j < D) {
-#pragma unroll
-        for (int d = 0; d < MAXF; ++d) {
-          if (d < D) {
-            dxs[d] = fmaf(h[j], w[j * C2 + d], dxs[d]);
-            dxa[d] = fmaf(h[j], w[j * C2 + D + d], dxa[d]);
-          }
-        }
-      }
-    }
-    if (mode != kNoDrop) {
-#pragma unroll
-      for (int d = 0; d < MAXF; ++d) {
-        if (d < D) {
-          dxs[d] *= drop_grad(mode, da, ks[d] != 0);
-          dxa[d] *= drop_grad(mode, da, ka[d] != 0);
-        }
-      }
-    }
-    __syncthreads();  // the dw sums are done with G
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d)
-      if (d < D) grow[d] = dxa[d];
-    __syncthreads();
-    // gs[t] = dxs + sum_dst adjT[t][dst] * dagg[dst], reading row t
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d) gs[d] = 0.0f;
-    for (int dst = 0; dst < W; ++dst) {
-      const float a = adj[t * (W + 1) + dst];
-      const float* r = G + dst * DP;
-#pragma unroll
-      for (int d = 0; d < MAXF; ++d)
-        if (d < D) gs[d] = fmaf(a, r[d], gs[d]);
-    }
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d) gs[d] += dxs[d];
-    __syncthreads();  // X and G are restaged by the next reverse step
-  }
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d)
-    if (d < D) grow[d] = gs[d];
-  __syncthreads();
-  stage_out(gs_out + row0 * D, W, D, G, DP);
-}
-
 // K6: one dropout-training iteration of residual-coupled blocks; rT, m nullable.
 template <int MAXF>
 __global__ void __launch_bounds__(kMaxW)
@@ -329,11 +202,6 @@ size_t loop_smem(int W, int D) {
                           (size_t)W * ((2 * D) | 1) + 2 * (size_t)D * D);
 }
 
-size_t bwd_smem(int W, int D) {
-  return sizeof(float) * ((size_t)W * (W + 1) + (size_t)W * ((2 * D) | 1) +
-                          (size_t)W * (D | 1) + 2 * (size_t)D * D);
-}
-
 size_t step_smem(int W, int D, int H) {
   return sizeof(float) * ((size_t)W * (W + 1) + (size_t)W * ((D > H ? D : H) | 1) +
                           (size_t)W * ((2 * D) | 1) + 2 * (size_t)H * D);
@@ -349,21 +217,6 @@ cudaError_t launch_loop(const float* adjT, const float* s0, const uint8_t* ms,
   if (err != cudaSuccess) return err;
   train_loop_kernel<MAXF><<<B, W, bytes, stream>>>(adjT, s0, ms, ma, fT, w_cat, nm, traj, marg,
                                                     agg, B, W, D, K, thr, act, mode, da, db);
-  return cudaGetLastError();
-}
-
-template <int MAXF>
-cudaError_t launch_bwd(const float* adjT, const float* s0, const float* traj, const float* agg,
-                       const uint8_t* ms, const uint8_t* ma, const float* fT, const float* w_cat,
-                       const float* g_traj, float* gs, float* dw, float* dfT, int B, int W,
-                       int D, int K, int act, int mode, float da, float db,
-                       cudaStream_t stream) {
-  const size_t bytes = bwd_smem(W, D);
-  cudaError_t err = set_smem(train_loop_bwd_kernel<MAXF>, bytes);
-  if (err != cudaSuccess) return err;
-  train_loop_bwd_kernel<MAXF><<<B, W, bytes, stream>>>(adjT, s0, traj, agg, ms, ma, fT, w_cat,
-                                                        g_traj, gs, dw, dfT, B, W, D, K, act,
-                                                        mode, da, db);
   return cudaGetLastError();
 }
 
@@ -407,30 +260,6 @@ int gnn_train_loop(const float* adjT, const float* s0, const uint8_t* ms, const 
     case 64:
       return launch_loop<64>(adjT, s0, ms, ma, fT, w_cat, nm, traj, marg, agg, B, W, D, K, thr,
                              act, mode, da, db, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
-
-// As gnn_train_loop, plus traj, agg, g_traj [K, B, W, D] -> gs [B, W, D],
-// dw [B, D, 2D] per-block partials, dfT [K, B, W, D]. Returns a cudaError_t code.
-int gnn_train_loop_bwd(const float* adjT, const float* s0, const float* traj, const float* agg,
-                       const uint8_t* ms, const uint8_t* ma, const float* fT,
-                       const float* w_cat, const float* g_traj, float* gs, float* dw,
-                       float* dfT, int B, int W, int D, int K, int act, int mode, float da,
-                       float db, void* stream) {
-  if (!block_ok(B, W) || D <= 0 || K <= 0 || !drop_ok(mode, ms, ma)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (width_class(D)) {
-    case 16:
-      return launch_bwd<16>(adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj, gs, dw, dfT, B, W, D,
-                            K, act, mode, da, db, st);
-    case 32:
-      return launch_bwd<32>(adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj, gs, dw, dfT, B, W, D,
-                            K, act, mode, da, db, st);
-    case 64:
-      return launch_bwd<64>(adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj, gs, dw, dfT, B, W, D,
-                            K, act, mode, da, db, st);
     default:
       return cudaErrorInvalidValue;
   }

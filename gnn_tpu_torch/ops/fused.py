@@ -44,10 +44,12 @@ are plain PyTorch as gnn_tpu's are XLA.
 Layout: node-major blocks, s [B, W, D], fT [B, W, H], adjT [B, W(src), W(dst)],
 keep-masks uint8 [.., W, D]. Each wrapper runs its plain PyTorch version
 (`*_ref`) for CPU tensors and launches the CUDA kernel (ops/csrc/fused_eval.cu,
-eval_loop_bwd.cu, train_loop.cu) for CUDA tensors; it never falls back from
-one to the other. `launches` counts kernel launches. On MUTAG-shaped blocks
-every kernel's least time is set by the bytes it moves (the adjacency and the
-per-iteration rows); the designs and their limits are noted in the sources.
+eval_loop_bwd.cu, train_loop.cu, train_loop_bwd.cu) for CUDA tensors; it never
+falls back from one to the other. `launches` counts kernel launches. K8 takes
+the first of its shared-memory plans that fits a CTA (`_train_bwd_plan`). On
+MUTAG-shaped blocks every kernel's least time is set by the bytes it moves (the
+adjacency and the per-iteration rows); the designs and their limits are noted
+in the sources.
 """
 
 from __future__ import annotations
@@ -134,6 +136,69 @@ def supports_fused_train(state_spec) -> bool:
     return (state_spec.num_layers == 1
             and state_spec.activations[0] in FUSABLE_ACTIVATIONS
             and all(p == 0 for p in state_spec.dropout_pos))
+
+
+SMEM_BYTES = 232448          # shared memory a CTA may use (227 KB)
+
+# train_loop_bwd.cu's kTrainBwdPlans, K8's shared-memory plans in order of
+# preference: whether the dw partials are kept in shared memory. The first is
+# the flagship's; the last fits every shape the per-node K8 took.
+_TRAIN_BWD_PLANS = (1, 0)
+
+
+def _r4(n):
+    """n rounded up to a multiple of 4 (a 16-byte boundary, in floats)."""
+    return (n + 3) // 4 * 4
+
+
+def _train_bwd_bytes(W, D, dw):
+    """Shared memory of train_loop_bwd.cu::bwd_layout: x2 [2D][W], dh
+    [D][W + 4], dagg and a row buffer [W][D|1] each, w_cat transposed
+    [2D][D rounded up to 4]; with dw the partials [D][2D]; the row lists
+    [16][W]; then as bytes the keep bytes [2][D][W], W list counts and 16*W
+    destinations; each float region a multiple of 16 bytes. The widths may be
+    ints or numpy integer arrays."""
+    floats = (2 * D * W + D * (W + 4) + 2 * _r4(W * (D | 1)) + 2 * D * _r4(D)
+              + dw * _r4(2 * D * D) + 16 * W)
+    return 4 * floats + 2 * W * D + 17 * W
+
+
+def _first_plan(plans, nbytes, *dims):
+    """(shared-memory bytes, plan index) of the first of `plans` whose layout
+    (nbytes(*dims, plan)) fits a CTA, or the leanest plan's bytes and None."""
+    for i, plan in enumerate(plans):
+        need = int(nbytes(*dims, plan))
+        if need <= SMEM_BYTES:
+            return need, i
+    return need, None
+
+
+def _check_fits(need, plan, shape: str) -> None:
+    """Raise before any launch where no plan fits (plan None)."""
+    if plan is None:
+        raise ValueError(f"{shape} needs {need} bytes of shared memory a block, more than the "
+                         f"{SMEM_BYTES} a CTA may use")
+
+
+def _train_bwd_plan(W: int, D: int):
+    """(shared-memory bytes, plan index) K8 takes at this shape (_first_plan)."""
+    return _first_plan(_TRAIN_BWD_PLANS, _train_bwd_bytes, W, D)
+
+
+def _plan_info(entry: str, *dims) -> dict:
+    """What the card reports for the kernel the C entry `entry` launches at a
+    shape (W, D and the kernel's third and fourth widths, 0 where it has
+    none): its plan index, shared-memory bytes, resident CTAs an SM,
+    registers and local-memory bytes a thread (builds the library)."""
+    out = (ctypes.c_int * 5)()
+    dims = tuple(dims) + (0,) * (4 - len(dims))
+    _build.check(getattr(_build.library(), entry + "_info")(*dims, out), entry + "_info")
+    return dict(zip(("plan", "smem_bytes", "ctas_per_sm", "registers", "local_bytes"), out))
+
+
+def train_loop_bwd_info(W: int, D: int) -> dict:
+    """_plan_info of K8 (gnn_train_loop_bwd)."""
+    return _plan_info("gnn_train_loop_bwd", W, D)
 
 
 # the kernel each wrapper launches (C entry point gnn_<wrapper>)
@@ -259,10 +324,11 @@ def train_loop_ref(adjT, s0, ms, ma, fT, w_cat, nm, K: int, threshold: float,
 
 
 def train_loop_bwd_ref(adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj,
-                       activation: str = "tanh", alpha_drop: bool = True, rate: float = 0.0):
+                       activation: str = "tanh", alpha_drop: bool = True, rate: float = 0.0,
+                       act_grad=_act_grad):
     """Plain PyTorch K8: the K reverse iterations of K7 for the trajectory's
     cotangent g_traj. Returns (gs [B, W, D], dw [B, H, 2D] per block, dfT
-    [K, B, W, H])."""
+    [K, B, W, H]). act_grad (name, h) is the activation's derivative."""
     drop, dmask = _make_drop(alpha_drop, rate)
     B, _, D = s0.shape
     gs = torch.zeros_like(s0)
@@ -271,7 +337,7 @@ def train_loop_bwd_ref(adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj,
     for k in reversed(range(traj.shape[0])):
         s_in = traj[k - 1] if k else s0
         x2 = torch.cat([drop(s_in, _at(ms, k)), drop(agg[k], _at(ma, k))], dim=-1)
-        dh = (g_traj[k] + gs) * _act_grad(activation, F.linear(x2, w_cat) + fT[k])
+        dh = (g_traj[k] + gs) * act_grad(activation, F.linear(x2, w_cat) + fT[k])
         dfT[k] = dh
         dw = dw + torch.matmul(dh.transpose(1, 2), x2)
         dx2 = torch.matmul(dh, w_cat)
@@ -531,6 +597,7 @@ def train_loop_bwd(adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj, activation: s
     K = traj.shape[0]
     D, H = s0.shape[-1], w_cat.shape[0]
     _check_loop_width(D, H)
+    _check_fits(*_train_bwd_plan(W, D), f"W={W}, D={D}")
     _check_block(adjT, D, H)
     dev = adjT.device
     _check("adjT", adjT, (B, W, W), dev)

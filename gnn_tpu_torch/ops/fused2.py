@@ -56,21 +56,19 @@ these kernels' least time.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 import torch.nn.functional as F
 
-from gnn_tpu_torch.ops import _build
-from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, _act_grad, _affine,
-                                     _at, _check, _check_keep, _drop_args, _make_drop, _ptr,
+from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, SMEM_BYTES,
+                                     _act_grad, _affine, _at, _check, _check_keep, _drop_args,
+                                     _first_plan, _make_drop, _plan_info, _ptr, _r4,
                                      launch_counted, moved)
 
 # the largest hidden width H1 the kernels take (the weights sit in shared
 # memory; at W = 128, D = 14, AL = 3, H1 = 512 K9 needs 176 KB)
 MAX_HIDDEN = 512
-SMEM_BYTES = 232448          # shared memory a CTA may use (227 KB)
 
 # the kernel each wrapper launches (C entry point gnn_<wrapper>)
 _KERNEL = {"propagation_step2": "K9", "propagation_loop2": "K10",
@@ -284,11 +282,6 @@ _PLANS = {
 _KIND = {"K10": 0, "K12": 0, "K13": 1, "K15": 1, "K11": 2, "K14": 3}
 
 
-def _r4(n):
-    """n rounded up to a multiple of 4 (a 16-byte boundary, in floats)."""
-    return (n + 3) // 4 * 4
-
-
 def _tile2_bytes(kind: int, W, D, AL, H1, plan):
     """Shared memory of tile2.cuh::tile2_layout: x3 [C][W], y0 tiles, the
     weights w0T [C][S], w1 [D][S] (unless read from device memory), b0 [S],
@@ -322,11 +315,8 @@ def _tile2_plan(W: int, D: int, AL: int, H1: int, kernel: str):
     """(shared-memory bytes, plan index) of the tiled kernel K10, K11, K12,
     K13, K14 or K15 at this shape (AL: K14's and K15's F): the first plan that
     fits a CTA, or the leanest plan's bytes and None."""
-    for i, plan in enumerate(_PLANS[kernel]):
-        need = _tile2_bytes(_KIND[kernel], W, D, AL, H1, plan)
-        if need <= SMEM_BYTES:
-            return need, i
-    return need, None
+    return _first_plan(_PLANS[kernel], functools.partial(_tile2_bytes, _KIND[kernel]),
+                       W, D, AL, H1)
 
 
 # the C entries of the tiled kernels, by kernel
@@ -336,14 +326,9 @@ _TILED = {"K10": "gnn_propagation_loop2", "K11": "gnn_propagation_loop2_bwd",
 
 
 def tile_info(kernel: str, W: int, D: int, AL: int, H1: int) -> dict:
-    """What the card reports for the tiled kernel K10, K11, K12, K13, K14 or
-    K15 launches at this shape (AL: K14's and K15's F): its plan index, shared-memory bytes,
-    resident CTAs an SM, registers and local-memory bytes a thread (builds the
-    library)."""
-    out = (ctypes.c_int * 5)()
-    entry = _TILED[kernel] + "_info"
-    _build.check(getattr(_build.library(), entry)(W, D, AL, H1, out), entry)
-    return dict(zip(("plan", "smem_bytes", "ctas_per_sm", "registers", "local_bytes"), out))
+    """fused._plan_info of the tiled kernel K10, K11, K12, K13, K14 or K15
+    (AL: K14's and K15's F)."""
+    return _plan_info(_TILED[kernel], W, D, AL, H1)
 
 
 def _check_block2(adjT, D: int, AL: int, H1: int, need: int):

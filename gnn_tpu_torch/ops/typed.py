@@ -42,7 +42,6 @@ there when they fit, else read through the L1/L2 caches.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 from typing import Optional
 
@@ -55,10 +54,9 @@ from gnn_tpu_torch.ops.bn import (BNV_ROWS, BNLoopOperands, _agg_blocks, _bn_ds,
                                   _check_blocks, _ident_aff, _ones_col, _require_cuda, _res_term,
                                   _x3, augmented, block_keep, block_rows, bn_train_loop,
                                   input_rate, moving_stats)
-from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, _act_grad, _check,
-                                     _check_keep, _drop_args, _ptr, _stream, bn_inference_affine,
-                                     moved)
-from gnn_tpu_torch.ops.fused2 import SMEM_BYTES, _r4
+from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, SMEM_BYTES,
+                                     _act_grad, _check, _check_keep, _drop_args, _first_plan,
+                                     _plan_info, _ptr, _r4, _stream, bn_inference_affine, moved)
 
 MAX_TYPES = 32      # two bits of activation code per type in one 64-bit argument
 
@@ -213,20 +211,12 @@ def _bnT_bwd_plan(W: int, D: int, F: int, T: int):
     """(shared-memory bytes, plan index) K17 takes at this shape: the first
     plan of _BNT_BWD_PLANS that fits a CTA, or the leanest plan's bytes and
     None."""
-    for i, plan in enumerate(_BNT_BWD_PLANS):
-        need = int(_bnT_bwd_bytes(W, D, F, T, plan))
-        if need <= SMEM_BYTES:
-            return need, i
-    return need, None
+    return _first_plan(_BNT_BWD_PLANS, _bnT_bwd_bytes, W, D, F, T)
 
 
 def backward_info(W: int, D: int, F: int, T: int) -> dict:
-    """What the card reports for the K17 kernel launched at this shape: its
-    plan index, shared-memory bytes, resident CTAs an SM, registers and
-    local-memory bytes a thread (builds the library)."""
-    out = (ctypes.c_int * 5)()
-    _build.check(_build.library().gnn_bnT_backward_info(W, D, F, T, out), "gnn_bnT_backward_info")
-    return dict(zip(("plan", "smem_bytes", "ctas_per_sm", "registers", "local_bytes"), out))
+    """fused._plan_info of K17 (gnn_bnT_backward)."""
+    return _plan_info("gnn_bnT_backward", W, D, F, T)
 
 
 def _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations, backward):

@@ -207,7 +207,8 @@ def _per_node_k2_bytes(W, D, F):
     """Shared memory a CTA of the per-node K2 took, one thread a node: the
     resident adjacency [W][W + 1], x3 rows of odd stride, two row buffers
     [W][D | 1], w_aug [D][C], bnv [9][D], the node mask [W] and the keep bytes
-    (bn_train.cu's Layout, which K1 keeps); the widths may be numpy arrays."""
+    (bn_train.cu's Layout, shared with the per-node K1); the widths may be
+    numpy arrays."""
     C1 = 2 * D + F
     return 4 * (W * (W + 1) + W * (C1 | 1) + 2 * W * (D | 1) + D * (C1 + 1) + 9 * D + W
                 + (W * C1 + 3) // 4)

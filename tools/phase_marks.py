@@ -8,14 +8,14 @@ since the previous mark to its own slot, so a barrier inside a loop sums over th
 iterations, and barriers inside called helpers fall into the enclosing segment.
 The copy and the unmarked source of every tree are built alone with the port's nvcc
 flags, all at once, and the kernel's wrapper runs each on chip_smoke.py's full-set
-operands (K2 at the flagship's BatchNorm route, K12 at the h150 training route, K14 at
-the h150_bn route, K17 at the composite_bn route). Printed: the instrumented and the
-unmarked launch's times (the marks' cost), then each segment's share of the cycles
-summed over the CTAs and its cycles a CTA, named by the source lines of the barriers
-that end it.
+operands (K1 and K2 at the flagship's BatchNorm route, K8 at its dropout route, K12
+at the h150 training route, K14 at the h150_bn route, K17 at the composite_bn route).
+Printed: the instrumented and the unmarked launch's times (the marks' cost), then
+each segment's share of the cycles summed over the CTAs and its cycles a CTA, named
+by the source lines of the barriers that end it.
 
 Usage, from the repository root (a tree defaults to gnn_tpu_torch/ops/csrc):
-    python3 tools/phase_marks.py K2|K12|K14|K17 [name=tree ...]
+    python3 tools/phase_marks.py K1|K2|K8|K12|K14|K17 [name=tree ...]
 """
 
 import ctypes
@@ -29,7 +29,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # kernel: its C entry and the __global__ functions that may implement it
-KERNELS = {"K2": ("gnn_bn_backward", ("bn_bwd_kernel",)),
+KERNELS = {"K1": ("gnn_bn_forward", ("bn_fwd_kernel",)),
+           "K2": ("gnn_bn_backward", ("bn_bwd_kernel",)),
+           "K8": ("gnn_train_loop_bwd", ("train_bwd_kernel", "train_loop_bwd_kernel")),
            "K12": ("gnn_train_loop2", ("train_loop2_kernel", "loop2_tile_kernel")),
            "K14": ("gnn_bn2_forward", ("bn2_fwd_tile_kernel", "bn2_fwd_kernel")),
            "K17": ("gnn_bnT_backward", ("bnT_bwd_kernel",))}
@@ -94,7 +96,7 @@ def main():
     import torch
     from gnn_tpu_torch import Predictor
     from gnn_tpu_torch.graphs.datasets import mutag_shaped
-    from gnn_tpu_torch.ops import _build, bn, fused2, typed
+    from gnn_tpu_torch.ops import _build, bn, fused, fused2, typed
     kernel = sys.argv[1]
     entry, names = KERNELS[kernel]
     trees = dict(a.split("=", 1) for a in sys.argv[2:]) or {"tree": str(_build.CSRC)}
@@ -104,9 +106,15 @@ def main():
     model = cs.flagship(torch, "cuda")
     gb_train = model.to_batch(graphs)
     with torch.no_grad():
-        if kernel == "K2":
+        if kernel == "K1":
+            (_, x), kw, _, _ = cs.train_kernel_inputs(torch, model, gb_train)
+            fn, x, rows = bn.bn_forward_step, dict(x, **kw), x["y1"].shape[0]
+        elif kernel == "K2":
             _, _, x, kw = cs.train_kernel_inputs(torch, model, gb_train)
             fn, x, rows = bn.bn_backward_step, dict(x, **kw), x["y_prev"].shape[0]
+        elif kernel == "K8":
+            x = cs.bnfree_kernel_inputs(torch, gb_train)[3]
+            fn, rows = fused.train_loop_bwd, x["adjT"].shape[0]
         elif kernel == "K14":
             _, x, kw, _ = cs.two_layer_train_kernel_inputs(torch, gb_train)
             fn, x, rows = bn.bn2_forward_step, dict(x, **kw), x["y1"].shape[0]

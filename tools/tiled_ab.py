@@ -2,7 +2,8 @@
 """Time the redesigned kernels of two or more kernel source trees against each
 other on one CUDA card: K10 and K12 (the two-layer forward loops), the
 register-tiled reverse kernels K13, K11 and K15, the BatchNorm step K1 and its
-reverse K2, the two-layer BatchNorm step K14 and the typed reverse K17.
+reverse K2, the dropout loop's reverse K8, the two-layer BatchNorm step K14
+and the typed reverse K17.
 
 Each tree's source that holds a kernel's C entry (a kernel may move between
 files: K12 lies in fused2.cu in older trees, in loop2.cu in newer ones) is
@@ -11,19 +12,21 @@ under build/tiled_ab/; a tree without the entry is skipped for that kernel. On
 chip_smoke.py's full-set operands (the MUTAG-shaped set: K10 at the h150
 serving path's shapes, K12 and K13 at the h150 training route's, K11 at
 h150_clean's, K14 and K15 at h150_bn's, K1 and K2 at the flagship's BatchNorm
-route's, K17 at composite_bn's) every tree's outputs are held to the first
-tree's, bit for bit for K13, K10, K1, K14 and K17 (the same sums in every tree),
-reported for the others, and each tree's largest per-node difference from the plain
-version is printed; then each kernel is timed with CUDA events as
-chip_smoke.py times it, the trees in turn and back (a, b, b, a), and, for
-K11, K15, K12, K2, K14 and K17, at each plan of the current plan lists
-(ops/fused2.py::_PLANS, ops/bn.py::_BN_BWD_PLANS,
+route's, K8 at the flagship's dropout route's, K17 at composite_bn's) every
+tree's outputs are held to the first tree's, bit for bit for K13, K10, K1, K8,
+K14 and K17 (the same sums in every tree), reported for the others, and each
+tree's largest per-node difference from the plain version is printed; then
+each kernel is timed with CUDA events as chip_smoke.py times it, the trees in
+turn and back (a, b, b, a), and, for K11, K15, K12, K1, K2, K8, K14 and K17,
+at each plan of the current plan lists (ops/fused2.py::_PLANS,
+ops/bn.py::_BN_FWD_PLANS and _BN_BWD_PLANS, ops/fused.py::_TRAIN_BWD_PLANS,
 ops/typed.py::_BNT_BWD_PLANS) through the tree's gnn_*_force_plan entry,
-where it has one and the plan fits.
+where it has one and the plan fits. `only=K1,K8` limits the run (builds,
+operands, checks and times) to those kernels.
 ptxas's report of each build goes to build/tiled_ab/ptxas.log.
 
 Usage, from the repository root, with a parent checkout unpacked under build/:
-    python3 tools/tiled_ab.py parent=build/parent/gnn_tpu_torch/ops/csrc \\
+    python3 tools/tiled_ab.py [only=K1,K8] parent=build/parent/gnn_tpu_torch/ops/csrc \\
         new=gnn_tpu_torch/ops/csrc
 """
 
@@ -41,8 +44,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNELS = {"K10": ("gnn_propagation_loop2", True), "K12": ("gnn_train_loop2", False),
            "K13": ("gnn_train_loop2_bwd", True), "K11": ("gnn_propagation_loop2_bwd", False),
            "K15": ("gnn_bn2_backward", False), "K1": ("gnn_bn_forward", True),
-           "K2": ("gnn_bn_backward", False), "K14": ("gnn_bn2_forward", True),
-           "K17": ("gnn_bnT_backward", True)}
+           "K2": ("gnn_bn_backward", False), "K8": ("gnn_train_loop_bwd", True),
+           "K14": ("gnn_bn2_forward", True), "K17": ("gnn_bnT_backward", True)}
 
 
 def source_of(tree, entry):
@@ -62,16 +65,19 @@ def main():
     import torch
     from gnn_tpu_torch import Predictor
     from gnn_tpu_torch.graphs.datasets import mutag_shaped
-    from gnn_tpu_torch.ops import _build, bn, fused2, typed
+    from gnn_tpu_torch.ops import _build, bn, fused, fused2, typed
     cs.phase_device(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
-    trees = dict(a.split("=", 1) for a in sys.argv[1:])
+    args = dict(a.split("=", 1) for a in sys.argv[1:])
+    only = args.pop("only", ",".join(KERNELS)).split(",")
+    kernels = {k: v for k, v in KERNELS.items() if k in only}
+    trees = args
     if len(trees) < 2:
         cs.fail("name two or more source trees as name=path")
     out_dir = os.path.join(ROOT, "build", "tiled_ab")
     os.makedirs(out_dir, exist_ok=True)
     srcs = {(t, k): source_of(path, entry) for t, path in trees.items()
-            for k, (entry, _) in KERNELS.items()}
+            for k, (entry, _) in kernels.items()}
     jobs = sorted({(t, src) for (t, _), src in srcs.items() if src is not None})
     so_of = {job: os.path.join(out_dir, f"lib_{job[0]}_{os.path.basename(job[1])[:-3]}.so")
              for job in jobs}
@@ -106,47 +112,75 @@ def main():
     model = cs.flagship(torch, "cuda")
     gb = Predictor(model).build_batch(graphs).to("cuda")
     gb_train = model.to_batch(graphs)
+    cache = {}
+
+    def once(key, build):
+        if key not in cache:
+            cache[key] = build()
+        return cache[key]
+
+    def two():
+        return once("two", lambda: cs.two_layer_kernel_inputs(torch, gb, gb_train))
+
+    def two_train():
+        return once("two_train", lambda: cs.two_layer_train_kernel_inputs(torch, gb_train))
+
+    def bn_train():
+        return once("bn", lambda: cs.train_kernel_inputs(torch, model, gb_train))
+
+    def k8():
+        return once("k8", lambda: cs.bnfree_kernel_inputs(torch, gb_train)[3])
+
+    def k17():
+        def build():
+            comp = cs.composite_model(torch, "cuda")
+            typed_gs = cs.typed_graphs(graphs)
+            _, _, x17, kw17, _ = cs.typed_kernel_inputs(
+                torch, comp, comp.to_batch(typed_gs),
+                Predictor(comp).build_batch(typed_gs).to("cuda"))
+            return dict(x17, **kw17), comp.spec.n_types
+        return once("k17", build)
+
+    # kernel: (module, wrapper, operands, plan list or None, the plan bytes' widths)
+    setups = {
+        "K10": lambda: (fused2, "propagation_loop2", two()[1], None, None),
+        "K12": lambda: (fused2, "train_loop2", two()[2], fused2._PLANS["K12"],
+                        dims2(two()[2], "s0", "fd", "w0")),
+        "K13": lambda: (fused2, "train_loop2_bwd", two()[3], None, None),
+        "K11": lambda: (fused2, "propagation_loop2_bwd", two_train()[0], fused2._PLANS["K11"],
+                        dims2(two_train()[0], "s0", "feats", "w0")),
+        "K15": lambda: (bn, "bn2_backward_step", two_train()[3], fused2._PLANS["K15"],
+                        dims2(two_train()[3], "y_prev", "feats", "w0_aug")),
+        "K14": lambda: (bn, "bn2_forward_step", dict(two_train()[1], **two_train()[2]),
+                        fused2._PLANS["K14"], dims2(two_train()[1], "y1", "feats", "w0_aug")),
+        "K1": lambda: (bn, "bn_forward_step", dict(bn_train()[0][1], **bn_train()[1]),
+                       bn._BN_FWD_PLANS, dims2(bn_train()[0][1], "y1", "feats")),
+        "K2": lambda: (bn, "bn_backward_step", dict(bn_train()[2], **bn_train()[3]),
+                       bn._BN_BWD_PLANS, dims2(bn_train()[2], "y_prev", "feats")),
+        "K8": lambda: (fused, "train_loop_bwd", k8(), fused._TRAIN_BWD_PLANS, dims2(k8(), "s0")),
+        "K17": lambda: (typed, "bnT_backward_step", k17()[0], typed._BNT_BWD_PLANS,
+                        dims2(k17()[0], "y_prev", "feats") + (k17()[1],)),
+    }
+    nbytes = {"K1": bn._bn_fwd_bytes, "K2": bn._bn_bwd_bytes, "K8": fused._train_bwd_bytes,
+              "K17": typed._bnT_bwd_bytes}
+
+    def dims2(x, rows, f=None, w0=None):
+        """(W, D[, F or AL[, H1]]) of a kernel's operands."""
+        adj = next(x[a] for a in ("adjT", "adj_loop", "adj_dep") if x.get(a) is not None)
+        out = (adj.shape[1], x[rows].shape[-1])
+        out += () if f is None else (x[f].shape[-1],)
+        return out + (() if w0 is None else (x[w0].shape[0],))
+
+    def fits(k, plan, dims):
+        if k in nbytes:
+            return nbytes[k](*dims, plan) <= fused2.SMEM_BYTES
+        return fused2._tile2_bytes(fused2._KIND[k], *dims, plan) <= fused2.SMEM_BYTES
+
     with torch.no_grad():
-        _, k10, k12, k13 = cs.two_layer_kernel_inputs(torch, gb, gb_train)
-        k11, x14, kw14, x15 = cs.two_layer_train_kernel_inputs(torch, gb_train)
-        comp = cs.composite_model(torch, "cuda")
-        typed_gs = cs.typed_graphs(graphs)
-        _, _, x17, kw17, _ = cs.typed_kernel_inputs(
-            torch, comp, comp.to_batch(typed_gs), Predictor(comp).build_batch(typed_gs).to("cuda"))
-        (_, x1), kw1, x2, kw2 = cs.train_kernel_inputs(torch, model, gb_train)
-        runs = {"K10": (fused2, "propagation_loop2", k10), "K12": (fused2, "train_loop2", k12),
-                "K13": (fused2, "train_loop2_bwd", k13),
-                "K11": (fused2, "propagation_loop2_bwd", k11),
-                "K15": (bn, "bn2_backward_step", x15),
-                "K1": (bn, "bn_forward_step", dict(x1, **kw1)),
-                "K2": (bn, "bn_backward_step", dict(x2, **kw2)),
-                "K14": (bn, "bn2_forward_step", dict(x14, **kw14)),
-                "K17": (typed, "bnT_backward_step", dict(x17, **kw17))}
-        plan_lists = {"K11": fused2._PLANS["K11"], "K15": fused2._PLANS["K15"],
-                      "K12": fused2._PLANS["K12"], "K2": bn._BN_BWD_PLANS,
-                      "K14": fused2._PLANS["K14"], "K17": typed._BNT_BWD_PLANS}
-        dims = {"K11": (k11["adjT"].shape[1], k11["s0"].shape[-1], k11["feats"].shape[-1],
-                        k11["w0"].shape[0]),
-                "K15": (x15["adj_loop"].shape[1], x15["y_prev"].shape[-1],
-                        x15["feats"].shape[-1], x15["w0_aug"].shape[0]),
-                "K12": (k12["adjT"].shape[1], k12["s0"].shape[-1], k12["fd"].shape[-1],
-                        k12["w0"].shape[0]),
-                "K2": (x2["adj_loop"].shape[1], x2["y_prev"].shape[-1], x2["feats"].shape[-1]),
-                "K14": (x14["adj_loop"].shape[1], x14["y1"].shape[-1], x14["feats"].shape[-1],
-                        x14["w0_aug"].shape[0]),
-                "K17": (x17["adj_loop"].shape[1], x17["y_prev"].shape[-1],
-                        x17["feats"].shape[-1], comp.spec.n_types)}
-
-        def fits(k, plan):
-            if k == "K2":
-                return bn._bn_bwd_bytes(*dims[k], plan) <= fused2.SMEM_BYTES
-            if k == "K17":
-                return typed._bnT_bwd_bytes(*dims[k], plan) <= fused2.SMEM_BYTES
-            return fused2._tile2_bytes(fused2._KIND[k], *dims[k], plan) <= fused2.SMEM_BYTES
-
         failed = []
         try:
-            for k, (mod, name, x) in runs.items():
+            for k in kernels:
+                mod, name, x, plan_list, dims = setups[k]()
                 fn = getattr(mod, name)
                 names = [t for t in trees if (t, k) in libs]
                 outs = {}
@@ -165,16 +199,16 @@ def main():
                     cs.say(f"{k}: {t} bit-identical to {names[0]}: {not diff}"
                            + "".join(f"; output {i}: {n} entries differ, by up to {d:.3e}"
                                      for i, n, d in diff))
-                    if KERNELS[k][1] and diff:   # one design in every tree: the same sums
+                    if kernels[k][1] and diff:   # one design in every tree: the same sums
                         failed.append(f"{k}: {t} differs from {names[0]}")
-                plans = [None] + list(range(len(plan_lists.get(k, ()))))
+                plans = [None] + list(range(len(plan_list or ())))
                 for plan in plans:
-                    if plan is not None and not fits(k, plan_lists[k][plan]):
+                    if plan is not None and not fits(k, plan_list[plan], dims):
                         continue
                     times = []
                     for t in names + names[::-1]:
                         lib = libs[t, k]
-                        force = getattr(lib, KERNELS[k][0] + "_force_plan", None)
+                        force = getattr(lib, kernels[k][0] + "_force_plan", None)
                         if plan is not None and force is None:
                             continue
                         _build._lib = One(lib)
