@@ -9,7 +9,12 @@
    the shapes the serving path gives them on the full MUTAG-shaped set and
    at ragged small shapes, holds each against its plain PyTorch version on
    the same CUDA tensors (states within 1e-5, movement flags equal) and
-   times both with CUDA events.
+   times both with CUDA events. K3's shared-memory plans and occupancy are
+   printed, and each of its plans that fits the full set is forced and timed
+   (bit-identical to the default plan); K3 also runs at the edges of its
+   design (W 32 with D = 1, D = 64, W 96, a dense block, a destination of 40
+   arcs, K = 1), each plan forced there too, a repeat launch bit-identical,
+   its plan equal to ops/fused.py::_loop_plan's.
 4. Serving path: serves the flagship graph-focus GNN (MUTAG widths 14/3/2,
    selu state net with BatchNorm, softmax readout, K=5, threshold 0.01,
    seeded random weights) through Predictor: warmup, then 8 requests. K3 and
@@ -45,21 +50,24 @@
    at its training shapes, and all four and K11 (propagation_loop2_bwd, with
    the affine) at ragged shapes (W 32/96/128, D 5/14/64, arc-label widths
    3/5/20, H1 16/37/150 and the wrappers' cap 512), against their plain
-   versions as in phase 5, and times them. The register-tiled K10, K11, K12,
-   K13, K14 and K15 (ops/csrc/tile2.cuh) also run at the edges of their tiling
+   versions as in phase 5, and times them. The register-tiled K9, K10, K11,
+   K12, K13, K14 and K15 (ops/csrc/tile2.cuh) also run at the edges of their tiling
    (H1 1/7/33/512, W 32 with D = AL = 1, D = AL = 64, a dense adjacency block,
    and the leanest shared-memory plans, one of them at a shape only those
-   fit; K14 and K15 with a dep row, K14 at W 96 without loop rows), and K2 at
-   the same widths (D, F = AL) with a dep row and a row of 40 arcs; K10, K12
-   and K13 must repeat bit for bit on the full set, K12 and K14 at every
-   edge, and the reverse kernels (check_bwd2: K2, K11, K13, K15, K17)
+   fit; K14 and K15 with a dep row, K14 at W 96 without loop rows; K9 with
+   and without its residual term, once with a destination of 40 arcs), and
+   K2 at the same widths (D, F = AL) with a dep row and a row of 40 arcs;
+   K9, K10, K12 and K13 must repeat bit for bit on the full set, K9 with
+   every plan forced bit-identical at the full set and every edge, K12 and
+   K14 at every edge, and the reverse kernels (check_bwd2: K2, K11, K13, K15, K17)
    wherever they run; at every such case the shared-memory plan the library
    takes must equal the Python mirror's (ops/fused2.py::_tile2_plan,
-   ops/bn.py::_bn_plan), and the cases must reach every plan of the seven
+   ops/bn.py::_bn_plan), and the cases must reach every plan of the eight
    lists; at the full set the resident CTAs an SM, registers and local bytes
-   a thread are printed, and each plan of K12 that fits is forced and timed
-   (the build's ptxas report goes to chiprun_out/nvcc.log; the registers and
-   spills of K10, K12, K1, K2, K8, K14 and K17 are printed after the build). The
+   a thread are printed, and each plan of K9 and K12 that fits is forced and
+   timed (the build's ptxas report goes to chiprun_out/nvcc.log; the registers
+   and spills of K3, K9, K10, K12, K1, K2, K8, K14 and K17 are printed after
+   the build). The
    reverse kernels K2, K11, K13 and K15 differentiate selu: a hidden
    pre-activation within rounding of 0 lets
    the kernel and the plain version take different, equally valid
@@ -162,7 +170,8 @@
    step over every block row) and one composite_bn step (K16/K17) on the
    whole set, counted and held to the CPU as phase 12 holds its paths; K4,
    K9 and K6 against their plain versions and timed at these shapes beside
-   their dep-row times.
+   their dep-row times, K9 with each of its plans forced and timed
+   (bit-identical).
 
 Prints a JSON line of per-kernel numbers (K1-K18), then as its
 last line {"ok": true, "device": {...}}. Any failed check exits non-zero
@@ -233,11 +242,14 @@ def phase_build():
 
 
 # the kernels whose registers and spills the build's report is read for, by
-# their mangled names: K10 and K12 (loop2.cu, MAXF, TRAIN), K1 (bn_fwd.cu,
+# their mangled names: K3 (eval_loop.cu, threads), K9 (fused2.cu, MAXF), K10
+# and K12 (loop2.cu, MAXF, TRAIN), K1 (bn_fwd.cu,
 # MAXF, threads, keep bytes staged), K2 (bn_train.cu, MAXF, threads, rows
 # staged), K8 (train_loop_bwd.cu, one kernel), K14 (bn2_fwd.cu,
 # MAXF), K17 (bn_typed.cu, MAXF, threads, rows staged)
-PTXAS_KERNELS = ((r"loop2_tile_kernelILi(\d+)ELb0E", "K10 MAXF={}"),
+PTXAS_KERNELS = ((r"11loop_kernelILi(\d+)E", "K3 threads={}"),
+                 (r"step2_tile_kernelILi(\d+)E", "K9 MAXF={}"),
+                 (r"loop2_tile_kernelILi(\d+)ELb0E", "K10 MAXF={}"),
                  (r"loop2_tile_kernelILi(\d+)ELb1E", "K12 MAXF={}"),
                  (r"bn_fwd_kernelILi(\d+)ELi(\d+)ELb(\d)E", "K1 MAXF={} threads={} staged={}"),
                  (r"16train_bwd_kernelEPKf", "K8"),
@@ -361,13 +373,39 @@ def phase_kernels(torch, model, gb):
     dev = gb.device
 
     err3 = check_loop(torch, fused, loop, K, thr, act, "full set")
-    # ragged shapes, one per register width the kernels are built for (16, 32, 64)
+    # K3's plan and occupancy, and each of its plans that fits forced and timed
+    x3 = dict(loop, K=K, threshold=thr, activation=act)
+    dims3 = (loop["adjT"].shape[1], loop["s0"].shape[-1], 0, 0)
+    plans3 = time_plans(torch, "K3", fused.propagation_loop, x3, dims3,
+                        check_tiled(torch, "K3", fused.propagation_loop, x3, dims3))
+    # ragged shapes, one per register width K4 is built for (16, 32, 64)
     for B, W, D, act_r in ((13, 96, 5, "tanh"), (7, 128, 24, "selu"), (4, 64, 48, "relu")):
         small = random_inputs(torch, gen, B, W, D, D, dev, res=False)
         nm = (torch.rand(B, W, generator=gen) < 0.8).float().to(dev)
         check_loop(torch, fused, dict(adjT=small["adjT"], s0=small["s"], fT=small["fT"],
                                       w2=small["w2"], affine=small["affine"], nm=nm),
                    3, 0.05, act_r, "ragged")
+    # K3 at the edges of its design: W 32 with D 1, D 64, W 96, a dense block,
+    # a destination of 40 arcs (its column read from device memory), K 1;
+    # against its plain version, a repeat launch and every plan forced
+    # bit-identical, the plan the library takes held to the mirror's
+    for B, W, D, Kr, act_r, edge in ((4, 32, 1, 3, "tanh", "W 32, D 1"),
+                                     (2, 128, 64, 2, "selu", "D 64"),
+                                     (3, 96, 14, 4, "relu", "W 96"),
+                                     (3, 128, 14, 3, "selu", "a dense block"),
+                                     (3, 128, 14, 3, "tanh", "a destination of 40 arcs"),
+                                     (3, 128, 14, 1, "selu", "K 1")):
+        small = random_inputs(torch, gen, B, W, D, D, dev, res=False)
+        adjT = (random_adj(torch, gen, B, W, dev, dense=True) if edge == "a dense block"
+                else small["adjT"])
+        if edge == "a destination of 40 arcs":
+            adjT[:, :40, 5] = 0.05
+        nm = (torch.rand(B, W, generator=gen) < 0.8).float().to(dev)
+        x = dict(adjT=adjT, s0=small["s"], fT=small["fT"], w2=small["w2"],
+                 affine=small["affine"], nm=nm)
+        check_loop(torch, fused, x, Kr, 0.05, act_r, f"tiling edge ({edge})")
+        check_plans(torch, "K3", fused.propagation_loop,
+                    dict(x, K=Kr, threshold=0.05, activation=act_r), (W, D, 0, 0), edge)
     err4 = check_step(torch, fused, step, act, "full set")
     for B, W, D, H, act_r, res in ((5, 64, 6, 9, "relu", True), (3, 32, 3, 3, "linear", False),
                                    (6, 128, 24, 24, "selu", True), (4, 96, 48, 40, "tanh", True),
@@ -397,7 +435,7 @@ def phase_kernels(torch, model, gb):
     b4, by4 = bound(bytes4, flops4)
     out = {
         "K3": dict(name="K3 propagation_loop", route="cuda",
-                   source="gnn_tpu_torch/ops/csrc/fused_eval.cu",
+                   source="gnn_tpu_torch/ops/csrc/eval_loop.cu",
                    replaces="gnn_tpu/ops/pallas_fused.py:236", max_abs_err=err3,
                    ms=timed_ms(torch, run3(fused.propagation_loop)),
                    plain_ms=timed_ms(torch, run3(fused.propagation_loop_ref)),
@@ -412,7 +450,7 @@ def phase_kernels(torch, model, gb):
     for k, v in out.items():
         say(f"{k} timing at {('adjT ' + str(tuple((loop if k == 'K3' else step)['adjT'].shape)))}: "
             f"kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
-            f"({v['bound_by']})")
+            f"({v['bound_by']})" + (f"; each plan forced: {plans3}" if k == "K3" else ""))
     return out
 
 
@@ -1373,10 +1411,11 @@ def phase_two_layer_train_kernels(torch, gb):
 
 
 # the kernels with shared-memory plans: the register-tiled ones
-# (ops/csrc/tile2.cuh; K14 in bn2_fwd.cu), K1 (bn_fwd.cu), K2 (bn_train.cu),
-# K8 (train_loop_bwd.cu) and K17 (bn_typed.cu); a shape is (W, D, AL or F,
-# H1), K17's (W, D, F, T), K1's and K2's H1 and K8's AL and H1 unused
-TILED = ("K10", "K11", "K12", "K13", "K14", "K15", "K1", "K2", "K8", "K17")
+# (ops/csrc/tile2.cuh; K9 in fused2.cu, K14 in bn2_fwd.cu), K1 (bn_fwd.cu),
+# K2 (bn_train.cu), K3 (eval_loop.cu), K8 (train_loop_bwd.cu) and K17
+# (bn_typed.cu); a shape is (W, D, AL or F, H1), K17's (W, D, F, T), K1's and
+# K2's H1 and K3's and K8's AL and H1 unused
+TILED = ("K9", "K10", "K11", "K12", "K13", "K14", "K15", "K1", "K2", "K3", "K8", "K17")
 
 
 def plan_kernel(k):
@@ -1391,6 +1430,8 @@ def plan_kernel(k):
                    "gnn_bn_forward"),
             "K2": (bn._BN_BWD_PLANS, lambda W, D, F, H1, p: bn._bn_bwd_bytes(W, D, F, p),
                    "gnn_bn_backward"),
+            "K3": (fused._LOOP_PLANS, lambda W, D, AL, H1, p: fused._loop_bytes(W, D, p),
+                   "gnn_propagation_loop"),
             "K8": (fused._TRAIN_BWD_PLANS, lambda W, D, AL, H1, p: fused._train_bwd_bytes(W, D, p),
                    "gnn_train_loop_bwd"),
             "K17": (typed._BNT_BWD_PLANS, typed._bnT_bwd_bytes, "gnn_bnT_backward")}[k]
@@ -1421,7 +1462,7 @@ def plan_info(k, W, D, AL, H1):
 def tiled_plan(k, W, D, AL, H1):
     """The shared-memory plan the library takes for kernel k at this shape,
     held equal to the Python mirror's (ops/fused2.py::_tile2_plan,
-    ops/bn.py::_bn_plan, ops/fused.py::_train_bwd_plan,
+    ops/bn.py::_bn_plan, ops/fused.py::_loop_plan and _train_bwd_plan,
     ops/typed.py::_bnT_bwd_plan), and what the card reports for it."""
     info = plan_info(k, W, D, AL, H1)
     need, plan = mirrored_plan(k, W, D, AL, H1)
@@ -1433,7 +1474,7 @@ def tiled_plan(k, W, D, AL, H1):
 
 def describe_k(k, info):
     """Kernel k's plan and occupancy as the card reports them (info)."""
-    threads = plans_of(k)[info["plan"]][0] if k in ("K1", "K2", "K17") else 256
+    threads = plans_of(k)[info["plan"]][0] if k in ("K1", "K2", "K3", "K17") else 256
     return (f"plan {info['plan']}, {info['smem_bytes']} bytes of shared memory a CTA, "
             f"{info['ctas_per_sm']} CTAs ({info['ctas_per_sm'] * threads // 32} warps) an SM, "
             f"{info['registers']} registers and {info['local_bytes']} local bytes a thread")
@@ -1460,6 +1501,36 @@ def check_tiled(torch, k, kernel, x, dims):
     return first
 
 
+def check_plans(torch, k, kernel, x, dims, label):
+    """Kernel k (K3, K9) at a shape: a second launch and each plan that fits,
+    forced in turn, bit-identical to the first launch; the plan the library
+    takes held to the mirror's."""
+    from gnn_tpu_torch.ops import fused2
+    info = tiled_plan(k, *dims)
+    first = kernel(**x)
+    runs = {"a second launch": kernel(**x)}
+    force = force_entry(k)
+    try:
+        for i, plan in enumerate(plans_of(k)):
+            if plan_bytes(k, plan, *dims) <= fused2.SMEM_BYTES:
+                force(i)
+                runs[f"plan {i} forced"] = kernel(**x)
+    finally:
+        force(-1)
+    torch.cuda.synchronize()
+    for what, got in runs.items():
+        if not all(a is None or bool(torch.equal(a, b)) for a, b in zip(got, first)):
+            fail(f"{k} {label}: {what} is not bit-identical to the first launch (plan "
+                 f"{info['plan']})")
+    say(f"{k} {label}: {', '.join(runs)} bit-identical to the first launch (plan {info['plan']})")
+
+
+def step2_out(**x):
+    """K9's wrapper with its one output as a tuple, as the plan checks take it."""
+    from gnn_tpu_torch.ops import fused2
+    return (fused2.propagation_step2(**x),)
+
+
 def force_entry(k):
     """Kernel k's gnn_*_force_plan entry."""
     from gnn_tpu_torch.ops import _build
@@ -1467,10 +1538,10 @@ def force_entry(k):
 
 
 def time_plans(torch, k, kernel, x, dims, first):
-    """Every plan of K11, K12, K14, K15, K1, K2, K8 or K17 that fits the full-set
-    shape, forced in turn (its outputs bit-identical to the default plan's
-    `first`), timed as the kernels' rows are; the plan list is ordered by
-    these times."""
+    """Every plan of K3, K9, K11, K12, K14, K15, K1, K2, K8 or K17 that fits
+    the full-set shape, forced in turn (its outputs bit-identical to the
+    default plan's `first`), timed as the kernels' rows are; the plan list is
+    ordered by these times."""
     from gnn_tpu_torch.ops import fused2
     force = force_entry(k)
     times = {}
@@ -1503,19 +1574,26 @@ def phase_two_layer_kernels(torch, gb, gb_train):
     k9, k10, k12, k13 = two_layer_kernel_inputs(torch, gb, gb_train)
     errs = check_two_layer(torch, k9, k10, k12, k13, "full set")
     plans_ms = {}
-    for k, name, x, f in (("K10", "propagation_loop2", k10, "feats"),
-                          ("K12", "train_loop2", k12, "fd"),
-                          ("K13", "train_loop2_bwd", k13, "fd")):
+    for k, kernel, x, f in (("K9", step2_out, k9, "feats"),
+                            ("K10", fused2.propagation_loop2, k10, "feats"),
+                            ("K12", fused2.train_loop2, k12, "fd"),
+                            ("K13", fused2.train_loop2_bwd, k13, "fd")):
         dims = (x["adjT"].shape[1], x["w1"].shape[0], x[f].shape[-1], x["w0"].shape[0])
-        first = check_tiled(torch, k, getattr(fused2, name), x, dims)
-        if k == "K12":
-            plans_ms[k] = time_plans(torch, k, fused2.train_loop2, x, dims, first)
+        first = check_tiled(torch, k, kernel, x, dims)
+        if k in ("K9", "K12"):
+            plans_ms[k] = time_plans(torch, k, kernel, x, dims, first)
+        if k == "K9":   # and without the residual term
+            x9 = dict(x, rT=None)
+            got, want = against_plain(torch, fused2, "propagation_step2", x9)
+            check_plain(torch, f"K9 full set (Bd={x['adjT'].shape[0]}, H1={x['w0'].shape[0]}, "
+                        "res=False)", (got,), (want,), ("out",))
+            check_plans(torch, "K9", step2_out, x9, dims, "full set, res=False")
     # the plans the cases take (K11, K14, K15 and K2 take plan 0 at the full
-    # set, phases 5 and 8; K1's cases are phase 5's, K8's phase 6's, K17's
-    # phase 10's)
-    two = [k for k in TILED if k not in ("K1", "K8", "K17")]
+    # set, phases 5 and 8; K1's and K3's cases are phase 5's and 3's, K8's
+    # phase 6's, K17's phase 10's)
+    two = [k for k in TILED if k not in ("K1", "K3", "K8", "K17")]
     reached = {k: set() for k in two}
-    reached.update(K10={0}, K12={0}, K13={0})
+    reached.update(K9={0}, K10={0}, K12={0}, K13={0})
 
     def reach(W, D, AL, H1, kernels=two):
         for k in kernels:
@@ -1549,7 +1627,7 @@ def phase_two_layer_kernels(torch, gb, gb_train):
             (3, 128, 14, 3, 150, 3, ("selu", "selu"), 0.1, True, True),
             (2, 128, 64, 33, 150, 2, ("selu", "tanh"), 0.0, True, False),
             (2, 32, 15, 59, 511, 2, ("tanh", "selu"), 0.1, False, False)):
-        _, k10r, k12r, k13r, k11r = random_two_layer_inputs(
+        k9r, k10r, k12r, k13r, k11r = random_two_layer_inputs(
             torch, gen, B, W, D, AL, H1, K, acts, rate, alpha, gb.device, dense=dense)
         k14r, k15r = random_bn_inputs(torch, gen, B + 1, B, W, D, AL, rate, True, gb.device,
                                       H1=H1, dense=dense)
@@ -1561,6 +1639,14 @@ def phase_two_layer_kernels(torch, gb, gb_train):
                         adj_dep=torch.cat([k14r["adj_loop"], k14r["adj_dep"]]).contiguous())
         check_bn_forward(torch, bn, k14r, kw14, label)
         check_repeat(torch, "K14", bn.bn2_forward_step, dict(k14r, **kw14), label)
+        if H1 == 7:     # K9 with a destination of 40 arcs: read from device memory
+            k9r = dict(k9r, adjT=k9r["adjT"].clone())
+            k9r["adjT"][:, :40, 5] = 0.05
+        for x9 in (k9r, dict(k9r, rT=None)):
+            got, want = against_plain(torch, fused2, "propagation_step2", x9)
+            what = f"{label}, res={x9['rT'] is not None}"
+            check_plain(torch, f"K9 {what}", (got,), (want,), ("out",))
+            check_plans(torch, "K9", step2_out, x9, (W, D, AL, H1), what)
         check_plain(torch, f"K10 {label}", *against_plain(torch, fused2, "propagation_loop2", k10r),
                     ("traj", "margins"), exact=("margins",))
         check_plain(torch, f"K12 {label}", *against_plain(torch, fused2, "train_loop2", k12r),
@@ -1589,13 +1675,19 @@ def phase_two_layer_kernels(torch, gb, gb_train):
              ("K13", "train_loop2_bwd", "train_loop2_bwd.cu", 1696)), (k9, k10, k12, k13),
             two_layer_bounds(k9, k10, k12, k13)):
         kernel, plain = getattr(fused2, name), getattr(fused2, name + "_ref")
+        # K9 on the 110 dep rows is launch-sized: CUDA events over back-to-back
+        # calls time the host's dispatch there, so its row takes the profiler's
+        # device time a call (as K18's), the event times printed beside it
+        timer = device_ms if k == "K9" else timed_ms
         out[k] = dict(name=f"{k} {name}", route="cuda", source=f"gnn_tpu_torch/ops/csrc/{src}",
                       replaces=f"gnn_tpu/ops/pallas_fused.py:{line}", max_abs_err=errs[k],
-                      ms=timed_ms(torch, lambda: kernel(**x)),
-                      plain_ms=timed_ms(torch, lambda: plain(**x)),
+                      ms=timer(torch, lambda: kernel(**x)),
+                      plain_ms=timer(torch, lambda: plain(**x)),
                       bound_ms=b, bound_by=by, library_ms=None)
+        events = (f" (device time a call; CUDA events: kernel {timed_ms(torch, lambda: kernel(**x)):.4f}"
+                  f" ms, plain {timed_ms(torch, lambda: plain(**x)):.4f} ms)" if k == "K9" else "")
         say(f"{k} timing at adjT {tuple(x['adjT'].shape)}: kernel {out[k]['ms']:.4f} ms, plain "
-            f"{out[k]['plain_ms']:.4f} ms, bound {b:.4f} ms ({by})"
+            f"{out[k]['plain_ms']:.4f} ms{events}, bound {b:.4f} ms ({by})"
             + (f"; each plan forced: {plans_ms[k]}" if k in plans_ms else ""))
     return out
 
@@ -2046,9 +2138,15 @@ def phase_flat_layout(torch, graphs, typed, requests, n_arcs, dep_ms):
                               ("out",))
             ms = timed_ms(torch, lambda: getattr(mod, name)(**x))
             plain = timed_ms(torch, lambda: getattr(mod, name + "_ref")(**x))
+            plans = ""
+            if k == "K9":
+                dims = (x["adjT"].shape[1], x["w1"].shape[0], x["feats"].shape[-1],
+                        x["w0"].shape[0])
+                plans = (f"; device time a call {device_ms(torch, lambda: step2_out(**x)):.4f} ms"
+                         f"; each plan forced: {time_plans(torch, k, step2_out, x, dims, (got[0],))}")
             say(f"{k} at the all-dep shape adjT {tuple(x['adjT'].shape)}: kernel {ms:.4f} ms, "
                 f"plain {plain:.4f} ms, max per-node difference {err:.3e}; at the dep rows "
-                f"{dep_ms[k]:.4f} ms")
+                f"{dep_ms[k]:.4f} ms{plans}")
 
 
 def close_rel(torch, got, want, rtol, floor, label):

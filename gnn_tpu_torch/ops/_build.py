@@ -121,15 +121,16 @@ def _signatures():
         "gnn_segment_aggregate": [p] * 5 + [i, i, p],
     }
     out = {name: (args, i) for name, args in sig.items()}
-    # the tiled kernels', K1's, K2's, K8's and K17's plan reports (W, D, AL or F,
-    # H1 or T, out) and forced plans
+    # the tiled kernels', K1's, K2's, K3's, K8's and K17's plan reports (W, D,
+    # AL or F, H1 or T, out) and forced plans
     for name in ("gnn_propagation_loop2", "gnn_propagation_loop2_bwd", "gnn_train_loop2",
                  "gnn_train_loop2_bwd", "gnn_bn2_forward", "gnn_bn2_backward", "gnn_bn_forward",
-                 "gnn_bn_backward", "gnn_train_loop_bwd", "gnn_bnT_backward"):
+                 "gnn_bn_backward", "gnn_train_loop_bwd", "gnn_bnT_backward",
+                 "gnn_propagation_step2", "gnn_propagation_loop"):
         out[name + "_info"] = ([i] * 4 + [p], i)
     for name in ("gnn_propagation_loop2_bwd", "gnn_bn2_forward", "gnn_bn2_backward",
                  "gnn_train_loop2", "gnn_bn_forward", "gnn_bn_backward", "gnn_train_loop_bwd",
-                 "gnn_bnT_backward"):
+                 "gnn_bnT_backward", "gnn_propagation_step2", "gnn_propagation_loop"):
         out[name + "_force_plan"] = ([i], None)
     out["gnn_cuda_error_string"] = ([i], ctypes.c_char_p)
     return out

@@ -28,7 +28,7 @@
 // Design: K10's tiled forward for one iteration, one CTA of 256 threads a
 // block row:
 // - h0 and h1 as block products on 4-node x 4-unit register tiles
-//   (first_product3 below, tile2.cuh second_product), y0 through the swizzled
+//   (tile2.cuh first_product3, second_product), y0 through the swizzled
 //   unit-major tile, two tiles in turn; not one thread a node looping over
 //   H1 units with a scalar weight read a FMA at the odd stride C;
 // - the aggregation by destination over compact column lists ([16][W]
@@ -70,45 +70,6 @@ using namespace gnn;
 static_assert(kBn2FwdPlans[0].ut == 4 && kBn2FwdPlans[1].ut == 4, "K14 owns 4 units a thread");
 
 int g_force = -1;  // gnn_bn2_forward_force_plan
-
-// h0 for this thread's 4 nodes x 4 units as the per-node K14 formed it
-// (common.cuh::dense0_unit): three chains over x3's state, aggregation and
-// arc-label rows, each from 0 in column order, added as (s + a) + (f + b0);
-// w0T and b0 advanced to the thread's first unit.
-__device__ __forceinline__ void first_product3(const float* X, int W, int D, int C,
-                                               const float* w0T, int S, const float* b0, int ng,
-                                               float (&h)[4][4]) {
-  float t[4][4];
-  auto chain = [&](int c0, int c1, float (&a)[4][4]) {
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) a[n][u] = 0.0f;
-#pragma unroll 2
-    for (int c = c0; c < c1; ++c) {
-      float x[4], w[4];
-      ldv<4>(X + c * W + 4 * ng, x);
-      ldv<4>(w0T + c * S, w);
-#pragma unroll
-      for (int n = 0; n < 4; ++n)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) a[n][u] = fmaf(w[u], x[n], a[n][u]);
-    }
-  };
-  chain(0, D, h);
-  chain(D, 2 * D, t);
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) h[n][u] += t[n][u];
-  chain(2 * D, C, t);
-  float bv[4];
-  ldv<4>(b0, bv);
-#pragma unroll
-  for (int n = 0; n < 4; ++n)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) h[n][u] += t[n][u] + bv[u];
-}
 
 template <int MAXF>
 __global__ void __launch_bounds__(kTileThreads, 2)

@@ -1,11 +1,11 @@
 // Device helpers shared by the port's propagation kernels (fused_eval.cu,
-// bn_fwd.cu, bn_train.cu, eval_loop_bwd.cu, train_loop.cu, train_loop_bwd.cu,
-// fused2.cu, loop2.cu, train_loop2_bwd.cu, eval_loop2_bwd.cu, bn2_fwd.cu,
-// bn2_train.cu, bn_typed.cu): the activations of the Pallas kernels, the input dropout and
-// its derivative, the staging of block adjacencies and row blocks between
-// device and shared memory, the bias-augmented dense row of the BatchNorm
-// kernels and the two-layer state net of one node (K9). The register-tiled
-// two-layer kernels build on tile2.cuh.
+// eval_loop.cu, bn_fwd.cu, bn_train.cu, eval_loop_bwd.cu, train_loop.cu,
+// train_loop_bwd.cu, fused2.cu, loop2.cu, train_loop2_bwd.cu,
+// eval_loop2_bwd.cu, bn2_fwd.cu, bn2_train.cu, bn_typed.cu): the activations
+// of the Pallas kernels, the input dropout and its derivative, the staging
+// of block adjacencies and row blocks between device and shared memory and
+// the bias-augmented dense row of the BatchNorm kernels. The register-tiled
+// kernels build on tile2.cuh.
 
 #pragma once
 
@@ -105,60 +105,6 @@ __device__ void aggregate_col(const float* adj, int W, const float* rows, int P,
 #pragma unroll
     for (int d = 0; d < MAXF; ++d)
       if (d < D) acc[d] = fmaf(a, r[d], acc[d]);
-  }
-}
-
-// The two-layer state net's weights in shared memory: w0 [H1][C] (C = 2D + AL,
-// columns [Ws | Wa | Wf]; rows of stride ldw0 in device memory), b0 [H1]
-// (entries of stride ldb0: the BatchNorm kernels' bias-augmented w0_aug
-// [H1][C + 1] holds b0 as its last column), w1 [D][H1] transposed to w1T
-// [H1][D], b1 [D].
-__device__ inline void stage_dense2(const float* __restrict__ w0, int ldw0,
-                                    const float* __restrict__ b0, int ldb0,
-                                    const float* __restrict__ w1, const float* __restrict__ b1,
-                                    int D, int C, int H1, float* sw0, float* sb0, float* sw1T,
-                                    float* sb1) {
-  for (int i = threadIdx.x; i < H1 * C; i += blockDim.x) sw0[i] = w0[(i / C) * ldw0 + i % C];
-  for (int i = threadIdx.x; i < H1; i += blockDim.x) sb0[i] = b0[i * ldb0];
-  for (int i = threadIdx.x; i < D * H1; i += blockDim.x) sw1T[(i % H1) * D + i / H1] = w1[i];
-  for (int i = threadIdx.x; i < D; i += blockDim.x) sb1[i] = b1[i];
-}
-
-// Hidden unit j's pre-activation for this thread's node:
-// h0_j = w0[j] . [xs | xa | xf] + b0_j, w0j the row j of w0 in shared memory
-// (every thread reads the same weight: a broadcast), in three independent sums.
-template <int MAXF>
-__device__ __forceinline__ float dense0_unit(const float* w0j, float b0j, int D, int AL,
-                                             const float (&xs)[MAXF], const float (&xa)[MAXF],
-                                             const float (&xf)[MAXF]) {
-  float hs = 0.0f, ha = 0.0f, hf = 0.0f;
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) {
-    if (d < D) {
-      hs = fmaf(w0j[d], xs[d], hs);
-      ha = fmaf(w0j[D + d], xa[d], ha);
-    }
-    if (d < AL) hf = fmaf(w0j[2 * D + d], xf[d], hf);
-  }
-  return (hs + ha) + (hf + b0j);
-}
-
-// h1 = w1 @ act0(w0 @ x3 + b0) + b1 for this thread's node, x3 = [xs | xa | xf]:
-// a loop over the H1 hidden units, each formed, activated and added into the
-// D sums at once, so no H1-wide row is held anywhere.
-template <int MAXF>
-__device__ void dense2_h1(const float* sw0, const float* sb0, const float* sw1T, const float* sb1,
-                          int D, int AL, int H1, int act0, const float (&xs)[MAXF],
-                          const float (&xa)[MAXF], const float (&xf)[MAXF], float (&h1)[MAXF]) {
-  const int C = 2 * D + AL;
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) h1[d] = d < D ? sb1[d] : 0.0f;
-  for (int j = 0; j < H1; ++j) {
-    const float y0 = activate(act0, dense0_unit<MAXF>(sw0 + j * C, sb0[j], D, AL, xs, xa, xf));
-    const float* w1j = sw1T + j * D;
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d)
-      if (d < D) h1[d] = fmaf(w1j[d], y0, h1[d]);
   }
 }
 

@@ -1,7 +1,7 @@
 // K9, one iteration of the two-layer eval step, for Hopper (sm_90a), in
-// plain fp32 on the CUDA cores (no TF32, no bf16): a state net dense0 ->
-// act0 -> dense1 -> act1 with a hidden width H1 (the hidden-150 accuracy
-// recipe).
+// plain fp32 on the CUDA cores (no TF32, no bf16), on the register-tiled
+// block products of K10's forward (tile2.cuh): a state net dense0 -> act0 ->
+// dense1 -> act1 with a hidden width H1 (the hidden-150 accuracy recipe).
 //
 // Replaces gnn_tpu/ops/pallas_fused.py:
 //   K9  _step2_kernel_T (launched by _step2_impl) -> gnn_propagation_step2
@@ -16,120 +16,172 @@
 //   s'  = act1(w1 @ y0 + b1) * scale + shift
 // gnn_tpu's kernel multiplies first and contracts the adjacency H1 wide
 // (2*W*W*H1 flops a block) and reads a hoisted H1-wide feature term
-// Wf @ f + b0; this aggregates the D-wide state (2*W*W*D flops, the same
+// Wf @ f + b0; this aggregates the D-wide state (2*D flops an arc, the same
 // linear map) and forms the feature term from f's AL columns, reading AL/H1
 // of those bytes.
 //
-// Design: one CTA per block, one thread per node (blockDim == W). The
-// adjacency is staged in shared memory with row stride W + 1 and read by
-// columns. The weights w0, w1 (transposed) and the biases sit in shared
-// memory; every thread reads the same weight at the same time (a broadcast).
-// A thread holds its node's x3 in registers (MAXF-wide arrays, D and AL <=
-// MAXF) and loops over the H1 hidden units: h0_j, act0, and h1 += w1[:, j] *
-// y0_j at once (common.cuh::dense2_h1), so no H1-wide row is stored
-// anywhere. At W = 128, D = 14, AL = 3, H1 = 150 a CTA takes 109 KB: two fit
-// an SM.
-//
 // Bound: the dense layers cost 2*H1*(3D + AL) flops a node against
-// 8*D + 4*AL bytes a node: the least time is set by the operations at the
-// card's fp32 rate. This version does the dense adjacency contraction
-// (2*D*W*W flops a block, about a third of the dense layers' at H1 = 150) and
-// three dependent h0 sums per hidden unit per thread, with 8 warps an SM.
+// 8*D + 4*AL bytes a node and the block's adjacency (4*W*W bytes) read once:
+// the least time is set by the operations at the card's fp32 rate
+// (chip_smoke.py::two_layer_bounds: 0.0030 ms on the serving batch's 110
+// dep rows). A launch there is 110 CTAs, less than one wave on 132 SMs, so
+// its time is one CTA's staging, list build and products end to end, which
+// no bound on the whole card's rate sees; the flat layout's 1536 rows run
+// about six waves of two CTAs an SM.
+//
+// Design: K14's tiled forward (bn2_fwd.cu) for one iteration without the
+// BatchNorm, one CTA of 256 threads a block:
+// - h0 and h1 as block products on 4-node x 4-unit register tiles
+//   (tile2.cuh first_product3, second_product), y0 through the swizzled
+//   unit-major tile, two tiles in turn; not one thread a node looping over
+//   H1 units with a scalar weight read a FMA at the odd stride C;
+// - the aggregation by destination over compact column lists ([16][W]
+//   weights and uint8 sources) built at staging from coalesced 16-byte reads
+//   of the adjacency (tile2.cuh::build_col_lists), in source order, so the
+//   sum has the dense contraction's nonzero terms in its order; a column of
+//   more than 16 entries is read from device memory, every entry, so a dense
+//   block is exact; rT is added after the aggregation, as the per-node
+//   kernel added it;
+// - every operand (w0 transposed, w1, the biases, the affine, s and f
+//   transposed into x3's rows, rT into the row buffer) is staged with
+//   cp.async, issued together and waited on once;
+// - h0 in the per-node kernel's association (three column chains added as
+//   (s + a) + (f + b0)) and h1 in its order (from b1, j ascending), act1 and
+//   the affine in the epilogue, so the output is bit for bit the per-node
+//   K9's; it leaves through the node-major row buffer [W][D | 1] by
+//   coalesced writes. No atomics: a repeat launch is bit-identical, and every
+//   plan gives the same bits.
+// The plans (tile2.cuh kStep2Plans, mirrored by ops/fused2.py::_PLANS["K9"]):
+// the first builds the lists and stages w1, two y0 tiles (95,568 bytes at
+// the recipe, two CTAs an SM); the leanest (no lists, w1 read from device
+// memory) fits every shape the per-node K9 took.
 
-#include "common.cuh"
+#include "tile2.cuh"
 
 namespace {
 
 using namespace gnn;
 
-// Floats of shared memory of K9: the adjacency, the block's state rows, a
-// staging tile and the weights (fused2.py::_smem_bytes mirrors it).
-size_t fwd_smem(int W, int D, int AL, int H1) {
-  const int C = 2 * D + AL;
-  return sizeof(float) * ((size_t)W * (W + 1) + (size_t)W * (D | 1) +
-                          (size_t)W * ((D > AL ? D : AL) | 1) + (size_t)H1 * (C + D + 1) +
-                          3 * (size_t)D);
-}
+static_assert(kStep2Plans[0].ut == 4 && kStep2Plans[1].ut == 4, "K9 owns 4 units a thread");
 
-struct Fwd {
-  float* adj;   // [W][W + 1]
-  float* S;     // [W][D | 1] the block's state
-  float* R;     // [W][max(D, AL) | 1] staging
-  float* w0;    // [H1][C]
-  float* b0;    // [H1]
-  float* w1T;   // [H1][D]
-  float* b1;    // [D]
-  float* aff;   // [2][D] scale; shift
-};
-
-__device__ Fwd carve(float* base, int W, int D, int AL, int H1) {
-  Fwd m;
-  m.adj = base;
-  m.S = m.adj + W * (W + 1);
-  m.R = m.S + W * (D | 1);
-  m.w0 = m.R + W * ((D > AL ? D : AL) | 1);
-  m.b0 = m.w0 + H1 * (2 * D + AL);
-  m.w1T = m.b0 + H1;
-  m.b1 = m.w1T + H1 * D;
-  m.aff = m.b1 + D;
-  return m;
-}
+int g_force = -1;  // gnn_propagation_step2_force_plan
 
 // K9: one eval iteration of residual-coupled blocks; rT [B, W, D] nullable.
 template <int MAXF>
-__global__ void __launch_bounds__(kMaxW)
-step2_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
-             const float* __restrict__ rT, const float* __restrict__ f,
-             const float* __restrict__ w0, const float* __restrict__ b0,
-             const float* __restrict__ w1, const float* __restrict__ b1,
-             const float* __restrict__ aff, float* __restrict__ out, int W, int D, int AL, int H1,
-             int act0, int act1) {
+__global__ void __launch_bounds__(kTileThreads, 2)
+step2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
+                  const float* __restrict__ rT, const float* __restrict__ f,
+                  const float* __restrict__ w0, const float* __restrict__ b0,
+                  const float* __restrict__ w1, const float* __restrict__ b1,
+                  const float* __restrict__ aff, float* __restrict__ out, int W, int D, int AL,
+                  int H1, int act0, int act1, Tile2Plan p) {
+  constexpr int DG = MAXF / 8, UT = 4, CH = 8 * UT;
   extern __shared__ float4 smem_raw[];
-  const Fwd m = carve(reinterpret_cast<float*>(smem_raw), W, D, AL, H1);
-  const int DP = D | 1, RP = (D > AL ? D : AL) | 1;
+  float* base = reinterpret_cast<float*>(smem_raw);
+  const Tile2Layout L = tile2_layout(kStep2, W, D, AL, H1, p);
+  const int C = 2 * D + AL, S = L.S, DP = D | 1;
+  float* X = base + L.x3;
+  float* Y = base + L.yt;
+  float* w0T = base + L.w0;
+  float* w1s = p.w1g ? nullptr : base + L.w1;
+  float* b0s = base + L.b0;
+  float* lw = base + L.lw;
+  float* b1s = base + L.b1;
+  float* affs = base + L.aff;  // [scale; shift] x [D]
+  float* A = base + L.ab;      // [W][DP]: rT, then the output
+  uint8_t* cnt = reinterpret_cast<uint8_t*>(smem_raw) + L.cnt_b;
+  uint8_t* idx = reinterpret_cast<uint8_t*>(smem_raw) + L.idx_b;
   const int t = threadIdx.x;
+  const int ng = t >> 3, dg = t & 7;  // node block; unit group / output column group
+  const bool node_ok = 4 * ng < W;
   const size_t row0 = (size_t)blockIdx.x * W;
+  const float* adj = adjT + row0 * W;
+  const W1Src w1src{w1s, w1, S, H1, p.w1g != 0};
 
-  stage_adj(adjT + row0 * W, W, m.adj);
-  stage_dense2(w0, 2 * D + AL, b0, 1, w1, b1, D, 2 * D + AL, H1, m.w0, m.b0, m.w1T, m.b1);
-  for (int i = t; i < 2 * D; i += blockDim.x) m.aff[i] = aff[i];
-  stage_in(s + row0 * D, W, D, m.S, DP, 0);
-  stage_in(f + row0 * AL, W, AL, m.R, RP, 0);
+  // ---- staging, issued together, waited on once
+  stage_tile_weights(w0, C, b0, 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, b1s);
+  for (int i = t; i < 2 * D; i += kTileThreads) cp_async4(affs + i, aff + i);
+  stage_rowsT(s + row0 * D, W, D, X, 0);         // x3 rows [0, D): s
+  stage_rowsT(f + row0 * AL, W, AL, X, 2 * D);   // rows [2D, C): f
+  if (rT != nullptr)
+    for (int i = t; i < W * D; i += kTileThreads)
+      cp_async4(A + (i / D) * DP + i % D, rT + row0 * D + i);
+  if (p.E > 0) build_col_lists(adj, W, p.E, lw, idx, cnt, reinterpret_cast<uint8_t*>(Y));
+  cp_async_wait_all();
   __syncthreads();
-  float xs[MAXF], a[MAXF], xf[MAXF], h1[MAXF];
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) {
-    xs[d] = d < D ? m.S[t * DP + d] : 0.0f;
-    xf[d] = d < AL ? m.R[t * RP + d] : 0.0f;
+
+  // ---- agg = adjT^T @ s (+ rT) into x3 rows [D, 2D)
+  for (int i = t; i < W * D; i += kTileThreads) {
+    const int n = i % W, d = i / W;
+    float a = line_dot(adj, W, n, true, p.E, lw, idx, cnt, X + d * W);
+    if (rT != nullptr) a += A[n * DP + d];
+    X[(D + d) * W + n] = a;
   }
-  aggregate_col<MAXF>(m.adj, W, m.S, DP, D, a);
-  __syncthreads();  // every thread is past its reads of S and R
-  if (rT != nullptr) {
-    stage_in(rT + row0 * D, W, D, m.R, RP, 0);
-    __syncthreads();
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d)
-      if (d < D) a[d] += m.R[t * RP + d];
-  }
-  dense2_h1<MAXF>(m.w0, m.b0, m.w1T, m.b1, D, AL, H1, act0, xs, a, xf, h1);
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d)
-    if (d < D) m.S[t * DP + d] = activate(act1, h1[d]) * m.aff[d] + m.aff[D + d];
   __syncthreads();
-  stage_out(out + row0 * D, W, D, m.S, DP);
+
+  // ---- h1 = w1 @ act0(w0 @ x3 + b0) + b1 on the register tiles
+  float h1[4][DG];
+#pragma unroll
+  for (int i = 0; i < DG; ++i) {
+    const int d = dg + 8 * i;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) h1[n][i] = d < D ? b1s[d] : 0.0f;
+  }
+  const int nch = (S + CH - 1) / CH;
+  for (int ci = 0; ci < nch; ++ci) {
+    const int j0 = ci * CH, jc = min(CH, S - j0);
+    float* Yb = Y + (p.nbuf == 2 ? (ci & 1) : 0) * CH * W;
+    if (node_ok && UT * dg < jc) {
+      float a[4][UT];
+      first_product3(X, W, D, C, w0T + j0 + UT * dg, S, b0s + j0 + UT * dg, ng, a);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int u = 0; u < UT; ++u) a[n][u] = activate(act0, a[n][u]);
+      store_tile<UT>(Yb, UT * dg, ng, W, a);
+    }
+    __syncthreads();  // the chunk's y0 tile is full
+    if (node_ok) second_product<UT, DG>(Yb, W, w1src, j0, jc, ng, dg, D, h1);
+    // two tiles: the next chunk writes the other one, whose readers are past
+    // the barrier above
+    if (p.nbuf == 1) __syncthreads();
+  }
+
+  // ---- act1 and the affine into the row buffer (rT was read before the
+  // barriers above)
+  if (node_ok)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int i = 0; i < DG; ++i) {
+        const int d = dg + 8 * i;
+        if (d < D)
+          A[(4 * ng + n) * DP + d] = activate(act1, h1[n][i]) * affs[d] + affs[D + d];
+      }
+  __syncthreads();
+
+  // ---- out, coalesced
+  for (int i = t; i < W * D; i += kTileThreads) out[row0 * D + i] = A[(i / D) * DP + i % D];
 }
 
-template <int MAXF>
-cudaError_t launch_step2(const float* adjT, const float* s, const float* rT, const float* f,
-                         const float* w0, const float* b0, const float* w1, const float* b1,
-                         const float* aff, float* out, int B, int W, int D, int AL, int H1,
-                         int act0, int act1, cudaStream_t stream) {
-  const size_t bytes = fwd_smem(W, D, AL, H1);
-  cudaError_t err = set_smem(step2_kernel<MAXF>, bytes);
-  if (err != cudaSuccess) return err;
-  step2_kernel<MAXF><<<B, W, bytes, stream>>>(adjT, s, rT, f, w0, b0, w1, b1, aff, out, W, D, AL,
-                                              H1, act0, act1);
-  return cudaGetLastError();
+using Step2Fn = void (*)(const float*, const float*, const float*, const float*, const float*,
+                         const float*, const float*, const float*, const float*, float*, int, int,
+                         int, int, int, int, Tile2Plan);
+
+// K9's kernel and plan for a shape: the first plan of kStep2Plans that fits,
+// or plan g_force (>= 0) if it fits; nullptr if none.
+Step2Fn pick_step2(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* index) {
+  if (!pick_plan(kStep2, kStep2Plans, W, D, AL, H1, p, bytes, index, g_force)) return nullptr;
+  switch (width_class(D)) {
+    case 16:
+      return step2_tile_kernel<16>;
+    case 32:
+      return step2_tile_kernel<32>;
+    case 64:
+      return step2_tile_kernel<64>;
+    default:
+      return nullptr;
+  }
 }
 
 }  // namespace
@@ -143,21 +195,35 @@ int gnn_propagation_step2(const float* adjT, const float* s, const float* rT, co
                           const float* w0, const float* b0, const float* w1, const float* b1,
                           const float* aff, float* out, int B, int W, int D, int AL, int H1,
                           int act0, int act1, void* stream) {
-  if (!block_ok(B, W) || D <= 0 || AL <= 0 || H1 <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (width_class(D > AL ? D : AL)) {
-    case 16:
-      return launch_step2<16>(adjT, s, rT, f, w0, b0, w1, b1, aff, out, B, W, D, AL, H1, act0,
-                              act1, st);
-    case 32:
-      return launch_step2<32>(adjT, s, rT, f, w0, b0, w1, b1, aff, out, B, W, D, AL, H1, act0,
-                              act1, st);
-    case 64:
-      return launch_step2<64>(adjT, s, rT, f, w0, b0, w1, b1, aff, out, B, W, D, AL, H1, act0,
-                              act1, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (!block_ok(B, W) || D <= 0 || AL <= 0 || H1 <= 0 || width_class(D > AL ? D : AL) == 0)
+    return cudaErrorInvalidValue;
+  Tile2Plan p;
+  size_t bytes;
+  int index;
+  const Step2Fn fn = pick_step2(W, D, AL, H1, &p, &bytes, &index);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(fn, bytes);
+  if (err != cudaSuccess) return err;
+  fn<<<B, kTileThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      adjT, s, rT, f, w0, b0, w1, b1, aff, out, W, D, AL, H1, act0, act1, p);
+  return cudaGetLastError();
 }
+
+// out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
+// a thread, local bytes a thread of the kernel gnn_propagation_step2 launches
+// for this shape. Returns a cudaError_t code.
+int gnn_propagation_step2_info(int W, int D, int AL, int H1, int* out) {
+  Tile2Plan p;
+  size_t bytes;
+  int index;
+  const Step2Fn fn = pick_step2(W, D, AL, H1, &p, &bytes, &index);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return tile_kernel_info(fn, bytes, index, out);
+}
+
+// Launch plan `index` of kStep2Plans from now on, where it fits (a launch at
+// a shape it does not fit fails), or the first plan that fits again (index
+// -1): for timing one plan against another.
+void gnn_propagation_step2_force_plan(int index) { g_force = index; }
 
 }  // extern "C"

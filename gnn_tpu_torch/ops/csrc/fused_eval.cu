@@ -1,9 +1,9 @@
-// Eval propagation kernels of the GNN fixed-point loop for Hopper (sm_90a),
-// in plain fp32 on the CUDA cores (no TF32, no bf16).
+// The one-iteration eval kernel of the GNN fixed-point loop for Hopper
+// (sm_90a), in plain fp32 on the CUDA cores (no TF32, no bf16).
 //
 // Replaces gnn_tpu/ops/pallas_fused.py:
-//   K3 _loop_kernel_T (launched by _fused_loop_impl) -> gnn_propagation_loop
 //   K4 _step_kernel_T (launched by _fused_fwd_impl)  -> gnn_propagation_step
+// K3, all K iterations of the residual-free blocks, is in eval_loop.cu.
 //
 // One iteration on one W-node block, node-major rows (D = width of the state
 // read, H = width of the state written):
@@ -11,25 +11,23 @@
 //   A   = adjT^T @ U[:, H:]            A[dst] = sum_src adjT[src, dst] * U[src, H:]
 //   h   = U[:, :H] + A + fT (+ rT)
 //   out = act(h) * scale + shift       (inference BatchNorm as an affine)
-// K3 runs all K iterations of a residual-free block inside one CTA on the
-// block adjacency loaded into shared memory once, and writes the state after
-// every iteration (traj) and the pre-update movement flags (margins). K4 runs
-// one iteration of a residual-coupled block with the residual term rT.
+// K4 runs one iteration of a residual-coupled block with the residual term
+// rT.
 //
 // Design: one CTA per block, one thread per destination node (blockDim == W).
-// A thread keeps its own node's state, old state, feature term and
-// accumulators in registers (MAXF-wide arrays, unrolled with width guards), so
-// only U[:, H:] is shared: the adjacency contraction reads a column of adjT
+// A thread keeps its own node's state, feature term and accumulators in
+// registers (MAXF-wide arrays, unrolled with width guards), so only
+// U[:, H:] is shared: the adjacency contraction reads a column of adjT
 // (consecutive threads, consecutive addresses) and broadcasts a row of
-// U[:, H:] as float4s. Row blocks of s0/fT/traj move between device memory
-// and registers through a staging tile, so every global access is contiguous.
+// U[:, H:] as float4s. Row blocks of s/fT/rT/out move between device memory
+// and registers through a staging tile, so every global access is
+// contiguous.
 //
 // Bound: a launch reads each block's adjacency (W*W*4 bytes, 64 KiB at
-// W = 128) once; K3 also reads s0/fT and writes K trajectories. The dense
-// contraction costs 2*H*W*W flops per block and iteration, while the sparse
-// adjacency (about 2 arcs per node on MUTAG-shaped blocks) needs 2*H*nnz, so
-// the least time of the work is set by its bytes. This first version stages
-// the adjacency synchronously, fits 2 CTAs per SM and does the dense
+// W = 128) once. The dense contraction costs 2*H*W*W flops per block, while
+// the sparse adjacency (about 2 arcs per node on MUTAG-shaped blocks) needs
+// 2*H*nnz, so the least time of the work is set by its bytes. This version
+// stages the adjacency synchronously, fits 2 CTAs per SM and does the dense
 // contraction: its time is set by shared-memory traffic and FMAs, not bytes.
 
 #include "common.cuh"
@@ -152,51 +150,6 @@ __device__ void iterate(const Smem& sm, int W, int D, int H, int act,
   }
 }
 
-// K3: all K iterations of residual-free blocks (H == D).
-template <int MAXF>
-__global__ void __launch_bounds__(kMaxW)
-loop_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
-            const float* __restrict__ fT, const float* __restrict__ w2,
-            const float* __restrict__ aff, const float* __restrict__ nm,
-            float* __restrict__ traj, float* __restrict__ marg,
-            int B, int W, int D, int K, float thr, int act) {
-  extern __shared__ float4 smem_raw[];
-  const Smem sm = carve<MAXF>(reinterpret_cast<float*>(smem_raw), W, D, D);
-  const int b = blockIdx.x;
-  const int t = threadIdx.x;
-  const size_t row0 = (size_t)b * W;
-  load_block(sm, adjT + row0 * W, w2, aff, W, D, D);
-
-  float s[MAXF], f[MAXF], s_old[MAXF], y[MAXF];
-  load_rows<MAXF>(s0 + row0 * D, W, D, sm.stage, s);
-  load_rows<MAXF>(fT + row0 * D, W, D, sm.stage, f);
-  const float nmv = nm[row0 + t];
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) s_old[d] = 1.0f;
-
-  for (int k = 0; k < K; ++k) {
-    // movement test before update k: ||s - s_old|| > thr * ||s_old||
-    float dist2 = 0.0f, norm2 = 0.0f;
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d) {
-      if (d < D) {
-        const float diff = s[d] - s_old[d];
-        dist2 = __fadd_rn(dist2, __fmul_rn(diff, diff));
-        norm2 = __fadd_rn(norm2, __fmul_rn(s_old[d], s_old[d]));
-      }
-    }
-    marg[(size_t)k * B * W + row0 + t] = sqrtf(dist2) > thr * sqrtf(norm2) ? nmv : 0.0f;
-
-    iterate<MAXF>(sm, W, D, D, act, s, f, false, f, y);
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d) {
-      s_old[d] = s[d];
-      s[d] = y[d];
-    }
-    store_rows<MAXF>(traj + ((size_t)k * B + b) * W * D, W, D, sm.stage, s);
-  }
-}
-
 // K4: one iteration of residual-coupled blocks; rT may be null.
 template <int MAXF>
 __global__ void __launch_bounds__(kMaxW)
@@ -223,23 +176,8 @@ step_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
   store_rows<MAXF>(out + row0 * H, W, H, sm.stage, y);
 }
 
-// The 64-wide variants (and step_kernel<32>) spill to local memory under 128
+// The 64-wide variant (and step_kernel<32>) spill to local memory under 128
 // threads per CTA; chip_smoke.py holds every variant against its plain version.
-
-template <int MAXF>
-cudaError_t launch_loop(const float* adjT, const float* s0, const float* fT,
-                        const float* w2, const float* aff, const float* nm, float* traj,
-                        float* marg, int B, int W, int D, int K, float thr, int act,
-                        cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * smem_floats<MAXF>(W, D, D);
-  cudaError_t err = cudaFuncSetAttribute(loop_kernel<MAXF>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  loop_kernel<MAXF><<<B, W, bytes, stream>>>(adjT, s0, fT, w2, aff, nm, traj, marg, B, W,
-                                             D, K, thr, act);
-  return cudaGetLastError();
-}
 
 template <int MAXF>
 cudaError_t launch_step(const float* adjT, const float* s, const float* rT,
@@ -258,26 +196,6 @@ cudaError_t launch_step(const float* adjT, const float* s, const float* rT,
 }  // namespace
 
 extern "C" {
-
-// adjT [B, W, W], s0/fT [B, W, D], w2 [2D, D], aff [2, D], nm [B, W]
-// -> traj [K, B, W, D], marg [K, B, W]. Returns a cudaError_t code.
-int gnn_propagation_loop(const float* adjT, const float* s0, const float* fT,
-                         const float* w2, const float* aff, const float* nm, float* traj,
-                         float* marg, int B, int W, int D, int K, float thr, int act,
-                         void* stream) {
-  if (!block_ok(B, W) || D <= 0 || K <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (width_class(D)) {
-    case 16:
-      return launch_loop<16>(adjT, s0, fT, w2, aff, nm, traj, marg, B, W, D, K, thr, act, st);
-    case 32:
-      return launch_loop<32>(adjT, s0, fT, w2, aff, nm, traj, marg, B, W, D, K, thr, act, st);
-    case 64:
-      return launch_loop<64>(adjT, s0, fT, w2, aff, nm, traj, marg, B, W, D, K, thr, act, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
 
 // adjT [B, W, W], s [B, W, D], rT (nullable)/fT [B, W, H], w2 [2H, D],
 // aff [2, H] -> out [B, W, H]. Returns a cudaError_t code.

@@ -1,10 +1,11 @@
 // Register-tiled block products of the two-layer state net for Hopper
 // (sm_90a), in plain fp32 on the CUDA cores, shared by the forward loops K10
-// and K12 (loop2.cu), the two-layer BatchNorm iteration K14 (bn2_fwd.cu), the
-// three reverse kernels K13 (train_loop2_bwd.cu), K11 (eval_loop2_bwd.cu) and
-// K15 (bn2_train.cu), and, for their staging and adjacency lists, the
-// one-layer K1 (bn_fwd.cu), K2 (bn_train.cu) and K8 (train_loop_bwd.cu) and
-// the typed K17 (bn_typed.cu).
+// and K12 (loop2.cu), the two-layer eval step K9 (fused2.cu), the two-layer
+// BatchNorm iteration K14 (bn2_fwd.cu), the three reverse kernels K13
+// (train_loop2_bwd.cu), K11 (eval_loop2_bwd.cu) and K15 (bn2_train.cu), and,
+// for their staging and adjacency lists, the one-layer K1 (bn_fwd.cu), K2
+// (bn_train.cu), K3 (eval_loop.cu) and K8 (train_loop_bwd.cu) and the typed
+// K17 (bn_typed.cu).
 //
 // A CTA of kTileThreads = 256 threads works on one W-node block. Its dense
 // input x3 = [s | agg | f] lies in shared memory transposed, X[c][n] (C rows
@@ -93,13 +94,18 @@ constexpr Tile2Plan kBn2BwdPlans[] = {{4, 1, 0, 0, 0, 16, 1, 0}, {2, 1, 0, 0, 0,
 // leanest stages no keep bytes, builds no lists and reads w1 from device
 // memory, and fits every shape the per-node K14 took.
 constexpr Tile2Plan kBn2FwdPlans[] = {{4, 2, 0, 0, 1, 16, 1, 0}, {4, 1, 0, 0, 0, 0, 0, 1}};
+// K9 (fused2.cu), one two-layer eval iteration on K10's forward products: its
+// lists, w1 staged, two y0 tiles; the leanest builds no lists, reads w1 from
+// device memory and pads no hidden stride, and fits every shape the per-node
+// K9 took.
+constexpr Tile2Plan kStep2Plans[] = {{4, 2, 0, 0, 0, 16, 1, 0}, {4, 1, 0, 0, 0, 0, 0, 1}};
 
 // The layouts: K10's and K12's forward; the reverse step of K13 and K15;
 // K11's, which also recomputes the aggregation (a second list set) and sums
 // the affine's and the features' cotangents; K14's, the forward with the two
 // BatchNorm affines, the node mask, a node-major row buffer and the keep
-// bytes.
-enum Tile2Kind { kForward2 = 0, kReverse2 = 1, kReverse2Agg = 2, kBnForward2 = 3 };
+// bytes; K9's, the forward with a node-major row buffer.
+enum Tile2Kind { kForward2 = 0, kReverse2 = 1, kReverse2Agg = 2, kBnForward2 = 3, kStep2 = 4 };
 
 __host__ __device__ inline int hidden_stride(int H1, int ut, int pad) {
   int s = (H1 + ut - 1) / ut * ut;
@@ -125,7 +131,8 @@ struct Tile2Layout {
 // scale [D] after b1. kBnForward2 (K14): as kForward2 with the affines
 // [4][D], then from a 16-byte boundary the node mask [W], a row buffer
 // [W][D | 1] and, with pf, the keep bytes [W][C] (16-byte aligned, rounded
-// up to 16 bytes).
+// up to 16 bytes). kStep2 (K9): as kForward2, then from a 16-byte boundary a
+// row buffer [W][D | 1].
 __host__ __device__ inline Tile2Layout tile2_layout(int kind, int W, int D, int AL, int H1,
                                                     const Tile2Plan& p) {
   Tile2Layout L{};
@@ -176,6 +183,11 @@ __host__ __device__ inline Tile2Layout tile2_layout(int kind, int W, int D, int 
     o = (o + 3) & ~3;
     L.kp = o;
     o += p.pf ? (W * C + 15) / 16 * 4 : 0;
+  }
+  if (kind == kStep2) {
+    o = (o + 3) & ~3;
+    L.ab = o;
+    o += W * (D | 1);
   }
   L.cnt_b = sizeof(float) * (size_t)o;
   L.idx_b = L.cnt_b + (p.E ? nl * W : 0);
@@ -563,6 +575,45 @@ __device__ __forceinline__ void first_product(const float* X, int W, int C, cons
 #pragma unroll
       for (int u = 0; u < UT; ++u) a[n][u] = fmaf(x[n], w[u], a[n][u]);
   }
+}
+
+// h0 for this thread's 4 nodes x 4 units as the per-node K14 and K9 formed
+// it: three chains over x3's state, aggregation and arc-label rows, each
+// from 0 in column order, added as (s + a) + (f + b0); w0T and b0 advanced
+// to the thread's first unit (K14, K9).
+__device__ __forceinline__ void first_product3(const float* X, int W, int D, int C,
+                                               const float* w0T, int S, const float* b0, int ng,
+                                               float (&h)[4][4]) {
+  float t[4][4];
+  auto chain = [&](int c0, int c1, float (&a)[4][4]) {
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) a[n][u] = 0.0f;
+#pragma unroll 2
+    for (int c = c0; c < c1; ++c) {
+      float x[4], w[4];
+      ldv<4>(X + c * W + 4 * ng, x);
+      ldv<4>(w0T + c * S, w);
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) a[n][u] = fmaf(w[u], x[n], a[n][u]);
+    }
+  };
+  chain(0, D, h);
+  chain(D, 2 * D, t);
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) h[n][u] += t[n][u];
+  chain(2 * D, C, t);
+  float bv[4];
+  ldv<4>(b0, bv);
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) h[n][u] += t[n][u] + bv[u];
 }
 
 // T[r0 + u][nodes of block ng] = v[.][u].

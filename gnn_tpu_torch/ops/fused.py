@@ -43,10 +43,11 @@ are plain PyTorch as gnn_tpu's are XLA.
 
 Layout: node-major blocks, s [B, W, D], fT [B, W, H], adjT [B, W(src), W(dst)],
 keep-masks uint8 [.., W, D]. Each wrapper runs its plain PyTorch version
-(`*_ref`) for CPU tensors and launches the CUDA kernel (ops/csrc/fused_eval.cu,
-eval_loop_bwd.cu, train_loop.cu, train_loop_bwd.cu) for CUDA tensors; it never
-falls back from one to the other. `launches` counts kernel launches. K8 takes
-the first of its shared-memory plans that fits a CTA (`_train_bwd_plan`). On
+(`*_ref`) for CPU tensors and launches the CUDA kernel (ops/csrc/eval_loop.cu:
+K3; fused_eval.cu: K4; eval_loop_bwd.cu, train_loop.cu, train_loop_bwd.cu) for
+CUDA tensors; it never falls back from one to the other. `launches` counts
+kernel launches. K3 and K8 take the first of their shared-memory plans that
+fits a CTA (`_loop_plan`, `_train_bwd_plan`). On
 MUTAG-shaped blocks every kernel's least time is set by the bytes it moves (the
 adjacency and the per-iteration rows); the designs and their limits are noted
 in the sources.
@@ -140,6 +141,11 @@ def supports_fused_train(state_spec) -> bool:
 
 SMEM_BYTES = 232448          # shared memory a CTA may use (227 KB)
 
+# eval_loop.cu's kLoopPlans, K3's shared-memory plans in order of preference:
+# (threads a CTA, room of the column lists). The first is the flagship's; the
+# last fits every shape the per-node K3 took.
+_LOOP_PLANS = ((256, 16), (128, 0))
+
 # train_loop_bwd.cu's kTrainBwdPlans, K8's shared-memory plans in order of
 # preference: whether the dw partials are kept in shared memory. The first is
 # the flagship's; the last fits every shape the per-node K8 took.
@@ -149,6 +155,18 @@ _TRAIN_BWD_PLANS = (1, 0)
 def _r4(n):
     """n rounded up to a multiple of 4 (a 16-byte boundary, in floats)."""
     return (n + 3) // 4 * 4
+
+
+def _loop_bytes(W, D, plan):
+    """Shared memory of eval_loop.cu::loop_layout: U [W][2D|1], two state
+    buffers and fT [W][D|1] each, w2 transposed [D][2D rounded up to 4], the
+    affine [2][D], nm [W], the column lists ([E][W] floats, then W counts and
+    E*W sources as bytes); each float region a multiple of 16 bytes. The
+    widths may be ints or numpy integer arrays."""
+    _, E = plan
+    floats = (_r4(W * ((2 * D) | 1)) + 3 * _r4(W * (D | 1)) + D * _r4(2 * D) + _r4(2 * D)
+              + _r4(W) + E * W)
+    return 4 * floats + (W + E * W if E else 0)
 
 
 def _train_bwd_bytes(W, D, dw):
@@ -178,6 +196,11 @@ def _check_fits(need, plan, shape: str) -> None:
     if plan is None:
         raise ValueError(f"{shape} needs {need} bytes of shared memory a block, more than the "
                          f"{SMEM_BYTES} a CTA may use")
+
+
+def _loop_plan(W: int, D: int):
+    """(shared-memory bytes, plan index) K3 takes at this shape (_first_plan)."""
+    return _first_plan(_LOOP_PLANS, _loop_bytes, W, D)
 
 
 def _train_bwd_plan(W: int, D: int):
@@ -486,6 +509,7 @@ def propagation_loop(adjT, s0, fT, w2, affine, nm, K: int, threshold: float,
     B, W, _ = adjT.shape
     D, H = s0.shape[-1], w2.shape[0] // 2
     _check_loop_width(D, H)
+    _check_fits(*_loop_plan(W, D), f"W={W}, D={D}")
     _check_block(adjT, D, H)
     dev = adjT.device
     aff = _affine(affine, H, w2)

@@ -48,10 +48,10 @@ the CUDA kernel (ops/csrc/fused2.cu: K9; loop2.cu: K10, K12;
 eval_loop2_bwd.cu: K11; train_loop2_bwd.cu: K13) for CUDA tensors;
 `launches` counts kernel launches. D and AL are at most 64, H1 at most
 MAX_HIDDEN, and a block's rows and the weights must fit a CTA's shared
-memory (`_smem_bytes` for K9; `_tile2_plan` for K10, K11, K12, K13 and
-ops/bn.py's K15, the register-tiled kernels of ops/csrc/tile2.cuh, which take
-the first of their shared-memory plans that fits). The dense layers set
-these kernels' least time.
+memory (`_tile2_plan` for K9, K10, K11, K12, K13 and ops/bn.py's K14 and K15,
+the register-tiled kernels of ops/csrc/tile2.cuh, which take the first of
+their shared-memory plans that fits). The dense layers set these kernels'
+least time.
 """
 
 from __future__ import annotations
@@ -67,7 +67,7 @@ from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, SMEM
                                      launch_counted, moved)
 
 # the largest hidden width H1 the kernels take (the weights sit in shared
-# memory; at W = 128, D = 14, AL = 3, H1 = 512 K9 needs 176 KB)
+# memory; at W = 128, D = 14, AL = 3, H1 = 512 K9's first plan needs 158 KB)
 MAX_HIDDEN = 512
 
 # the kernel each wrapper launches (C entry point gnn_<wrapper>)
@@ -255,13 +255,6 @@ def _step2_vjp(adjT, s, rT, feats, w0, b0, w1, b1, affine, g, act0: str, act1: s
 
 
 # ------------------------------------------------------------------ wrappers
-def _smem_bytes(W: int, D: int, AL: int, H1: int) -> int:
-    """Shared memory a CTA of K9 (fused2.cu::fwd_smem) needs: the adjacency,
-    row tiles and the weights."""
-    C = 2 * D + AL
-    return 4 * (W * (W + 1) + W * (D | 1) + W * (max(D, AL) | 1) + H1 * (C + D + 1) + 3 * D)
-
-
 # tile2.cuh's plan lists, in order of preference: (units a thread ut, y0
 # tiles, keep h0, weight partials in shared memory, prefetch, adjacency list
 # room E, hidden stride with S / 4 odd, w1 read from device memory). The first
@@ -276,10 +269,12 @@ _PLANS = {
             (2, 1, 0, 0, 0, 0, 0, 1)),
     "K15": ((4, 1, 0, 0, 0, 16, 1, 0), (2, 1, 0, 0, 0, 0, 0, 1)),             # kBn2BwdPlans
     "K14": ((4, 2, 0, 0, 1, 16, 1, 0), (4, 1, 0, 0, 0, 0, 0, 1)),             # kBn2FwdPlans
+    "K9": ((4, 2, 0, 0, 0, 16, 1, 0), (4, 1, 0, 0, 0, 0, 0, 1)),              # kStep2Plans
 }
 # tile2.cuh::Tile2Kind of each kernel's layout: the forward, the reverse step,
-# the reverse step with the aggregation again, K14's BatchNorm forward
-_KIND = {"K10": 0, "K12": 0, "K13": 1, "K15": 1, "K11": 2, "K14": 3}
+# the reverse step with the aggregation again, K14's BatchNorm forward, K9's
+# step
+_KIND = {"K10": 0, "K12": 0, "K13": 1, "K15": 1, "K11": 2, "K14": 3, "K9": 4}
 
 
 def _tile2_bytes(kind: int, W, D, AL, H1, plan):
@@ -290,9 +285,10 @@ def _tile2_bytes(kind: int, W, D, AL, H1, plan):
     weight partials; K11's second list set, its daff [2][D] and dfeats
     [AL][W] beside the partials and its scale [D]; K14's affines [4][D], then
     from a 16-byte boundary its node mask [W], row buffer [W][D | 1] and,
-    with pf, keep bytes [W][C] (AL: its F) in 16-byte units; the adjacency
-    lists ([E][W] floats, W counts and E*W indices as bytes, a set). The
-    widths may be ints or numpy integer arrays."""
+    with pf, keep bytes [W][C] (AL: its F) in 16-byte units; K9's affine
+    [2][D], then from a 16-byte boundary its row buffer [W][D | 1]; the
+    adjacency lists ([E][W] floats, W counts and E*W indices as bytes, a
+    set). The widths may be ints or numpy integer arrays."""
     ut, nbuf, keep, dw, pf, E, pad, w1g = plan
     C, CH, nl = 2 * D + AL, 8 * ut, 2 if kind == 2 else 1
     S = -(-H1 // ut) * ut
@@ -302,6 +298,8 @@ def _tile2_bytes(kind: int, W, D, AL, H1, plan):
         floats = floats + 2 * D
     elif kind == 3:
         floats = _r4(_r4(floats + 4 * D) + W + W * (D | 1)) + pf * (W * C + 15) // 16 * 4
+    elif kind == 4:
+        floats = _r4(floats + 2 * D) + W * (D | 1)
     else:
         floats = floats + (D * W + (S if keep else CH) * W
                            + pf * (2 * D if kind == 2 else 3 * D + AL) * W
@@ -312,22 +310,23 @@ def _tile2_bytes(kind: int, W, D, AL, H1, plan):
 
 
 def _tile2_plan(W: int, D: int, AL: int, H1: int, kernel: str):
-    """(shared-memory bytes, plan index) of the tiled kernel K10, K11, K12,
-    K13, K14 or K15 at this shape (AL: K14's and K15's F): the first plan that
-    fits a CTA, or the leanest plan's bytes and None."""
+    """(shared-memory bytes, plan index) of the tiled kernel K9, K10, K11,
+    K12, K13, K14 or K15 at this shape (AL: K14's and K15's F): the first plan
+    that fits a CTA, or the leanest plan's bytes and None."""
     return _first_plan(_PLANS[kernel], functools.partial(_tile2_bytes, _KIND[kernel]),
                        W, D, AL, H1)
 
 
 # the C entries of the tiled kernels, by kernel
-_TILED = {"K10": "gnn_propagation_loop2", "K11": "gnn_propagation_loop2_bwd",
+_TILED = {"K9": "gnn_propagation_step2", "K10": "gnn_propagation_loop2",
+          "K11": "gnn_propagation_loop2_bwd",
           "K12": "gnn_train_loop2", "K13": "gnn_train_loop2_bwd", "K14": "gnn_bn2_forward",
           "K15": "gnn_bn2_backward"}
 
 
 def tile_info(kernel: str, W: int, D: int, AL: int, H1: int) -> dict:
-    """fused._plan_info of the tiled kernel K10, K11, K12, K13, K14 or K15
-    (AL: K14's and K15's F)."""
+    """fused._plan_info of the tiled kernel K9, K10, K11, K12, K13, K14 or
+    K15 (AL: K14's and K15's F)."""
     return _plan_info(_TILED[kernel], W, D, AL, H1)
 
 
@@ -374,7 +373,7 @@ def propagation_step2(adjT, s, rT, feats, w0, b0, w1, b1, affine=None, act0: str
     B, W, _ = adjT.shape
     D, AL = s.shape[-1], feats.shape[-1]
     H1 = w0.shape[0]
-    _check_block2(adjT, D, AL, H1, _smem_bytes(W, D, AL, H1))
+    _check_block2(adjT, D, AL, H1, _tile2_plan(W, D, AL, H1, "K9")[0])
     dev = adjT.device
     aff = _affine(affine, D, s)
     _check("adjT", adjT, (B, W, W), dev)

@@ -352,17 +352,18 @@ def test_two_layer_kernel_widths_checked():
     with pytest.raises(ValueError, match="CPU or CUDA"):
         step(W=128, D=14, H1=tf2.MAX_HIDDEN)
     assert tf2._tile2_plan(128, 14, 3, tf2.MAX_HIDDEN, "K11")[1] is not None
-    assert tf2._smem_bytes(128, 14, 3, tf2.MAX_HIDDEN) <= tf2.SMEM_BYTES
+    assert tf2._tile2_plan(128, 14, 3, tf2.MAX_HIDDEN, "K9")[0] <= tf2.SMEM_BYTES
 
 
 def _per_node_smem_bytes(kernel, W, D, AL, H1):
     """Shared memory a CTA of the per-node K10 and K12 (the resident
-    adjacency, state and staging rows, the weights: fused2.py::_smem_bytes,
-    which K9 still takes) or of the per-node reverse kernels K11, K13 and K15
-    (x3 and dh1 rows, two 17-wide chunk tiles, the weights; K11 and its affine
-    [2][D], K15 and bnv [9][D] and the node mask [W]) took, one thread a node,
-    as fused2.py::_smem_bytes and bn.py::_smem2_bytes reckoned them (AL: K15's
-    F); the widths may be numpy arrays."""
+    adjacency, state and staging rows, the weights: the layout of the
+    per-node K9, fused2.py::_smem_bytes before its redesign) or of the per-node
+    reverse kernels K11, K13 and K15 (x3 and dh1 rows, two 17-wide chunk
+    tiles, the weights; K11 and its affine [2][D], K15 and bnv [9][D] and the
+    node mask [W]) took, one thread a node, as fused2.py::_smem_bytes and
+    bn.py::_smem2_bytes reckoned them (AL: K15's F); the widths may be numpy
+    arrays."""
     C = 2 * D + AL
     weights = H1 * (C + D + 1)
     if kernel in ("K10", "K12"):

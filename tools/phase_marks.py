@@ -9,13 +9,15 @@ iterations, and barriers inside called helpers fall into the enclosing segment.
 The copy and the unmarked source of every tree are built alone with the port's nvcc
 flags, all at once, and the kernel's wrapper runs each on chip_smoke.py's full-set
 operands (K1 and K2 at the flagship's BatchNorm route, K8 at its dropout route, K12
-at the h150 training route, K14 at the h150_bn route, K17 at the composite_bn route).
+at the h150 training route, K14 at the h150_bn route, K17 at the composite_bn route,
+K3 at the flagship serving batch's loop rows, K9 at the h150 serving batch's dep
+rows).
 Printed: the instrumented and the unmarked launch's times (the marks' cost), then
 each segment's share of the cycles summed over the CTAs and its cycles a CTA, named
 by the source lines of the barriers that end it.
 
 Usage, from the repository root (a tree defaults to gnn_tpu_torch/ops/csrc):
-    python3 tools/phase_marks.py K1|K2|K8|K12|K14|K17 [name=tree ...]
+    python3 tools/phase_marks.py K1|K2|K3|K8|K9|K12|K14|K17 [name=tree ...]
 """
 
 import ctypes
@@ -34,7 +36,9 @@ KERNELS = {"K1": ("gnn_bn_forward", ("bn_fwd_kernel",)),
            "K8": ("gnn_train_loop_bwd", ("train_bwd_kernel", "train_loop_bwd_kernel")),
            "K12": ("gnn_train_loop2", ("train_loop2_kernel", "loop2_tile_kernel")),
            "K14": ("gnn_bn2_forward", ("bn2_fwd_tile_kernel", "bn2_fwd_kernel")),
-           "K17": ("gnn_bnT_backward", ("bnT_bwd_kernel",))}
+           "K17": ("gnn_bnT_backward", ("bnT_bwd_kernel",)),
+           "K3": ("gnn_propagation_loop", ("loop_kernel",)),
+           "K9": ("gnn_propagation_step2", ("step2_tile_kernel", "step2_kernel"))}
 HEAD = """
 namespace {
 __device__ unsigned long long* g_phase;
@@ -124,10 +128,17 @@ def main():
             gb_typed = Predictor(comp).build_batch(typed_gs).to("cuda")
             _, _, x, kw, _ = cs.typed_kernel_inputs(torch, comp, comp.to_batch(typed_gs), gb_typed)
             fn, x, rows = typed.bnT_backward_step, dict(x, **kw), x["y_prev"].shape[0]
+        elif kernel == "K3":
+            gb = Predictor(model).build_batch(graphs).to("cuda")
+            spec = model.spec
+            x = dict(cs.kernel_inputs(model, gb)[0], K=spec.max_iteration,
+                     threshold=float(spec.threshold), activation=spec.state_spec.activations[0])
+            fn, rows = fused.propagation_loop, x["adjT"].shape[0]
         else:
             gb = Predictor(model).build_batch(graphs).to("cuda")
-            x = cs.two_layer_kernel_inputs(torch, gb, gb_train)[2]
-            fn, rows = fused2.train_loop2, x["adjT"].shape[0]
+            x = cs.two_layer_kernel_inputs(torch, gb, gb_train)[0 if kernel == "K9" else 2]
+            fn = fused2.propagation_step2 if kernel == "K9" else fused2.train_loop2
+            rows = x["adjT"].shape[0]
 
     class One:
         """The library the wrapper launches through."""

@@ -2,8 +2,9 @@
 """Time the redesigned kernels of two or more kernel source trees against each
 other on one CUDA card: K10 and K12 (the two-layer forward loops), the
 register-tiled reverse kernels K13, K11 and K15, the BatchNorm step K1 and its
-reverse K2, the dropout loop's reverse K8, the two-layer BatchNorm step K14
-and the typed reverse K17.
+reverse K2, the dropout loop's reverse K8, the two-layer BatchNorm step K14,
+the typed reverse K17, the flagship's eval loop K3 and the two-layer eval step
+K9.
 
 Each tree's source that holds a kernel's C entry (a kernel may move between
 files: K12 lies in fused2.cu in older trees, in loop2.cu in newer ones) is
@@ -12,21 +13,27 @@ under build/tiled_ab/; a tree without the entry is skipped for that kernel. On
 chip_smoke.py's full-set operands (the MUTAG-shaped set: K10 at the h150
 serving path's shapes, K12 and K13 at the h150 training route's, K11 at
 h150_clean's, K14 and K15 at h150_bn's, K1 and K2 at the flagship's BatchNorm
-route's, K8 at the flagship's dropout route's, K17 at composite_bn's) every
+route's, K8 at the flagship's dropout route's, K17 at composite_bn's, K3 at
+the flagship serving batch's loop rows, K9 at the h150 serving batch's dep
+rows and at the flat layout's 1536 rows, with and without its residual term,
+and K3 and K9 also at the edges of their design, chip_smoke.py's) every
 tree's outputs are held to the first tree's, bit for bit for K13, K10, K1, K8,
-K14 and K17 (the same sums in every tree), reported for the others, and each
-tree's largest per-node difference from the plain version is printed; then
-each kernel is timed with CUDA events as chip_smoke.py times it, the trees in
-turn and back (a, b, b, a), and, for K11, K15, K12, K1, K2, K8, K14 and K17,
-at each plan of the current plan lists (ops/fused2.py::_PLANS,
-ops/bn.py::_BN_FWD_PLANS and _BN_BWD_PLANS, ops/fused.py::_TRAIN_BWD_PLANS,
-ops/typed.py::_BNT_BWD_PLANS) through the tree's gnn_*_force_plan entry,
-where it has one and the plan fits. `only=K1,K8` limits the run (builds,
-operands, checks and times) to those kernels.
+K14, K17, K3 and K9 (the same sums in every tree), reported for the others,
+and each tree's largest per-node difference from the plain version is
+printed; K3 and K9 are held so at every plan of every tree that has their
+gnn_*_force_plan entry, forced in turn. Then each kernel is timed with CUDA
+events as chip_smoke.py times it (K3 and K9 also by the profiler's device time
+a call, which a launch-sized call's host work does not enter), on its full-set
+cases, the trees in turn and back (a, b, b, a), and, for K11, K15, K12, K1, K2, K8, K14, K17, K3 and K9, at
+each plan of the current plan lists (ops/fused2.py::_PLANS,
+ops/bn.py::_BN_FWD_PLANS and _BN_BWD_PLANS, ops/fused.py::_TRAIN_BWD_PLANS
+and _LOOP_PLANS, ops/typed.py::_BNT_BWD_PLANS) through the tree's
+gnn_*_force_plan entry, where it has one and the plan fits. `only=K3,K9`
+limits the run (builds, operands, checks and times) to those kernels.
 ptxas's report of each build goes to build/tiled_ab/ptxas.log.
 
 Usage, from the repository root, with a parent checkout unpacked under build/:
-    python3 tools/tiled_ab.py [only=K1,K8] parent=build/parent/gnn_tpu_torch/ops/csrc \\
+    python3 tools/tiled_ab.py [only=K3,K9] parent=build/parent/gnn_tpu_torch/ops/csrc \\
         new=gnn_tpu_torch/ops/csrc
 """
 
@@ -45,7 +52,8 @@ KERNELS = {"K10": ("gnn_propagation_loop2", True), "K12": ("gnn_train_loop2", Fa
            "K13": ("gnn_train_loop2_bwd", True), "K11": ("gnn_propagation_loop2_bwd", False),
            "K15": ("gnn_bn2_backward", False), "K1": ("gnn_bn_forward", True),
            "K2": ("gnn_bn_backward", False), "K8": ("gnn_train_loop_bwd", True),
-           "K14": ("gnn_bn2_forward", True), "K17": ("gnn_bnT_backward", True)}
+           "K14": ("gnn_bn2_forward", True), "K17": ("gnn_bnT_backward", True),
+           "K3": ("gnn_propagation_loop", True), "K9": ("gnn_propagation_step2", True)}
 
 
 def source_of(tree, entry):
@@ -141,28 +149,93 @@ def main():
             return dict(x17, **kw17), comp.spec.n_types
         return once("k17", build)
 
-    # kernel: (module, wrapper, operands, plan list or None, the plan bytes' widths)
+    gen = torch.Generator().manual_seed(cs.SEED + 40)
+
+    def k3_cases():
+        """K3 at the flagship serving batch's loop rows, then at chip_smoke.py's
+        edges of its design."""
+        spec = model.spec
+        kw = dict(K=spec.max_iteration, threshold=float(spec.threshold),
+                  activation=spec.state_spec.activations[0])
+        cases = [("full set", dict(cs.kernel_inputs(model, gb)[0], **kw), True)]
+        for B, W, D, K, act, edge in ((4, 32, 1, 3, "tanh", "W 32, D 1"),
+                                      (2, 128, 64, 2, "selu", "D 64"),
+                                      (3, 96, 14, 4, "relu", "W 96"),
+                                      (3, 128, 14, 3, "selu", "a dense block"),
+                                      (3, 128, 14, 3, "tanh", "a destination of 40 arcs"),
+                                      (3, 128, 14, 1, "selu", "K 1")):
+            x = cs.random_inputs(torch, gen, B, W, D, D, "cuda", res=False)
+            adjT = (cs.random_adj(torch, gen, B, W, "cuda", dense=True)
+                    if edge == "a dense block" else x["adjT"])
+            if edge == "a destination of 40 arcs":
+                adjT[:, :40, 5] = 0.05
+            nm = (torch.rand(B, W, generator=gen) < 0.8).float().to("cuda")
+            cases.append((edge, dict(adjT=adjT, s0=x["s"], fT=x["fT"], w2=x["w2"],
+                                     affine=x["affine"], nm=nm, K=K, threshold=0.05,
+                                     activation=act), False))
+        return cases
+
+    def k9_cases():
+        """K9 at the h150 serving batch's dep rows and at the flat layout's
+        every block, with and without the residual term, then at chip_smoke.py's
+        tiling edges that the per-node kernel took."""
+        from gnn_tpu_torch.models import core
+        h150 = cs.flagship(torch, "cuda", "flat_h150")
+        gbf = Predictor(h150, fused_layout=False).build_batch(graphs).to("cuda")
+        with torch.no_grad():
+            _, dep = core.hybrid2_operands(h150.spec, h150.params["state"], h150.bn["state"], gbf)
+        flat = dict(dep, rT=core.residual_agg(gbf, dep["s"]),
+                    **dict(zip(("act0", "act1"), h150.spec.state_spec.activations)))
+        cases = []
+        for label, x in (("dep rows", two()[0]), ("flat layout", flat)):
+            cases += [(label, x, True), (label + ", res=False", dict(x, rT=None), False)]
+        for B, W, D, AL, H1, acts, dense in ((3, 128, 14, 3, 1, ("selu", "selu"), False),
+                                             (3, 128, 14, 3, 7, ("tanh", "selu"), False),
+                                             (3, 96, 14, 3, 33, ("selu", "tanh"), False),
+                                             (2, 128, 14, 3, 512, ("selu", "selu"), False),
+                                             (4, 32, 1, 1, 16, ("tanh", "tanh"), False),
+                                             (2, 64, 64, 64, 150, ("selu", "tanh"), False),
+                                             (3, 128, 14, 3, 150, ("selu", "selu"), True),
+                                             (2, 32, 15, 59, 511, ("tanh", "selu"), False)):
+            x = cs.random_two_layer_inputs(torch, gen, B, W, D, AL, H1, 2, acts, 0.0, True,
+                                           "cuda", dense=dense)[0]
+            if H1 == 7:     # a destination of 40 arcs
+                x["adjT"][:, :40, 5] = 0.05
+            label = f"edge W={W} D={D} AL={AL} H1={H1}{' dense' if dense else ''}"
+            cases += [(label, x, False), (label + ", res=False", dict(x, rT=None), False)]
+        return cases
+
+    def full(x):
+        return [("full set", x, True)]
+
+    # kernel: (module, wrapper, cases [(label, operands, timed)], plan list or
+    # None, the plan bytes' widths of an operand set)
     setups = {
-        "K10": lambda: (fused2, "propagation_loop2", two()[1], None, None),
-        "K12": lambda: (fused2, "train_loop2", two()[2], fused2._PLANS["K12"],
-                        dims2(two()[2], "s0", "fd", "w0")),
-        "K13": lambda: (fused2, "train_loop2_bwd", two()[3], None, None),
-        "K11": lambda: (fused2, "propagation_loop2_bwd", two_train()[0], fused2._PLANS["K11"],
-                        dims2(two_train()[0], "s0", "feats", "w0")),
-        "K15": lambda: (bn, "bn2_backward_step", two_train()[3], fused2._PLANS["K15"],
-                        dims2(two_train()[3], "y_prev", "feats", "w0_aug")),
-        "K14": lambda: (bn, "bn2_forward_step", dict(two_train()[1], **two_train()[2]),
-                        fused2._PLANS["K14"], dims2(two_train()[1], "y1", "feats", "w0_aug")),
-        "K1": lambda: (bn, "bn_forward_step", dict(bn_train()[0][1], **bn_train()[1]),
-                       bn._BN_FWD_PLANS, dims2(bn_train()[0][1], "y1", "feats")),
-        "K2": lambda: (bn, "bn_backward_step", dict(bn_train()[2], **bn_train()[3]),
-                       bn._BN_BWD_PLANS, dims2(bn_train()[2], "y_prev", "feats")),
-        "K8": lambda: (fused, "train_loop_bwd", k8(), fused._TRAIN_BWD_PLANS, dims2(k8(), "s0")),
-        "K17": lambda: (typed, "bnT_backward_step", k17()[0], typed._BNT_BWD_PLANS,
-                        dims2(k17()[0], "y_prev", "feats") + (k17()[1],)),
+        "K10": lambda: (fused2, "propagation_loop2", full(two()[1]), None, None),
+        "K12": lambda: (fused2, "train_loop2", full(two()[2]), fused2._PLANS["K12"],
+                        lambda x: dims2(x, "s0", "fd", "w0")),
+        "K13": lambda: (fused2, "train_loop2_bwd", full(two()[3]), None, None),
+        "K11": lambda: (fused2, "propagation_loop2_bwd", full(two_train()[0]),
+                        fused2._PLANS["K11"], lambda x: dims2(x, "s0", "feats", "w0")),
+        "K15": lambda: (bn, "bn2_backward_step", full(two_train()[3]), fused2._PLANS["K15"],
+                        lambda x: dims2(x, "y_prev", "feats", "w0_aug")),
+        "K14": lambda: (bn, "bn2_forward_step", full(dict(two_train()[1], **two_train()[2])),
+                        fused2._PLANS["K14"], lambda x: dims2(x, "y1", "feats", "w0_aug")),
+        "K1": lambda: (bn, "bn_forward_step", full(dict(bn_train()[0][1], **bn_train()[1])),
+                       bn._BN_FWD_PLANS, lambda x: dims2(x, "y1", "feats")),
+        "K2": lambda: (bn, "bn_backward_step", full(dict(bn_train()[2], **bn_train()[3])),
+                       bn._BN_BWD_PLANS, lambda x: dims2(x, "y_prev", "feats")),
+        "K8": lambda: (fused, "train_loop_bwd", full(k8()), fused._TRAIN_BWD_PLANS,
+                       lambda x: dims2(x, "s0")),
+        "K17": lambda: (typed, "bnT_backward_step", full(k17()[0]), typed._BNT_BWD_PLANS,
+                        lambda x: dims2(x, "y_prev", "feats") + (k17()[1],)),
+        "K3": lambda: (fused, "propagation_loop", k3_cases(), fused._LOOP_PLANS,
+                       lambda x: dims2(x, "s0")),
+        "K9": lambda: (fused2, "propagation_step2", k9_cases(), fused2._PLANS["K9"],
+                       lambda x: dims2(x, "s", "feats", "w0")),
     }
     nbytes = {"K1": bn._bn_fwd_bytes, "K2": bn._bn_bwd_bytes, "K8": fused._train_bwd_bytes,
-              "K17": typed._bnT_bwd_bytes}
+              "K17": typed._bnT_bwd_bytes, "K3": fused._loop_bytes}
 
     def dims2(x, rows, f=None, w0=None):
         """(W, D[, F or AL[, H1]]) of a kernel's operands."""
@@ -176,52 +249,75 @@ def main():
             return nbytes[k](*dims, plan) <= fused2.SMEM_BYTES
         return fused2._tile2_bytes(fused2._KIND[k], *dims, plan) <= fused2.SMEM_BYTES
 
+    def outputs(r):
+        return r if isinstance(r, tuple) else (r,)
+
     with torch.no_grad():
         failed = []
         try:
             for k in kernels:
-                mod, name, x, plan_list, dims = setups[k]()
+                mod, name, cases, plan_list, dims_of = setups[k]()
                 fn = getattr(mod, name)
+                entry, exact = kernels[k]
                 names = [t for t in trees if (t, k) in libs]
-                outs = {}
-                want = getattr(mod, name + "_ref")(**x)
-                for t in names:
-                    _build._lib = One(libs[t, k])
-                    outs[t] = fn(**x)
-                    torch.cuda.synchronize()
-                    cs.say(f"{k} {t}: largest per-node difference from the plain version "
-                           f"{float((outs[t][0] - want[0]).abs().max()):.3e}")
-                for t in names[1:]:
-                    diff = [(i, int((a != b).sum()), float((a - b).abs().max()))
-                            for i, (a, b) in enumerate(zip(outs[t], outs[names[0]]))
-                            if a is not None and not torch.equal(a.view(torch.int32),
-                                                                 b.view(torch.int32))]
-                    cs.say(f"{k}: {t} bit-identical to {names[0]}: {not diff}"
-                           + "".join(f"; output {i}: {n} entries differ, by up to {d:.3e}"
-                                     for i, n, d in diff))
-                    if kernels[k][1] and diff:   # one design in every tree: the same sums
-                        failed.append(f"{k}: {t} differs from {names[0]}")
-                plans = [None] + list(range(len(plan_list or ())))
-                for plan in plans:
-                    if plan is not None and not fits(k, plan_list[plan], dims):
+                for label, x, timed in cases:
+                    dims = None if plan_list is None else dims_of(x)
+                    outs = {}
+                    want = outputs(getattr(mod, name + "_ref")(**x))
+                    for t in names:
+                        _build._lib = One(libs[t, k])
+                        outs[t] = outputs(fn(**x))
+                        torch.cuda.synchronize()
+                        cs.say(f"{k} {label}, {t}: largest per-node difference from the plain "
+                               f"version {float((outs[t][0] - want[0]).abs().max()):.3e}")
+                    if k in ("K3", "K9"):   # every plan of every tree that forces them
+                        for t in names:
+                            force = getattr(libs[t, k], entry + "_force_plan", None)
+                            for i, plan in enumerate(plan_list if force else ()):
+                                if fits(k, plan, dims):
+                                    _build._lib = One(libs[t, k])
+                                    force(i)
+                                    try:
+                                        outs[f"{t} plan {i} forced"] = outputs(fn(**x))
+                                    finally:
+                                        force(-1)
+                        torch.cuda.synchronize()
+                    for t in list(outs)[1:]:
+                        diff = [(i, int((a != b).sum()), float((a - b).abs().max()))
+                                for i, (a, b) in enumerate(zip(outs[t], outs[names[0]]))
+                                if a is not None and not torch.equal(a.view(torch.int32),
+                                                                     b.view(torch.int32))]
+                        cs.say(f"{k} {label}: {t} bit-identical to {names[0]}: {not diff}"
+                               + "".join(f"; output {i}: {n} entries differ, by up to {d:.3e}"
+                                         for i, n, d in diff))
+                        if exact and diff:   # one design in every tree: the same sums
+                            failed.append(f"{k} {label}: {t} differs from {names[0]}")
+                    if not timed:
                         continue
-                    times = []
-                    for t in names + names[::-1]:
-                        lib = libs[t, k]
-                        force = getattr(lib, kernels[k][0] + "_force_plan", None)
-                        if plan is not None and force is None:
+                    for plan in [None] + list(range(len(plan_list or ()))):
+                        if plan is not None and not fits(k, plan_list[plan], dims):
                             continue
-                        _build._lib = One(lib)
-                        if plan is not None:
-                            force(plan)
-                        try:
-                            times.append((t, round(cs.timed_ms(torch, lambda: fn(**x)), 4)))
-                        finally:
+                        times = []
+                        for t in names + names[::-1]:
+                            lib = libs[t, k]
+                            force = getattr(lib, entry + "_force_plan", None)
+                            if plan is not None and force is None:
+                                continue
+                            _build._lib = One(lib)
                             if plan is not None:
-                                force(-1)
-                    if times:
-                        cs.say(f"{k} {'default plan' if plan is None else f'plan {plan} forced'}, "
-                               f"ms in turn: {times}")
+                                force(plan)
+                            try:
+                                times.append((t, round(cs.timed_ms(torch, lambda: fn(**x)), 4)))
+                                if k in ("K3", "K9"):   # and the profiler's device time a call
+                                    times.append((t + " device",
+                                                  round(cs.device_ms(torch, lambda: fn(**x)), 4)))
+                            finally:
+                                if plan is not None:
+                                    force(-1)
+                        if times:
+                            cs.say(f"{k} {label}, "
+                                   f"{'default plan' if plan is None else f'plan {plan} forced'}, "
+                                   f"ms in turn: {times}")
         finally:
             _build._lib = None
     if failed:
