@@ -4,7 +4,8 @@
 1. Device: needs CUDA; prints the card's name and power limit (nvidia-smi)
    and the torch and nvcc versions.
 2. Build: compiles the CUDA kernels from gnn_tpu_torch/ops/csrc with nvcc,
-   one nvcc per source, all at once.
+   one nvcc per source, all at once; prints each source's nvcc seconds
+   against the 900 s limit and the registers and spills ptxas reports.
 3. Serving kernels: runs K3 (propagation_loop) and K4 (propagation_step) at
    the shapes the serving path gives them on the full MUTAG-shaped set and
    at ragged small shapes, holds each against its plain PyTorch version on
@@ -43,7 +44,13 @@
    D = 1, D = 64 at W 64 and 128, a dense block, a source of 40 arcs, K = 1
    and 5) through the near-kink replica of phase 7 (check_bwd2), its plan
    equal to ops/fused.py::_train_bwd_plan's, the cases reaching both its
-   plans.
+   plans. K5 (redesigned) repeats bit for bit on the full set, prints its
+   plan and occupancy and runs each plan that fits, forced and timed
+   (bit-identical); it runs at the edges of its design (W 32 with D = 1,
+   D = 64 at W 64 and 128, a dense block, a node of 40 arcs each way, K = 1
+   and 5, each with and without the affine) against its plain version, a
+   repeat launch and every plan forced bit-identical, its plan equal to
+   ops/fused.py::_loop_bwd_plan's, the cases reaching both its plans.
 7. Two-layer kernels: runs K9 (propagation_step2) and K10
    (propagation_loop2) at the shapes the hidden-150 recipe's serving path
    gives them on the full set, K12 (train_loop2) and K13 (train_loop2_bwd)
@@ -100,8 +107,15 @@
    shared memory or read through the caches), against their plain versions
    as in phase 5 (K17 through the near-kink replica of phase 7, a repeat
    bit-identical, its plan equal to ops/typed.py::_bnT_bwd_plan's, the cases
-   reaching its three plans), and times them; at the full set K17 prints its
-   occupancy and runs each of its plans, forced and timed (bit-identical).
+   reaching its three plans), and times them; at the full set K16 and K17
+   print their occupancy and run each of their plans, forced and timed
+   (bit-identical). K16 also runs at the serving full set with every plan
+   forced and at the edges of its design (W 32 with D = 1, D = 64, a dense
+   block, a destination of 40 arcs, T = 1 and 8, mixed activations, without
+   dropout and rT, weights read through the caches, a shape only its leanest
+   plan fits): against its plain version, a repeat launch and every plan
+   forced bit-identical, its plan equal to ops/typed.py::_bnT_fwd_plan's,
+   the cases reaching its three plans.
 11. Serving path 'composite': the composite flagship (T = 4 copies of the
    flagship's state net, its readout, non-trivial per-type moving statistics)
    through Predictor on the same requests: K16 must launch K = 5 times a
@@ -239,6 +253,9 @@ def phase_build():
             say(f"  ptxas: {line.strip()}")
     for label, regs, spills in ptxas_summary(_build.build_log):
         say(f"ptxas {label}: {regs} registers, {spills}")
+    say("nvcc seconds by source (each of the 900 s limit, all at once): "
+        + ", ".join(f"{k} {v:.1f}" for k, v in sorted(_build.build_seconds.items(),
+                                                      key=lambda kv: -kv[1])))
 
 
 # the kernels whose registers and spills the build's report is read for, by
@@ -246,7 +263,8 @@ def phase_build():
 # and K12 (loop2.cu, MAXF, TRAIN), K1 (bn_fwd.cu,
 # MAXF, threads, keep bytes staged), K2 (bn_train.cu, MAXF, threads, rows
 # staged), K8 (train_loop_bwd.cu, one kernel), K14 (bn2_fwd.cu,
-# MAXF), K17 (bn_typed.cu, MAXF, threads, rows staged)
+# MAXF), K17 (bn_typed.cu, MAXF, threads, rows staged), K16 (bn_typed.cu,
+# MAXF, threads, keep bytes staged), K5 (eval_loop_bwd.cu, one kernel)
 PTXAS_KERNELS = ((r"11loop_kernelILi(\d+)E", "K3 threads={}"),
                  (r"step2_tile_kernelILi(\d+)E", "K9 MAXF={}"),
                  (r"loop2_tile_kernelILi(\d+)ELb0E", "K10 MAXF={}"),
@@ -255,7 +273,9 @@ PTXAS_KERNELS = ((r"11loop_kernelILi(\d+)E", "K3 threads={}"),
                  (r"16train_bwd_kernelEPKf", "K8"),
                  (r"bn_bwd_kernelILi(\d+)ELi(\d+)ELb(\d)E", "K2 MAXF={} threads={} staged={}"),
                  (r"bn2_fwd_tile_kernelILi(\d+)E", "K14 MAXF={}"),
-                 (r"bnT_bwd_kernelILi(\d+)ELi(\d+)ELb(\d)E", "K17 MAXF={} threads={} staged={}"))
+                 (r"bnT_bwd_kernelILi(\d+)ELi(\d+)ELb(\d)E", "K17 MAXF={} threads={} staged={}"),
+                 (r"bnT_fwd_kernelILi(\d+)ELi(\d+)ELb(\d)E", "K16 MAXF={} threads={} staged={}"),
+                 (r"15loop_bwd_kernelEPKf", "K5"))
 
 
 def ptxas_summary(log):
@@ -837,9 +857,10 @@ def bnfree_kernel_inputs(torch, gb):
 
 
 def random_bnfree_inputs(torch, gen, B, W, D, H, K, rate, alpha, act, dev, dense=False,
-                         line=False):
+                         line=False, column=False):
     """Ragged K5-K8 operands: a sparse 'average' adjacency (every entry
-    nonzero with `dense`; with `line` source 3 of every block has 40 arcs),
+    nonzero with `dense`; with `line` source 3 of every block has 40 arcs,
+    with `column` destination 3 has 40),
     keep bits and weights that keep the states O(1); K8's and K5's
     trajectories from the plain forwards. K6 is H wide, the loops D wide."""
     from gnn_tpu_torch.ops import fused
@@ -852,6 +873,8 @@ def random_bnfree_inputs(torch, gen, B, W, D, H, K, rate, alpha, act, dev, dense
     adjT = random_adj(torch, gen, B, W, dev, dense)
     if line:
         adjT[:, 3, :40] = 0.05   # a row of 40 arcs: read from device memory
+    if column:
+        adjT[:, :40, 3] = 0.05   # a column of 40 arcs
     nm = (torch.rand(B, W, generator=gen) < 0.8).float().to(dev)
     kw = dict(activation=act, alpha_drop=alpha, rate=rate)
     k7 = dict(adjT=adjT, s0=r(B, W, D), ms=keep(K, B, W, D), ma=keep(K, B, W, D),
@@ -928,9 +951,9 @@ def bnfree_bounds(k5, k6, k7, k8):
 def phase_bnfree_kernels(torch, gb):
     """K5-K8 against their plain versions at the BN-free training paths'
     full-set shapes (K5 with and without the affine) and at ragged shapes of
-    each register width (16, 32, 64), K8 at the edges of its design; K8's
-    plans and occupancy and each of its plans timed; times and bounds at the
-    full set."""
+    each register width (16, 32, 64), K5 and K8 at the edges of their
+    designs; K5's and K8's plans and occupancy and each of their plans
+    timed; times and bounds at the full set."""
     from gnn_tpu_torch.ops import fused
     k5, k6, k7, k8 = bnfree_kernel_inputs(torch, gb)
     errs = check_bnfree(torch, k5, k6, k7, k8, "full set")
@@ -940,6 +963,38 @@ def phase_bnfree_kernels(torch, gb):
     check_plain(torch, "K5 full set, affine", fused.propagation_loop_bwd(**dict(k5, affine=aff)),
                 fused.propagation_loop_bwd_ref(**dict(k5, affine=aff)), ("gs", "dw2", "dfT", "daff"),
                 summed=("dw2", "daff"))
+    # K5's plan and occupancy, each of its plans that fits forced and timed,
+    # and every plan forced with the affine; then K5 at the edges of its
+    # design, with and without the affine: against its plain version, a
+    # repeat launch and every plan forced bit-identical, the plan the library
+    # takes held to the mirror's, the cases reaching both plans
+    dims5 = (k5["adjT"].shape[1], k5["s0"].shape[-1], 0, 0)
+    gen5 = torch.Generator().manual_seed(SEED + 9)
+    reached5 = {0}
+    plans5 = time_plans(torch, "K5", fused.propagation_loop_bwd, k5, dims5,
+                        check_tiled(torch, "K5", fused.propagation_loop_bwd, k5, dims5))
+    check_plans(torch, "K5", fused.propagation_loop_bwd, dict(k5, affine=aff), dims5,
+                "full set, affine")
+    for B, W, D, K, act, edge in ((4, 32, 1, 3, "tanh", "W 32, D 1"),
+                                  (2, 64, 64, 2, "selu", "D 64 at W 64"),
+                                  (2, 128, 64, 2, "selu", "D 64"),
+                                  (3, 128, 14, 3, "selu", "a dense block"),
+                                  (3, 128, 14, 3, "relu", "a node of 40 arcs each way"),
+                                  (3, 128, 14, 1, "selu", "K 1"),
+                                  (3, 128, 14, 5, "tanh", "K 5")):
+        x5 = random_bnfree_inputs(torch, gen5, B, W, D, D, K, 0.0, True, act, gb.device,
+                                  dense=edge == "a dense block",
+                                  line=edge == "a node of 40 arcs each way",
+                                  column=edge == "a node of 40 arcs each way")[0]
+        for xa in (x5, dict(x5, affine=None)):
+            label = (f"tiling edge ({edge}: B={B} W={W} D={D} K={K} {act}, "
+                     f"affine={xa['affine'] is not None})")
+            check_plain(torch, f"K5 {label}", *against_plain(torch, fused, "propagation_loop_bwd", xa),
+                        ("gs", "dw2", "dfT", "daff"), summed=("dw2", "daff"))
+            check_plans(torch, "K5", fused.propagation_loop_bwd, xa, (W, D, 0, 0), label)
+        reached5.add(tiled_plan("K5", W, D, 0, 0)["plan"])
+    if reached5 != set(range(len(fused._LOOP_BWD_PLANS))):
+        fail(f"K5: the cases reach plans {sorted(reached5)} of its {len(fused._LOOP_BWD_PLANS)}")
     for B, W, D, H, K, rate, alpha, act in (
             (5, 32, 5, 7, 3, 0.2, True, "selu"), (3, 96, 14, 14, 4, 0.15, False, "tanh"),
             (4, 64, 24, 20, 3, 0.1, True, "relu"), (2, 128, 48, 40, 2, 0.0, True, "linear"),
@@ -986,7 +1041,10 @@ def phase_bnfree_kernels(torch, gb):
                       bound_ms=b, bound_by=by, library_ms=None)
         say(f"{k} timing at adjT {tuple(x['adjT'].shape)}: kernel {out[k]['ms']:.4f} ms, plain "
             f"{out[k]['plain_ms']:.4f} ms, bound {b:.4f} ms ({by})"
-            + (f"; each plan forced: {plans_ms}" if k == "K8" else ""))
+            + (f"; device time a call {device_ms(torch, lambda: kernel(**x)):.4f} ms"
+               if k == "K5" else "")
+            + (f"; each plan forced: {plans_ms}" if k == "K8" else "")
+            + (f"; each plan forced: {plans5}" if k == "K5" else ""))
     return out
 
 
@@ -1412,10 +1470,14 @@ def phase_two_layer_train_kernels(torch, gb):
 
 # the kernels with shared-memory plans: the register-tiled ones
 # (ops/csrc/tile2.cuh; K9 in fused2.cu, K14 in bn2_fwd.cu), K1 (bn_fwd.cu),
-# K2 (bn_train.cu), K3 (eval_loop.cu), K8 (train_loop_bwd.cu) and K17
-# (bn_typed.cu); a shape is (W, D, AL or F, H1), K17's (W, D, F, T), K1's and
-# K2's H1 and K3's and K8's AL and H1 unused
-TILED = ("K9", "K10", "K11", "K12", "K13", "K14", "K15", "K1", "K2", "K3", "K8", "K17")
+# K2 (bn_train.cu), K3 (eval_loop.cu), K8 (train_loop_bwd.cu), K16 and K17
+# (bn_typed.cu) and K5 (eval_loop_bwd.cu); a shape is (W, D, AL or F, H1),
+# K16's and K17's (W, D, F, T), K1's and K2's H1 and K3's, K5's and K8's AL
+# and H1 unused
+TILED = ("K9", "K10", "K11", "K12", "K13", "K14", "K15", "K1", "K2", "K3", "K8", "K17", "K16",
+         "K5")
+# the kernels with plans of their own threads a CTA (the rest run 256)
+PLAN_THREADS = ("K1", "K2", "K3", "K17", "K16")
 
 
 def plan_kernel(k):
@@ -1434,7 +1496,10 @@ def plan_kernel(k):
                    "gnn_propagation_loop"),
             "K8": (fused._TRAIN_BWD_PLANS, lambda W, D, AL, H1, p: fused._train_bwd_bytes(W, D, p),
                    "gnn_train_loop_bwd"),
-            "K17": (typed._BNT_BWD_PLANS, typed._bnT_bwd_bytes, "gnn_bnT_backward")}[k]
+            "K17": (typed._BNT_BWD_PLANS, typed._bnT_bwd_bytes, "gnn_bnT_backward"),
+            "K16": (typed._BNT_FWD_PLANS, typed._bnT_fwd_bytes, "gnn_bnT_forward"),
+            "K5": (fused._LOOP_BWD_PLANS, lambda W, D, AL, H1, p: fused._loop_bwd_bytes(W, D, p),
+                   "gnn_propagation_loop_bwd")}[k]
 
 
 def plans_of(k):
@@ -1462,8 +1527,9 @@ def plan_info(k, W, D, AL, H1):
 def tiled_plan(k, W, D, AL, H1):
     """The shared-memory plan the library takes for kernel k at this shape,
     held equal to the Python mirror's (ops/fused2.py::_tile2_plan,
-    ops/bn.py::_bn_plan, ops/fused.py::_loop_plan and _train_bwd_plan,
-    ops/typed.py::_bnT_bwd_plan), and what the card reports for it."""
+    ops/bn.py::_bn_plan, ops/fused.py::_loop_plan, _loop_bwd_plan and
+    _train_bwd_plan, ops/typed.py::_bnT_fwd_plan and _bnT_bwd_plan), and what
+    the card reports for it."""
     info = plan_info(k, W, D, AL, H1)
     need, plan = mirrored_plan(k, W, D, AL, H1)
     if (info["plan"], info["smem_bytes"]) != (plan, need):
@@ -1474,7 +1540,7 @@ def tiled_plan(k, W, D, AL, H1):
 
 def describe_k(k, info):
     """Kernel k's plan and occupancy as the card reports them (info)."""
-    threads = plans_of(k)[info["plan"]][0] if k in ("K1", "K2", "K3", "K17") else 256
+    threads = plans_of(k)[info["plan"]][0] if k in PLAN_THREADS else 256
     return (f"plan {info['plan']}, {info['smem_bytes']} bytes of shared memory a CTA, "
             f"{info['ctas_per_sm']} CTAs ({info['ctas_per_sm'] * threads // 32} warps) an SM, "
             f"{info['registers']} registers and {info['local_bytes']} local bytes a thread")
@@ -1502,7 +1568,7 @@ def check_tiled(torch, k, kernel, x, dims):
 
 
 def check_plans(torch, k, kernel, x, dims, label):
-    """Kernel k (K3, K9) at a shape: a second launch and each plan that fits,
+    """Kernel k (K3, K9, K16, K5) at a shape: a second launch and each plan that fits,
     forced in turn, bit-identical to the first launch; the plan the library
     takes held to the mirror's."""
     from gnn_tpu_torch.ops import fused2
@@ -1538,7 +1604,7 @@ def force_entry(k):
 
 
 def time_plans(torch, k, kernel, x, dims, first):
-    """Every plan of K3, K9, K11, K12, K14, K15, K1, K2, K8 or K17 that fits
+    """Every plan of K3, K9, K11, K12, K14, K15, K1, K2, K8, K17, K16 or K5 that fits
     the full-set shape, forced in turn (its outputs bit-identical to the
     default plan's `first`), timed as the kernels' rows are; the plan list is
     ordered by these times."""
@@ -1590,8 +1656,8 @@ def phase_two_layer_kernels(torch, gb, gb_train):
             check_plans(torch, "K9", step2_out, x9, dims, "full set, res=False")
     # the plans the cases take (K11, K14, K15 and K2 take plan 0 at the full
     # set, phases 5 and 8; K1's and K3's cases are phase 5's and 3's, K8's
-    # phase 6's, K17's phase 10's)
-    two = [k for k in TILED if k not in ("K1", "K3", "K8", "K17")]
+    # and K5's phase 6's, K16's and K17's phase 10's)
+    two = [k for k in TILED if k not in ("K1", "K3", "K8", "K17", "K16", "K5")]
     reached = {k: set() for k in two}
     reached.update(K9={0}, K10={0}, K12={0}, K13={0})
 
@@ -1830,8 +1896,8 @@ def check_typed_forward(torch, x, kw, label):
     T = x["aff"].shape[2]
     return check_plain(torch, f"K16 {label}: R={R} (Bl={loop_rows(x)}) W={W} D={D} "
                        f"F={x['feats'].shape[-1]} T={T} {'/'.join(kw['activations'])} "
-                       f"rate={kw['rate']} res={x['rT'] is not None} weights in shared memory "
-                       f"{typed.typed_smem_bytes(W, D, x['feats'].shape[-1], T)[1]}",
+                       f"rate={kw['rate']} res={x['rT'] is not None} plan "
+                       f"{typed._bnT_fwd_plan(W, D, x['feats'].shape[-1], T)[1]}",
                        *against_plain(torch, typed, "bnT_forward_step", dict(x, **kw)),
                        ("y", "agg", "flags", "msum"), summed=("msum",), exact=("flags",))
 
@@ -1867,8 +1933,9 @@ def phase_typed_kernels(torch, model, gb, gb_serve):
     second iteration) and at ragged shapes (W 32/64/96/128, D 5/14/64, F
     3/20, T 1/2/3/8, mixed activations, with and without keep-masks and
     residual rows, an absent type, weights in shared memory or read through
-    the caches); K17 through check_bwd2. Times and bounds at the training
-    step's shapes."""
+    the caches); K17 through check_bwd2; K16 at the edges of its design. The
+    plans and occupancy of both and each of their plans timed; times and
+    bounds at the training step's shapes."""
     from gnn_tpu_torch.ops import typed
     (x0, x1), kw, x2, kwb, (ev, kwe) = typed_kernel_inputs(torch, model, gb, gb_serve)
     check_typed_forward(torch, x0, kw, "full set, iteration 1")
@@ -1879,6 +1946,7 @@ def phase_typed_kernels(torch, model, gb, gb_serve):
                        f"full set, reverse of iteration 2 (R={R} W={W} D={D} T={model.spec.n_types})")
     gen = torch.Generator().manual_seed(SEED + 24)
     reached = {0}     # K17's plan at the full set; the cases below take the others
+    reached16 = {0}   # K16's plan at the full set
     for R, Bl, W, D, F, acts, alpha, rate, res, absent, dense in (
             (6, 4, 32, 5, 3, ("selu", "tanh", "relu"), True, 0.1, True, None, False),
             (5, 5, 96, 14, 3, ("selu",) * 8, True, 0.1, True, 3, False),
@@ -1898,6 +1966,7 @@ def phase_typed_kernels(torch, model, gb, gb_serve):
             b["adj_dep"] = torch.full_like(b["adj_dep"], 1.0 / W)
         check_typed_forward(torch, f, dict(k, threshold=0.05), "ragged")
         T = len(acts)
+        reached16.add(tiled_plan("K16", W, D, F, T)["plan"])
         check_bwd2(torch, "K17", b, f"ragged (R={R} Bl={Bl} W={W} D={D} F={F} T={T} "
                    f"{'/'.join(acts)} rate={rate} absent={absent}"
                    f"{' dense adjacency' if dense else ''}, plan "
@@ -1906,16 +1975,50 @@ def phase_typed_kernels(torch, model, gb, gb_serve):
         reached.add(tiled_plan("K17", W, D, F, T)["plan"])
     if reached != set(range(len(plans_of("K17")))):
         fail(f"K17: the cases reach plans {sorted(reached)} of its {len(plans_of('K17'))}")
+    # K16 at the edges of its design: against its plain version, a repeat
+    # launch and every plan forced bit-identical, the plan the library takes
+    # held to the mirror's, the cases reaching every plan
+    for R, Bl, W, D, F, acts, rate, res, edge in (
+            (3, 1, 32, 1, 3, ("tanh", "selu"), 0.1, True, "W 32, D 1"),
+            (3, 2, 128, 64, 3, ("selu", "tanh"), 0.1, True, "D 64"),
+            (3, 2, 128, 14, 3, ("selu",) * 4, 0.1, True, "a dense block"),
+            (3, 2, 128, 14, 3, ("selu", "relu", "tanh"), 0.1, True, "a destination of 40 arcs"),
+            (3, 2, 128, 14, 3, ("selu",), 0.1, True, "T 1"),
+            (3, 2, 128, 14, 3, ("selu", "tanh", "relu", "linear") * 2, 0.1, True,
+             "T 8, mixed activations"),
+            (3, 2, 128, 14, 3, ("selu",) * 4, 0.0, False, "no dropout, no rT"),
+            (3, 2, 128, 64, 3, ("selu",) * 8, 0.1, True, "weights read through the caches"),
+            (2, 1, 128, 64, 120, ("selu", "relu") * 16, 0.1, True,
+             "a shape only the leanest plan fits")):
+        f, _, k = random_typed_inputs(torch, gen, R, Bl, W, D, F, acts, rate, True, res, None,
+                                      gb.device)
+        if edge == "a dense block":
+            f = dict(f, adj_loop=random_adj(torch, gen, Bl, W, gb.device, dense=True),
+                     adj_dep=random_adj(torch, gen, R - Bl, W, gb.device, dense=True))
+        if edge == "a destination of 40 arcs":   # its column read from device memory
+            for a in (f["adj_loop"], f["adj_dep"]):
+                a[:, :40, 5] = 0.05
+        kf = dict(k, threshold=0.05)
+        check_typed_forward(torch, f, kf, f"tiling edge ({edge})")
+        check_plans(torch, "K16", typed.bnT_forward_step, dict(f, **kf), (W, D, F, len(acts)),
+                    edge)
+        reached16.add(tiled_plan("K16", W, D, F, len(acts))["plan"])
+    if reached16 != set(range(len(plans_of("K16")))):
+        fail(f"K16: the cases reach plans {sorted(reached16)} of its {len(plans_of('K16'))}")
     R, W, D = x1["y1"].shape
     T, Fd = model.spec.n_types, x1["feats"].shape[-1]
-    nbytes, staged = typed.typed_smem_bytes(W, D, Fd, T)
-    say(f"K16 at W={W} D={D} F={Fd} T={T}: {nbytes} bytes of shared memory a CTA "
-        f"(weights {'staged' if staged else 'read through the caches'}), "
-        f"{min(228 * 1024 // (nbytes + 1024), 2048 // W)} CTAs an SM")
     x2k = dict(x2, **kwb)
     dims = (W, D, Fd, T)
     plans_ms = time_plans(torch, "K17", typed.bnT_backward_step, x2k, dims,
                           check_tiled(torch, "K17", typed.bnT_backward_step, x2k, dims))
+    # K16's plan and occupancy and each of its plans that fits, forced and
+    # timed, at the training step's shapes; every plan forced at the serving
+    # path's
+    x1k = dict(x1, **kw)
+    plans16 = time_plans(torch, "K16", typed.bnT_forward_step, x1k, dims,
+                         check_tiled(torch, "K16", typed.bnT_forward_step, x1k, dims))
+    check_plans(torch, "K16", typed.bnT_forward_step, dict(ev, **kwe), dims,
+                f"serving full set ({ev['y1'].shape[0]} rows)")
     (b16, by16), (b17, by17) = typed_bounds(x1, x2)
     out = {
         "K16": dict(name="K16 bnT_forward_step", route="cuda",
@@ -1931,10 +2034,14 @@ def phase_typed_kernels(torch, model, gb, gb_serve):
                     plain_ms=timed_ms(torch, lambda: typed.bnT_backward_step_ref(**x2, **kwb)),
                     bound_ms=b17, bound_by=by17, library_ms=None),
     }
+    ev_ms = timed_ms(torch, lambda: typed.bnT_forward_step(**ev, **kwe))
     for k, v in out.items():
         say(f"{k} timing at {R} block rows, T={T}: kernel {v['ms']:.4f} ms, plain "
             f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
-            + (f"; each plan forced: {plans_ms}" if k == "K17" else ""))
+            + (f"; each plan forced: {plans_ms}" if k == "K17" else "")
+            + (f"; device time a call {device_ms(torch, lambda: typed.bnT_forward_step(**x1k)):.4f}"
+               f" ms; each plan forced: {plans16}; at the serving path's "
+               f"{ev['y1'].shape[0]} rows {ev_ms:.4f} ms" if k == "K16" else ""))
     return out
 
 

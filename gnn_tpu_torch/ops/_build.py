@@ -20,6 +20,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -43,6 +44,7 @@ LIB_PATH = BUILD_DIR / f"libgnn_tpu_torch_kernels-{_FLAGS_HASH}.so"
 _lock = threading.Lock()
 _lib = None
 build_log = ""   # nvcc's output (ptxas register and shared-memory report) of the last build
+build_seconds = {}   # each source's nvcc wall time in the last build, by file name
 
 
 def _nvcc() -> str:
@@ -69,6 +71,12 @@ def _run(cmd):
     return proc.returncode, proc.stdout + proc.stderr
 
 
+def _timed_run(cmd):
+    t0 = time.perf_counter()
+    rc, log = _run(cmd)
+    return rc, log, time.perf_counter() - t0
+
+
 def build(force: bool = False) -> Path:
     """Compile the kernel library if it is missing (first build, or new nvcc
     flags) or older than a source."""
@@ -82,9 +90,11 @@ def build(force: bool = False) -> Path:
         objs = [os.path.join(tmpdir, s.stem + ".o") for s in sources]
         cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)] for s, o in zip(sources, objs)]
         with ThreadPoolExecutor(max_workers=len(cmds)) as pool:
-            results = list(pool.map(_run, cmds))
-        build_log = "".join(log for _, log in results)
-        for cmd, (rc, log) in zip(cmds, results):
+            results = list(pool.map(_timed_run, cmds))
+        build_log = "".join(log for _, log, _ in results)
+        build_seconds.clear()
+        build_seconds.update((s.name, sec) for s, (_, _, sec) in zip(sources, results))
+        for cmd, (rc, log, _) in zip(cmds, results):
             if rc != 0:
                 raise RuntimeError(f"nvcc failed ({rc}): {' '.join(cmd)}\n{log}")
         lib_tmp = os.path.join(tmpdir, LIB_PATH.name)
@@ -121,16 +131,15 @@ def _signatures():
         "gnn_segment_aggregate": [p] * 5 + [i, i, p],
     }
     out = {name: (args, i) for name, args in sig.items()}
-    # the tiled kernels', K1's, K2's, K3's, K8's and K17's plan reports (W, D,
-    # AL or F, H1 or T, out) and forced plans
-    for name in ("gnn_propagation_loop2", "gnn_propagation_loop2_bwd", "gnn_train_loop2",
-                 "gnn_train_loop2_bwd", "gnn_bn2_forward", "gnn_bn2_backward", "gnn_bn_forward",
-                 "gnn_bn_backward", "gnn_train_loop_bwd", "gnn_bnT_backward",
-                 "gnn_propagation_step2", "gnn_propagation_loop"):
+    # the tiled kernels', K1's, K2's, K3's, K5's, K8's, K16's and K17's plan
+    # reports (W, D, AL or F, H1 or T, out) and forced plans
+    planned = ("gnn_propagation_loop2_bwd", "gnn_bn2_forward", "gnn_bn2_backward",
+               "gnn_train_loop2", "gnn_bn_forward", "gnn_bn_backward", "gnn_train_loop_bwd",
+               "gnn_bnT_backward", "gnn_propagation_step2", "gnn_propagation_loop",
+               "gnn_propagation_loop_bwd", "gnn_bnT_forward")
+    for name in planned + ("gnn_propagation_loop2", "gnn_train_loop2_bwd"):
         out[name + "_info"] = ([i] * 4 + [p], i)
-    for name in ("gnn_propagation_loop2_bwd", "gnn_bn2_forward", "gnn_bn2_backward",
-                 "gnn_train_loop2", "gnn_bn_forward", "gnn_bn_backward", "gnn_train_loop_bwd",
-                 "gnn_bnT_backward", "gnn_propagation_step2", "gnn_propagation_loop"):
+    for name in planned:
         out[name + "_force_plan"] = ([i], None)
     out["gnn_cuda_error_string"] = ([i], ctypes.c_char_p)
     return out

@@ -41,8 +41,8 @@
 // - s and s_old through the affines with the plain version's rounding
 //   (multiply, then add: __fmul_rn, __fadd_rn), the movement test one thread
 //   a node, d ascending;
-// - h in the per-node order of common.cuh::dense_aug (bias first, then c
-//   ascending), NT / W threads a node, each taking a block of outputs (four a
+// - h in the per-node kernel's order (bias first, then c ascending),
+//   NT / W threads a node, each taking a block of outputs (four a
 //   16-byte read of the transposed w_aug);
 // - agg and y leave through the node-major row buffer [W][D | 1] by
 //   coalesced writes; msum, a thread a column summing the block's nodes in
@@ -200,7 +200,7 @@ bn_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
     }
   __syncthreads();
 
-  // ---- y = act(h), h in dense_aug's order (bias first, then c ascending)
+  // ---- y = act(h), h in the per-node order (bias first, then c ascending)
   // for outputs j0 + i of node n, four a 16-byte read of wT; into the row
   // buffer (agg is out)
   constexpr int JT = MAXF * kMaxW / NT;

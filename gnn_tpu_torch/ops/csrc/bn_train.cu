@@ -30,8 +30,8 @@
 // - the rows (y_prev, ds_in, gsel, y_k node-major by 16-byte copies; agg and
 //   feats transposed into x3's rows), w_aug, bnv, nm and the keep bytes are
 //   staged with cp.async, issued together and waited on once;
-// - h is recomputed in the per-node order of common.cuh::dense_aug (bias
-//   first, then c ascending), NT / W threads a node taking every
+// - h is recomputed in the per-node kernel's order (bias first, then c
+//   ascending), NT / W threads a node taking every
 //   (NT / W)-th output;
 // - dw = dh^T @ [x3; 1] is a block product over all threads on register
 //   tiles (4 outputs x 4 columns a thread, 16-byte reads of the transposed
@@ -219,7 +219,7 @@ bn_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
   }
   __syncthreads();
 
-  // ---- dh = gy * act'(h) for outputs j0 + i, h in dense_aug's order (bias
+  // ---- dh = gy * act'(h) for outputs j0 + i, h in the per-node order (bias
   // first, then c ascending; four outputs a 16-byte read of wT), gy from the
   // state cotangent and the BatchNorm backward coefficients
   if (mine && j0 < D) {

@@ -6,11 +6,11 @@
 //   K16 _bnT_fwd_kernel (launched by _bnT_fwd_call) -> gnn_bnT_forward
 //   K17 _bnT_bwd_kernel (launched by _bnT_bwd_call) -> gnn_bnT_backward
 //
-// They are K1/K2 (bn_train.cu) with a node type per node: node n of type
-// t(n) normalizes with type t(n)'s affine, meets only rows [t*D, (t+1)*D) of
-// the stacked weights w_stk [T*D, C] (C = 2D + F + 1, rows [Ws|Wa|Wf|b] of
-// each type) and type t(n)'s activation, and the moment and reduction sums
-// are split by type:
+// They are K1/K2 (bn_fwd.cu, bn_train.cu) with a node type per node: node n
+// of type t(n) normalizes with type t(n)'s affine, meets only rows [t*D,
+// (t+1)*D) of the stacked weights w_stk [T*D, C] (C = 2D + F + 1, rows
+// [Ws|Wa|Wf|b] of each type) and type t(n)'s activation, and the moment and
+// reduction sums are split by type:
 //   K16  s = y1 * scale1[t] + shift1[t], s_old = y2 * scale2[t] + shift2[t]
 //        marg, agg = adjT^T @ s (+ rT), x3 = drop([s | agg | feats]) as K1
 //        y = act_t(w_stk[t] @ [x3; 1]),  msum[t'] = sum over type-t' nodes of y * nm
@@ -26,18 +26,45 @@
 // masks them out of margins, moments and the moment term of gy, and red
 // counts them in type 0 (gnn_tpu's raw type mask; their ds is 0).
 //
-// K16's design, as K1's: one CTA per block row, one thread per node
-// (blockDim == W), the block adjacency staged in shared memory at row stride
-// W + 1; sums over nodes leave as per-block partials that the caller adds up
-// in order (no float atomics: results repeat bit for bit). The per-type
-// coefficient rows, the node types and, when they still fit the 227 KB a CTA
-// may use, the stacked weights are staged in shared memory; otherwise each
-// thread reads its type's weight rows through the L1/L2 caches. The per-type
-// moment sums run over each type's nodes only: the block's nodes are
-// counting-sorted by type once, so they cost K1's node loops whatever T is.
+// Both kernels run one launch over every block row (row r < Bl reads
+// adj_loop[r], the rest adj_dep[r - Bl]), one CTA of NT threads a row, on
+// tile2.cuh's staging and adjacency lists; sums over nodes leave as per-block
+// partials that the caller adds up in order (no float atomics: a repeat
+// launch is bit-identical, and every plan gives the same bits). Each type's
+// sums run over its nodes in counting-sorted order (order_nodes: ascending
+// node order within a type), so they cost K1's and K2's node loops whatever
+// T is. The stacked weights are staged transposed (wT [T][C][D4]) where they
+// fit, else read through the L1/L2 caches (the same values into the same FMAs
+// in the same order).
 //
-// K17's design is K2's (bn_train.cu, tile2.cuh's staging and lists) with
-// per-type weights, one launch over every block row:
+// K16's design is K1's (bn_fwd.cu) with per-type weights:
+// - no resident adjacency: each column's nonzero entries go into a compact
+//   list ([16][W] weights and uint8 sources, tile2.cuh::build_col_lists,
+//   from coalesced 16-byte reads) in source order, so agg sums the dense
+//   contraction's nonzero terms in its order at 2*D flops an arc; a column of
+//   more than 16 entries is read from device memory, every entry, so a dense
+//   block is exact;
+// - every operand (wT, the per-type affines, nm, the node types, y1, y2 and
+//   feats transposed into x3's rows, rT into the node-major row buffer, the
+//   keep bytes) is staged with cp.async, issued together ahead of the list
+//   build and waited on once;
+// - s and s_old through the node's type's affines with the plain version's
+//   rounding (__fmul_rn, then __fadd_rn), the movement test one thread a
+//   node, d ascending;
+// - h in the per-node order (bias first, then c ascending) from the node's
+//   own type's rows of wT, NT / W threads a node each taking a block of
+//   outputs, four a 16-byte read; the type's activation selected per node;
+// - agg and y leave through the row buffer [W][D | 1] by coalesced writes;
+//   msum adds each type's nodes in their counting-sorted order.
+// So y, agg, marg and msum are bit for bit the per-node K16's that this
+// replaced (one thread a node, a resident [W][W + 1] adjacency contracted
+// densely). At the composite recipe (W 128, D 14, F 3, T 4) a CTA of plan 0
+// takes 49,568 bytes. The plans (kBnTFwdPlans: threads, list room, keep bytes
+// staged, weights staged) are mirrored by ops/typed.py::_bnT_fwd_plan; the
+// last (128 threads, no lists, only the small rows staged) fits every shape
+// the per-node K16 took.
+//
+// K17's design is K2's (bn_train.cu) with per-type weights:
 // - no resident adjacency: each row's nonzero entries go into a compact list
 //   at staging ([8][W] weights and uint8 destinations, built from coalesced
 //   16-byte reads, tile2.cuh::build_row_lists), so ds = dxs + adjT @ dagg
@@ -47,29 +74,25 @@
 //   feats transposed into x3's rows), the stacked weights transposed
 //   (wT [T][C][D4]), the per-type bnv rows, nm, the types and the keep bytes
 //   are staged with cp.async, issued together and waited on once; weights
-//   that do not fit are read through the L1/L2 caches (the same values into
-//   the same FMAs in the same order);
-// - h recomputed per node from its own type's rows in dense_aug's order
+//   that do not fit are read through the L1/L2 caches;
+// - h recomputed per node from its own type's rows in the per-node order
 //   (bias first, then c ascending), NT / W threads a node taking every
 //   (NT / W)-th output; dx = dh @ [Ws | Wa] from the transposed weights, four
 //   outputs a 16-byte read;
 // - dw [T * D][C] and red sum each type's nodes in their counting-sorted
 //   order (ord, tst), one work item (type, 4 outputs x 4 columns) a thread:
-//   the sums are added in per-type node order, so every plan gives the same
-//   bits, a repeat launch is bit-identical, and the outputs are bit for bit
-//   the per-node K17's; mixed per-type activations select their derivative
-//   per node (their speed is not the target). Splitting each type's nodes
-//   into two halves summed on two threads (the CTA's other half idles here,
-//   36% of the kernel's cycles, tools/phase_marks.py) ran 2% slower.
+//   the outputs are bit for bit the per-node K17's; mixed per-type
+//   activations select their derivative per node (their speed is not the
+//   target). Splitting each type's nodes into two halves summed on two
+//   threads (the CTA's other half idles here, 36% of the kernel's cycles,
+//   tools/phase_marks.py) ran 2% slower.
 // The plans (kBnTBwdPlans: threads, list room, rows staged, weights staged)
 // are mirrored by ops/typed.py::_bnT_bwd_plan; the last (128 threads, no
 // staging, no lists) fits every shape the per-node K17 took.
 //
 // Bound: as K1/K2, a launch reads every block's adjacency once (64 KiB at
 // W = 128), which dominates the bytes moved; the types add W bytes a block
-// and do not grow with T. The least time is set by bytes. K16 stages the
-// adjacency synchronously and contracts it densely, so its time is set by
-// shared-memory traffic and FMAs, as K1's.
+// and do not grow with T. The least time is set by bytes.
 
 #include "tile2.cuh"
 
@@ -77,200 +100,8 @@ namespace {
 
 using namespace gnn;
 
-// Float offsets of the shared-memory buffers; w last, so the layout without
-// staged weights is a prefix.
-struct Layout {
-  int adj;    // [W][W + 1]  adjT[src][dst]
-  int x;      // [W][XP]     x3 rows [s | agg | feats], XP = (2D + F) | 1
-  int rows;   // [W][DP]     staging of [W, D] row blocks, DP = D | 1
-  int vec;    // aff [2][2][T][D]
-  int nm;     // [W]         node mask
-  int ty;     // [W]         node types (int)
-  int ord;    // [W]         the block's nodes by type, ascending within a type
-  int tst;    // [T + 1]     type t's nodes are ord[tst[t] .. tst[t + 1])
-  int keep;   // W * (2D + F) bytes of keep bits
-  int w;      // [T * D][C]  w_stk, when staged
-  int total;
-};
-
-__host__ __device__ Layout layout(int W, int D, int F, int T, bool stage_w) {
-  const int C = 2 * D + F + 1;
-  Layout l;
-  int o = 0;
-  l.adj = o;
-  o += W * (W + 1);
-  l.x = o;
-  o += W * ((C - 1) | 1);
-  l.rows = o;
-  o += W * (D | 1);
-  l.vec = o;
-  o += 4 * T * D;
-  l.nm = o;
-  o += W;
-  l.ty = o;
-  o += W;
-  l.ord = o;
-  o += W;
-  l.tst = o;
-  o += T + 1;
-  l.keep = o;
-  o += (W * (C - 1) + 3) / 4;
-  l.w = o;
-  if (stage_w) o += T * D * C;
-  l.total = o;
-  return l;
-}
-
 __device__ __forceinline__ int act_of(unsigned long long acts, int t) {
   return static_cast<int>((acts >> (2 * t)) & 3ull);
-}
-
-// K16's operands, staged once per CTA: adjacency, (w_stk),
-// the per-type coefficient rows, node mask, node types, keep bits and the
-// feats columns of x3. Returns this CTA's weight base (shared or device).
-__device__ const float* stage_typed(float* sm, const Layout& L, const float* adj_loop,
-                                    const float* adj_dep, int Bl, const float* __restrict__ w_stk,
-                                    bool stage_w, const float* __restrict__ vec, int vec_n,
-                                    const float* __restrict__ nm,
-                                    const uint8_t* __restrict__ types,
-                                    const uint8_t* __restrict__ keep,
-                                    const float* __restrict__ feats, int W, int D, int F, int T,
-                                    int mode) {
-  const size_t row0 = (size_t)blockIdx.x * W;
-  const int C = 2 * D + F + 1;
-  stage_adj(block_adj(adj_loop, adj_dep, Bl, W), W, sm + L.adj);
-  if (stage_w)
-    for (int i = threadIdx.x; i < T * D * C; i += blockDim.x) sm[L.w + i] = w_stk[i];
-  for (int i = threadIdx.x; i < vec_n; i += blockDim.x) sm[L.vec + i] = vec[i];
-  sm[L.nm + threadIdx.x] = nm[row0 + threadIdx.x];
-  reinterpret_cast<int*>(sm + L.ty)[threadIdx.x] = types[row0 + threadIdx.x];
-  if (mode != kNoDrop) {
-    uint8_t* kp = reinterpret_cast<uint8_t*>(sm + L.keep);
-    const uint8_t* kg = keep + row0 * (C - 1);
-    for (int i = threadIdx.x; i < W * (C - 1); i += blockDim.x) kp[i] = kg[i];
-  }
-  stage_in(feats + row0 * F, W, F, sm + L.x, (C - 1) | 1, 2 * D);
-  return stage_w ? sm + L.w : w_stk;
-}
-
-// The block's nodes grouped by type (a counting sort, ascending node order
-// within a type, so the per-type sums below add in node order): each node
-// counts the nodes of its type before it, threads t < T count type t. Every
-// thread must call it after the types are staged; it synchronises.
-__device__ void order_by_type(const int* tys, int W, int T, int* ord, int* tst) {
-  const int t = threadIdx.x, ty = tys[t];
-  int rank = 0;
-  for (int m = 0; m < t; ++m) rank += tys[m] == ty;
-  if (t < T) {
-    int c = 0;
-    for (int m = 0; m < W; ++m) c += tys[m] == t;
-    tst[t + 1] = c;
-  }
-  __syncthreads();
-  if (t == 0) {
-    tst[0] = 0;
-    for (int k = 0; k < T; ++k) tst[k + 1] += tst[k];
-  }
-  __syncthreads();
-  ord[tst[ty] + rank] = t;
-  __syncthreads();
-}
-
-// K16: one typed BN-training iteration over every block row (row r < Bl
-// reads adj_loop[r], the rest adj_dep[r - Bl]).
-template <int MAXF>
-__global__ void __launch_bounds__(kMaxW)
-bnT_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_dep,
-               const float* __restrict__ y1, const float* __restrict__ y2,
-               const float* __restrict__ aff, const uint8_t* __restrict__ types,
-               const uint8_t* __restrict__ keep, const float* __restrict__ rT,
-               const float* __restrict__ feats, const float* __restrict__ w_stk,
-               const float* __restrict__ nm, float* __restrict__ y, float* __restrict__ agg,
-               float* __restrict__ marg, float* __restrict__ msum, int Bl, int W, int D, int F,
-               int T, float thr, unsigned long long acts, int mode, float da, float db,
-               int stage_w) {
-  extern __shared__ float4 smem_raw[];
-  float* sm = reinterpret_cast<float*>(smem_raw);
-  const Layout L = layout(W, D, F, T, stage_w);
-  const int C = 2 * D + F + 1, XP = (C - 1) | 1, DP = D | 1;
-  const int r = blockIdx.x, t = threadIdx.x;
-  const size_t row0 = (size_t)r * W;
-  const float* adj = sm + L.adj;
-  float* xs = sm + L.x;
-  float* xrow = xs + t * XP;
-  float* rows = sm + L.rows;
-  const float* vec = sm + L.vec;  // [scale1; shift1; scale2; shift2] x [T][D]
-  const float* nms = sm + L.nm;
-  const int* tys = reinterpret_cast<const int*>(sm + L.ty);
-  int* ord = reinterpret_cast<int*>(sm + L.ord);
-  int* tst = reinterpret_cast<int*>(sm + L.tst);
-  const uint8_t* krow = reinterpret_cast<const uint8_t*>(sm + L.keep) + t * (C - 1);
-
-  const float* wbase = stage_typed(sm, L, adj_loop, adj_dep, Bl, w_stk, stage_w, aff, 4 * T * D,
-                                   nm, types, keep, feats, W, D, F, T, mode);
-  stage_in(y1 + row0 * D, W, D, rows, DP, 0);
-  __syncthreads();
-  order_by_type(tys, W, T, ord, tst);
-  const int ty = tys[t];
-  const float* sc1 = vec + ty * D;
-  const float* sh1 = vec + (T + ty) * D;
-  const float* sc2 = vec + (2 * T + ty) * D;
-  const float* sh2 = vec + (3 * T + ty) * D;
-  // s -> x3 columns [0, D); rounded as the plain version's multiply, then add
-  for (int d = 0; d < D; ++d) xrow[d] = __fadd_rn(__fmul_rn(rows[t * DP + d], sc1[d]), sh1[d]);
-  __syncthreads();
-  stage_in(y2 + row0 * D, W, D, rows, DP, 0);
-  __syncthreads();
-  float dist2 = 0.0f, norm2 = 0.0f;
-  for (int d = 0; d < D; ++d) {
-    const float so = __fadd_rn(__fmul_rn(rows[t * DP + d], sc2[d]), sh2[d]);
-    const float diff = __fsub_rn(xrow[d], so);
-    dist2 = __fadd_rn(dist2, __fmul_rn(diff, diff));
-    norm2 = __fadd_rn(norm2, __fmul_rn(so, so));
-  }
-  marg[row0 + t] = sqrtf(dist2) > thr * sqrtf(norm2) ? nms[t] : 0.0f;
-  __syncthreads();
-  if (rT != nullptr) stage_in(rT + row0 * D, W, D, rows, DP, 0);
-  __syncthreads();
-
-  float acc[MAXF];
-  aggregate_col<MAXF>(adj, W, xs, XP, D, acc);
-  if (rT != nullptr) {
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d)
-      if (d < D) acc[d] += rows[t * DP + d];
-  }
-  __syncthreads();  // every thread is done with the s columns and rows
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) {
-    if (d < D) {
-      rows[t * DP + d] = acc[d];
-      xrow[D + d] = acc[d];
-    }
-  }
-  drop_row(xrow, krow, C - 1, mode, da, db);
-  __syncthreads();
-  stage_out(agg + row0 * D, W, D, rows, DP);
-
-  float h[MAXF];
-  dense_aug<MAXF>(wbase + (size_t)ty * D * C, xrow, D, C, h);
-  __syncthreads();  // agg is out of rows
-  const int act = act_of(acts, ty);
-#pragma unroll
-  for (int j = 0; j < MAXF; ++j)
-    if (j < D) rows[t * DP + j] = activate(act, h[j]);
-  __syncthreads();
-  stage_out(y + row0 * D, W, D, rows, DP);
-  // per-type moment sums over the block's real nodes, in node order
-  for (int o = t; o < T * D; o += blockDim.x) {
-    const int tt = o / D, d = o % D;
-    float s = 0.0f;
-    for (int k = tst[tt]; k < tst[tt + 1]; ++k) {
-      const int n = ord[k];
-      s = fmaf(rows[n * DP + d], nms[n], s);
-    }
-    msum[(size_t)r * T * D + o] = s;
-  }
 }
 
 // ---- K17
@@ -347,8 +178,9 @@ __host__ __device__ inline BnTBwdLayout bwdT_layout(int W, int D, int F, int T,
   return L;
 }
 
-// The block's nodes grouped by type as order_by_type groups them, for a CTA
-// of any width: threads t < W rank their node among the nodes of its type
+// The block's nodes grouped by type (a counting sort, ascending node order
+// within a type, so the per-type sums add in node order), for a CTA of any
+// width: threads t < W rank their node among the nodes of its type
 // before it, threads t < T count type t. Every thread must call it after
 // the types are staged; it synchronises.
 __device__ void order_nodes(const int* tys, int W, int T, int* ord, int* tst) {
@@ -484,7 +316,7 @@ bnT_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
   __syncthreads();
 
   // ---- dh = gy * act_t'(h) for outputs j0 + i, h from the node's type's
-  // rows in dense_aug's order (bias first, then c ascending), gy from the
+  // rows in the per-node order (bias first, then c ascending), gy from the
   // state cotangent and the type's BatchNorm backward coefficients
   if (mine && j0 < D) {
     float h[JT];
@@ -638,37 +470,263 @@ bnT_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
   }
 }
 
+// ---- K16
+
+// A K16 plan: threads a CTA, room of the column lists (0: the adjacency is
+// read from device memory), whether the keep bytes are staged, whether the
+// stacked weights are staged (else read through the L1/L2 caches).
+struct BnTFwdPlan {
+  int nt, E, st, ws;
+};
+
+// The first is the composite recipe's (T = 4, D 14, F 3: 49,568 bytes); the
+// second leaves weights too large for a CTA in device memory; the last fits
+// every shape the per-node K16 took (ops/typed.py::_BNT_FWD_PLANS mirrors
+// the list).
+constexpr BnTFwdPlan kBnTFwdPlans[] = {{256, 16, 1, 1}, {256, 16, 1, 0}, {128, 0, 0, 0}};
+
+// Float offsets of K16's shared memory (bytes for the list counts, sources
+// and the list build's scratch, after the floats), each region a multiple of
+// 16 bytes: x3 X [C1][W] (transposed; y1 and y2 first), with ws the stacked
+// weights transposed wT [T][C][D4] (D4 = D rounded up to 4, zero past D; row
+// C1 of a type its bias), the per-type affines [4][T][D], nm [W], the node
+// types, the nodes ordered by type and the types' starts (ints [W], [W],
+// [T + 1]), the row buffer [W][D | 1] (rT, then agg, then y), with st the
+// keep bytes [W][C1], the lists [E][W].
+struct BnTFwdLayout {
+  int x, w, aff, nm, ty, ord, tst, ab, kp, lw;
+  size_t cnt_b, idx_b, part_b, bytes;
+};
+
+__host__ __device__ inline BnTFwdLayout fwdT_layout(int W, int D, int F, int T,
+                                                    const BnTFwdPlan& p) {
+  BnTFwdLayout L{};
+  const int C1 = 2 * D + F;
+  int o = 0;
+  L.x = o;
+  o += round4(C1 * W);
+  L.w = o;
+  o += p.ws ? T * (C1 + 1) * round4(D) : 0;
+  L.aff = o;
+  o += round4(4 * T * D);
+  L.nm = o;
+  o += round4(W);
+  L.ty = o;
+  o += W;
+  L.ord = o;
+  o += W;
+  L.tst = o;
+  o += round4(T + 1);
+  L.ab = o;
+  o += round4(W * (D | 1));
+  L.kp = -1;
+  if (p.st) {
+    L.kp = o;
+    o += round4((W * C1 + 3) / 4);
+  }
+  L.lw = o;
+  o += p.E * W;
+  L.cnt_b = sizeof(float) * (size_t)o;
+  L.idx_b = L.cnt_b + (p.E ? W : 0);
+  L.part_b = L.idx_b + (size_t)p.E * W;  // build_col_lists' counts [NT / 32][W]
+  L.bytes = L.part_b + (p.E ? (size_t)(p.nt / 32) * W : 0);
+  return L;
+}
+
+// K16: one typed BN-training iteration over every block row, NT threads a
+// CTA, one block row each.
+template <int MAXF, int NT, bool ST>
+__global__ void __launch_bounds__(NT, 3)
+bnT_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_dep,
+               const float* __restrict__ y1, const float* __restrict__ y2,
+               const float* __restrict__ aff, const uint8_t* __restrict__ types,
+               const uint8_t* __restrict__ keep, const float* __restrict__ rT,
+               const float* __restrict__ feats, const float* __restrict__ w_stk,
+               const float* __restrict__ nm, float* __restrict__ y, float* __restrict__ agg,
+               float* __restrict__ marg, float* __restrict__ msum, int Bl, int W, int D, int F,
+               int T, float thr, unsigned long long acts, int mode, float da, float db,
+               BnTFwdPlan p) {
+  extern __shared__ float4 smem_raw[];
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(smem_raw);
+  const BnTFwdLayout L = fwdT_layout(W, D, F, T, p);
+  const int C1 = 2 * D + F, C = C1 + 1, DP = D | 1, D4 = round4(D);
+  const int r = blockIdx.x, t = threadIdx.x;
+  const size_t row0 = (size_t)r * W;
+  const float* adj = block_adj(adj_loop, adj_dep, Bl, W);
+  float* X = sm + L.x;
+  float* wT = p.ws ? sm + L.w : nullptr;
+  float* v = sm + L.aff;  // [scale1; shift1; scale2; shift2] x [T][D]
+  float* nms = sm + L.nm;
+  int* tys = reinterpret_cast<int*>(sm + L.ty);
+  int* ord = reinterpret_cast<int*>(sm + L.ord);
+  int* tst = reinterpret_cast<int*>(sm + L.tst);
+  float* A = sm + L.ab;  // [W][DP]: rT, then agg, then y
+  float* lw = sm + L.lw;
+  uint8_t* cnt = bytes + L.cnt_b;
+  uint8_t* idx = bytes + L.idx_b;
+  const uint8_t* kg = mode != kNoDrop ? keep + row0 * C1 : nullptr;
+  const bool kst = ST && kg != nullptr && reinterpret_cast<uintptr_t>(kg) % 16 == 0;
+
+  // ---- staging, issued together, waited on once
+  // wT [ty][c][j] = w_stk [ty * D + j][c], in w_stk's order
+  for (int i = t; wT != nullptr && i < T * D4 * C; i += NT) {
+    const int ty = i / (D4 * C), j = i / C % D4, c = i % C;
+    if (j < D)
+      cp_async4(wT + (ty * C + c) * D4 + j, w_stk + (size_t)(ty * D + j) * C + c);
+    else
+      wT[(ty * C + c) * D4 + j] = 0.0f;
+  }
+  for (int i = t; i < 4 * T * D; i += NT) cp_async4(v + i, aff + i);
+  cp_rows(nms, nm + row0, W);
+  for (int i = t; i < W; i += NT) tys[i] = types[row0 + i];
+  stage_rowsT(y1 + row0 * D, W, D, X, 0);  // x3 rows [0, D): y1, then s
+  stage_rowsT(y2 + row0 * D, W, D, X, D);  // rows [D, 2D): y2, then agg
+  stage_rowsT(feats + row0 * F, W, F, X, 2 * D);
+  if (rT != nullptr)
+    for (int i = t; i < W * D; i += NT) cp_async4(A + (i / D) * DP + i % D, rT + row0 * D + i);
+  if (kst)  // W * C1 is a multiple of 32
+    for (int i = 16 * t; i < W * C1; i += 16 * NT)
+      cp_async16(sm + L.kp + i / 4, reinterpret_cast<const float*>(kg + i));
+  if (p.E > 0) build_col_lists(adj, W, p.E, lw, idx, cnt, bytes + L.part_b);
+  cp_async_wait_all();
+  __syncthreads();
+  order_nodes(tys, W, T, ord, tst);
+  const uint8_t* kp = kst ? reinterpret_cast<const uint8_t*>(sm + L.kp) : kg;
+
+  // ---- s and s_old through the node's type's affines (multiply, then add,
+  // as the plain version rounds them), the movement test one thread a node,
+  // d ascending
+  for (int n = t; n < W; n += NT) {
+    const int ty = tys[n];
+    const float* sc1 = v + ty * D;
+    const float* sh1 = v + (T + ty) * D;
+    const float* sc2 = v + (2 * T + ty) * D;
+    const float* sh2 = v + (3 * T + ty) * D;
+    float dist2 = 0.0f, norm2 = 0.0f;
+    for (int d = 0; d < D; ++d) {
+      const float s = __fadd_rn(__fmul_rn(X[d * W + n], sc1[d]), sh1[d]);
+      const float so = __fadd_rn(__fmul_rn(X[(D + d) * W + n], sc2[d]), sh2[d]);
+      X[d * W + n] = s;
+      const float diff = __fsub_rn(s, so);
+      dist2 = __fadd_rn(dist2, __fmul_rn(diff, diff));
+      norm2 = __fadd_rn(norm2, __fmul_rn(so, so));
+    }
+    marg[row0 + n] = sqrtf(dist2) > thr * sqrtf(norm2) ? nms[n] : 0.0f;
+  }
+  __syncthreads();  // X rows [0, D) hold s; y2 is read
+
+  // ---- agg = adjT^T @ s (+ rT) into x3 rows [D, 2D) and the row buffer
+  for (int i = t; i < W * D; i += NT) {
+    const int n = i % W, d = i / W;
+    float a = line_dot(adj, W, n, true, p.E, lw, idx, cnt, X + d * W);
+    if (rT != nullptr) a += A[n * DP + d];
+    A[n * DP + d] = a;
+    X[(D + d) * W + n] = a;
+  }
+  __syncthreads();
+
+  // ---- agg out (before the dropout), x3 dropped in place
+  for (int i = t; i < W * D; i += NT) agg[row0 * D + i] = A[(i / D) * DP + i % D];
+  if (mode != kNoDrop)
+    for (int i = t; i < C1 * W; i += NT) {
+      const int c = i / W, n = i % W;
+      X[i] = drop(mode, da, db, X[i], kp[n * C1 + c] != 0);
+    }
+  __syncthreads();
+
+  // ---- y = act_t(h), h from the node's own type's rows in the per-node
+  // order (bias first, then c ascending), outputs j0 + i of node n, four a
+  // 16-byte read of wT; into the row buffer (agg is out)
+  constexpr int JT = MAXF * kMaxW / NT;
+  const int tpn = NT / W, n = t % W, part = t / W;
+  const int JB = round4((D + tpn - 1) / tpn), j0 = part * JB, j1 = min(D, j0 + JB);
+  if (part < tpn && j0 < D) {
+    const int ty = tys[n];
+    float h[JT];
+#pragma unroll
+    for (int q = 0; q < JT; q += 4) {
+      float b4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (j0 + q < j1) w_quad(wT, w_stk, ty, C1, j0 + q, C, D, D4, b4);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) h[q + u] = b4[u];
+    }
+    for (int c = 0; c < C1; ++c) {
+      const float x = X[c * W + n];
+#pragma unroll
+      for (int q = 0; q < JT; q += 4) {
+        if (j0 + q < j1) {
+          float w4[4];
+          w_quad(wT, w_stk, ty, c, j0 + q, C, D, D4, w4);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) h[q + u] = fmaf(w4[u], x, h[q + u]);
+        }
+      }
+    }
+    const int act = act_of(acts, ty);
+#pragma unroll
+    for (int i = 0; i < JT; ++i)
+      if (j0 + i < j1) A[n * DP + j0 + i] = activate(act, h[i]);
+  }
+  __syncthreads();
+
+  // ---- y out; msum, each type's nodes in their counting-sorted order
+  for (int i = t; i < W * D; i += NT) y[row0 * D + i] = A[(i / D) * DP + i % D];
+  for (int o = t; o < T * D; o += NT) {
+    const int tt = o / D, d = o % D;
+    float s = 0.0f;
+    for (int k = tst[tt]; k < tst[tt + 1]; ++k) {
+      const int m = ord[k];
+      s = fmaf(A[m * DP + d], nms[m], s);
+    }
+    msum[(size_t)r * T * D + o] = s;
+  }
+}
+
 bool shape_ok(int R, int Bl, int W, int D, int F, int T) {
   return R > 0 && Bl >= 0 && Bl <= R && W >= 32 && W <= kMaxW && W % 32 == 0 && D > 0 &&
          F >= 0 && T >= 1 && T <= 32 && width_class(D) != 0;
 }
 
-// Shared memory of a K16 launch: with the stacked weights when they fit a
-// CTA, else without (ops/typed.py::typed_smem_bytes mirrors it).
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int W, int D, int F, int T, size_t* bytes, int* stage_w) {
-  *bytes = sizeof(float) * (size_t)layout(W, D, F, T, true).total;
-  *stage_w = *bytes <= (size_t)kMaxSmemBytes;
-  if (!*stage_w) *bytes = sizeof(float) * (size_t)layout(W, D, F, T, false).total;
-  return set_smem(kernel, *bytes);
-}
+int g_force_fwd = -1;  // gnn_bnT_forward_force_plan
+
+using BnTFwdFn = void (*)(const float*, const float*, const float*, const float*, const float*,
+                          const uint8_t*, const uint8_t*, const float*, const float*,
+                          const float*, const float*, float*, float*, float*, float*, int, int,
+                          int, int, int, float, unsigned long long, int, float, float,
+                          BnTFwdPlan);
 
 template <int MAXF>
-cudaError_t launch_fwd(const float* adj_loop, const float* adj_dep, const float* y1,
-                       const float* y2, const float* aff, const uint8_t* types,
-                       const uint8_t* keep, const float* rT, const float* feats,
-                       const float* w_stk, const float* nm, float* y, float* agg, float* marg,
-                       float* msum, int R, int Bl, int W, int D, int F, int T, float thr,
-                       unsigned long long acts, int mode, float da, float db,
-                       cudaStream_t stream) {
-  size_t bytes;
-  int stage_w;
-  cudaError_t err = prepare(bnT_fwd_kernel<MAXF>, W, D, F, T, &bytes, &stage_w);
-  if (err != cudaSuccess) return err;
-  bnT_fwd_kernel<MAXF><<<R, W, bytes, stream>>>(adj_loop, adj_dep, y1, y2, aff, types, keep, rT,
-                                                 feats, w_stk, nm, y, agg, marg, msum, Bl, W, D,
-                                                 F, T, thr, acts, mode, da, db, stage_w);
-  return cudaGetLastError();
+BnTFwdFn fwd_variant(const BnTFwdPlan& p) {
+  return p.st ? bnT_fwd_kernel<MAXF, 256, true> : bnT_fwd_kernel<MAXF, 128, false>;
+}
+
+// K16's kernel and plan for a shape: the first plan of kBnTFwdPlans that
+// fits a CTA, or plan g_force_fwd (>= 0) if it fits; nullptr (bytes: the
+// last plan's) if none.
+BnTFwdFn pick_fwd(int W, int D, int F, int T, BnTFwdPlan* p, size_t* bytes, int* index) {
+  constexpr int N = sizeof(kBnTFwdPlans) / sizeof(kBnTFwdPlans[0]);
+  *index = -1;
+  for (int i = g_force_fwd >= 0 ? g_force_fwd : 0; i < N; ++i) {
+    *bytes = fwdT_layout(W, D, F, T, kBnTFwdPlans[i]).bytes;
+    if (*bytes <= (size_t)kMaxSmemBytes) {
+      *p = kBnTFwdPlans[i];
+      *index = i;
+      break;
+    }
+    if (g_force_fwd >= 0) break;
+  }
+  if (*index < 0) return nullptr;
+  switch (width_class(D)) {
+    case 16:
+      return fwd_variant<16>(*p);
+    case 32:
+      return fwd_variant<32>(*p);
+    case 64:
+      return fwd_variant<64>(*p);
+    default:
+      return nullptr;
+  }
 }
 
 int g_force = -1;  // gnn_bnT_backward_force_plan
@@ -716,11 +774,11 @@ BnTBwdFn pick_bwd(int W, int D, int F, int T, BnTBwdPlan* p, size_t* bytes, int*
 
 extern "C" {
 
-// adj_loop [Bl, W, W], adj_dep [R - Bl, W, W] (null when Bl == R); y1, y2,
-// rT (nullable) [R, W, D]; aff [2, 2, T, D]; types uint8 [R, W]; keep uint8
-// [R, W, 2D + F] (null when mode == 0); feats [R, W, F]; w_stk
-// [T * D, 2D + F + 1]; nm [R, W]; acts: type t's activation code at bits
-// 2t, 2t + 1 -> y, agg [R, W, D], marg [R, W], msum [R, T, D]. Returns a
+// adj_loop [Bl, W, W] (null when Bl == 0), adj_dep [R - Bl, W, W] (null when
+// Bl == R); y1, y2, rT (nullable) [R, W, D]; aff [2, 2, T, D]; types uint8
+// [R, W]; keep uint8 [R, W, 2D + F] (null when mode == 0); feats [R, W, F];
+// w_stk [T * D, 2D + F + 1]; nm [R, W]; acts: type t's activation code at
+// bits 2t, 2t + 1 -> y, agg [R, W, D], marg [R, W], msum [R, T, D]. Returns a
 // cudaError_t code.
 int gnn_bnT_forward(const float* adj_loop, const float* adj_dep, const float* y1,
                     const float* y2, const float* aff, const uint8_t* types, const uint8_t* keep,
@@ -729,19 +787,36 @@ int gnn_bnT_forward(const float* adj_loop, const float* adj_dep, const float* y1
                     int F, int T, float thr, unsigned long long acts, int mode, float da,
                     float db, void* stream) {
   if (!shape_ok(R, Bl, W, D, F, T)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (width_class(D)) {
-    case 16:
-      return launch_fwd<16>(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_stk, nm, y,
-                            agg, marg, msum, R, Bl, W, D, F, T, thr, acts, mode, da, db, st);
-    case 32:
-      return launch_fwd<32>(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_stk, nm, y,
-                            agg, marg, msum, R, Bl, W, D, F, T, thr, acts, mode, da, db, st);
-    default:
-      return launch_fwd<64>(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_stk, nm, y,
-                            agg, marg, msum, R, Bl, W, D, F, T, thr, acts, mode, da, db, st);
-  }
+  if (mode != kNoDrop && keep == nullptr) return cudaErrorInvalidValue;
+  BnTFwdPlan p;
+  size_t bytes;
+  int index;
+  const BnTFwdFn fn = pick_fwd(W, D, F, T, &p, &bytes, &index);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(fn, bytes);
+  if (err != cudaSuccess) return err;
+  fn<<<R, p.nt, bytes, static_cast<cudaStream_t>(stream)>>>(
+      adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_stk, nm, y, agg, marg, msum, Bl,
+      W, D, F, T, thr, acts, mode, da, db, p);
+  return cudaGetLastError();
 }
+
+// out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
+// a thread, local bytes a thread of the kernel gnn_bnT_forward launches for
+// this shape. Returns a cudaError_t code.
+int gnn_bnT_forward_info(int W, int D, int F, int T, int* out) {
+  BnTFwdPlan p;
+  size_t bytes;
+  int index;
+  const BnTFwdFn fn = pick_fwd(W, D, F, T, &p, &bytes, &index);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return tile_kernel_info(fn, bytes, index, out, p.nt);
+}
+
+// Launch plan `index` of kBnTFwdPlans from now on, where it fits (a launch
+// at a shape it does not fit fails), or the first plan that fits again
+// (index -1): for timing one plan against another.
+void gnn_bnT_forward_force_plan(int index) { g_force_fwd = index; }
 
 // As gnn_bnT_forward, plus y_prev, y_k, agg, ds_in, gsel [R, W, D]; bnv
 // [T, 9, D]; flag a device float (0 or 1) -> ds, dagg [R, W, D], dw

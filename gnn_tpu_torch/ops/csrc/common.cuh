@@ -2,10 +2,10 @@
 // eval_loop.cu, bn_fwd.cu, bn_train.cu, eval_loop_bwd.cu, train_loop.cu,
 // train_loop_bwd.cu, fused2.cu, loop2.cu, train_loop2_bwd.cu,
 // eval_loop2_bwd.cu, bn2_fwd.cu, bn2_train.cu, bn_typed.cu): the activations
-// of the Pallas kernels, the input dropout and its derivative, the staging
-// of block adjacencies and row blocks between device and shared memory and
-// the bias-augmented dense row of the BatchNorm kernels. The register-tiled
-// kernels build on tile2.cuh.
+// of the Pallas kernels, the input dropout and its derivative, and the
+// staging of block adjacencies and row blocks between device and shared
+// memory of the per-node kernels K4, K6 and K7. The redesigned kernels build
+// on tile2.cuh.
 
 #pragma once
 
@@ -114,28 +114,6 @@ __device__ inline const float* block_adj(const float* adj_loop, const float* adj
                                          int W) {
   const int r = blockIdx.x;
   return r < Bl ? adj_loop + (size_t)r * W * W : adj_dep + (size_t)(r - Bl) * W * W;
-}
-
-// The input dropout of this thread's dense-input row of n columns, in place.
-__device__ inline void drop_row(float* xrow, const uint8_t* krow, int n, int mode, float a,
-                                float b) {
-  if (mode == kNoDrop) return;
-  for (int c = 0; c < n; ++c) xrow[c] = drop(mode, a, b, xrow[c], krow[c] != 0);
-}
-
-// This thread's dense pre-activation h = w_aug @ [x3 row; 1] of a
-// bias-augmented weight w_aug [D][C] (the bias its last column), by rows of
-// the BatchNorm kernels (bn_train.cu, bn_typed.cu).
-template <int MAXF>
-__device__ void dense_aug(const float* w, const float* xrow, int D, int C, float (&h)[MAXF]) {
-#pragma unroll
-  for (int j = 0; j < MAXF; ++j) h[j] = j < D ? w[j * C + C - 1] : 0.0f;
-  for (int c = 0; c < C - 1; ++c) {
-    const float x = xrow[c];
-#pragma unroll
-    for (int j = 0; j < MAXF; ++j)
-      if (j < D) h[j] = fmaf(w[j * C + c], x, h[j]);
-  }
 }
 
 // Register-array width for a feature width: 16, 32 or 64 (0 = unsupported).

@@ -46,8 +46,8 @@ keep-masks uint8 [.., W, D]. Each wrapper runs its plain PyTorch version
 (`*_ref`) for CPU tensors and launches the CUDA kernel (ops/csrc/eval_loop.cu:
 K3; fused_eval.cu: K4; eval_loop_bwd.cu, train_loop.cu, train_loop_bwd.cu) for
 CUDA tensors; it never falls back from one to the other. `launches` counts
-kernel launches. K3 and K8 take the first of their shared-memory plans that
-fits a CTA (`_loop_plan`, `_train_bwd_plan`). On
+kernel launches. K3, K5 and K8 take the first of their shared-memory plans
+that fits a CTA (`_loop_plan`, `_loop_bwd_plan`, `_train_bwd_plan`). On
 MUTAG-shaped blocks every kernel's least time is set by the bytes it moves (the
 adjacency and the per-iteration rows); the designs and their limits are noted
 in the sources.
@@ -146,6 +146,11 @@ SMEM_BYTES = 232448          # shared memory a CTA may use (227 KB)
 # last fits every shape the per-node K3 took.
 _LOOP_PLANS = ((256, 16), (128, 0))
 
+# eval_loop_bwd.cu's kLoopBwdPlans, K5's shared-memory plans in order of
+# preference: whether w2, dfT and the dw2 partials are staged. The first is
+# the flagship's; the second fits every shape the per-node K5 took.
+_LOOP_BWD_PLANS = (1, 0)
+
 # train_loop_bwd.cu's kTrainBwdPlans, K8's shared-memory plans in order of
 # preference: whether the dw partials are kept in shared memory. The first is
 # the flagship's; the last fits every shape the per-node K8 took.
@@ -167,6 +172,22 @@ def _loop_bytes(W, D, plan):
     floats = (_r4(W * ((2 * D) | 1)) + 3 * _r4(W * (D | 1)) + D * _r4(2 * D) + _r4(2 * D)
               + _r4(W) + E * W)
     return 4 * floats + (W + E * W if E else 0)
+
+
+def _loop_bwd_bytes(W, D, st):
+    """Shared memory of eval_loop_bwd.cu::bwd_layout: s_in [D][W], du
+    [2D][W + 4], u [W][2D|1], gs [W][D|1], the daff partials [2][D] and the
+    affine's scale [D]; staged, dfT [W][D|1], the dw2 partials [2D][D], w2
+    transposed [D][2D rounded up to 4] and w2 [2D][D rounded up to 4]; the
+    column and row lists ([8][W] floats each, then W counts and 8*W indices
+    of each as bytes); each float region a multiple of 16 bytes. The widths
+    may be ints or numpy integer arrays."""
+    floats = (D * W + 2 * D * (W + 4) + _r4(W * ((2 * D) | 1)) + _r4(W * (D | 1)) + _r4(2 * D)
+              + _r4(D) + 16 * W)
+    if st:
+        floats = (floats + _r4(W * (D | 1)) + _r4(2 * D * D) + D * _r4(2 * D)
+                  + 2 * D * _r4(D))
+    return 4 * floats + 18 * W
 
 
 def _train_bwd_bytes(W, D, dw):
@@ -201,6 +222,11 @@ def _check_fits(need, plan, shape: str) -> None:
 def _loop_plan(W: int, D: int):
     """(shared-memory bytes, plan index) K3 takes at this shape (_first_plan)."""
     return _first_plan(_LOOP_PLANS, _loop_bytes, W, D)
+
+
+def _loop_bwd_plan(W: int, D: int):
+    """(shared-memory bytes, plan index) K5 takes at this shape (_first_plan)."""
+    return _first_plan(_LOOP_BWD_PLANS, _loop_bwd_bytes, W, D)
 
 
 def _train_bwd_plan(W: int, D: int):
@@ -543,6 +569,7 @@ def propagation_loop_bwd(adjT, s0, traj, fT, w2, affine, g_traj, activation: str
     K = traj.shape[0]
     D, H = s0.shape[-1], w2.shape[0] // 2
     _check_loop_width(D, H)
+    _check_fits(*_loop_bwd_plan(W, D), f"W={W}, D={D}")
     _check_block(adjT, D, H)
     dev = adjT.device
     _check("adjT", adjT, (B, W, W), dev)

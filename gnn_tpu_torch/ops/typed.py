@@ -35,9 +35,10 @@ inference affine at eval (rate 0, the moment sums ignored).
 Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
 launches the CUDA kernel (ops/csrc/bn_typed.cu) for CUDA tensors; it never
 falls back from one to the other. `launches` counts kernel launches. The
-kernels take D up to 64, at most MAX_TYPES types, and a block's rows within
-a CTA's shared memory (`typed_smem_bytes`); the stacked weights are staged
-there when they fit, else read through the L1/L2 caches.
+kernels take D up to 64, at most MAX_TYPES types, and the first of their
+shared-memory plans that fits a CTA (`_bnT_fwd_plan`, `_bnT_bwd_plan`); the
+stacked weights are staged there when they fit, else read through the L1/L2
+caches.
 """
 
 from __future__ import annotations
@@ -167,19 +168,33 @@ def bnT_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feat
 
 
 # ------------------------------------------------------------------ wrappers
-def typed_smem_bytes(W: int, D: int, F: int, T: int):
-    """(bytes, weights staged) of a K16 CTA's shared memory, as
-    bn_typed.cu::layout cuts it: the adjacency [W][W + 1], the x3 rows, a row
-    buffer, the per-type affines [2][2][T][D], the node mask and types,
-    the nodes ordered by type, the keep bits and, when they still fit the 227
-    KB a CTA may use, the stacked weights [T*D][C]; without them the kernel
-    reads the weights through the L1/L2 caches."""
-    C = 2 * D + F + 1
-    floats = (W * (W + 1) + W * ((C - 1) | 1) + W * (D | 1) + 4 * T * D
-              + 3 * W + T + 1 + (W * (C - 1) + 3) // 4)
-    if 4 * (floats + T * D * C) <= SMEM_BYTES:
-        return 4 * (floats + T * D * C), True
-    return 4 * floats, False
+# bn_typed.cu's kBnTFwdPlans, K16's shared-memory plans in order of
+# preference: (threads a CTA, room of the column lists, keep bytes staged,
+# stacked weights staged). The first is the composite recipe's; the last fits
+# every shape the per-node K16 took.
+_BNT_FWD_PLANS = ((256, 16, 1, 1), (256, 16, 1, 0), (128, 0, 0, 0))
+
+
+def _bnT_fwd_bytes(W, D, F, T, plan):
+    """Shared memory of bn_typed.cu::fwdT_layout: x3 [C1][W], with ws the
+    weights transposed [T][C][D rounded up to 4], the per-type affines
+    [4][T][D], nm [W], the types, their order and starts ([W], [W], [T + 1]
+    ints), the row buffer [W][D|1], with st the keep bytes; the column lists
+    ([E][W] floats, then W counts, E*W sources and the list build's counts
+    [threads / 32][W] as bytes); each float region a multiple of 16 bytes.
+    The widths may be ints or numpy integer arrays."""
+    nt, E, st, ws = plan
+    C1 = 2 * D + F
+    floats = (_r4(C1 * W) + ws * T * (C1 + 1) * _r4(D) + _r4(4 * T * D) + _r4(W) + 2 * W
+              + _r4(T + 1) + _r4(W * (D | 1)) + st * _r4((W * C1 + 3) // 4) + E * W)
+    return 4 * floats + (W + E * W + nt // 32 * W if E else 0)
+
+
+def _bnT_fwd_plan(W: int, D: int, F: int, T: int):
+    """(shared-memory bytes, plan index) K16 takes at this shape: the first
+    plan of _BNT_FWD_PLANS that fits a CTA, or the leanest plan's bytes and
+    None."""
+    return _first_plan(_BNT_FWD_PLANS, _bnT_fwd_bytes, W, D, F, T)
 
 
 # bn_typed.cu's kBnTBwdPlans, K17's shared-memory plans in order of
@@ -222,13 +237,13 @@ def backward_info(W: int, D: int, F: int, T: int) -> dict:
 def _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations, backward):
     """(Bl, W, T) after checking what K16/K17 take: the block rows and
     widths, the node types, at most MAX_TYPES types, the stacked weights and
-    a CTA's shared memory within the 227 KB cap (K16: without the weights,
-    typed_smem_bytes; K17: its leanest plan, _bnT_bwd_plan)."""
+    a CTA's shared memory within the 227 KB cap (the leanest plan of
+    _bnT_fwd_plan or _bnT_bwd_plan)."""
     Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
     T = len(activations)
     if not 1 <= T <= MAX_TYPES:
         raise ValueError(f"{T} node types: the typed kernels take 1..{MAX_TYPES}")
-    need = _bnT_bwd_plan(W, D, Fd, T)[0] if backward else typed_smem_bytes(W, D, Fd, T)[0]
+    need = (_bnT_bwd_plan if backward else _bnT_fwd_plan)(W, D, Fd, T)[0]
     if need > SMEM_BYTES:
         raise ValueError(f"W={W}, D={D}, F={Fd}, T={T} needs {need} bytes of shared memory a "
                          f"block, more than the {SMEM_BYTES} a CTA may use")

@@ -138,14 +138,15 @@ def test_bnT_backward_step_ref_matches_pallas(acts, rate, alpha, flag, Bl):
 
 def test_typed_kernel_shapes_checked():
     """K16/K17 stage the stacked weights in shared memory when they fit, read
-    them through the caches when they do not, and refuse shapes whose rows
-    alone exceed a CTA's 227 KB (K17: whose leanest plan does not fit,
-    ops/typed.py::_bnT_bwd_plan), and more than MAX_TYPES types."""
-    assert ttyped.typed_smem_bytes(128, 14, 3, 4) == (
-        4 * (128 * 129 + 128 * 31 + 128 * 15 + 4 * 4 * 14 + 3 * 128 + 5 + 128 * 31 // 4
-             + 4 * 14 * 32), True)
-    need, staged = ttyped.typed_smem_bytes(96, 64, 3, 8)
-    assert not staged and need <= SMEM_BYTES
+    them through the caches when they do not, and refuse shapes whose
+    leanest plan exceeds a CTA's 227 KB (ops/typed.py::_bnT_fwd_plan,
+    _bnT_bwd_plan), and more than MAX_TYPES types."""
+    need, plan = ttyped._bnT_fwd_plan(128, 14, 3, 4)
+    assert ttyped._BNT_FWD_PLANS[plan][3] == 1 and (need, plan) == (
+        4 * (128 * 31 + 4 * 32 * 16 + 4 * 4 * 14 + 3 * 128 + 8 + 128 * 15 + 128 * 31 // 4
+             + 16 * 128) + 128 + 16 * 128 + 8 * 128, 0)
+    need, plan = ttyped._bnT_fwd_plan(96, 64, 3, 8)
+    assert ttyped._BNT_FWD_PLANS[plan][3] == 0 and need <= SMEM_BYTES
     types = torch.zeros((2, 128), dtype=torch.uint8)
     adj = torch.zeros((2, 128, 128))
     with pytest.raises(ValueError, match=f"more than the {SMEM_BYTES}"):

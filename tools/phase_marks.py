@@ -9,15 +9,15 @@ iterations, and barriers inside called helpers fall into the enclosing segment.
 The copy and the unmarked source of every tree are built alone with the port's nvcc
 flags, all at once, and the kernel's wrapper runs each on chip_smoke.py's full-set
 operands (K1 and K2 at the flagship's BatchNorm route, K8 at its dropout route, K12
-at the h150 training route, K14 at the h150_bn route, K17 at the composite_bn route,
-K3 at the flagship serving batch's loop rows, K9 at the h150 serving batch's dep
-rows).
+at the h150 training route, K14 at the h150_bn route, K16 (iteration 2) and K17 at
+the composite_bn route, K3 at the flagship serving batch's loop rows, K9 at the
+h150 serving batch's dep rows, K5 at the clean route's loop rows).
 Printed: the instrumented and the unmarked launch's times (the marks' cost), then
 each segment's share of the cycles summed over the CTAs and its cycles a CTA, named
 by the source lines of the barriers that end it.
 
 Usage, from the repository root (a tree defaults to gnn_tpu_torch/ops/csrc):
-    python3 tools/phase_marks.py K1|K2|K3|K8|K9|K12|K14|K17 [name=tree ...]
+    python3 tools/phase_marks.py K1|K2|K3|K5|K8|K9|K12|K14|K16|K17 [name=tree ...]
 """
 
 import ctypes
@@ -38,7 +38,9 @@ KERNELS = {"K1": ("gnn_bn_forward", ("bn_fwd_kernel",)),
            "K14": ("gnn_bn2_forward", ("bn2_fwd_tile_kernel", "bn2_fwd_kernel")),
            "K17": ("gnn_bnT_backward", ("bnT_bwd_kernel",)),
            "K3": ("gnn_propagation_loop", ("loop_kernel",)),
-           "K9": ("gnn_propagation_step2", ("step2_tile_kernel", "step2_kernel"))}
+           "K9": ("gnn_propagation_step2", ("step2_tile_kernel", "step2_kernel")),
+           "K16": ("gnn_bnT_forward", ("bnT_fwd_kernel",)),
+           "K5": ("gnn_propagation_loop_bwd", ("loop_bwd_kernel",))}
 HEAD = """
 namespace {
 __device__ unsigned long long* g_phase;
@@ -122,12 +124,19 @@ def main():
         elif kernel == "K14":
             _, x, kw, _ = cs.two_layer_train_kernel_inputs(torch, gb_train)
             fn, x, rows = bn.bn2_forward_step, dict(x, **kw), x["y1"].shape[0]
-        elif kernel == "K17":
+        elif kernel in ("K16", "K17"):
             comp = cs.composite_model(torch, "cuda")
             typed_gs = cs.typed_graphs(graphs)
             gb_typed = Predictor(comp).build_batch(typed_gs).to("cuda")
-            _, _, x, kw, _ = cs.typed_kernel_inputs(torch, comp, comp.to_batch(typed_gs), gb_typed)
-            fn, x, rows = typed.bnT_backward_step, dict(x, **kw), x["y_prev"].shape[0]
+            (_, x1), kw1, x, kw, _ = cs.typed_kernel_inputs(torch, comp, comp.to_batch(typed_gs),
+                                                            gb_typed)
+            if kernel == "K16":
+                fn, x, rows = typed.bnT_forward_step, dict(x1, **kw1), x1["y1"].shape[0]
+            else:
+                fn, x, rows = typed.bnT_backward_step, dict(x, **kw), x["y_prev"].shape[0]
+        elif kernel == "K5":
+            x = cs.bnfree_kernel_inputs(torch, gb_train)[0]
+            fn, rows = fused.propagation_loop_bwd, x["adjT"].shape[0]
         elif kernel == "K3":
             gb = Predictor(model).build_batch(graphs).to("cuda")
             spec = model.spec

@@ -3,8 +3,8 @@
 other on one CUDA card: K10 and K12 (the two-layer forward loops), the
 register-tiled reverse kernels K13, K11 and K15, the BatchNorm step K1 and its
 reverse K2, the dropout loop's reverse K8, the two-layer BatchNorm step K14,
-the typed reverse K17, the flagship's eval loop K3 and the two-layer eval step
-K9.
+the typed reverse K17, the flagship's eval loop K3, the two-layer eval step
+K9, the typed BatchNorm step K16 and the clean route's eval-loop reverse K5.
 
 Each tree's source that holds a kernel's C entry (a kernel may move between
 files: K12 lies in fused2.cu in older trees, in loop2.cu in newer ones) is
@@ -16,24 +16,28 @@ h150_clean's, K14 and K15 at h150_bn's, K1 and K2 at the flagship's BatchNorm
 route's, K8 at the flagship's dropout route's, K17 at composite_bn's, K3 at
 the flagship serving batch's loop rows, K9 at the h150 serving batch's dep
 rows and at the flat layout's 1536 rows, with and without its residual term,
-and K3 and K9 also at the edges of their design, chip_smoke.py's) every
-tree's outputs are held to the first tree's, bit for bit for K13, K10, K1, K8,
-K14, K17, K3 and K9 (the same sums in every tree), reported for the others,
-and each tree's largest per-node difference from the plain version is
-printed; K3 and K9 are held so at every plan of every tree that has their
-gnn_*_force_plan entry, forced in turn. Then each kernel is timed with CUDA
-events as chip_smoke.py times it (K3 and K9 also by the profiler's device time
-a call, which a launch-sized call's host work does not enter), on its full-set
-cases, the trees in turn and back (a, b, b, a), and, for K11, K15, K12, K1, K2, K8, K14, K17, K3 and K9, at
-each plan of the current plan lists (ops/fused2.py::_PLANS,
-ops/bn.py::_BN_FWD_PLANS and _BN_BWD_PLANS, ops/fused.py::_TRAIN_BWD_PLANS
-and _LOOP_PLANS, ops/typed.py::_BNT_BWD_PLANS) through the tree's
-gnn_*_force_plan entry, where it has one and the plan fits. `only=K3,K9`
-limits the run (builds, operands, checks and times) to those kernels.
+K16 at composite_bn's 1214 training rows (iteration 2) and the composite
+serving path's 1550 rows, K5 at the clean route's 1104 loop rows with and
+without an affine, and K3, K9, K16 and K5 also at the edges of their design,
+chip_smoke.py's) every tree's outputs are held to the first tree's, bit for
+bit for K13, K10, K1, K8, K14, K17, K3, K9, K16 and K5 (the same sums in every
+tree), reported for the others, and each tree's largest per-node difference
+from the plain version is printed; K3, K9, K16 and K5 are held so at every
+plan of every tree that has their gnn_*_force_plan entry, forced in turn.
+Then each kernel is timed with CUDA events as chip_smoke.py times it (K3, K9,
+K16 and K5 also by the profiler's device time a call, which a launch-sized
+call's host work does not enter), on its full-set cases, the trees in turn
+and back (a, b, b, a), and, for K11, K15, K12, K1, K2, K8, K14, K17, K3, K9,
+K16 and K5, at each plan of the current plan lists (ops/fused2.py::_PLANS,
+ops/bn.py::_BN_FWD_PLANS and _BN_BWD_PLANS, ops/fused.py::_TRAIN_BWD_PLANS,
+_LOOP_PLANS and _LOOP_BWD_PLANS, ops/typed.py::_BNT_BWD_PLANS and
+_BNT_FWD_PLANS) through the tree's gnn_*_force_plan entry, where it has one
+and the plan fits. `only=K16,K5` limits the run (builds, operands, checks and
+times) to those kernels.
 ptxas's report of each build goes to build/tiled_ab/ptxas.log.
 
 Usage, from the repository root, with a parent checkout unpacked under build/:
-    python3 tools/tiled_ab.py [only=K3,K9] parent=build/parent/gnn_tpu_torch/ops/csrc \\
+    python3 tools/tiled_ab.py [only=K16,K5] parent=build/parent/gnn_tpu_torch/ops/csrc \\
         new=gnn_tpu_torch/ops/csrc
 """
 
@@ -53,7 +57,10 @@ KERNELS = {"K10": ("gnn_propagation_loop2", True), "K12": ("gnn_train_loop2", Fa
            "K15": ("gnn_bn2_backward", False), "K1": ("gnn_bn_forward", True),
            "K2": ("gnn_bn_backward", False), "K8": ("gnn_train_loop_bwd", True),
            "K14": ("gnn_bn2_forward", True), "K17": ("gnn_bnT_backward", True),
-           "K3": ("gnn_propagation_loop", True), "K9": ("gnn_propagation_step2", True)}
+           "K3": ("gnn_propagation_loop", True), "K9": ("gnn_propagation_step2", True),
+           "K16": ("gnn_bnT_forward", True), "K5": ("gnn_propagation_loop_bwd", True)}
+# the kernels held at every plan forced and timed by device time too
+PLANNED = ("K3", "K9", "K16", "K5")
 
 
 def source_of(tree, entry):
@@ -139,15 +146,17 @@ def main():
     def k8():
         return once("k8", lambda: cs.bnfree_kernel_inputs(torch, gb_train)[3])
 
-    def k17():
+    def typed_full():
         def build():
             comp = cs.composite_model(torch, "cuda")
             typed_gs = cs.typed_graphs(graphs)
-            _, _, x17, kw17, _ = cs.typed_kernel_inputs(
-                torch, comp, comp.to_batch(typed_gs),
-                Predictor(comp).build_batch(typed_gs).to("cuda"))
-            return dict(x17, **kw17), comp.spec.n_types
-        return once("k17", build)
+            return cs.typed_kernel_inputs(torch, comp, comp.to_batch(typed_gs),
+                                          Predictor(comp).build_batch(typed_gs).to("cuda"))
+        return once("typed", build)
+
+    def k17():
+        _, _, x17, kw17, _ = typed_full()
+        return dict(x17, **kw17), x17["bnv"].shape[0]
 
     gen = torch.Generator().manual_seed(cs.SEED + 40)
 
@@ -205,6 +214,57 @@ def main():
             cases += [(label, x, False), (label + ", res=False", dict(x, rT=None), False)]
         return cases
 
+    def k16_cases():
+        """K16 at composite_bn's training rows (iteration 2) and the composite
+        serving path's rows, then at chip_smoke.py's edges of its design that
+        the per-node kernel took."""
+        (_, x1), kw, _, _, (ev, kwe) = typed_full()
+        cases = [(f"training rows ({x1['y1'].shape[0]})", dict(x1, **kw), True),
+                 (f"serving rows ({ev['y1'].shape[0]})", dict(ev, **kwe), True)]
+        for R, Bl, W, D, F, acts, rate, res, edge in (
+                (3, 1, 32, 1, 3, ("tanh", "selu"), 0.1, True, "W 32, D 1"),
+                (3, 2, 128, 64, 3, ("selu", "tanh"), 0.1, True, "D 64"),
+                (3, 2, 128, 14, 3, ("selu",) * 4, 0.1, True, "a dense block"),
+                (3, 2, 128, 14, 3, ("selu", "relu", "tanh"), 0.1, True, "a destination of 40 arcs"),
+                (3, 2, 128, 14, 3, ("selu",), 0.1, True, "T 1"),
+                (3, 2, 128, 14, 3, ("selu", "tanh", "relu", "linear") * 2, 0.1, True,
+                 "T 8, mixed activations"),
+                (3, 2, 128, 14, 3, ("selu",) * 4, 0.0, False, "no dropout, no rT"),
+                (3, 2, 128, 64, 3, ("selu",) * 8, 0.1, True, "weights read through the caches")):
+            f, _, k = cs.random_typed_inputs(torch, gen, R, Bl, W, D, F, acts, rate, True, res,
+                                             None, "cuda")
+            if edge == "a dense block":
+                f = dict(f, adj_loop=cs.random_adj(torch, gen, Bl, W, "cuda", dense=True),
+                         adj_dep=cs.random_adj(torch, gen, R - Bl, W, "cuda", dense=True))
+            if edge == "a destination of 40 arcs":
+                for a in (f["adj_loop"], f["adj_dep"]):
+                    a[:, :40, 5] = 0.05
+            cases.append((edge, dict(f, **k, threshold=0.05), False))
+        return cases
+
+    def k5_cases():
+        """K5 at the clean route's loop rows without and with an affine, then
+        at chip_smoke.py's edges of its design, with and without the affine."""
+        x5 = cs.bnfree_kernel_inputs(torch, gb_train)[0]
+        D = x5["s0"].shape[-1]
+        aff = torch.stack([torch.rand(D, generator=gen) + 0.5,
+                           0.1 * torch.randn(D, generator=gen)]).to("cuda")
+        cases = [(f"loop rows ({x5['adjT'].shape[0]})", x5, True),
+                 (f"loop rows ({x5['adjT'].shape[0]}), affine", dict(x5, affine=aff), True)]
+        for B, W, D, K, act, edge in ((4, 32, 1, 3, "tanh", "W 32, D 1"),
+                                      (2, 64, 64, 2, "selu", "D 64 at W 64"),
+                                      (2, 128, 64, 2, "selu", "D 64"),
+                                      (3, 128, 14, 3, "selu", "a dense block"),
+                                      (3, 128, 14, 3, "relu", "a node of 40 arcs each way"),
+                                      (3, 128, 14, 1, "selu", "K 1"),
+                                      (3, 128, 14, 5, "tanh", "K 5")):
+            x = cs.random_bnfree_inputs(torch, gen, B, W, D, D, K, 0.0, True, act, "cuda",
+                                        dense=edge == "a dense block",
+                                        line=edge == "a node of 40 arcs each way",
+                                        column=edge == "a node of 40 arcs each way")[0]
+            cases += [(edge + ", affine", x, False), (edge, dict(x, affine=None), False)]
+        return cases
+
     def full(x):
         return [("full set", x, True)]
 
@@ -233,9 +293,14 @@ def main():
                        lambda x: dims2(x, "s0")),
         "K9": lambda: (fused2, "propagation_step2", k9_cases(), fused2._PLANS["K9"],
                        lambda x: dims2(x, "s", "feats", "w0")),
+        "K16": lambda: (typed, "bnT_forward_step", k16_cases(), typed._BNT_FWD_PLANS,
+                        lambda x: dims2(x, "y1", "feats") + (x["aff"].shape[2],)),
+        "K5": lambda: (fused, "propagation_loop_bwd", k5_cases(), fused._LOOP_BWD_PLANS,
+                       lambda x: dims2(x, "s0")),
     }
     nbytes = {"K1": bn._bn_fwd_bytes, "K2": bn._bn_bwd_bytes, "K8": fused._train_bwd_bytes,
-              "K17": typed._bnT_bwd_bytes, "K3": fused._loop_bytes}
+              "K17": typed._bnT_bwd_bytes, "K3": fused._loop_bytes, "K16": typed._bnT_fwd_bytes,
+              "K5": fused._loop_bwd_bytes}
 
     def dims2(x, rows, f=None, w0=None):
         """(W, D[, F or AL[, H1]]) of a kernel's operands."""
@@ -270,7 +335,7 @@ def main():
                         torch.cuda.synchronize()
                         cs.say(f"{k} {label}, {t}: largest per-node difference from the plain "
                                f"version {float((outs[t][0] - want[0]).abs().max()):.3e}")
-                    if k in ("K3", "K9"):   # every plan of every tree that forces them
+                    if k in PLANNED:   # every plan of every tree that forces them
                         for t in names:
                             force = getattr(libs[t, k], entry + "_force_plan", None)
                             for i, plan in enumerate(plan_list if force else ()):
@@ -308,7 +373,7 @@ def main():
                                 force(plan)
                             try:
                                 times.append((t, round(cs.timed_ms(torch, lambda: fn(**x)), 4)))
-                                if k in ("K3", "K9"):   # and the profiler's device time a call
+                                if k in PLANNED:   # and the profiler's device time a call
                                     times.append((t + " device",
                                                   round(cs.device_ms(torch, lambda: fn(**x)), 4)))
                             finally:
