@@ -10,12 +10,17 @@
    the shapes the serving path gives them on the full MUTAG-shaped set and
    at ragged small shapes, holds each against its plain PyTorch version on
    the same CUDA tensors (states within 1e-5, movement flags equal) and
-   times both with CUDA events. K3's shared-memory plans and occupancy are
+   times both with CUDA events, K4 (launch-sized at the 110 dep rows) also by
+   the profiler's device time a call. K3's shared-memory plans and occupancy are
    printed, and each of its plans that fits the full set is forced and timed
    (bit-identical to the default plan); K3 also runs at the edges of its
    design (W 32 with D = 1, D = 64, W 96, a dense block, a destination of 40
    arcs, K = 1), each plan forced there too, a repeat launch bit-identical,
-   its plan equal to ops/fused.py::_loop_plan's.
+   its plan equal to ops/fused.py::_loop_plan's. K4 (redesigned, one plan)
+   prints its occupancy at the full set and runs at the edges of its design
+   (W 32 with D = H = 1, D = H = 64, W 96, a dense block, a destination of 40
+   arcs, D != H), with and without rT, a repeat launch bit-identical, its
+   shared memory equal to ops/fused.py::_step_bytes'.
 4. Serving path: serves the flagship graph-focus GNN (MUTAG widths 14/3/2,
    selu state net with BatchNorm, softmax readout, K=5, threshold 0.01,
    seeded random weights) through Predictor: warmup, then 8 requests. K3 and
@@ -50,7 +55,14 @@
    D = 64 at W 64 and 128, a dense block, a node of 40 arcs each way, K = 1
    and 5, each with and without the affine) against its plain version, a
    repeat launch and every plan forced bit-identical, its plan equal to
-   ops/fused.py::_loop_bwd_plan's, the cases reaching both its plans.
+   ops/fused.py::_loop_bwd_plan's, the cases reaching both its plans. K7
+   (redesigned, one plan) repeats bit for bit on the full set and prints its
+   occupancy; it runs at the edges of its design (W 32 with D = 1, D = 64,
+   W 96, a dense block, a destination of 40 arcs, K = 1), each in the three
+   dropout modes, against its plain version, a repeat launch bit-identical,
+   its shared memory equal to ops/fused.py::_train_loop_bytes'. K6
+   (launch-sized at the 110 dep rows) is also timed by the profiler's device
+   time a call.
 7. Two-layer kernels: runs K9 (propagation_step2) and K10
    (propagation_loop2) at the shapes the hidden-150 recipe's serving path
    gives them on the full set, K12 (train_loop2) and K13 (train_loop2_bwd)
@@ -73,8 +85,8 @@
    lists; at the full set the resident CTAs an SM, registers and local bytes
    a thread are printed, and each plan of K9 and K12 that fits is forced and
    timed (the build's ptxas report goes to chiprun_out/nvcc.log; the registers
-   and spills of K3, K9, K10, K12, K1, K2, K8, K14 and K17 are printed after
-   the build). The
+   and spills of K3, K4, K7, K9, K10, K12, K1, K2, K8, K14, K16, K17 and K5
+   are printed after the build). The
    reverse kernels K2, K11, K13 and K15 differentiate selu: a hidden
    pre-activation within rounding of 0 lets
    the kernel and the plain version take different, equally valid
@@ -184,8 +196,8 @@
    step over every block row) and one composite_bn step (K16/K17) on the
    whole set, counted and held to the CPU as phase 12 holds its paths; K4,
    K9 and K6 against their plain versions and timed at these shapes beside
-   their dep-row times, K9 with each of its plans forced and timed
-   (bit-identical).
+   their dep-row times, K4 and K9 by device time too, K9 with each of its
+   plans forced and timed (bit-identical).
 
 Prints a JSON line of per-kernel numbers (K1-K18), then as its
 last line {"ok": true, "device": {...}}. Any failed check exits non-zero
@@ -259,13 +271,16 @@ def phase_build():
 
 
 # the kernels whose registers and spills the build's report is read for, by
-# their mangled names: K3 (eval_loop.cu, threads), K9 (fused2.cu, MAXF), K10
+# their mangled names: K3 (eval_loop.cu, threads), K4 (fused_eval.cu,
+# threads), K7 (train_loop.cu, threads), K9 (fused2.cu, MAXF), K10
 # and K12 (loop2.cu, MAXF, TRAIN), K1 (bn_fwd.cu,
 # MAXF, threads, keep bytes staged), K2 (bn_train.cu, MAXF, threads, rows
 # staged), K8 (train_loop_bwd.cu, one kernel), K14 (bn2_fwd.cu,
 # MAXF), K17 (bn_typed.cu, MAXF, threads, rows staged), K16 (bn_typed.cu,
 # MAXF, threads, keep bytes staged), K5 (eval_loop_bwd.cu, one kernel)
 PTXAS_KERNELS = ((r"11loop_kernelILi(\d+)E", "K3 threads={}"),
+                 (r"11step_kernelILi(\d+)E", "K4 threads={}"),
+                 (r"17train_loop_kernelILi(\d+)E", "K7 threads={}"),
                  (r"step2_tile_kernelILi(\d+)E", "K9 MAXF={}"),
                  (r"loop2_tile_kernelILi(\d+)ELb0E", "K10 MAXF={}"),
                  (r"loop2_tile_kernelILi(\d+)ELb1E", "K12 MAXF={}"),
@@ -432,6 +447,31 @@ def phase_kernels(torch, model, gb):
                                    (3, 128, 20, 64, "selu", True)):
         check_step(torch, fused, random_inputs(torch, gen, B, W, D, H, dev, res=res), act_r,
                    "ragged")
+    # K4's occupancy and a repeat launch, with and without rT; then K4 at the
+    # edges of its design (W 32 with D = H = 1, D = H = 64, W 96, a dense
+    # block, a destination of 40 arcs, D != H), each with and without rT:
+    # against its plain version and a repeat launch bit-identical, the shared
+    # memory the library takes held to the mirror's
+    x4 = dict(step, activation=act)
+    dims4 = (step["adjT"].shape[1], step["s"].shape[-1], step["w2"].shape[0] // 2, 0)
+    check_tiled(torch, "K4", step_out, x4, dims4)
+    check_plans(torch, "K4", step_out, dict(x4, rT=None), dims4, "full set, rT=None")
+    for B, W, D, H, act_r, edge in ((4, 32, 1, 1, "tanh", "W 32, D = H = 1"),
+                                    (2, 128, 64, 64, "selu", "D = H = 64"),
+                                    (3, 96, 14, 14, "relu", "W 96"),
+                                    (3, 128, 14, 14, "selu", "a dense block"),
+                                    (3, 128, 14, 14, "tanh", "a destination of 40 arcs"),
+                                    (3, 64, 6, 9, "relu", "D 6, H 9"),
+                                    (2, 128, 64, 5, "selu", "D 64, H 5")):
+        small = random_inputs(torch, gen, B, W, D, H, dev, res=True)
+        if edge == "a dense block":
+            small["adjT"] = random_adj(torch, gen, B, W, dev, dense=True)
+        if edge == "a destination of 40 arcs":
+            small["adjT"][:, :40, 5] = 0.05
+        for x in (small, dict(small, rT=None)):
+            label = f"tiling edge ({edge}, res={x['rT'] is not None})"
+            check_step(torch, fused, x, act_r, label)
+            check_plans(torch, "K4", step_out, dict(x, activation=act_r), (W, D, H, 0), label)
 
     def run3(f):
         return lambda: f(loop["adjT"], loop["s0"], loop["fT"], loop["w2"], loop["affine"],
@@ -470,15 +510,22 @@ def phase_kernels(torch, model, gb):
     for k, v in out.items():
         say(f"{k} timing at {('adjT ' + str(tuple((loop if k == 'K3' else step)['adjT'].shape)))}: "
             f"kernel {v['ms']:.4f} ms, plain {v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
-            f"({v['bound_by']})" + (f"; each plan forced: {plans3}" if k == "K3" else ""))
+            f"({v['bound_by']})" + (f"; each plan forced: {plans3}" if k == "K3" else
+                                   f"; device time a call: kernel "
+                                   f"{device_ms(torch, run4(fused.propagation_step), 1):.4f} ms, "
+                                   f"plain {device_ms(torch, run4(fused.propagation_step_ref)):.4f}"
+                                   f" ms"))
     return out
 
 
-def device_ms(torch, fn, runs=50):
+def device_ms(torch, fn, launches=None, runs=50):
     """Device time per call of fn: the device time of every kernel
     torch.profiler records over `runs` calls, without the host's time between
     launches (which CUDA events over back-to-back calls include when a call's
-    host work outlasts its kernels)."""
+    host work outlasts its kernels). With `launches`, the kernels a call
+    launches, the records are counted: where the profiler returned fewer
+    than runs * launches, that is printed and the time is their mean times
+    `launches`."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -486,9 +533,15 @@ def device_ms(torch, fn, runs=50):
         for _ in range(runs):
             fn()
         torch.cuda.synchronize()
-    total = sum(e.self_device_time_total for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA)
-    return total / runs / 1e3
+    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in rows)
+    if launches is None:
+        return total / runs / 1e3
+    seen = sum(e.count for e in rows)
+    if seen != runs * launches:
+        say(f"device_ms: the profiler returned {seen} kernel records of the {runs * launches} "
+            f"launches")
+    return total / max(seen, 1) * launches / 1e3
 
 
 def phase_profile(torch, fwd, runs=5, what="full-set forward"):
@@ -1001,6 +1054,27 @@ def phase_bnfree_kernels(torch, gb):
             (3, 64, 64, 64, 2, 0.1, False, "selu")):
         check_bnfree(torch, *random_bnfree_inputs(torch, gen, B, W, D, H, K, rate, alpha, act,
                                                   gb.device), "ragged")
+    # K7's occupancy and a repeat launch; then K7 at the edges of its design
+    # (W 32 with D 1, D 64, W 96, a dense block, a destination of 40 arcs,
+    # K 1) in each dropout mode (alpha, standard, none): against its plain
+    # version and a repeat launch bit-identical (traj, margins, agg), the
+    # shared memory the library takes held to the mirror's
+    check_tiled(torch, "K7", fused.train_loop, k7, (k7["adjT"].shape[1], k7["s0"].shape[-1], 0, 0))
+    gen7 = torch.Generator().manual_seed(SEED + 10)
+    for B, W, D, K, act, edge in ((4, 32, 1, 3, "tanh", "W 32, D 1"),
+                                  (2, 128, 64, 2, "selu", "D 64"),
+                                  (3, 96, 14, 4, "relu", "W 96"),
+                                  (3, 128, 14, 3, "selu", "a dense block"),
+                                  (3, 128, 14, 3, "tanh", "a destination of 40 arcs"),
+                                  (3, 128, 14, 1, "selu", "K 1")):
+        for rate, alpha in ((0.1, True), (0.1, False), (0.0, True)):
+            x7 = random_bnfree_inputs(torch, gen7, B, W, D, D, K, rate, alpha, act, gb.device,
+                                      dense=edge == "a dense block",
+                                      column=edge == "a destination of 40 arcs")[2]
+            label = f"tiling edge ({edge}: B={B} W={W} D={D} K={K} {act} rate={rate} alpha={alpha})"
+            check_plain(torch, f"K7 {label}", *against_plain(torch, fused, "train_loop", x7),
+                        ("traj", "margins", "agg"), exact=("margins",))
+            check_plans(torch, "K7", fused.train_loop, x7, (W, D, 0, 0), label)
     # K8's plan and occupancy and each of its plans that fits forced and
     # timed; then K8 at the edges of its design (W 32 with D 1, D 64, a
     # dense block, a source of 40 arcs, K 1 and 5) through check_bwd2, the
@@ -1041,8 +1115,10 @@ def phase_bnfree_kernels(torch, gb):
                       bound_ms=b, bound_by=by, library_ms=None)
         say(f"{k} timing at adjT {tuple(x['adjT'].shape)}: kernel {out[k]['ms']:.4f} ms, plain "
             f"{out[k]['plain_ms']:.4f} ms, bound {b:.4f} ms ({by})"
-            + (f"; device time a call {device_ms(torch, lambda: kernel(**x)):.4f} ms"
-               if k == "K5" else "")
+            + (f"; device time a call {device_ms(torch, lambda: kernel(**x), 1):.4f} ms"
+               if k in ("K5", "K7") else "")
+            + (f"; device time a call: kernel {device_ms(torch, lambda: kernel(**x), 1):.4f} ms, "
+               f"plain {device_ms(torch, lambda: plain(**x)):.4f} ms" if k == "K6" else "")
             + (f"; each plan forced: {plans_ms}" if k == "K8" else "")
             + (f"; each plan forced: {plans5}" if k == "K5" else ""))
     return out
@@ -1477,7 +1553,7 @@ def phase_two_layer_train_kernels(torch, gb):
 TILED = ("K9", "K10", "K11", "K12", "K13", "K14", "K15", "K1", "K2", "K3", "K8", "K17", "K16",
          "K5")
 # the kernels with plans of their own threads a CTA (the rest run 256)
-PLAN_THREADS = ("K1", "K2", "K3", "K17", "K16")
+PLAN_THREADS = ("K1", "K2", "K3", "K17", "K16", "K4", "K7")
 
 
 def plan_kernel(k):
@@ -1494,6 +1570,11 @@ def plan_kernel(k):
                    "gnn_bn_backward"),
             "K3": (fused._LOOP_PLANS, lambda W, D, AL, H1, p: fused._loop_bytes(W, D, p),
                    "gnn_propagation_loop"),
+            # K4's third width is H, the state width it writes
+            "K4": ((fused._STEP_PLAN,), lambda W, D, H, H1, p: fused._step_bytes(W, D, H),
+                   "gnn_propagation_step"),
+            "K7": ((fused._TRAIN_LOOP_PLAN,),
+                   lambda W, D, AL, H1, p: fused._train_loop_bytes(W, D), "gnn_train_loop"),
             "K8": (fused._TRAIN_BWD_PLANS, lambda W, D, AL, H1, p: fused._train_bwd_bytes(W, D, p),
                    "gnn_train_loop_bwd"),
             "K17": (typed._BNT_BWD_PLANS, typed._bnT_bwd_bytes, "gnn_bnT_backward"),
@@ -1527,9 +1608,9 @@ def plan_info(k, W, D, AL, H1):
 def tiled_plan(k, W, D, AL, H1):
     """The shared-memory plan the library takes for kernel k at this shape,
     held equal to the Python mirror's (ops/fused2.py::_tile2_plan,
-    ops/bn.py::_bn_plan, ops/fused.py::_loop_plan, _loop_bwd_plan and
-    _train_bwd_plan, ops/typed.py::_bnT_fwd_plan and _bnT_bwd_plan), and what
-    the card reports for it."""
+    ops/bn.py::_bn_plan, ops/fused.py::_loop_plan, _loop_bwd_plan,
+    _train_bwd_plan, _step_bytes and _train_loop_bytes, ops/typed.py::_bnT_fwd_plan
+    and _bnT_bwd_plan), and what the card reports for it."""
     info = plan_info(k, W, D, AL, H1)
     need, plan = mirrored_plan(k, W, D, AL, H1)
     if (info["plan"], info["smem_bytes"]) != (plan, need):
@@ -1568,27 +1649,34 @@ def check_tiled(torch, k, kernel, x, dims):
 
 
 def check_plans(torch, k, kernel, x, dims, label):
-    """Kernel k (K3, K9, K16, K5) at a shape: a second launch and each plan that fits,
-    forced in turn, bit-identical to the first launch; the plan the library
-    takes held to the mirror's."""
+    """Kernel k (K3, K4, K7, K9, K16, K5) at a shape: a second launch and each plan that fits,
+    forced in turn (K4 and K7 have one plan), bit-identical to the first
+    launch; the plan the library takes held to the mirror's."""
     from gnn_tpu_torch.ops import fused2
     info = tiled_plan(k, *dims)
     first = kernel(**x)
     runs = {"a second launch": kernel(**x)}
-    force = force_entry(k)
-    try:
-        for i, plan in enumerate(plans_of(k)):
-            if plan_bytes(k, plan, *dims) <= fused2.SMEM_BYTES:
-                force(i)
-                runs[f"plan {i} forced"] = kernel(**x)
-    finally:
-        force(-1)
+    if len(plans_of(k)) > 1:
+        force = force_entry(k)
+        try:
+            for i, plan in enumerate(plans_of(k)):
+                if plan_bytes(k, plan, *dims) <= fused2.SMEM_BYTES:
+                    force(i)
+                    runs[f"plan {i} forced"] = kernel(**x)
+        finally:
+            force(-1)
     torch.cuda.synchronize()
     for what, got in runs.items():
         if not all(a is None or bool(torch.equal(a, b)) for a, b in zip(got, first)):
             fail(f"{k} {label}: {what} is not bit-identical to the first launch (plan "
                  f"{info['plan']})")
     say(f"{k} {label}: {', '.join(runs)} bit-identical to the first launch (plan {info['plan']})")
+
+
+def step_out(**x):
+    """K4's wrapper with its one output as a tuple, as the plan checks take it."""
+    from gnn_tpu_torch.ops import fused
+    return (fused.propagation_step(**x),)
 
 
 def step2_out(**x):
@@ -2251,6 +2339,10 @@ def phase_flat_layout(torch, graphs, typed, requests, n_arcs, dep_ms):
                         x["w0"].shape[0])
                 plans = (f"; device time a call {device_ms(torch, lambda: step2_out(**x)):.4f} ms"
                          f"; each plan forced: {time_plans(torch, k, step2_out, x, dims, (got[0],))}")
+            if k == "K4":
+                dims = (x["adjT"].shape[1], x["s"].shape[-1], x["w2"].shape[0] // 2, 0)
+                check_tiled(torch, k, step_out, x, dims)
+                plans = f"; device time a call {device_ms(torch, lambda: step_out(**x), 1):.4f} ms"
             say(f"{k} at the all-dep shape adjT {tuple(x['adjT'].shape)}: kernel {ms:.4f} ms, "
                 f"plain {plain:.4f} ms, max per-node difference {err:.3e}; at the dep rows "
                 f"{dep_ms[k]:.4f} ms{plans}")

@@ -4,8 +4,9 @@
 // eval_loop2_bwd.cu, bn2_fwd.cu, bn2_train.cu, bn_typed.cu): the activations
 // of the Pallas kernels, the input dropout and its derivative, and the
 // staging of block adjacencies and row blocks between device and shared
-// memory of the per-node kernels K4, K6 and K7. The redesigned kernels build
-// on tile2.cuh.
+// memory and the dense column contraction (stage_adj, stage_in, stage_out,
+// aggregate_col) of the one kernel still per-node, K6 (train_loop.cu). The
+// redesigned kernels build on tile2.cuh.
 
 #pragma once
 

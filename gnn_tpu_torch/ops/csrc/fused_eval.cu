@@ -1,5 +1,6 @@
-// The one-iteration eval kernel of the GNN fixed-point loop for Hopper
-// (sm_90a), in plain fp32 on the CUDA cores (no TF32, no bf16).
+// K4, the one-iteration eval kernel of the GNN fixed-point loop over the
+// residual-coupled blocks, for Hopper (sm_90a), in plain fp32 on the CUDA
+// cores (no TF32, no bf16).
 //
 // Replaces gnn_tpu/ops/pallas_fused.py:
 //   K4 _step_kernel_T (launched by _fused_fwd_impl)  -> gnn_propagation_step
@@ -9,188 +10,194 @@
 // read, H = width of the state written):
 //   U   = s @ [Ws; Wa]^T               [W, 2H]
 //   A   = adjT^T @ U[:, H:]            A[dst] = sum_src adjT[src, dst] * U[src, H:]
-//   h   = U[:, :H] + A + fT (+ rT)
-//   out = act(h) * scale + shift       (inference BatchNorm as an affine)
-// K4 runs one iteration of a residual-coupled block with the residual term
-// rT.
+//   out = act(((U[:, :H] + A) + fT) (+ rT)) * scale + shift
+// with fT = feats @ Wf^T + b, rT the residual term (already through Wa) and
+// (scale, shift) the inference BatchNorm as an affine.
 //
-// Design: one CTA per block, one thread per destination node (blockDim == W).
-// A thread keeps its own node's state, feature term and accumulators in
-// registers (MAXF-wide arrays, unrolled with width guards), so only
-// U[:, H:] is shared: the adjacency contraction reads a column of adjT
-// (consecutive threads, consecutive addresses) and broadcasts a row of
-// U[:, H:] as float4s. Row blocks of s/fT/rT/out move between device memory
-// and registers through a staging tile, so every global access is
-// contiguous.
+// Bound: a launch reads each block's adjacency (4*W*W bytes, 64 KiB at
+// W = 128) once, its rows s, fT and rT, and writes out; the arcs present
+// need 2*H flops each and the dense layer 4*D*H a node, so the least time is
+// set by the bytes (chip_smoke.py: 0.0031 ms at the serving batch's 110 dep
+// rows). At those rows a launch is 110 CTAs, less than one wave: its time is
+// one CTA's staging, list build and products end to end.
 //
-// Bound: a launch reads each block's adjacency (W*W*4 bytes, 64 KiB at
-// W = 128) once. The dense contraction costs 2*H*W*W flops per block, while
-// the sparse adjacency (about 2 arcs per node on MUTAG-shaped blocks) needs
-// 2*H*nnz, so the least time of the work is set by its bytes. This version
-// stages the adjacency synchronously, fits 2 CTAs per SM and does the dense
-// contraction: its time is set by shared-memory traffic and FMAs, not bytes.
+// Design (K3's for one iteration with the residual term, eval_loop.cu), one
+// CTA of NT threads a block row:
+// - no resident adjacency: each column's nonzero entries go into a compact
+//   list ([16][W] weights and uint8 sources, tile2.cuh::build_col_lists,
+//   from coalesced 16-byte reads of device memory), in source order, and A
+//   sums over it: 2*H an arc, not the dense W*W contraction. A column of more
+//   than 16 entries is read from device memory, every entry, so a dense
+//   block is exact;
+// - every operand (w2 transposed, the affine, s, fT and rT) is staged with
+//   cp.async, issued together ahead of the list build and waited on once;
+// - U on NT / W threads a node, each taking a block of the 2H outputs, four
+//   at a time from 16-byte reads of the transposed w2, each a chain over d
+//   from 0 (the per-node kernel's order); U is kept node-major [W][2H | 1];
+// - out for each node and four of its columns, walking the node's list once:
+//   A over src ascending, as the per-node kernel associated its dense sum,
+//   then ((U + A) + fT) (+ rT), written straight to device memory. Two
+//   barriers a launch.
+// No atomics: a repeat launch is bit-identical, and out is bit for bit the
+// per-node K4's (the flagship's serving and training paths read it at every
+// dep step). One plan (kStepThreads, kStepLists) takes every shape the kernel
+// takes (W 32..128, D and H up to 64): at W 128, D = H = 64 a CTA takes
+// 209,536 bytes; at W 128, D = H = 14 49,936 bytes, four CTAs an SM: on an
+// NVIDIA H100 0.0115 ms of device time at the 110 dep rows against the
+// per-node kernel's 0.0239, and 0.0805 at the flat layout's 1536 rows against
+// 0.2571 (PERF.md §6).
 
-#include "common.cuh"
+#include "tile2.cuh"
 
 namespace {
 
 using namespace gnn;
 
-struct Smem {
-  float* adj;    // [W][W]    adjT[src][dst]
-  float* ua;     // [W][MAXF] U[:, H:], zero beyond H
-  float* stage;  // [W * MAXF] staging tile for row blocks
-  float* w2;     // [2H][D]
-  float* aff;    // [2][H]    scale; shift
+// K4's plan: threads a CTA and the room of the column lists. On an NVIDIA
+// H100 (PERF.md §6) 128 threads without lists ran 0.0185 and 0.1166 ms of
+// device time against 0.0115 and 0.0805 at the 110 dep rows and the flat
+// layout's 1536 rows; 256 and 512 threads without lists 0.0143 and 0.0111 at
+// the dep rows, 0.1058 and 0.1102 at the flat layout; five CTAs an SM (48
+// registers a thread, lists of 8) 0.0902 at the flat layout. None was kept.
+constexpr int kStepThreads = 256, kStepLists = 16;
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// Float offsets of K4's shared memory (bytes for the list counts and
+// sources, after the floats), each region a multiple of 16 bytes: U
+// [W][2H | 1] (node-major; the list build's counts [NT / 32][W], as bytes,
+// before U is formed), s [W][D | 1], fT and rT [W][H | 1] each, w2
+// transposed w2T [D][J4] (J4 = 2H rounded up to 4, zero past 2H), the affine
+// [2][H], the lists [kStepLists][W].
+struct StepLayout {
+  int u, s, f, r, w, aff, lw;
+  size_t cnt_b, idx_b, bytes;
 };
 
-template <int MAXF>
-__host__ __device__ size_t smem_floats(int W, int D, int H) {
-  return (size_t)W * W + 2 * (size_t)W * MAXF + 2 * (size_t)H * D + 2 * (size_t)H;
+__host__ __device__ inline StepLayout step_layout(int W, int D, int H) {
+  StepLayout L{};
+  int o = 0;
+  L.u = o;
+  o += round4(W * ((2 * H) | 1));
+  L.s = o;
+  o += round4(W * (D | 1));
+  L.f = o;
+  o += round4(W * (H | 1));
+  L.r = o;
+  o += round4(W * (H | 1));
+  L.w = o;
+  o += D * round4(2 * H);
+  L.aff = o;
+  o += round4(2 * H);
+  L.lw = o;
+  o += kStepLists * W;
+  L.cnt_b = sizeof(float) * (size_t)o;
+  L.idx_b = L.cnt_b + W;
+  L.bytes = L.idx_b + (size_t)kStepLists * W;
+  return L;
 }
 
-template <int MAXF>
-__device__ Smem carve(float* base, int W, int D, int H) {
-  Smem s;
-  s.adj = base;
-  s.ua = s.adj + W * W;
-  s.stage = s.ua + W * MAXF;
-  s.w2 = s.stage + W * MAXF;
-  s.aff = s.w2 + 2 * H * D;
-  return s;
-}
-
-__device__ void load_block(const Smem& sm, const float* __restrict__ adjT_b,
-                           const float* __restrict__ w2, const float* __restrict__ aff,
-                           int W, int D, int H) {
-  const float4* src4 = reinterpret_cast<const float4*>(adjT_b);
-  float4* dst4 = reinterpret_cast<float4*>(sm.adj);
-  for (int i = threadIdx.x; i < W * W / 4; i += blockDim.x) dst4[i] = src4[i];
-  for (int i = threadIdx.x; i < 2 * H * D; i += blockDim.x) sm.w2[i] = w2[i];
-  for (int i = threadIdx.x; i < 2 * H; i += blockDim.x) sm.aff[i] = aff[i];
-  __syncthreads();
-}
-
-// Contiguous [W, F] row block -> this thread's row in registers.
-template <int MAXF>
-__device__ void load_rows(const float* __restrict__ g, int W, int F, float* stage,
-                          float (&r)[MAXF]) {
-  for (int i = threadIdx.x; i < W * F; i += blockDim.x) stage[i] = g[i];
-  __syncthreads();
-#pragma unroll
-  for (int f = 0; f < MAXF; ++f) r[f] = f < F ? stage[threadIdx.x * F + f] : 0.0f;
-  __syncthreads();
-}
-
-// This thread's row in registers -> contiguous [W, F] row block.
-template <int MAXF>
-__device__ void store_rows(float* __restrict__ g, int W, int F, float* stage,
-                           const float (&r)[MAXF]) {
-#pragma unroll
-  for (int f = 0; f < MAXF; ++f)
-    if (f < F) stage[threadIdx.x * F + f] = r[f];
-  __syncthreads();
-  for (int i = threadIdx.x; i < W * F; i += blockDim.x) g[i] = stage[i];
-  __syncthreads();
-}
-
-// One propagation iteration for this thread's node: y = act(h)*scale + shift.
-template <int MAXF>
-__device__ void iterate(const Smem& sm, int W, int D, int H, int act,
-                        const float (&s)[MAXF], const float (&f)[MAXF], bool has_res,
-                        const float (&r)[MAXF], float (&y)[MAXF]) {
-  const int t = threadIdx.x;
-  float us[MAXF];
-#pragma unroll
-  for (int h = 0; h < MAXF; ++h) {
-    float a = 0.0f, b = 0.0f;
-    if (h < H) {
-      const float* ws = sm.w2 + h * D;
-      const float* wa = sm.w2 + (H + h) * D;
-#pragma unroll
-      for (int d = 0; d < MAXF; ++d) {
-        if (d < D) {
-          a = fmaf(ws[d], s[d], a);
-          b = fmaf(wa[d], s[d], b);
-        }
-      }
-    }
-    us[h] = a;
-    sm.ua[t * MAXF + h] = b;
-  }
-  __syncthreads();
-
-  float acc[MAXF];
-#pragma unroll
-  for (int h = 0; h < MAXF; ++h) acc[h] = 0.0f;
-  const float* adj_col = sm.adj + t;
-  for (int src = 0; src < W; ++src) {
-    const float a = adj_col[src * W];
-    const float4* row = reinterpret_cast<const float4*>(sm.ua + src * MAXF);
-#pragma unroll
-    for (int q = 0; q < MAXF / 4; ++q) {
-      const float4 v = row[q];
-      acc[4 * q + 0] = fmaf(v.x, a, acc[4 * q + 0]);
-      acc[4 * q + 1] = fmaf(v.y, a, acc[4 * q + 1]);
-      acc[4 * q + 2] = fmaf(v.z, a, acc[4 * q + 2]);
-      acc[4 * q + 3] = fmaf(v.w, a, acc[4 * q + 3]);
-    }
-  }
-  __syncthreads();  // ua is rewritten by the next iteration
-
-#pragma unroll
-  for (int h = 0; h < MAXF; ++h) {
-    float v = 0.0f;
-    if (h < H) {
-      float pre = us[h] + acc[h] + f[h];
-      if (has_res) pre += r[h];
-      v = activate(act, pre) * sm.aff[h] + sm.aff[H + h];
-    }
-    y[h] = v;
-  }
-}
-
-// K4: one iteration of residual-coupled blocks; rT may be null.
-template <int MAXF>
-__global__ void __launch_bounds__(kMaxW)
+// K4: one iteration over every block row, NT threads a CTA, one block row
+// each; rT may be null.
+__global__ void __launch_bounds__(kStepThreads, 4)
 step_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
             const float* __restrict__ rT, const float* __restrict__ fT,
             const float* __restrict__ w2, const float* __restrict__ aff,
-            float* __restrict__ out, int B, int W, int D, int H, int act) {
+            float* __restrict__ out, int W, int D, int H, int act) {
+  constexpr int NT = kStepThreads, E = kStepLists;
   extern __shared__ float4 smem_raw[];
-  const Smem sm = carve<MAXF>(reinterpret_cast<float*>(smem_raw), W, D, H);
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(smem_raw);
+  const StepLayout L = step_layout(W, D, H);
+  const int DP = D | 1, HP = H | 1, UP = (2 * H) | 1, J4 = round4(2 * H);
+  const int t = threadIdx.x;
   const size_t row0 = (size_t)blockIdx.x * W;
-  load_block(sm, adjT + row0 * W, w2, aff, W, D, H);
-
-  float sv[MAXF], f[MAXF], r[MAXF], y[MAXF];
-  load_rows<MAXF>(s + row0 * D, W, D, sm.stage, sv);
-  load_rows<MAXF>(fT + row0 * H, W, H, sm.stage, f);
+  const float* adj = adjT + row0 * W;
   const bool has_res = rT != nullptr;
-  if (has_res) {
-    load_rows<MAXF>(rT + row0 * H, W, H, sm.stage, r);
-  } else {
-#pragma unroll
-    for (int h = 0; h < MAXF; ++h) r[h] = 0.0f;
+  float* U = sm + L.u;
+  float* S = sm + L.s;
+  float* F = sm + L.f;
+  float* R = sm + L.r;
+  float* wT = sm + L.w;
+  float* af = sm + L.aff;  // [scale; shift] x [H]
+  float* lw = sm + L.lw;
+  uint8_t* cnt = bytes + L.cnt_b;
+  uint8_t* idx = bytes + L.idx_b;
+
+  // ---- staging, issued together, waited on once
+  // wT [d][j] = w2 [j][d], in w2's order (whole rows of it a warp)
+  for (int i = t; i < J4 * D; i += NT) {
+    const int j = i / D, d = i % D;
+    if (j < 2 * H)
+      cp_async4(wT + d * J4 + j, w2 + i);
+    else
+      wT[d * J4 + j] = 0.0f;
   }
-  iterate<MAXF>(sm, W, D, H, act, sv, f, has_res, r, y);
-  store_rows<MAXF>(out + row0 * H, W, H, sm.stage, y);
-}
+  for (int i = t; i < 2 * H; i += NT) cp_async4(af + i, aff + i);
+  for (int i = t; i < W * D; i += NT) cp_async4(S + (i / D) * DP + i % D, s + row0 * D + i);
+  for (int i = t; i < W * H; i += NT) {
+    const int o = (i / H) * HP + i % H;
+    cp_async4(F + o, fT + row0 * H + i);
+    if (has_res) cp_async4(R + o, rT + row0 * H + i);
+  }
+  build_col_lists(adj, W, E, lw, idx, cnt, reinterpret_cast<uint8_t*>(U));
+  cp_async_wait_all();
+  __syncthreads();
 
-// The 64-wide variant (and step_kernel<32>) spill to local memory under 128
-// threads per CTA; chip_smoke.py holds every variant against its plain version.
+  // ---- U = s @ w2^T, four outputs a 16-byte read of wT, each a chain over d
+  // from 0; U's outputs [j0, j1) of node n are thread t's
+  const int tpn = NT / W, n = t % W, part = t / W;
+  const int JB = round4((2 * H + tpn - 1) / tpn), j0 = part * JB, j1 = min(2 * H, j0 + JB);
+  if (part < tpn)
+    for (int q = j0; q < j1; q += 4) {
+      float u[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int d = 0; d < D; ++d) {
+        const float x = S[n * DP + d];
+        float w4[4];
+        ldv<4>(wT + d * J4 + q, w4);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) u[v] = fmaf(w4[v], x, u[v]);
+      }
+#pragma unroll
+      for (int v = 0; v < 4; ++v)
+        if (q + v < j1) U[n * UP + q + v] = u[v];
+    }
+  __syncthreads();  // U is full
 
-template <int MAXF>
-cudaError_t launch_step(const float* adjT, const float* s, const float* rT,
-                        const float* fT, const float* w2, const float* aff, float* out,
-                        int B, int W, int D, int H, int act, cudaStream_t stream) {
-  const size_t bytes = sizeof(float) * smem_floats<MAXF>(W, D, H);
-  cudaError_t err = cudaFuncSetAttribute(step_kernel<MAXF>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bytes));
-  if (err != cudaSuccess) return err;
-  step_kernel<MAXF><<<B, W, bytes, stream>>>(adjT, s, rT, fT, w2, aff, out, B, W, D, H,
-                                             act);
-  return cudaGetLastError();
+  // ---- A = adjT^T @ U[:, H:] over the column lists (src ascending), four
+  // columns of node m an item, then the epilogue, node-major out
+  float* o = out + row0 * H;
+  const int NB = (H + 3) / 4;  // blocks of four columns a node
+  for (int i = t; i < W * NB; i += NT) {
+    const int m = i / NB, h0 = 4 * (i % NB), nh = min(4, H - h0);
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const int c = cnt[m];
+    if (c <= E) {
+      for (int e = 0; e < c; ++e) {
+        const float w = lw[e * W + m];
+        const float* ua = U + idx[e * W + m] * UP + H + h0;
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          if (v < nh) a[v] = fmaf(w, ua[v], a[v]);
+      }
+    } else {
+      for (int src = 0; src < W; ++src) {
+        const float w = adj[(size_t)src * W + m];
+        const float* ua = U + src * UP + H + h0;
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          if (v < nh) a[v] = fmaf(w, ua[v], a[v]);
+      }
+    }
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      if (v < nh) {
+        const int h = h0 + v;
+        float pre = (U[m * UP + h] + a[v]) + F[m * HP + h];
+        if (has_res) pre += R[m * HP + h];
+        o[m * H + h] = activate(act, pre) * af[h] + af[H + h];
+      }
+  }
 }
 
 }  // namespace
@@ -202,18 +209,23 @@ extern "C" {
 int gnn_propagation_step(const float* adjT, const float* s, const float* rT,
                          const float* fT, const float* w2, const float* aff, float* out,
                          int B, int W, int D, int H, int act, void* stream) {
-  if (!block_ok(B, W) || D <= 0 || H <= 0) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (width_class(D > H ? D : H)) {
-    case 16:
-      return launch_step<16>(adjT, s, rT, fT, w2, aff, out, B, W, D, H, act, st);
-    case 32:
-      return launch_step<32>(adjT, s, rT, fT, w2, aff, out, B, W, D, H, act, st);
-    case 64:
-      return launch_step<64>(adjT, s, rT, fT, w2, aff, out, B, W, D, H, act, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (!block_ok(B, W) || D <= 0 || H <= 0 || width_class(D > H ? D : H) == 0)
+    return cudaErrorInvalidValue;
+  const size_t bytes = step_layout(W, D, H).bytes;
+  cudaError_t err = set_smem(step_kernel, bytes);
+  if (err != cudaSuccess) return err;
+  step_kernel<<<B, kStepThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      adjT, s, rT, fT, w2, aff, out, W, D, H, act);
+  return cudaGetLastError();
+}
+
+// out[0..4]: plan index (0, K4's one plan), shared-memory bytes, resident
+// CTAs an SM, registers a thread, local bytes a thread of the kernel
+// gnn_propagation_step launches for this shape (H1 unused). Returns a
+// cudaError_t code.
+int gnn_propagation_step_info(int W, int D, int H, int H1, int* out) {
+  (void)H1;
+  return tile_kernel_info(step_kernel, step_layout(W, D, H).bytes, 0, out, kStepThreads);
 }
 
 const char* gnn_cuda_error_string(int err) {

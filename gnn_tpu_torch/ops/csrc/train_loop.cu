@@ -14,30 +14,63 @@
 //   s'  = act(w_cat @ x2 + fT)          w_cat = [Ws | Wa], [H, 2D]
 // The dropout sits between the aggregation and Wa, so Wa cannot be moved
 // through the aggregation as in K3: the aggregation is D wide.
-// K7 runs all K iterations of a residual-free block on its adjacency staged
-// once, with a fresh fT[k] and masks per iteration, and writes the state after
-// every iteration (traj), the pre-update movement flags and the pre-dropout
-// aggregations (saved for K8).
+// K7 runs all K iterations of a residual-free block with a fresh fT[k] and
+// masks per iteration, and writes the state after every iteration (traj),
+// the pre-update movement flags (marg) and the pre-dropout aggregations
+// (agg, saved for K8): marg[k] = nm where ||s - s_old|| > thr ||s_old||.
 // K6 runs one iteration of a residual-coupled block: the state slice arrives
 // dropped (sd), the raw residual aggregation rT is added before the aggregated
 // slice's dropout; its backward is plain PyTorch, as gnn_tpu's is XLA.
 //
-// Design: one CTA per block, one thread per node (blockDim == W). The
+// Bound: K7 reads each block's adjacency (64 KiB at W = 128) once for all K
+// iterations and streams K per-iteration rows (fT and two keep-byte rows in;
+// traj and agg out), about two thirds of its bytes; the dense layer costs
+// 4*D*D flops a node and iteration and the arcs present 2*D each, so the
+// least time is set by bytes (chip_smoke.py::bnfree_bounds: 0.0663 ms on the
+// training batch's 1104 loop rows, K = 5). K6 is the same per iteration.
+//
+// K7's design (K3's, eval_loop.cu, with the dropout between the aggregation
+// and Wa), one CTA of NT threads a block row:
+// - no resident adjacency: each column's nonzero entries go into a compact
+//   list ([8][W] weights and uint8 sources, tile2.cuh::build_col_lists, from
+//   coalesced 16-byte reads) once a launch, in source order, and all K
+//   iterations aggregate over it: 2*D an arc, not the dense W*W contraction.
+//   A column of more than 8 entries is read from device memory, every entry,
+//   so a dense block is exact;
+// - w_cat transposed, nm, s0 and iteration 0's fT rows and keep bytes are
+//   staged with cp.async, issued together ahead of the list build and
+//   waited on once; each later iteration's fT rows and keep bytes are copied
+//   with cp.async while the iteration aggregates;
+// - the aggregation one thread a node and four of its columns, walking the
+//   node's list once, src ascending from 0 as the dense sum associated it,
+//   into a node-major buffer and out to agg[k]; traj[k - 1] goes out in the
+//   same pass;
+// - the dense layer on NT / W threads a node, eight outputs at a time (two
+//   arrays of four) from 16-byte reads of the transposed w_cat, each a chain
+//   over the 2D inputs from 0 (dense_acc's order), the inputs dropped as
+//   they are read (the same common.cuh::drop), fT added after the chain; s'
+//   goes into the state buffer s_old leaves. No register array is wider
+//   than four;
+// - the movement test one thread a node, d ascending, with the per-node
+//   rounding (__fadd_rn, __fmul_rn). Two barriers an iteration.
+// No atomics: a repeat launch is bit-identical, and traj, marg and agg are
+// bit for bit the per-node K7's (K8 reads traj and agg). One plan
+// (kTrainLoopThreads, kTrainLoopLists) takes every shape the kernel takes
+// (W 32..128, D up to 64; 188,032 bytes at W 128, D 64). At W 128, D 14 a
+// CTA takes 41,856 bytes and five CTAs fit an SM: on an NVIDIA H100 0.166 ms
+// of device time at the training batch's 1104 loop rows against the
+// per-node kernel's 0.92 (four CTAs an SM: 0.201; PERF.md §6).
+//
+// K6's design: one CTA per block, one thread per node (blockDim == W). The
 // adjacency is staged in shared memory with row stride W + 1, so reading a
 // column (a thread per destination) is free of bank conflicts. A thread's x2
 // row lives in shared memory (odd stride) so the dense layer loops over it at
 // run time; its accumulators are registers sized by a template (16, 32 or 64
-// wide). Each thread reads its own keep bytes straight from device memory.
-//
-// Bound: K7 reads each block's adjacency (64 KiB at W = 128) once for all K
-// iterations and streams K per-iteration rows (fT, masks, traj, agg); the
-// dense layer costs 4*D*D flops per node and iteration and the arcs present
-// 2*D each, so the least time is set by bytes. This first version stages
-// synchronously and contracts the adjacency densely (2*D*W*W flops per block
-// and iteration), as K3 does: its time is set by shared-memory traffic and
-// FMAs, not bytes.
+// wide). It stages synchronously and contracts the adjacency densely (2*D*W*W
+// flops a block): its time is set by shared-memory traffic and FMAs, not
+// bytes.
 
-#include "common.cuh"
+#include "tile2.cuh"
 
 namespace {
 
@@ -55,85 +88,208 @@ __device__ void dense_acc(const float* w, int ldw, const float* xrow, int n, int
   }
 }
 
-// K7: all K dropout-training iterations of residual-free blocks (H == D).
-template <int MAXF>
-__global__ void __launch_bounds__(kMaxW)
+// K7's plan: threads a CTA and the room of the column lists; the launch
+// bounds hold a thread to 48 registers, five CTAs an SM at the flagship's
+// widths. On an NVIDIA H100 at the flagship's training batch (PERF.md §6),
+// 128 threads without lists ran 0.4223 ms of device time against 0.166; a
+// plan that prefetched the next iteration's fT rows and keep bytes into
+// second buffers (53,120 bytes, four CTAs an SM) 0.2030 against 0.2014
+// without the prefetch at the same four CTAs, and one that read the keep
+// bytes from device memory where they are used 0.1838 against 0.1831 at
+// five CTAs. None was kept.
+constexpr int kTrainLoopThreads = 256, kTrainLoopLists = 8;
+
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// Float offsets of K7's shared memory (bytes for the keep bytes and the
+// lists, after the floats), each region a multiple of 16 bytes: two state
+// buffers [W][D | 1] (s, then each iteration's s' into the one s_old leaves),
+// agg [W][D | 1] (the second state buffer and agg hold the list build's
+// counts [NT / 32][W], as bytes, before the first iteration), fT [W][D | 1],
+// w_cat transposed wT [2D][D4] (D4 = D rounded up to 4, zero past D), nm [W],
+// the lists [kTrainLoopLists][W]; then the keep bytes [2][W D] (the state
+// slice's, then agg's, node-major), the list counts [W] and sources
+// [kTrainLoopLists][W].
+struct TrainLoopLayout {
+  int s0, s1, agg, f, w, nm, lw;
+  size_t keep_b, cnt_b, idx_b, bytes;
+};
+
+__host__ __device__ inline TrainLoopLayout train_loop_layout(int W, int D) {
+  TrainLoopLayout L{};
+  const int rows = round4(W * (D | 1));
+  int o = 0;
+  L.s0 = o;
+  o += rows;
+  L.s1 = o;
+  o += rows;
+  L.agg = o;
+  o += rows;
+  L.f = o;
+  o += rows;
+  L.w = o;
+  o += 2 * D * round4(D);
+  L.nm = o;
+  o += round4(W);
+  L.lw = o;
+  o += kTrainLoopLists * W;
+  L.keep_b = sizeof(float) * (size_t)o;
+  L.cnt_b = L.keep_b + (size_t)2 * W * D;
+  L.idx_b = L.cnt_b + W;
+  L.bytes = L.idx_b + (size_t)kTrainLoopLists * W;
+  return L;
+}
+
+// K7: all K dropout-training iterations of residual-free blocks (H == D),
+// NT threads a CTA, one block row each.
+__global__ void __launch_bounds__(kTrainLoopThreads, 5)
 train_loop_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
                   const uint8_t* __restrict__ ms, const uint8_t* __restrict__ ma,
                   const float* __restrict__ fT, const float* __restrict__ w_cat,
                   const float* __restrict__ nm, float* __restrict__ traj,
                   float* __restrict__ marg, float* __restrict__ agg_out, int B, int W, int D,
                   int K, float thr, int act, int mode, float da, float db) {
+  constexpr int NT = kTrainLoopThreads, E = kTrainLoopLists;
   extern __shared__ float4 smem_raw[];
-  const int DP = D | 1, C2 = 2 * D, XP = C2 | 1;
-  float* adj = reinterpret_cast<float*>(smem_raw);  // [W][W + 1]
-  float* S = adj + W * (W + 1);                     // [W][DP] the block's state
-  float* rows = S + W * DP;                         // [W][DP] staging
-  float* X = rows + W * DP;                         // [W][XP] x2 rows
-  float* w = X + W * XP;                            // [D][2D]
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(smem_raw);
+  const TrainLoopLayout L = train_loop_layout(W, D);
+  const int DP = D | 1, C2 = 2 * D, D4 = round4(D), WD = W * D;
+  const bool drops = mode != kNoDrop;
   const int b = blockIdx.x, t = threadIdx.x;
   const size_t row0 = (size_t)b * W;
-  float* xrow = X + t * XP;
+  const float* adj = adjT + row0 * W;
+  float* cur = sm + L.s0;  // s
+  float* old = sm + L.s1;  // s_old, then s'
+  float* A = sm + L.agg;
+  float* F = sm + L.f;
+  float* wT = sm + L.w;
+  float* nms = sm + L.nm;
+  float* lw = sm + L.lw;
+  uint8_t* cnt = bytes + L.cnt_b;
+  uint8_t* idx = bytes + L.idx_b;
 
-  stage_adj(adjT + row0 * W, W, adj);
-  for (int i = t; i < D * C2; i += blockDim.x) w[i] = w_cat[i];
-  stage_in(s0 + row0 * D, W, D, S, DP, 0);
+  uint8_t* KS = bytes + L.keep_b;  // [W D] keep bytes of the state slice, then of agg
+  uint8_t* KA = KS + WD;
+
+  // iteration k's rows: fT[k] and its keep bytes
+  auto stage_rows = [&](int k) {
+    const size_t kb = (size_t)k * B + b;
+    for (int i = t; i < WD; i += NT) cp_async4(F + (i / D) * DP + i % D, fT + kb * WD + i);
+    if (drops) {
+      cp_rows(reinterpret_cast<float*>(KS), reinterpret_cast<const float*>(ms + kb * WD), WD / 4);
+      cp_rows(reinterpret_cast<float*>(KA), reinterpret_cast<const float*>(ma + kb * WD), WD / 4);
+    }
+  };
+
+  // ---- staging, issued together, waited on once
+  // wT [c][j] = w_cat [j][c], in w_cat's order (whole rows of it a warp)
+  for (int i = t; i < D4 * C2; i += NT) {
+    const int j = i / C2, c = i % C2;
+    if (j < D)
+      cp_async4(wT + c * D4 + j, w_cat + i);
+    else
+      wT[c * D4 + j] = 0.0f;
+  }
+  cp_rows(nms, nm + row0, W);
+  for (int i = t; i < WD; i += NT) cp_async4(cur + (i / D) * DP + i % D, s0 + row0 * D + i);
+  stage_rows(0);
+  build_col_lists(adj, W, E, lw, idx, cnt, reinterpret_cast<uint8_t*>(old));
+  cp_async_wait_all();
   __syncthreads();
-  float s[MAXF], s_old[MAXF], a[MAXF];
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) {
-    s[d] = d < D ? S[t * DP + d] : 0.0f;
-    s_old[d] = 1.0f;
-  }
-  const float nmv = nm[row0 + t];
 
+  // s' outputs [j0, j1) of node n are thread t's
+  const int tpn = NT / W, n = t % W, part = t / W;
+  const int JB = round4((D + tpn - 1) / tpn), j0 = part * JB, j1 = min(D, j0 + JB);
+  const int NB = (D + 3) / 4;  // blocks of four columns a node
   for (int k = 0; k < K; ++k) {
-    const size_t kb = (size_t)k * B + b;  // block b of iteration k in [K, B, ...]
-    // movement test before update k: ||s - s_old|| > thr * ||s_old||
-    float dist2 = 0.0f, norm2 = 0.0f;
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d) {
-      if (d < D) {
-        const float diff = s[d] - s_old[d];
+    const size_t kb = (size_t)k * B + b;
+    if (k > 0) stage_rows(k);  // waited on before the dense layer
+
+    // ---- the movement test before update k, one thread a node, d ascending
+    for (int m = t; m < W; m += NT) {
+      float dist2 = 0.0f, norm2 = 0.0f;
+      for (int d = 0; d < D; ++d) {
+        const float s = cur[m * DP + d], so = k > 0 ? old[m * DP + d] : 1.0f;
+        const float diff = __fsub_rn(s, so);
         dist2 = __fadd_rn(dist2, __fmul_rn(diff, diff));
-        norm2 = __fadd_rn(norm2, __fmul_rn(s_old[d], s_old[d]));
+        norm2 = __fadd_rn(norm2, __fmul_rn(so, so));
       }
+      marg[kb * W + m] = sqrtf(dist2) > thr * sqrtf(norm2) ? nms[m] : 0.0f;
     }
-    marg[kb * W + t] = sqrtf(dist2) > thr * sqrtf(norm2) ? nmv : 0.0f;
 
-    aggregate_col<MAXF>(adj, W, S, DP, D, a);
+    // ---- agg = adjT^T @ s over the column lists (src ascending), four
+    // columns of node m an item, out to agg[k]; s (iteration k - 1's s') out
+    // to traj[k - 1], node-major
+    float* ao = agg_out + kb * WD;
+    float* to = k > 0 ? traj + (kb - B) * WD : nullptr;
+    for (int i = t; i < W * NB; i += NT) {
+      const int m = i / NB, h0 = 4 * (i % NB), nh = min(4, D - h0);
+      float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      const int c = cnt[m];
+      if (c <= E) {
+        for (int e = 0; e < c; ++e) {
+          const float w = lw[e * W + m];
+          const float* r = cur + idx[e * W + m] * DP + h0;
 #pragma unroll
-    for (int d = 0; d < MAXF; ++d)
-      if (d < D) rows[t * DP + d] = a[d];
-    __syncthreads();
-    stage_out(agg_out + kb * W * D, W, D, rows, DP);
-    __syncthreads();
-    stage_in(fT + kb * W * D, W, D, rows, DP, 0);
-    __syncthreads();
-
-    // x2 = [drop(s, ms[k]) | drop(agg, ma[k])], h = w_cat @ x2 + fT[k]
-    const uint8_t* ks = mode != kNoDrop ? ms + (kb * W + t) * D : nullptr;
-    const uint8_t* ka = mode != kNoDrop ? ma + (kb * W + t) * D : nullptr;
+          for (int v = 0; v < 4; ++v)
+            if (v < nh) a[v] = fmaf(w, r[v], a[v]);
+        }
+      } else {
+        for (int src = 0; src < W; ++src) {
+          const float w = adj[(size_t)src * W + m];
+          const float* r = cur + src * DP + h0;
 #pragma unroll
-    for (int d = 0; d < MAXF; ++d) {
-      if (d < D) {
-        xrow[d] = drop(mode, da, db, s[d], ks != nullptr && ks[d] != 0);
-        xrow[D + d] = drop(mode, da, db, a[d], ka != nullptr && ka[d] != 0);
+          for (int v = 0; v < 4; ++v)
+            if (v < nh) a[v] = fmaf(w, r[v], a[v]);
+        }
       }
-    }
-    float h[MAXF];
 #pragma unroll
-    for (int j = 0; j < MAXF; ++j) h[j] = 0.0f;
-    dense_acc<MAXF>(w, C2, xrow, C2, D, h);
-#pragma unroll
-    for (int j = 0; j < MAXF; ++j) {
-      s_old[j] = s[j];
-      s[j] = j < D ? activate(act, h[j] + rows[t * DP + j]) : 0.0f;
-      if (j < D) S[t * DP + j] = s[j];  // every thread is past the aggregation
+      for (int v = 0; v < 4; ++v)
+        if (v < nh) {
+          A[m * DP + h0 + v] = a[v];
+          ao[m * D + h0 + v] = a[v];
+          if (to != nullptr) to[m * D + h0 + v] = cur[m * DP + h0 + v];
+        }
     }
-    __syncthreads();
-    stage_out(traj + kb * W * D, W, D, S, DP);
+    cp_async_wait_all();
+    __syncthreads();  // agg is full; s_old is read; iteration k's rows are in
+
+    // ---- s' = act(w_cat @ [drop(s, ms[k]) | drop(agg, ma[k])] + fT[k]), four
+    // outputs a 16-byte read of wT, each a chain over c from 0, into the
+    // buffer s_old leaves
+    if (part < tpn)
+      for (int q = j0; q < j1; q += 8) {  // outputs q .. q + 3 in u, q + 4 .. q + 7 in u2
+        const bool two = q + 4 < j1;
+        float u[4] = {0.0f, 0.0f, 0.0f, 0.0f}, u2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        float w4[4];
+        for (int c = 0; c < C2; ++c) {
+          const bool st = c < D;
+          const float x = drop(mode, da, db, st ? cur[n * DP + c] : A[n * DP + c - D],
+                               drops && (st ? KS[n * D + c] : KA[n * D + c - D]) != 0);
+          ldv<4>(wT + c * D4 + q, w4);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) u[v] = fmaf(w4[v], x, u[v]);
+          if (two) {
+            ldv<4>(wT + c * D4 + q + 4, w4);
+#pragma unroll
+            for (int v = 0; v < 4; ++v) u2[v] = fmaf(w4[v], x, u2[v]);
+          }
+        }
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          if (q + v < j1) old[n * DP + q + v] = activate(act, u[v] + F[n * DP + q + v]);
+          if (q + 4 + v < j1)
+            old[n * DP + q + 4 + v] = activate(act, u2[v] + F[n * DP + q + 4 + v]);
+        }
+      }
+    __syncthreads();  // s' is full; s, agg and iteration k's rows are read
+    float* next = old;
+    old = cur;
+    cur = next;
   }
+  float* to = traj + ((size_t)(K - 1) * B + b) * WD;
+  for (int i = t; i < WD; i += NT) to[i] = cur[(i / D) * DP + i % D];
 }
 
 // K6: one dropout-training iteration of residual-coupled blocks; rT, m nullable.
@@ -197,27 +353,9 @@ train_step_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
   stage_out(y + row0 * H, W, H, S, FP);
 }
 
-size_t loop_smem(int W, int D) {
-  return sizeof(float) * ((size_t)W * (W + 1) + 2 * (size_t)W * (D | 1) +
-                          (size_t)W * ((2 * D) | 1) + 2 * (size_t)D * D);
-}
-
 size_t step_smem(int W, int D, int H) {
   return sizeof(float) * ((size_t)W * (W + 1) + (size_t)W * ((D > H ? D : H) | 1) +
                           (size_t)W * ((2 * D) | 1) + 2 * (size_t)H * D);
-}
-
-template <int MAXF>
-cudaError_t launch_loop(const float* adjT, const float* s0, const uint8_t* ms,
-                        const uint8_t* ma, const float* fT, const float* w_cat, const float* nm,
-                        float* traj, float* marg, float* agg, int B, int W, int D, int K,
-                        float thr, int act, int mode, float da, float db, cudaStream_t stream) {
-  const size_t bytes = loop_smem(W, D);
-  cudaError_t err = set_smem(train_loop_kernel<MAXF>, bytes);
-  if (err != cudaSuccess) return err;
-  train_loop_kernel<MAXF><<<B, W, bytes, stream>>>(adjT, s0, ms, ma, fT, w_cat, nm, traj, marg,
-                                                    agg, B, W, D, K, thr, act, mode, da, db);
-  return cudaGetLastError();
 }
 
 template <int MAXF>
@@ -248,21 +386,25 @@ int gnn_train_loop(const float* adjT, const float* s0, const uint8_t* ms, const 
                    const float* fT, const float* w_cat, const float* nm, float* traj,
                    float* marg, float* agg, int B, int W, int D, int K, float thr, int act,
                    int mode, float da, float db, void* stream) {
-  if (!block_ok(B, W) || D <= 0 || K <= 0 || !drop_ok(mode, ms, ma)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (width_class(D)) {
-    case 16:
-      return launch_loop<16>(adjT, s0, ms, ma, fT, w_cat, nm, traj, marg, agg, B, W, D, K, thr,
-                             act, mode, da, db, st);
-    case 32:
-      return launch_loop<32>(adjT, s0, ms, ma, fT, w_cat, nm, traj, marg, agg, B, W, D, K, thr,
-                             act, mode, da, db, st);
-    case 64:
-      return launch_loop<64>(adjT, s0, ms, ma, fT, w_cat, nm, traj, marg, agg, B, W, D, K, thr,
-                             act, mode, da, db, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (!block_ok(B, W) || D <= 0 || K <= 0 || width_class(D) == 0 || !drop_ok(mode, ms, ma))
+    return cudaErrorInvalidValue;
+  const size_t bytes = train_loop_layout(W, D).bytes;
+  cudaError_t err = set_smem(train_loop_kernel, bytes);
+  if (err != cudaSuccess) return err;
+  train_loop_kernel<<<B, kTrainLoopThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      adjT, s0, ms, ma, fT, w_cat, nm, traj, marg, agg, B, W, D, K, thr, act, mode, da, db);
+  return cudaGetLastError();
+}
+
+// out[0..4]: plan index (0, K7's one plan), shared-memory bytes, resident
+// CTAs an SM, registers a thread, local bytes a thread of the kernel
+// gnn_train_loop launches for this shape (AL and H1 unused). Returns a
+// cudaError_t code.
+int gnn_train_loop_info(int W, int D, int AL, int H1, int* out) {
+  (void)AL;
+  (void)H1;
+  return tile_kernel_info(train_loop_kernel, train_loop_layout(W, D).bytes, 0, out,
+                          kTrainLoopThreads);
 }
 
 // adjT [B, W, W], s/sd [B, W, D], m uint8 [B, W, D] (null when mode == 0),

@@ -47,7 +47,9 @@ keep-masks uint8 [.., W, D]. Each wrapper runs its plain PyTorch version
 K3; fused_eval.cu: K4; eval_loop_bwd.cu, train_loop.cu, train_loop_bwd.cu) for
 CUDA tensors; it never falls back from one to the other. `launches` counts
 kernel launches. K3, K5 and K8 take the first of their shared-memory plans
-that fits a CTA (`_loop_plan`, `_loop_bwd_plan`, `_train_bwd_plan`). On
+that fits a CTA (`_loop_plan`, `_loop_bwd_plan`, `_train_bwd_plan`); K4 and K7
+have one plan each, which fits every shape they take (`_step_bytes`,
+`_train_loop_bytes`); K6 has none. On
 MUTAG-shaped blocks every kernel's least time is set by the bytes it moves (the
 adjacency and the per-iteration rows); the designs and their limits are noted
 in the sources.
@@ -146,6 +148,10 @@ SMEM_BYTES = 232448          # shared memory a CTA may use (227 KB)
 # last fits every shape the per-node K3 took.
 _LOOP_PLANS = ((256, 16), (128, 0))
 
+# fused_eval.cu's K4 plan (kStepThreads, kStepLists): threads a CTA, room of
+# the column lists. It fits every shape the kernel takes.
+_STEP_PLAN = (256, 16)
+
 # eval_loop_bwd.cu's kLoopBwdPlans, K5's shared-memory plans in order of
 # preference: whether w2, dfT and the dw2 partials are staged. The first is
 # the flagship's; the second fits every shape the per-node K5 took.
@@ -155,6 +161,10 @@ _LOOP_BWD_PLANS = (1, 0)
 # preference: whether the dw partials are kept in shared memory. The first is
 # the flagship's; the last fits every shape the per-node K8 took.
 _TRAIN_BWD_PLANS = (1, 0)
+
+# train_loop.cu's K7 plan (kTrainLoopThreads, kTrainLoopLists): threads a CTA,
+# room of the column lists. It fits every shape the kernel takes.
+_TRAIN_LOOP_PLAN = (256, 8)
 
 
 def _r4(n):
@@ -172,6 +182,29 @@ def _loop_bytes(W, D, plan):
     floats = (_r4(W * ((2 * D) | 1)) + 3 * _r4(W * (D | 1)) + D * _r4(2 * D) + _r4(2 * D)
               + _r4(W) + E * W)
     return 4 * floats + (W + E * W if E else 0)
+
+
+def _step_bytes(W, D, H):
+    """Shared memory of fused_eval.cu::step_layout: U [W][2H|1], s [W][D|1],
+    fT and rT [W][H|1] each, w2 transposed [D][2H rounded up to 4], the
+    affine [2][H], the column lists ([E][W] floats, then W counts and E*W
+    sources as bytes); each float region a multiple of 16 bytes. The widths
+    may be ints or numpy integer arrays."""
+    _, E = _STEP_PLAN
+    floats = (_r4(W * ((2 * H) | 1)) + _r4(W * (D | 1)) + 2 * _r4(W * (H | 1)) + D * _r4(2 * H)
+              + _r4(2 * H) + E * W)
+    return 4 * floats + W + E * W
+
+
+def _train_loop_bytes(W, D):
+    """Shared memory of train_loop.cu::train_loop_layout: two state buffers,
+    agg and fT [W][D|1] each, w_cat transposed [2D][D rounded up to 4], nm
+    [W], the column lists [E][W]; then as bytes the keep bytes [2][W*D], and
+    W list counts and E*W sources; each float region a multiple of 16 bytes.
+    The widths may be ints or numpy integer arrays."""
+    _, E = _TRAIN_LOOP_PLAN
+    floats = 4 * _r4(W * (D | 1)) + 2 * D * _r4(D) + _r4(W) + E * W
+    return 4 * floats + 2 * W * D + W + E * W
 
 
 def _loop_bwd_bytes(W, D, st):
@@ -436,7 +469,8 @@ def _check(name, t, shape, device):
 
 def _check_keep(keep, shape, dev, rate, name="keep"):
     """The keep-mask a kernel reads: None without dropout, else a contiguous
-    uint8 tensor of `shape` on `dev`."""
+    uint8 tensor of `shape` on `dev`, starting on a 16-byte boundary (the
+    kernels may copy keep bytes 16 at a time)."""
     if rate <= 0.0:
         return None
     if keep is None:
@@ -445,6 +479,8 @@ def _check_keep(keep, shape, dev, rate, name="keep"):
             or not keep.is_contiguous():
         raise ValueError(f"{name} must be a contiguous uint8 tensor of shape {tuple(shape)} "
                          f"on {dev}, got {keep.dtype} {tuple(keep.shape)} on {keep.device}")
+    if keep.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
     return keep
 
 

@@ -11,13 +11,14 @@ flags, all at once, and the kernel's wrapper runs each on chip_smoke.py's full-s
 operands (K1 and K2 at the flagship's BatchNorm route, K8 at its dropout route, K12
 at the h150 training route, K14 at the h150_bn route, K16 (iteration 2) and K17 at
 the composite_bn route, K3 at the flagship serving batch's loop rows, K9 at the
-h150 serving batch's dep rows, K5 at the clean route's loop rows).
+h150 serving batch's dep rows, K5 at the clean route's loop rows, K7 at the
+dropout route's loop rows, K4 at the flagship serving batch's dep rows).
 Printed: the instrumented and the unmarked launch's times (the marks' cost), then
 each segment's share of the cycles summed over the CTAs and its cycles a CTA, named
 by the source lines of the barriers that end it.
 
 Usage, from the repository root (a tree defaults to gnn_tpu_torch/ops/csrc):
-    python3 tools/phase_marks.py K1|K2|K3|K5|K8|K9|K12|K14|K16|K17 [name=tree ...]
+    python3 tools/phase_marks.py K1|K2|K3|K4|K5|K7|K8|K9|K12|K14|K16|K17 [name=tree ...]
 """
 
 import ctypes
@@ -40,7 +41,9 @@ KERNELS = {"K1": ("gnn_bn_forward", ("bn_fwd_kernel",)),
            "K3": ("gnn_propagation_loop", ("loop_kernel",)),
            "K9": ("gnn_propagation_step2", ("step2_tile_kernel", "step2_kernel")),
            "K16": ("gnn_bnT_forward", ("bnT_fwd_kernel",)),
-           "K5": ("gnn_propagation_loop_bwd", ("loop_bwd_kernel",))}
+           "K5": ("gnn_propagation_loop_bwd", ("loop_bwd_kernel",)),
+           "K7": ("gnn_train_loop", ("train_loop_kernel",)),
+           "K4": ("gnn_propagation_step", ("step_kernel",))}
 HEAD = """
 namespace {
 __device__ unsigned long long* g_phase;
@@ -134,9 +137,15 @@ def main():
                 fn, x, rows = typed.bnT_forward_step, dict(x1, **kw1), x1["y1"].shape[0]
             else:
                 fn, x, rows = typed.bnT_backward_step, dict(x, **kw), x["y_prev"].shape[0]
-        elif kernel == "K5":
-            x = cs.bnfree_kernel_inputs(torch, gb_train)[0]
-            fn, rows = fused.propagation_loop_bwd, x["adjT"].shape[0]
+        elif kernel in ("K5", "K7"):
+            x = cs.bnfree_kernel_inputs(torch, gb_train)[0 if kernel == "K5" else 2]
+            fn = fused.propagation_loop_bwd if kernel == "K5" else fused.train_loop
+            rows = x["adjT"].shape[0]
+        elif kernel == "K4":
+            gb = Predictor(model).build_batch(graphs).to("cuda")
+            x = dict(cs.kernel_inputs(model, gb)[1],
+                     activation=model.spec.state_spec.activations[0])
+            fn, rows = fused.propagation_step, x["adjT"].shape[0]
         elif kernel == "K3":
             gb = Predictor(model).build_batch(graphs).to("cuda")
             spec = model.spec

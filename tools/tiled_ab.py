@@ -4,7 +4,8 @@ other on one CUDA card: K10 and K12 (the two-layer forward loops), the
 register-tiled reverse kernels K13, K11 and K15, the BatchNorm step K1 and its
 reverse K2, the dropout loop's reverse K8, the two-layer BatchNorm step K14,
 the typed reverse K17, the flagship's eval loop K3, the two-layer eval step
-K9, the typed BatchNorm step K16 and the clean route's eval-loop reverse K5.
+K9, the typed BatchNorm step K16, the clean route's eval-loop reverse K5, the
+dropout route's training loop K7 and the dep blocks' eval step K4.
 
 Each tree's source that holds a kernel's C entry (a kernel may move between
 files: K12 lies in fused2.cu in older trees, in loop2.cu in newer ones) is
@@ -18,26 +19,30 @@ the flagship serving batch's loop rows, K9 at the h150 serving batch's dep
 rows and at the flat layout's 1536 rows, with and without its residual term,
 K16 at composite_bn's 1214 training rows (iteration 2) and the composite
 serving path's 1550 rows, K5 at the clean route's 1104 loop rows with and
-without an affine, and K3, K9, K16 and K5 also at the edges of their design,
-chip_smoke.py's) every tree's outputs are held to the first tree's, bit for
-bit for K13, K10, K1, K8, K14, K17, K3, K9, K16 and K5 (the same sums in every
-tree), reported for the others, and each tree's largest per-node difference
-from the plain version is printed; K3, K9, K16 and K5 are held so at every
-plan of every tree that has their gnn_*_force_plan entry, forced in turn.
+without an affine, K7 at the dropout route's 1104 loop rows, K4 at the
+flagship serving batch's 110 dep rows and at the flat layout's 1536 rows,
+with and without its residual term, and K3, K9, K16, K5, K7 and K4 also at
+the edges of their design, chip_smoke.py's, K7 in each dropout mode) every
+tree's outputs are held to the first tree's, bit for bit for K13, K10, K1,
+K8, K14, K17, K3, K9, K16, K5, K7 and K4 (the same sums in every tree),
+reported for the others, and each tree's largest per-node difference from
+the plain version is printed; K3, K9, K16 and K5 are held so at every plan of
+every tree that has their gnn_*_force_plan entry, forced in turn (K7 and K4
+have one plan each).
 Then each kernel is timed with CUDA events as chip_smoke.py times it (K3, K9,
-K16 and K5 also by the profiler's device time a call, which a launch-sized
-call's host work does not enter), on its full-set cases, the trees in turn
-and back (a, b, b, a), and, for K11, K15, K12, K1, K2, K8, K14, K17, K3, K9,
-K16 and K5, at each plan of the current plan lists (ops/fused2.py::_PLANS,
-ops/bn.py::_BN_FWD_PLANS and _BN_BWD_PLANS, ops/fused.py::_TRAIN_BWD_PLANS,
-_LOOP_PLANS and _LOOP_BWD_PLANS, ops/typed.py::_BNT_BWD_PLANS and
-_BNT_FWD_PLANS) through the tree's gnn_*_force_plan entry, where it has one
-and the plan fits. `only=K16,K5` limits the run (builds, operands, checks and
+K16, K5, K7 and K4 also by the profiler's device time a call, which a
+launch-sized call's host work does not enter), on its full-set cases, the
+trees in turn and back (a, b, b, a), and, for K11, K15, K12, K1, K2, K8, K14,
+K17, K3, K9, K16 and K5, at each plan of the current plan lists
+(ops/fused2.py::_PLANS, ops/bn.py::_BN_FWD_PLANS and _BN_BWD_PLANS,
+ops/fused.py::_TRAIN_BWD_PLANS, _LOOP_PLANS and _LOOP_BWD_PLANS,
+ops/typed.py::_BNT_BWD_PLANS and _BNT_FWD_PLANS) through the tree's
+gnn_*_force_plan entry, where it has one and the plan fits. `only=K7,K4` limits the run (builds, operands, checks and
 times) to those kernels.
 ptxas's report of each build goes to build/tiled_ab/ptxas.log.
 
 Usage, from the repository root, with a parent checkout unpacked under build/:
-    python3 tools/tiled_ab.py [only=K16,K5] parent=build/parent/gnn_tpu_torch/ops/csrc \\
+    python3 tools/tiled_ab.py [only=K7,K4] parent=build/parent/gnn_tpu_torch/ops/csrc \\
         new=gnn_tpu_torch/ops/csrc
 """
 
@@ -58,9 +63,11 @@ KERNELS = {"K10": ("gnn_propagation_loop2", True), "K12": ("gnn_train_loop2", Fa
            "K2": ("gnn_bn_backward", False), "K8": ("gnn_train_loop_bwd", True),
            "K14": ("gnn_bn2_forward", True), "K17": ("gnn_bnT_backward", True),
            "K3": ("gnn_propagation_loop", True), "K9": ("gnn_propagation_step2", True),
-           "K16": ("gnn_bnT_forward", True), "K5": ("gnn_propagation_loop_bwd", True)}
-# the kernels held at every plan forced and timed by device time too
-PLANNED = ("K3", "K9", "K16", "K5")
+           "K16": ("gnn_bnT_forward", True), "K5": ("gnn_propagation_loop_bwd", True),
+           "K7": ("gnn_train_loop", True), "K4": ("gnn_propagation_step", True)}
+# the kernels held at every plan forced (where a tree can force them) and
+# timed by device time too
+PLANNED = ("K3", "K9", "K16", "K5", "K7", "K4")
 
 
 def source_of(tree, entry):
@@ -265,6 +272,51 @@ def main():
             cases += [(edge + ", affine", x, False), (edge, dict(x, affine=None), False)]
         return cases
 
+    def k7_cases():
+        """K7 at the dropout route's loop rows, then at chip_smoke.py's edges of
+        its design, each in the three dropout modes."""
+        x7 = cs.bnfree_kernel_inputs(torch, gb_train)[2]
+        cases = [(f"loop rows ({x7['adjT'].shape[0]})", x7, True)]
+        for B, W, D, K, act, edge in ((4, 32, 1, 3, "tanh", "W 32, D 1"),
+                                      (2, 128, 64, 2, "selu", "D 64"),
+                                      (3, 96, 14, 4, "relu", "W 96"),
+                                      (3, 128, 14, 3, "selu", "a dense block"),
+                                      (3, 128, 14, 3, "tanh", "a destination of 40 arcs"),
+                                      (3, 128, 14, 1, "selu", "K 1")):
+            for rate, alpha in ((0.1, True), (0.1, False), (0.0, True)):
+                x = cs.random_bnfree_inputs(torch, gen, B, W, D, D, K, rate, alpha, act, "cuda",
+                                            dense=edge == "a dense block",
+                                            column=edge == "a destination of 40 arcs")[2]
+                cases.append((f"{edge}, rate={rate} alpha={alpha}", x, False))
+        return cases
+
+    def k4_cases():
+        """K4 at the flagship serving batch's dep rows and at the flat layout's
+        every block, with and without the residual term, then at
+        chip_smoke.py's edges of its design, with and without it."""
+        act = model.spec.state_spec.activations[0]
+        flat = cs.flagship(torch, "cuda", "flat_bn")
+        gbf = Predictor(flat, fused_layout=False).build_batch(graphs).to("cuda")
+        cases = []
+        for label, x in ((f"dep rows ({gb.adj_dep.shape[0]})", cs.kernel_inputs(model, gb)[1]),
+                         (f"flat layout ({gbf.adj_dep.shape[0]})", cs.kernel_inputs(flat, gbf)[1])):
+            x = dict(x, activation=act)
+            cases += [(label, x, True), (label + ", res=False", dict(x, rT=None), True)]
+        for B, W, D, H, act_r, edge in ((4, 32, 1, 1, "tanh", "W 32, D = H = 1"),
+                                        (2, 128, 64, 64, "selu", "D = H = 64"),
+                                        (3, 96, 14, 14, "relu", "W 96"),
+                                        (3, 128, 14, 14, "selu", "a dense block"),
+                                        (3, 128, 14, 14, "tanh", "a destination of 40 arcs"),
+                                        (3, 64, 6, 9, "relu", "D 6, H 9"),
+                                        (2, 128, 64, 5, "selu", "D 64, H 5")):
+            x = dict(cs.random_inputs(torch, gen, B, W, D, H, "cuda", res=True), activation=act_r)
+            if edge == "a dense block":
+                x["adjT"] = cs.random_adj(torch, gen, B, W, "cuda", dense=True)
+            if edge == "a destination of 40 arcs":
+                x["adjT"][:, :40, 5] = 0.05
+            cases += [(edge, x, False), (edge + ", res=False", dict(x, rT=None), False)]
+        return cases
+
     def full(x):
         return [("full set", x, True)]
 
@@ -297,6 +349,8 @@ def main():
                         lambda x: dims2(x, "y1", "feats") + (x["aff"].shape[2],)),
         "K5": lambda: (fused, "propagation_loop_bwd", k5_cases(), fused._LOOP_BWD_PLANS,
                        lambda x: dims2(x, "s0")),
+        "K7": lambda: (fused, "train_loop", k7_cases(), None, None),
+        "K4": lambda: (fused, "propagation_step", k4_cases(), None, None),
     }
     nbytes = {"K1": bn._bn_fwd_bytes, "K2": bn._bn_bwd_bytes, "K8": fused._train_bwd_bytes,
               "K17": typed._bnT_bwd_bytes, "K3": fused._loop_bytes, "K16": typed._bnT_fwd_bytes,
@@ -338,7 +392,7 @@ def main():
                     if k in PLANNED:   # every plan of every tree that forces them
                         for t in names:
                             force = getattr(libs[t, k], entry + "_force_plan", None)
-                            for i, plan in enumerate(plan_list if force else ()):
+                            for i, plan in enumerate((plan_list or ()) if force else ()):
                                 if fits(k, plan, dims):
                                     _build._lib = One(libs[t, k])
                                     force(i)
