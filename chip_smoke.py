@@ -61,8 +61,14 @@
    W 96, a dense block, a destination of 40 arcs, K = 1), each in the three
    dropout modes, against its plain version, a repeat launch bit-identical,
    its shared memory equal to ops/fused.py::_train_loop_bytes'. K6
-   (launch-sized at the 110 dep rows) is also timed by the profiler's device
-   time a call.
+   (redesigned, one plan) repeats bit for bit at the dep rows with and
+   without rT and prints its occupancy; it runs at the edges of its design
+   (W 32 with D = H = 1, D = H = 64, W 96, a dense block, a destination of 40
+   arcs, D 6 with H 9, D 64 with H 5), each in the three dropout modes with
+   and without rT, against its plain version, a repeat launch bit-identical,
+   its shared memory equal to ops/fused.py::_train_step_bytes'; launch-sized
+   at the 110 dep rows, it is also timed by the profiler's device time a
+   call.
 7. Two-layer kernels: runs K9 (propagation_step2) and K10
    (propagation_loop2) at the shapes the hidden-150 recipe's serving path
    gives them on the full set, K12 (train_loop2) and K13 (train_loop2_bwd)
@@ -172,10 +178,13 @@
    forward and transpose at D = 14, then at D 1/31/64/150 and on a ragged
    plan (unsorted arcs, a hub of 6000 in-arcs, an isolated node, weight-0
    pads), against its plain version (within 1e-5 of each output's largest
-   entry, rows without entries exactly 0, a second launch bit-identical); times
-   it, its plain version, torch.sparse.mm on the same CSR matrix (the library
-   yardstick) and the plain body's index_add_ aggregation by device time
-   (torch.profiler), with CUDA-event times printed beside them.
+   entry, rows without entries exactly 0, a second launch bit-identical), its
+   launch (vector width, lanes a row, rows a CTA, CTAs) held to
+   ops/segment.py::_agg_launch; times it, its plain version and
+   torch.sparse.mm on the same CSR matrix (the library yardstick) at D 14,
+   64 and 150, forward and transpose, and on the ragged plan's hub, and the
+   plain body's index_add_ aggregation, by device time (torch.profiler, K18's
+   records counted), with CUDA-event times printed beside them.
 15. Serving path 'unblocked': Predictor(blocked=False) serves the flagship on
    the same requests, merged into batches without blocks and without a plan,
    as gnn_tpu's: the plain body, no kernel launches; outputs within 1e-5 of
@@ -196,8 +205,19 @@
    step over every block row) and one composite_bn step (K16/K17) on the
    whole set, counted and held to the CPU as phase 12 holds its paths; K4,
    K9 and K6 against their plain versions and timed at these shapes beside
-   their dep-row times, K4 and K9 by device time too, K9 with each of its
-   plans forced and timed (bit-identical).
+   their dep-row times, K4, K9 and K6 by device time too (K6's plain version
+   likewise), K4's and K6's occupancy printed, K9 with each of its plans
+   forced and timed (bit-identical).
+18. Widths beyond the kernels (after phase 13): the flagship's one-layer
+   state net at state width 80 with input dropout, without and with the
+   trailing BatchNorm. On a fused-layout batch with loop and dep blocks the
+   routes are the kernel routes (gnn_tpu's dispatch has no width test) and
+   the card refuses the width: the forward and one training step raise the
+   wrappers' ValueError with no launch, and no plain body runs in the
+   kernels' place. With aggregation='pallas' on a plan batch the same model
+   serves and trains one step on the card through K18 (K launches a
+   forward, 2K - 1 a step), against the CPU (iterations equal, outputs
+   within 1e-5, the loss rtol 1e-5).
 
 Prints a JSON line of per-kernel numbers (K1-K18), then as its
 last line {"ok": true, "device": {...}}. Any failed check exits non-zero
@@ -219,6 +239,7 @@ FP32_FLOPS = 67e12          # H100 SXM fp32 outside the tensor cores
 SEED = 0
 T_START = time.perf_counter()
 BUILD_S = [0.0]         # the kernels' build, seconds
+PORT_KERNELS = set()    # the names of the port's __global__ functions (port_kernel)
 
 
 def fail(msg):
@@ -271,16 +292,19 @@ def phase_build():
 
 
 # the kernels whose registers and spills the build's report is read for, by
-# their mangled names: K3 (eval_loop.cu, threads), K4 (fused_eval.cu,
-# threads), K7 (train_loop.cu, threads), K9 (fused2.cu, MAXF), K10
+# their mangled names: K3 (eval_loop.cu, threads), K4 (fused_eval.cu), K6
+# and K7 (train_loop.cu), K18 (segment_agg.cu, vector width), K9 (fused2.cu,
+# MAXF), K10
 # and K12 (loop2.cu, MAXF, TRAIN), K1 (bn_fwd.cu,
 # MAXF, threads, keep bytes staged), K2 (bn_train.cu, MAXF, threads, rows
 # staged), K8 (train_loop_bwd.cu, one kernel), K14 (bn2_fwd.cu,
 # MAXF), K17 (bn_typed.cu, MAXF, threads, rows staged), K16 (bn_typed.cu,
 # MAXF, threads, keep bytes staged), K5 (eval_loop_bwd.cu, one kernel)
 PTXAS_KERNELS = ((r"11loop_kernelILi(\d+)E", "K3 threads={}"),
-                 (r"11step_kernelILi(\d+)E", "K4 threads={}"),
-                 (r"17train_loop_kernelILi(\d+)E", "K7 threads={}"),
+                 (r"11step_kernelEPKf", "K4"),
+                 (r"17train_step_kernelEPKf", "K6"),
+                 (r"17train_loop_kernelEPKf", "K7"),
+                 (r"18segment_agg_kernelILi(\d+)E", "K18 V={}"),
                  (r"step2_tile_kernelILi(\d+)E", "K9 MAXF={}"),
                  (r"loop2_tile_kernelILi(\d+)ELb0E", "K10 MAXF={}"),
                  (r"loop2_tile_kernelILi(\d+)ELb1E", "K12 MAXF={}"),
@@ -522,18 +546,30 @@ def device_ms(torch, fn, launches=None, runs=50):
     """Device time per call of fn: the device time of every kernel
     torch.profiler records over `runs` calls, without the host's time between
     launches (which CUDA events over back-to-back calls include when a call's
-    host work outlasts its kernels). With `launches`, the kernels a call
-    launches, the records are counted: where the profiler returned fewer
-    than runs * launches, that is printed and the time is their mean times
-    `launches`."""
+    host work outlasts its kernels). With `launches`, the port's kernels a
+    call launches, only their records count (not the small PyTorch kernels a
+    wrapper may launch around them), and they are counted: where the
+    profiler returned fewer than runs * launches, that is printed and the
+    time is their mean times `launches`. Where no record names a kernel (of
+    the port's, with `launches`), it profiles again, and fails after three
+    tries: no other record's time stands in for the kernel's."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
-            fn()
-        torch.cuda.synchronize()
-    rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    what = "kernel record" if launches is None else "record of the port's kernels"
+    for attempt in range(3):   # the profiler may return no kernel record at all
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(runs):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and (launches is None or port_kernel(e.key))]
+        if rows:
+            break
+        say(f"device_ms: the profiler returned no {what} (attempt {attempt + 1} of 3)")
+    else:
+        fail(f"device_ms: the profiler returned no {what} in 3 attempts")
     total = sum(e.self_device_time_total for e in rows)
     if launches is None:
         return total / runs / 1e3
@@ -544,15 +580,40 @@ def device_ms(torch, fn, launches=None, runs=50):
     return total / max(seen, 1) * launches / 1e3
 
 
+def port_launches():
+    """The port's kernel launches so far, summed over every wrapper's count."""
+    from gnn_tpu_torch.ops import bn, fused, fused2, segment, typed
+    return sum(sum(m.launches.values()) for m in (bn, fused, fused2, segment, typed))
+
+
+def port_kernel(key):
+    """Whether a profiler row's kernel is one of the port's: the __global__
+    functions of ops/csrc, each in its source's anonymous namespace."""
+    import re
+    if not PORT_KERNELS:
+        from gnn_tpu_torch.ops import _build
+        for src in _build.CSRC.glob("*.cu"):
+            PORT_KERNELS.update(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+)\s*\(",
+                src.read_text()))
+    m = re.match(r"(?:void )?\(anonymous namespace\)::(\w+)[<(]", key)
+    return m is not None and m.group(1) in PORT_KERNELS
+
+
 def phase_profile(torch, fwd, runs=5, what="full-set forward"):
     """Device time by kernel over `runs` calls of fwd (torch.profiler), and
-    the device's busy share of the host-clock window."""
+    the device's busy share of the host-clock window. The profiler's records
+    of the port's kernels are counted against the wrappers' launch counts,
+    and a shortfall is printed: the busy share and the rows then read low by
+    the dropped records' time."""
     from torch.profiler import ProfilerActivity, profile
+    launched = port_launches()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(runs):
             fwd()
         wall_us = (time.perf_counter() - t0) * 1e6
+    launched = port_launches() - launched
     # device-side events only: an aten op's own row repeats its kernels' time
     rows = [(e.self_device_time_total, e.count, e.key) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
@@ -560,6 +621,10 @@ def phase_profile(torch, fwd, runs=5, what="full-set forward"):
     if not total:
         say("profile: the profiler recorded no device time")
         return
+    seen = sum(count for _, count, key in rows if port_kernel(key))
+    if seen != launched:
+        say(f"profile: the profiler returned {seen} records of the port's kernels for the "
+            f"{launched} launches in the window")
     say(f"profile over {runs} x {what}: device busy {total / runs / 1e3:.3f} ms of "
         f"{wall_us / runs / 1e3:.3f} ms per call ({100 * total / wall_us:.1f}% busy)")
     for dev_us, count, key in sorted(rows, reverse=True)[:12]:
@@ -909,6 +974,22 @@ def bnfree_kernel_inputs(torch, gb):
     return k5, k6, k7, k8
 
 
+def dep_step_operands(torch, model, gb, seed):
+    """K6's operands as the dropout route forms them for its first dep step
+    on gb, with the model's keep-masks drawn from a generator seeded with
+    `seed`."""
+    from gnn_tpu_torch.models import core
+    from gnn_tpu_torch.ops import fused
+    masks = core.draw_masks(model.spec, gb, torch.Generator(device=gb.device).manual_seed(seed))
+    with torch.no_grad():
+        _, dep, kw = core.dropout_operands(model.spec, model.params["state"], gb,
+                                           masks["state"][0])
+        s = dep["s0"]
+        return dict(adjT=dep["adjT"], s=s, sd=fused._make_drop(kw["alpha_drop"], kw["rate"])[0](
+            s, dep["ms"][0]), m=dep["ma"][0], rT=core.residual_agg(gb, s), fT=dep["fT"][0],
+                    w_cat=dep["w_cat"], **kw)
+
+
 def random_bnfree_inputs(torch, gen, B, W, D, H, K, rate, alpha, act, dev, dense=False,
                          line=False, column=False):
     """Ragged K5-K8 operands: a sparse 'average' adjacency (every entry
@@ -1075,6 +1156,33 @@ def phase_bnfree_kernels(torch, gb):
             check_plain(torch, f"K7 {label}", *against_plain(torch, fused, "train_loop", x7),
                         ("traj", "margins", "agg"), exact=("margins",))
             check_plans(torch, "K7", fused.train_loop, x7, (W, D, 0, 0), label)
+    # K6's occupancy and a repeat launch at the dep rows, with and without
+    # rT; then K6 at the edges of its design (W 32 with D = H = 1, D = H = 64,
+    # W 96, a dense block, a destination of 40 arcs, D != H both ways) in
+    # each dropout mode, with and without rT: against its plain version and a
+    # repeat launch bit-identical (y, agg), the shared memory the library
+    # takes held to the mirror's
+    dims6 = (k6["adjT"].shape[1], k6["s"].shape[-1], k6["fT"].shape[-1], 0)
+    check_tiled(torch, "K6", fused.train_step, k6, dims6)
+    check_plans(torch, "K6", fused.train_step, dict(k6, rT=None), dims6, "dep rows, res=False")
+    gen6 = torch.Generator().manual_seed(SEED + 12)
+    for B, W, D, H, act, edge in ((4, 32, 1, 1, "tanh", "W 32, D = H = 1"),
+                                  (2, 128, 64, 64, "selu", "D = H = 64"),
+                                  (3, 96, 14, 14, "relu", "W 96"),
+                                  (3, 128, 14, 14, "selu", "a dense block"),
+                                  (3, 128, 14, 14, "tanh", "a destination of 40 arcs"),
+                                  (3, 64, 6, 9, "relu", "D 6, H 9"),
+                                  (2, 128, 64, 5, "selu", "D 64, H 5")):
+        for rate, alpha in ((0.1, True), (0.1, False), (0.0, True)):
+            x6 = random_bnfree_inputs(torch, gen6, B, W, D, H, 2, rate, alpha, act, gb.device,
+                                      dense=edge == "a dense block",
+                                      column=edge == "a destination of 40 arcs")[1]
+            for xr in (x6, dict(x6, rT=None)):
+                label = (f"design edge ({edge}: B={B} W={W} {act} rate={rate} alpha={alpha} "
+                         f"res={xr['rT'] is not None})")
+                check_plain(torch, f"K6 {label}", *against_plain(torch, fused, "train_step", xr),
+                            ("y", "agg"))
+                check_plans(torch, "K6", fused.train_step, xr, (W, D, H, 0), label)
     # K8's plan and occupancy and each of its plans that fits forced and
     # timed; then K8 at the edges of its design (W 32 with D 1, D 64, a
     # dense block, a source of 40 arcs, K 1 and 5) through check_bwd2, the
@@ -1553,7 +1661,7 @@ def phase_two_layer_train_kernels(torch, gb):
 TILED = ("K9", "K10", "K11", "K12", "K13", "K14", "K15", "K1", "K2", "K3", "K8", "K17", "K16",
          "K5")
 # the kernels with plans of their own threads a CTA (the rest run 256)
-PLAN_THREADS = ("K1", "K2", "K3", "K17", "K16", "K4", "K7")
+PLAN_THREADS = ("K1", "K2", "K3", "K17", "K16", "K4", "K6", "K7")
 
 
 def plan_kernel(k):
@@ -1575,6 +1683,9 @@ def plan_kernel(k):
                    "gnn_propagation_step"),
             "K7": ((fused._TRAIN_LOOP_PLAN,),
                    lambda W, D, AL, H1, p: fused._train_loop_bytes(W, D), "gnn_train_loop"),
+            # K6's third width is H, the state width it writes
+            "K6": ((fused._TRAIN_STEP_PLAN,),
+                   lambda W, D, H, H1, p: fused._train_step_bytes(W, D, H), "gnn_train_step"),
             "K8": (fused._TRAIN_BWD_PLANS, lambda W, D, AL, H1, p: fused._train_bwd_bytes(W, D, p),
                    "gnn_train_loop_bwd"),
             "K17": (typed._BNT_BWD_PLANS, typed._bnT_bwd_bytes, "gnn_bnT_backward"),
@@ -1609,7 +1720,8 @@ def tiled_plan(k, W, D, AL, H1):
     """The shared-memory plan the library takes for kernel k at this shape,
     held equal to the Python mirror's (ops/fused2.py::_tile2_plan,
     ops/bn.py::_bn_plan, ops/fused.py::_loop_plan, _loop_bwd_plan,
-    _train_bwd_plan, _step_bytes and _train_loop_bytes, ops/typed.py::_bnT_fwd_plan
+    _train_bwd_plan, _step_bytes, _train_step_bytes and _train_loop_bytes,
+    ops/typed.py::_bnT_fwd_plan
     and _bnT_bwd_plan), and what the card reports for it."""
     info = plan_info(k, W, D, AL, H1)
     need, plan = mirrored_plan(k, W, D, AL, H1)
@@ -1649,8 +1761,8 @@ def check_tiled(torch, k, kernel, x, dims):
 
 
 def check_plans(torch, k, kernel, x, dims, label):
-    """Kernel k (K3, K4, K7, K9, K16, K5) at a shape: a second launch and each plan that fits,
-    forced in turn (K4 and K7 have one plan), bit-identical to the first
+    """Kernel k (K3, K4, K6, K7, K9, K16, K5) at a shape: a second launch and each plan that
+    fits, forced in turn (K4, K6 and K7 have one plan), bit-identical to the first
     launch; the plan the library takes held to the mirror's."""
     from gnn_tpu_torch.ops import fused2
     info = tiled_plan(k, *dims)
@@ -1835,7 +1947,8 @@ def phase_two_layer_kernels(torch, gb, gb_train):
         timer = device_ms if k == "K9" else timed_ms
         out[k] = dict(name=f"{k} {name}", route="cuda", source=f"gnn_tpu_torch/ops/csrc/{src}",
                       replaces=f"gnn_tpu/ops/pallas_fused.py:{line}", max_abs_err=errs[k],
-                      ms=timer(torch, lambda: kernel(**x)),
+                      ms=(device_ms(torch, lambda: kernel(**x), 1) if k == "K9"
+                          else timed_ms(torch, lambda: kernel(**x))),
                       plain_ms=timer(torch, lambda: plain(**x)),
                       bound_ms=b, bound_by=by, library_ms=None)
         events = (f" (device time a call; CUDA events: kernel {timed_ms(torch, lambda: kernel(**x)):.4f}"
@@ -2127,7 +2240,7 @@ def phase_typed_kernels(torch, model, gb, gb_serve):
         say(f"{k} timing at {R} block rows, T={T}: kernel {v['ms']:.4f} ms, plain "
             f"{v['plain_ms']:.4f} ms, bound {v['bound_ms']:.4f} ms ({v['bound_by']})"
             + (f"; each plan forced: {plans_ms}" if k == "K17" else "")
-            + (f"; device time a call {device_ms(torch, lambda: typed.bnT_forward_step(**x1k)):.4f}"
+            + (f"; device time a call {device_ms(torch, lambda: typed.bnT_forward_step(**x1k), 1):.4f}"
                f" ms; each plan forced: {plans16}; at the serving path's "
                f"{ev['y1'].shape[0]} rows {ev_ms:.4f} ms" if k == "K16" else ""))
     return out
@@ -2308,41 +2421,39 @@ def phase_flat_layout(torch, graphs, typed, requests, n_arcs, dep_ms):
         phase_training(torch, b, n_arcs, variant, 1)
     # the per-step kernels at the all-dep shapes
     h150 = flagship(torch, "cuda", "flat_h150")
-    drop_m = flagship(torch, "cuda", "flat_dropout")
-    masks = core.draw_masks(drop_m.spec, gb_train,
-                            torch.Generator(device="cuda").manual_seed(SEED + 31))
+    k6 = dep_step_operands(torch, flagship(torch, "cuda", "flat_dropout"), gb_train, SEED + 31)
     with torch.no_grad():
         _, k4 = kernel_inputs(model, gb)
         k4 = dict(k4, activation=model.spec.state_spec.activations[0])
         _, dep = core.hybrid2_operands(h150.spec, h150.params["state"], h150.bn["state"], gb)
         k9 = dict(dep, rT=core.residual_agg(gb, dep["s"]),
                   **dict(zip(("act0", "act1"), h150.spec.state_spec.activations)))
-        _, dep, kw = core.dropout_operands(drop_m.spec, drop_m.params["state"], gb_train,
-                                           masks["state"][0])
-        s = dep["s0"]
-        k6 = dict(adjT=dep["adjT"], s=s, sd=fused._make_drop(kw["alpha_drop"], kw["rate"])[0](
-                      s, dep["ms"][0]), m=dep["ma"][0], rT=core.residual_agg(gb_train, s),
-                  fT=dep["fT"][0], w_cat=dep["w_cat"], **kw)
         for k, mod, name, x in (("K4", fused, "propagation_step", k4),
                                 ("K9", fused2, "propagation_step2", k9),
                                 ("K6", fused, "train_step", k6)):
             got, want = against_plain(torch, mod, name, x)
             got, want = (got if isinstance(got, tuple) else (got,),
                          want if isinstance(want, tuple) else (want,))
-            err = check_plain(torch, f"{k} all-dep {tuple(x['adjT'].shape)}", got[:1], want[:1],
-                              ("out",))
+            names = ("y", "agg") if k == "K6" else ("out",)
+            err = check_plain(torch, f"{k} all-dep {tuple(x['adjT'].shape)}", got, want, names)
             ms = timed_ms(torch, lambda: getattr(mod, name)(**x))
             plain = timed_ms(torch, lambda: getattr(mod, name + "_ref")(**x))
             plans = ""
             if k == "K9":
                 dims = (x["adjT"].shape[1], x["w1"].shape[0], x["feats"].shape[-1],
                         x["w0"].shape[0])
-                plans = (f"; device time a call {device_ms(torch, lambda: step2_out(**x)):.4f} ms"
+                plans = (f"; device time a call {device_ms(torch, lambda: step2_out(**x), 1):.4f} ms"
                          f"; each plan forced: {time_plans(torch, k, step2_out, x, dims, (got[0],))}")
             if k == "K4":
                 dims = (x["adjT"].shape[1], x["s"].shape[-1], x["w2"].shape[0] // 2, 0)
                 check_tiled(torch, k, step_out, x, dims)
                 plans = f"; device time a call {device_ms(torch, lambda: step_out(**x), 1):.4f} ms"
+            if k == "K6":
+                dims = (x["adjT"].shape[1], x["s"].shape[-1], x["fT"].shape[-1], 0)
+                check_tiled(torch, k, fused.train_step, x, dims)
+                plans = (f"; device time a call: kernel "
+                         f"{device_ms(torch, lambda: fused.train_step(**x), 1):.4f} ms, plain "
+                         f"{device_ms(torch, lambda: fused.train_step_ref(**x)):.4f} ms")
             say(f"{k} at the all-dep shape adjT {tuple(x['adjT'].shape)}: kernel {ms:.4f} ms, "
                 f"plain {plain:.4f} ms, max per-node difference {err:.3e}; at the dep rows "
                 f"{dep_ms[k]:.4f} ms{plans}")
@@ -2511,6 +2622,94 @@ def phase_training(torch, gb, n_arcs, variant, steps):
     phase_profile(torch, step, runs=3, what=f"'{variant}' training step")
     return launches
 
+def phase_wide(torch):
+    """Phase 18: state width 80 on the card. On the fused layout the kernels'
+    ValueError, no launch; through 'pallas' on a plan batch, K18 and the CPU's
+    results."""
+    import re
+
+    import numpy as np
+    from gnn_tpu_torch import GNNgraphBased, MLPSpec, get_inout_dims
+    from gnn_tpu_torch.graphs.datasets import random_graph
+    from gnn_tpu_torch.graphs.generator import GraphDataGenerator
+    from gnn_tpu_torch.models import core
+    from gnn_tpu_torch.ops import segment
+    say(f"---- state width 80, beyond the kernels' 64 ({elapsed()})")
+    rng = np.random.default_rng(SEED)
+    graphs = [random_graph(int(rng.integers(8, 30)), 80, 3, 2, 0.5, focus="g", rng=rng)
+              for _ in range(10)]
+    graphs.append(random_graph(300, 80, 3, 2, 0.02, focus="g", rng=rng))   # dep blocks
+    plan_cpu = next(iter(GraphDataGenerator(graphs, batch_size=len(graphs), shuffle=False,
+                                            build_plan=True)))
+    plan = plan_cpu.to("cuda")
+    in_s, l_s = get_inout_dims("state", 80, 3, 2, "g")
+    in_o, l_o = get_inout_dims("output", 80, 3, 2, "g")
+    for bn_on in (False, True):
+        def model(device, aggregation):
+            ss = MLPSpec(input_dim=in_s, units=tuple(l_s), activations="selu",
+                         kernel_initializer="lecun_normal", bias_initializer="lecun_normal",
+                         batch_normalization=bn_on, dropout_rate=(0.1,), dropout_pos=(0,),
+                         alphadropout=True)
+            so = MLPSpec(input_dim=in_o, units=tuple(l_o), activations="softmax",
+                         kernel_initializer="glorot_normal", bias_initializer="glorot_normal",
+                         batch_normalization=False)
+            return GNNgraphBased(ss, so, max_iteration=5, threshold=0.01, seed=SEED,
+                                 aggregation=aggregation, device=device)
+        label = f"state width 80, {'with' if bn_on else 'without'} BatchNorm"
+        card = model("cuda", "auto")
+        gb = card.to_batch(graphs)
+        routes = (core._eval_route(card.spec, gb), core._train_route(card.spec, gb))
+        want = ("hybrid", "bn" if bn_on else "dropout")
+        if gb.adj_loop is None or gb.adj_dep is None or routes != want:
+            fail(f"{label}: routes {routes}, expected {want}, on a batch with loop blocks "
+                 f"{gb.adj_loop is not None} and dep blocks {gb.adj_dep is not None}")
+        before = port_launches()
+        refused = []
+        for what, call in (("forward", lambda: card.forward(gb)),
+                           ("training step", lambda: card.training_step(gb))):
+            try:
+                call()
+                torch.cuda.synchronize()
+            except ValueError as e:
+                if not re.search(r"widths above 64|bytes of shared memory", str(e)):
+                    fail(f"{label}: the {what} raised another ValueError: {e}")
+                refused.append(f"{what}: {e}")
+            else:
+                fail(f"{label}: the {what} ran on the kernel routes at width 80")
+        if port_launches() != before:
+            fail(f"{label}: {port_launches() - before} kernel launches before the refusal")
+        say(f"{label}: routes {routes}, refused with no launch ({'; '.join(refused)})")
+
+        card, cpu = model("cuda", "pallas"), model("cpu", "pallas")
+        K = card.spec.max_iteration
+        segment.reset_launches()
+        before = port_launches()
+        res = card.forward(plan)
+        torch.cuda.synchronize()
+        n_fwd = segment.launches["segment_aggregate"]
+        masks = card._draw_masks(card.spec, plan, card.mask_gen)
+        out = card.training_step(plan, masks=masks)
+        torch.cuda.synchronize()
+        n_step = segment.launches["segment_aggregate"] - n_fwd
+        if (n_fwd, n_step) != (K, 2 * K - 1) or port_launches() != before + n_fwd + n_step:
+            fail(f"{label}, 'pallas': K18 launched {n_fwd} times a forward and {n_step} a "
+                 f"step (expected {K} and {2 * K - 1}), {port_launches() - before} launches "
+                 f"of the port's kernels in all")
+        ref = cpu.forward(plan_cpu)
+        out_cpu = cpu.training_step(plan_cpu, masks=tree_map(lambda v: v.cpu(), masks))
+        sel = plan_cpu.sel_mask
+        err = float((res["out"].cpu()[sel] - ref["out"][sel]).abs().max())
+        iters = [float(r["iters"]) for r in (res, ref, out, out_cpu)]
+        if iters[0] != iters[1] or iters[2] != iters[3] or not err <= TOL:
+            fail(f"{label}, 'pallas': iterations {iters} (card, CPU forward; card, CPU step), "
+                 f"outputs differ by {err:.3e}")
+        loss = close_rel(torch, out["loss"].cpu(), out_cpu["loss"], 1e-5, 0.0,
+                         f"{label} 'pallas' loss")
+        say(f"{label}, 'pallas' on the plan batch: K18 {n_fwd} launches a forward and {n_step} "
+            f"a step; forward iters {iters[0]}, outputs within {err:.3e} of the CPU; training "
+            f"step iters {iters[2]}, loss within {loss:.3e}")
+
+
 def ragged_plan(torch, gen, N=20000, E=60000, hub=5, isolated=7, hub_arcs=6000, pads=1000):
     """(src, dst, w, N) of a ragged plan: unsorted random arcs, `hub_arcs`
     of them into node `hub`, none touching node `isolated`, and `pads`
@@ -2531,7 +2730,8 @@ def ragged_plan(torch, gen, N=20000, E=60000, hub=5, isolated=7, hub_arcs=6000, 
 def check_k18(torch, segment, x, plan, label):
     """K18 against its plain version on the same CUDA tensors: within TOL of
     the largest output entry, rows without entries exactly 0, a second launch
-    bit-identical. Returns the largest difference."""
+    bit-identical; the launch the library makes held to ops/segment.py's
+    mirror. Returns the largest difference."""
     got = segment.segment_aggregate(x, plan)
     again = segment.segment_aggregate(x, plan)
     torch.cuda.synchronize()
@@ -2546,17 +2746,53 @@ def check_k18(torch, segment, x, plan, label):
         fail(f"K18 {label}: a row without entries is not exactly 0")
     if not torch.equal(got, again):
         fail(f"K18 {label}: a second launch on the same inputs differs")
-    say(f"K18 {label}: rows {plan.num_rows}, entries {plan.col.shape[0]}, D={x.shape[1]}, "
+    N, D = x.shape
+    info = segment.launch_info(N, D)
+    if tuple(info[k] for k in ("vector", "lanes", "rows", "ctas")) != segment._agg_launch(N, D):
+        fail(f"K18 {label}: the library launches {info}, ops/segment.py::_agg_launch says "
+             f"{segment._agg_launch(N, D)}")
+    say(f"K18 {label}: rows {plan.num_rows}, entries {plan.col.shape[0]}, D={D}, "
         f"{int(empty.sum())} empty rows exactly 0, repeat bit-identical, max abs err {err:.3e} "
-        f"(largest entry {scale:.3e})")
+        f"(largest entry {scale:.3e}); launch as mirrored: float{info['vector']} lanes, "
+        f"{info['lanes']} a row, {info['rows']} rows a CTA, {info['ctas']} CTAs, "
+        f"{info['registers']} registers a thread")
     return err
+
+
+def k18_bound(torch, plan, D):
+    """(least time, what sets it) of K18 on a plan at width D: the state rows
+    the plan reads (pad rows are never read: their weight-0 arcs are dropped),
+    every output row written, rowptr, and col and w of each entry; a multiply
+    and an add per entry and feature."""
+    N, nnz = plan.num_rows, plan.col.shape[0]
+    read = int(torch.unique(plan.col).numel())
+    return bound(4 * (D * read + N * D + (N + 1) + 2 * nnz), 2 * nnz * D)
+
+
+def time_k18(torch, segment, x, plan, label):
+    """K18's, its plain version's and torch.sparse.mm's device time a call
+    (the profiler's records; K18's counted, one a call) on a plan, beside
+    K18's bound. Returns the times by name and the bound."""
+    N, D = x.shape
+    lib = torch.sparse_csr_tensor(plan.rowptr.long(), plan.col.long(), plan.w, size=(N, N))
+    lib_err = float((torch.sparse.mm(lib, x) - segment.segment_aggregate_ref(x, plan)).abs().max())
+    dev = {"K18": device_ms(torch, lambda: segment.segment_aggregate(x, plan), 1),
+           "plain": device_ms(torch, lambda: segment.segment_aggregate_ref(x, plan)),
+           "torch.sparse.mm": device_ms(torch, lambda: torch.sparse.mm(lib, x))}
+    b, by = k18_bound(torch, plan, D)
+    say(f"K18 {label} ({N} rows, {plan.col.shape[0]} entries, D={D}): device time a call "
+        f"kernel {dev['K18']:.4f} ms (bound {b:.4f}, {by}; {b / dev['K18']:.0%} of it), plain "
+        f"{dev['plain']:.4f} ms, torch.sparse.mm {dev['torch.sparse.mm']:.4f} ms (max abs diff "
+        f"{lib_err:.3e} to the plain version)")
+    return dev, (b, by)
 
 
 def phase_segment_kernel(torch, gb):
     """K18 against its plain version on the whole set's plan (forward and
     transpose, D = 14, then D 1/31/64/150) and on a ragged plan; times at D =
-    14 on the forward plan, beside torch.sparse.mm on the same CSR matrix
-    and the plain body's index_add_ aggregation."""
+    14, 64 and 150 on the forward and transpose plans and on the ragged
+    plan's hub, beside torch.sparse.mm on the same CSR matrix, and the plain
+    body's index_add_ aggregation."""
     from gnn_tpu_torch.ops import segment
     from gnn_tpu_torch.ops.aggregate import aggregate_to_nodes
     say(f"---- segment kernel K18 ({elapsed()})")
@@ -2566,60 +2802,47 @@ def phase_segment_kernel(torch, gb):
     x = torch.randn(Np, 14, generator=gen).cuda()
     err = max(check_k18(torch, segment, x, fwd, "full set, forward"),
               check_k18(torch, segment, x, bwd, "full set, transpose"))
+    wide = {}
     for D in (1, 31, 64, 150):
-        check_k18(torch, segment, torch.randn(Np, D, generator=gen).cuda(), fwd,
-                  "full set, forward")
+        wide[D] = torch.randn(Np, D, generator=gen).cuda()
+        check_k18(torch, segment, wide[D], fwd, "full set, forward")
+        check_k18(torch, segment, wide[D], bwd, "full set, transpose")
     src, dst, w, N = ragged_plan(torch, gen)
     plans = segment.build_agg_plan(src, dst, w, N).to("cuda")
-    if int(plans.fwd.rowptr[6] - plans.fwd.rowptr[5]) < 5000:
+    hub = int(plans.fwd.rowptr[6] - plans.fwd.rowptr[5])
+    if hub < 5000:
         fail("the ragged plan's hub has fewer than 5000 in-arcs")
+    ragged = {}
     for D in (14, 37):
-        xr = torch.randn(N, D, generator=gen).cuda()
-        check_k18(torch, segment, xr, plans.fwd, "ragged (hub, isolated node, unsorted), forward")
-        check_k18(torch, segment, xr, plans.bwd, "ragged, transpose")
+        ragged[D] = torch.randn(N, D, generator=gen).cuda()
+        check_k18(torch, segment, ragged[D], plans.fwd,
+                  "ragged (hub, isolated node, unsorted), forward")
+        check_k18(torch, segment, ragged[D], plans.bwd, "ragged, transpose")
 
-    D = x.shape[1]
-    lib = torch.sparse_csr_tensor(fwd.rowptr.long(), fwd.col.long(), fwd.w, size=(Np, Np))
-    lib_err = float((torch.sparse.mm(lib, x) - segment.segment_aggregate_ref(x, fwd)).abs().max())
-
-    def k18_bound(plan):
-        # the state rows the plan reads (pad rows are never read: their
-        # weight-0 arcs are dropped), every output row written, rowptr, and
-        # col and w of each entry; a multiply and an add per entry and feature
-        nnz = plan.col.shape[0]
-        read = int(torch.unique(plan.col).numel())
-        return bound(4 * (D * read + Np * D + (Np + 1) + 2 * nnz), 2 * nnz * D)
-    b, by = k18_bound(fwd)
-    b_bwd, _ = k18_bound(bwd)
-    calls = {"K18": lambda: segment.segment_aggregate(x, fwd),
-             "K18 transpose": lambda: segment.segment_aggregate(x, bwd),
-             "plain": lambda: segment.segment_aggregate_ref(x, fwd),
-             "torch.sparse.mm": lambda: torch.sparse.mm(lib, x),
-             "index_add_ over all slots":
-                 lambda: aggregate_to_nodes(x[gb.src], gb.edge_w, gb.dst, Np)}
-    # at this size a call's host work outlasts its kernel, so CUDA events
-    # over back-to-back calls time the host: the JSON row takes the
-    # profiler's device time, the events' times are printed beside it
-    dev = {k: device_ms(torch, f) for k, f in calls.items()}
-    ev = {k: timed_ms(torch, f) for k, f in calls.items()}
+    dev, (b, by) = time_k18(torch, segment, x, fwd, "full set, forward")
+    dev_t, _ = time_k18(torch, segment, x, bwd, "full set, transpose")
+    for D in (64, 150):
+        time_k18(torch, segment, wide[D], fwd, "full set, forward")
+        time_k18(torch, segment, wide[D], bwd, "full set, transpose")
+    # the ragged plan at D = 14: its time is the hub row's chain of entries
+    time_k18(torch, segment, ragged[14], plans.fwd, f"ragged plan, a hub of {hub} in-arcs")
     out = dict(name="K18 segment_aggregate", route="cuda",
                source="gnn_tpu_torch/ops/csrc/segment_agg.cu",
                replaces="gnn_tpu/ops/pallas_segment.py:164", max_abs_err=err,
                ms=dev["K18"], plain_ms=dev["plain"], bound_ms=b, bound_by=by,
                library_ms=dev["torch.sparse.mm"])
     E = gb.n_real[1]
+    t_all = device_ms(torch, lambda: aggregate_to_nodes(x[gb.src], gb.edge_w, gb.dst, Np))
     t_real = device_ms(torch, lambda: aggregate_to_nodes(x[gb.src[:E]], gb.edge_w[:E],
                                                          gb.dst[:E], Np))
-    say(f"K18 at {Np} rows, {fwd.col.shape[0]} entries, D={D}: device time per call "
-        f"(torch.profiler, 50 calls) kernel {dev['K18']:.4f} ms (bound {b:.4f}, {by}), "
-        f"transpose {dev['K18 transpose']:.4f} ms (bound {b_bwd:.4f}), plain "
-        f"{dev['plain']:.4f} ms, torch.sparse.mm {dev['torch.sparse.mm']:.4f} ms (max abs "
-        f"diff {lib_err:.3e} to the plain version)")
     say(f"plain body's aggregation (index_add_ over {gb.src.shape[0]} arc slots): "
-        f"{dev['index_add_ over all slots']:.4f} ms; over the {E} real arcs only: "
-        f"{t_real:.4f} ms (device time)")
+        f"{t_all:.4f} ms; over the {E} real arcs only: {t_real:.4f} ms (device time)")
+    # at this size a call's host work outlasts its kernel, so CUDA events over
+    # back-to-back calls time the host; the JSON row takes the device time
     say("CUDA events over back-to-back calls (host-bound at this size): "
-        + ", ".join(f"{k} {v:.4f} ms" for k, v in ev.items()))
+        f"K18 {timed_ms(torch, lambda: segment.segment_aggregate(x, fwd)):.4f} ms, transpose "
+        f"{timed_ms(torch, lambda: segment.segment_aggregate(x, bwd)):.4f} ms (device "
+        f"{dev_t['K18']:.4f}), plain {timed_ms(torch, lambda: segment.segment_aggregate_ref(x, fwd)):.4f} ms")
     return {"K18": out}
 
 
@@ -2752,6 +2975,7 @@ def main():
     phase_flat_layout(torch, graphs, typed, requests, n_arcs,
                       {k: kernels[k]["ms"] for k in ("K4", "K6", "K9")})
     phase_one_type(torch, gb, gb_train)
+    phase_wide(torch)
     k18_launches = phase_pallas(torch, graphs, gb_plan_cpu, gb_plan, n_arcs)
     for k, (path, key) in {"K1": ("bn", "bn_forward_step"), "K2": ("bn", "bn_backward_step"),
                            "K3": ("flagship", "propagation_loop"),

@@ -131,15 +131,15 @@ def _signatures():
         "gnn_segment_aggregate": [p] * 5 + [i, i, p],
     }
     out = {name: (args, i) for name, args in sig.items()}
-    # the tiled kernels', K1's, K2's, K3's, K4's, K5's, K7's, K8's, K16's and
-    # K17's plan reports (W, D, AL or F or H, H1 or T, out); forced plans of
-    # those in `planned`
+    # the tiled kernels', K1's-K8's, K16's and K17's plan reports (W, D, AL or
+    # F or H, H1 or T, out) and K18's launch report (N, D, -, -, out); forced
+    # plans of those in `planned`
     planned = ("gnn_propagation_loop2_bwd", "gnn_bn2_forward", "gnn_bn2_backward",
                "gnn_train_loop2", "gnn_bn_forward", "gnn_bn_backward", "gnn_train_loop_bwd",
                "gnn_bnT_backward", "gnn_propagation_step2", "gnn_propagation_loop",
                "gnn_propagation_loop_bwd", "gnn_bnT_forward")
     for name in planned + ("gnn_propagation_loop2", "gnn_train_loop2_bwd", "gnn_propagation_step",
-                           "gnn_train_loop"):
+                           "gnn_train_loop", "gnn_train_step", "gnn_segment_aggregate"):
         out[name + "_info"] = ([i] * 4 + [p], i)
     for name in planned:
         out[name + "_force_plan"] = ([i], None)

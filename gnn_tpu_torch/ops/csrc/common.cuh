@@ -3,10 +3,8 @@
 // train_loop_bwd.cu, fused2.cu, loop2.cu, train_loop2_bwd.cu,
 // eval_loop2_bwd.cu, bn2_fwd.cu, bn2_train.cu, bn_typed.cu): the activations
 // of the Pallas kernels, the input dropout and its derivative, and the
-// staging of block adjacencies and row blocks between device and shared
-// memory and the dense column contraction (stage_adj, stage_in, stage_out,
-// aggregate_col) of the one kernel still per-node, K6 (train_loop.cu). The
-// redesigned kernels build on tile2.cuh.
+// launch checks. The kernels' staging, adjacency lists and block products
+// are in tile2.cuh.
 
 #pragma once
 
@@ -65,48 +63,6 @@ __device__ __forceinline__ float drop(int mode, float a, float b, float x, bool 
 // d drop(x) / dx: a * keep, or 1 without dropout.
 __device__ __forceinline__ float drop_grad(int mode, float a, bool keep) {
   return mode == kNoDrop ? 1.0f : (keep ? a : 0.0f);
-}
-
-// Block adjacency [W, W] (contiguous, 16-byte aligned) -> rows of stride W + 1,
-// so a thread per destination reading a column and a thread per source reading
-// a row are both free of bank conflicts.
-__device__ inline void stage_adj(const float* __restrict__ g, int W, float* sm) {
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  for (int i = threadIdx.x; i < W * W / 4; i += blockDim.x) {
-    const float4 v = g4[i];
-    float* d = sm + (4 * i / W) * (W + 1) + 4 * i % W;  // W % 4 == 0: no row crossing
-    d[0] = v.x;
-    d[1] = v.y;
-    d[2] = v.z;
-    d[3] = v.w;
-  }
-}
-
-// Contiguous [W, F] rows -> shared rows of stride P, from column c0.
-__device__ inline void stage_in(const float* __restrict__ g, int W, int F, float* sm, int P,
-                                int c0) {
-  for (int i = threadIdx.x; i < W * F; i += blockDim.x) sm[(i / F) * P + c0 + i % F] = g[i];
-}
-
-// Shared rows of stride P -> contiguous [W, F] rows.
-__device__ inline void stage_out(float* __restrict__ g, int W, int F, const float* sm, int P) {
-  for (int i = threadIdx.x; i < W * F; i += blockDim.x) g[i] = sm[(i / F) * P + i % F];
-}
-
-// agg[t] = sum_src adjT[src][t] * rows[src] (rows of stride P), reading column
-// t of the adjacency staged by stage_adj.
-template <int MAXF>
-__device__ void aggregate_col(const float* adj, int W, const float* rows, int P, int D,
-                              float (&acc)[MAXF]) {
-#pragma unroll
-  for (int d = 0; d < MAXF; ++d) acc[d] = 0.0f;
-  for (int src = 0; src < W; ++src) {
-    const float a = adj[src * (W + 1) + threadIdx.x];
-    const float* r = rows + src * P;
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d)
-      if (d < D) acc[d] = fmaf(a, r[d], acc[d]);
-  }
 }
 
 // The BatchNorm kernels' rows: block row blockIdx.x < Bl reads adj_loop[r],

@@ -27,7 +27,10 @@
 // traj and agg out), about two thirds of its bytes; the dense layer costs
 // 4*D*D flops a node and iteration and the arcs present 2*D each, so the
 // least time is set by bytes (chip_smoke.py::bnfree_bounds: 0.0663 ms on the
-// training batch's 1104 loop rows, K = 5). K6 is the same per iteration.
+// training batch's 1104 loop rows, K = 5). K6 is the same for one iteration
+// (0.0036 ms at the 110 dep rows); at those rows a launch is 110 CTAs, less
+// than one wave, and its time is one CTA's staging, list build and products
+// end to end.
 //
 // K7's design (K3's, eval_loop.cu, with the dropout between the aggregation
 // and Wa), one CTA of NT threads a block row:
@@ -47,7 +50,7 @@
 //   same pass;
 // - the dense layer on NT / W threads a node, eight outputs at a time (two
 //   arrays of four) from 16-byte reads of the transposed w_cat, each a chain
-//   over the 2D inputs from 0 (dense_acc's order), the inputs dropped as
+//   over the 2D inputs with c ascending from 0, the inputs dropped as
 //   they are read (the same common.cuh::drop), fT added after the chain; s'
 //   goes into the state buffer s_old leaves. No register array is wider
 //   than four;
@@ -61,32 +64,36 @@
 // of device time at the training batch's 1104 loop rows against the
 // per-node kernel's 0.92 (four CTAs an SM: 0.201; PERF.md §6).
 //
-// K6's design: one CTA per block, one thread per node (blockDim == W). The
-// adjacency is staged in shared memory with row stride W + 1, so reading a
-// column (a thread per destination) is free of bank conflicts. A thread's x2
-// row lives in shared memory (odd stride) so the dense layer loops over it at
-// run time; its accumulators are registers sized by a template (16, 32 or 64
-// wide). It stages synchronously and contracts the adjacency densely (2*D*W*W
-// flops a block): its time is set by shared-memory traffic and FMAs, not
-// bytes.
+// K6's design (K7's for one iteration with K4's residual term and widths,
+// fused_eval.cu), one CTA of NT threads a dep block row:
+// - each column's nonzero entries go into a compact list ([16][W] weights
+//   and uint8 sources, tile2.cuh::build_col_lists, from coalesced 16-byte
+//   reads), in source order; a column of more than 16 entries is read from
+//   device memory, every entry, so a dense block is exact;
+// - w_cat transposed, s, sd, rT, fT and the aggregated slice's keep bytes
+//   are staged with cp.async, issued together ahead of the list build and
+//   waited on once;
+// - the aggregation one thread a node and four of its columns, walking the
+//   node's list once, src ascending from 0 as the dense sum associated it,
+//   then + rT, into a node-major buffer and out to agg (before the dropout;
+//   the plain backward reads it);
+// - the dense layer on NT / W threads a node, eight outputs at a time (two
+//   arrays of four) from 16-byte reads of the transposed w_cat, each a chain
+//   over [sd | drop(agg)] with c ascending from 0, the aggregated half dropped
+//   as it is read (common.cuh::drop), then + fT, straight to device memory.
+//   H may differ from D (the state read D wide, written H wide, as K4).
+// Two barriers a launch, no atomics: a repeat launch is bit-identical, and y
+// and agg are bit for bit the per-node K6's (fmaf over src ascending, + rT;
+// fmaf over c ascending, + fT). One plan (kTrainStepThreads,
+// kTrainStepLists) takes every shape the kernel takes (W 32..128, D and H up
+// to 64; 217,728 bytes at W 128, D = H = 64); at W 128, D = H = 14 a CTA
+// takes 52,352 bytes, four CTAs an SM.
 
 #include "tile2.cuh"
 
 namespace {
 
 using namespace gnn;
-
-// This thread's h += w @ xrow over n inputs (w rows of stride ldw).
-template <int MAXF>
-__device__ void dense_acc(const float* w, int ldw, const float* xrow, int n, int H,
-                          float (&h)[MAXF]) {
-  for (int c = 0; c < n; ++c) {
-    const float x = xrow[c];
-#pragma unroll
-    for (int j = 0; j < MAXF; ++j)
-      if (j < H) h[j] = fmaf(w[j * ldw + c], x, h[j]);
-  }
-}
 
 // K7's plan: threads a CTA and the room of the column lists; the launch
 // bounds hold a thread to 48 registers, five CTAs an SM at the flagship's
@@ -292,83 +299,167 @@ train_loop_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
   for (int i = t; i < WD; i += NT) to[i] = cur[(i / D) * DP + i % D];
 }
 
-// K6: one dropout-training iteration of residual-coupled blocks; rT, m nullable.
-template <int MAXF>
-__global__ void __launch_bounds__(kMaxW)
+// K6's plan: threads a CTA and the room of the column lists (K4's); the
+// launch bounds hold a thread to 64 registers, four CTAs an SM at the
+// flagship's widths.
+constexpr int kTrainStepThreads = 256, kTrainStepLists = 16;
+
+// Float offsets of K6's shared memory (bytes for the keep bytes and the
+// lists, after the floats), each region a multiple of 16 bytes: s, sd, agg
+// and rT [W][D | 1] (agg at least [2][W], since it holds the list build's
+// counts [NT / 32][W], as bytes, before the aggregation), fT [W][H | 1], w_cat
+// transposed wT [2D][H4] (H4 = H rounded up to 4, zero past H), the lists
+// [kTrainStepLists][W]; then the keep bytes [W D] of the aggregated slice,
+// node-major, the list counts [W] and sources [kTrainStepLists][W].
+struct TrainStepLayout {
+  int s, sd, agg, r, f, w, lw;
+  size_t keep_b, cnt_b, idx_b, bytes;
+};
+
+__host__ __device__ inline TrainStepLayout train_step_layout(int W, int D, int H) {
+  TrainStepLayout L{};
+  const int rows = round4(W * (D | 1));
+  int o = 0;
+  L.s = o;
+  o += rows;
+  L.sd = o;
+  o += rows;
+  L.agg = o;
+  o += rows > 2 * W ? rows : 2 * W;
+  L.r = o;
+  o += rows;
+  L.f = o;
+  o += round4(W * (H | 1));
+  L.w = o;
+  o += 2 * D * round4(H);
+  L.lw = o;
+  o += kTrainStepLists * W;
+  L.keep_b = sizeof(float) * (size_t)o;
+  L.cnt_b = L.keep_b + (size_t)W * D;
+  L.idx_b = L.cnt_b + W;
+  L.bytes = L.idx_b + (size_t)kTrainStepLists * W;
+  return L;
+}
+
+// K6: one dropout-training iteration over every dep block row, NT threads a
+// CTA, one block row each; rT and keep (the aggregated slice's keep bytes)
+// may be null.
+__global__ void __launch_bounds__(kTrainStepThreads, 4)
 train_step_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
-                  const float* __restrict__ sd, const uint8_t* __restrict__ m,
+                  const float* __restrict__ sd, const uint8_t* __restrict__ keep,
                   const float* __restrict__ rT, const float* __restrict__ fT,
                   const float* __restrict__ w_cat, float* __restrict__ y,
                   float* __restrict__ agg_out, int W, int D, int H, int act, int mode, float da,
                   float db) {
+  constexpr int NT = kTrainStepThreads, E = kTrainStepLists;
   extern __shared__ float4 smem_raw[];
-  const int C2 = 2 * D, XP = C2 | 1, FP = (D > H ? D : H) | 1;
-  float* adj = reinterpret_cast<float*>(smem_raw);  // [W][W + 1]
-  float* S = adj + W * (W + 1);                     // [W][FP] s, then staging
-  float* X = S + W * FP;                            // [W][XP] x2 rows
-  float* w = X + W * XP;                            // [H][2D]
+  float* sm = reinterpret_cast<float*>(smem_raw);
+  uint8_t* bytes = reinterpret_cast<uint8_t*>(smem_raw);
+  const TrainStepLayout L = train_step_layout(W, D, H);
+  const int DP = D | 1, HP = H | 1, C2 = 2 * D, H4 = round4(H);
+  const bool drops = mode != kNoDrop, has_res = rT != nullptr;
   const int t = threadIdx.x;
   const size_t row0 = (size_t)blockIdx.x * W;
-  float* xrow = X + t * XP;
+  const float* adj = adjT + row0 * W;
+  float* S = sm + L.s;
+  float* X = sm + L.sd;
+  float* A = sm + L.agg;
+  float* R = sm + L.r;
+  float* F = sm + L.f;
+  float* wT = sm + L.w;
+  float* lw = sm + L.lw;
+  uint8_t* KA = bytes + L.keep_b;  // [W D] keep bytes of the aggregated slice
+  uint8_t* cnt = bytes + L.cnt_b;
+  uint8_t* idx = bytes + L.idx_b;
 
-  stage_adj(adjT + row0 * W, W, adj);
-  for (int i = t; i < H * C2; i += blockDim.x) w[i] = w_cat[i];
-  stage_in(s + row0 * D, W, D, S, FP, 0);
-  stage_in(sd + row0 * D, W, D, X, XP, 0);
-  if (rT != nullptr) stage_in(rT + row0 * D, W, D, X, XP, D);
-  __syncthreads();
-  float a[MAXF];
-  aggregate_col<MAXF>(adj, W, S, FP, D, a);
-  if (rT != nullptr) {
-#pragma unroll
-    for (int d = 0; d < MAXF; ++d)
-      if (d < D) a[d] += xrow[D + d];
+  // ---- staging, issued together, waited on once
+  // wT [c][j] = w_cat [j][c], in w_cat's order (whole rows of it a warp)
+  for (int i = t; i < H4 * C2; i += NT) {
+    const int j = i / C2, c = i % C2;
+    if (j < H)
+      cp_async4(wT + c * H4 + j, w_cat + i);
+    else
+      wT[c * H4 + j] = 0.0f;
   }
-  __syncthreads();  // every thread is done with S
-  const uint8_t* km = mode != kNoDrop ? m + (row0 + t) * D : nullptr;
+  for (int i = t; i < W * D; i += NT) {
+    const int o = (i / D) * DP + i % D;
+    cp_async4(S + o, s + row0 * D + i);
+    cp_async4(X + o, sd + row0 * D + i);
+    if (has_res) cp_async4(R + o, rT + row0 * D + i);
+  }
+  for (int i = t; i < W * H; i += NT) cp_async4(F + (i / H) * HP + i % H, fT + row0 * H + i);
+  if (drops)
+    cp_rows(reinterpret_cast<float*>(KA), reinterpret_cast<const float*>(keep + row0 * D),
+            W * D / 4);
+  build_col_lists(adj, W, E, lw, idx, cnt, reinterpret_cast<uint8_t*>(A));
+  cp_async_wait_all();
+  __syncthreads();
+
+  // ---- agg = adjT^T @ s over the column lists (src ascending) (+ rT), four
+  // columns of node m an item, into A and out to agg
+  float* ao = agg_out + row0 * D;
+  const int NB = (D + 3) / 4;  // blocks of four columns a node
+  for (int i = t; i < W * NB; i += NT) {
+    const int m = i / NB, h0 = 4 * (i % NB), nh = min(4, D - h0);
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    const int c = cnt[m];
+    if (c <= E) {
+      for (int e = 0; e < c; ++e) {
+        const float w = lw[e * W + m];
+        const float* r = S + idx[e * W + m] * DP + h0;
 #pragma unroll
-  for (int d = 0; d < MAXF; ++d) {
-    if (d < D) {
-      S[t * FP + d] = a[d];
-      xrow[D + d] = drop(mode, da, db, a[d], km != nullptr && km[d] != 0);
+        for (int v = 0; v < 4; ++v)
+          if (v < nh) a[v] = fmaf(w, r[v], a[v]);
+      }
+    } else {
+      for (int src = 0; src < W; ++src) {
+        const float w = adj[(size_t)src * W + m];
+        const float* r = S + src * DP + h0;
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          if (v < nh) a[v] = fmaf(w, r[v], a[v]);
+      }
     }
+#pragma unroll
+    for (int v = 0; v < 4; ++v)
+      if (v < nh) {
+        if (has_res) a[v] += R[m * DP + h0 + v];
+        A[m * DP + h0 + v] = a[v];
+        ao[m * D + h0 + v] = a[v];
+      }
   }
-  __syncthreads();
-  stage_out(agg_out + row0 * D, W, D, S, FP);
-  __syncthreads();
-  stage_in(fT + row0 * H, W, H, S, FP, 0);
-  __syncthreads();
-  float h[MAXF];
-#pragma unroll
-  for (int j = 0; j < MAXF; ++j) h[j] = 0.0f;
-  dense_acc<MAXF>(w, C2, xrow, C2, H, h);
-#pragma unroll
-  for (int j = 0; j < MAXF; ++j)
-    if (j < H) h[j] = activate(act, h[j] + S[t * FP + j]);
-  __syncthreads();  // every thread has read its fT row
-#pragma unroll
-  for (int j = 0; j < MAXF; ++j)
-    if (j < H) S[t * FP + j] = h[j];
-  __syncthreads();
-  stage_out(y + row0 * H, W, H, S, FP);
-}
+  __syncthreads();  // agg is full
 
-size_t step_smem(int W, int D, int H) {
-  return sizeof(float) * ((size_t)W * (W + 1) + (size_t)W * ((D > H ? D : H) | 1) +
-                          (size_t)W * ((2 * D) | 1) + 2 * (size_t)H * D);
-}
-
-template <int MAXF>
-cudaError_t launch_step(const float* adjT, const float* s, const float* sd, const uint8_t* m,
-                        const float* rT, const float* fT, const float* w_cat, float* y,
-                        float* agg, int B, int W, int D, int H, int act, int mode, float da,
-                        float db, cudaStream_t stream) {
-  const size_t bytes = step_smem(W, D, H);
-  cudaError_t err = set_smem(train_step_kernel<MAXF>, bytes);
-  if (err != cudaSuccess) return err;
-  train_step_kernel<MAXF><<<B, W, bytes, stream>>>(adjT, s, sd, m, rT, fT, w_cat, y, agg, W, D,
-                                                    H, act, mode, da, db);
-  return cudaGetLastError();
+  // ---- y = act(w_cat @ [sd | drop(agg, m)] + fT), eight outputs a pass (two
+  // arrays of four) from 16-byte reads of wT, each a chain over c from 0;
+  // outputs [j0, j1) of node n are thread t's
+  const int tpn = NT / W, n = t % W, part = t / W;
+  const int JB = round4((H + tpn - 1) / tpn), j0 = part * JB, j1 = min(H, j0 + JB);
+  float* yo = y + (row0 + n) * H;
+  if (part < tpn)
+    for (int q = j0; q < j1; q += 8) {  // outputs q .. q + 3 in u, q + 4 .. q + 7 in u2
+      const bool two = q + 4 < j1;
+      float u[4] = {0.0f, 0.0f, 0.0f, 0.0f}, u2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float w4[4];
+      for (int c = 0; c < C2; ++c) {
+        const float x = c < D ? X[n * DP + c]
+                              : drop(mode, da, db, A[n * DP + c - D],
+                                     drops && KA[n * D + c - D] != 0);
+        ldv<4>(wT + c * H4 + q, w4);
+#pragma unroll
+        for (int v = 0; v < 4; ++v) u[v] = fmaf(w4[v], x, u[v]);
+        if (two) {
+          ldv<4>(wT + c * H4 + q + 4, w4);
+#pragma unroll
+          for (int v = 0; v < 4; ++v) u2[v] = fmaf(w4[v], x, u2[v]);
+        }
+      }
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        if (q + v < j1) yo[q + v] = activate(act, u[v] + F[n * HP + q + v]);
+        if (q + 4 + v < j1) yo[q + 4 + v] = activate(act, u2[v] + F[n * HP + q + 4 + v]);
+      }
+    }
 }
 
 bool drop_ok(int mode, const uint8_t* a, const uint8_t* b) {
@@ -414,21 +505,25 @@ int gnn_train_step(const float* adjT, const float* s, const float* sd, const uin
                    const float* rT, const float* fT, const float* w_cat, float* y, float* agg,
                    int B, int W, int D, int H, int act, int mode, float da, float db,
                    void* stream) {
-  if (!block_ok(B, W) || D <= 0 || H <= 0 || !drop_ok(mode, m, m)) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (width_class(D > H ? D : H)) {
-    case 16:
-      return launch_step<16>(adjT, s, sd, m, rT, fT, w_cat, y, agg, B, W, D, H, act, mode, da, db,
-                             st);
-    case 32:
-      return launch_step<32>(adjT, s, sd, m, rT, fT, w_cat, y, agg, B, W, D, H, act, mode, da, db,
-                             st);
-    case 64:
-      return launch_step<64>(adjT, s, sd, m, rT, fT, w_cat, y, agg, B, W, D, H, act, mode, da, db,
-                             st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  if (!block_ok(B, W) || D <= 0 || H <= 0 || width_class(D > H ? D : H) == 0 ||
+      !drop_ok(mode, m, m))
+    return cudaErrorInvalidValue;
+  const size_t bytes = train_step_layout(W, D, H).bytes;
+  cudaError_t err = set_smem(train_step_kernel, bytes);
+  if (err != cudaSuccess) return err;
+  train_step_kernel<<<B, kTrainStepThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+      adjT, s, sd, m, rT, fT, w_cat, y, agg, W, D, H, act, mode, da, db);
+  return cudaGetLastError();
+}
+
+// out[0..4]: plan index (0, K6's one plan), shared-memory bytes, resident
+// CTAs an SM, registers a thread, local bytes a thread of the kernel
+// gnn_train_step launches for this shape (H1 unused). Returns a cudaError_t
+// code.
+int gnn_train_step_info(int W, int D, int H, int H1, int* out) {
+  (void)H1;
+  return tile_kernel_info(train_step_kernel, train_step_layout(W, D, H).bytes, 0, out,
+                          kTrainStepThreads);
 }
 
 }  // extern "C"

@@ -27,8 +27,8 @@
 //   dh transposed beside it ([D][W + 4]), so the dw sums are block products
 //   over the node dimension by 16-byte reads, each thread owning a unit and
 //   two columns, the 8 units a quarter-warp reads in 8 distinct bank groups;
-// - h (recomputed in train_loop.cu::dense_acc's order, c ascending from 0,
-//   then + fT), dh, dx2 (j ascending) and gs (the dst order of the row sums,
+// - h (recomputed in K7's order, train_loop.cu: c ascending from 0, then
+//   + fT), dh, dx2 (j ascending) and gs (the dst order of the row sums,
 //   then + dx2's state slice) on 256 / W threads a node, four outputs at a
 //   time (a 16-byte read of the transposed w_cat); no register array is
 //   wider than four (K2's per-node arrays, up to 64 wide and unrolled inside

@@ -47,9 +47,9 @@ keep-masks uint8 [.., W, D]. Each wrapper runs its plain PyTorch version
 K3; fused_eval.cu: K4; eval_loop_bwd.cu, train_loop.cu, train_loop_bwd.cu) for
 CUDA tensors; it never falls back from one to the other. `launches` counts
 kernel launches. K3, K5 and K8 take the first of their shared-memory plans
-that fits a CTA (`_loop_plan`, `_loop_bwd_plan`, `_train_bwd_plan`); K4 and K7
+that fits a CTA (`_loop_plan`, `_loop_bwd_plan`, `_train_bwd_plan`); K4, K6 and K7
 have one plan each, which fits every shape they take (`_step_bytes`,
-`_train_loop_bytes`); K6 has none. On
+`_train_step_bytes`, `_train_loop_bytes`). On
 MUTAG-shaped blocks every kernel's least time is set by the bytes it moves (the
 adjacency and the per-iteration rows); the designs and their limits are noted
 in the sources.
@@ -166,6 +166,10 @@ _TRAIN_BWD_PLANS = (1, 0)
 # room of the column lists. It fits every shape the kernel takes.
 _TRAIN_LOOP_PLAN = (256, 8)
 
+# train_loop.cu's K6 plan (kTrainStepThreads, kTrainStepLists): threads a CTA,
+# room of the column lists. It fits every shape the kernel takes.
+_TRAIN_STEP_PLAN = (256, 16)
+
 
 def _r4(n):
     """n rounded up to a multiple of 4 (a 16-byte boundary, in floats)."""
@@ -205,6 +209,18 @@ def _train_loop_bytes(W, D):
     _, E = _TRAIN_LOOP_PLAN
     floats = 4 * _r4(W * (D | 1)) + 2 * D * _r4(D) + _r4(W) + E * W
     return 4 * floats + 2 * W * D + W + E * W
+
+
+def _train_step_bytes(W, D, H):
+    """Shared memory of train_loop.cu::train_step_layout: s, sd, agg (at
+    least [2][W], the list build's counts) and rT [W][D|1] each, fT [W][H|1],
+    w_cat transposed [2D][H rounded up to 4], the column lists [E][W]; then
+    as bytes the keep bytes [W*D], W list counts and E*W sources; each float
+    region a multiple of 16 bytes."""
+    _, E = _TRAIN_STEP_PLAN
+    rows = _r4(W * (D | 1))
+    floats = 3 * rows + max(rows, 2 * W) + _r4(W * (H | 1)) + 2 * D * _r4(H) + E * W
+    return 4 * floats + W * D + W + E * W
 
 
 def _loop_bwd_bytes(W, D, st):

@@ -21,16 +21,21 @@ the host once per batch (`build_agg_plan`):
 `segment_aggregate` runs K18 (ops/csrc/segment_agg.cu) on a plan for CUDA
 tensors and its plain version for CPU tensors; `block_aggregate` is the
 differentiable op, whose backward is K18 on the transpose plan (gnn_tpu's
-`_ba_bwd`). `launches` counts kernel launches.
+`_ba_bwd`). `launches` counts kernel launches. K18 takes a row a group of
+lanes, each lane a float4, float2 or float of the row's features by D;
+`_agg_launch` mirrors the launch the C entry makes, and `launch_info` reads
+it back from the library.
 """
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
 import torch
 
+from gnn_tpu_torch.ops import _build
 from gnn_tpu_torch.ops.fused import _ptr, launch_counted
 
 _KERNEL = {"segment_aggregate": "K18"}
@@ -113,6 +118,32 @@ def segment_aggregate_ref(state: torch.Tensor, plan: AggPlan) -> torch.Tensor:
 
 
 # ------------------------------------------------------------------ kernel
+# segment_agg.cu's kAggThreads: threads a CTA
+_AGG_THREADS = 256
+
+
+def _agg_launch(N: int, D: int):
+    """(vector width V, lanes a row L, rows a CTA, CTAs) of
+    segment_agg.cu::agg_launch over N rows of width D: float4 lanes where
+    D % 4 == 0, float2 where D % 2 == 0, else floats; L the least power of
+    two covering D / V vectors, at most 32."""
+    V = 4 if D % 4 == 0 else 2 if D % 2 == 0 else 1
+    L = 1
+    while L < D // V and L < 32:
+        L *= 2
+    rows = _AGG_THREADS // L
+    return V, L, rows, -(-N // rows)
+
+
+def launch_info(N: int, D: int) -> dict:
+    """What the library reports for its launch over N rows of width D
+    (gnn_segment_aggregate_info; builds the library)."""
+    out = (ctypes.c_int * 5)()
+    _build.check(_build.library().gnn_segment_aggregate_info(N, D, 0, 0, out),
+                 "gnn_segment_aggregate_info")
+    return dict(zip(("vector", "lanes", "rows", "ctas", "registers"), out))
+
+
 def _check_plan(plan: AggPlan, state: torch.Tensor) -> None:
     dev = state.device
     nnz = plan.col.shape[0]
@@ -139,6 +170,8 @@ def segment_aggregate(state: torch.Tensor, plan: AggPlan) -> torch.Tensor:
         raise TypeError(f"K18 takes float32 states, got {state.dtype}")
     if state.dim() != 2 or not state.is_contiguous():
         raise ValueError(f"state must be a contiguous [Np, D] tensor, got {tuple(state.shape)}")
+    if state.data_ptr() % 16:
+        raise ValueError("state must be 16-byte aligned (K18 gathers rows 16 bytes at a time)")
     N, D = state.shape
     if N != plan.num_rows:
         raise ValueError(f"state has {N} rows, the plan {plan.num_rows}")

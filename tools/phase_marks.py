@@ -12,13 +12,15 @@ operands (K1 and K2 at the flagship's BatchNorm route, K8 at its dropout route, 
 at the h150 training route, K14 at the h150_bn route, K16 (iteration 2) and K17 at
 the composite_bn route, K3 at the flagship serving batch's loop rows, K9 at the
 h150 serving batch's dep rows, K5 at the clean route's loop rows, K7 at the
-dropout route's loop rows, K4 at the flagship serving batch's dep rows).
+dropout route's loop rows, K4 at the flagship serving batch's dep rows, K6 at
+the dropout route's dep rows, K18 on the whole set's plan at D = 14; K18 has
+no barrier, so its one segment is the whole kernel).
 Printed: the instrumented and the unmarked launch's times (the marks' cost), then
 each segment's share of the cycles summed over the CTAs and its cycles a CTA, named
 by the source lines of the barriers that end it.
 
 Usage, from the repository root (a tree defaults to gnn_tpu_torch/ops/csrc):
-    python3 tools/phase_marks.py K1|K2|K3|K4|K5|K7|K8|K9|K12|K14|K16|K17 [name=tree ...]
+    python3 tools/phase_marks.py K1|K2|K3|K4|K5|K6|K7|K8|K9|K12|K14|K16|K17|K18 [name=tree ...]
 """
 
 import ctypes
@@ -43,7 +45,9 @@ KERNELS = {"K1": ("gnn_bn_forward", ("bn_fwd_kernel",)),
            "K16": ("gnn_bnT_forward", ("bnT_fwd_kernel",)),
            "K5": ("gnn_propagation_loop_bwd", ("loop_bwd_kernel",)),
            "K7": ("gnn_train_loop", ("train_loop_kernel",)),
-           "K4": ("gnn_propagation_step", ("step_kernel",))}
+           "K4": ("gnn_propagation_step", ("step_kernel",)),
+           "K6": ("gnn_train_step", ("train_step_kernel",)),
+           "K18": ("gnn_segment_aggregate", ("segment_agg_kernel",))}
 HEAD = """
 namespace {
 __device__ unsigned long long* g_phase;
@@ -105,7 +109,7 @@ def main():
     import torch
     from gnn_tpu_torch import Predictor
     from gnn_tpu_torch.graphs.datasets import mutag_shaped
-    from gnn_tpu_torch.ops import _build, bn, fused, fused2, typed
+    from gnn_tpu_torch.ops import _build, bn, fused, fused2, segment, typed
     kernel = sys.argv[1]
     entry, names = KERNELS[kernel]
     trees = dict(a.split("=", 1) for a in sys.argv[2:]) or {"tree": str(_build.CSRC)}
@@ -137,10 +141,19 @@ def main():
                 fn, x, rows = typed.bnT_forward_step, dict(x1, **kw1), x1["y1"].shape[0]
             else:
                 fn, x, rows = typed.bnT_backward_step, dict(x, **kw), x["y_prev"].shape[0]
-        elif kernel in ("K5", "K7"):
-            x = cs.bnfree_kernel_inputs(torch, gb_train)[0 if kernel == "K5" else 2]
-            fn = fused.propagation_loop_bwd if kernel == "K5" else fused.train_loop
+        elif kernel in ("K5", "K6", "K7"):
+            x = cs.bnfree_kernel_inputs(torch, gb_train)[{"K5": 0, "K6": 1, "K7": 2}[kernel]]
+            fn = {"K5": fused.propagation_loop_bwd, "K6": fused.train_step,
+                  "K7": fused.train_loop}[kernel]
             rows = x["adjT"].shape[0]
+        elif kernel == "K18":
+            from gnn_tpu_torch.graphs.generator import GraphDataGenerator
+            gbp = next(iter(GraphDataGenerator(graphs, batch_size=len(graphs), shuffle=False,
+                                               build_plan=True))).to("cuda")
+            gen = torch.Generator().manual_seed(cs.SEED)
+            x = dict(state=torch.randn(gbp.n_node_pad, 14, generator=gen).cuda(),
+                     plan=gbp.agg_plan.fwd)
+            fn, rows = segment.segment_aggregate, segment._agg_launch(gbp.n_node_pad, 14)[3]
         elif kernel == "K4":
             gb = Predictor(model).build_batch(graphs).to("cuda")
             x = dict(cs.kernel_inputs(model, gb)[1],

@@ -5,7 +5,8 @@ register-tiled reverse kernels K13, K11 and K15, the BatchNorm step K1 and its
 reverse K2, the dropout loop's reverse K8, the two-layer BatchNorm step K14,
 the typed reverse K17, the flagship's eval loop K3, the two-layer eval step
 K9, the typed BatchNorm step K16, the clean route's eval-loop reverse K5, the
-dropout route's training loop K7 and the dep blocks' eval step K4.
+dropout route's training loop K7, the dep blocks' eval step K4, the dep
+blocks' dropout-training step K6 and the CSR segment aggregation K18.
 
 Each tree's source that holds a kernel's C entry (a kernel may move between
 files: K12 lies in fused2.cu in older trees, in loop2.cu in newer ones) is
@@ -21,28 +22,32 @@ K16 at composite_bn's 1214 training rows (iteration 2) and the composite
 serving path's 1550 rows, K5 at the clean route's 1104 loop rows with and
 without an affine, K7 at the dropout route's 1104 loop rows, K4 at the
 flagship serving batch's 110 dep rows and at the flat layout's 1536 rows,
-with and without its residual term, and K3, K9, K16, K5, K7 and K4 also at
-the edges of their design, chip_smoke.py's, K7 in each dropout mode) every
-tree's outputs are held to the first tree's, bit for bit for K13, K10, K1,
-K8, K14, K17, K3, K9, K16, K5, K7 and K4 (the same sums in every tree),
+with and without its residual term, K6 at the dropout route's 110 dep rows
+and the flat layout's 1194 rows, K18 on the whole set's plan (forward and
+transpose) at D 14, 64 and 150 and on a ragged plan with a hub of 6000
+in-arcs, and K3, K9, K16, K5, K7, K4 and K6 also at the edges of their
+design, chip_smoke.py's, K7 and K6 in each dropout mode, K6 with and without
+rT, K18 also at D 1, 31 and 37) every tree's outputs are held to the first
+tree's, bit for bit for K13, K10, K1, K8, K14, K17, K3, K9, K16, K5, K7, K4,
+K6 and K18 (the same sums in every tree),
 reported for the others, and each tree's largest per-node difference from
 the plain version is printed; K3, K9, K16 and K5 are held so at every plan of
 every tree that has their gnn_*_force_plan entry, forced in turn (K7 and K4
 have one plan each).
 Then each kernel is timed with CUDA events as chip_smoke.py times it (K3, K9,
-K16, K5, K7 and K4 also by the profiler's device time a call, which a
+K16, K5, K7, K4, K6 and K18 also by the profiler's device time a call, which a
 launch-sized call's host work does not enter), on its full-set cases, the
 trees in turn and back (a, b, b, a), and, for K11, K15, K12, K1, K2, K8, K14,
 K17, K3, K9, K16 and K5, at each plan of the current plan lists
 (ops/fused2.py::_PLANS, ops/bn.py::_BN_FWD_PLANS and _BN_BWD_PLANS,
 ops/fused.py::_TRAIN_BWD_PLANS, _LOOP_PLANS and _LOOP_BWD_PLANS,
 ops/typed.py::_BNT_BWD_PLANS and _BNT_FWD_PLANS) through the tree's
-gnn_*_force_plan entry, where it has one and the plan fits. `only=K7,K4` limits the run (builds, operands, checks and
-times) to those kernels.
+gnn_*_force_plan entry, where it has one and the plan fits. `only=K6,K18` limits the run (builds,
+operands, checks and times) to those kernels.
 ptxas's report of each build goes to build/tiled_ab/ptxas.log.
 
 Usage, from the repository root, with a parent checkout unpacked under build/:
-    python3 tools/tiled_ab.py [only=K7,K4] parent=build/parent/gnn_tpu_torch/ops/csrc \\
+    python3 tools/tiled_ab.py [only=K6,K18] parent=build/parent/gnn_tpu_torch/ops/csrc \\
         new=gnn_tpu_torch/ops/csrc
 """
 
@@ -64,10 +69,11 @@ KERNELS = {"K10": ("gnn_propagation_loop2", True), "K12": ("gnn_train_loop2", Fa
            "K14": ("gnn_bn2_forward", True), "K17": ("gnn_bnT_backward", True),
            "K3": ("gnn_propagation_loop", True), "K9": ("gnn_propagation_step2", True),
            "K16": ("gnn_bnT_forward", True), "K5": ("gnn_propagation_loop_bwd", True),
-           "K7": ("gnn_train_loop", True), "K4": ("gnn_propagation_step", True)}
+           "K7": ("gnn_train_loop", True), "K4": ("gnn_propagation_step", True),
+           "K6": ("gnn_train_step", True), "K18": ("gnn_segment_aggregate", True)}
 # the kernels held at every plan forced (where a tree can force them) and
 # timed by device time too
-PLANNED = ("K3", "K9", "K16", "K5", "K7", "K4")
+PLANNED = ("K3", "K9", "K16", "K5", "K7", "K4", "K6", "K18")
 
 
 def source_of(tree, entry):
@@ -87,7 +93,7 @@ def main():
     import torch
     from gnn_tpu_torch import Predictor
     from gnn_tpu_torch.graphs.datasets import mutag_shaped
-    from gnn_tpu_torch.ops import _build, bn, fused, fused2, typed
+    from gnn_tpu_torch.ops import _build, bn, fused, fused2, segment, typed
     cs.phase_device(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     args = dict(a.split("=", 1) for a in sys.argv[1:])
@@ -317,6 +323,56 @@ def main():
             cases += [(edge, x, False), (edge + ", res=False", dict(x, rT=None), False)]
         return cases
 
+    def k6_cases():
+        """K6 at the dropout route's dep rows and the flat layout's every
+        block, then at chip_smoke.py's edges of its design, each in the three
+        dropout modes, with and without rT."""
+        from gnn_tpu_torch.graphs.batch import from_graphs_blocked
+        x6 = cs.bnfree_kernel_inputs(torch, gb_train)[1]
+        gbf = from_graphs_blocked(graphs, block_w=128, focus="g").to("cuda")
+        flat = cs.dep_step_operands(torch, cs.flagship(torch, "cuda", "flat_dropout"), gbf,
+                                    cs.SEED + 31)
+        cases = []
+        for label, x in ((f"dep rows ({x6['adjT'].shape[0]})", x6),
+                         (f"flat layout ({flat['adjT'].shape[0]})", flat)):
+            cases += [(label, x, True), (label + ", res=False", dict(x, rT=None), False)]
+        for B, W, D, H, act, edge in ((4, 32, 1, 1, "tanh", "W 32, D = H = 1"),
+                                      (2, 128, 64, 64, "selu", "D = H = 64"),
+                                      (3, 96, 14, 14, "relu", "W 96"),
+                                      (3, 128, 14, 14, "selu", "a dense block"),
+                                      (3, 128, 14, 14, "tanh", "a destination of 40 arcs"),
+                                      (3, 64, 6, 9, "relu", "D 6, H 9"),
+                                      (2, 128, 64, 5, "selu", "D 64, H 5")):
+            for rate, alpha in ((0.1, True), (0.1, False), (0.0, True)):
+                x = cs.random_bnfree_inputs(torch, gen, B, W, D, H, 2, rate, alpha, act, "cuda",
+                                            dense=edge == "a dense block",
+                                            column=edge == "a destination of 40 arcs")[1]
+                label = f"{edge}, rate={rate} alpha={alpha}"
+                cases += [(label, x, False), (label + ", res=False", dict(x, rT=None), False)]
+        return cases
+
+    def k18_cases():
+        """K18 on the whole set's plan, forward and transpose, at D 14, 64 and
+        150 (timed) and 1 and 31, and on chip_smoke.py's ragged plan (a hub,
+        an isolated node, unsorted arcs, weight-0 pads) at D 14 (timed: the
+        hub's chain) and 37."""
+        from gnn_tpu_torch.graphs.generator import GraphDataGenerator
+        gbp = next(iter(GraphDataGenerator(graphs, batch_size=len(graphs), shuffle=False,
+                                           build_plan=True))).to("cuda")
+        src, dst, w, N = cs.ragged_plan(torch, gen)
+        ragged = segment.build_agg_plan(src, dst, w, N).to("cuda")
+        cases = []
+        for D in (14, 64, 150, 1, 31):
+            x = torch.randn(gbp.n_node_pad, D, generator=gen).cuda()
+            for d, plan in (("forward", gbp.agg_plan.fwd), ("transpose", gbp.agg_plan.bwd)):
+                cases.append((f"whole set, {d}, D={D}", dict(state=x, plan=plan), D in (14, 64, 150)))
+        for D in (14, 37):
+            x = torch.randn(N, D, generator=gen).cuda()
+            for d, plan in (("forward", ragged.fwd), ("transpose", ragged.bwd)):
+                cases.append((f"ragged plan, {d}, D={D}", dict(state=x, plan=plan),
+                              D == 14 and d == "forward"))
+        return cases
+
     def full(x):
         return [("full set", x, True)]
 
@@ -351,6 +407,8 @@ def main():
                        lambda x: dims2(x, "s0")),
         "K7": lambda: (fused, "train_loop", k7_cases(), None, None),
         "K4": lambda: (fused, "propagation_step", k4_cases(), None, None),
+        "K6": lambda: (fused, "train_step", k6_cases(), None, None),
+        "K18": lambda: (segment, "segment_aggregate", k18_cases(), None, None),
     }
     nbytes = {"K1": bn._bn_fwd_bytes, "K2": bn._bn_bwd_bytes, "K8": fused._train_bwd_bytes,
               "K17": typed._bnT_bwd_bytes, "K3": fused._loop_bytes, "K16": typed._bnT_fwd_bytes,
@@ -429,7 +487,7 @@ def main():
                                 times.append((t, round(cs.timed_ms(torch, lambda: fn(**x)), 4)))
                                 if k in PLANNED:   # and the profiler's device time a call
                                     times.append((t + " device",
-                                                  round(cs.device_ms(torch, lambda: fn(**x)), 4)))
+                                                  round(cs.device_ms(torch, lambda: fn(**x), 1), 4)))
                             finally:
                                 if plan is not None:
                                     force(-1)
