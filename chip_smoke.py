@@ -16,7 +16,7 @@
    (bit-identical to the default plan); K3 also runs at the edges of its
    design (W 32 with D = 1, D = 64, W 96, a dense block, a destination of 40
    arcs, K = 1), each plan forced there too, a repeat launch bit-identical,
-   its plan equal to ops/fused.py::_loop_plan's. K4 (redesigned, one plan)
+   its plan equal to ops/fused.py::_loop_plan's. K4 (redesigned; one staged plan)
    prints its occupancy at the full set and runs at the edges of its design
    (W 32 with D = H = 1, D = H = 64, W 96, a dense block, a destination of 40
    arcs, D != H), with and without rT, a repeat launch bit-identical, its
@@ -56,12 +56,12 @@
    and 5, each with and without the affine) against its plain version, a
    repeat launch and every plan forced bit-identical, its plan equal to
    ops/fused.py::_loop_bwd_plan's, the cases reaching both its plans. K7
-   (redesigned, one plan) repeats bit for bit on the full set and prints its
+   (redesigned, one staged plan) repeats bit for bit on the full set and prints its
    occupancy; it runs at the edges of its design (W 32 with D = 1, D = 64,
    W 96, a dense block, a destination of 40 arcs, K = 1), each in the three
    dropout modes, against its plain version, a repeat launch bit-identical,
    its shared memory equal to ops/fused.py::_train_loop_bytes'. K6
-   (redesigned, one plan) repeats bit for bit at the dep rows with and
+   (redesigned, one staged plan) repeats bit for bit at the dep rows with and
    without rT and prints its occupancy; it runs at the edges of its design
    (W 32 with D = H = 1, D = H = 64, W 96, a dense block, a destination of 40
    arcs, D 6 with H 9, D 64 with H 5), each in the three dropout modes with
@@ -208,16 +208,30 @@
    their dep-row times, K4, K9 and K6 by device time too (K6's plain version
    likewise), K4's and K6's occupancy printed, K9 with each of its plans
    forced and timed (bit-identical).
-18. Widths beyond the kernels (after phase 13): the flagship's one-layer
-   state net at state width 80 with input dropout, without and with the
-   trailing BatchNorm. On a fused-layout batch with loop and dep blocks the
-   routes are the kernel routes (gnn_tpu's dispatch has no width test) and
-   the card refuses the width: the forward and one training step raise the
-   wrappers' ValueError with no launch, and no plain body runs in the
-   kernels' place. With aggregation='pallas' on a plan batch the same model
-   serves and trains one step on the card through K18 (K launches a
-   forward, 2K - 1 a step), against the CPU (iterations equal, outputs
-   within 1e-5, the loss rtol 1e-5).
+18. State widths above 64 (after phase 13). K1-K8 take every state width:
+   where no staged shared-memory plan fits, each takes its wide plan (the
+   adjacency lists alone in shared memory, the [W][D]-sized regions in the
+   kernel's own outputs or a device-memory workspace the wrapper allocates).
+   (1) K1-K8 against their plain versions at D 65/80/128/200/201, W 128 and
+   32, in the three dropout modes (K4 and K6 also with D != H, K1, K4 and K6
+   without rT, K5 without the affine; K2 and K8 through check_bwd2), and at
+   W 96 with D 301, W 64 with D 130 (H 70) and D 1024 at W 128 and 32, their
+   plans held to the mirrors', the cases reaching every wide plan. (2) Each wide
+   plan forced at D 14 and 64 (W 128 and 32): every output bit for bit the
+   staged plan's. (3) One-layer models of width 80 and 128 on fused-layout
+   batches: served through Predictor (K3/K4) and trained one step on the
+   'bn', 'dropout' and 'clean' routes, counted and held to the CPU as in
+   phases 4 and 12; params after the step that miss 1e-5 against the CPU's
+   are held to the float64 step (check_params64: Adam's first step turns a
+   gradient within rounding of 0 into a move of up to lr). (4) The
+   two-layer and composite specs of width 80 are still refused with
+   ValueError before any launch; through 'pallas' on a plan batch the
+   flagship of width 80 serves and trains on the card (K18: K launches a
+   forward, 2K - 1 a step) against the CPU. (5) Width 128 at full
+   scale (the MUTAG-shaped set's graphs and arcs, seeded 128-wide node
+   labels): K1-K8 at the main paths' shapes timed by events and device time
+   beside their bounds, with their plans and workspace bytes; the forward
+   and each one-layer route's step by device time.
 
 Prints a JSON line of per-kernel numbers (K1-K18), then as its
 last line {"ok": true, "device": {...}}. Any failed check exits non-zero
@@ -421,6 +435,23 @@ def bound(nbytes, flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def serving_bounds(loop, step, K):
+    """(K3, K4) least times and what sets them at the serving path's operands:
+    each input read once, each output written once; the dense layer (4*D*D
+    a node and iteration), the arcs present and the elementwise work."""
+    Bi, W, _ = loop["adjT"].shape
+    D = loop["s0"].shape[-1]
+    rows3, f4 = Bi * W, 4
+    bytes3 = f4 * (Bi * W * W + 2 * rows3 * D + 2 * D * D + 2 * D + rows3
+                   + K * rows3 * D + K * rows3)
+    flops3 = K * (4 * D * D * rows3 + 2 * D * _nnz(loop["adjT"]) + 5 * D * rows3 + 4 * D * rows3)
+    Bd = step["adjT"].shape[0]
+    rows4 = Bd * W
+    bytes4 = f4 * (Bd * W * W + 4 * rows4 * D + 2 * D * D + 2 * D)
+    flops4 = 4 * D * D * rows4 + 2 * D * _nnz(step["adjT"]) + 6 * D * rows4
+    return bound(bytes3, flops3), bound(bytes4, flops4)
+
+
 def phase_kernels(torch, model, gb):
     """Each kernel against its plain version, at the main path's full-set
     shapes and at ragged small shapes; times and bounds at the full set."""
@@ -505,18 +536,7 @@ def phase_kernels(torch, model, gb):
         return lambda: f(step["adjT"], step["s"], step["rT"], step["fT"], step["w2"],
                          step["affine"], act)
 
-    Bi, W, _ = loop["adjT"].shape
-    D = loop["s0"].shape[-1]
-    rows3, f4 = Bi * W, 4
-    bytes3 = f4 * (Bi * W * W + 2 * rows3 * D + 2 * D * D + 2 * D + rows3
-                   + K * rows3 * D + K * rows3)
-    flops3 = K * (4 * D * D * rows3 + 2 * D * _nnz(loop["adjT"]) + 5 * D * rows3 + 4 * D * rows3)
-    Bd = step["adjT"].shape[0]
-    rows4 = Bd * W
-    bytes4 = f4 * (Bd * W * W + 4 * rows4 * D + 2 * D * D + 2 * D)
-    flops4 = 4 * D * D * rows4 + 2 * D * _nnz(step["adjT"]) + 6 * D * rows4
-    b3, by3 = bound(bytes3, flops3)
-    b4, by4 = bound(bytes4, flops4)
+    (b3, by3), (b4, by4) = serving_bounds(loop, step, K)
     out = {
         "K3": dict(name="K3 propagation_loop", route="cuda",
                    source="gnn_tpu_torch/ops/csrc/eval_loop.cu",
@@ -652,6 +672,15 @@ ROUTES = {"bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
           "flat_dropout": {"train_step": "K"}}
 
 
+def variant_width(variant):
+    """(node-label width, variant) of a flagship variant "w<D>_<v>" (14 and
+    the variant itself without the prefix)."""
+    head, _, rest = variant.partition("_")
+    if head[:1] == "w" and head[1:].isdigit() and rest:
+        return int(head[1:]), rest
+    return 14, variant
+
+
 def flagship(torch, device, variant="bn"):
     """The flagship (MUTAG widths 14/3/2, K=5, threshold 0.01, seeded random
     weights) with its state net as `variant` says. "h150" is the hidden-150
@@ -662,15 +691,17 @@ def flagship(torch, device, variant="bn"):
     BatchNorm) with the recipe's hidden layer, and the recipe's readout.
     "pallas" is the flagship with aggregation='pallas' (K18 on a plan batch).
     A variant "flat_<v>" is <v> with aggregation='fused', which runs the
-    kernels on batches without the loop/dep layout (the all-dep layout)."""
+    kernels on batches without the loop/dep layout (the all-dep layout); a
+    variant "w<D>_<v>" is <v> at node-label (and state) width D."""
     from gnn_tpu_torch import GNNgraphBased, MLPSpec, get_inout_dims
+    width, variant = variant_width(variant)
     if variant == "composite_bn":
-        return composite_model(torch, device)
+        return composite_model(torch, device, width=width)
     fused = variant.startswith("flat_")
     variant = variant[5:] if fused else variant
     hidden = 150 if variant.startswith("h150") else None
-    in_s, l_s = get_inout_dims("state", 14, 3, 2, "g", 0, hidden)
-    in_o, l_o = get_inout_dims("output", 14, 3, 2, "g", 0, hidden)
+    in_s, l_s = get_inout_dims("state", width, 3, 2, "g", 0, hidden)
+    in_o, l_o = get_inout_dims("output", width, 3, 2, "g", 0, hidden)
     drop = (dict(dropout_rate=(0.1,), dropout_pos=(0,), alphadropout=True)
             if variant not in ("clean", "h150_clean") else {})
     ss = MLPSpec(input_dim=in_s, units=tuple(l_s), activations="selu",
@@ -943,14 +974,16 @@ def readout_like(torch, traj, nm, seed):
     return g
 
 
-def bnfree_kernel_inputs(torch, gb):
+def bnfree_kernel_inputs(torch, gb, width=14):
     """K5-K8 operands as the BN-free training paths form them on the full set:
     K7/K8 and K6 (the first dep step) from the flagship without BatchNorm with
-    masks from a seeded generator, K5 from the clean flagship; the forward
-    trajectories from the plain versions and readout-like cotangents."""
+    masks from a seeded generator, K5 from the clean flagship (both at state
+    width `width`); the forward trajectories from the plain versions and
+    readout-like cotangents."""
     from gnn_tpu_torch.models import core
     from gnn_tpu_torch.ops import fused
-    drop_m, clean = flagship(torch, "cuda", "dropout"), flagship(torch, "cuda", "clean")
+    drop_m = flagship(torch, "cuda", f"w{width}_dropout")
+    clean = flagship(torch, "cuda", f"w{width}_clean")
     K, thr = drop_m.spec.max_iteration, float(drop_m.spec.threshold)
     masks = core.draw_masks(drop_m.spec, gb, torch.Generator(device=gb.device).manual_seed(SEED + 5))
     with torch.no_grad():
@@ -1664,9 +1697,26 @@ TILED = ("K9", "K10", "K11", "K12", "K13", "K14", "K15", "K1", "K2", "K3", "K8",
 PLAN_THREADS = ("K1", "K2", "K3", "K17", "K16", "K4", "K6", "K7")
 
 
+def wide_layout(k, W, D, X, H1=0):
+    """(shared-memory bytes, workspace floats a block row) of kernel k's wide
+    plan (K1-K8; the plan after its staged plans) at (W, D, F or H or -), as
+    ops/bn.py and ops/fused.py mirror it."""
+    from gnn_tpu_torch.ops import bn, fused
+    return {"K1": lambda: bn._bn_fwd_wide(W, D, X), "K2": lambda: bn._bn_bwd_wide(W, D, X),
+            "K3": lambda: fused._loop_wide(W, D), "K4": lambda: fused._step_wide(W, D, X),
+            "K5": lambda: fused._loop_bwd_wide(W, D),
+            "K6": lambda: fused._train_step_wide(W, D, X),
+            "K7": lambda: fused._train_loop_wide(W, D),
+            "K8": lambda: fused._train_bwd_wide(W, D)}[k]()
+
+
+WIDE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+
+
 def plan_kernel(k):
     """(plan list, layout bytes (W, D, AL, H1, plan), C entry) of kernel k, as
-    ops/fused2.py, ops/bn.py, ops/fused.py or ops/typed.py mirror it."""
+    ops/fused2.py, ops/bn.py, ops/fused.py or ops/typed.py mirror it (K1-K8's
+    staged plans; their wide plans: wide_layout)."""
     import functools
     from gnn_tpu_torch.ops import bn, fused, fused2, typed
     if k in fused2._TILED:
@@ -1707,7 +1757,8 @@ def mirrored_plan(k, W, D, AL, H1):
     """(bytes, plan index or None) the Python mirror names for kernel k."""
     from gnn_tpu_torch.ops import fused
     plans, nbytes, _ = plan_kernel(k)
-    return fused._first_plan(plans, nbytes, W, D, AL, H1)
+    wide = (lambda *dims: wide_layout(k, *dims)) if k in WIDE_KERNELS else None
+    return fused._first_plan(plans, nbytes, W, D, AL, H1, wide=wide)
 
 
 def plan_info(k, W, D, AL, H1):
@@ -1733,7 +1784,9 @@ def tiled_plan(k, W, D, AL, H1):
 
 def describe_k(k, info):
     """Kernel k's plan and occupancy as the card reports them (info)."""
-    threads = plans_of(k)[info["plan"]][0] if k in PLAN_THREADS else 256
+    plans = plans_of(k)
+    threads = (plans[info["plan"]][0] if k in PLAN_THREADS and info["plan"] < len(plans)
+               else 256)
     return (f"plan {info['plan']}, {info['smem_bytes']} bytes of shared memory a CTA, "
             f"{info['ctas_per_sm']} CTAs ({info['ctas_per_sm'] * threads // 32} warps) an SM, "
             f"{info['registers']} registers and {info['local_bytes']} local bytes a thread")
@@ -1762,8 +1815,9 @@ def check_tiled(torch, k, kernel, x, dims):
 
 def check_plans(torch, k, kernel, x, dims, label):
     """Kernel k (K3, K4, K6, K7, K9, K16, K5) at a shape: a second launch and each plan that
-    fits, forced in turn (K4, K6 and K7 have one plan), bit-identical to the first
-    launch; the plan the library takes held to the mirror's."""
+    fits, forced in turn (K4, K6 and K7 have one staged plan; phase 18 forces the wide
+    plans), bit-identical to the first launch; the plan the library takes held to the
+    mirror's."""
     from gnn_tpu_torch.ops import fused2
     info = tiled_plan(k, *dims)
     first = kernel(**x)
@@ -1974,13 +2028,14 @@ def typed_graphs(graphs, T=N_TYPES):
                   node_types=rng.integers(0, T, g.n_nodes).astype(np.int32)) for g in graphs]
 
 
-def composite_model(torch, device, T=N_TYPES):
+def composite_model(torch, device, T=N_TYPES, width=14):
     """The composite flagship: CompositeGNNgraphBased with T copies of the
     flagship's state net (31 -> 14, selu, AlphaDropout 0.1 at its input, the
-    trailing BatchNorm), the flagship's softmax readout, K=5, threshold 0.01,
-    seeded random weights and non-trivial per-type moving statistics."""
+    trailing BatchNorm; `width` in place of 14), the flagship's softmax
+    readout, K=5, threshold 0.01, seeded random weights and non-trivial
+    per-type moving statistics."""
     from gnn_tpu_torch import CompositeGNNgraphBased
-    ref = flagship(torch, "cpu", "bn")
+    ref = flagship(torch, "cpu", f"w{width}_bn")
     model = CompositeGNNgraphBased((ref.spec.state_spec,) * T, ref.spec.output_spec,
                                    max_iteration=5, threshold=0.01, seed=SEED, device=device)
     gen = torch.Generator().manual_seed(SEED + 21)
@@ -2476,8 +2531,16 @@ def grads_close(got, want, rtol=2e-4, floor=2e-5):
 def first_step_grads64(torch, variant, gb_cpu, masks):
     """The first training step's grads of `variant` on the CPU in float64, on
     the same weights and masks."""
-    import dataclasses
     from gnn_tpu_torch.convert import flatten
+    return {key: p.grad for key, p in flatten(first_step64(torch, variant, gb_cpu,
+                                                           masks).params).items()}
+
+
+def first_step64(torch, variant, gb_cpu, masks):
+    """The model of `variant` after its first training step on the CPU in
+    float64, on the same weights and masks (its params' grads and the params
+    after the Adam step)."""
+    import dataclasses
     from gnn_tpu_torch.models import core
     model = flagship(torch, "cpu", variant)
     for p in core.param_leaves(model.params):
@@ -2488,7 +2551,49 @@ def first_step_grads64(torch, variant, gb_cpu, masks):
         if torch.is_tensor(getattr(gb_cpu, f.name))
         and getattr(gb_cpu, f.name).dtype == torch.float32})
     model.training_step(gb64, masks=masks)
-    return {key: p.grad for key, p in flatten(model.params).items()}
+    return model
+
+
+def check_params64(torch, variant, card, cpu, grads0, gb_cpu, masks):
+    """The params after one step on the card (`card`) against the CPU's
+    (`cpu`) where they differ by more than TOL, held to the float64 step on
+    the same weights and masks. Adam's first step moves each entry by lr *
+    g / (|g| + eps), so an entry whose gradient is within rounding of 0 moves
+    by up to lr whatever its float32 value: there both float32 steps may miss
+    TOL against each other and against float64. A tensor passes if the card
+    is within TOL of the float64 step (the CPU's float32 is then the one
+    off), or if the CPU's own float32 step misses TOL against float64 too and
+    the card's first-step grads of that tensor are within the grads bound
+    (rtol 2e-4, floor 2e-5 of the largest entry) of the float64 grads; else
+    it fails. Returns the largest card-vs-CPU difference."""
+    from gnn_tpu_torch.convert import flatten
+    m64 = None
+    worst = 0.0
+    for key, p in flatten(cpu.params).items():
+        got = flatten(card.params)[key].detach().cpu()
+        err = float((got - p.detach()).abs().max())
+        worst = max(worst, err)
+        if err <= TOL:
+            continue
+        if m64 is None:
+            m64 = first_step64(torch, variant, gb_cpu, masks)
+        want = flatten(m64.params)[key].detach()
+        card64 = float((got.double() - want).abs().max())
+        cpu64 = float((p.detach().double() - want).abs().max())
+        g64 = flatten(m64.params)[key].grad
+        grads_ok, gerr = grads_close(grads0[key].cpu().double(), g64)
+        if card64 <= TOL:
+            verdict = "the card is within it of the float64 step"
+        elif cpu64 > TOL and grads_ok:
+            verdict = ("the CPU's float32 step misses it against float64 too, and the card's grads "
+                       f"are within their bound of the float64 grads ({gerr:.3e})")
+        else:
+            fail(f"'{variant}' params {key} after one step: card vs CPU {err:.3e}, card vs "
+                 f"float64 {card64:.3e}, CPU vs float64 {cpu64:.3e}, card's grads vs float64 "
+                 f"{gerr:.3e} ({'within' if grads_ok else 'outside'} their bound)")
+        say(f"'{variant}' params {key} after one step: card vs CPU {err:.3e} misses {TOL:g}; "
+            f"{verdict} (card vs float64 {card64:.3e}, CPU vs float64 {cpu64:.3e})")
+    return worst
 
 
 def check_first_grads(torch, variant, card, cpu, gb_cpu, masks):
@@ -2540,10 +2645,12 @@ def check_first_grads(torch, variant, card, cpu, gb_cpu, masks):
     return worst
 
 
-def phase_training(torch, gb, n_arcs, variant, steps):
+def phase_training(torch, gb, n_arcs, variant, steps, params64=False):
     """A training path on the card, counted (ROUTES[variant] launches, no
     other kernel), then the same steps on the CPU with the card's masks;
-    step time and profile. Returns the launch counts of the steps."""
+    step time and profile. With params64 (one step) params that miss TOL
+    against the CPU's are held to the float64 step (check_params64). Returns
+    the launch counts of the steps."""
     from gnn_tpu_torch.convert import flatten
     from gnn_tpu_torch.models import core
     from gnn_tpu_torch.ops import bn, fused, fused2, segment, typed
@@ -2573,7 +2680,7 @@ def phase_training(torch, gb, n_arcs, variant, steps):
                 **segment.launches}
     say(f"training path '{variant}' launches over {steps} steps: {launches}")
     for key, n in launches.items():
-        per_step = ROUTES[variant].get(key, 0)
+        per_step = ROUTES[variant_width(variant)[1]].get(key, 0)
         want = steps * {"K": K, "2K-1": 2 * K - 1}.get(per_step, per_step)
         if n != want:
             fail(f"'{variant}' path: {key} launched {n} times in {steps} steps, expected {want}")
@@ -2610,7 +2717,10 @@ def phase_training(torch, gb, n_arcs, variant, steps):
     perr = 0.0
     for a, b in zip(core.param_leaves(model.params), core.param_leaves(cpu.params)):
         perr = max(perr, float((a.detach().cpu() - b.detach()).abs().max()))
-    if perr > TOL:
+    if perr > TOL and params64 and steps == 1:
+        check_params64(torch, variant, model, cpu, grads0, gb_cpu,
+                       tree_map(lambda v: v.cpu(), masks[0]))
+    elif perr > TOL:
         fail(f"'{variant}' params after {steps} steps differ from the CPU by {perr:.3e}")
     say(f"'{variant}' training vs CPU over {steps} steps ({time.perf_counter() - t0:.1f} s): "
         f"iters equal, max loss diff {worst['loss']:.3e}, moving stats {worst['bn']:.3e}, "
@@ -2622,92 +2732,313 @@ def phase_training(torch, gb, n_arcs, variant, steps):
     phase_profile(torch, step, runs=3, what=f"'{variant}' training step")
     return launches
 
-def phase_wide(torch):
-    """Phase 18: state width 80 on the card. On the fused layout the kernels'
-    ValueError, no launch; through 'pallas' on a plan batch, K18 and the CPU's
-    results."""
-    import re
+WIDE_D = (65, 80, 128, 200, 201)   # state widths of phase 18's kernel cases (201: odd)
 
+
+def wide_graphs(width, seed=SEED):
+    """Ten small graphs and one of 300 nodes (dep blocks at block width 128)
+    with `width` node-label columns, 3 arc-label columns and 2 classes."""
     import numpy as np
-    from gnn_tpu_torch import GNNgraphBased, MLPSpec, get_inout_dims
     from gnn_tpu_torch.graphs.datasets import random_graph
+    rng = np.random.default_rng(seed)
+    graphs = [random_graph(int(rng.integers(8, 30)), width, 3, 2, 0.5, focus="g", rng=rng)
+              for _ in range(10)]
+    graphs.append(random_graph(300, width, 3, 2, 0.02, focus="g", rng=rng))
+    return graphs
+
+
+def relabelled(graphs, width, seed):
+    """The graphs with their node labels replaced by a seeded
+    [n_nodes, width] standard-normal array each (default_rng(seed), in
+    order)."""
+    import numpy as np
+    from gnn_tpu_torch import Graph
+    rng = np.random.default_rng(seed)
+    return [Graph(g.arcs, rng.standard_normal((g.n_nodes, width)).astype(np.float32), g.targets,
+                  focus=g.focus, set_mask=g.set_mask, output_mask=g.output_mask,
+                  sample_weights=g.sample_weights, node_graph=g.NodeGraph,
+                  aggregation_mode=g.aggregation_mode) for g in graphs]
+
+
+def wide_kernel_cases(torch, gen, B, W, D, H, rate, alpha, act):
+    """{kernel: [(wrapper outputs as a tuple, operands)]} of K1-K8 at one shape
+    and dropout mode: K3 and K4 (with rT; K4 D wide, H wide), K5 with the
+    affine, K6 (D wide, H wide) with rT, K7, K8, K1 with rT and K2."""
+    from gnn_tpu_torch.ops import bn, fused
+    dev = "cuda"
+    x = random_inputs(torch, gen, B, W, D, H, dev, res=True)
+    x3 = random_inputs(torch, gen, B, W, D, D, dev, res=False)
+    nm = (torch.rand(B, W, generator=gen) < 0.8).float().to(dev)
+    k5, k6, k7, k8 = random_bnfree_inputs(torch, gen, B, W, D, H, 3, rate, alpha, act, dev)
+    f, b = random_bn_inputs(torch, gen, B + 1, B, W, D, 3, rate, True, dev)
+    kw = dict(activation=act, alpha_drop=alpha, rate=rate)
+    return {
+        "K3": (lambda **a: fused.propagation_loop(**a),
+               dict(adjT=x3["adjT"], s0=x3["s"], fT=x3["fT"], w2=x3["w2"], affine=x3["affine"],
+                    nm=nm, K=3, threshold=0.05, activation=act)),
+        "K4": (step_out, dict(x, activation=act)),
+        "K5": (lambda **a: fused.propagation_loop_bwd(**a), k5),
+        "K6": (lambda **a: fused.train_step(**a), k6),
+        "K7": (lambda **a: fused.train_loop(**a), k7),
+        "K8": (lambda **a: fused.train_loop_bwd(**a), k8),
+        "K1": (lambda **a: bn.bn_forward_step(**a), dict(f, **kw, threshold=0.05)),
+        "K2": (lambda **a: bn.bn_backward_step(**a), dict(b, **kw)),
+    }
+
+
+def wide_dims(k, x):
+    """(W, D, AL or F or H, H1) of kernel k's operands, as its plan entries
+    take them."""
+    adj = next(x[a] for a in ("adjT", "adj_loop", "adj_dep") if x.get(a) is not None)
+    W = adj.shape[1]
+    if k in ("K1", "K2"):
+        return W, x["y1" if k == "K1" else "y_prev"].shape[-1], x["feats"].shape[-1], 0
+    if k in ("K4", "K6"):
+        D = x["s"].shape[-1]
+        return W, D, x["w2"].shape[0] // 2 if k == "K4" else x["w_cat"].shape[0], 0
+    return W, x["s0"].shape[-1], 0, 0
+
+
+def check_wide_forced(torch, k, run, x, label):
+    """Kernel k's wide plan forced at a shape a staged plan takes: every
+    output bit for bit the staged plan's."""
+    dims = wide_dims(k, x)
+    info = tiled_plan(k, *dims)
+    wide = len(plans_of(k))
+    if info["plan"] == wide:
+        fail(f"{k} {label}: the staged plans fit {dims}, but the library takes the wide plan")
+    first = outputs_of(run(**x))
+    force = force_entry(k)
+    force(wide)
+    try:
+        if plan_info(k, *dims)["plan"] != wide:
+            fail(f"{k} {label}: the wide plan could not be forced at {dims}")
+        forced = outputs_of(run(**x))
+    finally:
+        force(-1)
+    torch.cuda.synchronize()
+    for i, (a, b) in enumerate(zip(first, forced)):
+        if a is not None and not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+            fail(f"{k} {label}: output {i} of the wide plan, forced, differs from staged plan "
+                 f"{info['plan']}'s in {int((a != b).sum())} entries, by up to "
+                 f"{float((a - b).abs().max()):.3e}")
+    return info["plan"]
+
+
+def outputs_of(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
+def check_wide_kernel(torch, k, x, label):
+    """Kernel k at a width above the staged plans' reach (or at W 32, where
+    they may still fit) against its plain version; its plan held to the
+    mirror's. Returns the plan."""
+    from gnn_tpu_torch.ops import bn, fused
+    info = tiled_plan(k, *wide_dims(k, x))
+    if k == "K3":
+        check_plain(torch, f"K3 {label}", *against_plain(torch, fused, "propagation_loop", x),
+                    ("traj", "margins"), exact=("margins",))
+    elif k == "K4":
+        check_step(torch, fused, {a: v for a, v in x.items() if a != "activation"},
+                   x["activation"], label)
+    elif k == "K5":
+        check_plain(torch, f"K5 {label}", *against_plain(torch, fused, "propagation_loop_bwd", x),
+                    ("gs", "dw2", "dfT", "daff"), summed=("dw2", "daff"))
+    elif k == "K6":
+        check_plain(torch, f"K6 {label}", *against_plain(torch, fused, "train_step", x),
+                    ("y", "agg"))
+    elif k == "K7":
+        check_plain(torch, f"K7 {label}", *against_plain(torch, fused, "train_loop", x),
+                    ("traj", "margins", "agg"), exact=("margins",))
+    elif k == "K8":
+        check_bwd2(torch, "K8", x, label)
+    elif k == "K1":
+        check_plain(torch, f"K1 {label}", *against_plain(torch, bn, "bn_forward_step", x),
+                    ("y", "agg", "flags", "msum"), summed=("msum",), exact=("flags",))
+    else:
+        check_bwd2(torch, "K2", x, label)
+    return info["plan"]
+
+
+def phase_wide(torch):
+    """Phase 18: state widths above 64 on the one-layer kernels K1-K8 (each
+    kernel's wide plan, chosen where no staged plan fits), and the two-layer
+    and typed kernels' refusal, which stays."""
+    import re
+    from gnn_tpu_torch import Predictor
+    from gnn_tpu_torch.graphs.datasets import mutag_shaped
     from gnn_tpu_torch.graphs.generator import GraphDataGenerator
     from gnn_tpu_torch.models import core
-    from gnn_tpu_torch.ops import segment
-    say(f"---- state width 80, beyond the kernels' 64 ({elapsed()})")
-    rng = np.random.default_rng(SEED)
-    graphs = [random_graph(int(rng.integers(8, 30)), 80, 3, 2, 0.5, focus="g", rng=rng)
-              for _ in range(10)]
-    graphs.append(random_graph(300, 80, 3, 2, 0.02, focus="g", rng=rng))   # dep blocks
-    plan_cpu = next(iter(GraphDataGenerator(graphs, batch_size=len(graphs), shuffle=False,
-                                            build_plan=True)))
-    plan = plan_cpu.to("cuda")
-    in_s, l_s = get_inout_dims("state", 80, 3, 2, "g")
-    in_o, l_o = get_inout_dims("output", 80, 3, 2, "g")
-    for bn_on in (False, True):
-        def model(device, aggregation):
-            ss = MLPSpec(input_dim=in_s, units=tuple(l_s), activations="selu",
-                         kernel_initializer="lecun_normal", bias_initializer="lecun_normal",
-                         batch_normalization=bn_on, dropout_rate=(0.1,), dropout_pos=(0,),
-                         alphadropout=True)
-            so = MLPSpec(input_dim=in_o, units=tuple(l_o), activations="softmax",
-                         kernel_initializer="glorot_normal", bias_initializer="glorot_normal",
-                         batch_normalization=False)
-            return GNNgraphBased(ss, so, max_iteration=5, threshold=0.01, seed=SEED,
-                                 aggregation=aggregation, device=device)
-        label = f"state width 80, {'with' if bn_on else 'without'} BatchNorm"
-        card = model("cuda", "auto")
+    from gnn_tpu_torch.ops import bn, fused, segment
+    gen = torch.Generator().manual_seed(SEED + 60)
+    say(f"---- state widths above 64 ({elapsed()})")
+
+    # ---- 1. K1-K8 against their plain versions at D 65/80/128/200/201, W 128
+    # and 32, in the three dropout modes; K4 and K6 also with D != H, K1, K4
+    # and K6 without rT, K5 without the affine
+    reached = {}
+    for W in (128, 32):
+        for D in WIDE_D:
+            for rate, alpha in ((0.1, True), (0.1, False), (0.0, True)):
+                H = D if rate or W == 32 else {65: 130, 80: 33, 128: 200, 200: 65, 201: 99}[D]
+                cases = wide_kernel_cases(torch, gen, 2, W, D, H, rate, alpha, "selu")
+                mode = f"W={W} D={D} H={H} rate={rate} alpha={alpha}"
+                for k, (_, x) in cases.items():
+                    if rate == 0.1 and not alpha and k in ("K3", "K4", "K5"):
+                        continue   # no dropout in these; two modes suffice
+                    reached.setdefault(k, set()).add(check_wide_kernel(torch, k, x, mode))
+                    if k in ("K1", "K4", "K6") and rate == 0.0:
+                        check_wide_kernel(torch, k, dict(x, rT=None), mode + ", rT=None")
+                    if k == "K5" and rate == 0.0:
+                        check_wide_kernel(torch, k, dict(x, affine=None), mode + ", no affine")
+    # and at W 96 and 64, and D 1024 (one block each)
+    for W, D, H in ((96, 301, 301), (64, 130, 70), (128, 1024, 1024), (32, 1024, 333)):
+        for k, (_, x) in wide_kernel_cases(torch, gen, 1, W, D, H, 0.1, True, "selu").items():
+            reached[k].add(check_wide_kernel(torch, k, x, f"W={W} D={D} H={H} rate=0.1"))
+    for k in sorted(reached, key=lambda k: int(k[1:])):
+        if len(plans_of(k)) not in reached[k]:
+            fail(f"{k}: the wide cases never reached its wide plan (plans {sorted(reached[k])})")
+    say(f"K1-K8 at D {WIDE_D}: every case within its bounds of the plain version; plans "
+        f"reached {dict((k, sorted(v)) for k, v in reached.items())}")
+
+    # ---- 2. each wide plan forced at D 14 and 64 against the staged plans,
+    # bit for bit
+    for W, D in ((128, 14), (128, 64), (32, 14), (32, 64)):
+        for rate, alpha in ((0.1, True), (0.0, True)):
+            for k, (run, x) in wide_kernel_cases(torch, gen, 2, W, D, D, rate, alpha,
+                                                 "selu").items():
+                label = f"W={W} D={D} rate={rate}"
+                check_wide_forced(torch, k, run, x, label)
+                if k in ("K4", "K6") and x.get("rT") is not None:
+                    check_wide_forced(torch, k, run, dict(x, rT=None), label + ", rT=None")
+        say(f"K1-K8 wide plans forced at W={W} D={D}: bit-identical to the staged plans")
+
+    # ---- 3. one-layer models of width 80 and 128 on fused-layout batches:
+    # served and trained through K1-K8, counted, against the CPU
+    for width in (80, 128):
+        graphs = wide_graphs(width)
+        n_arcs = sum(g.n_arcs for g in graphs)
+        card = flagship(torch, "cuda", f"w{width}_bn")
         gb = card.to_batch(graphs)
-        routes = (core._eval_route(card.spec, gb), core._train_route(card.spec, gb))
-        want = ("hybrid", "bn" if bn_on else "dropout")
-        if gb.adj_loop is None or gb.adj_dep is None or routes != want:
-            fail(f"{label}: routes {routes}, expected {want}, on a batch with loop blocks "
-                 f"{gb.adj_loop is not None} and dep blocks {gb.adj_dep is not None}")
+        if gb.adj_loop is None or gb.adj_dep is None:
+            fail(f"width {width}: the batch lacks loop or dep blocks")
+        for variant, ev, tr in (("bn", "hybrid", "bn"), ("dropout", "hybrid", "dropout"),
+                                ("clean", "hybrid", "hybrid")):
+            m = flagship(torch, "cuda", f"w{width}_{variant}")
+            routes = (core._eval_route(m.spec, gb), core._train_route(m.spec, gb))
+            if routes != (ev, tr):
+                fail(f"width {width} '{variant}': routes {routes}, expected {(ev, tr)}")
+        requests = [("all", graphs), ("small", graphs[1]), ("big", graphs[-1]),
+                    ("five", graphs[4:9])]
+        phase_serving(torch, f"w{width}_bn", card, flagship(torch, "cpu", f"w{width}_bn"), gb,
+                      requests, ("propagation_loop", "propagation_step"), n_arcs)
+        for variant in ("bn", "dropout", "clean"):
+            phase_training(torch, gb, n_arcs, f"w{width}_{variant}", 1, params64=True)
+
+    # ---- 4. the two-layer and typed kernels still refuse state width 80,
+    # before any launch; through 'pallas' (K18) on a plan batch such a model
+    # runs
+    graphs = wide_graphs(80)
+    for variant in ("h150", "h150_bn", "composite_bn"):
+        m = flagship(torch, "cuda", f"w80_{variant}")
+        gs = typed_graphs(graphs) if variant == "composite_bn" else graphs
+        gb = m.to_batch(gs)
         before = port_launches()
-        refused = []
-        for what, call in (("forward", lambda: card.forward(gb)),
-                           ("training step", lambda: card.training_step(gb))):
+        for what, call in (("forward", lambda: m.forward(gb)),
+                           ("training step", lambda: m.training_step(gb))):
             try:
                 call()
                 torch.cuda.synchronize()
             except ValueError as e:
                 if not re.search(r"widths above 64|bytes of shared memory", str(e)):
-                    fail(f"{label}: the {what} raised another ValueError: {e}")
-                refused.append(f"{what}: {e}")
+                    fail(f"width 80 '{variant}': the {what} raised another ValueError: {e}")
             else:
-                fail(f"{label}: the {what} ran on the kernel routes at width 80")
+                fail(f"width 80 '{variant}': the {what} ran at a width its kernels do not take")
         if port_launches() != before:
-            fail(f"{label}: {port_launches() - before} kernel launches before the refusal")
-        say(f"{label}: routes {routes}, refused with no launch ({'; '.join(refused)})")
+            fail(f"width 80 '{variant}': {port_launches() - before} launches before the refusal")
+        say(f"width 80 '{variant}': forward and training step refused with no launch")
+    plan_cpu = next(iter(GraphDataGenerator(graphs, batch_size=len(graphs), shuffle=False,
+                                            build_plan=True)))
+    plan = plan_cpu.to("cuda")
+    card, cpu = flagship(torch, "cuda", "w80_pallas"), flagship(torch, "cpu", "w80_pallas")
+    K = card.spec.max_iteration
+    segment.reset_launches()
+    before = port_launches()
+    res = card.forward(plan)
+    torch.cuda.synchronize()
+    n_fwd = segment.launches["segment_aggregate"]
+    masks = card._draw_masks(card.spec, plan, card.mask_gen)
+    out = card.training_step(plan, masks=masks)
+    torch.cuda.synchronize()
+    n_step = segment.launches["segment_aggregate"] - n_fwd
+    if (n_fwd, n_step) != (K, 2 * K - 1) or port_launches() != before + n_fwd + n_step:
+        fail(f"width 80 'pallas': K18 launched {n_fwd} times a forward and {n_step} a step "
+             f"(expected {K} and {2 * K - 1}), {port_launches() - before} launches in all")
+    ref = cpu.forward(plan_cpu)
+    out_cpu = cpu.training_step(plan_cpu, masks=tree_map(lambda v: v.cpu(), masks))
+    sel = plan_cpu.sel_mask
+    err = float((res["out"].cpu()[sel] - ref["out"][sel]).abs().max())
+    iters = [float(r["iters"]) for r in (res, ref, out, out_cpu)]
+    if iters[0] != iters[1] or iters[2] != iters[3] or not err <= TOL:
+        fail(f"width 80 'pallas': iterations {iters}, outputs differ by {err:.3e}")
+    loss = close_rel(torch, out["loss"].cpu(), out_cpu["loss"], 1e-5, 0.0, "w80 'pallas' loss")
+    say(f"width 80 'pallas' on the plan batch: K18 {n_fwd} launches a forward, {n_step} a step; "
+        f"outputs within {err:.3e} of the CPU, loss within {loss:.3e}")
 
-        card, cpu = model("cuda", "pallas"), model("cpu", "pallas")
-        K = card.spec.max_iteration
-        segment.reset_launches()
-        before = port_launches()
-        res = card.forward(plan)
+    # ---- 5. width 128 at full scale: the MUTAG-shaped set's graphs and arcs
+    # with seeded 128-wide node labels; K1-K8 timed at the main paths'
+    # shapes against their bounds, their workspace; the forward and each
+    # one-layer route's step by device time
+    t0 = time.perf_counter()
+    graphs = relabelled(mutag_shaped(seed=SEED), 128, SEED + 61)
+    model = flagship(torch, "cuda", "w128_bn")
+    gb = Predictor(model).build_batch(graphs).to("cuda")
+    gb_train = model.to_batch(graphs)
+    say(f"width 128, MUTAG-shaped set: serving batch {gb.adj_loop.shape[0]} loop and "
+        f"{gb.adj_dep.shape[0]} dep rows, training batch {gb_train.adj_loop.shape[0]} and "
+        f"{gb_train.adj_dep.shape[0]} ({time.perf_counter() - t0:.1f} s)")
+    with torch.no_grad():
+        K, thr = model.spec.max_iteration, float(model.spec.threshold)
+        act = model.spec.state_spec.activations[0]
+        loop, step = kernel_inputs(model, gb)
+        x3 = dict(loop, K=K, threshold=thr, activation=act)
+        x4 = dict(step, activation=act)
+        (b3, by3), (b4, by4) = serving_bounds(loop, step, K)
+        (x1, _), kw1, x2, kw2 = train_kernel_inputs(torch, model, gb_train)
+        (b1, by1), (b2, by2) = bn_bounds(x1, x2)
+        k5, k6, k7, k8 = bnfree_kernel_inputs(torch, gb_train, 128)
+        bounds = dict(zip(("K5", "K6", "K7", "K8"), bnfree_bounds(k5, k6, k7, k8)))
+        bounds.update(K1=(b1, by1), K2=(b2, by2), K3=(b3, by3), K4=(b4, by4))
+        cases = {"K1": (bn.bn_forward_step, dict(x1, **kw1)),
+                 "K2": (bn.bn_backward_step, dict(x2, **kw2)),
+                 "K3": (fused.propagation_loop, x3), "K4": (fused.propagation_step, x4),
+                 "K5": (fused.propagation_loop_bwd, k5), "K6": (fused.train_step, k6),
+                 "K7": (fused.train_loop, k7), "K8": (fused.train_loop_bwd, k8)}
+        for k, (fn, x) in cases.items():
+            dims = wide_dims(k, x)
+            info = tiled_plan(k, *dims)
+            ws_floats = int(wide_layout(k, *dims)[1]) if info["plan"] == len(plans_of(k)) else 0
+            n_rows = (x.get("adjT") if x.get("adjT") is not None else x["y1" if k == "K1"
+                      else "y_prev"]).shape[0]
+            ms = timed_ms(torch, lambda: fn(**x))
+            dev_ms = device_ms(torch, lambda: fn(**x), 1)
+            say(f"{k} at width 128 ({n_rows} block rows, dims {dims}): {ms:.4f} ms by events, "
+                f"{dev_ms:.4f} ms of device time, bound {bounds[k][0]:.4f} ms "
+                f"({bounds[k][1]}); {describe_k(k, info)}; workspace "
+                f"{4 * ws_floats * n_rows} bytes")
+    def fwd():
+        with torch.no_grad():
+            model.forward(gb)
         torch.cuda.synchronize()
-        n_fwd = segment.launches["segment_aggregate"]
-        masks = card._draw_masks(card.spec, plan, card.mask_gen)
-        out = card.training_step(plan, masks=masks)
-        torch.cuda.synchronize()
-        n_step = segment.launches["segment_aggregate"] - n_fwd
-        if (n_fwd, n_step) != (K, 2 * K - 1) or port_launches() != before + n_fwd + n_step:
-            fail(f"{label}, 'pallas': K18 launched {n_fwd} times a forward and {n_step} a "
-                 f"step (expected {K} and {2 * K - 1}), {port_launches() - before} launches "
-                 f"of the port's kernels in all")
-        ref = cpu.forward(plan_cpu)
-        out_cpu = cpu.training_step(plan_cpu, masks=tree_map(lambda v: v.cpu(), masks))
-        sel = plan_cpu.sel_mask
-        err = float((res["out"].cpu()[sel] - ref["out"][sel]).abs().max())
-        iters = [float(r["iters"]) for r in (res, ref, out, out_cpu)]
-        if iters[0] != iters[1] or iters[2] != iters[3] or not err <= TOL:
-            fail(f"{label}, 'pallas': iterations {iters} (card, CPU forward; card, CPU step), "
-                 f"outputs differ by {err:.3e}")
-        loss = close_rel(torch, out["loss"].cpu(), out_cpu["loss"], 1e-5, 0.0,
-                         f"{label} 'pallas' loss")
-        say(f"{label}, 'pallas' on the plan batch: K18 {n_fwd} launches a forward and {n_step} "
-            f"a step; forward iters {iters[0]}, outputs within {err:.3e} of the CPU; training "
-            f"step iters {iters[2]}, loss within {loss:.3e}")
+    say(f"width 128 full-set forward: {device_ms(torch, fwd, runs=3):.3f} ms of device time")
+    for variant in ("bn", "dropout", "clean"):
+        m = flagship(torch, "cuda", f"w128_{variant}")
+
+        def step_fn():
+            m.training_step(gb_train)
+            torch.cuda.synchronize()
+        say(f"width 128 '{variant}' training step: {device_ms(torch, step_fn, runs=2):.3f} ms of "
+            f"device time")
 
 
 def ragged_plan(torch, gen, N=20000, E=60000, hub=5, isolated=7, hub_arcs=6000, pads=1000):

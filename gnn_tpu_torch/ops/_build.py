@@ -110,14 +110,15 @@ def build(force: bool = False) -> Path:
 def _signatures():
     """{C entry: (argtypes, restype)} of the kernel library."""
     p, i, f, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint64
+    # K1-K5 and K8 take their wide plan's workspace after the stream
     sig = {
-        "gnn_propagation_loop": [p] * 8 + [i, i, i, i, f, i, p],
-        "gnn_propagation_step": [p] * 7 + [i, i, i, i, i, p],
-        "gnn_bn_forward": [p] * 14 + [i, i, i, i, i, f, i, i, f, f, p],
-        "gnn_bn_backward": [p] * 17 + [i, i, i, i, i, i, i, f, f, p],
-        "gnn_propagation_loop_bwd": [p] * 11 + [i, i, i, i, i, p],
+        "gnn_propagation_loop": [p] * 8 + [i, i, i, i, f, i, p, p],
+        "gnn_propagation_step": [p] * 7 + [i, i, i, i, i, p, p],
+        "gnn_bn_forward": [p] * 14 + [i, i, i, i, i, f, i, i, f, f, p, p],
+        "gnn_bn_backward": [p] * 17 + [i, i, i, i, i, i, i, f, f, p, p],
+        "gnn_propagation_loop_bwd": [p] * 11 + [i, i, i, i, i, p, p],
         "gnn_train_loop": [p] * 10 + [i, i, i, i, f, i, i, f, f, p],
-        "gnn_train_loop_bwd": [p] * 12 + [i, i, i, i, i, i, f, f, p],
+        "gnn_train_loop_bwd": [p] * 12 + [i, i, i, i, i, i, f, f, p, p],
         "gnn_train_step": [p] * 9 + [i, i, i, i, i, i, f, f, p],
         "gnn_propagation_loop2": [p] * 11 + [i] * 6 + [f, i, i, p],
         "gnn_propagation_step2": [p] * 10 + [i] * 7 + [p],
@@ -133,16 +134,21 @@ def _signatures():
     out = {name: (args, i) for name, args in sig.items()}
     # the tiled kernels', K1's-K8's, K16's and K17's plan reports (W, D, AL or
     # F or H, H1 or T, out) and K18's launch report (N, D, -, -, out); forced
-    # plans of those in `planned`
+    # plans of those in `planned`; the workspace floats a block row of the
+    # plan K1-K5's and K8's entries pick (W, D, F or H, -)
     planned = ("gnn_propagation_loop2_bwd", "gnn_bn2_forward", "gnn_bn2_backward",
                "gnn_train_loop2", "gnn_bn_forward", "gnn_bn_backward", "gnn_train_loop_bwd",
                "gnn_bnT_backward", "gnn_propagation_step2", "gnn_propagation_loop",
-               "gnn_propagation_loop_bwd", "gnn_bnT_forward")
-    for name in planned + ("gnn_propagation_loop2", "gnn_train_loop2_bwd", "gnn_propagation_step",
-                           "gnn_train_loop", "gnn_train_step", "gnn_segment_aggregate"):
+               "gnn_propagation_loop_bwd", "gnn_bnT_forward", "gnn_propagation_step",
+               "gnn_train_loop", "gnn_train_step")
+    for name in planned + ("gnn_propagation_loop2", "gnn_train_loop2_bwd",
+                           "gnn_segment_aggregate"):
         out[name + "_info"] = ([i] * 4 + [p], i)
     for name in planned:
         out[name + "_force_plan"] = ([i], None)
+    for name in ("gnn_bn_forward", "gnn_bn_backward", "gnn_propagation_loop",
+                 "gnn_propagation_step", "gnn_propagation_loop_bwd", "gnn_train_loop_bwd"):
+        out[name + "_workspace"] = ([i] * 4, i)
     out["gnn_cuda_error_string"] = ([i], ctypes.c_char_p)
     return out
 

@@ -36,10 +36,12 @@ Keep-masks are uint8 [R, W, 2D+F] in x3 column order.
 Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
 launches the CUDA kernel (ops/csrc/bn_fwd.cu, bn_train.cu, bn2_fwd.cu,
 bn2_train.cu) for CUDA tensors; it never falls back from one to the other.
-`launches` counts kernel launches. K1 and K2 take the first of their
-shared-memory plans that fits a CTA (`_bn_plan`); K14/K15 take D and F up
-to 64, H1 up to fused2.MAX_HIDDEN, and a block's rows and the weights within
-a CTA's shared memory (`_smem2_bytes`).
+`launches` counts kernel launches. K1 and K2 take the first of their staged
+shared-memory plans that fits a CTA, else their wide plan, which takes every
+D and F with x3 and the [W][D]-sized rows in a device-memory workspace that
+the wrapper allocates (`_bn_plan`, `_bn_fwd_wide`, `_bn_bwd_wide`); K14/K15
+take D and F up to 64, H1 up to fused2.MAX_HIDDEN, and a block's rows and the
+weights within a CTA's shared memory (`_smem2_bytes`).
 """
 
 from __future__ import annotations
@@ -55,7 +57,7 @@ from gnn_tpu_torch.ops import _build
 from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, SMEM_BYTES,
                                      _act_grad, _check, _check_fits, _check_keep, _drop_args,
                                      _first_plan, _make_drop, _plan_info, _ptr, _r4, _stream,
-                                     moved, supports_fused_train)
+                                     _Workspace, moved, supports_fused_train)
 from gnn_tpu_torch.ops.fused2 import MAX_HIDDEN, _dense2_vjp, _tile2_plan, dense2
 from gnn_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
 
@@ -223,12 +225,12 @@ def bn2_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_a
 
 
 # ------------------------------------------------------------------ wrappers
-# bn_fwd.cu's kBnFwdPlans, K1's shared-memory plans in order of preference:
-# (threads a CTA, room of the column lists, keep bytes staged). The first is
-# the flagship's; the last fits every shape the per-node K1 took.
+# bn_fwd.cu's kBnFwdPlans, K1's staged shared-memory plans in order of
+# preference: (threads a CTA, room of the column lists, keep bytes staged).
+# The first is the flagship's; the wide plan (_bn_fwd_wide) follows them.
 _BN_FWD_PLANS = ((256, 16, 1), (128, 0, 0))
 # bn_train.cu's kBnBwdPlans, K2's: (threads a CTA, room of the row lists,
-# rows and keep bytes staged), likewise.
+# rows and keep bytes staged), likewise (_bn_bwd_wide).
 _BN_BWD_PLANS = ((256, 16, 1), (128, 0, 0))
 
 
@@ -265,14 +267,35 @@ def _bn_bwd_bytes(W, D, F, plan):
     return 4 * floats + (W + E * W if E else 0)
 
 
-# K1's and K2's plan lists and their layouts' bytes (W, D, F, plan)
-_BN_PLANS = {"K1": (_BN_FWD_PLANS, _bn_fwd_bytes), "K2": (_BN_BWD_PLANS, _bn_bwd_bytes)}
+def _bn_fwd_wide(W, D, F):
+    """(shared-memory bytes, workspace floats a block row) of bn_fwd.cu's wide
+    plan (256 threads, 16-entry lists): nm [W] and the column lists in shared
+    memory (floats, then W counts, 16*W sources and the list build's counts
+    [8][W] as bytes); x3 [C1][W] and the row buffer [W][D|1] in the
+    workspace. The widths may be ints or numpy integer arrays."""
+    return 4 * (_r4(W) + 16 * W) + W + 16 * W + 8 * W, _r4((2 * D + F) * W) + _r4(W * (D | 1))
+
+
+def _bn_bwd_wide(W, D, F):
+    """(shared-memory bytes, workspace floats a block row) of bn_train.cu's
+    wide plan (256 threads, 16-entry lists): nm [W] and the row lists in
+    shared memory (floats, then W counts and 16*W destinations as bytes); x3
+    [C1][W], dh [D][W] and dagg [W][D|1] in the workspace."""
+    return (4 * (_r4(W) + 16 * W) + W + 16 * W,
+            _r4((2 * D + F) * W) + _r4(D * W) + _r4(W * (D | 1)))
+
+
+# K1's and K2's staged plan lists, their layouts' bytes (W, D, F, plan) and
+# their wide plans
+_BN_PLANS = {"K1": (_BN_FWD_PLANS, _bn_fwd_bytes, _bn_fwd_wide),
+             "K2": (_BN_BWD_PLANS, _bn_bwd_bytes, _bn_bwd_wide)}
 
 
 def _bn_plan(kernel: str, W: int, D: int, F: int):
     """(shared-memory bytes, plan index) K1 or K2 takes at this shape
-    (fused._first_plan)."""
-    return _first_plan(*_BN_PLANS[kernel], W, D, F)
+    (fused._first_plan; the wide plan is index 2)."""
+    plans, nbytes, wide = _BN_PLANS[kernel]
+    return _first_plan(plans, nbytes, W, D, F, wide=wide)
 
 
 def _bn_bwd_plan(W: int, D: int, F: int):
@@ -298,7 +321,7 @@ def backward_info(W: int, D: int, F: int) -> dict:
     return _plan_info("gnn_bn_backward", W, D, F)
 
 
-def _check_blocks(adj_loop, adj_dep, R, D):
+def _check_blocks(adj_loop, adj_dep, R):
     """(Bl, W) after checking the two adjacencies (either None: no rows of
     that set) against R block rows."""
     adj = adj_loop if adj_loop is not None else adj_dep
@@ -307,8 +330,6 @@ def _check_blocks(adj_loop, adj_dep, R, D):
     W, W2 = adj.shape[-2:]
     if W != W2 or W % 32 or not 32 <= W <= 128:
         raise ValueError(f"block width must be 32, 64, 96 or 128, got adjT {tuple(adj.shape)}")
-    if D > 64:
-        raise ValueError(f"state widths above 64 are not supported (D={D})")
     dev = adj.device
     Bl = Bd = 0
     if adj_loop is not None:
@@ -320,6 +341,13 @@ def _check_blocks(adj_loop, adj_dep, R, D):
     if R != Bl + Bd:
         raise ValueError(f"{R} block rows, but the adjacencies hold {Bl} + {Bd}")
     return Bl, W
+
+
+def _check_state_width(D: int) -> None:
+    """The two-layer and typed BatchNorm kernels (K14-K17) take state widths
+    up to 64 (their register arrays; K1 and K2 take any)."""
+    if D > 64:
+        raise ValueError(f"state widths above 64 are not supported (D={D})")
 
 
 def _require_cuda(t):
@@ -353,7 +381,7 @@ def _launch_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, 
                     activation, alpha_drop, rate, threshold):
     R, _, D = y1.shape
     Fd = feats.shape[-1]
-    Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
+    Bl, W = _check_blocks(adj_loop, adj_dep, R)
     _check_bn_plan("K1", W, D, Fd)
     dev = y1.device
     for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
@@ -371,10 +399,12 @@ def _launch_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, 
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
+        ws = _Workspace(R, W, D, Fd).allocate(lib, "bn_forward", dev)
         err = lib.gnn_bn_forward(
             _ptr(adj_loop), _ptr(adj_dep), _ptr(y1), _ptr(y2), _ptr(aff), _ptr(keep), _ptr(rT),
             _ptr(feats), _ptr(w_aug), _ptr(nm), _ptr(y), _ptr(agg), _ptr(marg), _ptr(msum),
-            R, Bl, W, D, Fd, float(threshold), _ACT_CODE[activation], mode, a, b, _stream(dev))
+            R, Bl, W, D, Fd, float(threshold), _ACT_CODE[activation], mode, a, b, _stream(dev),
+            _ptr(ws))
     _build.check(err, "bn_forward_step (K1)")
     launches["bn_forward_step"] += 1
     return y, agg, marg, msum
@@ -407,7 +437,7 @@ def _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds
     R, _, D = y_prev.shape
     Fd = feats.shape[-1]
     C = 2 * D + Fd + 1
-    Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
+    Bl, W = _check_blocks(adj_loop, adj_dep, R)
     _check_bn_plan("K2", W, D, Fd)
     dev = y_prev.device
     for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
@@ -426,11 +456,12 @@ def _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
+        ws = _Workspace(R, W, D, Fd).allocate(lib, "bn_backward", dev)
         err = lib.gnn_bn_backward(
             _ptr(adj_loop), _ptr(adj_dep), _ptr(y_prev), _ptr(y_k), _ptr(agg), _ptr(keep),
             _ptr(feats), _ptr(w_aug), _ptr(ds_in), _ptr(gsel), _ptr(bnv), _ptr(flag), _ptr(nm),
             _ptr(ds), _ptr(dw), _ptr(dagg), _ptr(red), R, Bl, W, D, Fd,
-            _ACT_CODE[activation], mode, a, b, _stream(dev))
+            _ACT_CODE[activation], mode, a, b, _stream(dev), _ptr(ws))
     _build.check(err, "bn_backward_step (K2)")
     launches["bn_backward_step"] += 1
     return ds, dw, dagg, red
@@ -456,7 +487,8 @@ def _check_two_layer(adj_loop, adj_dep, R, D, F, w0_aug, w1, b1, backward):
     if need > SMEM_BYTES:
         raise ValueError(f"W={W}, D={D}, F={F}, H1={H1} needs {need} bytes of shared memory a "
                          f"block, more than the {SMEM_BYTES} a CTA may use")
-    Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
+    _check_state_width(D)
+    Bl, W = _check_blocks(adj_loop, adj_dep, R)
     dev = w0_aug.device
     _check("w0_aug", w0_aug, (H1, 2 * D + F + 1), dev)
     _check("w1", w1, (D, H1), dev)

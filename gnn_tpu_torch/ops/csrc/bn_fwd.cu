@@ -53,7 +53,18 @@
 // bytes. The plans (kBnFwdPlans: threads, list room, keep bytes staged) are
 // mirrored by ops/bn.py::_bn_fwd_plan; the last (128 threads) builds no lists
 // and stages no keep bytes, and fits every shape the per-node kernel that
-// this replaces took.
+// this replaces took. A thread's outputs go through h [JT] in chunks of JT
+// (one chunk up to D 64), so every plan takes any D its layout fits.
+//
+// The wide plan (index 2, 256 threads with the lists; mirrored by
+// ops/bn.py::_bn_fwd_wide), chosen only where no staged plan fits, takes
+// every D: x3 and the row buffer lie in a device-memory workspace the
+// wrapper allocates (a block row's slice each, gnn_bn_forward_workspace
+// floats), w_aug, the affines and the keep bytes are read through the
+// caches, and shared memory holds only nm, the column lists and the list
+// build's counts (11,904 bytes at W 128, whatever D and F are). The code is
+// the staged plans' with those pointers (the h chunks of the 64-wide
+// arrays): a forced wide plan gives the staged plans' bits.
 
 #include "tile2.cuh"
 
@@ -68,6 +79,9 @@ struct BnFwdPlan {
 };
 
 constexpr BnFwdPlan kBnFwdPlans[] = {{256, 16, 1}, {128, 0, 0}};
+// the wide plan, after the staged ones
+constexpr BnFwdPlan kBnFwdWide = {256, 16, 0};
+constexpr int kBnFwdWideIndex = sizeof(kBnFwdPlans) / sizeof(kBnFwdPlans[0]);
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
@@ -76,16 +90,37 @@ __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 // 16 bytes: x3 X [C1][W] (transposed; y1 and y2 first), w_aug transposed wT
 // [C1 + 1][D4] (D4 = D rounded up to 4, zero past D; its last row the bias),
 // the affines [4][D], nm [W], the row buffer [W][D | 1] (rT, then agg, then
-// y), with st the keep bytes [W][C1], the lists [E][W].
+// y), with st the keep bytes [W][C1], the lists [E][W]. The wide plan: x3
+// and the row buffer in a block row's workspace slice of ws floats; in
+// shared memory nm and the lists, then the bytes.
 struct BnFwdLayout {
-  int x, w, aff, nm, ab, kp, lw;
+  int x, w, aff, nm, ab, kp, lw, ws;
   size_t cnt_b, idx_b, part_b, bytes;
 };
 
-__host__ __device__ inline BnFwdLayout fwd_layout(int W, int D, int F, const BnFwdPlan& p) {
+__host__ __device__ inline BnFwdLayout fwd_layout(int W, int D, int F, const BnFwdPlan& p,
+                                                  bool wide) {
   BnFwdLayout L{};
   const int C1 = 2 * D + F;
   int o = 0;
+  if (wide) {
+    L.x = o;
+    o += round4(C1 * W);
+    L.ab = o;
+    o += round4(W * (D | 1));
+    L.ws = o;
+    L.w = L.aff = L.kp = -1;
+    o = 0;
+    L.nm = o;
+    o += round4(W);
+    L.lw = o;
+    o += p.E * W;
+    L.cnt_b = sizeof(float) * (size_t)o;
+    L.idx_b = L.cnt_b + W;
+    L.part_b = L.idx_b + (size_t)p.E * W;
+    L.bytes = L.part_b + (size_t)(p.nt / 32) * W;
+    return L;
+  }
   L.x = o;
   o += round4(C1 * W);
   L.w = o;
@@ -107,12 +142,13 @@ __host__ __device__ inline BnFwdLayout fwd_layout(int W, int D, int F, const BnF
   L.idx_b = L.cnt_b + (p.E ? W : 0);
   L.part_b = L.idx_b + (size_t)p.E * W;  // build_col_lists' counts [NT / 32][W]
   L.bytes = L.part_b + (p.E ? (size_t)(p.nt / 32) * W : 0);
+  L.ws = 0;
   return L;
 }
 
 // K1: one BN-training iteration over every block row, NT threads a CTA, one
-// block row each.
-template <int MAXF, int NT, bool ST>
+// block row each; WIDE: the wide plan (ws its workspace).
+template <int MAXF, int NT, bool ST, bool WIDE>
 __global__ void __launch_bounds__(NT, 3)
 bn_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_dep,
               const float* __restrict__ y1, const float* __restrict__ y2,
@@ -121,42 +157,53 @@ bn_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
               const float* __restrict__ w_aug, const float* __restrict__ nm,
               float* __restrict__ y, float* __restrict__ agg, float* __restrict__ marg,
               float* __restrict__ msum, int Bl, int W, int D, int F, float thr, int act,
-              int mode, float da, float db, BnFwdPlan p) {
+              int mode, float da, float db, BnFwdPlan p, float* ws) {
   extern __shared__ float4 smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
   uint8_t* bytes = reinterpret_cast<uint8_t*>(smem_raw);
-  const BnFwdLayout L = fwd_layout(W, D, F, p);
+  const BnFwdLayout L = fwd_layout(W, D, F, p, WIDE);
   const int C1 = 2 * D + F, DP = D | 1, D4 = round4(D);
   const int r = blockIdx.x, t = threadIdx.x;
   const size_t row0 = (size_t)r * W;
   const float* adj = block_adj(adj_loop, adj_dep, Bl, W);
-  float* X = sm + L.x;
+  float* base = WIDE ? ws + (size_t)r * L.ws : sm;  // the regions of x3 and the row buffer
+  float* X = base + L.x;
   float* wT = sm + L.w;
-  float* af = sm + L.aff;  // [scale1; shift1; scale2; shift2] x [D]
+  const float* af = WIDE ? aff : sm + L.aff;  // [scale1; shift1; scale2; shift2] x [D]
   float* nms = sm + L.nm;
-  float* A = sm + L.ab;    // [W][DP]: rT, then agg, then y
+  float* A = base + L.ab;  // [W][DP]: rT, then agg, then y
   float* lw = sm + L.lw;
   uint8_t* cnt = bytes + L.cnt_b;
   uint8_t* idx = bytes + L.idx_b;
   const uint8_t* kg = mode != kNoDrop ? keep + row0 * C1 : nullptr;
   const bool kst = ST && kg != nullptr && reinterpret_cast<uintptr_t>(kg) % 16 == 0;
 
-  // ---- staging, issued together, waited on once
-  // wT [c][j] = w_aug [j][c], in w_aug's order (whole rows of it a warp)
-  for (int i = t; i < (C1 + 1) * D4; i += NT) {
-    const int j = i / (C1 + 1), c = i % (C1 + 1);
-    if (j < D)
-      cp_async4(wT + c * D4 + j, w_aug + i);
-    else
-      wT[c * D4 + j] = 0.0f;
+  // ---- staging, issued together, waited on once (wide: x3's rows and rT
+  // copied into the workspace)
+  if constexpr (WIDE) {
+    for (int i = t; i < W * D; i += NT) {
+      X[(i % D) * W + i / D] = y1[row0 * D + i];      // x3 rows [0, D): y1, then s
+      X[(D + i % D) * W + i / D] = y2[row0 * D + i];  // rows [D, 2D): y2, then agg
+      if (rT != nullptr) A[(i / D) * DP + i % D] = rT[row0 * D + i];
+    }
+    for (int i = t; i < W * F; i += NT) X[(2 * D + i % F) * W + i / F] = feats[row0 * F + i];
+  } else {
+    // wT [c][j] = w_aug [j][c], in w_aug's order (whole rows of it a warp)
+    for (int i = t; i < (C1 + 1) * D4; i += NT) {
+      const int j = i / (C1 + 1), c = i % (C1 + 1);
+      if (j < D)
+        cp_async4(wT + c * D4 + j, w_aug + i);
+      else
+        wT[c * D4 + j] = 0.0f;
+    }
+    for (int i = t; i < 4 * D; i += NT) cp_async4(sm + L.aff + i, aff + i);
+    stage_rowsT(y1 + row0 * D, W, D, X, 0);  // x3 rows [0, D): y1, then s
+    stage_rowsT(y2 + row0 * D, W, D, X, D);  // rows [D, 2D): y2, then agg
+    stage_rowsT(feats + row0 * F, W, F, X, 2 * D);
+    if (rT != nullptr)
+      for (int i = t; i < W * D; i += NT) cp_async4(A + (i / D) * DP + i % D, rT + row0 * D + i);
   }
-  for (int i = t; i < 4 * D; i += NT) cp_async4(af + i, aff + i);
   cp_rows(nms, nm + row0, W);
-  stage_rowsT(y1 + row0 * D, W, D, X, 0);  // x3 rows [0, D): y1, then s
-  stage_rowsT(y2 + row0 * D, W, D, X, D);  // rows [D, 2D): y2, then agg
-  stage_rowsT(feats + row0 * F, W, F, X, 2 * D);
-  if (rT != nullptr)
-    for (int i = t; i < W * D; i += NT) cp_async4(A + (i / D) * DP + i % D, rT + row0 * D + i);
   if (kst)  // W * C1 is a multiple of 32
     for (int i = 16 * t; i < W * C1; i += 16 * NT)
       cp_async16(sm + L.kp + i / 4, reinterpret_cast<const float*>(kg + i));
@@ -201,17 +248,26 @@ bn_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
   __syncthreads();
 
   // ---- y = act(h), h in the per-node order (bias first, then c ascending)
-  // for outputs j0 + i of node n, four a 16-byte read of wT; into the row
-  // buffer (agg is out)
+  // for outputs jc + i of node n, JT at a time from jc = j0 (one chunk up to
+  // D 64), four a 16-byte read of wT (wide: four rows of w_aug); into the
+  // row buffer (agg is out)
   constexpr int JT = MAXF * kMaxW / NT;
   const int tpn = NT / W, n = t % W, part = t / W;
   const int JB = round4((D + tpn - 1) / tpn), j0 = part * JB, j1 = min(D, j0 + JB);
-  if (part < tpn && j0 < D) {
+  auto wcol = [&](int c, int j, float (&w)[4]) {  // w[u] = w_aug [j + u][c], zero past D
+    if constexpr (WIDE) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) w[u] = j + u < D ? w_aug[(size_t)(j + u) * (C1 + 1) + c] : 0.0f;
+    } else {
+      ldv<4>(wT + c * D4 + j, w);
+    }
+  };
+  for (int jc = j0; part < tpn && jc < j1; jc += JT) {
     float h[JT];
 #pragma unroll
     for (int q = 0; q < JT; q += 4) {
       float b4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (j0 + q < j1) ldv<4>(wT + C1 * D4 + j0 + q, b4);
+      if (jc + q < j1) wcol(C1, jc + q, b4);
 #pragma unroll
       for (int u = 0; u < 4; ++u) h[q + u] = b4[u];
     }
@@ -219,9 +275,9 @@ bn_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
       const float x = X[c * W + n];
 #pragma unroll
       for (int q = 0; q < JT; q += 4) {
-        if (j0 + q < j1) {
+        if (jc + q < j1) {
           float w4[4];
-          ldv<4>(wT + c * D4 + j0 + q, w4);
+          wcol(c, jc + q, w4);
 #pragma unroll
           for (int u = 0; u < 4; ++u) h[q + u] = fmaf(w4[u], x, h[q + u]);
         }
@@ -229,7 +285,7 @@ bn_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
     }
 #pragma unroll
     for (int i = 0; i < JT; ++i)
-      if (j0 + i < j1) A[n * DP + j0 + i] = activate(act, h[i]);
+      if (jc + i < j1) A[n * DP + jc + i] = activate(act, h[i]);
   }
   __syncthreads();
 
@@ -244,7 +300,7 @@ bn_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
 
 bool shape_ok(int R, int Bl, int W, int D, int F) {
   return R > 0 && Bl >= 0 && Bl <= R && W >= 32 && W <= kMaxW && W % 32 == 0 && D > 0 &&
-         F >= 0 && width_class(D) != 0;
+         F >= 0;
 }
 
 int g_force = -1;  // gnn_bn_forward_force_plan
@@ -252,39 +308,36 @@ int g_force = -1;  // gnn_bn_forward_force_plan
 using BnFwdFn = void (*)(const float*, const float*, const float*, const float*, const float*,
                          const uint8_t*, const float*, const float*, const float*, const float*,
                          float*, float*, float*, float*, int, int, int, int, float, int, int,
-                         float, float, BnFwdPlan);
+                         float, float, BnFwdPlan, float*);
 
 template <int MAXF>
 BnFwdFn fwd_variant(const BnFwdPlan& p) {
-  return p.st ? bn_fwd_kernel<MAXF, 256, true> : bn_fwd_kernel<MAXF, 128, false>;
+  return p.st ? bn_fwd_kernel<MAXF, 256, true, false> : bn_fwd_kernel<MAXF, 128, false, false>;
 }
 
 // K1's kernel and plan for a shape: the first plan of kBnFwdPlans that fits
-// a CTA, or plan g_force (>= 0) if it fits; nullptr (bytes: the last
-// plan's) if none.
-BnFwdFn pick_fwd(int W, int D, int F, BnFwdPlan* p, size_t* bytes, int* index) {
-  constexpr int N = sizeof(kBnFwdPlans) / sizeof(kBnFwdPlans[0]);
+// a CTA, else the wide plan (index kBnFwdWideIndex), or plan g_force (>= 0)
+// if it fits; nullptr if none. The staged plans' register arrays are 16, 32
+// or 64 wide by D (64 above it, in chunks); *ws: the plan's workspace floats
+// a block row.
+BnFwdFn pick_fwd(int W, int D, int F, BnFwdPlan* p, size_t* bytes, int* index, int* ws) {
   *index = -1;
-  for (int i = g_force >= 0 ? g_force : 0; i < N; ++i) {
-    *bytes = fwd_layout(W, D, F, kBnFwdPlans[i]).bytes;
-    if (*bytes <= (size_t)kMaxSmemBytes) {
-      *p = kBnFwdPlans[i];
+  for (int i = g_force >= 0 ? g_force : 0; i <= kBnFwdWideIndex; ++i) {
+    const bool wide = i == kBnFwdWideIndex;
+    const BnFwdPlan plan = wide ? kBnFwdWide : kBnFwdPlans[i];
+    const BnFwdLayout L = fwd_layout(W, D, F, plan, wide);
+    *bytes = L.bytes;
+    if (L.bytes <= (size_t)kMaxSmemBytes) {
+      *p = plan;
       *index = i;
+      *ws = L.ws;
       break;
     }
     if (g_force >= 0) break;
   }
   if (*index < 0) return nullptr;
-  switch (width_class(D)) {
-    case 16:
-      return fwd_variant<16>(*p);
-    case 32:
-      return fwd_variant<32>(*p);
-    case 64:
-      return fwd_variant<64>(*p);
-    default:
-      return nullptr;
-  }
+  if (*index == kBnFwdWideIndex) return bn_fwd_kernel<64, 256, false, true>;
+  return D <= 16 ? fwd_variant<16>(*p) : D <= 32 ? fwd_variant<32>(*p) : fwd_variant<64>(*p);
 }
 
 }  // namespace
@@ -294,26 +347,37 @@ extern "C" {
 // adj_loop [Bl, W, W] (null when Bl == 0), adj_dep [R - Bl, W, W] (null when
 // Bl == R); y1, y2, rT (nullable) [R, W, D]; aff [2, 2, D]; keep uint8
 // [R, W, 2D + F] (null when mode == 0); feats [R, W, F]; w_aug [D, 2D + F + 1];
-// nm [R, W] -> y, agg [R, W, D], marg [R, W], msum [R, D]. Returns a
-// cudaError_t code.
+// nm [R, W] -> y, agg [R, W, D], marg [R, W], msum [R, D]; ws: the wide
+// plan's workspace, R slices of gnn_bn_forward_workspace floats (null for a
+// staged plan). Returns a cudaError_t code.
 int gnn_bn_forward(const float* adj_loop, const float* adj_dep, const float* y1,
                    const float* y2, const float* aff, const uint8_t* keep, const float* rT,
                    const float* feats, const float* w_aug, const float* nm, float* y,
                    float* agg, float* marg, float* msum, int R, int Bl, int W, int D, int F,
-                   float thr, int act, int mode, float da, float db, void* stream) {
+                   float thr, int act, int mode, float da, float db, void* stream, float* ws) {
   if (!shape_ok(R, Bl, W, D, F)) return cudaErrorInvalidValue;
   if (mode != kNoDrop && keep == nullptr) return cudaErrorInvalidValue;
   BnFwdPlan p;
   size_t bytes;
-  int index;
-  const BnFwdFn fn = pick_fwd(W, D, F, &p, &bytes, &index);
-  if (fn == nullptr) return cudaErrorInvalidValue;
+  int index, wsf;
+  const BnFwdFn fn = pick_fwd(W, D, F, &p, &bytes, &index, &wsf);
+  if (fn == nullptr || (wsf > 0 && ws == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
   fn<<<R, p.nt, bytes, static_cast<cudaStream_t>(stream)>>>(
       adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, y, agg, marg, msum, Bl, W, D,
-      F, thr, act, mode, da, db, p);
+      F, thr, act, mode, da, db, p, ws);
   return cudaGetLastError();
+}
+
+// The workspace floats a block row gnn_bn_forward's plan for this shape
+// needs (0 for a staged plan), or -1 if no plan fits (H1 unused).
+int gnn_bn_forward_workspace(int W, int D, int F, int H1) {
+  (void)H1;
+  BnFwdPlan p;
+  size_t bytes;
+  int index, wsf;
+  return pick_fwd(W, D, F, &p, &bytes, &index, &wsf) == nullptr ? -1 : wsf;
 }
 
 // out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
@@ -323,15 +387,15 @@ int gnn_bn_forward_info(int W, int D, int F, int H1, int* out) {
   (void)H1;
   BnFwdPlan p;
   size_t bytes;
-  int index;
-  const BnFwdFn fn = pick_fwd(W, D, F, &p, &bytes, &index);
+  int index, wsf;
+  const BnFwdFn fn = pick_fwd(W, D, F, &p, &bytes, &index, &wsf);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return tile_kernel_info(fn, bytes, index, out, p.nt);
 }
 
-// Launch plan `index` of kBnFwdPlans from now on, where it fits (a launch at
-// a shape it does not fit fails), or the first plan that fits again (index
-// -1): for timing one plan against another.
+// Launch plan `index` (kBnFwdPlans, then the wide plan) from now on, where it
+// fits (a launch at a shape it does not fit fails), or the first plan that
+// fits again (index -1): for timing one plan against another.
 void gnn_bn_forward_force_plan(int index) { g_force = index; }
 
 }  // extern "C"

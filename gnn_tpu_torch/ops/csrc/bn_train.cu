@@ -44,7 +44,20 @@
 // The plans (kBnBwdPlans: threads, list room, rows staged) are mirrored by
 // ops/bn.py::_bn_bwd_plan; the last (128 threads) stages no rows and reads
 // the adjacency from device memory, and fits every shape the per-node kernel
-// that this replaces took.
+// that this replaces took. Up to D 64 a thread's outputs fit its register
+// arrays (16, 32 or 64 wide by D); above that the 64-wide instantiations run
+// chunked: h and ds over JT outputs at a time, dx one output at a time from
+// dh in shared memory, and dx's state slice parked in ds's output rows
+// until ds is formed. So every plan takes any D its layout fits.
+//
+// The wide plan (index 2, 256 threads with the lists; mirrored by
+// ops/bn.py::_bn_bwd_wide), chosen only where no staged plan fits, takes
+// every D: x3, dh and the late region lie in a device-memory workspace the
+// wrapper allocates (a block row's slice each, gnn_bn_backward_workspace
+// floats), w_aug, bnv, the rows and the keep bytes are read through the
+// caches, and shared memory holds only nm and the row lists (10,880 bytes at
+// W 128, whatever D and F are). It runs chunked; a forced wide plan gives
+// the staged plans' bits.
 //
 // Bound: a launch reads every block's adjacency (W*W*4 bytes, 64 KiB at
 // W = 128) once, which dominates the bytes moved; the arcs present need
@@ -69,6 +82,9 @@ struct BnBwdPlan {
 // 128 threads ran 0.187 against 0.146 and was dropped, since no shape takes
 // it that the first does not fit (PERF.md §6).
 constexpr BnBwdPlan kBnBwdPlans[] = {{256, 16, 1}, {128, 0, 0}};
+// the wide plan, after the staged ones
+constexpr BnBwdPlan kBnBwdWide = {256, 16, 0};
+constexpr int kBnBwdWideIndex = sizeof(kBnBwdPlans) / sizeof(kBnBwdPlans[0]);
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
@@ -85,16 +101,40 @@ constexpr int kNodeRanges = 8;
 // nm [W], with st y_prev [W][D] and the keep bytes [W][C1], a late region
 // (with st: ds_in, gsel, y_k [W][D] each; then dagg [W][D|1] and the
 // partials), the lists [E][W]. ds and ds * x_hat_prev [W][D|1] take X and dh
-// once those are read.
+// once those are read. The wide plan: x3, dh and dagg in a block row's
+// workspace slice of ws floats (ds and ds * x_hat_prev over x3 and dh as
+// above); in shared memory nm and the lists, then the bytes.
 struct BnBwdLayout {
-  int x, dh, w, v, nm, yp, kp, di, gs, yk, da, part, lw, ds, dsx;
+  int x, dh, w, v, nm, yp, kp, di, gs, yk, da, part, lw, ds, dsx, ws;
   size_t cnt_b, idx_b, bytes;
 };
 
-__host__ __device__ inline BnBwdLayout bwd_layout(int W, int D, int F, const BnBwdPlan& p) {
+__host__ __device__ inline BnBwdLayout bwd_layout(int W, int D, int F, const BnBwdPlan& p,
+                                                  bool wide) {
   BnBwdLayout L{};
   const int C1 = 2 * D + F, C = C1 + 1, DP = D | 1;
   int o = 0;
+  if (wide) {
+    L.x = o;
+    o += round4(C1 * W);
+    L.dh = o;
+    o += round4(D * W);
+    L.da = o;
+    o += round4(W * DP);
+    L.part = L.ws = o;
+    L.ds = L.x;
+    L.dsx = L.x + round4(W * DP);
+    L.w = L.v = L.yp = L.kp = L.di = L.gs = L.yk = -1;
+    o = 0;
+    L.nm = o;
+    o += round4(W);
+    L.lw = o;
+    o += p.E * W;
+    L.cnt_b = sizeof(float) * (size_t)o;
+    L.idx_b = L.cnt_b + W;
+    L.bytes = L.idx_b + (size_t)p.E * W;
+    return L;
+  }
   L.x = o;
   o += round4(C1 * W);
   L.dh = o;
@@ -126,12 +166,13 @@ __host__ __device__ inline BnBwdLayout bwd_layout(int W, int D, int F, const BnB
   L.cnt_b = sizeof(float) * (size_t)o;
   L.idx_b = L.cnt_b + (p.E ? W : 0);
   L.bytes = L.idx_b + (size_t)p.E * W;
+  L.ws = 0;
   return L;
 }
 
 // K2: one reverse BN-training iteration over every block row, NT threads a
-// CTA, one block row each.
-template <int MAXF, int NT, bool ST>
+// CTA, one block row each; WIDE: the wide plan (ws its workspace).
+template <int MAXF, int NT, bool ST, bool WIDE>
 __global__ void __launch_bounds__(NT, NT == 256 ? 3 : 4)
 bn_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_dep,
               const float* __restrict__ y_prev, const float* __restrict__ y_k,
@@ -141,20 +182,21 @@ bn_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
               const float* __restrict__ bnv, const float* __restrict__ flag,
               const float* __restrict__ nm, float* __restrict__ ds, float* __restrict__ dw,
               float* __restrict__ dagg, float* __restrict__ red, int Bl, int W, int D, int F,
-              int act, int mode, float da, float db, BnBwdPlan p) {
+              int act, int mode, float da, float db, BnBwdPlan p, float* ws) {
   extern __shared__ float4 smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
-  const BnBwdLayout L = bwd_layout(W, D, F, p);
+  const BnBwdLayout L = bwd_layout(W, D, F, p, WIDE);
   const int C1 = 2 * D + F, C = C1 + 1, DP = D | 1;
   const int r = blockIdx.x, t = threadIdx.x;
   const size_t row0 = (size_t)r * W;
   const float* adj = block_adj(adj_loop, adj_dep, Bl, W);
-  float* X = sm + L.x;
-  float* DH = sm + L.dh;
+  float* base = WIDE ? ws + (size_t)r * L.ws : sm;  // the regions of x3, dh and dagg
+  float* X = base + L.x;
+  float* DH = base + L.dh;
   float* wT = sm + L.w;
-  float* v = sm + L.v;  // bnv rows, ops/bn.py::BNV_ROWS
+  const float* v = WIDE ? bnv : sm + L.v;  // bnv rows, ops/bn.py::BNV_ROWS
   float* nms = sm + L.nm;
-  float* DA = sm + L.da;
+  float* DA = base + L.da;
   float* lw = sm + L.lw;
   uint8_t* cnt = reinterpret_cast<uint8_t*>(smem_raw) + L.cnt_b;
   uint8_t* idx = reinterpret_cast<uint8_t*>(smem_raw) + L.idx_b;
@@ -172,17 +214,30 @@ bn_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
   const int D4 = round4(D), tpn = NT / W, n = t % W, part = t / W;
   const bool mine = part < tpn;
   const int JB = round4((D + tpn - 1) / tpn), j0 = part * JB, j1 = min(D, j0 + JB);
+  // above D 64 (and in the wide plan) a thread's outputs exceed the register
+  // arrays: h and ds go JT outputs at a time, dx one output at a time
+  const bool chunked = WIDE || (MAXF == 64 && D > MAXF);
+  auto wcol = [&](int c, int j, float (&w)[4]) {  // w[u] = w_aug [j + u][c], zero past D
+    if constexpr (WIDE) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) w[u] = j + u < D ? w_aug[(size_t)(j + u) * C + c] : 0.0f;
+    } else {
+      ldv<4>(wT + c * D4 + j, w);
+    }
+  };
 
   // ---- staging, issued together, waited on once
-  // wT [c][j] = w_aug [j][c], in w_aug's order (whole rows of it a warp)
-  for (int i = t; i < C * D4; i += NT) {
-    const int j = i / C, c = i % C;
-    if (j < D)
-      cp_async4(wT + c * D4 + j, w_aug + i);
-    else
-      wT[c * D4 + j] = 0.0f;
+  if constexpr (!WIDE) {
+    // wT [c][j] = w_aug [j][c], in w_aug's order (whole rows of it a warp)
+    for (int i = t; i < C * D4; i += NT) {
+      const int j = i / C, c = i % C;
+      if (j < D)
+        cp_async4(wT + c * D4 + j, w_aug + i);
+      else
+        wT[c * D4 + j] = 0.0f;
+    }
+    for (int i = t; i < 9 * D; i += NT) cp_async4(sm + L.v + i, bnv + i);
   }
-  for (int i = t; i < 9 * D; i += NT) cp_async4(v + i, bnv + i);
   cp_rows(nms, nm + row0, W);
   if constexpr (ST) {
     cp_rows(sm + L.yp, y_prev + row0 * D, W * D);
@@ -219,15 +274,16 @@ bn_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
   }
   __syncthreads();
 
-  // ---- dh = gy * act'(h) for outputs j0 + i, h in the per-node order (bias
-  // first, then c ascending; four outputs a 16-byte read of wT), gy from the
-  // state cotangent and the BatchNorm backward coefficients
-  if (mine && j0 < D) {
+  // ---- dh = gy * act'(h) for outputs jc + i, JT at a time from jc = j0
+  // (one chunk up to D 64), h in the per-node order (bias first, then c
+  // ascending; four outputs a 16-byte read of wT, wide: four rows of w_aug),
+  // gy from the state cotangent and the BatchNorm backward coefficients
+  for (int jc = j0; mine && jc < j1; jc += JT) {
     float h[JT];
 #pragma unroll
     for (int q = 0; q < JT; q += 4) {
       float b4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (j0 + q < j1) ldv<4>(wT + C1 * D4 + j0 + q, b4);
+      if (jc + q < j1) wcol(C1, jc + q, b4);
 #pragma unroll
       for (int u = 0; u < 4; ++u) h[q + u] = b4[u];
     }
@@ -235,9 +291,9 @@ bn_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
       const float x = X[c * W + n];
 #pragma unroll
       for (int q = 0; q < JT; q += 4) {
-        if (j0 + q < j1) {
+        if (jc + q < j1) {
           float w4[4];
-          ldv<4>(wT + c * D4 + j0 + q, w4);
+          wcol(c, jc + q, w4);
 #pragma unroll
           for (int u = 0; u < 4; ++u) h[q + u] = fmaf(w4[u], x, h[q + u]);
         }
@@ -246,7 +302,7 @@ bn_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
     const float f = *flag, nmv = nms[n];
 #pragma unroll
     for (int i = 0; i < JT; ++i) {
-      const int j = j0 + i;
+      const int j = jc + i;
       if (j < j1) {
         const int e = n * D + j;
         const float g = di[e] + f * gs[e];
@@ -260,9 +316,28 @@ bn_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
 
   // ---- dx = dh @ [Ws | Wa] through the dropout's derivative a * keep, for
   // state columns j0 + i, j ascending (four a 16-byte read of wT); dagg into
-  // DA (the late region: ds_in, gsel and y_k are read)
+  // DA (the late region: ds_in, gsel and y_k are read). Chunked, one column
+  // at a time from dh in shared memory (or the workspace), its state slice
+  // parked in ds's output row, the same chains (zero terms past D included)
   float dxs[JT];
-  {
+  if (chunked) {
+    for (int d = j0; mine && d < j1; ++d) {
+      float ss = 0.0f, sa = 0.0f;
+      for (int q = 0; q < D; q += 4) {
+        float ws4[4], wa4[4];
+        wcol(d, q, ws4);
+        wcol(D + d, q, wa4);
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const float dhv = q + u < D ? DH[(q + u) * W + n] : 0.0f;
+          ss = fmaf(dhv, ws4[u], ss);
+          sa = fmaf(dhv, wa4[u], sa);
+        }
+      }
+      ds[(row0 + n) * D + d] = ss * drop_grad(mode, da, kp != nullptr && kp[n * C1 + d] != 0);
+      DA[n * DP + d] = sa * drop_grad(mode, da, kp != nullptr && kp[n * C1 + D + d] != 0);
+    }
+  } else {
     float dh[MAXF];
 #pragma unroll
     for (int j = 0; j < MAXF; ++j) dh[j] = mine && j < D ? DH[j * W + n] : 0.0f;
@@ -353,17 +428,18 @@ bn_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
       dw_r[o] = s;
     }
   // ---- ds = dxs + adjT @ dagg, row n's entries in order (each read once for
-  // the block of columns), and ds * x_hat_prev, into the freed X and dh
-  float* DS = sm + L.ds;
-  float* DSX = sm + L.dsx;
-  if (mine && j0 < D) {
+  // the block of columns; chunked, once for each JT columns), and
+  // ds * x_hat_prev, into the freed X and dh
+  float* DS = base + L.ds;
+  float* DSX = base + L.dsx;
+  for (int jc = j0; mine && jc < j1; jc += JT) {
     float acc[JT];
 #pragma unroll
     for (int i = 0; i < JT; ++i) acc[i] = 0.0f;
     auto add = [&](float a, int m) {
 #pragma unroll
       for (int i = 0; i < JT; ++i)
-        if (j0 + i < j1) acc[i] = fmaf(a, DA[m * DP + j0 + i], acc[i]);
+        if (jc + i < j1) acc[i] = fmaf(a, DA[m * DP + jc + i], acc[i]);
     };
     const int c = p.E > 0 ? cnt[n] : W + 1;
     if (c <= p.E) {
@@ -373,9 +449,9 @@ bn_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
     }
 #pragma unroll
     for (int i = 0; i < JT; ++i) {
-      const int d = j0 + i;
+      const int d = jc + i;
       if (d < j1) {
-        const float s = dxs[i] + acc[i];
+        const float s = (chunked ? ds[(row0 + n) * D + d] : dxs[i]) + acc[i];
         DS[n * DP + d] = s;
         DSX[n * DP + d] = s * ((yp[n * D + d] - v[7 * D + d]) * v[8 * D + d]);
       }
@@ -418,7 +494,7 @@ bn_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_
 
 bool shape_ok(int R, int Bl, int W, int D, int F) {
   return R > 0 && Bl >= 0 && Bl <= R && W >= 32 && W <= kMaxW && W % 32 == 0 && D > 0 &&
-         F >= 0 && width_class(D) != 0;
+         F >= 0;
 }
 
 int g_force = -1;  // gnn_bn_backward_force_plan
@@ -426,39 +502,36 @@ int g_force = -1;  // gnn_bn_backward_force_plan
 using BnBwdFn = void (*)(const float*, const float*, const float*, const float*, const float*,
                          const uint8_t*, const float*, const float*, const float*, const float*,
                          const float*, const float*, const float*, float*, float*, float*,
-                         float*, int, int, int, int, int, int, float, float, BnBwdPlan);
+                         float*, int, int, int, int, int, int, float, float, BnBwdPlan, float*);
 
 template <int MAXF>
 BnBwdFn bwd_variant(const BnBwdPlan& p) {
-  return p.st ? bn_bwd_kernel<MAXF, 256, true> : bn_bwd_kernel<MAXF, 128, false>;
+  return p.st ? bn_bwd_kernel<MAXF, 256, true, false> : bn_bwd_kernel<MAXF, 128, false, false>;
 }
 
 // K2's kernel and plan for a shape: the first plan of kBnBwdPlans that fits
-// a CTA, or plan g_force (>= 0) if it fits; nullptr (bytes: the last
-// plan's) if none.
-BnBwdFn pick_bwd(int W, int D, int F, BnBwdPlan* p, size_t* bytes, int* index) {
-  constexpr int N = sizeof(kBnBwdPlans) / sizeof(kBnBwdPlans[0]);
+// a CTA, else the wide plan (index kBnBwdWideIndex), or plan g_force (>= 0)
+// if it fits; nullptr if none. The staged plans' register arrays are 16, 32
+// or 64 wide by D (64 above it, chunked); *ws: the plan's workspace floats a
+// block row.
+BnBwdFn pick_bwd(int W, int D, int F, BnBwdPlan* p, size_t* bytes, int* index, int* ws) {
   *index = -1;
-  for (int i = g_force >= 0 ? g_force : 0; i < N; ++i) {
-    *bytes = bwd_layout(W, D, F, kBnBwdPlans[i]).bytes;
-    if (*bytes <= (size_t)kMaxSmemBytes) {
-      *p = kBnBwdPlans[i];
+  for (int i = g_force >= 0 ? g_force : 0; i <= kBnBwdWideIndex; ++i) {
+    const bool wide = i == kBnBwdWideIndex;
+    const BnBwdPlan plan = wide ? kBnBwdWide : kBnBwdPlans[i];
+    const BnBwdLayout L = bwd_layout(W, D, F, plan, wide);
+    *bytes = L.bytes;
+    if (L.bytes <= (size_t)kMaxSmemBytes) {
+      *p = plan;
       *index = i;
+      *ws = L.ws;
       break;
     }
     if (g_force >= 0) break;
   }
   if (*index < 0) return nullptr;
-  switch (width_class(D)) {
-    case 16:
-      return bwd_variant<16>(*p);
-    case 32:
-      return bwd_variant<32>(*p);
-    case 64:
-      return bwd_variant<64>(*p);
-    default:
-      return nullptr;
-  }
+  if (*index == kBnBwdWideIndex) return bn_bwd_kernel<64, 256, false, true>;
+  return D <= 16 ? bwd_variant<16>(*p) : D <= 32 ? bwd_variant<32>(*p) : bwd_variant<64>(*p);
 }
 
 }  // namespace
@@ -467,26 +540,38 @@ extern "C" {
 
 // As gnn_bn_forward, plus y_prev, y_k, agg, ds_in, gsel [R, W, D]; bnv [9, D];
 // flag a device float (0 or 1) -> ds, dagg [R, W, D], dw [R, D, 2D + F + 1],
-// red [R, 2, D]. Returns a cudaError_t code.
+// red [R, 2, D]; ws: the wide plan's workspace, R slices of
+// gnn_bn_backward_workspace floats (null for a staged plan). Returns a
+// cudaError_t code.
 int gnn_bn_backward(const float* adj_loop, const float* adj_dep, const float* y_prev,
                     const float* y_k, const float* agg, const uint8_t* keep, const float* feats,
                     const float* w_aug, const float* ds_in, const float* gsel, const float* bnv,
                     const float* flag, const float* nm, float* ds, float* dw, float* dagg,
                     float* red, int R, int Bl, int W, int D, int F, int act, int mode, float da,
-                    float db, void* stream) {
+                    float db, void* stream, float* ws) {
   if (!shape_ok(R, Bl, W, D, F)) return cudaErrorInvalidValue;
   if (mode != kNoDrop && keep == nullptr) return cudaErrorInvalidValue;
   BnBwdPlan p;
   size_t bytes;
-  int index;
-  const BnBwdFn fn = pick_bwd(W, D, F, &p, &bytes, &index);
-  if (fn == nullptr) return cudaErrorInvalidValue;
+  int index, wsf;
+  const BnBwdFn fn = pick_bwd(W, D, F, &p, &bytes, &index, &wsf);
+  if (fn == nullptr || (wsf > 0 && ws == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
   fn<<<R, p.nt, bytes, static_cast<cudaStream_t>(stream)>>>(
       adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds_in, gsel, bnv, flag, nm, ds,
-      dw, dagg, red, Bl, W, D, F, act, mode, da, db, p);
+      dw, dagg, red, Bl, W, D, F, act, mode, da, db, p, ws);
   return cudaGetLastError();
+}
+
+// The workspace floats a block row gnn_bn_backward's plan for this shape
+// needs (0 for a staged plan), or -1 if no plan fits (H1 unused).
+int gnn_bn_backward_workspace(int W, int D, int F, int H1) {
+  (void)H1;
+  BnBwdPlan p;
+  size_t bytes;
+  int index, wsf;
+  return pick_bwd(W, D, F, &p, &bytes, &index, &wsf) == nullptr ? -1 : wsf;
 }
 
 // out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
@@ -496,15 +581,15 @@ int gnn_bn_backward_info(int W, int D, int F, int H1, int* out) {
   (void)H1;
   BnBwdPlan p;
   size_t bytes;
-  int index;
-  const BnBwdFn fn = pick_bwd(W, D, F, &p, &bytes, &index);
+  int index, wsf;
+  const BnBwdFn fn = pick_bwd(W, D, F, &p, &bytes, &index, &wsf);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return tile_kernel_info(fn, bytes, index, out, p.nt);
 }
 
-// Launch plan `index` of kBnBwdPlans from now on, where it fits (a launch at
-// a shape it does not fit fails), or the first plan that fits again (index
-// -1): for timing one plan against another.
+// Launch plan `index` (kBnBwdPlans, then the wide plan) from now on, where it
+// fits (a launch at a shape it does not fit fails), or the first plan that
+// fits again (index -1): for timing one plan against another.
 void gnn_bn_backward_force_plan(int index) { g_force = index; }
 
 }  // extern "C"

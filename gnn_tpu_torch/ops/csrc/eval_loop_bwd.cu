@@ -63,6 +63,17 @@
 // took. A third plan of 128 threads without lists (every line read from
 // device memory) ran 8x slower on an NVIDIA H100 and was dropped (PERF.md
 // section 6).
+//
+// The wide plan (index 2, the second plan with its [W][D]-sized regions
+// moved out of shared memory; mirrored by ops/fused.py::_loop_bwd_wide),
+// chosen only where no staged plan fits, takes every D: s_in, du, u, gs and
+// the daff partials lie in a device-memory workspace the wrapper allocates
+// (a block's slice each, gnn_propagation_loop_bwd_workspace floats), w2 and
+// the affine's scale are read through the caches, dfT and the dw2 partials
+// are summed in the outputs, and shared memory holds only the two list sets
+// and the column-list build's counts (11,520 bytes at W 128, whatever D is).
+// The code is the second plan's with those pointers: a forced wide plan
+// gives the staged plans' bits.
 
 #include "tile2.cuh"
 
@@ -78,6 +89,10 @@ struct LoopBwdPlan {
 };
 
 constexpr LoopBwdPlan kLoopBwdPlans[] = {{1}, {0}};
+// the wide plan, after the staged ones: the second plan's regions in the
+// workspace
+constexpr LoopBwdPlan kLoopBwdWide = {0};
+constexpr int kLoopBwdWideIndex = sizeof(kLoopBwdPlans) / sizeof(kLoopBwdPlans[0]);
 constexpr int NT = kTileThreads;
 constexpr int kListRoom = 8;  // entries a column or row list holds
 
@@ -92,15 +107,45 @@ __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 // the affine's scale [D]; with st dfT [W][D | 1], the dw2 partials [2D][D],
 // w2 transposed w2T [D][J4] (J4 = 2D rounded up to 4, zero past 2D) and w2
 // [2D][D4] (D4 = D rounded up to 4, zero past D); the column lists [8][W],
-// the row lists [8][W].
+// the row lists [8][W]. The wide plan: s_in, du, u, gs and the daff
+// partials, in that order, in a block's workspace slice of ws floats; in
+// shared memory the two list sets, then their bytes and the column-list
+// build's counts [NT / 32][W].
 struct LoopBwdLayout {
-  int s, du, u, gs, daff, sc, df, dw, wt, wr, lc, lr;
-  size_t cc_b, ic_b, cr_b, ir_b, bytes;
+  int s, du, u, gs, daff, sc, df, dw, wt, wr, lc, lr, ws;
+  size_t cc_b, ic_b, cr_b, ir_b, part_b, bytes;
 };
 
-__host__ __device__ inline LoopBwdLayout bwd_layout(int W, int D, const LoopBwdPlan& p) {
+__host__ __device__ inline LoopBwdLayout bwd_layout(int W, int D, const LoopBwdPlan& p,
+                                                    bool wide) {
   LoopBwdLayout L{};
   int o = 0;
+  if (wide) {
+    L.s = o;
+    o += D * W;
+    L.du = o;
+    o += 2 * D * (W + 4);
+    L.u = o;
+    o += round4(W * ((2 * D) | 1));
+    L.gs = o;
+    o += round4(W * (D | 1));
+    L.daff = o;
+    o += round4(2 * D);
+    L.ws = o;
+    L.sc = L.df = L.dw = L.wt = L.wr = -1;
+    o = 0;
+    L.lc = o;
+    o += kListRoom * W;
+    L.lr = o;
+    o += kListRoom * W;
+    L.cc_b = sizeof(float) * (size_t)o;
+    L.ic_b = L.cc_b + W;
+    L.cr_b = L.ic_b + (size_t)kListRoom * W;
+    L.ir_b = L.cr_b + W;
+    L.part_b = L.ir_b + (size_t)kListRoom * W;
+    L.bytes = L.part_b + (size_t)(NT / 32) * W;
+    return L;
+  }
   L.s = o;
   o += D * W;
   L.du = o;
@@ -133,11 +178,14 @@ __host__ __device__ inline LoopBwdLayout bwd_layout(int W, int D, const LoopBwdP
   L.cr_b = L.ic_b + (size_t)kListRoom * W;
   L.ir_b = L.cr_b + W;
   L.bytes = L.ir_b + (size_t)kListRoom * W;
+  L.part_b = 0;
+  L.ws = 0;
   return L;
 }
 
 // K5: the K reverse iterations of K3 over every block, one CTA of NT
-// threads a block.
+// threads a block; WIDE: the wide plan (ws its workspace).
+template <bool WIDE>
 __global__ void __launch_bounds__(NT, 3)
 loop_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
                 const float* __restrict__ traj, const float* __restrict__ fT,
@@ -145,23 +193,24 @@ loop_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
                 const float* __restrict__ g_traj, float* __restrict__ gs_out,
                 float* __restrict__ dw2_out, float* __restrict__ dfT_out,
                 float* __restrict__ daff_out, int B, int W, int D, int K, int act,
-                LoopBwdPlan p) {
+                LoopBwdPlan p, float* ws) {
   extern __shared__ float4 smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
   uint8_t* bytes = reinterpret_cast<uint8_t*>(smem_raw);
-  const LoopBwdLayout L = bwd_layout(W, D, p);
+  const LoopBwdLayout L = bwd_layout(W, D, p, WIDE);
   const int DP = D | 1, UP = (2 * D) | 1, GP = W + 4, J4 = round4(2 * D), D4 = round4(D);
   const int WD = W * D;
   const int b = blockIdx.x, t = threadIdx.x;
   const size_t row0 = (size_t)b * W;
   const float* adj = adjT + row0 * W;
   const bool has_aff = aff != nullptr;
-  float* S = sm + L.s;
-  float* DU = sm + L.du;
-  float* U = sm + L.u;
-  float* GS = sm + L.gs;
-  float* DAF = sm + L.daff;
-  float* sc = sm + L.sc;
+  float* base = WIDE ? ws + (size_t)b * L.ws : sm;  // the regions of s_in .. daff
+  float* S = base + L.s;
+  float* DU = base + L.du;
+  float* U = base + L.u;
+  float* GS = base + L.gs;
+  float* DAF = base + L.daff;
+  const float* sc = WIDE ? aff : sm + L.sc;
   // dfT and the dw2 partials: in shared memory, or summed in the outputs
   float* DF = p.st ? sm + L.df : dfT_out + row0 * D;
   const int dfs = p.st ? DP : D;
@@ -193,13 +242,14 @@ loop_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
         wR[i] = 0.0f;
     }
   }
-  if (has_aff)
-    for (int i = t; i < D; i += NT) cp_async4(sc + i, aff + i);
+  if (has_aff && !WIDE)
+    for (int i = t; i < D; i += NT) cp_async4(sm + L.sc + i, aff + i);
   for (int i = t; i < W * DP; i += NT) GS[i] = 0.0f;  // gs = 0 before the last step
   for (int i = t; i < W * dfs; i += NT) DF[i] = 0.0f;
   for (int i = t; i < 2 * D * D; i += NT) DW[i] = 0.0f;
   for (int i = t; i < 2 * D; i += NT) DAF[i] = 0.0f;
-  build_col_lists(adj, W, kListRoom, lc, ic, cc, reinterpret_cast<uint8_t*>(U));
+  build_col_lists(adj, W, kListRoom, lc, ic, cc,
+                  WIDE ? bytes + L.part_b : reinterpret_cast<uint8_t*>(U));
   build_row_lists(adj, W, kListRoom, lr, ir, cr);
   cp_async_wait_all();
   __syncthreads();
@@ -395,22 +445,31 @@ loop_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
 
 int g_force = -1;  // gnn_propagation_loop_bwd_force_plan
 
-// K5's plan for a shape: the first plan of kLoopBwdPlans that fits a CTA,
-// or plan g_force (>= 0) if it fits; false (bytes: the last plan's) if
-// none.
-bool pick_bwd(int W, int D, LoopBwdPlan* p, size_t* bytes, int* index) {
-  constexpr int N = sizeof(kLoopBwdPlans) / sizeof(kLoopBwdPlans[0]);
+using LoopBwdFn = void (*)(const float*, const float*, const float*, const float*, const float*,
+                           const float*, const float*, float*, float*, float*, float*, int, int,
+                           int, int, int, LoopBwdPlan, float*);
+
+// K5's kernel and plan for a shape: the first plan of kLoopBwdPlans that
+// fits a CTA, else the wide plan (index kLoopBwdWideIndex), or plan g_force
+// (>= 0) if it fits; nullptr (bytes: the last plan's) if none. *ws: the
+// plan's workspace floats a block.
+LoopBwdFn pick_bwd(int W, int D, LoopBwdPlan* p, size_t* bytes, int* index, int* ws) {
   *index = -1;
-  for (int i = g_force >= 0 ? g_force : 0; i < N; ++i) {
-    *bytes = bwd_layout(W, D, kLoopBwdPlans[i]).bytes;
-    if (*bytes <= (size_t)kMaxSmemBytes) {
-      *p = kLoopBwdPlans[i];
+  for (int i = g_force >= 0 ? g_force : 0; i <= kLoopBwdWideIndex; ++i) {
+    const bool wide = i == kLoopBwdWideIndex;
+    const LoopBwdPlan plan = wide ? kLoopBwdWide : kLoopBwdPlans[i];
+    const LoopBwdLayout L = bwd_layout(W, D, plan, wide);
+    *bytes = L.bytes;
+    if (L.bytes <= (size_t)kMaxSmemBytes) {
+      *p = plan;
       *index = i;
+      *ws = L.ws;
       break;
     }
     if (g_force >= 0) break;
   }
-  return *index >= 0;
+  if (*index < 0) return nullptr;
+  return *index == kLoopBwdWideIndex ? loop_bwd_kernel<true> : loop_bwd_kernel<false>;
 }
 
 }  // namespace
@@ -419,23 +478,38 @@ extern "C" {
 
 // adjT [B, W, W], s0/fT [B, W, D], traj/g_traj [K, B, W, D], w2 [2D, D],
 // aff [2, D] (null: no affine) -> gs, dfT [B, W, D], dw2 [B, 2D, D] and
-// daff [B, 2, D] (with aff) per-block partials. Returns a cudaError_t code.
+// daff [B, 2, D] (with aff) per-block partials; ws: the wide plan's
+// workspace, B slices of gnn_propagation_loop_bwd_workspace floats (null for
+// a staged plan). Returns a cudaError_t code.
 int gnn_propagation_loop_bwd(const float* adjT, const float* s0, const float* traj,
                              const float* fT, const float* w2, const float* aff,
                              const float* g_traj, float* gs, float* dw2, float* dfT,
-                             float* daff, int B, int W, int D, int K, int act, void* stream) {
-  if (!block_ok(B, W) || D <= 0 || K <= 0 || width_class(D) == 0 ||
-      (aff != nullptr && daff == nullptr))
+                             float* daff, int B, int W, int D, int K, int act, void* stream,
+                             float* ws) {
+  if (!block_ok(B, W) || D <= 0 || K <= 0 || (aff != nullptr && daff == nullptr))
     return cudaErrorInvalidValue;
   LoopBwdPlan p;
   size_t bytes;
-  int index;
-  if (!pick_bwd(W, D, &p, &bytes, &index)) return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(loop_bwd_kernel, bytes);
+  int index, wsf;
+  const LoopBwdFn fn = pick_bwd(W, D, &p, &bytes, &index, &wsf);
+  if (fn == nullptr || (wsf > 0 && ws == nullptr)) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
-  loop_bwd_kernel<<<B, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
-      adjT, s0, traj, fT, w2, aff, g_traj, gs, dw2, dfT, daff, B, W, D, K, act, p);
+  fn<<<B, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
+      adjT, s0, traj, fT, w2, aff, g_traj, gs, dw2, dfT, daff, B, W, D, K, act, p, ws);
   return cudaGetLastError();
+}
+
+// The workspace floats a block gnn_propagation_loop_bwd's plan for this
+// shape needs (0 for a staged plan), or -1 if no plan fits (AL and H1
+// unused).
+int gnn_propagation_loop_bwd_workspace(int W, int D, int AL, int H1) {
+  (void)AL;
+  (void)H1;
+  LoopBwdPlan p;
+  size_t bytes;
+  int index, wsf;
+  return pick_bwd(W, D, &p, &bytes, &index, &wsf) == nullptr ? -1 : wsf;
 }
 
 // out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
@@ -446,14 +520,15 @@ int gnn_propagation_loop_bwd_info(int W, int D, int AL, int H1, int* out) {
   (void)H1;
   LoopBwdPlan p;
   size_t bytes;
-  int index;
-  if (!pick_bwd(W, D, &p, &bytes, &index)) return cudaErrorInvalidValue;
-  return tile_kernel_info(loop_bwd_kernel, bytes, index, out);
+  int index, wsf;
+  const LoopBwdFn fn = pick_bwd(W, D, &p, &bytes, &index, &wsf);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return tile_kernel_info(fn, bytes, index, out);
 }
 
-// Launch plan `index` of kLoopBwdPlans from now on, where it fits (a launch
-// at a shape it does not fit fails), or the first plan that fits again
-// (index -1): for timing one plan against another.
+// Launch plan `index` (kLoopBwdPlans, then the wide plan) from now on, where
+// it fits (a launch at a shape it does not fit fails), or the first plan that
+// fits again (index -1): for timing one plan against another.
 void gnn_propagation_loop_bwd_force_plan(int index) { g_force = index; }
 
 }  // extern "C"

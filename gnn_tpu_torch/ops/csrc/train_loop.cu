@@ -57,12 +57,15 @@
 // - the movement test one thread a node, d ascending, with the per-node
 //   rounding (__fadd_rn, __fmul_rn). Two barriers an iteration.
 // No atomics: a repeat launch is bit-identical, and traj, marg and agg are
-// bit for bit the per-node K7's (K8 reads traj and agg). One plan
-// (kTrainLoopThreads, kTrainLoopLists) takes every shape the kernel takes
-// (W 32..128, D up to 64; 188,032 bytes at W 128, D 64). At W 128, D 14 a
-// CTA takes 41,856 bytes and five CTAs fit an SM: on an NVIDIA H100 0.166 ms
-// of device time at the training batch's 1104 loop rows against the
-// per-node kernel's 0.92 (four CTAs an SM: 0.201; PERF.md §6).
+// bit for bit the per-node K7's (K8 reads traj and agg). The staged plan
+// (kTrainLoopThreads, kTrainLoopLists) takes W 32..128 up to D 64 at W 128
+// (188,032 bytes there). At W 128, D 14 a CTA takes 41,856 bytes and five
+// CTAs fit an SM: on an NVIDIA H100 0.166 ms of device time at the training
+// batch's 1104 loop rows against the per-node kernel's 0.92 (four CTAs an
+// SM: 0.201; PERF.md §6). The wide plan (index 1; mirrored by
+// ops/fused.py::_train_loop_wide) takes every D where the staged plan does
+// not fit: 6,784 bytes at W 128 (nm and the lists), the state, agg and the
+// next state in traj and agg themselves, no workspace.
 //
 // K6's design (K7's for one iteration with K4's residual term and widths,
 // fused_eval.cu), one CTA of NT threads a dep block row:
@@ -84,10 +87,12 @@
 //   H may differ from D (the state read D wide, written H wide, as K4).
 // Two barriers a launch, no atomics: a repeat launch is bit-identical, and y
 // and agg are bit for bit the per-node K6's (fmaf over src ascending, + rT;
-// fmaf over c ascending, + fT). One plan (kTrainStepThreads,
-// kTrainStepLists) takes every shape the kernel takes (W 32..128, D and H up
-// to 64; 217,728 bytes at W 128, D = H = 64); at W 128, D = H = 14 a CTA
-// takes 52,352 bytes, four CTAs an SM.
+// fmaf over c ascending, + fT). The staged plan (kTrainStepThreads,
+// kTrainStepLists) takes W 32..128 up to D = H = 64 at W 128 (217,728 bytes
+// there); at W 128, D = H = 14 a CTA takes 52,352 bytes, four CTAs an SM.
+// The wide plan (index 1; mirrored by ops/fused.py::_train_step_wide) takes
+// every D and H where the staged plan does not fit: 11,392 bytes at W 128
+// (the lists), agg in its output, no workspace.
 
 #include "tile2.cuh"
 
@@ -103,7 +108,7 @@ using namespace gnn;
 // second buffers (53,120 bytes, four CTAs an SM) 0.2030 against 0.2014
 // without the prefetch at the same four CTAs, and one that read the keep
 // bytes from device memory where they are used 0.1838 against 0.1831 at
-// five CTAs. None was kept.
+// five CTAs. None was kept. The wide plan has the same threads and lists.
 constexpr int kTrainLoopThreads = 256, kTrainLoopLists = 8;
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
@@ -116,16 +121,29 @@ __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 // w_cat transposed wT [2D][D4] (D4 = D rounded up to 4, zero past D), nm [W],
 // the lists [kTrainLoopLists][W]; then the keep bytes [2][W D] (the state
 // slice's, then agg's, node-major), the list counts [W] and sources
-// [kTrainLoopLists][W].
+// [kTrainLoopLists][W]. The wide plan: nm, the lists, then the counts, the
+// sources and the list build's counts [NT / 32][W] as bytes.
 struct TrainLoopLayout {
   int s0, s1, agg, f, w, nm, lw;
-  size_t keep_b, cnt_b, idx_b, bytes;
+  size_t keep_b, cnt_b, idx_b, part_b, bytes;
 };
 
-__host__ __device__ inline TrainLoopLayout train_loop_layout(int W, int D) {
+__host__ __device__ inline TrainLoopLayout train_loop_layout(int W, int D, bool wide) {
   TrainLoopLayout L{};
-  const int rows = round4(W * (D | 1));
   int o = 0;
+  if (wide) {
+    L.s0 = L.s1 = L.agg = L.f = L.w = -1;
+    L.nm = o;
+    o += round4(W);
+    L.lw = o;
+    o += kTrainLoopLists * W;
+    L.keep_b = L.cnt_b = sizeof(float) * (size_t)o;
+    L.idx_b = L.cnt_b + W;
+    L.part_b = L.idx_b + (size_t)kTrainLoopLists * W;
+    L.bytes = L.part_b + (size_t)(kTrainLoopThreads / 32) * W;
+    return L;
+  }
+  const int rows = round4(W * (D | 1));
   L.s0 = o;
   o += rows;
   L.s1 = o;
@@ -144,11 +162,20 @@ __host__ __device__ inline TrainLoopLayout train_loop_layout(int W, int D) {
   L.cnt_b = L.keep_b + (size_t)2 * W * D;
   L.idx_b = L.cnt_b + W;
   L.bytes = L.idx_b + (size_t)kTrainLoopLists * W;
+  L.part_b = 0;
   return L;
 }
 
 // K7: all K dropout-training iterations of residual-free blocks (H == D),
-// NT threads a CTA, one block row each.
+// NT threads a CTA, one block row each. WIDE, the wide plan (chosen only
+// where the staged plan does not fit; every D): shared memory holds only nm
+// and the column lists; s is read from s0 or traj[k - 1] and s_old from
+// traj[k - 2], agg is written to agg[k] and read back from there, s' goes
+// straight to traj[k] (this CTA's rows, plain loads after a barrier), and
+// fT, the keep bytes and w_cat are read from device memory through the
+// caches. The same chains in the same orders: a forced wide plan gives the
+// staged plan's bits.
+template <bool WIDE>
 __global__ void __launch_bounds__(kTrainLoopThreads, 5)
 train_loop_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
                   const uint8_t* __restrict__ ms, const uint8_t* __restrict__ ma,
@@ -160,48 +187,56 @@ train_loop_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
   extern __shared__ float4 smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
   uint8_t* bytes = reinterpret_cast<uint8_t*>(smem_raw);
-  const TrainLoopLayout L = train_loop_layout(W, D);
-  const int DP = D | 1, C2 = 2 * D, D4 = round4(D), WD = W * D;
+  const TrainLoopLayout L = train_loop_layout(W, D, WIDE);
+  // the rows' stride: [W][D | 1] buffers, or (wide) the operands themselves
+  const int DP = WIDE ? D : (D | 1), C2 = 2 * D, D4 = round4(D), WD = W * D;
   const bool drops = mode != kNoDrop;
   const int b = blockIdx.x, t = threadIdx.x;
   const size_t row0 = (size_t)b * W;
   const float* adj = adjT + row0 * W;
-  float* cur = sm + L.s0;  // s
-  float* old = sm + L.s1;  // s_old, then s'
+  const float* cur = WIDE ? s0 + row0 * D : sm + L.s0;  // s
+  const float* old = WIDE ? nullptr : sm + L.s1;        // s_old
+  // iteration k's agg, fT and keep bytes [W D] of the state slice and of agg:
+  // shared-memory buffers, or (wide) where they lie in device memory
   float* A = sm + L.agg;
-  float* F = sm + L.f;
+  const float* F = sm + L.f;
+  const uint8_t* KS = bytes + L.keep_b;
+  const uint8_t* KA = KS + WD;
   float* wT = sm + L.w;
   float* nms = sm + L.nm;
   float* lw = sm + L.lw;
   uint8_t* cnt = bytes + L.cnt_b;
   uint8_t* idx = bytes + L.idx_b;
 
-  uint8_t* KS = bytes + L.keep_b;  // [W D] keep bytes of the state slice, then of agg
-  uint8_t* KA = KS + WD;
-
   // iteration k's rows: fT[k] and its keep bytes
   auto stage_rows = [&](int k) {
     const size_t kb = (size_t)k * B + b;
-    for (int i = t; i < WD; i += NT) cp_async4(F + (i / D) * DP + i % D, fT + kb * WD + i);
+    for (int i = t; i < WD; i += NT) cp_async4(sm + L.f + (i / D) * DP + i % D, fT + kb * WD + i);
     if (drops) {
-      cp_rows(reinterpret_cast<float*>(KS), reinterpret_cast<const float*>(ms + kb * WD), WD / 4);
-      cp_rows(reinterpret_cast<float*>(KA), reinterpret_cast<const float*>(ma + kb * WD), WD / 4);
+      float* ks = reinterpret_cast<float*>(bytes + L.keep_b);
+      cp_rows(ks, reinterpret_cast<const float*>(ms + kb * WD), WD / 4);
+      cp_rows(ks + WD / 4, reinterpret_cast<const float*>(ma + kb * WD), WD / 4);
     }
   };
 
   // ---- staging, issued together, waited on once
-  // wT [c][j] = w_cat [j][c], in w_cat's order (whole rows of it a warp)
-  for (int i = t; i < D4 * C2; i += NT) {
-    const int j = i / C2, c = i % C2;
-    if (j < D)
-      cp_async4(wT + c * D4 + j, w_cat + i);
-    else
-      wT[c * D4 + j] = 0.0f;
+  if constexpr (!WIDE) {
+    // wT [c][j] = w_cat [j][c], in w_cat's order (whole rows of it a warp)
+    for (int i = t; i < D4 * C2; i += NT) {
+      const int j = i / C2, c = i % C2;
+      if (j < D)
+        cp_async4(wT + c * D4 + j, w_cat + i);
+      else
+        wT[c * D4 + j] = 0.0f;
+    }
   }
   cp_rows(nms, nm + row0, W);
-  for (int i = t; i < WD; i += NT) cp_async4(cur + (i / D) * DP + i % D, s0 + row0 * D + i);
-  stage_rows(0);
-  build_col_lists(adj, W, E, lw, idx, cnt, reinterpret_cast<uint8_t*>(old));
+  if constexpr (!WIDE) {
+    for (int i = t; i < WD; i += NT) cp_async4(sm + L.s0 + (i / D) * DP + i % D, s0 + row0 * D + i);
+    stage_rows(0);
+  }
+  build_col_lists(adj, W, E, lw, idx, cnt,
+                  WIDE ? bytes + L.part_b : reinterpret_cast<uint8_t*>(sm + L.s1));
   cp_async_wait_all();
   __syncthreads();
 
@@ -211,7 +246,13 @@ train_loop_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
   const int NB = (D + 3) / 4;  // blocks of four columns a node
   for (int k = 0; k < K; ++k) {
     const size_t kb = (size_t)k * B + b;
-    if (k > 0) stage_rows(k);  // waited on before the dense layer
+    if (!WIDE && k > 0) stage_rows(k);  // waited on before the dense layer
+    if constexpr (WIDE) {  // iteration k's rows where they lie
+      A = agg_out + kb * WD;
+      F = fT + kb * WD;
+      KS = drops ? ms + kb * WD : nullptr;
+      KA = drops ? ma + kb * WD : nullptr;
+    }
 
     // ---- the movement test before update k, one thread a node, d ascending
     for (int m = t; m < W; m += NT) {
@@ -226,10 +267,11 @@ train_loop_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
     }
 
     // ---- agg = adjT^T @ s over the column lists (src ascending), four
-    // columns of node m an item, out to agg[k]; s (iteration k - 1's s') out
-    // to traj[k - 1], node-major
+    // columns of node m an item, out to agg[k] (wide: agg[k] alone); s
+    // (iteration k - 1's s') out to traj[k - 1] (wide: written there
+    // already), node-major
     float* ao = agg_out + kb * WD;
-    float* to = k > 0 ? traj + (kb - B) * WD : nullptr;
+    float* to = !WIDE && k > 0 ? traj + (kb - B) * WD : nullptr;
     for (int i = t; i < W * NB; i += NT) {
       const int m = i / NB, h0 = 4 * (i % NB), nh = min(4, D - h0);
       float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
@@ -254,7 +296,7 @@ train_loop_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
 #pragma unroll
       for (int v = 0; v < 4; ++v)
         if (v < nh) {
-          A[m * DP + h0 + v] = a[v];
+          if (!WIDE) A[m * DP + h0 + v] = a[v];
           ao[m * D + h0 + v] = a[v];
           if (to != nullptr) to[m * D + h0 + v] = cur[m * DP + h0 + v];
         }
@@ -263,45 +305,55 @@ train_loop_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
     __syncthreads();  // agg is full; s_old is read; iteration k's rows are in
 
     // ---- s' = act(w_cat @ [drop(s, ms[k]) | drop(agg, ma[k])] + fT[k]), four
-    // outputs a 16-byte read of wT, each a chain over c from 0, into the
-    // buffer s_old leaves
+    // outputs a 16-byte read of wT (wide: four rows of w_cat), each a chain
+    // over c from 0, into the buffer s_old leaves (wide: traj[k])
+    float* nxt = WIDE ? traj + kb * WD : const_cast<float*>(old);
     if (part < tpn)
       for (int q = j0; q < j1; q += 8) {  // outputs q .. q + 3 in u, q + 4 .. q + 7 in u2
         const bool two = q + 4 < j1;
         float u[4] = {0.0f, 0.0f, 0.0f, 0.0f}, u2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
         float w4[4];
+        auto wrow = [&](int c, int j) {  // w4 = w_cat [j .. j + 3][c], zero past D
+          if constexpr (WIDE) {
+#pragma unroll
+            for (int v = 0; v < 4; ++v) w4[v] = j + v < D ? w_cat[(size_t)(j + v) * C2 + c] : 0.0f;
+          } else {
+            ldv<4>(wT + c * D4 + j, w4);
+          }
+        };
         for (int c = 0; c < C2; ++c) {
           const bool st = c < D;
           const float x = drop(mode, da, db, st ? cur[n * DP + c] : A[n * DP + c - D],
                                drops && (st ? KS[n * D + c] : KA[n * D + c - D]) != 0);
-          ldv<4>(wT + c * D4 + q, w4);
+          wrow(c, q);
 #pragma unroll
           for (int v = 0; v < 4; ++v) u[v] = fmaf(w4[v], x, u[v]);
           if (two) {
-            ldv<4>(wT + c * D4 + q + 4, w4);
+            wrow(c, q + 4);
 #pragma unroll
             for (int v = 0; v < 4; ++v) u2[v] = fmaf(w4[v], x, u2[v]);
           }
         }
 #pragma unroll
         for (int v = 0; v < 4; ++v) {
-          if (q + v < j1) old[n * DP + q + v] = activate(act, u[v] + F[n * DP + q + v]);
+          if (q + v < j1) nxt[n * DP + q + v] = activate(act, u[v] + F[n * DP + q + v]);
           if (q + 4 + v < j1)
-            old[n * DP + q + 4 + v] = activate(act, u2[v] + F[n * DP + q + 4 + v]);
+            nxt[n * DP + q + 4 + v] = activate(act, u2[v] + F[n * DP + q + 4 + v]);
         }
       }
     __syncthreads();  // s' is full; s, agg and iteration k's rows are read
-    float* next = old;
     old = cur;
-    cur = next;
+    cur = nxt;
   }
-  float* to = traj + ((size_t)(K - 1) * B + b) * WD;
-  for (int i = t; i < WD; i += NT) to[i] = cur[(i / D) * DP + i % D];
+  if constexpr (!WIDE) {
+    float* to = traj + ((size_t)(K - 1) * B + b) * WD;
+    for (int i = t; i < WD; i += NT) to[i] = cur[(i / D) * DP + i % D];
+  }
 }
 
 // K6's plan: threads a CTA and the room of the column lists (K4's); the
 // launch bounds hold a thread to 64 registers, four CTAs an SM at the
-// flagship's widths.
+// flagship's widths. The wide plan has the same threads and lists.
 constexpr int kTrainStepThreads = 256, kTrainStepLists = 16;
 
 // Float offsets of K6's shared memory (bytes for the keep bytes and the
@@ -310,16 +362,28 @@ constexpr int kTrainStepThreads = 256, kTrainStepLists = 16;
 // counts [NT / 32][W], as bytes, before the aggregation), fT [W][H | 1], w_cat
 // transposed wT [2D][H4] (H4 = H rounded up to 4, zero past H), the lists
 // [kTrainStepLists][W]; then the keep bytes [W D] of the aggregated slice,
-// node-major, the list counts [W] and sources [kTrainStepLists][W].
+// node-major, the list counts [W] and sources [kTrainStepLists][W]. The wide
+// plan: the lists, then the counts, the sources and the list build's counts
+// [NT / 32][W] as bytes.
 struct TrainStepLayout {
   int s, sd, agg, r, f, w, lw;
-  size_t keep_b, cnt_b, idx_b, bytes;
+  size_t keep_b, cnt_b, idx_b, part_b, bytes;
 };
 
-__host__ __device__ inline TrainStepLayout train_step_layout(int W, int D, int H) {
+__host__ __device__ inline TrainStepLayout train_step_layout(int W, int D, int H, bool wide) {
   TrainStepLayout L{};
-  const int rows = round4(W * (D | 1));
   int o = 0;
+  if (wide) {
+    L.s = L.sd = L.agg = L.r = L.f = L.w = -1;
+    L.lw = o;
+    o += kTrainStepLists * W;
+    L.keep_b = L.cnt_b = sizeof(float) * (size_t)o;
+    L.idx_b = L.cnt_b + W;
+    L.part_b = L.idx_b + (size_t)kTrainStepLists * W;
+    L.bytes = L.part_b + (size_t)(kTrainStepThreads / 32) * W;
+    return L;
+  }
+  const int rows = round4(W * (D | 1));
   L.s = o;
   o += rows;
   L.sd = o;
@@ -338,12 +402,19 @@ __host__ __device__ inline TrainStepLayout train_step_layout(int W, int D, int H
   L.cnt_b = L.keep_b + (size_t)W * D;
   L.idx_b = L.cnt_b + W;
   L.bytes = L.idx_b + (size_t)kTrainStepLists * W;
+  L.part_b = 0;
   return L;
 }
 
 // K6: one dropout-training iteration over every dep block row, NT threads a
 // CTA, one block row each; rT and keep (the aggregated slice's keep bytes)
-// may be null.
+// may be null. WIDE, the wide plan (chosen only where the staged plan does
+// not fit; every D and H): shared memory holds only the column lists; s, sd,
+// rT, fT, the keep bytes and w_cat are read from device memory through the
+// caches, and agg is written to its output and read back from there (this
+// CTA's rows, plain loads after a barrier). The same chains: a forced wide
+// plan gives the staged plan's bits.
+template <bool WIDE>
 __global__ void __launch_bounds__(kTrainStepThreads, 4)
 train_step_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
                   const float* __restrict__ sd, const uint8_t* __restrict__ keep,
@@ -355,48 +426,54 @@ train_step_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
   extern __shared__ float4 smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
   uint8_t* bytes = reinterpret_cast<uint8_t*>(smem_raw);
-  const TrainStepLayout L = train_step_layout(W, D, H);
-  const int DP = D | 1, HP = H | 1, C2 = 2 * D, H4 = round4(H);
+  const TrainStepLayout L = train_step_layout(W, D, H, WIDE);
+  // row strides: [W][D | 1] and [W][H | 1] buffers, or (wide) the operands
+  const int DP = WIDE ? D : (D | 1), HP = WIDE ? H : (H | 1), C2 = 2 * D, H4 = round4(H);
   const bool drops = mode != kNoDrop, has_res = rT != nullptr;
   const int t = threadIdx.x;
   const size_t row0 = (size_t)blockIdx.x * W;
   const float* adj = adjT + row0 * W;
-  float* S = sm + L.s;
-  float* X = sm + L.sd;
-  float* A = sm + L.agg;
-  float* R = sm + L.r;
-  float* F = sm + L.f;
+  const float* S = WIDE ? s + row0 * D : sm + L.s;
+  const float* X = WIDE ? sd + row0 * D : sm + L.sd;
+  float* A = WIDE ? agg_out + row0 * D : sm + L.agg;
+  const float* R = WIDE ? rT + row0 * D : sm + L.r;
+  const float* F = WIDE ? fT + row0 * H : sm + L.f;
   float* wT = sm + L.w;
   float* lw = sm + L.lw;
-  uint8_t* KA = bytes + L.keep_b;  // [W D] keep bytes of the aggregated slice
+  // [W D] keep bytes of the aggregated slice
+  const uint8_t* KA = WIDE ? (drops ? keep + row0 * D : nullptr) : bytes + L.keep_b;
   uint8_t* cnt = bytes + L.cnt_b;
   uint8_t* idx = bytes + L.idx_b;
 
   // ---- staging, issued together, waited on once
-  // wT [c][j] = w_cat [j][c], in w_cat's order (whole rows of it a warp)
-  for (int i = t; i < H4 * C2; i += NT) {
-    const int j = i / C2, c = i % C2;
-    if (j < H)
-      cp_async4(wT + c * H4 + j, w_cat + i);
-    else
-      wT[c * H4 + j] = 0.0f;
+  if constexpr (!WIDE) {
+    // wT [c][j] = w_cat [j][c], in w_cat's order (whole rows of it a warp)
+    for (int i = t; i < H4 * C2; i += NT) {
+      const int j = i / C2, c = i % C2;
+      if (j < H)
+        cp_async4(wT + c * H4 + j, w_cat + i);
+      else
+        wT[c * H4 + j] = 0.0f;
+    }
+    for (int i = t; i < W * D; i += NT) {
+      const int o = (i / D) * DP + i % D;
+      cp_async4(sm + L.s + o, s + row0 * D + i);
+      cp_async4(sm + L.sd + o, sd + row0 * D + i);
+      if (has_res) cp_async4(sm + L.r + o, rT + row0 * D + i);
+    }
+    for (int i = t; i < W * H; i += NT)
+      cp_async4(sm + L.f + (i / H) * HP + i % H, fT + row0 * H + i);
+    if (drops)
+      cp_rows(reinterpret_cast<float*>(bytes + L.keep_b),
+              reinterpret_cast<const float*>(keep + row0 * D), W * D / 4);
   }
-  for (int i = t; i < W * D; i += NT) {
-    const int o = (i / D) * DP + i % D;
-    cp_async4(S + o, s + row0 * D + i);
-    cp_async4(X + o, sd + row0 * D + i);
-    if (has_res) cp_async4(R + o, rT + row0 * D + i);
-  }
-  for (int i = t; i < W * H; i += NT) cp_async4(F + (i / H) * HP + i % H, fT + row0 * H + i);
-  if (drops)
-    cp_rows(reinterpret_cast<float*>(KA), reinterpret_cast<const float*>(keep + row0 * D),
-            W * D / 4);
-  build_col_lists(adj, W, E, lw, idx, cnt, reinterpret_cast<uint8_t*>(A));
+  build_col_lists(adj, W, E, lw, idx, cnt,
+                  WIDE ? bytes + L.part_b : reinterpret_cast<uint8_t*>(A));
   cp_async_wait_all();
   __syncthreads();
 
   // ---- agg = adjT^T @ s over the column lists (src ascending) (+ rT), four
-  // columns of node m an item, into A and out to agg
+  // columns of node m an item, into A and out to agg (wide: A is agg)
   float* ao = agg_out + row0 * D;
   const int NB = (D + 3) / 4;  // blocks of four columns a node
   for (int i = t; i < W * NB; i += NT) {
@@ -424,15 +501,15 @@ train_step_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
     for (int v = 0; v < 4; ++v)
       if (v < nh) {
         if (has_res) a[v] += R[m * DP + h0 + v];
-        A[m * DP + h0 + v] = a[v];
+        if (!WIDE) A[m * DP + h0 + v] = a[v];
         ao[m * D + h0 + v] = a[v];
       }
   }
   __syncthreads();  // agg is full
 
   // ---- y = act(w_cat @ [sd | drop(agg, m)] + fT), eight outputs a pass (two
-  // arrays of four) from 16-byte reads of wT, each a chain over c from 0;
-  // outputs [j0, j1) of node n are thread t's
+  // arrays of four) from 16-byte reads of wT (wide: rows of w_cat), each a
+  // chain over c from 0; outputs [j0, j1) of node n are thread t's
   const int tpn = NT / W, n = t % W, part = t / W;
   const int JB = round4((H + tpn - 1) / tpn), j0 = part * JB, j1 = min(H, j0 + JB);
   float* yo = y + (row0 + n) * H;
@@ -441,15 +518,23 @@ train_step_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
       const bool two = q + 4 < j1;
       float u[4] = {0.0f, 0.0f, 0.0f, 0.0f}, u2[4] = {0.0f, 0.0f, 0.0f, 0.0f};
       float w4[4];
+      auto wrow = [&](int c, int j) {  // w4 = w_cat [j .. j + 3][c], zero past H
+        if constexpr (WIDE) {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) w4[v] = j + v < H ? w_cat[(size_t)(j + v) * C2 + c] : 0.0f;
+        } else {
+          ldv<4>(wT + c * H4 + j, w4);
+        }
+      };
       for (int c = 0; c < C2; ++c) {
         const float x = c < D ? X[n * DP + c]
                               : drop(mode, da, db, A[n * DP + c - D],
                                      drops && KA[n * D + c - D] != 0);
-        ldv<4>(wT + c * H4 + q, w4);
+        wrow(c, q);
 #pragma unroll
         for (int v = 0; v < 4; ++v) u[v] = fmaf(w4[v], x, u[v]);
         if (two) {
-          ldv<4>(wT + c * H4 + q + 4, w4);
+          wrow(c, q + 4);
 #pragma unroll
           for (int v = 0; v < 4; ++v) u2[v] = fmaf(w4[v], x, u2[v]);
         }
@@ -466,6 +551,32 @@ bool drop_ok(int mode, const uint8_t* a, const uint8_t* b) {
   return mode == kNoDrop || (a != nullptr && b != nullptr);
 }
 
+int g_force_loop = -1;  // gnn_train_loop_force_plan
+int g_force_step = -1;  // gnn_train_step_force_plan
+
+// The plan index of K7 (loop) or K6 for a shape: 0, the staged plan, where
+// it fits a CTA, else 1, the wide plan, or plan `force` (>= 0) if it fits;
+// -1 if none. *bytes: the plan's shared memory.
+template <typename Bytes>
+int pick_plan01(int force, size_t* bytes, Bytes layout_bytes) {
+  for (int i = force >= 0 ? force : 0; i <= 1; ++i) {
+    *bytes = layout_bytes(i == 1);
+    if (*bytes <= (size_t)kMaxSmemBytes) return i;
+    if (force >= 0) break;
+  }
+  return -1;
+}
+
+int pick_loop(int W, int D, size_t* bytes) {
+  return pick_plan01(g_force_loop, bytes,
+                     [&](bool wide) { return train_loop_layout(W, D, wide).bytes; });
+}
+
+int pick_step(int W, int D, int H, size_t* bytes) {
+  return pick_plan01(g_force_step, bytes,
+                     [&](bool wide) { return train_step_layout(W, D, H, wide).bytes; });
+}
+
 }  // namespace
 
 extern "C" {
@@ -477,26 +588,37 @@ int gnn_train_loop(const float* adjT, const float* s0, const uint8_t* ms, const 
                    const float* fT, const float* w_cat, const float* nm, float* traj,
                    float* marg, float* agg, int B, int W, int D, int K, float thr, int act,
                    int mode, float da, float db, void* stream) {
-  if (!block_ok(B, W) || D <= 0 || K <= 0 || width_class(D) == 0 || !drop_ok(mode, ms, ma))
+  if (!block_ok(B, W) || D <= 0 || K <= 0 || !drop_ok(mode, ms, ma))
     return cudaErrorInvalidValue;
-  const size_t bytes = train_loop_layout(W, D).bytes;
-  cudaError_t err = set_smem(train_loop_kernel, bytes);
+  size_t bytes;
+  const int index = pick_loop(W, D, &bytes);
+  if (index < 0) return cudaErrorInvalidValue;
+  const auto fn = index == 1 ? train_loop_kernel<true> : train_loop_kernel<false>;
+  cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
-  train_loop_kernel<<<B, kTrainLoopThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  fn<<<B, kTrainLoopThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       adjT, s0, ms, ma, fT, w_cat, nm, traj, marg, agg, B, W, D, K, thr, act, mode, da, db);
   return cudaGetLastError();
 }
 
-// out[0..4]: plan index (0, K7's one plan), shared-memory bytes, resident
-// CTAs an SM, registers a thread, local bytes a thread of the kernel
-// gnn_train_loop launches for this shape (AL and H1 unused). Returns a
-// cudaError_t code.
+// out[0..4]: plan index (0 the staged plan, 1 the wide plan), shared-memory
+// bytes, resident CTAs an SM, registers a thread, local bytes a thread of
+// the kernel gnn_train_loop launches for this shape (AL and H1 unused).
+// Returns a cudaError_t code.
 int gnn_train_loop_info(int W, int D, int AL, int H1, int* out) {
   (void)AL;
   (void)H1;
-  return tile_kernel_info(train_loop_kernel, train_loop_layout(W, D).bytes, 0, out,
-                          kTrainLoopThreads);
+  size_t bytes;
+  const int index = pick_loop(W, D, &bytes);
+  if (index < 0) return cudaErrorInvalidValue;
+  return tile_kernel_info(index == 1 ? train_loop_kernel<true> : train_loop_kernel<false>,
+                          bytes, index, out, kTrainLoopThreads);
 }
+
+// Launch plan `index` of K7 (0 the staged plan, 1 the wide plan) from now
+// on, where it fits (a launch at a shape it does not fit fails), or the
+// first plan that fits again (index -1): for timing one plan against another.
+void gnn_train_loop_force_plan(int index) { g_force_loop = index; }
 
 // adjT [B, W, W], s/sd [B, W, D], m uint8 [B, W, D] (null when mode == 0),
 // rT [B, W, D] (nullable), fT [B, W, H], w_cat [H, 2D] -> y [B, W, H],
@@ -505,25 +627,35 @@ int gnn_train_step(const float* adjT, const float* s, const float* sd, const uin
                    const float* rT, const float* fT, const float* w_cat, float* y, float* agg,
                    int B, int W, int D, int H, int act, int mode, float da, float db,
                    void* stream) {
-  if (!block_ok(B, W) || D <= 0 || H <= 0 || width_class(D > H ? D : H) == 0 ||
-      !drop_ok(mode, m, m))
+  if (!block_ok(B, W) || D <= 0 || H <= 0 || !drop_ok(mode, m, m))
     return cudaErrorInvalidValue;
-  const size_t bytes = train_step_layout(W, D, H).bytes;
-  cudaError_t err = set_smem(train_step_kernel, bytes);
+  size_t bytes;
+  const int index = pick_step(W, D, H, &bytes);
+  if (index < 0) return cudaErrorInvalidValue;
+  const auto fn = index == 1 ? train_step_kernel<true> : train_step_kernel<false>;
+  cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
-  train_step_kernel<<<B, kTrainStepThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
+  fn<<<B, kTrainStepThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       adjT, s, sd, m, rT, fT, w_cat, y, agg, W, D, H, act, mode, da, db);
   return cudaGetLastError();
 }
 
-// out[0..4]: plan index (0, K6's one plan), shared-memory bytes, resident
-// CTAs an SM, registers a thread, local bytes a thread of the kernel
-// gnn_train_step launches for this shape (H1 unused). Returns a cudaError_t
-// code.
+// out[0..4]: plan index (0 the staged plan, 1 the wide plan), shared-memory
+// bytes, resident CTAs an SM, registers a thread, local bytes a thread of
+// the kernel gnn_train_step launches for this shape (H1 unused). Returns a
+// cudaError_t code.
 int gnn_train_step_info(int W, int D, int H, int H1, int* out) {
   (void)H1;
-  return tile_kernel_info(train_step_kernel, train_step_layout(W, D, H).bytes, 0, out,
-                          kTrainStepThreads);
+  size_t bytes;
+  const int index = pick_step(W, D, H, &bytes);
+  if (index < 0) return cudaErrorInvalidValue;
+  return tile_kernel_info(index == 1 ? train_step_kernel<true> : train_step_kernel<false>,
+                          bytes, index, out, kTrainStepThreads);
 }
+
+// Launch plan `index` of K6 (0 the staged plan, 1 the wide plan) from now
+// on, where it fits (a launch at a shape it does not fit fails), or the
+// first plan that fits again (index -1): for timing one plan against another.
+void gnn_train_step_force_plan(int index) { g_force_step = index; }
 
 }  // extern "C"

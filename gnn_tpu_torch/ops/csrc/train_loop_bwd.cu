@@ -46,6 +46,16 @@
 // bytes. The plans (kTrainBwdPlans: where the dw partials are kept) are
 // mirrored by ops/fused.py::_train_bwd_plan; the second fits every shape the
 // per-node kernel that this replaces took.
+//
+// The wide plan (index 2, the second plan with its [W][D]-sized regions
+// moved out of shared memory; mirrored by ops/fused.py::_train_bwd_wide),
+// chosen only where no staged plan fits, takes every D: x2, dh, dagg, the
+// row buffer and the keep bytes lie in a device-memory workspace the wrapper
+// allocates (a block's slice each, gnn_train_loop_bwd_workspace floats),
+// w_cat is read through the caches, the dw partials are summed in their
+// output, and shared memory holds only the row lists (10,368 bytes at
+// W 128, whatever D is). The code is the second plan's with those pointers:
+// a forced wide plan gives the staged plans' bits.
 
 #include "tile2.cuh"
 
@@ -65,6 +75,10 @@ struct TrainBwdPlan {
 // bytes, two CTAs an SM) ran 0.344 ms against 0.297 on an NVIDIA H100 at the
 // flagship's training batch and was dropped (PERF.md §6).
 constexpr TrainBwdPlan kTrainBwdPlans[] = {{1}, {0}};
+// the wide plan, after the staged ones: the second plan's regions in the
+// workspace
+constexpr TrainBwdPlan kTrainBwdWide = {0};
+constexpr int kTrainBwdWideIndex = sizeof(kTrainBwdPlans) / sizeof(kTrainBwdPlans[0]);
 constexpr int kListRoom = 16;  // entries a row list holds
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
@@ -75,15 +89,40 @@ __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 // state slice, then the new gs), w_cat transposed wT [2D][D4] (D4 = D
 // rounded up to 4, zero past D), with dw the partials [D][2D], the lists
 // [16][W]; then the keep bytes [2][D][W] (transposed), the list counts [W]
-// and destinations [16][W].
+// and destinations [16][W]. The wide plan: x2, dh, dagg, the row buffer and
+// the keep bytes (from float offset km) in a block's workspace slice of ws
+// floats; in shared memory the lists, then their counts and destinations.
 struct TrainBwdLayout {
-  int x, g, da, o, w, dw, lw;
+  int x, g, da, o, w, dw, lw, km, ws;
   size_t km_b, cnt_b, idx_b, bytes;
 };
 
-__host__ __device__ inline TrainBwdLayout bwd_layout(int W, int D, const TrainBwdPlan& p) {
+__host__ __device__ inline TrainBwdLayout bwd_layout(int W, int D, const TrainBwdPlan& p,
+                                                     bool wide) {
   TrainBwdLayout L{};
   int o = 0;
+  if (wide) {
+    L.x = o;
+    o += 2 * D * W;
+    L.g = o;
+    o += D * (W + 4);
+    L.da = o;
+    o += round4(W * (D | 1));
+    L.o = o;
+    o += round4(W * (D | 1));
+    L.km = o;
+    o += round4((2 * W * D + 3) / 4);
+    L.ws = o;
+    L.w = L.dw = -1;
+    L.km_b = 0;
+    o = 0;
+    L.lw = o;
+    o += kListRoom * W;
+    L.cnt_b = sizeof(float) * (size_t)o;
+    L.idx_b = L.cnt_b + W;
+    L.bytes = L.idx_b + (size_t)kListRoom * W;
+    return L;
+  }
   L.x = o;
   o += 2 * D * W;
   L.g = o;
@@ -105,12 +144,16 @@ __host__ __device__ inline TrainBwdLayout bwd_layout(int W, int D, const TrainBw
   L.cnt_b = L.km_b + 2 * (size_t)W * D;
   L.idx_b = L.cnt_b + W;
   L.bytes = L.idx_b + (size_t)kListRoom * W;
+  L.km = -1;
+  L.ws = 0;
   return L;
 }
 
-// K8: the K reverse iterations of K7, one CTA of NT threads a block.
+// K8: the K reverse iterations of K7, one CTA of NT threads a block; WIDE:
+// the wide plan (wsp its workspace).
 constexpr int NT = kTileThreads;
 
+template <bool WIDE>
 __global__ void __launch_bounds__(NT, 3)
 train_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
                  const float* __restrict__ traj, const float* __restrict__ agg,
@@ -118,23 +161,25 @@ train_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
                  const float* __restrict__ fT, const float* __restrict__ w_cat,
                  const float* __restrict__ g_traj, float* __restrict__ gs_out,
                  float* __restrict__ dw_out, float* __restrict__ dfT, int B, int W, int D, int K,
-                 int act, int mode, float da, float db, TrainBwdPlan p) {
+                 int act, int mode, float da, float db, TrainBwdPlan p, float* wsp) {
   extern __shared__ float4 smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
   uint8_t* bytes = reinterpret_cast<uint8_t*>(smem_raw);
-  const TrainBwdLayout L = bwd_layout(W, D, p);
+  const TrainBwdLayout L = bwd_layout(W, D, p, WIDE);
   const int C2 = 2 * D, DP = D | 1, GP = W + 4, D4 = round4(D), WD = W * D;
   const int b = blockIdx.x, t = threadIdx.x;
   const size_t row0 = (size_t)b * W;
   const float* adj = adjT + row0 * W;
-  float* X = sm + L.x;
-  float* G = sm + L.g;
-  float* DA = sm + L.da;
-  float* O = sm + L.o;
+  float* base = WIDE ? wsp + (size_t)b * L.ws : sm;  // the regions of x2 .. the row buffer
+  float* X = base + L.x;
+  float* G = base + L.g;
+  float* DA = base + L.da;
+  float* O = base + L.o;
   float* wT = sm + L.w;
   float* DW = sm + L.dw;
   float* lw = sm + L.lw;
-  uint8_t* KS = bytes + L.km_b;  // [D][W] keep bytes of the state slice, then of agg
+  // [D][W] keep bytes of the state slice, then of agg
+  uint8_t* KS = WIDE ? reinterpret_cast<uint8_t*>(base + L.km) : bytes + L.km_b;
   uint8_t* KA = KS + WD;
   uint8_t* cnt = bytes + L.cnt_b;
   uint8_t* idx = bytes + L.idx_b;
@@ -163,9 +208,20 @@ train_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
   // dw items: unit j, columns c0, c0 + 1 (C2 is even)
   const int nitems = D * D;
 
+  // w[u] = w_cat [j + u][c], zero past D: wT's row c (wide: read through the
+  // caches)
+  auto wt4 = [&](int c, int j, float (&w)[4]) {
+    if constexpr (WIDE) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) w[u] = j + u < D ? w_cat[(size_t)(j + u) * C2 + c] : 0.0f;
+    } else {
+      ldv<4>(wT + c * D4 + j, w);
+    }
+  };
+
   // ---- staging, issued together, waited on once
   // wT [c][j] = w_cat [j][c], in w_cat's order (whole rows of it a warp)
-  for (int i = t; i < C2 * D4; i += NT) {
+  for (int i = t; !WIDE && i < C2 * D4; i += NT) {
     const int j = i / C2, c = i % C2;
     if (j < D)
       cp_async4(wT + c * D4 + j, w_cat + i);
@@ -217,7 +273,7 @@ train_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
         for (int c = 0; c < C2; ++c) {
           const float x = X[c * W + n];
           float w4[4];
-          ldv<4>(wT + c * D4 + j0, w4);
+          wt4(c, j0, w4);
 #pragma unroll
           for (int u = 0; u < 4; ++u) h[u] = fmaf(w4[u], x, h[u]);
         }
@@ -249,8 +305,8 @@ train_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
           for (int v = 0; v < 4; ++v) {
             if (d0 + v < D) {
               float ws[4], wa[4];
-              ldv<4>(wT + (d0 + v) * D4 + q, ws);
-              ldv<4>(wT + (D + d0 + v) * D4 + q, wa);
+              wt4(d0 + v, q, ws);
+              wt4(D + d0 + v, q, wa);
 #pragma unroll
               for (int u = 0; u < 4; ++u) {
                 ss[v] = fmaf(dh[u], ws[u], ss[v]);
@@ -327,21 +383,32 @@ train_bwd_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
 
 int g_force = -1;  // gnn_train_loop_bwd_force_plan
 
-// K8's plan for a shape: the first plan of kTrainBwdPlans that fits a CTA,
-// or plan g_force (>= 0) if it fits; false if none (or D above 64).
-bool pick_bwd(int W, int D, TrainBwdPlan* p, size_t* bytes, int* index) {
-  constexpr int N = sizeof(kTrainBwdPlans) / sizeof(kTrainBwdPlans[0]);
+using TrainBwdFn = void (*)(const float*, const float*, const float*, const float*,
+                            const uint8_t*, const uint8_t*, const float*, const float*,
+                            const float*, float*, float*, float*, int, int, int, int, int, int,
+                            float, float, TrainBwdPlan, float*);
+
+// K8's kernel and plan for a shape: the first plan of kTrainBwdPlans that
+// fits a CTA, else the wide plan (index kTrainBwdWideIndex), or plan g_force
+// (>= 0) if it fits; nullptr if none. *ws: the plan's workspace floats a
+// block.
+TrainBwdFn pick_bwd(int W, int D, TrainBwdPlan* p, size_t* bytes, int* index, int* ws) {
   *index = -1;
-  for (int i = g_force >= 0 ? g_force : 0; i < N; ++i) {
-    *bytes = bwd_layout(W, D, kTrainBwdPlans[i]).bytes;
-    if (*bytes <= (size_t)kMaxSmemBytes) {
-      *p = kTrainBwdPlans[i];
+  for (int i = g_force >= 0 ? g_force : 0; i <= kTrainBwdWideIndex; ++i) {
+    const bool wide = i == kTrainBwdWideIndex;
+    const TrainBwdPlan plan = wide ? kTrainBwdWide : kTrainBwdPlans[i];
+    const TrainBwdLayout L = bwd_layout(W, D, plan, wide);
+    *bytes = L.bytes;
+    if (L.bytes <= (size_t)kMaxSmemBytes) {
+      *p = plan;
       *index = i;
+      *ws = L.ws;
       break;
     }
     if (g_force >= 0) break;
   }
-  return *index >= 0 && width_class(D) != 0;
+  if (*index < 0) return nullptr;
+  return *index == kTrainBwdWideIndex ? train_bwd_kernel<true> : train_bwd_kernel<false>;
 }
 
 }  // namespace
@@ -350,25 +417,38 @@ extern "C" {
 
 // adjT [B, W, W], s0 [B, W, D], traj, agg, fT, g_traj [K, B, W, D], ms/ma
 // uint8 [K, B, W, D] (null when mode == 0), w_cat [D, 2D] -> gs [B, W, D],
-// dw [B, D, 2D] per-block partials, dfT [K, B, W, D]. Returns a cudaError_t
-// code.
+// dw [B, D, 2D] per-block partials, dfT [K, B, W, D]; ws: the wide plan's
+// workspace, B slices of gnn_train_loop_bwd_workspace floats (null for a
+// staged plan). Returns a cudaError_t code.
 int gnn_train_loop_bwd(const float* adjT, const float* s0, const float* traj, const float* agg,
                        const uint8_t* ms, const uint8_t* ma, const float* fT,
                        const float* w_cat, const float* g_traj, float* gs, float* dw,
                        float* dfT, int B, int W, int D, int K, int act, int mode, float da,
-                       float db, void* stream) {
+                       float db, void* stream, float* ws) {
   if (!block_ok(B, W) || D <= 0 || K <= 0) return cudaErrorInvalidValue;
   if (mode != kNoDrop && (ms == nullptr || ma == nullptr)) return cudaErrorInvalidValue;
   TrainBwdPlan p;
   size_t bytes;
-  int index;
-  if (!pick_bwd(W, D, &p, &bytes, &index)) return cudaErrorInvalidValue;
-  cudaError_t err = set_smem(train_bwd_kernel, bytes);
+  int index, wsf;
+  const TrainBwdFn fn = pick_bwd(W, D, &p, &bytes, &index, &wsf);
+  if (fn == nullptr || (wsf > 0 && ws == nullptr)) return cudaErrorInvalidValue;
+  cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
-  train_bwd_kernel<<<B, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
+  fn<<<B, NT, bytes, static_cast<cudaStream_t>(stream)>>>(
       adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj, gs, dw, dfT, B, W, D, K, act, mode, da,
-      db, p);
+      db, p, ws);
   return cudaGetLastError();
+}
+
+// The workspace floats a block gnn_train_loop_bwd's plan for this shape
+// needs (0 for a staged plan), or -1 if no plan fits (AL and H1 unused).
+int gnn_train_loop_bwd_workspace(int W, int D, int AL, int H1) {
+  (void)AL;
+  (void)H1;
+  TrainBwdPlan p;
+  size_t bytes;
+  int index, wsf;
+  return pick_bwd(W, D, &p, &bytes, &index, &wsf) == nullptr ? -1 : wsf;
 }
 
 // out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
@@ -379,14 +459,15 @@ int gnn_train_loop_bwd_info(int W, int D, int AL, int H1, int* out) {
   (void)H1;
   TrainBwdPlan p;
   size_t bytes;
-  int index;
-  if (!pick_bwd(W, D, &p, &bytes, &index)) return cudaErrorInvalidValue;
-  return tile_kernel_info(train_bwd_kernel, bytes, index, out);
+  int index, wsf;
+  const TrainBwdFn fn = pick_bwd(W, D, &p, &bytes, &index, &wsf);
+  if (fn == nullptr) return cudaErrorInvalidValue;
+  return tile_kernel_info(fn, bytes, index, out);
 }
 
-// Launch plan `index` of kTrainBwdPlans from now on, where it fits (a launch
-// at a shape it does not fit fails), or the first plan that fits again
-// (index -1): for timing one plan against another.
+// Launch plan `index` (kTrainBwdPlans, then the wide plan) from now on,
+// where it fits (a launch at a shape it does not fit fails), or the first
+// plan that fits again (index -1): for timing one plan against another.
 void gnn_train_loop_bwd_force_plan(int index) { g_force = index; }
 
 }  // extern "C"

@@ -46,13 +46,16 @@ keep-masks uint8 [.., W, D]. Each wrapper runs its plain PyTorch version
 (`*_ref`) for CPU tensors and launches the CUDA kernel (ops/csrc/eval_loop.cu:
 K3; fused_eval.cu: K4; eval_loop_bwd.cu, train_loop.cu, train_loop_bwd.cu) for
 CUDA tensors; it never falls back from one to the other. `launches` counts
-kernel launches. K3, K5 and K8 take the first of their shared-memory plans
-that fits a CTA (`_loop_plan`, `_loop_bwd_plan`, `_train_bwd_plan`); K4, K6 and K7
-have one plan each, which fits every shape they take (`_step_bytes`,
-`_train_step_bytes`, `_train_loop_bytes`). On
-MUTAG-shaped blocks every kernel's least time is set by the bytes it moves (the
-adjacency and the per-iteration rows); the designs and their limits are noted
-in the sources.
+kernel launches. Each kernel takes the first of its staged shared-memory plans
+that fits a CTA (K3, K5 and K8 have two, K4, K6 and K7 one: `_loop_plan`,
+`_loop_bwd_plan`, `_train_bwd_plan`, `_step_plan`, `_train_step_plan`,
+`_train_loop_plan`), else its wide plan, which keeps only the adjacency lists
+in shared memory and takes every state width (`_loop_wide`, `_step_wide`,
+`_loop_bwd_wide`, `_train_step_wide`, `_train_loop_wide`, `_train_bwd_wide`);
+the wide plans of K3, K4, K5 and K8 take a device-memory workspace that the
+wrapper allocates at the launch (`_Workspace`). On MUTAG-shaped blocks every
+kernel's least time is set by the bytes it moves (the adjacency and the
+per-iteration rows); the designs and their limits are noted in the sources.
 """
 
 from __future__ import annotations
@@ -143,31 +146,33 @@ def supports_fused_train(state_spec) -> bool:
 
 SMEM_BYTES = 232448          # shared memory a CTA may use (227 KB)
 
-# eval_loop.cu's kLoopPlans, K3's shared-memory plans in order of preference:
-# (threads a CTA, room of the column lists). The first is the flagship's; the
-# last fits every shape the per-node K3 took.
+# eval_loop.cu's kLoopPlans, K3's staged shared-memory plans in order of
+# preference: (threads a CTA, room of the column lists). The first is the
+# flagship's; the wide plan (_loop_wide) follows them.
 _LOOP_PLANS = ((256, 16), (128, 0))
 
 # fused_eval.cu's K4 plan (kStepThreads, kStepLists): threads a CTA, room of
-# the column lists. It fits every shape the kernel takes.
+# the column lists; the staged plan, then the wide plan (_step_wide).
 _STEP_PLAN = (256, 16)
 
-# eval_loop_bwd.cu's kLoopBwdPlans, K5's shared-memory plans in order of
-# preference: whether w2, dfT and the dw2 partials are staged. The first is
-# the flagship's; the second fits every shape the per-node K5 took.
+# eval_loop_bwd.cu's kLoopBwdPlans, K5's staged shared-memory plans in order
+# of preference: whether w2, dfT and the dw2 partials are staged. The first is
+# the flagship's; the wide plan (_loop_bwd_wide) follows them.
 _LOOP_BWD_PLANS = (1, 0)
 
-# train_loop_bwd.cu's kTrainBwdPlans, K8's shared-memory plans in order of
-# preference: whether the dw partials are kept in shared memory. The first is
-# the flagship's; the last fits every shape the per-node K8 took.
+# train_loop_bwd.cu's kTrainBwdPlans, K8's staged shared-memory plans in
+# order of preference: whether the dw partials are kept in shared memory. The
+# first is the flagship's; the wide plan (_train_bwd_wide) follows them.
 _TRAIN_BWD_PLANS = (1, 0)
 
 # train_loop.cu's K7 plan (kTrainLoopThreads, kTrainLoopLists): threads a CTA,
-# room of the column lists. It fits every shape the kernel takes.
+# room of the column lists; the staged plan, then the wide plan
+# (_train_loop_wide).
 _TRAIN_LOOP_PLAN = (256, 8)
 
 # train_loop.cu's K6 plan (kTrainStepThreads, kTrainStepLists): threads a CTA,
-# room of the column lists. It fits every shape the kernel takes.
+# room of the column lists; the staged plan, then the wide plan
+# (_train_step_wide).
 _TRAIN_STEP_PLAN = (256, 16)
 
 
@@ -251,13 +256,61 @@ def _train_bwd_bytes(W, D, dw):
     return 4 * floats + 2 * W * D + 17 * W
 
 
-def _first_plan(plans, nbytes, *dims):
+# The wide plans, the last of each kernel's plans, chosen only where no
+# staged plan fits: (shared-memory bytes, workspace floats a block row) of
+# eval_loop.cu's, fused_eval.cu's, eval_loop_bwd.cu's, train_loop.cu's two and
+# train_loop_bwd.cu's wide layouts. Shared memory holds the adjacency lists
+# (floats, then the counts, the indices and, for the column lists, the list
+# build's counts [threads / 32][W] as bytes) and the node mask where the
+# kernel reads it; the [W][D]-sized regions lie in the workspace, or, for K6
+# and K7, in their outputs. The widths may be ints or numpy integer arrays.
+def _loop_wide(W, D):
+    """K3: nm [W] and column lists [16][W]; U [W][2D|1] in the workspace."""
+    return 4 * (_r4(W) + 16 * W) + W + 16 * W + 8 * W, _r4(W * ((2 * D) | 1))
+
+
+def _step_wide(W, D, H):
+    """K4: column lists [16][W]; U [W][2H|1] in the workspace."""
+    return 4 * 16 * W + W + 16 * W + 8 * W, _r4(W * ((2 * H) | 1))
+
+
+def _loop_bwd_wide(W, D):
+    """K5: column and row lists [8][W] each; s_in [D][W], du [2D][W + 4], u
+    [W][2D|1], gs [W][D|1] and the daff partials [2D] in the workspace."""
+    ws = (D * W + 2 * D * (W + 4) + _r4(W * ((2 * D) | 1)) + _r4(W * (D | 1))
+          + _r4(2 * D))
+    return 4 * 16 * W + 2 * (W + 8 * W) + 8 * W, ws
+
+
+def _train_step_wide(W, D, H):
+    """K6: column lists [16][W]; agg in its output, no workspace."""
+    return 4 * 16 * W + W + 16 * W + 8 * W, 0
+
+
+def _train_loop_wide(W, D):
+    """K7: nm [W] and column lists [8][W]; the states and agg in traj and
+    agg, no workspace."""
+    return 4 * (_r4(W) + 8 * W) + W + 8 * W + 8 * W, 0
+
+
+def _train_bwd_wide(W, D):
+    """K8: row lists [16][W]; x2 [2D][W], dh [D][W + 4], dagg and the row
+    buffer [W][D|1] each and the keep bytes [2][D][W] in the workspace."""
+    ws = (2 * D * W + D * (W + 4) + 2 * _r4(W * (D | 1)) + _r4((2 * W * D + 3) // 4))
+    return 4 * 16 * W + W + 16 * W, ws
+
+
+def _first_plan(plans, nbytes, *dims, wide=None):
     """(shared-memory bytes, plan index) of the first of `plans` whose layout
-    (nbytes(*dims, plan)) fits a CTA, or the leanest plan's bytes and None."""
+    (nbytes(*dims, plan)) fits a CTA; else, given the wide plan's layout
+    (wide(*dims): bytes and workspace floats), the wide plan (index
+    len(plans)) where it fits; else the leanest plan's bytes and None."""
     for i, plan in enumerate(plans):
         need = int(nbytes(*dims, plan))
         if need <= SMEM_BYTES:
             return need, i
+    if wide is not None and int(wide(*dims)[0]) <= SMEM_BYTES:
+        return int(wide(*dims)[0]), len(plans)
     return need, None
 
 
@@ -270,17 +323,38 @@ def _check_fits(need, plan, shape: str) -> None:
 
 def _loop_plan(W: int, D: int):
     """(shared-memory bytes, plan index) K3 takes at this shape (_first_plan)."""
-    return _first_plan(_LOOP_PLANS, _loop_bytes, W, D)
+    return _first_plan(_LOOP_PLANS, _loop_bytes, W, D, wide=_loop_wide)
 
 
 def _loop_bwd_plan(W: int, D: int):
     """(shared-memory bytes, plan index) K5 takes at this shape (_first_plan)."""
-    return _first_plan(_LOOP_BWD_PLANS, _loop_bwd_bytes, W, D)
+    return _first_plan(_LOOP_BWD_PLANS, _loop_bwd_bytes, W, D, wide=_loop_bwd_wide)
 
 
 def _train_bwd_plan(W: int, D: int):
     """(shared-memory bytes, plan index) K8 takes at this shape (_first_plan)."""
-    return _first_plan(_TRAIN_BWD_PLANS, _train_bwd_bytes, W, D)
+    return _first_plan(_TRAIN_BWD_PLANS, _train_bwd_bytes, W, D, wide=_train_bwd_wide)
+
+
+def _step_plan(W: int, D: int, H: int):
+    """(shared-memory bytes, plan index) K4 takes at this shape: 0 its staged
+    plan, 1 the wide plan."""
+    return _first_plan((_STEP_PLAN,), lambda W, D, H, _: _step_bytes(W, D, H), W, D, H,
+                       wide=_step_wide)
+
+
+def _train_step_plan(W: int, D: int, H: int):
+    """(shared-memory bytes, plan index) K6 takes at this shape: 0 its staged
+    plan, 1 the wide plan."""
+    return _first_plan((_TRAIN_STEP_PLAN,), lambda W, D, H, _: _train_step_bytes(W, D, H),
+                       W, D, H, wide=_train_step_wide)
+
+
+def _train_loop_plan(W: int, D: int):
+    """(shared-memory bytes, plan index) K7 takes at this shape: 0 its staged
+    plan, 1 the wide plan."""
+    return _first_plan((_TRAIN_LOOP_PLAN,), lambda W, D, _: _train_loop_bytes(W, D), W, D,
+                       wide=_train_loop_wide)
 
 
 def _plan_info(entry: str, *dims) -> dict:
@@ -501,11 +575,10 @@ def _check_keep(keep, shape, dev, rate, name="keep"):
 
 
 def _check_block(adjT, D, H):
+    """The block width and the device; every state width D and H has a plan."""
     B, W, W2 = adjT.shape
     if W != W2 or W % 32 or not 32 <= W <= 128:
         raise ValueError(f"block width must be 32, 64, 96 or 128, got adjT {tuple(adjT.shape)}")
-    if max(D, H) > 64:
-        raise ValueError(f"feature widths above 64 are not supported (D={D}, H={H})")
     if adjT.device.type != "cuda":
         raise ValueError(f"propagation kernels need CPU or CUDA tensors, got {adjT.device}")
 
@@ -523,12 +596,39 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
+class _Workspace:
+    """The device-memory workspace of a launch whose C entry takes one (its
+    last argument, after the stream): `rows` block rows of the floats a block
+    row that the plan the entry picks at `dims` needs (gnn_<entry>_workspace:
+    0 for a staged plan, and then a null pointer), allocated on the launch's
+    device and stream."""
+
+    def __init__(self, rows: int, *dims: int):
+        self.rows, self.dims = rows, tuple(dims) + (0,) * (4 - len(dims))
+
+    def allocate(self, lib, entry: str, device) -> Optional[torch.Tensor]:
+        n = getattr(lib, f"gnn_{entry}_workspace")(*self.dims)
+        if n < 0:
+            raise ValueError(f"gnn_{entry} has no plan for the widths {self.dims}")
+        return torch.empty(self.rows * n, dtype=torch.float32, device=device) if n else None
+
+
 def launch_counted(counts: dict, kernels: dict, key: str, device, *args) -> None:
     """Launch gnn_<key> on `device`'s current stream, raise on its error
-    code naming the kernel kernels[key], and add the launch to counts[key]."""
+    code naming the kernel kernels[key], and add the launch to counts[key].
+    A last argument of type _Workspace is allocated and passed after the
+    stream."""
     lib = _build.library()
+    tail = ()
+    if args and isinstance(args[-1], _Workspace):
+        args, need = args[:-1], args[-1]
+    else:
+        need = None
     with torch.cuda.device(device):
-        err = getattr(lib, f"gnn_{key}")(*args, _stream(device))
+        if need is not None:
+            ws = need.allocate(lib, key, device)
+            tail = (_ptr(ws),)
+        err = getattr(lib, f"gnn_{key}")(*args, _stream(device), *tail)
     _build.check(err, f"{key} ({kernels[key]})")
     counts[key] += 1
 
@@ -567,7 +667,7 @@ def propagation_step(adjT, s, rT, fT, w2, affine=None, activation: str = "tanh")
         return out
     _launch("propagation_step", dev,
             _ptr(adjT), _ptr(s), _ptr(rT), _ptr(fT), _ptr(w2), _ptr(aff), _ptr(out),
-            B, W, D, H, _ACT_CODE[activation])
+            B, W, D, H, _ACT_CODE[activation], _Workspace(B, W, D, H))
     return out
 
 
@@ -603,7 +703,8 @@ def propagation_loop(adjT, s0, fT, w2, affine, nm, K: int, threshold: float,
         return traj, margins
     _launch("propagation_loop", dev,
             _ptr(adjT), _ptr(s0), _ptr(fT), _ptr(w2), _ptr(aff), _ptr(nm), _ptr(traj),
-            _ptr(margins), B, W, D, int(K), float(threshold), _ACT_CODE[activation])
+            _ptr(margins), B, W, D, int(K), float(threshold), _ACT_CODE[activation],
+            _Workspace(B, W, D))
     return traj, margins
 
 
@@ -640,7 +741,8 @@ def propagation_loop_bwd(adjT, s0, traj, fT, w2, affine, g_traj, activation: str
         return gs.zero_(), dw2.zero_(), dfT.zero_(), None if daff is None else daff.zero_()
     _launch("propagation_loop_bwd", dev,
             _ptr(adjT), _ptr(s0), _ptr(traj), _ptr(fT), _ptr(w2), _ptr(affine), _ptr(g_traj),
-            _ptr(gs), _ptr(dw2), _ptr(dfT), _ptr(daff), B, W, D, K, _ACT_CODE[activation])
+            _ptr(gs), _ptr(dw2), _ptr(dfT), _ptr(daff), B, W, D, K, _ACT_CODE[activation],
+            _Workspace(B, W, D))
     return gs, dw2, dfT, daff
 
 
@@ -719,7 +821,7 @@ def train_loop_bwd(adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj, activation: s
     _launch("train_loop_bwd", dev,
             _ptr(adjT), _ptr(s0), _ptr(traj), _ptr(agg), _ptr(ms), _ptr(ma), _ptr(fT),
             _ptr(w_cat), _ptr(g_traj), _ptr(gs), _ptr(dw), _ptr(dfT), B, W, D, K,
-            _ACT_CODE[activation], mode, a, b)
+            _ACT_CODE[activation], mode, a, b, _Workspace(B, W, D))
     return gs, dw, dfT
 
 

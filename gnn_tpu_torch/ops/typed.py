@@ -52,9 +52,9 @@ import torch.nn.functional as F
 
 from gnn_tpu_torch.ops import _build
 from gnn_tpu_torch.ops.bn import (BNV_ROWS, BNLoopOperands, _agg_blocks, _bn_ds, _bn_gy,
-                                  _check_blocks, _ident_aff, _ones_col, _require_cuda, _res_term,
-                                  _x3, augmented, block_keep, block_rows, bn_train_loop,
-                                  input_rate, moving_stats)
+                                  _check_blocks, _check_state_width, _ident_aff, _ones_col,
+                                  _require_cuda, _res_term, _x3, augmented, block_keep,
+                                  block_rows, bn_train_loop, input_rate, moving_stats)
 from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, SMEM_BYTES,
                                      _act_grad, _check, _check_keep, _drop_args, _first_plan,
                                      _plan_info, _ptr, _r4, _stream, bn_inference_affine, moved)
@@ -239,7 +239,8 @@ def _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations, backwar
     widths, the node types, at most MAX_TYPES types, the stacked weights and
     a CTA's shared memory within the 227 KB cap (the leanest plan of
     _bnT_fwd_plan or _bnT_bwd_plan)."""
-    Bl, W = _check_blocks(adj_loop, adj_dep, R, D)
+    _check_state_width(D)
+    Bl, W = _check_blocks(adj_loop, adj_dep, R)
     T = len(activations)
     if not 1 <= T <= MAX_TYPES:
         raise ValueError(f"{T} node types: the typed kernels take 1..{MAX_TYPES}")

@@ -237,26 +237,32 @@ def test_k2_plans_take_every_shape_the_per_node_kernel_took(W):
             tbn._check_bn_bwd_plan(W, d, f)
 
 
-def test_k2_raises_above_its_last_plan():
-    """A shape that not even K2's leanest plan fits (W 128, D 64, the least
-    such F) raises the wrapper's ValueError naming the bytes it needs and the
-    CTA's limit, before any launch (on meta tensors, which no kernel takes);
-    one arc-label column fewer passes."""
+def test_k2_raises_above_its_last_plan(monkeypatch):
+    """A shape that not even K2's leanest staged plan fits (W 128, D 64, the
+    least such F) takes the wide plan (index 2, its bytes); one arc-label
+    column fewer the leanest staged plan. Both pass every check of the
+    wrapper on meta tensors and stop only where the library would be loaded
+    for the launch."""
     last = tbn._BN_BWD_PLANS[-1]
     f = next(f for f in range(0, 512) if tbn._bn_bwd_bytes(128, 64, f, last) > tbn.SMEM_BYTES)
     need, plan = tbn._bn_bwd_plan(128, 64, f)
-    assert plan is None and need == tbn._bn_bwd_bytes(128, 64, f, last)
+    assert plan == len(tbn._BN_BWD_PLANS) and need == tbn._bn_bwd_wide(128, 64, f)[0]
+    assert tbn._bn_bwd_plan(128, 64, f - 1)[1] == len(tbn._BN_BWD_PLANS) - 1
 
     def meta(*shape, dtype=torch.float32):
         return torch.empty(shape, device="meta", dtype=dtype)
-    R, W, D, C = 2, 128, 64, 2 * 64 + f + 1
-    rows = [meta(R, W, D) for _ in range(3)]
-    with pytest.raises(ValueError, match=f"W=128, D=64, F={f} needs {need} bytes of shared "
-                                         f"memory a block, more than the {tbn.SMEM_BYTES}"):
-        tbn._launch_backward(meta(R, W, W), None, *rows, None, meta(R, W, f), meta(D, C),
-                             meta(R, W, D), meta(R, W, D), meta(9, D), meta(), meta(R, W),
-                             activation="selu", alpha_drop=True, rate=0.0)
-    tbn._check_bn_bwd_plan(128, 64, f - 1)
+
+    def no_library():
+        raise ValueError("launch reached")
+    monkeypatch.setattr(tbn._build, "library", no_library)
+    for width in (f, f - 1):
+        R, W, D, C = 2, 128, 64, 2 * 64 + width + 1
+        rows = [meta(R, W, D) for _ in range(3)]
+        with pytest.raises(ValueError, match="launch reached"):
+            tbn._launch_backward(meta(R, W, W), None, *rows, None, meta(R, W, width),
+                                 meta(D, C), meta(R, W, D), meta(R, W, D), meta(9, D), meta(),
+                                 meta(R, W), activation="selu", alpha_drop=True, rate=0.0)
+        tbn._check_bn_bwd_plan(128, 64, width)
 
 
 def test_k2_fits_its_ctas_at_the_flagship():

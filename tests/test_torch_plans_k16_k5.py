@@ -5,8 +5,9 @@ ops/fused.py::_LOOP_BWD_PLANS, _loop_bwd_bytes and _loop_bwd_plan), on the
 CPU: the mirrors' plan lists against the sources, their bytes at the
 composite recipe's and the flagship's widths against the layouts summed by
 hand, the plans' fit in a CTA and the CTAs an SM they leave room for, every
-shape the per-node kernels took taken by some plan, and the wrappers'
-ValueError beyond the leanest plan, raised on meta tensors before any launch.
+shape the per-node kernels took taken by some plan, K16's ValueError beyond
+its leanest plan, raised on meta tensors before any launch, and K5's wide
+plan (ops/fused.py::_loop_bwd_wide) beyond its leanest staged plan.
 chip_smoke.py holds the mirrors to the library's own gnn_bnT_forward_info /
 gnn_propagation_loop_bwd_info on the card."""
 
@@ -205,16 +206,18 @@ def test_k16_raises_above_its_last_plan():
 
 
 def test_k5_raises_above_its_last_plan():
-    """A state width that not even K5's leanest plan fits at W 128 raises the
-    wrapper's ValueError naming the bytes it needs and the CTA's limit,
-    before any launch; one column fewer passes the plan check and is refused
-    for its width alone (the kernel takes D up to 64)."""
+    """A state width that not even K5's leanest staged plan fits at W 128
+    takes the wide plan (index 2, its bytes), as every width up to 1024
+    does; one column fewer fits the leanest staged plan. Both pass every
+    check of the wrapper, with and without the affine, and stop only at the
+    meta device."""
     last = tfused._LOOP_BWD_PLANS[-1]
     d = next(d for d in range(1, 512) if tfused._loop_bwd_bytes(128, d, last) > SMEM)
     need, plan = tfused._loop_bwd_plan(128, d)
-    assert d > 64 and plan is None and need == tfused._loop_bwd_bytes(128, d, last)
-    with pytest.raises(ValueError, match=f"W=128, D={d} needs {need} bytes of shared memory a "
-                                         f"block, more than the {SMEM}"):
-        _k5_launch(128, d)
-    with pytest.raises(ValueError, match="feature widths above 64"):
-        _k5_launch(128, d - 1)
+    assert d > 64 and plan == len(tfused._LOOP_BWD_PLANS)
+    assert need == tfused._loop_bwd_wide(128, d)[0] <= SMEM
+    assert tfused._loop_bwd_plan(128, d - 1)[1] == len(tfused._LOOP_BWD_PLANS) - 1
+    assert all(tfused._loop_bwd_plan(128, w)[1] == plan for w in range(d, 1025))
+    for width, affine in itertools.product((d, d - 1), (False, True)):
+        with pytest.raises(ValueError, match="need CPU or CUDA tensors"):
+            _k5_launch(128, width, affine=affine)

@@ -6,7 +6,8 @@ the CPU: the
 mirrors' bytes at the flagship's widths against the layouts summed by hand,
 the plans' fit in a CTA and the CTAs an SM they leave room for, every shape
 the per-node kernels took taken by some plan (the leanest, at the latest), and
-the wrappers' ValueError beyond the leanest plan, raised before any launch.
+the wide plans (ops/bn.py::_bn_fwd_wide, ops/fused.py::_train_bwd_wide) beyond
+the leanest staged plan, which the wrappers take with no ValueError.
 chip_smoke.py holds the mirrors to the library's own gnn_bn_forward_info /
 gnn_train_loop_bwd_info on the card."""
 
@@ -137,32 +138,41 @@ def test_k8_plans_take_every_shape_the_per_node_kernel_took(W):
     assert tfused._train_bwd_plan(W, 14)[1] == 0
 
 
-def test_k1_raises_above_its_last_plan():
-    """A shape that not even K1's leanest plan fits (W 128, D 64, the least
-    such F) raises the wrapper's ValueError naming the bytes it needs and the
-    CTA's limit, before any launch (on meta tensors, which no kernel takes);
-    one arc-label column fewer passes."""
+def test_k1_raises_above_its_last_plan(monkeypatch):
+    """A shape that not even K1's leanest staged plan fits (W 128, D 64, the
+    least such F) is the wide plan's (index 2, its bytes; one arc-label
+    column fewer the leanest staged plan's): the wrapper's checks pass on
+    meta tensors and stop only where the library would be loaded for the
+    launch; no ValueError names the shared memory, which the wide plan keeps
+    at the lists."""
     last = tbn._BN_FWD_PLANS[-1]
     f = next(f for f in range(0, 512) if tbn._bn_fwd_bytes(128, 64, f, last) > SMEM)
     need, plan = tbn._bn_plan("K1", 128, 64, f)
-    assert plan is None and need == tbn._bn_fwd_bytes(128, 64, f, last)
-    with pytest.raises(ValueError, match=f"W=128, D=64, F={f} needs {need} bytes of shared "
-                                         f"memory a block, more than the {SMEM}"):
-        _k1_launch(128, 64, f)
-    tbn._check_bn_plan("K1", 128, 64, f - 1)
+    assert plan == len(tbn._BN_FWD_PLANS) and need == tbn._bn_fwd_wide(128, 64, f)[0] <= SMEM
+    assert tbn._bn_plan("K1", 128, 64, f - 1)[1] == len(tbn._BN_FWD_PLANS) - 1
+
+    def no_library():
+        raise ValueError("launch reached")
+    monkeypatch.setattr(tbn._build, "library", no_library)
+    for width in (f, f - 1):
+        with pytest.raises(ValueError, match="launch reached"):
+            _k1_launch(128, 64, width)
+        tbn._check_bn_plan("K1", 128, 64, width)
 
 
 def test_k8_raises_above_its_last_plan():
-    """A state width that not even K8's leanest plan fits at W 128 raises the
-    wrapper's ValueError naming the bytes it needs and the CTA's limit, before
-    any launch; one column fewer passes the plan check and is refused for its
-    width alone (the kernels take D up to 64)."""
+    """A state width that not even K8's leanest staged plan fits at W 128
+    takes the wide plan (index 2, its bytes), and so does every width up to
+    1024; one column fewer fits the leanest staged plan. Both pass every
+    check of the wrapper and stop only at the meta device (no kernel takes
+    meta tensors)."""
     last = tfused._TRAIN_BWD_PLANS[-1]
     d = next(d for d in range(1, 512) if tfused._train_bwd_bytes(128, d, last) > SMEM)
     need, plan = tfused._train_bwd_plan(128, d)
-    assert d > 64 and plan is None and need == tfused._train_bwd_bytes(128, d, last)
-    with pytest.raises(ValueError, match=f"W=128, D={d} needs {need} bytes of shared memory a "
-                                         f"block, more than the {SMEM}"):
-        _k8_launch(128, d)
-    with pytest.raises(ValueError, match="feature widths above 64"):
-        _k8_launch(128, d - 1)
+    assert d > 64 and plan == len(tfused._TRAIN_BWD_PLANS)
+    assert need == tfused._train_bwd_wide(128, d)[0] <= SMEM
+    assert tfused._train_bwd_plan(128, d - 1)[1] == len(tfused._TRAIN_BWD_PLANS) - 1
+    assert all(tfused._train_bwd_plan(128, w)[1] == plan for w in range(d, 1025))
+    for width in (d, d - 1):
+        with pytest.raises(ValueError, match="need CPU or CUDA tensors"):
+            _k8_launch(128, width)

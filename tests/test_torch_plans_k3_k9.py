@@ -5,8 +5,9 @@ ops/fused2.py::_PLANS["K9"], _KIND["K9"], _tile2_bytes and _tile2_plan), on
 the CPU: the mirrors' plan lists against the sources, their bytes at the
 flagship's and the hidden-150 recipe's widths against the layouts summed by
 hand, the plans' fit in a CTA and the CTAs an SM they leave room for, every
-shape the per-node kernels took taken by some plan, and the wrappers'
-ValueError beyond the leanest plan, raised before any launch. chip_smoke.py
+shape the per-node kernels took taken by some plan, K3's wide plan
+(ops/fused.py::_loop_wide) beyond its leanest staged plan, and K9's
+ValueError beyond its leanest plan, raised before any launch. chip_smoke.py
 holds the mirrors to the library's own gnn_propagation_loop_info /
 gnn_propagation_step2_info on the card."""
 
@@ -167,19 +168,20 @@ def test_k9_plans_take_every_shape_the_per_node_kernel_took(W):
 
 
 def test_k3_raises_above_its_last_plan():
-    """A state width that not even K3's leanest plan fits at W 128 raises the
-    wrapper's ValueError naming the bytes it needs and the CTA's limit, before
-    any launch; one column fewer passes the plan check and is refused for its
-    width alone (the kernel takes D up to 64)."""
+    """A state width that not even K3's leanest staged plan fits at W 128
+    takes the wide plan (index 2, its bytes), as every width up to 1024
+    does; one column fewer fits the leanest staged plan. Both pass every
+    check of the wrapper, with no ValueError on the width or the shared
+    memory, and stop only at the meta device."""
     last = tfused._LOOP_PLANS[-1]
     d = next(d for d in range(1, 512) if tfused._loop_bytes(128, d, last) > SMEM)
     need, plan = tfused._loop_plan(128, d)
-    assert d > 64 and plan is None and need == tfused._loop_bytes(128, d, last)
-    with pytest.raises(ValueError, match=f"W=128, D={d} needs {need} bytes of shared memory a "
-                                         f"block, more than the {SMEM}"):
-        _k3_launch(128, d)
-    with pytest.raises(ValueError, match="feature widths above 64"):
-        _k3_launch(128, d - 1)
+    assert d > 64 and plan == len(tfused._LOOP_PLANS) and need == tfused._loop_wide(128, d)[0]
+    assert tfused._loop_plan(128, d - 1)[1] == len(tfused._LOOP_PLANS) - 1
+    assert all(tfused._loop_plan(128, w)[1] == plan for w in range(d, 1025))
+    for width in (d, d - 1):
+        with pytest.raises(ValueError, match="need CPU or CUDA tensors"):
+            _k3_launch(128, width)
 
 
 def test_k9_raises_above_its_last_plan():

@@ -5,8 +5,9 @@ kAggThreads and agg_launch, mirrored by ops/segment.py::_AGG_THREADS and
 _agg_launch), on the CPU: the mirrors against the sources, K6's bytes at the
 flagship's widths and at its largest and smallest shapes against the layout
 summed by hand, the CTAs an SM it leaves room for, every shape the per-node K6
-took taken by its one plan, its wrapper's ValueError beyond the widths and on
-a misaligned operand, raised on meta tensors before any launch; K18's groups
+took taken by its staged plan, the wide plan beyond it (no ValueError on the
+widths), its wrapper's ValueError on a misaligned operand, raised on meta
+tensors before any launch; K18's groups
 of lanes covering every row and feature once. chip_smoke.py holds the mirrors
 to the library's own gnn_train_step_info / gnn_segment_aggregate_info on the
 card."""
@@ -67,13 +68,15 @@ def launched(monkeypatch):
 
 
 def test_k6_mirrored_plan_matches_the_source():
-    """The Python plan is the source's one plan: 256 threads, column lists
-    of 16; the source keeps no second plan and no entry to force one, and
-    none of the per-node kernel's helpers."""
+    """The Python plan is the source's staged plan: 256 threads, column lists
+    of 16; the source's second plan is the wide plan (a template
+    instantiation, no plan list), which its force entry can choose; none of
+    the per-node kernel's helpers remain."""
     text = (CSRC / "train_loop.cu").read_text()
     m = re.search(r"constexpr int kTrainStepThreads = (\d+), kTrainStepLists = (\d+);", text)
     assert (int(m.group(1)), int(m.group(2))) == tfused._TRAIN_STEP_PLAN == (256, 16)
-    assert "gnn_train_step_info" in text and "gnn_train_step_force_plan" not in text
+    assert "gnn_train_step_info" in text and "gnn_train_step_force_plan" in text
+    assert "train_step_kernel<true>" in text and "Plans[]" not in text
     common = (CSRC / "common.cuh").read_text()
     for gone in ("dense_acc", "step_smem", "launch_step", "stage_adj", "stage_in", "stage_out",
                  "aggregate_col"):
@@ -130,18 +133,30 @@ def test_k6_plan_summed_by_hand(W, D, H):
         assert max(rows, 2 * W) == 2 * W > rows
 
 
-def test_k6_raises_beyond_the_widths_its_plan_takes():
-    """K6 takes D and H up to 64 each: a width read or written of 65, and
-    the first width read the plan no longer fits at W 128 and H 64, raise
-    the wrapper's ValueError naming the widths, before any launch; so does a
-    block width the kernel does not take."""
+def test_k6_raises_beyond_the_widths_its_plan_takes(monkeypatch):
+    """K6 takes every width: a width read or written of 65, and the first
+    width read the staged plan no longer fits at W 128 and H 64 (the wide
+    plan's, index 1), pass the block check and stop only at the meta device;
+    with the device check lifted they pass every check and reach the launch.
+    Only a block width the kernel does not take raises the wrapper's
+    ValueError."""
     d = next(d for d in range(1, 1024) if tfused._train_step_bytes(128, d, 64) > SMEM)
     assert d > 65
-    for D, H in ((65, 14), (14, 65), (d, 64)):
-        with pytest.raises(ValueError, match=f"feature widths above 64 .*\\(D={D}, H={H}\\)"):
+    assert tfused._train_step_plan(128, d, 64) == (tfused._train_step_wide(128, d, 64)[0], 1)
+    assert tfused._train_step_plan(128, 65, 14)[1] == tfused._train_step_plan(128, 14, 65)[1] == 0
+    shapes = ((65, 14), (14, 65), (d, 64))
+    for D, H in shapes:
+        with pytest.raises(ValueError, match="need CPU or CUDA tensors"):
             _k6_launch(128, D, H)
     with pytest.raises(ValueError, match="block width must be 32, 64, 96 or 128"):
         _k6_launch(48, 14, 14)
+    seen = []
+    monkeypatch.setattr(tfused, "_check_block", lambda adjT, D, H: None)
+    monkeypatch.setattr(tfused, "_launch", lambda key, device, *args: seen.append(key))
+    for D, H in shapes:
+        y, agg = _k6_launch(128, D, H)
+        assert y.shape == (2, 128, H) and agg.shape == (2, 128, D)
+    assert seen == ["train_step"] * 3
 
 
 @pytest.mark.parametrize("bad", ["adjT", "s", "sd", "m", "rT", "fT", "w_cat"])

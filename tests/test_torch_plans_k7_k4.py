@@ -5,9 +5,9 @@ ops/fused.py::_TRAIN_LOOP_PLAN and _train_loop_bytes) and K4
 ops/fused.py::_STEP_PLAN and _step_bytes), on the CPU: the mirrors against
 the sources, their bytes at the flagship's widths against the layouts summed
 by hand, the CTAs an SM the plans leave room for, every shape the per-node
-kernels took taken by the one plan each kernel has, and the wrappers'
-ValueError beyond the widths the plan takes and on a misaligned operand,
-raised on meta tensors before any launch. chip_smoke.py holds the mirrors to
+kernels took taken by each kernel's staged plan, the wide plan beyond it (no
+ValueError on the widths), and the wrappers' ValueError on a misaligned
+operand, raised on meta tensors before any launch. chip_smoke.py holds the mirrors to
 the library's own gnn_train_loop_info / gnn_propagation_step_info on the
 card."""
 
@@ -99,9 +99,10 @@ def _source_plan(path, threads, lists):
 
 @pytest.mark.parametrize("kernel", ["K7", "K4"])
 def test_mirrored_plans_match_the_sources(kernel):
-    """The Python plans are the sources' one plan each: 256 threads, with
-    column lists (8 for K7, 16 for K4); neither source keeps a second plan
-    or an entry to force one."""
+    """The Python plans are the sources' staged plans: 256 threads, with
+    column lists (8 for K7, 16 for K4); each source's second plan is its
+    wide plan (a template instantiation, no plan list), which its force
+    entry can choose."""
     if kernel == "K7":
         path, plan = "train_loop.cu", tfused._TRAIN_LOOP_PLAN
         assert _source_plan(path, "kTrainLoopThreads", "kTrainLoopLists") == plan == (256, 8)
@@ -111,8 +112,9 @@ def test_mirrored_plans_match_the_sources(kernel):
         assert _source_plan(path, "kStepThreads", "kStepLists") == plan == (256, 16)
         entry = "gnn_propagation_step"
     text = (CSRC / path).read_text()
-    assert f"{entry}_info" in text and f"{entry}_force_plan" not in text
+    assert f"{entry}_info" in text and f"{entry}_force_plan" in text
     assert "Plans[]" not in text.split("// K6's design")[0]
+    assert ("train_loop_kernel<true>" if kernel == "K7" else "step_kernel<true>") in text
 
 
 @pytest.mark.parametrize("kernel", ["K7", "K4"])
@@ -198,32 +200,52 @@ def test_the_plans_at_the_largest_and_smallest_shapes(kernel, W, D, H):
         assert got == (188032 if kernel == "K7" else 209536)
 
 
-def test_k7_raises_beyond_the_widths_its_plan_takes():
-    """K7's plan fits state widths past 64 at W 128, but the kernel takes D
-    up to 64: D 65 and the first width the plan no longer fits raise the
-    wrapper's ValueError naming the widths, before any launch; so does a
-    block width the kernel does not take."""
+def test_k7_raises_beyond_the_widths_its_plan_takes(monkeypatch):
+    """K7 takes every state width: D 65 (its staged plan, index 0) and the
+    first width the staged plan no longer fits at W 128 (the wide plan,
+    index 1) pass the block check and stop only at the meta device; with
+    the device check lifted they reach the launch. Only a block width the
+    kernel does not take raises the wrapper's ValueError."""
     d = next(d for d in range(1, 512) if tfused._train_loop_bytes(128, d) > SMEM)
     assert d > 65
+    assert tfused._train_loop_plan(128, 65)[1] == 0
+    assert tfused._train_loop_plan(128, d) == (tfused._train_loop_wide(128, d)[0], 1)
     for width in (65, d):
-        with pytest.raises(ValueError, match=f"feature widths above 64 .*D={width}"):
+        with pytest.raises(ValueError, match="need CPU or CUDA tensors"):
             _k7_launch(128, width)
     with pytest.raises(ValueError, match="block width must be 32, 64, 96 or 128"):
         _k7_launch(160, 14)
+    seen = []
+    monkeypatch.setattr(tfused, "_check_block", lambda adjT, D, H: None)
+    monkeypatch.setattr(tfused, "_launch", lambda key, device, *args: seen.append(key))
+    for width in (65, d):
+        traj, margins, agg = _k7_launch(128, width)
+        assert traj.shape[-1] == agg.shape[-1] == width
+    assert seen == ["train_loop"] * 2
 
 
-def test_k4_raises_beyond_the_widths_its_plan_takes():
-    """K4 takes D and H up to 64 each: a width read or written of 65, and
-    the first width read the plan no longer fits at W 128 and H 64, raise
-    the wrapper's ValueError naming the widths, before any launch; so does a
-    block width the kernel does not take."""
+def test_k4_raises_beyond_the_widths_its_plan_takes(monkeypatch):
+    """K4 takes every width: a width read or written of 65 (its staged plan)
+    and the first width read the staged plan no longer fits at W 128 and H
+    64 (the wide plan, index 1) pass the block check and stop only at the
+    meta device; with the device check lifted they reach the launch. Only a
+    block width the kernel does not take raises the wrapper's ValueError."""
     d = next(d for d in range(1, 1024) if tfused._step_bytes(128, d, 64) > SMEM)
     assert d > 65
-    for D, H in ((65, 14), (14, 65), (d, 64)):
-        with pytest.raises(ValueError, match=f"feature widths above 64 .*\\(D={D}, H={H}\\)"):
+    assert tfused._step_plan(128, 65, 14)[1] == tfused._step_plan(128, 14, 65)[1] == 0
+    assert tfused._step_plan(128, d, 64) == (tfused._step_wide(128, d, 64)[0], 1)
+    shapes = ((65, 14), (14, 65), (d, 64))
+    for D, H in shapes:
+        with pytest.raises(ValueError, match="need CPU or CUDA tensors"):
             _k4_launch(128, D, H)
     with pytest.raises(ValueError, match="block width must be 32, 64, 96 or 128"):
         _k4_launch(48, 14, 14)
+    seen = []
+    monkeypatch.setattr(tfused, "_check_block", lambda adjT, D, H: None)
+    monkeypatch.setattr(tfused, "_launch", lambda key, device, *args: seen.append(key))
+    for D, H in shapes:
+        assert _k4_launch(128, D, H).shape == (2, 128, H)
+    assert seen == ["propagation_step"] * 3
 
 
 @pytest.mark.parametrize("bad", ["adjT", "s0", "ms", "ma", "fT", "w_cat", "nm"])

@@ -1,23 +1,25 @@
-"""Specs of widths the port's kernels refuse: the routes keep gnn_tpu's
-dispatch, the CPU computes what gnn_tpu computes, and the card refuses.
+"""Specs of wide states: the routes keep gnn_tpu's dispatch, the CPU
+computes what gnn_tpu computes, the one-layer kernels take every width and
+the card refuses only what the two-layer and typed kernels do not take.
 
 gnn_tpu's kernel predicates have no width test (ops/pallas_fused.py:1921-1946)
 and its dispatch runs the Pallas kernels at any width. The port's routes
 (models/core.py::_eval_route, _train_route; models/composite.py::_route) pick
 by the spec and the layout alone, as gnn_tpu's do, so a spec of state width 80
-takes the same kernel route as one of width 5. The port's kernels take state
-widths up to 64 (K1-K17), arc-label widths up to 64 (K9-K15), hidden widths up
-to fused2.MAX_HIDDEN (K9-K15), up to typed.MAX_TYPES node types (K16/K17) and
-a CTA's shared memory. On the CPU every wrapper runs its plain version, so a
-width-80 model matches gnn_tpu's exact f32 body (aggregation='blocked',
-highest matmul precision): iteration counts equal, states and outputs atol
-3e-5, the loss rtol 1e-5, grads rtol 2e-4 (atol 1e-6), params after one Adam
-step atol 1e-5. On the card the same wrappers raise ValueError before any
-launch and never run the plain version in the kernel's place: every call a
-route makes at such widths is replayed here on meta tensors, which the
-wrappers check as they check CUDA ones, and must be refused by its widths
-with no launch counted, where at widths the kernels take it passes those
-checks and stops only at the meta device.
+takes the same kernel route as one of width 5. The one-layer kernels K1-K8
+take every state width (each a wide plan where no staged plan fits). The
+two-layer and typed kernels take state widths up to 64 (K9-K17), arc-label
+widths up to 64 (K9-K15), hidden widths up to fused2.MAX_HIDDEN (K9-K15), up to
+typed.MAX_TYPES node types (K16/K17) and a CTA's shared memory. On the CPU
+every wrapper runs its plain version, so a width-80 model matches gnn_tpu's
+exact f32 body (aggregation='blocked', highest matmul precision): iteration
+counts equal, states and outputs atol 3e-5, the loss rtol 1e-5, grads rtol
+2e-4 (atol 1e-6), params after one Adam step atol 1e-5. Every call a route
+makes is replayed here on meta tensors, which the wrappers check as they
+check CUDA ones: K1-K8's pass every check and stop only at the meta device
+(or, for the BatchNorm wrappers, where the library would be loaded), with no
+launch counted; K9-K17's beyond their widths raise ValueError before any
+launch and never run the plain version in the kernel's place.
 """
 
 import collections
@@ -58,7 +60,8 @@ WRAPPERS = {tf: ("propagation_loop", "propagation_loop_bwd", "propagation_step",
             tbn: ("bn_forward_step", "bn_backward_step", "bn2_forward_step", "bn2_backward_step"),
             ttyped: ("bnT_forward_step", "bnT_backward_step")}
 KERNEL = {"propagation_loop": "K3", "propagation_step": "K4", "propagation_loop_bwd": "K5",
-          "train_step": "K6", "train_loop": "K7", "train_loop_bwd": "K8"}
+          "train_step": "K6", "train_loop": "K7", "train_loop_bwd": "K8",
+          "bn_forward_step": "K1", "bn_backward_step": "K2"}
 # the wrappers' ValueErrors on widths; past them, a wrapper on meta tensors
 # stops at its device check or, where the device gate is lifted, at the launch
 REFUSED = r"widths above 64|bytes of shared memory|hidden width|node types"
@@ -190,8 +193,9 @@ def test_state_width_80_keeps_the_kernel_route(monkeypatch, net, aggregation):
     """At state width 80 every route is the one it is at width 5, at eval
     and in training, with 'auto' and 'fused', as gnn_tpu's dispatch; the
     model runs on the CPU through the route's wrappers (their plain
-    versions), and each of those calls, replayed on meta tensors, is refused
-    by its widths before any launch."""
+    versions), and each of those calls, replayed on meta tensors, passes
+    every check of the one-layer kernels K1-K8 (no launch counted) and is
+    refused by its widths before any launch for the two-layer ones."""
     (layers, drop, bn, hidden), (ev, tr) = NETS[net]
     kw = dict(layers=layers, drop=drop, bn=bn, hidden=hidden, aggregation=aggregation)
     _, narrow = _batches(5, 3)
@@ -201,7 +205,8 @@ def test_state_width_80_keeps_the_kernel_route(monkeypatch, net, aggregation):
     spec = _spec(80, 3, **kw)
     assert (tcore._eval_route(spec, wide), tcore._train_route(spec, wide)) == (ev, tr)
     for training in (False, True):
-        _replay(monkeypatch, _run(monkeypatch, spec, wide, training), REFUSED)
+        _replay(monkeypatch, _run(monkeypatch, spec, wide, training),
+                ON_META if layers == 1 else REFUSED)
 
 
 @pytest.mark.parametrize("net", [n for n in NETS if n.startswith("two")] + ["one layer, BatchNorm"])
@@ -265,23 +270,30 @@ def test_composite_typed_kernels_refuse_on_the_card(monkeypatch, T, nl, match):
     _replay(monkeypatch, calls, match)
 
 
-@pytest.mark.parametrize("kernel", ["K3", "K4", "K5", "K6", "K7", "K8"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"])
 def test_fused_wrappers_refuse_width_80_at_block_width_128(monkeypatch, kernel):
-    """At block width 128 the one-layer routes' calls of K3-K8 pass every
-    width check at D = 64 and are refused at D = 80: K3, K5 and K8 first by
-    their plans' shared memory, K4, K6 and K7 by the widths."""
-    drop = 0.1 if kernel in ("K6", "K7", "K8") else 0.0
-    training = kernel in ("K5", "K6", "K7", "K8")
-    for D in (64, 80):
+    """(The name is from when K1-K8 refused state widths above 64.) At block
+    width 128 the one-layer routes' calls of K1-K8 pass every check of their
+    wrappers at D 64, 80, 128 and 200, replayed on meta tensors with no
+    launch counted: the staged plans where they fit, else the wide plan
+    (K3-K8 from D 80 on, K1 and K2 from 128; the mirrors name it)."""
+    drop = 0.1 if kernel in ("K1", "K2", "K6", "K7", "K8") else 0.0
+    training = kernel not in ("K3", "K4")
+    plan_of = {"K1": lambda D: tbn._bn_plan("K1", 128, D, 3),
+               "K2": lambda D: tbn._bn_plan("K2", 128, D, 3),
+               "K3": lambda D: tf._loop_plan(128, D), "K4": lambda D: tf._step_plan(128, D, D),
+               "K5": lambda D: tf._loop_bwd_plan(128, D),
+               "K6": lambda D: tf._train_step_plan(128, D, D),
+               "K7": lambda D: tf._train_loop_plan(128, D),
+               "K8": lambda D: tf._train_bwd_plan(128, D)}[kernel]
+    wide = {"K1": 2, "K2": 2, "K3": 2, "K4": 1, "K5": 2, "K6": 1, "K7": 1, "K8": 2}[kernel]
+    for D in (64, 80, 128, 200):
         _, tb = _batches(D, 3, block_w=128)
-        spec = _spec(D, 3, drop=drop)
-        calls = [c for c in _run(monkeypatch, spec, tb, training) if KERNEL[c[1]] == kernel]
-        if D == 64:
-            _replay(monkeypatch, calls, ON_META)
-        elif kernel in ("K3", "K5", "K8"):
-            _replay(monkeypatch, calls, "W=128, D=80 needs \\d+ bytes of shared memory")
-        else:
-            _replay(monkeypatch, calls, "feature widths above 64 are not supported \\(D=80, H=80\\)")
+        spec = _spec(D, 3, drop=drop, bn=kernel in ("K1", "K2"))
+        calls = [c for c in _run(monkeypatch, spec, tb, training) if KERNEL.get(c[1]) == kernel]
+        _replay(monkeypatch, calls, ON_META)
+        takes_wide = D >= (128 if kernel in ("K1", "K2") else 80)
+        assert (plan_of(D)[1] == wide) == takes_wide, (D, plan_of(D))
 
 
 def _np(t):

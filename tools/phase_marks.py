@@ -15,12 +15,20 @@ h150 serving batch's dep rows, K5 at the clean route's loop rows, K7 at the
 dropout route's loop rows, K4 at the flagship serving batch's dep rows, K6 at
 the dropout route's dep rows, K18 on the whole set's plan at D = 14; K18 has
 no barrier, so its one segment is the whole kernel).
+With width=D (K1-K8) the operands are the same routes' at state width D, on
+the MUTAG-shaped set's graphs and arcs with seeded D-wide node labels
+(chip_smoke.py::relabelled): from D 80 on at W 128 the kernels take their wide
+plans, whose phases (staging, the list build, U or the dense layer, the
+aggregation and the epilogue) are the same barriers' segments. With force=i
+every build launches plan i (gnn_*_force_plan; the wide plan is the last
+index), e.g. the wide plan at the flagship's width.
 Printed: the instrumented and the unmarked launch's times (the marks' cost), then
 each segment's share of the cycles summed over the CTAs and its cycles a CTA, named
 by the source lines of the barriers that end it.
 
 Usage, from the repository root (a tree defaults to gnn_tpu_torch/ops/csrc):
-    python3 tools/phase_marks.py K1|K2|K3|K4|K5|K6|K7|K8|K9|K12|K14|K16|K17|K18 [name=tree ...]
+    python3 tools/phase_marks.py K1|K2|K3|K4|K5|K6|K7|K8|K9|K12|K14|K16|K17|K18 \\
+        [width=D] [force=i] [name=tree ...]
 """
 
 import ctypes
@@ -112,11 +120,18 @@ def main():
     from gnn_tpu_torch.ops import _build, bn, fused, fused2, segment, typed
     kernel = sys.argv[1]
     entry, names = KERNELS[kernel]
-    trees = dict(a.split("=", 1) for a in sys.argv[2:]) or {"tree": str(_build.CSRC)}
+    trees = dict(a.split("=", 1) for a in sys.argv[2:])
+    width = int(trees.pop("width", 14))
+    force = int(trees.pop("force", -1))
+    trees = trees or {"tree": str(_build.CSRC)}
+    if width != 14 and kernel not in ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8"):
+        cs.fail(f"width={width}: only the one-layer kernels K1-K8 take other state widths")
     cs.phase_device(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     graphs = mutag_shaped(seed=cs.SEED)
-    model = cs.flagship(torch, "cuda")
+    if width != 14:
+        graphs = cs.relabelled(graphs, width, cs.SEED + 61)
+    model = cs.flagship(torch, "cuda", f"w{width}_bn")
     gb_train = model.to_batch(graphs)
     with torch.no_grad():
         if kernel == "K1":
@@ -126,7 +141,7 @@ def main():
             _, _, x, kw = cs.train_kernel_inputs(torch, model, gb_train)
             fn, x, rows = bn.bn_backward_step, dict(x, **kw), x["y_prev"].shape[0]
         elif kernel == "K8":
-            x = cs.bnfree_kernel_inputs(torch, gb_train)[3]
+            x = cs.bnfree_kernel_inputs(torch, gb_train, width)[3]
             fn, rows = fused.train_loop_bwd, x["adjT"].shape[0]
         elif kernel == "K14":
             _, x, kw, _ = cs.two_layer_train_kernel_inputs(torch, gb_train)
@@ -142,7 +157,8 @@ def main():
             else:
                 fn, x, rows = typed.bnT_backward_step, dict(x, **kw), x["y_prev"].shape[0]
         elif kernel in ("K5", "K6", "K7"):
-            x = cs.bnfree_kernel_inputs(torch, gb_train)[{"K5": 0, "K6": 1, "K7": 2}[kernel]]
+            x = cs.bnfree_kernel_inputs(torch, gb_train, width)[{"K5": 0, "K6": 1,
+                                                                 "K7": 2}[kernel]]
             fn = {"K5": fused.propagation_loop_bwd, "K6": fused.train_step,
                   "K7": fused.train_loop}[kernel]
             rows = x["adjT"].shape[0]
@@ -172,12 +188,15 @@ def main():
             rows = x["adjT"].shape[0]
 
     class One:
-        """The library the wrapper launches through."""
+        """The library the wrapper launches through (a tree without wide plans
+        has no gnn_*_workspace entries: its staged plans need none)."""
 
         def __init__(self, lib):
             self.lib = lib
 
         def __getattr__(self, name):
+            if name.endswith("_workspace") and not hasattr(self.lib, name):
+                return lambda *dims: 0
             return getattr(self.lib, name)
 
     # every tree's marked and unmarked copies, built all at once
@@ -207,7 +226,9 @@ def main():
     for (tname, label, _, _, so), r in zip(jobs, built):
         if r.returncode:
             cs.fail(f"{tname} {label}: nvcc failed\n{r.stdout[-2000:]}{r.stderr[-2000:]}")
-        libs_of.setdefault(tname, {})[label] = _build.bind(ctypes.CDLL(so))
+        libs_of.setdefault(tname, {})[label] = lib = _build.bind(ctypes.CDLL(so))
+        if force >= 0:
+            getattr(lib, entry + "_force_plan")(force)
     for tname, (src_path, lines) in plan.items():
         libs = libs_of[tname]
         n = len(lines)
@@ -227,7 +248,8 @@ def main():
             _build._lib = None
         seg = slots.view(rows, n).double().sum(0)
         total = float(seg.sum())
-        cs.say(f"{kernel} {tname} ({os.path.basename(src_path)}): ms {ms}")
+        cs.say(f"{kernel} {tname} ({os.path.basename(src_path)}, state width {width}"
+               f"{f', plan {force} forced' if force >= 0 else ''}): ms {ms}")
         prev = None
         for i, (line, v) in enumerate(zip(lines, seg.tolist())):
             span = f"lines {prev}-{line}" if prev else f"to line {line}"

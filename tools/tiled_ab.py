@@ -31,9 +31,12 @@ rT, K18 also at D 1, 31 and 37) every tree's outputs are held to the first
 tree's, bit for bit for K13, K10, K1, K8, K14, K17, K3, K9, K16, K5, K7, K4,
 K6 and K18 (the same sums in every tree),
 reported for the others, and each tree's largest per-node difference from
-the plain version is printed; K3, K9, K16 and K5 are held so at every plan of
-every tree that has their gnn_*_force_plan entry, forced in turn (K7 and K4
-have one plan each).
+the plain version is printed; K3, K9, K16, K5, K1, K2, K8, K7, K4 and K6 are
+held so at every plan of every tree that has their gnn_*_force_plan entry,
+forced in turn, and, in a tree whose kernel has a wide plan (K1-K8's, chosen
+where no staged plan fits), at its wide plan forced too; K1, K2 and K8 also
+at D 64 (W 128) beside the full set, so that each wide plan is held bit for
+bit at D 14 and 64 to the staged plan of every tree (a parent's too).
 Then each kernel is timed with CUDA events as chip_smoke.py times it (K3, K9,
 K16, K5, K7, K4, K6 and K18 also by the profiler's device time a call, which a
 launch-sized call's host work does not enter), on its full-set cases, the
@@ -71,9 +74,18 @@ KERNELS = {"K10": ("gnn_propagation_loop2", True), "K12": ("gnn_train_loop2", Fa
            "K16": ("gnn_bnT_forward", True), "K5": ("gnn_propagation_loop_bwd", True),
            "K7": ("gnn_train_loop", True), "K4": ("gnn_propagation_step", True),
            "K6": ("gnn_train_step", True), "K18": ("gnn_segment_aggregate", True)}
-# the kernels held at every plan forced (where a tree can force them) and
-# timed by device time too
+# the kernels timed by device time too, and those held at every plan forced
+# (where a tree can force them)
 PLANNED = ("K3", "K9", "K16", "K5", "K7", "K4", "K6", "K18")
+FORCED = PLANNED + ("K1", "K2", "K8")
+# the kernels with a wide plan after their staged plans, in a tree whose
+# source holds one
+WIDE = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+
+
+def has_wide(src):
+    """Whether a kernel source holds a wide plan (its kernel templated on it)."""
+    return src is not None and "bool WIDE" in open(src).read()
 
 
 def source_of(tree, entry):
@@ -128,12 +140,16 @@ def main():
     libs = {key: loaded[key[0], src] for key, src in srcs.items() if src is not None}
 
     class One:
-        """The library the wrappers launch through: one tree's, for one kernel."""
+        """The library the wrappers launch through: one tree's, for one kernel
+        (a tree without wide plans has no gnn_*_workspace entries: its staged
+        plans need no workspace)."""
 
         def __init__(self, lib):
             self.lib = lib
 
         def __getattr__(self, name):
+            if name.endswith("_workspace") and not hasattr(self.lib, name):
+                return lambda *dims: 0
             return getattr(self.lib, name)
 
     graphs = mutag_shaped(seed=cs.SEED)
@@ -376,6 +392,18 @@ def main():
     def full(x):
         return [("full set", x, True)]
 
+    def d64(k, x):
+        """K1's, K2's or K8's full-set case, then one at D 64 (W 128) in the
+        full set's dropout mode."""
+        if k == "K8":
+            edge = cs.random_bnfree_inputs(torch, gen, 2, 128, 64, 64, 2, x["rate"],
+                                           x["alpha_drop"], "selu", "cuda")[3]
+        else:
+            f, b = cs.random_bn_inputs(torch, gen, 3, 2, 128, 64, 3, x["rate"], True, "cuda")
+            kw = {a: x[a] for a in ("activation", "alpha_drop", "rate")}
+            edge = dict(f, **kw, threshold=0.05) if k == "K1" else dict(b, **kw)
+        return full(x) + [("D 64", edge, False)]
+
     # kernel: (module, wrapper, cases [(label, operands, timed)], plan list or
     # None, the plan bytes' widths of an operand set)
     setups = {
@@ -389,11 +417,12 @@ def main():
                         lambda x: dims2(x, "y_prev", "feats", "w0_aug")),
         "K14": lambda: (bn, "bn2_forward_step", full(dict(two_train()[1], **two_train()[2])),
                         fused2._PLANS["K14"], lambda x: dims2(x, "y1", "feats", "w0_aug")),
-        "K1": lambda: (bn, "bn_forward_step", full(dict(bn_train()[0][1], **bn_train()[1])),
+        "K1": lambda: (bn, "bn_forward_step",
+                       d64("K1", dict(bn_train()[0][1], **bn_train()[1])),
                        bn._BN_FWD_PLANS, lambda x: dims2(x, "y1", "feats")),
-        "K2": lambda: (bn, "bn_backward_step", full(dict(bn_train()[2], **bn_train()[3])),
+        "K2": lambda: (bn, "bn_backward_step", d64("K2", dict(bn_train()[2], **bn_train()[3])),
                        bn._BN_BWD_PLANS, lambda x: dims2(x, "y_prev", "feats")),
-        "K8": lambda: (fused, "train_loop_bwd", full(k8()), fused._TRAIN_BWD_PLANS,
+        "K8": lambda: (fused, "train_loop_bwd", d64("K8", k8()), fused._TRAIN_BWD_PLANS,
                        lambda x: dims2(x, "s0")),
         "K17": lambda: (typed, "bnT_backward_step", full(k17()[0]), typed._BNT_BWD_PLANS,
                         lambda x: dims2(x, "y_prev", "feats") + (k17()[1],)),
@@ -405,14 +434,20 @@ def main():
                         lambda x: dims2(x, "y1", "feats") + (x["aff"].shape[2],)),
         "K5": lambda: (fused, "propagation_loop_bwd", k5_cases(), fused._LOOP_BWD_PLANS,
                        lambda x: dims2(x, "s0")),
-        "K7": lambda: (fused, "train_loop", k7_cases(), None, None),
-        "K4": lambda: (fused, "propagation_step", k4_cases(), None, None),
-        "K6": lambda: (fused, "train_step", k6_cases(), None, None),
+        "K7": lambda: (fused, "train_loop", k7_cases(), (fused._TRAIN_LOOP_PLAN,),
+                       lambda x: dims2(x, "s0")),
+        "K4": lambda: (fused, "propagation_step", k4_cases(), (fused._STEP_PLAN,),
+                       lambda x: dims2(x, "s", "fT")),
+        "K6": lambda: (fused, "train_step", k6_cases(), (fused._TRAIN_STEP_PLAN,),
+                       lambda x: dims2(x, "s", "fT")),
         "K18": lambda: (segment, "segment_aggregate", k18_cases(), None, None),
     }
     nbytes = {"K1": bn._bn_fwd_bytes, "K2": bn._bn_bwd_bytes, "K8": fused._train_bwd_bytes,
               "K17": typed._bnT_bwd_bytes, "K3": fused._loop_bytes, "K16": typed._bnT_fwd_bytes,
-              "K5": fused._loop_bwd_bytes}
+              "K5": fused._loop_bwd_bytes,
+              "K7": lambda W, D, p: fused._train_loop_bytes(W, D),
+              "K4": lambda W, D, H, p: fused._step_bytes(W, D, H),
+              "K6": lambda W, D, H, p: fused._train_step_bytes(W, D, H)}
 
     def dims2(x, rows, f=None, w0=None):
         """(W, D[, F or AL[, H1]]) of a kernel's operands."""
@@ -447,17 +482,21 @@ def main():
                         torch.cuda.synchronize()
                         cs.say(f"{k} {label}, {t}: largest per-node difference from the plain "
                                f"version {float((outs[t][0] - want[0]).abs().max()):.3e}")
-                    if k in PLANNED:   # every plan of every tree that forces them
+                    if k in FORCED:   # every plan of every tree that forces them
                         for t in names:
                             force = getattr(libs[t, k], entry + "_force_plan", None)
-                            for i, plan in enumerate((plan_list or ()) if force else ()):
-                                if fits(k, plan, dims):
-                                    _build._lib = One(libs[t, k])
-                                    force(i)
-                                    try:
-                                        outs[f"{t} plan {i} forced"] = outputs(fn(**x))
-                                    finally:
-                                        force(-1)
+                            staged = list(plan_list or ()) if force else []
+                            forced = [i for i, plan in enumerate(staged) if fits(k, plan, dims)]
+                            if force and k in WIDE and has_wide(srcs[t, k]):
+                                forced.append(len(staged))   # the wide plan fits every shape
+                            for i in forced:
+                                _build._lib = One(libs[t, k])
+                                force(i)
+                                try:
+                                    what = "wide plan" if i == len(staged) else f"plan {i}"
+                                    outs[f"{t} {what} forced"] = outputs(fn(**x))
+                                finally:
+                                    force(-1)
                         torch.cuda.synchronize()
                     for t in list(outs)[1:]:
                         diff = [(i, int((a != b).sum()), float((a - b).abs().max()))
@@ -472,7 +511,8 @@ def main():
                     if not timed:
                         continue
                     for plan in [None] + list(range(len(plan_list or ()))):
-                        if plan is not None and not fits(k, plan_list[plan], dims):
+                        if plan is not None and (len(plan_list) == 1
+                                                 or not fits(k, plan_list[plan], dims)):
                             continue
                         times = []
                         for t in names + names[::-1]:
