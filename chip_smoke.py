@@ -166,7 +166,13 @@
    passes if the card meets the same bound against it, or if the CPU's own
    float32 step misses that bound against float64 too (a set-valued gradient
    at this scale, see phase 7) and the card is norm-wise within 2e-4 of the
-   float64 step.
+   float64 step. A param tensor that misses 1e-5 is held to the float64
+   steps from the same weights with the same masks (check_params64): it
+   passes if the card is within 1e-5 of them, or if the CPU's float32 steps
+   miss 1e-5 against them too and the card's first-step grads of the tensor
+   meet the grads bound against float64 (Adam's steps move an entry whose
+   gradients are set-valued or within rounding of 0 by a share of lr that
+   rounding decides).
 
 13. One node type: a composite model with one type and the flagship's weights
    against the flagship on the same batches: its K16 forward against K3/K4
@@ -208,30 +214,46 @@
    their dep-row times, K4, K9 and K6 by device time too (K6's plain version
    likewise), K4's and K6's occupancy printed, K9 with each of its plans
    forced and timed (bit-identical).
-18. State widths above 64 (after phase 13). K1-K8 take every state width:
-   where no staged shared-memory plan fits, each takes its wide plan (the
-   adjacency lists alone in shared memory, the [W][D]-sized regions in the
-   kernel's own outputs or a device-memory workspace the wrapper allocates).
-   (1) K1-K8 against their plain versions at D 65/80/128/200/201, W 128 and
-   32, in the three dropout modes (K4 and K6 also with D != H, K1, K4 and K6
-   without rT, K5 without the affine; K2 and K8 through check_bwd2), and at
-   W 96 with D 301, W 64 with D 130 (H 70) and D 1024 at W 128 and 32, their
-   plans held to the mirrors', the cases reaching every wide plan. (2) Each wide
-   plan forced at D 14 and 64 (W 128 and 32): every output bit for bit the
-   staged plan's. (3) One-layer models of width 80 and 128 on fused-layout
-   batches: served through Predictor (K3/K4) and trained one step on the
-   'bn', 'dropout' and 'clean' routes, counted and held to the CPU as in
-   phases 4 and 12; params after the step that miss 1e-5 against the CPU's
-   are held to the float64 step (check_params64: Adam's first step turns a
-   gradient within rounding of 0 into a move of up to lr). (4) The
-   two-layer and composite specs of width 80 are still refused with
-   ValueError before any launch; through 'pallas' on a plan batch the
-   flagship of width 80 serves and trains on the card (K18: K launches a
-   forward, 2K - 1 a step) against the CPU. (5) Width 128 at full
-   scale (the MUTAG-shaped set's graphs and arcs, seeded 128-wide node
+18. Widths beyond the staged plans (after phase 13). Every kernel with
+   shared-memory plans takes every width: where no staged plan fits (K9-K17
+   also above D or AL 64, K16/K17 above 32 node types), each takes its wide
+   plan (the adjacency lists and the tiles alone in shared memory, the
+   [C][W]- and [D][W]-sized regions in the kernel's own outputs or a
+   device-memory workspace the wrapper allocates). (1) K1-K8 against their
+   plain versions at D 65/80/128/200/201, W 128 and 32, in the three dropout
+   modes (K4 and K6 also with D != H, K1, K4 and K6 without rT, K5 without
+   the affine; K2 and K8 through check_bwd2), and at W 96 with D 301, W 64
+   with D 130 (H 70) and D 1024 at W 128 and 32, their plans held to the
+   mirrors', the cases reaching every wide plan. (2) Each wide plan forced at
+   D 14 and 64 (W 128 and 32): every output bit for bit the staged plan's.
+   (2b) K9-K15 at D and AL (F) 65/80/128/200 and H1 150/513/1024, K16/K17 at
+   D 65-200, F 3-80 and T 2/3/4/33/40 (WIDE2_SHAPES, WIDE_T_SHAPES), W 128
+   and 32, the kernels with dropout in the three dropout modes, against
+   their plain versions (the reverse kernels through check_bwd2), every wide
+   plan reached; each of their wide plans forced at D 14 and 64 (H1 150,
+   T 4) bit for bit the staged plans'. (3) One-layer models of width 80 and
+   128 on fused-layout batches: served through Predictor (K3/K4) and trained
+   one step on the 'bn', 'dropout' and 'clean' routes, counted and held to
+   the CPU as in phases 4 and 12; params after the step that miss 1e-5
+   against the CPU's are held to the float64 step as in phase 12. (4) The two-layer and composite models beyond the staged plans
+   (WIDE_PATHS: h150, h150_clean, h150_bn and composite_bn at state width
+   80, composite_bn with 33 node types, the h150 routes at arc-label width
+   80 and hidden width 600) served (h150, composite_bn) and trained one step
+   through K9-K17, counted and held to the CPU likewise; through 'pallas' on
+   a plan batch the flagship of width 80 serves and trains on the card (K18:
+   K launches a forward, 2K - 1 a step) against the CPU. (5) Width 128 at
+   full scale (the MUTAG-shaped set's graphs and arcs, seeded 128-wide node
    labels): K1-K8 at the main paths' shapes timed by events and device time
    beside their bounds, with their plans and workspace bytes; the forward
-   and each one-layer route's step by device time.
+   and each one-layer route's step by device time; one step each of the
+   h150, h150_clean, h150_bn and composite_bn (T 4) routes against the CPU,
+   and K9-K17 at those routes' shapes timed likewise.
+19. Optimizers: each of the seven optimizers (training/optimizers.py, optax's
+   update rules) and Adam on a cosine schedule through 3 steps of the
+   flagship's BatchNorm route (K1/K2) on the card, each step held to the
+   CPU's from the same params (loss, iterations, moving statistics, grads)
+   and the card's update to the CPU optimizer's on the card's grads and
+   state (1e-5).
 
 Prints a JSON line of per-kernel numbers (K1-K18), then as its
 last line {"ok": true, "device": {...}}. Any failed check exits non-zero
@@ -240,6 +262,7 @@ before that.
 Usage, from the repository root: python3 chip_smoke.py
 """
 
+import itertools
 import json
 import os
 import subprocess
@@ -562,7 +585,7 @@ def phase_kernels(torch, model, gb):
     return out
 
 
-def device_ms(torch, fn, launches=None, runs=50):
+def device_ms(torch, fn, launches=None, runs=50, required=True):
     """Device time per call of fn: the device time of every kernel
     torch.profiler records over `runs` calls, without the host's time between
     launches (which CUDA events over back-to-back calls include when a call's
@@ -572,7 +595,8 @@ def device_ms(torch, fn, launches=None, runs=50):
     profiler returned fewer than runs * launches, that is printed and the
     time is their mean times `launches`. Where no record names a kernel (of
     the port's, with `launches`), it profiles again, and fails after three
-    tries: no other record's time stands in for the kernel's."""
+    tries (returns None if not `required`): no other record's time stands in
+    for the kernel's."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -589,6 +613,8 @@ def device_ms(torch, fn, launches=None, runs=50):
             break
         say(f"device_ms: the profiler returned no {what} (attempt {attempt + 1} of 3)")
     else:
+        if not required:
+            return None
         fail(f"device_ms: the profiler returned no {what} in 3 attempts")
     total = sum(e.self_device_time_total for e in rows)
     if launches is None:
@@ -672,16 +698,33 @@ ROUTES = {"bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
           "flat_dropout": {"train_step": "K"}}
 
 
-def variant_width(variant):
-    """(node-label width, variant) of a flagship variant "w<D>_<v>" (14 and
-    the variant itself without the prefix)."""
+def variant_dims(variant):
+    """The widths a flagship variant names ahead of its base: "w<D>_" the
+    node-label (and state) width, "a<AL>_" the arc-label width, "t<T>_" the
+    node types of a composite variant, "u<H1>_" the hidden width of an h150
+    variant, "tanh_" tanh in place of selu in the nets' hidden layers
+    (defaults 14, 3, N_TYPES, 150, selu); {"width", "al", "types", "hidden",
+    "act", "base"}."""
+    dims = {"width": 14, "al": 3, "types": N_TYPES, "hidden": 150, "act": "selu"}
+    keys = {"w": "width", "a": "al", "t": "types", "u": "hidden"}
     head, _, rest = variant.partition("_")
-    if head[:1] == "w" and head[1:].isdigit() and rest:
-        return int(head[1:]), rest
-    return 14, variant
+    while rest and (head == "tanh" or head[:1] in keys and head[1:].isdigit()):
+        if head == "tanh":
+            dims["act"] = head
+        else:
+            dims[keys[head[0]]] = int(head[1:])
+        head, _, rest = rest.partition("_")
+    dims["base"] = head + ("_" + rest if rest else "")
+    return dims
 
 
-def flagship(torch, device, variant="bn"):
+def variant_width(variant):
+    """(node-label width, base variant) of a flagship variant (variant_dims)."""
+    dims = variant_dims(variant)
+    return dims["width"], dims["base"]
+
+
+def flagship(torch, device, variant="bn", optimizer="adam"):
     """The flagship (MUTAG widths 14/3/2, K=5, threshold 0.01, seeded random
     weights) with its state net as `variant` says. "h150" is the hidden-150
     accuracy recipe (benchmarks/mutag_single.py with dropout 0.1: hidden
@@ -692,28 +735,35 @@ def flagship(torch, device, variant="bn"):
     "pallas" is the flagship with aggregation='pallas' (K18 on a plan batch).
     A variant "flat_<v>" is <v> with aggregation='fused', which runs the
     kernels on batches without the loop/dep layout (the all-dep layout); a
-    variant "w<D>_<v>" is <v> at node-label (and state) width D."""
+    variant "w<D>_<v>" is <v> at node-label (and state) width D, "a<AL>_"
+    at arc-label width AL, "u<H1>_" an h150 variant of hidden width H1,
+    "t<T>_composite_bn" the composite flagship with T node types, "tanh_"
+    tanh in place of selu (variant_dims). `optimizer`: its optimizer config
+    or name."""
     from gnn_tpu_torch import GNNgraphBased, MLPSpec, get_inout_dims
-    width, variant = variant_width(variant)
+    dims = variant_dims(variant)
+    width, variant = dims["width"], dims["base"]
     if variant == "composite_bn":
-        return composite_model(torch, device, width=width)
+        return composite_model(torch, device, T=dims["types"], width=width, optimizer=optimizer,
+                               act=dims["act"])
     fused = variant.startswith("flat_")
     variant = variant[5:] if fused else variant
-    hidden = 150 if variant.startswith("h150") else None
-    in_s, l_s = get_inout_dims("state", width, 3, 2, "g", 0, hidden)
-    in_o, l_o = get_inout_dims("output", width, 3, 2, "g", 0, hidden)
+    hidden = dims["hidden"] if variant.startswith("h150") else None
+    in_s, l_s = get_inout_dims("state", width, dims["al"], 2, "g", 0, hidden)
+    in_o, l_o = get_inout_dims("output", width, dims["al"], 2, "g", 0, hidden)
     drop = (dict(dropout_rate=(0.1,), dropout_pos=(0,), alphadropout=True)
             if variant not in ("clean", "h150_clean") else {})
-    ss = MLPSpec(input_dim=in_s, units=tuple(l_s), activations="selu",
+    ss = MLPSpec(input_dim=in_s, units=tuple(l_s), activations=dims["act"],
                  kernel_initializer="lecun_normal", bias_initializer="lecun_normal",
                  batch_normalization=variant in ("bn", "h150_bn", "pallas"), **drop)
     out_drop = ({} if variant == "h150_clean" else
                 dict(dropout_rate=(0.1,), dropout_pos=(0,), alphadropout=bool(hidden)))
     so = MLPSpec(input_dim=in_o, units=tuple(l_o),
-                 activations=("selu", "softmax") if hidden else "softmax",
+                 activations=(dims["act"], "softmax") if hidden else "softmax",
                  kernel_initializer="glorot_normal", bias_initializer="glorot_normal",
                  batch_normalization=False, **out_drop)
-    model = GNNgraphBased(ss, so, max_iteration=5, threshold=0.01, seed=SEED, device=device,
+    model = GNNgraphBased(ss, so, optimizer=optimizer, max_iteration=5, threshold=0.01,
+                          seed=SEED, device=device,
                           aggregation="pallas" if variant == "pallas" else
                           "fused" if fused else "auto")
     if variant in ("bn", "h150_bn", "pallas"):
@@ -1265,14 +1315,15 @@ def phase_bnfree_kernels(torch, gb):
     return out
 
 
-def two_layer_kernel_inputs(torch, gb, gb_train):
+def two_layer_kernel_inputs(torch, gb, gb_train, width=14):
     """K9/K10 operands as the hidden-150 recipe's serving path forms them on
     the full set (K9 the first dep step's), K12/K13 operands as its training
     step forms them (masks from a seeded generator; K13's trajectory from the
-    plain forward and a readout-like cotangent)."""
+    plain forward and a readout-like cotangent); the recipe at node-label
+    width `width`."""
     from gnn_tpu_torch.models import core
     from gnn_tpu_torch.ops import fused2
-    model = flagship(torch, "cuda", "h150")
+    model = flagship(torch, "cuda", f"w{width}_h150")
     spec, p = model.spec, model.params["state"]
     K, thr = spec.max_iteration, float(spec.threshold)
     acts = dict(zip(("act0", "act1"), spec.state_spec.activations))
@@ -1564,14 +1615,14 @@ def two_layer_bounds(k9, k10, k12, k13):
             bound(bytes13, flops13))
 
 
-def two_layer_train_kernel_inputs(torch, gb):
+def two_layer_train_kernel_inputs(torch, gb, width=14):
     """K11's operands as the 'h150_clean' route forms them on the training
     batch (the plain K10's trajectory, a readout-like cotangent), K14's of
     iteration 2 and K15's of its reverse as the 'h150_bn' route forms them
-    (train_kernel_inputs)."""
+    (train_kernel_inputs); the routes at node-label width `width`."""
     from gnn_tpu_torch.models import core
     from gnn_tpu_torch.ops import fused2
-    model = flagship(torch, "cuda", "h150_clean")
+    model = flagship(torch, "cuda", f"w{width}_h150_clean")
     spec = model.spec
     acts = dict(zip(("act0", "act1"), spec.state_spec.activations))
     with torch.no_grad():
@@ -1581,7 +1632,8 @@ def two_layer_train_kernel_inputs(torch, gb):
         k11 = dict(adjT=loop["adjT"], s0=loop["s0"], traj=traj, feats=loop["feats"],
                    w0=loop["w0"], b0=loop["b0"], w1=loop["w1"], b1=loop["b1"], affine=None,
                    g_traj=readout_like(torch, traj, loop["nm"], SEED + 12), **acts)
-    (_, x14), kw14, x15, kw15 = train_kernel_inputs(torch, flagship(torch, "cuda", "h150_bn"), gb)
+    (_, x14), kw14, x15, kw15 = train_kernel_inputs(torch, flagship(torch, "cuda",
+                                                                     f"w{width}_h150_bn"), gb)
     return k11, x14, kw14, dict(x15, **kw15)
 
 
@@ -1701,16 +1753,21 @@ def wide_layout(k, W, D, X, H1=0):
     """(shared-memory bytes, workspace floats a block row) of kernel k's wide
     plan (K1-K8; the plan after its staged plans) at (W, D, F or H or -), as
     ops/bn.py and ops/fused.py mirror it."""
-    from gnn_tpu_torch.ops import bn, fused
+    from gnn_tpu_torch.ops import bn, fused, fused2, typed
+    if k in fused2._TILED:
+        return fused2._tile2_wide(fused2._KIND[k], W, D, X, H1)
     return {"K1": lambda: bn._bn_fwd_wide(W, D, X), "K2": lambda: bn._bn_bwd_wide(W, D, X),
             "K3": lambda: fused._loop_wide(W, D), "K4": lambda: fused._step_wide(W, D, X),
             "K5": lambda: fused._loop_bwd_wide(W, D),
             "K6": lambda: fused._train_step_wide(W, D, X),
             "K7": lambda: fused._train_loop_wide(W, D),
-            "K8": lambda: fused._train_bwd_wide(W, D)}[k]()
+            "K8": lambda: fused._train_bwd_wide(W, D),
+            "K16": lambda: typed._bnT_fwd_wide(W, D, X, H1),
+            "K17": lambda: typed._bnT_bwd_wide(W, D, X, H1)}[k]()
 
 
-WIDE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+WIDE_KERNELS = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12",
+                "K13", "K14", "K15", "K16", "K17")
 
 
 def plan_kernel(k):
@@ -1755,7 +1812,11 @@ def plan_bytes(k, plan, W, D, AL, H1):
 
 def mirrored_plan(k, W, D, AL, H1):
     """(bytes, plan index or None) the Python mirror names for kernel k."""
-    from gnn_tpu_torch.ops import fused
+    from gnn_tpu_torch.ops import fused, fused2, typed
+    if k in fused2._TILED:
+        return fused2._tile2_plan(W, D, AL, H1, k)
+    if k in ("K16", "K17"):
+        return (typed._bnT_fwd_plan if k == "K16" else typed._bnT_bwd_plan)(W, D, AL, H1)
     plans, nbytes, _ = plan_kernel(k)
     wide = (lambda *dims: wide_layout(k, *dims)) if k in WIDE_KERNELS else None
     return fused._first_plan(plans, nbytes, W, D, AL, H1, wide=wide)
@@ -2028,16 +2089,17 @@ def typed_graphs(graphs, T=N_TYPES):
                   node_types=rng.integers(0, T, g.n_nodes).astype(np.int32)) for g in graphs]
 
 
-def composite_model(torch, device, T=N_TYPES, width=14):
+def composite_model(torch, device, T=N_TYPES, width=14, optimizer="adam", act="selu"):
     """The composite flagship: CompositeGNNgraphBased with T copies of the
     flagship's state net (31 -> 14, selu, AlphaDropout 0.1 at its input, the
     trailing BatchNorm; `width` in place of 14), the flagship's softmax
     readout, K=5, threshold 0.01, seeded random weights and non-trivial
     per-type moving statistics."""
     from gnn_tpu_torch import CompositeGNNgraphBased
-    ref = flagship(torch, "cpu", f"w{width}_bn")
+    ref = flagship(torch, "cpu", f"w{width}_{'tanh_' if act == 'tanh' else ''}bn")
     model = CompositeGNNgraphBased((ref.spec.state_spec,) * T, ref.spec.output_spec,
-                                   max_iteration=5, threshold=0.01, seed=SEED, device=device)
+                                   optimizer=optimizer, max_iteration=5, threshold=0.01,
+                                   seed=SEED, device=device)
     gen = torch.Generator().manual_seed(SEED + 21)
     d = ref.spec.state_spec.units[-1]
     model.bn["state"] = tuple({"mean": (0.1 * torch.randn(d, generator=gen)).to(device),
@@ -2126,7 +2188,7 @@ def random_typed_inputs(torch, gen, R, Bl, W, D, F, acts, rate, alpha, res, abse
         return (scale * torch.randn(*shape, generator=gen)).to(dev)
     adj = random_adj(torch, gen, R, W, dev)
     kinds = torch.tensor([t for t in range(T) if t != absent])
-    types = kinds[torch.randint(0, len(kinds), (R, W), generator=gen)].to(torch.uint8).to(dev)
+    types = kinds[torch.randint(0, len(kinds), (R, W), generator=gen)].to(torch.int32).to(dev)
     aff = torch.stack([torch.stack([torch.rand(T, D, generator=gen) + 0.5,
                                     0.1 * torch.randn(T, D, generator=gen)]) for _ in range(2)])
     keep = ((torch.rand(R, W, 2 * D + F, generator=gen) > rate).to(torch.uint8).to(dev)
@@ -2160,7 +2222,7 @@ def check_typed_forward(torch, x, kw, label):
 
 def typed_bounds(x_f, x_b):
     """(K16, K17) least times and what sets them: each input read once
-    (types a byte a node, keep bits a byte), each output written once;
+    (types 4 bytes a node, keep bits a byte), each output written once;
     operations on the arcs present, each node's own type's dense layer and
     the elementwise work, as K1/K2."""
     adjs = [a for a in (x_f["adj_loop"], x_f["adj_dep"]) if a is not None]
@@ -2173,7 +2235,7 @@ def typed_bounds(x_f, x_b):
     f4 = 4
     keep_b = 0 if x_f["keep"] is None else n * (C - 1)
     adj_b = f4 * sum(a.numel() for a in adjs)
-    shared = adj_b + keep_b + n + f4 * (n * F + T * D * C + n)   # adjacency, keep, types, feats, w, nm
+    shared = adj_b + keep_b + f4 * (n + n * F + T * D * C + n)   # adjacency, keep, types, feats, w, nm
     rt_b = 0 if x_f["rT"] is None else f4 * n * D
     bytes16 = shared + f4 * (2 * n * D + 4 * T * D) + rt_b + f4 * (2 * n * D + n + R * T * D)
     flops16 = 2 * D * nnz + 2 * D * C * n + 12 * D * n
@@ -2531,18 +2593,17 @@ def grads_close(got, want, rtol=2e-4, floor=2e-5):
 def first_step_grads64(torch, variant, gb_cpu, masks):
     """The first training step's grads of `variant` on the CPU in float64, on
     the same weights and masks."""
-    from gnn_tpu_torch.convert import flatten
-    return {key: p.grad for key, p in flatten(first_step64(torch, variant, gb_cpu,
-                                                           masks).params).items()}
+    return steps64(torch, variant, gb_cpu, [masks])[1]
 
 
-def first_step64(torch, variant, gb_cpu, masks):
-    """The model of `variant` after its first training step on the CPU in
-    float64, on the same weights and masks (its params' grads and the params
-    after the Adam step)."""
+def steps64(torch, variant, gb_cpu, masks, optimizer="adam"):
+    """The model of `variant` after one training step for each mask set in
+    `masks` on the CPU in float64, from the same weights (the params after the
+    optimizer's last step), and its first step's grads by key."""
     import dataclasses
+    from gnn_tpu_torch.convert import flatten
     from gnn_tpu_torch.models import core
-    model = flagship(torch, "cpu", variant)
+    model = flagship(torch, "cpu", variant, optimizer)
     for p in core.param_leaves(model.params):
         p.data = p.data.double()
     model.bn = tree_map(lambda v: v.double(), model.bn)
@@ -2550,25 +2611,32 @@ def first_step64(torch, variant, gb_cpu, masks):
         f.name: getattr(gb_cpu, f.name).double() for f in dataclasses.fields(gb_cpu)
         if torch.is_tensor(getattr(gb_cpu, f.name))
         and getattr(gb_cpu, f.name).dtype == torch.float32})
-    model.training_step(gb64, masks=masks)
-    return model
+    grads = None
+    for m in masks:
+        model.training_step(gb64, masks=m)
+        if grads is None:
+            grads = {key: p.grad.clone() for key, p in flatten(model.params).items()}
+    return model, grads
 
 
-def check_params64(torch, variant, card, cpu, grads0, gb_cpu, masks):
-    """The params after one step on the card (`card`) against the CPU's
-    (`cpu`) where they differ by more than TOL, held to the float64 step on
-    the same weights and masks. Adam's first step moves each entry by lr *
-    g / (|g| + eps), so an entry whose gradient is within rounding of 0 moves
-    by up to lr whatever its float32 value: there both float32 steps may miss
-    TOL against each other and against float64. A tensor passes if the card
-    is within TOL of the float64 step (the CPU's float32 is then the one
-    off), or if the CPU's own float32 step misses TOL against float64 too and
-    the card's first-step grads of that tensor are within the grads bound
-    (rtol 2e-4, floor 2e-5 of the largest entry) of the float64 grads; else
-    it fails. Returns the largest card-vs-CPU difference."""
+def check_params64(torch, variant, card, cpu, grads0, gb_cpu, masks, optimizer="adam"):
+    """The params after the steps on the card (`card`) against the CPU's
+    (`cpu`) where they differ by more than TOL, held to the float64 steps
+    from the same weights with the same masks (`masks`, one set a step), the
+    exact values both float32 runs approximate. Adam's step moves each entry
+    by lr * m / (sqrt(v) + eps): an entry whose gradients are within rounding
+    of 0, or set-valued (check_first_grads), moves by a share of lr that
+    rounding decides, so there both float32 runs may miss TOL against each
+    other and against float64. A tensor passes if the card is within TOL of
+    the float64 steps (the CPU's float32 is then the one off), or if the CPU's
+    own float32 steps miss TOL against float64 too and the card's first-step
+    grads of that tensor are within the grads bound (rtol 2e-4, floor 2e-5 of
+    the largest entry) of the float64 grads; else it fails. Returns the
+    largest card-vs-CPU difference."""
     from gnn_tpu_torch.convert import flatten
-    m64 = None
+    m64 = g64 = None
     worst = 0.0
+    steps = len(masks)
     for key, p in flatten(cpu.params).items():
         got = flatten(card.params)[key].detach().cpu()
         err = float((got - p.detach()).abs().max())
@@ -2576,22 +2644,21 @@ def check_params64(torch, variant, card, cpu, grads0, gb_cpu, masks):
         if err <= TOL:
             continue
         if m64 is None:
-            m64 = first_step64(torch, variant, gb_cpu, masks)
+            m64, g64 = steps64(torch, variant, gb_cpu, masks, optimizer)
         want = flatten(m64.params)[key].detach()
         card64 = float((got.double() - want).abs().max())
         cpu64 = float((p.detach().double() - want).abs().max())
-        g64 = flatten(m64.params)[key].grad
-        grads_ok, gerr = grads_close(grads0[key].cpu().double(), g64)
+        grads_ok, gerr = grads_close(grads0[key].cpu().double(), g64[key])
         if card64 <= TOL:
-            verdict = "the card is within it of the float64 step"
+            verdict = "the card is within it of the float64 steps"
         elif cpu64 > TOL and grads_ok:
-            verdict = ("the CPU's float32 step misses it against float64 too, and the card's grads "
-                       f"are within their bound of the float64 grads ({gerr:.3e})")
+            verdict = ("the CPU's float32 misses it against float64 too, and the card's "
+                       f"first-step grads are within their bound of the float64 grads ({gerr:.3e})")
         else:
-            fail(f"'{variant}' params {key} after one step: card vs CPU {err:.3e}, card vs "
-                 f"float64 {card64:.3e}, CPU vs float64 {cpu64:.3e}, card's grads vs float64 "
-                 f"{gerr:.3e} ({'within' if grads_ok else 'outside'} their bound)")
-        say(f"'{variant}' params {key} after one step: card vs CPU {err:.3e} misses {TOL:g}; "
+            fail(f"'{variant}' params {key} after {steps} steps: card vs CPU {err:.3e}, card vs "
+                 f"float64 {card64:.3e}, CPU vs float64 {cpu64:.3e}, card's first-step grads vs "
+                 f"float64 {gerr:.3e} ({'within' if grads_ok else 'outside'} their bound)")
+        say(f"'{variant}' params {key} after {steps} steps: card vs CPU {err:.3e} misses {TOL:g}; "
             f"{verdict} (card vs float64 {card64:.3e}, CPU vs float64 {cpu64:.3e})")
     return worst
 
@@ -2645,17 +2712,18 @@ def check_first_grads(torch, variant, card, cpu, gb_cpu, masks):
     return worst
 
 
-def phase_training(torch, gb, n_arcs, variant, steps, params64=False):
+def phase_training(torch, gb, n_arcs, variant, steps, optimizer="adam", profile=True):
     """A training path on the card, counted (ROUTES[variant] launches, no
     other kernel), then the same steps on the CPU with the card's masks;
-    step time and profile. With params64 (one step) params that miss TOL
-    against the CPU's are held to the float64 step (check_params64). Returns
-    the launch counts of the steps."""
+    step time and profile (with `profile`). Params that miss TOL against the
+    CPU's after the steps are held to the float64 steps (check_params64).
+    `optimizer`: the models' optimizer config or name. Returns the launch
+    counts of the steps."""
     from gnn_tpu_torch.convert import flatten
     from gnn_tpu_torch.models import core
     from gnn_tpu_torch.ops import bn, fused, fused2, segment, typed
-    model = flagship(torch, "cuda", variant)
-    cpu = flagship(torch, "cpu", variant)
+    model = flagship(torch, "cuda", variant, optimizer)
+    cpu = flagship(torch, "cpu", variant, optimizer)
     gb_cpu = gb.to("cpu")
     K = model.spec.max_iteration
     say(f"---- training path '{variant}' ({elapsed()})")
@@ -2714,14 +2782,8 @@ def phase_training(torch, gb, n_arcs, variant, steps, params64=False):
                 fail(f"'{variant}' step {i}: moving {k} differs from the CPU by {err:.3e}")
         if i == 0:
             worst["grad"] = check_first_grads(torch, variant, grads0, cpu, gb_cpu, m)
-    perr = 0.0
-    for a, b in zip(core.param_leaves(model.params), core.param_leaves(cpu.params)):
-        perr = max(perr, float((a.detach().cpu() - b.detach()).abs().max()))
-    if perr > TOL and params64 and steps == 1:
-        check_params64(torch, variant, model, cpu, grads0, gb_cpu,
-                       tree_map(lambda v: v.cpu(), masks[0]))
-    elif perr > TOL:
-        fail(f"'{variant}' params after {steps} steps differ from the CPU by {perr:.3e}")
+    perr = check_params64(torch, variant, model, cpu, grads0, gb_cpu,
+                          [tree_map(lambda v: v.cpu(), m) for m in masks], optimizer)
     say(f"'{variant}' training vs CPU over {steps} steps ({time.perf_counter() - t0:.1f} s): "
         f"iters equal, max loss diff {worst['loss']:.3e}, moving stats {worst['bn']:.3e}, "
         f"first-step grads {worst['grad']:.3e}, params after the last step {perr:.3e}")
@@ -2729,21 +2791,22 @@ def phase_training(torch, gb, n_arcs, variant, steps, params64=False):
     def step():
         model.training_step(gb)
         torch.cuda.synchronize()
-    phase_profile(torch, step, runs=3, what=f"'{variant}' training step")
+    if profile:
+        phase_profile(torch, step, runs=3, what=f"'{variant}' training step")
     return launches
 
 WIDE_D = (65, 80, 128, 200, 201)   # state widths of phase 18's kernel cases (201: odd)
 
 
-def wide_graphs(width, seed=SEED):
+def wide_graphs(width, seed=SEED, al=3):
     """Ten small graphs and one of 300 nodes (dep blocks at block width 128)
-    with `width` node-label columns, 3 arc-label columns and 2 classes."""
+    with `width` node-label columns, `al` arc-label columns and 2 classes."""
     import numpy as np
     from gnn_tpu_torch.graphs.datasets import random_graph
     rng = np.random.default_rng(seed)
-    graphs = [random_graph(int(rng.integers(8, 30)), width, 3, 2, 0.5, focus="g", rng=rng)
+    graphs = [random_graph(int(rng.integers(8, 30)), width, al, 2, 0.5, focus="g", rng=rng)
               for _ in range(10)]
-    graphs.append(random_graph(300, width, 3, 2, 0.02, focus="g", rng=rng))
+    graphs.append(random_graph(300, width, al, 2, 0.02, focus="g", rng=rng))
     return graphs
 
 
@@ -2796,6 +2859,15 @@ def wide_dims(k, x):
     if k in ("K4", "K6"):
         D = x["s"].shape[-1]
         return W, D, x["w2"].shape[0] // 2 if k == "K4" else x["w_cat"].shape[0], 0
+    if k in ("K9", "K10", "K11", "K12", "K13"):
+        return (W, x["s" if k == "K9" else "s0"].shape[-1],
+                x["fd" if k in ("K12", "K13") else "feats"].shape[-1], x["w0"].shape[0])
+    if k in ("K14", "K15"):
+        return (W, x["y1" if k == "K14" else "y_prev"].shape[-1], x["feats"].shape[-1],
+                x["w0_aug"].shape[0])
+    if k in ("K16", "K17"):
+        return (W, x["y1" if k == "K16" else "y_prev"].shape[-1], x["feats"].shape[-1],
+                x["aff"].shape[2] if k == "K16" else x["bnv"].shape[0])
     return W, x["s0"].shape[-1], 0, 0
 
 
@@ -2861,10 +2933,12 @@ def check_wide_kernel(torch, k, x, label):
 
 
 def phase_wide(torch):
-    """Phase 18: state widths above 64 on the one-layer kernels K1-K8 (each
-    kernel's wide plan, chosen where no staged plan fits), and the two-layer
-    and typed kernels' refusal, which stays."""
-    import re
+    """Phase 18: widths beyond the staged plans' reach on every kernel with
+    plans: state widths above 64 on the one-layer kernels K1-K8, state,
+    arc-label and hidden widths and node-type counts on the two-layer and
+    typed kernels K9-K17 (each kernel's wide plan, chosen where no staged
+    plan fits), the models that need them served and trained through their
+    kernels, and width 128 at full scale."""
     from gnn_tpu_torch import Predictor
     from gnn_tpu_torch.graphs.datasets import mutag_shaped
     from gnn_tpu_torch.graphs.generator import GraphDataGenerator
@@ -2913,6 +2987,10 @@ def phase_wide(torch):
                     check_wide_forced(torch, k, run, dict(x, rT=None), label + ", rT=None")
         say(f"K1-K8 wide plans forced at W={W} D={D}: bit-identical to the staged plans")
 
+    # ---- 2b. K9-K17 against their plain versions beyond the staged plans'
+    # widths, and each wide plan forced where a staged plan fits
+    wide_kernels_two_layer(torch, gen)
+
     # ---- 3. one-layer models of width 80 and 128 on fused-layout batches:
     # served and trained through K1-K8, counted, against the CPU
     for width in (80, 128):
@@ -2933,30 +3011,27 @@ def phase_wide(torch):
         phase_serving(torch, f"w{width}_bn", card, flagship(torch, "cpu", f"w{width}_bn"), gb,
                       requests, ("propagation_loop", "propagation_step"), n_arcs)
         for variant in ("bn", "dropout", "clean"):
-            phase_training(torch, gb, n_arcs, f"w{width}_{variant}", 1, params64=True)
+            phase_training(torch, gb, n_arcs, f"w{width}_{variant}", 1)
 
-    # ---- 4. the two-layer and typed kernels still refuse state width 80,
-    # before any launch; through 'pallas' (K18) on a plan batch such a model
-    # runs
+    # ---- 4. the two-layer and composite models beyond the staged plans'
+    # widths (state and arc-label width 80, hidden width 600, 33 node types)
+    # served and trained through K9-K17, counted, against the CPU; through
+    # 'pallas' (K18) on a plan batch a width-80 model runs too
+    for variant, serve in WIDE_PATHS:
+        dims = variant_dims(variant)
+        graphs = wide_graphs(dims["width"], al=dims["al"])
+        if dims["base"] == "composite_bn":
+            graphs = typed_graphs(graphs, dims["types"])
+        n_arcs = sum(g.n_arcs for g in graphs)
+        card = flagship(torch, "cuda", variant)
+        gb = card.to_batch(graphs)
+        if serve:
+            requests = [("all", graphs), ("small", graphs[1]), ("big", graphs[-1]),
+                        ("five", graphs[4:9])]
+            phase_serving(torch, variant, card, flagship(torch, "cpu", variant), gb, requests,
+                          serve, n_arcs)
+        phase_training(torch, gb, n_arcs, variant, 1, profile=False)
     graphs = wide_graphs(80)
-    for variant in ("h150", "h150_bn", "composite_bn"):
-        m = flagship(torch, "cuda", f"w80_{variant}")
-        gs = typed_graphs(graphs) if variant == "composite_bn" else graphs
-        gb = m.to_batch(gs)
-        before = port_launches()
-        for what, call in (("forward", lambda: m.forward(gb)),
-                           ("training step", lambda: m.training_step(gb))):
-            try:
-                call()
-                torch.cuda.synchronize()
-            except ValueError as e:
-                if not re.search(r"widths above 64|bytes of shared memory", str(e)):
-                    fail(f"width 80 '{variant}': the {what} raised another ValueError: {e}")
-            else:
-                fail(f"width 80 '{variant}': the {what} ran at a width its kernels do not take")
-        if port_launches() != before:
-            fail(f"width 80 '{variant}': {port_launches() - before} launches before the refusal")
-        say(f"width 80 '{variant}': forward and training step refused with no launch")
     plan_cpu = next(iter(GraphDataGenerator(graphs, batch_size=len(graphs), shuffle=False,
                                             build_plan=True)))
     plan = plan_cpu.to("cuda")
@@ -3039,6 +3114,250 @@ def phase_wide(torch):
             torch.cuda.synchronize()
         say(f"width 128 '{variant}' training step: {device_ms(torch, step_fn, runs=2):.3f} ms of "
             f"device time")
+    wide_two_layer_full_scale(torch, graphs, gb, gb_train)
+
+
+# phase 18's models beyond the two-layer and typed kernels' staged plans:
+# (variant, the wrappers its serving path launches, or None: training only)
+WIDE_PATHS = (("w80_h150", ("propagation_loop2", "propagation_step2")),
+              ("w80_h150_clean", None), ("w80_h150_bn", None),
+              ("w80_composite_bn", ("bnT_forward_step",)),
+              ("t33_composite_bn", ("bnT_forward_step",)),
+              ("a80_u600_h150", ("propagation_loop2", "propagation_step2")),
+              ("a80_u600_h150_clean", None), ("a80_u600_h150_bn", None))
+# K9-K15's shapes (D, AL or F, H1) and K16/K17's (D, F, T) of phase 18
+WIDE2_SHAPES = ((65, 3, 150), (80, 80, 150), (128, 3, 150), (200, 65, 150), (14, 3, 513),
+                (14, 3, 1024), (80, 3, 1024))
+WIDE_T_SHAPES = ((65, 3, 4), (80, 80, 3), (128, 3, 4), (200, 65, 2), (14, 3, 33), (14, 3, 40),
+                 (80, 3, 33))
+DROP_MODES = ((0.1, True), (0.1, False), (0.0, True))
+
+
+def wide2_cases(torch, gen, W, D, AL, H1, rate, alpha):
+    """{kernel: (wrapper with its outputs as a tuple, operands)} of K9-K15 at
+    one shape and dropout mode (K12-K15 drop; K9-K11 have no dropout)."""
+    from gnn_tpu_torch.ops import bn, fused2
+    k9, k10, k12, k13, k11 = random_two_layer_inputs(torch, gen, 2, W, D, AL, H1, 3,
+                                                     ("selu", "tanh"), rate, alpha, "cuda")
+    f, b = random_bn_inputs(torch, gen, 3, 2, W, D, AL, rate, True, "cuda", H1=H1)
+    kw = dict(act0="selu", act1="tanh", alpha_drop=alpha, rate=rate)
+    return {"K9": (step2_out, k9), "K10": (fused2.propagation_loop2, k10),
+            "K11": (fused2.propagation_loop2_bwd, k11), "K12": (fused2.train_loop2, k12),
+            "K13": (fused2.train_loop2_bwd, k13),
+            "K14": (bn.bn2_forward_step, dict(f, **kw, threshold=0.05)),
+            "K15": (bn.bn2_backward_step, dict(b, **kw))}
+
+
+def wide_typed_cases(torch, gen, W, D, F, T, rate, alpha):
+    """{kernel: (wrapper, operands)} of K16/K17 at one shape and dropout
+    mode, the activations cycling through the four kernel activations."""
+    from gnn_tpu_torch.ops import typed
+    acts = tuple(("selu", "tanh", "relu", "linear")[t % 4] for t in range(T))
+    f, b, kw = random_typed_inputs(torch, gen, 3, 2, W, D, F, acts, rate, alpha, True, None,
+                                   "cuda")
+    return {"K16": (typed.bnT_forward_step, dict(f, **kw, threshold=0.05)),
+            "K17": (typed.bnT_backward_step, b)}
+
+
+def check_wide2_kernel(torch, k, x, label):
+    """Kernel k of K9-K17 against its plain version (the reverse kernels
+    through check_bwd2), its plan held to the mirror's. Returns the plan."""
+    from gnn_tpu_torch.ops import bn, fused2, typed
+    info = tiled_plan(k, *wide_dims(k, x))
+    label = f"{label}, plan {info['plan']}"
+    if k == "K9":
+        got, want = against_plain(torch, fused2, "propagation_step2", x)
+        check_plain(torch, f"K9 {label}", (got,), (want,), ("out",))
+    elif k in ("K10", "K12"):
+        name, outs = (("propagation_loop2", ("traj", "margins")) if k == "K10"
+                      else ("train_loop2", ("traj", "margins", "agg")))
+        check_plain(torch, f"{k} {label}", *against_plain(torch, fused2, name, x), outs,
+                    exact=("margins",))
+    elif k in ("K14", "K16"):
+        mod, name = (bn, "bn2_forward_step") if k == "K14" else (typed, "bnT_forward_step")
+        check_plain(torch, f"{k} {label}", *against_plain(torch, mod, name, x),
+                    ("y", "agg", "flags", "msum"), summed=("msum",), exact=("flags",))
+    else:
+        check_bwd2(torch, k, x, label)
+    return info["plan"]
+
+
+def wide_kernels_two_layer(torch, gen):
+    """K9-K15 at D, AL (F) 65/80/128/200 and H1 513/1024 (WIDE2_SHAPES), K16/K17
+    at D 65-200, F up to 80 and T 33/40 (WIDE_T_SHAPES), W 128 and 32, the
+    dropout kernels in the three dropout modes, against their plain
+    versions, every wide plan reached; then each wide plan forced at D 14 and
+    64 (H1 150, T 4), bit for bit the staged plans'."""
+    reached = {}
+    for W in (128, 32):
+        for shapes, cases in ((WIDE2_SHAPES, wide2_cases), (WIDE_T_SHAPES, wide_typed_cases)):
+            for (D, X, Y), (rate, alpha) in itertools.product(shapes, DROP_MODES):
+                for k, (_, x) in cases(torch, gen, W, D, X, Y, rate, alpha).items():
+                    if k in ("K9", "K10", "K11") and (rate, alpha) != DROP_MODES[0]:
+                        continue   # no dropout in these: one mode suffices
+                    what = "F={} T={}" if k in ("K16", "K17") else (
+                        "F={} H1={}" if k in ("K14", "K15") else "AL={} H1={}")
+                    label = f"W={W} D={D} {what.format(X, Y)} rate={rate} alpha={alpha}"
+                    reached.setdefault(k, set()).add(check_wide2_kernel(torch, k, x, label))
+    for k in sorted(reached, key=lambda k: int(k[1:])):
+        if len(plans_of(k)) not in reached[k]:
+            fail(f"{k}: the wide cases never reached its wide plan (plans {sorted(reached[k])})")
+    say(f"K9-K17 beyond the staged plans' widths: every case within its bounds of the plain "
+        f"version; plans reached {dict((k, sorted(v)) for k, v in reached.items())}")
+    for W, D, AL in ((128, 14, 3), (128, 64, 3), (32, 14, 3), (32, 64, 64)):
+        for rate, alpha in (DROP_MODES[0], DROP_MODES[2]):
+            label = f"W={W} D={D} rate={rate}"
+            cases = dict(wide2_cases(torch, gen, W, D, AL, 150, rate, alpha))
+            cases.update(wide_typed_cases(torch, gen, W, D, AL, N_TYPES, rate, alpha))
+            for k, (run, x) in cases.items():
+                check_wide_forced(torch, k, run, x, label)
+        say(f"K9-K17 wide plans forced at W={W} D={D}: bit-identical to the staged plans")
+
+
+def wide_two_layer_full_scale(torch, graphs, gb, gb_train):
+    """Width 128 at full scale for the two-layer and composite routes (the
+    MUTAG-shaped set's graphs and arcs with 128-wide node labels, `graphs`):
+    one step each of 'h150', 'h150_clean', 'h150_bn' and 'composite_bn'
+    (T = 4) against the CPU, params held to the float64 step where the
+    float32 CPU step itself misses; K9-K17 timed at these shapes (the selu
+    recipes') against their bounds, with their plans and workspaces. The
+    steps run the nets with tanh in place of selu: at this width and scale
+    the selu recipes' first-step grads are set-valued at 2.5e-4 to 5.2e-4
+    norm-wise (the CPU's own float32 step against its float64 twin), past
+    the grads' 2e-4 bound for any float32 computation whose
+    near-kink branches differ; tanh has no kink and takes the same routes,
+    kernels and plans. And they update with SGD: Adam's first step moves an
+    entry by up to lr whatever the size of its gradient, so at this scale a
+    gradient within rounding of 0 moves params by more than 1e-5 in one
+    float32 computation and not in another (the grads stay held to their
+    bound); SGD's params follow the grads."""
+    from gnn_tpu_torch import Predictor
+    from gnn_tpu_torch.ops import bn, fused2, typed
+    n_arcs = sum(g.n_arcs for g in graphs)
+    for variant in ("h150", "h150_clean", "h150_bn"):
+        phase_training(torch, gb_train, n_arcs, f"w128_tanh_{variant}", 1, optimizer="sgd",
+                       profile=False)
+    typed_gs = typed_graphs(graphs)
+    comp = flagship(torch, "cuda", "w128_composite_bn")
+    gb_t = comp.to_batch(typed_gs)
+    gb_ts = Predictor(comp).build_batch(typed_gs).to("cuda")
+    phase_training(torch, gb_t, n_arcs, "w128_tanh_composite_bn", 1, optimizer="sgd",
+                   profile=False)
+    with torch.no_grad():
+        k9, k10, k12, k13 = two_layer_kernel_inputs(torch, gb, gb_train, width=128)
+        k11, x14, kw14, x15 = two_layer_train_kernel_inputs(torch, gb_train, width=128)
+        (_, x16), kw16, x17, kw17, _ = typed_kernel_inputs(torch, comp, gb_t, gb_ts)
+        bounds = dict(zip(("K9", "K10", "K12", "K13"), two_layer_bounds(k9, k10, k12, k13)))
+        bounds.update(zip(("K11", "K14", "K15"), two_layer_train_bounds(k11, x14, x15)))
+        bounds.update(zip(("K16", "K17"), typed_bounds(x16, x17)))
+        cases = {"K9": (step2_out, k9), "K10": (fused2.propagation_loop2, k10),
+                 "K11": (fused2.propagation_loop2_bwd, k11), "K12": (fused2.train_loop2, k12),
+                 "K13": (fused2.train_loop2_bwd, k13),
+                 "K14": (bn.bn2_forward_step, dict(x14, **kw14)),
+                 "K15": (bn.bn2_backward_step, x15),
+                 "K16": (typed.bnT_forward_step, dict(x16, **kw16)),
+                 "K17": (typed.bnT_backward_step, dict(x17, **kw17))}
+        for k, (fn, x) in cases.items():
+            dims = wide_dims(k, x)
+            info = tiled_plan(k, *dims)
+            ws_floats = int(wide_layout(k, *dims)[1]) if info["plan"] == len(plans_of(k)) else 0
+            rows = next(x[a] for a in ("adjT", "y1", "y_prev") if x.get(a) is not None).shape[0]
+            # a launch of milliseconds: events time it; the profiler's record is
+            # printed beside where it returns one (it dropped every record of
+            # a K11 launch in three tries once)
+            ms = timed_ms(torch, lambda: fn(**x), runs=3, reps=1)
+            dev_ms = device_ms(torch, lambda: fn(**x), 1, runs=3, required=False)
+            dev = "not recorded" if dev_ms is None else f"{dev_ms:.4f} ms"
+            say(f"{k} at width 128 ({rows} block rows, dims {dims}): {ms:.4f} ms by events, "
+                f"device time {dev}, bound {bounds[k][0]:.4f} ms ({bounds[k][1]}); "
+                f"{describe_k(k, info)}; workspace {4 * ws_floats * rows} bytes")
+
+
+def phase_optimizers(torch, gb, n_arcs):
+    """Each of the seven optimizers, and Adam on a cosine schedule, through
+    3 steps of the flagship's BatchNorm route (K1/K2, K launches each a step)
+    on the card, each step held to the CPU from the same params, BatchNorm
+    statistics and masks: iterations equal, the loss within rtol 1e-5, the
+    moving statistics within 1e-5, and the optimizer's update: the CPU's
+    optimizer, given the card's grads and state, lands within 1e-5 of the
+    card's params; the first step's grads as check_first_grads holds every
+    path's. Each step starts both from the card's params: the steps of an
+    optimizer that is not scale-invariant, as SGD at lr 1e-2 on the
+    flagship's loss, diverge, and float32 differences within their bounds
+    would grow past 1e-5 along the trajectory. Later steps' grads are not
+    held elementwise: where an optimizer moves the params near selu's kink a
+    unit's derivative is set-valued, and the card took the other branch than
+    both CPU steps at one unit of rmsprop's second or third step (measured
+    on one H100), which check_first_grads cannot adjudicate from a float64
+    step (check_bwd2 does, per block, in the kernel phases)."""
+    import copy
+    from gnn_tpu_torch.convert import flatten
+    from gnn_tpu_torch.models import core
+    from gnn_tpu_torch.ops import bn
+    from gnn_tpu_torch.training.optimizers import make_optimizer, optimizer_config
+    say(f"---- optimizers ({elapsed()})")
+    gb_cpu = gb.to("cpu")
+    K = flagship(torch, "cpu").spec.max_iteration
+    configs = [(name, optimizer_config(name)) for name in
+               ("adam", "adamw", "sgd", "rmsprop", "adagrad", "lamb", "lion")]
+    configs.append(("adam, cosine schedule", optimizer_config("adam", learning_rate={
+        "name": "cosine_decay", "kwargs": {"init_value": 1e-3, "decay_steps": 3}})))
+    for label, cfg in configs:
+        card, cpu = flagship(torch, "cuda", "bn", cfg), flagship(torch, "cpu", "bn", cfg)
+        worst = {"loss": 0.0, "bn": 0.0, "grad": 0.0, "params": 0.0}
+        times = []
+        for i in range(3):
+            m = card._draw_masks(card.spec, gb, card.mask_gen)
+            before = [p.detach().cpu().clone() for p in core.param_leaves(card.params)]
+            bn_before = tree_map(lambda v: v.detach().cpu().clone(), card.bn)
+            state = copy.deepcopy(card._opt.state_dict())
+            bn.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = card.training_step(gb, masks=m)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            if bn.launches != {"bn_forward_step": K, "bn_backward_step": K,
+                               "bn2_forward_step": 0, "bn2_backward_step": 0}:
+                fail(f"optimizer {label} step {i}: launches {bn.launches}")
+            # the CPU's step from the same params, statistics and masks
+            with torch.no_grad():
+                for p, b in zip(core.param_leaves(cpu.params), before):
+                    p.copy_(b)
+            cpu.bn = tree_map(torch.clone, bn_before)
+            ref = cpu.training_step(gb_cpu, masks=tree_map(lambda v: v.cpu(), m))
+            if float(ref["iters"]) != float(out["iters"]):
+                fail(f"optimizer {label} step {i}: iters {float(out['iters'])} on the card, "
+                     f"{float(ref['iters'])} on the CPU")
+            worst["loss"] = max(worst["loss"], close_rel(
+                torch, out["loss"].cpu(), ref["loss"], 1e-5, 0.0, f"optimizer {label} step {i}"))
+            for k, v in flatten(card.bn["state"]).items():
+                err = float((v.cpu() - flatten(cpu.bn["state"])[k]).abs().max())
+                worst["bn"] = max(worst["bn"], err)
+                if err > TOL:
+                    fail(f"optimizer {label} step {i}: moving {k} differs by {err:.3e}")
+            if i == 0:
+                card_g = {k: p.grad.cpu() for k, p in flatten(card.params).items()}
+                worst["grad"] = check_first_grads(torch, "bn", card_g, cpu, gb_cpu,
+                                                  tree_map(lambda v: v.cpu(), m))
+            # the update: the CPU's optimizer on the card's grads and state
+            leaves = [b.clone().requires_grad_(True) for b in before]
+            for leaf, p in zip(leaves, core.param_leaves(card.params)):
+                leaf.grad = p.grad.cpu()
+            opt = make_optimizer(cfg, leaves)
+            opt.load_state_dict(state)
+            opt.step()
+            for leaf, p in zip(leaves, core.param_leaves(card.params)):
+                err = float((p.detach().cpu() - leaf.detach()).abs().max())
+                worst["params"] = max(worst["params"], err)
+                if not err <= TOL:
+                    fail(f"optimizer {label} step {i}: the CPU's update from the card's grads "
+                         f"and state lands {err:.3e} from the card's params")
+        say(f"optimizer {label}: 3 steps of the 'bn' route ({[round(t * 1e3, 3) for t in times]} "
+            f"ms, host clock), K1/K2 {K} launches each a step; against the CPU from the same "
+            f"params: iters equal, loss {worst['loss']:.3e}, moving stats {worst['bn']:.3e}, "
+            f"first-step grads {worst['grad']:.3e}, the update from the card's grads and "
+            f"state {worst['params']:.3e}")
 
 
 def ragged_plan(torch, gen, N=20000, E=60000, hub=5, isolated=7, hub_arcs=6000, pads=1000):
@@ -3307,6 +3626,7 @@ def main():
                       {k: kernels[k]["ms"] for k in ("K4", "K6", "K9")})
     phase_one_type(torch, gb, gb_train)
     phase_wide(torch)
+    phase_optimizers(torch, gb_train, n_arcs)
     k18_launches = phase_pallas(torch, graphs, gb_plan_cpu, gb_plan, n_arcs)
     for k, (path, key) in {"K1": ("bn", "bn_forward_step"), "K2": ("bn", "bn_backward_step"),
                            "K3": ("flagship", "propagation_loop"),

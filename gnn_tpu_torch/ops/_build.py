@@ -109,8 +109,8 @@ def build(force: bool = False) -> Path:
 
 def _signatures():
     """{C entry: (argtypes, restype)} of the kernel library."""
-    p, i, f, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint64
-    # K1-K5 and K8 take their wide plan's workspace after the stream
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # K1-K5, K8 and K9-K15 take their wide plan's workspace after the stream
     sig = {
         "gnn_propagation_loop": [p] * 8 + [i, i, i, i, f, i, p, p],
         "gnn_propagation_step": [p] * 7 + [i, i, i, i, i, p, p],
@@ -120,34 +120,38 @@ def _signatures():
         "gnn_train_loop": [p] * 10 + [i, i, i, i, f, i, i, f, f, p],
         "gnn_train_loop_bwd": [p] * 12 + [i, i, i, i, i, i, f, f, p, p],
         "gnn_train_step": [p] * 9 + [i, i, i, i, i, i, f, f, p],
-        "gnn_propagation_loop2": [p] * 11 + [i] * 6 + [f, i, i, p],
-        "gnn_propagation_step2": [p] * 10 + [i] * 7 + [p],
-        "gnn_train_loop2": [p] * 13 + [i] * 6 + [f, i, i, i, f, f, p],
-        "gnn_train_loop2_bwd": [p] * 18 + [i] * 9 + [f, f, p],
-        "gnn_propagation_loop2_bwd": [p] * 17 + [i] * 8 + [p],
-        "gnn_bn2_forward": [p] * 16 + [i] * 6 + [f, i, i, i, f, f, p],
-        "gnn_bn2_backward": [p] * 21 + [i] * 9 + [f, f, p],
-        "gnn_bnT_forward": [p] * 15 + [i] * 6 + [f, u64, i, f, f, p],
-        "gnn_bnT_backward": [p] * 18 + [i] * 6 + [u64, i, f, f, p],
+        "gnn_propagation_loop2": [p] * 11 + [i] * 6 + [f, i, i, p, p],
+        "gnn_propagation_step2": [p] * 10 + [i] * 7 + [p, p],
+        "gnn_train_loop2": [p] * 13 + [i] * 6 + [f, i, i, i, f, f, p, p],
+        "gnn_train_loop2_bwd": [p] * 18 + [i] * 9 + [f, f, p, p],
+        "gnn_propagation_loop2_bwd": [p] * 17 + [i] * 8 + [p, p],
+        "gnn_bn2_forward": [p] * 16 + [i] * 6 + [f, i, i, i, f, f, p, p],
+        "gnn_bn2_backward": [p] * 21 + [i] * 9 + [f, f, p, p],
+        "gnn_bnT_forward": [p] * 15 + [i] * 6 + [f, p, i, f, f, p, p],
+        "gnn_bnT_backward": [p] * 18 + [i] * 6 + [p, i, f, f, p, p],
         "gnn_segment_aggregate": [p] * 5 + [i, i, p],
     }
     out = {name: (args, i) for name, args in sig.items()}
     # the tiled kernels', K1's-K8's, K16's and K17's plan reports (W, D, AL or
     # F or H, H1 or T, out) and K18's launch report (N, D, -, -, out); forced
     # plans of those in `planned`; the workspace floats a block row of the
-    # plan K1-K5's and K8's entries pick (W, D, F or H, -)
+    # plan K1-K5's, K8's and K9-K17's entries pick (W, D, F or H or AL, H1 or
+    # T)
     planned = ("gnn_propagation_loop2_bwd", "gnn_bn2_forward", "gnn_bn2_backward",
                "gnn_train_loop2", "gnn_bn_forward", "gnn_bn_backward", "gnn_train_loop_bwd",
                "gnn_bnT_backward", "gnn_propagation_step2", "gnn_propagation_loop",
                "gnn_propagation_loop_bwd", "gnn_bnT_forward", "gnn_propagation_step",
-               "gnn_train_loop", "gnn_train_step")
-    for name in planned + ("gnn_propagation_loop2", "gnn_train_loop2_bwd",
-                           "gnn_segment_aggregate"):
+               "gnn_train_loop", "gnn_train_step", "gnn_propagation_loop2",
+               "gnn_train_loop2_bwd")
+    for name in planned + ("gnn_segment_aggregate",):
         out[name + "_info"] = ([i] * 4 + [p], i)
     for name in planned:
         out[name + "_force_plan"] = ([i], None)
     for name in ("gnn_bn_forward", "gnn_bn_backward", "gnn_propagation_loop",
-                 "gnn_propagation_step", "gnn_propagation_loop_bwd", "gnn_train_loop_bwd"):
+                 "gnn_propagation_step", "gnn_propagation_loop_bwd", "gnn_train_loop_bwd",
+                 "gnn_propagation_step2", "gnn_propagation_loop2", "gnn_propagation_loop2_bwd",
+                 "gnn_train_loop2", "gnn_train_loop2_bwd", "gnn_bn2_forward", "gnn_bn2_backward",
+                 "gnn_bnT_forward", "gnn_bnT_backward"):
         out[name + "_workspace"] = ([i] * 4, i)
     out["gnn_cuda_error_string"] = ([i], ctypes.c_char_p)
     return out

@@ -40,8 +40,8 @@ bn2_train.cu) for CUDA tensors; it never falls back from one to the other.
 shared-memory plans that fits a CTA, else their wide plan, which takes every
 D and F with x3 and the [W][D]-sized rows in a device-memory workspace that
 the wrapper allocates (`_bn_plan`, `_bn_fwd_wide`, `_bn_bwd_wide`); K14/K15
-take D and F up to 64, H1 up to fused2.MAX_HIDDEN, and a block's rows and the
-weights within a CTA's shared memory (`_smem2_bytes`).
+likewise take every D, F and H1 (their staged plans D and F up to 64, then
+tile2.cuh's wide plan: `_smem2_bytes`, fused2._tile2_plan).
 """
 
 from __future__ import annotations
@@ -58,7 +58,7 @@ from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, SMEM
                                      _act_grad, _check, _check_fits, _check_keep, _drop_args,
                                      _first_plan, _make_drop, _plan_info, _ptr, _r4, _stream,
                                      _Workspace, moved, supports_fused_train)
-from gnn_tpu_torch.ops.fused2 import MAX_HIDDEN, _dense2_vjp, _tile2_plan, dense2
+from gnn_tpu_torch.ops.fused2 import _dense2_vjp, _tile2_plan, dense2
 from gnn_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
 
 # kernel launches since the last reset, by wrapper
@@ -343,13 +343,6 @@ def _check_blocks(adj_loop, adj_dep, R):
     return Bl, W
 
 
-def _check_state_width(D: int) -> None:
-    """The two-layer and typed BatchNorm kernels (K14-K17) take state widths
-    up to 64 (their register arrays; K1 and K2 take any)."""
-    if D > 64:
-        raise ValueError(f"state widths above 64 are not supported (D={D})")
-
-
 def _require_cuda(t):
     if t.device.type != "cuda":
         raise ValueError(f"BN training kernels need CPU or CUDA tensors, got {t.device}")
@@ -474,20 +467,12 @@ def _smem2_bytes(W: int, D: int, F: int, H1: int, backward: bool) -> int:
     return _tile2_plan(W, D, F, H1, "K15" if backward else "K14")[0]
 
 
-def _check_two_layer(adj_loop, adj_dep, R, D, F, w0_aug, w1, b1, backward):
-    """(Bl, W, H1) after checking what K14/K15 take: the widths, the hidden
-    width, the shared memory of the shape and the block rows."""
-    W = (adj_loop if adj_loop is not None else adj_dep).shape[-1]
+def _check_two_layer(adj_loop, adj_dep, R, D, F, w0_aug, w1, b1):
+    """(Bl, W, H1) after checking the block rows and the weights' shapes
+    (K14/K15 take every D, F and H1 at W <= 128)."""
     H1 = w0_aug.shape[0]
-    if F > 64:
-        raise ValueError(f"arc-label widths above 64 are not supported (F={F})")
-    if not 1 <= H1 <= MAX_HIDDEN:
-        raise ValueError(f"hidden width H1={H1} is outside 1..{MAX_HIDDEN}")
-    need = _smem2_bytes(W, D, F, H1, backward)
-    if need > SMEM_BYTES:
-        raise ValueError(f"W={W}, D={D}, F={F}, H1={H1} needs {need} bytes of shared memory a "
-                         f"block, more than the {SMEM_BYTES} a CTA may use")
-    _check_state_width(D)
+    if H1 < 1:
+        raise ValueError(f"hidden width H1={H1} must be positive")
     Bl, W = _check_blocks(adj_loop, adj_dep, R)
     dev = w0_aug.device
     _check("w0_aug", w0_aug, (H1, 2 * D + F + 1), dev)
@@ -511,7 +496,7 @@ def bn2_forward_step(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1
     _require_cuda(y1)
     R, _, D = y1.shape
     Fd = feats.shape[-1]
-    Bl, W, H1 = _check_two_layer(adj_loop, adj_dep, R, D, Fd, w0_aug, w1, b1, backward=False)
+    Bl, W, H1 = _check_two_layer(adj_loop, adj_dep, R, D, Fd, w0_aug, w1, b1)
     dev = y1.device
     for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
         if t is not None:
@@ -527,11 +512,12 @@ def bn2_forward_step(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
+        ws = _Workspace(R, W, D, Fd, H1).allocate(lib, "bn2_forward", dev)
         err = lib.gnn_bn2_forward(
             _ptr(adj_loop), _ptr(adj_dep), _ptr(y1), _ptr(y2), _ptr(aff), _ptr(keep), _ptr(rT),
             _ptr(feats), _ptr(w0_aug), _ptr(w1), _ptr(b1), _ptr(nm), _ptr(y), _ptr(agg),
             _ptr(marg), _ptr(msum), R, Bl, W, D, Fd, H1, float(threshold), _ACT_CODE[act0],
-            _ACT_CODE[act1], mode, a, b, _stream(dev))
+            _ACT_CODE[act1], mode, a, b, _stream(dev), _ptr(ws))
     _build.check(err, "bn2_forward_step (K14)")
     launches["bn2_forward_step"] += 1
     return y, agg, marg, msum
@@ -554,7 +540,7 @@ def bn2_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, 
     R, _, D = y_prev.shape
     Fd = feats.shape[-1]
     C = 2 * D + Fd + 1
-    Bl, W, H1 = _check_two_layer(adj_loop, adj_dep, R, D, Fd, w0_aug, w1, b1, backward=True)
+    Bl, W, H1 = _check_two_layer(adj_loop, adj_dep, R, D, Fd, w0_aug, w1, b1)
     dev = y_prev.device
     for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
                     ("gsel", gsel)):
@@ -572,12 +558,13 @@ def bn2_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, 
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
+        ws = _Workspace(R, W, D, Fd, H1).allocate(lib, "bn2_backward", dev)
         err = lib.gnn_bn2_backward(
             _ptr(adj_loop), _ptr(adj_dep), _ptr(y_prev), _ptr(y_k), _ptr(agg), _ptr(keep),
             _ptr(feats), _ptr(w0_aug), _ptr(w1), _ptr(b1), _ptr(ds_in), _ptr(gsel), _ptr(bnv),
             _ptr(flag), _ptr(nm), _ptr(ds), _ptr(dw0), _ptr(dw1), _ptr(db1), _ptr(dagg),
             _ptr(red), R, Bl, W, D, Fd, H1, _ACT_CODE[act0], _ACT_CODE[act1], mode, a, b,
-            _stream(dev))
+            _stream(dev), _ptr(ws))
     _build.check(err, "bn2_backward_step (K15)")
     launches["bn2_backward_step"] += 1
     return ds, dw0, dw1, db1, dagg, red
@@ -596,7 +583,7 @@ class BNLoopOperands:
     :param res: (src, dst, w) residual arcs in flat block-row node ids, or None.
     :param activations: the state net's, one (K1/K2) or two (K14/K15); per
         type for a typed loop.
-    :param types: uint8 [R, W] node type of each block-row node (0 on pad),
+    :param types: int32 [R, W] node type of each block-row node (0 on pad),
         or None: one type.
     :param res_type: [Er] int64 type of each residual arc's source node, or
         None: one type.

@@ -59,7 +59,13 @@
 // The plans (tile2.cuh kBn2FwdPlans, mirrored by ops/fused2.py::_PLANS["K14"]):
 // the first stages the keep bytes, builds the lists and stages w1, two y0
 // tiles; the leanest (no lists, no keep bytes staged, w1 read from device
-// memory) fits every shape the per-node K14 took.
+// memory) fits every shape the per-node K14 took. The wide plan (tile2.cuh
+// kTile2Wide, chosen only where neither fits) takes every D, F and H1: x3,
+// the row buffer and h1 lie in a workspace slice a block row
+// (gnn_bn2_forward_workspace floats, allocated by the wrapper), the weights,
+// the biases, the affines and the keep bytes are read from device memory, and
+// a thread's outputs go through its 64-wide tiles a chunk at a time: the same
+// chains, so a forced wide plan gives the staged plans' bits.
 
 #include "tile2.cuh"
 
@@ -71,7 +77,7 @@ static_assert(kBn2FwdPlans[0].ut == 4 && kBn2FwdPlans[1].ut == 4, "K14 owns 4 un
 
 int g_force = -1;  // gnn_bn2_forward_force_plan
 
-template <int MAXF>
+template <int MAXF, bool WIDE>
 __global__ void __launch_bounds__(kTileThreads, 2)
 bn2_fwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_dep,
                     const float* __restrict__ y1, const float* __restrict__ y2,
@@ -81,22 +87,24 @@ bn2_fwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict_
                     const float* __restrict__ b1, const float* __restrict__ nm,
                     float* __restrict__ y, float* __restrict__ agg, float* __restrict__ marg,
                     float* __restrict__ msum, int Bl, int W, int D, int F, int H1, float thr,
-                    int act0, int act1, int mode, float da, float db, Tile2Plan p) {
+                    int act0, int act1, int mode, float da, float db, Tile2Plan p, float* ws) {
   constexpr int DG = MAXF / 8, UT = 4, CH = 8 * UT;
   extern __shared__ float4 smem_raw[];
   float* base = reinterpret_cast<float*>(smem_raw);
-  const Tile2Layout L = tile2_layout(kBnForward2, W, D, F, H1, p);
+  const Tile2Layout L = tile2_layout(kBnForward2, W, D, F, H1, p, WIDE);
   const int C = 2 * D + F, S = L.S, DP = D | 1;
-  float* X = base + L.x3;
+  float* WB = WIDE ? ws + (size_t)blockIdx.x * L.ws : base;  // x3, the row buffer, h1
+  float* X = WB + L.x3;
   float* Y = base + L.yt;
-  float* w0T = base + L.w0;
+  float* w0T = WIDE ? nullptr : base + L.w0;
   float* w1s = p.w1g ? nullptr : base + L.w1;
-  float* b0s = base + L.b0;
+  float* b0s = WIDE ? nullptr : base + L.b0;
   float* lw = base + L.lw;
-  float* b1s = base + L.b1;
-  float* affs = base + L.aff;  // [scale1; shift1; scale2; shift2] x [D]
+  const float* b1s = WIDE ? b1 : base + L.b1;
+  const float* affs = WIDE ? aff : base + L.aff;  // [scale1; shift1; scale2; shift2] x [D]
   float* nms = base + L.nm;
-  float* A = base + L.ab;      // [W][DP]: rT, then agg, then y
+  float* A = WB + L.ab;  // [W][DP]: rT, then agg, then y
+  float* HW = WB + L.hw;
   uint8_t* kps = reinterpret_cast<uint8_t*>(base + L.kp);
   uint8_t* cnt = reinterpret_cast<uint8_t*>(smem_raw) + L.cnt_b;
   uint8_t* idx = reinterpret_cast<uint8_t*>(smem_raw) + L.idx_b;
@@ -109,16 +117,26 @@ bn2_fwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict_
   const uint8_t* kg = mode != kNoDrop ? keep + row0 * C : nullptr;
   const bool kstaged = kg != nullptr && p.pf && reinterpret_cast<uintptr_t>(kg) % 16 == 0;
 
-  // ---- staging, issued together, waited on once
-  stage_tile_weights(w0_aug, C + 1, w0_aug + C, C + 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, b1s);
-  for (int i = t; i < 4 * D; i += kTileThreads) cp_async4(affs + i, aff + i);
+  // ---- staging, issued together, waited on once (wide: the rows into the
+  // workspace)
+  if constexpr (WIDE) {
+    stage_rowsT<true>(y1 + row0 * D, W, D, X, 0);
+    stage_rowsT<true>(y2 + row0 * D, W, D, X, D);
+    stage_rowsT<true>(feats + row0 * F, W, F, X, 2 * D);
+    if (rT != nullptr)
+      for (int i = t; i < W * D; i += kTileThreads) A[(i / D) * DP + i % D] = rT[row0 * D + i];
+  } else {
+    stage_tile_weights(w0_aug, C + 1, w0_aug + C, C + 1, w1, b1, C, D, H1, S, w0T, w1s, b0s,
+                       base + L.b1);
+    for (int i = t; i < 4 * D; i += kTileThreads) cp_async4(base + L.aff + i, aff + i);
+    stage_rowsT(y1 + row0 * D, W, D, X, 0);      // x3 rows [0, D): y1, then s
+    stage_rowsT(y2 + row0 * D, W, D, X, D);      // rows [D, 2D): y2, then agg
+    stage_rowsT(feats + row0 * F, W, F, X, 2 * D);
+    if (rT != nullptr)
+      for (int i = t; i < W * D; i += kTileThreads)
+        cp_async4(A + (i / D) * DP + i % D, rT + row0 * D + i);
+  }
   cp_rows(nms, nm + row0, W);
-  stage_rowsT(y1 + row0 * D, W, D, X, 0);      // x3 rows [0, D): y1, then s
-  stage_rowsT(y2 + row0 * D, W, D, X, D);      // rows [D, 2D): y2, then agg
-  stage_rowsT(feats + row0 * F, W, F, X, 2 * D);
-  if (rT != nullptr)
-    for (int i = t; i < W * D; i += kTileThreads)
-      cp_async4(A + (i / D) * DP + i % D, rT + row0 * D + i);
   if (kstaged)  // W * C is a multiple of 32
     for (int i = 16 * t; i < W * C; i += 16 * kTileThreads)
       cp_async16(reinterpret_cast<float*>(kps + i), reinterpret_cast<const float*>(kg + i));
@@ -129,7 +147,7 @@ bn2_fwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict_
 
   // ---- s and s_old through the affines (multiply, then add, as the plain
   // version rounds them), the movement test one thread a node, d ascending
-  if (t < W) {
+  if (t < W) {  // W <= 128 threads
     float dist2 = 0.0f, norm2 = 0.0f;
     for (int d = 0; d < D; ++d) {
       const float s = __fadd_rn(__fmul_rn(X[d * W + t], affs[d]), affs[D + d]);
@@ -164,19 +182,18 @@ bn2_fwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict_
 
   // ---- h1 = w1 @ act0(w0 @ x3 + b0) + b1 on the register tiles
   float h1[4][DG];
-#pragma unroll
-  for (int i = 0; i < DG; ++i) {
-    const int d = dg + 8 * i;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) h1[n][i] = d < D ? b1s[d] : 0.0f;
-  }
+  if constexpr (!WIDE) h1_bias<DG>(h1, b1s, dg, D);
   const int nch = (S + CH - 1) / CH;
   for (int ci = 0; ci < nch; ++ci) {
     const int j0 = ci * CH, jc = min(CH, S - j0);
     float* Yb = Y + (p.nbuf == 2 ? (ci & 1) : 0) * CH * W;
     if (node_ok && UT * dg < jc) {
       float a[4][UT];
-      first_product3(X, W, D, C, w0T + j0 + UT * dg, S, b0s + j0 + UT * dg, ng, a);
+      if constexpr (WIDE)
+        first_product3(X, W, D, C, W0Dev{w0_aug, w0_aug + C, C + 1, C + 1, H1, j0 + UT * dg},
+                       ng, a);
+      else
+        first_product3(X, W, D, C, w0T + j0 + UT * dg, S, b0s + j0 + UT * dg, ng, a);
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -184,21 +201,42 @@ bn2_fwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict_
       store_tile<UT>(Yb, UT * dg, ng, W, a);
     }
     __syncthreads();  // the chunk's y0 tile is full
-    if (node_ok) second_product<UT, DG>(Yb, W, w1src, j0, jc, ng, dg, D, h1);
+    if constexpr (WIDE) {
+      for (int d0 = 0; node_ok && d0 < D; d0 += kWideOut) {
+        if (ci == 0)
+          h1_bias<DG>(h1, b1s, d0 + dg, D);
+        else
+          tile_io<false>(h1, HW, W, ng, d0 + dg, D);
+        second_product<UT, DG>(Yb, W, w1src, j0, jc, ng, d0 + dg, D, h1);
+        tile_io<true>(h1, HW, W, ng, d0 + dg, D);
+      }
+    } else if (node_ok) {
+      second_product<UT, DG>(Yb, W, w1src, j0, jc, ng, dg, D, h1);
+    }
     // two tiles: the next chunk writes the other one, whose readers are past
     // the barrier above
     if (p.nbuf == 1) __syncthreads();
   }
 
-  // ---- y = act1(h1) into the row buffer (agg is out: past the barriers)
-  if (node_ok)
+  // ---- y = act1(h1) into the row buffer (agg is out: past the barriers),
+  // outputs d0 + dg + 8 i
+  auto finish = [&](int d0) {
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int i = 0; i < DG; ++i) {
-        const int d = dg + 8 * i;
+        const int d = d0 + dg + 8 * i;
         if (d < D) A[(4 * ng + n) * DP + d] = activate(act1, h1[n][i]);
       }
+  };
+  if constexpr (WIDE) {
+    for (int d0 = 0; node_ok && d0 < D; d0 += kWideOut) {
+      tile_io<false>(h1, HW, W, ng, d0 + dg, D);
+      finish(d0);
+    }
+  } else if (node_ok) {
+    finish(0);
+  }
   __syncthreads();  // every thread is past its reads of the y0 tiles
 
   // ---- y out; msum, a thread a column summing the block's nodes in order
@@ -213,28 +251,29 @@ bn2_fwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict_
 using Bn2FwdFn = void (*)(const float*, const float*, const float*, const float*, const float*,
                           const uint8_t*, const float*, const float*, const float*, const float*,
                           const float*, const float*, float*, float*, float*, float*, int, int,
-                          int, int, int, float, int, int, int, float, float, Tile2Plan);
+                          int, int, int, float, int, int, int, float, float, Tile2Plan, float*);
 
 // K14's kernel and plan for a shape: the first plan of kBn2FwdPlans that
-// fits, or plan g_force (>= 0) if it fits; nullptr if none.
-Bn2FwdFn pick_fwd(int W, int D, int F, int H1, Tile2Plan* p, size_t* bytes, int* index) {
-  if (!pick_plan(kBnForward2, kBn2FwdPlans, W, D, F, H1, p, bytes, index, g_force))
+// fits, else the wide plan (index 2), or plan g_force (>= 0) if it fits;
+// nullptr if none. *ws: the plan's workspace floats a block row.
+Bn2FwdFn pick_fwd(int W, int D, int F, int H1, Tile2Plan* p, size_t* bytes, int* index,
+                  int* ws) {
+  if (!pick_plan(kBnForward2, kBn2FwdPlans, W, D, F, H1, p, bytes, index, g_force, ws))
     return nullptr;
+  if (*ws > 0) return bn2_fwd_tile_kernel<64, true>;
   switch (width_class(D > F ? D : F)) {
     case 16:
-      return bn2_fwd_tile_kernel<16>;
+      return bn2_fwd_tile_kernel<16, false>;
     case 32:
-      return bn2_fwd_tile_kernel<32>;
-    case 64:
-      return bn2_fwd_tile_kernel<64>;
+      return bn2_fwd_tile_kernel<32, false>;
     default:
-      return nullptr;
+      return bn2_fwd_tile_kernel<64, false>;
   }
 }
 
 bool shape_ok(int R, int Bl, int W, int D, int F, int H1) {
   return R > 0 && Bl >= 0 && Bl <= R && W >= 32 && W <= kMaxW && W % 32 == 0 && D > 0 &&
-         F >= 0 && H1 > 0 && width_class(D > F ? D : F) != 0;
+         F >= 0 && H1 > 0;
 }
 
 }  // namespace
@@ -245,26 +284,37 @@ extern "C" {
 // Bl == R); y1, y2, rT (nullable) [R, W, D]; aff [2, 2, D]; keep uint8
 // [R, W, 2D + F] (null when mode == 0); feats [R, W, F]; w0_aug
 // [H1, 2D + F + 1]; w1 [D, H1]; b1 [D]; nm [R, W] -> y, agg [R, W, D],
-// marg [R, W], msum [R, D]. Returns a cudaError_t code.
+// marg [R, W], msum [R, D]; ws: the wide plan's workspace, R slices of
+// gnn_bn2_forward_workspace floats (null for a staged plan). Returns a
+// cudaError_t code.
 int gnn_bn2_forward(const float* adj_loop, const float* adj_dep, const float* y1,
                     const float* y2, const float* aff, const uint8_t* keep, const float* rT,
                     const float* feats, const float* w0_aug, const float* w1, const float* b1,
                     const float* nm, float* y, float* agg, float* marg, float* msum, int R,
                     int Bl, int W, int D, int F, int H1, float thr, int act0, int act1, int mode,
-                    float da, float db, void* stream) {
+                    float da, float db, void* stream, float* ws) {
   if (!shape_ok(R, Bl, W, D, F, H1)) return cudaErrorInvalidValue;
   if (mode != kNoDrop && keep == nullptr) return cudaErrorInvalidValue;
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Bn2FwdFn fn = pick_fwd(W, D, F, H1, &p, &bytes, &index);
-  if (fn == nullptr) return cudaErrorInvalidValue;
+  int index, wsf;
+  const Bn2FwdFn fn = pick_fwd(W, D, F, H1, &p, &bytes, &index, &wsf);
+  if (fn == nullptr || (wsf > 0 && ws == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
   fn<<<R, kTileThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1, b1, nm, y, agg, marg, msum,
-      Bl, W, D, F, H1, thr, act0, act1, mode, da, db, p);
+      Bl, W, D, F, H1, thr, act0, act1, mode, da, db, p, ws);
   return cudaGetLastError();
+}
+
+// The workspace floats a block row the plan gnn_bn2_forward picks for this
+// shape needs (0 for a staged plan), or -1 if none fits.
+int gnn_bn2_forward_workspace(int W, int D, int F, int H1) {
+  Tile2Plan p;
+  size_t bytes;
+  int index, wsf;
+  return pick_fwd(W, D, F, H1, &p, &bytes, &index, &wsf) == nullptr ? -1 : wsf;
 }
 
 // out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
@@ -273,15 +323,15 @@ int gnn_bn2_forward(const float* adj_loop, const float* adj_dep, const float* y1
 int gnn_bn2_forward_info(int W, int D, int F, int H1, int* out) {
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Bn2FwdFn fn = pick_fwd(W, D, F, H1, &p, &bytes, &index);
+  int index, wsf;
+  const Bn2FwdFn fn = pick_fwd(W, D, F, H1, &p, &bytes, &index, &wsf);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return tile_kernel_info(fn, bytes, index, out);
 }
 
-// Launch plan `index` of kBn2FwdPlans from now on, where it fits (a launch
-// at a shape it does not fit fails), or the first plan that fits again
-// (index -1): for timing one plan against another.
+// Launch plan `index` of kBn2FwdPlans (2: the wide plan) from now on, where
+// it fits (a launch at a shape it does not fit fails), or the first plan that
+// fits again (index -1): for timing one plan against another.
 void gnn_bn2_forward_force_plan(int index) { g_force = index; }
 
 }  // extern "C"

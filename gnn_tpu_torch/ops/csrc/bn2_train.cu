@@ -48,6 +48,15 @@
 // by the operations at the card's fp32 rate (chip_smoke.py
 // ::two_layer_train_bounds: K15 0.097 ms on the training batch's 1214 block
 // rows, H1 = 150).
+//
+// The wide plan (tile2.cuh kTile2Wide, index 2, chosen only where neither
+// plan of kBn2BwdPlans fits) takes every D, F and H1: x3, G, h1 and dx3 lie
+// in a workspace slice a block row (gnn_bn2_backward_workspace floats,
+// allocated by the wrapper), the weights and biases are read from device
+// memory, and h1 and dx3 go through the 64-wide register tiles a chunk at a
+// time: the same chains, so a forced wide plan gives the staged plans' bits.
+// Its one instantiation is compiled from bn2_train_wide.cu (this file under
+// GNN_WIDE_TU), beside this file's.
 
 #include "tile2.cuh"
 
@@ -58,7 +67,7 @@ using namespace gnn;
 int g_force = -1;  // gnn_bn2_backward_force_plan
 
 // K15: one reverse two-layer BN-training iteration over every block row.
-template <int MAXF, int UT, int MINB>
+template <int MAXF, int UT, int MINB, bool WIDE>
 __global__ void __launch_bounds__(kTileThreads, MINB)
 bn2_bwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_dep,
                     const float* __restrict__ y_prev, const float* __restrict__ y_k,
@@ -70,19 +79,20 @@ bn2_bwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict_
                     const float* __restrict__ nm, float* __restrict__ ds, float* __restrict__ dw0,
                     float* __restrict__ dw1, float* __restrict__ db1, float* __restrict__ dagg,
                     float* __restrict__ red, int Bl, int W, int D, int F, int H1, int act0,
-                    int act1, int mode, float da, float db, Tile2Plan p) {
+                    int act1, int mode, float da, float db, Tile2Plan p, float* ws) {
   constexpr int DG = MAXF / 8, CT = 3 * MAXF / 8;
   extern __shared__ float4 smem_raw[];
   float* base = reinterpret_cast<float*>(smem_raw);
-  const Tile2Layout L = tile2_layout(kReverse2, W, D, F, H1, p);
+  const Tile2Layout L = tile2_layout(kReverse2, W, D, F, H1, p, WIDE);
   const int C = 2 * D + F, S = L.S;
-  float* X = base + L.x3;   // x3; then dagg in rows [0, D), ds * x_hat_prev in [D, 2D)
-  float* G = base + L.dh1;  // gy, then dh1, then ds
-  float* w0T = base + L.w0;
+  float* WB = WIDE ? ws + (size_t)blockIdx.x * L.ws : base;  // x3, G, h1, dx3
+  float* X = WB + L.x3;   // x3; then dagg in rows [0, D), ds * x_hat_prev in [D, 2D)
+  float* G = WB + L.dh1;  // gy, then dh1, then ds
+  float* w0T = WIDE ? nullptr : base + L.w0;
   float* w1s = p.w1g ? nullptr : base + L.w1;
-  float* b0s = base + L.b0;
+  float* b0s = WIDE ? nullptr : base + L.b0;
   float* lw = base + L.lw;
-  float* b1s = base + L.b1;
+  const float* b1s = WIDE ? b1 : base + L.b1;
   uint8_t* cnt = reinterpret_cast<uint8_t*>(smem_raw) + L.cnt_b;
   uint8_t* idx = reinterpret_cast<uint8_t*>(smem_raw) + L.idx_b;
   const int r = blockIdx.x, t = threadIdx.x;
@@ -92,7 +102,9 @@ bn2_bwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict_
   const float* adj = block_adj(adj_loop, adj_dep, Bl, W);
   const uint8_t* kp = mode != kNoDrop ? keep + row0 * C : nullptr;  // [W][C] x3 order
 
-  stage_tile_weights(w0_aug, C + 1, w0_aug + C, C + 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, b1s);
+  if constexpr (!WIDE)
+    stage_tile_weights(w0_aug, C + 1, w0_aug + C, C + 1, w1, b1, C, D, H1, S, w0T, w1s, b0s,
+                       base + L.b1);
   if (p.E > 0 && t < W) build_list(adj, W, t, p.E, false, lw, idx, cnt);
   // the forward's dropped x3, transposed: s_prev (rounded as the plain
   // version: multiply, then add), agg, feats; consecutive threads take
@@ -122,36 +134,48 @@ bn2_bwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict_
   __syncthreads();
 
   const Tile2Rev rev{X, G, base + L.yt, base + L.ht, w0T, b0s, b1s,
-                     W1Src{w1s, w1, S, H1, p.w1g != 0}, W, C, D, H1, S, p.keep, p.nbuf};
+                     W1Src{w1s, w1, S, H1, p.w1g != 0}, W, C, D, H1, S, p.keep, p.nbuf,
+                     W0Dev{w0_aug, w0_aug + C, C + 1, C + 1, H1, 0}, WB + L.hw, WB + L.dx};
   float h1[4][DG];
-  reverse_pass1<UT, DG>(rev, act0, ng, jg, h1);
-  // dh1 = gy * act1'(h1) into G (each entry read and written by its owner)
-  if (node_ok)
+  reverse_pass1<UT, DG, WIDE>(rev, act0, ng, jg, h1);
+  // dh1 = gy * act1'(h1) into G (each entry read and written by its owner),
+  // outputs d0 + jg + 8 i (wide: a chunk at a time from h1's HW)
+  auto form_dh1 = [&](int d0) {
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int i = 0; i < DG; ++i) {
-        const int d = jg + 8 * i;
+        const int d = d0 + jg + 8 * i;
         if (d < D) G[d * W + 4 * ng + n] *= act_grad(act1, h1[n][i]);
       }
+  };
+  if constexpr (WIDE) {
+    for (int d0 = 0; node_ok && d0 < D; d0 += kWideOut) {
+      tile_io<false>(h1, rev.HW, W, ng, d0 + jg, D);
+      form_dh1(d0);
+    }
+  } else if (node_ok) {
+    form_dh1(0);
+  }
   __syncthreads();  // G holds every node's dh1
 
   float* dw0_r = dw0 + (size_t)r * H1 * (C + 1);  // bias-augmented: db0 is its last column
   const Tile2Parts parts{nullptr, dw0_r, dw0_r + C, dw1 + (size_t)r * D * H1,
                          db1 + (size_t)r * D, C + 1, C + 1, false};
   float dx[4][CT];
-  reverse_pass2<UT, CT>(rev, parts, act0, ng, jg, dx);
+  reverse_pass2<UT, CT, WIDE>(rev, parts, act0, ng, jg, dx);
 
   // dx = dh0 @ [Ws | Wa] through the dropout's derivative a * keep; dagg out
   // and into X rows [0, D) (every reader of x3 is past the last chunk's
-  // barrier)
-  if (node_ok)
+  // barrier); columns c0 + jg + 8 i (wide: a chunk at a time from DX, the
+  // state columns parked again)
+  auto route = [&](int c0) {
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       const int node = 4 * ng + n;
 #pragma unroll
       for (int i = 0; i < CT; ++i) {
-        const int c = jg + 8 * i;
+        const int c = c0 + jg + 8 * i;
         if (c < 2 * D) {
           const float v = dx[n][i] * drop_grad(mode, da, kp != nullptr && kp[node * C + c] != 0);
           if (c < D) {
@@ -163,16 +187,16 @@ bn2_bwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict_
         }
       }
     }
-  __syncthreads();  // X holds every node's dagg
+  };
   // ds[t] = dxs[t] + sum_dst adjT[t][dst] * dagg[dst] into G, ds * x_hat_prev
   // into X rows [D, 2D)
-  if (node_ok)
+  auto contract = [&](int c0) {
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       const int node = 4 * ng + n;
 #pragma unroll
       for (int i = 0; i < CT; ++i) {
-        const int c = jg + 8 * i;
+        const int c = c0 + jg + 8 * i;
         if (c < D) {
           const float v = dx[n][i] + line_dot(adj, W, node, false, p.E, lw, idx, cnt, X + c * W);
           G[c * W + node] = v;
@@ -181,47 +205,86 @@ bn2_bwd_tile_kernel(const float* __restrict__ adj_loop, const float* __restrict_
         }
       }
     }
+  };
+  if constexpr (WIDE) {
+    for (int c0 = 0; node_ok && c0 < 2 * D; c0 += kWideCols) {
+      tile_io<false>(dx, rev.DX, W, ng, c0 + jg, C);
+      route(c0);
+      tile_io<true>(dx, rev.DX, W, ng, c0 + jg, C);
+    }
+  } else if (node_ok) {
+    route(0);
+  }
+  __syncthreads();  // X holds every node's dagg
+  if constexpr (WIDE) {
+    for (int c0 = 0; node_ok && c0 < D; c0 += kWideCols) {
+      tile_io<false>(dx, rev.DX, W, ng, c0 + jg, C);
+      contract(c0);
+    }
+  } else if (node_ok) {
+    contract(0);
+  }
   __syncthreads();
   for (int i = t; i < W * D; i += kTileThreads) ds[row0 * D + i] = G[(i % D) * W + i / D];
   // the next reverse step's reduction partials (sum ds, sum ds * x_hat_prev)
-  if (t < 2 * D) {
-    const float* row = t < D ? G + t * W : X + t * W;
+  for (int q = t; q < 2 * D; q += kTileThreads) {
+    const float* row = q < D ? G + q * W : X + q * W;
     float acc = 0.0f;
     for (int n = 0; n < W; ++n) acc += row[n];
-    red[(size_t)r * 2 * D + t] = acc;
+    red[(size_t)r * 2 * D + q] = acc;
   }
-}
-
-bool shape_ok(int R, int Bl, int W, int D, int F, int H1) {
-  return R > 0 && Bl >= 0 && Bl <= R && W >= 32 && W <= kMaxW && W % 32 == 0 && D > 0 &&
-         F >= 0 && H1 > 0 && width_class(D > F ? D : F) != 0;
 }
 
 using Bn2BwdFn = void (*)(const float*, const float*, const float*, const float*, const float*,
                           const uint8_t*, const float*, const float*, const float*, const float*,
                           const float*, const float*, const float*, const float*, const float*,
                           float*, float*, float*, float*, float*, float*, int, int, int, int, int,
-                          int, int, int, float, float, Tile2Plan);
+                          int, int, int, float, float, Tile2Plan, float*);
+
+}  // namespace
+
+#ifdef GNN_WIDE_TU
+
+namespace gnn {
+// K15's wide-plan instantiation (bn2_train_wide.cu).
+Bn2BwdFn bn2_bwd_wide() { return bn2_bwd_tile_kernel<64, 4, 1, true>; }
+}  // namespace gnn
+
+#else
+
+namespace gnn {
+Bn2BwdFn bn2_bwd_wide();
+}  // namespace gnn
+
+namespace {
+
+bool shape_ok(int R, int Bl, int W, int D, int F, int H1) {
+  return R > 0 && Bl >= 0 && Bl <= R && W >= 32 && W <= kMaxW && W % 32 == 0 && D > 0 &&
+         F >= 0 && H1 > 0;
+}
 
 // 4 units a thread: two CTAs an SM, in at most 128 registers a thread; the
 // leanest plan: one.
 template <int MAXF>
 Bn2BwdFn pick_variant(const Tile2Plan& p) {
-  return p.ut == 2 ? bn2_bwd_tile_kernel<MAXF, 2, 1> : bn2_bwd_tile_kernel<MAXF, 4, 2>;
+  return p.ut == 2 ? bn2_bwd_tile_kernel<MAXF, 2, 1, false> : bn2_bwd_tile_kernel<MAXF, 4, 2, false>;
 }
 
-// K15's kernel and plan for a shape (nullptr if none fits).
-Bn2BwdFn pick_bwd(int W, int D, int F, int H1, Tile2Plan* p, size_t* bytes, int* index) {
-  if (!pick_plan(kReverse2, kBn2BwdPlans, W, D, F, H1, p, bytes, index, g_force)) return nullptr;
+// K15's kernel and plan for a shape: the first plan of kBn2BwdPlans that
+// fits, else the wide plan (index 2), or plan g_force (>= 0) if it fits;
+// nullptr if none. *ws: the plan's workspace floats a block row.
+Bn2BwdFn pick_bwd(int W, int D, int F, int H1, Tile2Plan* p, size_t* bytes, int* index,
+                  int* ws) {
+  if (!pick_plan(kReverse2, kBn2BwdPlans, W, D, F, H1, p, bytes, index, g_force, ws))
+    return nullptr;
+  if (*ws > 0) return bn2_bwd_wide();
   switch (width_class(D > F ? D : F)) {
     case 16:
       return pick_variant<16>(*p);
     case 32:
       return pick_variant<32>(*p);
-    case 64:
-      return pick_variant<64>(*p);
     default:
-      return nullptr;
+      return pick_variant<64>(*p);
   }
 }
 
@@ -231,28 +294,38 @@ extern "C" {
 
 // As gnn_bn2_forward, plus y_prev, y_k, agg, ds_in, gsel [R, W, D]; bnv [9, D];
 // flag a device float (0 or 1) -> ds, dagg [R, W, D] and the per-block
-// partials dw0 [R, H1, 2D + F + 1], dw1 [R, D, H1], db1 [R, D], red [R, 2, D].
-// Returns a cudaError_t code.
+// partials dw0 [R, H1, 2D + F + 1], dw1 [R, D, H1], db1 [R, D], red [R, 2, D];
+// ws: the wide plan's workspace, R slices of gnn_bn2_backward_workspace floats
+// (null for a staged plan). Returns a cudaError_t code.
 int gnn_bn2_backward(const float* adj_loop, const float* adj_dep, const float* y_prev,
                      const float* y_k, const float* agg, const uint8_t* keep, const float* feats,
                      const float* w0_aug, const float* w1, const float* b1, const float* ds_in,
                      const float* gsel, const float* bnv, const float* flag, const float* nm,
                      float* ds, float* dw0, float* dw1, float* db1, float* dagg, float* red, int R,
                      int Bl, int W, int D, int F, int H1, int act0, int act1, int mode, float da,
-                     float db, void* stream) {
+                     float db, void* stream, float* ws) {
   if (!shape_ok(R, Bl, W, D, F, H1)) return cudaErrorInvalidValue;
   if (mode != kNoDrop && keep == nullptr) return cudaErrorInvalidValue;
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Bn2BwdFn fn = pick_bwd(W, D, F, H1, &p, &bytes, &index);
-  if (fn == nullptr) return cudaErrorInvalidValue;
+  int index, wsf;
+  const Bn2BwdFn fn = pick_bwd(W, D, F, H1, &p, &bytes, &index, &wsf);
+  if (fn == nullptr || (wsf > 0 && ws == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
   fn<<<R, kTileThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, w1, b1, ds_in, gsel, bnv, flag,
-      nm, ds, dw0, dw1, db1, dagg, red, Bl, W, D, F, H1, act0, act1, mode, da, db, p);
+      nm, ds, dw0, dw1, db1, dagg, red, Bl, W, D, F, H1, act0, act1, mode, da, db, p, ws);
   return cudaGetLastError();
+}
+
+// The workspace floats a block row the plan gnn_bn2_backward picks for this
+// shape needs (0 for a staged plan), or -1 if none fits.
+int gnn_bn2_backward_workspace(int W, int D, int F, int H1) {
+  Tile2Plan p;
+  size_t bytes;
+  int index, wsf;
+  return pick_bwd(W, D, F, H1, &p, &bytes, &index, &wsf) == nullptr ? -1 : wsf;
 }
 
 // out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
@@ -261,15 +334,17 @@ int gnn_bn2_backward(const float* adj_loop, const float* adj_dep, const float* y
 int gnn_bn2_backward_info(int W, int D, int F, int H1, int* out) {
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Bn2BwdFn fn = pick_bwd(W, D, F, H1, &p, &bytes, &index);
+  int index, wsf;
+  const Bn2BwdFn fn = pick_bwd(W, D, F, H1, &p, &bytes, &index, &wsf);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return tile_kernel_info(fn, bytes, index, out);
 }
 
-// Launch plan `index` of kBn2BwdPlans from now on, where it fits (a launch at
-// a shape it does not fit fails), or the first plan that fits again (index
-// -1): for timing one plan against another.
+// Launch plan `index` of kBn2BwdPlans (2: the wide plan) from now on, where
+// it fits (a launch at a shape it does not fit fails), or the first plan that
+// fits again (index -1): for timing one plan against another.
 void gnn_bn2_backward_force_plan(int index) { g_force = index; }
 
 }  // extern "C"
+
+#endif  // GNN_WIDE_TU

@@ -18,7 +18,8 @@
 //        dh = gy * act_t'(h),  dw[t rows] += dh^T @ [x3; 1]   (per-block partial)
 //        dagg = (dh @ Wa[t]) * dmask,  ds = (dh @ Ws[t]) * dmask + adjT @ dagg
 //        red[t'] = (sum ds, sum ds * x_hat_prev) over type-t' nodes
-// Types are indices (uint8, 0 on padded nodes). gnn_tpu multiplies every node
+// Types are indices (int32, 0 on padded nodes), type t's activation code the
+// byte acts[t] of a device array. gnn_tpu multiplies every node
 // by all T weight slabs and selects with a one-hot mask; the rows of other
 // types are multiplied by 0 there, so computing only the node's own rows is
 // the same function, and the dense work stays K1's whatever T is. Padded
@@ -91,20 +92,27 @@
 // staging, no lists) fits every shape the per-node K17 took.
 //
 // Bound: as K1/K2, a launch reads every block's adjacency once (64 KiB at
-// W = 128), which dominates the bytes moved; the types add W bytes a block
+// W = 128), which dominates the bytes moved; the types add 4*W bytes a block
 // and do not grow with T. The least time is set by bytes.
+//
+// The staged plans take D up to 64 and T up to 32. The wide plans (index 3
+// of each list, chosen only where no staged plan fits, as K1's and K2's)
+// take every D, F and T: x3, the row buffers, K17's dh, ds and dagg, and the
+// types' starts lie in a workspace slice a block row
+// (gnn_bnT_forward_workspace / gnn_bnT_backward_workspace floats, allocated
+// by the wrapper); the stacked weights, the affines and bnv are read
+// through the caches; a thread's outputs go through h [JT] (and K17's dx)
+// in chunks of JT: the same chains, so a forced wide plan gives the staged
+// plans' bits. Their instantiations are compiled from bn_typed_wide.cu (this
+// file under GNN_WIDE_TU), beside this file's.
 
 #include "tile2.cuh"
 
-namespace {
+namespace gnn {
 
-using namespace gnn;
-
-__device__ __forceinline__ int act_of(unsigned long long acts, int t) {
-  return static_cast<int>((acts >> (2 * t)) & 3ull);
-}
-
-// ---- K17
+// The plans are types of namespace gnn (not of this file's unnamed one), so
+// the wide instantiations' getters link across bn_typed.cu and
+// bn_typed_wide.cu.
 
 // A K17 plan: threads a CTA, room of the row lists (0: the adjacency is read
 // from device memory), whether the rows and keep bytes are staged, whether
@@ -113,12 +121,32 @@ struct BnTBwdPlan {
   int nt, E, st, ws;
 };
 
+// A K16 plan: threads a CTA, room of the column lists (0: the adjacency is
+// read from device memory), whether the keep bytes are staged, whether the
+// stacked weights are staged (else read through the L1/L2 caches).
+struct BnTFwdPlan {
+  int nt, E, st, ws;
+};
+
+}  // namespace gnn
+
+namespace {
+
+using namespace gnn;
+
+// the wide plans' index, after the three staged plans of each list
+constexpr int kBnTWideIndex = 3;
+
+// ---- K17
+
 // The first is the composite recipe's (T = 4, D 14, F 3: 72,704 bytes, three
 // CTAs of 256 threads an SM; lists of 8, where K2's hold 16, make room for
 // the stacked weights); the second leaves weights too large for a CTA in
 // device memory; the last fits every shape the per-node K17 took
 // (ops/typed.py::_BNT_BWD_PLANS mirrors the list).
 constexpr BnTBwdPlan kBnTBwdPlans[] = {{256, 8, 1, 1}, {256, 8, 1, 0}, {128, 0, 0, 0}};
+// the wide plan: 256 threads, lists of 8, nothing staged
+constexpr BnTBwdPlan kBnTBwdWide = {256, 8, 0, 0};
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
@@ -131,16 +159,47 @@ __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 // [W][D] and the keep bytes [W][C1]; a late region (with st: ds_in, gsel,
 // y_k [W][D] each; then dagg [W][D|1]); the lists [E][W]. ds [W][D|1] takes
 // X once it is read.
+// The wide plan: in a block row's workspace slice of ws floats x3 [C1][W],
+// dh [D][W], dagg [W][D|1], ds [W][D|1] and the types' starts [T + 1]
+// (ints); in shared memory nm [W], the types and their order ([W], [W]
+// ints), the lists, then the bytes.
 struct BnTBwdLayout {
-  int x, dh, w, v, nm, ty, ord, tst, yp, kp, di, gs, yk, da, lw, ds;
+  int x, dh, w, v, nm, ty, ord, tst, yp, kp, di, gs, yk, da, lw, ds, ws;
   size_t cnt_b, idx_b, bytes;
 };
 
 __host__ __device__ inline BnTBwdLayout bwdT_layout(int W, int D, int F, int T,
-                                                    const BnTBwdPlan& p) {
+                                                    const BnTBwdPlan& p, bool wide = false) {
   BnTBwdLayout L{};
   const int C1 = 2 * D + F, C = C1 + 1, DP = D | 1;
   int o = 0;
+  if (wide) {
+    L.w = L.v = L.yp = L.kp = L.di = L.gs = L.yk = -1;
+    L.x = o;
+    o += round4(C1 * W);
+    L.dh = o;
+    o += round4(D * W);
+    L.da = o;
+    o += round4(W * DP);
+    L.ds = o;
+    o += round4(W * DP);
+    L.tst = o;
+    o += round4(T + 1);
+    L.ws = o;
+    o = 0;
+    L.nm = o;
+    o += round4(W);
+    L.ty = o;
+    o += W;
+    L.ord = o;
+    o += W;
+    L.lw = o;
+    o += p.E * W;
+    L.cnt_b = sizeof(float) * (size_t)o;
+    L.idx_b = L.cnt_b + W;
+    L.bytes = L.idx_b + (size_t)p.E * W;
+    return L;
+  }
   L.x = o;
   o += round4(C1 * W);
   L.dh = o;
@@ -181,8 +240,8 @@ __host__ __device__ inline BnTBwdLayout bwdT_layout(int W, int D, int F, int T,
 // The block's nodes grouped by type (a counting sort, ascending node order
 // within a type, so the per-type sums add in node order), for a CTA of any
 // width: threads t < W rank their node among the nodes of its type
-// before it, threads t < T count type t. Every thread must call it after
-// the types are staged; it synchronises.
+// before it, thread t counts types t, t + NT, ... Every thread must call it
+// after the types are staged; it synchronises.
 __device__ void order_nodes(const int* tys, int W, int T, int* ord, int* tst) {
   const int t = threadIdx.x;
   int ty = 0, rank = 0;
@@ -190,10 +249,10 @@ __device__ void order_nodes(const int* tys, int W, int T, int* ord, int* tst) {
     ty = tys[t];
     for (int m = 0; m < t; ++m) rank += tys[m] == ty;
   }
-  if (t < T) {
+  for (int tt = t; tt < T; tt += blockDim.x) {
     int c = 0;
-    for (int m = 0; m < W; ++m) c += tys[m] == t;
-    tst[t + 1] = c;
+    for (int m = 0; m < W; ++m) c += tys[m] == tt;
+    tst[tt + 1] = c;
   }
   __syncthreads();
   if (t == 0) {
@@ -218,35 +277,37 @@ __device__ __forceinline__ void w_quad(const float* wT, const float* __restrict_
 }
 
 // K17: one reverse typed BN-training iteration over every block row, NT
-// threads a CTA, one block row each.
-template <int MAXF, int NT, bool ST>
+// threads a CTA, one block row each; WIDE: the wide plan (ws its workspace).
+template <int MAXF, int NT, bool ST, bool WIDE>
 __global__ void __launch_bounds__(NT, NT == 256 ? 3 : 4)
 bnT_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_dep,
                const float* __restrict__ y_prev, const float* __restrict__ y_k,
-               const float* __restrict__ agg, const uint8_t* __restrict__ types,
+               const float* __restrict__ agg, const int* __restrict__ types,
                const uint8_t* __restrict__ keep, const float* __restrict__ feats,
                const float* __restrict__ w_stk, const float* __restrict__ ds_in,
                const float* __restrict__ gsel, const float* __restrict__ bnv,
                const float* __restrict__ flag, const float* __restrict__ nm,
                float* __restrict__ ds, float* __restrict__ dw, float* __restrict__ dagg,
                float* __restrict__ red, int Bl, int W, int D, int F, int T,
-               unsigned long long acts, int mode, float da, float db, BnTBwdPlan p) {
+               const uint8_t* __restrict__ acts, int mode, float da, float db, BnTBwdPlan p,
+               float* ws) {
   extern __shared__ float4 smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
-  const BnTBwdLayout L = bwdT_layout(W, D, F, T, p);
+  const BnTBwdLayout L = bwdT_layout(W, D, F, T, p, WIDE);
   const int C1 = 2 * D + F, C = C1 + 1, DP = D | 1, D4 = round4(D);
   const int r = blockIdx.x, t = threadIdx.x;
   const size_t row0 = (size_t)r * W;
   const float* adj = block_adj(adj_loop, adj_dep, Bl, W);
-  float* X = sm + L.x;
-  float* DH = sm + L.dh;
+  float* WB = WIDE ? ws + (size_t)r * L.ws : sm;  // x3, dh, dagg, ds, the types' starts
+  float* X = WB + L.x;
+  float* DH = WB + L.dh;
   float* wT = p.ws ? sm + L.w : nullptr;
-  float* v = sm + L.v;  // bnv [T][9][D], rows ops/bn.py::BNV_ROWS
+  const float* v = WIDE ? bnv : sm + L.v;  // bnv [T][9][D], rows ops/bn.py::BNV_ROWS
   float* nms = sm + L.nm;
   int* tys = reinterpret_cast<int*>(sm + L.ty);
   int* ord = reinterpret_cast<int*>(sm + L.ord);
-  int* tst = reinterpret_cast<int*>(sm + L.tst);
-  float* DA = sm + L.da;
+  int* tst = reinterpret_cast<int*>(WB + L.tst);
+  float* DA = WB + L.da;
   float* lw = sm + L.lw;
   uint8_t* cnt = reinterpret_cast<uint8_t*>(smem_raw) + L.cnt_b;
   uint8_t* idx = reinterpret_cast<uint8_t*>(smem_raw) + L.idx_b;
@@ -274,7 +335,8 @@ bnT_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
     else
       wT[(ty * C + c) * D4 + j] = 0.0f;
   }
-  for (int i = t; i < T * 9 * D; i += NT) cp_async4(v + i, bnv + i);
+  if constexpr (!WIDE)
+    for (int i = t; i < T * 9 * D; i += NT) cp_async4(sm + L.v + i, bnv + i);
   cp_rows(nms, nm + row0, W);
   for (int i = t; i < W; i += NT) tys[i] = types[row0 + i];
   if constexpr (ST) {
@@ -315,15 +377,16 @@ bnT_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
   }
   __syncthreads();
 
-  // ---- dh = gy * act_t'(h) for outputs j0 + i, h from the node's type's
-  // rows in the per-node order (bias first, then c ascending), gy from the
-  // state cotangent and the type's BatchNorm backward coefficients
-  if (mine && j0 < D) {
+  // ---- dh = gy * act_t'(h) for outputs jc + i, JT at a time from jc = j0
+  // (one chunk up to D 64), h from the node's type's rows in the per-node
+  // order (bias first, then c ascending), gy from the state cotangent and
+  // the type's BatchNorm backward coefficients
+  auto form_dh = [&](int jc) {
     float h[JT];
 #pragma unroll
     for (int q = 0; q < JT; q += 4) {
       float b4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (j0 + q < j1) w_quad(wT, w_stk, ty, C1, j0 + q, C, D, D4, b4);
+      if (jc + q < j1) w_quad(wT, w_stk, ty, C1, jc + q, C, D, D4, b4);
 #pragma unroll
       for (int u = 0; u < 4; ++u) h[q + u] = b4[u];
     }
@@ -331,19 +394,19 @@ bnT_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
       const float x = X[c * W + n];
 #pragma unroll
       for (int q = 0; q < JT; q += 4) {
-        if (j0 + q < j1) {
+        if (jc + q < j1) {
           float w4[4];
-          w_quad(wT, w_stk, ty, c, j0 + q, C, D, D4, w4);
+          w_quad(wT, w_stk, ty, c, jc + q, C, D, D4, w4);
 #pragma unroll
           for (int u = 0; u < 4; ++u) h[q + u] = fmaf(w4[u], x, h[q + u]);
         }
       }
     }
     const float f = *flag, nmv = nms[n];
-    const int act = static_cast<int>((acts >> (2 * ty)) & 3ull);
+    const int act = acts[ty];
 #pragma unroll
     for (int i = 0; i < JT; ++i) {
-      const int j = j0 + i;
+      const int j = jc + i;
       if (j < j1) {
         const int e = n * D + j;
         const float g = di[e] + f * gs[e];
@@ -352,15 +415,45 @@ bnT_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
                         act_grad(act, h[i]);
       }
     }
+  };
+  if constexpr (WIDE) {
+    for (int jc = j0; mine && jc < j1; jc += JT) form_dh(jc);
+  } else if (mine && j0 < D) {
+    form_dh(j0);
   }
   __syncthreads();
 
   // ---- dx = dh @ [Ws | Wa] of the node's type through the dropout's
   // derivative a * keep, for state columns j0 + i, j ascending (four a
   // 16-byte read of wT); dagg into DA (the late region: ds_in, gsel and y_k
-  // are read)
+  // are read). Wide: columns jc + i, JT at a time, dh read from DH, dxs
+  // parked in the ds rows
   float dxs[JT];
-  {
+  float* DS = WB + L.ds;
+  if constexpr (WIDE) {
+    for (int jc = j0; mine && jc < j1; jc += JT) {
+#pragma unroll
+      for (int i = 0; i < JT; ++i) {
+        const int d = jc + i;
+        if (d < j1) {
+          float ss = 0.0f, sa = 0.0f;
+          for (int q = 0; q < D; q += 4) {
+            float ws4[4], wa4[4];
+            w_quad(wT, w_stk, ty, d, q, C, D, D4, ws4);
+            w_quad(wT, w_stk, ty, D + d, q, C, D, D4, wa4);
+#pragma unroll
+            for (int u = 0; u < 4; ++u) {
+              const float dhv = q + u < D ? DH[(q + u) * W + n] : 0.0f;
+              ss = fmaf(dhv, ws4[u], ss);
+              sa = fmaf(dhv, wa4[u], sa);
+            }
+          }
+          DS[n * DP + d] = ss * drop_grad(mode, da, kp != nullptr && kp[n * C1 + d] != 0);
+          DA[n * DP + d] = sa * drop_grad(mode, da, kp != nullptr && kp[n * C1 + D + d] != 0);
+        }
+      }
+    }
+  } else {
     float dh[MAXF];
 #pragma unroll
     for (int j = 0; j < MAXF; ++j) dh[j] = mine && j < D ? DH[j * W + n] : 0.0f;
@@ -424,16 +517,16 @@ bnT_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
   __syncthreads();  // X and dh are read; DA is full
 
   // ---- ds = dxs + adjT @ dagg, row n's entries in order (each read once for
-  // the block of columns), into the freed X
-  float* DS = sm + L.ds;
-  if (mine && j0 < D) {
+  // the block of columns), into the freed X (wide: into its ds rows, JT
+  // columns at a time)
+  auto form_ds = [&](int jc) {
     float acc[JT];
 #pragma unroll
     for (int i = 0; i < JT; ++i) acc[i] = 0.0f;
     auto add = [&](float a, int m) {
 #pragma unroll
       for (int i = 0; i < JT; ++i)
-        if (j0 + i < j1) acc[i] = fmaf(a, DA[m * DP + j0 + i], acc[i]);
+        if (jc + i < j1) acc[i] = fmaf(a, DA[m * DP + jc + i], acc[i]);
     };
     const int c = p.E > 0 ? cnt[n] : W + 1;
     if (c <= p.E) {
@@ -443,7 +536,12 @@ bnT_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
     }
 #pragma unroll
     for (int i = 0; i < JT; ++i)
-      if (j0 + i < j1) DS[n * DP + j0 + i] = dxs[i] + acc[i];
+      if (jc + i < j1) DS[n * DP + jc + i] = (WIDE ? DS[n * DP + jc + i] : dxs[i]) + acc[i];
+  };
+  if constexpr (WIDE) {
+    for (int jc = j0; mine && jc < j1; jc += JT) form_ds(jc);
+  } else if (mine && j0 < D) {
+    form_ds(j0);
   }
   __syncthreads();
 
@@ -472,18 +570,13 @@ bnT_bwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
 
 // ---- K16
 
-// A K16 plan: threads a CTA, room of the column lists (0: the adjacency is
-// read from device memory), whether the keep bytes are staged, whether the
-// stacked weights are staged (else read through the L1/L2 caches).
-struct BnTFwdPlan {
-  int nt, E, st, ws;
-};
-
 // The first is the composite recipe's (T = 4, D 14, F 3: 49,568 bytes); the
 // second leaves weights too large for a CTA in device memory; the last fits
 // every shape the per-node K16 took (ops/typed.py::_BNT_FWD_PLANS mirrors
 // the list).
 constexpr BnTFwdPlan kBnTFwdPlans[] = {{256, 16, 1, 1}, {256, 16, 1, 0}, {128, 0, 0, 0}};
+// the wide plan: 256 threads with the lists, nothing staged
+constexpr BnTFwdPlan kBnTFwdWide = {256, 16, 0, 0};
 
 // Float offsets of K16's shared memory (bytes for the list counts, sources
 // and the list build's scratch, after the floats), each region a multiple of
@@ -492,17 +585,44 @@ constexpr BnTFwdPlan kBnTFwdPlans[] = {{256, 16, 1, 1}, {256, 16, 1, 0}, {128, 0
 // C1 of a type its bias), the per-type affines [4][T][D], nm [W], the node
 // types, the nodes ordered by type and the types' starts (ints [W], [W],
 // [T + 1]), the row buffer [W][D | 1] (rT, then agg, then y), with st the
-// keep bytes [W][C1], the lists [E][W].
+// keep bytes [W][C1], the lists [E][W]. The wide plan: in a block row's
+// workspace slice of ws floats x3, the row buffer and the types' starts
+// [T + 1] (ints); in shared memory nm, the types and their order, the lists,
+// then the bytes.
 struct BnTFwdLayout {
-  int x, w, aff, nm, ty, ord, tst, ab, kp, lw;
+  int x, w, aff, nm, ty, ord, tst, ab, kp, lw, ws;
   size_t cnt_b, idx_b, part_b, bytes;
 };
 
 __host__ __device__ inline BnTFwdLayout fwdT_layout(int W, int D, int F, int T,
-                                                    const BnTFwdPlan& p) {
+                                                    const BnTFwdPlan& p, bool wide = false) {
   BnTFwdLayout L{};
   const int C1 = 2 * D + F;
   int o = 0;
+  if (wide) {
+    L.w = L.aff = L.kp = -1;
+    L.x = o;
+    o += round4(C1 * W);
+    L.ab = o;
+    o += round4(W * (D | 1));
+    L.tst = o;
+    o += round4(T + 1);
+    L.ws = o;
+    o = 0;
+    L.nm = o;
+    o += round4(W);
+    L.ty = o;
+    o += W;
+    L.ord = o;
+    o += W;
+    L.lw = o;
+    o += p.E * W;
+    L.cnt_b = sizeof(float) * (size_t)o;
+    L.idx_b = L.cnt_b + W;
+    L.part_b = L.idx_b + (size_t)p.E * W;
+    L.bytes = L.part_b + (size_t)(p.nt / 32) * W;
+    return L;
+  }
   L.x = o;
   o += round4(C1 * W);
   L.w = o;
@@ -534,34 +654,35 @@ __host__ __device__ inline BnTFwdLayout fwdT_layout(int W, int D, int F, int T,
 }
 
 // K16: one typed BN-training iteration over every block row, NT threads a
-// CTA, one block row each.
-template <int MAXF, int NT, bool ST>
+// CTA, one block row each; WIDE: the wide plan (ws its workspace).
+template <int MAXF, int NT, bool ST, bool WIDE>
 __global__ void __launch_bounds__(NT, 3)
 bnT_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj_dep,
                const float* __restrict__ y1, const float* __restrict__ y2,
-               const float* __restrict__ aff, const uint8_t* __restrict__ types,
+               const float* __restrict__ aff, const int* __restrict__ types,
                const uint8_t* __restrict__ keep, const float* __restrict__ rT,
                const float* __restrict__ feats, const float* __restrict__ w_stk,
                const float* __restrict__ nm, float* __restrict__ y, float* __restrict__ agg,
                float* __restrict__ marg, float* __restrict__ msum, int Bl, int W, int D, int F,
-               int T, float thr, unsigned long long acts, int mode, float da, float db,
-               BnTFwdPlan p) {
+               int T, float thr, const uint8_t* __restrict__ acts, int mode, float da, float db,
+               BnTFwdPlan p, float* ws) {
   extern __shared__ float4 smem_raw[];
   float* sm = reinterpret_cast<float*>(smem_raw);
   uint8_t* bytes = reinterpret_cast<uint8_t*>(smem_raw);
-  const BnTFwdLayout L = fwdT_layout(W, D, F, T, p);
+  const BnTFwdLayout L = fwdT_layout(W, D, F, T, p, WIDE);
   const int C1 = 2 * D + F, C = C1 + 1, DP = D | 1, D4 = round4(D);
   const int r = blockIdx.x, t = threadIdx.x;
   const size_t row0 = (size_t)r * W;
   const float* adj = block_adj(adj_loop, adj_dep, Bl, W);
-  float* X = sm + L.x;
+  float* WB = WIDE ? ws + (size_t)r * L.ws : sm;  // x3, the row buffer, the types' starts
+  float* X = WB + L.x;
   float* wT = p.ws ? sm + L.w : nullptr;
-  float* v = sm + L.aff;  // [scale1; shift1; scale2; shift2] x [T][D]
+  const float* v = WIDE ? aff : sm + L.aff;  // [scale1; shift1; scale2; shift2] x [T][D]
   float* nms = sm + L.nm;
   int* tys = reinterpret_cast<int*>(sm + L.ty);
   int* ord = reinterpret_cast<int*>(sm + L.ord);
-  int* tst = reinterpret_cast<int*>(sm + L.tst);
-  float* A = sm + L.ab;  // [W][DP]: rT, then agg, then y
+  int* tst = reinterpret_cast<int*>(WB + L.tst);
+  float* A = WB + L.ab;  // [W][DP]: rT, then agg, then y
   float* lw = sm + L.lw;
   uint8_t* cnt = bytes + L.cnt_b;
   uint8_t* idx = bytes + L.idx_b;
@@ -577,14 +698,22 @@ bnT_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
     else
       wT[(ty * C + c) * D4 + j] = 0.0f;
   }
-  for (int i = t; i < 4 * T * D; i += NT) cp_async4(v + i, aff + i);
   cp_rows(nms, nm + row0, W);
   for (int i = t; i < W; i += NT) tys[i] = types[row0 + i];
-  stage_rowsT(y1 + row0 * D, W, D, X, 0);  // x3 rows [0, D): y1, then s
-  stage_rowsT(y2 + row0 * D, W, D, X, D);  // rows [D, 2D): y2, then agg
-  stage_rowsT(feats + row0 * F, W, F, X, 2 * D);
-  if (rT != nullptr)
-    for (int i = t; i < W * D; i += NT) cp_async4(A + (i / D) * DP + i % D, rT + row0 * D + i);
+  if constexpr (WIDE) {
+    stage_rowsT<true>(y1 + row0 * D, W, D, X, 0);
+    stage_rowsT<true>(y2 + row0 * D, W, D, X, D);
+    stage_rowsT<true>(feats + row0 * F, W, F, X, 2 * D);
+    if (rT != nullptr)
+      for (int i = t; i < W * D; i += NT) A[(i / D) * DP + i % D] = rT[row0 * D + i];
+  } else {
+    for (int i = t; i < 4 * T * D; i += NT) cp_async4(sm + L.aff + i, aff + i);
+    stage_rowsT(y1 + row0 * D, W, D, X, 0);  // x3 rows [0, D): y1, then s
+    stage_rowsT(y2 + row0 * D, W, D, X, D);  // rows [D, 2D): y2, then agg
+    stage_rowsT(feats + row0 * F, W, F, X, 2 * D);
+    if (rT != nullptr)
+      for (int i = t; i < W * D; i += NT) cp_async4(A + (i / D) * DP + i % D, rT + row0 * D + i);
+  }
   if (kst)  // W * C1 is a multiple of 32
     for (int i = 16 * t; i < W * C1; i += 16 * NT)
       cp_async16(sm + L.kp + i / 4, reinterpret_cast<const float*>(kg + i));
@@ -636,18 +765,19 @@ bnT_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
   __syncthreads();
 
   // ---- y = act_t(h), h from the node's own type's rows in the per-node
-  // order (bias first, then c ascending), outputs j0 + i of node n, four a
-  // 16-byte read of wT; into the row buffer (agg is out)
+  // order (bias first, then c ascending), outputs jc + i of node n, JT at a
+  // time from jc = j0 (one chunk up to D 64), four a 16-byte read of wT; into
+  // the row buffer (agg is out)
   constexpr int JT = MAXF * kMaxW / NT;
   const int tpn = NT / W, n = t % W, part = t / W;
   const int JB = round4((D + tpn - 1) / tpn), j0 = part * JB, j1 = min(D, j0 + JB);
-  if (part < tpn && j0 < D) {
+  auto form_y = [&](int jc) {
     const int ty = tys[n];
     float h[JT];
 #pragma unroll
     for (int q = 0; q < JT; q += 4) {
       float b4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      if (j0 + q < j1) w_quad(wT, w_stk, ty, C1, j0 + q, C, D, D4, b4);
+      if (jc + q < j1) w_quad(wT, w_stk, ty, C1, jc + q, C, D, D4, b4);
 #pragma unroll
       for (int u = 0; u < 4; ++u) h[q + u] = b4[u];
     }
@@ -655,18 +785,23 @@ bnT_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
       const float x = X[c * W + n];
 #pragma unroll
       for (int q = 0; q < JT; q += 4) {
-        if (j0 + q < j1) {
+        if (jc + q < j1) {
           float w4[4];
-          w_quad(wT, w_stk, ty, c, j0 + q, C, D, D4, w4);
+          w_quad(wT, w_stk, ty, c, jc + q, C, D, D4, w4);
 #pragma unroll
           for (int u = 0; u < 4; ++u) h[q + u] = fmaf(w4[u], x, h[q + u]);
         }
       }
     }
-    const int act = act_of(acts, ty);
+    const int act = acts[ty];
 #pragma unroll
     for (int i = 0; i < JT; ++i)
-      if (j0 + i < j1) A[n * DP + j0 + i] = activate(act, h[i]);
+      if (jc + i < j1) A[n * DP + jc + i] = activate(act, h[i]);
+  };
+  if constexpr (WIDE) {
+    for (int jc = j0; part < tpn && jc < j1; jc += JT) form_y(jc);
+  } else if (part < tpn && j0 < D) {
+    form_y(j0);
   }
   __syncthreads();
 
@@ -683,91 +818,102 @@ bnT_fwd_kernel(const float* __restrict__ adj_loop, const float* __restrict__ adj
   }
 }
 
+using BnTFwdFn = void (*)(const float*, const float*, const float*, const float*, const float*,
+                          const int*, const uint8_t*, const float*, const float*, const float*,
+                          const float*, float*, float*, float*, float*, int, int, int, int, int,
+                          float, const uint8_t*, int, float, float, BnTFwdPlan, float*);
+using BnTBwdFn = void (*)(const float*, const float*, const float*, const float*, const float*,
+                          const int*, const uint8_t*, const float*, const float*, const float*,
+                          const float*, const float*, const float*, const float*, float*, float*,
+                          float*, float*, int, int, int, int, int, const uint8_t*, int, float,
+                          float, BnTBwdPlan, float*);
+
+}  // namespace
+
+#ifdef GNN_WIDE_TU
+
+namespace gnn {
+// K16's and K17's wide-plan instantiations (bn_typed_wide.cu).
+BnTFwdFn bnT_fwd_wide() { return bnT_fwd_kernel<64, 256, false, true>; }
+BnTBwdFn bnT_bwd_wide() { return bnT_bwd_kernel<64, 256, false, true>; }
+}  // namespace gnn
+
+#else
+
+namespace gnn {
+BnTFwdFn bnT_fwd_wide();
+BnTBwdFn bnT_bwd_wide();
+}  // namespace gnn
+
+namespace {
+
 bool shape_ok(int R, int Bl, int W, int D, int F, int T) {
   return R > 0 && Bl >= 0 && Bl <= R && W >= 32 && W <= kMaxW && W % 32 == 0 && D > 0 &&
-         F >= 0 && T >= 1 && T <= 32 && width_class(D) != 0;
+         F >= 0 && T >= 1;
+}
+
+// The staged plans' range: D up to 64 (their register arrays), T up to 32.
+bool staged_ok(int D, int T) { return width_class(D) != 0 && T <= 32; }
+
+// The first plan of `plans` (the wide plan at index kBnTWideIndex) that fits
+// a CTA at this shape, or plan `force` (>= 0) if it fits: its index (-1 if
+// none), *bytes (the last plan tried), *ws the workspace floats a block row.
+template <typename Plan, typename Layout, size_t N>
+int pick_typed(const Plan (&plans)[N], const Plan& widep, Layout (*layout)(int, int, int, int,
+                                                                            const Plan&, bool),
+               int W, int D, int F, int T, int force, Plan* p, size_t* bytes, int* ws) {
+  static_assert(N == kBnTWideIndex, "the wide plan follows the staged ones");
+  for (int i = force >= 0 ? force : 0; i <= kBnTWideIndex; ++i) {
+    const bool wide = i == kBnTWideIndex;
+    if (wide || staged_ok(D, T)) {
+      const Plan plan = wide ? widep : plans[i];
+      const Layout L = layout(W, D, F, T, plan, wide);
+      *bytes = L.bytes;
+      if (*bytes <= (size_t)kMaxSmemBytes) {
+        *p = plan;
+        *ws = wide ? L.ws : 0;
+        return i;
+      }
+    }
+    if (force >= 0) break;
+  }
+  return -1;
 }
 
 int g_force_fwd = -1;  // gnn_bnT_forward_force_plan
 
-using BnTFwdFn = void (*)(const float*, const float*, const float*, const float*, const float*,
-                          const uint8_t*, const uint8_t*, const float*, const float*,
-                          const float*, const float*, float*, float*, float*, float*, int, int,
-                          int, int, int, float, unsigned long long, int, float, float,
-                          BnTFwdPlan);
-
 template <int MAXF>
 BnTFwdFn fwd_variant(const BnTFwdPlan& p) {
-  return p.st ? bnT_fwd_kernel<MAXF, 256, true> : bnT_fwd_kernel<MAXF, 128, false>;
+  return p.st ? bnT_fwd_kernel<MAXF, 256, true, false> : bnT_fwd_kernel<MAXF, 128, false, false>;
 }
 
 // K16's kernel and plan for a shape: the first plan of kBnTFwdPlans that
-// fits a CTA, or plan g_force_fwd (>= 0) if it fits; nullptr (bytes: the
-// last plan's) if none.
-BnTFwdFn pick_fwd(int W, int D, int F, int T, BnTFwdPlan* p, size_t* bytes, int* index) {
-  constexpr int N = sizeof(kBnTFwdPlans) / sizeof(kBnTFwdPlans[0]);
-  *index = -1;
-  for (int i = g_force_fwd >= 0 ? g_force_fwd : 0; i < N; ++i) {
-    *bytes = fwdT_layout(W, D, F, T, kBnTFwdPlans[i]).bytes;
-    if (*bytes <= (size_t)kMaxSmemBytes) {
-      *p = kBnTFwdPlans[i];
-      *index = i;
-      break;
-    }
-    if (g_force_fwd >= 0) break;
-  }
+// fits a CTA, else the wide plan (index kBnTWideIndex), or plan g_force_fwd
+// (>= 0) if it fits; nullptr (bytes: the last plan's) if none. *ws: the
+// plan's workspace floats a block row.
+BnTFwdFn pick_fwd(int W, int D, int F, int T, BnTFwdPlan* p, size_t* bytes, int* index,
+                  int* ws) {
+  *index = pick_typed(kBnTFwdPlans, kBnTFwdWide, fwdT_layout, W, D, F, T, g_force_fwd, p, bytes,
+                      ws);
   if (*index < 0) return nullptr;
-  switch (width_class(D)) {
-    case 16:
-      return fwd_variant<16>(*p);
-    case 32:
-      return fwd_variant<32>(*p);
-    case 64:
-      return fwd_variant<64>(*p);
-    default:
-      return nullptr;
-  }
+  if (*index == kBnTWideIndex) return bnT_fwd_wide();
+  return D <= 16 ? fwd_variant<16>(*p) : D <= 32 ? fwd_variant<32>(*p) : fwd_variant<64>(*p);
 }
 
 int g_force = -1;  // gnn_bnT_backward_force_plan
 
-using BnTBwdFn = void (*)(const float*, const float*, const float*, const float*, const float*,
-                          const uint8_t*, const uint8_t*, const float*, const float*,
-                          const float*, const float*, const float*, const float*, const float*,
-                          float*, float*, float*, float*, int, int, int, int, int,
-                          unsigned long long, int, float, float, BnTBwdPlan);
-
 template <int MAXF>
 BnTBwdFn bwd_variant(const BnTBwdPlan& p) {
-  return p.st ? bnT_bwd_kernel<MAXF, 256, true> : bnT_bwd_kernel<MAXF, 128, false>;
+  return p.st ? bnT_bwd_kernel<MAXF, 256, true, false> : bnT_bwd_kernel<MAXF, 128, false, false>;
 }
 
-// K17's kernel and plan for a shape: the first plan of kBnTBwdPlans that
-// fits a CTA, or plan g_force (>= 0) if it fits; nullptr (bytes: the last
-// plan's) if none.
-BnTBwdFn pick_bwd(int W, int D, int F, int T, BnTBwdPlan* p, size_t* bytes, int* index) {
-  constexpr int N = sizeof(kBnTBwdPlans) / sizeof(kBnTBwdPlans[0]);
-  *index = -1;
-  for (int i = g_force >= 0 ? g_force : 0; i < N; ++i) {
-    *bytes = bwdT_layout(W, D, F, T, kBnTBwdPlans[i]).bytes;
-    if (*bytes <= (size_t)kMaxSmemBytes) {
-      *p = kBnTBwdPlans[i];
-      *index = i;
-      break;
-    }
-    if (g_force >= 0) break;
-  }
+// K17's kernel and plan for a shape, as pick_fwd's (kBnTBwdPlans, g_force).
+BnTBwdFn pick_bwd(int W, int D, int F, int T, BnTBwdPlan* p, size_t* bytes, int* index,
+                  int* ws) {
+  *index = pick_typed(kBnTBwdPlans, kBnTBwdWide, bwdT_layout, W, D, F, T, g_force, p, bytes, ws);
   if (*index < 0) return nullptr;
-  switch (width_class(D)) {
-    case 16:
-      return bwd_variant<16>(*p);
-    case 32:
-      return bwd_variant<32>(*p);
-    case 64:
-      return bwd_variant<64>(*p);
-    default:
-      return nullptr;
-  }
+  if (*index == kBnTWideIndex) return bnT_bwd_wide();
+  return D <= 16 ? bwd_variant<16>(*p) : D <= 32 ? bwd_variant<32>(*p) : bwd_variant<64>(*p);
 }
 
 }  // namespace
@@ -775,30 +921,40 @@ BnTBwdFn pick_bwd(int W, int D, int F, int T, BnTBwdPlan* p, size_t* bytes, int*
 extern "C" {
 
 // adj_loop [Bl, W, W] (null when Bl == 0), adj_dep [R - Bl, W, W] (null when
-// Bl == R); y1, y2, rT (nullable) [R, W, D]; aff [2, 2, T, D]; types uint8
+// Bl == R); y1, y2, rT (nullable) [R, W, D]; aff [2, 2, T, D]; types int32
 // [R, W]; keep uint8 [R, W, 2D + F] (null when mode == 0); feats [R, W, F];
-// w_stk [T * D, 2D + F + 1]; nm [R, W]; acts: type t's activation code at
-// bits 2t, 2t + 1 -> y, agg [R, W, D], marg [R, W], msum [R, T, D]. Returns a
-// cudaError_t code.
+// w_stk [T * D, 2D + F + 1]; nm [R, W]; acts uint8 [T] (device memory), type
+// t's activation code -> y, agg [R, W, D], marg [R, W], msum [R, T, D]; ws:
+// the wide plan's workspace, R slices of gnn_bnT_forward_workspace floats
+// (null for a staged plan). Returns a cudaError_t code.
 int gnn_bnT_forward(const float* adj_loop, const float* adj_dep, const float* y1,
-                    const float* y2, const float* aff, const uint8_t* types, const uint8_t* keep,
+                    const float* y2, const float* aff, const int* types, const uint8_t* keep,
                     const float* rT, const float* feats, const float* w_stk, const float* nm,
                     float* y, float* agg, float* marg, float* msum, int R, int Bl, int W, int D,
-                    int F, int T, float thr, unsigned long long acts, int mode, float da,
-                    float db, void* stream) {
-  if (!shape_ok(R, Bl, W, D, F, T)) return cudaErrorInvalidValue;
+                    int F, int T, float thr, const uint8_t* acts, int mode, float da, float db,
+                    void* stream, float* ws) {
+  if (!shape_ok(R, Bl, W, D, F, T) || acts == nullptr) return cudaErrorInvalidValue;
   if (mode != kNoDrop && keep == nullptr) return cudaErrorInvalidValue;
   BnTFwdPlan p;
   size_t bytes;
-  int index;
-  const BnTFwdFn fn = pick_fwd(W, D, F, T, &p, &bytes, &index);
-  if (fn == nullptr) return cudaErrorInvalidValue;
+  int index, wsf;
+  const BnTFwdFn fn = pick_fwd(W, D, F, T, &p, &bytes, &index, &wsf);
+  if (fn == nullptr || (wsf > 0 && ws == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
   fn<<<R, p.nt, bytes, static_cast<cudaStream_t>(stream)>>>(
       adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_stk, nm, y, agg, marg, msum, Bl,
-      W, D, F, T, thr, acts, mode, da, db, p);
+      W, D, F, T, thr, acts, mode, da, db, p, ws);
   return cudaGetLastError();
+}
+
+// The workspace floats a block row the plan gnn_bnT_forward picks for this
+// shape needs (0 for a staged plan), or -1 if none fits.
+int gnn_bnT_forward_workspace(int W, int D, int F, int T) {
+  BnTFwdPlan p;
+  size_t bytes;
+  int index, wsf;
+  return pick_fwd(W, D, F, T, &p, &bytes, &index, &wsf) == nullptr ? -1 : wsf;
 }
 
 // out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
@@ -807,40 +963,51 @@ int gnn_bnT_forward(const float* adj_loop, const float* adj_dep, const float* y1
 int gnn_bnT_forward_info(int W, int D, int F, int T, int* out) {
   BnTFwdPlan p;
   size_t bytes;
-  int index;
-  const BnTFwdFn fn = pick_fwd(W, D, F, T, &p, &bytes, &index);
+  int index, wsf;
+  const BnTFwdFn fn = pick_fwd(W, D, F, T, &p, &bytes, &index, &wsf);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return tile_kernel_info(fn, bytes, index, out, p.nt);
 }
 
-// Launch plan `index` of kBnTFwdPlans from now on, where it fits (a launch
-// at a shape it does not fit fails), or the first plan that fits again
-// (index -1): for timing one plan against another.
+// Launch plan `index` of kBnTFwdPlans (3: the wide plan) from now on, where
+// it fits (a launch at a shape it does not fit fails), or the first plan that
+// fits again (index -1): for timing one plan against another.
 void gnn_bnT_forward_force_plan(int index) { g_force_fwd = index; }
 
 // As gnn_bnT_forward, plus y_prev, y_k, agg, ds_in, gsel [R, W, D]; bnv
 // [T, 9, D]; flag a device float (0 or 1) -> ds, dagg [R, W, D], dw
-// [R, T * D, 2D + F + 1], red [R, T, 2, D]. Returns a cudaError_t code.
+// [R, T * D, 2D + F + 1], red [R, T, 2, D]; ws: the wide plan's workspace, R
+// slices of gnn_bnT_backward_workspace floats (null for a staged plan).
+// Returns a cudaError_t code.
 int gnn_bnT_backward(const float* adj_loop, const float* adj_dep, const float* y_prev,
-                     const float* y_k, const float* agg, const uint8_t* types,
-                     const uint8_t* keep, const float* feats, const float* w_stk,
-                     const float* ds_in, const float* gsel, const float* bnv, const float* flag,
-                     const float* nm, float* ds, float* dw, float* dagg, float* red, int R,
-                     int Bl, int W, int D, int F, int T, unsigned long long acts, int mode,
-                     float da, float db, void* stream) {
-  if (!shape_ok(R, Bl, W, D, F, T)) return cudaErrorInvalidValue;
+                     const float* y_k, const float* agg, const int* types, const uint8_t* keep,
+                     const float* feats, const float* w_stk, const float* ds_in,
+                     const float* gsel, const float* bnv, const float* flag, const float* nm,
+                     float* ds, float* dw, float* dagg, float* red, int R, int Bl, int W, int D,
+                     int F, int T, const uint8_t* acts, int mode, float da, float db,
+                     void* stream, float* ws) {
+  if (!shape_ok(R, Bl, W, D, F, T) || acts == nullptr) return cudaErrorInvalidValue;
   if (mode != kNoDrop && keep == nullptr) return cudaErrorInvalidValue;
   BnTBwdPlan p;
   size_t bytes;
-  int index;
-  const BnTBwdFn fn = pick_bwd(W, D, F, T, &p, &bytes, &index);
-  if (fn == nullptr) return cudaErrorInvalidValue;
+  int index, wsf;
+  const BnTBwdFn fn = pick_bwd(W, D, F, T, &p, &bytes, &index, &wsf);
+  if (fn == nullptr || (wsf > 0 && ws == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
   fn<<<R, p.nt, bytes, static_cast<cudaStream_t>(stream)>>>(
       adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats, w_stk, ds_in, gsel, bnv, flag, nm,
-      ds, dw, dagg, red, Bl, W, D, F, T, acts, mode, da, db, p);
+      ds, dw, dagg, red, Bl, W, D, F, T, acts, mode, da, db, p, ws);
   return cudaGetLastError();
+}
+
+// The workspace floats a block row the plan gnn_bnT_backward picks for this
+// shape needs (0 for a staged plan), or -1 if none fits.
+int gnn_bnT_backward_workspace(int W, int D, int F, int T) {
+  BnTBwdPlan p;
+  size_t bytes;
+  int index, wsf;
+  return pick_bwd(W, D, F, T, &p, &bytes, &index, &wsf) == nullptr ? -1 : wsf;
 }
 
 // out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
@@ -849,15 +1016,17 @@ int gnn_bnT_backward(const float* adj_loop, const float* adj_dep, const float* y
 int gnn_bnT_backward_info(int W, int D, int F, int T, int* out) {
   BnTBwdPlan p;
   size_t bytes;
-  int index;
-  const BnTBwdFn fn = pick_bwd(W, D, F, T, &p, &bytes, &index);
+  int index, wsf;
+  const BnTBwdFn fn = pick_bwd(W, D, F, T, &p, &bytes, &index, &wsf);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return tile_kernel_info(fn, bytes, index, out, p.nt);
 }
 
-// Launch plan `index` of kBnTBwdPlans from now on, where it fits (a launch
-// at a shape it does not fit fails), or the first plan that fits again
-// (index -1): for timing one plan against another.
+// Launch plan `index` of kBnTBwdPlans (3: the wide plan) from now on, where it
+// fits (a launch at a shape it does not fit fails), or the first plan that
+// fits again (index -1): for timing one plan against another.
 void gnn_bnT_backward_force_plan(int index) { g_force = index; }
 
 }  // extern "C"
+
+#endif  // GNN_WIDE_TU

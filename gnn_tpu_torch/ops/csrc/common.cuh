@@ -73,8 +73,8 @@ __device__ inline const float* block_adj(const float* adj_loop, const float* adj
   return r < Bl ? adj_loop + (size_t)r * W * W : adj_dep + (size_t)(r - Bl) * W * W;
 }
 
-// Register-array width for a feature width: 16, 32 or 64 (0 = unsupported):
-// the two-layer and typed kernels' (K9-K17) limit. K1-K8 take every width.
+// Register-array width for a feature width: 16, 32 or 64 (0: above 64, which
+// the staged plans of K9-K17 do not take; their wide plans take every width).
 inline int width_class(int F) { return F <= 16 ? 16 : F <= 32 ? 32 : F <= 64 ? 64 : 0; }
 
 inline bool block_ok(int B, int W) { return B > 0 && W >= 32 && W <= kMaxW && W % 32 == 0; }

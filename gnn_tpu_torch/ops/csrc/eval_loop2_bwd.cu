@@ -52,6 +52,15 @@
 // with the partials summed in device memory, two CTAs an SM where they fit;
 // last, no lists, 2 units a thread and w1 read from device memory, which fits
 // every shape the per-node kernel that this replaces took.
+// The wide plan (tile2.cuh kTile2Wide, index 3, chosen only where no plan of
+// kLoop2BwdPlans fits) takes every D, AL and H1: x3, G, h1 and dx3 lie in a
+// workspace slice a block (gnn_propagation_loop2_bwd_workspace floats,
+// allocated by the wrapper), the weights, biases and scale are read from
+// device memory, the partials are summed in device memory, and h1, dx3 and
+// the aggregation go through the 64-wide register tiles a chunk at a time:
+// the same chains, so a forced wide plan gives the staged plans' bits. Its
+// one instantiation is compiled from eval_loop2_bwd_wide.cu (this file under
+// GNN_WIDE_TU), beside this file's.
 
 #include "tile2.cuh"
 
@@ -61,7 +70,7 @@ using namespace gnn;
 
 int g_force = -1;  // gnn_propagation_loop2_bwd_force_plan
 
-template <int MAXF, int UT, int MINB>
+template <int MAXF, int UT, int MINB, bool WIDE>
 __global__ void __launch_bounds__(kTileThreads, MINB)
 loop2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
                       const float* __restrict__ traj, const float* __restrict__ feats,
@@ -72,23 +81,24 @@ loop2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ 
                       float* __restrict__ db0_out, float* __restrict__ dw1_out,
                       float* __restrict__ db1_out, float* __restrict__ dfeats,
                       float* __restrict__ daff_out, int B, int W, int D, int AL, int H1, int K,
-                      int act0, int act1, Tile2Plan p) {
+                      int act0, int act1, Tile2Plan p, float* ws) {
   constexpr int DG = MAXF / 8, CT = 3 * MAXF / 8;
   extern __shared__ float4 smem_raw[];
   float* base = reinterpret_cast<float*>(smem_raw);
-  const Tile2Layout L = tile2_layout(kReverse2Agg, W, D, AL, H1, p);
+  const Tile2Layout L = tile2_layout(kReverse2Agg, W, D, AL, H1, p, WIDE);
   const int C = 2 * D + AL, S = L.S;
-  float* X = base + L.x3;   // x3 (f in rows [2D, C) all launch), then the dagg rows [0, D)
-  float* G = base + L.dh1;  // g + gs, then dh1, then the new gs
+  float* WB = WIDE ? ws + (size_t)blockIdx.x * L.ws : base;  // x3, G, h1, dx3
+  float* X = WB + L.x3;   // x3 (f in rows [2D, C) all launch), then the dagg rows [0, D)
+  float* G = WB + L.dh1;  // g + gs, then dh1, then the new gs
   float* Y = base + L.yt;
   float* H = base + L.ht;
-  float* w0T = base + L.w0;
+  float* w0T = WIDE ? nullptr : base + L.w0;
   float* w1s = p.w1g ? nullptr : base + L.w1;
-  float* b0s = base + L.b0;
+  float* b0s = WIDE ? nullptr : base + L.b0;
   float* PF = base + L.pf;
   float* DW = base + L.dw;  // [H1][C + 1] dw0 | db0, [D][H1] dw1, [D] db1, [2][D] daff, [AL][W] dfeats
-  float* b1s = base + L.b1;
-  float* scale = base + L.aff;
+  const float* b1s = WIDE ? b1 : base + L.b1;
+  const float* scale = WIDE ? aff : base + L.aff;
   // list set 0: the columns (agg), set 1: the rows (gs)
   float* lw0 = base + L.lw;
   float* lw1 = lw0 + p.E * W;
@@ -121,10 +131,14 @@ loop2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ 
   // add v to a partial in device memory (the first reverse step writes it)
   auto sum_dev = [](float* dst, float v, bool first) { *dst = first ? v : *dst + v; };
 
-  stage_tile_weights(w0, C, b0, 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, b1s);
-  if (affine)
-    for (int d = t; d < D; d += kTileThreads) cp_async4(scale + d, aff + d);
-  stage_rowsT(feats + row0 * AL, W, AL, X, 2 * D);
+  if constexpr (WIDE) {
+    stage_rowsT<true>(feats + row0 * AL, W, AL, X, 2 * D);
+  } else {
+    stage_tile_weights(w0, C, b0, 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, base + L.b1);
+    if (affine)
+      for (int d = t; d < D; d += kTileThreads) cp_async4(base + L.aff + d, aff + d);
+    stage_rowsT(feats + row0 * AL, W, AL, X, 2 * D);
+  }
   if (p.E > 0) {
     if (t < W)
       build_list(adj, W, t, p.E, true, lw0, idx0, cnt0);
@@ -138,7 +152,8 @@ loop2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ 
   cp_async_wait_all();
   __syncthreads();
 
-  const Tile2Rev rev{X, G, Y, H, w0T, b0s, b1s, w1src, W, C, D, H1, S, p.keep, p.nbuf};
+  const Tile2Rev rev{X, G, Y, H, w0T, b0s, b1s, w1src, W, C, D, H1, S, p.keep, p.nbuf,
+                     W0Dev{w0, b0, C, 1, H1, 0}, WB + L.hw, WB + L.dx};
   for (int k = K - 1; k >= 0; --k) {
     const bool first = k == K - 1;
     // s_in into X rows [0, D), transposed; G = g_traj[k] + gs
@@ -154,10 +169,11 @@ loop2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ 
     __syncthreads();  // s_in and G are full; the prefetch buffer is free
     if (p.pf && k > 0) prefetch(k - 1);
     // agg = adjT^T @ s_in into X rows [D, 2D) (thread: a node, every other
-    // column), the sources in K10's order, each list entry read once for all
-    // of the thread's columns; with the affine, daff's sum of g
-    {
-      const int n = t & (kMaxW - 1), d0 = t >> 7;
+    // column; wide: MAXF columns at a time), the sources in K10's order, each
+    // list entry read once for all of the thread's columns; with the affine,
+    // daff's sum of g
+    for (int dc = 0; dc < (WIDE ? D : 1); dc += MAXF) {
+      const int n = t & (kMaxW - 1), d0 = dc + (t >> 7);
       float acc[MAXF / 2];
 #pragma unroll
       for (int i = 0; i < MAXF / 2; ++i) acc[i] = 0.0f;
@@ -177,62 +193,91 @@ loop2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ 
           if (d0 + 2 * i < D) X[(D + d0 + 2 * i) * W + n] = acc[i];
       }
     }
-    if (affine && t < D) {
+    for (int d = t; affine && d < D; d += kTileThreads) {
       float acc = 0.0f;
-      for (int n = 0; n < W; ++n) acc += G[t * W + n];
+      for (int n = 0; n < W; ++n) acc += G[d * W + n];
       if (p.dw)
-        DAFF[D + t] += acc;
+        DAFF[D + d] += acc;
       else
-        sum_dev(daff_out + ((size_t)b * 2 + 1) * D + t, acc, first);
+        sum_dev(daff_out + ((size_t)b * 2 + 1) * D + d, acc, first);
     }
     __syncthreads();  // X holds x3
 
     float h1[4][DG];
-    reverse_pass1<UT, DG>(rev, act0, ng, jg, h1);
-    if (affine) {
-      // G = g * act1(h1) for daff's other sum; dh1 = (g * scale) * act1'(h1)
-      // kept in h1 until the sum has read G
-      if (node_ok)
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int i = 0; i < DG; ++i) {
-            const int d = jg + 8 * i;
-            if (d < D) {
-              float* gp = G + d * W + 4 * ng + n;
-              const float g = *gp;
-              float y, gr;
-              act_and_grad(act1, h1[n][i], y, gr);
-              *gp = g * y;
-              h1[n][i] = g * scale[d] * gr;
-            }
-          }
-      __syncthreads();  // G holds every node's g * act1(h1)
-      if (t < D) {
-        float acc = 0.0f;
-        for (int n = 0; n < W; ++n) acc += G[t * W + n];
-        if (p.dw)
-          DAFF[t] += acc;
-        else
-          sum_dev(daff_out + (size_t)b * 2 * D + t, acc, first);
-      }
-      __syncthreads();  // the sum has read G
-      if (node_ok)
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int i = 0; i < DG; ++i) {
-            const int d = jg + 8 * i;
-            if (d < D) G[d * W + 4 * ng + n] = h1[n][i];
-          }
-    } else if (node_ok) {
+    reverse_pass1<UT, DG, WIDE>(rev, act0, ng, jg, h1);
+    // outputs d0 + jg + 8 i (wide: a chunk at a time from h1's HW, the chunk's
+    // dh1 parked there while the affine's sum reads G)
+    auto affine_grad = [&](int d0) {
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int i = 0; i < DG; ++i) {
-          const int d = jg + 8 * i;
+          const int d = d0 + jg + 8 * i;
+          if (d < D) {
+            float* gp = G + d * W + 4 * ng + n;
+            const float g = *gp;
+            float y, gr;
+            act_and_grad(act1, h1[n][i], y, gr);
+            *gp = g * y;
+            h1[n][i] = g * scale[d] * gr;
+          }
+        }
+    };
+    auto put_dh1 = [&](int d0) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < DG; ++i) {
+          const int d = d0 + jg + 8 * i;
+          if (d < D) G[d * W + 4 * ng + n] = h1[n][i];
+        }
+    };
+    auto form_dh1 = [&](int d0) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int i = 0; i < DG; ++i) {
+          const int d = d0 + jg + 8 * i;
           if (d < D) G[d * W + 4 * ng + n] *= act_grad(act1, h1[n][i]);
         }
+    };
+    if (affine) {
+      // G = g * act1(h1) for daff's other sum; dh1 = (g * scale) * act1'(h1)
+      // kept in h1 until the sum has read G
+      if constexpr (WIDE) {
+        for (int d0 = 0; node_ok && d0 < D; d0 += kWideOut) {
+          tile_io<false>(h1, rev.HW, W, ng, d0 + jg, D);
+          affine_grad(d0);
+          tile_io<true>(h1, rev.HW, W, ng, d0 + jg, D);
+        }
+      } else if (node_ok) {
+        affine_grad(0);
+      }
+      __syncthreads();  // G holds every node's g * act1(h1)
+      for (int d = t; d < D; d += kTileThreads) {
+        float acc = 0.0f;
+        for (int n = 0; n < W; ++n) acc += G[d * W + n];
+        if (p.dw)
+          DAFF[d] += acc;
+        else
+          sum_dev(daff_out + (size_t)b * 2 * D + d, acc, first);
+      }
+      __syncthreads();  // the sum has read G
+      if constexpr (WIDE) {
+        for (int d0 = 0; node_ok && d0 < D; d0 += kWideOut) {
+          tile_io<false>(h1, rev.HW, W, ng, d0 + jg, D);
+          put_dh1(d0);
+        }
+      } else if (node_ok) {
+        put_dh1(0);
+      }
+    } else if constexpr (WIDE) {
+      for (int d0 = 0; node_ok && d0 < D; d0 += kWideOut) {
+        tile_io<false>(h1, rev.HW, W, ng, d0 + jg, D);
+        form_dh1(d0);
+      }
+    } else if (node_ok) {
+      form_dh1(0);
     }
     __syncthreads();  // G holds every node's dh1
 
@@ -240,17 +285,18 @@ loop2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ 
         Tile2Parts{p.dw ? DW : nullptr, dw0_out + (size_t)b * H1 * C, db0_out + (size_t)b * H1,
                    dw1_out + (size_t)b * D * H1, db1_out + (size_t)b * D, C, 1, !first};
     float dx[4][CT];
-    reverse_pass2<UT, CT>(rev, parts, act0, ng, jg, dx);
+    reverse_pass2<UT, CT, WIDE>(rev, parts, act0, ng, jg, dx);
 
     // dfeats += dx3[2D:]; dagg = dx3[D:2D] into X rows [0, D) (every reader
-    // of x3 is past the last chunk's barrier); dx3[:D] kept
-    if (node_ok)
+    // of x3 is past the last chunk's barrier); dx3[:D] kept; columns c0 + jg
+    // + 8 i (wide: a chunk at a time from DX)
+    auto route = [&](int c0) {
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         const int node = 4 * ng + n;
 #pragma unroll
         for (int i = 0; i < CT; ++i) {
-          const int c = jg + 8 * i;
+          const int c = c0 + jg + 8 * i;
           if (c >= D && c < 2 * D)
             X[(c - D) * W + node] = dx[n][i];
           else if (c >= 2 * D && c < C && p.dw)
@@ -259,20 +305,38 @@ loop2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ 
             sum_dev(dfeats + (row0 + node) * AL + c - 2 * D, dx[n][i], first);
         }
       }
-    __syncthreads();  // X holds every node's dagg
+    };
     // gs[t] = dx3[:D] + sum_dst adjT[t][dst] * dagg[dst], into G
-    if (node_ok)
+    auto contract = [&](int c0) {
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         const int node = 4 * ng + n;
 #pragma unroll
         for (int i = 0; i < CT; ++i) {
-          const int c = jg + 8 * i;
+          const int c = c0 + jg + 8 * i;
           if (c < D)
             G[c * W + node] =
                 dx[n][i] + line_dot(adj, W, node, false, p.E, lw1, idx1, cnt1, X + c * W);
         }
       }
+    };
+    if constexpr (WIDE) {
+      for (int c0 = 0; node_ok && c0 < C; c0 += kWideCols) {
+        tile_io<false>(dx, rev.DX, W, ng, c0 + jg, C);
+        route(c0);
+      }
+    } else if (node_ok) {
+      route(0);
+    }
+    __syncthreads();  // X holds every node's dagg
+    if constexpr (WIDE) {
+      for (int c0 = 0; node_ok && c0 < D; c0 += kWideCols) {
+        tile_io<false>(dx, rev.DX, W, ng, c0 + jg, C);
+        contract(c0);
+      }
+    } else if (node_ok) {
+      contract(0);
+    }
     if (p.pf) cp_async_wait_all();
     __syncthreads();  // G holds gs; X rows [0, 2D) are rewritten by the next step
   }
@@ -293,7 +357,24 @@ loop2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ 
 using Loop2BwdFn = void (*)(const float*, const float*, const float*, const float*, const float*,
                             const float*, const float*, const float*, const float*, const float*,
                             float*, float*, float*, float*, float*, float*, float*, int, int, int,
-                            int, int, int, int, int, Tile2Plan);
+                            int, int, int, int, int, Tile2Plan, float*);
+
+}  // namespace
+
+#ifdef GNN_WIDE_TU
+
+namespace gnn {
+// K11's wide-plan instantiation (eval_loop2_bwd_wide.cu).
+Loop2BwdFn loop2_bwd_wide() { return loop2_bwd_tile_kernel<64, 4, 1, true>; }
+}  // namespace gnn
+
+#else
+
+namespace gnn {
+Loop2BwdFn loop2_bwd_wide();
+}  // namespace gnn
+
+namespace {
 
 // h0 kept: one CTA an SM; h0 recomputed with 4 units a thread: two where
 // they fit, in at most 128 registers a thread (on an NVIDIA H100 at the
@@ -301,23 +382,25 @@ using Loop2BwdFn = void (*)(const float*, const float*, const float*, const floa
 // plan: one.
 template <int MAXF>
 Loop2BwdFn pick_variant(const Tile2Plan& p) {
-  if (p.ut == 2) return loop2_bwd_tile_kernel<MAXF, 2, 1>;
-  return p.keep ? loop2_bwd_tile_kernel<MAXF, 4, 1> : loop2_bwd_tile_kernel<MAXF, 4, 2>;
+  if (p.ut == 2) return loop2_bwd_tile_kernel<MAXF, 2, 1, false>;
+  return p.keep ? loop2_bwd_tile_kernel<MAXF, 4, 1, false>
+                : loop2_bwd_tile_kernel<MAXF, 4, 2, false>;
 }
 
-// The kernel and plan for a shape (nullptr if none fits).
-Loop2BwdFn pick(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* index) {
-  if (!pick_plan(kReverse2Agg, kLoop2BwdPlans, W, D, AL, H1, p, bytes, index, g_force))
+// The kernel and plan for a shape: the first plan of kLoop2BwdPlans that
+// fits, else the wide plan (index 3), or plan g_force (>= 0) if it fits;
+// nullptr if none. *ws: the plan's workspace floats a block.
+Loop2BwdFn pick(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* index, int* ws) {
+  if (!pick_plan(kReverse2Agg, kLoop2BwdPlans, W, D, AL, H1, p, bytes, index, g_force, ws))
     return nullptr;
+  if (*ws > 0) return loop2_bwd_wide();
   switch (width_class(D > AL ? D : AL)) {
     case 16:
       return pick_variant<16>(*p);
     case 32:
       return pick_variant<32>(*p);
-    case 64:
-      return pick_variant<64>(*p);
     default:
-      return nullptr;
+      return pick_variant<64>(*p);
   }
 }
 
@@ -329,26 +412,37 @@ extern "C" {
 // w0 [H1, 2D + AL], b0 [H1], w1 [D, H1], b1 [D], aff [2, D] (null: none),
 // g_traj [K, B, W, D] -> gs [B, W, D], the per-block partials dw0
 // [B, H1, 2D + AL], db0 [B, H1], dw1 [B, D, H1], db1 [B, D] and daff [B, 2, D]
-// (with aff), and dfeats [B, W, AL]. Returns a cudaError_t code.
+// (with aff), and dfeats [B, W, AL]; ws: the wide plan's workspace, B slices
+// of gnn_propagation_loop2_bwd_workspace floats (null for a staged plan).
+// Returns a cudaError_t code.
 int gnn_propagation_loop2_bwd(const float* adjT, const float* s0, const float* traj,
                               const float* feats, const float* w0, const float* b0,
                               const float* w1, const float* b1, const float* aff,
                               const float* g_traj, float* gs, float* dw0, float* db0, float* dw1,
                               float* db1, float* dfeats, float* daff, int B, int W, int D, int AL,
-                              int H1, int K, int act0, int act1, void* stream) {
+                              int H1, int K, int act0, int act1, void* stream, float* ws) {
   if (!block_ok(B, W) || D <= 0 || AL <= 0 || H1 <= 0 || K <= 0) return cudaErrorInvalidValue;
   if ((aff == nullptr) != (daff == nullptr)) return cudaErrorInvalidValue;
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Loop2BwdFn fn = pick(W, D, AL, H1, &p, &bytes, &index);
-  if (fn == nullptr) return cudaErrorInvalidValue;
+  int index, wsf;
+  const Loop2BwdFn fn = pick(W, D, AL, H1, &p, &bytes, &index, &wsf);
+  if (fn == nullptr || (wsf > 0 && ws == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
   fn<<<B, kTileThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       adjT, s0, traj, feats, w0, b0, w1, b1, aff, g_traj, gs, dw0, db0, dw1, db1, dfeats, daff, B,
-      W, D, AL, H1, K, act0, act1, p);
+      W, D, AL, H1, K, act0, act1, p, ws);
   return cudaGetLastError();
+}
+
+// The workspace floats a block the plan gnn_propagation_loop2_bwd picks for
+// this shape needs (0 for a staged plan), or -1 if none fits.
+int gnn_propagation_loop2_bwd_workspace(int W, int D, int AL, int H1) {
+  Tile2Plan p;
+  size_t bytes;
+  int index, wsf;
+  return pick(W, D, AL, H1, &p, &bytes, &index, &wsf) == nullptr ? -1 : wsf;
 }
 
 // out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
@@ -357,15 +451,17 @@ int gnn_propagation_loop2_bwd(const float* adjT, const float* s0, const float* t
 int gnn_propagation_loop2_bwd_info(int W, int D, int AL, int H1, int* out) {
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Loop2BwdFn fn = pick(W, D, AL, H1, &p, &bytes, &index);
+  int index, wsf;
+  const Loop2BwdFn fn = pick(W, D, AL, H1, &p, &bytes, &index, &wsf);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return tile_kernel_info(fn, bytes, index, out);
 }
 
-// Launch plan `index` of kLoop2BwdPlans from now on, where it fits (a launch
-// at a shape it does not fit fails), or the first plan that fits again
-// (index -1): for timing one plan against another.
+// Launch plan `index` of kLoop2BwdPlans (3: the wide plan) from now on,
+// where it fits (a launch at a shape it does not fit fails), or the first
+// plan that fits again (index -1): for timing one plan against another.
 void gnn_propagation_loop2_bwd_force_plan(int index) { g_force = index; }
 
 }  // extern "C"
+
+#endif  // GNN_WIDE_TU

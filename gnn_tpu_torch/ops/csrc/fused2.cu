@@ -54,7 +54,12 @@
 // The plans (tile2.cuh kStep2Plans, mirrored by ops/fused2.py::_PLANS["K9"]):
 // the first builds the lists and stages w1, two y0 tiles (95,568 bytes at
 // the recipe, two CTAs an SM); the leanest (no lists, w1 read from device
-// memory) fits every shape the per-node K9 took.
+// memory) fits every shape the per-node K9 took. The wide plan (tile2.cuh
+// kTile2Wide, chosen only where neither fits) takes every D, AL and H1: x3,
+// the row buffer and h1 in a workspace slice a block (the wrapper allocates
+// gnn_propagation_step2_workspace floats a block), the weights, the biases
+// and the affine read from device memory, the same chains (a forced wide
+// plan gives the staged plans' bits).
 
 #include "tile2.cuh"
 
@@ -66,29 +71,32 @@ static_assert(kStep2Plans[0].ut == 4 && kStep2Plans[1].ut == 4, "K9 owns 4 units
 
 int g_force = -1;  // gnn_propagation_step2_force_plan
 
-// K9: one eval iteration of residual-coupled blocks; rT [B, W, D] nullable.
-template <int MAXF>
+// K9: one eval iteration of residual-coupled blocks; rT [B, W, D] nullable;
+// WIDE: the wide plan (ws its workspace).
+template <int MAXF, bool WIDE>
 __global__ void __launch_bounds__(kTileThreads, 2)
 step2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
                   const float* __restrict__ rT, const float* __restrict__ f,
                   const float* __restrict__ w0, const float* __restrict__ b0,
                   const float* __restrict__ w1, const float* __restrict__ b1,
                   const float* __restrict__ aff, float* __restrict__ out, int W, int D, int AL,
-                  int H1, int act0, int act1, Tile2Plan p) {
+                  int H1, int act0, int act1, Tile2Plan p, float* ws) {
   constexpr int DG = MAXF / 8, UT = 4, CH = 8 * UT;
   extern __shared__ float4 smem_raw[];
   float* base = reinterpret_cast<float*>(smem_raw);
-  const Tile2Layout L = tile2_layout(kStep2, W, D, AL, H1, p);
+  const Tile2Layout L = tile2_layout(kStep2, W, D, AL, H1, p, WIDE);
   const int C = 2 * D + AL, S = L.S, DP = D | 1;
-  float* X = base + L.x3;
+  float* WB = WIDE ? ws + (size_t)blockIdx.x * L.ws : base;  // x3, the row buffer, h1
+  float* X = WB + L.x3;
   float* Y = base + L.yt;
-  float* w0T = base + L.w0;
+  float* w0T = WIDE ? nullptr : base + L.w0;
   float* w1s = p.w1g ? nullptr : base + L.w1;
-  float* b0s = base + L.b0;
+  float* b0s = WIDE ? nullptr : base + L.b0;
   float* lw = base + L.lw;
-  float* b1s = base + L.b1;
-  float* affs = base + L.aff;  // [scale; shift] x [D]
-  float* A = base + L.ab;      // [W][DP]: rT, then the output
+  const float* b1s = WIDE ? b1 : base + L.b1;
+  const float* affs = WIDE ? aff : base + L.aff;  // [scale; shift] x [D]
+  float* A = WB + L.ab;                            // [W][DP]: rT, then the output
+  float* HW = WB + L.hw;
   uint8_t* cnt = reinterpret_cast<uint8_t*>(smem_raw) + L.cnt_b;
   uint8_t* idx = reinterpret_cast<uint8_t*>(smem_raw) + L.idx_b;
   const int t = threadIdx.x;
@@ -98,14 +106,21 @@ step2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
   const float* adj = adjT + row0 * W;
   const W1Src w1src{w1s, w1, S, H1, p.w1g != 0};
 
-  // ---- staging, issued together, waited on once
-  stage_tile_weights(w0, C, b0, 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, b1s);
-  for (int i = t; i < 2 * D; i += kTileThreads) cp_async4(affs + i, aff + i);
-  stage_rowsT(s + row0 * D, W, D, X, 0);         // x3 rows [0, D): s
-  stage_rowsT(f + row0 * AL, W, AL, X, 2 * D);   // rows [2D, C): f
-  if (rT != nullptr)
-    for (int i = t; i < W * D; i += kTileThreads)
-      cp_async4(A + (i / D) * DP + i % D, rT + row0 * D + i);
+  // ---- staging, issued together, waited on once (wide: into the workspace)
+  if constexpr (WIDE) {
+    stage_rowsT<true>(s + row0 * D, W, D, X, 0);
+    stage_rowsT<true>(f + row0 * AL, W, AL, X, 2 * D);
+    if (rT != nullptr)
+      for (int i = t; i < W * D; i += kTileThreads) A[(i / D) * DP + i % D] = rT[row0 * D + i];
+  } else {
+    stage_tile_weights(w0, C, b0, 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, base + L.b1);
+    for (int i = t; i < 2 * D; i += kTileThreads) cp_async4(base + L.aff + i, aff + i);
+    stage_rowsT(s + row0 * D, W, D, X, 0);         // x3 rows [0, D): s
+    stage_rowsT(f + row0 * AL, W, AL, X, 2 * D);   // rows [2D, C): f
+    if (rT != nullptr)
+      for (int i = t; i < W * D; i += kTileThreads)
+        cp_async4(A + (i / D) * DP + i % D, rT + row0 * D + i);
+  }
   if (p.E > 0) build_col_lists(adj, W, p.E, lw, idx, cnt, reinterpret_cast<uint8_t*>(Y));
   cp_async_wait_all();
   __syncthreads();
@@ -119,21 +134,20 @@ step2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
   }
   __syncthreads();
 
-  // ---- h1 = w1 @ act0(w0 @ x3 + b0) + b1 on the register tiles
+  // ---- h1 = w1 @ act0(w0 @ x3 + b0) + b1 on the register tiles (wide: 64
+  // outputs at a time, parked in HW between chunks)
   float h1[4][DG];
-#pragma unroll
-  for (int i = 0; i < DG; ++i) {
-    const int d = dg + 8 * i;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) h1[n][i] = d < D ? b1s[d] : 0.0f;
-  }
+  if constexpr (!WIDE) h1_bias<DG>(h1, b1s, dg, D);
   const int nch = (S + CH - 1) / CH;
   for (int ci = 0; ci < nch; ++ci) {
     const int j0 = ci * CH, jc = min(CH, S - j0);
     float* Yb = Y + (p.nbuf == 2 ? (ci & 1) : 0) * CH * W;
     if (node_ok && UT * dg < jc) {
       float a[4][UT];
-      first_product3(X, W, D, C, w0T + j0 + UT * dg, S, b0s + j0 + UT * dg, ng, a);
+      if constexpr (WIDE)
+        first_product3(X, W, D, C, W0Dev{w0, b0, C, 1, H1, j0 + UT * dg}, ng, a);
+      else
+        first_product3(X, W, D, C, w0T + j0 + UT * dg, S, b0s + j0 + UT * dg, ng, a);
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -141,23 +155,43 @@ step2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
       store_tile<UT>(Yb, UT * dg, ng, W, a);
     }
     __syncthreads();  // the chunk's y0 tile is full
-    if (node_ok) second_product<UT, DG>(Yb, W, w1src, j0, jc, ng, dg, D, h1);
+    if constexpr (WIDE) {
+      for (int d0 = 0; node_ok && d0 < D; d0 += kWideOut) {
+        if (ci == 0)
+          h1_bias<DG>(h1, b1s, d0 + dg, D);
+        else
+          tile_io<false>(h1, HW, W, ng, d0 + dg, D);
+        second_product<UT, DG>(Yb, W, w1src, j0, jc, ng, d0 + dg, D, h1);
+        tile_io<true>(h1, HW, W, ng, d0 + dg, D);
+      }
+    } else if (node_ok) {
+      second_product<UT, DG>(Yb, W, w1src, j0, jc, ng, dg, D, h1);
+    }
     // two tiles: the next chunk writes the other one, whose readers are past
     // the barrier above
     if (p.nbuf == 1) __syncthreads();
   }
 
   // ---- act1 and the affine into the row buffer (rT was read before the
-  // barriers above)
-  if (node_ok)
+  // barriers above), outputs d0 + dg + 8 i
+  auto finish = [&](int d0) {
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int i = 0; i < DG; ++i) {
-        const int d = dg + 8 * i;
+        const int d = d0 + dg + 8 * i;
         if (d < D)
           A[(4 * ng + n) * DP + d] = activate(act1, h1[n][i]) * affs[d] + affs[D + d];
       }
+  };
+  if constexpr (WIDE) {
+    for (int d0 = 0; node_ok && d0 < D; d0 += kWideOut) {
+      tile_io<false>(h1, HW, W, ng, d0 + dg, D);
+      finish(d0);
+    }
+  } else if (node_ok) {
+    finish(0);
+  }
   __syncthreads();
 
   // ---- out, coalesced
@@ -166,22 +200,17 @@ step2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s,
 
 using Step2Fn = void (*)(const float*, const float*, const float*, const float*, const float*,
                          const float*, const float*, const float*, const float*, float*, int, int,
-                         int, int, int, int, Tile2Plan);
+                         int, int, int, int, Tile2Plan, float*);
 
 // K9's kernel and plan for a shape: the first plan of kStep2Plans that fits,
-// or plan g_force (>= 0) if it fits; nullptr if none.
-Step2Fn pick_step2(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* index) {
-  if (!pick_plan(kStep2, kStep2Plans, W, D, AL, H1, p, bytes, index, g_force)) return nullptr;
-  switch (width_class(D)) {
-    case 16:
-      return step2_tile_kernel<16>;
-    case 32:
-      return step2_tile_kernel<32>;
-    case 64:
-      return step2_tile_kernel<64>;
-    default:
-      return nullptr;
-  }
+// else the wide plan (index 2), or plan g_force (>= 0) if it fits; nullptr if
+// none. *ws: the plan's workspace floats a block.
+Step2Fn pick_step2(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* index,
+                   int* ws) {
+  if (!pick_plan(kStep2, kStep2Plans, W, D, AL, H1, p, bytes, index, g_force, ws)) return nullptr;
+  if (*ws > 0) return step2_tile_kernel<64, true>;
+  return D <= 16 ? step2_tile_kernel<16, false>
+                 : D <= 32 ? step2_tile_kernel<32, false> : step2_tile_kernel<64, false>;
 }
 
 }  // namespace
@@ -189,24 +218,33 @@ Step2Fn pick_step2(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, in
 extern "C" {
 
 // adjT [B, W, W], s [B, W, D], rT [B, W, D] (nullable), f [B, W, AL],
-// w0 [H1, 2D + AL], b0 [H1], w1 [D, H1], b1 [D], aff [2, D] -> out [B, W, D].
-// Returns a cudaError_t code.
+// w0 [H1, 2D + AL], b0 [H1], w1 [D, H1], b1 [D], aff [2, D] -> out [B, W, D];
+// ws: the wide plan's workspace, B slices of gnn_propagation_step2_workspace
+// floats (null for a staged plan). Returns a cudaError_t code.
 int gnn_propagation_step2(const float* adjT, const float* s, const float* rT, const float* f,
                           const float* w0, const float* b0, const float* w1, const float* b1,
                           const float* aff, float* out, int B, int W, int D, int AL, int H1,
-                          int act0, int act1, void* stream) {
-  if (!block_ok(B, W) || D <= 0 || AL <= 0 || H1 <= 0 || width_class(D > AL ? D : AL) == 0)
-    return cudaErrorInvalidValue;
+                          int act0, int act1, void* stream, float* ws) {
+  if (!block_ok(B, W) || D <= 0 || AL <= 0 || H1 <= 0) return cudaErrorInvalidValue;
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Step2Fn fn = pick_step2(W, D, AL, H1, &p, &bytes, &index);
-  if (fn == nullptr) return cudaErrorInvalidValue;
+  int index, wsf;
+  const Step2Fn fn = pick_step2(W, D, AL, H1, &p, &bytes, &index, &wsf);
+  if (fn == nullptr || (wsf > 0 && ws == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
   fn<<<B, kTileThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
-      adjT, s, rT, f, w0, b0, w1, b1, aff, out, W, D, AL, H1, act0, act1, p);
+      adjT, s, rT, f, w0, b0, w1, b1, aff, out, W, D, AL, H1, act0, act1, p, ws);
   return cudaGetLastError();
+}
+
+// The workspace floats a block the plan gnn_propagation_step2 picks for this
+// shape needs (0 for a staged plan), or -1 if none fits.
+int gnn_propagation_step2_workspace(int W, int D, int AL, int H1) {
+  Tile2Plan p;
+  size_t bytes;
+  int index, wsf;
+  return pick_step2(W, D, AL, H1, &p, &bytes, &index, &wsf) == nullptr ? -1 : wsf;
 }
 
 // out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
@@ -215,15 +253,15 @@ int gnn_propagation_step2(const float* adjT, const float* s, const float* rT, co
 int gnn_propagation_step2_info(int W, int D, int AL, int H1, int* out) {
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Step2Fn fn = pick_step2(W, D, AL, H1, &p, &bytes, &index);
+  int index, wsf;
+  const Step2Fn fn = pick_step2(W, D, AL, H1, &p, &bytes, &index, &wsf);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return tile_kernel_info(fn, bytes, index, out);
 }
 
-// Launch plan `index` of kStep2Plans from now on, where it fits (a launch at
-// a shape it does not fit fails), or the first plan that fits again (index
-// -1): for timing one plan against another.
+// Launch plan `index` of kStep2Plans (2: the wide plan) from now on, where it
+// fits (a launch at a shape it does not fit fails), or the first plan that
+// fits again (index -1): for timing one plan against another.
 void gnn_propagation_step2_force_plan(int index) { g_force = index; }
 
 }  // extern "C"

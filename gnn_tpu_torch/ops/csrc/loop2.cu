@@ -57,7 +57,14 @@
 // Shapes whose layout does not fit take the leaner plan (tile2.cuh
 // kLoop2Plans, kTrainLoop2Plans: one y0 tile, no lists, w1 read from device
 // memory), which fits every shape the per-node kernels that these replace
-// took.
+// took. The wide plan (tile2.cuh kTile2Wide, chosen only where neither
+// fits) takes every D, AL and H1: x3, h1 and K12's undropped state lie in a
+// workspace slice a block (gnn_propagation_loop2_workspace /
+// gnn_train_loop2_workspace floats, allocated by the wrapper), the weights,
+// the biases and the affine are read from device memory, and a thread's
+// outputs go through its 64-wide tiles a chunk at a time, the keep bytes read
+// where they are used: the same chains, so a forced wide plan gives the
+// staged plans' bits.
 
 #include "tile2.cuh"
 
@@ -69,12 +76,14 @@ static_assert(kLoop2Plans[0].ut == 4 && kLoop2Plans[1].ut == 4, "K10 owns 4 unit
 static_assert(kTrainLoop2Plans[0].ut == 4 && kTrainLoop2Plans[1].ut == 4,
               "K12 owns 4 units a thread");
 
-int g_force = -1;  // gnn_train_loop2_force_plan
+int g_force = -1;       // gnn_train_loop2_force_plan
+int g_force_eval = -1;  // gnn_propagation_loop2_force_plan
 
 // TRAIN false: K10 (f [B, W, AL], aff; ms, ma, agg_out unused); TRAIN true:
 // K12 (f = fd [K, B, W, AL], the keep-masks ms/ma [K, B, W, D] (null when
-// mode == kNoDrop), agg_out [K, B, W, D]; aff unused).
-template <int MAXF, bool TRAIN>
+// mode == kNoDrop), agg_out [K, B, W, D]; aff unused). WIDE: the wide plan
+// (ws its workspace).
+template <int MAXF, bool TRAIN, bool WIDE>
 __global__ void __launch_bounds__(kTileThreads, 2)
 loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
                   const float* __restrict__ f, const float* __restrict__ w0,
@@ -84,20 +93,23 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
                   const float* __restrict__ nm, float* __restrict__ traj,
                   float* __restrict__ marg, float* __restrict__ agg_out, int B, int W, int D,
                   int AL, int H1, int K, float thr, int act0, int act1, int mode, float da,
-                  float db, Tile2Plan p) {
+                  float db, Tile2Plan p, float* ws) {
   constexpr int DG = MAXF / 8, UT = 4, CH = 8 * UT;
   extern __shared__ float4 smem_raw[];
   float* base = reinterpret_cast<float*>(smem_raw);
-  const Tile2Layout L = tile2_layout(kForward2, W, D, AL, H1, p);
+  const Tile2Layout L = tile2_layout(kForward2, W, D, AL, H1, p, WIDE);
   const int C = 2 * D + AL, S = L.S;
-  float* X = base + L.x3;
+  float* WB = WIDE ? ws + (size_t)blockIdx.x * L.ws : base;  // x3, h1, K12's state
+  float* X = WB + L.x3;
   float* Y = base + L.yt;
-  float* w0T = base + L.w0;
+  float* w0T = WIDE ? nullptr : base + L.w0;
   float* w1s = p.w1g ? nullptr : base + L.w1;
-  float* b0s = base + L.b0;
+  float* b0s = WIDE ? nullptr : base + L.b0;
   float* lw = base + L.lw;
-  float* b1s = base + L.b1;
-  float* affs = base + L.aff;
+  const float* b1s = WIDE ? b1 : base + L.b1;
+  const float* affs = WIDE ? aff : base + L.aff;
+  float* HW = WB + L.hw;
+  float* SV = WB + L.sv;  // wide K12: the undropped state [D][W]
   uint8_t* cnt = reinterpret_cast<uint8_t*>(smem_raw) + L.cnt_b;
   uint8_t* idx = reinterpret_cast<uint8_t*>(smem_raw) + L.idx_b;
   const int b = blockIdx.x, t = threadIdx.x;
@@ -107,12 +119,17 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
   const float* adj = adjT + row0 * W;
   const W1Src w1src{w1s, w1, S, H1, p.w1g != 0};
 
-  stage_tile_weights(w0, C, b0, 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, b1s);
-  if constexpr (!TRAIN) {
-    for (int i = t; i < 2 * D; i += kTileThreads) cp_async4(affs + i, aff + i);
+  if constexpr (WIDE) {
+    stage_rowsT<true>(s0 + row0 * D, W, D, X, 0);
+    if constexpr (!TRAIN) stage_rowsT<true>(f + row0 * AL, W, AL, X, 2 * D);
+  } else {
+    stage_tile_weights(w0, C, b0, 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, base + L.b1);
+    if constexpr (!TRAIN) {
+      for (int i = t; i < 2 * D; i += kTileThreads) cp_async4(base + L.aff + i, aff + i);
+    }
+    stage_rowsT(s0 + row0 * D, W, D, X, 0);
+    if constexpr (!TRAIN) stage_rowsT(f + row0 * AL, W, AL, X, 2 * D);
   }
-  stage_rowsT(s0 + row0 * D, W, D, X, 0);
-  if constexpr (!TRAIN) stage_rowsT(f + row0 * AL, W, AL, X, 2 * D);
   if (p.E > 0 && t < W) build_list(adj, W, t, p.E, true, lw, idx, cnt);
   cp_async_wait_all();
   __syncthreads();
@@ -138,8 +155,13 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
     }
   };
   // K12: the owner's undropped state, sv[n][i] of node 4 ng + n, column dg + 8 i
+  // (wide: SV [D][W], each entry its owner's)
   float sv[4][DG];
-  if constexpr (TRAIN) {
+  if constexpr (TRAIN && WIDE) {
+    for (int d = dg; node_ok && d < D; d += 8)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) SV[d * W + 4 * ng + n] = X[d * W + 4 * ng + n];
+  } else if constexpr (TRAIN) {
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
 #pragma unroll
@@ -153,13 +175,21 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
 #pragma unroll
   for (int n = 0; n < 4; ++n) {
     dist[n] = norm[n] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < DG; ++i) {
-      const int d = dg + 8 * i;
-      if (node_ok && d < D) {
+    if constexpr (WIDE) {
+      for (int d = dg; node_ok && d < D; d += 8) {
         const float diff = X[d * W + 4 * ng + n] - 1.0f;
         dist[n] = __fadd_rn(dist[n], __fmul_rn(diff, diff));
         norm[n] = __fadd_rn(norm[n], 1.0f);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < DG; ++i) {
+        const int d = dg + 8 * i;
+        if (node_ok && d < D) {
+          const float diff = X[d * W + 4 * ng + n] - 1.0f;
+          dist[n] = __fadd_rn(dist[n], __fmul_rn(diff, diff));
+          norm[n] = __fadd_rn(norm[n], 1.0f);
+        }
       }
     }
   }
@@ -172,7 +202,9 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
     // chunks) and this iteration's keep bits, bit n * DG + i of node 4 ng + n,
     // column dg + 8 i, while the aggregation runs
     uint32_t kept_s = 0, kept_a = 0;
-    if constexpr (TRAIN) {
+    if constexpr (TRAIN && WIDE) {
+      stage_rowsT<true>(f + kb * W * AL, W, AL, X, 2 * D);
+    } else if constexpr (TRAIN) {
       stage_rowsT(f + kb * W * AL, W, AL, X, 2 * D);
       if (mode != kNoDrop && node_ok) {
 #pragma unroll
@@ -197,7 +229,21 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
           X[(D + d) * W + n] = line_dot(adj, W, n, true, p.E, lw, idx, cnt, X + d * W);
     }
     __syncthreads();  // X holds x3 (K12: undropped); the movement sums are read
-    if constexpr (TRAIN) {
+    if constexpr (TRAIN && WIDE) {
+      // as below, the keep bytes read here
+      for (int d = dg; node_ok && d < D; d += 8)
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int node = 4 * ng + n;
+          const size_t e = (kb * W + node) * D + d;
+          const bool ks = mode != kNoDrop && ms[e] != 0, ka = mode != kNoDrop && ma[e] != 0;
+          const float a = X[(D + d) * W + node];
+          agg_out[e] = a;
+          X[(D + d) * W + node] = drop(mode, da, db, a, ka);
+          X[d * W + node] = drop(mode, da, db, SV[d * W + node], ks);
+        }
+      __syncthreads();  // X holds the dropped x3 and fd[k]
+    } else if constexpr (TRAIN) {
       // agg[k] before the dropout, then the dropped state and aggregation
       // into X rows [0, 2D), each entry by its owner
       if (node_ok) {
@@ -221,18 +267,16 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
     }
 
     float h1[4][DG];
-#pragma unroll
-    for (int i = 0; i < DG; ++i) {
-      const int d = dg + 8 * i;
-#pragma unroll
-      for (int n = 0; n < 4; ++n) h1[n][i] = d < D ? b1s[d] : 0.0f;
-    }
+    if constexpr (!WIDE) h1_bias<DG>(h1, b1s, dg, D);
     for (int ci = 0; ci < nch; ++ci) {
       const int j0 = ci * CH, jc = min(CH, S - j0);
       float* Yb = Y + (p.nbuf == 2 ? (ci & 1) : 0) * CH * W;
       if (node_ok && UT * dg < jc) {
         float a[4][UT];
-        first_product<UT>(X, W, C, w0T + j0 + UT * dg, S, b0s + j0 + UT * dg, ng, a);
+        if constexpr (WIDE)
+          first_product<UT>(X, W, C, W0Dev{w0, b0, C, 1, H1, j0 + UT * dg}, ng, a);
+        else
+          first_product<UT>(X, W, C, w0T + j0 + UT * dg, S, b0s + j0 + UT * dg, ng, a);
 #pragma unroll
         for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -240,7 +284,18 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
         store_tile<UT>(Yb, UT * dg, ng, W, a);
       }
       __syncthreads();  // the chunk's y0 tile is full
-      if (node_ok) second_product<UT, DG>(Yb, W, w1src, j0, jc, ng, dg, D, h1);
+      if constexpr (WIDE) {
+        for (int d0 = 0; node_ok && d0 < D; d0 += kWideOut) {
+          if (ci == 0)
+            h1_bias<DG>(h1, b1s, d0 + dg, D);
+          else
+            tile_io<false>(h1, HW, W, ng, d0 + dg, D);
+          second_product<UT, DG>(Yb, W, w1src, j0, jc, ng, d0 + dg, D, h1);
+          tile_io<true>(h1, HW, W, ng, d0 + dg, D);
+        }
+      } else if (node_ok) {
+        second_product<UT, DG>(Yb, W, w1src, j0, jc, ng, dg, D, h1);
+      }
       // two tiles: the next chunk writes the other one, whose readers are past
       // the barrier above
       if (p.nbuf == 1) __syncthreads();
@@ -248,6 +303,37 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
 
     // s' = act1(h1) * scale + shift (K12: act1(h1)) into X rows [0, D) and
     // traj[k]; every thread is past its reads of X (the last chunk's barrier)
+    if constexpr (WIDE) {
+#pragma unroll
+      for (int n = 0; n < 4; ++n) dist[n] = norm[n] = 0.0f;
+      for (int d0 = 0; node_ok && d0 < D; d0 += kWideOut) {
+        tile_io<false>(h1, HW, W, ng, d0 + dg, D);
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          const int node = 4 * ng + n;
+#pragma unroll
+          for (int i = 0; i < DG; ++i) {
+            const int d = d0 + dg + 8 * i;
+            if (d < D) {
+              float y, old;
+              if constexpr (TRAIN) {
+                y = activate(act1, h1[n][i]);
+                old = SV[d * W + node];
+                SV[d * W + node] = y;
+              } else {
+                y = activate(act1, h1[n][i]) * affs[d] + affs[D + d];
+                old = X[d * W + node];
+              }
+              const float diff = y - old;
+              dist[n] = __fadd_rn(dist[n], __fmul_rn(diff, diff));
+              norm[n] = __fadd_rn(norm[n], __fmul_rn(old, old));
+              X[d * W + node] = y;
+              traj[(kb * W + node) * D + d] = y;
+            }
+          }
+        }
+      }
+    } else {
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
       dist[n] = norm[n] = 0.0f;
@@ -273,6 +359,7 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
         }
       }
     }
+    }
     __syncthreads();  // every thread is past its reads of the y0 tiles
     if (k + 1 < K) flush_movement(k + 1);
   }
@@ -281,25 +368,27 @@ loop2_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
 using Loop2Fn = void (*)(const float*, const float*, const float*, const float*, const float*,
                          const float*, const float*, const float*, const uint8_t*, const uint8_t*,
                          const float*, float*, float*, float*, int, int, int, int, int, int, float,
-                         int, int, int, float, float, Tile2Plan);
+                         int, int, int, float, float, Tile2Plan, float*);
 
 // The kernel and plan of K10 (TRAIN false) or K12 for a shape (nullptr if
-// none fits); K12 takes plan g_force where it is set.
+// none fits): the first staged plan that fits, else the wide plan (index 2),
+// or the forced plan (g_force_eval, g_force) where it is set. *ws: the plan's
+// workspace floats a block.
 template <bool TRAIN>
-Loop2Fn pick(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* index) {
+Loop2Fn pick(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* index, int* ws) {
   const bool ok = TRAIN ? pick_plan(kForward2, kTrainLoop2Plans, W, D, AL, H1, p, bytes, index,
-                                    g_force)
-                        : pick_plan(kForward2, kLoop2Plans, W, D, AL, H1, p, bytes, index);
+                                    g_force, ws)
+                        : pick_plan(kForward2, kLoop2Plans, W, D, AL, H1, p, bytes, index,
+                                    g_force_eval, ws);
   if (!ok) return nullptr;
+  if (*ws > 0) return loop2_tile_kernel<64, TRAIN, true>;
   switch (width_class(D > AL ? D : AL)) {
     case 16:
-      return loop2_tile_kernel<16, TRAIN>;
+      return loop2_tile_kernel<16, TRAIN, false>;
     case 32:
-      return loop2_tile_kernel<32, TRAIN>;
-    case 64:
-      return loop2_tile_kernel<64, TRAIN>;
+      return loop2_tile_kernel<32, TRAIN, false>;
     default:
-      return nullptr;
+      return loop2_tile_kernel<64, TRAIN, false>;
   }
 }
 
@@ -309,23 +398,34 @@ extern "C" {
 
 // adjT [B, W, W], s0 [B, W, D], f [B, W, AL], w0 [H1, 2D + AL], b0 [H1],
 // w1 [D, H1], b1 [D], aff [2, D], nm [B, W] -> traj [K, B, W, D],
-// marg [K, B, W]. Returns a cudaError_t code.
+// marg [K, B, W]; ws: the wide plan's workspace, B slices of
+// gnn_propagation_loop2_workspace floats (null for a staged plan). Returns a
+// cudaError_t code.
 int gnn_propagation_loop2(const float* adjT, const float* s0, const float* f, const float* w0,
                           const float* b0, const float* w1, const float* b1, const float* aff,
                           const float* nm, float* traj, float* marg, int B, int W, int D, int AL,
-                          int H1, int K, float thr, int act0, int act1, void* stream) {
+                          int H1, int K, float thr, int act0, int act1, void* stream, float* ws) {
   if (!block_ok(B, W) || D <= 0 || AL <= 0 || H1 <= 0 || K <= 0) return cudaErrorInvalidValue;
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Loop2Fn fn = pick<false>(W, D, AL, H1, &p, &bytes, &index);
-  if (fn == nullptr) return cudaErrorInvalidValue;
+  int index, wsf;
+  const Loop2Fn fn = pick<false>(W, D, AL, H1, &p, &bytes, &index, &wsf);
+  if (fn == nullptr || (wsf > 0 && ws == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
   fn<<<B, kTileThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       adjT, s0, f, w0, b0, w1, b1, aff, nullptr, nullptr, nm, traj, marg, nullptr, B, W, D, AL,
-      H1, K, thr, act0, act1, kNoDrop, 1.0f, 0.0f, p);
+      H1, K, thr, act0, act1, kNoDrop, 1.0f, 0.0f, p, ws);
   return cudaGetLastError();
+}
+
+// The workspace floats a block the plan gnn_propagation_loop2 picks for this
+// shape needs (0 for a staged plan), or -1 if none fits.
+int gnn_propagation_loop2_workspace(int W, int D, int AL, int H1) {
+  Tile2Plan p;
+  size_t bytes;
+  int index, wsf;
+  return pick<false>(W, D, AL, H1, &p, &bytes, &index, &wsf) == nullptr ? -1 : wsf;
 }
 
 // out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
@@ -334,48 +434,62 @@ int gnn_propagation_loop2(const float* adjT, const float* s0, const float* f, co
 int gnn_propagation_loop2_info(int W, int D, int AL, int H1, int* out) {
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Loop2Fn fn = pick<false>(W, D, AL, H1, &p, &bytes, &index);
+  int index, wsf;
+  const Loop2Fn fn = pick<false>(W, D, AL, H1, &p, &bytes, &index, &wsf);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return tile_kernel_info(fn, bytes, index, out);
 }
 
+// Launch plan `index` of kLoop2Plans (2: the wide plan) from now on, where
+// it fits (a launch at a shape it does not fit fails), or the first plan
+// that fits again (index -1): for timing one plan against another.
+void gnn_propagation_loop2_force_plan(int index) { g_force_eval = index; }
+
 // adjT [B, W, W], s0 [B, W, D], ms/ma uint8 [K, B, W, D] (null when mode == 0),
 // fd [K, B, W, AL], w0 [H1, 2D + AL], b0 [H1], w1 [D, H1], b1 [D], nm [B, W]
-// -> traj, agg [K, B, W, D], marg [K, B, W]. Returns a cudaError_t code.
+// -> traj, agg [K, B, W, D], marg [K, B, W]; ws as gnn_propagation_loop2's
+// (gnn_train_loop2_workspace floats a block). Returns a cudaError_t code.
 int gnn_train_loop2(const float* adjT, const float* s0, const uint8_t* ms, const uint8_t* ma,
                     const float* fd, const float* w0, const float* b0, const float* w1,
                     const float* b1, const float* nm, float* traj, float* marg, float* agg, int B,
                     int W, int D, int AL, int H1, int K, float thr, int act0, int act1, int mode,
-                    float da, float db, void* stream) {
+                    float da, float db, void* stream, float* ws) {
   if (!block_ok(B, W) || D <= 0 || AL <= 0 || H1 <= 0 || K <= 0) return cudaErrorInvalidValue;
   if (mode != kNoDrop && (ms == nullptr || ma == nullptr)) return cudaErrorInvalidValue;
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Loop2Fn fn = pick<true>(W, D, AL, H1, &p, &bytes, &index);
-  if (fn == nullptr) return cudaErrorInvalidValue;
+  int index, wsf;
+  const Loop2Fn fn = pick<true>(W, D, AL, H1, &p, &bytes, &index, &wsf);
+  if (fn == nullptr || (wsf > 0 && ws == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
   fn<<<B, kTileThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       adjT, s0, fd, w0, b0, w1, b1, nullptr, ms, ma, nm, traj, marg, agg, B, W, D, AL, H1, K,
-      thr, act0, act1, mode, da, db, p);
+      thr, act0, act1, mode, da, db, p, ws);
   return cudaGetLastError();
+}
+
+// As gnn_propagation_loop2_workspace, for gnn_train_loop2.
+int gnn_train_loop2_workspace(int W, int D, int AL, int H1) {
+  Tile2Plan p;
+  size_t bytes;
+  int index, wsf;
+  return pick<true>(W, D, AL, H1, &p, &bytes, &index, &wsf) == nullptr ? -1 : wsf;
 }
 
 // As gnn_propagation_loop2_info, for the kernel gnn_train_loop2 launches.
 int gnn_train_loop2_info(int W, int D, int AL, int H1, int* out) {
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Loop2Fn fn = pick<true>(W, D, AL, H1, &p, &bytes, &index);
+  int index, wsf;
+  const Loop2Fn fn = pick<true>(W, D, AL, H1, &p, &bytes, &index, &wsf);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return tile_kernel_info(fn, bytes, index, out);
 }
 
-// Launch plan `index` of kTrainLoop2Plans from now on, where it fits (a
-// launch at a shape it does not fit fails), or the first plan that fits
-// again (index -1): for timing one plan against another.
+// Launch plan `index` of kTrainLoop2Plans (2: the wide plan) from now on,
+// where it fits (a launch at a shape it does not fit fails), or the first
+// plan that fits again (index -1): for timing one plan against another.
 void gnn_train_loop2_force_plan(int index) { g_force = index; }
 
 }  // extern "C"

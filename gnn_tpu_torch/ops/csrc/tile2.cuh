@@ -46,6 +46,18 @@
 // list whose layout fits a CTA's 227 KB; ops/fused2.py::_tile2_plan mirrors
 // the lists and the layout byte for byte. Each list holds the plan of the
 // hidden-150 recipe first and ends with the leanest plan.
+//
+// The wide plan (kTile2Wide, index: the list's length) is taken only where
+// no plan of the list fits, and takes every width: the [C][W]- and
+// [D][W]-sized regions (x3, the cotangent rows, a row buffer) lie in a
+// device-memory workspace slice of the block row (tile2_layout's `ws` floats,
+// allocated by the wrapper), w0, b0, w1 and b1 are read from device memory
+// through the caches (W0Dev, W1Src), and shared memory holds only the y0 and
+// h0 tiles and the adjacency lists. The kernels instantiate it once, 64
+// outputs wide (WIDE): h1 and dx3 go through the 64-wide register tiles an
+// output chunk at a time, parked in the workspace between hidden chunks
+// (h1_io, dx_io), so every output is the staged plans' chain and a forced
+// wide plan gives their bits.
 
 #pragma once
 
@@ -99,6 +111,13 @@ constexpr Tile2Plan kBn2FwdPlans[] = {{4, 2, 0, 0, 1, 16, 1, 0}, {4, 1, 0, 0, 0,
 // device memory and pads no hidden stride, and fits every shape the per-node
 // K9 took.
 constexpr Tile2Plan kStep2Plans[] = {{4, 2, 0, 0, 0, 16, 1, 0}, {4, 1, 0, 0, 0, 0, 0, 1}};
+// The wide plan of every tiled kernel: one y0 tile, h0 recomputed, partials
+// in device memory, lists, w1 in device memory (layout: tile2_layout(...,
+// wide = true)).
+constexpr Tile2Plan kTile2Wide = {4, 1, 0, 0, 0, 16, 0, 1};
+// Outputs a 64-wide instantiation holds in registers (h1: 8 a thread; dx3:
+// 24 a thread) of the wide plan's chunks.
+constexpr int kWideOut = 64, kWideCols = 192;
 
 // The layouts: K10's and K12's forward; the reverse step of K13 and K15;
 // K11's, which also recomputes the aggregation (a second list set) and sums
@@ -118,6 +137,7 @@ __host__ __device__ inline int hidden_stride(int H1, int ut, int pad) {
 struct Tile2Layout {
   int S;
   int x3, dh1, yt, ht, w0, w1, b0, pf, lw, dw, b1, aff, nm, ab, kp;
+  int hw, dx, sv, ws;  // the wide plan's workspace: h1 and dx3 chunks, K12's state; floats
   size_t cnt_b, idx_b, bytes;
 };
 
@@ -133,13 +153,50 @@ struct Tile2Layout {
 // [W][D | 1] and, with pf, the keep bytes [W][C] (16-byte aligned, rounded
 // up to 16 bytes). kStep2 (K9): as kForward2, then from a 16-byte boundary a
 // row buffer [W][D | 1].
+// The wide plan (wide, p = kTile2Wide): a block row's workspace slice of ws
+// floats holds x3 [C][W], with a reverse step G [D][W] and dx3 [C][W], h1
+// [D][W], with kForward2 K12's undropped state [D][W], with kBnForward2 and
+// kStep2 the row buffer [W][D | 1] (rounded up to 16 bytes); shared memory
+// the y0 tile [CH][W], with a reverse step the h0 / dh0 tile [CH][W], the
+// lists, with kBnForward2 the node mask [W], then the list bytes.
 __host__ __device__ inline Tile2Layout tile2_layout(int kind, int W, int D, int AL, int H1,
-                                                    const Tile2Plan& p) {
+                                                    const Tile2Plan& p, bool wide = false) {
   Tile2Layout L{};
   const bool rev = kind == kReverse2 || kind == kReverse2Agg, agg = kind == kReverse2Agg;
   const int C = 2 * D + AL, CH = 8 * p.ut, nl = agg ? 2 : 1;
   L.S = hidden_stride(H1, p.ut, p.pad);
   int o = 0;
+  if (wide) {
+    L.w0 = L.w1 = L.b0 = L.pf = L.dw = L.b1 = L.aff = L.kp = -1;
+    L.x3 = o;
+    o += C * W;
+    if (rev) {
+      L.dh1 = o;
+      o += D * W;
+      L.dx = o;
+      o += C * W;
+    }
+    L.hw = o;
+    o += D * W;
+    L.sv = o;
+    o += kind == kForward2 ? D * W : 0;
+    L.ab = o;
+    o += kind == kBnForward2 || kind == kStep2 ? (W * (D | 1) + 3) & ~3 : 0;
+    L.ws = o;
+    o = 0;
+    L.yt = o;
+    o += CH * W;
+    L.ht = o;
+    o += rev ? CH * W : 0;
+    L.lw = o;
+    o += nl * p.E * W;
+    L.nm = o;
+    o += kind == kBnForward2 ? W : 0;
+    L.cnt_b = sizeof(float) * (size_t)o;
+    L.idx_b = L.cnt_b + (size_t)nl * W;
+    L.bytes = L.idx_b + (size_t)nl * p.E * W;
+    return L;
+  }
   L.x3 = o;
   o += C * W;
   if (rev) {
@@ -195,16 +252,29 @@ __host__ __device__ inline Tile2Layout tile2_layout(int kind, int W, int D, int 
   return L;
 }
 
-// The first plan of `plans` that fits a CTA, or plan `force` (>= 0) if it
-// fits; false (bytes: the last plan's) if none.
+// The first plan of `plans` that fits a CTA, else the wide plan (index N),
+// or plan `force` (>= 0; N the wide plan) if it fits; false (bytes: the last
+// plan tried) if none. The staged plans' register tiles hold D and AL up to
+// 64 (width_class): wider shapes take the wide plan. *ws: the plan's
+// workspace floats a block row (0 for a staged plan).
 template <size_t N>
 inline bool pick_plan(int kind, const Tile2Plan (&plans)[N], int W, int D, int AL, int H1,
-                      Tile2Plan* p, size_t* bytes, int* index, int force = -1) {
-  for (size_t i = force >= 0 ? (size_t)force : 0; i < N; ++i) {
-    *bytes = tile2_layout(kind, W, D, AL, H1, plans[i]).bytes;
+                      Tile2Plan* p, size_t* bytes, int* index, int force = -1, int* ws = nullptr) {
+  const bool staged = width_class(D > AL ? D : AL) != 0;
+  *bytes = 0;
+  for (size_t i = force >= 0 ? (size_t)force : 0; i <= N; ++i) {
+    const bool wide = i == N;
+    if (!wide && !staged) {
+      if (force >= 0) break;
+      continue;
+    }
+    const Tile2Plan plan = wide ? kTile2Wide : plans[i];
+    const Tile2Layout L = tile2_layout(kind, W, D, AL, H1, plan, wide);
+    *bytes = L.bytes;
     if (*bytes <= (size_t)kMaxSmemBytes) {
-      *p = plans[i];
+      *p = plan;
       *index = static_cast<int>(i);
+      if (ws != nullptr) *ws = wide ? L.ws : 0;
       return true;
     }
     if (force >= 0) break;
@@ -338,10 +408,16 @@ __device__ inline void stage_tile_weights(const float* __restrict__ w0, int ldw0
   for (int d = threadIdx.x; d < D; d += blockDim.x) cp_async4(b1s + d, b1 + d);
 }
 
-// Rows [W][F] (contiguous) -> X[c0 + f][n], transposed.
+// Rows [W][F] (contiguous) -> X[c0 + f][n], transposed; DEV: X lies in
+// device memory (the wide plans' workspace), copied by plain loads and stores.
+template <bool DEV = false>
 __device__ inline void stage_rowsT(const float* __restrict__ g, int W, int F, float* X, int c0) {
-  for (int i = threadIdx.x; i < W * F; i += blockDim.x)
-    cp_async4(X + (c0 + i % F) * W + i / F, g + i);
+  for (int i = threadIdx.x; i < W * F; i += blockDim.x) {
+    if constexpr (DEV)
+      X[(c0 + i % F) * W + i / F] = g[i];
+    else
+      cp_async4(X + (c0 + i % F) * W + i / F, g + i);
+  }
 }
 
 // The nonzero entries of line `n` of the block adjacency adj [W][W] (device
@@ -554,13 +630,52 @@ __device__ __forceinline__ void load_w1(const W1Src& src, int d, int j, float (&
   for (int u = 0; u < UT; ++u) w[u] = j + u < src.H1 ? src.w1[(size_t)d * src.H1 + j + u] : 0.0f;
 }
 
+// w0 and b0 as the products read them: W0Smem, the staged w0T [C][S] and
+// b0 [S] in shared memory (advanced to a first unit); W0Dev (the wide plans),
+// w0 [H1] rows of stride ld and b0 entries of stride ldb in device memory from
+// unit j on, read 4 bytes at a time through the caches and zero past H1 as
+// the staged copies are. Either way the same values enter the same FMAs in
+// the same order. col(c, r, w): w[u] = w0[unit r + u][c]; bias(b): b[u] =
+// b0[unit u].
+struct W0Smem {
+  const float* w;
+  const float* b;
+  int S;
+  template <int N>
+  __device__ __forceinline__ void col(int c, int r, float (&o)[N]) const {
+    ldv<N>(w + c * S + r, o);
+  }
+  template <int N>
+  __device__ __forceinline__ void bias(float (&o)[N]) const {
+    ldv<N>(b, o);
+  }
+};
+
+struct W0Dev {
+  const float* w0;
+  const float* b0;
+  int ld, ldb, H1, j;
+  __device__ __forceinline__ W0Dev at(int j1) const { return W0Dev{w0, b0, ld, ldb, H1, j1}; }
+  template <int N>
+  __device__ __forceinline__ void col(int c, int r, float (&o)[N]) const {
+#pragma unroll
+    for (int u = 0; u < N; ++u)
+      o[u] = j + r + u < H1 ? w0[(size_t)(j + r + u) * ld + c] : 0.0f;
+  }
+  template <int N>
+  __device__ __forceinline__ void bias(float (&o)[N]) const {
+#pragma unroll
+    for (int u = 0; u < N; ++u) o[u] = j + u < H1 ? b0[(size_t)(j + u) * ldb] : 0.0f;
+  }
+};
+
 // a[n][u] = b0[u] + sum_c X[c][4 ng + n] * w0T[c][u] for this thread's nodes
-// and units (w0T, b0 advanced to the thread's first unit).
-template <int UT>
-__device__ __forceinline__ void first_product(const float* X, int W, int C, const float* w0T,
-                                              int S, const float* b0, int ng, float (&a)[4][UT]) {
+// and units (the reader at the thread's first unit).
+template <int UT, typename R>
+__device__ __forceinline__ void first_product(const float* X, int W, int C, const R& w0,
+                                              int ng, float (&a)[4][UT]) {
   float bv[UT];
-  ldv<UT>(b0, bv);
+  w0.bias(bv);
 #pragma unroll
   for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -569,7 +684,7 @@ __device__ __forceinline__ void first_product(const float* X, int W, int C, cons
   for (int c = 0; c < C; ++c) {
     float x[4], w[UT];
     ldv<4>(X + c * W + 4 * ng, x);
-    ldv<UT>(w0T + c * S, w);
+    w0.col(c, 0, w);
 #pragma unroll
     for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -577,13 +692,21 @@ __device__ __forceinline__ void first_product(const float* X, int W, int C, cons
   }
 }
 
+// The staged first_product: w0T, b0 in shared memory, advanced to the
+// thread's first unit.
+template <int UT>
+__device__ __forceinline__ void first_product(const float* X, int W, int C, const float* w0T,
+                                              int S, const float* b0, int ng, float (&a)[4][UT]) {
+  first_product<UT>(X, W, C, W0Smem{w0T, b0, S}, ng, a);
+}
+
 // h0 for this thread's 4 nodes x 4 units as the per-node K14 and K9 formed
 // it: three chains over x3's state, aggregation and arc-label rows, each
 // from 0 in column order, added as (s + a) + (f + b0); w0T and b0 advanced
 // to the thread's first unit (K14, K9).
-__device__ __forceinline__ void first_product3(const float* X, int W, int D, int C,
-                                               const float* w0T, int S, const float* b0, int ng,
-                                               float (&h)[4][4]) {
+template <typename R>
+__device__ __forceinline__ void first_product3(const float* X, int W, int D, int C, const R& w0,
+                                               int ng, float (&h)[4][4]) {
   float t[4][4];
   auto chain = [&](int c0, int c1, float (&a)[4][4]) {
 #pragma unroll
@@ -594,7 +717,7 @@ __device__ __forceinline__ void first_product3(const float* X, int W, int D, int
     for (int c = c0; c < c1; ++c) {
       float x[4], w[4];
       ldv<4>(X + c * W + 4 * ng, x);
-      ldv<4>(w0T + c * S, w);
+      w0.col(c, 0, w);
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -609,11 +732,17 @@ __device__ __forceinline__ void first_product3(const float* X, int W, int D, int
     for (int u = 0; u < 4; ++u) h[n][u] += t[n][u];
   chain(2 * D, C, t);
   float bv[4];
-  ldv<4>(b0, bv);
+  w0.bias(bv);
 #pragma unroll
   for (int n = 0; n < 4; ++n)
 #pragma unroll
     for (int u = 0; u < 4; ++u) h[n][u] += t[n][u] + bv[u];
+}
+
+__device__ __forceinline__ void first_product3(const float* X, int W, int D, int C,
+                                               const float* w0T, int S, const float* b0, int ng,
+                                               float (&h)[4][4]) {
+  first_product3(X, W, D, C, W0Smem{w0T, b0, S}, ng, h);
 }
 
 // T[r0 + u][nodes of block ng] = v[.][u].
@@ -682,10 +811,10 @@ __device__ __forceinline__ void dy_product(const float* G, int W, int D, const W
 }
 
 // dx[n][i] += sum_{r < jc} H[hr + r][4 ng + n] * w0T[c][j0 + r], c = cg + 8 i
-// < C (w0T advanced to column j0): dx3 += dh0 @ w0 over a chunk.
-template <int UT, int CT>
-__device__ __forceinline__ void dx_product(const float* H, int hr, int W, const float* w0T, int S,
-                                           int jc, int C, int ng, int cg, float (&dx)[4][CT]) {
+// < C (the reader at unit j0): dx3 += dh0 @ w0 over a chunk.
+template <int UT, int CT, typename R>
+__device__ __forceinline__ void dx_product(const float* H, int hr, int W, const R& w0, int jc,
+                                           int C, int ng, int cg, float (&dx)[4][CT]) {
   for (int r = 0; r < jc; r += UT) {
     float v[4][UT];
     load_tile<UT>(H, hr + r, ng, W, v);
@@ -694,13 +823,46 @@ __device__ __forceinline__ void dx_product(const float* H, int hr, int W, const 
       const int c = cg + 8 * i;
       if (c < C) {
         float w[UT];
-        ldv<UT>(w0T + c * S + r, w);
+        w0.col(c, r, w);
 #pragma unroll
         for (int n = 0; n < 4; ++n)
 #pragma unroll
           for (int u = 0; u < UT; ++u) dx[n][i] = fmaf(v[n][u], w[u], dx[n][i]);
       }
     }
+  }
+}
+
+// ---- the wide plans' output chunks
+
+// h[n][i] = b1[d], d = dg + 8 i (0 past D).
+template <int DG>
+__device__ __forceinline__ void h1_bias(float (&h)[4][DG], const float* b1, int dg, int D) {
+#pragma unroll
+  for (int i = 0; i < DG; ++i) {
+    const int d = dg + 8 * i;
+#pragma unroll
+    for (int n = 0; n < 4; ++n) h[n][i] = d < D ? b1[d] : 0.0f;
+  }
+}
+
+// Park (STORE) or fetch this thread's register tile v[n][i] of rows r = rg +
+// 8 i < R of a [R][W] array T (the wide plans' h1 and dx3 in the workspace,
+// each entry touched only by its owner thread).
+template <bool STORE, int N>
+__device__ __forceinline__ void tile_io(float (&v)[4][N], float* T, int W, int ng, int rg,
+                                        int R) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const int r = rg + 8 * i;
+    if (r < R)
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        if constexpr (STORE)
+          T[r * W + 4 * ng + n] = v[n][i];
+        else
+          v[n][i] = T[r * W + 4 * ng + n];
+      }
   }
 }
 
@@ -720,6 +882,10 @@ struct Tile2Rev {
   const float* b1s;
   W1Src w1;
   int W, C, D, H1, S, keep, nbuf;
+  // the wide plan: w0 in device memory, the h1 and dx3 chunks in the workspace
+  W0Dev w0d;
+  float* HW;
+  float* DX;
 };
 
 // Where pass 2 sums a reverse step's weight partials: with sm, in shared
@@ -744,24 +910,25 @@ struct Tile2Parts {
 // 4 ng + n and outputs d = jg + 8 i into h1[n][i]. Every thread must call it;
 // it synchronises, and ends past the last chunk's first barrier (X and H, and
 // with nbuf 1 also Y, are no longer read).
-template <int UT, int DG>
+// WIDE (the wide plan): h1 for every output, 8 * DG at a time, ends in s.HW
+// [D][W] (h1 holds the last chunk's).
+template <int UT, int DG, bool WIDE = false>
 __device__ __forceinline__ void reverse_pass1(const Tile2Rev& s, int act0, int ng, int jg,
                                               float (&h1)[4][DG]) {
   constexpr int CH = 8 * UT;
   const bool node_ok = 4 * ng < s.W;
-#pragma unroll
-  for (int i = 0; i < DG; ++i) {
-    const int d = jg + 8 * i;
-#pragma unroll
-    for (int n = 0; n < 4; ++n) h1[n][i] = d < s.D ? s.b1s[d] : 0.0f;
-  }
+  if constexpr (!WIDE) h1_bias<DG>(h1, s.b1s, jg, s.D);
   const int nch = (s.S + CH - 1) / CH;
   for (int ci = 0; ci < nch; ++ci) {
     const int j0 = ci * CH, jc = min(CH, s.S - j0);
     float* Yb = s.Y + (s.nbuf == 2 ? (ci & 1) : 0) * CH * s.W;
     if (node_ok && UT * jg < jc) {
       float a[4][UT];
-      first_product<UT>(s.X, s.W, s.C, s.w0T + j0 + UT * jg, s.S, s.b0s + j0 + UT * jg, ng, a);
+      if constexpr (WIDE)
+        first_product<UT>(s.X, s.W, s.C, s.w0d.at(j0 + UT * jg), ng, a);
+      else
+        first_product<UT>(s.X, s.W, s.C, s.w0T + j0 + UT * jg, s.S, s.b0s + j0 + UT * jg, ng,
+                          a);
       if (s.keep) store_tile<UT>(s.H, j0 + UT * jg, ng, s.W, a);
 #pragma unroll
       for (int n = 0; n < 4; ++n)
@@ -770,7 +937,18 @@ __device__ __forceinline__ void reverse_pass1(const Tile2Rev& s, int act0, int n
       store_tile<UT>(Yb, UT * jg, ng, s.W, a);
     }
     __syncthreads();  // the chunk's y0 tile is full
-    if (node_ok) second_product<UT, DG>(Yb, s.W, s.w1, j0, jc, ng, jg, s.D, h1);
+    if constexpr (WIDE) {
+      for (int d0 = 0; node_ok && d0 < s.D; d0 += 8 * DG) {
+        if (ci == 0)
+          h1_bias<DG>(h1, s.b1s, d0 + jg, s.D);
+        else
+          tile_io<false>(h1, s.HW, s.W, ng, d0 + jg, s.D);
+        second_product<UT, DG>(Yb, s.W, s.w1, j0, jc, ng, d0 + jg, s.D, h1);
+        tile_io<true>(h1, s.HW, s.W, ng, d0 + jg, s.D);
+      }
+    } else if (node_ok) {
+      second_product<UT, DG>(Yb, s.W, s.w1, j0, jc, ng, jg, s.D, h1);
+    }
     if (s.nbuf == 1) __syncthreads();  // the tile is rewritten by the next chunk
   }
 }
@@ -788,7 +966,9 @@ __device__ __forceinline__ void reverse_pass1(const Tile2Rev& s, int act0, int n
 // taking it before the first chunk held every warp at that chunk's barrier).
 // Every thread must call it; it synchronises and ends past the last chunk's
 // barrier, with X, G, Y and H free.
-template <int UT, int CT>
+// WIDE (the wide plan): dx3 for every column, 8 * CT at a time, ends in s.DX
+// [C][W] (dx holds the last chunk's).
+template <int UT, int CT, bool WIDE = false>
 __device__ __forceinline__ void reverse_pass2(const Tile2Rev& s, const Tile2Parts& parts,
                                               int act0, int ng, int jg, float (&dx)[4][CT]) {
   constexpr int CH = 8 * UT;
@@ -806,7 +986,9 @@ __device__ __forceinline__ void reverse_pass2(const Tile2Rev& s, const Tile2Part
       const int j = j0 + UT * jg;
       float dy[4][UT], h[4][UT];
       dy_product<UT>(s.G, W, D, s.w1, j, ng, dy);
-      if (s.keep)
+      if constexpr (WIDE)
+        first_product<UT>(s.X, W, C, s.w0d.at(j), ng, h);
+      else if (s.keep)
         load_tile<UT>(s.H, hr + UT * jg, ng, W, h);
       else
         first_product<UT>(s.X, W, C, s.w0T + j, S, s.b0s + j, ng, h);
@@ -823,12 +1005,16 @@ __device__ __forceinline__ void reverse_pass2(const Tile2Rev& s, const Tile2Part
       store_tile<UT>(s.H, hr + UT * jg, ng, W, dy);   // dh0
     }
     __syncthreads();  // the chunk's y0 and dh0 tiles are full
-    if (ci == 0 && t >= kTileThreads - D) {
-      const int d = t - (kTileThreads - D);
+    auto sum_db1 = [&](int d) {
       float acc = 0.0f;
       for (int n = 0; n < W; ++n) acc += s.G[d * W + n];
       float* dst = sm ? parts.sm + H1 * (C + 1) + D * H1 + d : parts.db1 + d;
       *dst = sm || parts.add ? *dst + acc : acc;
+    };
+    if constexpr (WIDE) {   // every thread takes D / 256 of them past 256
+      for (int d = t - (kTileThreads - D); ci == 0 && d >= 0; d -= kTileThreads) sum_db1(d);
+    } else if (ci == 0 && t >= kTileThreads - D) {
+      sum_db1(t - (kTileThreads - D));
     }
     // weight sums of the chunk's units j < H1 as block products over the
     // block's nodes: thread (4 units, 4 columns of [x3 | 1] or of dh1) for
@@ -900,7 +1086,22 @@ __device__ __forceinline__ void reverse_pass2(const Tile2Rev& s, const Tile2Part
         }
       }
     // dx3 += dh0 @ w0 over the chunk
-    if (node_ok) dx_product<UT, CT>(s.H, hr, W, s.w0T + j0, S, jc, C, ng, jg, dx);
+    if constexpr (WIDE) {
+      for (int c0 = 0; node_ok && c0 < C; c0 += 8 * CT) {
+        if (ci == 0) {
+#pragma unroll
+          for (int n = 0; n < 4; ++n)
+#pragma unroll
+            for (int i = 0; i < CT; ++i) dx[n][i] = 0.0f;
+        } else {
+          tile_io<false>(dx, s.DX, W, ng, c0 + jg, C);
+        }
+        dx_product<UT, CT>(s.H, hr, W, s.w0d.at(j0), jc, C, ng, c0 + jg, dx);
+        tile_io<true>(dx, s.DX, W, ng, c0 + jg, C);
+      }
+    } else if (node_ok) {
+      dx_product<UT, CT>(s.H, hr, W, W0Smem{s.w0T + j0, nullptr, S}, jc, C, ng, jg, dx);
+    }
     __syncthreads();  // the tiles are rewritten by the next chunk; first halves are in
     if (pending >= 0)
 #pragma unroll

@@ -59,6 +59,14 @@
 // the partials summed in device memory; last, without the lists, 2 units a
 // thread and w1 read from device memory, which fits every shape the per-node
 // kernel that this replaces took.
+// The wide plan (tile2.cuh kTile2Wide, index 4, chosen only where no plan of
+// kTrain2Plans fits) takes every D, AL and H1: x3, G, h1 and dx3 lie in a
+// workspace slice a block (gnn_train_loop2_bwd_workspace floats, allocated by
+// the wrapper), the weights and biases are read from device memory, and h1
+// and dx3 go through the 64-wide register tiles a chunk at a time
+// (reverse_pass1/2's WIDE): the same chains, so a forced wide plan gives the
+// staged plans' bits. Its one instantiation is compiled from
+// train_loop2_bwd_wide.cu (this file under GNN_WIDE_TU), beside this file's.
 
 #include "tile2.cuh"
 
@@ -66,7 +74,9 @@ namespace {
 
 using namespace gnn;
 
-template <int MAXF, int UT>
+int g_force = -1;  // gnn_train_loop2_bwd_force_plan
+
+template <int MAXF, int UT, bool WIDE>
 __global__ void __launch_bounds__(kTileThreads, 1)
 train2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__ s0,
                        const float* __restrict__ traj, const float* __restrict__ agg,
@@ -78,23 +88,24 @@ train2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__
                        float* __restrict__ db0_out, float* __restrict__ dw1_out,
                        float* __restrict__ db1_out, float* __restrict__ dfd, int B, int W, int D,
                        int AL, int H1, int K, int act0, int act1, int mode, float da, float db,
-                       Tile2Plan p) {
+                       Tile2Plan p, float* ws) {
   constexpr int DG = MAXF / 8, CT = 3 * MAXF / 8;
   extern __shared__ float4 smem_raw[];
   float* base = reinterpret_cast<float*>(smem_raw);
-  const Tile2Layout L = tile2_layout(kReverse2, W, D, AL, H1, p);
+  const Tile2Layout L = tile2_layout(kReverse2, W, D, AL, H1, p, WIDE);
   const int C = 2 * D + AL, S = L.S;
-  float* X = base + L.x3;   // x3, then the dagg rows [0, D)
-  float* G = base + L.dh1;  // g + gs, then dh1, then the new gs
+  float* WB = WIDE ? ws + (size_t)blockIdx.x * L.ws : base;  // x3, G, h1, dx3
+  float* X = WB + L.x3;     // x3, then the dagg rows [0, D)
+  float* G = WB + L.dh1;    // g + gs, then dh1, then the new gs
   float* Y = base + L.yt;   // y0 of a chunk
   float* H = base + L.ht;   // h0, then dh0 (rows j, or j - j0 without keep)
-  float* w0T = base + L.w0;
+  float* w0T = WIDE ? nullptr : base + L.w0;
   float* w1s = p.w1g ? nullptr : base + L.w1;
-  float* b0s = base + L.b0;
+  float* b0s = WIDE ? nullptr : base + L.b0;
   float* PF = base + L.pf;
   float* lw = base + L.lw;
   float* DW = base + L.dw;  // [H1][C + 1] dw0 | db0, [D][H1] dw1, [D] db1
-  float* b1s = base + L.b1;
+  const float* b1s = WIDE ? b1 : base + L.b1;
   uint8_t* cnt = reinterpret_cast<uint8_t*>(smem_raw) + L.cnt_b;
   uint8_t* idx = reinterpret_cast<uint8_t*>(smem_raw) + L.idx_b;
   const int b = blockIdx.x, t = threadIdx.x;
@@ -127,7 +138,8 @@ train2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__
     cp_rows(PF + 2 * W * D + W * AL, rows(k, 3), W * D);
   };
 
-  stage_tile_weights(w0, C, b0, 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, b1s);
+  if constexpr (!WIDE)
+    stage_tile_weights(w0, C, b0, 1, w1, b1, C, D, H1, S, w0T, w1s, b0s, base + L.b1);
   if (p.E > 0 && t < W) build_list(adj, W, t, p.E, false, lw, idx, cnt);
   if (p.dw)
     for (int i = t; i < H1 * (C + 1) + D * H1 + D; i += kTileThreads) DW[i] = 0.0f;
@@ -136,7 +148,8 @@ train2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__
   cp_async_wait_all();
   __syncthreads();
 
-  const Tile2Rev rev{X, G, Y, H, w0T, b0s, b1s, w1src, W, C, D, H1, S, p.keep, p.nbuf};
+  const Tile2Rev rev{X, G, Y, H, w0T, b0s, b1s, w1src, W, C, D, H1, S, p.keep, p.nbuf,
+                     W0Dev{w0, b0, C, 1, H1, 0}, WB + L.hw, WB + L.dx};
   for (int k = K - 1; k >= 0; --k) {
     const size_t kb = (size_t)k * B + b;
     const bool first = k == K - 1;
@@ -163,16 +176,26 @@ train2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__
 
     // pass 1: h0 (kept), y0, h1 = w1 @ y0 + b1
     float h1[4][DG];
-    reverse_pass1<UT, DG>(rev, act0, ng, jg, h1);
-    // dh1 = (g + gs) * act1'(h1) into G (each entry read and written by its owner)
-    if (node_ok)
+    reverse_pass1<UT, DG, WIDE>(rev, act0, ng, jg, h1);
+    // dh1 = (g + gs) * act1'(h1) into G (each entry read and written by its
+    // owner), outputs d0 + jg + 8 i
+    auto form_dh1 = [&](int d0) {
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
         for (int i = 0; i < DG; ++i) {
-          const int d = jg + 8 * i;
+          const int d = d0 + jg + 8 * i;
           if (d < D) G[d * W + 4 * ng + n] *= act_grad(act1, h1[n][i]);
         }
+    };
+    if constexpr (WIDE) {
+      for (int d0 = 0; node_ok && d0 < D; d0 += kWideOut) {
+        tile_io<false>(h1, rev.HW, W, ng, d0 + jg, D);
+        form_dh1(d0);
+      }
+    } else if (node_ok) {
+      form_dh1(0);
+    }
     __syncthreads();  // G holds every node's dh1
 
     // pass 2: db1, then dh0, the weight sums and dx3, a chunk at a time
@@ -180,17 +203,19 @@ train2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__
         Tile2Parts{p.dw ? DW : nullptr, dw0_out + (size_t)b * H1 * C, db0_out + (size_t)b * H1,
                    dw1_out + (size_t)b * D * H1, db1_out + (size_t)b * D, C, 1, !first};
     float dx[4][CT];
-    reverse_pass2<UT, CT>(rev, parts, act0, ng, jg, dx);
+    reverse_pass2<UT, CT, WIDE>(rev, parts, act0, ng, jg, dx);
 
     // dfd[k] = dx3[2D:]; dagg = dx3[D:2D] * a*ma into X rows [0, D) (every
-    // reader of x3 is past the last chunk's barrier); dx3[:D] * a*ms kept
-    if (node_ok)
+    // reader of x3 is past the last chunk's barrier); dx3[:D] * a*ms kept;
+    // columns c0 + jg + 8 i (wide: dx3 a chunk at a time from DX, the kept
+    // columns parked again)
+    auto route = [&](int c0) {
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         const int node = 4 * ng + n;
 #pragma unroll
         for (int i = 0; i < CT; ++i) {
-          const int c = jg + 8 * i;
+          const int c = c0 + jg + 8 * i;
           if (c < D)
             dx[n][i] *= drop_grad(mode, da, ks != nullptr && ks[node * D + c] != 0);
           else if (c < 2 * D)
@@ -200,20 +225,39 @@ train2_bwd_tile_kernel(const float* __restrict__ adjT, const float* __restrict__
             dfd[(kb * W + node) * AL + c - 2 * D] = dx[n][i];
         }
       }
-    __syncthreads();  // X holds every node's dagg
+    };
     // gs[t] = dx3[:D] * a*ms + sum_dst adjT[t][dst] * dagg[dst], into G
-    if (node_ok)
+    auto contract = [&](int c0) {
 #pragma unroll
       for (int n = 0; n < 4; ++n) {
         const int node = 4 * ng + n;
 #pragma unroll
         for (int i = 0; i < CT; ++i) {
-          const int c = jg + 8 * i;
+          const int c = c0 + jg + 8 * i;
           if (c < D)
             G[c * W + node] =
                 dx[n][i] + line_dot(adj, W, node, false, p.E, lw, idx, cnt, X + c * W);
         }
       }
+    };
+    if constexpr (WIDE) {
+      for (int c0 = 0; node_ok && c0 < C; c0 += kWideCols) {
+        tile_io<false>(dx, rev.DX, W, ng, c0 + jg, C);
+        route(c0);
+        tile_io<true>(dx, rev.DX, W, ng, c0 + jg, C);
+      }
+    } else if (node_ok) {
+      route(0);
+    }
+    __syncthreads();  // X holds every node's dagg
+    if constexpr (WIDE) {
+      for (int c0 = 0; node_ok && c0 < D; c0 += kWideCols) {
+        tile_io<false>(dx, rev.DX, W, ng, c0 + jg, C);
+        contract(c0);
+      }
+    } else if (node_ok) {
+      contract(0);
+    }
     if (p.pf) cp_async_wait_all();
     __syncthreads();  // G holds gs; X is rewritten by the next step
   }
@@ -232,25 +276,44 @@ using Train2Fn = void (*)(const float*, const float*, const float*, const float*
                           const uint8_t*, const float*, const float*, const float*, const float*,
                           const float*, const float*, float*, float*, float*, float*, float*,
                           float*, int, int, int, int, int, int, int, int, int, float, float,
-                          Tile2Plan);
+                          Tile2Plan, float*);
+
+}  // namespace
+
+#ifdef GNN_WIDE_TU
+
+namespace gnn {
+// K13's wide-plan instantiation (train_loop2_bwd_wide.cu).
+Train2Fn train2_bwd_wide() { return train2_bwd_tile_kernel<64, 4, true>; }
+}  // namespace gnn
+
+#else
+
+namespace gnn {
+Train2Fn train2_bwd_wide();
+}  // namespace gnn
+
+namespace {
 
 template <int MAXF>
 Train2Fn pick_ut(int ut) {
-  return ut == 4 ? train2_bwd_tile_kernel<MAXF, 4> : train2_bwd_tile_kernel<MAXF, 2>;
+  return ut == 4 ? train2_bwd_tile_kernel<MAXF, 4, false> : train2_bwd_tile_kernel<MAXF, 2, false>;
 }
 
-// The kernel and plan for a shape (nullptr if none fits).
-Train2Fn pick(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* index) {
-  if (!pick_plan(kReverse2, kTrain2Plans, W, D, AL, H1, p, bytes, index)) return nullptr;
+// The kernel and plan for a shape: the first plan of kTrain2Plans that fits,
+// else the wide plan (index 4), or plan g_force (>= 0) if it fits; nullptr if
+// none. *ws: the plan's workspace floats a block.
+Train2Fn pick(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* index, int* ws) {
+  if (!pick_plan(kReverse2, kTrain2Plans, W, D, AL, H1, p, bytes, index, g_force, ws))
+    return nullptr;
+  if (*ws > 0) return train2_bwd_wide();
   switch (width_class(D > AL ? D : AL)) {
     case 16:
       return pick_ut<16>(p->ut);
     case 32:
       return pick_ut<32>(p->ut);
-    case 64:
-      return pick_ut<64>(p->ut);
     default:
-      return nullptr;
+      return pick_ut<64>(p->ut);
   }
 }
 
@@ -260,26 +323,37 @@ extern "C" {
 
 // As gnn_train_loop2, plus traj, agg, g_traj [K, B, W, D] -> gs [B, W, D] and
 // the per-block partials dw0 [B, H1, 2D + AL], db0 [B, H1], dw1 [B, D, H1],
-// db1 [B, D], and dfd [K, B, W, AL]. Returns a cudaError_t code.
+// db1 [B, D], and dfd [K, B, W, AL]; ws: the wide plan's workspace, B slices
+// of gnn_train_loop2_bwd_workspace floats (null for a staged plan). Returns a
+// cudaError_t code.
 int gnn_train_loop2_bwd(const float* adjT, const float* s0, const float* traj, const float* agg,
                         const uint8_t* ms, const uint8_t* ma, const float* fd, const float* w0,
                         const float* b0, const float* w1, const float* b1, const float* g_traj,
                         float* gs, float* dw0, float* db0, float* dw1, float* db1, float* dfd,
                         int B, int W, int D, int AL, int H1, int K, int act0, int act1, int mode,
-                        float da, float db, void* stream) {
+                        float da, float db, void* stream, float* ws) {
   if (!block_ok(B, W) || D <= 0 || AL <= 0 || H1 <= 0 || K <= 0) return cudaErrorInvalidValue;
   if (mode != kNoDrop && (ms == nullptr || ma == nullptr)) return cudaErrorInvalidValue;
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Train2Fn fn = pick(W, D, AL, H1, &p, &bytes, &index);
-  if (fn == nullptr) return cudaErrorInvalidValue;
+  int index, wsf;
+  const Train2Fn fn = pick(W, D, AL, H1, &p, &bytes, &index, &wsf);
+  if (fn == nullptr || (wsf > 0 && ws == nullptr)) return cudaErrorInvalidValue;
   cudaError_t err = set_smem(fn, bytes);
   if (err != cudaSuccess) return err;
   fn<<<B, kTileThreads, bytes, static_cast<cudaStream_t>(stream)>>>(
       adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj, gs, dw0, db0, dw1, db1, dfd, B, W,
-      D, AL, H1, K, act0, act1, mode, da, db, p);
+      D, AL, H1, K, act0, act1, mode, da, db, p, ws);
   return cudaGetLastError();
+}
+
+// The workspace floats a block the plan gnn_train_loop2_bwd picks for this
+// shape needs (0 for a staged plan), or -1 if none fits.
+int gnn_train_loop2_bwd_workspace(int W, int D, int AL, int H1) {
+  Tile2Plan p;
+  size_t bytes;
+  int index, wsf;
+  return pick(W, D, AL, H1, &p, &bytes, &index, &wsf) == nullptr ? -1 : wsf;
 }
 
 // out[0..4]: plan index, shared-memory bytes, resident CTAs an SM, registers
@@ -288,10 +362,17 @@ int gnn_train_loop2_bwd(const float* adjT, const float* s0, const float* traj, c
 int gnn_train_loop2_bwd_info(int W, int D, int AL, int H1, int* out) {
   Tile2Plan p;
   size_t bytes;
-  int index;
-  const Train2Fn fn = pick(W, D, AL, H1, &p, &bytes, &index);
+  int index, wsf;
+  const Train2Fn fn = pick(W, D, AL, H1, &p, &bytes, &index, &wsf);
   if (fn == nullptr) return cudaErrorInvalidValue;
   return tile_kernel_info(fn, bytes, index, out);
 }
 
+// Launch plan `index` of kTrain2Plans (4: the wide plan) from now on, where it
+// fits (a launch at a shape it does not fit fails), or the first plan that
+// fits again (index -1): for timing one plan against another.
+void gnn_train_loop2_bwd_force_plan(int index) { g_force = index; }
+
 }  // extern "C"
+
+#endif  // GNN_WIDE_TU

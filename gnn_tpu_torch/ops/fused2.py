@@ -46,12 +46,13 @@ Layout and rules as ops/fused.py: node-major blocks s [B, W, D], f
 wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and launches
 the CUDA kernel (ops/csrc/fused2.cu: K9; loop2.cu: K10, K12;
 eval_loop2_bwd.cu: K11; train_loop2_bwd.cu: K13) for CUDA tensors;
-`launches` counts kernel launches. D and AL are at most 64, H1 at most
-MAX_HIDDEN, and a block's rows and the weights must fit a CTA's shared
-memory (`_tile2_plan` for K9, K10, K11, K12, K13 and ops/bn.py's K14 and K15,
-the register-tiled kernels of ops/csrc/tile2.cuh, which take the first of
-their shared-memory plans that fits). The dense layers set these kernels'
-least time.
+`launches` counts kernel launches. The register-tiled kernels of
+ops/csrc/tile2.cuh (K9, K10, K11, K12, K13 and ops/bn.py's K14 and K15) take
+every state, arc-label and hidden width (`_tile2_plan`): the first of their
+staged shared-memory plans that fits (D and AL up to 64), else their wide
+plan, which keeps the [C][W]- and [D][W]-sized regions in a device-memory
+workspace the wrapper allocates (`_tile2_wide`, fused._Workspace). The dense
+layers set these kernels' least time.
 """
 
 from __future__ import annotations
@@ -63,11 +64,12 @@ import torch.nn.functional as F
 
 from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, SMEM_BYTES,
                                      _act_grad, _affine, _at, _check, _check_keep, _drop_args,
-                                     _first_plan, _make_drop, _plan_info, _ptr, _r4,
+                                     _first_plan, _make_drop, _plan_info, _ptr, _r4, _Workspace,
                                      launch_counted, moved)
 
-# the largest hidden width H1 the kernels take (the weights sit in shared
-# memory; at W = 128, D = 14, AL = 3, H1 = 512 K9's first plan needs 158 KB)
+# the largest hidden width the per-node kernels that the staged plans replace
+# took (the staged plans' design range: each fits every shape up to it; the
+# wide plan takes the rest)
 MAX_HIDDEN = 512
 
 # the kernel each wrapper launches (C entry point gnn_<wrapper>)
@@ -271,6 +273,8 @@ _PLANS = {
     "K14": ((4, 2, 0, 0, 1, 16, 1, 0), (4, 1, 0, 0, 0, 0, 0, 1)),             # kBn2FwdPlans
     "K9": ((4, 2, 0, 0, 0, 16, 1, 0), (4, 1, 0, 0, 0, 0, 0, 1)),              # kStep2Plans
 }
+# tile2.cuh's kTile2Wide, every tiled kernel's wide plan (after its list)
+_WIDE = (4, 1, 0, 0, 0, 16, 0, 1)
 # tile2.cuh::Tile2Kind of each kernel's layout: the forward, the reverse step,
 # the reverse step with the aggregation again, K14's BatchNorm forward, K9's
 # step
@@ -309,12 +313,34 @@ def _tile2_bytes(kind: int, W, D, AL, H1, plan):
     return 4 * floats + nl * (W + E * W if E else 0)
 
 
+def _tile2_wide(kind: int, W, D, AL, H1):
+    """tile2.cuh::tile2_layout(..., wide = true) of kTile2Wide: (shared-memory
+    bytes, workspace floats a block row). The workspace holds x3 [C][W], a
+    reverse step's G [D][W] and dx3 [C][W], h1 [D][W], the forward's K12
+    state [D][W], K14's and K9's row buffer [W][D | 1] (rounded up to 16
+    bytes); shared memory the y0 tile [32][W], a reverse step's h0 tile
+    [32][W], the lists ([16][W] floats, W counts and 16*W indices as bytes, a
+    set) and K14's node mask [W]."""
+    ut, nbuf, E = _WIDE[0], _WIDE[1], _WIDE[5]
+    C, CH, nl, rev = 2 * D + AL, 8 * ut, 2 if kind == 2 else 1, kind in (1, 2)
+    ws = (C * W + rev * (D * W + C * W) + D * W + (kind == 0) * D * W
+          + (kind in (3, 4)) * _r4(W * (D | 1)))
+    floats = nbuf * CH * W + rev * CH * W + nl * E * W + (kind == 3) * W
+    return 4 * floats + nl * (W + E * W), ws
+
+
 def _tile2_plan(W: int, D: int, AL: int, H1: int, kernel: str):
     """(shared-memory bytes, plan index) of the tiled kernel K9, K10, K11,
-    K12, K13, K14 or K15 at this shape (AL: K14's and K15's F): the first plan
-    that fits a CTA, or the leanest plan's bytes and None."""
-    return _first_plan(_PLANS[kernel], functools.partial(_tile2_bytes, _KIND[kernel]),
-                       W, D, AL, H1)
+    K12, K13, K14 or K15 at this shape (AL: K14's and K15's F): the first
+    staged plan that fits a CTA (D and AL up to 64), else the wide plan
+    (index len(_PLANS[kernel])), which fits every shape at W <= 128."""
+    kind = _KIND[kernel]
+    wide = functools.partial(_tile2_wide, kind)
+    if max(D, AL) <= 64:
+        return _first_plan(_PLANS[kernel], functools.partial(_tile2_bytes, kind), W, D, AL, H1,
+                           wide=wide)
+    need = int(wide(W, D, AL, H1)[0])
+    return need, (len(_PLANS[kernel]) if need <= SMEM_BYTES else None)
 
 
 # the C entries of the tiled kernels, by kernel
@@ -330,18 +356,14 @@ def tile_info(kernel: str, W: int, D: int, AL: int, H1: int) -> dict:
     return _plan_info(_TILED[kernel], W, D, AL, H1)
 
 
-def _check_block2(adjT, D: int, AL: int, H1: int, need: int):
-    """The widths the kernels take; `need` the CTA's shared-memory bytes."""
+def _check_block2(adjT, H1: int):
+    """The block width and hidden width the kernels take (every state,
+    arc-label and hidden width has a plan at W <= 128)."""
     B, W, W2 = adjT.shape
     if W != W2 or W % 32 or not 32 <= W <= 128:
         raise ValueError(f"block width must be 32, 64, 96 or 128, got adjT {tuple(adjT.shape)}")
-    if max(D, AL) > 64:
-        raise ValueError(f"state and arc-label widths above 64 are not supported (D={D}, AL={AL})")
-    if not 1 <= H1 <= MAX_HIDDEN:
-        raise ValueError(f"hidden width H1={H1} is outside 1..{MAX_HIDDEN}")
-    if need > SMEM_BYTES:
-        raise ValueError(f"W={W}, D={D}, AL={AL}, H1={H1} needs {need} bytes of shared memory a "
-                         f"block, more than the {SMEM_BYTES} a CTA may use")
+    if H1 < 1:
+        raise ValueError(f"hidden width H1={H1} must be positive")
     if adjT.device.type != "cuda":
         raise ValueError(f"propagation kernels need CPU or CUDA tensors, got {adjT.device}")
 
@@ -373,7 +395,7 @@ def propagation_step2(adjT, s, rT, feats, w0, b0, w1, b1, affine=None, act0: str
     B, W, _ = adjT.shape
     D, AL = s.shape[-1], feats.shape[-1]
     H1 = w0.shape[0]
-    _check_block2(adjT, D, AL, H1, _tile2_plan(W, D, AL, H1, "K9")[0])
+    _check_block2(adjT, H1)
     dev = adjT.device
     aff = _affine(affine, D, s)
     _check("adjT", adjT, (B, W, W), dev)
@@ -388,7 +410,8 @@ def propagation_step2(adjT, s, rT, feats, w0, b0, w1, b1, affine=None, act0: str
         return out
     _launch("propagation_step2", dev,
             _ptr(adjT), _ptr(s), _ptr(rT), _ptr(feats), _ptr(w0), _ptr(b0), _ptr(w1), _ptr(b1),
-            _ptr(aff), _ptr(out), B, W, D, AL, H1, _ACT_CODE[act0], _ACT_CODE[act1])
+            _ptr(aff), _ptr(out), B, W, D, AL, H1, _ACT_CODE[act0], _ACT_CODE[act1],
+            _Workspace(B, W, D, AL, H1))
     return out
 
 
@@ -408,7 +431,7 @@ def propagation_loop2(adjT, s0, feats, w0, b0, w1, b1, affine, nm, K: int, thres
     B, W, _ = adjT.shape
     D, AL = s0.shape[-1], feats.shape[-1]
     H1 = w0.shape[0]
-    _check_block2(adjT, D, AL, H1, _tile2_plan(W, D, AL, H1, "K10")[0])
+    _check_block2(adjT, H1)
     dev = adjT.device
     aff = _affine(affine, D, s0)
     _check("adjT", adjT, (B, W, W), dev)
@@ -424,7 +447,7 @@ def propagation_loop2(adjT, s0, feats, w0, b0, w1, b1, affine, nm, K: int, thres
     _launch("propagation_loop2", dev,
             _ptr(adjT), _ptr(s0), _ptr(feats), _ptr(w0), _ptr(b0), _ptr(w1), _ptr(b1), _ptr(aff),
             _ptr(nm), _ptr(traj), _ptr(margins), B, W, D, AL, H1, int(K), float(threshold),
-            _ACT_CODE[act0], _ACT_CODE[act1])
+            _ACT_CODE[act0], _ACT_CODE[act1], _Workspace(B, W, D, AL, H1))
     return traj, margins
 
 
@@ -445,7 +468,7 @@ def propagation_loop2_bwd(adjT, s0, traj, feats, w0, b0, w1, b1, affine, g_traj,
     K = traj.shape[0]
     D, AL = s0.shape[-1], feats.shape[-1]
     H1 = w0.shape[0]
-    _check_block2(adjT, D, AL, H1, _tile2_plan(W, D, AL, H1, "K11")[0])
+    _check_block2(adjT, H1)
     dev = adjT.device
     _check("adjT", adjT, (B, W, W), dev)
     _check("s0", s0, (B, W, D), dev)
@@ -468,7 +491,7 @@ def propagation_loop2_bwd(adjT, s0, traj, feats, w0, b0, w1, b1, affine, g_traj,
             _ptr(adjT), _ptr(s0), _ptr(traj), _ptr(feats), _ptr(w0), _ptr(b0), _ptr(w1),
             _ptr(b1), _ptr(affine), _ptr(g_traj), _ptr(gs), _ptr(dw0), _ptr(db0), _ptr(dw1),
             _ptr(db1), _ptr(dfeats), _ptr(daff), B, W, D, AL, H1, K, _ACT_CODE[act0],
-            _ACT_CODE[act1])
+            _ACT_CODE[act1], _Workspace(B, W, D, AL, H1))
     return gs, dw0, db0, dw1, db1, dfeats, daff
 
 
@@ -493,7 +516,7 @@ def train_loop2(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K: int, threshold: flo
     B, W, _ = adjT.shape
     D, AL = s0.shape[-1], fd.shape[-1]
     H1 = w0.shape[0]
-    _check_block2(adjT, D, AL, H1, _tile2_plan(W, D, AL, H1, "K12")[0])
+    _check_block2(adjT, H1)
     dev = adjT.device
     _check("adjT", adjT, (B, W, W), dev)
     _check("s0", s0, (B, W, D), dev)
@@ -511,7 +534,8 @@ def train_loop2(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K: int, threshold: flo
     _launch("train_loop2", dev,
             _ptr(adjT), _ptr(s0), _ptr(ms), _ptr(ma), _ptr(fd), _ptr(w0), _ptr(b0), _ptr(w1),
             _ptr(b1), _ptr(nm), _ptr(traj), _ptr(margins), _ptr(agg), B, W, D, AL, H1, int(K),
-            float(threshold), _ACT_CODE[act0], _ACT_CODE[act1], mode, a, b)
+            float(threshold), _ACT_CODE[act0], _ACT_CODE[act1], mode, a, b,
+            _Workspace(B, W, D, AL, H1))
     return traj, margins, agg
 
 
@@ -532,7 +556,7 @@ def train_loop2_bwd(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj, act
     K = traj.shape[0]
     D, AL = s0.shape[-1], fd.shape[-1]
     H1 = w0.shape[0]
-    _check_block2(adjT, D, AL, H1, _tile2_plan(W, D, AL, H1, "K13")[0])
+    _check_block2(adjT, H1)
     dev = adjT.device
     _check("adjT", adjT, (B, W, W), dev)
     _check("s0", s0, (B, W, D), dev)
@@ -554,7 +578,7 @@ def train_loop2_bwd(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj, act
             _ptr(adjT), _ptr(s0), _ptr(traj), _ptr(agg), _ptr(ms), _ptr(ma), _ptr(fd), _ptr(w0),
             _ptr(b0), _ptr(w1), _ptr(b1), _ptr(g_traj), _ptr(gs), _ptr(dw0), _ptr(db0),
             _ptr(dw1), _ptr(db1), _ptr(dfd), B, W, D, AL, H1, K, _ACT_CODE[act0],
-            _ACT_CODE[act1], mode, a, b)
+            _ACT_CODE[act1], mode, a, b, _Workspace(B, W, D, AL, H1))
     return gs, dw0, db0, dw1, db1, dfd
 
 

@@ -21,7 +21,7 @@ are selected by each node's type.
   its type's rows only) and red [R, T, 2, D] grouped by node type.
 
 gnn_tpu selects with a one-hot type mask and multiplies every node by all T
-weight slabs; here a node's type is an index (uint8 [R, W], 0 on pad, as the
+weight slabs; here a node's type is an index (int32 [R, W], 0 on pad, as the
 raw one-hot's padded rows select type 0) and a node meets only its own
 type's weights, so the dense work is K1's whatever T is. Moments, margins
 and the BatchNorm's moment term mask padded nodes with nm; the reduction
@@ -35,10 +35,13 @@ inference affine at eval (rate 0, the moment sums ignored).
 Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
 launches the CUDA kernel (ops/csrc/bn_typed.cu) for CUDA tensors; it never
 falls back from one to the other. `launches` counts kernel launches. The
-kernels take D up to 64, at most MAX_TYPES types, and the first of their
-shared-memory plans that fits a CTA (`_bnT_fwd_plan`, `_bnT_bwd_plan`); the
-stacked weights are staged there when they fit, else read through the L1/L2
-caches.
+kernels take every D, F and number of types T: the first of their staged
+shared-memory plans that fits a CTA (D up to 64, T up to MAX_TYPES; the
+stacked weights staged there when they fit, else read through the L1/L2
+caches), else their wide plan, which keeps x3 and the [W][D]-sized rows in a
+device-memory workspace the wrapper allocates (`_bnT_fwd_plan`,
+`_bnT_bwd_plan`, `_bnT_fwd_wide`, `_bnT_bwd_wide`). Each type's activation
+code is a byte of a device array (`_act_codes`).
 """
 
 from __future__ import annotations
@@ -52,14 +55,16 @@ import torch.nn.functional as F
 
 from gnn_tpu_torch.ops import _build
 from gnn_tpu_torch.ops.bn import (BNV_ROWS, BNLoopOperands, _agg_blocks, _bn_ds, _bn_gy,
-                                  _check_blocks, _check_state_width, _ident_aff, _ones_col,
-                                  _require_cuda, _res_term, _x3, augmented, block_keep,
-                                  block_rows, bn_train_loop, input_rate, moving_stats)
+                                  _check_blocks, _ident_aff, _ones_col, _require_cuda, _res_term,
+                                  _x3, augmented, block_keep, block_rows, bn_train_loop,
+                                  input_rate, moving_stats)
 from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, SMEM_BYTES,
                                      _act_grad, _check, _check_keep, _drop_args, _first_plan,
-                                     _plan_info, _ptr, _r4, _stream, bn_inference_affine, moved)
+                                     _plan_info, _ptr, _r4, _stream, _Workspace,
+                                     bn_inference_affine, moved)
 
-MAX_TYPES = 32      # two bits of activation code per type in one 64-bit argument
+MAX_TYPES = 32   # the most node types the staged plans take (their design range;
+                 # the wide plan takes any number)
 
 # kernel launches since the last reset, by wrapper
 launches = {"bnT_forward_step": 0, "bnT_backward_step": 0}
@@ -173,6 +178,7 @@ def bnT_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feat
 # stacked weights staged). The first is the composite recipe's; the last fits
 # every shape the per-node K16 took.
 _BNT_FWD_PLANS = ((256, 16, 1, 1), (256, 16, 1, 0), (128, 0, 0, 0))
+_BNT_FWD_WIDE = (256, 16, 0, 0)      # kBnTFwdWide, after the list
 
 
 def _bnT_fwd_bytes(W, D, F, T, plan):
@@ -190,11 +196,31 @@ def _bnT_fwd_bytes(W, D, F, T, plan):
     return 4 * floats + (W + E * W + nt // 32 * W if E else 0)
 
 
+def _bnT_fwd_wide(W, D, F, T):
+    """K16's wide plan (fwdT_layout(..., wide = true)): (shared-memory bytes,
+    workspace floats a block row). The workspace holds x3 [C1][W], the row
+    buffer [W][D|1] and the types' starts [T + 1]; shared memory nm [W], the
+    types and their order ([W], [W] ints), the column lists ([16][W] floats,
+    then W counts, 16*W sources and the list build's counts [8][W] as
+    bytes)."""
+    nt, E = _BNT_FWD_WIDE[:2]
+    ws = _r4((2 * D + F) * W) + _r4(W * (D | 1)) + _r4(T + 1)
+    return 4 * (_r4(W) + 2 * W + E * W) + W + E * W + nt // 32 * W, ws
+
+
+def _typed_plan(plans, nbytes, wide, W, D, F, T):
+    """fused._first_plan over the staged plans where they take the shape (D
+    up to 64, T up to MAX_TYPES), else the wide plan (index 3)."""
+    if D <= 64 and T <= MAX_TYPES:
+        return _first_plan(plans, nbytes, W, D, F, T, wide=wide)
+    need = int(wide(W, D, F, T)[0])
+    return need, (len(plans) if need <= SMEM_BYTES else None)
+
+
 def _bnT_fwd_plan(W: int, D: int, F: int, T: int):
     """(shared-memory bytes, plan index) K16 takes at this shape: the first
-    plan of _BNT_FWD_PLANS that fits a CTA, or the leanest plan's bytes and
-    None."""
-    return _first_plan(_BNT_FWD_PLANS, _bnT_fwd_bytes, W, D, F, T)
+    plan of _BNT_FWD_PLANS that fits a CTA, else the wide plan (index 3)."""
+    return _typed_plan(_BNT_FWD_PLANS, _bnT_fwd_bytes, _bnT_fwd_wide, W, D, F, T)
 
 
 # bn_typed.cu's kBnTBwdPlans, K17's shared-memory plans in order of
@@ -202,6 +228,7 @@ def _bnT_fwd_plan(W: int, D: int, F: int, T: int):
 # staged, stacked weights staged). The first is the composite recipe's; the
 # last fits every shape the per-node K17 took.
 _BNT_BWD_PLANS = ((256, 8, 1, 1), (256, 8, 1, 0), (128, 0, 0, 0))
+_BNT_BWD_WIDE = (256, 8, 0, 0)       # kBnTBwdWide, after the list
 
 
 def _bnT_bwd_bytes(W, D, F, T, plan):
@@ -222,11 +249,21 @@ def _bnT_bwd_bytes(W, D, F, T, plan):
     return 4 * floats + (W + E * W if E else 0)
 
 
+def _bnT_bwd_wide(W, D, F, T):
+    """K17's wide plan (bwdT_layout(..., wide = true)): (shared-memory bytes,
+    workspace floats a block row). The workspace holds x3 [C1][W], dh
+    [D][W], dagg and ds [W][D|1] each and the types' starts [T + 1]; shared
+    memory nm [W], the types and their order, the row lists ([8][W] floats,
+    W counts and 8*W destinations as bytes)."""
+    E = _BNT_BWD_WIDE[1]
+    ws = _r4((2 * D + F) * W) + _r4(D * W) + 2 * _r4(W * (D | 1)) + _r4(T + 1)
+    return 4 * (_r4(W) + 2 * W + E * W) + W + E * W, ws
+
+
 def _bnT_bwd_plan(W: int, D: int, F: int, T: int):
     """(shared-memory bytes, plan index) K17 takes at this shape: the first
-    plan of _BNT_BWD_PLANS that fits a CTA, or the leanest plan's bytes and
-    None."""
-    return _first_plan(_BNT_BWD_PLANS, _bnT_bwd_bytes, W, D, F, T)
+    plan of _BNT_BWD_PLANS that fits a CTA, else the wide plan (index 3)."""
+    return _typed_plan(_BNT_BWD_PLANS, _bnT_bwd_bytes, _bnT_bwd_wide, W, D, F, T)
 
 
 def backward_info(W: int, D: int, F: int, T: int) -> dict:
@@ -234,32 +271,33 @@ def backward_info(W: int, D: int, F: int, T: int) -> dict:
     return _plan_info("gnn_bnT_backward", W, D, F, T)
 
 
-def _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations, backward):
-    """(Bl, W, T) after checking what K16/K17 take: the block rows and
-    widths, the node types, at most MAX_TYPES types, the stacked weights and
-    a CTA's shared memory within the 227 KB cap (the leanest plan of
-    _bnT_fwd_plan or _bnT_bwd_plan)."""
-    _check_state_width(D)
+def _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations):
+    """(Bl, W, T) after checking the block rows and widths, the node types
+    and the stacked weights (every D, F and T has a plan at W <= 128)."""
     Bl, W = _check_blocks(adj_loop, adj_dep, R)
     T = len(activations)
-    if not 1 <= T <= MAX_TYPES:
-        raise ValueError(f"{T} node types: the typed kernels take 1..{MAX_TYPES}")
-    need = (_bnT_bwd_plan if backward else _bnT_fwd_plan)(W, D, Fd, T)[0]
-    if need > SMEM_BYTES:
-        raise ValueError(f"W={W}, D={D}, F={Fd}, T={T} needs {need} bytes of shared memory a "
-                         f"block, more than the {SMEM_BYTES} a CTA may use")
+    if T < 1:
+        raise ValueError("the typed kernels need at least one node type")
     dev = w_stk.device
-    if types.device != dev or types.dtype != torch.uint8 or tuple(types.shape) != (R, W) \
+    if types.device != dev or types.dtype != torch.int32 or tuple(types.shape) != (R, W) \
             or not types.is_contiguous():
-        raise ValueError(f"types must be a contiguous uint8 tensor of shape {(R, W)} on {dev}, "
+        raise ValueError(f"types must be a contiguous int32 tensor of shape {(R, W)} on {dev}, "
                          f"got {types.dtype} {tuple(types.shape)} on {types.device}")
     _check("w_stk", w_stk, (T * D, 2 * D + Fd + 1), dev)
     return Bl, W, T
 
 
-def _act_codes(activations) -> int:
-    """The per-type activation codes, two bits each, type t at bit 2t."""
-    return sum(_ACT_CODE[a] << (2 * t) for t, a in enumerate(activations))
+_CODES = {}   # (activations, device) -> uint8 [T] activation codes on the device
+
+
+def _act_codes(activations, dev) -> torch.Tensor:
+    """The per-type activation codes, type t's at byte t, on `dev` (made
+    once for each set of activations and device)."""
+    key = (tuple(activations), str(dev))
+    if key not in _CODES:
+        _CODES[key] = torch.tensor([_ACT_CODE[a] for a in activations], dtype=torch.uint8,
+                                   device=dev)
+    return _CODES[key]
 
 
 def bnT_forward_step(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_stk, nm, *,
@@ -270,7 +308,7 @@ def bnT_forward_step(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_s
         block adjacencies of rows [0, Bl) and [Bl, Bl + Bd).
     :param y1 / y2: [R, W, D] the two previous pre-BN activations.
     :param aff: [2, 2, T, D] their per-type (scale; shift) affines.
-    :param types: uint8 [R, W] node types (0 on pad).
+    :param types: int32 [R, W] node types (0 on pad).
     :param keep: uint8 [R, W, 2D+F] each node's own type's input keep-mask
         (None when rate == 0).
     :param rT: [R, W, D] residual term, or None.
@@ -286,7 +324,7 @@ def bnT_forward_step(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_s
     _require_cuda(y1)
     R, _, D = y1.shape
     Fd = feats.shape[-1]
-    Bl, W, T = _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations, False)
+    Bl, W, T = _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations)
     dev = y1.device
     for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
         if t is not None:
@@ -302,11 +340,12 @@ def bnT_forward_step(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_s
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
+        ws = _Workspace(R, W, D, Fd, T).allocate(lib, "bnT_forward", dev)
         err = lib.gnn_bnT_forward(
             _ptr(adj_loop), _ptr(adj_dep), _ptr(y1), _ptr(y2), _ptr(aff), _ptr(types), _ptr(keep),
             _ptr(rT), _ptr(feats), _ptr(w_stk), _ptr(nm), _ptr(y), _ptr(agg), _ptr(marg),
-            _ptr(msum), R, Bl, W, D, Fd, T, float(threshold), _act_codes(activations), mode, a, b,
-            _stream(dev))
+            _ptr(msum), R, Bl, W, D, Fd, T, float(threshold), _ptr(_act_codes(activations, dev)),
+            mode, a, b, _stream(dev), _ptr(ws))
     _build.check(err, "bnT_forward_step (K16)")
     launches["bnT_forward_step"] += 1
     return y, agg, marg, msum
@@ -333,7 +372,7 @@ def bnT_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats, w
     R, _, D = y_prev.shape
     Fd = feats.shape[-1]
     C = 2 * D + Fd + 1
-    Bl, W, T = _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations, True)
+    Bl, W, T = _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations)
     dev = y_prev.device
     for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
                     ("gsel", gsel)):
@@ -350,11 +389,12 @@ def bnT_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats, w
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
+        ws = _Workspace(R, W, D, Fd, T).allocate(lib, "bnT_backward", dev)
         err = lib.gnn_bnT_backward(
             _ptr(adj_loop), _ptr(adj_dep), _ptr(y_prev), _ptr(y_k), _ptr(agg), _ptr(types),
             _ptr(keep), _ptr(feats), _ptr(w_stk), _ptr(ds_in), _ptr(gsel), _ptr(bnv), _ptr(flag),
             _ptr(nm), _ptr(ds), _ptr(dw), _ptr(dagg), _ptr(red), R, Bl, W, D, Fd, T,
-            _act_codes(activations), mode, a, b, _stream(dev))
+            _ptr(_act_codes(activations, dev)), mode, a, b, _stream(dev), _ptr(ws))
     _build.check(err, "bnT_backward_step (K17)")
     launches["bnT_backward_step"] += 1
     return ds, dw, dagg, red
@@ -408,7 +448,7 @@ def typed_operands(spec, params_state, gb, training: bool, keep_states=None):
         if keep_states is None:
             raise ValueError("a keep-mask for dropout position 0 is required in training")
         keep = block_keep(blocks, _own_type_keep(keep_states, gb.node_types), rate)
-    types = blocks(gb.node_types[:, None])[..., 0].to(torch.uint8)
+    types = blocks(gb.node_types[:, None])[..., 0].to(torch.int32)
     res_type = None
     if res is not None:
         res_type = types.reshape(-1)[res[0]].long()

@@ -178,9 +178,10 @@ def test_bn2_loop_backward_matches_autograd_through_plain_body(threshold, rate):
 
 
 def test_bn2_kernel_widths_checked():
-    """What K14/K15 cannot take raises before any launch: a hidden width over
-    the cap, arc-label widths over 64, a shape whose rows and weights
-    overflow a CTA's shared memory, tensors on neither the CPU nor a card."""
+    """K14/K15 take a hidden width over MAX_HIDDEN, arc-label widths over 64
+    and shapes whose rows and weights overflow a CTA's shared memory (the
+    wide plan); what they cannot take raises before any launch: a hidden
+    width of 0, tensors on neither the CPU nor a card."""
     def meta(*shape):
         return torch.empty(shape, device="meta")
 
@@ -199,12 +200,17 @@ def test_bn2_kernel_widths_checked():
     assert tbn._smem2_bytes(128, 14, 3, 150, backward=True) == tf2._tile2_plan(
         128, 14, 3, 150, "K15")[0] <= tbn.SMEM_BYTES
     assert tbn._smem2_bytes(128, 14, 3, tf2.MAX_HIDDEN, backward=True) <= tbn.SMEM_BYTES
-    with pytest.raises(ValueError, match=f"outside 1..{tf2.MAX_HIDDEN}"):
-        tbn._check_two_layer(meta(2, 32, 32), None, 2, 5, 3, meta(tf2.MAX_HIDDEN + 1, 14),
-                             meta(5, tf2.MAX_HIDDEN + 1), meta(5), backward=True)
-    with pytest.raises(ValueError, match="above 64"):
-        tbn._check_two_layer(meta(2, 32, 32), None, 2, 5, 65, meta(16, 76), meta(5, 16),
-                             meta(5), backward=False)
-    with pytest.raises(ValueError, match="shared memory"):
-        tbn._check_two_layer(meta(2, 128, 128), None, 2, 64, 64, meta(512, 193), meta(64, 512),
-                             meta(64), backward=True)
+    # a hidden width over MAX_HIDDEN, F over 64 and a shape no staged plan fits
+    # pass the checks (their plans: a staged one, the wide plan twice)
+    assert tbn._check_two_layer(meta(2, 32, 32), None, 2, 5, 3, meta(tf2.MAX_HIDDEN + 1, 14),
+                                meta(5, tf2.MAX_HIDDEN + 1), meta(5)) == (2, 32,
+                                                                         tf2.MAX_HIDDEN + 1)
+    assert tbn._check_two_layer(meta(2, 32, 32), None, 2, 5, 65, meta(16, 76), meta(5, 16),
+                                meta(5)) == (2, 32, 16)
+    assert tbn._check_two_layer(meta(2, 128, 128), None, 2, 64, 64, meta(512, 193),
+                                meta(64, 512), meta(64)) == (2, 128, 512)
+    assert tf2._tile2_plan(32, 5, 3, tf2.MAX_HIDDEN + 1, "K15")[1] == 0
+    assert tf2._tile2_plan(32, 5, 65, 16, "K14")[1] == len(tf2._PLANS["K14"])
+    assert tf2._tile2_plan(128, 64, 64, 512, "K15")[1] == len(tf2._PLANS["K15"])
+    with pytest.raises(ValueError, match="hidden width H1=0"):
+        tbn._check_two_layer(meta(2, 32, 32), None, 2, 5, 3, meta(0, 14), meta(5, 0), meta(5))

@@ -237,12 +237,14 @@ def test_plain_body_training_step_matches_xla_body(monkeypatch, T, bn, rate):
     check_step_against_gnn_tpu(js, jp, jbn, jb, ts, tb, rng, expect_route="plain")
 
 
-def check_step_against_gnn_tpu(js, jp, jbn, jb, ts, tb, rng, expect_route, grad_rtol=2e-4):
+def check_step_against_gnn_tpu(js, jp, jbn, jb, ts, tb, rng, expect_route, grad_rtol=2e-4,
+                               optimizer="adam"):
     """The port's CompositeGNNgraphBased.training_step against gnn_tpu's
     make_composite_train_step (and its grads), at highest matmul precision,
-    with gnn_tpu's masks. Returns the port's model."""
+    with gnn_tpu's masks, both with the optimizer named. Returns the port's
+    model."""
     from gnn_tpu.training import optimizers as jopt
-    cfg = jopt.optimizer_config("adam")
+    cfg = jopt.optimizer_config(optimizer)
     lf = "categorical_crossentropy"
     with jax.default_matmul_precision("highest"):
         @jax.jit

@@ -138,25 +138,29 @@ def test_bnT_backward_step_ref_matches_pallas(acts, rate, alpha, flag, Bl):
 
 def test_typed_kernel_shapes_checked():
     """K16/K17 stage the stacked weights in shared memory when they fit, read
-    them through the caches when they do not, and refuse shapes whose
-    leanest plan exceeds a CTA's 227 KB (ops/typed.py::_bnT_fwd_plan,
-    _bnT_bwd_plan), and more than MAX_TYPES types."""
+    them through the caches when they do not, and take shapes whose leanest
+    staged plan exceeds a CTA's 227 KB and more than MAX_TYPES types through
+    their wide plans (ops/typed.py::_bnT_fwd_plan, _bnT_bwd_plan); node types
+    other than int32 are refused."""
     need, plan = ttyped._bnT_fwd_plan(128, 14, 3, 4)
     assert ttyped._BNT_FWD_PLANS[plan][3] == 1 and (need, plan) == (
         4 * (128 * 31 + 4 * 32 * 16 + 4 * 4 * 14 + 3 * 128 + 8 + 128 * 15 + 128 * 31 // 4
              + 16 * 128) + 128 + 16 * 128 + 8 * 128, 0)
     need, plan = ttyped._bnT_fwd_plan(96, 64, 3, 8)
     assert ttyped._BNT_FWD_PLANS[plan][3] == 0 and need <= SMEM_BYTES
-    types = torch.zeros((2, 128), dtype=torch.uint8)
+    types = torch.zeros((2, 128), dtype=torch.int32)
     adj = torch.zeros((2, 128, 128))
-    with pytest.raises(ValueError, match=f"more than the {SMEM_BYTES}"):
-        ttyped._check_typed(adj, None, 2, 64, 64, types, torch.zeros((32 * 64, 193)),
-                            ("selu",) * 32, True)
-    with pytest.raises(ValueError, match="1..32"):
-        ttyped._check_typed(adj, None, 2, 14, 3, types, torch.zeros((33 * 14, 32)),
-                            ("selu",) * 33, False)
+    assert ttyped._check_typed(adj, None, 2, 64, 64, types, torch.zeros((32 * 64, 193)),
+                               ("selu",) * 32) == (2, 128, 32)
+    assert ttyped._bnT_bwd_plan(128, 64, 64, 32)[1] == 3
+    assert ttyped._check_typed(adj, None, 2, 14, 3, types, torch.zeros((33 * 14, 32)),
+                               ("selu",) * 33) == (2, 128, 33)
+    assert ttyped._bnT_fwd_plan(128, 14, 3, 33)[1] == ttyped._bnT_bwd_plan(128, 14, 3, 33)[1] == 3
+    with pytest.raises(ValueError, match="int32"):
+        ttyped._check_typed(adj, None, 2, 14, 3, types.to(torch.uint8),
+                            torch.zeros((4 * 14, 32)), ("selu",) * 4)
     Bl, W, T = ttyped._check_typed(adj, None, 2, 14, 3, types, torch.zeros((4 * 14, 32)),
-                                   ("selu",) * 4, True)
+                                   ("selu",) * 4)
     assert (Bl, W, T) == (2, 128, 4)
 
 

@@ -327,30 +327,38 @@ def test_padded_rows_add_nothing():
 
 
 def test_two_layer_kernel_widths_checked():
-    """What the kernels cannot take raises before any launch: a hidden width
-    over the cap, widths over 64, a shape whose weights and rows overflow a
-    CTA's shared memory, and tensors on neither the CPU nor a card."""
+    """A hidden width over MAX_HIDDEN, widths over 64 and shapes whose staged
+    plans overflow a CTA's shared memory pass every width check and take the
+    wide plan (their plans mirror it); what the kernels cannot take still
+    raises before any launch: a block width outside 32..128 and tensors on
+    neither the CPU nor a card (here the meta tensors past every check)."""
     def meta(*shape):
         return torch.empty(shape, device="meta")
 
     def step(W=32, D=5, al=AL, H1=16):
         return tf2.propagation_step2(meta(2, W, W), meta(2, W, D), None, meta(2, W, al),
                                      meta(H1, 2 * D + al), meta(H1), meta(D, H1), meta(D))
-    with pytest.raises(ValueError, match=f"outside 1..{tf2.MAX_HIDDEN}"):
+    with pytest.raises(ValueError, match="CPU or CUDA"):
         step(H1=tf2.MAX_HIDDEN + 1)
-    with pytest.raises(ValueError, match="above 64"):
+    with pytest.raises(ValueError, match="CPU or CUDA"):
         step(D=65)
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="CPU or CUDA"):
         tf2.train_loop2_bwd(meta(2, 128, 128), meta(2, 128, 64), meta(K, 2, 128, 64),
                             meta(K, 2, 128, 64), None, None, meta(K, 2, 128, 64),
                             meta(256, 192), meta(256), meta(64, 256), meta(64),
                             meta(K, 2, 128, 64))
-    with pytest.raises(ValueError, match="shared memory"):
+    with pytest.raises(ValueError, match="CPU or CUDA"):
         tf2.propagation_loop2_bwd(meta(2, 128, 128), meta(2, 128, 64), meta(K, 2, 128, 64),
                                   meta(2, 128, 64), meta(256, 192), meta(256), meta(64, 256),
                                   meta(64), None, meta(K, 2, 128, 64))
     with pytest.raises(ValueError, match="CPU or CUDA"):
         step(W=128, D=14, H1=tf2.MAX_HIDDEN)
+    with pytest.raises(ValueError, match="block width"):
+        step(W=48)
+    assert tf2._tile2_plan(32, 5, AL, tf2.MAX_HIDDEN + 1, "K9")[1] == 0
+    assert tf2._tile2_plan(32, 65, AL, 16, "K9")[1] == len(tf2._PLANS["K9"])
+    assert tf2._tile2_plan(128, 64, 64, 256, "K13")[1] == len(tf2._PLANS["K13"])
+    assert tf2._tile2_plan(128, 64, 64, 256, "K11")[1] == len(tf2._PLANS["K11"])
     assert tf2._tile2_plan(128, 14, 3, tf2.MAX_HIDDEN, "K11")[1] is not None
     assert tf2._tile2_plan(128, 14, 3, tf2.MAX_HIDDEN, "K9")[0] <= tf2.SMEM_BYTES
 
@@ -397,8 +405,7 @@ def _tiled_wrapper_checks(kernel, W, D, al, H1, refused=None):
                                            meta(K, 2, W, D), None, None, meta(K, 2, W, al), *wts,
                                            meta(K, 2, W, D)),
         "K15": lambda: tbn._check_two_layer(meta(2, W, W), None, 2, D, al,
-                                            meta(H1, 2 * D + al + 1), meta(D, H1), meta(D),
-                                            backward=True),
+                                            meta(H1, 2 * D + al + 1), meta(D, H1), meta(D)),
     }
     if kernel == "K15" and refused is None:
         calls[kernel]()
@@ -438,17 +445,21 @@ def test_tiled_kernels_take_every_shape_the_per_node_kernels_took(kernel, W):
 
 @pytest.mark.parametrize("kernel", ["K10", "K11", "K13", "K15", "K12"])
 def test_tiled_kernels_raise_above_their_last_plan(kernel):
-    """A shape that not even the leanest plan fits (W 128, D = AL = 64, the
-    least such H1) raises the wrappers' ValueError naming the bytes it needs
-    and the CTA's limit, before any launch; one hidden unit fewer passes."""
+    """(The name is from when such shapes were refused.) A shape that not
+    even the leanest staged plan fits (W 128, D = AL = 64, the least such H1)
+    takes the wide plan (index len(_PLANS), its bytes, as every larger H1 up to
+    2048 does) and passes the wrapper's checks before any launch; one hidden
+    unit fewer takes the leanest staged plan."""
     bytes_at = [tf2._tile2_bytes(tf2._KIND[kernel], 128, 64, 64, h1, tf2._PLANS[kernel][-1])
                 for h1 in range(1, tf2.MAX_HIDDEN + 1)]
     h1 = next(h for h, b in enumerate(bytes_at, 1) if b > tf2.SMEM_BYTES)
     need, plan = tf2._tile2_plan(128, 64, 64, h1, kernel)
-    assert plan is None and need == bytes_at[h1 - 1]
-    _tiled_wrapper_checks(kernel, 128, 64, 64, h1,
-                          refused=f"W=128, D=64, (AL|F)=64, H1={h1} needs {need} bytes of shared "
-                                  f"memory a block, more than the {tf2.SMEM_BYTES}")
+    wide = len(tf2._PLANS[kernel])
+    assert plan == wide and need == tf2._tile2_wide(tf2._KIND[kernel], 128, 64, 64, h1)[0]
+    assert need <= tf2.SMEM_BYTES
+    assert all(tf2._tile2_plan(128, 64, 64, h, kernel)[1] == wide for h in range(h1, 2049, 97))
+    assert tf2._tile2_plan(128, 64, 64, h1 - 1, kernel)[1] == wide - 1
+    _tiled_wrapper_checks(kernel, 128, 64, 64, h1)
     _tiled_wrapper_checks(kernel, 128, 64, 64, h1 - 1)
 
 

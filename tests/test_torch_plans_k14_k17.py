@@ -50,14 +50,14 @@ def _k14_checks(W, D, F, H1):
     """K14's wrapper checks (bn2_forward_step's _check_two_layer) on meta
     tensors of this shape, without loop rows: (Bl, W, H1)."""
     return tbn._check_two_layer(None, _meta(2, W, W), 2, D, F, _meta(H1, 2 * D + F + 1),
-                                _meta(D, H1), _meta(D), backward=False)
+                                _meta(D, H1), _meta(D))
 
 
 def _k17_checks(W, D, F, T):
     """K17's wrapper checks (bnT_backward_step's _check_typed) on meta tensors
     of this shape, without loop rows: (Bl, W, T)."""
-    return ttyped._check_typed(None, _meta(2, W, W), 2, D, F, _meta(2, W, dtype=torch.uint8),
-                               _meta(T * D, 2 * D + F + 1), ("selu",) * T, True)
+    return ttyped._check_typed(None, _meta(2, W, W), 2, D, F, _meta(2, W, dtype=torch.int32),
+                               _meta(T * D, 2 * D + F + 1), ("selu",) * T)
 
 
 def test_k14_and_k17_plans_at_their_recipes():
@@ -112,17 +112,18 @@ def test_k14_plans_take_every_shape_the_per_node_kernel_took(W):
 
 
 def test_k14_raises_above_its_last_plan():
-    """A shape that not even K14's leanest plan fits (W 128, D = F = 64, the
-    least such H1) raises the wrapper's ValueError naming the bytes it needs
-    and the CTA's limit, before any launch; one hidden unit fewer passes."""
+    """(The name is from when such shapes were refused.) A shape that not
+    even K14's leanest staged plan fits (W 128, D = F = 64, the least such
+    H1) takes the wide plan (index 2, its bytes) and passes the wrapper's
+    checks before any launch; one hidden unit fewer takes the leanest staged
+    plan."""
     last = tf2._PLANS["K14"][-1]
     h1 = next(h for h in range(1, tf2.MAX_HIDDEN + 1)
               if tf2._tile2_bytes(3, 128, 64, 64, h, last) > SMEM)
     need, plan = tf2._tile2_plan(128, 64, 64, h1, "K14")
-    assert plan is None and need == tf2._tile2_bytes(3, 128, 64, 64, h1, last)
-    with pytest.raises(ValueError, match=f"W=128, D=64, F=64, H1={h1} needs {need} bytes of "
-                                         f"shared memory a block, more than the {SMEM}"):
-        _k14_checks(128, 64, 64, h1)
+    assert plan == 2 and need == tf2._tile2_wide(3, 128, 64, 64, h1)[0] <= SMEM
+    assert tf2._tile2_plan(128, 64, 64, h1 - 1, "K14")[1] == 1
+    assert _k14_checks(128, 64, 64, h1) == (0, 128, h1)
     assert _k14_checks(128, 64, 64, h1 - 1) == (0, 128, h1 - 1)
 
 
@@ -153,15 +154,15 @@ def test_k17_plans_take_every_shape_the_per_node_kernel_took(W):
 
 
 def test_k17_raises_above_its_last_plan():
-    """A shape that not even K17's leanest plan fits (W 128, D = F = 64, the
-    least such T) raises the wrapper's ValueError naming the bytes it needs
-    and the CTA's limit, before any launch; one type fewer passes."""
+    """(The name is from when such shapes were refused.) A shape that not
+    even K17's leanest staged plan fits (W 128, D = F = 64, the least such T)
+    takes the wide plan (index 3, its bytes) and passes the wrapper's checks
+    before any launch; one type fewer takes the leanest staged plan."""
     last = ttyped._BNT_BWD_PLANS[-1]
     t = next(t for t in range(1, ttyped.MAX_TYPES + 1)
              if ttyped._bnT_bwd_bytes(128, 64, 64, t, last) > SMEM)
     need, plan = ttyped._bnT_bwd_plan(128, 64, 64, t)
-    assert plan is None and need == ttyped._bnT_bwd_bytes(128, 64, 64, t, last)
-    with pytest.raises(ValueError, match=f"W=128, D=64, F=64, T={t} needs {need} bytes of "
-                                         f"shared memory a block, more than the {SMEM}"):
-        _k17_checks(128, 64, 64, t)
+    assert plan == 3 and need == ttyped._bnT_bwd_wide(128, 64, 64, t)[0] <= SMEM
+    assert ttyped._bnT_bwd_plan(128, 64, 64, t - 1)[1] == 2
+    assert _k17_checks(128, 64, 64, t) == (0, 128, t)
     assert _k17_checks(128, 64, 64, t - 1) == (0, 128, t - 1)

@@ -54,8 +54,8 @@ def _per_node_k5_bytes(W, D):
 def _k16_checks(W, D, F, T):
     """K16's wrapper checks (bnT_forward_step's _check_typed) on meta tensors
     of this shape, without loop rows: (Bl, W, T)."""
-    return ttyped._check_typed(None, _meta(2, W, W), 2, D, F, _meta(2, W, dtype=torch.uint8),
-                               _meta(T * D, 2 * D + F + 1), ("selu",) * T, False)
+    return ttyped._check_typed(None, _meta(2, W, W), 2, D, F, _meta(2, W, dtype=torch.int32),
+                               _meta(T * D, 2 * D + F + 1), ("selu",) * T)
 
 
 def _k5_launch(W, D, K=2, affine=False):
@@ -191,17 +191,17 @@ def test_k16_plan_order(W, D, F, T, plan):
 
 
 def test_k16_raises_above_its_last_plan():
-    """A shape that not even K16's leanest plan fits (W 128, D 64, T 32, the
-    least such F) raises the wrapper's ValueError naming the bytes it needs
-    and the CTA's limit, before any launch; one feature column fewer
-    passes."""
+    """(The name is from when such shapes were refused.) A shape that not
+    even K16's leanest staged plan fits (W 128, D 64, T 32, the least such F)
+    takes the wide plan (index 3, its bytes) and passes the wrapper's checks
+    before any launch; one feature column fewer takes the leanest staged
+    plan."""
     last = ttyped._BNT_FWD_PLANS[-1]
     f = next(f for f in range(0, 1024) if ttyped._bnT_fwd_bytes(128, 64, f, 32, last) > SMEM)
     need, plan = ttyped._bnT_fwd_plan(128, 64, f, 32)
-    assert f > 64 and plan is None and need == ttyped._bnT_fwd_bytes(128, 64, f, 32, last)
-    with pytest.raises(ValueError, match=f"W=128, D=64, F={f}, T=32 needs {need} bytes of "
-                                         f"shared memory a block, more than the {SMEM}"):
-        _k16_checks(128, 64, f, 32)
+    assert f > 64 and plan == 3 and need == ttyped._bnT_fwd_wide(128, 64, f, 32)[0] <= SMEM
+    assert ttyped._bnT_fwd_plan(128, 64, f - 1, 32)[1] == 2
+    assert _k16_checks(128, 64, f, 32) == (0, 128, 32)
     assert _k16_checks(128, 64, f - 1, 32) == (0, 128, 32)
 
 

@@ -185,16 +185,18 @@ def test_k3_raises_above_its_last_plan():
 
 
 def test_k9_raises_above_its_last_plan():
-    """A shape that not even K9's leanest plan fits (W 128, D = AL = 64, the
-    least such H1) raises the wrapper's ValueError naming the bytes it needs
-    and the CTA's limit, before any launch; one hidden unit fewer passes."""
+    """(The name is from when such shapes were refused.) A shape that not
+    even K9's leanest staged plan fits (W 128, D = AL = 64, the least such
+    H1) takes the wide plan (index 2, its bytes) and passes every check of
+    the wrapper, stopping only at the meta device; one hidden unit fewer
+    takes the leanest staged plan."""
     bytes_at = [tf2._tile2_bytes(tf2._KIND["K9"], 128, 64, 64, h1, tf2._PLANS["K9"][-1])
                 for h1 in range(1, tf2.MAX_HIDDEN + 1)]
     h1 = next(h for h, b in enumerate(bytes_at, 1) if b > SMEM)
     need, plan = tf2._tile2_plan(128, 64, 64, h1, "K9")
-    assert plan is None and need == bytes_at[h1 - 1]
-    with pytest.raises(ValueError, match=f"W=128, D=64, AL=64, H1={h1} needs {need} bytes of "
-                                         f"shared memory a block, more than the {SMEM}"):
+    assert plan == 2 and need == tf2._tile2_wide(tf2._KIND["K9"], 128, 64, 64, h1)[0] <= SMEM
+    assert tf2._tile2_plan(128, 64, 64, h1 - 1, "K9")[1] == 1
+    with pytest.raises(ValueError, match="need CPU or CUDA tensors"):
         _k9_launch(128, 64, 64, h1)
     with pytest.raises(ValueError, match="need CPU or CUDA tensors"):
         _k9_launch(128, 64, 64, h1 - 1)

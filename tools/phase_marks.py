@@ -21,7 +21,9 @@ the MUTAG-shaped set's graphs and arcs with seeded D-wide node labels
 plans, whose phases (staging, the list build, U or the dense layer, the
 aggregation and the epilogue) are the same barriers' segments. With force=i
 every build launches plan i (gnn_*_force_plan; the wide plan is the last
-index), e.g. the wide plan at the flagship's width.
+index), e.g. the wide plan at the flagship's width (K1-K9, K12, K14; K16's and
+K17's wide instantiations lie in bn_typed_wide.cu, built beside the copy
+without marks of their own, so their phases are not read here).
 Printed: the instrumented and the unmarked launch's times (the marks' cost), then
 each segment's share of the cycles summed over the CTAs and its cycles a CTA, named
 by the source lines of the barriers that end it.
@@ -71,11 +73,13 @@ __device__ int g_nph;
   } while (0)
 """
 TAIL = """
+#ifndef GNN_WIDE_TU
 extern "C" int phase_marks_set(unsigned long long* p, int n) {
   cudaMemcpyToSymbol(g_phase, &p, sizeof(p));
   cudaMemcpyToSymbol(g_nph, &n, sizeof(int));
   return cudaGetLastError();
 }
+#endif
 """
 
 
@@ -217,9 +221,14 @@ def main():
                  for label, path in (("marked", copy), ("unmarked", src_path))]
 
     def nvcc(job):
+        """The copy's library, with its wide plans' source beside it where the
+        tree has one (X_wide.cu includes X.cu: the marked copy for the marked
+        library, whose wide instantiations keep no marks of their own)."""
         tname, label, path, tree, so = job
+        wide = path[:-3] + "_wide.cu"
         return subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", tree, "-shared", "-o", so,
-                               path], capture_output=True, text=True)
+                               path, *([wide] if os.path.exists(wide) else [])],
+                              capture_output=True, text=True)
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(nvcc, jobs))
     libs_of = {}

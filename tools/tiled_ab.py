@@ -10,8 +10,9 @@ blocks' dropout-training step K6 and the CSR segment aggregation K18.
 
 Each tree's source that holds a kernel's C entry (a kernel may move between
 files: K12 lies in fused2.cu in older trees, in loop2.cu in newer ones) is
-built alone with the port's nvcc flags, all at once, into a library of its own
-under build/tiled_ab/; a tree without the entry is skipped for that kernel. On
+built alone (with its X_wide.cu beside it where the tree has one) with the
+port's nvcc flags, all at once, into a library of its own under
+build/tiled_ab/; a tree without the entry is skipped for that kernel. On
 chip_smoke.py's full-set operands (the MUTAG-shaped set: K10 at the h150
 serving path's shapes, K12 and K13 at the h150 training route's, K11 at
 h150_clean's, K14 and K15 at h150_bn's, K1 and K2 at the flagship's BatchNorm
@@ -33,10 +34,15 @@ K6 and K18 (the same sums in every tree),
 reported for the others, and each tree's largest per-node difference from
 the plain version is printed; K3, K9, K16, K5, K1, K2, K8, K7, K4 and K6 are
 held so at every plan of every tree that has their gnn_*_force_plan entry,
-forced in turn, and, in a tree whose kernel has a wide plan (K1-K8's, chosen
-where no staged plan fits), at its wide plan forced too; K1, K2 and K8 also
-at D 64 (W 128) beside the full set, so that each wide plan is held bit for
-bit at D 14 and 64 to the staged plan of every tree (a parent's too).
+forced in turn, and, in a tree whose kernel has a wide plan (K1-K17's,
+chosen where no staged plan fits), at its wide
+plan forced too; K10, K12, K13, K11, K14, K15 and K17 at every plan and the
+wide plan forced likewise; K1, K2 and K8 also at D 64 (W 128) beside the full
+set, so that each wide plan is held bit for bit at D 14 and 64 to the staged
+plan of every tree (a parent's too). A tree whose typed kernels (K16, K17)
+take node types as bytes and the activation codes packed in one 64-bit
+argument (the older interface) is called through that interface on the same
+operands.
 Then each kernel is timed with CUDA events as chip_smoke.py times it (K3, K9,
 K16, K5, K7, K4, K6 and K18 also by the profiler's device time a call, which a
 launch-sized call's host work does not enter), on its full-set cases, the
@@ -77,15 +83,25 @@ KERNELS = {"K10": ("gnn_propagation_loop2", True), "K12": ("gnn_train_loop2", Fa
 # the kernels timed by device time too, and those held at every plan forced
 # (where a tree can force them)
 PLANNED = ("K3", "K9", "K16", "K5", "K7", "K4", "K6", "K18")
-FORCED = PLANNED + ("K1", "K2", "K8")
+FORCED = PLANNED + ("K1", "K2", "K8", "K10", "K12", "K13", "K11", "K14", "K15", "K17")
 # the kernels with a wide plan after their staged plans, in a tree whose
 # source holds one
-WIDE = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8")
+WIDE = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12", "K13",
+        "K14", "K15", "K16", "K17")
+# the typed entries' argument positions of the node types and of the
+# activation codes (the same in both interfaces)
+TYPED_ARGS = {"gnn_bnT_forward": (5, 22), "gnn_bnT_backward": (5, 24)}
 
 
 def has_wide(src):
     """Whether a kernel source holds a wide plan (its kernel templated on it)."""
     return src is not None and "bool WIDE" in open(src).read()
+
+
+def packed_types(src):
+    """Whether a typed kernel source takes the node types as bytes and the
+    activation codes packed in one 64-bit argument (the older interface)."""
+    return src is not None and "unsigned long long acts" in open(src).read()
 
 
 def source_of(tree, entry):
@@ -123,8 +139,12 @@ def main():
              for job in jobs}
 
     def nvcc(job):
+        """The source's library, with its wide plans' source beside it where the
+        tree has one (X_wide.cu: the instantiations X.cu's C entries launch)."""
+        wide = job[1][:-3] + "_wide.cu"
+        srcs_ = [job[1]] + ([wide] if os.path.exists(wide) else [])
         r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so_of[job],
-                            job[1]], capture_output=True, text=True)
+                            *srcs_], capture_output=True, text=True)
         return r.returncode, r.stdout + r.stderr
 
     t0 = time.perf_counter()
@@ -139,18 +159,33 @@ def main():
     loaded = {job: _build.bind(ctypes.CDLL(so_of[job])) for job in jobs}
     libs = {key: loaded[key[0], src] for key, src in srcs.items() if src is not None}
 
+    case = {}   # the typed operands of the call in flight (node types, activations)
+
     class One:
         """The library the wrappers launch through: one tree's, for one kernel
         (a tree without wide plans has no gnn_*_workspace entries: its staged
-        plans need no workspace)."""
+        plans need no workspace; a tree with packed typed arguments is called
+        with the node types as bytes and the codes packed, 2 bits a type)."""
 
-        def __init__(self, lib):
-            self.lib = lib
+        def __init__(self, lib, packed=False):
+            self.lib, self.packed = lib, packed
 
         def __getattr__(self, name):
             if name.endswith("_workspace") and not hasattr(self.lib, name):
                 return lambda *dims: 0
-            return getattr(self.lib, name)
+            fn = getattr(self.lib, name)
+            if not (self.packed and name in TYPED_ARGS):
+                return fn
+            ti, ai = TYPED_ARGS[name]
+
+            def call(*args):
+                types8 = case["types"].to(torch.uint8)
+                codes = sum(fused._ACT_CODE[a] << (2 * t)
+                            for t, a in enumerate(case["activations"]))
+                args = list(args)
+                args[ti], args[ai] = types8.data_ptr(), codes
+                return fn(*args)
+            return call
 
     graphs = mutag_shaped(seed=cs.SEED)
     model = cs.flagship(torch, "cuda")
@@ -407,10 +442,12 @@ def main():
     # kernel: (module, wrapper, cases [(label, operands, timed)], plan list or
     # None, the plan bytes' widths of an operand set)
     setups = {
-        "K10": lambda: (fused2, "propagation_loop2", full(two()[1]), None, None),
+        "K10": lambda: (fused2, "propagation_loop2", full(two()[1]), fused2._PLANS["K10"],
+                        lambda x: dims2(x, "s0", "feats", "w0")),
         "K12": lambda: (fused2, "train_loop2", full(two()[2]), fused2._PLANS["K12"],
                         lambda x: dims2(x, "s0", "fd", "w0")),
-        "K13": lambda: (fused2, "train_loop2_bwd", full(two()[3]), None, None),
+        "K13": lambda: (fused2, "train_loop2_bwd", full(two()[3]), fused2._PLANS["K13"],
+                        lambda x: dims2(x, "s0", "fd", "w0")),
         "K11": lambda: (fused2, "propagation_loop2_bwd", full(two_train()[0]),
                         fused2._PLANS["K11"], lambda x: dims2(x, "s0", "feats", "w0")),
         "K15": lambda: (bn, "bn2_backward_step", full(two_train()[3]), fused2._PLANS["K15"],
@@ -474,10 +511,12 @@ def main():
                 names = [t for t in trees if (t, k) in libs]
                 for label, x, timed in cases:
                     dims = None if plan_list is None else dims_of(x)
+                    case.clear()
+                    case.update({a: x[a] for a in ("types", "activations") if a in x})
                     outs = {}
                     want = outputs(getattr(mod, name + "_ref")(**x))
                     for t in names:
-                        _build._lib = One(libs[t, k])
+                        _build._lib = One(libs[t, k], packed_types(srcs[t, k]))
                         outs[t] = outputs(fn(**x))
                         torch.cuda.synchronize()
                         cs.say(f"{k} {label}, {t}: largest per-node difference from the plain "
@@ -490,7 +529,7 @@ def main():
                             if force and k in WIDE and has_wide(srcs[t, k]):
                                 forced.append(len(staged))   # the wide plan fits every shape
                             for i in forced:
-                                _build._lib = One(libs[t, k])
+                                _build._lib = One(libs[t, k], packed_types(srcs[t, k]))
                                 force(i)
                                 try:
                                     what = "wide plan" if i == len(staged) else f"plan {i}"
@@ -520,7 +559,7 @@ def main():
                             force = getattr(lib, entry + "_force_plan", None)
                             if plan is not None and force is None:
                                 continue
-                            _build._lib = One(lib)
+                            _build._lib = One(lib, packed_types(srcs[t, k]))
                             if plan is not None:
                                 force(plan)
                             try:
