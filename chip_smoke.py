@@ -254,6 +254,26 @@
    CPU's from the same params (loss, iterations, moving statistics, grads)
    and the card's update to the CPU optimizer's on the card's grads and
    state (1e-5).
+20. Engine (models/engine.py): the flagship (BatchNorm route) trained by
+   model.train on the set split by graphs/utils.getindices(4337, 0.7, 0.1,
+   seed=0), one fused-layout batch each for training, validation and test:
+   8 epochs, update_freq 1, max_fails 3. (a) K1/K2 launched K times by each
+   step and K3 once and K4 K times by each evaluation (of a batch with loop
+   and dep blocks), no other kernel; (b) epoch 0's step against the CPU with
+   the masks the card drew: iterations equal, loss rtol 1e-5, params 1e-5 or
+   held to the float64 step as in phase 12 (later epochs only on the card:
+   Adam carries selu's set-valued first-layer grads past 1e-5 in a few
+   steps); (c) evaluate(gVa) after train reproduces the history's best
+   validation loss to 1e-6 relative, the history's columns of equal length;
+   (d) test(gTe) against a CPU model given the card's weights through
+   get_weights / set_weights: It equal, Loss rtol 1e-5, each metric equal
+   unless an output row lies within 1e-5 of an argmax tie; (e)
+   save_checkpoint, a fresh model's load_checkpoint, one more epoch from
+   both: the dropout masks bit for bit equal, params within 1e-5; (f) LKO
+   with 3 folds (graphs/utils.prepare_LKO_data) on 300 graphs, 2 epochs each:
+   finite metrics, the test folds disjoint and covering the 300; (g) the
+   epochs' EpochSeconds and EdgesPerSecond from the writer's Training.jsonl,
+   with the card's name and power limit.
 
 Prints a JSON line of per-kernel numbers (K1-K18), then as its
 last line {"ok": true, "device": {...}}. Any failed check exits non-zero
@@ -277,6 +297,7 @@ SEED = 0
 T_START = time.perf_counter()
 BUILD_S = [0.0]         # the kernels' build, seconds
 PORT_KERNELS = set()    # the names of the port's __global__ functions (port_kernel)
+CARD = ""               # nvidia-smi's "name, power limit" of the card
 
 
 def fail(msg):
@@ -293,13 +314,15 @@ def elapsed():
 
 
 def phase_device(torch):
+    global CARD
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
-    say(smi.stdout.strip().splitlines()[0])
+    CARD = smi.stdout.strip().splitlines()[0]
+    say(CARD)
     from gnn_tpu_torch.ops import _build
     nvcc = subprocess.run([_build._nvcc(), "--version"], capture_output=True, text=True)
     say(f"torch {torch.__version__} cuda {torch.version.cuda}; "
@@ -724,7 +747,7 @@ def variant_width(variant):
     return dims["width"], dims["base"]
 
 
-def flagship(torch, device, variant="bn", optimizer="adam"):
+def flagship(torch, device, variant="bn", optimizer="adam", model_kw=None):
     """The flagship (MUTAG widths 14/3/2, K=5, threshold 0.01, seeded random
     weights) with its state net as `variant` says. "h150" is the hidden-150
     accuracy recipe (benchmarks/mutag_single.py with dropout 0.1: hidden
@@ -739,7 +762,8 @@ def flagship(torch, device, variant="bn", optimizer="adam"):
     at arc-label width AL, "u<H1>_" an h150 variant of hidden width H1,
     "t<T>_composite_bn" the composite flagship with T node types, "tanh_"
     tanh in place of selu (variant_dims). `optimizer`: its optimizer config
-    or name."""
+    or name; `model_kw`: further keyword arguments of the model class (the
+    engine's extra_metrics, path_writer)."""
     from gnn_tpu_torch import GNNgraphBased, MLPSpec, get_inout_dims
     dims = variant_dims(variant)
     width, variant = dims["width"], dims["base"]
@@ -763,7 +787,7 @@ def flagship(torch, device, variant="bn", optimizer="adam"):
                  kernel_initializer="glorot_normal", bias_initializer="glorot_normal",
                  batch_normalization=False, **out_drop)
     model = GNNgraphBased(ss, so, optimizer=optimizer, max_iteration=5, threshold=0.01,
-                          seed=SEED, device=device,
+                          seed=SEED, device=device, **(model_kw or {}),
                           aggregation="pallas" if variant == "pallas" else
                           "fused" if fused else "auto")
     if variant in ("bn", "h150_bn", "pallas"):
@@ -2380,7 +2404,7 @@ def phase_one_type(torch, gb, gb_train):
     comp = CompositeGNNgraphBased((homo.spec.state_spec,), homo.spec.output_spec, max_iteration=5,
                                   threshold=0.01, seed=SEED, device="cuda")
     p_np, b_np = params_to_jax(homo.params, homo.bn)
-    comp.set_weights({**p_np, "state": (p_np["state"],)}, {**b_np, "state": (b_np["state"],)})
+    comp.set_params({**p_np, "state": (p_np["state"],)}, {**b_np, "state": (b_np["state"],)})
 
     def typed0(b):
         return dataclasses.replace(b, node_types=torch.zeros(b.n_node_pad, dtype=torch.long,
@@ -3536,6 +3560,180 @@ def phase_pallas(torch, graphs, gb_cpu, gb, n_arcs):
     return fwd_launches + counted["segment_aggregate"]
 
 
+def engine_graph_key(g):
+    """A graph's identity that survives normalize_graphs (arc ids only)."""
+    return g.n_nodes, g.arcs[:, :2].tobytes()
+
+
+def phase_engine(torch, graphs):
+    """Phase 20: the flagship trained, evaluated, tested, checkpointed and
+    cross-validated by the engine on the card (module docstring)."""
+    import shutil
+    import tempfile
+    say(f"---- engine ({elapsed()})")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_engine_")
+    try:
+        engine_checks(torch, graphs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def engine_checks(torch, graphs, tmp):
+    import collections
+    import types
+
+    import numpy as np
+    from gnn_tpu_torch import metrics as mt
+    from gnn_tpu_torch.convert import flatten
+    from gnn_tpu_torch.graphs.graph import split_graphs
+    from gnn_tpu_torch.graphs.utils import getindices, prepare_LKO_data
+    from gnn_tpu_torch.ops import bn, fused, fused2, segment, typed
+    t_phase = time.perf_counter()
+    mods = (bn, fused, fused2, typed, segment)
+    extra = {k: mt.Metrics[k] for k in ("Acc", "Bacc", "Fs")}
+
+    def model_at(device, name):
+        return flagship(torch, device, model_kw=dict(extra_metrics=extra,
+                                                     path_writer=os.path.join(tmp, name)))
+
+    def counts():
+        return {k: v for m in mods for k, v in m.launches.items()}
+
+    def recorder(model, into):
+        draw = model._draw_masks
+
+        def record(spec, gb, gen):
+            masks = draw(spec, gb, gen)
+            into.append(masks)
+            return masks
+        model._draw_masks = record
+
+    tr, te, va = getindices(len(graphs), 0.7, 0.1, seed=SEED)
+    card = model_at("cuda", "card")
+    K = card.spec.max_iteration
+    t0 = time.perf_counter()
+    gTr, gVa, gTe = (card.to_batch([graphs[i] for i in idx]) for idx in (tr, va, te))
+    say(f"engine batches: train {len(tr)}, validation {len(va)}, test {len(te)} graphs "
+        f"({time.perf_counter() - t0:.2f} s to pack and upload)")
+
+    # ---- main path: model.train, counting kernel launches
+    drawn, first = [], {}
+    recorder(card, drawn)
+    step = card.training_step
+
+    def first_step(gb, mean=True, masks=None):
+        out = step(gb, mean=mean, masks=masks)
+        if not first:
+            first.update(out=out, params=tree_map(lambda v: v.detach().clone(), card.params),
+                         grads={k: p.grad.clone() for k, p in flatten(card.params).items()})
+        return out
+    card.training_step = first_step
+    for m in mods:
+        m.reset_launches()
+    t0 = time.perf_counter()
+    card.train(gTr, epochs=8, gVa=gVa, update_freq=1, max_fails=3, verbose=0)
+    train_s = time.perf_counter() - t0
+    launched = {k: n for k, n in counts().items() if n}
+    E = len(card.history["Epoch"])
+    evals = [gTr, gVa] * E
+    want = {"bn_forward_step": K * E, "bn_backward_step": K * E,
+            "propagation_loop": sum(b.adj_loop is not None for b in evals),
+            "propagation_step": K * sum(b.adj_dep is not None for b in evals)}
+    say(f"engine train: {E} epochs in {train_s:.3f} s (host clock), launches {launched}")
+    if launched != {k: n for k, n in want.items() if n} or len(drawn) != E:
+        fail(f"engine train: launches {launched} over {E} epochs ({len(drawn)} mask draws), "
+             f"expected {want}")
+    if len({len(v) for v in card.history.values()}) != 1:
+        fail(f"engine train: history columns of unequal lengths "
+             f"{ {k: len(v) for k, v in card.history.items()} }")
+
+    # ---- (b) epoch 0's step against the CPU with the card's masks
+    gTr_cpu = gTr.to("cpu")
+    masks0 = tree_map(lambda v: v.cpu(), drawn[0])
+    cpu = model_at("cpu", "cpu")
+    ref = cpu.training_step(gTr_cpu, masks=masks0)
+    if float(ref["iters"]) != float(first["out"]["iters"]):
+        fail(f"engine epoch 0: iters {float(first['out']['iters'])} on the card, "
+             f"{float(ref['iters'])} on the CPU")
+    lerr = close_rel(torch, first["out"]["loss"].cpu(), ref["loss"], 1e-5, 0.0,
+                     "engine epoch 0 loss")
+    perr = check_params64(torch, "bn", types.SimpleNamespace(params=first["params"]), cpu,
+                          first["grads"], gTr_cpu, [masks0])
+
+    # ---- (c) the restored best weights reproduce the best validation loss
+    best = card.history["Best Loss Va"][-1]
+    again = card.evaluate(gVa)[0]["Loss"]
+    if not abs(again - best) <= 1e-6 * abs(best):
+        fail(f"engine: evaluate(gVa) after train gives {again!r}, the history's best "
+             f"{best!r}")
+
+    # ---- (d) test on the card against the CPU with the card's weights
+    got = card.test(gTe)
+    score = card.evaluate(gTe)[4]
+    top2 = np.sort(score, axis=1)[:, -2:]
+    tie = bool(np.any(top2[:, 1] - top2[:, 0] <= 1e-5))
+    cpu_t = model_at("cpu", "cpu_t")
+    cpu_t.set_weights(*card.get_weights())
+    ref_t = cpu_t.test(gTe.to("cpu"))
+    if got["It"] != ref_t["It"]:
+        fail(f"engine test: It {got['It']} on the card, {ref_t['It']} on the CPU")
+    close_rel(torch, torch.tensor(got["Loss"]), torch.tensor(ref_t["Loss"]), 1e-5, 0.0,
+              "engine test loss")
+    for k in extra:
+        if got[k] != ref_t[k] and not tie:
+            fail(f"engine test: {k} {got[k]} on the card, {ref_t[k]} on the CPU, no "
+                 f"output row within 1e-5 of an argmax tie")
+
+    # ---- (e) checkpoint: one more epoch from the card and from a fresh model
+    card.save_checkpoint(os.path.join(tmp, "ck"))
+    fresh = model_at("cuda", "fresh")
+    fresh.load_checkpoint(os.path.join(tmp, "ck"))
+    more = {}
+    for name, m in (("card", card), ("fresh", fresh)):
+        more[name] = []
+        recorder(m, more[name])
+        m.train(gTr, epochs=1, gVa=gVa, update_freq=1, max_fails=3, verbose=0)
+    (ma,), (mb,) = more["card"], more["fresh"]
+    for net in ("state", "output"):
+        for pos in ma[net]:
+            if not torch.equal(ma[net][pos], mb[net][pos]):
+                fail(f"engine checkpoint: the resumed model drew other {net} masks at {pos}")
+    cerr = max(float((a - flatten(fresh.params)[k]).detach().abs().max())
+               for k, a in flatten(card.params).items())
+    if not cerr <= TOL or card.history["Epoch"] != fresh.history["Epoch"]:
+        fail(f"engine checkpoint: params {cerr:.3e} apart after one more epoch (epochs "
+             f"{card.history['Epoch']} and {fresh.history['Epoch']})")
+
+    # ---- (f) LKO, 3 folds on 300 graphs
+    subset = graphs[:300]
+    folds = prepare_LKO_data(list(subset), focus="g", number_of_batches=3, useVa=True,
+                             seed=SEED + 1)
+    keys = [collections.Counter(engine_graph_key(h) for h in split_graphs(g))
+            for g in folds[1]]
+    if sum(keys, collections.Counter()) != collections.Counter(map(engine_graph_key, subset)):
+        fail("engine LKO: the test folds are not disjoint or do not cover the 300 graphs")
+    for m in mods:
+        m.reset_launches()
+    res = model_at("cuda", "lko").LKO(folds, epochs=2, update_freq=1, verbose=0)
+    bad = {k: v for k, v in res.items() if len(v) != 3 or not np.all(np.isfinite(v))}
+    if bad or not counts()["bn_forward_step"]:
+        fail(f"engine LKO: metrics {res}, launches {counts()}")
+
+    # ---- (g) the epoch counters
+    rows = [json.loads(x) for x in open(os.path.join(card.path_writer, "Training.jsonl"))]
+    secs = [r["value"] for r in rows if r["name"] == "EpochSeconds"]
+    eps = [r["value"] for r in rows if r["name"] == "EdgesPerSecond"]
+    say(f"engine epochs on {CARD}: EpochSeconds {[round(s, 6) for s in secs]}, "
+        f"EdgesPerSecond {[f'{e:.4e}' for e in eps]} ({int(gTr.n_real[1])} arcs an epoch)")
+    say(f"engine: epoch 0 vs CPU: iters equal, loss {lerr:.3e}, params {perr:.3e}; best "
+        f"validation loss {best:.6f} reproduced ({abs(again - best):.3e}); test It "
+        f"{got['It']}, Loss {got['Loss']:.6f} (CPU {ref_t['Loss']:.6f}), "
+        f"{ {k: round(got[k], 6) for k in extra} }{' (an argmax tie)' if tie else ''}; "
+        f"checkpoint resumed, masks equal, params {cerr:.3e}; LKO 3 folds "
+        f"{ {k: [round(x, 4) for x in v] for k, v in res.items()} }; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main():
     import dataclasses
 
@@ -3628,6 +3826,7 @@ def main():
     phase_wide(torch)
     phase_optimizers(torch, gb_train, n_arcs)
     k18_launches = phase_pallas(torch, graphs, gb_plan_cpu, gb_plan, n_arcs)
+    phase_engine(torch, graphs)
     for k, (path, key) in {"K1": ("bn", "bn_forward_step"), "K2": ("bn", "bn_backward_step"),
                            "K3": ("flagship", "propagation_loop"),
                            "K4": ("flagship", "propagation_step"),

@@ -130,3 +130,69 @@ def flatten(tree, prefix: str = "") -> dict:
         else:
             flat[key] = v
     return flat
+
+
+# ------------------------------------------------------------- optimizer state
+def _opt_layout(opt) -> tuple:
+    """([(state key, optax tree prefix, initial value)], [count keys]) of an
+    OptaxRule: where optax 0.2.6's chain for the optimizer keeps each moment
+    and its step counts (gnn_tpu's make_optimizer), e.g. Adam's mu at
+    "[0].mu" and, with a schedule, scale_by_schedule's count at "[1].count"."""
+    h, name = opt.param_groups[0], opt.name
+    if name in ("adam", "adamw", "lamb", "lion"):
+        slots = [("mu", "[0].mu", 0.0)] + ([] if name == "lion" else [("nu", "[0].nu", 0.0)])
+        counts = ["[0].count"]
+        lr_at = {"adam": 1, "adamw": 2, "lamb": 3, "lion": 2}[name]
+    elif name == "sgd":
+        slots = [] if h["momentum"] is None else [("trace", "[0].trace", 0.0)]
+        counts, lr_at = [], 1
+    elif name == "rmsprop":
+        slots = (([("mu", "[0].mu", 0.0)] if h["centered"] else [])
+                 + [("nu", "[0].nu", h["initial_scale"])]
+                 + ([("trace", "[2].trace", 0.0)] if h["momentum"] is not None else []))
+        counts, lr_at = (["[0].count"] if h["bias_correction"] else []), 1
+    elif name == "adagrad":
+        slots = [("sum", "[0].sum_of_squares", h["initial_accumulator_value"])]
+        counts, lr_at = [], 1
+    else:
+        raise ValueError(f"unknown optimizer {name!r}")
+    if callable(h["lr"]):
+        counts.append(f"[{lr_at}].count")
+    return slots, counts
+
+
+def _leaves(params):
+    """(tree path key, tensor, whether stored transposed) of each parameter."""
+    for key, t in flatten(params).items():
+        parts = parse_key(key)
+        yield key, t, parts[-1] == "w" and str(parts[-2]).startswith("dense_")
+
+
+def opt_state_to_jax(opt, params) -> dict:
+    """The state of `opt` (an OptaxRule over the leaves of `params`) as
+    gnn_tpu's optax state flattened under jax.tree_util.keystr names, e.g.
+    "[0].count" and "[0].mu['state']['dense_0']['w']" (dense moments
+    [in, out], as params_to_jax stores weights). Moments not yet created
+    (before the first step) are their initial values."""
+    slots, counts = _opt_layout(opt)
+    flat = {c: np.asarray(opt.param_groups[0]["count"], dtype=np.int32) for c in counts}
+    for key, p, transposed in _leaves(params):
+        st = opt.state.get(p, {})
+        for name, prefix, init in slots:
+            v = (st[name].detach().cpu().numpy().astype(np.float32) if name in st
+                 else np.full(tuple(p.shape), init, dtype=np.float32))
+            flat[prefix + key] = v.T.copy() if transposed else v
+    return flat
+
+
+def opt_state_from_jax(opt, params, flat) -> None:
+    """Install gnn_tpu's flattened optax state (opt_state_to_jax's layout) into
+    `opt`, an OptaxRule over the leaves of `params`; the update count is the
+    state's count (0 where the chain keeps none)."""
+    slots, counts = _opt_layout(opt)
+    for key, p, transposed in _leaves(params):
+        st = opt.state[p]
+        for name, prefix, _ in slots:
+            v = np.asarray(flat[prefix + key], dtype=np.float32)
+            st[name] = torch.as_tensor(v.T.copy() if transposed else v, device=p.device)
+    opt.param_groups[0]["count"] = int(flat[counts[0]]) if counts else 0

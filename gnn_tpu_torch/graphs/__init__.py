@@ -1,1 +1,1 @@
-"""Host graphs, datasets and padded tensor batches."""
+"""Host graphs, datasets, dataset utilities and padded tensor batches."""

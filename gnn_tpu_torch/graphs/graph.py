@@ -4,11 +4,15 @@ A graph is an arc list [src, dst, arc label...], a node label matrix and
 targets. Aggregation weights per arc follow the reference's three modes:
 'sum' (w = 1), 'normalized' (w = 1/E) and 'average' (w = 1/indeg(dst)).
 `merge` is the disjoint-union batching of the reference (node ids offset per
-graph, block-diagonal NodeGraph pooling matrix).
+graph, block-diagonal NodeGraph pooling matrix). `save`/`load` (.npy) and
+`savetxt`/`load_txt` (.txt) folders are gnn_tpu's: the same files, written
+only when not at their default, so a folder moves between the packages.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 from typing import Optional, Sequence
 
 import numpy as np
@@ -31,11 +35,18 @@ class Graph:
     :param aggregation_mode: 'average' | 'normalized' | 'sum'.
     :param node_types: optional (N,) int node types of a composite model
         (one state net per type).
+    :param problem_based / NodeGraph / ArcNode: the reference's names for
+        focus and node_graph; ArcNode is derived from the arcs, never kept.
     """
 
     def __init__(self, arcs, nodes, targets, focus: str = "n",
                  set_mask=None, output_mask=None, sample_weights=1,
-                 node_graph=None, aggregation_mode: str = "average", node_types=None):
+                 node_graph=None, aggregation_mode: str = "average", node_types=None,
+                 problem_based: Optional[str] = None, NodeGraph=None, ArcNode=None):
+        if problem_based is not None:
+            focus = problem_based
+        if NodeGraph is not None and node_graph is None:
+            node_graph = NodeGraph
         if focus not in ("n", "a", "g"):
             raise ValueError("focus must be 'n', 'a' or 'g'")
         if aggregation_mode not in AGGREGATIONS:
@@ -79,12 +90,21 @@ class Graph:
                 raise ValueError("len(node_types) != number of nodes")
 
     @property
+    def problem_based(self) -> str:
+        """The reference's name of focus."""
+        return self.focus
+
+    @property
     def n_nodes(self) -> int:
         return self.nodes.shape[0]
 
     @property
     def n_arcs(self) -> int:
         return self.arcs.shape[0]
+
+    @property
+    def n_graphs(self) -> int:
+        return 1 if self.NodeGraph is None else self.NodeGraph.shape[1]
 
     # src/dst/edge_weights/graph_ids/pool_weights are cached per instance
     # (batch builders call them repeatedly); treat the arrays as read-only.
@@ -125,6 +145,29 @@ class Graph:
         self.__dict__["_ew"] = (self.aggregation_mode, w)
         return w
 
+    def set_aggregation(self, aggregation_mode: str) -> None:
+        """Switch the aggregation mode (reference setAggregation)."""
+        if aggregation_mode not in AGGREGATIONS:
+            raise ValueError("ERROR: Unknown aggregation mode")
+        self.aggregation_mode = aggregation_mode
+
+    setAggregation = set_aggregation
+
+    def getAdjacency(self):
+        """N x N scipy COO adjacency, ADJ[src, dst] = w_e (duplicate arcs
+        accumulate)."""
+        from scipy.sparse import coo_matrix
+        n = self.n_nodes
+        return coo_matrix((self.edge_weights(), (self.src, self.dst)), shape=(n, n),
+                          dtype=floatx())
+
+    def getArcNode(self):
+        """E x N scipy COO incidence, A[e, dst_e] = w_e."""
+        from scipy.sparse import coo_matrix
+        e = self.n_arcs
+        return coo_matrix((self.edge_weights(), (np.arange(e), self.dst)),
+                          shape=(e, self.n_nodes), dtype=floatx())
+
     def graph_ids(self) -> np.ndarray:
         """Per-node graph membership (int32, all zeros when not graph-focused)."""
         def build():
@@ -141,15 +184,31 @@ class Graph:
             return self.NodeGraph[np.arange(self.n_nodes), self.graph_ids()].astype(floatx())
         return self._cached("_pw", build)
 
+    def copy(self) -> "Graph":
+        """Deep copy."""
+        return Graph(arcs=self.arcs.copy(), nodes=self.nodes.copy(), targets=self.targets.copy(),
+                     focus=self.focus, set_mask=self.set_mask.copy(),
+                     output_mask=self.output_mask.copy(),
+                     sample_weights=self.sample_weights.copy(),
+                     node_graph=None if self.NodeGraph is None else self.NodeGraph.copy(),
+                     aggregation_mode=self.aggregation_mode,
+                     node_types=None if self.node_types is None else self.node_types.copy())
+
+    @classmethod
+    def fromGraphTensor(cls, gb, aggregation_mode: Optional[str] = None) -> "Graph":
+        """The host Graph of a GraphBatch (GraphBatch.to_graph)."""
+        return gb.to_graph(aggregation_mode=aggregation_mode)
+
     @classmethod
     def merge(cls, glist: Sequence["Graph"], focus: Optional[str] = None,
-              aggregation_mode: Optional[str] = None) -> "Graph":
+              aggregation_mode: Optional[str] = None,
+              problem_based: Optional[str] = None) -> "Graph":
         """Disjoint-union batching: node ids offset per graph, masks/targets/
         weights and node types (0 for a graph without them) concatenated,
         NodeGraph block-diagonal."""
         if not glist:
             raise ValueError("merge requires a non-empty list of graphs")
-        focus = focus or glist[0].focus
+        focus = focus or problem_based or glist[0].focus
         aggregation_mode = aggregation_mode or glist[0].aggregation_mode
         arcs_list, offset = [], 0
         for g in glist:
@@ -183,7 +242,127 @@ class Graph:
                    node_graph=node_graph, aggregation_mode=aggregation_mode,
                    node_types=node_types)
 
+    # ------------------------------------------------------------------- I/O
+    def _folder_files(self):
+        """(name, array, fmt) of the files a save writes: the optional ones
+        only when not at their default."""
+        files = [("arcs", self.arcs, None), ("nodes", self.nodes, None),
+                 ("targets", self.targets, None)]
+        if not all(self.set_mask):
+            files.append(("set_mask", self.set_mask, None))
+        if not all(self.output_mask):
+            files.append(("output_mask", self.output_mask, None))
+        if np.any(self.sample_weights != 1):
+            files.append(("sample_weights", self.sample_weights, None))
+        if self.NodeGraph is not None and self.targets.shape[0] > 1:
+            files.append(("NodeGraph", self.NodeGraph, None))
+        if self.node_types is not None:
+            files.append(("node_types", self.node_types, "%d"))
+        return files
+
+    @staticmethod
+    def _new_folder(folder: str) -> str:
+        folder = folder if folder.endswith("/") else folder + "/"
+        if os.path.exists(folder):
+            shutil.rmtree(folder)
+        os.makedirs(folder)
+        return folder
+
+    def save(self, folder: str) -> None:
+        """Save as a .npy folder (replacing it)."""
+        folder = self._new_folder(folder)
+        for name, arr, _ in self._folder_files():
+            np.save(folder + name + ".npy", arr)
+
+    def savetxt(self, folder: str, fmt: str = "%.10g") -> None:
+        """Save as a .txt folder (replacing it)."""
+        folder = self._new_folder(folder)
+        for name, arr, own in self._folder_files():
+            np.savetxt(folder + name + ".txt", arr, fmt=own or fmt)
+
+    @classmethod
+    def load(cls, folder: str, focus: Optional[str] = None, aggregation_mode: str = "average",
+             problem_based: Optional[str] = None) -> "Graph":
+        """Load a .npy graph folder."""
+        folder = folder if folder.endswith("/") else folder + "/"
+        params = {f.rsplit(".", 1)[0]: np.load(folder + f) for f in os.listdir(folder)
+                  if f.endswith(".npy")}
+        return cls(focus=focus or problem_based or "n", aggregation_mode=aggregation_mode,
+                   **params)
+
+    @classmethod
+    def load_txt(cls, folder: str, focus: Optional[str] = None,
+                 aggregation_mode: str = "average",
+                 problem_based: Optional[str] = None) -> "Graph":
+        """Load a .txt graph folder."""
+        folder = folder if folder.endswith("/") else folder + "/"
+        params = {f.rsplit(".", 1)[0]: np.loadtxt(folder + f, ndmin=2) for f in os.listdir(folder)
+                  if f.endswith(".txt")}
+        for key in ("set_mask", "output_mask", "sample_weights", "node_types"):
+            if key in params:
+                params[key] = params[key].reshape(-1)
+        return cls(focus=focus or problem_based or "n", aggregation_mode=aggregation_mode,
+                   **params)
+
+    # ---------------------------------------------------------- reference getters
+    def getArcs(self):
+        return self.arcs.copy()
+
+    def getNodes(self):
+        return self.nodes.copy()
+
+    def getTargets(self):
+        return self.targets.copy()
+
+    def getSetMask(self):
+        return self.set_mask.copy()
+
+    def getOutputMask(self):
+        return self.output_mask.copy()
+
+    def getSampleWeights(self):
+        return self.sample_weights.copy()
+
+    def getNodeGraph(self):
+        return None if self.NodeGraph is None else self.NodeGraph.copy()
+
     def __repr__(self) -> str:
         return (f"Graph(N={self.n_nodes}, E={self.n_arcs}, "
                 f"focus={self.focus!r}, agg={self.aggregation_mode!r}, "
                 f"NL={self.DIM_NODE_LABEL}, AL={self.DIM_ARC_LABEL}, DT={self.DIM_TARGET})")
+
+
+GraphObject = Graph   # the reference's class name
+
+
+def split_graphs(g: Graph) -> list:
+    """The graphs a graph-focus Graph merges (Graph.merge), each with its
+    nodes, arcs (ids from 0), masks, node types, target row, sample weight
+    and pooling column; [g] when g is not graph-focused or holds one graph."""
+    if g.focus != "g" or g.n_graphs <= 1:
+        return [g]
+    G, gid = g.n_graphs, g.graph_ids()
+    if len(gid) and gid.max() >= G:
+        raise ValueError("NodeGraph has rows outside its columns")
+    egid = gid[g.src]
+    if np.any(egid != gid[g.dst]):
+        raise ValueError("an arc joins two graphs of a merged graph")
+    norder = np.argsort(gid, kind="stable")
+    ncount = np.bincount(gid, minlength=G)
+    nstart = np.concatenate([[0], np.cumsum(ncount)])
+    local = np.empty(g.n_nodes, dtype=np.int64)
+    local[norder] = np.arange(g.n_nodes) - np.repeat(nstart[:-1], ncount)
+    eorder = np.argsort(egid, kind="stable")
+    estart = np.concatenate([[0], np.cumsum(np.bincount(egid, minlength=G))])
+    pool = g.pool_weights()
+    out = []
+    for k in range(G):
+        nodes = norder[nstart[k]:nstart[k + 1]]
+        arcs = g.arcs[eorder[estart[k]:estart[k + 1]]].copy()
+        arcs[:, :2] = local[arcs[:, :2].astype(np.int64)]
+        out.append(Graph(arcs=arcs, nodes=g.nodes[nodes], targets=g.targets[k:k + 1],
+                         focus="g", set_mask=g.set_mask[nodes], output_mask=g.output_mask[nodes],
+                         sample_weights=g.sample_weights[k:k + 1],
+                         node_graph=pool[nodes][:, None], aggregation_mode=g.aggregation_mode,
+                         node_types=None if g.node_types is None else g.node_types[nodes]))
+    return out

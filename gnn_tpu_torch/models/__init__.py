@@ -1,1 +1,1 @@
-"""Functional core and user-facing models (inference)."""
+"""Functional core, user-facing models and the training engine."""

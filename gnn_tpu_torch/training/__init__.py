@@ -1,1 +1,1 @@
-"""Losses and optimizers of the training step."""
+"""Losses, optimizers, checkpoints and TensorBoard event files."""

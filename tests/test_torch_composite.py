@@ -262,7 +262,7 @@ def check_step_against_gnn_tpu(js, jp, jbn, jb, ts, tb, rng, expect_route, grad_
     model = CompositeGNNgraphBased(ts.state_specs, ts.output_spec, optimizer=cfg,
                                    max_iteration=ts.max_iteration, threshold=ts.threshold,
                                    aggregation=ts.aggregation, seed=0, device="cpu")
-    model.set_weights(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
+    model.set_params(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
     assert tcomp._route(model.spec, tb, True) == expect_route
     masks = jax_masks(js, tb.n_node_pad, tb.n_node_pad, rng)
     out = model.training_step(tb, masks=masks)

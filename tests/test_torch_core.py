@@ -257,7 +257,7 @@ def test_entry_points_default_to_the_card():
 
 def test_bn_free_model_round_trip(tmp_path):
     """A BN-free state net (no 'bn' leaves) carries across from gnn_tpu with
-    set_weights, trains, saves in gnn_tpu's format and loads back in both
+    set_params, trains, saves in gnn_tpu's format and loads back in both
     packages with the same weights and eval outputs."""
     from gnn_tpu.models.gnn import GNNgraphBased as JGraph
     js, ts = _specs(bn=False)
@@ -266,7 +266,7 @@ def test_bn_free_model_round_trip(tmp_path):
     jgs, tgs = _graphs(5)
     model = GNNgraphBased(ts.state_spec, ts.output_spec, max_iteration=4, threshold=0.01, seed=0,
                           device="cpu")
-    model.set_weights(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
+    model.set_params(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
     tb = model.to_batch(tgs, block_w=32)
     assert tcore._train_route(model.spec, tb) == "dropout"
     for _ in range(2):

@@ -176,7 +176,7 @@ def test_fused_eval_on_flat_batches_matches_gnn_tpu(monkeypatch, kind, layers, t
     kern = jcore.gnn_forward(js, jp, jbn, jb, jax.random.key(1))
     model = GNNgraphBased(TSpec(**sk), TSpec(**ok), max_iteration=6, threshold=threshold,
                           aggregation="fused", seed=0, device="cpu")
-    model.set_weights(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
+    model.set_params(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
     assert tcore._eval_route(model.spec, tb) == ("hybrid" if layers == 1 else "hybrid2")
     calls = _counted(monkeypatch)
     rt = model.forward(tb)
@@ -232,7 +232,7 @@ def test_fused_training_step_on_flat_batches_matches_gnn_tpu(monkeypatch, kind, 
 
     model = GNNgraphBased(TSpec(**sk), TSpec(**ok), optimizer=opt_cfg, max_iteration=K,
                           threshold=0.01, aggregation="fused", seed=0, device="cpu")
-    model.set_weights(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
+    model.set_params(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
     masks = _jax_masks(js, tb.n_node_pad, rng)
     assert tcore._train_route(model.spec, tb) == route
     with torch.no_grad():

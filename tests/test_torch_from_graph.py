@@ -256,7 +256,7 @@ def test_pallas_bn_training_step_matches_gnn_tpu(monkeypatch):
 
     model = GNNgraphBased(TSpec(**sk), TSpec(**ok), optimizer=cfg, max_iteration=K,
                           threshold=0.01, aggregation="pallas", seed=0, device="cpu")
-    model.set_weights(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
+    model.set_params(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
     assert tcore._train_route(model.spec, tb) == "plain"
     calls = _count_plain_k18(monkeypatch)
     out = model.training_step(tb, masks=_jax_masks(js, tb.n_node_pad, rng))

@@ -34,7 +34,7 @@ def _models(tmp_path, focus, act="tanh", bn=False, nl=3, al=1, dt=2):
     tm = getattr(gnn_tpu_torch, klass)(gnn_tpu_torch.MLPSpec(**spec),
                                        gnn_tpu_torch.MLPSpec(**ospec), max_iteration=4,
                                        threshold=0.01, device="cpu")
-    tm.set_weights(*jax.tree_util.tree_map(np.asarray, (jm.params, jm.bn)))
+    tm.set_params(*jax.tree_util.tree_map(np.asarray, (jm.params, jm.bn)))
     return jm, tm
 
 

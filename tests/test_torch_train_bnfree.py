@@ -92,7 +92,7 @@ def test_training_step_matches_gnn_tpu(route, threshold):
 
     model = GNNgraphBased(TSpec(**sk), TSpec(**ok), optimizer=opt_cfg, max_iteration=K,
                           threshold=threshold, seed=0, device="cpu")
-    model.set_weights(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
+    model.set_params(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
     masks = _jax_masks(js, tb.n_node_pad, rng)
     assert tcore._train_route(model.spec, tb) == route
     with torch.no_grad():

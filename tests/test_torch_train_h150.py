@@ -107,7 +107,7 @@ def test_eval_forward_matches_gnn_tpu(monkeypatch, threshold, bn):
         rj = jcore.gnn_forward(js, jp, jbn, jb, jax.random.key(1))
     model = GNNgraphBased(TSpec(**sk), TSpec(**ok), max_iteration=6, threshold=threshold, seed=0,
                           device="cpu")
-    model.set_weights(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
+    model.set_params(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
     assert tcore._eval_route(model.spec, tb) == "hybrid2"
     calls = _counted(monkeypatch)
     tf2.reset_launches()
@@ -152,7 +152,7 @@ def _step_against_gnn_tpu(monkeypatch, sk, ok, threshold, route, expect, jbn=Non
 
     model = GNNgraphBased(TSpec(**sk), TSpec(**ok), optimizer=opt_cfg, max_iteration=K,
                           threshold=threshold, seed=0, device="cpu")
-    model.set_weights(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
+    model.set_params(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
     masks = _jax_masks(js, tb.n_node_pad, rng)
     assert tcore._train_route(model.spec, tb) == route
     with torch.no_grad():
@@ -316,7 +316,7 @@ def test_predictor_serves_two_layer_model(tmp_path):
                                loss_function=LOSS, max_iteration=K, threshold=0.01,
                                path_writer=str(tmp_path / "w"), seed=0)
     tm = GNNgraphBased(TSpec(**sk), TSpec(**ok), max_iteration=K, threshold=0.01, device="cpu")
-    tm.set_weights(*jax.tree_util.tree_map(np.asarray, (jm.params, jm.bn)))
+    tm.set_params(*jax.tree_util.tree_map(np.asarray, (jm.params, jm.bn)))
     want = JPredictor(jm, block_w=32).predict(jgs)
     got = Predictor(tm, block_w=32, device="cpu").predict(tgs)
     assert len(got) == len(want) == len(tgs)

@@ -206,7 +206,7 @@ def test_training_step_matches_gnn_tpu(threshold, state_drop):
     # the port, same weights and masks
     model = GNNgraphBased(TSpec(**sk), TSpec(**ok), optimizer=opt_cfg, max_iteration=K,
                           threshold=threshold, seed=0, device="cpu")
-    model.set_weights(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
+    model.set_params(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
     masks = _jax_masks(js, tb.n_node_pad, rng)
     with torch.no_grad():
         iters_t, loss_t, res_t = tcore.evaluate_single(model.spec, model.params, model.bn, tb,

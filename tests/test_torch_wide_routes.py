@@ -305,7 +305,7 @@ def _models(layers, drop, bn, threshold):
     model = GNNgraphBased(TSpec(**sk), TSpec(**ok), optimizer=jopt.optimizer_config("adam"),
                           max_iteration=K, threshold=threshold, aggregation="auto", seed=0,
                           device="cpu")
-    model.set_weights(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
+    model.set_params(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
     return js, jp, jbn, model
 
 
