@@ -274,6 +274,35 @@
    finite metrics, the test folds disjoint and covering the 300; (g) the
    epochs' EpochSeconds and EdgesPerSecond from the writer's Training.jsonl,
    with the card's name and power limit.
+21. LGNN (models/lgnn.py): the 5-layer stack of examples/mutag_lgnn.py:38-62
+   (hidden-150 two-layer selu state nets without dropout or BatchNorm, state
+   width 14 then 16; selu -> softmax readouts of hidden 150; Adam 1e-3;
+   seeded weights; lgnn_model). (a) Predictor(lgnn) on the 8 requests of the
+   serving phases: K10 once and, where the request has dep blocks, K9 K times
+   a layer a request, no other kernel; outputs within 1e-5 of the same stack
+   on the CPU, every layer's iteration count equal; the full-set forward
+   timed and profiled. (b) One parallel and (c) one residual step on the
+   training batch (K10 5, K11 5, K9 25 launches, no other) and a serial epoch
+   (each layer's step, evaluation and augmentation: K10 15, K11 5, K9 75),
+   each against the CPU: iterations equal, loss rtol 1e-5, moving statistics
+   1e-5, grads and params as in phase 12 (hold_grads, hold_params), the
+   float64 twin run on the card through the kernels' plain versions; a grad
+   tensor off both the CPU and float64 passes if the card is within its
+   bound of the float64 step along the derivative branches the card's
+   readouts took (their pre-activations recorded), or norm-wise within 2e-4
+   of float64 where, in a tensor whose reverse feeds it, the CPU's float32
+   misses float64, or else the float64 step with the state nets' selu units
+   within the card's rounding of the kink switched does (hold_stack). (d) lgnn.train for up to 5 epochs
+   on the engine's split, then test: finite metrics, K11 5 an epoch, the
+   EpochSeconds. (e) The starter's stack (starter.py:58-96 with focus 'g':
+   one-layer selu state nets with AlphaDropout 0.1 and BatchNorm, softmax
+   readouts with dropout 0.1): one parallel step through K1/K2 (25 launches
+   each), the card's masks reused on the CPU, held likewise.
+22. Implicit adjoint: one grad_mode='ift' step (20 backward iterations) of the
+   clean flagship (K3 once, K4 K times) and of h150_clean (K10 once, K9 K
+   times), their state weights scaled by 0.3 for a contractive map (as
+   tests/test_torch_ift.py does), as the training paths of phase 12 are held
+   to the CPU; K5, K11 and every other backward kernel launch 0 times.
 
 Prints a JSON line of per-kernel numbers (K1-K18), then as its
 last line {"ok": true, "device": {...}}. Any failed check exits non-zero
@@ -282,6 +311,7 @@ before that.
 Usage, from the repository root: python3 chip_smoke.py
 """
 
+import contextlib
 import itertools
 import json
 import os
@@ -329,10 +359,12 @@ def phase_device(torch):
         f"{nvcc.stdout.strip().splitlines()[-1]}; device {torch.cuda.get_device_name(0)}")
 
 
-def phase_build():
+def phase_build(force=True):
+    """Compiles the kernels (with `force`, whatever the build folder holds)
+    and loads the library."""
     from gnn_tpu_torch.ops import _build
     t0 = time.perf_counter()
-    _build.build(force=True)
+    _build.build(force=force)
     _build.library()
     out = os.path.join(os.path.dirname(os.path.abspath(__file__)), "chiprun_out")
     os.makedirs(out, exist_ok=True)
@@ -705,7 +737,9 @@ def phase_profile(torch, fwd, runs=5, what="full-set forward"):
 # hidden-150 recipe ("h150"), the recipe without dropout ("h150_clean") and
 # with the trailing BatchNorm ("h150_bn"), the composite flagship
 # ("composite_bn", composite_model) and the flagship with aggregation='pallas'
-# on a plan batch ("pallas"); the kernel wrappers each path launches, and how
+# on a plan batch ("pallas"), the clean variants trained with the implicit
+# adjoint ("ift_clean", "ift_h150_clean": the eval kernels, no backward
+# kernel); the kernel wrappers each path launches, and how
 # often a step ("K": once per iteration; "2K-1": K forward and K - 1 on the
 # transpose plan)
 ROUTES = {"bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
@@ -718,7 +752,9 @@ ROUTES = {"bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
           "composite_bn": {"bnT_forward_step": "K", "bnT_backward_step": "K"},
           "pallas": {"segment_aggregate": "2K-1"},
           "flat_bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
-          "flat_dropout": {"train_step": "K"}}
+          "flat_dropout": {"train_step": "K"},
+          "ift_clean": {"propagation_loop": 1, "propagation_step": "K"},
+          "ift_h150_clean": {"propagation_loop2": 1, "propagation_step2": "K"}}
 
 
 def variant_dims(variant):
@@ -756,6 +792,10 @@ def flagship(torch, device, variant="bn", optimizer="adam", model_kw=None):
     state net (starter.py: selu, AlphaDropout 0.1 at its input, the trailing
     BatchNorm) with the recipe's hidden layer, and the recipe's readout.
     "pallas" is the flagship with aggregation='pallas' (K18 on a plan batch).
+    A variant "ift_<v>" is <v> with grad_mode='ift' (the implicit adjoint,
+    20 backward iterations), its state net's weights scaled by 0.3 so that
+    the state map is a contraction and the adjoint's Neumann series
+    converges (tests/test_torch_ift.py).
     A variant "flat_<v>" is <v> with aggregation='fused', which runs the
     kernels on batches without the loop/dep layout (the all-dep layout); a
     variant "w<D>_<v>" is <v> at node-label (and state) width D, "a<AL>_"
@@ -765,11 +805,14 @@ def flagship(torch, device, variant="bn", optimizer="adam", model_kw=None):
     or name; `model_kw`: further keyword arguments of the model class (the
     engine's extra_metrics, path_writer)."""
     from gnn_tpu_torch import GNNgraphBased, MLPSpec, get_inout_dims
+    from gnn_tpu_torch.models import core
     dims = variant_dims(variant)
     width, variant = dims["width"], dims["base"]
     if variant == "composite_bn":
         return composite_model(torch, device, T=dims["types"], width=width, optimizer=optimizer,
                                act=dims["act"])
+    ift = variant.startswith("ift_")
+    variant = variant[4:] if ift else variant
     fused = variant.startswith("flat_")
     variant = variant[5:] if fused else variant
     hidden = dims["hidden"] if variant.startswith("h150") else None
@@ -787,9 +830,14 @@ def flagship(torch, device, variant="bn", optimizer="adam", model_kw=None):
                  kernel_initializer="glorot_normal", bias_initializer="glorot_normal",
                  batch_normalization=False, **out_drop)
     model = GNNgraphBased(ss, so, optimizer=optimizer, max_iteration=5, threshold=0.01,
-                          seed=SEED, device=device, **(model_kw or {}),
+                          seed=SEED, device=device, grad_mode="ift" if ift else "unroll",
+                          **(model_kw or {}),
                           aggregation="pallas" if variant == "pallas" else
                           "fused" if fused else "auto")
+    if ift:
+        with torch.no_grad():
+            for p in core.param_leaves(model.params["state"]):
+                p.mul_(0.3)
     if variant in ("bn", "h150_bn", "pallas"):
         gen = torch.Generator().manual_seed(SEED + 1)    # non-trivial inference BN statistics
         d = l_s[-1]
@@ -2624,17 +2672,9 @@ def steps64(torch, variant, gb_cpu, masks, optimizer="adam"):
     """The model of `variant` after one training step for each mask set in
     `masks` on the CPU in float64, from the same weights (the params after the
     optimizer's last step), and its first step's grads by key."""
-    import dataclasses
     from gnn_tpu_torch.convert import flatten
-    from gnn_tpu_torch.models import core
-    model = flagship(torch, "cpu", variant, optimizer)
-    for p in core.param_leaves(model.params):
-        p.data = p.data.double()
-    model.bn = tree_map(lambda v: v.double(), model.bn)
-    gb64 = dataclasses.replace(gb_cpu, **{
-        f.name: getattr(gb_cpu, f.name).double() for f in dataclasses.fields(gb_cpu)
-        if torch.is_tensor(getattr(gb_cpu, f.name))
-        and getattr(gb_cpu, f.name).dtype == torch.float32})
+    model = to_float64(torch, flagship(torch, "cpu", variant, optimizer))
+    gb64 = batch64(torch, gb_cpu)
     grads = None
     for m in masks:
         model.training_step(gb64, masks=m)
@@ -2643,97 +2683,170 @@ def steps64(torch, variant, gb_cpu, masks, optimizer="adam"):
     return model, grads
 
 
-def check_params64(torch, variant, card, cpu, grads0, gb_cpu, masks, optimizer="adam"):
-    """The params after the steps on the card (`card`) against the CPU's
-    (`cpu`) where they differ by more than TOL, held to the float64 steps
-    from the same weights with the same masks (`masks`, one set a step), the
-    exact values both float32 runs approximate. Adam's step moves each entry
-    by lr * m / (sqrt(v) + eps): an entry whose gradients are within rounding
-    of 0, or set-valued (check_first_grads), moves by a share of lr that
-    rounding decides, so there both float32 runs may miss TOL against each
-    other and against float64. A tensor passes if the card is within TOL of
-    the float64 steps (the CPU's float32 is then the one off), or if the CPU's
-    own float32 steps miss TOL against float64 too and the card's first-step
-    grads of that tensor are within the grads bound (rtol 2e-4, floor 2e-5 of
-    the largest entry) of the float64 grads; else it fails. Returns the
-    largest card-vs-CPU difference."""
-    from gnn_tpu_torch.convert import flatten
-    m64 = g64 = None
+def to_float64(torch, model):
+    """`model` (a GNN or an LGNN) with its params, moving statistics and
+    optimizer in float64, in place."""
+    from gnn_tpu_torch.models import core
+    for p in core.param_leaves(model._params() if hasattr(model, "gnns") else model.params):
+        p.data = p.data.double()
+    for m in getattr(model, "gnns", [model]):
+        m.bn = tree_map(lambda v: v.double(), m.bn)
+    return model
+
+
+def batch64(torch, gb):
+    """The batch with its float32 tensors in float64."""
+    import dataclasses
+    return dataclasses.replace(gb, **{
+        f.name: getattr(gb, f.name).double() for f in dataclasses.fields(gb)
+        if torch.is_tensor(getattr(gb, f.name))
+        and getattr(gb, f.name).dtype == torch.float32})
+
+
+def hold_grads(torch, label, card, cpu, twin, feeds=None, switched=None, witness=None):
+    """The first step's grads on the card (`card`, by key) against the CPU's
+    (`cpu`): within rtol 2e-4 with a floor of 2e-5 of each tensor's largest
+    entry. A tensor that misses it is held to the float64 twin of the CPU's
+    step on the same weights and masks (`twin()` -> float64 grads by key,
+    asked for on the first miss), the exact value both float32 steps
+    approximate: it passes if the card meets the same elementwise bound
+    against it (the CPU's float32 step is then the one off), or against
+    `switched()` where given: the float64 step with the derivative branch
+    switched at the kinked units where the card's own recorded pre-activation
+    lies on the other side of the kink (the branch the card took; None if
+    there is none). Otherwise it is accepted only if a float32 computation
+    without the kernels misses that bound against float64 too, in this tensor
+    or in one whose reverse feeds it (`feeds(key)` -> keys; by default the
+    tensor alone): the CPU's step, or where given `witness` ((its name, a
+    function -> grads by key) of another such step, asked for only then). The gradient is then
+    set-valued at this scale (pre-activations of a kinked activation within
+    rounding of 0 take either derivative branch, gnn_tpu's adjudication,
+    docs/kernels.md:241-249) and no float32 computation meets an elementwise
+    bound; the card is held norm-wise to the float64 step: ||card - g64|| <=
+    2e-4 ||g64||. Returns the largest elementwise card-vs-CPU difference."""
+    import functools
+    worst, missed = 0.0, []
+    for key, want in cpu.items():
+        got = card[key].cpu()
+        if not bool(torch.isfinite(got).all()):
+            fail(f"{label} grad {key}: non-finite on the card")
+        ok, err = grads_close(got, want)
+        worst = max(worst, err)
+        if not ok:
+            missed.append((key, err))
+    if not missed:
+        return worst
+    g64 = twin()
+
+    def off(grads):
+        return {k: g for k, g in g64.items() if not grads_close(grads[k].double(), g)[0]}
+    cpu_off = off(cpu)
+    wit_off = functools.cache(lambda: off(witness[1]()))
+    for key, err in missed:
+        g = g64[key]
+        got, want = card[key].cpu().double(), cpu[key].double()
+        card_ok64, card_err64 = grads_close(got, g)
+        err64 = grads_close(want, g)[1]
+        if card_ok64:
+            say(f"{label} grad {key}: card vs CPU {err:.3e} misses the elementwise bound; the "
+                f"card is within it of the float64 step ({card_err64:.3e}), the CPU's float32 "
+                f"{err64:.3e} from it")
+            continue
+        sw = switched() if switched is not None else None
+        if sw is not None:
+            sw_ok, sw_err = grads_close(got, sw["grads"][key])
+            if sw_ok:
+                say(f"{label} grad {key}: card vs CPU {err:.3e} and vs float64 {card_err64:.3e} "
+                    f"miss the elementwise bound; the card is within it ({sw_err:.3e}) of the "
+                    f"float64 step along its own derivative branches ({sw['units']})")
+                continue
+        fed_by = feeds(key) if feeds is not None else (key,)
+        fed, by = [k for k in fed_by if k in cpu_off], "the CPU's float32"
+        if not fed and witness is not None:
+            fed, by = [k for k in fed_by if k in wit_off()], witness[0]
+        rel = float(torch.linalg.norm(got - want) / torch.linalg.norm(want))
+        r_card = float(torch.linalg.norm(got - g) / torch.linalg.norm(g))
+        r_cpu = float(torch.linalg.norm(want - g) / torch.linalg.norm(g))
+        if not fed:
+            fail(f"{label} grad {key}: card and CPU differ by {err:.3e} (norm-wise {rel:.3e}), "
+                 f"card and float64 by {card_err64:.3e} (norm-wise {r_card:.3e}); neither the "
+                 f"CPU's float32{f' nor {witness[0]}' if witness else ''} misses the bound "
+                 f"against float64 in a tensor feeding this one (the CPU's here {err64:.3e})")
+        if r_card > 2e-4:
+            fail(f"{label} grad {key}: card and CPU differ by {err:.3e} (norm-wise {rel:.3e}); "
+                 f"{by} misses the bound against float64 in {fed[0]}, but norm-wise the card is "
+                 f"{r_card:.3e} from float64 (bound 2e-4; the CPU {r_cpu:.3e})")
+        say(f"{label} grad {key}: card vs CPU {err:.3e} misses the elementwise bound, as "
+            f"{by} misses it against float64 in {fed[0]}"
+            f"{f' and {len(fed) - 1} more tensors feeding this one' if len(fed) > 1 else ''}; "
+            f"norm-wise card vs CPU {rel:.3e}, from float64 card {r_card:.3e}, CPU {r_cpu:.3e}")
+    return worst
+
+
+def hold_params(torch, label, card, cpu, grads0, twin, steps):
+    """The params after `steps` steps on the card (`card`, by key) against
+    the CPU's (`cpu`) where they differ by more than TOL, held to the float64
+    steps from the same weights with the same masks (`twin()` -> (float64
+    params, float64 first-step grads) by key), the exact values both float32
+    runs approximate. Adam's step moves each entry by lr * m / (sqrt(v) +
+    eps): an entry whose gradients are within rounding of 0, or set-valued
+    (hold_grads), moves by a share of lr that rounding decides, so there both
+    float32 runs may miss TOL against each other and against float64. A
+    tensor passes if the card is within TOL of the float64 steps (the CPU's
+    float32 is then the one off), or if the CPU's own float32 steps miss TOL
+    against float64 too and the card's first-step grads of that tensor
+    (`grads0`) are within the grads bound (rtol 2e-4, floor 2e-5 of the
+    largest entry) of the float64 grads; else it fails. Returns the largest
+    card-vs-CPU difference."""
     worst = 0.0
-    steps = len(masks)
-    for key, p in flatten(cpu.params).items():
-        got = flatten(card.params)[key].detach().cpu()
+    for key, p in cpu.items():
+        got = card[key].detach().cpu()
         err = float((got - p.detach()).abs().max())
         worst = max(worst, err)
         if err <= TOL:
             continue
-        if m64 is None:
-            m64, g64 = steps64(torch, variant, gb_cpu, masks, optimizer)
-        want = flatten(m64.params)[key].detach()
+        p64, g64 = twin()
+        want = p64[key].detach().cpu()
         card64 = float((got.double() - want).abs().max())
         cpu64 = float((p.detach().double() - want).abs().max())
-        grads_ok, gerr = grads_close(grads0[key].cpu().double(), g64[key])
+        grads_ok, gerr = grads_close(grads0[key].cpu().double(), g64[key].cpu())
         if card64 <= TOL:
             verdict = "the card is within it of the float64 steps"
         elif cpu64 > TOL and grads_ok:
             verdict = ("the CPU's float32 misses it against float64 too, and the card's "
                        f"first-step grads are within their bound of the float64 grads ({gerr:.3e})")
         else:
-            fail(f"'{variant}' params {key} after {steps} steps: card vs CPU {err:.3e}, card vs "
+            fail(f"{label} params {key} after {steps} steps: card vs CPU {err:.3e}, card vs "
                  f"float64 {card64:.3e}, CPU vs float64 {cpu64:.3e}, card's first-step grads vs "
                  f"float64 {gerr:.3e} ({'within' if grads_ok else 'outside'} their bound)")
-        say(f"'{variant}' params {key} after {steps} steps: card vs CPU {err:.3e} misses {TOL:g}; "
+        say(f"{label} params {key} after {steps} steps: card vs CPU {err:.3e} misses {TOL:g}; "
             f"{verdict} (card vs float64 {card64:.3e}, CPU vs float64 {cpu64:.3e})")
     return worst
 
 
+def check_params64(torch, variant, card, cpu, grads0, gb_cpu, masks, optimizer="adam"):
+    """A model's params after the steps on the card (`card`) against the
+    CPU's (`cpu`), held by hold_params to the float64 steps of `variant`
+    (steps64) with the same masks (`masks`, one set a step)."""
+    import functools
+    from gnn_tpu_torch.convert import flatten
+
+    @functools.cache
+    def twin():
+        m64, g64 = steps64(torch, variant, gb_cpu, masks, optimizer)
+        return flatten(m64.params), g64
+    return hold_params(torch, f"'{variant}'", flatten(card.params), flatten(cpu.params), grads0,
+                       twin, len(masks))
+
+
 def check_first_grads(torch, variant, card, cpu, gb_cpu, masks):
     """The first step's grads on the card (`card`, by key) against the CPU
-    model's: within rtol 2e-4 with a floor of 2e-5 of each tensor's largest
-    entry. A tensor that misses it is held to the float64 twin of the CPU's
-    step on the same weights and masks, the exact value both float32 steps
-    approximate: it passes if the card meets the same elementwise bound
-    against it (the CPU's float32 step is then the one off). Otherwise it is
-    accepted only if the CPU's own float32 step misses that bound against
-    float64 too: then the gradient is set-valued at this scale
-    (pre-activations of a kinked activation within rounding of 0 take either
-    derivative branch, gnn_tpu's adjudication, docs/kernels.md:241-249) and no
-    float32 computation meets an elementwise bound. The card is then held
-    norm-wise to the float64 step: ||card - g64|| <= 2e-4 ||g64||. Returns the
-    largest elementwise difference."""
+    model's (`cpu`), held by hold_grads, each tensor on its own, to the
+    float64 step of `variant` on the same weights and masks."""
     from gnn_tpu_torch.convert import flatten
-    worst, missed = 0.0, []
-    for key, p in flatten(cpu.params).items():
-        ok, err = grads_close(card[key].cpu(), p.grad)
-        worst = max(worst, err)
-        if not bool(torch.isfinite(card[key]).all()):
-            fail(f"'{variant}' grad {key}: non-finite on the card")
-        if not ok:
-            missed.append((key, p.grad, err))
-    if missed:
-        g64 = first_step_grads64(torch, variant, gb_cpu, masks)
-    for key, want, err in missed:
-        g = g64[key]
-        got = card[key].cpu().double()
-        card_ok64, card_err64 = grads_close(got, g)
-        ok64, err64 = grads_close(want.double(), g)
-        if card_ok64:
-            say(f"'{variant}' grad {key}: card vs CPU {err:.3e} misses the elementwise bound; the "
-                f"card is within it of the float64 step ({card_err64:.3e}), the CPU's float32 "
-                f"{err64:.3e} from it")
-            continue
-        rel = float(torch.linalg.norm(got - want.double()) / torch.linalg.norm(want.double()))
-        r_card = float(torch.linalg.norm(got - g) / torch.linalg.norm(g))
-        r_cpu = float(torch.linalg.norm(want.double() - g) / torch.linalg.norm(g))
-        if ok64 or r_card > 2e-4:
-            fail(f"'{variant}' grad {key}: card and CPU differ by {err:.3e} (norm-wise {rel:.3e}); "
-                 f"the CPU's float32 is {'within' if ok64 else 'outside'} the bound against "
-                 f"float64 ({err64:.3e}); norm-wise from float64: card {r_card:.3e}, CPU "
-                 f"{r_cpu:.3e}")
-        say(f"'{variant}' grad {key}: card vs CPU {err:.3e} misses the elementwise bound, as the "
-            f"CPU's float32 misses it against float64 ({err64:.3e}); norm-wise card vs CPU "
-            f"{rel:.3e}, from float64 card {r_card:.3e}, CPU {r_cpu:.3e}")
-    return worst
+    return hold_grads(torch, f"'{variant}'", card,
+                      {k: p.grad for k, p in flatten(cpu.params).items()},
+                      lambda: first_step_grads64(torch, variant, gb_cpu, masks))
 
 
 def phase_training(torch, gb, n_arcs, variant, steps, optimizer="adam", profile=True):
@@ -3734,14 +3847,505 @@ def engine_checks(torch, graphs, tmp):
         f"{time.perf_counter() - t_phase:.1f} s")
 
 
-def main():
-    import dataclasses
 
+LGNN_LAYERS = 5
+
+
+def lgnn_model(torch, device, path_writer, starter=False):
+    """Phase 21's LGNN: LGNN_LAYERS graph-focus layers at MUTAG widths (14
+    node-label, 3 arc-label, 2 target dims), get_state False, get_output True,
+    K=5, threshold 0.01, Adam at 1e-3, seeded random weights (layer l from
+    seed SEED + l). By default examples/mutag_lgnn.py:38-62's stack:
+    hidden-150 two-layer selu state nets without BatchNorm or dropout (state
+    widths 14, then 16), readouts of hidden 150 (selu, softmax); with
+    `starter`, starter.py:58-96's with focus 'g': one-layer selu state nets
+    with AlphaDropout 0.1 at the input and the trailing BatchNorm, softmax
+    readouts with dropout 0.1; the stack's masks from a seeded generator."""
+    from gnn_tpu_torch import LGNN, GNNgraphBased, MLPSpec, get_inout_dims
+    from gnn_tpu_torch import metrics as mt
+    hidden = None if starter else 150
+    gnns = []
+    for layer in range(LGNN_LAYERS):
+        dims = dict(layer=layer, get_state=False, get_output=True)
+        in_s, l_s = get_inout_dims("state", 14, 3, 2, "g", 0, hidden, **dims)
+        in_o, l_o = get_inout_dims("output", 14, 3, 2, "g", 0, hidden, **dims)
+        drop = dict(dropout_rate=(0.1,), dropout_pos=(0,)) if starter else {}
+        ss = MLPSpec(input_dim=in_s, units=tuple(l_s), activations="selu",
+                     kernel_initializer="lecun_normal", bias_initializer="lecun_normal",
+                     batch_normalization=starter, alphadropout=starter, **drop)
+        so = MLPSpec(input_dim=in_o, units=tuple(l_o),
+                     activations="softmax" if starter else ("selu", "softmax"),
+                     kernel_initializer="glorot_normal", bias_initializer="glorot_normal",
+                     batch_normalization=False, **drop)
+        gnns.append(GNNgraphBased(ss, so, loss_arguments={"from_logits": False}, max_iteration=5,
+                                  threshold=0.01, seed=SEED + layer, device=device))
+    lgnn = LGNN(gnns, False, True, optimizer={"name": "adam", "kwargs": {"learning_rate": 1e-3}},
+                loss_function="categorical_crossentropy", loss_arguments={"from_logits": False},
+                extra_metrics={k: mt.Metrics[k] for k in ("Acc", "Bacc", "Fs")},
+                path_writer=path_writer)
+    lgnn.mask_gen.manual_seed(SEED + 2)     # the same masks every run
+    return lgnn
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Every kernel wrapper of the port (ops/{bn,fused,fused2,typed,segment}.py)
+    replaced by its plain version (its name with _ref, the function the
+    wrapper runs on the CPU), for float64 twins on the card: the kernels take
+    float32 only."""
+    import importlib
+    saved = []
+    for name in ("bn", "fused", "fused2", "typed", "segment"):
+        mod = importlib.import_module(f"gnn_tpu_torch.ops.{name}")
+        for attr in dir(mod):
+            if attr.endswith("_ref") and callable(getattr(mod, attr[:-4], None)):
+                saved.append((mod, attr[:-4], getattr(mod, attr[:-4])))
+                setattr(mod, attr[:-4], getattr(mod, attr))
+    try:
+        yield
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+@contextlib.contextmanager
+def readout_units(torch, switch=None):
+    """Records the pre-activation of every selu and softmax the port's MLPs
+    apply (the readouts; a state net's activations run in a kernel or its
+    plain version) in call order, as (name, tensor), and with `switch` (a
+    bool mask a call) takes selu's other derivative branch where the mask is
+    set. Yields the list of records. Without `switch` the values and
+    gradients are torch's."""
+    import torch.nn.functional as F
+    from gnn_tpu_torch.ops import mlp
+    pre = []
+
+    class Switched(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, flip):
+            ctx.save_for_backward(x, flip)
+            return F.selu(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            x, flip = ctx.saved_tensors
+            d = torch.where((x > 0) ^ flip, mlp.SELU_SCALE,
+                            mlp.SELU_SCALE * mlp.SELU_ALPHA * torch.exp(x.clamp_max(0.0)))
+            return g * d, None
+    saved = dict(mlp._ACTIVATIONS)
+
+    def selu(x):
+        pre.append(("selu", x.detach()))
+        return F.selu(x) if switch is None else Switched.apply(x, switch[len(pre) - 1])
+
+    def softmax(x):
+        pre.append(("softmax", x.detach()))
+        return saved["softmax"](x)
+    mlp._ACTIVATIONS.update(selu=selu, softmax=softmax)
+    try:
+        yield pre
+    finally:
+        mlp._ACTIVATIONS.update(saved)
+
+
+@contextlib.contextmanager
+def kinks_switched(torch, band):
+    """The plain versions' activation derivative (ops/fused.py::_act_grad,
+    which every plain reverse step of a state net takes) with selu's branch
+    switched at every pre-activation within `band` of the kink. Yields a
+    one-element list, the count of switched units."""
+    import importlib
+    from gnn_tpu_torch.ops import fused, mlp
+    plain = fused._act_grad
+    count = [0]
+
+    def act_grad(name, h):
+        d = plain(name, h)
+        if name != "selu":
+            return d
+        near = h.abs() <= band
+        count[0] += int(near.sum())
+        other = torch.where(h > 0, mlp.SELU_SCALE * mlp.SELU_ALPHA * torch.exp(h.clamp_max(0.0)),
+                            mlp.SELU_SCALE)
+        return torch.where(near, other, d)
+    saved = []
+    for name in ("bn", "fused", "fused2", "typed"):
+        mod = importlib.import_module(f"gnn_tpu_torch.ops.{name}")
+        if getattr(mod, "_act_grad", None) is plain:
+            saved.append((mod, "_act_grad", plain))
+            mod._act_grad = act_grad
+        for attr in dir(mod):
+            fn = getattr(mod, attr)
+            if any(d is plain for d in getattr(fn, "__defaults__", None) or ()):
+                saved.append((fn, "__defaults__", fn.__defaults__))
+                fn.__defaults__ = tuple(act_grad if d is plain else d for d in fn.__defaults__)
+            if any(d is plain for d in (getattr(fn, "__kwdefaults__", None) or {}).values()):
+                saved.append((fn, "__kwdefaults__", fn.__kwdefaults__))
+                fn.__kwdefaults__ = {k: act_grad if d is plain else d
+                                     for k, d in fn.__kwdefaults__.items()}
+    try:
+        yield count
+    finally:
+        for obj, attr, value in reversed(saved):
+            setattr(obj, attr, value)
+
+
+def stack_twin(torch, make, gb, run, switch=None, band=None):
+    """The float64 twin of an LGNN's work: `make(device)`'s stack on the
+    batch's device in float64, `run(model, batch)` on the float64 batch with
+    the kernels' plain versions (plain_versions), the readouts'
+    pre-activations recorded and selu's derivative branch switched there by
+    `switch` (readout_units), and with `band` the state nets' selu units
+    within it of the kink switched (kinks_switched). Returns {"params",
+    "grads": by key on the host, "pre": the recorded pre-activations,
+    "switched": the state-net units switched}."""
+    from gnn_tpu_torch.convert import flatten
+    model = to_float64(torch, make(gb.device.type))
+    with (plain_versions(), readout_units(torch, switch) as pre,
+          kinks_switched(torch, band) if band else contextlib.nullcontext([0]) as count):
+        run(model, batch64(torch, gb))
+    flat = flatten(model._params())
+    return {"params": {k: p.detach().cpu() for k, p in flat.items()},
+            "grads": {k: p.grad.detach().cpu() for k, p in flat.items()}, "pre": pre,
+            "switched": count[0]}
+
+
+def hold_stack(torch, label, card, cpu, pre, twin_of, serial=False):
+    """An LGNN's grads and params after one step on the card (`card`,
+    lgnn_step_result's; a serial epoch: each layer's one step) against the
+    CPU's (`cpu`), held by hold_grads and hold_params to the float64 twin
+    (`twin_of(switch=None, band=None)` -> stack_twin's result; run once, then
+    as needed with the readout units switched where the card's recorded
+    pre-activations `pre` lie on the other side of selu's kink than
+    float64's, and as hold_grads' witness where the CPU's float32 opens no
+    gate: with the state nets' units switched where they lie within the
+    float32 rounding of the kink, taken as the largest distance between the
+    card's and float64's readout pre-activations). A tensor's set-valued gate
+    opens on misses against float64 in the tensors whose reverse feeds it: in
+    a parallel or residual step those of every layer above, its own layer's
+    readout and, for a state net, itself; in a serial epoch, where each layer
+    trains alone, only its own layer's. Returns the largest card-vs-CPU
+    differences (grads, params)."""
+    import functools
+    from gnn_tpu_torch.convert import parse_key
+    twin = functools.cache(lambda: twin_of(None))
+
+    @functools.cache
+    def base():
+        got = twin()["pre"]
+        if [(n, p.shape) for n, p in pre] != [(n, p.shape) for n, p in got]:
+            fail(f"{label}: the card's readouts ran {[(n, tuple(p.shape)) for n, p in pre]}, the "
+                 f"float64 twin's {[(n, tuple(p.shape)) for n, p in got]}")
+        return got
+
+    @functools.cache
+    def switched():
+        flips = [(a > 0) != (b > 0) if n == "selu" else torch.zeros_like(b, dtype=torch.bool)
+                 for (n, a), (_, b) in zip(pre, base())]
+        per_call = [int(f.sum()) for (n, _), f in zip(pre, flips) if n == "selu"]
+        if not sum(per_call):
+            return None
+        return {"grads": twin_of(flips)["grads"],
+                "units": f"{sum(per_call)} readout units switched, {per_call} by call"}
+
+    def near_kinks():
+        band = max((float((a.double() - b).abs().max()) for (_, a), (_, b) in zip(pre, base())),
+                   default=0.0)
+        if not band:            # no readout: no measure of the rounding
+            return twin()["grads"]
+        got = twin_of(None, band)
+        say(f"{label}: the float64 step with the {got['switched']} state-net units within "
+            f"{band:.3e} (the card's largest readout pre-activation distance from float64) of "
+            f"selu's kink switched")
+        return got["grads"]
+
+    def net(key):
+        return parse_key(key)[:2]
+
+    def feeds(key):
+        layer, part = net(key)
+        return [k for k in cpu["grads"]
+                if (net(k)[0] == layer and net(k)[1] in (part, "output"))
+                or (not serial and net(k)[0] > layer)]
+    gerr = hold_grads(torch, label, card["grads"], cpu["grads"], lambda: twin()["grads"], feeds,
+                      switched, ("the float64 step with its state nets' near-kink units switched",
+                                 near_kinks))
+    perr = hold_params(torch, label, card["params"], cpu["params"], card["grads"],
+                       lambda: (twin()["params"], twin()["grads"]), 1)
+    return gerr, perr
+
+
+def lgnn_step_check(torch, label, make, gb, n_arcs, want, mode="parallel"):
+    """One training step of `make`'s LGNN in `mode` on the card, counting the
+    port's kernel launches (`want`, no other) and recording its readouts'
+    pre-activations, against the same step on the CPU with the card's masks:
+    realised counts equal, loss rtol 1e-5, moving statistics TOL, grads and
+    params as hold_stack holds them. Then 3 more steps timed and profiled.
+    Returns the step's host-clock ms."""
+    from gnn_tpu_torch.convert import flatten
+    from gnn_tpu_torch.models import lgnn as tlgnn
+    card = make("cuda")
+    card.training_mode = mode
+    masks = tlgnn.draw_masks(card._specs, gb, card.mask_gen)
+    reset_port_launches()
+    with readout_units(torch) as pre:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = card.training_step(gb, masks=masks)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+    launched = port_launch_counts()
+    if launched != want:
+        fail(f"{label}: launches {launched}, expected {want}")
+    t0 = time.perf_counter()
+    cpu = make("cpu")
+    cpu.training_mode = mode
+    ref = lgnn_step_result(cpu, cpu.training_step(
+        gb.to("cpu"), masks=tree_map(lambda v: None if v is None else v.cpu(), masks)))
+    cpu_s = time.perf_counter() - t0
+    if out["iters"].tolist() != ref["iters"].tolist():
+        fail(f"{label}: iters {out['iters'].tolist()} on the card, {ref['iters'].tolist()} on "
+             f"the CPU")
+    lerr = close_rel(torch, out["loss"].cpu(), ref["loss"], 1e-5, 0.0, f"{label} loss")
+    berr = max([float((v.cpu() - ref["bn"][k]).abs().max())
+                for k, v in flatten(card._bns()).items()], default=0.0)
+    if berr > TOL:
+        fail(f"{label}: moving statistics differ from the CPU's by {berr:.3e}")
+
+    def run(model, batch):
+        model.training_mode = mode
+        model.training_step(batch, masks=masks)
+    gerr, perr = hold_stack(torch, label, lgnn_step_result(card, out), ref, pre,
+                            lambda switch, band=None: stack_twin(torch, make, gb, run, switch,
+                                                                 band))
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.training_step(gb)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    say(f"{label}: step {ms:.3f} ms (host clock, synchronized; 3 more "
+        f"{[round(t, 3) for t in times]} ms), CPU step {cpu_s:.1f} s; iters "
+        f"{out['iters'].tolist()}, loss {float(out['loss']):.6f}; vs CPU: loss {lerr:.3e}, "
+        f"moving stats {berr:.3e}, grads {gerr:.3e}, params {perr:.3e}; "
+        f"{n_arcs * float(out['iters'].sum()) / (sorted(times)[1] / 1e3):.4e} edges/s "
+        f"(all layers' iterations) ({elapsed()})")
+
+    def step():
+        card.training_step(gb)
+        torch.cuda.synchronize()
+    phase_profile(torch, step, runs=3, what=f"{label} step")
+    return ms
+
+
+def lgnn_step_result(model, out):
+    """What hold_stack and the step checks read of an LGNN after a step, on
+    the host: iters, loss, moving statistics, grads and params by key."""
+    from gnn_tpu_torch.convert import flatten
+    flat = flatten(model._params())
+    return {"iters": out["iters"].cpu(), "loss": out["loss"].cpu(),
+            "bn": {k: v.detach().cpu() for k, v in flatten(model._bns()).items()},
+            "grads": {k: p.grad.detach().cpu().clone() for k, p in flat.items()},
+            "params": {k: p.detach().cpu().clone() for k, p in flat.items()}}
+
+
+def reset_port_launches():
+    from gnn_tpu_torch.ops import bn, fused, fused2, segment, typed
+    for m in (bn, fused, fused2, segment, typed):
+        m.reset_launches()
+
+
+def port_launch_counts():
+    """The port's wrappers' launch counts since the last reset, the nonzero ones."""
+    from gnn_tpu_torch.ops import bn, fused, fused2, segment, typed
+    return {k: n for m in (bn, fused, fused2, segment, typed) for k, n in m.launches.items()
+            if n}
+
+
+def phase_lgnn(torch, graphs, requests, gb_train, n_arcs):
+    """Phase 21: the 5-layer hidden-150 LGNN served and trained on the card
+    (module docstring)."""
+    import shutil
+    import tempfile
+    say(f"---- LGNN ({elapsed()})")
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_lgnn_")
+    try:
+        lgnn_checks(torch, graphs, requests, gb_train, n_arcs, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    say(f"LGNN phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def lgnn_checks(torch, graphs, requests, gb_train, n_arcs, tmp):
+    import numpy as np
+    from gnn_tpu_torch import Graph, Predictor
+    from gnn_tpu_torch.graphs.utils import getindices
+    from gnn_tpu_torch.models import lgnn as tlgnn
+    L, K = LGNN_LAYERS, 5
+    names = iter(range(10 ** 6))
+
+    def make(device, **kw):
+        return lgnn_model(torch, device, os.path.join(tmp, f"w{next(names)}") + "/", **kw)
+
+    # ---- (a) Predictor(lgnn): 8 requests against the CPU
+    t0 = time.perf_counter()
+    card = make("cuda")
+    pred, pred_cpu = Predictor(card), Predictor(make("cpu"), device="cpu")
+    pred.warmup([r for _, r in requests])
+    say(f"LGNN serving: warmup {time.perf_counter() - t0:.2f} s")
+    worst, per_request = 0.0, {}
+    for name, req in requests:
+        glist = [req] if isinstance(req, Graph) else list(req)
+        host = pred.build_batch(glist)
+        want = {}
+        if host.adj_loop is not None:
+            want["propagation_loop2"] = L
+        if host.adj_dep is not None:
+            want["propagation_step2"] = L * K
+        reset_port_launches()
+        t0 = time.perf_counter()
+        out = pred.predict(req)
+        ms = (time.perf_counter() - t0) * 1e3
+        launched, iters = port_launch_counts(), pred.stats["last_iters"]
+        if launched != want or launched.get("propagation_loop2") != L:
+            fail(f"LGNN request {name!r}: launches {launched}, expected {want} with K10 {L}")
+        ref = pred_cpu.predict(req)
+        for o, r in zip(*(([x] if isinstance(req, Graph) else x) for x in (out, ref))):
+            if o.shape != r.shape or not np.isfinite(o).all() or not (abs(o - r) <= TOL).all():
+                fail(f"LGNN request {name!r}: output differs from the CPU run")
+            worst = max(worst, float(abs(o - r).max()))
+        if iters != pred_cpu.stats["last_iters"]:
+            fail(f"LGNN request {name!r}: iters {iters} on the card, "
+                 f"{pred_cpu.stats['last_iters']} on the CPU")
+        per_request[name] = ms
+        say(f"LGNN request {name!r}: {len(glist)} graphs, {ms:.3f} ms (predict, host clock), "
+            f"iters {iters}, launches {launched}")
+    say(f"LGNN served outputs vs CPU: max abs diff {worst:.3e} over {len(requests)} requests "
+        f"({elapsed()})")
+    gb_all = pred.build_batch(graphs).to("cuda")
+
+    def fwd():
+        with torch.no_grad():
+            r = tlgnn.lgnn_forward(card._specs, card._params(), card._bns(), gb_all, False,
+                                   False, True)
+        torch.cuda.synchronize()
+        return r
+    iters = [float(i) for i in fwd()[0]]
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        fwd()
+        times.append(time.perf_counter() - t0)
+    t_med = sorted(times)[5]
+    say(f"LGNN full-set forward on {CARD}: {t_med * 1e3:.3f} ms median of 10 (host clock, "
+        f"synchronized), iters {iters}, {n_arcs * sum(iters) / t_med:.4e} edges/s (all "
+        f"layers' iterations)")
+    phase_profile(torch, fwd, what="LGNN full-set forward")
+
+    # ---- (b) one parallel step, (c) one residual step, against the CPU
+    step_want = {"propagation_loop2": L, "propagation_loop2_bwd": L, "propagation_step2": L * K}
+    lgnn_step_check(torch, "LGNN parallel", make, gb_train, n_arcs, step_want)
+    lgnn_step_check(torch, "LGNN residual", make, gb_train, n_arcs, step_want, mode="residual")
+
+    # ---- (c) one serial epoch against the CPU
+    def serial(model, batch):
+        model.train(batch, 1, update_freq=1, training_mode="serial", verbose=0)
+    card = make("cuda")
+    reset_port_launches()
+    with readout_units(torch) as pre:
+        t0 = time.perf_counter()
+        serial(card, gb_train)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+    launched = port_launch_counts()
+    # a layer: its step, its evaluation and the augmentation by its outputs
+    want = {"propagation_loop2": 3 * L, "propagation_loop2_bwd": L, "propagation_step2": 3 * L * K}
+    if launched != want:
+        fail(f"LGNN serial epoch: launches {launched}, expected {want}")
+    t0 = time.perf_counter()
+    cpu = make("cpu")
+    serial(cpu, gb_train.to("cpu"))
+    cpu_s = time.perf_counter() - t0
+    for i, (g, c) in enumerate(zip(card.gnns, cpu.gnns)):
+        if g.history["It Tr"] != c.history["It Tr"]:
+            fail(f"LGNN serial layer {i}: It {g.history['It Tr']} on the card, "
+                 f"{c.history['It Tr']} on the CPU")
+        close_rel(torch, torch.tensor(g.history["Loss Tr"]), torch.tensor(c.history["Loss Tr"]),
+                  1e-5, 0.0, f"LGNN serial layer {i} loss")
+    # each layer's grads are those of its one step
+    none = {"iters": torch.zeros(0), "loss": torch.zeros(())}
+    gerr, perr = hold_stack(torch, "LGNN serial", lgnn_step_result(card, none),
+                            lgnn_step_result(cpu, none), pre,
+                            lambda switch, band=None: stack_twin(torch, make, gb_train,
+                                                                 serial, switch, band),
+                            serial=True)
+    say(f"LGNN serial epoch: {card_s:.3f} s on the card (host clock), CPU {cpu_s:.1f} s, "
+        f"launches {launched}; per layer It {[g.history['It Tr'] for g in card.gnns]}, loss "
+        f"{[round(g.history['Loss Tr'][0], 6) for g in card.gnns]}; vs CPU: grads {gerr:.3e}, "
+        f"params {perr:.3e} ({elapsed()})")
+
+    # ---- (d) lgnn.train for up to 5 epochs, then test
+    tr, te, va = getindices(len(graphs), 0.7, 0.1, seed=SEED)
+    card = make("cuda")
+    gTr, gVa, gTe = (card.to_batch([graphs[i] for i in idx]) for idx in (tr, va, te))
+    reset_port_launches()
+    t0 = time.perf_counter()
+    card.train(gTr, 5, gVa, update_freq=1, max_fails=5, training_mode="parallel", verbose=0)
+    train_s = time.perf_counter() - t0
+    E = len(card.history["Epoch"])
+    launched = port_launch_counts()
+    if launched.get("propagation_loop2_bwd") != L * E or set(launched) != set(step_want):
+        fail(f"LGNN train: {E} epochs, launches {launched}")
+    res = card.test(gTe)
+    if not all(np.isfinite(v) for v in res.values()):
+        fail(f"LGNN test: metrics {res}")
+    rows = [json.loads(x) for x in open(os.path.join(card.path_writer, "Training.jsonl"))]
+    secs = [r["value"] for r in rows if r["name"] == "EpochSeconds"]
+    say(f"LGNN train on {CARD}: {E} epochs in {train_s:.3f} s (host clock), EpochSeconds "
+        f"{[round(x, 6) for x in secs]} ({int(gTr.n_real[1])} arcs an epoch), launches "
+        f"{launched}; Loss Tr {[round(x, 6) for x in card.history['Loss Tr']]}; test "
+        f"{ {k: round(v, 6) for k, v in res.items()} } ({elapsed()})")
+
+    # ---- (e) the starter's LGNN: one parallel step through K1/K2
+    lgnn_step_check(torch, "LGNN starter", lambda d: make(d, starter=True), gb_train, n_arcs,
+                    {"bn_forward_step": L * K, "bn_backward_step": L * K})
+
+
+def phase_ift(torch, gb_train, n_arcs):
+    """Phase 22: one grad_mode='ift' step of the flagship's clean variant
+    (K3 once, K4 K times) and of h150_clean (K10 once, K9 K times), no
+    backward kernel (module docstring)."""
+    t_phase = time.perf_counter()
+    say(f"---- implicit adjoint ({elapsed()})")
+    for variant in ("ift_clean", "ift_h150_clean"):
+        phase_training(torch, gb_train, n_arcs, variant, 1)
+    say(f"IFT phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def main():
     import torch
     phase_device(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase_build()
+    phases(torch)
+
+
+def request_picks(graphs):
+    """The serving phases' 8 requests as (name, index or slice of `graphs`):
+    the whole set, three of 32 graphs, the first graph over 128 nodes, the
+    largest graph, a small one and the first 32 again."""
+    big = [i for i, g in enumerate(graphs) if g.n_nodes > 128]
+    largest = max(range(len(graphs)), key=lambda i: graphs[i].n_nodes)
+    return [("all", slice(None)), ("32a", slice(0, 32)), ("32b", slice(32, 64)),
+            ("32c", slice(64, 96)), ("big", big[0]), ("largest", largest), ("small", 1),
+            ("32a again", slice(0, 32))]
+
+
+def phases(torch):
+    import dataclasses
 
     from gnn_tpu_torch import Predictor
     from gnn_tpu_torch.graphs.datasets import mutag_shaped
@@ -3756,10 +4360,7 @@ def main():
         f"over 128 nodes ({time.perf_counter() - t0:.2f} s)")
     model = flagship(torch, "cuda")
 
-    largest = max(range(len(graphs)), key=lambda i: graphs[i].n_nodes)
-    picks = [("all", slice(None)), ("32a", slice(0, 32)), ("32b", slice(32, 64)),
-             ("32c", slice(64, 96)), ("big", big[0]), ("largest", largest), ("small", 1),
-             ("32a again", slice(0, 32))]
+    picks = request_picks(graphs)
     requests = [(name, graphs[i]) for name, i in picks]
 
     t0 = time.perf_counter()
@@ -3827,6 +4428,8 @@ def main():
     phase_optimizers(torch, gb_train, n_arcs)
     k18_launches = phase_pallas(torch, graphs, gb_plan_cpu, gb_plan, n_arcs)
     phase_engine(torch, graphs)
+    phase_lgnn(torch, graphs, requests, gb_train, n_arcs)
+    phase_ift(torch, gb_train, n_arcs)
     for k, (path, key) in {"K1": ("bn", "bn_forward_step"), "K2": ("bn", "bn_backward_step"),
                            "K3": ("flagship", "propagation_loop"),
                            "K4": ("flagship", "propagation_step"),

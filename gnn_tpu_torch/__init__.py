@@ -8,7 +8,9 @@ at inference and in training, and composite models' per-type state nets
 training engine (models/engine.py), metrics, checkpoints, event files and
 dataset utilities need no scikit-learn, pandas or matplotlib (matplotlib
 only to draw ROC / precision-recall figures). Entry points run on the card
-unless the caller passes device='cpu'. Module layout mirrors gnn_tpu's.
+unless the caller passes device='cpu'. Module layout mirrors gnn_tpu's:
+models/lgnn.py stacks the models into gnn_tpu's LGNN, and models/ift.py
+gives grad_mode='ift' its implicit adjoint.
 """
 
 from gnn_tpu_torch import metrics
@@ -19,10 +21,12 @@ from gnn_tpu_torch.graphs.graph import Graph, GraphObject
 from gnn_tpu_torch.models.gnn import (CompositeGNNedgeBased, CompositeGNNgraphBased,
                                       CompositeGNNnodeBased, GNNedgeBased, GNNgraphBased,
                                       GNNnodeBased)
+from gnn_tpu_torch.models.lgnn import LGNN
 from gnn_tpu_torch.ops.mlp import MLPSpec, get_inout_dims
 from gnn_tpu_torch.serving import PendingPrediction, Predictor
 
 __all__ = ["Graph", "GraphObject", "GraphBatch", "GraphDataGenerator",
            "SingleGraphDataGenerator", "GNNnodeBased", "GNNedgeBased", "GNNgraphBased",
-           "CompositeGNNnodeBased", "CompositeGNNedgeBased", "CompositeGNNgraphBased", "MLPSpec",
+           "CompositeGNNnodeBased", "CompositeGNNedgeBased", "CompositeGNNgraphBased", "LGNN",
+           "MLPSpec",
            "get_inout_dims", "floatx", "metrics", "Predictor", "PendingPrediction"]

@@ -6,7 +6,8 @@ BatchNorm statistics as {"state": {"mean", "var"}, "output": {...}}. Its save
 folder flattens them into .npz files keyed by tree paths such as
 "['state']['dense_0']['w']" (models/engine.py::tree_to_npz). A composite
 model's per-type state nets are a tuple, whose entries are keyed by index:
-"['state'][0]['dense_0']['w']". The port keeps the same nesting with dense
+"['state'][0]['dense_0']['w']"; an LGNN's checkpoint holds a tuple of its
+layers' trees: "[0]['state']['dense_0']['w']". The port keeps the same nesting with dense
 weights stored [out, in], PyTorch's convention. `params_to_jax` and
 `flatten` go the other way, for saves gnn_tpu can load.
 """
@@ -69,11 +70,15 @@ def load_npz(path: str) -> dict:
 def params_from_jax(params_np: dict, bn_np: dict, device="cpu"):
     """(params, bn) of tensors from gnn_tpu's (params, bn) pytrees given as
     nested dicts of arrays (or flat tree path keys); dense weights are
-    transposed to [out, in]."""
+    transposed to [out, in]. Tuples of such trees (an LGNN's layers) give
+    tuples."""
     if any(isinstance(k, str) and k.startswith("[") for k in params_np):
         params_np = nest(params_np)
     if any(isinstance(k, str) and k.startswith("[") for k in bn_np):
         bn_np = nest(bn_np)
+    if isinstance(params_np, (list, tuple)):
+        bns = bn_np if isinstance(bn_np, (list, tuple)) else [{}] * len(params_np)
+        return _unzip(params_from_jax(p, b, device) for p, b in zip(params_np, bns))
 
     def t(x):
         return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
@@ -99,7 +104,9 @@ def params_from_jax(params_np: dict, bn_np: dict, device="cpu"):
 def params_to_jax(params: dict, bn: dict):
     """gnn_tpu's (params, bn) pytrees as nested dicts of numpy arrays from the
     port's tensors: the inverse of params_from_jax (dense weights back to
-    [in, out])."""
+    [in, out]); tuples of trees (an LGNN's layers) give tuples."""
+    if isinstance(params, (list, tuple)):
+        return _unzip(params_to_jax(p, b) for p, b in zip(params, bn))
     def a(t):
         return t.detach().cpu().numpy().astype(np.float32)
 
@@ -116,6 +123,11 @@ def params_to_jax(params: dict, bn: dict):
 
     return ({net: per_net(layers, p) for net, p in params.items()},
             {net: per_net(stats, b) for net, b in bn.items()})
+
+
+def _unzip(pairs):
+    params, bn = zip(*pairs)
+    return tuple(params), tuple(bn)
 
 
 def flatten(tree, prefix: str = "") -> dict:
@@ -172,7 +184,8 @@ def opt_state_to_jax(opt, params) -> dict:
     """The state of `opt` (an OptaxRule over the leaves of `params`) as
     gnn_tpu's optax state flattened under jax.tree_util.keystr names, e.g.
     "[0].count" and "[0].mu['state']['dense_0']['w']" (dense moments
-    [in, out], as params_to_jax stores weights). Moments not yet created
+    [in, out], as params_to_jax stores weights), or for an LGNN's tuple of
+    layers "[0].mu[1]['state']['dense_0']['w']". Moments not yet created
     (before the first step) are their initial values."""
     slots, counts = _opt_layout(opt)
     flat = {c: np.asarray(opt.param_groups[0]["count"], dtype=np.int32) for c in counts}

@@ -43,6 +43,7 @@ import torch
 
 from gnn_tpu_torch.config import floatx, pad_size
 from gnn_tpu_torch.graphs.graph import Graph
+from gnn_tpu_torch.ops.aggregate import aggregate_to_nodes
 from gnn_tpu_torch.ops.segment import AggPlanPair, build_agg_plan
 
 
@@ -67,8 +68,9 @@ class GraphBatch:
     sample_weights: torch.Tensor  # [Tp]
     out_index: torch.Tensor      # [Tp] int64 entity (or graph) row per target
     sel_mask: torch.Tensor       # [Tp] bool
-    # --- loop-invariant arc-label aggregation, sum_e w_e * label_e per dst ---
-    agg_arcs_cache: torch.Tensor  # [Np, AL]
+    # --- loop-invariant arc-label aggregation, sum_e w_e * label_e per dst;
+    # None where the labels changed after packing (an LGNN layer's batch) ---
+    agg_arcs_cache: Optional[torch.Tensor]  # [Np, AL]
     res_w: Optional[torch.Tensor] = None   # [Er] residual arc weights (0 on pad); blocked only
     # --- fused layout: the loop fields are None unless fused_layout=True and a
     # loop block exists; the dep fields then hold the dep blocks, else (the
@@ -112,6 +114,14 @@ class GraphBatch:
     @property
     def device(self) -> torch.device:
         return self.nodes.device
+
+    def agg_arcs(self) -> torch.Tensor:
+        """The arc-label aggregation A^T_w @ arc_labels [Np, AL]: the cache, or
+        without one (gnn_tpu's propagate, core.py:314-315) computed on the
+        batch's device, differentiable in the labels."""
+        if self.agg_arcs_cache is not None:
+            return self.agg_arcs_cache
+        return aggregate_to_nodes(self.arc_labels, self.edge_w, self.dst, self.n_node_pad)
 
     def pad_shapes(self) -> Tuple[int, int, int]:
         return (self.n_node_pad, self.n_edge_pad, self.n_target_pad)

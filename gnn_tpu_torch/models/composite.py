@@ -25,9 +25,11 @@ nets' output as wide as the node labels,
   the homogeneous one (core.state_aggregation), so a 'pallas' spec on a
   batch with a plan aggregates through K18.
 
-state_dim > 0 raises NotImplementedError, as the homogeneous port does, and
-so does training a spec with grad_mode='ift'. Dropout keep-masks are drawn
-by `draw_masks` (one state keep-mask per type) or passed in.
+With grad_mode='ift' the plain body gives the fixed point, computed without
+a graph, and the implicit adjoint of models/ift.py differentiates it through
+one plain per-type step (gnn_tpu composite.py:222-253). state_dim > 0 raises
+NotImplementedError, as the homogeneous port does. Dropout keep-masks are
+drawn by `draw_masks` (one state keep-mask per type) or passed in.
 """
 
 from __future__ import annotations
@@ -38,9 +40,9 @@ from typing import Optional, Tuple
 import torch
 
 from gnn_tpu_torch.graphs.batch import GraphBatch
-from gnn_tpu_torch.models.core import (check_dims, check_modes, check_trainable,
-                                       draw_net_masks, draw_output_masks, finish_step, full_fp32,
-                                       plain_loop, readout, weighted_loss)
+from gnn_tpu_torch.models.core import (check_dims, check_modes, draw_net_masks,
+                                       draw_output_masks, finish_ift, finish_step, full_fp32,
+                                       ift_step_input, plain_loop, readout, weighted_loss)
 from gnn_tpu_torch.ops.mlp import MLPSpec, mlp_apply, mlp_init, mlp_regularization
 from gnn_tpu_torch.ops.typed import (bn_typed_train_propagate, supports_typed_bn_train,
                                      supports_typed_eval, typed_eval_propagate)
@@ -168,7 +170,25 @@ def composite_propagate(spec: CompositeGNNSpec, params_state, bn_state, gb: Grap
             new = new + o * is_t[:, None].to(o.dtype)
             new_bns.append(nb)
         return new, tuple(new_bns)
-    return plain_loop(spec, gb, step, tuple(bn_state))
+    if spec.grad_mode != "ift":
+        return plain_loop(spec, gb, step, tuple(bn_state))
+    with torch.no_grad():
+        k, state, bn_out = plain_loop(spec, gb, step, tuple(bn_state))
+    return k, finish_ift(spec, training, params_state, bn_out, gb, state, _ift_state_step), bn_out
+
+
+def _ift_state_step(spec: CompositeGNNSpec, training: bool, params_state, s, consts):
+    """One stationary step of the per-type state nets (gnn_tpu's
+    _composite_ift_state_step, composite.py:235-251) on core.ift_step_input,
+    no kernel."""
+    gb = consts["gb"]
+    inp = ift_step_input(s, consts)
+    out = 0.0
+    for t, (ss, p, b) in enumerate(zip(spec.state_specs, params_state, consts["bn"])):
+        is_t = gb.node_types == t
+        o, _ = mlp_apply(ss, p, b, inp, training=training, stat_mask=gb.node_mask & is_t)
+        out = out + o * is_t[:, None].to(o.dtype)
+    return out
 
 
 def composite_forward(spec: CompositeGNNSpec, params, bn, gb: GraphBatch,
@@ -199,7 +219,6 @@ def composite_train_step(spec: CompositeGNNSpec, params, bn, optimizer: torch.op
     state nets' grads are divided by the realised iteration count when
     `mean`, and `optimizer` updates the leaves of `params` in place.
     Returns {"iters", "loss", "bn"} as device tensors."""
-    check_trainable(spec)
     optimizer.zero_grad(set_to_none=True)
     res = composite_forward(spec, params, bn, gb, training=True, masks=masks)
     loss = weighted_loss(get_loss(loss_name), loss_args or {}, gb, res["out"])

@@ -40,8 +40,12 @@ Dispatch follows gnn_tpu's `aggregation='auto'`:
   through the segment kernel K18 (ops/segment.py::block_aggregate, backward
   K18 on the transpose plan), as gnn_tpu's make_agg_closures does, and
   everything else through `index_add_` over the arcs;
-* state_dim > 0 raises NotImplementedError, and so does training a spec
-  with grad_mode='ift' (gnn_tpu's implicit adjoint, models/ift.py).
+* with grad_mode='ift' the fixed point comes from the eval kernels (K3/K4
+  or K10/K9) where they take the spec in training, else from the plain body,
+  computed without a graph, and the implicit adjoint of models/ift.py
+  differentiates it (gnn_tpu's dispatch under 'ift'): no training kernel
+  and no kernel's backward runs;
+* state_dim > 0 raises NotImplementedError.
 
 Dropout draws no random numbers here: training takes keep-masks, which
 `draw_masks` draws on the batch's device from a torch.Generator (tests pass
@@ -57,6 +61,7 @@ import torch
 import torch.nn.functional as F
 
 from gnn_tpu_torch.graphs.batch import GraphBatch
+from gnn_tpu_torch.models.ift import fixed_point_ift
 from gnn_tpu_torch.ops.aggregate import aggregate_to_nodes, pool_graphs
 from gnn_tpu_torch.ops.bn import (bn_train_propagate, supports_fused_bn2_train,
                                   supports_fused_bn_train)
@@ -85,10 +90,10 @@ class GNNSpec:
     :param max_iteration: the most propagation steps.
     :param threshold: convergence threshold.
     :param aggregation: gnn_tpu's strategy name; 'auto' dispatches to the kernels.
-    :param grad_mode / ift_backward_iters: gnn_tpu's gradient mode ('unroll',
-        or 'ift': the implicit adjoint, not ported, so such a spec serves but
-        does not train) and its adjoint's iteration count, carried through
-        save and load.
+    :param grad_mode / ift_backward_iters: gnn_tpu's gradient mode ('unroll'
+        differentiates the unrolled iterations, 'ift' the fixed point through
+        the implicit adjoint, models/ift.py) and the adjoint's Neumann
+        iterations.
     """
     focus: str
     state_spec: MLPSpec
@@ -118,16 +123,6 @@ def check_modes(aggregation: str, grad_mode: str, state_specs) -> None:
     if grad_mode == "ift" and any(s.dropout_rate for s in state_specs):
         raise ValueError("grad_mode='ift' requires dropout-free state nets "
                          "(per-iteration masks make the step non-stationary)")
-
-
-def check_trainable(spec) -> None:
-    """Raise for a spec the port cannot train: grad_mode='ift' replaces the
-    unrolled gradient with gnn_tpu's implicit adjoint (models/ift.py), which
-    is not ported. Eval does not depend on the gradient mode."""
-    if spec.grad_mode == "ift":
-        raise NotImplementedError(
-            "grad_mode='ift' trains with the implicit-function-theorem adjoint of "
-            "gnn_tpu's models/ift.py, which is not ported; the model serves as is")
 
 
 def gnn_init(spec: GNNSpec, gen: torch.Generator, device="cpu"):
@@ -277,6 +272,8 @@ def propagate(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
             "labels into the kernels; not ported yet")
     keep = keep or {}
     route = _train_route(spec, gb) if training else _eval_route(spec, gb)
+    if spec.grad_mode == "ift":
+        return _propagate_ift(spec, params_state, bn_state, gb, training, route)
     if route == "bn":
         return bn_train_propagate(spec, params_state, bn_state, gb, keep.get(0))
     if route == "plain":
@@ -319,6 +316,7 @@ def plain_loop(spec, gb: GraphBatch, step, bn_state):
     aggregation], bn)` -> (new state, new BatchNorm statistics). Returns
     (iters, state, bn)."""
     agg_state = state_aggregation(spec, gb)
+    agg_arcs = gb.agg_arcs()
     nm = gb.node_mask
     thr = float(spec.threshold)
     state = gb.nodes
@@ -328,7 +326,7 @@ def plain_loop(spec, gb: GraphBatch, step, bn_state):
     bn = bn_state
     for it in range(spec.max_iteration):
         active = active & (_moving_mask(state, state_old, thr) & nm).any()
-        new, new_bn = step(it, torch.cat([state, agg_state(state), gb.agg_arcs_cache], dim=1), bn)
+        new, new_bn = step(it, torch.cat([state, agg_state(state), agg_arcs], dim=1), bn)
         state, state_old = (torch.where(active, new, state),
                             torch.where(active, state, state_old))
         bn = _tree_where(active, new_bn, bn)
@@ -343,6 +341,72 @@ def _tree_where(pred, a, b):
     if isinstance(a, (list, tuple)):
         return tuple(_tree_where(pred, x, y) for x, y in zip(a, b))
     return torch.where(pred, a, b)
+
+
+def _propagate_ift(spec, params_state, bn_state, gb, training: bool, route: str):
+    """grad_mode='ift' (gnn_tpu core.py:371-379, :603-607, :953-964): the
+    fixed point from the eval kernels where the route is 'hybrid' (K3/K4) or
+    'hybrid2' (K10/K9), else from the plain body (with batch-statistic
+    BatchNorm in training), computed without a graph, so no training kernel
+    and no kernel's backward runs; finish_ift installs the implicit
+    adjoint."""
+    with torch.no_grad():
+        if route == "hybrid":
+            k, state = _propagate_hybrid(spec, params_state, bn_state, gb)
+            bn_out = bn_state
+        elif route == "hybrid2":
+            k, state = _propagate_hybrid2(spec, params_state, bn_state, gb)
+            bn_out = bn_state
+        else:
+            k, state, bn_out = _propagate_plain(spec, params_state, bn_state, gb, training)
+    return k, finish_ift(spec, training, params_state, bn_out, gb, state, ift_state_step), bn_out
+
+
+def finish_ift(spec, training: bool, params_state, bn, gb: GraphBatch, state, step):
+    """The fixed point `state` with the implicit adjoint installed
+    (gnn_tpu's _finish_ift, core.py:283-298): its backward solves for λ with
+    `step(spec, training, params_state, s, consts)` at the fixed point, the
+    BatchNorm statistics `bn` and the batch's arc-label aggregation held
+    constant."""
+    consts = {"gb": gb, "bn": detach_tree(bn), "agg_arcs": gb.agg_arcs().detach()}
+
+    def f(leaves, s, c):
+        return step(spec, training, _unflatten(params_state, leaves), s, c)
+    return fixed_point_ift(f, spec.ift_backward_iters, list(param_leaves(params_state)), state,
+                           consts)
+
+
+def ift_state_step(spec, training: bool, params_state, s, consts):
+    """One stationary step of the state net (gnn_tpu's _ift_state_step,
+    core.py:967-1000) on ift_step_input, no kernel."""
+    out, _ = mlp_apply(spec.state_spec, params_state, consts["bn"], ift_step_input(s, consts),
+                       training=training, stat_mask=consts["gb"].node_mask)
+    return out
+
+
+def ift_step_input(s, consts):
+    """[s | A^T_w s | arc-label aggregation] of the IFT step: the aggregation
+    over the batch's arcs with `index_add_` (gnn_tpu's block product sums the
+    same terms in another order). The gather is an index_select, whose
+    backward is an `index_add_`: advanced indexing's backward sorts and
+    serialises repeated indices (the padding arcs'), 31 ms a call on the
+    H100 at full scale."""
+    gb = consts["gb"]
+    agg = aggregate_to_nodes(s.index_select(0, gb.src), gb.edge_w, gb.dst, gb.n_node_pad)
+    return torch.cat([s, agg, consts["agg_arcs"]], dim=1)
+
+
+def _unflatten(tree, leaves):
+    """`tree` with its tensors replaced, in param_leaves order, by `leaves`."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(v) for k, v in t.items()}
+        if isinstance(t, (list, tuple)):
+            return tuple(build(v) for v in t)
+        return next(it)
+    return build(tree)
 
 
 def hybrid_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
@@ -367,7 +431,7 @@ def hybrid_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
     w = params_state["dense_0"]["w"]                       # [H, 2D + AL]
     Wa = w[:, D:2 * D]
     w2 = torch.cat([w[:, :D], Wa], dim=0).contiguous()     # [2H, D]
-    fT3 = F.linear(gb.agg_arcs_cache, w[:, 2 * D:], params_state["dense_0"]["b"])
+    fT3 = F.linear(gb.agg_arcs(), w[:, 2 * D:], params_state["dense_0"]["b"])
     fT3 = fT3.reshape(B, W, D)
     s03 = gb.nodes.reshape(B, W, D)
     loop = dep = None
@@ -477,7 +541,7 @@ def hybrid2_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
                                      bn_state["mean"], bn_state["var"])
     wts = _dense2_weights(params_state)
     s03 = gb.nodes.reshape(B, W, D)
-    f3 = gb.agg_arcs_cache.reshape(B, W, -1)
+    f3 = gb.agg_arcs().reshape(B, W, -1)
     loop = dep = None
     if gb.adj_loop is not None:
         li = gb.loop_ids
@@ -541,9 +605,9 @@ def dropout_operands(spec: GNNSpec, params_state, gb: GraphBatch,
         keep = keep_state.reshape(K, B, W, -1)
         ms, ma = keep[..., :D].to(torch.uint8), keep[..., D:2 * D].to(torch.uint8)
         drop, _ = _make_drop(kw["alpha_drop"], rate)
-        fT = F.linear(drop(gb.agg_arcs_cache, keep_state[..., 2 * D:]), w[:, 2 * D:], b)
+        fT = F.linear(drop(gb.agg_arcs(), keep_state[..., 2 * D:]), w[:, 2 * D:], b)
     else:
-        fT = F.linear(gb.agg_arcs_cache, w[:, 2 * D:], b).expand(K, Np, -1)
+        fT = F.linear(gb.agg_arcs(), w[:, 2 * D:], b).expand(K, Np, -1)
     fT = fT.reshape(K, B, W, -1)
     s03 = gb.nodes.reshape(B, W, D)
     w_cat = w[:, :2 * D].contiguous()                     # [H, 2D] = [Ws | Wa]
@@ -611,7 +675,7 @@ def dropout2_operands(spec: GNNSpec, params_state, gb: GraphBatch,
     rate = float(dict(zip(ss.dropout_pos, ss.dropout_rate)).get(0, 0.0))
     kw = dict(act0=ss.activations[0], act1=ss.activations[1], alpha_drop=bool(ss.alphadropout),
               rate=rate)
-    feats = gb.agg_arcs_cache
+    feats = gb.agg_arcs()
     ms = ma = None
     if rate > 0.0:
         if keep_state is None:
@@ -763,7 +827,6 @@ def train_step(spec: GNNSpec, params, bn, optimizer: torch.optim.Optimizer, gb: 
 
     Returns {"iters", "loss", "bn"}: device tensors, so nothing waits on
     the device."""
-    check_trainable(spec)
     optimizer.zero_grad(set_to_none=True)
     iters, loss, res = evaluate_single(spec, params, bn, gb, loss_name, loss_args or {},
                                        training=True, masks=masks)
@@ -776,17 +839,23 @@ def finish_step(params, optimizer, iters, total, loss, new_bn, mean: bool) -> di
     count when `mean`, the optimizer step; train_step's result."""
     total.backward()
     if mean:
-        denom = torch.clamp_min(iters, 1.0)
-        for p in param_leaves(params["state"]):
-            if p.grad is not None:
-                p.grad.div_(denom)
+        divide_state_grads(params["state"], iters)
     optimizer.step()
-    return {"iters": iters, "loss": loss.detach(), "bn": _detach(new_bn)}
+    return {"iters": iters, "loss": loss.detach(), "bn": detach_tree(new_bn)}
 
 
-def _detach(tree):
+def divide_state_grads(params_state, iters) -> None:
+    """The state net's grads divided in place by the realised count
+    (at least 1), GNN_BaseClass.py:239-241."""
+    denom = torch.clamp_min(iters, 1.0)
+    for p in param_leaves(params_state):
+        if p.grad is not None:
+            p.grad.div_(denom)
+
+
+def detach_tree(tree):
     if isinstance(tree, dict):
-        return {k: _detach(v) for k, v in tree.items()}
+        return {k: detach_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return tuple(_detach(v) for v in tree)
+        return tuple(detach_tree(v) for v in tree)
     return tree.detach()

@@ -459,9 +459,9 @@ class BaseModel(ABC):
         draws the masks an uninterrupted run would have drawn)."""
         from gnn_tpu_torch.convert import opt_state_to_jax, params_to_jax
         from gnn_tpu_torch.training.checkpoint import save_checkpoint
-        params_np, bn_np = params_to_jax(self.params, self.bn)
+        params_np, bn_np = params_to_jax(self._ckpt_params(), self._ckpt_bn())
         save_checkpoint(path, params=params_np, bn=bn_np,
-                        opt_state=opt_state_to_jax(self._opt, self.params),
+                        opt_state=opt_state_to_jax(self._opt, self._ckpt_params()),
                         history=self.history, mask_gen=self.mask_gen)
 
     def load_checkpoint(self, path: str) -> None:
@@ -472,11 +472,23 @@ class BaseModel(ABC):
         from gnn_tpu_torch.convert import opt_state_from_jax
         from gnn_tpu_torch.training.checkpoint import load_checkpoint
         params_np, bn_np, opt_state, history, gen_state, _ = load_checkpoint(path)
-        self.set_params(params_np, bn_np)
-        opt_state_from_jax(self._opt, self.params, opt_state)
+        self._ckpt_restore(params_np, bn_np)
+        opt_state_from_jax(self._opt, self._ckpt_params(), opt_state)
         self.history = history
         if gen_state is not None and gen_state["device"] == self.mask_gen.device.type:
             self.mask_gen.set_state(torch.tensor(gen_state["state"], dtype=torch.uint8))
+
+    # the trees a checkpoint holds (gnn_tpu engine.py:490-513): a model's
+    # params and statistics, an LGNN's tuples of its layers'
+    def _ckpt_params(self):
+        return self.params
+
+    def _ckpt_bn(self):
+        return self.bn
+
+    def _ckpt_restore(self, params_np, bn_np) -> None:
+        """Install gnn_tpu's (params, bn) trees and a fresh optimizer."""
+        self.set_params(params_np, bn_np)
 
     # ------------------------------------------------------------------ LKO
     def LKO(self, batches, epochs: int = 500, training_mode=None, update_freq: int = 10,

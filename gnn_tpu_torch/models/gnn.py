@@ -76,10 +76,9 @@ class GNNnodeBased(BaseModel):
     :param state_vect_dim: reference state_vect_dim; only 0 is ported.
     :param max_iteration / threshold: the convergence loop's bounds.
     :param aggregation: gnn_tpu's aggregation name ('auto' uses the kernels).
-    :param grad_mode / ift_backward_iters: gnn_tpu's gradient mode and its
-        implicit adjoint's iterations, kept for save; a model with
-        grad_mode='ift' serves but does not train (models/ift.py is not
-        ported).
+    :param grad_mode / ift_backward_iters: gnn_tpu's gradient mode ('unroll',
+        or 'ift': the implicit adjoint of models/ift.py) and the adjoint's
+        Neumann iterations.
     :param seed: seed of the torch.Generators drawing the initial weights and
         the dropout masks.
     :param device: None means the card ('cuda'); pass 'cpu' for the CPU.

@@ -835,7 +835,7 @@ def bn_loop_operands(spec, params_state, gb, keep_state: Optional[torch.Tensor])
     rate = input_rate(ss)
     op = BNLoopOperands(adj_loop=gb.adj_loop, adj_dep=gb.adj_dep,
                         keep=block_keep(blocks, keep_state, rate),
-                        feats=blocks(gb.agg_arcs_cache), nm=nm, res=res, K=spec.max_iteration,
+                        feats=blocks(gb.agg_arcs()), nm=nm, res=res, K=spec.max_iteration,
                         threshold=float(spec.threshold), activations=tuple(ss.activations),
                         alpha_drop=bool(ss.alphadropout), rate=rate)
     weights = (augmented(params_state["dense_0"]),)

@@ -453,7 +453,7 @@ def typed_operands(spec, params_state, gb, training: bool, keep_states=None):
     if res is not None:
         res_type = types.reshape(-1)[res[0]].long()
     op = TypedLoopOperands(adj_loop=gb.adj_loop, adj_dep=gb.adj_dep, keep=keep,
-                           feats=blocks(gb.agg_arcs_cache), nm=nm, res=res, K=spec.max_iteration,
+                           feats=blocks(gb.agg_arcs()), nm=nm, res=res, K=spec.max_iteration,
                            threshold=float(spec.threshold),
                            activations=tuple(s.activations[0] for s in spec.state_specs),
                            alpha_drop=bool(ss.alphadropout), rate=rate, types=types,

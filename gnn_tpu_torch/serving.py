@@ -9,7 +9,8 @@ body aggregates with `index_add_`. PyTorch runs eagerly, so a
 bucket needs no compile; `warmup` runs one forward per bucket so the kernel
 build and CUDA start-up happen before traffic. Weights are copied to the
 device once, at construction; per request only the packed batch goes up and
-the selected target rows come back.
+the selected target rows come back. An LGNN is served as a whole stack at
+eval, with its last layer's target rows (gnn_tpu serving.py:62-78).
 """
 
 from __future__ import annotations
@@ -39,11 +40,12 @@ class PendingPrediction:
         self._out, self._iters, self._sel = out, iters, sel
         self._glist, self._single, self._split = glist, single, split
         self.t0 = t0        # perf_counter() when the forward was dispatched
-        self.iters = None   # realised iteration count, set by result()
+        self.iters = None   # realised iteration count (a list a layer for an LGNN)
 
     def result(self):
         rows = self._out.cpu().numpy()[self._sel]      # device -> host barrier
-        self.iters = float(self._iters)
+        it = self._iters.cpu()
+        self.iters = float(it) if it.dim() == 0 else [float(i) for i in it]
         if not self._split:
             return rows
         # targets are concatenated in request order and sel filters in order:
@@ -57,9 +59,9 @@ class PendingPrediction:
 class Predictor:
     """Serve a model: ``Predictor(model).predict(graphs)``.
 
-    :param model: a GNNnodeBased / GNNedgeBased / GNNgraphBased or one of
-        their composite twins (Composite*Based); its weights are copied at
-        construction.
+    :param model: a GNNnodeBased / GNNedgeBased / GNNgraphBased, one of
+        their composite twins (Composite*Based) or an LGNN of them; its
+        weights are copied at construction.
     :param blocked: pack block-dense batches (the kernels' path); False
         builds batches without blocks on config.pad_size buckets.
     :param block_w: block width of the packed batches.
@@ -74,11 +76,10 @@ class Predictor:
                  fused_layout: bool = True, bucket_multiple: int = 8,
                  cache_batches: int = 256, device=None):
         self.device = resolve_device(device)
-        self._spec = model.spec
-        self._forward = model._forward
-        self._params = _copy_to(model.params, self.device)
-        self._bn = _copy_to(model.bn, self.device)
-        self._focus = model.spec.focus
+        self._forward, params, bn, self._spec = _forward_callable(model)
+        self._params = _copy_to(params, self.device)
+        self._bn = _copy_to(bn, self.device)
+        self._focus = self._spec.focus
         self._blocked = bool(blocked)
         self._block_w = int(block_w)
         self._fused = bool(fused_layout)
@@ -156,8 +157,7 @@ class Predictor:
 
     def _run(self, gb: GraphBatch):
         with torch.no_grad():
-            res = self._forward(self._spec, self._params, self._bn, gb)
-        return res["out"], res["iters"]
+            return self._forward(self._params, self._bn, gb)
 
     def warmup(self, requests: Sequence[Union[Graph, Sequence[Graph]]]) -> int:
         """Run one forward per bucket the sample lands on (kernel build, CUDA
@@ -212,6 +212,27 @@ class Predictor:
 
     def __call__(self, graphs):
         return self.predict(graphs)
+
+
+def _forward_callable(model):
+    """(fn, params, bn, the first layer's spec) with fn(params, bn, gb) ->
+    (target-aligned output rows [Tp, DT], realised iteration count(s)) at
+    eval (gnn_tpu serving.py:62-78): an LGNN's whole stack with its last
+    layer's rows, else the model's forward."""
+    from gnn_tpu_torch.models.lgnn import LGNN, lgnn_forward
+    if isinstance(model, LGNN):
+        specs, gs, go = model._specs, model.get_state, model.get_output
+
+        def fn(params, bns, gb):
+            iters, outs, _, _ = lgnn_forward(specs, params, bns, gb, False, gs, go)
+            return outs[-1], torch.stack(iters)
+        return fn, model._params(), model._bns(), specs[0]
+    spec, forward = model.spec, model._forward
+
+    def fn(params, bn, gb):
+        res = forward(spec, params, bn, gb)
+        return res["out"], res["iters"]
+    return fn, model.params, model.bn, spec
 
 
 def _copy_to(tree, device):

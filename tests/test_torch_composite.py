@@ -261,7 +261,9 @@ def check_step_against_gnn_tpu(js, jp, jbn, jb, ts, tb, rng, expect_route, grad_
                                                   g_j["state"])}
     model = CompositeGNNgraphBased(ts.state_specs, ts.output_spec, optimizer=cfg,
                                    max_iteration=ts.max_iteration, threshold=ts.threshold,
-                                   aggregation=ts.aggregation, seed=0, device="cpu")
+                                   aggregation=ts.aggregation, grad_mode=ts.grad_mode,
+                                   ift_backward_iters=ts.ift_backward_iters, seed=0,
+                                   device="cpu")
     model.set_params(*jax.tree_util.tree_map(np.asarray, (jp, jbn)))
     assert tcomp._route(model.spec, tb, True) == expect_route
     masks = jax_masks(js, tb.n_node_pad, tb.n_node_pad, rng)
@@ -347,8 +349,9 @@ def test_convert_round_trips_composite_keys(tmp_path):
 
 def test_grad_mode_kept_and_ift_refuses_to_train(tmp_path):
     """An ift save from gnn_tpu keeps grad_mode and ift_backward_iters in the
-    port, serves as gnn_tpu does, refuses to train (models/ift.py is not
-    ported), and saves back as ift; the composite classes keep it too."""
+    port, serves as gnn_tpu does, trains one step as gnn_tpu's implicit
+    adjoint does (models/ift.py), and saves back as ift; the composite
+    classes keep it too and train as gnn_tpu's composite IFT step."""
     from gnn_tpu.graphs import datasets as jdata
     from gnn_tpu.models.gnn import GNNgraphBased as JGraphBased
     rng = np.random.default_rng(5)
@@ -367,8 +370,11 @@ def test_grad_mode_kept_and_ift_refuses_to_train(tmp_path):
     want = jcore.gnn_forward(jm.spec, jm.params, jm.bn, jb, jax.random.key(0))
     np.testing.assert_allclose(model.forward(tb)["out"].numpy(), np.asarray(want["out"]),
                                atol=ATOL)
-    with pytest.raises(NotImplementedError, match="models/ift.py"):
-        model.training_step(tb)
+    jm.training_step(jb, mean=True)
+    model.training_step(tb)
+    want = flatten(jax.tree_util.tree_map(np.asarray, jm.params))
+    for key, got in flatten(params_to_jax(model.params, model.bn)[0]).items():
+        np.testing.assert_allclose(got, want[key], atol=1e-5, err_msg=f"param {key}")
     model.save(str(tmp_path / "t"))
     back = JGraphBased.load(str(tmp_path / "t"), path_writer=str(tmp_path / "w2"))
     assert (back.spec.grad_mode, back.spec.ift_backward_iters) == ("ift", 13)
@@ -378,8 +384,11 @@ def test_grad_mode_kept_and_ift_refuses_to_train(tmp_path):
     jgs2, tgs2 = typed_graphs(6, 2)
     ctb = cm.to_batch(tgs2, block_w=32)
     assert tcomp._route(cm.spec, ctb, False) == "plain"
-    with pytest.raises(NotImplementedError, match="models/ift.py"):
-        cm.training_step(ctb)
+    js2, ts2 = composite_specs(2, rate=0.0, grad_mode="ift", ift_backward_iters=7)
+    (jp2, jbn2), _ = composite_weights(js2)
+    jb2, tb2 = batches(jgs2, tgs2)
+    check_step_against_gnn_tpu(js2, jp2, jbn2, jb2, ts2, tb2, jax.random.key(4),
+                               expect_route="plain")
     cm.save(str(tmp_path / "c"))
     cj = jgnn.CompositeGNNgraphBased.load(str(tmp_path / "c"), path_writer=str(tmp_path / "w3"))
     assert (cj.spec.grad_mode, cj.spec.ift_backward_iters) == ("ift", 7)
