@@ -24,8 +24,12 @@ costs 4 * W * W bytes a block (64 KiB at W = 128), as gnn_tpu's adj_blocks.
 
 Block adjacencies are stored transposed, adjT[b, src, dst] = w, in float32:
 a kernel thread per destination node then reads a row of adjT at
-consecutive addresses. The field values (ids, masks, loop-block padding,
-block permutation, residual ids) equal gnn_tpu's batch exactly.
+consecutive addresses. With `adj_dtype=torch.bfloat16` (gnn_tpu's
+low-precision mode) adj_loop and adj_dep hold the f32 weights rounded to
+nearest even bf16, 2 * W * W bytes a block, and only the bf16 two-layer
+kernels take the batch (models/core.py); the residual and arc weights stay
+f32. The field values (ids, masks, loop-block padding, block permutation,
+residual ids, a bf16 adjacency's bits) equal gnn_tpu's batch exactly.
 
 `GraphBatch.from_graph` builds a batch without blocks from one (merged)
 Graph, padded to config.pad_size buckets, as gnn_tpu's does: the plain body
@@ -71,6 +75,9 @@ class GraphBatch:
     # --- loop-invariant arc-label aggregation, sum_e w_e * label_e per dst;
     # None where the labels changed after packing (an LGNN layer's batch) ---
     agg_arcs_cache: Optional[torch.Tensor]  # [Np, AL]
+    # --- the node-label aggregation A^T_w @ nodes (read with state_dim > 0),
+    # None where the node labels changed after packing ---
+    agg_nodes_cache: Optional[torch.Tensor] = None  # [Np, NL]
     res_w: Optional[torch.Tensor] = None   # [Er] residual arc weights (0 on pad); blocked only
     # --- fused layout: the loop fields are None unless fused_layout=True and a
     # loop block exists; the dep fields then hold the dep blocks, else (the
@@ -123,6 +130,21 @@ class GraphBatch:
             return self.agg_arcs_cache
         return aggregate_to_nodes(self.arc_labels, self.edge_w, self.dst, self.n_node_pad)
 
+    def agg_nodes(self) -> torch.Tensor:
+        """The node-label aggregation A^T_w @ nodes [Np, NL]: the cache, or
+        without one computed on the batch's device over the arcs,
+        differentiable in the labels."""
+        if self.agg_nodes_cache is not None:
+            return self.agg_nodes_cache
+        return aggregate_to_nodes(self.nodes[self.src], self.edge_w, self.dst, self.n_node_pad)
+
+    @property
+    def adj_dtype(self) -> torch.dtype:
+        """The block adjacencies' dtype: float32, or bfloat16 (from_graphs_blocked's
+        adj_dtype)."""
+        adj = self.adj_loop if self.adj_loop is not None else self.adj_dep
+        return torch.float32 if adj is None else adj.dtype
+
     def pad_shapes(self) -> Tuple[int, int, int]:
         return (self.n_node_pad, self.n_edge_pad, self.n_target_pad)
 
@@ -145,9 +167,8 @@ class GraphBatch:
         without, pad arcs point at node 0. `build_plan` adds K18's CSR plan
         (ops/segment.py), which `aggregation='pallas'` runs on.
 
-        Left out of gnn_tpu's batch: agg_nodes_cache (A^T @ nodes, read only
-        with state_dim > 0, which the port does not run) and
-        pool_starts/pool_ends (the port pools with ops/aggregate.pool_graphs)."""
+        Left out of gnn_tpu's batch: pool_starts/pool_ends (the port pools
+        with ops/aggregate.pool_graphs)."""
         dt = floatx()
         N, E, T = g.n_nodes, g.n_arcs, g.targets.shape[0]
         Np = node_pad or pad_size(N)
@@ -187,8 +208,9 @@ class GraphBatch:
                 ent_idx = inv[ent_idx]
             out_index = _pad(ent_idx.astype(np.int64), Tp)
 
+        nodes = _pad(g.nodes.astype(dt), Np)
         return cls(
-            nodes=_t(_pad(g.nodes.astype(dt), Np)),
+            nodes=_t(nodes),
             node_mask=_t(_pad(np.ones(N, bool), Np, False)),
             graph_ids=_ix(_pad(g.graph_ids(), Np)),
             pool_w=_t(_pad(g.pool_weights().astype(dt), Np)),
@@ -199,6 +221,7 @@ class GraphBatch:
             sample_weights=_t(_pad(g.sample_weights.astype(dt), Tp)),
             out_index=_t(out_index), sel_mask=_t(sel),
             agg_arcs_cache=_t(_host_agg(arc_labels, edge_w, dst, Np)),
+            agg_nodes_cache=_t(_host_agg(nodes[np.minimum(src, Np - 1)], edge_w, dst, Np)),
             node_types=(None if g.node_types is None else _ix(_pad(g.node_types, Np))),
             agg_plan=build_agg_plan(src, dst, edge_w, Np) if build_plan else None,
             focus=g.focus, block_w=0, n_real=(N, E, T), edges_sorted=bool(sort_edges))
@@ -294,6 +317,7 @@ class GraphBatch:
             out_index=grow(self.out_index, target_pad),
             sel_mask=grow(self.sel_mask, target_pad, False),
             agg_arcs_cache=grow(self.agg_arcs_cache, node_pad),
+            agg_nodes_cache=grow(self.agg_nodes_cache, node_pad),
             node_types=grow(self.node_types, node_pad))
         if self.agg_plan is not None:
             plan = build_agg_plan(new.src.cpu().numpy(), new.dst.cpu().numpy(),
@@ -354,13 +378,18 @@ def from_graphs_blocked(glist, *, block_w: int = 128, focus: Optional[str] = Non
                         aggregation_mode: Optional[str] = None,
                         target_pad: Optional[int] = None, edge_pad: Optional[int] = None,
                         min_blocks: Optional[int] = None,
-                        fused_layout: bool = False) -> GraphBatch:
+                        fused_layout: bool = False, adj_dtype=None) -> GraphBatch:
     """Build a host (CPU) GraphBatch with graph-aligned node packing; move it
     with `.to(device)`. Supervision semantics equal Graph.merge: padding slots
     are excluded everywhere by the masks. `fused_layout=True` splits the
     blocks into loop and dep blocks where a loop block exists; otherwise the
     batch carries the all-dep layout (module docstring), 64 KiB a block at
-    W = 128."""
+    W = 128. `adj_dtype=torch.bfloat16` stores the block adjacencies in bf16
+    (32 KiB a block at W = 128); None or torch.float32 keeps them f32."""
+    if adj_dtype not in (None, torch.float32, torch.bfloat16):
+        raise ValueError(f"adj_dtype must be None, torch.float32 or torch.bfloat16, "
+                         f"got {adj_dtype!r}")
+    adt = torch.float32 if adj_dtype is None else adj_dtype
     dt = floatx()
     W = int(block_w)
     focus = focus or glist[0].focus
@@ -425,9 +454,12 @@ def from_graphs_blocked(glist, *, block_w: int = 128, focus: Optional[str] = Non
     si, di, wi = src[intra], dst[intra], w[intra]
     adjT = np.zeros((B, W, W), dtype=np.float32)
     np.add.at(adjT, (di // W, si % W, di % W), wi)
+
+    def adj(x):      # torch rounds f32 to bf16 to nearest even, as gnn_tpu's ml_dtypes
+        return _t(x).to(adt)
     if not (fused_layout and Bi > 0):
         # the all-dep layout: every block a dep block, residual arcs in global ids
-        fl.update(adj_dep=_t(adjT), dep_ids=_t(np.arange(B, dtype=np.int64)),
+        fl.update(adj_dep=adj(adjT), dep_ids=_t(np.arange(B, dtype=np.int64)),
                   res_src_loc=_ix(np.pad(r_src, (0, Er - len(r_src)))),
                   res_dst_loc=_ix(np.pad(r_dst, (0, Er - len(r_dst)))),
                   block_perm=_t(np.arange(B, dtype=np.int64)))
@@ -444,13 +476,13 @@ def from_graphs_blocked(glist, *, block_w: int = 128, focus: Optional[str] = Non
         loop_nm[:Bi] = node_mask.reshape(B, W)[loop_ids_np]
         perm = np.zeros(B, np.int64)
         perm[loop_ids_np] = np.arange(Bi)
-        fl.update(adj_loop=_t(adj_loop), loop_ids=_t(ids_pad), loop_nm=_t(loop_nm))
+        fl.update(adj_loop=adj(adj_loop), loop_ids=_t(ids_pad), loop_nm=_t(loop_nm))
         if len(dep_set):
             perm[dep_set] = Bi_pad + np.arange(len(dep_set))
             # residual arcs in dep-local flat ids; pad rows land on 0 with weight 0
             loc_src = np.searchsorted(dep_set, r_src // W) * W + r_src % W
             loc_dst = np.searchsorted(dep_set, r_dst // W) * W + r_dst % W
-            fl.update(adj_dep=_t(adjT[dep_set]), dep_ids=_t(dep_set),
+            fl.update(adj_dep=adj(adjT[dep_set]), dep_ids=_t(dep_set),
                       res_src_loc=_ix(np.pad(loc_src, (0, Er - len(loc_src)))),
                       res_dst_loc=_ix(np.pad(loc_dst, (0, Er - len(loc_dst)))))
         fl["block_perm"] = _t(perm)
@@ -505,6 +537,8 @@ def from_graphs_blocked(glist, *, block_w: int = 128, focus: Optional[str] = Non
         set_mask=_t(set_mask), output_mask=_t(output_mask),
         targets=_t(_pad(targets, Tp)), sample_weights=_t(_pad(sample_weights, Tp)),
         out_index=_ix(out_index), sel_mask=_t(sel),
-        agg_arcs_cache=_t(_host_agg(labs_p, w_p, dst_p, Np)), res_w=_t(res_w),
+        agg_arcs_cache=_t(_host_agg(labs_p, w_p, dst_p, Np)),
+        agg_nodes_cache=_t(_host_agg(nodes[np.minimum(src_p, Np - 1)], w_p, dst_p, Np)),
+        res_w=_t(res_w),
         node_types=None if node_types is None else _t(node_types),
         focus=focus, block_w=W, n_real=(int(node_mask.sum()), E, T), **fl)

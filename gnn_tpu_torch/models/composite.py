@@ -27,9 +27,13 @@ nets' output as wide as the node labels,
 
 With grad_mode='ift' the plain body gives the fixed point, computed without
 a graph, and the implicit adjoint of models/ift.py differentiates it through
-one plain per-type step (gnn_tpu composite.py:222-253). state_dim > 0 raises
-NotImplementedError, as the homogeneous port does. Dropout keep-masks are
-drawn by `draw_masks` (one state keep-mask per type) or passed in.
+one plain per-type step (gnn_tpu composite.py:222-253). With state_dim > 0
+the state starts at core.draw_init's draw and the labels and their
+aggregation fold into the typed kernels' features, as the homogeneous
+model's (ops/fold.py; gnn_tpu composite.py:139-151). Dropout keep-masks are
+drawn by `draw_masks` (one state keep-mask per type, and the initial state)
+or passed in. A bf16-adjacency batch raises NotImplementedError on every
+composite route (core.check_adj_dtype).
 """
 
 from __future__ import annotations
@@ -40,9 +44,10 @@ from typing import Optional, Tuple
 import torch
 
 from gnn_tpu_torch.graphs.batch import GraphBatch
-from gnn_tpu_torch.models.core import (check_dims, check_modes, draw_net_masks,
-                                       draw_output_masks, finish_ift, finish_step, full_fp32,
-                                       ift_step_input, plain_loop, readout, weighted_loss)
+from gnn_tpu_torch.models.core import (check_adj_dtype, check_dims, check_modes,
+                                       draw_net_masks, draw_output_masks, finish_ift, finish_step,
+                                       full_fp32, ift_step_input, initial_state, plain_loop,
+                                       readout, state_width, weighted_loss, with_init)
 from gnn_tpu_torch.ops.mlp import MLPSpec, mlp_apply, mlp_init, mlp_regularization
 from gnn_tpu_torch.ops.typed import (bn_typed_train_propagate, supports_typed_bn_train,
                                      supports_typed_eval, typed_eval_propagate)
@@ -104,10 +109,12 @@ def composite_init(spec: CompositeGNNSpec, gen: torch.Generator, device="cpu"):
 def draw_masks(spec: CompositeGNNSpec, gb: GraphBatch, gen: torch.Generator) -> dict:
     """Keep-masks of one training forward, drawn on the batch's device from
     `gen`: {"state": (per type {position: bool [K, Np, width]}), "output":
-    {position: bool [rows, width]}}, each type's net drawing its own."""
+    {position: bool [rows, width]}}, each type's net drawing its own; with
+    state_dim > 0 also "init", the initial state (core.draw_init)."""
     lead = (spec.max_iteration, gb.n_node_pad)
-    return {"state": tuple(draw_net_masks(s, lead, gb, gen) for s in spec.state_specs),
-            "output": draw_output_masks(spec, gb, gen)}
+    masks = {"state": tuple(draw_net_masks(s, lead, gb, gen) for s in spec.state_specs),
+             "output": draw_output_masks(spec, gb, gen)}
+    return with_init(masks, spec, gb, gen)
 
 
 def check_node_types(glist, n_types: int) -> None:
@@ -130,7 +137,7 @@ def _route(spec: CompositeGNNSpec, gb: GraphBatch, training: bool) -> str:
     kernels, with the loop/dep layout or the all-dep one (graphs/batch.py);
     a batch without blocks (GraphBatch.from_graph) runs the plain body."""
     if (not gb.has_blocks or spec.aggregation != "auto" or spec.grad_mode == "ift"
-            or spec.state_specs[0].units[-1] != gb.nodes.shape[1]):
+            or spec.state_specs[0].units[-1] != state_width(spec, gb)):
         return "plain"
     if training:
         return "typed_bn" if supports_typed_bn_train(spec.state_specs) else "plain"
@@ -138,26 +145,26 @@ def _route(spec: CompositeGNNSpec, gb: GraphBatch, training: bool) -> str:
 
 
 def composite_propagate(spec: CompositeGNNSpec, params_state, bn_state, gb: GraphBatch,
-                        training: bool = False, keep: Optional[tuple] = None):
+                        training: bool = False, keep: Optional[tuple] = None,
+                        init: Optional[torch.Tensor] = None):
     """Fixed-point loop with per-type state nets (the homogeneous loop's
     convergence semantics). Returns (iters, state [Np, D], new per-type
     BatchNorm statistics as a tuple).
 
     :param keep: in training, the per-type keep-masks (draw_masks(...)["state"]).
+    :param init: the initial state [Np, state_dim] at state_dim > 0.
     """
     if gb.node_types is None:
         raise ValueError("composite models need a batch built from a Graph with node_types")
-    if spec.state_dim > 0:
-        raise NotImplementedError(
-            "state_dim > 0 draws its initial state from the JAX PRNG and folds "
-            "labels into the kernels; not ported yet")
     keep = keep or tuple({} for _ in spec.state_specs)
+    s0 = initial_state(spec, gb, init)
     route = _route(spec, gb, training)
+    check_adj_dtype(gb, route, training, spec.grad_mode)
     if route == "typed_bn":
         return bn_typed_train_propagate(spec, params_state, bn_state, gb,
-                                        [k[0] for k in keep] if keep[0] else None)
+                                        [k[0] for k in keep] if keep[0] else None, init)
     if route == "typed_eval":
-        return typed_eval_propagate(spec, params_state, bn_state, gb)
+        return typed_eval_propagate(spec, params_state, bn_state, gb, init)
     nm = gb.node_mask
     types = gb.node_types
 
@@ -171,9 +178,9 @@ def composite_propagate(spec: CompositeGNNSpec, params_state, bn_state, gb: Grap
             new_bns.append(nb)
         return new, tuple(new_bns)
     if spec.grad_mode != "ift":
-        return plain_loop(spec, gb, step, tuple(bn_state))
+        return plain_loop(spec, gb, step, tuple(bn_state), s0)
     with torch.no_grad():
-        k, state, bn_out = plain_loop(spec, gb, step, tuple(bn_state))
+        k, state, bn_out = plain_loop(spec, gb, step, tuple(bn_state), s0)
     return k, finish_ift(spec, training, params_state, bn_out, gb, state, _ift_state_step), bn_out
 
 
@@ -200,7 +207,7 @@ def composite_forward(spec: CompositeGNNSpec, params, bn, gb: GraphBatch,
     full_fp32(gb)
     masks = masks or {}
     iters, state, bn_s = composite_propagate(spec, params["state"], bn["state"], gb, training,
-                                             masks.get("state"))
+                                             masks.get("state"), masks.get("init"))
     return readout(spec, params, bn, gb, iters, state, bn_s, training, masks.get("output"))
 
 

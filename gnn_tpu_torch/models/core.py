@@ -45,11 +45,24 @@ Dispatch follows gnn_tpu's `aggregation='auto'`:
   computed without a graph, and the implicit adjoint of models/ift.py
   differentiates it (gnn_tpu's dispatch under 'ift'): no training kernel
   and no kernel's backward runs;
-* state_dim > 0 raises NotImplementedError.
+* with state_dim > 0 (the reference's separate state, GNN.py:259-267) the
+  state starts at 0.1 * N(0, 1) on the real nodes and the step input is
+  [state | labels | Σstate | Σlabels | Σarcs]; the kernels take it on every
+  route by folding the labels and the two constant aggregations into their
+  feature term (gnn_tpu core.py:490-513): state width D = state_dim, the
+  dense layer's columns in the kernels' order [Ws | Wa | Wfold]
+  (`kernel_columns`) and the feature rows [labels | Σlabels | Σarcs]
+  (`fold_features`); the readout reads [state | labels];
+* a batch whose block adjacency is bf16 (from_graphs_blocked(adj_dtype=
+  torch.bfloat16), gnn_tpu's low-precision mode) runs only route 'hybrid2':
+  the bf16 variants of K10 and K9 at eval and in clean two-layer training,
+  differentiated through K11's bf16 variant and K9's plain f32 backward
+  (ops/fused2.py); every other route raises NotImplementedError on it.
 
-Dropout draws no random numbers here: training takes keep-masks, which
+Dropout and the initial state draw no random numbers here: training takes
+keep-masks and, with state_dim > 0, the initial state ("init"), which
 `draw_masks` draws on the batch's device from a torch.Generator (tests pass
-masks drawn by gnn_tpu instead).
+gnn_tpu's draws instead); at eval `draw_init` draws the initial state.
 """
 
 from __future__ import annotations
@@ -69,8 +82,12 @@ from gnn_tpu_torch.ops.fused import (FUSABLE_ACTIVATIONS, _make_drop, bn_inferen
                                      fused_propagation_loop, fused_propagation_step,
                                      fused_train_loop, fused_train_step, moved,
                                      supports_fused, supports_fused_train)
-from gnn_tpu_torch.ops.fused2 import (dense2, fused_propagation_loop2, fused_propagation_step2,
-                                      fused_train_loop2, supports_fused2, supports_fused2_train)
+from gnn_tpu_torch.ops.fold import (fold_features, in_kernel_order, initial_state,
+                                   kernel_columns, state_width)
+from gnn_tpu_torch.ops.fused2 import (dense2, fused_propagation_loop2,
+                                      fused_propagation_loop2_bf16, fused_propagation_step2,
+                                      fused_propagation_step2_bf16, fused_train_loop2, seq_dot,
+                                      supports_fused2, supports_fused2_train)
 from gnn_tpu_torch.ops.mlp import (MLPSpec, dropout_widths, mlp_apply, mlp_init,
                                    mlp_regularization)
 from gnn_tpu_torch.ops.segment import block_aggregate
@@ -197,7 +214,7 @@ def _eval_route(spec: GNNSpec, gb: GraphBatch) -> str:
     ss = spec.state_spec
     if not _check_aggregation(spec) or not _kernel_layout(spec, gb):
         return "plain"
-    if ss.units[-1] != gb.nodes.shape[1]:
+    if ss.units[-1] != state_width(spec, gb):
         return "plain"
     if supports_fused(ss, training=False):
         return "hybrid"
@@ -216,7 +233,7 @@ def _train_route(spec: GNNSpec, gb: GraphBatch) -> str:
     if not _check_aggregation(spec) or not _kernel_layout(spec, gb):
         return "plain"
     fusable = all(a in FUSABLE_ACTIVATIONS for a in ss.activations)
-    if ss.units[-1] != gb.nodes.shape[1] or not fusable:
+    if ss.units[-1] != state_width(spec, gb) or not fusable:
         return "plain"
     if ss.num_layers == 1:
         if supports_fused(ss, training=True):
@@ -237,10 +254,30 @@ def draw_masks(spec: GNNSpec, gb: GraphBatch, gen: torch.Generator) -> dict:
     """Keep-masks of one training forward, drawn on the batch's device from
     `gen` (True = kept, with probability 1 - rate):
     {"state": {position: bool [K, Np, width]}, "output": {position: bool
-    [rows, width]}}, rows being nodes, or arcs for focus 'a'."""
-    return {"state": draw_net_masks(spec.state_spec, (spec.max_iteration, gb.n_node_pad), gb,
-                                    gen),
-            "output": draw_output_masks(spec, gb, gen)}
+    [rows, width]}}, rows being nodes, or arcs for focus 'a'; with
+    state_dim > 0 also "init", the initial state (draw_init)."""
+    masks = {"state": draw_net_masks(spec.state_spec, (spec.max_iteration, gb.n_node_pad), gb,
+                                     gen),
+             "output": draw_output_masks(spec, gb, gen)}
+    return with_init(masks, spec, gb, gen)
+
+
+def draw_init(spec, gb: GraphBatch, gen: torch.Generator) -> Optional[torch.Tensor]:
+    """The initial state of state_dim > 0, 0.1 * N(0, 1) [Np, state_dim] on
+    the real nodes, 0 on padding (gnn_tpu core.py:317-322), drawn from `gen`
+    on its device and moved to the batch's; None at state_dim 0."""
+    if spec.state_dim == 0:
+        return None
+    z = torch.randn((gb.n_node_pad, spec.state_dim), generator=gen, device=gen.device)
+    return 0.1 * z.to(gb.device) * gb.node_mask[:, None].to(z.dtype)
+
+
+def with_init(masks: Optional[dict], spec, gb: GraphBatch, gen: torch.Generator):
+    """`masks` (None at eval) with the initial state drawn from `gen` under
+    "init" where state_dim > 0; unchanged otherwise."""
+    if spec.state_dim == 0:
+        return masks
+    return {**(masks or {}), "init": draw_init(spec, gb, gen)}
 
 
 def draw_net_masks(net: MLPSpec, lead: tuple, gb: GraphBatch, gen: torch.Generator) -> dict:
@@ -258,38 +295,53 @@ def draw_output_masks(spec, gb: GraphBatch, gen: torch.Generator) -> dict:
 
 
 def propagate(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
-              training: bool = False, keep: Optional[dict] = None):
+              training: bool = False, keep: Optional[dict] = None,
+              init: Optional[torch.Tensor] = None):
     """Fixed-point propagation. Returns (iters, state, new_bn_state): the
     realised iteration count (float 0-d tensor), the [Np, D] node states and
     the state net's BatchNorm statistics (updated in training only).
 
     :param keep: in training, the state net's keep-masks {position: bool
         [K, Np, width]} (draw_masks(...)["state"]).
+    :param init: with state_dim > 0, the initial state [Np, state_dim]
+        (draw_init, or draw_masks(...)["init"]).
     """
-    if spec.state_dim > 0:
-        raise NotImplementedError(
-            "state_dim > 0 draws its initial state from the JAX PRNG and folds "
-            "labels into the kernels; not ported yet")
     keep = keep or {}
+    s0 = initial_state(spec, gb, init)
     route = _train_route(spec, gb) if training else _eval_route(spec, gb)
+    check_adj_dtype(gb, route, training, spec.grad_mode)
     if spec.grad_mode == "ift":
-        return _propagate_ift(spec, params_state, bn_state, gb, training, route)
+        return _propagate_ift(spec, params_state, bn_state, gb, training, route, s0)
     if route == "bn":
-        return bn_train_propagate(spec, params_state, bn_state, gb, keep.get(0))
+        return bn_train_propagate(spec, params_state, bn_state, gb, keep.get(0), s0)
     if route == "plain":
-        return _propagate_plain(spec, params_state, bn_state, gb, training, keep)
+        return _propagate_plain(spec, params_state, bn_state, gb, training, keep, s0)
     if route == "dropout":
-        k, state = _propagate_dropout(spec, params_state, gb, keep.get(0))
+        k, state = _propagate_dropout(spec, params_state, gb, keep.get(0), s0)
     elif route == "dropout2":
-        k, state = _propagate_dropout2(spec, params_state, gb, keep.get(0))
+        k, state = _propagate_dropout2(spec, params_state, gb, keep.get(0), s0)
     elif route == "hybrid":
-        k, state = _propagate_hybrid(spec, params_state, bn_state, gb)
+        k, state = _propagate_hybrid(spec, params_state, bn_state, gb, s0)
     else:
-        k, state = _propagate_hybrid2(spec, params_state, bn_state, gb)
+        k, state = _propagate_hybrid2(spec, params_state, bn_state, gb, s0)
     return k, state, bn_state
 
 
-def _propagate_plain(spec, params_state, bn_state, gb, training=False, keep=None):
+def check_adj_dtype(gb: GraphBatch, route: str, training: bool = False,
+                    grad_mode: str = "unroll") -> None:
+    """A bf16 block adjacency runs route 'hybrid2' alone (the bf16 K10, K9
+    and K11), unrolled: any other route, and grad_mode 'ift', raises, on
+    every device, rather than cast the batch."""
+    if gb.adj_dtype != torch.bfloat16 or (route == "hybrid2" and grad_mode == "unroll"):
+        return
+    what = f"route {route!r}" + (" with grad_mode='ift'" if grad_mode == "ift" else "")
+    raise NotImplementedError(
+        f"a bf16-adjacency batch runs only the two-layer route 'hybrid2' (bf16 K10/K9/K11); "
+        f"{what} ({'training' if training else 'eval'}) on it is not ported yet (ROADMAP "
+        f"Queue 1, M7: bf16 on K3/K4, on the training kernels, the plain body and IFT)")
+
+
+def _propagate_plain(spec, params_state, bn_state, gb, training=False, keep=None, s0=None):
     """Masked fixed-K loop (gnn_tpu core.py:932-951); in training the
     BatchNorm statistics follow the active steps only."""
     nm = gb.node_mask
@@ -297,7 +349,7 @@ def _propagate_plain(spec, params_state, bn_state, gb, training=False, keep=None
     def step(it, inp, bn):
         return mlp_apply(spec.state_spec, params_state, bn, inp, training=training,
                          keep={p: m[it] for p, m in (keep or {}).items()}, stat_mask=nm)
-    return plain_loop(spec, gb, step, bn_state)
+    return plain_loop(spec, gb, step, bn_state, s0)
 
 
 def state_aggregation(spec, gb: GraphBatch):
@@ -309,24 +361,44 @@ def state_aggregation(spec, gb: GraphBatch):
     return lambda s: aggregate_to_nodes(s[gb.src], gb.edge_w, gb.dst, gb.n_node_pad)
 
 
-def plain_loop(spec, gb: GraphBatch, step, bn_state):
-    """The plain body's masked fixed-K loop: the movement test before each
-    update (padded nodes never block convergence), the aggregation
-    (state_aggregation) and the state net(s) `step(it, [state | agg | arc
-    aggregation], bn)` -> (new state, new BatchNorm statistics). Returns
-    (iters, state, bn)."""
+def step_constants(spec, gb: GraphBatch, agg_state=None) -> torch.Tensor:
+    """The step input's loop-invariant columns after Σstate: the arc-label
+    aggregation, with state_dim > 0 [Σlabels | Σarcs], Σlabels from the
+    cache or else through `agg_state` (gnn_tpu core.py:323-325; K18 for a
+    'pallas' spec on a plan batch)."""
+    if spec.state_dim == 0:
+        return gb.agg_arcs()
+    agg_nodes = gb.agg_nodes_cache
+    if agg_nodes is None:
+        agg_nodes = (agg_state or state_aggregation(spec, gb))(gb.nodes)
+    return torch.cat([agg_nodes, gb.agg_arcs()], dim=1)
+
+
+def step_input(spec, gb: GraphBatch, state, agg, consts) -> torch.Tensor:
+    """The state net's input [state | Σstate | consts], with state_dim > 0
+    [state | labels | Σstate | consts] (gnn_tpu core.py:323-330)."""
+    head = [state] if spec.state_dim == 0 else [state, gb.nodes]
+    return torch.cat(head + [agg, consts], dim=1)
+
+
+def plain_loop(spec, gb: GraphBatch, step, bn_state, s0=None):
+    """The plain body's masked fixed-K loop from s0 (default the node
+    labels): the movement test before each update (padded nodes never block
+    convergence), the aggregation (state_aggregation) and the state net(s)
+    `step(it, step_input, bn)` -> (new state, new BatchNorm statistics).
+    Returns (iters, state, bn)."""
     agg_state = state_aggregation(spec, gb)
-    agg_arcs = gb.agg_arcs()
+    consts = step_constants(spec, gb, agg_state)
     nm = gb.node_mask
     thr = float(spec.threshold)
-    state = gb.nodes
+    state = gb.nodes if s0 is None else s0
     state_old = torch.ones_like(state)
     active = torch.ones((), dtype=torch.bool, device=state.device)
     k = torch.zeros((), dtype=torch.float32, device=state.device)
     bn = bn_state
     for it in range(spec.max_iteration):
         active = active & (_moving_mask(state, state_old, thr) & nm).any()
-        new, new_bn = step(it, torch.cat([state, agg_state(state), agg_arcs], dim=1), bn)
+        new, new_bn = step(it, step_input(spec, gb, state, agg_state(state), consts), bn)
         state, state_old = (torch.where(active, new, state),
                             torch.where(active, state, state_old))
         bn = _tree_where(active, new_bn, bn)
@@ -343,7 +415,7 @@ def _tree_where(pred, a, b):
     return torch.where(pred, a, b)
 
 
-def _propagate_ift(spec, params_state, bn_state, gb, training: bool, route: str):
+def _propagate_ift(spec, params_state, bn_state, gb, training: bool, route: str, s0):
     """grad_mode='ift' (gnn_tpu core.py:371-379, :603-607, :953-964): the
     fixed point from the eval kernels where the route is 'hybrid' (K3/K4) or
     'hybrid2' (K10/K9), else from the plain body (with batch-statistic
@@ -352,13 +424,14 @@ def _propagate_ift(spec, params_state, bn_state, gb, training: bool, route: str)
     adjoint."""
     with torch.no_grad():
         if route == "hybrid":
-            k, state = _propagate_hybrid(spec, params_state, bn_state, gb)
+            k, state = _propagate_hybrid(spec, params_state, bn_state, gb, s0)
             bn_out = bn_state
         elif route == "hybrid2":
-            k, state = _propagate_hybrid2(spec, params_state, bn_state, gb)
+            k, state = _propagate_hybrid2(spec, params_state, bn_state, gb, s0)
             bn_out = bn_state
         else:
-            k, state, bn_out = _propagate_plain(spec, params_state, bn_state, gb, training)
+            k, state, bn_out = _propagate_plain(spec, params_state, bn_state, gb, training,
+                                                s0=s0)
     return k, finish_ift(spec, training, params_state, bn_out, gb, state, ift_state_step), bn_out
 
 
@@ -366,9 +439,10 @@ def finish_ift(spec, training: bool, params_state, bn, gb: GraphBatch, state, st
     """The fixed point `state` with the implicit adjoint installed
     (gnn_tpu's _finish_ift, core.py:283-298): its backward solves for λ with
     `step(spec, training, params_state, s, consts)` at the fixed point, the
-    BatchNorm statistics `bn` and the batch's arc-label aggregation held
-    constant."""
-    consts = {"gb": gb, "bn": detach_tree(bn), "agg_arcs": gb.agg_arcs().detach()}
+    BatchNorm statistics `bn` and the step input's constant columns
+    (step_constants) held constant."""
+    consts = {"gb": gb, "bn": detach_tree(bn), "spec": spec,
+              "consts": step_constants(spec, gb).detach()}
 
     def f(leaves, s, c):
         return step(spec, training, _unflatten(params_state, leaves), s, c)
@@ -385,15 +459,15 @@ def ift_state_step(spec, training: bool, params_state, s, consts):
 
 
 def ift_step_input(s, consts):
-    """[s | A^T_w s | arc-label aggregation] of the IFT step: the aggregation
-    over the batch's arcs with `index_add_` (gnn_tpu's block product sums the
+    """The IFT step's input (step_input) with the aggregation over the
+    batch's arcs with `index_add_` (gnn_tpu's block product sums the
     same terms in another order). The gather is an index_select, whose
     backward is an `index_add_`: advanced indexing's backward sorts and
     serialises repeated indices (the padding arcs'), 31 ms a call on the
     H100 at full scale."""
     gb = consts["gb"]
     agg = aggregate_to_nodes(s.index_select(0, gb.src), gb.edge_w, gb.dst, gb.n_node_pad)
-    return torch.cat([s, agg, consts["agg_arcs"]], dim=1)
+    return step_input(consts["spec"], gb, s, agg, consts["consts"])
 
 
 def _unflatten(tree, leaves):
@@ -409,7 +483,8 @@ def _unflatten(tree, leaves):
     return build(tree)
 
 
-def hybrid_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
+def hybrid_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
+                    init: Optional[torch.Tensor] = None):
     """The kernels' operands on the hybrid path: (loop, dep, Wa).
 
     `loop` holds K3's tensor arguments (adjT, s0, fT, w2, affine, nm) for the
@@ -419,21 +494,23 @@ def hybrid_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
     the residual term through the aggregation weights (`residual_term`).
 
     The dense layer is reassociated through the aggregation: [Ws; Wa] enters
-    the kernels, the loop-invariant Wf @ agg_arcs + b is computed once here and
-    the residual term goes through Wa inside each dep step (all linear)."""
+    the kernels, the loop-invariant Wfold @ fold + b (fold_features) is
+    computed once here and the residual term goes through Wa inside each dep
+    step (all linear). `init`: the initial state at state_dim > 0."""
     W = gb.block_w
-    Np, D = gb.nodes.shape
+    s0 = initial_state(spec, gb, init)
+    Np, D = s0.shape
     B = Np // W
     affine = None
     if spec.state_spec.batch_normalization:
         affine = bn_inference_affine(params_state["bn"]["gamma"], params_state["bn"]["beta"],
                                      bn_state["mean"], bn_state["var"])
-    w = params_state["dense_0"]["w"]                       # [H, 2D + AL]
-    Wa = w[:, D:2 * D]
+    w = in_kernel_order(params_state["dense_0"]["w"], kernel_columns(spec, gb.nodes.shape[1]))
+    Wa = w[:, D:2 * D]                                     # w: [H, 2D + F] = [Ws | Wa | Wfold]
     w2 = torch.cat([w[:, :D], Wa], dim=0).contiguous()     # [2H, D]
-    fT3 = F.linear(gb.agg_arcs(), w[:, 2 * D:], params_state["dense_0"]["b"])
-    fT3 = fT3.reshape(B, W, D)
-    s03 = gb.nodes.reshape(B, W, D)
+    fT3 = F.linear(fold_features(spec, gb), w[:, 2 * D:], params_state["dense_0"]["b"])
+    fT3 = fT3.reshape(B, W, -1)
+    s03 = s0.reshape(B, W, D)
     loop = dep = None
     if gb.adj_loop is not None:
         li = gb.loop_ids
@@ -489,21 +566,21 @@ def _finish_hybrid(gb: GraphBatch, thr: float, K: int, looped=None, sd=None, ste
             sd, sd_old = torch.where(active, new, sd), torch.where(active, sd, sd_old)
             k = k + active.float()
     if looped is None:
-        return k, sd[gb.block_perm].reshape(gb.nodes.shape)
+        return k, sd[gb.block_perm].reshape(gb.n_node_pad, -1)
     idx = (k.long() - 1).clamp_min(0).reshape(1)
     sel = torch.where(k >= 1.0, traj.index_select(0, idx)[0], s0_loop)
     full = sel if sd is None else torch.cat([sel, sd])
-    return k, full[gb.block_perm].reshape(gb.nodes.shape)
+    return k, full[gb.block_perm].reshape(gb.n_node_pad, -1)
 
 
-def _propagate_hybrid(spec, params_state, bn_state, gb):
+def _propagate_hybrid(spec, params_state, bn_state, gb, s0=None):
     """K3 over the loop blocks, K4 per step over the dep blocks
     (gnn_tpu core.py:475-608) in node-major blocks [B, W, D]; differentiable
     through K5 and K4's plain backward."""
     K = spec.max_iteration
     thr = float(spec.threshold)
     act = spec.state_spec.activations[0]
-    loop, dep, Wa = hybrid_operands(spec, params_state, bn_state, gb)
+    loop, dep, Wa = hybrid_operands(spec, params_state, bn_state, gb, s0)
     looped = None
     if loop is not None:
         looped = (*fused_propagation_loop(**loop, K=K, threshold=thr, activation=act),
@@ -517,65 +594,94 @@ def _propagate_hybrid(spec, params_state, bn_state, gb):
     return _finish_hybrid(gb, thr, K, looped, dep["s"], step)
 
 
-def _dense2_weights(params_state) -> dict:
-    """The two-layer kernels' weights: w0 [H1, 2D + AL] = [Ws | Wa | Wf], b0,
-    w1 [D, H1], b1 (the params themselves, made contiguous)."""
+def _dense2_weights(params_state, cols=None) -> dict:
+    """The two-layer kernels' weights: w0 [H1, 2D + F] = [Ws | Wa | Wfold]
+    (the dense input's columns in the kernels' order, kernel_columns), b0,
+    w1 [D, H1], b1 (made contiguous)."""
     p0, p1 = params_state["dense_0"], params_state["dense_1"]
-    return dict(w0=p0["w"].contiguous(), b0=p0["b"], w1=p1["w"].contiguous(), b1=p1["b"])
+    return dict(w0=in_kernel_order(p0["w"], cols).contiguous(), b0=p0["b"],
+                w1=p1["w"].contiguous(), b1=p1["b"])
 
 
-def hybrid2_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
+def hybrid2_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
+                     init: Optional[torch.Tensor] = None):
     """The two-layer eval kernels' operands (gnn_tpu core.py:475-608 with
     `two`): (loop, dep). `loop` holds K10's tensor arguments (adjT, s0, feats,
     w0, b0, w1, b1, affine, nm) for the loop blocks, or is None without loop
     blocks; `dep` holds K9's (adjT, s,
     feats, the weights, affine) for the dep blocks at their initial states, or
-    is None without dep blocks. feats is the raw arc-label aggregation: the
-    kernels form Wf @ feats + b0 themselves."""
+    is None without dep blocks. feats are the raw feature rows
+    (fold_features): the kernels form Wfold @ feats + b0 themselves.
+
+    On a bf16-adjacency batch the operands are the bf16 kernels' (gnn_tpu's
+    hp = False operands): fT [B, W, H1] = Wfold @ feats + b0 hoisted in f32,
+    w20 [2H1, D] = [Ws; Wa], w1, b1, affine, and `dep` also Wa for the
+    H1-wide residual term (residual_term)."""
     W = gb.block_w
-    Np, D = gb.nodes.shape
+    s0 = initial_state(spec, gb, init)
+    Np, D = s0.shape
     B = Np // W
     affine = None
     if spec.state_spec.batch_normalization:
         affine = bn_inference_affine(params_state["bn"]["gamma"], params_state["bn"]["beta"],
                                      bn_state["mean"], bn_state["var"])
-    wts = _dense2_weights(params_state)
-    s03 = gb.nodes.reshape(B, W, D)
-    f3 = gb.agg_arcs().reshape(B, W, -1)
+    wts = _dense2_weights(params_state, kernel_columns(spec, gb.nodes.shape[1]))
+    s03 = s0.reshape(B, W, D)
+    f3 = fold_features(spec, gb)
+    if gb.adj_dtype == torch.bfloat16:
+        w0 = wts.pop("w0")
+        wts["w20"] = torch.cat([w0[:, :D], w0[:, D:2 * D]], dim=0).contiguous()
+        f3 = seq_dot(f3, w0[:, 2 * D:]) + wts.pop("b0")      # the same bits on every device
+        key = "fT"
+    else:
+        key = "feats"
+    f3 = f3.reshape(B, W, -1)
     loop = dep = None
     if gb.adj_loop is not None:
         li = gb.loop_ids
-        loop = dict(adjT=gb.adj_loop, s0=s03[li], feats=f3[li], affine=affine, nm=gb.loop_nm,
-                    **wts)
+        loop = {"adjT": gb.adj_loop, "s0": s03[li], key: f3[li], "affine": affine,
+                "nm": gb.loop_nm, **wts}
     if gb.adj_dep is not None:
         di = gb.dep_ids
-        dep = dict(adjT=gb.adj_dep, s=s03[di], feats=f3[di], affine=affine, **wts)
+        dep = {"adjT": gb.adj_dep, "s": s03[di], key: f3[di], "affine": affine, **wts}
     return loop, dep
 
 
-def _propagate_hybrid2(spec, params_state, bn_state, gb):
+def _propagate_hybrid2(spec, params_state, bn_state, gb, s0=None):
     """K10 over the loop blocks, K9 per step over the dep blocks with the raw
     residual aggregation (gnn_tpu core.py:475-608 with `two`); differentiable
-    through K11 (K10's backward) and K9's plain backward."""
+    through K11 (K10's backward) and K9's plain backward. On a bf16-adjacency
+    batch their bf16 variants, the residual term H1 wide through Wa as
+    gnn_tpu's."""
     K = spec.max_iteration
     thr = float(spec.threshold)
     acts = dict(zip(("act0", "act1"), spec.state_spec.activations))
-    loop, dep = hybrid2_operands(spec, params_state, bn_state, gb)
+    loop, dep = hybrid2_operands(spec, params_state, bn_state, gb, s0)
+    bf16 = gb.adj_dtype == torch.bfloat16
+    loop_fn = fused_propagation_loop2_bf16 if bf16 else fused_propagation_loop2
     looped = None
     if loop is not None:
-        looped = (*fused_propagation_loop2(**loop, K=K, threshold=thr, **acts), loop["s0"])
+        looped = (*loop_fn(**loop, K=K, threshold=thr, **acts), loop["s0"])
     if dep is None:
         return _finish_hybrid(gb, thr, K, looped)
 
-    def step(_, sd):
-        return fused_propagation_step2(dep["adjT"], sd, residual_agg(gb, sd), dep["feats"],
-                                       dep["w0"], dep["b0"], dep["w1"], dep["b1"], dep["affine"],
-                                       **acts)
+    if bf16:
+        Wa = dep["w20"][dep["w20"].shape[0] // 2:]                # [H1, D]
+
+        def step(_, sd):
+            return fused_propagation_step2_bf16(dep["adjT"], sd, seq_dot(residual_agg(gb, sd), Wa),
+                                                dep["fT"], dep["w20"], dep["w1"], dep["b1"],
+                                                dep["affine"], **acts)
+    else:
+        def step(_, sd):
+            return fused_propagation_step2(dep["adjT"], sd, residual_agg(gb, sd), dep["feats"],
+                                           dep["w0"], dep["b0"], dep["w1"], dep["b1"],
+                                           dep["affine"], **acts)
     return _finish_hybrid(gb, thr, K, looped, dep["s"], step)
 
 
 def dropout_operands(spec: GNNSpec, params_state, gb: GraphBatch,
-                     keep_state: Optional[torch.Tensor]):
+                     keep_state: Optional[torch.Tensor], init: Optional[torch.Tensor] = None):
     """The dropout kernels' operands (gnn_tpu core.py:727-798): (loop, dep, kw).
 
     `loop` holds K7's tensor arguments (adjT, s0, ms, ma, fT, w_cat, nm) for
@@ -583,33 +689,39 @@ def dropout_operands(spec: GNNSpec, params_state, gb: GraphBatch,
     blocks, with the masks and fT of every iteration ([K, Bd, ...]), or is
     None without dep blocks; `kw` is (activation, alpha_drop, rate).
 
-    The dense input [s | agg | arcs] takes the step's keep-mask: the arc-label
-    slice is dropped here and folded into fT = Wf @ drop(arcs) + b for every
-    iteration; the state and aggregated slices' masks go to the kernels as
-    uint8 blocks ms, ma [K, B, W, D] (None without dropout).
+    The dense input [s | agg | fold] (kernel_columns' order) takes the
+    step's keep-mask: the fold slice is dropped here and folded into
+    fT = Wfold @ drop(fold) + b for every iteration; the state and
+    aggregated slices' masks go to the kernels as uint8 blocks ms, ma
+    [K, B, W, D] (None without dropout).
 
-    :param keep_state: bool [K, Np, 2D + AL] input keep-masks in global node
-        order (None without input dropout)."""
+    :param keep_state: bool [K, Np, in_dim] input keep-masks in global node
+        order and the reference's column order (None without input dropout).
+    :param init: the initial state at state_dim > 0."""
     W = gb.block_w
-    Np, D = gb.nodes.shape
+    s0 = initial_state(spec, gb, init)
+    Np, D = s0.shape
     B = Np // W
     K = spec.max_iteration
     ss = spec.state_spec
+    cols = kernel_columns(spec, gb.nodes.shape[1])
     rate = float(dict(zip(ss.dropout_pos, ss.dropout_rate)).get(0, 0.0))
     kw = dict(activation=ss.activations[0], alpha_drop=bool(ss.alphadropout), rate=rate)
-    w, b = params_state["dense_0"]["w"], params_state["dense_0"]["b"]
+    w, b = in_kernel_order(params_state["dense_0"]["w"], cols), params_state["dense_0"]["b"]
+    fold = fold_features(spec, gb)
     ms = ma = None
     if rate > 0.0:
         if keep_state is None:
             raise ValueError("a keep-mask for dropout position 0 is required in training")
+        keep_state = in_kernel_order(keep_state, cols)
         keep = keep_state.reshape(K, B, W, -1)
         ms, ma = keep[..., :D].to(torch.uint8), keep[..., D:2 * D].to(torch.uint8)
         drop, _ = _make_drop(kw["alpha_drop"], rate)
-        fT = F.linear(drop(gb.agg_arcs(), keep_state[..., 2 * D:]), w[:, 2 * D:], b)
+        fT = F.linear(drop(fold, keep_state[..., 2 * D:]), w[:, 2 * D:], b)
     else:
-        fT = F.linear(gb.agg_arcs(), w[:, 2 * D:], b).expand(K, Np, -1)
+        fT = F.linear(fold, w[:, 2 * D:], b).expand(K, Np, -1)
     fT = fT.reshape(K, B, W, -1)
-    s03 = gb.nodes.reshape(B, W, D)
+    s03 = s0.reshape(B, W, D)
     w_cat = w[:, :2 * D].contiguous()                     # [H, 2D] = [Ws | Wa]
 
     def rows(ids):
@@ -626,7 +738,7 @@ def dropout_operands(spec: GNNSpec, params_state, gb: GraphBatch,
     return loop, dep, kw
 
 
-def _propagate_dropout(spec, params_state, gb, keep_state: Optional[torch.Tensor]):
+def _propagate_dropout(spec, params_state, gb, keep_state: Optional[torch.Tensor], s0=None):
     """Dropout training without BatchNorm (gnn_tpu core.py:727-874): K7 over
     the loop blocks (K8 its backward), K6 per step over the dep blocks, which
     get their state slice dropped here and the raw residual aggregation;
@@ -634,7 +746,7 @@ def _propagate_dropout(spec, params_state, gb, keep_state: Optional[torch.Tensor
     training path, core.py:880-927)."""
     K = spec.max_iteration
     thr = float(spec.threshold)
-    loop, dep, kw = dropout_operands(spec, params_state, gb, keep_state)
+    loop, dep, kw = dropout_operands(spec, params_state, gb, keep_state, s0)
     looped = None
     if loop is not None:
         looped = (*fused_train_loop(**loop, K=K, threshold=thr, **kw), loop["s0"])
@@ -651,7 +763,7 @@ def _propagate_dropout(spec, params_state, gb, keep_state: Optional[torch.Tensor
 
 
 def dropout2_operands(spec: GNNSpec, params_state, gb: GraphBatch,
-                      keep_state: Optional[torch.Tensor]):
+                      keep_state: Optional[torch.Tensor], init: Optional[torch.Tensor] = None):
     """The two-layer dropout kernels' operands (gnn_tpu core.py:727-798 with
     `two`): (loop, dep, kw).
 
@@ -660,34 +772,39 @@ def dropout2_operands(spec: GNNSpec, params_state, gb: GraphBatch,
     and the weights), with the masks and fd of every iteration ([K, Bd, ...]),
     or is None without dep blocks; `kw` is (act0, act1, alpha_drop, rate).
 
-    The arc-label slice of the dense input is dropped here: fd [K, B, W, AL] is
-    the raw arc-label aggregation after each iteration's dropout, which the
-    kernel takes through Wf itself; the state and aggregated slices' masks go
-    to the kernel as uint8 blocks ms, ma [K, B, W, D] (None without dropout).
+    The fold slice of the dense input is dropped here: fd [K, B, W, F] is the
+    raw feature rows (fold_features) after each iteration's dropout, which
+    the kernel takes through Wfold itself; the state and aggregated slices'
+    masks go to the kernel as uint8 blocks ms, ma [K, B, W, D] (None without
+    dropout).
 
-    :param keep_state: bool [K, Np, 2D + AL] input keep-masks in global node
-        order (None without input dropout)."""
+    :param keep_state: bool [K, Np, in_dim] input keep-masks in global node
+        order and the reference's column order (None without input dropout).
+    :param init: the initial state at state_dim > 0."""
     W = gb.block_w
-    Np, D = gb.nodes.shape
+    s0 = initial_state(spec, gb, init)
+    Np, D = s0.shape
     B = Np // W
     K = spec.max_iteration
     ss = spec.state_spec
+    cols = kernel_columns(spec, gb.nodes.shape[1])
     rate = float(dict(zip(ss.dropout_pos, ss.dropout_rate)).get(0, 0.0))
     kw = dict(act0=ss.activations[0], act1=ss.activations[1], alpha_drop=bool(ss.alphadropout),
               rate=rate)
-    feats = gb.agg_arcs()
+    feats = fold_features(spec, gb)
     ms = ma = None
     if rate > 0.0:
         if keep_state is None:
             raise ValueError("a keep-mask for dropout position 0 is required in training")
+        keep_state = in_kernel_order(keep_state, cols)
         keep = keep_state.reshape(K, B, W, -1)
         ms, ma = keep[..., :D].to(torch.uint8), keep[..., D:2 * D].to(torch.uint8)
         fd = _make_drop(kw["alpha_drop"], rate)[0](feats, keep_state[..., 2 * D:])
     else:
         fd = feats.expand(K, Np, -1)
     fd = fd.reshape(K, B, W, -1)
-    s03 = gb.nodes.reshape(B, W, D)
-    wts = _dense2_weights(params_state)
+    s03 = s0.reshape(B, W, D)
+    wts = _dense2_weights(params_state, cols)
 
     def rows(ids):
         return [None if x is None else x.index_select(1, ids).contiguous() for x in (ms, ma, fd)]
@@ -702,7 +819,7 @@ def dropout2_operands(spec: GNNSpec, params_state, gb: GraphBatch,
     return loop, dep, kw
 
 
-def _propagate_dropout2(spec, params_state, gb, keep_state: Optional[torch.Tensor]):
+def _propagate_dropout2(spec, params_state, gb, keep_state: Optional[torch.Tensor], s0=None):
     """Two-layer dropout training without BatchNorm (gnn_tpu core.py:727-874
     with `two`): K12 over the loop blocks (K13 its backward); the dep blocks
     take a plain step, as gnn_tpu's (core.py:815-845), which has no per-step
@@ -710,7 +827,7 @@ def _propagate_dropout2(spec, params_state, gb, keep_state: Optional[torch.Tenso
     pre-dropped, dense0, act0, dense1, act1."""
     K = spec.max_iteration
     thr = float(spec.threshold)
-    loop, dep, kw = dropout2_operands(spec, params_state, gb, keep_state)
+    loop, dep, kw = dropout2_operands(spec, params_state, gb, keep_state, s0)
     looped = (*fused_train_loop2(**loop, K=K, threshold=thr, **kw), loop["s0"])
     if dep is None:
         return _finish_hybrid(gb, thr, K, looped)
@@ -742,12 +859,13 @@ def gnn_forward(spec: GNNSpec, params, bn, gb: GraphBatch, training: bool = Fals
 
     :param training: dropout from `masks` (draw_masks; needed when a net has
         dropout) and batch-statistic BatchNorm.
+    :param masks: with state_dim > 0 also at eval, for its "init" (draw_init).
     """
     check_dims(spec, gb.nodes.shape[1], gb.arc_labels.shape[1], gb.targets.shape[1])
     full_fp32(gb)
     masks = masks or {}
     iters, state, bn_s = propagate(spec, params["state"], bn["state"], gb, training,
-                                   masks.get("state"))
+                                   masks.get("state"), masks.get("init"))
     return readout(spec, params, bn, gb, iters, state, bn_s, training, masks.get("output"))
 
 
@@ -761,16 +879,18 @@ def readout(spec, params, bn, gb: GraphBatch, iters, state, bn_state, training: 
             keep_output: Optional[dict]):
     """The output net on the states by focus (arc rows [state_src |
     state_dst | arc labels] for 'a', node rows otherwise, averaged per graph
-    for 'g'): gnn_forward's result dict, bn_state the state nets'
+    for 'g'; with state_dim > 0 a node's row is [state | labels], gnn_tpu
+    core.py:1021-1031): gnn_forward's result dict, bn_state the state nets'
     statistics."""
     out_kw = dict(training=training, keep=keep_output, stat_mask=_entity_mask(gb))
+    comp = state if spec.state_dim == 0 else torch.cat([state, gb.nodes], dim=1)
     if gb.focus == "a":
-        arc_inp = torch.cat([state[gb.src], state[gb.dst], gb.arc_labels], dim=1)
+        arc_inp = torch.cat([comp[gb.src], comp[gb.dst], gb.arc_labels], dim=1)
         out_entity, bn_o = mlp_apply(spec.output_spec, params["output"], bn["output"], arc_inp,
                                      **out_kw)
         out = out_entity[gb.out_index]
     else:
-        out_entity, bn_o = mlp_apply(spec.output_spec, params["output"], bn["output"], state,
+        out_entity, bn_o = mlp_apply(spec.output_spec, params["output"], bn["output"], comp,
                                      **out_kw)
         if gb.focus == "g":
             # average readout over each graph's real nodes; its gradient is the

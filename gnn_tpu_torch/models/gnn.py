@@ -29,7 +29,7 @@ from gnn_tpu_torch.graphs.batch import GraphBatch, from_graphs_blocked
 from gnn_tpu_torch.graphs.graph import Graph, split_graphs
 from gnn_tpu_torch.models import composite
 from gnn_tpu_torch.models.core import (GNNSpec, draw_masks, gnn_forward, gnn_init,
-                                       param_leaves, train_step, weighted_loss)
+                                       param_leaves, train_step, weighted_loss, with_init)
 from gnn_tpu_torch.models.engine import BaseModel
 from gnn_tpu_torch.ops.mlp import MLPSpec
 from gnn_tpu_torch.training.losses import get_loss
@@ -73,14 +73,16 @@ class GNNnodeBased(BaseModel):
     :param path_writer / namespace: the folder of the engine's JSONL and
         TensorBoard logs (cleared at the model's first train()) and their
         namespace.
-    :param state_vect_dim: reference state_vect_dim; only 0 is ported.
+    :param state_vect_dim: reference state_vect_dim: 0 makes the node labels
+        the state, > 0 a separate state of that width, drawn at 0.1 * N(0, 1)
+        from the model's generator (core.draw_init) at every forward.
     :param max_iteration / threshold: the convergence loop's bounds.
     :param aggregation: gnn_tpu's aggregation name ('auto' uses the kernels).
     :param grad_mode / ift_backward_iters: gnn_tpu's gradient mode ('unroll',
         or 'ift': the implicit adjoint of models/ift.py) and the adjoint's
         Neumann iterations.
-    :param seed: seed of the torch.Generators drawing the initial weights and
-        the dropout masks.
+    :param seed: seed of the torch.Generators drawing the initial weights, the
+        dropout masks and the initial states.
     :param device: None means the card ('cuda'); pass 'cpu' for the CPU.
     """
 
@@ -112,7 +114,8 @@ class GNNnodeBased(BaseModel):
         self.spec = spec
         seed = int(np.random.randint(2 ** 31)) if seed is None else int(seed)
         gen = torch.Generator().manual_seed(seed)
-        # dropout masks are drawn on the device, never on the host per step
+        # dropout masks and initial states are drawn on the device, never on
+        # the host per step
         self.mask_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         params, bn = init(self.spec, gen, self.device)
         self._install(params, bn)
@@ -257,21 +260,28 @@ class GNNnodeBased(BaseModel):
         np.savez(os.path.join(path, "bn.npz"), **flatten(bn_np))
 
     # ----------------------------------------------------------- device work
-    def to_batch(self, graphs: Union[Graph, Sequence[Graph]], block_w: int = 128) -> GraphBatch:
+    def to_batch(self, graphs: Union[Graph, Sequence[Graph]], block_w: int = 128,
+                 adj_dtype=None) -> GraphBatch:
         """Pack graphs into one fused-layout batch on the model's device; a
         graph-focus Graph that merges several graphs (Graph.merge) is packed
-        as its graphs, so each pools on its own."""
+        as its graphs, so each pools on its own. `adj_dtype=torch.bfloat16`
+        stores the block adjacencies in bf16 (graphs/batch.py)."""
         glist = [graphs] if isinstance(graphs, Graph) else list(graphs)
         if any(g.focus != self._focus for g in glist):
             raise ValueError(f"graph focus does not match model focus {self._focus!r}")
         glist = [h for g in glist for h in split_graphs(g)]
         return from_graphs_blocked(glist, block_w=block_w, focus=self._focus,
-                                   fused_layout=True).to(self.device)
+                                   fused_layout=True, adj_dtype=adj_dtype).to(self.device)
+
+    def _eval_masks(self, gb: GraphBatch) -> Optional[dict]:
+        """An eval forward's draws: the initial state at state_dim > 0, from
+        the model's generator, else None."""
+        return with_init(None, self.spec, gb, self.mask_gen)
 
     def forward(self, gb: GraphBatch) -> dict:
         """Inference gnn_forward on a batch already on the model's device."""
         with torch.no_grad():
-            return self._forward(self.spec, self.params, self.bn, gb)
+            return self._forward(self.spec, self.params, self.bn, gb, masks=self._eval_masks(gb))
 
     def training_step(self, gb: GraphBatch, mean: bool = True,
                       masks: Optional[dict] = None) -> dict:
@@ -294,7 +304,8 @@ class GNNnodeBased(BaseModel):
         BatchNorm; the moving statistics are not updated."""
         gb = gb if isinstance(gb, GraphBatch) else self.to_batch(gb)
         with torch.no_grad():
-            masks = self._draw_masks(self.spec, gb, self.mask_gen) if training else None
+            masks = (self._draw_masks(self.spec, gb, self.mask_gen) if training
+                     else self._eval_masks(gb))
             res = self._forward(self.spec, self.params, self.bn, gb, training=training,
                                 masks=masks)
             loss = weighted_loss(get_loss(self.loss_function), self.loss_args, gb, res["out"])
@@ -333,7 +344,8 @@ class CompositeGNNnodeBased(GNNnodeBased):
     `node_types`.
 
     :param net_states: one MLPSpec (or config dict) per node type.
-    :param state_dim: only 0 is ported. Other arguments as GNNnodeBased.
+    :param state_dim: as GNNnodeBased's state_vect_dim. Other arguments as
+        GNNnodeBased.
     """
 
     _focus = "n"
@@ -361,12 +373,13 @@ class CompositeGNNnodeBased(GNNnodeBased):
             ift_backward_iters=int(ift_backward_iters), state_dim=int(state_dim))
         self._setup(spec, composite.composite_init, seed, device)
 
-    def to_batch(self, graphs: Union[Graph, Sequence[Graph]], block_w: int = 128) -> GraphBatch:
+    def to_batch(self, graphs: Union[Graph, Sequence[Graph]], block_w: int = 128,
+                 adj_dtype=None) -> GraphBatch:
         """Pack graphs carrying node types into one fused-layout batch on the
         model's device."""
         glist = [graphs] if isinstance(graphs, Graph) else list(graphs)
         composite.check_node_types(glist, self.spec.n_types)
-        return super().to_batch(glist, block_w)
+        return super().to_batch(glist, block_w, adj_dtype)
 
     @staticmethod
     def _config_args(config: dict) -> dict:

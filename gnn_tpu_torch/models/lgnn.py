@@ -49,9 +49,9 @@ def update_graph_batch(gb: GraphBatch, state, out_entity, *, get_state: bool,
     """`gb` with the previous layer's state and/or its outputs (zero outside
     set_mask & output_mask, gnn_tpu's scatter) appended to the node labels,
     or for focus 'a' the outputs to the arc labels (gnn_tpu lgnn.py:39-57).
-    Where arc labels were appended, their aggregation is computed on use
-    (agg_arcs_cache None, as gnn_tpu always does); otherwise the arc labels
-    are unchanged and so is their cached aggregation."""
+    Where labels were appended, their aggregation is computed on use
+    (agg_arcs_cache, agg_nodes_cache None, as gnn_tpu always does);
+    otherwise they are unchanged and so is their cached aggregation."""
     nodeplus, arcplus = [], []
     if get_state:
         nodeplus.append(state)
@@ -61,7 +61,8 @@ def update_graph_batch(gb: GraphBatch, state, out_entity, *, get_state: bool,
     nodes = torch.cat([gb.nodes] + nodeplus, dim=1) if nodeplus else gb.nodes
     arcs = torch.cat([gb.arc_labels] + arcplus, dim=1) if arcplus else gb.arc_labels
     return dataclasses.replace(gb, nodes=nodes, arc_labels=arcs,
-                               agg_arcs_cache=None if arcplus else gb.agg_arcs_cache)
+                               agg_arcs_cache=None if arcplus else gb.agg_arcs_cache,
+                               agg_nodes_cache=None if nodeplus else gb.agg_nodes_cache)
 
 
 def _kind(spec):
@@ -90,13 +91,21 @@ def draw_masks(specs, gb: GraphBatch, gen: torch.Generator) -> list:
     return [_kind(s).draw_masks(s, gb, gen) for s in specs]
 
 
+def draw_inits(specs, gb: GraphBatch, gen: torch.Generator) -> list:
+    """An eval forward's draws a layer, in layer order: {"init": the
+    initial state} for a layer with state_dim > 0 (core.draw_init), else
+    None."""
+    return [core.with_init(None, s, gb, gen) for s in specs]
+
+
 def lgnn_forward(specs, params, bns, gb: GraphBatch, training: bool, get_state: bool,
                  get_output: bool, masks: Optional[Sequence[dict]] = None):
     """The layer stack (gnn_tpu lgnn.py:83-101). Returns (iters list, outs
     list of target-aligned rows [Tp, DT], the last layer's state, the
     layers' new BatchNorm statistics as a tuple).
 
-    :param masks: in training, one keep-mask structure a layer (draw_masks)."""
+    :param masks: in training, one keep-mask structure a layer (draw_masks);
+        at eval draw_inits' list where a layer has state_dim > 0."""
     iters, outs, new_bns = [], [], []
     gtmp, state = gb, None
     for idx, spec in enumerate(specs):
@@ -236,8 +245,9 @@ class LGNN(BaseModel):
     def focus(self) -> str:
         return self.gnns[0].spec.focus
 
-    def to_batch(self, g: Union[Graph, Sequence[Graph]], block_w: int = 128) -> GraphBatch:
-        return self.gnns[0].to_batch(g, block_w)
+    def to_batch(self, g: Union[Graph, Sequence[Graph]], block_w: int = 128,
+                 adj_dtype=None) -> GraphBatch:
+        return self.gnns[0].to_batch(g, block_w, adj_dtype)
 
     def _mode(self) -> str:
         return self.training_mode or "parallel"
@@ -346,7 +356,7 @@ class LGNN(BaseModel):
     # ----------------------------------------------------------- prediction
     def _eval(self, gb: GraphBatch, training: bool):
         with torch.no_grad():
-            masks = draw_masks(self._specs, gb, self.mask_gen) if training else None
+            masks = (draw_masks if training else draw_inits)(self._specs, gb, self.mask_gen)
             return lgnn_eval(self._specs, self._params(), self._bns(), gb,
                              loss_name=self.loss_function, loss_args=self.loss_args,
                              training=training, get_state=self.get_state,
@@ -460,7 +470,7 @@ class LGNN(BaseModel):
         """The ORIGINAL batch augmented with one layer's eval state/outputs on
         its own (already augmented) batch (LGNN.py:336-340)."""
         with torch.no_grad():
-            res = forward_any(gnn.spec, gnn.params, gnn.bn, cur)
+            res = forward_any(gnn.spec, gnn.params, gnn.bn, cur, masks=gnn._eval_masks(cur))
             return update_graph_batch(base, res["state"], res["out_entity"],
                                       get_state=self.get_state, get_output=self.get_output,
                                       focus=gnn.spec.focus)

@@ -130,6 +130,10 @@ def _signatures():
         "gnn_bnT_forward": [p] * 15 + [i] * 6 + [f, p, i, f, f, p, p],
         "gnn_bnT_backward": [p] * 18 + [i] * 6 + [p, i, f, f, p, p],
         "gnn_segment_aggregate": [p] * 5 + [i, i, p],
+        # the bf16-adjacency variants of K9, K10 and K11 (no plans, no workspace)
+        "gnn_propagation_step2_bf16": [p] * 9 + [i] * 6 + [p],
+        "gnn_propagation_loop2_bf16": [p] * 10 + [i] * 5 + [f, i, i, p],
+        "gnn_propagation_loop2_bwd_bf16": [p] * 15 + [i] * 7 + [p],
     }
     out = {name: (args, i) for name, args in sig.items()}
     # the tiled kernels', K1's-K8's, K16's and K17's plan reports (W, D, AL or

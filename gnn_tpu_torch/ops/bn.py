@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from gnn_tpu_torch.ops import _build
+from gnn_tpu_torch.ops.fold import fold_features, in_kernel_order, initial_state, kernel_columns
 from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, SMEM_BYTES,
                                      _act_grad, _check, _check_fits, _check_keep, _drop_args,
                                      _first_plan, _make_drop, _plan_info, _ptr, _r4, _stream,
@@ -810,44 +811,52 @@ def input_rate(state_spec) -> float:
     return float(dict(zip(state_spec.dropout_pos, state_spec.dropout_rate)).get(0, 0.0))
 
 
-def block_keep(blocks, keep_state: Optional[torch.Tensor], rate: float):
+def block_keep(blocks, keep_state: Optional[torch.Tensor], rate: float, cols=None):
     """uint8 [K, R, W, 2D+F] block-row keep-masks of the input dropout from
-    bool [K, Np, 2D+F] masks in global node order ([state | agg | arcs] is
-    already x3's column order at state_dim == 0); None when rate == 0."""
+    bool [K, Np, in_dim] masks in global node order and the reference's
+    column order, taken to x3's (kernel_columns `cols`; the orders agree at
+    state_dim 0); None when rate == 0."""
     if rate <= 0.0:
         return None
     if keep_state is None:
         raise ValueError("a keep-mask for dropout position 0 is required in training")
-    return blocks(keep_state).to(torch.uint8)
+    return blocks(in_kernel_order(keep_state, cols)).to(torch.uint8)
 
 
-def bn_loop_operands(spec, params_state, gb, keep_state: Optional[torch.Tensor]):
+def bn_loop_operands(spec, params_state, gb, keep_state: Optional[torch.Tensor],
+                     init: Optional[torch.Tensor] = None):
     """(s0 [R, W, D], weights, BNLoopOperands) of a blocked batch: the
     weights (w_aug,) with w_aug = [Ws | Wa | Wf | b] [D, 2D+F+1] for a
     one-layer state net, (w0_aug, w1, b1) with w0_aug [H1, 2D+F+1] for a
     two-layer one; the keep-masks in x3 column order and the block rows
-    [loop blocks | dep blocks] with their node mask and residual arcs.
+    [loop blocks | dep blocks] with their node mask and residual arcs. At
+    state_dim > 0 the labels and their aggregation fold into the features
+    (ops/fold.py, gnn_tpu pallas_bn.py:975-1010).
 
     :param keep_state: bool [K, Np, in_dim] input keep-masks in global node
-        order (None without input dropout)."""
+        order (None without input dropout).
+    :param init: the initial state [Np, state_dim] at state_dim > 0."""
     blocks, nm, res = block_rows(gb)
     ss = spec.state_spec
     rate = input_rate(ss)
+    cols = kernel_columns(spec, gb.nodes.shape[1])
     op = BNLoopOperands(adj_loop=gb.adj_loop, adj_dep=gb.adj_dep,
-                        keep=block_keep(blocks, keep_state, rate),
-                        feats=blocks(gb.agg_arcs()), nm=nm, res=res, K=spec.max_iteration,
-                        threshold=float(spec.threshold), activations=tuple(ss.activations),
-                        alpha_drop=bool(ss.alphadropout), rate=rate)
-    weights = (augmented(params_state["dense_0"]),)
+                        keep=block_keep(blocks, keep_state, rate, cols),
+                        feats=blocks(fold_features(spec, gb)), nm=nm, res=res,
+                        K=spec.max_iteration, threshold=float(spec.threshold),
+                        activations=tuple(ss.activations), alpha_drop=bool(ss.alphadropout),
+                        rate=rate)
+    weights = (augmented(params_state["dense_0"], cols),)
     if ss.num_layers == 2:
         d1 = params_state["dense_1"]
         weights += (d1["w"].contiguous(), d1["b"])
-    return blocks(gb.nodes), weights, op
+    return blocks(initial_state(spec, gb, init)), weights, op
 
 
-def augmented(dense) -> torch.Tensor:
-    """[w | b] [H, in + 1]: a dense layer's bias-augmented weight."""
-    return torch.cat([dense["w"], dense["b"][:, None]], dim=1)
+def augmented(dense, cols=None) -> torch.Tensor:
+    """[w | b] [H, in + 1]: a dense layer's bias-augmented weight, its
+    input columns in the kernels' order (kernel_columns `cols`)."""
+    return torch.cat([in_kernel_order(dense["w"], cols), dense["b"][:, None]], dim=1)
 
 
 def moving_stats(bn_state, moms, iters):
@@ -862,13 +871,14 @@ def moving_stats(bn_state, moms, iters):
     return {"mean": mean_mv, "var": var_mv}
 
 
-def bn_train_propagate(spec, params_state, bn_state, gb, keep_state: Optional[torch.Tensor]):
+def bn_train_propagate(spec, params_state, bn_state, gb, keep_state: Optional[torch.Tensor],
+                       init: Optional[torch.Tensor] = None):
     """BN training propagation of models/core.py::propagate on a blocked
     batch (bn_loop_operands): runs bn_train_loop, applies the active-gated
     moving-statistics update and returns the state in global node order.
     Returns (iters, state [Np, D], new_bn_state)."""
-    s0, weights, op = bn_loop_operands(spec, params_state, gb, keep_state)
+    s0, weights, op = bn_loop_operands(spec, params_state, gb, keep_state, init)
     iters, state3, moms = bn_train_loop(s0, weights, params_state["bn"]["gamma"],
                                         params_state["bn"]["beta"], op)
-    state = state3.index_select(0, gb.block_perm).reshape(gb.nodes.shape)
+    state = state3.index_select(0, gb.block_perm).reshape(gb.n_node_pad, -1)
     return iters, state, moving_stats(bn_state, moms, iters)

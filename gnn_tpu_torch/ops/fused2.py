@@ -34,6 +34,40 @@ operations and AL/H1 of the feature bytes.
   reverse iterations: the state cotangent, per-block weight partials and
   fd's cotangent.
 
+On a batch whose block adjacency is bf16 (gnn_tpu's low-precision mode,
+its kernels' `hp = False` branch) the eval kernels have bf16 variants, in
+gnn_tpu's association: they multiply first and contract the adjacency H1
+wide, with the rounding points of _iter_core, _dense1_fm and
+_loop2_bwd_kernel. Write bf(x) for x rounded to bf16 (nearest even) and
+used as f32; every product of two bf values is exact in f32 and the sums
+accumulate in f32:
+
+    U  = bf(s) @ bf(w20)^T                 w20 = [W0s; W0a] [2H1, D]
+    h0 = U_s + bf(U_a) contracted with adjT (bf16) + fT (+ rT)
+    s' = act1(bf(act0(h0)) @ bf(w1)^T + b1) (* scale + shift)
+
+with fT = W0fold @ feats + b0 and the residual term rT = W0a @ Σres H1
+wide, both f32, outside the rounding.
+
+* `propagation_loop2_bf16` (K10_bf16, ops/csrc/loop2_bf16.cu, replaces
+  `_loop2_kernel_T` with hp false): all K iterations of residual-free blocks.
+* `propagation_loop2_bwd_bf16` (K11_bf16, eval_loop2_bwd_bf16.cu, replaces
+  `_loop2_bwd_kernel` with hp false): its K reverse iterations, the forward
+  recomputed with the same rounding and the reverse products on bf16
+  operands (dy0 = bf(dh1) @ bf(w1), dua = bf(dh0) contracted with adjT,
+  gs = bf(du) @ bf(w20)); dw20, dw1 and db1 sum f32 operands in f32.
+* `propagation_step2_bf16` (K9_bf16, fused2_bf16.cu, replaces
+  `_step2_kernel_T` with hp false): one iteration of residual-coupled
+  blocks; its backward is gnn_tpu's `_step2_bwd`, an f32 recompute with the
+  bf16 adjacency upcast.
+
+Their plain versions sum every product in a fixed order (`_seq_dot`: the
+contracted index ascending), which their kernels follow, so on the card a
+kernel and its plain version differ only where the activations' last bits
+do; against gnn_tpu's XLA products an f32 sum in another order can move a
+value across a bf16 rounding boundary. The f32 kernels aggregate the D-wide
+state first; the bf16 ones contract bf(U_a), H1/D of those operations.
+
 The differentiable ops are torch.autograd.Functions: `fused_propagation_loop2`
 (K10, backward K11), which trains a two-layer net without dropout and
 BatchNorm, `fused_train_loop2` (K12, backward K13) and
@@ -74,7 +108,9 @@ MAX_HIDDEN = 512
 
 # the kernel each wrapper launches (C entry point gnn_<wrapper>)
 _KERNEL = {"propagation_step2": "K9", "propagation_loop2": "K10",
-           "propagation_loop2_bwd": "K11", "train_loop2": "K12", "train_loop2_bwd": "K13"}
+           "propagation_loop2_bwd": "K11", "train_loop2": "K12", "train_loop2_bwd": "K13",
+           "propagation_step2_bf16": "K9_bf16", "propagation_loop2_bf16": "K10_bf16",
+           "propagation_loop2_bwd_bf16": "K11_bf16"}
 # kernel launches since the last reset, by wrapper
 launches = dict.fromkeys(_KERNEL, 0)
 _launch = functools.partial(launch_counted, launches, _KERNEL)
@@ -254,6 +290,189 @@ def _step2_vjp(adjT, s, rT, feats, w0, b0, w1, b1, affine, g, act0: str, act1: s
     return (dx3[..., :D] + torch.matmul(adjT, dagg), None if rT is None else dagg,
             dx3[..., 2 * D:], dw0.sum(0), db0.sum(0), dw1.sum(0), db1.sum(0),
             None if daff is None else daff.sum(0))
+
+
+# ------------------------------------------------- bf16 adjacency: plain
+def round_bf16(point: str, x):
+    """bf(x): x rounded to bf16 to nearest even and used as f32. `point`
+    names the rounding point (s, w20, ua, y0, w1; in the reverse dh1, dh0,
+    du, w20): the plain versions look this function up at each call, so a
+    check may replace it, e.g. by one that flips an entry."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _bf(point: str, x):
+    return round_bf16(point, x)
+
+
+def act64(name: str, x):
+    """The activation evaluated in float64 and rounded to f32 once: the
+    correctly rounded value on every device (to within float64's own last
+    bit), so that the card's kernels, their plain versions and the CPU take
+    the same bf16 rounding of y0."""
+    return _ACTS[name](x.double()).float()
+
+
+def act_grad64(name: str, h):
+    """d act / d h in float64, rounded to f32 once (act64's reason)."""
+    return _act_grad(name, h.double()).float()
+
+
+def seq_dot(x, w):
+    """x [..., C] @ w [O, C]^T summed over c ascending, one f32 add a term:
+    the bf16 kernels' order, which the card and the CPU follow alike (each
+    product rounded once, then added). Differentiable; the bf16 plain
+    versions use `_exact_dot`."""
+    acc = x[..., 0:1] * w[:, 0]
+    for c in range(1, x.shape[-1]):
+        acc = acc + x[..., c:c + 1] * w[:, c]
+    return acc
+
+
+def _exact_dot(x, w, pairs: bool = False):
+    """seq_dot of bf values, whose products are exact: one rank-1 update
+    (addr_) a term, which gives the same bits whether or not a device fuses
+    its multiply and add. With `pairs`, x [..., 2H] and w [O, 2H] are summed
+    over unit h ascending, unit h's first-half column then its second-half
+    column (H + h): the order in which the bf16 reverse kernel's hidden
+    chunks take du = [dh0 | dua]."""
+    C = x.shape[-1]
+    x2 = x.reshape(-1, C)
+    cols = [c for h in range(C // 2) for c in (h, C // 2 + h)] if pairs else range(C)
+    acc = x2.new_zeros((x2.shape[0], w.shape[0]))
+    for c in cols:
+        acc.addr_(x2[:, c], w[:, c])
+    return acc.reshape(x.shape[:-1] + (w.shape[0],))
+
+
+def _adj_slots(adj):
+    """The bf16 kernels' aggregation order of an adjacency adj (f32 holding
+    bf16 values [B, W(src), Wd]): each destination's nonzero sources,
+    ascending, one slot at a time, as (sources [B, M, Wd], weights
+    [B, M, Wd]), M the most nonzero sources a destination has. A zero
+    weight adds a zero, so skipping it keeps the dense sum's bits."""
+    W = adj.shape[1]
+    nz = adj != 0
+    M = int(nz.sum(1).max()) if adj.numel() else 0
+    src = torch.arange(W, device=adj.device)[None, :, None]
+    order = torch.sort(torch.where(nz, src, src + W), dim=1).indices[:, :M]
+    return order, adj.gather(1, order)
+
+
+def _exact_adj(slots, x):
+    """out[b, dst] = sum_src adj[b, src, dst] * x[b, src] over src ascending,
+    x bf values [B, W, H], the adjacency as _adj_slots gives it: the bf16
+    kernels' aggregation, one slot's terms added at a time."""
+    order, wts = slots
+    B, W, H = x.shape
+    Wd = order.shape[2]
+    acc = x.new_zeros((B * Wd, H))
+    base = (torch.arange(B, device=x.device) * W)[:, None]
+    xf = x.reshape(B * W, H)
+    for m in range(order.shape[1]):
+        rows = (order[:, m, :] + base).reshape(-1)
+        acc.addcmul_(wts[:, m, :].reshape(-1, 1), xf.index_select(0, rows))
+    return acc.reshape(B, Wd, H)
+
+
+def _forward_bf16(slots, s, fT, w20, w1, b1, act0: str, rT=None):
+    """One bf16 iteration up to h1: (h0 [B, W, H1], y0, h1 [B, W, D])."""
+    H1 = w20.shape[0] // 2
+    u = _exact_dot(_bf("s", s), _bf("w20", w20))                  # [B, W, 2H1]
+    h0 = u[..., :H1] + _exact_adj(slots, _bf("ua", u[..., H1:])) + fT
+    if rT is not None:
+        h0 = h0 + rT
+    y0 = act64(act0, h0)
+    return h0, y0, _exact_dot(_bf("y0", y0), _bf("w1", w1)) + b1
+
+
+def _step2_bf16(slots, s, rT, fT, w20, w1, b1, aff, act0, act1):
+    _, _, h1 = _forward_bf16(slots, s, fT, w20, w1, b1, act0, rT)
+    return act64(act1, h1) * aff[0] + aff[1]
+
+
+def propagation_step2_bf16_ref(adjT, s, rT, fT, w20, w1, b1, affine=None, act0: str = "tanh",
+                               act1: str = "tanh"):
+    """Plain PyTorch K9_bf16: one iteration, [B, W, D] -> [B, W, D]; adjT
+    bf16, rT the residual term through W0a [B, W, H1] or None."""
+    return _step2_bf16(_adj_slots(adjT.float()), s, rT, fT, w20, w1, b1,
+                       _affine(affine, s.shape[-1], s), act0, act1)
+
+
+def propagation_loop2_bf16_ref(adjT, s0, fT, w20, w1, b1, affine, nm, K: int, threshold: float,
+                               act0: str = "tanh", act1: str = "tanh"):
+    """Plain PyTorch K10_bf16: (traj [K, B, W, D], margins [K, B, W]) as
+    propagation_loop2_ref's."""
+    slots, aff = _adj_slots(adjT.float()), _affine(affine, s0.shape[-1], s0)
+    s, s_old = s0, torch.ones_like(s0)
+    traj, margins = [], []
+    for _ in range(K):
+        margins.append(moved(s, s_old, threshold) * nm)
+        s_old, s = s, _step2_bf16(slots, s, None, fT, w20, w1, b1, aff, act0, act1)
+        traj.append(s)
+    return torch.stack(traj), torch.stack(margins)
+
+
+def propagation_loop2_bwd_bf16_ref(adjT, s0, traj, fT, w20, w1, b1, affine, g_traj,
+                                   act0: str = "tanh", act1: str = "tanh"):
+    """Plain PyTorch K11_bf16 (gnn_tpu's _loop2_bwd_kernel, hp false): the K
+    reverse iterations of K10_bf16 for the trajectory's cotangent g_traj.
+    Returns (gs [B, W, D], dw20 [B, 2H1, D], dw1 [B, D, H1], db1 [B, D], dfT
+    [B, W, H1] summed over the iterations, daff [B, 2, D] or None without
+    an affine), the weight and affine cotangents per block."""
+    adj = adjT.float()
+    slots, slots_t = _adj_slots(adj), _adj_slots(adj.transpose(1, 2))
+    B, W, D = s0.shape
+    H1 = w20.shape[0] // 2
+    gs = torch.zeros_like(s0)
+    dw20 = s0.new_zeros((B, 2 * H1, D))
+    dw1, db1 = s0.new_zeros((B, D, H1)), s0.new_zeros((B, D))
+    dfT = torch.zeros_like(fT)
+    daff = None if affine is None else s0.new_zeros((B, 2, D))
+    for k in reversed(range(traj.shape[0])):
+        s_in = traj[k - 1] if k else s0
+        h0, y0, h1 = _forward_bf16(slots, s_in, fT, w20, w1, b1, act0)
+        gy = g_traj[k] + gs
+        if affine is not None:
+            daff = daff + torch.stack([torch.sum(gy * act64(act1, h1), dim=1),
+                                       torch.sum(gy, dim=1)], dim=1)
+            gy = gy * affine[0]
+        dh1 = gy * act_grad64(act1, h1)                               # [B, W, D]
+        db1 = db1 + dh1.sum(1)
+        dw1 = dw1 + torch.matmul(dh1.transpose(1, 2), y0)
+        dh0 = _exact_dot(_bf("dh1", dh1), _bf("w1", w1).t()) * act_grad64(act0, h0)
+        dfT = dfT + dh0
+        dua = _exact_adj(slots_t, _bf("dh0", dh0))                   # over dst, by src
+        du = torch.cat([dh0, dua], dim=-1)                            # [B, W, 2H1]
+        dw20 = dw20 + torch.matmul(du.transpose(1, 2), s_in)
+        gs = _exact_dot(_bf("du", du), _bf("w20", w20).t(), pairs=True)
+    return gs, dw20, dw1, db1, dfT, daff
+
+
+def _step2_bf16_vjp(adjT, s, rT, fT, w20, w1, b1, affine, g, act0: str, act1: str):
+    """Backward of K9_bf16: gnn_tpu's _step2_bwd as it is, an f32 recompute
+    of the step (no rounding) with the bf16 adjacency upcast. Returns (ds,
+    drT, dfT, dw20, dw1, db1, daff); drT None without rT, daff None without
+    an affine."""
+    adj = adjT.float()
+    H1 = w20.shape[0] // 2
+    u = torch.matmul(s, w20.t())                                       # [B, W, 2H1]
+    h0 = u[..., :H1] + torch.matmul(adj.transpose(1, 2), u[..., H1:]) + fT
+    if rT is not None:
+        h0 = h0 + rT
+    y0 = _ACTS[act0](h0)
+    h1 = F.linear(y0, w1, b1)
+    daff = None
+    if affine is not None:
+        daff = torch.stack([torch.sum(g * _ACTS[act1](h1), dim=(0, 1)),
+                            torch.sum(g, dim=(0, 1))])
+        g = g * affine[0]
+    dh1 = g * _act_grad(act1, h1)
+    dw1 = torch.einsum("bwd,bwh->dh", dh1, y0)
+    dh0 = torch.matmul(dh1, w1) * _act_grad(act0, h0)
+    du = torch.cat([dh0, torch.matmul(adj, dh0)], dim=-1)
+    return (torch.matmul(du, w20), None if rT is None else dh0, dh0,
+            torch.einsum("bwk,bwd->kd", du, s), dw1, dh1.sum((0, 1)), daff)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -582,6 +801,155 @@ def train_loop2_bwd(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj, act
     return gs, dw0, db0, dw1, db1, dfd
 
 
+# ------------------------------------------------- bf16 adjacency: wrappers
+BF16_CHUNK = 32     # hidden units a chunk of the bf16 kernels (kBf16Chunk)
+
+
+def bf16_smem_bytes(kernel: str, W: int, D: int) -> int:
+    """Shared memory of a bf16 kernel's CTA (ops/csrc/bf16.cuh::bf16_smem):
+    the bf16 adjacency [W][W], then floats: the forward's state and h1
+    [W][D] each and the U_a and y0 chunks [W][CH] each; K11_bf16 also a
+    [W][D] gs and the dh0 and dua chunks."""
+    rows, chunks = (3, 4) if kernel == "K11_bf16" else (2, 2)
+    return 2 * W * W + 4 * W * (rows * D + chunks * BF16_CHUNK)
+
+
+def _check_bf16(adjT, D: int, H1: int, kernel: str):
+    """The bf16 kernels' adjacency (a contiguous bf16 [B, W, W] on the card,
+    16-byte aligned), block width and the shared memory of the widths."""
+    B, W, W2 = adjT.shape
+    if W != W2 or W % 32 or not 32 <= W <= 128:
+        raise ValueError(f"block width must be 32, 64, 96 or 128, got adjT {tuple(adjT.shape)}")
+    if adjT.device.type != "cuda":
+        raise ValueError(f"propagation kernels need CPU or CUDA tensors, got {adjT.device}")
+    if adjT.dtype != torch.bfloat16 or not adjT.is_contiguous() or adjT.data_ptr() % 16:
+        raise ValueError(f"{kernel} needs a contiguous, 16-byte aligned bf16 adjT, got "
+                         f"{adjT.dtype}")
+    if H1 < 1:
+        raise ValueError(f"hidden width H1={H1} must be positive")
+    need = bf16_smem_bytes(kernel, W, D)
+    if need > SMEM_BYTES:
+        raise ValueError(f"{kernel} takes state widths whose CTA fits {SMEM_BYTES} bytes of "
+                         f"shared memory: D={D} at W={W} needs {need}")
+
+
+def _check_bf16_weights(w20, w1, b1, D: int, dev):
+    """w20 [2H1, D] = [W0s; W0a], w1 [D, H1], b1 [D]."""
+    H1 = w20.shape[0] // 2
+    _check("w20", w20, (2 * H1, D), dev)
+    _check("w1", w1, (D, H1), dev)
+    _check("b1", b1, (D,), dev)
+
+
+def propagation_step2_bf16(adjT, s, rT, fT, w20, w1, b1, affine=None, act0: str = "tanh",
+                           act1: str = "tanh"):
+    """K9_bf16: one two-layer eval iteration over residual-coupled blocks of
+    a bf16 adjacency (gnn_tpu's _step2_kernel_T with hp false).
+
+    :param adjT: bf16 [B, W, W] transposed block adjacency.
+    :param s: [B, W, D] node states.
+    :param rT: [B, W, H1] residual term through W0a, or None.
+    :param fT: [B, W, H1] the f32 feature term W0fold @ feats + b0.
+    :param w20: [2H1, D] the first dense layer's state and aggregation rows
+        [W0s; W0a]; w1 [D, H1], b1 [D] the second.
+    :param affine: optional [2, D] (scale; shift) after act1.
+    Returns [B, W, D].
+    """
+    if adjT.device.type == "cpu":
+        return propagation_step2_bf16_ref(adjT, s, rT, fT, w20, w1, b1, affine, act0, act1)
+    B, W, _ = adjT.shape
+    D, H1 = s.shape[-1], w20.shape[0] // 2
+    _check_bf16(adjT, D, H1, "K9_bf16")
+    dev = adjT.device
+    aff = _affine(affine, D, s)
+    _check("s", s, (B, W, D), dev)
+    if rT is not None:
+        _check("rT", rT, (B, W, H1), dev)
+    _check("fT", fT, (B, W, H1), dev)
+    _check_bf16_weights(w20, w1, b1, D, dev)
+    _check("affine", aff, (2, D), dev)
+    out = torch.empty((B, W, D), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    _launch("propagation_step2_bf16", dev,
+            _ptr(adjT), _ptr(s), _ptr(rT), _ptr(fT), _ptr(w20), _ptr(w1), _ptr(b1), _ptr(aff),
+            _ptr(out), B, W, D, H1, _ACT_CODE[act0], _ACT_CODE[act1])
+    return out
+
+
+def propagation_loop2_bf16(adjT, s0, fT, w20, w1, b1, affine, nm, K: int, threshold: float,
+                           act0: str = "tanh", act1: str = "tanh"):
+    """K10_bf16: all K two-layer eval iterations over residual-free blocks of
+    a bf16 adjacency (gnn_tpu's _loop2_kernel_T with hp false).
+
+    :param nm: [B, W] float node mask. Other arguments as
+        propagation_step2_bf16. Returns (traj [K, B, W, D], margins [K, B, W]).
+    """
+    if adjT.device.type == "cpu":
+        return propagation_loop2_bf16_ref(adjT, s0, fT, w20, w1, b1, affine, nm, K, threshold,
+                                          act0, act1)
+    B, W, _ = adjT.shape
+    D, H1 = s0.shape[-1], w20.shape[0] // 2
+    _check_bf16(adjT, D, H1, "K10_bf16")
+    dev = adjT.device
+    aff = _affine(affine, D, s0)
+    _check("s0", s0, (B, W, D), dev)
+    _check("fT", fT, (B, W, H1), dev)
+    _check_bf16_weights(w20, w1, b1, D, dev)
+    _check("affine", aff, (2, D), dev)
+    _check("nm", nm, (B, W), dev)
+    traj = torch.empty((K, B, W, D), dtype=torch.float32, device=dev)
+    margins = torch.empty((K, B, W), dtype=torch.float32, device=dev)
+    if B == 0 or K == 0:
+        return traj, margins
+    _launch("propagation_loop2_bf16", dev,
+            _ptr(adjT), _ptr(s0), _ptr(fT), _ptr(w20), _ptr(w1), _ptr(b1), _ptr(aff), _ptr(nm),
+            _ptr(traj), _ptr(margins), B, W, D, H1, int(K), float(threshold), _ACT_CODE[act0],
+            _ACT_CODE[act1])
+    return traj, margins
+
+
+def propagation_loop2_bwd_bf16(adjT, s0, traj, fT, w20, w1, b1, affine, g_traj,
+                               act0: str = "tanh", act1: str = "tanh"):
+    """K11_bf16: the K reverse iterations of K10_bf16 over residual-free
+    blocks (gnn_tpu's _loop2_bwd_kernel with hp false).
+
+    :param traj: [K, B, W, D] K10_bf16's trajectory; g_traj: its cotangent.
+    Other arguments as propagation_loop2_bf16. Returns (gs [B, W, D], dw20
+    [B, 2H1, D], dw1 [B, D, H1], db1 [B, D], dfT [B, W, H1] summed over the
+    iterations, daff [B, 2, D] or None without an affine), the weight and
+    affine cotangents per block.
+    """
+    if adjT.device.type == "cpu":
+        return propagation_loop2_bwd_bf16_ref(adjT, s0, traj, fT, w20, w1, b1, affine, g_traj,
+                                              act0, act1)
+    B, W, _ = adjT.shape
+    K = traj.shape[0]
+    D, H1 = s0.shape[-1], w20.shape[0] // 2
+    _check_bf16(adjT, D, H1, "K11_bf16")
+    dev = adjT.device
+    _check("s0", s0, (B, W, D), dev)
+    _check("traj", traj, (K, B, W, D), dev)
+    _check("g_traj", g_traj, (K, B, W, D), dev)
+    _check("fT", fT, (B, W, H1), dev)
+    _check_bf16_weights(w20, w1, b1, D, dev)
+    if affine is not None:
+        _check("affine", affine, (2, D), dev)
+
+    def out(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    gs, dfT = out(B, W, D), out(B, W, H1)
+    dw20, dw1, db1 = out(B, 2 * H1, D), out(B, D, H1), out(B, D)
+    daff = None if affine is None else out(B, 2, D)
+    if B == 0 or K == 0:
+        return gs, dw20, dw1, db1, dfT, daff
+    _launch("propagation_loop2_bwd_bf16", dev,
+            _ptr(adjT), _ptr(s0), _ptr(traj), _ptr(fT), _ptr(w20), _ptr(w1), _ptr(b1),
+            _ptr(affine), _ptr(g_traj), _ptr(gs), _ptr(dw20), _ptr(dw1), _ptr(db1), _ptr(dfT),
+            _ptr(daff), B, W, D, H1, K, _ACT_CODE[act0], _ACT_CODE[act1])
+    return gs, dw20, dw1, db1, dfT, daff
+
+
 # ------------------------------------------------------- differentiable ops
 class _PropagationLoop2(torch.autograd.Function):
     """K10 forward, K11 backward (_loop2_fwd / _loop2_bwd)."""
@@ -660,3 +1028,52 @@ def fused_train_loop2(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K: int, threshol
     K13. Returns (traj, margins); margins carry none."""
     return _TrainLoop2.apply(s0, fd, w0, b0, w1, b1, adjT, ms, ma, nm, K, threshold, act0, act1,
                              alpha_drop, rate)
+
+
+class _PropagationLoop2Bf16(torch.autograd.Function):
+    """K10_bf16 forward, K11_bf16 backward (_loop2_fwd / _loop2_bwd, hp false)."""
+
+    @staticmethod
+    def forward(ctx, s0, fT, w20, w1, b1, affine, adjT, nm, K, threshold, act0, act1):
+        traj, margins = propagation_loop2_bf16(adjT, s0, fT, w20, w1, b1, affine, nm, K,
+                                               threshold, act0, act1)
+        ctx.saved = (adjT, s0, traj, fT, w20, w1, b1, affine, act0, act1)
+        ctx.mark_non_differentiable(margins)
+        return traj, margins
+
+    @staticmethod
+    def backward(ctx, g_traj, _g_margins):
+        adjT, s0, traj, fT, w20, w1, b1, affine, act0, act1 = ctx.saved
+        gs, dw20, dw1, db1, dfT, daff = propagation_loop2_bwd_bf16(
+            adjT, s0, traj, fT, w20, w1, b1, affine, g_traj.contiguous(), act0, act1)
+        return (gs, dfT, dw20.sum(0), dw1.sum(0), db1.sum(0),
+                None if daff is None else daff.sum(0)) + (None,) * 6
+
+
+class _PropagationStep2Bf16(torch.autograd.Function):
+    """K9_bf16 forward, gnn_tpu's plain f32 backward (_step2_bwd)."""
+
+    @staticmethod
+    def forward(ctx, s, rT, fT, w20, w1, b1, affine, adjT, act0, act1):
+        ctx.saved = (adjT, s, rT, fT, w20, w1, b1, affine, act0, act1)
+        return propagation_step2_bf16(adjT, s, rT, fT, w20, w1, b1, affine, act0, act1)
+
+    @staticmethod
+    def backward(ctx, g):
+        adjT, s, rT, fT, w20, w1, b1, affine, act0, act1 = ctx.saved
+        return _step2_bf16_vjp(adjT, s, rT, fT, w20, w1, b1, affine, g, act0, act1) + (None,) * 3
+
+
+def fused_propagation_loop2_bf16(adjT, s0, fT, w20, w1, b1, affine, nm, K: int,
+                                 threshold: float, act0: str = "tanh", act1: str = "tanh"):
+    """propagation_loop2_bf16 (K10_bf16) with gradients to s0, fT, w20, w1, b1
+    and affine through K11_bf16. Returns (traj, margins); margins carry none."""
+    return _PropagationLoop2Bf16.apply(s0, fT, w20, w1, b1, affine, adjT, nm, K, threshold,
+                                       act0, act1)
+
+
+def fused_propagation_step2_bf16(adjT, s, rT, fT, w20, w1, b1, affine=None, act0: str = "tanh",
+                                 act1: str = "tanh"):
+    """propagation_step2_bf16 (K9_bf16) with gradients to s, rT, fT, the
+    weights and affine through gnn_tpu's f32 backward."""
+    return _PropagationStep2Bf16.apply(s, rT, fT, w20, w1, b1, affine, adjT, act0, act1)

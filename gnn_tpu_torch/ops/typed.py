@@ -54,6 +54,7 @@ import torch
 import torch.nn.functional as F
 
 from gnn_tpu_torch.ops import _build
+from gnn_tpu_torch.ops.fold import fold_features, initial_state, kernel_columns
 from gnn_tpu_torch.ops.bn import (BNV_ROWS, BNLoopOperands, _agg_blocks, _bn_ds, _bn_gy,
                                   _check_blocks, _ident_aff, _ones_col, _require_cuda, _res_term,
                                   _x3, augmented, block_keep, block_rows, bn_train_loop,
@@ -431,59 +432,64 @@ def _own_type_keep(keep_states, types):
     return sel
 
 
-def typed_operands(spec, params_state, gb, training: bool, keep_states=None):
+def typed_operands(spec, params_state, gb, training: bool, keep_states=None, init=None):
     """(s0 [R, W, D], w_stk [T*D, 2D+F+1], TypedLoopOperands) of a
     blocked batch with node types: the per-type bias-augmented weights
     stacked, the block rows [loop blocks | dep blocks] with their node mask,
     types and residual arcs (with their source's type), and each node's own
-    type's keep-masks (no dropout at eval).
+    type's keep-masks (no dropout at eval). At state_dim > 0 the labels and
+    their aggregation fold into the features (ops/fold.py, gnn_tpu
+    composite.py:139-151).
 
     :param keep_states: in training, one bool [K, Np, in_dim] input keep-mask
-        per type in global node order (None without input dropout)."""
+        per type in global node order (None without input dropout).
+    :param init: the initial state [Np, state_dim] at state_dim > 0."""
     blocks, nm, res = block_rows(gb)
     ss = spec.state_specs[0]
     rate = input_rate(ss) if training else 0.0
+    cols = kernel_columns(spec, gb.nodes.shape[1])
     keep = None
     if rate > 0.0:
         if keep_states is None:
             raise ValueError("a keep-mask for dropout position 0 is required in training")
-        keep = block_keep(blocks, _own_type_keep(keep_states, gb.node_types), rate)
+        keep = block_keep(blocks, _own_type_keep(keep_states, gb.node_types), rate, cols)
     types = blocks(gb.node_types[:, None])[..., 0].to(torch.int32)
     res_type = None
     if res is not None:
         res_type = types.reshape(-1)[res[0]].long()
     op = TypedLoopOperands(adj_loop=gb.adj_loop, adj_dep=gb.adj_dep, keep=keep,
-                           feats=blocks(gb.agg_arcs()), nm=nm, res=res, K=spec.max_iteration,
+                           feats=blocks(fold_features(spec, gb)), nm=nm, res=res,
+                           K=spec.max_iteration,
                            threshold=float(spec.threshold),
                            activations=tuple(s.activations[0] for s in spec.state_specs),
                            alpha_drop=bool(ss.alphadropout), rate=rate, types=types,
                            res_type=res_type, n_types=spec.n_types)
-    w_stk = torch.cat([augmented(p["dense_0"]) for p in params_state])
-    return blocks(gb.nodes), w_stk, op
+    w_stk = torch.cat([augmented(p["dense_0"], cols) for p in params_state])
+    return blocks(initial_state(spec, gb, init)), w_stk, op
 
 
-def bn_typed_train_propagate(spec, params_state, bn_state, gb, keep_states=None):
+def bn_typed_train_propagate(spec, params_state, bn_state, gb, keep_states=None, init=None):
     """Typed BN training propagation of models/composite.py on a
     blocked batch with node types (gnn_tpu's bn_typed_train_propagate):
     the K-loop of K16/K17 with per-type moments, then each type's
     active-gated moving statistics. Returns (iters, state [Np, D], the new
     per-type BatchNorm statistics as a tuple)."""
-    s0, w_stk, op = typed_operands(spec, params_state, gb, True, keep_states)
+    s0, w_stk, op = typed_operands(spec, params_state, gb, True, keep_states, init)
     gamma = torch.stack([p["bn"]["gamma"] for p in params_state])
     beta = torch.stack([p["bn"]["beta"] for p in params_state])
     iters, state3, moms = bn_train_loop(s0, (w_stk,), gamma, beta, op)
-    state = state3.index_select(0, gb.block_perm).reshape(gb.nodes.shape)
+    state = state3.index_select(0, gb.block_perm).reshape(gb.n_node_pad, -1)
     return iters, state, tuple(moving_stats(b, moms[:, t], iters) for t, b in enumerate(bn_state))
 
 
-def typed_eval_propagate(spec, params_state, bn_state, gb):
+def typed_eval_propagate(spec, params_state, bn_state, gb, init=None):
     """Typed inference propagation (gnn_tpu's typed_eval_propagate): K16 once
     an iteration with rate 0, the first with the identity affine, the later
     ones with each type's fixed inference affine (identity without
     BatchNorm); the moment sums are not used. The early stop and snapshot
     as the training loop's, the snapshot normalized by each node's own
     type's affine. Returns (iters, state [Np, D], bn_state unchanged)."""
-    s0, w_stk, op = typed_operands(spec, params_state, gb, False)
+    s0, w_stk, op = typed_operands(spec, params_state, gb, False, init=init)
     D = s0.shape[-1]
     T = spec.n_types
     ident = _ident_aff(D, s0)[:, None].expand(2, T, D)
@@ -507,4 +513,4 @@ def typed_eval_propagate(spec, params_state, bn_state, gb):
     idx = torch.clamp_min(iters.long() - 1, 0).reshape(1)
     y_sel = torch.stack(ys).index_select(0, idx)[0]
     state3 = torch.where(iters >= 1.0, y_sel * op.sel(aff1[0]) + op.sel(aff1[1]), s0)
-    return iters, state3.index_select(0, gb.block_perm).reshape(gb.nodes.shape), bn_state
+    return iters, state3.index_select(0, gb.block_perm).reshape(gb.n_node_pad, -1), bn_state

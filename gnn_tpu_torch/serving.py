@@ -27,8 +27,10 @@ from gnn_tpu_torch.config import pad_size, resolve_device
 from gnn_tpu_torch.graphs.batch import GraphBatch, from_graphs_blocked, packed_block_count
 from gnn_tpu_torch.graphs.graph import Graph
 from gnn_tpu_torch.models.composite import CompositeGNNSpec, check_node_types
+from gnn_tpu_torch.models.core import with_init
 
 _TOKEN_COUNTER = itertools.count()
+INIT_SEED = 0   # the seed of every request's initial-state draw (state_dim > 0)
 
 
 class PendingPrediction:
@@ -69,12 +71,19 @@ class Predictor:
         aggregation='auto' specs run the propagation kernels.
     :param bucket_multiple: block-count bucket granularity.
     :param cache_batches: size of the packed-batch LRU (0 disables it).
+    :param adj_dtype: torch.bfloat16 packs blocked batches with a bf16
+        adjacency (graphs/batch.py); None keeps it f32.
     :param device: None means the card ('cuda'); pass 'cpu' for the CPU.
+
+    A model with state_dim > 0 starts each request from an initial state
+    drawn from a CPU generator seeded to INIT_SEED on every call, as
+    gnn_tpu's fixed key(0): a request's answer depends neither on earlier
+    requests nor on the device.
     """
 
     def __init__(self, model, *, blocked: bool = True, block_w: int = 128,
                  fused_layout: bool = True, bucket_multiple: int = 8,
-                 cache_batches: int = 256, device=None):
+                 cache_batches: int = 256, adj_dtype=None, device=None):
         self.device = resolve_device(device)
         self._forward, params, bn, self._spec = _forward_callable(model)
         self._params = _copy_to(params, self.device)
@@ -83,6 +92,7 @@ class Predictor:
         self._blocked = bool(blocked)
         self._block_w = int(block_w)
         self._fused = bool(fused_layout)
+        self._adj_dtype = adj_dtype
         self._bucket_multiple = int(bucket_multiple)
         self._warm: set = set()
         # packed-batch LRU keyed by per-Graph identity tokens: a served Graph
@@ -132,7 +142,7 @@ class Predictor:
         bb, ep, tp = self._buckets(glist)
         return from_graphs_blocked(list(glist), block_w=self._block_w, focus=self._focus,
                                    edge_pad=ep, target_pad=tp, min_blocks=bb,
-                                   fused_layout=self._fused)
+                                   fused_layout=self._fused, adj_dtype=self._adj_dtype)
 
     def _cached_batch(self, glist: Sequence[Graph]):
         """(device batch, host sel mask, bucket) of a request, LRU-cached by
@@ -218,19 +228,23 @@ def _forward_callable(model):
     """(fn, params, bn, the first layer's spec) with fn(params, bn, gb) ->
     (target-aligned output rows [Tp, DT], realised iteration count(s)) at
     eval (gnn_tpu serving.py:62-78): an LGNN's whole stack with its last
-    layer's rows, else the model's forward."""
-    from gnn_tpu_torch.models.lgnn import LGNN, lgnn_forward
+    layer's rows, else the model's forward. The initial states of
+    state_dim > 0 come from a CPU generator seeded to INIT_SEED at each call
+    (gnn_tpu's fixed key(0), serving.py:64-68)."""
+    from gnn_tpu_torch.models.lgnn import LGNN, draw_inits, lgnn_forward
     if isinstance(model, LGNN):
         specs, gs, go = model._specs, model.get_state, model.get_output
 
         def fn(params, bns, gb):
-            iters, outs, _, _ = lgnn_forward(specs, params, bns, gb, False, gs, go)
+            inits = draw_inits(specs, gb, torch.Generator().manual_seed(INIT_SEED))
+            iters, outs, _, _ = lgnn_forward(specs, params, bns, gb, False, gs, go, inits)
             return outs[-1], torch.stack(iters)
         return fn, model._params(), model._bns(), specs[0]
     spec, forward = model.spec, model._forward
 
     def fn(params, bn, gb):
-        res = forward(spec, params, bn, gb)
+        masks = with_init(None, spec, gb, torch.Generator().manual_seed(INIT_SEED))
+        res = forward(spec, params, bn, gb, masks=masks)
         return res["out"], res["iters"]
     return fn, model.params, model.bn, spec
 

@@ -200,7 +200,9 @@ def test_bn_free_specs_train(route):
 
 
 def test_unported_paths_raise():
-    """state_dim > 0 raises; two-layer state nets serve and train; the
+    """state_dim > 0 runs and, given gnn_tpu's initial state, equals gnn_tpu
+    (tests/test_torch_state_dim.py holds every route); two-layer state nets
+    serve and train; the
     aggregation names 'pallas' and 'blocked' run the plain body on a batch
     with blocks, where gnn_tpu runs its XLA body; on a batch without blocks
     built with a plan, 'pallas' runs the plain body with K18's plain version
@@ -209,8 +211,21 @@ def test_unported_paths_raise():
     jgs, tgs = _graphs(0, n=4, big=False)
     tb = tbatch.from_graphs_blocked(tgs, block_w=32, fused_layout=True)
     (jp, jbn), (tp, tbn) = _weights(js)
-    with pytest.raises(NotImplementedError, match="state_dim"):
-        tcore.propagate(dataclasses.replace(ts, state_dim=4), tp["state"], tbn["state"], tb)
+    sk = dict(input_dim=2 * (5 + 4) + 3, units=(4,), activations="selu",
+              batch_normalization=True)
+    ok = dict(input_dim=5 + 4, units=(2,), activations="softmax")
+    js4 = dataclasses.replace(js, state_dim=4, state_spec=JSpec(**sk), output_spec=JSpec(**ok))
+    ts4 = dataclasses.replace(ts, state_dim=4, state_spec=TSpec(**sk), output_spec=TSpec(**ok))
+    (jp4, jbn4), (tp4, tbn4) = _weights(js4)
+    jb4 = jbatch.from_graphs_blocked(jgs, block_w=32, focus="g", fused_layout=True)
+    key = jax.random.key(0)
+    want = jcore.gnn_forward(js4, jp4, jbn4, jb4, key)
+    rng_init = jax.random.split(jax.random.split(key, 3)[1], 3)[1]   # gnn_tpu core.py:316
+    init = 0.1 * jax.random.normal(rng_init, (tb.n_node_pad, 4)) * jb4.node_mask[:, None]
+    got = tcore.gnn_forward(ts4, tp4, tbn4, tb, masks={"init": torch.tensor(np.asarray(init))})
+    assert float(got["iters"]) == float(want["iters"])
+    np.testing.assert_allclose(got["state"].numpy(), np.asarray(want["state"]), atol=ATOL)
+    np.testing.assert_allclose(got["out"].numpy(), np.asarray(want["out"]), atol=ATOL)
     # two-layer state nets serve (K9/K10) and with BatchNorm train through
     # K14/K15 (tests/test_torch_train_h150.py and test_torch_bn2.py hold them)
     js2, ts2 = _specs(act="tanh", units=(7, 5))

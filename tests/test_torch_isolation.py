@@ -20,7 +20,7 @@ def test_port_imports_no_jax_and_no_gnn_tpu():
                  "models.core", "models.gnn", "models.composite", "graphs.typed",
                  "graphs.generator", "serving", "training.losses", "training.optimizers",
                  "metrics", "graphs.utils", "models.engine", "training.checkpoint",
-                 "training.tb_events", "models.ift", "models.lgnn", "starter"):
+                 "training.tb_events", "models.ift", "models.lgnn", "starter", "ops.fold"):
         assert f"gnn_tpu_torch.{name}" in names
     code = (
         "import importlib, sys\n"

@@ -1,11 +1,13 @@
 #!/usr/bin/env python3
-"""chip_smoke.py's later phases alone, after the build: 21 (LGNN) and 22
-(the implicit adjoint), on the MUTAG-shaped set. The output and the checks
-are chip_smoke.py's; its last-line contract is not. The kernels are built
-unless the build folder holds a current library.
+"""chip_smoke.py's later phases alone, after the build: 21 (LGNN), 22
+(the implicit adjoint) and 23 (state_dim > 0 and the bf16 adjacency;
+its f32 twins' times, which phases 7 and 8 measure, are not taken here),
+on the MUTAG-shaped set. The output and the checks are chip_smoke.py's;
+its last-line contract is not. The kernels are built unless the build
+folder holds a current library.
 
 Usage, from the repository root:
-    python3 tools/smoke_phases.py [phases=lgnn,ift]
+    python3 tools/smoke_phases.py [phases=lgnn,ift,state_bf16]
 """
 
 import os
@@ -21,7 +23,7 @@ def main():
     from gnn_tpu_torch.graphs.datasets import mutag_shaped
     args = dict(a.split("=", 1) for a in sys.argv[1:])
     phases = args.pop("phases", "lgnn,ift").split(",")
-    if args or not set(phases) <= {"lgnn", "ift"}:
+    if args or not set(phases) <= {"lgnn", "ift", "state_bf16"}:
         cs.fail(f"unknown arguments {sorted(args)} or phases {phases}")
     cs.phase_device(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -34,6 +36,17 @@ def main():
         cs.phase_lgnn(torch, graphs, requests, gb_train, n_arcs)
     if "ift" in phases:
         cs.phase_ift(torch, gb_train, n_arcs)
+    if "state_bf16" in phases:
+        from gnn_tpu_torch import Predictor
+        model = cs.flagship(torch, "cuda")
+        gb = Predictor(model).build_batch(graphs).to("cuda")
+        comp = cs.composite_model(torch, "cuda")
+        gb_train_typed = comp.to_batch(cs.typed_graphs(graphs))
+        twins = {k: {"ms": None, "replaces": f"gnn_tpu/ops/pallas_fused.py ({k})"}
+                 for k in ("K9", "K10", "K11")}
+        for entry in cs.phase_state_bf16(torch, graphs, requests, gb, gb_train, gb_train_typed,
+                                         n_arcs, twins).values():
+            cs.say(str(entry))
     cs.say(f"done ({cs.elapsed()})")
 
 
