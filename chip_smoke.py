@@ -168,11 +168,12 @@
    at this scale, see phase 7) and the card is norm-wise within 2e-4 of the
    float64 step. A param tensor that misses 1e-5 is held to the float64
    steps from the same weights with the same masks (check_params64): it
-   passes if the card is within 1e-5 of them, or if the CPU's float32 steps
-   miss 1e-5 against them too and the card's first-step grads of the tensor
-   meet the grads bound against float64 (Adam's steps move an entry whose
-   gradients are set-valued or within rounding of 0 by a share of lr that
-   rounding decides).
+   passes if the card is within 1e-5 of them, or if the card's first-step
+   grads of the tensor meet the grads bound against float64 and either the
+   CPU's float32 steps miss 1e-5 against float64 too or, after one step, the
+   card lands within 1e-5 of the optimizer's float64 update on its own grads
+   (update64) (Adam's steps move an entry whose gradients are set-valued or
+   within rounding of 0 by a share of lr that rounding decides).
 
 13. One node type: a composite model with one type and the flagship's weights
    against the flagship on the same batches: its K16 forward against K3/K4
@@ -281,10 +282,11 @@
    serving phases: K10 once and, where the request has dep blocks, K9 K times
    a layer a request, no other kernel; outputs within 1e-5 of the same stack
    on the CPU, every layer's iteration count equal; the full-set forward
-   timed and profiled. (b) One parallel and (c) one residual step on the
-   training batch (K10 5, K11 5, K9 25 launches, no other) and a serial epoch of
-   the stack's first 3 layers (each layer's step, evaluation and augmentation: K10 9,
-   K11 3, K9 45; the stack's 5 layers cut to 3 to keep the run within 900 s),
+   timed and profiled. (b) One parallel step on the training batch (K10 5, K11
+   5, K9 25 launches, no other), (c) one residual step of the stack's first 3
+   layers (K10 3, K11 3, K9 15) and a serial epoch of them (each layer's step,
+   evaluation and augmentation: K10 9, K11 3, K9 45; the stack's 5 layers cut
+   to 3 to keep the run within 900 s),
    each against the CPU: iterations equal, loss rtol 1e-5, moving statistics
    1e-5, grads and params as in phase 12 (hold_grads, hold_params), the
    float64 twin run on the card through the kernels' plain versions; a grad
@@ -316,16 +318,34 @@
    against their plain versions on the card by Part B's gate (at least 99%
    of the entries within 1e-5, grads within rtol 2e-4 with a floor of 2e-5
    of the largest entry, and every entry within the change one flip of
-   bf(U_a) an iteration makes, printed before the comparison), timed beside
+   bf(U_a) an iteration makes, a bound run and printed only where an entry
+   misses the tolerance), timed beside
    their f32 twins; (c) h150 served on a bf16 full-set batch (K10_bf16 and
    K9_bf16, no other kernel) and 3 h150_clean steps on a bf16 training batch
    (K10_bf16, K11_bf16, K9_bf16 K times): the outputs and the first step's
    iterations, loss and grads held to the CPU (the gate's bound from the CPU
    with one flip an iteration), the later steps on the card alone.
+24. The flagship on the bf16 adjacency: (a) the bf16 variants K3_bf16 and
+   K4_bf16 at the shapes the bf16 flagship serving path gives them (the
+   1440 loop and 110 dep rows) and K1_bf16 and K2_bf16 at those of its BN
+   training step (the 1214 block rows, the AlphaDropout masks and residual
+   arcs), against their plain versions on the card by Part B's gate (the
+   bound from one flip of bf(U_a) for K3/K4, of x3's aggregated slice for
+   K1, of bf(dh) for K2), movement flags equal, timed beside their f32
+   twins; (b) the flagship served on a bf16 full-set batch: a forward
+   launches K3_bf16 once and K4_bf16 K times and no other kernel, the 8
+   requests held to the CPU by the gate; (c) 3 BN steps on a bf16 training
+   batch (K1_bf16 and K2_bf16 K times a step, no other kernel): the first
+   step's iterations, loss, moving statistics and grads held to the CPU
+   with the card's masks (the bound from the CPU's step with one flip of
+   x3's aggregated slice an iteration), the CPU's BN backward fed the card's
+   state cotangent, which is held to the CPU's own within 1e-5 (the
+   readout's last bits differ and bf(dh) would round them apart), the later
+   steps on the card alone.
 
-Prints a JSON line of per-kernel numbers (K1-K18 and K9_bf16, K10_bf16,
-K11_bf16), then as its last line {"ok": true, "device": {...}}. Any failed
-check exits non-zero before that.
+Prints a JSON line of per-kernel numbers (K1-K18 and K1_bf16, K2_bf16,
+K3_bf16, K4_bf16, K9_bf16, K10_bf16, K11_bf16), then as its last line
+{"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 
 Usage, from the repository root: python3 chip_smoke.py
 """
@@ -777,7 +797,9 @@ ROUTES = {"bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
           "ift_clean": {"propagation_loop": 1, "propagation_step": "K"},
           "ift_h150_clean": {"propagation_loop2": 1, "propagation_step2": "K"},
           "h150_clean_bf16": {"propagation_loop2_bf16": 1, "propagation_loop2_bwd_bf16": 1,
-                              "propagation_step2_bf16": "K"}}
+                              "propagation_step2_bf16": "K"},
+          "flagship_bf16": {"propagation_loop_bf16": 1, "propagation_step_bf16": "K"},
+          "bn_bf16": {"bn_forward_step_bf16": "K", "bn_backward_step_bf16": "K"}}
 
 
 def variant_dims(variant):
@@ -952,7 +974,8 @@ def train_kernel_inputs(torch, model, gb):
         s0, weights, op = bn.bn_loop_operands(model.spec, model.params["state"], gb,
                                               masks["state"].get(0))
         wts = dict(zip(("w_aug",) if len(weights) == 1 else ("w0_aug", "w1", "b1"), weights))
-        fwd = bn.bn_forward_step_ref if len(weights) == 1 else bn.bn2_forward_step_ref
+        fwd = ((bn.bn_forward_step_bf16_ref if op.bf16 else bn.bn_forward_step_ref)
+               if len(weights) == 1 else bn.bn2_forward_step_ref)
         gamma, beta = model.params["state"]["bn"]["gamma"], model.params["state"]["bn"]["beta"]
         ident = bn._ident_aff(s0.shape[-1], s0)
         cnt = op.nm.sum().clamp_min(1.0)
@@ -2816,7 +2839,7 @@ def hold_grads(torch, label, card, cpu, twin, feeds=None, switched=None, witness
     return worst
 
 
-def hold_params(torch, label, card, cpu, grads0, twin, steps):
+def hold_params(torch, label, card, cpu, grads0, twin, steps, replay=None):
     """The params after `steps` steps on the card (`card`, by key) against
     the CPU's (`cpu`) where they differ by more than TOL, held to the float64
     steps from the same weights with the same masks (`twin()` -> (float64
@@ -2826,10 +2849,18 @@ def hold_params(torch, label, card, cpu, grads0, twin, steps):
     (hold_grads), moves by a share of lr that rounding decides, so there both
     float32 runs may miss TOL against each other and against float64. A
     tensor passes if the card is within TOL of the float64 steps (the CPU's
-    float32 is then the one off), or if the CPU's own float32 steps miss TOL
-    against float64 too and the card's first-step grads of that tensor
-    (`grads0`) are within the grads bound (rtol 2e-4, floor 2e-5 of the
-    largest entry) of the float64 grads; else it fails. Returns the largest
+    float32 is then the one off); else the card's first-step grads of that
+    tensor (`grads0`) must be within the grads bound (rtol 2e-4, floor 2e-5
+    of the largest entry) of the float64 grads, and it passes if the CPU's
+    own float32 steps miss TOL against float64 too, or if after one step
+    (`replay()` -> the optimizer's float64 update on the card's own
+    first-step grads, by key, update64) the card is within TOL of that
+    update: the grads and the optimizer are then each held to their bound,
+    and what is left is the update's sensitivity to a gradient within
+    rounding of 0, which the CPU's float32 step may happen to escape (on one
+    H100 the width-128 BN step's first-layer weights landed 4.4e-6, 7.5e-6
+    and 1.0e-5 from the CPU's in three runs of phase 18: the card's float32
+    steps differ between runs). Else it fails. Returns the largest
     card-vs-CPU difference."""
     worst = 0.0
     for key, p in cpu.items():
@@ -2843,15 +2874,26 @@ def hold_params(torch, label, card, cpu, grads0, twin, steps):
         card64 = float((got.double() - want).abs().max())
         cpu64 = float((p.detach().double() - want).abs().max())
         grads_ok, gerr = grads_close(grads0[key].cpu().double(), g64[key].cpu())
+        rep = (float((got.double() - replay()[key]).abs().max())
+               if card64 > TOL and grads_ok and replay is not None and steps == 1 else None)
         if card64 <= TOL:
             verdict = "the card is within it of the float64 steps"
         elif cpu64 > TOL and grads_ok:
             verdict = ("the CPU's float32 misses it against float64 too, and the card's "
                        f"first-step grads are within their bound of the float64 grads ({gerr:.3e})")
+        elif rep is not None and rep <= TOL:
+            miss = (got.double() - want).abs() > TOL
+            g = g64[key].cpu().double().abs()
+            verdict = (f"the card is within it ({rep:.3e}) of the optimizer's float64 update on "
+                       f"the card's own first-step grads, which are within their bound of the "
+                       f"float64 grads ({gerr:.3e}); the {int(miss.sum())} entries that miss "
+                       f"float64 have float64 grads of at most {float(g[miss].max()):.3e} (the "
+                       f"tensor's largest {float(g.max()):.3e})")
         else:
             fail(f"{label} params {key} after {steps} steps: card vs CPU {err:.3e}, card vs "
                  f"float64 {card64:.3e}, CPU vs float64 {cpu64:.3e}, card's first-step grads vs "
-                 f"float64 {gerr:.3e} ({'within' if grads_ok else 'outside'} their bound)")
+                 f"float64 {gerr:.3e} ({'within' if grads_ok else 'outside'} their bound)"
+                 f"{'' if rep is None else f', card vs the float64 update on its grads {rep:.3e}'}")
         say(f"{label} params {key} after {steps} steps: card vs CPU {err:.3e} misses {TOL:g}; "
             f"{verdict} (card vs float64 {card64:.3e}, CPU vs float64 {cpu64:.3e})")
     return worst
@@ -2860,7 +2902,9 @@ def hold_params(torch, label, card, cpu, grads0, twin, steps):
 def check_params64(torch, variant, card, cpu, grads0, gb_cpu, masks, optimizer="adam"):
     """A model's params after the steps on the card (`card`) against the
     CPU's (`cpu`), held by hold_params to the float64 steps of `variant`
-    (steps64) with the same masks (`masks`, one set a step)."""
+    (steps64) with the same masks (`masks`, one set a step), and after one
+    step to the optimizer's float64 update on the card's grads (`grads0`)
+    from the variant's weights."""
     import functools
     from gnn_tpu_torch.convert import flatten
 
@@ -2868,8 +2912,25 @@ def check_params64(torch, variant, card, cpu, grads0, gb_cpu, masks, optimizer="
     def twin():
         m64, g64 = steps64(torch, variant, gb_cpu, masks, optimizer)
         return flatten(m64.params), g64
+
+    @functools.cache
+    def replay():
+        return update64(torch, flatten(flagship(torch, "cpu", variant, optimizer).params),
+                        grads0, optimizer)
     return hold_params(torch, f"'{variant}'", flatten(card.params), flatten(cpu.params), grads0,
-                       twin, len(masks))
+                       twin, len(masks), replay)
+
+
+def update64(torch, before, grads, optimizer):
+    """The params after one step of `optimizer` (a config or a name) in
+    float64 from the params `before` on the grads `grads` (both by key)."""
+    from gnn_tpu_torch.training.optimizers import make_optimizer
+    leaves = {k: v.detach().cpu().double().clone().requires_grad_(True)
+              for k, v in before.items()}
+    for k, leaf in leaves.items():
+        leaf.grad = grads[k].detach().cpu().double()
+    make_optimizer(optimizer, list(leaves.values())).step()
+    return {k: leaf.detach() for k, leaf in leaves.items()}
 
 
 def check_first_grads(torch, variant, card, cpu, gb_cpu, masks):
@@ -3265,10 +3326,13 @@ def phase_wide(torch):
             ws_floats = int(wide_layout(k, *dims)[1]) if info["plan"] == len(plans_of(k)) else 0
             n_rows = (x.get("adjT") if x.get("adjT") is not None else x["y1" if k == "K1"
                       else "y_prev"]).shape[0]
-            ms = timed_ms(torch, lambda: fn(**x))
-            dev_ms = device_ms(torch, lambda: fn(**x), 1)
+            # launches of milliseconds: a few calls time them, and the profiler's
+            # record is printed beside where it returns one (as K9-K17's below)
+            ms = timed_ms(torch, lambda: fn(**x), runs=3, reps=1)
+            dev_ms = device_ms(torch, lambda: fn(**x), 1, runs=3, required=False)
+            dev = "not recorded" if dev_ms is None else f"{dev_ms:.4f} ms"
             say(f"{k} at width 128 ({n_rows} block rows, dims {dims}): {ms:.4f} ms by events, "
-                f"{dev_ms:.4f} ms of device time, bound {bounds[k][0]:.4f} ms "
+                f"device time {dev}, bound {bounds[k][0]:.4f} ms "
                 f"({bounds[k][1]}); {describe_k(k, info)}; workspace "
                 f"{4 * ws_floats * n_rows} bytes")
     def fwd():
@@ -3487,8 +3551,8 @@ def phase_optimizers(torch, gb, n_arcs):
             out = card.training_step(gb, masks=m)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-            if bn.launches != {"bn_forward_step": K, "bn_backward_step": K,
-                               "bn2_forward_step": 0, "bn2_backward_step": 0}:
+            if bn.launches != {**dict.fromkeys(bn.launches, 0), "bn_forward_step": K,
+                               "bn_backward_step": K}:
                 fail(f"optimizer {label} step {i}: launches {bn.launches}")
             # the CPU's step from the same params, statistics and masks
             with torch.no_grad():
@@ -3882,8 +3946,9 @@ def engine_checks(torch, graphs, tmp):
 
 
 LGNN_LAYERS = 5
-SERIAL_LAYERS = 3   # phase 21's serial epoch: the stack's first three layers (its CPU
-                    # reference, the phase's largest, at a smaller depth to keep the run in 900 s)
+SERIAL_LAYERS = 3   # phase 21's serial epoch and residual step: the stack's first three
+                    # layers (their CPU references, the phase's largest, at a smaller depth to
+                    # keep the run in 900 s)
 
 
 def lgnn_model(torch, device, path_writer, starter=False, layers=LGNN_LAYERS):
@@ -4045,7 +4110,7 @@ def stack_twin(torch, make, gb, run, switch=None, band=None):
             "switched": count[0]}
 
 
-def hold_stack(torch, label, card, cpu, pre, twin_of, serial=False):
+def hold_stack(torch, label, card, cpu, pre, twin_of, serial=False, replay=None):
     """An LGNN's grads and params after one step on the card (`card`,
     lgnn_step_result's; a serial epoch: each layer's one step) against the
     CPU's (`cpu`), held by hold_grads and hold_params to the float64 twin
@@ -4060,7 +4125,7 @@ def hold_stack(torch, label, card, cpu, pre, twin_of, serial=False):
     a parallel or residual step those of every layer above, its own layer's
     readout and, for a state net, itself; in a serial epoch, where each layer
     trains alone, only its own layer's. Returns the largest card-vs-CPU
-    differences (grads, params)."""
+    differences (grads, params). `replay` as hold_params'."""
     import functools
     from gnn_tpu_torch.convert import parse_key
     twin = functools.cache(lambda: twin_of(None))
@@ -4106,7 +4171,7 @@ def hold_stack(torch, label, card, cpu, pre, twin_of, serial=False):
                       switched, ("the float64 step with its state nets' near-kink units switched",
                                  near_kinks))
     perr = hold_params(torch, label, card["params"], cpu["params"], card["grads"],
-                       lambda: (twin()["params"], twin()["grads"]), 1)
+                       lambda: (twin()["params"], twin()["grads"]), 1, replay)
     return gerr, perr
 
 
@@ -4117,11 +4182,13 @@ def lgnn_step_check(torch, label, make, gb, n_arcs, want, mode="parallel"):
     realised counts equal, loss rtol 1e-5, moving statistics TOL, grads and
     params as hold_stack holds them. Then 3 more steps timed and profiled.
     Returns the step's host-clock ms."""
+    import functools
     from gnn_tpu_torch.convert import flatten
     from gnn_tpu_torch.models import lgnn as tlgnn
     card = make("cuda")
     card.training_mode = mode
     masks = tlgnn.draw_masks(card._specs, gb, card.mask_gen)
+    before = {k: p.detach().cpu().clone() for k, p in flatten(card._params()).items()}
     reset_port_launches()
     with readout_units(torch) as pre:
         torch.cuda.synchronize()
@@ -4150,9 +4217,12 @@ def lgnn_step_check(torch, label, make, gb, n_arcs, want, mode="parallel"):
     def run(model, batch):
         model.training_mode = mode
         model.training_step(batch, masks=masks)
-    gerr, perr = hold_stack(torch, label, lgnn_step_result(card, out), ref, pre,
+    result = lgnn_step_result(card, out)
+    gerr, perr = hold_stack(torch, label, result, ref, pre,
                             lambda switch, band=None: stack_twin(torch, make, gb, run, switch,
-                                                                 band))
+                                                                 band),
+                            replay=functools.cache(lambda: update64(
+                                torch, before, result["grads"], card.optimizer_config)))
     times = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -4279,17 +4349,21 @@ def lgnn_checks(torch, graphs, requests, gb_train, n_arcs, tmp):
         f"layers' iterations)")
     phase_profile(torch, fwd, what="LGNN full-set forward")
 
-    # ---- (b) one parallel step, (c) one residual step, against the CPU
-    step_want = {"propagation_loop2": L, "propagation_loop2_bwd": L, "propagation_step2": L * K}
-    lgnn_step_check(torch, "LGNN parallel", make, gb_train, n_arcs, step_want)
-    lgnn_step_check(torch, "LGNN residual", make, gb_train, n_arcs, step_want, mode="residual")
+    # ---- (b) one parallel step, (c) one residual step of the stack's first
+    # SERIAL_LAYERS layers, against the CPU
+    def make_serial(device):
+        return make(device, layers=SERIAL_LAYERS)
+
+    def step_want(layers):
+        return {"propagation_loop2": layers, "propagation_loop2_bwd": layers,
+                "propagation_step2": layers * K}
+    lgnn_step_check(torch, "LGNN parallel", make, gb_train, n_arcs, step_want(L))
+    lgnn_step_check(torch, "LGNN residual", make_serial, gb_train, n_arcs,
+                    step_want(SERIAL_LAYERS), mode="residual")
 
     # ---- (c) one serial epoch against the CPU, of the stack's first SERIAL_LAYERS layers
     def serial(model, batch):
         model.train(batch, 1, update_freq=1, training_mode="serial", verbose=0)
-
-    def make_serial(device):
-        return make(device, layers=SERIAL_LAYERS)
     card = make_serial("cuda")
     reset_port_launches()
     with readout_units(torch) as pre:
@@ -4336,7 +4410,7 @@ def lgnn_checks(torch, graphs, requests, gb_train, n_arcs, tmp):
     train_s = time.perf_counter() - t0
     E = len(card.history["Epoch"])
     launched = port_launch_counts()
-    if launched.get("propagation_loop2_bwd") != L * E or set(launched) != set(step_want):
+    if launched.get("propagation_loop2_bwd") != L * E or set(launched) != set(step_want(L)):
         fail(f"LGNN train: {E} epochs, launches {launched}")
     res = card.test(gTe)
     if not all(np.isfinite(v) for v in res.values()):
@@ -4365,22 +4439,24 @@ def phase_ift(torch, gb_train, n_arcs):
 
 
 @contextlib.contextmanager
-def one_flip(torch, adj):
-    """Within: every bf(U_a) rounding of the bf16 plain versions has its
-    largest-magnitude entry one bf16 step larger, one rounding flip of U_a
-    an iteration (tests/test_torch_bf16_adj.py::one_flip), from which Part
-    B's bound on every entry is derived; the entry is taken among the
-    sources with an arc in `adj` where the call's blocks are adj's. A flip
-    reaches later iterations only where its change crosses a rounding
-    boundary of bf(s), so one flip in a single iteration may move nothing
-    downstream (a saturated unit) or a great deal (a cascade)."""
+def one_flip(torch, adj, point="ua"):
+    """Within: every bf16 rounding of the bf16 plain versions at `point` (of
+    fused2.round_bf16's: "ua", bf(U_a) of K3/K4 and K9-K11; "agg", the
+    aggregated slice of K1/K2's x3) has its largest-magnitude entry one bf16
+    step larger, one rounding flip an iteration
+    (tests/test_torch_bf16_adj.py::one_flip), from which Part B's bound on
+    every entry is derived; the entry is taken among the nodes with an arc
+    in `adj` where the call's blocks are adj's. A flip reaches later
+    iterations only where its change crosses a rounding boundary of bf(s),
+    so one flip in a single iteration may move nothing downstream (a
+    saturated unit) or a great deal (a cascade)."""
     from gnn_tpu_torch.ops import fused2
     orig, done = fused2.round_bf16, []
     has_arc = (adj.float() != 0).any(dim=-1)[..., None]
 
-    def flip(point, x):
-        r = orig(point, x)
-        if point != "ua":
+    def flip(p, x):
+        r = orig(p, x)
+        if p != point:
             return r
         done.append(True)
         score = r.abs() * has_arc.to(r.device) if has_arc.shape[:2] == r.shape[:2] else r.abs()
@@ -4394,37 +4470,51 @@ def one_flip(torch, adj):
     finally:
         fused2.round_bf16 = orig
     if not done:
-        fail("one_flip: no bf(U_a) rounding ran")
+        fail(f"one_flip: no rounding at {point!r} ran")
 
 
-def hold_bf16(label, got, want, flipped, exact, grads=False):
+def hold_bf16(label, got, want, flipped, grads=False):
     """Part B's two-part gate (tests/test_torch_bf16_adj.py::hold): at least
     99% of the entries within 1e-5 of `want` (grads: rtol 2e-4 with a floor
     of 2e-5 of the largest entry), and every entry within the larger of that
-    and the one-flip bound max|flipped - exact|, which is printed before the
-    comparison. Returns the largest difference."""
+    and the one-flip bound max|flipped() - want|, `want` run again with one
+    flip. The bound decides only entries beyond the tolerance, so `flipped`
+    (a callable) runs and the bound is printed only where there are some.
+    Returns the largest difference."""
     import numpy as np
 
     def a(x):
         return np.asarray(x.detach().cpu() if hasattr(x, "detach") else x, np.float64)
-    got, want, flipped, exact = map(a, (got, want, flipped, exact))
-    bound = float(np.abs(flipped - exact).max()) if exact.size else 0.0
+    got, want = a(got), a(want)
     tol = (2e-4 * np.abs(want) + 2e-5 * np.abs(want).max()) if grads else np.full(want.shape, TOL)
-    say(f"{label}: one-flip bound {bound:.3e}; gate: 99% of {want.size} entries within "
-        f"{'rtol 2e-4 (floor 2e-5 of the largest)' if grads else f'{TOL:g}'}, every entry "
-        f"within the larger of that and the bound")
     if not np.isfinite(got).all():
         fail(f"{label}: non-finite entries")
     err = np.abs(got - want)
     share = float(np.mean(err <= tol)) if err.size else 1.0
     worst = float(err.max()) if err.size else 0.0
-    say(f"{label}: {share:.6f} of the entries within the tolerance, largest difference "
-        f"{worst:.3e}")
+    say(f"{label}: {share:.6f} of the {want.size} entries within "
+        f"{'rtol 2e-4 (floor 2e-5 of the largest)' if grads else f'{TOL:g}'}, largest "
+        f"difference {worst:.3e}")
     if share < 0.99:
         fail(f"{label}: only {share:.4f} of the entries within the tolerance")
-    if (err > np.maximum(tol, bound)).any():
-        fail(f"{label}: {worst:.3e} beyond the one-flip bound {bound:.3e}")
+    if (err > tol).any():
+        bound = float(np.abs(a(flipped()) - want).max())
+        say(f"{label}: one-flip bound {bound:.3e} for the {int((err > tol).sum())} entries "
+            f"beyond the tolerance")
+        if (err > np.maximum(tol, bound)).any():
+            fail(f"{label}: {worst:.3e} beyond the one-flip bound {bound:.3e}")
     return worst
+
+
+def once(fn):
+    """fn, run at the first call only: the later calls return its result."""
+    kept = []
+
+    def get():
+        if not kept:
+            kept.append(fn())
+        return kept[0]
+    return get
 
 
 def bf16_kernel_inputs(torch, gb16, gbt16):
@@ -4442,7 +4532,8 @@ def bf16_kernel_inputs(torch, gb16, gbt16):
         loop, dep = core.hybrid2_operands(spec, m.params["state"], m.bn["state"], gb16)
         k10 = dict(loop, K=K, threshold=thr, **acts)
         H1 = dep["w20"].shape[0] // 2
-        k9 = dict(dep, rT=fused2.seq_dot(core.residual_agg(gb16, dep["s"]), dep["w20"][H1:]),
+        k9 = dict(dep, rT=fused2.seq_dot(core.residual_agg(gb16, dep["s"], exact=True),
+                                         dep["w20"][H1:]),
                   **acts)
         c = flagship(torch, "cuda", "h150_clean")
         lt, _ = core.hybrid2_operands(c.spec, c.params["state"], c.bn["state"], gbt16)
@@ -4453,134 +4544,235 @@ def bf16_kernel_inputs(torch, gb16, gbt16):
     return k9, k10, k11
 
 
-def bf16_bounds(k9, k10, k11):
-    """(K9_bf16, K10_bf16, K11_bf16) least times and what sets them: the
-    bf16 adjacency read once (2 bytes an entry), each f32 input read once and
-    each output written once, at 3.35 TB/s; the products on the card's dense
-    bf16 tensor-core rate (BF16_FLOPS): U (2 * 2H1 * D a node), the
-    aggregation over the arcs present (2 * H1 an arc) and h1 (2 * H1 * D a
-    node) an iteration; K11 its forward twice (as it runs it) and the
-    reverse products dy0 (2 * H1 * D), dua (2 * H1 an arc), dw1 (2 * D * H1),
-    dw20 (2 * 2H1 * D) and gs (2 * 2H1 * D) a node and iteration."""
-    def dims(x):
-        B, W, _ = x["adjT"].shape
-        D, H1 = x["w1"].shape
-        return B, W, D, H1, B * W, 2 * x["adjT"].numel(), _nnz(x["adjT"]), 4 * (3 * H1 * D + D)
-
-    def bound16(nbytes, flops):
+def bf16_bounds(cases):
+    """{kernel: (least time, what sets it)} of the bf16 variants `cases`
+    ({kernel: operands}): the bf16 adjacency read once (2 bytes an entry),
+    each f32 input read once and each output written once, at 3.35 TB/s;
+    the products of bf16 operands at the card's dense bf16 tensor-core rate
+    (BF16_FLOPS) and the f32 ones (K2_bf16's dw) at its fp32 rate, over the
+    arcs present. K9/K10: U (2 * 2H1 * D a node), the aggregation (2 * H1 an
+    arc) and h1 (2 * H1 * D a node) an iteration; K11 its forward twice (as
+    it runs it) and the reverse products dy0 (2 * H1 * D), dua (2 * H1 an
+    arc), dw1 (2 * D * H1), dw20 (2 * 2H1 * D) and gs (2 * 2H1 * D) a node
+    and iteration. K3/K4: U (2 * 2H * D a node) and A (2 * H an arc) an
+    iteration. K1: the aggregation (2 * D an arc) and the dense layer
+    (2 * D * C a node, C = 2D + F + 1); K2: the dense layer again, dx2
+    (2 * D * 2D a node), the aggregation's reverse (2 * D an arc) and dw
+    (2 * D * C a node, fp32)."""
+    def bound16(nbytes, ops16, ops32=0):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOPS * 1e3
+        t_ops = (ops16 / BF16_FLOPS + ops32 / FP32_FLOPS) * 1e3
         return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
-    B, W, D, H1, n, adj, nnz, wts = dims(k9)
-    fwd = 2 * n * (2 * H1 * D + H1 * D) + 2 * H1 * nnz
-    bytes9 = adj + 4 * n * (D + 2 * H1 + D) + wts + 4 * 2 * D
-    B, W, D, H1, n, adj, nnz, wts = dims(k10)
-    K = k10["K"]
-    bytes10 = adj + 4 * n * (D + H1 + 1) + wts + 4 * 2 * D + 4 * K * n * (D + 1)
-    fwd10 = 2 * n * (2 * H1 * D + H1 * D) + 2 * H1 * nnz
-    B, W, D, H1, n, adj, nnz, wts = dims(k11)
-    K = k11["traj"].shape[0]
-    bytes11 = (adj + 4 * n * (D + H1) + wts + 4 * 2 * K * n * D + 4 * n * (D + H1)
-               + B * wts)
-    fwd11 = 2 * n * (2 * H1 * D + H1 * D) + 2 * H1 * nnz
-    rev11 = 2 * n * (H1 * D + D * H1 + 2 * (2 * H1 * D)) + 2 * H1 * nnz
-    return (bound16(bytes9, fwd), bound16(bytes10, K * fwd10),
-            bound16(bytes11, K * (2 * fwd11 + rev11)))
+
+    def adjs(x):
+        a = [x[k] for k in ("adjT", "adj_loop", "adj_dep") if x.get(k) is not None]
+        return 2 * sum(t.numel() for t in a), sum(_nnz(t) for t in a)
+
+    out = {}
+    for k, x in cases.items():
+        adj, nnz = adjs(x)
+        if k in ("K9_bf16", "K10_bf16", "K11_bf16"):
+            B, W, _ = x["adjT"].shape
+            D, H1 = x["w1"].shape
+            n, wts = B * W, 4 * (3 * H1 * D + D)
+            fwd = 2 * n * (2 * H1 * D + H1 * D) + 2 * H1 * nnz
+        if k == "K9_bf16":
+            out[k] = bound16(adj + 4 * n * (D + 2 * H1 + D) + wts + 4 * 2 * D, fwd)
+        elif k == "K10_bf16":
+            K = x["K"]
+            out[k] = bound16(adj + 4 * n * (D + H1 + 1) + wts + 4 * 2 * D + 4 * K * n * (D + 1),
+                             K * fwd)
+        elif k == "K11_bf16":
+            K = x["traj"].shape[0]
+            rev = 2 * n * (H1 * D + D * H1 + 2 * (2 * H1 * D)) + 2 * H1 * nnz
+            out[k] = bound16(adj + 4 * n * (D + H1) + wts + 4 * 2 * K * n * D + 4 * n * (D + H1)
+                             + B * wts, K * (2 * fwd + rev))
+        elif k in ("K3_bf16", "K4_bf16"):
+            B, W, _ = x["adjT"].shape
+            H2, D = x["w2"].shape
+            H, n = H2 // 2, B * W
+            ops = 2 * n * 2 * H * D + 2 * H * nnz
+            small = 4 * (H2 * D + 2 * H)
+            if k == "K3_bf16":
+                K = x["K"]
+                out[k] = bound16(adj + 4 * n * (2 * D + 1) + small + 4 * K * n * (D + 1), K * ops)
+            else:
+                rows = D + (2 if x["rT"] is not None else 1) * H + H
+                out[k] = bound16(adj + 4 * n * rows + small, ops)
+        else:
+            y = x["y1"] if k == "K1_bf16" else x["y_prev"]
+            R, W, D = y.shape
+            F = x["feats"].shape[-1]
+            C, n = 2 * D + F + 1, R * W
+            shared = adj + (0 if x["keep"] is None else n * (C - 1)) + 4 * (n * F + D * C + n)
+            if k == "K1_bf16":
+                rt = 0 if x["rT"] is None else 4 * n * D
+                out[k] = bound16(shared + 4 * (2 * n * D + 4 * D) + rt
+                                 + 4 * (2 * n * D + n + R * D), 2 * D * nnz + 2 * D * C * n)
+            else:
+                out[k] = bound16(shared + 4 * (5 * n * D + 9 * D + 1)
+                                 + 4 * (2 * n * D + R * D * C + 2 * R * D),
+                                 2 * D * nnz + 2 * D * C * n + 2 * D * 2 * D * n,
+                                 2 * D * C * n)
+    return out
 
 
-def check_bf16_kernels(torch, k9, k10, k11):
-    """The bf16 K9, K10 and K11 against their plain versions on the card on
-    the same inputs, by Part B's gate (hold_bf16, the bound from the plain
-    version with one flip of U_a); K10's margins equal. Per-block partials
-    are summed over the blocks. Returns {kernel: largest difference}."""
-    from gnn_tpu_torch.ops import fused2
-    cases = (("K9_bf16", "propagation_step2_bf16", k9, ("out",)),
-             ("K10_bf16", "propagation_loop2_bf16", k10, ("traj", "margins")),
-             ("K11_bf16", "propagation_loop2_bwd_bf16", k11,
-              ("gs", "dw20", "dw1", "db1", "dfT", "daff")))
+def check_bf16_kernels(torch, cases):
+    """Each bf16 variant against its plain version on the card on the same
+    inputs, by Part B's gate (hold_bf16, the bound from the plain version
+    with one flip at the case's rounding point); movement flags equal.
+    Per-block partials are summed over the blocks. `cases`: (kernel, module,
+    wrapper, operands, output names, rounding point, the summed outputs,
+    whether its outputs are gradients). Returns {kernel: largest
+    difference}."""
     worst = {}
-    for k, name, x, names in cases:
-        got, want = against_plain(torch, fused2, name, x)
-        with one_flip(torch, x["adjT"]):
-            flipped = getattr(fused2, name + "_ref")(**x)
-        got, want, flipped = ((t,) if torch.is_tensor(t) else t for t in (got, want, flipped))
+    for k, module, name, x, names, point, summed, grads in cases:
+        got, want = against_plain(torch, module, name, x)
+        got, want = ((t,) if torch.is_tensor(t) else t for t in (got, want))
+
+        def run_flipped(module=module, name=name, x=x, point=point):
+            with one_flip(torch, bf16_flip_adj(torch, x), point):
+                r = getattr(module, name + "_ref")(**x)
+            return (r,) if torch.is_tensor(r) else r
+        flipped = once(run_flipped)
         worst[k] = 0.0
-        for o, a, b, f in zip(names, got, want, flipped):
+        for i, (o, a, b) in enumerate(zip(names, got, want)):
             if a is None:
                 continue
-            if o == "margins":
+            if o in ("margins", "flags"):
                 if not bool((a == b).all()):
-                    fail(f"{k}: margins disagree with its plain version")
+                    fail(f"{k}: {o} disagree with its plain version")
                 continue
-            if o in ("dw20", "dw1", "db1", "daff"):
-                a, b, f = a.sum(0), b.sum(0), f.sum(0)
-            worst[k] = max(worst[k], hold_bf16(f"{k} {o} vs its plain version", a, b, f, b,
-                                               grads=k == "K11_bf16"))
+            if o in summed:
+                a, b = a.sum(0), b.sum(0)
+            err = hold_bf16(f"{k} {o} vs its plain version", a, b,
+                            lambda i=i, s=o in summed: flipped()[i].sum(0) if s else flipped()[i],
+                            grads=grads)
+            worst[k] = max(worst[k], err)
+        say(f"{k}: largest difference from its plain version {worst[k]:.3e}"
+            f"{' (bit for bit)' if worst[k] == 0.0 else ''}")
     return worst
 
 
-def phase_training_bf16(torch, gbt16, n_arcs, steps=3):
-    """The bf16 h150_clean path: `steps` training steps on a bf16 batch on
-    the card, counted (ROUTES["h150_clean_bf16"], no other kernel), the
-    params finite after them. Step 1 against the CPU from the same weights:
-    iterations equal, the loss within rtol 1e-5, every grad tensor by Part
-    B's gate with the bound of the CPU's step with one flip of U_a an
-    iteration (the CPU's bf16 steps are slow, so the later steps run on the
-    card alone). Returns the launch counts."""
+def bf16_flip_adj(torch, x):
+    """The adjacency whose arcs one_flip's entry is taken among: a kernel's
+    adjT, or the BatchNorm kernels' block rows [loop | dep]."""
+    if "adjT" in x:
+        return x["adjT"]
+    return torch.cat([a for a in (x["adj_loop"], x["adj_dep"]) if a is not None])
+
+
+@contextlib.contextmanager
+def bn_cotangent(torch, record, feed=None):
+    """Within: the BN training loop's backward (ops/bn.py::_BNTrainLoop)
+    appends its state cotangent, the readout's, to `record` (on the CPU)
+    and, with `feed`, takes feed in its place."""
+    from gnn_tpu_torch.ops import bn
+    orig = bn._BNTrainLoop.__dict__["backward"]
+
+    def backward(ctx, g_iters, g_state, g_moms):
+        record.append(g_state.detach().cpu().clone())
+        if feed is not None:
+            g_state = feed.to(g_state.device)
+        return orig.__func__(ctx, g_iters, g_state, g_moms)
+    bn._BNTrainLoop.backward = staticmethod(backward)
+    try:
+        yield
+    finally:
+        bn._BNTrainLoop.backward = orig
+
+
+def phase_training_bf16(torch, gbt16, n_arcs, variant="h150_clean", route="h150_clean_bf16",
+                        point="ua", steps=3):
+    """A training path on a bf16 batch: `steps` steps of the flagship
+    `variant` on the card, counted (ROUTES[route], no other kernel), the
+    params finite after them. Step 1 against the CPU from the same weights
+    and masks: iterations equal, the loss within rtol 1e-5, the moving
+    BatchNorm statistics (where the state net has them) and every grad
+    tensor by Part B's gate with the bound of the CPU's step with one flip at
+    `point` an iteration (the CPU's bf16 steps are slow, so the later steps
+    run on the card alone). On the BatchNorm route the CPU's BN backward
+    takes the card's state cotangent (bn_cotangent), which is held to the
+    CPU's own within TOL: the readout's exp and matrix products differ from
+    the CPU's in the last bit, each such difference can flip a bf(dh)
+    rounding of K2_bf16, and the batch moments spread a flip to every grad
+    (up to 3e-4 on the card), so fed the same cotangent the two
+    backwards are compared on the same bits. Returns the launch counts."""
     from gnn_tpu_torch.convert import flatten
     from gnn_tpu_torch.models import core
     from gnn_tpu_torch.ops import bn, fused, fused2, segment, typed
-    variant = "h150_clean"
     model = flagship(torch, "cuda", variant)
     gb_cpu = gbt16.to("cpu")
+    adj = torch.cat([a for a in (gb_cpu.adj_loop, gb_cpu.adj_dep) if a is not None])
     K = model.spec.max_iteration
     say(f"---- training path '{variant}' on the bf16 batch ({elapsed()})")
     for mod in (bn, fused, fused2, typed, segment):
         mod.reset_launches()
-    log, masks, times, grads0 = [], [], [], None
+    log, masks, times, first, card_g = [], [], [], None, []
     for i in range(steps):
         m = model._draw_masks(model.spec, gbt16, model.mask_gen)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = model.training_step(gbt16, masks=m)
+        with bn_cotangent(torch, card_g) if i == 0 else contextlib.nullcontext():
+            out = model.training_step(gbt16, masks=m)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
         masks.append(tree_map(lambda v: v.cpu(), m))
         log.append((float(out["iters"]), out["loss"].cpu()))
         if i == 0:
-            grads0 = {k: p.grad.detach().cpu().clone() for k, p in flatten(model.params).items()}
+            first = {k: p.grad.detach().cpu().clone() for k, p in flatten(model.params).items()}
+            first.update({f"moving {k}": v.cpu().clone() for k, v in model.bn["state"].items()})
     launches = {**bn.launches, **fused.launches, **fused2.launches, **typed.launches,
                 **segment.launches}
     say(f"'{variant}' bf16 launches over {steps} steps: {launches}")
     for key, n in launches.items():
-        per_step = ROUTES["h150_clean_bf16"].get(key, 0)
+        per_step = ROUTES[route].get(key, 0)
         if n != steps * (K if per_step == "K" else per_step):
             fail(f"'{variant}' bf16 path: {key} launched {n} times in {steps} steps")
     say(f"training step '{variant}' bf16: {sorted(times)[len(times) // 2] * 1e3:.3f} ms median "
         f"of {steps} (host clock, synchronized; each {[round(t * 1e3, 3) for t in times]} ms), "
-        f"iters {[r[0] for r in log]}")
+        f"{n_arcs * log[0][0] / sorted(times)[len(times) // 2]:.4e} edges/s, iters "
+        f"{[r[0] for r in log]}")
+
+    cpu_g = []
 
     def cpu_step(flip):
         cpu = flagship(torch, "cpu", variant)
-        with (one_flip(torch, gb_cpu.adj_loop) if flip else contextlib.nullcontext()):
+        with (one_flip(torch, adj, point) if flip else contextlib.nullcontext()), \
+                bn_cotangent(torch, cpu_g, card_g[0] if card_g and not flip else None):
             out = cpu.training_step(gb_cpu, masks=masks[0])
-        return out, {k: p.grad.clone() for k, p in flatten(cpu.params).items()}
+        return out, {**{k: p.grad.clone() for k, p in flatten(cpu.params).items()},
+                     **{f"moving {k}": v.clone() for k, v in cpu.bn["state"].items()}}
     t0 = time.perf_counter()
-    out, g_cpu = cpu_step(False)
-    _, g_flip = cpu_step(True)
+    out, cpu = cpu_step(False)
+    flipped = once(lambda: cpu_step(True)[1])
+    if card_g:
+        err = float((card_g[0] - cpu_g[0]).abs().max())
+        say(f"'{variant}' bf16 step 0: the readout's state cotangent on the card vs the CPU: "
+            f"max abs diff {err:.3e}, {int((card_g[0] != cpu_g[0]).sum())} of "
+            f"{card_g[0].numel()} entries differing; the CPU's BN backward takes the card's")
+        if err > TOL:
+            fail(f"'{variant}' bf16 step 0: the readout's state cotangent differs by {err:.3e}")
     if float(out["iters"]) != log[0][0]:
         fail(f"'{variant}' bf16 step 0: iters {log[0][0]} on the card, {float(out['iters'])} "
              f"on the CPU")
     close_rel(torch, log[0][1], out["loss"], 1e-5, 0.0, f"'{variant}' bf16 step 0 loss")
-    for key in g_cpu:
-        hold_bf16(f"'{variant}' bf16 grad {key}", grads0[key], g_cpu[key], g_flip[key],
-                  g_cpu[key], grads=True)
+    for key in cpu:
+        moving = key.startswith("moving ")
+        hold_bf16(f"'{variant}' bf16 {'' if moving else 'grad '}{key}", first[key], cpu[key],
+                  lambda key=key: flipped()[key], grads=not moving)
     for p in core.param_leaves(model.params):
         if not bool(torch.isfinite(p).all()):
             fail(f"'{variant}' bf16 path: non-finite parameters after {steps} steps")
     say(f"'{variant}' bf16 step 0 vs CPU ({time.perf_counter() - t0:.1f} s): iters equal, loss "
-        f"within rtol 1e-5, grads within Part B's gate; losses of the {steps} steps on the card "
-        f"{[round(float(r[1]), 4) for r in log]}")
+        f"within rtol 1e-5, grads and moving statistics within Part B's gate; losses of the "
+        f"{steps} steps on the card {[round(float(r[1]), 4) for r in log]}")
+    if variant == "bn":
+        def step():
+            model.training_step(gbt16, masks=model._draw_masks(model.spec, gbt16,
+                                                                model.mask_gen))
+            torch.cuda.synchronize()
+        phase_profile(torch, step, runs=3, what=f"'{variant}' bf16 training step")
     return launches
 
 
@@ -4612,30 +4804,131 @@ def phase_state_bf16(torch, graphs, requests, gb, gb_train, gb_train_typed, n_ar
         f"({time.perf_counter() - t0:.2f} s to pack and upload)")
     with torch.no_grad():
         k9, k10, k11 = bf16_kernel_inputs(torch, gb16, gbt16)
-        errs = check_bf16_kernels(torch, k9, k10, k11)
-        bounds = dict(zip(("K9_bf16", "K10_bf16", "K11_bf16"), bf16_bounds(k9, k10, k11)))
-        timed = {}
-        for k, name, x, twin in (("K9_bf16", "propagation_step2_bf16", k9, "K9"),
-                                 ("K10_bf16", "propagation_loop2_bf16", k10, "K10"),
-                                 ("K11_bf16", "propagation_loop2_bwd_bf16", k11, "K11")):
-            fn, ref = getattr(fused2, name), getattr(fused2, name + "_ref")
-            ms = device_ms(torch, lambda: fn(**x), launches=1, runs=20)
-            plain = timed_ms(torch, lambda: ref(**x), runs=3, reps=1)
-            timed[k] = (ms, plain)
-            b, by = bounds[k]
-            t32 = kernels[twin]["ms"]
-            say(f"{k}: {ms:.4f} ms a call (device time), its f32 twin {twin} "
-                f"{'not measured' if t32 is None else f'{t32:.4f} ms'} on the f32 batch's same "
-                f"blocks; plain version {plain:.3f} ms; bound {b:.4f} ms ({by}); {CARD}")
+        cases = (("K9_bf16", fused2, "propagation_step2_bf16", k9, ("out",), "ua", (), False),
+                 ("K10_bf16", fused2, "propagation_loop2_bf16", k10, ("traj", "margins"), "ua",
+                  (), False),
+                 ("K11_bf16", fused2, "propagation_loop2_bwd_bf16", k11,
+                  ("gs", "dw20", "dw1", "db1", "dfT", "daff"), "ua",
+                  ("dw20", "dw1", "db1", "daff"), True))
+        errs = check_bf16_kernels(torch, cases)
+        timed, bounds = time_bf16_kernels(torch, cases, kernels, ("K9", "K10", "K11"))
     served = phase_serving(
         torch, "h150_bf16", flagship(torch, "cuda", "h150"), flagship(torch, "cpu", "h150"), gb16,
         requests, ("propagation_loop2_bf16", "propagation_step2_bf16"), n_arcs,
         predictor_kw={"adj_dtype": bf16}, hold=served_bf16_hold(torch))
     trained = phase_training_bf16(torch, gbt16, n_arcs)
     say(f"phase 23: {time.perf_counter() - t_phase:.1f} s")
-    src = {"K9_bf16": ("fused2_bf16.cu", "K9", served, "propagation_step2_bf16"),
-           "K10_bf16": ("loop2_bf16.cu", "K10", served, "propagation_loop2_bf16"),
-           "K11_bf16": ("eval_loop2_bwd_bf16.cu", "K11", trained, "propagation_loop2_bwd_bf16")}
+    return kernel_rows(
+        kernels, {"K9_bf16": ("fused2_bf16.cu", "K9", served, "propagation_step2_bf16"),
+                  "K10_bf16": ("loop2_bf16.cu", "K10", served, "propagation_loop2_bf16"),
+                  "K11_bf16": ("eval_loop2_bwd_bf16.cu", "K11", trained,
+                               "propagation_loop2_bwd_bf16")}, errs, timed, bounds)
+
+
+def flagship_bf16_kernel_inputs(torch, gb16, gbt16):
+    """K3_bf16's and K4_bf16's operands as the bf16 flagship serving path
+    forms them on the full set (K4's at the first dep step, rT = Wa @ Σres
+    by seq_dot), K1_bf16's and K2_bf16's as its BN training step forms them
+    on the bf16 training batch (train_kernel_inputs: iteration 2 and the
+    reverse of iteration 2, with the flagship's AlphaDropout masks and
+    residual arcs)."""
+    from gnn_tpu_torch.models import core
+    from gnn_tpu_torch.ops.fused2 import seq_dot
+    m = flagship(torch, "cuda")
+    spec = m.spec
+    K, thr, act = spec.max_iteration, float(spec.threshold), spec.state_spec.activations[0]
+    with torch.no_grad():
+        loop, dep, Wa = core.hybrid_operands(spec, m.params["state"], m.bn["state"], gb16)
+        k3 = dict(loop, K=K, threshold=thr, activation=act)
+        k4 = dict(dep, rT=seq_dot(core.residual_agg(gb16, dep["s"], exact=True), Wa),
+                  activation=act)
+    (_, x1), kw, x2, kwb = train_kernel_inputs(torch, m, gbt16)
+    return k3, k4, dict(x1, **kw), dict(x2, **kwb)
+
+
+def check_forward_launches(torch, route, model, gb):
+    """One full-set forward of `model` on `gb` launches the wrappers of
+    ROUTES[route] as often as it says (K: once an iteration) and no other
+    kernel."""
+    from gnn_tpu_torch.ops import bn, fused, fused2, segment, typed
+    mods = (bn, fused, fused2, typed, segment)
+    for mod in mods:
+        mod.reset_launches()
+    model.forward(gb)
+    torch.cuda.synchronize()
+    counts = {k: n for mod in mods for k, n in mod.launches.items()}
+    K = model.spec.max_iteration
+    for key, n in counts.items():
+        want = ROUTES[route].get(key, 0)
+        if n != (K if want == "K" else want):
+            fail(f"'{route}' full-set forward: {key} launched {n} times")
+    say(f"'{route}' full-set forward launches: { {k: n for k, n in counts.items() if n} }")
+
+
+def phase_flagship_bf16(torch, graphs, requests, n_arcs, kernels):
+    """Phase 24: the flagship on a bf16 adjacency (module docstring). Returns
+    the kernels line's entries of K3_bf16, K4_bf16, K1_bf16 and K2_bf16."""
+    from gnn_tpu_torch import Predictor
+    from gnn_tpu_torch.ops import bn, fused
+    t_phase = time.perf_counter()
+    say(f"---- the flagship on the bf16 adjacency ({elapsed()})")
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    gb16 = Predictor(flagship(torch, "cpu"), adj_dtype=bf16).build_batch(graphs).to("cuda")
+    gbt16 = flagship(torch, "cuda").to_batch(graphs, adj_dtype=bf16)
+    say(f"bf16 batches: serving {gb16.adj_loop.shape[0]} loop and {gb16.adj_dep.shape[0]} dep "
+        f"blocks, training {gbt16.adj_loop.shape[0]} loop and {gbt16.adj_dep.shape[0]} dep "
+        f"({time.perf_counter() - t0:.2f} s to pack and upload)")
+    k3, k4, k1, k2 = flagship_bf16_kernel_inputs(torch, gb16, gbt16)
+    with torch.no_grad():
+        cases = (("K3_bf16", fused, "propagation_loop_bf16", k3, ("traj", "margins"), "ua", (),
+                  False),
+                 ("K4_bf16", fused, "propagation_step_bf16", k4, ("out",), "ua", (), False),
+                 ("K1_bf16", bn, "bn_forward_step_bf16", k1, ("y", "agg", "flags", "msum"), "agg",
+                  ("msum",), False),
+                 ("K2_bf16", bn, "bn_backward_step_bf16", k2, ("ds", "dw", "dagg", "red"), "dh",
+                  ("dw", "red"), True))
+        errs = check_bf16_kernels(torch, cases)
+        timed, bounds = time_bf16_kernels(torch, cases, kernels, ("K3", "K4", "K1", "K2"))
+    model = flagship(torch, "cuda")
+    check_forward_launches(torch, "flagship_bf16", model, gb16)
+    served = phase_serving(
+        torch, "flagship_bf16", model, flagship(torch, "cpu"), gb16, requests,
+        ("propagation_loop_bf16", "propagation_step_bf16"), n_arcs,
+        predictor_kw={"adj_dtype": bf16}, hold=served_bf16_hold(torch))
+    trained = phase_training_bf16(torch, gbt16, n_arcs, "bn", "bn_bf16", "agg")
+    say(f"phase 24: {time.perf_counter() - t_phase:.1f} s")
+    return kernel_rows(
+        kernels, {"K3_bf16": ("eval_loop_bf16.cu", "K3", served, "propagation_loop_bf16"),
+                  "K4_bf16": ("eval_loop_bf16.cu", "K4", served, "propagation_step_bf16"),
+                  "K1_bf16": ("bn_bf16.cu", "K1", trained, "bn_forward_step_bf16"),
+                  "K2_bf16": ("bn_bf16.cu", "K2", trained, "bn_backward_step_bf16")},
+        errs, timed, bounds)
+
+
+def time_bf16_kernels(torch, cases, kernels, twins):
+    """(timed {kernel: (device ms a call, plain ms)}, bounds) of the bf16
+    variants `cases` (check_bf16_kernels'), each printed beside its f32
+    twin's time (kernels[twin]["ms"], None where not measured)."""
+    bounds = bf16_bounds({k: x for k, _, _, x, *_ in cases})
+    timed = {}
+    for (k, module, name, x, *_), twin in zip(cases, twins):
+        fn, ref = getattr(module, name), getattr(module, name + "_ref")
+        ms = device_ms(torch, lambda: fn(**x), launches=1, runs=20)
+        plain = timed_ms(torch, lambda: ref(**x), runs=3, reps=1)
+        timed[k] = (ms, plain)
+        b, by = bounds[k]
+        t32 = kernels[twin]["ms"]
+        say(f"{k}: {ms:.4f} ms a call (device time), its f32 twin {twin} "
+            f"{'not measured' if t32 is None else f'{t32:.4f} ms'} on the f32 batch's same "
+            f"blocks; plain version {plain:.3f} ms; bound {b:.4f} ms ({by}); {CARD}")
+    return timed, bounds
+
+
+def kernel_rows(kernels, src, errs, timed, bounds):
+    """The kernels line's entries of bf16 variants: src {kernel: (source
+    file, f32 twin, launch counts, wrapper)}; each must have launched on its
+    main path."""
     out = {}
     for k, (cu, twin, counts, key) in src.items():
         if not counts[key]:
@@ -4654,15 +4947,16 @@ def served_bf16_hold(torch):
     predictor with one flip of U_a an iteration."""
     import numpy as np
 
-    def hold(label, req, outs, refs, pred_cpu):
-        gb = pred_cpu.build_batch([req] if not isinstance(req, list) else req)
-        with one_flip(torch, gb.adj_loop):
-            flipped = pred_cpu.predict(req)
-        flipped = [flipped] if not isinstance(req, list) else flipped
+    def cat(xs):
+        return np.concatenate([np.asarray(x).ravel() for x in xs])
 
-        def cat(xs):
-            return np.concatenate([np.asarray(x).ravel() for x in xs])
-        return hold_bf16(label, cat(outs), cat(refs), cat(flipped), cat(refs))
+    def hold(label, req, outs, refs, pred_cpu):
+        def flipped():
+            gb = pred_cpu.build_batch([req] if not isinstance(req, list) else req)
+            with one_flip(torch, gb.adj_loop):
+                out = pred_cpu.predict(req)
+            return cat([out] if not isinstance(req, list) else out)
+        return hold_bf16(label, cat(outs), cat(refs), flipped)
     return hold
 
 
@@ -4774,6 +5068,7 @@ def phases(torch):
     phase_ift(torch, gb_train, n_arcs)
     kernels.update(phase_state_bf16(torch, graphs, requests, gb, gb_train, gb_train_typed, n_arcs,
                                     kernels))
+    kernels.update(phase_flagship_bf16(torch, graphs, requests, n_arcs, kernels))
     for k, (path, key) in {"K1": ("bn", "bn_forward_step"), "K2": ("bn", "bn_backward_step"),
                            "K3": ("flagship", "propagation_loop"),
                            "K4": ("flagship", "propagation_step"),

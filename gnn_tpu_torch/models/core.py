@@ -54,10 +54,14 @@ Dispatch follows gnn_tpu's `aggregation='auto'`:
   (`kernel_columns`) and the feature rows [labels | Σlabels | Σarcs]
   (`fold_features`); the readout reads [state | labels];
 * a batch whose block adjacency is bf16 (from_graphs_blocked(adj_dtype=
-  torch.bfloat16), gnn_tpu's low-precision mode) runs only route 'hybrid2':
+  torch.bfloat16), gnn_tpu's low-precision mode) runs three routes: 'hybrid'
+  at eval through the bf16 variants of K3 and K4 (ops/fused.py), 'bn' of a
+  one-layer state net through those of K1 and K2 (ops/bn.py), and 'hybrid2':
   the bf16 variants of K10 and K9 at eval and in clean two-layer training,
   differentiated through K11's bf16 variant and K9's plain f32 backward
-  (ops/fused2.py); every other route raises NotImplementedError on it.
+  (ops/fused2.py); every other route (clean one-layer training, the dropout
+  routes, the two-layer 'bn', the plain body, grad_mode='ift') raises
+  NotImplementedError on it (check_adj_dtype).
 
 Dropout and the initial state draw no random numbers here: training takes
 keep-masks and, with state_dim > 0, the initial state ("init"), which
@@ -76,12 +80,14 @@ import torch.nn.functional as F
 from gnn_tpu_torch.graphs.batch import GraphBatch
 from gnn_tpu_torch.models.ift import fixed_point_ift
 from gnn_tpu_torch.ops.aggregate import aggregate_to_nodes, pool_graphs
+from gnn_tpu_torch.ops.bn import _affine as bn_affine
 from gnn_tpu_torch.ops.bn import (bn_train_propagate, supports_fused_bn2_train,
                                   supports_fused_bn_train)
-from gnn_tpu_torch.ops.fused import (FUSABLE_ACTIVATIONS, _make_drop, bn_inference_affine,
-                                     fused_propagation_loop, fused_propagation_step,
-                                     fused_train_loop, fused_train_step, moved,
-                                     supports_fused, supports_fused_train)
+from gnn_tpu_torch.ops.fused import (FUSABLE_ACTIVATIONS, _make_drop, fused_propagation_loop,
+                                     fused_propagation_loop_bf16, fused_propagation_step,
+                                     fused_propagation_step_bf16, fused_train_loop,
+                                     fused_train_step, moved, supports_fused,
+                                     supports_fused_train)
 from gnn_tpu_torch.ops.fold import (fold_features, in_kernel_order, initial_state,
                                    kernel_columns, state_width)
 from gnn_tpu_torch.ops.fused2 import (dense2, fused_propagation_loop2,
@@ -309,7 +315,7 @@ def propagate(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
     keep = keep or {}
     s0 = initial_state(spec, gb, init)
     route = _train_route(spec, gb) if training else _eval_route(spec, gb)
-    check_adj_dtype(gb, route, training, spec.grad_mode)
+    check_adj_dtype(gb, route, training, spec.grad_mode, spec.state_spec.num_layers)
     if spec.grad_mode == "ift":
         return _propagate_ift(spec, params_state, bn_state, gb, training, route, s0)
     if route == "bn":
@@ -328,17 +334,22 @@ def propagate(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
 
 
 def check_adj_dtype(gb: GraphBatch, route: str, training: bool = False,
-                    grad_mode: str = "unroll") -> None:
-    """A bf16 block adjacency runs route 'hybrid2' alone (the bf16 K10, K9
-    and K11), unrolled: any other route, and grad_mode 'ift', raises, on
-    every device, rather than cast the batch."""
-    if gb.adj_dtype != torch.bfloat16 or (route == "hybrid2" and grad_mode == "unroll"):
+                    grad_mode: str = "unroll", layers: int = 1) -> None:
+    """A bf16 block adjacency runs, unrolled, route 'hybrid2' (the bf16 K10,
+    K9 and K11), route 'hybrid' at eval (the bf16 K3 and K4) and route 'bn'
+    of a one-layer state net (the bf16 K1 and K2): any other route (of
+    `layers` dense layers), and grad_mode 'ift', raises, on every device,
+    rather than cast the batch."""
+    ported = (route == "hybrid2" or (route == "hybrid" and not training)
+              or (route == "bn" and layers == 1))
+    if gb.adj_dtype != torch.bfloat16 or (ported and grad_mode == "unroll"):
         return
     what = f"route {route!r}" + (" with grad_mode='ift'" if grad_mode == "ift" else "")
     raise NotImplementedError(
-        f"a bf16-adjacency batch runs only the two-layer route 'hybrid2' (bf16 K10/K9/K11); "
-        f"{what} ({'training' if training else 'eval'}) on it is not ported yet (ROADMAP "
-        f"Queue 1, M7: bf16 on K3/K4, on the training kernels, the plain body and IFT)")
+        f"a bf16-adjacency batch runs only route 'hybrid' at eval (bf16 K3/K4), the one-layer "
+        f"route 'bn' (bf16 K1/K2) and route 'hybrid2' (bf16 K10/K9/K11); {what} "
+        f"({'training' if training else 'eval'}) on it is not ported yet (ROADMAP Queue 1, M7: "
+        f"bf16 on K5-K8, K12-K17 and K4's backward, the plain body and IFT)")
 
 
 def _propagate_plain(spec, params_state, bn_state, gb, training=False, keep=None, s0=None):
@@ -496,19 +507,20 @@ def hybrid_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
     The dense layer is reassociated through the aggregation: [Ws; Wa] enters
     the kernels, the loop-invariant Wfold @ fold + b (fold_features) is
     computed once here and the residual term goes through Wa inside each dep
-    step (all linear). `init`: the initial state at state_dim > 0."""
+    step (all linear). On a bf16-adjacency batch fT is formed by seq_dot (the
+    same bits on every device), as hybrid2_operands does. `init`: the
+    initial state at state_dim > 0."""
     W = gb.block_w
     s0 = initial_state(spec, gb, init)
     Np, D = s0.shape
     B = Np // W
-    affine = None
-    if spec.state_spec.batch_normalization:
-        affine = bn_inference_affine(params_state["bn"]["gamma"], params_state["bn"]["beta"],
-                                     bn_state["mean"], bn_state["var"])
+    affine = inference_affine(spec, params_state, bn_state, gb)
     w = in_kernel_order(params_state["dense_0"]["w"], kernel_columns(spec, gb.nodes.shape[1]))
     Wa = w[:, D:2 * D]                                     # w: [H, 2D + F] = [Ws | Wa | Wfold]
     w2 = torch.cat([w[:, :D], Wa], dim=0).contiguous()     # [2H, D]
-    fT3 = F.linear(fold_features(spec, gb), w[:, 2 * D:], params_state["dense_0"]["b"])
+    fold, b = fold_features(spec, gb), params_state["dense_0"]["b"]
+    fT3 = (seq_dot(fold, w[:, 2 * D:]) + b if gb.adj_dtype == torch.bfloat16
+           else F.linear(fold, w[:, 2 * D:], b))
     fT3 = fT3.reshape(B, W, -1)
     s03 = s0.reshape(B, W, D)
     loop = dep = None
@@ -522,14 +534,30 @@ def hybrid_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
     return loop, dep, Wa
 
 
-def residual_agg(gb: GraphBatch, sd):
+def residual_agg(gb: GraphBatch, sd, exact: bool = False):
     """K6's rT [Bd, W, D]: the residual arcs' weighted source states summed
     into their destinations, raw (before the dense layer and the dropout).
     Residual arcs couple dep blocks only and use dep-local flat node ids;
-    padding arcs add 0 to node 0."""
+    padding arcs add 0 to node 0. With `exact` (the bf16 routes) the sums
+    run in float64 and round to f32 once, so the card, whose index_add_ adds
+    in no fixed order, takes the CPU's bits: under bf16 rounding a last-bit
+    difference can move a value across a rounding boundary."""
     Bd, W, D = sd.shape
     vals = sd.reshape(Bd * W, D)[gb.res_src_loc] * gb.res_w[:, None]
-    return sd.new_zeros((Bd * W, D)).index_add_(0, gb.res_dst_loc, vals).reshape(Bd, W, D)
+    if exact:
+        vals = vals.double()
+    return (vals.new_zeros((Bd * W, D)).index_add_(0, gb.res_dst_loc, vals).to(sd.dtype)
+            .reshape(Bd, W, D))
+
+
+def inference_affine(spec: GNNSpec, params_state, bn_state, gb: GraphBatch):
+    """The state net's inference BatchNorm affine [2, D] (None without
+    BatchNorm); on a bf16-adjacency batch evaluated in float64 and rounded
+    once, the same bits on every device (ops/bn.py::_affine's `exact`)."""
+    if not spec.state_spec.batch_normalization:
+        return None
+    return bn_affine(params_state["bn"]["gamma"], params_state["bn"]["beta"], bn_state["mean"],
+                     bn_state["var"], gb.adj_dtype == torch.bfloat16)
 
 
 def residual_term(gb: GraphBatch, sd, Wa):
@@ -576,21 +604,25 @@ def _finish_hybrid(gb: GraphBatch, thr: float, K: int, looped=None, sd=None, ste
 def _propagate_hybrid(spec, params_state, bn_state, gb, s0=None):
     """K3 over the loop blocks, K4 per step over the dep blocks
     (gnn_tpu core.py:475-608) in node-major blocks [B, W, D]; differentiable
-    through K5 and K4's plain backward."""
+    through K5 and K4's plain backward. On a bf16-adjacency batch their bf16
+    variants (eval only), the residual term through Wa by seq_dot."""
     K = spec.max_iteration
     thr = float(spec.threshold)
     act = spec.state_spec.activations[0]
     loop, dep, Wa = hybrid_operands(spec, params_state, bn_state, gb, s0)
+    bf16 = gb.adj_dtype == torch.bfloat16
+    loop_fn, step_fn, res_fn = (
+        (fused_propagation_loop_bf16, fused_propagation_step_bf16,
+         lambda sd: seq_dot(residual_agg(gb, sd, exact=True), Wa)) if bf16 else
+        (fused_propagation_loop, fused_propagation_step, lambda sd: residual_term(gb, sd, Wa)))
     looped = None
     if loop is not None:
-        looped = (*fused_propagation_loop(**loop, K=K, threshold=thr, activation=act),
-                  loop["s0"])
+        looped = (*loop_fn(**loop, K=K, threshold=thr, activation=act), loop["s0"])
     if dep is None:
         return _finish_hybrid(gb, thr, K, looped)
 
     def step(_, sd):
-        return fused_propagation_step(dep["adjT"], sd, residual_term(gb, sd, Wa), dep["fT"],
-                                      dep["w2"], dep["affine"], act)
+        return step_fn(dep["adjT"], sd, res_fn(sd), dep["fT"], dep["w2"], dep["affine"], act)
     return _finish_hybrid(gb, thr, K, looped, dep["s"], step)
 
 
@@ -621,10 +653,7 @@ def hybrid2_operands(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
     s0 = initial_state(spec, gb, init)
     Np, D = s0.shape
     B = Np // W
-    affine = None
-    if spec.state_spec.batch_normalization:
-        affine = bn_inference_affine(params_state["bn"]["gamma"], params_state["bn"]["beta"],
-                                     bn_state["mean"], bn_state["var"])
+    affine = inference_affine(spec, params_state, bn_state, gb)
     wts = _dense2_weights(params_state, kernel_columns(spec, gb.nodes.shape[1]))
     s03 = s0.reshape(B, W, D)
     f3 = fold_features(spec, gb)
@@ -669,7 +698,8 @@ def _propagate_hybrid2(spec, params_state, bn_state, gb, s0=None):
         Wa = dep["w20"][dep["w20"].shape[0] // 2:]                # [H1, D]
 
         def step(_, sd):
-            return fused_propagation_step2_bf16(dep["adjT"], sd, seq_dot(residual_agg(gb, sd), Wa),
+            return fused_propagation_step2_bf16(dep["adjT"], sd,
+                                                seq_dot(residual_agg(gb, sd, exact=True), Wa),
                                                 dep["fT"], dep["w20"], dep["w1"], dep["b1"],
                                                 dep["affine"], **acts)
     else:

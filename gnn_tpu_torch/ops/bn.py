@@ -33,9 +33,20 @@ the adjacency is made. Padded loop rows carry node mask 0, so moments, flags
 and gradients ignore them.
 Keep-masks are uint8 [R, W, 2D+F] in x3 column order.
 
+On a bf16 block adjacency (gnn_tpu's `hp = False` branch) a one-layer
+state net runs K1_bf16 (`bn_forward_step_bf16`) and K2_bf16
+(`bn_backward_step_bf16`, ops/csrc/bn_bf16.cu): the aggregation over bf(s),
+the dense layer over bf([x3 | 1]) and bf(w_aug) (the bias column through
+bf16), dx2 = bf(dh) @ bf(w_aug[:, :2D]) and the aggregation's reverse over
+bf(dagg), all with f32 sums, dw the unrounded f32 product; their plain
+versions sum in the kernel's order (ops/fused2.py's bf16 helpers, the block
+sums node by node), and BNLoopOperands picks them by the adjacency's dtype.
+The residual term and the moment glue stay f32, as gnn_tpu's.
+
 Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
 launches the CUDA kernel (ops/csrc/bn_fwd.cu, bn_train.cu, bn2_fwd.cu,
-bn2_train.cu) for CUDA tensors; it never falls back from one to the other.
+bn2_train.cu, bn_bf16.cu) for CUDA tensors; it never falls back from one to
+the other.
 `launches` counts kernel launches. K1 and K2 take the first of their staged
 shared-memory plans that fits a CTA, else their wide plan, which takes every
 D and F with x3 and the [W][D]-sized rows in a device-memory workspace that
@@ -53,7 +64,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gnn_tpu_torch.ops import _build
+from gnn_tpu_torch.ops import _build, fused2
 from gnn_tpu_torch.ops.fold import fold_features, in_kernel_order, initial_state, kernel_columns
 from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, SMEM_BYTES,
                                      _act_grad, _check, _check_fits, _check_keep, _drop_args,
@@ -64,7 +75,7 @@ from gnn_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
 
 # kernel launches since the last reset, by wrapper
 launches = {"bn_forward_step": 0, "bn_backward_step": 0, "bn2_forward_step": 0,
-            "bn2_backward_step": 0}
+            "bn2_backward_step": 0, "bn_forward_step_bf16": 0, "bn_backward_step_bf16": 0}
 
 # coefficient rows of bnv, the [9, D] input of K2
 BNV_ROWS = ("scale_prev", "shift_prev", "mean_k", "rstd_k", "gamma_rstd_k",
@@ -90,11 +101,24 @@ def supports_fused_bn2_train(state_spec) -> bool:
             and all(p == 0 for p in state_spec.dropout_pos))
 
 
-def _affine(gamma, beta, mean, var):
+def _affine(gamma, beta, mean, var, exact: bool = False):
     """[2, D] (scale; shift) of the training BatchNorm for given batch moments:
-    y * scale + shift == (y - mean) * rsqrt(var + eps) * gamma + beta."""
+    y * scale + shift == (y - mean) * rsqrt(var + eps) * gamma + beta. With
+    `exact` it is evaluated in float64 with IEEE-rounded square root and
+    division and rounded to f32 once: the same bits on every device (the
+    card's f32 rsqrt may differ from the CPU's in the last bit)."""
+    if exact:
+        scale = gamma.double() / torch.sqrt(var.double() + BN_EPS)
+        return torch.stack([scale, beta.double() - mean.double() * scale]).float()
     scale = gamma * torch.rsqrt(var + BN_EPS)
     return torch.stack([scale, beta - mean * scale])
+
+
+def _rstd(var, exact: bool = False):
+    """rsqrt(var + eps), with `exact` as _affine's."""
+    if exact:
+        return (1.0 / torch.sqrt(var.double() + BN_EPS)).float()
+    return torch.rsqrt(var + BN_EPS)
 
 
 def _ident_aff(D, like):
@@ -172,16 +196,17 @@ def _bn_gy(y_k, ds_in, gsel, bnv, flag, nm):
     return bnv[4] * (ds_in + flag * gsel) - nm[..., None] * (bnv[5] + xk * bnv[6])
 
 
-def _bn_ds(adj_loop, adj_dep, dx2, keep, alpha_drop: bool, rate: float):
+def _bn_ds(adj_loop, adj_dep, dx2, keep, alpha_drop: bool, rate: float,
+           contract=_contract_dst):
     """(ds, dagg) from the cotangent dx2 [R, W, 2D] of the dense input's
     state and aggregated slices: through the dropout's derivative and the
-    aggregation's reverse."""
+    aggregation's reverse `contract`."""
     D = dx2.shape[-1] // 2
     dxs, dagg = dx2[..., :D], dx2[..., D:]
     if rate > 0.0:
         dm = _make_drop(alpha_drop, rate)[1](keep)
         dxs, dagg = dxs * dm[..., :D], dagg * dm[..., D:2 * D]
-    return dxs + _contract_dst(adj_loop, adj_dep, dagg), dagg
+    return dxs + contract(adj_loop, adj_dep, dagg), dagg
 
 
 def _red(ds, xp_hat):
@@ -223,6 +248,79 @@ def bn2_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_a
     ds, dagg = _bn_ds(adj_loop, adj_dep, dx3[..., :2 * D], keep, alpha_drop, rate)
     return (ds, torch.cat([dw0, db0[..., None]], dim=-1), dw1, db1, dagg,
             _red(ds, (y_prev - bnv[7]) * bnv[8]))
+
+
+# ------------------------------------------- bf16 adjacency: plain versions
+def _node_sum(x):
+    """x [R, W, ...] summed over the block's nodes in order, one f32 add a
+    node: the bf16 kernels' block sums."""
+    acc = torch.zeros_like(x[:, 0])
+    for n in range(x.shape[1]):
+        acc = acc + x[:, n]
+    return acc
+
+
+def _agg_bf16(adj_loop, adj_dep, s):
+    """agg[b, dst] = sum_src adjT[b, src, dst] * bf(s[b, src]), the sources
+    ascending (fused2._exact_adj), over both block sets."""
+    return _by_block_set(adj_loop, adj_dep, s, lambda a, x: fused2._exact_adj(
+        fused2._adj_slots(a.float()), fused2._bf("s", x)))
+
+
+def _contract_bf16(adj_loop, adj_dep, g):
+    """out[b, src] = sum_dst adjT[b, src, dst] * bf(g[b, dst]), the
+    destinations ascending: _agg_bf16's reverse, rounding point dagg."""
+    return _by_block_set(adj_loop, adj_dep, g, lambda a, x: fused2._exact_adj(
+        fused2._adj_slots(a.float().transpose(1, 2)), fused2._bf("dagg", x)))
+
+
+def _dense_bf16(x3, w_aug):
+    """h = bf([x3 | 1]) @ bf(w_aug)^T summed over the columns ascending, the
+    bias last (fused2._exact_dot). x3's slices round at the points x3s (the
+    state), agg (the aggregation, a sum of the card's order) and x3f (the
+    features)."""
+    D = w_aug.shape[0]
+    xb = torch.cat([fused2._bf("x3s", x3[..., :D]), fused2._bf("agg", x3[..., D:2 * D]),
+                    fused2._bf("x3f", x3[..., 2 * D:]), torch.ones_like(x3[..., :1])], -1)
+    return fused2._exact_dot(xb, fused2._bf("w", w_aug))
+
+
+def bn_forward_step_bf16_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, *,
+                             activation: str, alpha_drop: bool, rate: float, threshold: float):
+    """Plain PyTorch K1_bf16 (gnn_tpu's _bn_fwd_kernel with hp false): K1 with
+    the aggregation over bf(s) and the dense layer over bf([x3 | 1]) and
+    bf(w_aug), the bias column through bf16; every sum in the kernel's order,
+    the activation in float64 (fused2.act64). Returns as bn_forward_step_ref."""
+    s = y1 * aff[0, 0] + aff[0, 1]
+    s_old = y2 * aff[1, 0] + aff[1, 1]
+    marg = moved(s, s_old, threshold) * nm
+    agg = _agg_bf16(adj_loop, adj_dep, s)
+    if rT is not None:
+        agg = agg + rT
+    y = fused2.act64(activation, _dense_bf16(_x3(s, agg, feats, keep, alpha_drop, rate), w_aug))
+    return y, agg, marg, _node_sum(y * nm[..., None])
+
+
+def bn_backward_step_bf16_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds_in,
+                              gsel, bnv, flag, nm, *, activation: str, alpha_drop: bool,
+                              rate: float):
+    """Plain PyTorch K2_bf16 (gnn_tpu's _bn_bwd_kernel with hp false): h
+    recomputed with K1_bf16's rounding, dw the f32 product dh^T @ [x3 | 1]
+    (gnn_tpu's _BDT_HI, unrounded), dx2 = bf(dh) @ bf(w_aug[:, :2D]) and the
+    aggregation's reverse over bf(dagg); every sum in the kernel's order.
+    Returns as bn_backward_step_ref."""
+    R, W, D = y_prev.shape
+    x3 = _x3(y_prev * bnv[0] + bnv[1], agg, feats, keep, alpha_drop, rate)
+    h = _dense_bf16(x3, w_aug)
+    dh = _bn_gy(y_k, ds_in, gsel, bnv, flag, nm) * fused2.act_grad64(activation, h)
+    x3a = _ones_col(x3)
+    dw = x3.new_zeros((R, D, x3a.shape[-1]))
+    for n in range(W):
+        dw = dw + dh[:, n, :, None] * x3a[:, n, None, :]
+    dx2 = fused2._exact_dot(fused2._bf("dh", dh), fused2._bf("w", w_aug[:, :2 * D]).t())
+    ds, dagg = _bn_ds(adj_loop, adj_dep, dx2, keep, alpha_drop, rate, _contract_bf16)
+    xp_hat = (y_prev - bnv[7]) * bnv[8]
+    return ds, dw, dagg, torch.stack([_node_sum(ds), _node_sum(ds * xp_hat)], dim=1)
 
 
 # ------------------------------------------------------------------ wrappers
@@ -378,18 +476,8 @@ def _launch_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, 
     Bl, W = _check_blocks(adj_loop, adj_dep, R)
     _check_bn_plan("K1", W, D, Fd)
     dev = y1.device
-    for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
-        if t is not None:
-            _check(name, t, (R, W, D), dev)
-    _check("aff", aff, (2, 2, D), dev)
-    _check("feats", feats, (R, W, Fd), dev)
-    _check("w_aug", w_aug, (D, 2 * D + Fd + 1), dev)
-    _check("nm", nm, (R, W), dev)
-    keep = _check_keep(keep, (R, W, 2 * D + Fd), dev, rate)
-    y = torch.empty((R, W, D), dtype=torch.float32, device=dev)
-    agg = torch.empty_like(y)
-    marg = torch.empty((R, W), dtype=torch.float32, device=dev)
-    msum = torch.empty((R, D), dtype=torch.float32, device=dev)
+    keep, (y, agg, marg, msum) = _forward_operands(y1, y2, aff, keep, rT, feats, w_aug, nm, W,
+                                                   rate)
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -402,6 +490,25 @@ def _launch_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, 
     _build.check(err, "bn_forward_step (K1)")
     launches["bn_forward_step"] += 1
     return y, agg, marg, msum
+
+
+def _forward_operands(y1, y2, aff, keep, rT, feats, w_aug, nm, W: int, rate: float):
+    """K1's (K1_bf16's) operands but the adjacency checked: (the keep-mask,
+    the outputs (y, agg, marg, msum) allocated)."""
+    R, _, D = y1.shape
+    Fd = feats.shape[-1]
+    dev = y1.device
+    for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
+        if t is not None:
+            _check(name, t, (R, W, D), dev)
+    _check("aff", aff, (2, 2, D), dev)
+    _check("feats", feats, (R, W, Fd), dev)
+    _check("w_aug", w_aug, (D, 2 * D + Fd + 1), dev)
+    _check("nm", nm, (R, W), dev)
+    keep = _check_keep(keep, (R, W, 2 * D + Fd), dev, rate)
+    y = torch.empty((R, W, D), dtype=torch.float32, device=dev)
+    return keep, (y, torch.empty_like(y), torch.empty((R, W), dtype=torch.float32, device=dev),
+                  torch.empty((R, D), dtype=torch.float32, device=dev))
 
 
 def bn_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds_in, gsel,
@@ -430,23 +537,11 @@ def _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds
                      bnv, flag, nm, *, activation, alpha_drop, rate):
     R, _, D = y_prev.shape
     Fd = feats.shape[-1]
-    C = 2 * D + Fd + 1
     Bl, W = _check_blocks(adj_loop, adj_dep, R)
     _check_bn_plan("K2", W, D, Fd)
     dev = y_prev.device
-    for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
-                    ("gsel", gsel)):
-        _check(name, t, (R, W, D), dev)
-    _check("feats", feats, (R, W, Fd), dev)
-    _check("w_aug", w_aug, (D, C), dev)
-    _check("bnv", bnv, (len(BNV_ROWS), D), dev)
-    _check("flag", flag, (), dev)
-    _check("nm", nm, (R, W), dev)
-    keep = _check_keep(keep, (R, W, C - 1), dev, rate)
-    ds = torch.empty((R, W, D), dtype=torch.float32, device=dev)
-    dagg = torch.empty_like(ds)
-    dw = torch.empty((R, D, C), dtype=torch.float32, device=dev)
-    red = torch.empty((R, 2, D), dtype=torch.float32, device=dev)
+    keep, (ds, dw, dagg, red) = _backward_operands(y_prev, y_k, agg, keep, feats, w_aug, ds_in,
+                                                   gsel, bnv, flag, nm, W, rate)
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -458,6 +553,120 @@ def _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds
             _ACT_CODE[activation], mode, a, b, _stream(dev), _ptr(ws))
     _build.check(err, "bn_backward_step (K2)")
     launches["bn_backward_step"] += 1
+    return ds, dw, dagg, red
+
+
+def _backward_operands(y_prev, y_k, agg, keep, feats, w_aug, ds_in, gsel, bnv, flag, nm,
+                       W: int, rate: float):
+    """K2's (K2_bf16's) operands but the adjacency checked: (the keep-mask,
+    the outputs (ds, dw, dagg, red) allocated)."""
+    R, _, D = y_prev.shape
+    Fd = feats.shape[-1]
+    C = 2 * D + Fd + 1
+    dev = y_prev.device
+    for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
+                    ("gsel", gsel)):
+        _check(name, t, (R, W, D), dev)
+    _check("feats", feats, (R, W, Fd), dev)
+    _check("w_aug", w_aug, (D, C), dev)
+    _check("bnv", bnv, (len(BNV_ROWS), D), dev)
+    _check("flag", flag, (), dev)
+    _check("nm", nm, (R, W), dev)
+    keep = _check_keep(keep, (R, W, C - 1), dev, rate)
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    return keep, (out(R, W, D), out(R, D, C), out(R, W, D), out(R, 2, D))
+
+
+def bn_bf16_smem_bytes(W: int, D: int, F: int) -> int:
+    """Shared memory of a K1_bf16 / K2_bf16 CTA (ops/csrc/bn_bf16.cu::
+    bn_bf16_smem): the bf16 adjacency [W][W], x3 [W][2D+F] and three rows
+    [W][D] of floats."""
+    return 2 * W * W + 4 * W * (5 * D + F)
+
+
+def _check_bf16_blocks(adj_loop, adj_dep, R: int, D: int, F: int, kernel: str):
+    """(Bl, W) of the bf16 kernels' block rows: contiguous, 16-byte aligned
+    bf16 adjacencies on the card, and the shared memory of the widths (no
+    wide plan: a CTA that does not fit raises)."""
+    adj = adj_loop if adj_loop is not None else adj_dep
+    if adj is None:
+        raise ValueError("the BatchNorm kernels need a block adjacency")
+    W = adj.shape[-1]
+    if adj.shape[-2] != W or W % 32 or not 32 <= W <= 128:
+        raise ValueError(f"block width must be 32, 64, 96 or 128, got adjT {tuple(adj.shape)}")
+    Bl = 0 if adj_loop is None else adj_loop.shape[0]
+    Bd = 0 if adj_dep is None else adj_dep.shape[0]
+    for name, a in (("adj_loop", adj_loop), ("adj_dep", adj_dep)):
+        if a is not None and (a.dtype != torch.bfloat16 or a.device != adj.device
+                              or tuple(a.shape[1:]) != (W, W) or not a.is_contiguous()
+                              or a.data_ptr() % 16):
+            raise ValueError(f"{kernel} needs contiguous, 16-byte aligned bf16 {name} "
+                             f"[B, {W}, {W}] on {adj.device}, got {a.dtype} {tuple(a.shape)}")
+    if R != Bl + Bd:
+        raise ValueError(f"{R} block rows, but the adjacencies hold {Bl} + {Bd}")
+    need = bn_bf16_smem_bytes(W, D, F)
+    if need > SMEM_BYTES:
+        raise ValueError(f"{kernel} takes widths whose CTA fits {SMEM_BYTES} bytes of shared "
+                         f"memory: D={D}, F={F} at W={W} needs {need}")
+    return Bl, W
+
+
+def bn_forward_step_bf16(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, *,
+                         activation: str, alpha_drop: bool, rate: float, threshold: float):
+    """K1_bf16: one BN-training iteration over every block row of a bf16
+    adjacency (gnn_tpu's _bn_fwd_kernel with hp false). Arguments and result
+    as bn_forward_step's, adj_loop / adj_dep bf16."""
+    kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate, threshold=threshold)
+    if y1.device.type == "cpu":
+        return bn_forward_step_bf16_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug,
+                                        nm, **kw)
+    _require_cuda(y1)
+    R, _, D = y1.shape
+    Fd = feats.shape[-1]
+    Bl, W = _check_bf16_blocks(adj_loop, adj_dep, R, D, Fd, "K1_bf16")
+    dev = y1.device
+    keep, (y, agg, marg, msum) = _forward_operands(y1, y2, aff, keep, rT, feats, w_aug, nm, W,
+                                                   rate)
+    mode, a, b = _drop_args(alpha_drop, rate)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gnn_bn_forward_bf16(
+            _ptr(adj_loop), _ptr(adj_dep), _ptr(y1), _ptr(y2), _ptr(aff), _ptr(keep), _ptr(rT),
+            _ptr(feats), _ptr(w_aug), _ptr(nm), _ptr(y), _ptr(agg), _ptr(marg), _ptr(msum),
+            R, Bl, W, D, Fd, float(threshold), _ACT_CODE[activation], mode, a, b, _stream(dev))
+    _build.check(err, "bn_forward_step_bf16 (K1_bf16)")
+    launches["bn_forward_step_bf16"] += 1
+    return y, agg, marg, msum
+
+
+def bn_backward_step_bf16(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds_in, gsel,
+                          bnv, flag, nm, *, activation: str, alpha_drop: bool, rate: float):
+    """K2_bf16: one reverse BN-training iteration over every block row of a
+    bf16 adjacency (gnn_tpu's _bn_bwd_kernel with hp false). Arguments and
+    result as bn_backward_step's, adj_loop / adj_dep bf16."""
+    kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate)
+    if y_prev.device.type == "cpu":
+        return bn_backward_step_bf16_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug,
+                                         ds_in, gsel, bnv, flag, nm, **kw)
+    _require_cuda(y_prev)
+    R, _, D = y_prev.shape
+    Fd = feats.shape[-1]
+    Bl, W = _check_bf16_blocks(adj_loop, adj_dep, R, D, Fd, "K2_bf16")
+    dev = y_prev.device
+    keep, (ds, dw, dagg, red) = _backward_operands(y_prev, y_k, agg, keep, feats, w_aug, ds_in,
+                                                   gsel, bnv, flag, nm, W, rate)
+    mode, a, b = _drop_args(alpha_drop, rate)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gnn_bn_backward_bf16(
+            _ptr(adj_loop), _ptr(adj_dep), _ptr(y_prev), _ptr(y_k), _ptr(agg), _ptr(keep),
+            _ptr(feats), _ptr(w_aug), _ptr(ds_in), _ptr(gsel), _ptr(bnv), _ptr(flag), _ptr(nm),
+            _ptr(ds), _ptr(dw), _ptr(dagg), _ptr(red), R, Bl, W, D, Fd,
+            _ACT_CODE[activation], mode, a, b, _stream(dev))
+    _build.check(err, "bn_backward_step_bf16 (K2_bf16)")
+    launches["bn_backward_step_bf16"] += 1
     return ds, dw, dagg, red
 
 
@@ -641,19 +850,37 @@ class BNLoopOperands:
     def keep_k(self, k):
         return None if self.keep is None else self.keep[k]
 
+    @property
+    def bf16(self) -> bool:
+        """Whether the block adjacency is bf16 (K1_bf16 / K2_bf16)."""
+        adj = self.adj_loop if self.adj_loop is not None else self.adj_dep
+        return adj.dtype == torch.bfloat16
+
+    def acc(self, x):
+        """x in the glue's accumulation type: float64 on a bf16 adjacency,
+        whose sums (the moments, the residual scatters, the reverse's
+        reductions) are rounded to f32 once, so that the card and the CPU
+        take the same bits whatever order they add in (a last-bit
+        difference would move bf(s) and bf(dh) across rounding
+        boundaries); x itself otherwise."""
+        return x.double() if self.bf16 else x
+
     def forward_step(self, k, y1, y2, aff, rT, weights):
-        """Iteration k: K1 for the weights (w_aug,), K14 for (w0_aug, w1, b1).
-        aff [2, 2, 1, D]; returns (y, agg, marg, msum [R, 1, D])."""
-        step = bn_forward_step if len(weights) == 1 else bn2_forward_step
+        """Iteration k: K1 (K1_bf16 on a bf16 adjacency) for the weights
+        (w_aug,), K14 for (w0_aug, w1, b1). aff [2, 2, 1, D]; returns (y, agg,
+        marg, msum [R, 1, D])."""
+        step = ((bn_forward_step_bf16 if self.bf16 else bn_forward_step) if len(weights) == 1
+                else bn2_forward_step)
         y, agg, marg, msum = step(self.adj_loop, self.adj_dep, y1, y2, aff.reshape(2, 2, -1),
                                   self.keep_k(k), rT, self.feats, *weights, self.nm,
                                   threshold=self.threshold, **self.step_kw())
         return y, agg, marg, msum[:, None]
 
     def backward_step(self, k, y_prev, y_k, agg, weights, ds_in, gsel, bnv, flag):
-        """The reverse of iteration k, K2 or K15, with bnv [1, 9, D]: (ds, the
-        weights' per-block cotangents, dagg, red [R, 1, 2, D])."""
-        step = bn_backward_step if len(weights) == 1 else bn2_backward_step
+        """The reverse of iteration k, K2 (K2_bf16) or K15, with bnv [1, 9, D]:
+        (ds, the weights' per-block cotangents, dagg, red [R, 1, 2, D])."""
+        step = ((bn_backward_step_bf16 if self.bf16 else bn_backward_step) if len(weights) == 1
+                else bn2_backward_step)
         ds, *dweights, dagg, red = step(self.adj_loop, self.adj_dep, y_prev, y_k, agg,
                                         self.keep_k(k), self.feats, *weights, ds_in, gsel,
                                         bnv[0], flag, self.nm, **self.step_kw())
@@ -666,8 +893,8 @@ def _res_term(y, aff, res, op: BNLoopOperands):
     destinations (_res_gather + _res_scatter)."""
     src, dst, w = res
     R, W, D = y.shape
-    vals = (y.reshape(-1, D)[src] * op.res_sel(aff[0]) + op.res_sel(aff[1])) * w[:, None]
-    return y.new_zeros((R * W, D)).index_add_(0, dst, vals).reshape(R, W, D)
+    vals = op.acc((y.reshape(-1, D)[src] * op.res_sel(aff[0]) + op.res_sel(aff[1])) * w[:, None])
+    return vals.new_zeros((R * W, D)).index_add_(0, dst, vals).to(y.dtype).reshape(R, W, D)
 
 
 class _BNTrainLoop(torch.autograd.Function):
@@ -691,11 +918,11 @@ class _BNTrainLoop(torch.autograd.Function):
         for k in range(op.K):
             rT = None if op.res is None else _res_term(y1, a1, op.res, op)
             y, agg, marg, msum = op.forward_step(k, y1, y2, torch.stack([a1, a2]), rT, weights)
-            mean = torch.sum(msum, dim=0) / cnt
+            mean = (torch.sum(op.acc(msum), dim=0) / cnt).to(y.dtype)
             # two-pass variance, centred on each node's own type's mean
-            var = op.type_sum(torch.square(y - op.sel(mean)) * nm3) / cnt
+            var = (op.type_sum(torch.square(op.acc(y) - op.sel(mean)) * nm3) / cnt).to(y.dtype)
             y2, a2 = y1, a1
-            y1, a1 = y, _affine(gamma, beta, mean, var)
+            y1, a1 = y, _affine(gamma, beta, mean, var, op.bf16)
             ys.append(y)
             aggs.append(agg)
             moms.append(torch.stack([mean, var], dim=1))                  # [T, 2, D]
@@ -708,7 +935,7 @@ class _BNTrainLoop(torch.autograd.Function):
         y_sel = torch.stack(ys).index_select(0, idx)[0]
         mom_sel = moms_t.index_select(0, idx)[0]
         # centered normalize of the returned snapshot (mlp.py::_batchnorm)
-        state3 = ((y_sel - op.sel(mom_sel[:, 0])) * op.sel(torch.rsqrt(mom_sel[:, 1] + BN_EPS))
+        state3 = ((y_sel - op.sel(mom_sel[:, 0])) * op.sel(_rstd(mom_sel[:, 1], op.bf16))
                   * op.sel(gamma) + op.sel(beta))
         state3 = torch.where(iters >= 1.0, state3, s0)
         ctx.op = op
@@ -727,10 +954,10 @@ class _BNTrainLoop(torch.autograd.Function):
         ident = _ident_aff(D, s0)[:, None].expand(2, T, D)
         zero, one = ident[1], ident[0]
         # the snapshot's cotangent enters at iteration idx: its reduction terms
-        Sg = op.type_sum(g_state)
-        rks = [torch.rsqrt(m[:, 1] + BN_EPS) for m in moms]
-        Sgx = [op.type_sum(g_state * ((ys[j] - op.sel(moms[j][:, 0])) * op.sel(rks[j])))
-               for j in range(op.K)]
+        Sg = op.type_sum(op.acc(g_state)).to(s0.dtype)
+        rks = [_rstd(m[:, 1], op.bf16) for m in moms]
+        Sgx = [op.type_sum(op.acc(g_state * ((ys[j] - op.sel(moms[j][:, 0])) * op.sel(rks[j]))))
+               .to(s0.dtype) for j in range(op.K)]
         ds = torch.zeros_like(s0)
         red = torch.zeros((T, 2, D), dtype=s0.dtype, device=s0.device)
         dweights = [torch.zeros_like(w) for w in weights]
@@ -750,17 +977,20 @@ class _BNTrainLoop(torch.autograd.Function):
             y_prev = s0 if k == 0 else ys[k - 1]
             ds_new, dw_k, dagg, red_part = op.backward_step(k, y_prev, ys[k], aggs[k], weights, ds,
                                                             g_state, bnv, flag)
-            red = torch.sum(red_part, dim=0)
+            red = torch.sum(op.acc(red_part), dim=0).to(s0.dtype)
             dweights = [a + torch.sum(b, dim=0) for a, b in zip(dweights, dw_k)]
             if op.res is not None:
                 # ds[src] += w * dagg[dst]; for k > 0 the next reverse step's
                 # reduction partials take these rows too, by source type
                 src, dst, rw = op.res
                 vals = dagg.reshape(-1, D)[dst] * rw[:, None]
-                ds_new = ds_new.reshape(-1, D).index_add_(0, src, vals).reshape(R, W, D)
+                ds_new = (op.acc(ds_new.reshape(-1, D)).index_add_(0, src, op.acc(vals))
+                          .to(s0.dtype).reshape(R, W, D))
                 if k > 0:
                     xp_src = (ys[k - 1].reshape(-1, D)[src] - op.res_sel(mean_p)) * op.res_sel(r_p)
-                    red = red + torch.stack([op.res_sum(vals), op.res_sum(vals * xp_src)], dim=1)
+                    red = red + torch.stack([op.res_sum(op.acc(vals)),
+                                             op.res_sum(op.acc(vals * xp_src))],
+                                            dim=1).to(s0.dtype)
             ds = ds_new
         # iters == 0: the forward returned s0 itself
         ds = ds + torch.where(active, 0.0, g_state)

@@ -36,6 +36,23 @@ with fT = Wf @ drop(agg_arcs) + b formed outside for every iteration.
   residual-coupled blocks; the state slice arrives dropped, rT is the raw
   residual aggregation.
 
+On a batch whose block adjacency is bf16 (gnn_tpu's low-precision mode,
+its kernels' `hp = False` branch) the eval kernels have bf16 variants in
+gnn_tpu's rounding (_iter_core): U = bf(s) @ bf([Ws; Wa])^T with f32 sums,
+A = bf(U_a) contracted with the bf16 adjacency, then act((U_s + A) + fT
+(+ rT)) * scale + shift:
+
+* `propagation_loop_bf16` (K3_bf16, ops/csrc/eval_loop_bf16.cu, replaces
+  `_loop_kernel_T` with hp false);
+* `propagation_step_bf16` (K4_bf16, the same source, replaces
+  `_step_kernel_T` with hp false).
+
+Their plain versions sum in the kernels' order with exact products
+(ops/fused2.py's bf16 helpers), so a kernel gives their bits; they serve at
+eval only (`fused_propagation_{loop,step}_bf16`: a gradient through them
+raises, as their backward, K5 and K4's XLA rule on a bf16 batch, is not
+ported).
+
 The differentiable ops are torch.autograd.Functions: `fused_propagation_loop`
 (K3, backward K5), `fused_train_loop` (K7, backward K8), and
 `fused_propagation_step` (K4) and `fused_train_step` (K6), whose backwards
@@ -375,7 +392,8 @@ def train_loop_bwd_info(W: int, D: int) -> dict:
 
 # the kernel each wrapper launches (C entry point gnn_<wrapper>)
 _KERNEL = {"propagation_loop": "K3", "propagation_step": "K4", "propagation_loop_bwd": "K5",
-           "train_step": "K6", "train_loop": "K7", "train_loop_bwd": "K8"}
+           "train_step": "K6", "train_loop": "K7", "train_loop_bwd": "K8",
+           "propagation_loop_bf16": "K3_bf16", "propagation_step_bf16": "K4_bf16"}
 # kernel launches since the last reset, by wrapper
 launches = dict.fromkeys(_KERNEL, 0)
 
@@ -864,6 +882,102 @@ def train_step(adjT, s, sd, m, rT, fT, w_cat, activation: str = "tanh", alpha_dr
     return y, agg
 
 
+# ------------------------------------------------------- bf16 adjacency
+def _eval_bf16(slots, s, rT, fT, w2, aff, activation: str):
+    """One iteration of K3_bf16 / K4_bf16 (gnn_tpu's _iter_core with hp
+    false): act((U_s + A) + fT (+ rT)) * scale + shift with U = bf(s) @
+    bf(w2)^T and A the bf(U_a) rows contracted with the adjacency `slots`,
+    every sum in the kernels' order (ops/fused2.py's bf16 helpers; the
+    rounding points s, w2 and ua)."""
+    from gnn_tpu_torch.ops import fused2 as f2
+    H = w2.shape[0] // 2
+    u = f2._exact_dot(f2._bf("s", s), f2._bf("w2", w2))                    # [B, W, 2H]
+    h = u[..., :H] + f2._exact_adj(slots, f2._bf("ua", u[..., H:])) + fT
+    if rT is not None:
+        h = h + rT
+    return f2.act64(activation, h) * aff[0] + aff[1]
+
+
+def propagation_step_bf16_ref(adjT, s, rT, fT, w2, affine=None, activation: str = "tanh"):
+    """Plain PyTorch K4_bf16: one iteration, [B, W, D] -> [B, W, H]; adjT
+    bf16, rT the residual term through Wa or None."""
+    from gnn_tpu_torch.ops import fused2 as f2
+    return _eval_bf16(f2._adj_slots(adjT.float()), s, rT, fT, w2,
+                      _affine(affine, w2.shape[0] // 2, w2), activation)
+
+
+def propagation_loop_bf16_ref(adjT, s0, fT, w2, affine, nm, K: int, threshold: float,
+                              activation: str = "tanh"):
+    """Plain PyTorch K3_bf16: (traj [K, B, W, D], margins [K, B, W]) as
+    propagation_loop_ref's."""
+    from gnn_tpu_torch.ops import fused2 as f2
+    slots, aff = f2._adj_slots(adjT.float()), _affine(affine, w2.shape[0] // 2, w2)
+    s, s_old = s0, torch.ones_like(s0)
+    traj, margins = [], []
+    for _ in range(K):
+        margins.append(moved(s, s_old, threshold) * nm)
+        s_old, s = s, _eval_bf16(slots, s, None, fT, w2, aff, activation)
+        traj.append(s)
+    return torch.stack(traj), torch.stack(margins)
+
+
+def propagation_step_bf16(adjT, s, rT, fT, w2, affine=None, activation: str = "tanh"):
+    """K4_bf16: one eval iteration over residual-coupled blocks of a bf16
+    adjacency (gnn_tpu's _step_kernel_T with hp false). Arguments as
+    propagation_step's, adjT bf16 [B, W, W]. Returns [B, W, H]."""
+    if adjT.device.type == "cpu":
+        return propagation_step_bf16_ref(adjT, s, rT, fT, w2, affine, activation)
+    from gnn_tpu_torch.ops import fused2 as f2
+    B, W, _ = adjT.shape
+    D, H = s.shape[-1], w2.shape[0] // 2
+    f2._check_bf16(adjT, D, H, "K4_bf16")
+    dev = adjT.device
+    aff = _affine(affine, H, w2)
+    _check("s", s, (B, W, D), dev)
+    if rT is not None:
+        _check("rT", rT, (B, W, H), dev)
+    _check("fT", fT, (B, W, H), dev)
+    _check("w2", w2, (2 * H, D), dev)
+    _check("affine", aff, (2, H), dev)
+    out = torch.empty((B, W, H), dtype=torch.float32, device=dev)
+    if B == 0:
+        return out
+    _launch("propagation_step_bf16", dev,
+            _ptr(adjT), _ptr(s), _ptr(rT), _ptr(fT), _ptr(w2), _ptr(aff), _ptr(out),
+            B, W, D, H, _ACT_CODE[activation])
+    return out
+
+
+def propagation_loop_bf16(adjT, s0, fT, w2, affine, nm, K: int, threshold: float,
+                          activation: str = "tanh"):
+    """K3_bf16: all K eval iterations over residual-free blocks of a bf16
+    adjacency (gnn_tpu's _loop_kernel_T with hp false). Arguments as
+    propagation_loop's, adjT bf16 [B, W, W]. Returns (traj [K, B, W, D],
+    margins [K, B, W])."""
+    if adjT.device.type == "cpu":
+        return propagation_loop_bf16_ref(adjT, s0, fT, w2, affine, nm, K, threshold, activation)
+    from gnn_tpu_torch.ops import fused2 as f2
+    B, W, _ = adjT.shape
+    D, H = s0.shape[-1], w2.shape[0] // 2
+    _check_loop_width(D, H)
+    f2._check_bf16(adjT, D, H, "K3_bf16")
+    dev = adjT.device
+    aff = _affine(affine, H, w2)
+    _check("s0", s0, (B, W, D), dev)
+    _check("fT", fT, (B, W, D), dev)
+    _check("w2", w2, (2 * D, D), dev)
+    _check("affine", aff, (2, D), dev)
+    _check("nm", nm, (B, W), dev)
+    traj = torch.empty((K, B, W, D), dtype=torch.float32, device=dev)
+    margins = torch.empty((K, B, W), dtype=torch.float32, device=dev)
+    if B == 0 or K == 0:
+        return traj, margins
+    _launch("propagation_loop_bf16", dev,
+            _ptr(adjT), _ptr(s0), _ptr(fT), _ptr(w2), _ptr(aff), _ptr(nm), _ptr(traj),
+            _ptr(margins), B, W, D, int(K), float(threshold), _ACT_CODE[activation])
+    return traj, margins
+
+
 # ------------------------------------------------------- differentiable ops
 class _PropagationLoop(torch.autograd.Function):
     """K3 forward, K5 backward (_fused_loop_fwd / _fused_loop_bwd); the
@@ -951,6 +1065,36 @@ def fused_propagation_loop(adjT, s0, fT, w2, affine, nm, K: int, threshold: floa
 def fused_propagation_step(adjT, s, rT, fT, w2, affine=None, activation: str = "tanh"):
     """propagation_step (K4) with gradients to s, rT, fT, w2 and affine."""
     return _PropagationStep.apply(s, rT, fT, w2, affine, adjT, activation)
+
+
+class _EvalBf16(torch.autograd.Function):
+    """K3_bf16 or K4_bf16 at eval: their backward (gnn_tpu's K5 and K4's XLA
+    rule on a bf16 batch, the clean training route) is not ported yet, so a
+    gradient through them raises rather than pass through the plain
+    versions."""
+
+    @staticmethod
+    def forward(ctx, fn, *args):
+        return fn(*args)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "gradients through K3_bf16/K4_bf16 (the clean route's backward on a bf16 batch) are "
+            "not ported yet (ROADMAP Queue 1, M7)")
+
+
+def fused_propagation_loop_bf16(adjT, s0, fT, w2, affine, nm, K: int, threshold: float,
+                                activation: str = "tanh"):
+    """propagation_loop_bf16 (K3_bf16) for the eval forward (_EvalBf16).
+    Returns (traj, margins)."""
+    return _EvalBf16.apply(propagation_loop_bf16, adjT, s0, fT, w2, affine, nm, K, threshold,
+                           activation)
+
+
+def fused_propagation_step_bf16(adjT, s, rT, fT, w2, affine=None, activation: str = "tanh"):
+    """propagation_step_bf16 (K4_bf16) for the eval forward (_EvalBf16)."""
+    return _EvalBf16.apply(propagation_step_bf16, adjT, s, rT, fT, w2, affine, activation)
 
 
 def fused_train_loop(adjT, s0, ms, ma, fT, w_cat, nm, K: int, threshold: float,

@@ -303,32 +303,39 @@ def one_layer(rate, bn):
                  batch_normalization=bn, **drop)
 
 
-ROUTES = {"hybrid": (lambda: one_layer(0.0, False), False),
-          "eval_bn": (lambda: one_layer(0.1, True), False),
-          "dropout": (lambda: one_layer(0.1, False), True),
-          "bn": (lambda: one_layer(0.1, True), True),
-          "dropout2": (lambda: h150_specs(0.1)[2], True),
+# each route's state net, whether it trains, and its aggregation name
+ROUTES = {"hybrid": (lambda: one_layer(0.0, False), True, "auto"),
+          "dropout_flat": (lambda: one_layer(0.1, False), True, "fused"),
+          "dropout": (lambda: one_layer(0.1, False), True, "auto"),
+          "ift1": (lambda: one_layer(0.0, False), True, "auto"),
+          "dropout2": (lambda: h150_specs(0.1)[2], True, "auto"),
           "bn2": (lambda: dataclasses.replace(TSpec(**h150_specs(0.1)[2]),
-                                              batch_normalization=True), True),
-          "plain": (lambda: one_layer(0.0, False), False),
-          "ift": (lambda: h150_specs(0.0)[2], True)}
+                                              batch_normalization=True), True, "auto"),
+          "plain": (lambda: one_layer(0.0, False), False, "segment"),
+          "ift": (lambda: h150_specs(0.0)[2], True, "auto")}
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_other_routes_raise_on_bf16_batch(route):
-    """Every route but 'hybrid2' (the one-layer eval and training kernels,
-    the two-layer dropout and BatchNorm kernels, the plain body and the
-    implicit adjoint) raises NotImplementedError on a bf16 batch, naming the
-    ROADMAP entry that ports it; none casts the batch to f32."""
+    """Every route not yet ported to a bf16 batch (clean one-layer training
+    through K5 and K4's backward, the dropout kernels, on the loop/dep and
+    the all-dep layout, the two-layer dropout and BatchNorm kernels, the
+    plain body and the implicit adjoint of a one- or two-layer net) raises
+    NotImplementedError on it, naming the ROADMAP entry that ports it; none
+    casts the batch to f32. ('hybrid' at eval, the one-layer 'bn' and
+    'hybrid2' run: tests/test_torch_bf16_flagship.py and the tests above.)"""
     _, tgs = graphs(5)
-    _, tb = batches(tgs, tgs)
-    net, training = ROUTES[route]
+    net, training, aggregation = ROUTES[route]
+    _, tb = batches(tgs, tgs, fused_layout=route != "dropout_flat")
     ss = net()
     ss = ss if isinstance(ss, TSpec) else TSpec(**ss)
     spec = tcore.GNNSpec(focus="g", state_spec=ss,
                          output_spec=TSpec(input_dim=NL, units=(DT,), activations="softmax"),
-                         max_iteration=K, aggregation="segment" if route == "plain" else "auto",
-                         grad_mode="ift" if route == "ift" else "unroll")
+                         max_iteration=K, aggregation=aggregation,
+                         grad_mode="ift" if route.startswith("ift") else "unroll")
+    route_of = tcore._train_route if training else tcore._eval_route
+    assert route_of(spec, tb) == {"ift1": "hybrid", "ift": "hybrid2", "bn2": "bn",
+                                  "dropout_flat": "dropout"}.get(route, route)
     params, bn = tcore.gnn_init(spec, torch.Generator().manual_seed(0))
     masks = tcore.draw_masks(spec, tb, torch.Generator().manual_seed(1)) if training else None
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -663,7 +663,8 @@ def _chip_smoke():
                                          ("param_tiny_grad", True), ("param_large_grad", False),
                                          ("not_fed", False), ("serial_other_layer", False),
                                          ("switched", True), ("switched_no_flip", False),
-                                         ("kink_witness", True)])
+                                         ("kink_witness", True), ("param_replay", True),
+                                         ("param_replay_off", False)])
 def test_chip_smoke_holds_a_stack_to_float64(case, passes):
     """chip_smoke.py::hold_stack, which adjudicates the card's LGNN steps:
     a grad tensor off the CPU's and float64's elementwise bound passes if it
@@ -674,8 +675,11 @@ def test_chip_smoke_holds_a_stack_to_float64(case, passes):
     within the card's rounding of the kink switched, misses float64 in a
     tensor whose reverse feeds it (the layers above and its own readout; in a
     serial epoch its own layer's only); a param tensor off the CPU's by more than 1e-5 passes if it is
-    within 1e-5 of float64, or if the CPU's is off float64 too and the card's
-    grads meet their bound against float64."""
+    within 1e-5 of float64, or if the card's grads meet their bound against
+    float64 and either the CPU's is off float64 too or the card is within
+    1e-5 of the optimizer's float64 update on the card's own grads (an entry
+    whose gradient is within rounding of 0, where Adam's step is decided by
+    the gradient's rounding and the CPU's float32 step happened to escape)."""
     cs = _chip_smoke()
     gen = torch.Generator().manual_seed(0)
     keys = ("[0]['state']['dense_0']['w']", "[0]['state']['dense_0']['b']",
@@ -711,6 +715,20 @@ def test_chip_smoke_holds_a_stack_to_float64(case, passes):
         card["params"][keys[3]].view(-1)[idx] += 2e-3
         if case == "param_tiny_grad":
             cpu["params"][keys[3]].view(-1)[idx] -= 2e-3
+    replay = None
+    if case.startswith("param_replay"):
+        # the params of one Adam step from `before`: float64's on g64, the
+        # card's on its own grads (entry 3's, ~0 in float64, moves by a share
+        # of lr that its rounding decides), the CPU's float64's
+        before = {k: torch.randn(v.shape, generator=gen, dtype=torch.float64)
+                  for k, v in g64.items()}
+        p64.update(cs.update64(torch, before, g64, "adam"))
+        cpu["params"] = {k: v.float() for k, v in p64.items()}
+        card["params"] = {k: v.float() for k, v in
+                          cs.update64(torch, before, card["grads"], "adam").items()}
+        if case == "param_replay_off":
+            card["params"][keys[3]].view(-1)[4] += 2e-5
+        replay = lambda: cs.update64(torch, before, card["grads"], "adam")      # noqa: E731
     pre = [("selu", pre64[0][1].float().clone())]
     pre[0][1][0] += 1e-7                # the card's rounding
     if case == "switched":
@@ -731,9 +749,12 @@ def test_chip_smoke_holds_a_stack_to_float64(case, passes):
         assert [int(f.sum()) for f in switch] == [1] and bool(switch[0][4])
         return {"params": p64, "grads": g_sw, "pre": pre64}
     serial = case == "serial_other_layer"
+    if case == "param_replay":
+        miss = (card["params"][keys[3]].double() - p64[keys[3]]).abs() > 1e-5
+        assert miss.view(-1)[3] and not miss.view(-1)[4]    # the case is what it says
     if passes:
-        cs.hold_stack(torch, case, card, cpu, pre, twin_of, serial=serial)
+        cs.hold_stack(torch, case, card, cpu, pre, twin_of, serial=serial, replay=replay)
         assert len(called) == {"close": 0, "switched": 2, "kink_witness": 2}.get(case, 1)
     else:
         with pytest.raises(SystemExit):
-            cs.hold_stack(torch, case, card, cpu, pre, twin_of, serial=serial)
+            cs.hold_stack(torch, case, card, cpu, pre, twin_of, serial=serial, replay=replay)

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """chip_smoke.py's later phases alone, after the build: 21 (LGNN), 22
-(the implicit adjoint) and 23 (state_dim > 0 and the bf16 adjacency;
-its f32 twins' times, which phases 7 and 8 measure, are not taken here),
-on the MUTAG-shaped set. The output and the checks are chip_smoke.py's;
-its last-line contract is not. The kernels are built unless the build
-folder holds a current library.
+(the implicit adjoint), 23 (state_dim > 0 and the bf16 adjacency of the
+hidden-150 recipe) and 24 (the flagship on the bf16 adjacency); the bf16
+variants' f32 twins' times, which the earlier phases measure, are not taken
+here. On the MUTAG-shaped set. The output and the checks are
+chip_smoke.py's; its last-line contract is not. The kernels are built
+unless the build folder holds a current library.
 
 Usage, from the repository root:
-    python3 tools/smoke_phases.py [phases=lgnn,ift,state_bf16]
+    python3 tools/smoke_phases.py [phases=lgnn,ift,state_bf16,flagship_bf16]
 """
 
 import os
@@ -23,7 +24,7 @@ def main():
     from gnn_tpu_torch.graphs.datasets import mutag_shaped
     args = dict(a.split("=", 1) for a in sys.argv[1:])
     phases = args.pop("phases", "lgnn,ift").split(",")
-    if args or not set(phases) <= {"lgnn", "ift", "state_bf16"}:
+    if args or not set(phases) <= {"lgnn", "ift", "state_bf16", "flagship_bf16"}:
         cs.fail(f"unknown arguments {sorted(args)} or phases {phases}")
     cs.phase_device(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -46,6 +47,11 @@ def main():
                  for k in ("K9", "K10", "K11")}
         for entry in cs.phase_state_bf16(torch, graphs, requests, gb, gb_train, gb_train_typed,
                                          n_arcs, twins).values():
+            cs.say(str(entry))
+    if "flagship_bf16" in phases:
+        twins = {k: {"ms": None, "replaces": f"gnn_tpu/ops/pallas_*.py ({k})"}
+                 for k in ("K1", "K2", "K3", "K4")}
+        for entry in cs.phase_flagship_bf16(torch, graphs, requests, n_arcs, twins).values():
             cs.say(str(entry))
     cs.say(f"done ({cs.elapsed()})")
 
