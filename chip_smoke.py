@@ -342,9 +342,25 @@
    state cotangent, which is held to the CPU's own within 1e-5 (the
    readout's last bits differ and bf(dh) would round them apart), the later
    steps on the card alone.
+25. Training on the bf16 adjacency: (a) the bf16 variants K12_bf16 and
+   K13_bf16 at the shapes the hidden-150 recipe's dropout route gives them
+   on the bf16 training batch (the 1104 loop rows, the model's AlphaDropout
+   masks; K13_bf16 from the plain K12_bf16's trajectory and aggregations
+   and a readout-like cotangent) and K5_bf16 at those of the clean route
+   (K3_bf16's operands and plain trajectory), against their plain versions
+   on the card by Part B's gate (the bound from one flip of x3's aggregated
+   slice for K12, of bf(dh0) for K13, of bf(U_a) for K5), movement flags
+   equal, timed beside their f32 twins; (b) 3 steps of the recipe with its
+   dropout (K12_bf16 and K13_bf16 once a step, the dep blocks' plain f32
+   step, no other kernel) and 3 steps of the clean flagship (K3_bf16 and
+   K5_bf16 once, K4_bf16 K times a step, no other kernel) on the bf16
+   training batch, each first step held to the CPU as phase 24's (c) holds
+   its step (the bound from the CPU's step with one flip at the kernel's
+   point an iteration).
 
 Prints a JSON line of per-kernel numbers (K1-K18 and K1_bf16, K2_bf16,
-K3_bf16, K4_bf16, K9_bf16, K10_bf16, K11_bf16), then as its last line
+K3_bf16, K4_bf16, K5_bf16, K9_bf16, K10_bf16, K11_bf16, K12_bf16, K13_bf16),
+then as its last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 
 Usage, from the repository root: python3 chip_smoke.py
@@ -799,7 +815,10 @@ ROUTES = {"bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
           "h150_clean_bf16": {"propagation_loop2_bf16": 1, "propagation_loop2_bwd_bf16": 1,
                               "propagation_step2_bf16": "K"},
           "flagship_bf16": {"propagation_loop_bf16": 1, "propagation_step_bf16": "K"},
-          "bn_bf16": {"bn_forward_step_bf16": "K", "bn_backward_step_bf16": "K"}}
+          "bn_bf16": {"bn_forward_step_bf16": "K", "bn_backward_step_bf16": "K"},
+          "h150_bf16": {"train_loop2_bf16": 1, "train_loop2_bwd_bf16": 1},
+          "clean_bf16": {"propagation_loop_bf16": 1, "propagation_loop_bwd_bf16": 1,
+                         "propagation_step_bf16": "K"}}
 
 
 def variant_dims(variant):
@@ -4558,7 +4577,13 @@ def bf16_bounds(cases):
     iteration. K1: the aggregation (2 * D an arc) and the dense layer
     (2 * D * C a node, C = 2D + F + 1); K2: the dense layer again, dx2
     (2 * D * 2D a node), the aggregation's reverse (2 * D an arc) and dw
-    (2 * D * C a node, fp32)."""
+    (2 * D * C a node, fp32). K12: the aggregation (2 * D an arc), h0
+    (2 * H1 * C a node, C = 2D + AL) and h1 (2 * D * H1 a node) an iteration;
+    K13 the forward's dense layers once (the aggregation is saved), dy0
+    (2 * D * H1 a node), dx3 (2 * H1 * C a node) and ds (2 * D an arc) in
+    bf16, dw1 and dw0 in fp32 (the same counts as h1 and h0). K5: K3's
+    iteration, dua (2 * H an arc) and gs (2 * 2H * D a node) in bf16, dw2
+    (2 * 2H * D a node) in fp32, a reverse iteration."""
     def bound16(nbytes, ops16, ops32=0):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = (ops16 / BF16_FLOPS + ops32 / FP32_FLOPS) * 1e3
@@ -4587,6 +4612,29 @@ def bf16_bounds(cases):
             rev = 2 * n * (H1 * D + D * H1 + 2 * (2 * H1 * D)) + 2 * H1 * nnz
             out[k] = bound16(adj + 4 * n * (D + H1) + wts + 4 * 2 * K * n * D + 4 * n * (D + H1)
                              + B * wts, K * (2 * fwd + rev))
+        elif k in ("K12_bf16", "K13_bf16"):
+            B, W, _ = x["adjT"].shape
+            D, H1 = x["w1"].shape
+            C, n = x["w0"].shape[1], B * W
+            K, AL = x["fd"].shape[0], x["fd"].shape[-1]
+            keep = 0 if x["ms"] is None else 2 * K * n * D
+            wts = 4 * (H1 * C + H1 + D * H1 + D)
+            dense = 2 * n * (H1 * C + D * H1)               # h0 and h1 a node
+            if k == "K12_bf16":
+                out[k] = bound16(adj + keep + wts + 4 * (n * D + K * n * AL + n)
+                                 + 4 * K * n * (2 * D + 1), K * (2 * D * nnz + dense))
+            else:
+                out[k] = bound16(adj + keep + wts + 4 * (n * D + 3 * K * n * D + K * n * AL)
+                                 + 4 * (n * D + K * n * AL) + B * wts,
+                                 K * (dense + dense + 2 * D * nnz), K * dense)
+        elif k == "K5_bf16":
+            B, W, _ = x["adjT"].shape
+            H2, D = x["w2"].shape
+            H, n, K = H2 // 2, B * W, x["traj"].shape[0]
+            small = 4 * (H2 * D + 2 * H)
+            out[k] = bound16(adj + 4 * n * (D + 2 * K * D + D) + small + 4 * 2 * n * D + B * small,
+                             K * (2 * n * 2 * H * D + 2 * 2 * H * nnz + 2 * n * 2 * H * D),
+                             K * 2 * n * 2 * H * D)
         elif k in ("K3_bf16", "K4_bf16"):
             B, W, _ = x["adjT"].shape
             H2, D = x["w2"].shape
@@ -4697,7 +4745,8 @@ def phase_training_bf16(torch, gbt16, n_arcs, variant="h150_clean", route="h150_
     the CPU's in the last bit, each such difference can flip a bf(dh)
     rounding of K2_bf16, and the batch moments spread a flip to every grad
     (up to 3e-4 on the card), so fed the same cotangent the two
-    backwards are compared on the same bits. Returns the launch counts."""
+    backwards are compared on the same bits. Then 3 more steps under the
+    profiler (device time by kernel). Returns the launch counts."""
     from gnn_tpu_torch.convert import flatten
     from gnn_tpu_torch.models import core
     from gnn_tpu_torch.ops import bn, fused, fused2, segment, typed
@@ -4767,12 +4816,10 @@ def phase_training_bf16(torch, gbt16, n_arcs, variant="h150_clean", route="h150_
     say(f"'{variant}' bf16 step 0 vs CPU ({time.perf_counter() - t0:.1f} s): iters equal, loss "
         f"within rtol 1e-5, grads and moving statistics within Part B's gate; losses of the "
         f"{steps} steps on the card {[round(float(r[1]), 4) for r in log]}")
-    if variant == "bn":
-        def step():
-            model.training_step(gbt16, masks=model._draw_masks(model.spec, gbt16,
-                                                                model.mask_gen))
-            torch.cuda.synchronize()
-        phase_profile(torch, step, runs=3, what=f"'{variant}' bf16 training step")
+    def step():
+        model.training_step(gbt16, masks=model._draw_masks(model.spec, gbt16, model.mask_gen))
+        torch.cuda.synchronize()
+    phase_profile(torch, step, runs=3, what=f"'{variant}' bf16 training step")
     return launches
 
 
@@ -4903,6 +4950,69 @@ def phase_flagship_bf16(torch, graphs, requests, n_arcs, kernels):
                   "K4_bf16": ("eval_loop_bf16.cu", "K4", served, "propagation_step_bf16"),
                   "K1_bf16": ("bn_bf16.cu", "K1", trained, "bn_forward_step_bf16"),
                   "K2_bf16": ("bn_bf16.cu", "K2", trained, "bn_backward_step_bf16")},
+        errs, timed, bounds)
+
+
+def train_bf16_kernel_inputs(torch, gbt16):
+    """K12_bf16's operands as the bf16 'h150' route forms them on the bf16
+    training batch (dropout2_operands with the model's keep-masks), K13_bf16's
+    from the plain K12_bf16's trajectory and aggregations with a
+    readout-like cotangent; K5_bf16's from the bf16 'clean' route's K3_bf16
+    operands (hybrid_operands), the plain K3_bf16's trajectory and a
+    readout-like cotangent."""
+    from gnn_tpu_torch.models import core
+    from gnn_tpu_torch.ops import fused, fused2
+    m = flagship(torch, "cuda", "h150")
+    spec = m.spec
+    K, thr = spec.max_iteration, float(spec.threshold)
+    with torch.no_grad():
+        masks = m._draw_masks(spec, gbt16, torch.Generator(device="cuda").manual_seed(SEED + 41))
+        loop, _, kw = core.dropout2_operands(spec, m.params["state"], gbt16, masks["state"][0])
+        k12 = dict(loop, K=K, threshold=thr, **kw)
+        traj, _, agg = fused2.train_loop2_bf16_ref(**k12)
+        k13 = dict({k: loop[k] for k in ("adjT", "s0", "ms", "ma", "fd", "w0", "b0", "w1", "b1")},
+                   traj=traj, agg=agg, g_traj=readout_like(torch, traj, loop["nm"], SEED + 42),
+                   **kw)
+        c = flagship(torch, "cuda", "clean")
+        act = c.spec.state_spec.activations[0]
+        lc, _, _ = core.hybrid_operands(c.spec, c.params["state"], c.bn["state"], gbt16)
+        traj3, _ = fused.propagation_loop_bf16_ref(**lc, K=K, threshold=thr, activation=act)
+        k5 = dict({k: lc[k] for k in ("adjT", "s0", "fT", "w2", "affine")}, traj=traj3,
+                  g_traj=readout_like(torch, traj3, lc["nm"], SEED + 43), activation=act)
+    return k12, k13, k5
+
+
+def phase_train_bf16(torch, graphs, n_arcs, kernels):
+    """Phase 25: training on the bf16 adjacency (module docstring): the
+    hidden-150 recipe with its dropout (route 'dropout2': K12_bf16/K13_bf16)
+    and the clean flagship (route 'hybrid': K3_bf16/K4_bf16 with K5_bf16 and
+    K4's f32 backward). Returns the kernels line's entries of K12_bf16,
+    K13_bf16 and K5_bf16."""
+    from gnn_tpu_torch.ops import fused, fused2
+    t_phase = time.perf_counter()
+    say(f"---- training on the bf16 adjacency ({elapsed()})")
+    t0 = time.perf_counter()
+    gbt16 = flagship(torch, "cuda", "h150").to_batch(graphs, adj_dtype=torch.bfloat16)
+    say(f"bf16 training batch: {gbt16.adj_loop.shape[0]} loop and {gbt16.adj_dep.shape[0]} dep "
+        f"blocks ({time.perf_counter() - t0:.2f} s to pack and upload)")
+    k12, k13, k5 = train_bf16_kernel_inputs(torch, gbt16)
+    with torch.no_grad():
+        cases = (("K12_bf16", fused2, "train_loop2_bf16", k12, ("traj", "margins", "agg"), "x3",
+                  (), False),
+                 ("K13_bf16", fused2, "train_loop2_bwd_bf16", k13,
+                  ("gs", "dw0", "db0", "dw1", "db1", "dfd"), "dh0", ("dw0", "db0", "dw1", "db1"),
+                  True),
+                 ("K5_bf16", fused, "propagation_loop_bwd_bf16", k5, ("gs", "dw2", "dfT", "daff"),
+                  "ua", ("dw2", "daff"), True))
+        errs = check_bf16_kernels(torch, cases)
+        timed, bounds = time_bf16_kernels(torch, cases, kernels, ("K12", "K13", "K5"))
+    h150 = phase_training_bf16(torch, gbt16, n_arcs, "h150", "h150_bf16", "x3")
+    clean = phase_training_bf16(torch, gbt16, n_arcs, "clean", "clean_bf16", "ua")
+    say(f"phase 25: {time.perf_counter() - t_phase:.1f} s")
+    return kernel_rows(
+        kernels, {"K12_bf16": ("train_loop2_bf16.cu", "K12", h150, "train_loop2_bf16"),
+                  "K13_bf16": ("train_loop2_bf16.cu", "K13", h150, "train_loop2_bwd_bf16"),
+                  "K5_bf16": ("eval_loop_bwd_bf16.cu", "K5", clean, "propagation_loop_bwd_bf16")},
         errs, timed, bounds)
 
 
@@ -5069,6 +5179,7 @@ def phases(torch):
     kernels.update(phase_state_bf16(torch, graphs, requests, gb, gb_train, gb_train_typed, n_arcs,
                                     kernels))
     kernels.update(phase_flagship_bf16(torch, graphs, requests, n_arcs, kernels))
+    kernels.update(phase_train_bf16(torch, graphs, n_arcs, kernels))
     for k, (path, key) in {"K1": ("bn", "bn_forward_step"), "K2": ("bn", "bn_backward_step"),
                            "K3": ("flagship", "propagation_loop"),
                            "K4": ("flagship", "propagation_step"),

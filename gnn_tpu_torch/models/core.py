@@ -54,14 +54,16 @@ Dispatch follows gnn_tpu's `aggregation='auto'`:
   (`kernel_columns`) and the feature rows [labels | Σlabels | Σarcs]
   (`fold_features`); the readout reads [state | labels];
 * a batch whose block adjacency is bf16 (from_graphs_blocked(adj_dtype=
-  torch.bfloat16), gnn_tpu's low-precision mode) runs three routes: 'hybrid'
-  at eval through the bf16 variants of K3 and K4 (ops/fused.py), 'bn' of a
-  one-layer state net through those of K1 and K2 (ops/bn.py), and 'hybrid2':
+  torch.bfloat16), gnn_tpu's low-precision mode) runs four routes: 'hybrid'
+  through the bf16 variants of K3 and K4 (ops/fused.py), in training
+  differentiated through K5's and K4's plain f32 backward; 'bn' of a
+  one-layer state net through those of K1 and K2 (ops/bn.py); 'hybrid2':
   the bf16 variants of K10 and K9 at eval and in clean two-layer training,
-  differentiated through K11's bf16 variant and K9's plain f32 backward
-  (ops/fused2.py); every other route (clean one-layer training, the dropout
-  routes, the two-layer 'bn', the plain body, grad_mode='ift') raises
-  NotImplementedError on it (check_adj_dtype).
+  differentiated through K11's bf16 variant and K9's plain f32 backward;
+  'dropout2' through those of K12 and K13 (ops/fused2.py) and the plain f32
+  dep step; every other route (the one-layer dropout routes, the two-layer
+  'bn', the plain body, grad_mode='ift') raises NotImplementedError on it
+  (check_adj_dtype).
 
 Dropout and the initial state draw no random numbers here: training takes
 keep-masks and, with state_dim > 0, the initial state ("init"), which
@@ -92,7 +94,8 @@ from gnn_tpu_torch.ops.fold import (fold_features, in_kernel_order, initial_stat
                                    kernel_columns, state_width)
 from gnn_tpu_torch.ops.fused2 import (dense2, fused_propagation_loop2,
                                       fused_propagation_loop2_bf16, fused_propagation_step2,
-                                      fused_propagation_step2_bf16, fused_train_loop2, seq_dot,
+                                      fused_propagation_step2_bf16, fused_train_loop2,
+                                      fused_train_loop2_bf16, seq_dot,
                                       supports_fused2, supports_fused2_train)
 from gnn_tpu_torch.ops.mlp import (MLPSpec, dropout_widths, mlp_apply, mlp_init,
                                    mlp_regularization)
@@ -335,21 +338,22 @@ def propagate(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
 
 def check_adj_dtype(gb: GraphBatch, route: str, training: bool = False,
                     grad_mode: str = "unroll", layers: int = 1) -> None:
-    """A bf16 block adjacency runs, unrolled, route 'hybrid2' (the bf16 K10,
-    K9 and K11), route 'hybrid' at eval (the bf16 K3 and K4) and route 'bn'
-    of a one-layer state net (the bf16 K1 and K2): any other route (of
-    `layers` dense layers), and grad_mode 'ift', raises, on every device,
-    rather than cast the batch."""
-    ported = (route == "hybrid2" or (route == "hybrid" and not training)
+    """A bf16 block adjacency runs, unrolled, route 'hybrid' (the bf16 K3
+    and K4, in training K5's), route 'hybrid2' (the bf16 K10, K9 and K11),
+    route 'dropout2' (the bf16 K12 and K13) and route 'bn' of a one-layer
+    state net (the bf16 K1 and K2): any other route (of `layers` dense
+    layers), and grad_mode 'ift', raises, on every device, rather than cast
+    the batch."""
+    ported = (route in ("hybrid", "hybrid2", "dropout2")
               or (route == "bn" and layers == 1))
     if gb.adj_dtype != torch.bfloat16 or (ported and grad_mode == "unroll"):
         return
     what = f"route {route!r}" + (" with grad_mode='ift'" if grad_mode == "ift" else "")
     raise NotImplementedError(
-        f"a bf16-adjacency batch runs only route 'hybrid' at eval (bf16 K3/K4), the one-layer "
-        f"route 'bn' (bf16 K1/K2) and route 'hybrid2' (bf16 K10/K9/K11); {what} "
-        f"({'training' if training else 'eval'}) on it is not ported yet (ROADMAP Queue 1, M7: "
-        f"bf16 on K5-K8, K12-K17 and K4's backward, the plain body and IFT)")
+        f"a bf16-adjacency batch runs only routes 'hybrid' (bf16 K3/K4/K5), 'hybrid2' (bf16 "
+        f"K10/K9/K11), 'dropout2' (bf16 K12/K13) and the one-layer route 'bn' (bf16 K1/K2); "
+        f"{what} ({'training' if training else 'eval'}) on it is not ported yet (ROADMAP "
+        f"Queue 1, M7: bf16 on K6-K8 and K14-K17, the plain body and IFT)")
 
 
 def _propagate_plain(spec, params_state, bn_state, gb, training=False, keep=None, s0=None):
@@ -605,7 +609,8 @@ def _propagate_hybrid(spec, params_state, bn_state, gb, s0=None):
     """K3 over the loop blocks, K4 per step over the dep blocks
     (gnn_tpu core.py:475-608) in node-major blocks [B, W, D]; differentiable
     through K5 and K4's plain backward. On a bf16-adjacency batch their bf16
-    variants (eval only), the residual term through Wa by seq_dot."""
+    variants, differentiated through K5_bf16 and K4's f32 backward on the
+    upcast adjacency, the residual term through Wa by seq_dot."""
     K = spec.max_iteration
     thr = float(spec.threshold)
     act = spec.state_spec.activations[0]
@@ -854,17 +859,22 @@ def _propagate_dropout2(spec, params_state, gb, keep_state: Optional[torch.Tenso
     with `two`): K12 over the loop blocks (K13 its backward); the dep blocks
     take a plain step, as gnn_tpu's (core.py:815-845), which has no per-step
     two-layer training kernel: the state and aggregated slices masked, fd
-    pre-dropped, dense0, act0, dense1, act1."""
+    pre-dropped, dense0, act0, dense1, act1. On a bf16-adjacency batch K12's
+    and K13's bf16 variants, and the dep step in f32 on the upcast adjacency
+    (gnn_tpu's, `hp_dep` false), the residual sums exact."""
     K = spec.max_iteration
     thr = float(spec.threshold)
     loop, dep, kw = dropout2_operands(spec, params_state, gb, keep_state, s0)
-    looped = (*fused_train_loop2(**loop, K=K, threshold=thr, **kw), loop["s0"])
+    bf16 = gb.adj_dtype == torch.bfloat16
+    loop_fn = fused_train_loop2_bf16 if bf16 else fused_train_loop2
+    looped = (*loop_fn(**loop, K=K, threshold=thr, **kw), loop["s0"])
     if dep is None:
         return _finish_hybrid(gb, thr, K, looped)
     drop, _ = _make_drop(kw["alpha_drop"], kw["rate"])
+    adjT = dep["adjT"].float() if bf16 else dep["adjT"]
 
     def step(it, sd):
-        agg = torch.matmul(dep["adjT"].transpose(1, 2), sd) + residual_agg(gb, sd)
+        agg = torch.matmul(adjT.transpose(1, 2), sd) + residual_agg(gb, sd, exact=bf16)
         if dep["ms"] is not None:
             sd, agg = drop(sd, dep["ms"][it]), drop(agg, dep["ma"][it])
         return dense2(torch.cat([sd, agg, dep["fd"][it]], dim=-1), dep["w0"], dep["b0"],

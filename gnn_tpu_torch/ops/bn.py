@@ -251,15 +251,6 @@ def bn2_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_a
 
 
 # ------------------------------------------- bf16 adjacency: plain versions
-def _node_sum(x):
-    """x [R, W, ...] summed over the block's nodes in order, one f32 add a
-    node: the bf16 kernels' block sums."""
-    acc = torch.zeros_like(x[:, 0])
-    for n in range(x.shape[1]):
-        acc = acc + x[:, n]
-    return acc
-
-
 def _agg_bf16(adj_loop, adj_dep, s):
     """agg[b, dst] = sum_src adjT[b, src, dst] * bf(s[b, src]), the sources
     ascending (fused2._exact_adj), over both block sets."""
@@ -298,7 +289,7 @@ def bn_forward_step_bf16_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_
     if rT is not None:
         agg = agg + rT
     y = fused2.act64(activation, _dense_bf16(_x3(s, agg, feats, keep, alpha_drop, rate), w_aug))
-    return y, agg, marg, _node_sum(y * nm[..., None])
+    return y, agg, marg, fused2.node_sum(y * nm[..., None])
 
 
 def bn_backward_step_bf16_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds_in,
@@ -309,18 +300,16 @@ def bn_backward_step_bf16_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, 
     (gnn_tpu's _BDT_HI, unrounded), dx2 = bf(dh) @ bf(w_aug[:, :2D]) and the
     aggregation's reverse over bf(dagg); every sum in the kernel's order.
     Returns as bn_backward_step_ref."""
-    R, W, D = y_prev.shape
+    D = y_prev.shape[-1]
     x3 = _x3(y_prev * bnv[0] + bnv[1], agg, feats, keep, alpha_drop, rate)
     h = _dense_bf16(x3, w_aug)
     dh = _bn_gy(y_k, ds_in, gsel, bnv, flag, nm) * fused2.act_grad64(activation, h)
     x3a = _ones_col(x3)
-    dw = x3.new_zeros((R, D, x3a.shape[-1]))
-    for n in range(W):
-        dw = dw + dh[:, n, :, None] * x3a[:, n, None, :]
+    dw = fused2.node_outer(dh, x3a)
     dx2 = fused2._exact_dot(fused2._bf("dh", dh), fused2._bf("w", w_aug[:, :2 * D]).t())
     ds, dagg = _bn_ds(adj_loop, adj_dep, dx2, keep, alpha_drop, rate, _contract_bf16)
     xp_hat = (y_prev - bnv[7]) * bnv[8]
-    return ds, dw, dagg, torch.stack([_node_sum(ds), _node_sum(ds * xp_hat)], dim=1)
+    return ds, dw, dagg, torch.stack([fused2.node_sum(ds), fused2.node_sum(ds * xp_hat)], dim=1)
 
 
 # ------------------------------------------------------------------ wrappers

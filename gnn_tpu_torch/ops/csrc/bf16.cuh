@@ -1,7 +1,10 @@
 // Device code shared by the bf16-adjacency variants of the two-layer eval
 // kernels (loop2_bf16.cu: K10_bf16, fused2_bf16.cu: K9_bf16,
 // eval_loop2_bwd_bf16.cu: K11_bf16), gnn_tpu's `hp = False` branch
-// (pallas_fused.py:104-217, :1127-1169, :1390-1470).
+// (pallas_fused.py:104-217, :1127-1169, :1390-1470); its rounding, the
+// activations and the dropout also serve eval_loop_bf16.cu (K3_bf16,
+// K4_bf16), eval_loop_bwd_bf16.cu (K5_bf16), bn_bf16.cu (K1_bf16, K2_bf16)
+// and train_loop2_bf16.cu (K12_bf16, K13_bf16).
 //
 // Write bf(x) for x rounded to bf16 to nearest even and used as f32. One
 // iteration on a block of W nodes, node-major, w20 = [W0s; W0a] [2H1, D]:
@@ -82,6 +85,24 @@ __device__ __forceinline__ float act_grad64(int act, float h) {
     default:
       return 1.0f;
   }
+}
+
+// The input dropout with the plain versions' rounding from keep byte `at`
+// (read only with a dropout mode): alpha a * (keep ? x : alpha') + b,
+// standard keep ? a * x : 0.
+__device__ __forceinline__ float drop_rn(int mode, float a, float b, float x,
+                                         const uint8_t* keep, size_t at) {
+  if (mode == kNoDrop) return x;
+  const bool k = keep[at] != 0;
+  if (mode == kAlphaDrop) return __fadd_rn(__fmul_rn(a, k ? x : kAlphaP), b);
+  return k ? __fmul_rn(a, x) : 0.0f;
+}
+
+// Its derivative applied to a cotangent x: x * (keep ? a : 0), x without
+// dropout.
+__device__ __forceinline__ float dmask_rn(int mode, float a, float x, const uint8_t* keep,
+                                          size_t at) {
+  return mode == kNoDrop ? x : __fmul_rn(x, keep[at] != 0 ? a : 0.0f);
 }
 
 // The shared-memory regions of a bf16 kernel's CTA: the adjacency [W][W]

@@ -87,16 +87,6 @@ __device__ void stage_adj(const BnBf16Smem& m, const uint16_t* __restrict__ adj_
   for (int i = threadIdx.x; i < W * W / 8; i += blockDim.x) dst[i] = src[i];
 }
 
-// The input dropout with the plain version's rounding: alpha a * (keep ? x
-// : alpha') + b, standard keep ? a * x : 0.
-__device__ __forceinline__ float drop_rn(int mode, float a, float b, float x,
-                                         const uint8_t* keep, size_t at) {
-  if (mode == kNoDrop) return x;
-  const bool k = keep[at] != 0;
-  if (mode == kAlphaDrop) return __fadd_rn(__fmul_rn(a, k ? x : kAlphaP), b);
-  return k ? __fmul_rn(a, x) : 0.0f;
-}
-
 // x3's feature slice of block row r.
 __device__ void stage_feats(const BnBf16Smem& m, const float* __restrict__ feats,
                             const uint8_t* __restrict__ keep, int W, int D, int F, int C1,

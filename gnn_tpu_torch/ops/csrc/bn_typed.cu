@@ -104,7 +104,8 @@
 // through the caches; a thread's outputs go through h [JT] (and K17's dx)
 // in chunks of JT: the same chains, so a forced wide plan gives the staged
 // plans' bits. Their instantiations are compiled from bn_typed_wide.cu (this
-// file under GNN_WIDE_TU), beside this file's.
+// file under GNN_WIDE_TU), and the staged plans' at register width 64 from
+// bn_typed_64.cu (under GNN_MAXF64_TU), beside this file's.
 
 #include "tile2.cuh"
 
@@ -828,9 +829,19 @@ using BnTBwdFn = void (*)(const float*, const float*, const float*, const float*
                           float*, float*, int, int, int, int, int, const uint8_t*, int, float,
                           float, BnTBwdPlan, float*);
 
+template <int MAXF>
+BnTFwdFn fwd_variant(const BnTFwdPlan& p) {
+  return p.st ? bnT_fwd_kernel<MAXF, 256, true, false> : bnT_fwd_kernel<MAXF, 128, false, false>;
+}
+
+template <int MAXF>
+BnTBwdFn bwd_variant(const BnTBwdPlan& p) {
+  return p.st ? bnT_bwd_kernel<MAXF, 256, true, false> : bnT_bwd_kernel<MAXF, 128, false, false>;
+}
+
 }  // namespace
 
-#ifdef GNN_WIDE_TU
+#if defined(GNN_WIDE_TU)
 
 namespace gnn {
 // K16's and K17's wide-plan instantiations (bn_typed_wide.cu).
@@ -838,11 +849,21 @@ BnTFwdFn bnT_fwd_wide() { return bnT_fwd_kernel<64, 256, false, true>; }
 BnTBwdFn bnT_bwd_wide() { return bnT_bwd_kernel<64, 256, false, true>; }
 }  // namespace gnn
 
+#elif defined(GNN_MAXF64_TU)
+
+namespace gnn {
+// K16's and K17's staged instantiations at register width 64 (bn_typed_64.cu).
+BnTFwdFn bnT_fwd_variant64(const BnTFwdPlan& p) { return fwd_variant<64>(p); }
+BnTBwdFn bnT_bwd_variant64(const BnTBwdPlan& p) { return bwd_variant<64>(p); }
+}  // namespace gnn
+
 #else
 
 namespace gnn {
 BnTFwdFn bnT_fwd_wide();
 BnTBwdFn bnT_bwd_wide();
+BnTFwdFn bnT_fwd_variant64(const BnTFwdPlan& p);
+BnTBwdFn bnT_bwd_variant64(const BnTBwdPlan& p);
 }  // namespace gnn
 
 namespace {
@@ -882,11 +903,6 @@ int pick_typed(const Plan (&plans)[N], const Plan& widep, Layout (*layout)(int, 
 
 int g_force_fwd = -1;  // gnn_bnT_forward_force_plan
 
-template <int MAXF>
-BnTFwdFn fwd_variant(const BnTFwdPlan& p) {
-  return p.st ? bnT_fwd_kernel<MAXF, 256, true, false> : bnT_fwd_kernel<MAXF, 128, false, false>;
-}
-
 // K16's kernel and plan for a shape: the first plan of kBnTFwdPlans that
 // fits a CTA, else the wide plan (index kBnTWideIndex), or plan g_force_fwd
 // (>= 0) if it fits; nullptr (bytes: the last plan's) if none. *ws: the
@@ -897,15 +913,10 @@ BnTFwdFn pick_fwd(int W, int D, int F, int T, BnTFwdPlan* p, size_t* bytes, int*
                       ws);
   if (*index < 0) return nullptr;
   if (*index == kBnTWideIndex) return bnT_fwd_wide();
-  return D <= 16 ? fwd_variant<16>(*p) : D <= 32 ? fwd_variant<32>(*p) : fwd_variant<64>(*p);
+  return D <= 16 ? fwd_variant<16>(*p) : D <= 32 ? fwd_variant<32>(*p) : bnT_fwd_variant64(*p);
 }
 
 int g_force = -1;  // gnn_bnT_backward_force_plan
-
-template <int MAXF>
-BnTBwdFn bwd_variant(const BnTBwdPlan& p) {
-  return p.st ? bnT_bwd_kernel<MAXF, 256, true, false> : bnT_bwd_kernel<MAXF, 128, false, false>;
-}
 
 // K17's kernel and plan for a shape, as pick_fwd's (kBnTBwdPlans, g_force).
 BnTBwdFn pick_bwd(int W, int D, int F, int T, BnTBwdPlan* p, size_t* bytes, int* index,
@@ -913,7 +924,7 @@ BnTBwdFn pick_bwd(int W, int D, int F, int T, BnTBwdPlan* p, size_t* bytes, int*
   *index = pick_typed(kBnTBwdPlans, kBnTBwdWide, bwdT_layout, W, D, F, T, g_force, p, bytes, ws);
   if (*index < 0) return nullptr;
   if (*index == kBnTWideIndex) return bnT_bwd_wide();
-  return D <= 16 ? bwd_variant<16>(*p) : D <= 32 ? bwd_variant<32>(*p) : bwd_variant<64>(*p);
+  return D <= 16 ? bwd_variant<16>(*p) : D <= 32 ? bwd_variant<32>(*p) : bnT_bwd_variant64(*p);
 }
 
 }  // namespace
@@ -1029,4 +1040,4 @@ void gnn_bnT_backward_force_plan(int index) { g_force = index; }
 
 }  // extern "C"
 
-#endif  // GNN_WIDE_TU
+#endif  // GNN_WIDE_TU, GNN_MAXF64_TU

@@ -60,7 +60,8 @@
 // the aggregation go through the 64-wide register tiles a chunk at a time:
 // the same chains, so a forced wide plan gives the staged plans' bits. Its
 // one instantiation is compiled from eval_loop2_bwd_wide.cu (this file under
-// GNN_WIDE_TU), beside this file's.
+// GNN_WIDE_TU), and the staged plans' at register width 64 from
+// eval_loop2_bwd_64.cu (under GNN_MAXF64_TU), beside this file's.
 
 #include "tile2.cuh"
 
@@ -359,23 +360,6 @@ using Loop2BwdFn = void (*)(const float*, const float*, const float*, const floa
                             float*, float*, float*, float*, float*, float*, float*, int, int, int,
                             int, int, int, int, int, Tile2Plan, float*);
 
-}  // namespace
-
-#ifdef GNN_WIDE_TU
-
-namespace gnn {
-// K11's wide-plan instantiation (eval_loop2_bwd_wide.cu).
-Loop2BwdFn loop2_bwd_wide() { return loop2_bwd_tile_kernel<64, 4, 1, true>; }
-}  // namespace gnn
-
-#else
-
-namespace gnn {
-Loop2BwdFn loop2_bwd_wide();
-}  // namespace gnn
-
-namespace {
-
 // h0 kept: one CTA an SM; h0 recomputed with 4 units a thread: two where
 // they fit, in at most 128 registers a thread (on an NVIDIA H100 at the
 // recipe, 3.94 ms a launch against 4.79 with one CTA an SM); the leanest
@@ -386,6 +370,31 @@ Loop2BwdFn pick_variant(const Tile2Plan& p) {
   return p.keep ? loop2_bwd_tile_kernel<MAXF, 4, 1, false>
                 : loop2_bwd_tile_kernel<MAXF, 4, 2, false>;
 }
+
+}  // namespace
+
+#if defined(GNN_WIDE_TU)
+
+namespace gnn {
+// K11's wide-plan instantiation (eval_loop2_bwd_wide.cu).
+Loop2BwdFn loop2_bwd_wide() { return loop2_bwd_tile_kernel<64, 4, 1, true>; }
+}  // namespace gnn
+
+#elif defined(GNN_MAXF64_TU)
+
+namespace gnn {
+// K11's staged instantiations at register width 64 (eval_loop2_bwd_64.cu).
+Loop2BwdFn loop2_bwd_variant64(const Tile2Plan& p) { return pick_variant<64>(p); }
+}  // namespace gnn
+
+#else
+
+namespace gnn {
+Loop2BwdFn loop2_bwd_wide();
+Loop2BwdFn loop2_bwd_variant64(const Tile2Plan& p);
+}  // namespace gnn
+
+namespace {
 
 // The kernel and plan for a shape: the first plan of kLoop2BwdPlans that
 // fits, else the wide plan (index 3), or plan g_force (>= 0) if it fits;
@@ -400,7 +409,7 @@ Loop2BwdFn pick(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* 
     case 32:
       return pick_variant<32>(*p);
     default:
-      return pick_variant<64>(*p);
+      return loop2_bwd_variant64(*p);
   }
 }
 
@@ -464,4 +473,4 @@ void gnn_propagation_loop2_bwd_force_plan(int index) { g_force = index; }
 
 }  // extern "C"
 
-#endif  // GNN_WIDE_TU
+#endif  // GNN_WIDE_TU, GNN_MAXF64_TU

@@ -66,7 +66,9 @@
 // and dx3 go through the 64-wide register tiles a chunk at a time
 // (reverse_pass1/2's WIDE): the same chains, so a forced wide plan gives the
 // staged plans' bits. Its one instantiation is compiled from
-// train_loop2_bwd_wide.cu (this file under GNN_WIDE_TU), beside this file's.
+// train_loop2_bwd_wide.cu (this file under GNN_WIDE_TU), and the staged
+// plans' at register width 64 from train_loop2_bwd_64.cu (under
+// GNN_MAXF64_TU), beside this file's.
 
 #include "tile2.cuh"
 
@@ -278,27 +280,35 @@ using Train2Fn = void (*)(const float*, const float*, const float*, const float*
                           float*, int, int, int, int, int, int, int, int, int, float, float,
                           Tile2Plan, float*);
 
+template <int MAXF>
+Train2Fn pick_ut(int ut) {
+  return ut == 4 ? train2_bwd_tile_kernel<MAXF, 4, false> : train2_bwd_tile_kernel<MAXF, 2, false>;
+}
+
 }  // namespace
 
-#ifdef GNN_WIDE_TU
+#if defined(GNN_WIDE_TU)
 
 namespace gnn {
 // K13's wide-plan instantiation (train_loop2_bwd_wide.cu).
 Train2Fn train2_bwd_wide() { return train2_bwd_tile_kernel<64, 4, true>; }
 }  // namespace gnn
 
+#elif defined(GNN_MAXF64_TU)
+
+namespace gnn {
+// K13's staged instantiations at register width 64 (train_loop2_bwd_64.cu).
+Train2Fn train2_bwd_ut64(int ut) { return pick_ut<64>(ut); }
+}  // namespace gnn
+
 #else
 
 namespace gnn {
 Train2Fn train2_bwd_wide();
+Train2Fn train2_bwd_ut64(int ut);
 }  // namespace gnn
 
 namespace {
-
-template <int MAXF>
-Train2Fn pick_ut(int ut) {
-  return ut == 4 ? train2_bwd_tile_kernel<MAXF, 4, false> : train2_bwd_tile_kernel<MAXF, 2, false>;
-}
 
 // The kernel and plan for a shape: the first plan of kTrain2Plans that fits,
 // else the wide plan (index 4), or plan g_force (>= 0) if it fits; nullptr if
@@ -313,7 +323,7 @@ Train2Fn pick(int W, int D, int AL, int H1, Tile2Plan* p, size_t* bytes, int* in
     case 32:
       return pick_ut<32>(p->ut);
     default:
-      return pick_ut<64>(p->ut);
+      return train2_bwd_ut64(p->ut);
   }
 }
 
@@ -375,4 +385,4 @@ void gnn_train_loop2_bwd_force_plan(int index) { g_force = index; }
 
 }  // extern "C"
 
-#endif  // GNN_WIDE_TU
+#endif  // GNN_WIDE_TU, GNN_MAXF64_TU

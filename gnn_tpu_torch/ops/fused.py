@@ -45,13 +45,17 @@ A = bf(U_a) contracted with the bf16 adjacency, then act((U_s + A) + fT
 * `propagation_loop_bf16` (K3_bf16, ops/csrc/eval_loop_bf16.cu, replaces
   `_loop_kernel_T` with hp false);
 * `propagation_step_bf16` (K4_bf16, the same source, replaces
-  `_step_kernel_T` with hp false).
+  `_step_kernel_T` with hp false);
+* `propagation_loop_bwd_bf16` (K5_bf16, ops/csrc/eval_loop_bwd_bf16.cu,
+  replaces `_loop_bwd_kernel` with hp false): K3_bf16's K reverse
+  iterations, the pre-activation recomputed with its rounding, dua =
+  bf(dh) contracted with the adjacency, gs = bf([dh | dua]) @ bf(w2).
 
 Their plain versions sum in the kernels' order with exact products
-(ops/fused2.py's bf16 helpers), so a kernel gives their bits; they serve at
-eval only (`fused_propagation_{loop,step}_bf16`: a gradient through them
-raises, as their backward, K5 and K4's XLA rule on a bf16 batch, is not
-ported).
+(ops/fused2.py's bf16 helpers), so a kernel gives their bits. They train
+the clean route on a bf16 batch: `fused_propagation_loop_bf16` (K3_bf16,
+backward K5_bf16) and `fused_propagation_step_bf16` (K4_bf16, backward
+gnn_tpu's f32 XLA rule on the upcast adjacency, _PropagationStep's).
 
 The differentiable ops are torch.autograd.Functions: `fused_propagation_loop`
 (K3, backward K5), `fused_train_loop` (K7, backward K8), and
@@ -393,7 +397,8 @@ def train_loop_bwd_info(W: int, D: int) -> dict:
 # the kernel each wrapper launches (C entry point gnn_<wrapper>)
 _KERNEL = {"propagation_loop": "K3", "propagation_step": "K4", "propagation_loop_bwd": "K5",
            "train_step": "K6", "train_loop": "K7", "train_loop_bwd": "K8",
-           "propagation_loop_bf16": "K3_bf16", "propagation_step_bf16": "K4_bf16"}
+           "propagation_loop_bf16": "K3_bf16", "propagation_step_bf16": "K4_bf16",
+           "propagation_loop_bwd_bf16": "K5_bf16"}
 # kernel launches since the last reset, by wrapper
 launches = dict.fromkeys(_KERNEL, 0)
 
@@ -883,16 +888,22 @@ def train_step(adjT, s, sd, m, rT, fT, w_cat, activation: str = "tanh", alpha_dr
 
 
 # ------------------------------------------------------- bf16 adjacency
-def _eval_bf16(slots, s, rT, fT, w2, aff, activation: str):
-    """One iteration of K3_bf16 / K4_bf16 (gnn_tpu's _iter_core with hp
-    false): act((U_s + A) + fT (+ rT)) * scale + shift with U = bf(s) @
-    bf(w2)^T and A the bf(U_a) rows contracted with the adjacency `slots`,
-    every sum in the kernels' order (ops/fused2.py's bf16 helpers; the
-    rounding points s, w2 and ua)."""
+def _pre_activation_bf16(slots, s, fT, w2):
+    """K3_bf16's / K4_bf16's h = (U_s + A) + fT (gnn_tpu's _iter_core with hp
+    false): U = bf(s) @ bf(w2)^T and A the bf(U_a) rows contracted with the
+    adjacency `slots`, every sum in the kernels' order (ops/fused2.py's bf16
+    helpers; the rounding points s, w2 and ua)."""
     from gnn_tpu_torch.ops import fused2 as f2
     H = w2.shape[0] // 2
     u = f2._exact_dot(f2._bf("s", s), f2._bf("w2", w2))                    # [B, W, 2H]
-    h = u[..., :H] + f2._exact_adj(slots, f2._bf("ua", u[..., H:])) + fT
+    return u[..., :H] + f2._exact_adj(slots, f2._bf("ua", u[..., H:])) + fT
+
+
+def _eval_bf16(slots, s, rT, fT, w2, aff, activation: str):
+    """One iteration of K3_bf16 / K4_bf16: act(h (+ rT)) * scale + shift,
+    h as _pre_activation_bf16's."""
+    from gnn_tpu_torch.ops import fused2 as f2
+    h = _pre_activation_bf16(slots, s, fT, w2)
     if rT is not None:
         h = h + rT
     return f2.act64(activation, h) * aff[0] + aff[1]
@@ -919,6 +930,40 @@ def propagation_loop_bf16_ref(adjT, s0, fT, w2, affine, nm, K: int, threshold: f
         s_old, s = s, _eval_bf16(slots, s, None, fT, w2, aff, activation)
         traj.append(s)
     return torch.stack(traj), torch.stack(margins)
+
+
+def propagation_loop_bwd_bf16_ref(adjT, s0, traj, fT, w2, affine, g_traj,
+                                  activation: str = "tanh"):
+    """Plain PyTorch K5_bf16 (gnn_tpu's _loop_bwd_kernel with hp false): the K
+    reverse iterations of K3_bf16, each recomputing the pre-activation with
+    K3_bf16's rounding (_pre_activation_bf16); dua = bf(dh) contracted with
+    adjT over the destinations, gs = bf([dh | dua]) @ bf(w2) (unit h's two
+    rows in turn; rounding points dh and du); dw2 of s unrounded and daff
+    summed node by node. Returns (gs, dw2, dfT, daff) as
+    propagation_loop_bwd_ref's."""
+    from gnn_tpu_torch.ops import fused2 as f2
+    adj = adjT.float()
+    slots, slots_t = f2._adj_slots(adj), f2._adj_slots(adj.transpose(1, 2))
+    B, _, D = s0.shape
+    H = w2.shape[0] // 2
+    gs = torch.zeros_like(s0)
+    dw2 = s0.new_zeros((B, 2 * H, D))
+    dfT = torch.zeros_like(fT)
+    daff = None if affine is None else s0.new_zeros((B, 2, H))
+    for k in reversed(range(traj.shape[0])):
+        s_in = traj[k - 1] if k else s0
+        h = _pre_activation_bf16(slots, s_in, fT, w2)
+        gy = g_traj[k] + gs
+        if affine is not None:
+            daff = daff + torch.stack([f2.node_sum(gy * f2.act64(activation, h)),
+                                       f2.node_sum(gy)], dim=1)
+            gy = gy * affine[0]
+        dh = gy * f2.act_grad64(activation, h)
+        dfT = dfT + dh
+        du = torch.cat([dh, f2._exact_adj(slots_t, f2._bf("dh", dh))], dim=-1)
+        dw2 = dw2 + f2.node_outer(du, s_in)
+        gs = f2._exact_dot(f2._bf("du", du), f2._bf("w2", w2).t(), pairs=True)
+    return gs, dw2, dfT, daff
 
 
 def propagation_step_bf16(adjT, s, rT, fT, w2, affine=None, activation: str = "tanh"):
@@ -978,6 +1023,38 @@ def propagation_loop_bf16(adjT, s0, fT, w2, affine, nm, K: int, threshold: float
     return traj, margins
 
 
+def propagation_loop_bwd_bf16(adjT, s0, traj, fT, w2, affine, g_traj,
+                              activation: str = "tanh"):
+    """K5_bf16: the K reverse iterations of K3_bf16 over residual-free blocks
+    of a bf16 adjacency (gnn_tpu's _loop_bwd_kernel with hp false).
+    Arguments and result as propagation_loop_bwd's, adjT bf16 [B, W, W]."""
+    if adjT.device.type == "cpu":
+        return propagation_loop_bwd_bf16_ref(adjT, s0, traj, fT, w2, affine, g_traj, activation)
+    from gnn_tpu_torch.ops import fused2 as f2
+    B, W, _ = adjT.shape
+    K = traj.shape[0]
+    D, H = s0.shape[-1], w2.shape[0] // 2
+    _check_loop_width(D, H)
+    f2._check_bf16(adjT, D, H, "K5_bf16")
+    dev = adjT.device
+    _check("s0", s0, (B, W, D), dev)
+    _check("traj", traj, (K, B, W, D), dev)
+    _check("fT", fT, (B, W, D), dev)
+    _check("w2", w2, (2 * D, D), dev)
+    if affine is not None:
+        _check("affine", affine, (2, D), dev)
+    _check("g_traj", g_traj, (K, B, W, D), dev)
+    gs, dfT = (torch.zeros((B, W, D), dtype=torch.float32, device=dev) for _ in range(2))
+    dw2 = torch.zeros((B, 2 * D, D), dtype=torch.float32, device=dev)
+    daff = None if affine is None else torch.zeros((B, 2, D), dtype=torch.float32, device=dev)
+    if B == 0 or K == 0:
+        return gs, dw2, dfT, daff
+    _launch("propagation_loop_bwd_bf16", dev,
+            _ptr(adjT), _ptr(s0), _ptr(traj), _ptr(fT), _ptr(w2), _ptr(affine), _ptr(g_traj),
+            _ptr(gs), _ptr(dw2), _ptr(dfT), _ptr(daff), B, W, D, K, _ACT_CODE[activation])
+    return gs, dw2, dfT, daff
+
+
 # ------------------------------------------------------- differentiable ops
 class _PropagationLoop(torch.autograd.Function):
     """K3 forward, K5 backward (_fused_loop_fwd / _fused_loop_bwd); the
@@ -1010,10 +1087,11 @@ class _PropagationStep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         adjT, s, rT, fT, w2, affine, activation = ctx.saved
-        h = _pre_activation(adjT, s, fT, w2)
+        adj = adjT.float() if adjT.dtype == torch.bfloat16 else adjT   # gnn_tpu's upcast
+        h = _pre_activation(adj, s, fT, w2)
         if rT is not None:
             h = h + rT
-        ds, dw2, daff, dh = _eval_step_vjp(adjT, s, h, g, w2, affine, activation)
+        ds, dw2, daff, dh = _eval_step_vjp(adj, s, h, g, w2, affine, activation)
         return (ds, None if rT is None else dh, dh, dw2.sum(0),
                 None if daff is None else daff.sum(0), None, None)
 
@@ -1067,34 +1145,47 @@ def fused_propagation_step(adjT, s, rT, fT, w2, affine=None, activation: str = "
     return _PropagationStep.apply(s, rT, fT, w2, affine, adjT, activation)
 
 
-class _EvalBf16(torch.autograd.Function):
-    """K3_bf16 or K4_bf16 at eval: their backward (gnn_tpu's K5 and K4's XLA
-    rule on a bf16 batch, the clean training route) is not ported yet, so a
-    gradient through them raises rather than pass through the plain
-    versions."""
+class _PropagationLoopBf16(torch.autograd.Function):
+    """K3_bf16 forward, K5_bf16 backward (_fused_loop_fwd / _fused_loop_bwd,
+    hp false)."""
 
     @staticmethod
-    def forward(ctx, fn, *args):
-        return fn(*args)
+    def forward(ctx, s0, fT, w2, affine, adjT, nm, K, threshold, activation):
+        traj, margins = propagation_loop_bf16(adjT, s0, fT, w2, affine, nm, K, threshold,
+                                              activation)
+        ctx.saved = (adjT, s0, fT, w2, affine, traj, activation)
+        ctx.mark_non_differentiable(margins)
+        return traj, margins
 
     @staticmethod
-    def backward(ctx, *grads):
-        raise NotImplementedError(
-            "gradients through K3_bf16/K4_bf16 (the clean route's backward on a bf16 batch) are "
-            "not ported yet (ROADMAP Queue 1, M7)")
+    def backward(ctx, g_traj, _g_margins):
+        adjT, s0, fT, w2, affine, traj, activation = ctx.saved
+        gs, dw2, dfT, daff = propagation_loop_bwd_bf16(adjT, s0, traj, fT, w2, affine,
+                                                       g_traj.contiguous(), activation)
+        return (gs, dfT, dw2.sum(0), None if daff is None else daff.sum(0)) + (None,) * 5
+
+
+class _PropagationStepBf16(_PropagationStep):
+    """K4_bf16 forward, gnn_tpu's f32 backward on the upcast adjacency
+    (_fused_bwd_rule: _PropagationStep's)."""
+
+    @staticmethod
+    def forward(ctx, s, rT, fT, w2, affine, adjT, activation):
+        ctx.saved = (adjT, s, rT, fT, w2, affine, activation)
+        return propagation_step_bf16(adjT, s, rT, fT, w2, affine, activation)
 
 
 def fused_propagation_loop_bf16(adjT, s0, fT, w2, affine, nm, K: int, threshold: float,
                                 activation: str = "tanh"):
-    """propagation_loop_bf16 (K3_bf16) for the eval forward (_EvalBf16).
-    Returns (traj, margins)."""
-    return _EvalBf16.apply(propagation_loop_bf16, adjT, s0, fT, w2, affine, nm, K, threshold,
-                           activation)
+    """propagation_loop_bf16 (K3_bf16) with gradients to s0, fT, w2 and
+    affine through K5_bf16. Returns (traj, margins); margins carry none."""
+    return _PropagationLoopBf16.apply(s0, fT, w2, affine, adjT, nm, K, threshold, activation)
 
 
 def fused_propagation_step_bf16(adjT, s, rT, fT, w2, affine=None, activation: str = "tanh"):
-    """propagation_step_bf16 (K4_bf16) for the eval forward (_EvalBf16)."""
-    return _EvalBf16.apply(propagation_step_bf16, adjT, s, rT, fT, w2, affine, activation)
+    """propagation_step_bf16 (K4_bf16) with gradients to s, rT, fT, w2 and
+    affine through gnn_tpu's f32 backward."""
+    return _PropagationStepBf16.apply(s, rT, fT, w2, affine, adjT, activation)
 
 
 def fused_train_loop(adjT, s0, ms, ma, fT, w_cat, nm, K: int, threshold: float,

@@ -61,6 +61,20 @@ wide, both f32, outside the rounding.
   blocks; its backward is gnn_tpu's `_step2_bwd`, an f32 recompute with the
   bf16 adjacency upcast.
 
+The dropout-training kernels' bf16 variants keep gnn_tpu's association of
+_loop2_train_kernel_T (the dropout sits between the aggregation and w0):
+agg = bf(s) contracted with adjT D wide, x3 = [drop(s) | drop(agg) | fd] in
+f32, h0 = bf(x3) @ bf(w0)^T + b0, then the second layer as above:
+
+* `train_loop2_bf16` (K12_bf16, ops/csrc/train_loop2_bf16.cu, replaces
+  `_loop2_train_kernel_T` with hp false): all K iterations of residual-free
+  blocks, the aggregations saved.
+* `train_loop2_bwd_bf16` (K13_bf16, the same source, replaces
+  `_loop2_train_bwd_kernel` with hp false): its K reverse iterations from
+  the saved aggregations, dy0 = bf(dh1) @ bf(w1), dx3 = bf(dh0) @ bf(w0) and
+  ds = bf(dagg) contracted with adjT; dw0, db0, dw1 and db1 sum f32
+  operands node by node, a block each.
+
 Their plain versions sum every product in a fixed order (`_seq_dot`: the
 contracted index ascending), which their kernels follow, so on the card a
 kernel and its plain version differ only where the activations' last bits
@@ -70,7 +84,8 @@ state first; the bf16 ones contract bf(U_a), H1/D of those operations.
 
 The differentiable ops are torch.autograd.Functions: `fused_propagation_loop2`
 (K10, backward K11), which trains a two-layer net without dropout and
-BatchNorm, `fused_train_loop2` (K12, backward K13) and
+BatchNorm, `fused_train_loop2` (K12, backward K13),
+`fused_train_loop2_bf16` (K12_bf16, backward K13_bf16) and
 `fused_propagation_step2` (K9, a plain backward as gnn_tpu's XLA rule
 `_step2_bwd`). The reverse of the two dense layers is one plain function,
 `_dense2_vjp`, in every plain version.
@@ -79,7 +94,8 @@ Layout and rules as ops/fused.py: node-major blocks s [B, W, D], f
 [(K,) B, W, AL], adjT [B, W(src), W(dst)], keep-masks uint8 [K, B, W, D]. Each
 wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and launches
 the CUDA kernel (ops/csrc/fused2.cu: K9; loop2.cu: K10, K12;
-eval_loop2_bwd.cu: K11; train_loop2_bwd.cu: K13) for CUDA tensors;
+eval_loop2_bwd.cu: K11; train_loop2_bwd.cu: K13; the bf16 variants' sources
+above) for CUDA tensors;
 `launches` counts kernel launches. The register-tiled kernels of
 ops/csrc/tile2.cuh (K9, K10, K11, K12, K13 and ops/bn.py's K14 and K15) take
 every state, arc-label and hidden width (`_tile2_plan`): the first of their
@@ -110,7 +126,8 @@ MAX_HIDDEN = 512
 _KERNEL = {"propagation_step2": "K9", "propagation_loop2": "K10",
            "propagation_loop2_bwd": "K11", "train_loop2": "K12", "train_loop2_bwd": "K13",
            "propagation_step2_bf16": "K9_bf16", "propagation_loop2_bf16": "K10_bf16",
-           "propagation_loop2_bwd_bf16": "K11_bf16"}
+           "propagation_loop2_bwd_bf16": "K11_bf16", "train_loop2_bf16": "K12_bf16",
+           "train_loop2_bwd_bf16": "K13_bf16"}
 # kernel launches since the last reset, by wrapper
 launches = dict.fromkeys(_KERNEL, 0)
 _launch = functools.partial(launch_counted, launches, _KERNEL)
@@ -447,6 +464,94 @@ def propagation_loop2_bwd_bf16_ref(adjT, s0, traj, fT, w20, w1, b1, affine, g_tr
         dw20 = dw20 + torch.matmul(du.transpose(1, 2), s_in)
         gs = _exact_dot(_bf("du", du), _bf("w20", w20).t(), pairs=True)
     return gs, dw20, dw1, db1, dfT, daff
+
+
+def node_sum(x):
+    """x [B, W, ...] summed over the block's nodes in order, one f32 add a
+    node: the bf16 kernels' block sums."""
+    acc = torch.zeros_like(x[:, 0])
+    for n in range(x.shape[1]):
+        acc = acc + x[:, n]
+    return acc
+
+
+def node_outer(a, b):
+    """[B, P, Q] = sum over the block's nodes n in order of a[:, n] (x) b[:, n]
+    (a [B, W, P], b [B, W, Q]), each product rounded, then one f32 add a node:
+    the bf16 kernels' per-block weight partials of f32 operands."""
+    acc = a.new_zeros((a.shape[0], a.shape[2], b.shape[2]))
+    for n in range(a.shape[1]):
+        acc = acc + a[:, n, :, None] * b[:, n, None, :]
+    return acc
+
+
+def _x3_bf16(x3, D: int):
+    """bf(x3) of the two-layer training kernels' dense input [drop(s) |
+    drop(agg) | fd], rounded at the points x3s, x3 (the aggregated slice,
+    the one that holds a sum over the adjacency) and x3f."""
+    return torch.cat([_bf("x3s", x3[..., :D]), _bf("x3", x3[..., D:2 * D]),
+                      _bf("x3f", x3[..., 2 * D:])], dim=-1)
+
+
+def _dense2_bf16(x3, w0, b0, w1, b1, act0: str):
+    """(h0, y0, h1) of a bf16 training iteration from its f32 dense input x3:
+    h0 = bf(x3) @ bf(w0)^T + b0, y0 = act0(h0), h1 = bf(y0) @ bf(w1)^T + b1
+    (gnn_tpu's _mm_packed and _dense1_fm with hp false)."""
+    h0 = _exact_dot(_x3_bf16(x3, w1.shape[0]), _bf("w0", w0)) + b0
+    y0 = act64(act0, h0)
+    return h0, y0, _exact_dot(_bf("y0", y0), _bf("w1", w1)) + b1
+
+
+def train_loop2_bf16_ref(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K: int, threshold: float,
+                         act0: str = "tanh", act1: str = "tanh", alpha_drop: bool = True,
+                         rate: float = 0.0):
+    """Plain PyTorch K12_bf16 (gnn_tpu's _loop2_train_kernel_T with hp false):
+    each iteration aggregates bf(s) D wide over the bf16 adjacency (agg, f32
+    sums, saved), forms x3 = [drop(s) | drop(agg) | fd] in f32 and runs
+    _dense2_bf16 on it; every sum in the kernel's order. Returns (traj
+    [K, B, W, D], margins [K, B, W], agg [K, B, W, D]) as train_loop2_ref's."""
+    drop, _ = _make_drop(alpha_drop, rate)
+    slots = _adj_slots(adjT.float())
+    s, s_old = s0, torch.ones_like(s0)
+    traj, margins, aggs = [], [], []
+    for k in range(K):
+        margins.append(moved(s, s_old, threshold) * nm)
+        agg = _exact_adj(slots, _bf("s", s))
+        x3 = _x3(s, agg, fd[k], _at(ms, k), _at(ma, k), drop)
+        s_old, s = s, act64(act1, _dense2_bf16(x3, w0, b0, w1, b1, act0)[2])
+        traj.append(s)
+        aggs.append(agg)
+    return torch.stack(traj), torch.stack(margins), torch.stack(aggs)
+
+
+def train_loop2_bwd_bf16_ref(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj,
+                             act0: str = "tanh", act1: str = "tanh", alpha_drop: bool = True,
+                             rate: float = 0.0):
+    """Plain PyTorch K13_bf16 (gnn_tpu's _loop2_train_bwd_kernel with hp
+    false): the K reverse iterations of K12_bf16, each recomputing h0, y0 and
+    h1 from the saved aggregation; dy0 = bf(dh1) @ bf(w1), dx3 = bf(dh0) @
+    bf(w0), the aggregation's reverse over bf(dagg) (rounding points dh1,
+    dh0, dagg); dw1, dw0 (of y0 and x3 unrounded), db1 and db0 summed node by
+    node. Returns (gs, dw0, db0, dw1, db1, dfd) as train_loop2_bwd_ref's, the
+    weight cotangents per block."""
+    drop, dmask = _make_drop(alpha_drop, rate)
+    slots_t = _adj_slots(adjT.float().transpose(1, 2))
+    D = s0.shape[-1]
+    gs = torch.zeros_like(s0)
+    sums = _weight_sums(s0, w0)
+    dfd = [None] * traj.shape[0]
+    for k in reversed(range(traj.shape[0])):
+        x3 = _x3(traj[k - 1] if k else s0, agg[k], fd[k], _at(ms, k), _at(ma, k), drop)
+        h0, y0, h1 = _dense2_bf16(x3, w0, b0, w1, b1, act0)
+        dh1 = (g_traj[k] + gs) * act_grad64(act1, h1)
+        dh0 = _exact_dot(_bf("dh1", dh1), _bf("w1", w1).t()) * act_grad64(act0, h0)
+        parts = (node_outer(dh0, x3), node_sum(dh0), node_outer(dh1, y0), node_sum(dh1))
+        sums = [a + b for a, b in zip(sums, parts)]
+        dx3 = _exact_dot(_bf("dh0", dh0), _bf("w0", w0).t())
+        dfd[k] = dx3[..., 2 * D:]
+        dagg = dx3[..., D:2 * D] * dmask(_at(ma, k))
+        gs = dx3[..., :D] * dmask(_at(ms, k)) + _exact_adj(slots_t, _bf("dagg", dagg))
+    return (gs, *sums, torch.stack(dfd))
 
 
 def _step2_bf16_vjp(adjT, s, rT, fT, w20, w1, b1, affine, g, act0: str, act1: str):
@@ -805,16 +910,21 @@ def train_loop2_bwd(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj, act
 BF16_CHUNK = 32     # hidden units a chunk of the bf16 kernels (kBf16Chunk)
 
 
-def bf16_smem_bytes(kernel: str, W: int, D: int) -> int:
-    """Shared memory of a bf16 kernel's CTA (ops/csrc/bf16.cuh::bf16_smem):
-    the bf16 adjacency [W][W], then floats: the forward's state and h1
-    [W][D] each and the U_a and y0 chunks [W][CH] each; K11_bf16 also a
-    [W][D] gs and the dh0 and dua chunks."""
-    rows, chunks = (3, 4) if kernel == "K11_bf16" else (2, 2)
-    return 2 * W * W + 4 * W * (rows * D + chunks * BF16_CHUNK)
+def bf16_smem_bytes(kernel: str, W: int, D: int, AL: int = 0) -> int:
+    """Shared memory of a bf16 kernel's CTA (ops/csrc/bf16.cuh::bf16_smem and
+    train_loop2_bf16.cu::train2_bf16_smem): the bf16 adjacency [W][W], then
+    floats: the eval kernels' state and h1 rows [W][D] and the U_a and y0
+    chunks [W][CH]; K11_bf16 and K5_bf16 also a [W][D] gs row and the dh0
+    and dua chunks; K12_bf16 the state and h1 rows, bf(x3) [W][C] (C = 2D +
+    AL) and a y0 chunk; K13_bf16 two rows [W][D], x3, bf(x3) and dx3 [W][C]
+    and three chunks."""
+    C = 2 * D + AL
+    rows, chunks, wide = {"K11_bf16": (3, 4, 0), "K5_bf16": (3, 4, 0), "K12_bf16": (2, 1, 1),
+                          "K13_bf16": (2, 3, 3)}.get(kernel, (2, 2, 0))
+    return 2 * W * W + 4 * W * (rows * D + wide * C + chunks * BF16_CHUNK)
 
 
-def _check_bf16(adjT, D: int, H1: int, kernel: str):
+def _check_bf16(adjT, D: int, H1: int, kernel: str, AL: int = 0):
     """The bf16 kernels' adjacency (a contiguous bf16 [B, W, W] on the card,
     16-byte aligned), block width and the shared memory of the widths."""
     B, W, W2 = adjT.shape
@@ -827,10 +937,10 @@ def _check_bf16(adjT, D: int, H1: int, kernel: str):
                          f"{adjT.dtype}")
     if H1 < 1:
         raise ValueError(f"hidden width H1={H1} must be positive")
-    need = bf16_smem_bytes(kernel, W, D)
+    need = bf16_smem_bytes(kernel, W, D, AL)
     if need > SMEM_BYTES:
-        raise ValueError(f"{kernel} takes state widths whose CTA fits {SMEM_BYTES} bytes of "
-                         f"shared memory: D={D} at W={W} needs {need}")
+        raise ValueError(f"{kernel} takes widths whose CTA fits {SMEM_BYTES} bytes of shared "
+                         f"memory: D={D}, AL={AL} at W={W} needs {need}")
 
 
 def _check_bf16_weights(w20, w1, b1, D: int, dev):
@@ -950,6 +1060,78 @@ def propagation_loop2_bwd_bf16(adjT, s0, traj, fT, w20, w1, b1, affine, g_traj,
     return gs, dw20, dw1, db1, dfT, daff
 
 
+def train_loop2_bf16(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K: int, threshold: float,
+                     act0: str = "tanh", act1: str = "tanh", alpha_drop: bool = True,
+                     rate: float = 0.0):
+    """K12_bf16: all K two-layer dropout-training iterations over residual-free
+    blocks of a bf16 adjacency (gnn_tpu's _loop2_train_kernel_T with hp
+    false). Arguments and result as train_loop2's, adjT bf16 [B, W, W]."""
+    kw = dict(act0=act0, act1=act1, alpha_drop=alpha_drop, rate=rate)
+    if adjT.device.type == "cpu":
+        return train_loop2_bf16_ref(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K, threshold, **kw)
+    B, W, _ = adjT.shape
+    D, AL = s0.shape[-1], fd.shape[-1]
+    H1 = w0.shape[0]
+    _check_bf16(adjT, D, H1, "K12_bf16", AL)
+    dev = adjT.device
+    _check("s0", s0, (B, W, D), dev)
+    _check("fd", fd, (K, B, W, AL), dev)
+    _check_weights(w0, b0, w1, b1, D, AL, dev)
+    _check("nm", nm, (B, W), dev)
+    ms = _check_keep(ms, (K, B, W, D), dev, rate, "ms")
+    ma = _check_keep(ma, (K, B, W, D), dev, rate, "ma")
+    traj = torch.empty((K, B, W, D), dtype=torch.float32, device=dev)
+    margins = torch.empty((K, B, W), dtype=torch.float32, device=dev)
+    agg = torch.empty_like(traj)
+    if B == 0 or K == 0:
+        return traj, margins, agg
+    mode, a, b = _drop_args(alpha_drop, rate)
+    _launch("train_loop2_bf16", dev,
+            _ptr(adjT), _ptr(s0), _ptr(ms), _ptr(ma), _ptr(fd), _ptr(w0), _ptr(b0), _ptr(w1),
+            _ptr(b1), _ptr(nm), _ptr(traj), _ptr(margins), _ptr(agg), B, W, D, AL, H1, int(K),
+            float(threshold), _ACT_CODE[act0], _ACT_CODE[act1], mode, a, b)
+    return traj, margins, agg
+
+
+def train_loop2_bwd_bf16(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj,
+                         act0: str = "tanh", act1: str = "tanh", alpha_drop: bool = True,
+                         rate: float = 0.0):
+    """K13_bf16: the K reverse iterations of K12_bf16 over residual-free
+    blocks (gnn_tpu's _loop2_train_bwd_kernel with hp false). Arguments and
+    result as train_loop2_bwd's, adjT bf16 [B, W, W]."""
+    kw = dict(act0=act0, act1=act1, alpha_drop=alpha_drop, rate=rate)
+    if adjT.device.type == "cpu":
+        return train_loop2_bwd_bf16_ref(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj,
+                                        **kw)
+    B, W, _ = adjT.shape
+    K = traj.shape[0]
+    D, AL = s0.shape[-1], fd.shape[-1]
+    H1 = w0.shape[0]
+    _check_bf16(adjT, D, H1, "K13_bf16", AL)
+    dev = adjT.device
+    _check("s0", s0, (B, W, D), dev)
+    for name, t in (("traj", traj), ("agg", agg), ("g_traj", g_traj)):
+        _check(name, t, (K, B, W, D), dev)
+    _check("fd", fd, (K, B, W, AL), dev)
+    _check_weights(w0, b0, w1, b1, D, AL, dev)
+    ms = _check_keep(ms, (K, B, W, D), dev, rate, "ms")
+    ma = _check_keep(ma, (K, B, W, D), dev, rate, "ma")
+
+    def out(*shape):
+        return torch.zeros(shape, dtype=torch.float32, device=dev)
+    gs, dfd = out(B, W, D), out(K, B, W, AL)
+    dw0, db0, dw1, db1 = out(B, H1, 2 * D + AL), out(B, H1), out(B, D, H1), out(B, D)
+    if B == 0 or K == 0:
+        return gs, dw0, db0, dw1, db1, dfd
+    mode, a, b = _drop_args(alpha_drop, rate)
+    _launch("train_loop2_bwd_bf16", dev,
+            _ptr(adjT), _ptr(s0), _ptr(traj), _ptr(agg), _ptr(ms), _ptr(ma), _ptr(fd), _ptr(w0),
+            _ptr(b0), _ptr(w1), _ptr(b1), _ptr(g_traj), _ptr(gs), _ptr(dw0), _ptr(db0),
+            _ptr(dw1), _ptr(db1), _ptr(dfd), B, W, D, AL, H1, K, _ACT_CODE[act0],
+            _ACT_CODE[act1], mode, a, b)
+    return gs, dw0, db0, dw1, db1, dfd
+
+
 # ------------------------------------------------------- differentiable ops
 class _PropagationLoop2(torch.autograd.Function):
     """K10 forward, K11 backward (_loop2_fwd / _loop2_bwd)."""
@@ -1062,6 +1244,38 @@ class _PropagationStep2Bf16(torch.autograd.Function):
     def backward(ctx, g):
         adjT, s, rT, fT, w20, w1, b1, affine, act0, act1 = ctx.saved
         return _step2_bf16_vjp(adjT, s, rT, fT, w20, w1, b1, affine, g, act0, act1) + (None,) * 3
+
+
+class _TrainLoop2Bf16(torch.autograd.Function):
+    """K12_bf16 forward, K13_bf16 backward (_loop2_train_fwd /
+    _loop2_train_bwd, hp false); the weight partials a block each, summed in
+    block order."""
+
+    @staticmethod
+    def forward(ctx, s0, fd, w0, b0, w1, b1, adjT, ms, ma, nm, K, threshold, act0, act1,
+                alpha_drop, rate):
+        kw = dict(act0=act0, act1=act1, alpha_drop=alpha_drop, rate=rate)
+        traj, margins, agg = train_loop2_bf16(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K,
+                                              threshold, **kw)
+        ctx.saved = (adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, kw)
+        ctx.mark_non_differentiable(margins)
+        return traj, margins
+
+    @staticmethod
+    def backward(ctx, g_traj, _g_margins):
+        adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, kw = ctx.saved
+        gs, dw0, db0, dw1, db1, dfd = train_loop2_bwd_bf16(adjT, s0, traj, agg, ms, ma, fd, w0,
+                                                           b0, w1, b1, g_traj.contiguous(), **kw)
+        return (gs, dfd, dw0.sum(0), db0.sum(0), dw1.sum(0), db1.sum(0)) + (None,) * 10
+
+
+def fused_train_loop2_bf16(adjT, s0, ms, ma, fd, w0, b0, w1, b1, nm, K: int, threshold: float,
+                           act0: str = "tanh", act1: str = "tanh", alpha_drop: bool = True,
+                           rate: float = 0.0):
+    """train_loop2_bf16 (K12_bf16) with gradients to s0, fd, w0, b0, w1 and
+    b1 through K13_bf16. Returns (traj, margins); margins carry none."""
+    return _TrainLoop2Bf16.apply(s0, fd, w0, b0, w1, b1, adjT, ms, ma, nm, K, threshold, act0,
+                                 act1, alpha_drop, rate)
 
 
 def fused_propagation_loop2_bf16(adjT, s0, fT, w20, w1, b1, affine, nm, K: int,

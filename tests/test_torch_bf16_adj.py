@@ -3,9 +3,10 @@ gnn_tpu_torch against gnn_tpu, on the CPU.
 
 gnn_tpu's low-precision mode stores the block adjacency in bf16 and its
 kernels take it in one pass (hp = False): every product has bf16 operands
-and f32 accumulation. The port runs it on the hidden-150 recipe's route
-alone: K10's, K9's and K11's bf16 variants (ops/fused2.py), whose plain
-versions run here against gnn_tpu's kernels in interpret mode.
+and f32 accumulation. This file holds the hidden-150 recipe's clean route
+on it: K10's, K9's and K11's bf16 variants (ops/fused2.py), whose plain
+versions run here against gnn_tpu's kernels in interpret mode, and the
+routes not yet ported, which raise.
 
 An f32 sum in another order can move a value across a bf16 rounding
 boundary, so the two packages may differ by one rounding flip here and
@@ -304,11 +305,12 @@ def one_layer(rate, bn):
 
 
 # each route's state net, whether it trains, and its aggregation name
-ROUTES = {"hybrid": (lambda: one_layer(0.0, False), True, "auto"),
+ROUTES = {"plain_train": (lambda: one_layer(0.0, False), True, "segment"),
           "dropout_flat": (lambda: one_layer(0.1, False), True, "fused"),
           "dropout": (lambda: one_layer(0.1, False), True, "auto"),
           "ift1": (lambda: one_layer(0.0, False), True, "auto"),
-          "dropout2": (lambda: h150_specs(0.1)[2], True, "auto"),
+          "bn2_flat": (lambda: dataclasses.replace(TSpec(**h150_specs(0.1)[2]),
+                                                   batch_normalization=True), True, "fused"),
           "bn2": (lambda: dataclasses.replace(TSpec(**h150_specs(0.1)[2]),
                                               batch_normalization=True), True, "auto"),
           "plain": (lambda: one_layer(0.0, False), False, "segment"),
@@ -317,16 +319,17 @@ ROUTES = {"hybrid": (lambda: one_layer(0.0, False), True, "auto"),
 
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_other_routes_raise_on_bf16_batch(route):
-    """Every route not yet ported to a bf16 batch (clean one-layer training
-    through K5 and K4's backward, the dropout kernels, on the loop/dep and
-    the all-dep layout, the two-layer dropout and BatchNorm kernels, the
-    plain body and the implicit adjoint of a one- or two-layer net) raises
-    NotImplementedError on it, naming the ROADMAP entry that ports it; none
-    casts the batch to f32. ('hybrid' at eval, the one-layer 'bn' and
-    'hybrid2' run: tests/test_torch_bf16_flagship.py and the tests above.)"""
+    """Every route not yet ported to a bf16 batch (the plain body in training
+    and at eval, the one-layer dropout kernels on the loop/dep and the
+    all-dep layout, the two-layer BatchNorm kernels on either layout, the
+    implicit adjoint of a one- or two-layer net) raises NotImplementedError
+    on it, naming the ROADMAP entry that ports it; none casts the batch to
+    f32. ('hybrid', the one-layer 'bn', 'hybrid2' and 'dropout2' run:
+    tests/test_torch_bf16_flagship.py, test_torch_bf16_train.py and the
+    tests above.)"""
     _, tgs = graphs(5)
     net, training, aggregation = ROUTES[route]
-    _, tb = batches(tgs, tgs, fused_layout=route != "dropout_flat")
+    _, tb = batches(tgs, tgs, fused_layout=not route.endswith("_flat"))
     ss = net()
     ss = ss if isinstance(ss, TSpec) else TSpec(**ss)
     spec = tcore.GNNSpec(focus="g", state_spec=ss,
@@ -335,6 +338,7 @@ def test_other_routes_raise_on_bf16_batch(route):
                          grad_mode="ift" if route.startswith("ift") else "unroll")
     route_of = tcore._train_route if training else tcore._eval_route
     assert route_of(spec, tb) == {"ift1": "hybrid", "ift": "hybrid2", "bn2": "bn",
+                                  "bn2_flat": "bn", "plain_train": "plain",
                                   "dropout_flat": "dropout"}.get(route, route)
     params, bn = tcore.gnn_init(spec, torch.Generator().manual_seed(0))
     masks = tcore.draw_masks(spec, tb, torch.Generator().manual_seed(1)) if training else None

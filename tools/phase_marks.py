@@ -221,14 +221,14 @@ def main():
                  for label, path in (("marked", copy), ("unmarked", src_path))]
 
     def nvcc(job):
-        """The copy's library, with its wide plans' source beside it where the
-        tree has one (X_wide.cu includes X.cu: the marked copy for the marked
-        library, whose wide instantiations keep no marks of their own)."""
+        """The copy's library, with its wide plans' and register-width-64 plans'
+        sources beside it where the tree has them (X_wide.cu and X_64.cu
+        include X.cu: the marked copy for the marked library, whose
+        instantiations there keep no marks of their own)."""
         tname, label, path, tree, so = job
-        wide = path[:-3] + "_wide.cu"
+        extra = [s for s in (path[:-3] + "_wide.cu", path[:-3] + "_64.cu") if os.path.exists(s)]
         return subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", tree, "-shared", "-o", so,
-                               path, *([wide] if os.path.exists(wide) else [])],
-                              capture_output=True, text=True)
+                               path, *extra], capture_output=True, text=True)
     with ThreadPoolExecutor(len(jobs)) as pool:
         built = list(pool.map(nvcc, jobs))
     libs_of = {}

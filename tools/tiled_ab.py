@@ -10,7 +10,7 @@ blocks' dropout-training step K6 and the CSR segment aggregation K18.
 
 Each tree's source that holds a kernel's C entry (a kernel may move between
 files: K12 lies in fused2.cu in older trees, in loop2.cu in newer ones) is
-built alone (with its X_wide.cu beside it where the tree has one) with the
+built alone (with its X_wide.cu and X_64.cu beside it where the tree has them) with the
 port's nvcc flags, all at once, into a library of its own under
 build/tiled_ab/; a tree without the entry is skipped for that kernel. On
 chip_smoke.py's full-set operands (the MUTAG-shaped set: K10 at the h150
@@ -139,10 +139,11 @@ def main():
              for job in jobs}
 
     def nvcc(job):
-        """The source's library, with its wide plans' source beside it where the
-        tree has one (X_wide.cu: the instantiations X.cu's C entries launch)."""
-        wide = job[1][:-3] + "_wide.cu"
-        srcs_ = [job[1]] + ([wide] if os.path.exists(wide) else [])
+        """The source's library, with its wide plans' and its register-width-64
+        plans' sources beside it where the tree has them (X_wide.cu, X_64.cu:
+        instantiations X.cu's C entries launch)."""
+        srcs_ = [job[1]] + [s for s in (job[1][:-3] + "_wide.cu", job[1][:-3] + "_64.cu")
+                            if os.path.exists(s)]
         r = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", so_of[job],
                             *srcs_], capture_output=True, text=True)
         return r.returncode, r.stdout + r.stderr
