@@ -357,10 +357,25 @@
    training batch, each first step held to the CPU as phase 24's (c) holds
    its step (the bound from the CPU's step with one flip at the kernel's
    point an iteration).
+26. The dropout route on the bf16 adjacency: (a) the bf16 variants K7_bf16
+   and K8_bf16 at the shapes the flagship's BatchNorm-free dropout route
+   ('dropout': AlphaDropout 0.1 at the state net's input, no BatchNorm)
+   gives them on the bf16 training batch (the 1104 loop rows, the model's
+   keep-masks; K8_bf16 from the plain K7_bf16's trajectory and aggregations
+   and a readout-like cotangent) and K6_bf16 at its first dep step (the 110
+   dep rows, the raw residual aggregation) and at the all-dep batch's
+   (1194 rows), against their plain versions on the card by Part B's gate
+   (the bound from one flip of x2's aggregated slice for K7 and K6, of
+   bf(dh) for K8), movement flags equal, timed beside their f32 twins; (b)
+   3 steps of 'dropout' on the bf16 training batch (K7_bf16 and K8_bf16
+   once and K6_bf16 K times a step, no other kernel: the f32 K6-K8 launch 0
+   times) and 1 step of 'flat_dropout' on a bf16 all-dep batch (K6_bf16 K
+   times), each first step held to the CPU as phase 24's (c) holds its step
+   (the bound from the CPU's step with one flip of x2's aggregated slice an
+   iteration).
 
-Prints a JSON line of per-kernel numbers (K1-K18 and K1_bf16, K2_bf16,
-K3_bf16, K4_bf16, K5_bf16, K9_bf16, K10_bf16, K11_bf16, K12_bf16, K13_bf16),
-then as its last line
+Prints a JSON line of per-kernel numbers (K1-K18 and the bf16 variants
+K1_bf16-K13_bf16), then as its last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 
 Usage, from the repository root: python3 chip_smoke.py
@@ -818,7 +833,10 @@ ROUTES = {"bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
           "bn_bf16": {"bn_forward_step_bf16": "K", "bn_backward_step_bf16": "K"},
           "h150_bf16": {"train_loop2_bf16": 1, "train_loop2_bwd_bf16": 1},
           "clean_bf16": {"propagation_loop_bf16": 1, "propagation_loop_bwd_bf16": 1,
-                         "propagation_step_bf16": "K"}}
+                         "propagation_step_bf16": "K"},
+          "dropout_bf16": {"train_loop_bf16": 1, "train_loop_bwd_bf16": 1,
+                           "train_step_bf16": "K"},
+          "flat_dropout_bf16": {"train_step_bf16": "K"}}
 
 
 def variant_dims(variant):
@@ -1198,9 +1216,9 @@ def bnfree_kernel_inputs(torch, gb, width=14):
 
 
 def dep_step_operands(torch, model, gb, seed):
-    """K6's operands as the dropout route forms them for its first dep step
-    on gb, with the model's keep-masks drawn from a generator seeded with
-    `seed`."""
+    """K6's operands (K6_bf16's on a bf16 batch) as the dropout route forms
+    them for its first dep step on gb, with the model's keep-masks drawn from
+    a generator seeded with `seed`."""
     from gnn_tpu_torch.models import core
     from gnn_tpu_torch.ops import fused
     masks = core.draw_masks(model.spec, gb, torch.Generator(device=gb.device).manual_seed(seed))
@@ -1209,8 +1227,9 @@ def dep_step_operands(torch, model, gb, seed):
                                            masks["state"][0])
         s = dep["s0"]
         return dict(adjT=dep["adjT"], s=s, sd=fused._make_drop(kw["alpha_drop"], kw["rate"])[0](
-            s, dep["ms"][0]), m=dep["ma"][0], rT=core.residual_agg(gb, s), fT=dep["fT"][0],
-                    w_cat=dep["w_cat"], **kw)
+            s, dep["ms"][0]), m=dep["ma"][0],
+                    rT=core.residual_agg(gb, s, exact=gb.adj_dtype == torch.bfloat16),
+                    fT=dep["fT"][0], w_cat=dep["w_cat"], **kw)
 
 
 def random_bnfree_inputs(torch, gen, B, W, D, H, K, rate, alpha, act, dev, dense=False,
@@ -4583,7 +4602,10 @@ def bf16_bounds(cases):
     (2 * D * H1 a node), dx3 (2 * H1 * C a node) and ds (2 * D an arc) in
     bf16, dw1 and dw0 in fp32 (the same counts as h1 and h0). K5: K3's
     iteration, dua (2 * H an arc) and gs (2 * 2H * D a node) in bf16, dw2
-    (2 * 2H * D a node) in fp32, a reverse iteration."""
+    (2 * 2H * D a node) in fp32, a reverse iteration. K7: the aggregation
+    (2 * D an arc) and h (2 * D * 2D a node) an iteration; K8 h again, dx2
+    (2 * 2D * D a node) and ds (2 * D an arc) in bf16, dw (2 * D * 2D a node)
+    in fp32, a reverse iteration; K6 K7's iteration once, H wide."""
     def bound16(nbytes, ops16, ops32=0):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = (ops16 / BF16_FLOPS + ops32 / FP32_FLOPS) * 1e3
@@ -4627,6 +4649,25 @@ def bf16_bounds(cases):
                 out[k] = bound16(adj + keep + wts + 4 * (n * D + 3 * K * n * D + K * n * AL)
                                  + 4 * (n * D + K * n * AL) + B * wts,
                                  K * (dense + dense + 2 * D * nnz), K * dense)
+        elif k in ("K7_bf16", "K8_bf16"):
+            B, W, D = x["s0"].shape
+            n = B * W
+            K = x["K"] if k == "K7_bf16" else x["traj"].shape[0]
+            keep = 0 if x["ms"] is None else 2 * K * n * D
+            dense = 2 * n * D * 2 * D                        # h (or dx2, dw) a node
+            if k == "K7_bf16":
+                out[k] = bound16(adj + keep + 4 * (n * D + K * n * D + 2 * D * D + n)
+                                 + 4 * K * n * (2 * D + 1), K * (2 * D * nnz + dense))
+            else:
+                out[k] = bound16(adj + keep + 4 * (n * D + 4 * K * n * D + 2 * D * D)
+                                 + 4 * (n * D + K * n * D + B * 2 * D * D),
+                                 K * (2 * dense + 2 * D * nnz), K * dense)
+        elif k == "K6_bf16":
+            B, W, D = x["s"].shape
+            H, n = x["fT"].shape[-1], B * W
+            rows = 2 + (x["rT"] is not None)
+            out[k] = bound16(adj + (0 if x["m"] is None else n * D) + 4 * n * (rows * D + H)
+                             + 4 * 2 * H * D + 4 * n * (H + D), 2 * D * nnz + 2 * n * H * 2 * D)
         elif k == "K5_bf16":
             B, W, _ = x["adjT"].shape
             H2, D = x["w2"].shape
@@ -5016,6 +5057,70 @@ def phase_train_bf16(torch, graphs, n_arcs, kernels):
         errs, timed, bounds)
 
 
+def dropout_bf16_kernel_inputs(torch, gbt16, gbf16):
+    """K7_bf16's operands as the bf16 'dropout' route forms them on the bf16
+    training batch (dropout_operands with the model's keep-masks), K8_bf16's
+    from the plain K7_bf16's trajectory and aggregations with a
+    readout-like cotangent, K6_bf16's at the route's first dep step (the
+    state slice dropped, the raw residual aggregation summed exactly) there
+    and on the all-dep batch `gbf16` ('flat_dropout')."""
+    from gnn_tpu_torch.models import core
+    from gnn_tpu_torch.ops import fused
+    m = flagship(torch, "cuda", "dropout")
+    spec = m.spec
+    masks = core.draw_masks(spec, gbt16, torch.Generator(device="cuda").manual_seed(SEED + 51))
+    with torch.no_grad():
+        loop, _, kw = core.dropout_operands(spec, m.params["state"], gbt16, masks["state"][0])
+        k7 = dict(loop, K=spec.max_iteration, threshold=float(spec.threshold), **kw)
+        traj, _, agg = fused.train_loop_bf16_ref(**k7)
+        k8 = dict({k: loop[k] for k in ("adjT", "s0", "ms", "ma", "fT", "w_cat")}, traj=traj,
+                  agg=agg, g_traj=readout_like(torch, traj, loop["nm"], SEED + 52), **kw)
+    return (k7, k8, dep_step_operands(torch, m, gbt16, SEED + 53),
+            dep_step_operands(torch, flagship(torch, "cuda", "flat_dropout"), gbf16, SEED + 54))
+
+
+def phase_dropout_bf16(torch, graphs, n_arcs, kernels):
+    """Phase 26: the flagship's BatchNorm-free dropout route on the bf16
+    adjacency (module docstring): K7_bf16/K8_bf16 once and K6_bf16 K times a
+    step on the loop/dep layout, K6_bf16 K times on the all-dep layout.
+    Returns the kernels line's entries of K7_bf16, K8_bf16 and K6_bf16."""
+    from gnn_tpu_torch.graphs.batch import from_graphs_blocked
+    from gnn_tpu_torch.ops import fused
+    t_phase = time.perf_counter()
+    say(f"---- the dropout route on the bf16 adjacency ({elapsed()})")
+    t0 = time.perf_counter()
+    gbt16 = flagship(torch, "cuda", "dropout").to_batch(graphs, adj_dtype=torch.bfloat16)
+    gbf16 = from_graphs_blocked(graphs, block_w=128, focus="g",
+                                adj_dtype=torch.bfloat16).to("cuda")
+    say(f"bf16 training batches: {gbt16.adj_loop.shape[0]} loop and {gbt16.adj_dep.shape[0]} "
+        f"dep blocks; all-dep {gbf16.adj_dep.shape[0]} ({time.perf_counter() - t0:.2f} s to "
+        f"pack and upload)")
+    k7, k8, k6, k6f = dropout_bf16_kernel_inputs(torch, gbt16, gbf16)
+    with torch.no_grad():
+        cases = (("K7_bf16", fused, "train_loop_bf16", k7, ("traj", "margins", "agg"), "agg", (),
+                  False),
+                 ("K8_bf16", fused, "train_loop_bwd_bf16", k8, ("gs", "dw", "dfT"), "dh", ("dw",),
+                  True),
+                 ("K6_bf16", fused, "train_step_bf16", k6, ("y", "agg"), "agg", (), False))
+        errs = check_bf16_kernels(torch, cases + (
+            ("K6_bf16 all-dep", fused, "train_step_bf16", k6f, ("y", "agg"), "agg", (), False),))
+        timed, bounds = time_bf16_kernels(torch, cases, kernels, ("K7", "K8", "K6"))
+        flat_ms = device_ms(torch, lambda: fused.train_step_bf16(**k6f), launches=1, runs=20)
+        b, by = bf16_bounds({"K6_bf16": k6f})["K6_bf16"]
+        say(f"K6_bf16 at the all-dep shape adjT {tuple(k6f['adjT'].shape)}: {flat_ms:.4f} ms a "
+            f"call (device time), bound {b:.4f} ms ({by}); {CARD}")
+    # each path counts its wrappers' launches: the f32 K6-K8 launch 0 times
+    trained = phase_training_bf16(torch, gbt16, n_arcs, "dropout", "dropout_bf16", "agg")
+    phase_training_bf16(torch, gbf16, n_arcs, "flat_dropout", "flat_dropout_bf16", "agg",
+                        steps=1)
+    say(f"phase 26: {time.perf_counter() - t_phase:.1f} s")
+    return kernel_rows(
+        kernels, {"K7_bf16": ("train_loop_bf16.cu", "K7", trained, "train_loop_bf16"),
+                  "K8_bf16": ("train_loop_bf16.cu", "K8", trained, "train_loop_bwd_bf16"),
+                  "K6_bf16": ("train_loop_bf16.cu", "K6", trained, "train_step_bf16")},
+        errs, timed, bounds)
+
+
 def time_bf16_kernels(torch, cases, kernels, twins):
     """(timed {kernel: (device ms a call, plain ms)}, bounds) of the bf16
     variants `cases` (check_bf16_kernels'), each printed beside its f32
@@ -5180,6 +5285,7 @@ def phases(torch):
                                     kernels))
     kernels.update(phase_flagship_bf16(torch, graphs, requests, n_arcs, kernels))
     kernels.update(phase_train_bf16(torch, graphs, n_arcs, kernels))
+    kernels.update(phase_dropout_bf16(torch, graphs, n_arcs, kernels))
     for k, (path, key) in {"K1": ("bn", "bn_forward_step"), "K2": ("bn", "bn_backward_step"),
                            "K3": ("flagship", "propagation_loop"),
                            "K4": ("flagship", "propagation_step"),

@@ -54,15 +54,17 @@ Dispatch follows gnn_tpu's `aggregation='auto'`:
   (`kernel_columns`) and the feature rows [labels | Σlabels | Σarcs]
   (`fold_features`); the readout reads [state | labels];
 * a batch whose block adjacency is bf16 (from_graphs_blocked(adj_dtype=
-  torch.bfloat16), gnn_tpu's low-precision mode) runs four routes: 'hybrid'
+  torch.bfloat16), gnn_tpu's low-precision mode) runs five routes: 'hybrid'
   through the bf16 variants of K3 and K4 (ops/fused.py), in training
   differentiated through K5's and K4's plain f32 backward; 'bn' of a
   one-layer state net through those of K1 and K2 (ops/bn.py); 'hybrid2':
   the bf16 variants of K10 and K9 at eval and in clean two-layer training,
   differentiated through K11's bf16 variant and K9's plain f32 backward;
   'dropout2' through those of K12 and K13 (ops/fused2.py) and the plain f32
-  dep step; every other route (the one-layer dropout routes, the two-layer
-  'bn', the plain body, grad_mode='ift') raises NotImplementedError on it
+  dep step; 'dropout' through those of K7 and K8 over the loop blocks and
+  K6's per step, differentiated through K6's plain f32 backward (on either
+  layout); every other route (the two-layer 'bn', the composite routes, the
+  plain body, grad_mode='ift') raises NotImplementedError on it
   (check_adj_dtype).
 
 Dropout and the initial state draw no random numbers here: training takes
@@ -88,7 +90,8 @@ from gnn_tpu_torch.ops.bn import (bn_train_propagate, supports_fused_bn2_train,
 from gnn_tpu_torch.ops.fused import (FUSABLE_ACTIVATIONS, _make_drop, fused_propagation_loop,
                                      fused_propagation_loop_bf16, fused_propagation_step,
                                      fused_propagation_step_bf16, fused_train_loop,
-                                     fused_train_step, moved, supports_fused,
+                                     fused_train_loop_bf16, fused_train_step,
+                                     fused_train_step_bf16, moved, supports_fused,
                                      supports_fused_train)
 from gnn_tpu_torch.ops.fold import (fold_features, in_kernel_order, initial_state,
                                    kernel_columns, state_width)
@@ -340,20 +343,21 @@ def check_adj_dtype(gb: GraphBatch, route: str, training: bool = False,
                     grad_mode: str = "unroll", layers: int = 1) -> None:
     """A bf16 block adjacency runs, unrolled, route 'hybrid' (the bf16 K3
     and K4, in training K5's), route 'hybrid2' (the bf16 K10, K9 and K11),
-    route 'dropout2' (the bf16 K12 and K13) and route 'bn' of a one-layer
-    state net (the bf16 K1 and K2): any other route (of `layers` dense
+    route 'dropout' (the bf16 K7, K8 and K6), route 'dropout2' (the bf16 K12
+    and K13) and route 'bn' of a one-layer state net (the bf16 K1 and K2):
+    any other route (the two-layer 'bn', the plain body; of `layers` dense
     layers), and grad_mode 'ift', raises, on every device, rather than cast
     the batch."""
-    ported = (route in ("hybrid", "hybrid2", "dropout2")
+    ported = (route in ("hybrid", "hybrid2", "dropout", "dropout2")
               or (route == "bn" and layers == 1))
     if gb.adj_dtype != torch.bfloat16 or (ported and grad_mode == "unroll"):
         return
     what = f"route {route!r}" + (" with grad_mode='ift'" if grad_mode == "ift" else "")
     raise NotImplementedError(
         f"a bf16-adjacency batch runs only routes 'hybrid' (bf16 K3/K4/K5), 'hybrid2' (bf16 "
-        f"K10/K9/K11), 'dropout2' (bf16 K12/K13) and the one-layer route 'bn' (bf16 K1/K2); "
-        f"{what} ({'training' if training else 'eval'}) on it is not ported yet (ROADMAP "
-        f"Queue 1, M7: bf16 on K6-K8 and K14-K17, the plain body and IFT)")
+        f"K10/K9/K11), 'dropout' (bf16 K7/K8/K6), 'dropout2' (bf16 K12/K13) and the one-layer "
+        f"route 'bn' (bf16 K1/K2); {what} ({'training' if training else 'eval'}) on it is not "
+        f"ported yet (ROADMAP Queue 1, M7: bf16 on K14-K17, the plain body and IFT)")
 
 
 def _propagate_plain(spec, params_state, bn_state, gb, training=False, keep=None, s0=None):
@@ -728,7 +732,9 @@ def dropout_operands(spec: GNNSpec, params_state, gb: GraphBatch,
     step's keep-mask: the fold slice is dropped here and folded into
     fT = Wfold @ drop(fold) + b for every iteration; the state and
     aggregated slices' masks go to the kernels as uint8 blocks ms, ma
-    [K, B, W, D] (None without dropout).
+    [K, B, W, D] (None without dropout). On a bf16-adjacency batch fT is
+    formed by seq_dot (the same bits on every device), as hybrid_operands
+    does.
 
     :param keep_state: bool [K, Np, in_dim] input keep-masks in global node
         order and the reference's column order (None without input dropout).
@@ -751,10 +757,11 @@ def dropout_operands(spec: GNNSpec, params_state, gb: GraphBatch,
         keep_state = in_kernel_order(keep_state, cols)
         keep = keep_state.reshape(K, B, W, -1)
         ms, ma = keep[..., :D].to(torch.uint8), keep[..., D:2 * D].to(torch.uint8)
-        drop, _ = _make_drop(kw["alpha_drop"], rate)
-        fT = F.linear(drop(fold, keep_state[..., 2 * D:]), w[:, 2 * D:], b)
-    else:
-        fT = F.linear(fold, w[:, 2 * D:], b).expand(K, Np, -1)
+        fold = _make_drop(kw["alpha_drop"], rate)[0](fold, keep_state[..., 2 * D:])
+    fT = (seq_dot(fold, w[:, 2 * D:]) + b if gb.adj_dtype == torch.bfloat16
+          else F.linear(fold, w[:, 2 * D:], b))
+    if rate <= 0.0:
+        fT = fT.expand(K, Np, -1)
     fT = fT.reshape(K, B, W, -1)
     s03 = s0.reshape(B, W, D)
     w_cat = w[:, :2 * D].contiguous()                     # [H, 2D] = [Ws | Wa]
@@ -778,13 +785,17 @@ def _propagate_dropout(spec, params_state, gb, keep_state: Optional[torch.Tensor
     the loop blocks (K8 its backward), K6 per step over the dep blocks, which
     get their state slice dropped here and the raw residual aggregation;
     without loop blocks K6 per step over every block (gnn_tpu's per-step
-    training path, core.py:880-927)."""
+    training path, core.py:880-927). On a bf16-adjacency batch the bf16
+    variants of K7, K8 and K6, the residual sums exact."""
     K = spec.max_iteration
     thr = float(spec.threshold)
     loop, dep, kw = dropout_operands(spec, params_state, gb, keep_state, s0)
+    bf16 = gb.adj_dtype == torch.bfloat16
+    loop_fn, step_fn = ((fused_train_loop_bf16, fused_train_step_bf16) if bf16
+                        else (fused_train_loop, fused_train_step))
     looped = None
     if loop is not None:
-        looped = (*fused_train_loop(**loop, K=K, threshold=thr, **kw), loop["s0"])
+        looped = (*loop_fn(**loop, K=K, threshold=thr, **kw), loop["s0"])
     if dep is None:
         return _finish_hybrid(gb, thr, K, looped)
     drop, _ = _make_drop(kw["alpha_drop"], kw["rate"])
@@ -792,8 +803,8 @@ def _propagate_dropout(spec, params_state, gb, keep_state: Optional[torch.Tensor
     def step(it, sd):
         ms, ma = (None, None) if dep["ms"] is None else (dep["ms"][it], dep["ma"][it])
         sdd = sd if ms is None else drop(sd, ms)
-        return fused_train_step(dep["adjT"], sd, sdd, ma, residual_agg(gb, sd), dep["fT"][it],
-                                dep["w_cat"], **kw)
+        return step_fn(dep["adjT"], sd, sdd, ma, residual_agg(gb, sd, exact=bf16), dep["fT"][it],
+                       dep["w_cat"], **kw)
     return _finish_hybrid(gb, thr, K, looped, dep["s0"], step)
 
 

@@ -130,8 +130,11 @@ def _signatures():
         "gnn_bnT_forward": [p] * 15 + [i] * 6 + [f, p, i, f, f, p, p],
         "gnn_bnT_backward": [p] * 18 + [i] * 6 + [p, i, f, f, p, p],
         "gnn_segment_aggregate": [p] * 5 + [i, i, p],
-        # the bf16-adjacency variants of K1-K5 and K9-K13 (no plans, no workspace)
+        # the bf16-adjacency variants of K1-K13 (no plans, no workspace)
         "gnn_propagation_loop_bf16": [p] * 8 + [i] * 4 + [f, i, p],
+        "gnn_train_loop_bf16": [p] * 10 + [i] * 4 + [f, i, i, f, f, p],
+        "gnn_train_loop_bwd_bf16": [p] * 12 + [i] * 6 + [f, f, p],
+        "gnn_train_step_bf16": [p] * 9 + [i] * 6 + [f, f, p],
         "gnn_propagation_loop_bwd_bf16": [p] * 11 + [i] * 5 + [p],
         "gnn_train_loop2_bf16": [p] * 13 + [i] * 6 + [f, i, i, i, f, f, p],
         "gnn_train_loop2_bwd_bf16": [p] * 18 + [i] * 9 + [f, f, p],

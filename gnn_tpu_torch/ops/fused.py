@@ -51,11 +51,29 @@ A = bf(U_a) contracted with the bf16 adjacency, then act((U_s + A) + fT
   iterations, the pre-activation recomputed with its rounding, dua =
   bf(dh) contracted with the adjacency, gs = bf([dh | dua]) @ bf(w2).
 
+The dropout-training kernels' bf16 variants keep gnn_tpu's one-pass
+rounding (_loop_train_kernel_T, _train_kernel_T with hp false): agg = bf(s)
+contracted with the bf16 adjacency (+ rT), x2 = [drop(s) | drop(agg)] in
+f32, h = bf(x2) @ bf([Ws | Wa])^T + fT:
+
+* `train_loop_bf16` (K7_bf16, ops/csrc/train_loop_bf16.cu, replaces
+  `_loop_train_kernel_T` with hp false): all K iterations of residual-free
+  blocks, the aggregations saved;
+* `train_loop_bwd_bf16` (K8_bf16, the same source, replaces
+  `_loop_train_bwd_kernel` with hp false): its K reverse iterations from the
+  saved aggregations, dw of x2 unrounded node by node, dx2 = bf(dh) @ bf(w)
+  and ds = bf(dagg) contracted with the adjacency;
+* `train_step_bf16` (K6_bf16, the same source, replaces `_train_kernel_T`
+  with hp false): one iteration of residual-coupled blocks.
+
 Their plain versions sum in the kernels' order with exact products
 (ops/fused2.py's bf16 helpers), so a kernel gives their bits. They train
-the clean route on a bf16 batch: `fused_propagation_loop_bf16` (K3_bf16,
-backward K5_bf16) and `fused_propagation_step_bf16` (K4_bf16, backward
-gnn_tpu's f32 XLA rule on the upcast adjacency, _PropagationStep's).
+on a bf16 batch: the clean route through `fused_propagation_loop_bf16`
+(K3_bf16, backward K5_bf16) and `fused_propagation_step_bf16` (K4_bf16,
+backward gnn_tpu's f32 XLA rule on the upcast adjacency, _PropagationStep's),
+the dropout route through `fused_train_loop_bf16` (K7_bf16, backward
+K8_bf16) and `fused_train_step_bf16` (K6_bf16, backward _TrainStep's f32
+rule on the upcast adjacency, gnn_tpu's _train_bwd_rule).
 
 The differentiable ops are torch.autograd.Functions: `fused_propagation_loop`
 (K3, backward K5), `fused_train_loop` (K7, backward K8), and
@@ -398,7 +416,8 @@ def train_loop_bwd_info(W: int, D: int) -> dict:
 _KERNEL = {"propagation_loop": "K3", "propagation_step": "K4", "propagation_loop_bwd": "K5",
            "train_step": "K6", "train_loop": "K7", "train_loop_bwd": "K8",
            "propagation_loop_bf16": "K3_bf16", "propagation_step_bf16": "K4_bf16",
-           "propagation_loop_bwd_bf16": "K5_bf16"}
+           "propagation_loop_bwd_bf16": "K5_bf16", "train_loop_bf16": "K7_bf16",
+           "train_loop_bwd_bf16": "K8_bf16", "train_step_bf16": "K6_bf16"}
 # kernel launches since the last reset, by wrapper
 launches = dict.fromkeys(_KERNEL, 0)
 
@@ -966,6 +985,81 @@ def propagation_loop_bwd_bf16_ref(adjT, s0, traj, fT, w2, affine, g_traj,
     return gs, dw2, dfT, daff
 
 
+def _dense_bf16(x2, w_cat, fT):
+    """The dropout kernels' h = bf(x2) @ bf(w_cat)^T + fT (gnn_tpu's _BD with
+    hp false), summed over the columns ascending; x2's slices round at the
+    points x2s (the state) and agg (the aggregation, a sum of the card's
+    order), w_cat at w."""
+    from gnn_tpu_torch.ops import fused2 as f2
+    D = w_cat.shape[1] // 2
+    xb = torch.cat([f2._bf("x2s", x2[..., :D]), f2._bf("agg", x2[..., D:])], dim=-1)
+    return f2._exact_dot(xb, f2._bf("w", w_cat)) + fT
+
+
+def train_loop_bf16_ref(adjT, s0, ms, ma, fT, w_cat, nm, K: int, threshold: float,
+                        activation: str = "tanh", alpha_drop: bool = True, rate: float = 0.0):
+    """Plain PyTorch K7_bf16 (gnn_tpu's _loop_train_kernel_T with hp false):
+    each iteration aggregates bf(s) over the bf16 adjacency (agg, f32 sums,
+    saved), forms x2 = [drop(s) | drop(agg)] in f32 and takes act(h), h as
+    _dense_bf16's; every sum in the kernel's order, the activation in
+    float64 (fused2.act64). Returns (traj, margins, agg) as train_loop_ref's."""
+    from gnn_tpu_torch.ops import fused2 as f2
+    drop, _ = _make_drop(alpha_drop, rate)
+    slots = f2._adj_slots(adjT.float())
+    s, s_old = s0, torch.ones_like(s0)
+    traj, margins, aggs = [], [], []
+    for k in range(K):
+        margins.append(moved(s, s_old, threshold) * nm)
+        agg = f2._exact_adj(slots, f2._bf("s", s))
+        x2 = torch.cat([drop(s, _at(ms, k)), drop(agg, _at(ma, k))], dim=-1)
+        s_old, s = s, f2.act64(activation, _dense_bf16(x2, w_cat, fT[k]))
+        traj.append(s)
+        aggs.append(agg)
+    return torch.stack(traj), torch.stack(margins), torch.stack(aggs)
+
+
+def train_loop_bwd_bf16_ref(adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj,
+                            activation: str = "tanh", alpha_drop: bool = True,
+                            rate: float = 0.0):
+    """Plain PyTorch K8_bf16 (gnn_tpu's _loop_train_bwd_kernel with hp
+    false): the K reverse iterations of K7_bf16, each recomputing h from the
+    saved aggregation with K7_bf16's rounding; dw the f32 products dh^T x2 of
+    x2 unrounded (gnn_tpu's _BDT_HI) summed node by node, dx2 = bf(dh) @
+    bf(w_cat) and the aggregation's reverse over bf(dagg) (rounding points dh
+    and dagg). Returns (gs, dw, dfT) as train_loop_bwd_ref's, dw per block."""
+    from gnn_tpu_torch.ops import fused2 as f2
+    drop, dmask = _make_drop(alpha_drop, rate)
+    slots_t = f2._adj_slots(adjT.float().transpose(1, 2))
+    B, _, D = s0.shape
+    gs = torch.zeros_like(s0)
+    dw = s0.new_zeros((B, w_cat.shape[0], 2 * D))
+    dfT = [None] * traj.shape[0]
+    for k in reversed(range(traj.shape[0])):
+        s_in = traj[k - 1] if k else s0
+        x2 = torch.cat([drop(s_in, _at(ms, k)), drop(agg[k], _at(ma, k))], dim=-1)
+        dh = (g_traj[k] + gs) * f2.act_grad64(activation, _dense_bf16(x2, w_cat, fT[k]))
+        dfT[k] = dh
+        dw = dw + f2.node_outer(dh, x2)
+        dx2 = f2._exact_dot(f2._bf("dh", dh), f2._bf("w", w_cat).t())
+        dagg = dx2[..., D:] * dmask(_at(ma, k))
+        gs = dx2[..., :D] * dmask(_at(ms, k)) + f2._exact_adj(slots_t, f2._bf("dagg", dagg))
+    return gs, dw, torch.stack(dfT)
+
+
+def train_step_bf16_ref(adjT, s, sd, m, rT, fT, w_cat, activation: str = "tanh",
+                        alpha_drop: bool = True, rate: float = 0.0):
+    """Plain PyTorch K6_bf16 (gnn_tpu's _train_kernel_T with hp false): agg =
+    bf(s) contracted with the bf16 adjacency (+ rT), x2 = [sd | drop(agg)],
+    y = act(h), h as _dense_bf16's. Returns (y, agg) as train_step_ref's."""
+    from gnn_tpu_torch.ops import fused2 as f2
+    drop, _ = _make_drop(alpha_drop, rate)
+    agg = f2._exact_adj(f2._adj_slots(adjT.float()), f2._bf("s", s))
+    if rT is not None:
+        agg = agg + rT
+    x2 = torch.cat([sd, drop(agg, m)], dim=-1)
+    return f2.act64(activation, _dense_bf16(x2, w_cat, fT)), agg
+
+
 def propagation_step_bf16(adjT, s, rT, fT, w2, affine=None, activation: str = "tanh"):
     """K4_bf16: one eval iteration over residual-coupled blocks of a bf16
     adjacency (gnn_tpu's _step_kernel_T with hp false). Arguments as
@@ -1055,6 +1149,103 @@ def propagation_loop_bwd_bf16(adjT, s0, traj, fT, w2, affine, g_traj,
     return gs, dw2, dfT, daff
 
 
+def train_loop_bf16(adjT, s0, ms, ma, fT, w_cat, nm, K: int, threshold: float,
+                    activation: str = "tanh", alpha_drop: bool = True, rate: float = 0.0):
+    """K7_bf16: all K dropout-training iterations over residual-free blocks of
+    a bf16 adjacency (gnn_tpu's _loop_train_kernel_T with hp false).
+    Arguments and result as train_loop's, adjT bf16 [B, W, W]."""
+    kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate)
+    if adjT.device.type == "cpu":
+        return train_loop_bf16_ref(adjT, s0, ms, ma, fT, w_cat, nm, K, threshold, **kw)
+    from gnn_tpu_torch.ops import fused2 as f2
+    B, W, _ = adjT.shape
+    D, H = s0.shape[-1], w_cat.shape[0]
+    _check_loop_width(D, H)
+    f2._check_bf16(adjT, D, H, "K7_bf16")
+    dev = adjT.device
+    _check("s0", s0, (B, W, D), dev)
+    _check("fT", fT, (K, B, W, D), dev)
+    _check("w_cat", w_cat, (D, 2 * D), dev)
+    _check("nm", nm, (B, W), dev)
+    ms = _check_keep(ms, (K, B, W, D), dev, rate, "ms")
+    ma = _check_keep(ma, (K, B, W, D), dev, rate, "ma")
+    traj = torch.empty((K, B, W, D), dtype=torch.float32, device=dev)
+    margins = torch.empty((K, B, W), dtype=torch.float32, device=dev)
+    agg = torch.empty_like(traj)
+    if B == 0 or K == 0:
+        return traj, margins, agg
+    mode, a, b = _drop_args(alpha_drop, rate)
+    _launch("train_loop_bf16", dev,
+            _ptr(adjT), _ptr(s0), _ptr(ms), _ptr(ma), _ptr(fT), _ptr(w_cat), _ptr(nm),
+            _ptr(traj), _ptr(margins), _ptr(agg), B, W, D, int(K), float(threshold),
+            _ACT_CODE[activation], mode, a, b)
+    return traj, margins, agg
+
+
+def train_loop_bwd_bf16(adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj,
+                        activation: str = "tanh", alpha_drop: bool = True, rate: float = 0.0):
+    """K8_bf16: the K reverse iterations of K7_bf16 over residual-free blocks
+    of a bf16 adjacency (gnn_tpu's _loop_train_bwd_kernel with hp false).
+    Arguments and result as train_loop_bwd's, adjT bf16 [B, W, W]."""
+    kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate)
+    if adjT.device.type == "cpu":
+        return train_loop_bwd_bf16_ref(adjT, s0, traj, agg, ms, ma, fT, w_cat, g_traj, **kw)
+    from gnn_tpu_torch.ops import fused2 as f2
+    B, W, _ = adjT.shape
+    K = traj.shape[0]
+    D, H = s0.shape[-1], w_cat.shape[0]
+    _check_loop_width(D, H)
+    f2._check_bf16(adjT, D, H, "K8_bf16")
+    dev = adjT.device
+    _check("s0", s0, (B, W, D), dev)
+    for name, t in (("traj", traj), ("agg", agg), ("fT", fT), ("g_traj", g_traj)):
+        _check(name, t, (K, B, W, D), dev)
+    _check("w_cat", w_cat, (D, 2 * D), dev)
+    ms = _check_keep(ms, (K, B, W, D), dev, rate, "ms")
+    ma = _check_keep(ma, (K, B, W, D), dev, rate, "ma")
+    gs = torch.zeros((B, W, D), dtype=torch.float32, device=dev)
+    dw = torch.zeros((B, D, 2 * D), dtype=torch.float32, device=dev)
+    dfT = torch.zeros_like(traj)
+    if B == 0 or K == 0:
+        return gs, dw, dfT
+    mode, a, b = _drop_args(alpha_drop, rate)
+    _launch("train_loop_bwd_bf16", dev,
+            _ptr(adjT), _ptr(s0), _ptr(traj), _ptr(agg), _ptr(ms), _ptr(ma), _ptr(fT),
+            _ptr(w_cat), _ptr(g_traj), _ptr(gs), _ptr(dw), _ptr(dfT), B, W, D, K,
+            _ACT_CODE[activation], mode, a, b)
+    return gs, dw, dfT
+
+
+def train_step_bf16(adjT, s, sd, m, rT, fT, w_cat, activation: str = "tanh",
+                    alpha_drop: bool = True, rate: float = 0.0):
+    """K6_bf16: one dropout-training iteration over residual-coupled blocks of
+    a bf16 adjacency (gnn_tpu's _train_kernel_T with hp false). Arguments
+    and result as train_step's, adjT bf16 [B, W, W]."""
+    kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate)
+    if adjT.device.type == "cpu":
+        return train_step_bf16_ref(adjT, s, sd, m, rT, fT, w_cat, **kw)
+    from gnn_tpu_torch.ops import fused2 as f2
+    B, W, _ = adjT.shape
+    D, H = s.shape[-1], w_cat.shape[0]
+    f2._check_bf16(adjT, D, H, "K6_bf16")
+    dev = adjT.device
+    for name, t in (("s", s), ("sd", sd), ("rT", rT)):
+        if t is not None:
+            _check(name, t, (B, W, D), dev)
+    _check("fT", fT, (B, W, H), dev)
+    _check("w_cat", w_cat, (H, 2 * D), dev)
+    m = _check_keep(m, (B, W, D), dev, rate, "m")
+    y = torch.empty((B, W, H), dtype=torch.float32, device=dev)
+    agg = torch.empty((B, W, D), dtype=torch.float32, device=dev)
+    if B == 0:
+        return y, agg
+    mode, a, b = _drop_args(alpha_drop, rate)
+    _launch("train_step_bf16", dev,
+            _ptr(adjT), _ptr(s), _ptr(sd), _ptr(m), _ptr(rT), _ptr(fT), _ptr(w_cat), _ptr(y),
+            _ptr(agg), B, W, D, H, _ACT_CODE[activation], mode, a, b)
+    return y, agg
+
+
 # ------------------------------------------------------- differentiable ops
 class _PropagationLoop(torch.autograd.Function):
     """K3 forward, K5 backward (_fused_loop_fwd / _fused_loop_bwd); the
@@ -1129,7 +1320,8 @@ class _TrainStep(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         adjT, sd, m, fT, w_cat, agg, has_res, kw = ctx.saved
-        ds, dsd, dagg, dfT, dw = _train_step_vjp(adjT, sd, m, fT, w_cat, agg, gy, *kw)
+        adj = adjT.float() if adjT.dtype == torch.bfloat16 else adjT   # gnn_tpu's upcast
+        ds, dsd, dagg, dfT, dw = _train_step_vjp(adj, sd, m, fT, w_cat, agg, gy, *kw)
         return (ds, dsd, dagg if has_res else None, dfT, dw) + (None,) * 5
 
 
@@ -1186,6 +1378,55 @@ def fused_propagation_step_bf16(adjT, s, rT, fT, w2, affine=None, activation: st
     """propagation_step_bf16 (K4_bf16) with gradients to s, rT, fT, w2 and
     affine through gnn_tpu's f32 backward."""
     return _PropagationStepBf16.apply(s, rT, fT, w2, affine, adjT, activation)
+
+
+class _TrainLoopBf16(torch.autograd.Function):
+    """K7_bf16 forward, K8_bf16 backward (_loop_train_fwd / _loop_train_bwd,
+    hp false); the dw partials a block each, summed in block order."""
+
+    @staticmethod
+    def forward(ctx, s0, fT, w_cat, adjT, ms, ma, nm, K, threshold, activation, alpha_drop,
+                rate):
+        kw = dict(activation=activation, alpha_drop=alpha_drop, rate=rate)
+        traj, margins, agg = train_loop_bf16(adjT, s0, ms, ma, fT, w_cat, nm, K, threshold,
+                                             **kw)
+        ctx.saved = (adjT, s0, traj, agg, ms, ma, fT, w_cat, kw)
+        ctx.mark_non_differentiable(margins)
+        return traj, margins
+
+    @staticmethod
+    def backward(ctx, g_traj, _g_margins):
+        adjT, s0, traj, agg, ms, ma, fT, w_cat, kw = ctx.saved
+        gs, dw, dfT = train_loop_bwd_bf16(adjT, s0, traj, agg, ms, ma, fT, w_cat,
+                                          g_traj.contiguous(), **kw)
+        return (gs, dfT, dw.sum(0)) + (None,) * 9
+
+
+class _TrainStepBf16(_TrainStep):
+    """K6_bf16 forward, _TrainStep's f32 backward on the upcast adjacency
+    (gnn_tpu's _train_bwd_rule)."""
+
+    @staticmethod
+    def forward(ctx, s, sd, rT, fT, w_cat, adjT, m, activation, alpha_drop, rate):
+        kw = (activation, alpha_drop, rate)
+        y, agg = train_step_bf16(adjT, s, sd, m, rT, fT, w_cat, *kw)
+        ctx.saved = (adjT, sd, m, fT, w_cat, agg, rT is not None, kw)
+        return y
+
+
+def fused_train_loop_bf16(adjT, s0, ms, ma, fT, w_cat, nm, K: int, threshold: float,
+                          activation: str = "tanh", alpha_drop: bool = True, rate: float = 0.0):
+    """train_loop_bf16 (K7_bf16) with gradients to s0, fT and w_cat through
+    K8_bf16. Returns (traj, margins); margins carry none."""
+    return _TrainLoopBf16.apply(s0, fT, w_cat, adjT, ms, ma, nm, K, threshold, activation,
+                                alpha_drop, rate)
+
+
+def fused_train_step_bf16(adjT, s, sd, m, rT, fT, w_cat, activation: str = "tanh",
+                          alpha_drop: bool = True, rate: float = 0.0):
+    """train_step_bf16 (K6_bf16) with gradients to s, sd, rT, fT and w_cat
+    through gnn_tpu's f32 backward. Returns y."""
+    return _TrainStepBf16.apply(s, sd, rT, fT, w_cat, adjT, m, activation, alpha_drop, rate)
 
 
 def fused_train_loop(adjT, s0, ms, ma, fT, w_cat, nm, K: int, threshold: float,

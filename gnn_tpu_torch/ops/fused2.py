@@ -912,15 +912,19 @@ BF16_CHUNK = 32     # hidden units a chunk of the bf16 kernels (kBf16Chunk)
 
 def bf16_smem_bytes(kernel: str, W: int, D: int, AL: int = 0) -> int:
     """Shared memory of a bf16 kernel's CTA (ops/csrc/bf16.cuh::bf16_smem and
-    train_loop2_bf16.cu::train2_bf16_smem): the bf16 adjacency [W][W], then
-    floats: the eval kernels' state and h1 rows [W][D] and the U_a and y0
-    chunks [W][CH]; K11_bf16 and K5_bf16 also a [W][D] gs row and the dh0
-    and dua chunks; K12_bf16 the state and h1 rows, bf(x3) [W][C] (C = 2D +
-    AL) and a y0 chunk; K13_bf16 two rows [W][D], x3, bf(x3) and dx3 [W][C]
-    and three chunks."""
+    train_loop2_bf16.cu::train2_bf16_smem, train_loop_bf16.cu::train_bf16_smem):
+    the bf16 adjacency [W][W], then floats: the eval kernels' state and h1
+    rows [W][D] and the U_a and y0 chunks [W][CH]; K11_bf16 and K5_bf16 also
+    a [W][D] gs row and the dh0 and dua chunks; K12_bf16 the state and h1
+    rows, bf(x3) [W][C] (C = 2D + AL) and a y0 chunk; K13_bf16 two rows
+    [W][D], x3, bf(x3) and dx3 [W][C] and three chunks; the one-layer
+    dropout kernels (AL = 0, C = 2D): K7_bf16 the state and its successor
+    [W][D] and bf(x2) [W][C], K8_bf16 gs and dh [W][D], x2 and bf(x2) [W][C],
+    K6_bf16 the state [W][D] and bf(x2)."""
     C = 2 * D + AL
     rows, chunks, wide = {"K11_bf16": (3, 4, 0), "K5_bf16": (3, 4, 0), "K12_bf16": (2, 1, 1),
-                          "K13_bf16": (2, 3, 3)}.get(kernel, (2, 2, 0))
+                          "K13_bf16": (2, 3, 3), "K7_bf16": (2, 0, 1), "K8_bf16": (2, 0, 2),
+                          "K6_bf16": (1, 0, 1)}.get(kernel, (2, 2, 0))
     return 2 * W * W + 4 * W * (rows * D + wide * C + chunks * BF16_CHUNK)
 
 

@@ -298,16 +298,20 @@ def test_h150_clean_step_on_bf16_batch_matches_gnn_tpu():
 
 
 # ------------------------------------------------------- the other routes
-def one_layer(rate, bn):
+def one_layer(rate, bn, act="selu"):
     drop = dict(dropout_rate=(rate,), dropout_pos=(0,), alphadropout=True) if rate else {}
-    return TSpec(input_dim=2 * NL + AL, units=(NL,), activations="selu",
+    return TSpec(input_dim=2 * NL + AL, units=(NL,), activations=act,
                  batch_normalization=bn, **drop)
 
 
-# each route's state net, whether it trains, and its aggregation name
+# each route's state net, whether it trains, and its aggregation name. The
+# one-layer dropout route runs on a bf16 batch (tests/test_torch_bf16_dropout.py);
+# the dropout nets here leave the kernels for the plain body: one with an
+# activation the kernels do not take ("dropout"), the two-layer one on the
+# all-dep layout ("dropout_flat"), as gnn_tpu sends both to its XLA body.
 ROUTES = {"plain_train": (lambda: one_layer(0.0, False), True, "segment"),
-          "dropout_flat": (lambda: one_layer(0.1, False), True, "fused"),
-          "dropout": (lambda: one_layer(0.1, False), True, "auto"),
+          "dropout_flat": (lambda: h150_specs(0.1)[2], True, "fused"),
+          "dropout": (lambda: one_layer(0.1, False, "elu"), True, "auto"),
           "ift1": (lambda: one_layer(0.0, False), True, "auto"),
           "bn2_flat": (lambda: dataclasses.replace(TSpec(**h150_specs(0.1)[2]),
                                                    batch_normalization=True), True, "fused"),
@@ -319,14 +323,14 @@ ROUTES = {"plain_train": (lambda: one_layer(0.0, False), True, "segment"),
 
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_other_routes_raise_on_bf16_batch(route):
-    """Every route not yet ported to a bf16 batch (the plain body in training
-    and at eval, the one-layer dropout kernels on the loop/dep and the
-    all-dep layout, the two-layer BatchNorm kernels on either layout, the
-    implicit adjoint of a one- or two-layer net) raises NotImplementedError
-    on it, naming the ROADMAP entry that ports it; none casts the batch to
-    f32. ('hybrid', the one-layer 'bn', 'hybrid2' and 'dropout2' run:
-    tests/test_torch_bf16_flagship.py, test_torch_bf16_train.py and the
-    tests above.)"""
+    """Every route not yet ported to a bf16 batch (the plain body in training,
+    dropout nets among them, and at eval, the two-layer BatchNorm kernels on
+    either layout, the implicit adjoint of a one- or two-layer net) raises
+    NotImplementedError on it, naming the ROADMAP entry that ports it; none
+    casts the batch to f32. ('hybrid', the one-layer 'bn', 'hybrid2',
+    'dropout2' and 'dropout' run: tests/test_torch_bf16_flagship.py,
+    test_torch_bf16_train.py, test_torch_bf16_dropout.py and the tests
+    above.)"""
     _, tgs = graphs(5)
     net, training, aggregation = ROUTES[route]
     _, tb = batches(tgs, tgs, fused_layout=not route.endswith("_flat"))
@@ -339,7 +343,7 @@ def test_other_routes_raise_on_bf16_batch(route):
     route_of = tcore._train_route if training else tcore._eval_route
     assert route_of(spec, tb) == {"ift1": "hybrid", "ift": "hybrid2", "bn2": "bn",
                                   "bn2_flat": "bn", "plain_train": "plain",
-                                  "dropout_flat": "dropout"}.get(route, route)
+                                  "dropout_flat": "plain", "dropout": "plain"}.get(route, route)
     params, bn = tcore.gnn_init(spec, torch.Generator().manual_seed(0))
     masks = tcore.draw_masks(spec, tb, torch.Generator().manual_seed(1)) if training else None
     with pytest.raises(NotImplementedError, match="ROADMAP"):
