@@ -373,9 +373,26 @@
    times), each first step held to the CPU as phase 24's (c) holds its step
    (the bound from the CPU's step with one flip of x2's aggregated slice an
    iteration).
+27. The two-layer BatchNorm route and composite models on the bf16
+   adjacency: (a) the bf16 variants K14_bf16 and K15_bf16 at the shapes the
+   hidden-150 recipe with its trailing BatchNorm ('h150_bn') gives them on
+   the bf16 training batch (the 1214 block rows, the model's AlphaDropout
+   masks: iteration 2 and its reverse), K16_bf16 and K17_bf16 at those of
+   the composite flagship's 'composite_bn' step (T = 4, 1214 rows) and
+   K16_bf16 at the composite serving batch's (1550 rows, rate 0), against
+   their plain versions on the card, bit for bit (the per-block partials
+   msum, red, dw0, dw1, db1 and dw included; Part B's gate prints the
+   largest difference), movement flags equal, timed beside their f32 twins;
+   (b) 3 'h150_bn' steps on the bf16 training batch (K14_bf16 and K15_bf16 K
+   times a step, no other kernel), the composite flagship served on a bf16
+   full-set batch (8 requests, K16_bf16 K times a request) and 3
+   'composite_bn' steps on a bf16 typed training batch (K16_bf16 and
+   K17_bf16 K times a step): the f32 K14-K17 launch 0 times; each first step
+   held to the CPU as phase 24's (c) holds its step and the requests as its
+   (b) (the bound from one flip of x3's aggregated slice an iteration).
 
 Prints a JSON line of per-kernel numbers (K1-K18 and the bf16 variants
-K1_bf16-K13_bf16), then as its last line
+K1_bf16-K17_bf16), then as its last line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before that.
 
 Usage, from the repository root: python3 chip_smoke.py
@@ -836,7 +853,9 @@ ROUTES = {"bn": {"bn_forward_step": "K", "bn_backward_step": "K"},
                          "propagation_step_bf16": "K"},
           "dropout_bf16": {"train_loop_bf16": 1, "train_loop_bwd_bf16": 1,
                            "train_step_bf16": "K"},
-          "flat_dropout_bf16": {"train_step_bf16": "K"}}
+          "flat_dropout_bf16": {"train_step_bf16": "K"},
+          "h150_bn_bf16": {"bn2_forward_step_bf16": "K", "bn2_backward_step_bf16": "K"},
+          "composite_bn_bf16": {"bnT_forward_step_bf16": "K", "bnT_backward_step_bf16": "K"}}
 
 
 def variant_dims(variant):
@@ -1011,8 +1030,8 @@ def train_kernel_inputs(torch, model, gb):
         s0, weights, op = bn.bn_loop_operands(model.spec, model.params["state"], gb,
                                               masks["state"].get(0))
         wts = dict(zip(("w_aug",) if len(weights) == 1 else ("w0_aug", "w1", "b1"), weights))
-        fwd = ((bn.bn_forward_step_bf16_ref if op.bf16 else bn.bn_forward_step_ref)
-               if len(weights) == 1 else bn.bn2_forward_step_ref)
+        fwd = ((bn.bn_forward_step_bf16_ref, bn.bn2_forward_step_bf16_ref) if op.bf16 else
+               (bn.bn_forward_step_ref, bn.bn2_forward_step_ref))[len(weights) != 1]
         gamma, beta = model.params["state"]["bn"]["gamma"], model.params["state"]["bn"]["beta"]
         ident = bn._ident_aff(s0.shape[-1], s0)
         cnt = op.nm.sum().clamp_min(1.0)
@@ -2281,15 +2300,17 @@ def typed_kernel_inputs(torch, model, gb, gb_serve):
     iteration 2 as the composite training step forms them on the full set
     (per-type masks from a seeded generator, a readout-like state
     cotangent), and K16's of the composite serving path's second iteration
-    (rate 0, the per-type inference affine)."""
+    (rate 0, the per-type inference affine). On bf16 batches the operands
+    come from the bf16 variants' plain versions (K16_bf16/K17_bf16's), the
+    serving affine in float64 rounded once, as the bf16 eval forms it."""
     from gnn_tpu_torch.models import composite
     from gnn_tpu_torch.ops import bn, typed
-    from gnn_tpu_torch.ops.fused import bn_inference_affine
     dev = gb.device
     spec, ps = model.spec, model.params["state"]
     masks = composite.draw_masks(spec, gb, torch.Generator(device=dev).manual_seed(SEED + 22))
     with torch.no_grad():
         s0, w_stk, op = typed.typed_operands(spec, ps, gb, True, [m[0] for m in masks["state"]])
+        fwd = typed.bnT_forward_step_bf16_ref if op.bf16 else typed.bnT_forward_step_ref
         gamma = torch.stack([p["bn"]["gamma"] for p in ps])
         beta = torch.stack([p["bn"]["beta"] for p in ps])
         T, D = op.n_types, s0.shape[-1]
@@ -2300,7 +2321,7 @@ def typed_kernel_inputs(torch, model, gb, gb_serve):
         x0 = dict(adj_loop=op.adj_loop, adj_dep=op.adj_dep, y1=s0, y2=torch.ones_like(s0),
                   aff=torch.stack([ident, ident]), types=op.types, keep=op.keep_k(0),
                   rT=bn._res_term(s0, ident, op.res, op), feats=op.feats, w_stk=w_stk, nm=op.nm)
-        y0, _, _, _ = typed.bnT_forward_step_ref(**x0, **kw)
+        y0, _, _, _ = fwd(**x0, **kw)
 
         def moments(y):
             m = op.type_sum(y * nm3) / cnt
@@ -2310,7 +2331,7 @@ def typed_kernel_inputs(torch, model, gb, gb_serve):
         m0, r0, a0 = moments(y0)
         x1 = dict(x0, y1=y0, y2=s0, aff=torch.stack([a0, ident]), keep=op.keep_k(1),
                   rT=bn._res_term(y0, a0, op.res, op))
-        y1, agg1, _, _ = typed.bnT_forward_step_ref(**x1, **kw)
+        y1, agg1, _, _ = fwd(**x1, **kw)
         m1, r1, _ = moments(y1)
         g = torch.Generator(device=dev).manual_seed(SEED + 23)
         gsel = 0.03 * torch.randn(y1.shape, generator=g, device=dev) * nm3
@@ -2324,14 +2345,14 @@ def typed_kernel_inputs(torch, model, gb, gb_serve):
                   bnv=bnv.contiguous(), flag=torch.tensor(1.0, device=dev), nm=op.nm)
         # serving: the second iteration, from the first with the identity affine
         se0, sw, sop = typed.typed_operands(spec, ps, gb_serve, False)
-        aff1 = torch.stack([bn_inference_affine(p["bn"]["gamma"], p["bn"]["beta"], b["mean"],
-                                                b["var"])
+        aff1 = torch.stack([bn._affine(p["bn"]["gamma"], p["bn"]["beta"], b["mean"], b["var"],
+                                       sop.bf16)
                             for p, b in zip(ps, model.bn["state"])], dim=1)
         ev = dict(adj_loop=sop.adj_loop, adj_dep=sop.adj_dep, y1=se0, y2=torch.ones_like(se0),
                   aff=torch.stack([ident, ident]), types=sop.types, keep=None,
                   rT=bn._res_term(se0, ident, sop.res, sop), feats=sop.feats, w_stk=sw, nm=sop.nm)
         kwe = dict(sop.step_kw(), threshold=sop.threshold)
-        ye, _, _, _ = typed.bnT_forward_step_ref(**ev, **kwe)
+        ye, _, _, _ = fwd(**ev, **kwe)
         ev = dict(ev, y1=ye, y2=se0, aff=torch.stack([aff1, ident]),
                   rT=bn._res_term(ye, ident, sop.res, sop))
     return (x0, x1), kw, x2, op.step_kw(), (ev, kwe)
@@ -4605,7 +4626,13 @@ def bf16_bounds(cases):
     (2 * 2H * D a node) in fp32, a reverse iteration. K7: the aggregation
     (2 * D an arc) and h (2 * D * 2D a node) an iteration; K8 h again, dx2
     (2 * 2D * D a node) and ds (2 * D an arc) in bf16, dw (2 * D * 2D a node)
-    in fp32, a reverse iteration; K6 K7's iteration once, H wide."""
+    in fp32, a reverse iteration; K6 K7's iteration once, H wide. K14: the
+    aggregation (2 * D an arc), h0 (2 * H1 * C a node, C = 2D + F + 1) and h1
+    (2 * D * H1 a node); K15 the dense layers again, dy0 (2 * D * H1 a node),
+    dx2 (2 * H1 * 2D a node) and ds (2 * D an arc) in bf16, dw0 and dw1 in
+    fp32. K16/K17: K1's and K2's counts (each node its own type's rows), the
+    types 4 bytes a node and the per-type affines, coefficients and
+    partials T times K1's and K2's."""
     def bound16(nbytes, ops16, ops32=0):
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = (ops16 / BF16_FLOPS + ops32 / FP32_FLOPS) * 1e3
@@ -4688,13 +4715,40 @@ def bf16_bounds(cases):
             else:
                 rows = D + (2 if x["rT"] is not None else 1) * H + H
                 out[k] = bound16(adj + 4 * n * rows + small, ops)
+        elif k in ("K14_bf16", "K15_bf16"):
+            y = x["y1"] if k == "K14_bf16" else x["y_prev"]
+            R, W, D = y.shape
+            H1, C = x["w0_aug"].shape
+            F, n = x["feats"].shape[-1], R * W
+            wts = H1 * C + D * H1 + D
+            shared = adj + (0 if x["keep"] is None else n * (C - 1)) + 4 * (n * F + wts + n)
+            dense = 2 * n * (H1 * C + D * H1)               # h0 and h1 a node
+            if k == "K14_bf16":
+                rt = 0 if x["rT"] is None else 4 * n * D
+                out[k] = bound16(shared + 4 * (2 * n * D + 4 * D) + rt
+                                 + 4 * (2 * n * D + n + R * D), 2 * D * nnz + dense)
+            else:
+                out[k] = bound16(shared + 4 * (5 * n * D + 9 * D + 1)
+                                 + 4 * (2 * n * D + R * wts + 2 * R * D),
+                                 dense + 2 * n * (D * H1 + H1 * 2 * D) + 2 * D * nnz, dense)
         else:
-            y = x["y1"] if k == "K1_bf16" else x["y_prev"]
+            y = x["y1"] if k in ("K1_bf16", "K16_bf16") else x["y_prev"]
             R, W, D = y.shape
             F = x["feats"].shape[-1]
             C, n = 2 * D + F + 1, R * W
-            shared = adj + (0 if x["keep"] is None else n * (C - 1)) + 4 * (n * F + D * C + n)
-            if k == "K1_bf16":
+            T = x["w_stk"].shape[0] // D if "w_stk" in x else 1      # K16/K17: types 4 a node
+            shared = (adj + (0 if x["keep"] is None else n * (C - 1))
+                      + 4 * (n * F + T * D * C + n + (n if "types" in x else 0)))
+            if k == "K16_bf16":
+                rt = 0 if x["rT"] is None else 4 * n * D
+                out[k] = bound16(shared + 4 * (2 * n * D + 4 * T * D) + rt
+                                 + 4 * (2 * n * D + n + R * T * D), 2 * D * nnz + 2 * D * C * n)
+            elif k == "K17_bf16":
+                out[k] = bound16(shared + 4 * (5 * n * D + 9 * T * D + 1)
+                                 + 4 * (2 * n * D + R * T * D * C + 2 * R * T * D),
+                                 2 * D * nnz + 2 * D * C * n + 2 * D * 2 * D * n,
+                                 2 * D * C * n)
+            elif k == "K1_bf16":
                 rt = 0 if x["rT"] is None else 4 * n * D
                 out[k] = bound16(shared + 4 * (2 * n * D + 4 * D) + rt
                                  + 4 * (2 * n * D + n + R * D), 2 * D * nnz + 2 * D * C * n)
@@ -4774,7 +4828,8 @@ def bn_cotangent(torch, record, feed=None):
 def phase_training_bf16(torch, gbt16, n_arcs, variant="h150_clean", route="h150_clean_bf16",
                         point="ua", steps=3):
     """A training path on a bf16 batch: `steps` steps of the flagship
-    `variant` on the card, counted (ROUTES[route], no other kernel), the
+    `variant` (flagship(): the composite flagship's too) on the card,
+    counted (ROUTES[route], no other kernel), the
     params finite after them. Step 1 against the CPU from the same weights
     and masks: iterations equal, the loss within rtol 1e-5, the moving
     BatchNorm statistics (where the state net has them) and every grad
@@ -4811,7 +4866,8 @@ def phase_training_bf16(torch, gbt16, n_arcs, variant="h150_clean", route="h150_
         log.append((float(out["iters"]), out["loss"].cpu()))
         if i == 0:
             first = {k: p.grad.detach().cpu().clone() for k, p in flatten(model.params).items()}
-            first.update({f"moving {k}": v.cpu().clone() for k, v in model.bn["state"].items()})
+            first.update({f"moving {k}": v.cpu().clone()
+                          for k, v in flatten(model.bn["state"]).items()})
     launches = {**bn.launches, **fused.launches, **fused2.launches, **typed.launches,
                 **segment.launches}
     say(f"'{variant}' bf16 launches over {steps} steps: {launches}")
@@ -4832,7 +4888,7 @@ def phase_training_bf16(torch, gbt16, n_arcs, variant="h150_clean", route="h150_
                 bn_cotangent(torch, cpu_g, card_g[0] if card_g and not flip else None):
             out = cpu.training_step(gb_cpu, masks=masks[0])
         return out, {**{k: p.grad.clone() for k, p in flatten(cpu.params).items()},
-                     **{f"moving {k}": v.clone() for k, v in cpu.bn["state"].items()}}
+                     **{f"moving {k}": v.clone() for k, v in flatten(cpu.bn["state"]).items()}}
     t0 = time.perf_counter()
     out, cpu = cpu_step(False)
     flipped = once(lambda: cpu_step(True)[1])
@@ -5121,6 +5177,83 @@ def phase_dropout_bf16(torch, graphs, n_arcs, kernels):
         errs, timed, bounds)
 
 
+def bn2_typed_bf16_kernel_inputs(torch, gbt16, gbc16, gbs16):
+    """K14_bf16's and K15_bf16's operands as the bf16 'h150_bn' step forms
+    them on the bf16 training batch (train_kernel_inputs: iteration 2 and its
+    reverse, the model's AlphaDropout masks and residual arcs), K16_bf16's
+    and K17_bf16's as the bf16 'composite_bn' step forms them on the bf16
+    typed training batch, and K16_bf16's of the composite serving path's
+    second iteration on the bf16 serving batch (typed_kernel_inputs)."""
+    (_, x14), kw, x15, kwb = train_kernel_inputs(torch, flagship(torch, "cuda", "h150_bn"), gbt16)
+    (_, x16), kwt, x17, kwtb, (ev, kwe) = typed_kernel_inputs(
+        torch, composite_model(torch, "cuda"), gbc16, gbs16)
+    return (dict(x14, **kw), dict(x15, **kwb), dict(x16, **kwt), dict(x17, **kwtb),
+            dict(ev, **kwe))
+
+
+def phase_bn2_typed_bf16(torch, graphs, n_arcs, kernels):
+    """Phase 27: the two-layer BatchNorm route and composite models on the
+    bf16 adjacency (module docstring): K14_bf16/K15_bf16 K times an 'h150_bn'
+    step, K16_bf16 K times a composite request, K16_bf16/K17_bf16 K times a
+    'composite_bn' step. Returns the kernels line's entries of K14_bf16,
+    K15_bf16, K16_bf16 and K17_bf16."""
+    from gnn_tpu_torch import Predictor
+    from gnn_tpu_torch.ops import bn, typed
+    t_phase = time.perf_counter()
+    say(f"---- the two-layer BatchNorm route and composite models on the bf16 adjacency "
+        f"({elapsed()})")
+    bf16 = torch.bfloat16
+    t0 = time.perf_counter()
+    typed_set = typed_graphs(graphs)
+    gbt16 = flagship(torch, "cuda", "h150_bn").to_batch(graphs, adj_dtype=bf16)
+    gbc16 = composite_model(torch, "cuda").to_batch(typed_set, adj_dtype=bf16)
+    gbs16 = Predictor(composite_model(torch, "cpu"), adj_dtype=bf16).build_batch(
+        typed_set).to("cuda")
+    say(f"bf16 batches: h150_bn training {gbt16.adj_loop.shape[0]} loop and "
+        f"{gbt16.adj_dep.shape[0]} dep blocks, composite training {gbc16.adj_loop.shape[0]} + "
+        f"{gbc16.adj_dep.shape[0]}, composite serving {gbs16.adj_loop.shape[0]} + "
+        f"{gbs16.adj_dep.shape[0]} ({time.perf_counter() - t0:.2f} s to pack and upload)")
+    k14, k15, k16, k17, k16s = bn2_typed_bf16_kernel_inputs(torch, gbt16, gbc16, gbs16)
+    with torch.no_grad():
+        cases = (("K14_bf16", bn, "bn2_forward_step_bf16", k14, ("y", "agg", "flags", "msum"),
+                  "agg", (), False),
+                 ("K15_bf16", bn, "bn2_backward_step_bf16", k15,
+                  ("ds", "dw0", "dw1", "db1", "dagg", "red"), "dh0", (), True),
+                 ("K16_bf16", typed, "bnT_forward_step_bf16", k16, ("y", "agg", "flags", "msum"),
+                  "agg", (), False),
+                 ("K17_bf16", typed, "bnT_backward_step_bf16", k17, ("ds", "dw", "dagg", "red"),
+                  "dh", (), True))
+        # the per-block partials (msum, red, dw0, dw1, db1, dw) unsummed: bit for bit
+        errs = check_bf16_kernels(torch, cases + (
+            ("K16_bf16 serving", typed, "bnT_forward_step_bf16", k16s,
+             ("y", "agg", "flags", "msum"), "agg", (), False),))
+        for k, err in errs.items():
+            if err != 0.0:
+                fail(f"{k}: {err:.3e} from its plain version, not bit for bit")
+        timed, bounds = time_bf16_kernels(torch, cases, kernels, ("K14", "K15", "K16", "K17"))
+        serve_ms = device_ms(torch, lambda: typed.bnT_forward_step_bf16(**k16s), launches=1,
+                             runs=20)
+        b, by = bf16_bounds({"K16_bf16": k16s})["K16_bf16"]
+        say(f"K16_bf16 at the composite serving batch ({k16s['y1'].shape[0]} rows, rate 0): "
+            f"{serve_ms:.4f} ms a call (device time), bound {b:.4f} ms ({by}); {CARD}")
+    h150_bn = phase_training_bf16(torch, gbt16, n_arcs, "h150_bn", "h150_bn_bf16", "agg")
+    comp = composite_model(torch, "cuda")
+    phase_serving(torch, "composite_bf16", comp, composite_model(torch, "cpu"), gbs16,
+                  [(name, typed_set[i]) for name, i in request_picks(graphs)],
+                  ("bnT_forward_step_bf16",), n_arcs,
+                  per_request={"bnT_forward_step_bf16": comp.spec.max_iteration},
+                  predictor_kw={"adj_dtype": bf16}, hold=served_bf16_hold(torch, "agg"))
+    composite = phase_training_bf16(torch, gbc16, n_arcs, "composite_bn", "composite_bn_bf16",
+                                    "agg")
+    say(f"phase 27: {time.perf_counter() - t_phase:.1f} s")
+    return kernel_rows(
+        kernels, {"K14_bf16": ("bn2_bf16.cu", "K14", h150_bn, "bn2_forward_step_bf16"),
+                  "K15_bf16": ("bn2_bf16.cu", "K15", h150_bn, "bn2_backward_step_bf16"),
+                  "K16_bf16": ("bn_typed_bf16.cu", "K16", composite, "bnT_forward_step_bf16"),
+                  "K17_bf16": ("bn_typed_bf16.cu", "K17", composite, "bnT_backward_step_bf16")},
+        errs, timed, bounds)
+
+
 def time_bf16_kernels(torch, cases, kernels, twins):
     """(timed {kernel: (device ms a call, plain ms)}, bounds) of the bf16
     variants `cases` (check_bf16_kernels'), each printed beside its f32
@@ -5156,10 +5289,11 @@ def kernel_rows(kernels, src, errs, timed, bounds):
     return out
 
 
-def served_bf16_hold(torch):
+def served_bf16_hold(torch, point="ua"):
     """phase_serving's hold for the bf16 path: the request's outputs on the
     card against the CPU's by Part B's gate, the bound from the CPU's
-    predictor with one flip of U_a an iteration."""
+    predictor with one flip at `point` an iteration (bf(U_a) of K3/K4 and
+    K9/K10, x3's aggregated slice of K16)."""
     import numpy as np
 
     def cat(xs):
@@ -5168,7 +5302,8 @@ def served_bf16_hold(torch):
     def hold(label, req, outs, refs, pred_cpu):
         def flipped():
             gb = pred_cpu.build_batch([req] if not isinstance(req, list) else req)
-            with one_flip(torch, gb.adj_loop):
+            adj = torch.cat([a for a in (gb.adj_loop, gb.adj_dep) if a is not None])
+            with one_flip(torch, adj if point != "ua" else gb.adj_loop, point):
                 out = pred_cpu.predict(req)
             return cat([out] if not isinstance(req, list) else out)
         return hold_bf16(label, cat(outs), cat(refs), flipped)
@@ -5286,6 +5421,7 @@ def phases(torch):
     kernels.update(phase_flagship_bf16(torch, graphs, requests, n_arcs, kernels))
     kernels.update(phase_train_bf16(torch, graphs, n_arcs, kernels))
     kernels.update(phase_dropout_bf16(torch, graphs, n_arcs, kernels))
+    kernels.update(phase_bn2_typed_bf16(torch, graphs, n_arcs, kernels))
     for k, (path, key) in {"K1": ("bn", "bn_forward_step"), "K2": ("bn", "bn_backward_step"),
                            "K3": ("flagship", "propagation_loop"),
                            "K4": ("flagship", "propagation_step"),

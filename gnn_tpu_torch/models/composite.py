@@ -32,8 +32,9 @@ the state starts at core.draw_init's draw and the labels and their
 aggregation fold into the typed kernels' features, as the homogeneous
 model's (ops/fold.py; gnn_tpu composite.py:139-151). Dropout keep-masks are
 drawn by `draw_masks` (one state keep-mask per type, and the initial state)
-or passed in. A bf16-adjacency batch raises NotImplementedError on every
-composite route (core.check_adj_dtype).
+or passed in. On a bf16-adjacency batch the typed routes run the bf16
+variants of K16 and K17 (ops/typed.py); the plain body raises
+NotImplementedError on it (core.check_adj_dtype).
 """
 
 from __future__ import annotations

@@ -54,18 +54,18 @@ Dispatch follows gnn_tpu's `aggregation='auto'`:
   (`kernel_columns`) and the feature rows [labels | Σlabels | Σarcs]
   (`fold_features`); the readout reads [state | labels];
 * a batch whose block adjacency is bf16 (from_graphs_blocked(adj_dtype=
-  torch.bfloat16), gnn_tpu's low-precision mode) runs five routes: 'hybrid'
-  through the bf16 variants of K3 and K4 (ops/fused.py), in training
-  differentiated through K5's and K4's plain f32 backward; 'bn' of a
-  one-layer state net through those of K1 and K2 (ops/bn.py); 'hybrid2':
-  the bf16 variants of K10 and K9 at eval and in clean two-layer training,
-  differentiated through K11's bf16 variant and K9's plain f32 backward;
-  'dropout2' through those of K12 and K13 (ops/fused2.py) and the plain f32
-  dep step; 'dropout' through those of K7 and K8 over the loop blocks and
-  K6's per step, differentiated through K6's plain f32 backward (on either
-  layout); every other route (the two-layer 'bn', the composite routes, the
-  plain body, grad_mode='ift') raises NotImplementedError on it
-  (check_adj_dtype).
+  torch.bfloat16), gnn_tpu's low-precision mode) runs every kernel route:
+  'hybrid' through the bf16 variants of K3 and K4 (ops/fused.py), in
+  training differentiated through K5's and K4's plain f32 backward; 'bn'
+  through those of K1 and K2, or of K14 and K15 for a two-layer state net
+  (ops/bn.py); 'hybrid2': the bf16 variants of K10 and K9 at eval and in
+  clean two-layer training, differentiated through K11's bf16 variant and
+  K9's plain f32 backward; 'dropout2' through those of K12 and K13
+  (ops/fused2.py) and the plain f32 dep step; 'dropout' through those of K7
+  and K8 over the loop blocks and K6's per step, differentiated through
+  K6's plain f32 backward (on either layout); composite models' routes
+  through those of K16 and K17 (models/composite.py). The plain body and
+  grad_mode='ift' raise NotImplementedError on it (check_adj_dtype).
 
 Dropout and the initial state draw no random numbers here: training takes
 keep-masks and, with state_dim > 0, the initial state ("init"), which
@@ -321,7 +321,7 @@ def propagate(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
     keep = keep or {}
     s0 = initial_state(spec, gb, init)
     route = _train_route(spec, gb) if training else _eval_route(spec, gb)
-    check_adj_dtype(gb, route, training, spec.grad_mode, spec.state_spec.num_layers)
+    check_adj_dtype(gb, route, training, spec.grad_mode)
     if spec.grad_mode == "ift":
         return _propagate_ift(spec, params_state, bn_state, gb, training, route, s0)
     if route == "bn":
@@ -340,24 +340,21 @@ def propagate(spec: GNNSpec, params_state, bn_state, gb: GraphBatch,
 
 
 def check_adj_dtype(gb: GraphBatch, route: str, training: bool = False,
-                    grad_mode: str = "unroll", layers: int = 1) -> None:
-    """A bf16 block adjacency runs, unrolled, route 'hybrid' (the bf16 K3
-    and K4, in training K5's), route 'hybrid2' (the bf16 K10, K9 and K11),
-    route 'dropout' (the bf16 K7, K8 and K6), route 'dropout2' (the bf16 K12
-    and K13) and route 'bn' of a one-layer state net (the bf16 K1 and K2):
-    any other route (the two-layer 'bn', the plain body; of `layers` dense
-    layers), and grad_mode 'ift', raises, on every device, rather than cast
-    the batch."""
-    ported = (route in ("hybrid", "hybrid2", "dropout", "dropout2")
-              or (route == "bn" and layers == 1))
-    if gb.adj_dtype != torch.bfloat16 or (ported and grad_mode == "unroll"):
+                    grad_mode: str = "unroll") -> None:
+    """A bf16 block adjacency runs, unrolled, every kernel route: 'hybrid'
+    (the bf16 K3 and K4, in training K5's), 'hybrid2' (the bf16 K10, K9 and
+    K11), 'dropout' (the bf16 K7, K8 and K6), 'dropout2' (the bf16 K12 and
+    K13), 'bn' (the bf16 K1 and K2, or K14 and K15 for a two-layer state
+    net) and composite models' 'typed_bn' (the bf16 K16 and K17) and
+    'typed_eval' (the bf16 K16). The plain body and grad_mode 'ift' raise, on
+    every device, rather than cast the batch."""
+    if gb.adj_dtype != torch.bfloat16 or (route != "plain" and grad_mode == "unroll"):
         return
     what = f"route {route!r}" + (" with grad_mode='ift'" if grad_mode == "ift" else "")
     raise NotImplementedError(
-        f"a bf16-adjacency batch runs only routes 'hybrid' (bf16 K3/K4/K5), 'hybrid2' (bf16 "
-        f"K10/K9/K11), 'dropout' (bf16 K7/K8/K6), 'dropout2' (bf16 K12/K13) and the one-layer "
-        f"route 'bn' (bf16 K1/K2); {what} ({'training' if training else 'eval'}) on it is not "
-        f"ported yet (ROADMAP Queue 1, M7: bf16 on K14-K17, the plain body and IFT)")
+        f"a bf16-adjacency batch runs only the kernel routes unrolled; {what} "
+        f"({'training' if training else 'eval'}) on it is not ported yet (ROADMAP Queue 1 "
+        f"item 2: the plain body and IFT on bf16)")
 
 
 def _propagate_plain(spec, params_state, bn_state, gb, training=False, keep=None, s0=None):

@@ -130,7 +130,7 @@ def _signatures():
         "gnn_bnT_forward": [p] * 15 + [i] * 6 + [f, p, i, f, f, p, p],
         "gnn_bnT_backward": [p] * 18 + [i] * 6 + [p, i, f, f, p, p],
         "gnn_segment_aggregate": [p] * 5 + [i, i, p],
-        # the bf16-adjacency variants of K1-K13 (no plans, no workspace)
+        # the bf16-adjacency variants of K1-K17 (no plans, no workspace)
         "gnn_propagation_loop_bf16": [p] * 8 + [i] * 4 + [f, i, p],
         "gnn_train_loop_bf16": [p] * 10 + [i] * 4 + [f, i, i, f, f, p],
         "gnn_train_loop_bwd_bf16": [p] * 12 + [i] * 6 + [f, f, p],
@@ -144,6 +144,10 @@ def _signatures():
         "gnn_propagation_step2_bf16": [p] * 9 + [i] * 6 + [p],
         "gnn_propagation_loop2_bf16": [p] * 10 + [i] * 5 + [f, i, i, p],
         "gnn_propagation_loop2_bwd_bf16": [p] * 15 + [i] * 7 + [p],
+        "gnn_bn2_forward_bf16": [p] * 16 + [i] * 6 + [f, i, i, i, f, f, p],
+        "gnn_bn2_backward_bf16": [p] * 21 + [i] * 9 + [f, f, p],
+        "gnn_bnT_forward_bf16": [p] * 15 + [i] * 6 + [f, p, i, f, f, p],
+        "gnn_bnT_backward_bf16": [p] * 18 + [i] * 6 + [p, i, f, f, p],
     }
     out = {name: (args, i) for name, args in sig.items()}
     # the tiled kernels', K1's-K8's, K16's and K17's plan reports (W, D, AL or

@@ -38,15 +38,20 @@ state net runs K1_bf16 (`bn_forward_step_bf16`) and K2_bf16
 (`bn_backward_step_bf16`, ops/csrc/bn_bf16.cu): the aggregation over bf(s),
 the dense layer over bf([x3 | 1]) and bf(w_aug) (the bias column through
 bf16), dx2 = bf(dh) @ bf(w_aug[:, :2D]) and the aggregation's reverse over
-bf(dagg), all with f32 sums, dw the unrounded f32 product; their plain
-versions sum in the kernel's order (ops/fused2.py's bf16 helpers, the block
-sums node by node), and BNLoopOperands picks them by the adjacency's dtype.
-The residual term and the moment glue stay f32, as gnn_tpu's.
+bf(dagg), all with f32 sums, dw the unrounded f32 product. A two-layer one
+runs K14_bf16 (`bn2_forward_step_bf16`) and K15_bf16
+(`bn2_backward_step_bf16`, ops/csrc/bn2_bf16.cu): the first layer as
+K1_bf16's H1 wide, then h1 = bf(y0) @ bf(w1) + b1; in the reverse dy0 =
+bf(dh1) @ bf(w1), dx2 = bf(dh0) @ bf(w0_aug[:, :2D]), dw0 and dw1 the
+unrounded f32 products. Their plain versions sum in the kernel's order
+(ops/fused2.py's bf16 helpers, the block sums node by node), and
+BNLoopOperands picks them by the adjacency's dtype. The moment glue and the
+residual term run in float64 rounded once (`BNLoopOperands.acc`).
 
 Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
 launches the CUDA kernel (ops/csrc/bn_fwd.cu, bn_train.cu, bn2_fwd.cu,
-bn2_train.cu, bn_bf16.cu) for CUDA tensors; it never falls back from one to
-the other.
+bn2_train.cu, bn_bf16.cu, bn2_bf16.cu) for CUDA tensors; it never falls back
+from one to the other.
 `launches` counts kernel launches. K1 and K2 take the first of their staged
 shared-memory plans that fits a CTA, else their wide plan, which takes every
 D and F with x3 and the [W][D]-sized rows in a device-memory workspace that
@@ -75,7 +80,8 @@ from gnn_tpu_torch.ops.mlp import BN_EPS, BN_MOMENTUM
 
 # kernel launches since the last reset, by wrapper
 launches = {"bn_forward_step": 0, "bn_backward_step": 0, "bn2_forward_step": 0,
-            "bn2_backward_step": 0, "bn_forward_step_bf16": 0, "bn_backward_step_bf16": 0}
+            "bn2_backward_step": 0, "bn_forward_step_bf16": 0, "bn_backward_step_bf16": 0,
+            "bn2_forward_step_bf16": 0, "bn2_backward_step_bf16": 0}
 
 # coefficient rows of bnv, the [9, D] input of K2
 BNV_ROWS = ("scale_prev", "shift_prev", "mean_k", "rstd_k", "gamma_rstd_k",
@@ -265,12 +271,12 @@ def _contract_bf16(adj_loop, adj_dep, g):
         fused2._adj_slots(a.float().transpose(1, 2)), fused2._bf("dagg", x)))
 
 
-def _dense_bf16(x3, w_aug):
+def _dense_bf16(x3, w_aug, D: Optional[int] = None):
     """h = bf([x3 | 1]) @ bf(w_aug)^T summed over the columns ascending, the
     bias last (fused2._exact_dot). x3's slices round at the points x3s (the
-    state), agg (the aggregation, a sum of the card's order) and x3f (the
-    features)."""
-    D = w_aug.shape[0]
+    state, D wide: w_aug's rows unless given), agg (the aggregation, a sum of
+    the card's order) and x3f (the features)."""
+    D = w_aug.shape[0] if D is None else D
     xb = torch.cat([fused2._bf("x3s", x3[..., :D]), fused2._bf("agg", x3[..., D:2 * D]),
                     fused2._bf("x3f", x3[..., 2 * D:]), torch.ones_like(x3[..., :1])], -1)
     return fused2._exact_dot(xb, fused2._bf("w", w_aug))
@@ -310,6 +316,57 @@ def bn_backward_step_bf16_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, 
     ds, dagg = _bn_ds(adj_loop, adj_dep, dx2, keep, alpha_drop, rate, _contract_bf16)
     xp_hat = (y_prev - bnv[7]) * bnv[8]
     return ds, dw, dagg, torch.stack([fused2.node_sum(ds), fused2.node_sum(ds * xp_hat)], dim=1)
+
+
+def _dense2_bf16(x3, w0_aug, w1, b1, act0: str):
+    """(h0, y0, h1) of a two-layer bf16 BN iteration from its f32 dense input
+    x3: h0 = bf([x3 | 1]) @ bf(w0_aug)^T, y0 = act0(h0), h1 = bf(y0) @
+    bf(w1)^T + b1 (gnn_tpu's _mm_packed and _dense1_fm with hp false)."""
+    h0 = _dense_bf16(x3, w0_aug, w1.shape[0])
+    y0 = fused2.act64(act0, h0)
+    return h0, y0, fused2._exact_dot(fused2._bf("y0", y0), fused2._bf("w1", w1)) + b1
+
+
+def bn2_forward_step_bf16_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1, b1,
+                              nm, *, act0: str, act1: str, alpha_drop: bool, rate: float,
+                              threshold: float):
+    """Plain PyTorch K14_bf16 (gnn_tpu's _bn2_fwd_kernel with hp false): K1_bf16
+    with the two-layer state net, h0 = bf([x3 | 1]) @ bf(w0_aug)^T, y0 =
+    act0(h0), h1 = bf(y0) @ bf(w1)^T + b1, y = act1(h1); every sum in the
+    kernel's order, the activations in float64 (fused2.act64). Returns as
+    bn_forward_step_ref."""
+    s = y1 * aff[0, 0] + aff[0, 1]
+    s_old = y2 * aff[1, 0] + aff[1, 1]
+    marg = moved(s, s_old, threshold) * nm
+    agg = _agg_bf16(adj_loop, adj_dep, s)
+    if rT is not None:
+        agg = agg + rT
+    _, _, h1 = _dense2_bf16(_x3(s, agg, feats, keep, alpha_drop, rate), w0_aug, w1, b1, act0)
+    y = fused2.act64(act1, h1)
+    return y, agg, marg, fused2.node_sum(y * nm[..., None])
+
+
+def bn2_backward_step_bf16_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, w1, b1,
+                               ds_in, gsel, bnv, flag, nm, *, act0: str, act1: str,
+                               alpha_drop: bool, rate: float):
+    """Plain PyTorch K15_bf16 (gnn_tpu's _bn2_bwd_kernel with hp false): h0, y0
+    and h1 recomputed with K14_bf16's rounding, dh1 = gy * act1'(h1), dy0 =
+    bf(dh1) @ bf(w1), dh0 = dy0 * act0'(h0), dx2 = bf(dh0) @ bf(w0_aug[:, :2D])
+    and the aggregation's reverse over bf(dagg) (rounding points dh1, dh0,
+    dagg); dw1 of y0, dw0 of [x3 | 1] (both unrounded: gnn_tpu's _BDT_HI) and
+    db1 summed node by node. Returns as bn2_backward_step_ref."""
+    D = y_prev.shape[-1]
+    x3 = _x3(y_prev * bnv[0] + bnv[1], agg, feats, keep, alpha_drop, rate)
+    h0, y0, h1 = _dense2_bf16(x3, w0_aug, w1, b1, act0)
+    dh1 = _bn_gy(y_k, ds_in, gsel, bnv, flag, nm) * fused2.act_grad64(act1, h1)
+    dy0 = fused2._exact_dot(fused2._bf("dh1", dh1), fused2._bf("w1", w1).t())
+    dh0 = dy0 * fused2.act_grad64(act0, h0)
+    dx2 = fused2._exact_dot(fused2._bf("dh0", dh0), fused2._bf("w", w0_aug[:, :2 * D]).t())
+    ds, dagg = _bn_ds(adj_loop, adj_dep, dx2, keep, alpha_drop, rate, _contract_bf16)
+    xp_hat = (y_prev - bnv[7]) * bnv[8]
+    return (ds, fused2.node_outer(dh0, _ones_col(x3)), fused2.node_outer(dh1, y0),
+            fused2.node_sum(dh1), dagg,
+            torch.stack([fused2.node_sum(ds), fused2.node_sum(ds * xp_hat)], dim=1))
 
 
 # ------------------------------------------------------------------ wrappers
@@ -465,8 +522,8 @@ def _launch_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, 
     Bl, W = _check_blocks(adj_loop, adj_dep, R)
     _check_bn_plan("K1", W, D, Fd)
     dev = y1.device
-    keep, (y, agg, marg, msum) = _forward_operands(y1, y2, aff, keep, rT, feats, w_aug, nm, W,
-                                                   rate)
+    _check("w_aug", w_aug, (D, 2 * D + Fd + 1), dev)
+    keep, (y, agg, marg, msum) = _forward_operands(y1, y2, aff, keep, rT, feats, nm, W, rate)
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -481,9 +538,9 @@ def _launch_forward(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug, nm, 
     return y, agg, marg, msum
 
 
-def _forward_operands(y1, y2, aff, keep, rT, feats, w_aug, nm, W: int, rate: float):
-    """K1's (K1_bf16's) operands but the adjacency checked: (the keep-mask,
-    the outputs (y, agg, marg, msum) allocated)."""
+def _forward_operands(y1, y2, aff, keep, rT, feats, nm, W: int, rate: float):
+    """K1's (K1_bf16's, K14_bf16's) operands but the adjacency and the weights
+    checked: (the keep-mask, the outputs (y, agg, marg, msum) allocated)."""
     R, _, D = y1.shape
     Fd = feats.shape[-1]
     dev = y1.device
@@ -492,7 +549,6 @@ def _forward_operands(y1, y2, aff, keep, rT, feats, w_aug, nm, W: int, rate: flo
             _check(name, t, (R, W, D), dev)
     _check("aff", aff, (2, 2, D), dev)
     _check("feats", feats, (R, W, Fd), dev)
-    _check("w_aug", w_aug, (D, 2 * D + Fd + 1), dev)
     _check("nm", nm, (R, W), dev)
     keep = _check_keep(keep, (R, W, 2 * D + Fd), dev, rate)
     y = torch.empty((R, W, D), dtype=torch.float32, device=dev)
@@ -529,8 +585,10 @@ def _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds
     Bl, W = _check_blocks(adj_loop, adj_dep, R)
     _check_bn_plan("K2", W, D, Fd)
     dev = y_prev.device
-    keep, (ds, dw, dagg, red) = _backward_operands(y_prev, y_k, agg, keep, feats, w_aug, ds_in,
-                                                   gsel, bnv, flag, nm, W, rate)
+    _check("w_aug", w_aug, (D, 2 * D + Fd + 1), dev)
+    keep, (ds, dagg, red) = _backward_operands(y_prev, y_k, agg, keep, feats, ds_in, gsel, bnv,
+                                               flag, nm, W, rate)
+    dw = torch.empty((R, D, 2 * D + Fd + 1), dtype=torch.float32, device=dev)
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -545,10 +603,10 @@ def _launch_backward(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_aug, ds
     return ds, dw, dagg, red
 
 
-def _backward_operands(y_prev, y_k, agg, keep, feats, w_aug, ds_in, gsel, bnv, flag, nm,
-                       W: int, rate: float):
-    """K2's (K2_bf16's) operands but the adjacency checked: (the keep-mask,
-    the outputs (ds, dw, dagg, red) allocated)."""
+def _backward_operands(y_prev, y_k, agg, keep, feats, ds_in, gsel, bnv, flag, nm, W: int,
+                       rate: float):
+    """K2's (K2_bf16's, K15_bf16's) operands but the adjacency and the weights
+    checked: (the keep-mask, the outputs (ds, dagg, red) allocated)."""
     R, _, D = y_prev.shape
     Fd = feats.shape[-1]
     C = 2 * D + Fd + 1
@@ -557,7 +615,6 @@ def _backward_operands(y_prev, y_k, agg, keep, feats, w_aug, ds_in, gsel, bnv, f
                     ("gsel", gsel)):
         _check(name, t, (R, W, D), dev)
     _check("feats", feats, (R, W, Fd), dev)
-    _check("w_aug", w_aug, (D, C), dev)
     _check("bnv", bnv, (len(BNV_ROWS), D), dev)
     _check("flag", flag, (), dev)
     _check("nm", nm, (R, W), dev)
@@ -565,7 +622,7 @@ def _backward_operands(y_prev, y_k, agg, keep, feats, w_aug, ds_in, gsel, bnv, f
 
     def out(*shape):
         return torch.empty(shape, dtype=torch.float32, device=dev)
-    return keep, (out(R, W, D), out(R, D, C), out(R, W, D), out(R, 2, D))
+    return keep, (out(R, W, D), out(R, W, D), out(R, 2, D))
 
 
 def bn_bf16_smem_bytes(W: int, D: int, F: int) -> int:
@@ -575,10 +632,24 @@ def bn_bf16_smem_bytes(W: int, D: int, F: int) -> int:
     return 2 * W * W + 4 * W * (5 * D + F)
 
 
-def _check_bf16_blocks(adj_loop, adj_dep, R: int, D: int, F: int, kernel: str):
+def bn2_bf16_smem_bytes(kernel: str, W: int, D: int, F: int) -> int:
+    """Shared memory of a K14_bf16 or K15_bf16 CTA (ops/csrc/bn2_bf16.cu::
+    bn2_bf16_smem): the bf16 adjacency [W][W] and x3 [W][2D+F] of floats;
+    K14_bf16 two rows [W][D] (s, h1) and a hidden chunk [W][32] (bf(y0));
+    K15_bf16 three rows (gy and dh1, h1 and ds, bf(dagg)), dx2 [W][2D] and
+    two chunks (y0, dh0). The hidden width runs in chunks, so it takes no
+    room."""
+    C1 = 2 * D + F
+    if kernel == "K14_bf16":
+        return 2 * W * W + 4 * W * (C1 + 2 * D + fused2.BF16_CHUNK)
+    return 2 * W * W + 4 * W * (C1 + 5 * D + 2 * fused2.BF16_CHUNK)
+
+
+def _check_bf16_blocks(adj_loop, adj_dep, R: int, D: int, F: int, kernel: str,
+                       smem=bn_bf16_smem_bytes):
     """(Bl, W) of the bf16 kernels' block rows: contiguous, 16-byte aligned
-    bf16 adjacencies on the card, and the shared memory of the widths (no
-    wide plan: a CTA that does not fit raises)."""
+    bf16 adjacencies on the card, and the shared memory `smem`(W, D, F) of
+    the widths (no wide plan: a CTA that does not fit raises)."""
     adj = adj_loop if adj_loop is not None else adj_dep
     if adj is None:
         raise ValueError("the BatchNorm kernels need a block adjacency")
@@ -595,7 +666,7 @@ def _check_bf16_blocks(adj_loop, adj_dep, R: int, D: int, F: int, kernel: str):
                              f"[B, {W}, {W}] on {adj.device}, got {a.dtype} {tuple(a.shape)}")
     if R != Bl + Bd:
         raise ValueError(f"{R} block rows, but the adjacencies hold {Bl} + {Bd}")
-    need = bn_bf16_smem_bytes(W, D, F)
+    need = smem(W, D, F)
     if need > SMEM_BYTES:
         raise ValueError(f"{kernel} takes widths whose CTA fits {SMEM_BYTES} bytes of shared "
                          f"memory: D={D}, F={F} at W={W} needs {need}")
@@ -616,8 +687,8 @@ def bn_forward_step_bf16(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w_aug,
     Fd = feats.shape[-1]
     Bl, W = _check_bf16_blocks(adj_loop, adj_dep, R, D, Fd, "K1_bf16")
     dev = y1.device
-    keep, (y, agg, marg, msum) = _forward_operands(y1, y2, aff, keep, rT, feats, w_aug, nm, W,
-                                                   rate)
+    _check("w_aug", w_aug, (D, 2 * D + Fd + 1), dev)
+    keep, (y, agg, marg, msum) = _forward_operands(y1, y2, aff, keep, rT, feats, nm, W, rate)
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -644,8 +715,10 @@ def bn_backward_step_bf16(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w_au
     Fd = feats.shape[-1]
     Bl, W = _check_bf16_blocks(adj_loop, adj_dep, R, D, Fd, "K2_bf16")
     dev = y_prev.device
-    keep, (ds, dw, dagg, red) = _backward_operands(y_prev, y_k, agg, keep, feats, w_aug, ds_in,
-                                                   gsel, bnv, flag, nm, W, rate)
+    _check("w_aug", w_aug, (D, 2 * D + Fd + 1), dev)
+    keep, (ds, dagg, red) = _backward_operands(y_prev, y_k, agg, keep, feats, ds_in, gsel, bnv,
+                                               flag, nm, W, rate)
+    dw = torch.empty((R, D, 2 * D + Fd + 1), dtype=torch.float32, device=dev)
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -666,18 +739,23 @@ def _smem2_bytes(W: int, D: int, F: int, H1: int, backward: bool) -> int:
     return _tile2_plan(W, D, F, H1, "K15" if backward else "K14")[0]
 
 
-def _check_two_layer(adj_loop, adj_dep, R, D, F, w0_aug, w1, b1):
-    """(Bl, W, H1) after checking the block rows and the weights' shapes
-    (K14/K15 take every D, F and H1 at W <= 128)."""
+def _check_weights2(w0_aug, w1, b1, D, F, dev):
+    """H1 after checking a two-layer state net's weights w0_aug [H1, 2D+F+1],
+    w1 [D, H1] and b1 [D] on `dev`."""
     H1 = w0_aug.shape[0]
     if H1 < 1:
         raise ValueError(f"hidden width H1={H1} must be positive")
-    Bl, W = _check_blocks(adj_loop, adj_dep, R)
-    dev = w0_aug.device
     _check("w0_aug", w0_aug, (H1, 2 * D + F + 1), dev)
     _check("w1", w1, (D, H1), dev)
     _check("b1", b1, (D,), dev)
-    return Bl, W, H1
+    return H1
+
+
+def _check_two_layer(adj_loop, adj_dep, R, D, F, w0_aug, w1, b1):
+    """(Bl, W, H1) after checking the block rows and the weights' shapes
+    (K14/K15 take every D, F and H1 at W <= 128)."""
+    Bl, W = _check_blocks(adj_loop, adj_dep, R)
+    return Bl, W, _check_weights2(w0_aug, w1, b1, D, F, w0_aug.device)
 
 
 def bn2_forward_step(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1, b1, nm, *,
@@ -697,17 +775,7 @@ def bn2_forward_step(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1
     Fd = feats.shape[-1]
     Bl, W, H1 = _check_two_layer(adj_loop, adj_dep, R, D, Fd, w0_aug, w1, b1)
     dev = y1.device
-    for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
-        if t is not None:
-            _check(name, t, (R, W, D), dev)
-    _check("aff", aff, (2, 2, D), dev)
-    _check("feats", feats, (R, W, Fd), dev)
-    _check("nm", nm, (R, W), dev)
-    keep = _check_keep(keep, (R, W, 2 * D + Fd), dev, rate)
-    y = torch.empty((R, W, D), dtype=torch.float32, device=dev)
-    agg = torch.empty_like(y)
-    marg = torch.empty((R, W), dtype=torch.float32, device=dev)
-    msum = torch.empty((R, D), dtype=torch.float32, device=dev)
+    keep, (y, agg, marg, msum) = _forward_operands(y1, y2, aff, keep, rT, feats, nm, W, rate)
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -741,19 +809,9 @@ def bn2_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, 
     C = 2 * D + Fd + 1
     Bl, W, H1 = _check_two_layer(adj_loop, adj_dep, R, D, Fd, w0_aug, w1, b1)
     dev = y_prev.device
-    for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
-                    ("gsel", gsel)):
-        _check(name, t, (R, W, D), dev)
-    _check("feats", feats, (R, W, Fd), dev)
-    _check("bnv", bnv, (len(BNV_ROWS), D), dev)
-    _check("flag", flag, (), dev)
-    _check("nm", nm, (R, W), dev)
-    keep = _check_keep(keep, (R, W, C - 1), dev, rate)
-
-    def out(*shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
-    ds, dagg, red = out(R, W, D), out(R, W, D), out(R, 2, D)
-    dw0, dw1, db1 = out(R, H1, C), out(R, D, H1), out(R, D)
+    keep, (ds, dagg, red) = _backward_operands(y_prev, y_k, agg, keep, feats, ds_in, gsel, bnv,
+                                               flag, nm, W, rate)
+    dw0, dw1, db1 = _two_layer_partials(R, D, C, H1, dev)
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -766,6 +824,81 @@ def bn2_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, 
             _stream(dev), _ptr(ws))
     _build.check(err, "bn2_backward_step (K15)")
     launches["bn2_backward_step"] += 1
+    return ds, dw0, dw1, db1, dagg, red
+
+
+def _two_layer_partials(R: int, D: int, C: int, H1: int, dev):
+    """K15's (K15_bf16's) per-block weight partials dw0 [R, H1, C], dw1
+    [R, D, H1] and db1 [R, D], allocated."""
+    return tuple(torch.empty(shape, dtype=torch.float32, device=dev)
+                 for shape in ((R, H1, C), (R, D, H1), (R, D)))
+
+
+def _smem2_bf16(kernel: str):
+    return lambda W, D, F: bn2_bf16_smem_bytes(kernel, W, D, F)
+
+
+def bn2_forward_step_bf16(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug, w1, b1, nm,
+                          *, act0: str, act1: str, alpha_drop: bool, rate: float,
+                          threshold: float):
+    """K14_bf16: one two-layer BN-training iteration over every block row of a
+    bf16 adjacency (gnn_tpu's _bn2_fwd_kernel with hp false). Arguments and
+    result as bn2_forward_step's, adj_loop / adj_dep bf16."""
+    kw = dict(act0=act0, act1=act1, alpha_drop=alpha_drop, rate=rate, threshold=threshold)
+    if y1.device.type == "cpu":
+        return bn2_forward_step_bf16_ref(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_aug,
+                                         w1, b1, nm, **kw)
+    _require_cuda(y1)
+    R, _, D = y1.shape
+    Fd = feats.shape[-1]
+    Bl, W = _check_bf16_blocks(adj_loop, adj_dep, R, D, Fd, "K14_bf16", _smem2_bf16("K14_bf16"))
+    dev = y1.device
+    H1 = _check_weights2(w0_aug, w1, b1, D, Fd, dev)
+    keep, (y, agg, marg, msum) = _forward_operands(y1, y2, aff, keep, rT, feats, nm, W, rate)
+    mode, a, b = _drop_args(alpha_drop, rate)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gnn_bn2_forward_bf16(
+            _ptr(adj_loop), _ptr(adj_dep), _ptr(y1), _ptr(y2), _ptr(aff), _ptr(keep), _ptr(rT),
+            _ptr(feats), _ptr(w0_aug), _ptr(w1), _ptr(b1), _ptr(nm), _ptr(y), _ptr(agg),
+            _ptr(marg), _ptr(msum), R, Bl, W, D, Fd, H1, float(threshold), _ACT_CODE[act0],
+            _ACT_CODE[act1], mode, a, b, _stream(dev))
+    _build.check(err, "bn2_forward_step_bf16 (K14_bf16)")
+    launches["bn2_forward_step_bf16"] += 1
+    return y, agg, marg, msum
+
+
+def bn2_backward_step_bf16(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, w1, b1,
+                           ds_in, gsel, bnv, flag, nm, *, act0: str, act1: str, alpha_drop: bool,
+                           rate: float):
+    """K15_bf16: one reverse two-layer BN-training iteration over every block
+    row of a bf16 adjacency (gnn_tpu's _bn2_bwd_kernel with hp false).
+    Arguments and result as bn2_backward_step's, adj_loop / adj_dep bf16."""
+    kw = dict(act0=act0, act1=act1, alpha_drop=alpha_drop, rate=rate)
+    if y_prev.device.type == "cpu":
+        return bn2_backward_step_bf16_ref(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats,
+                                          w0_aug, w1, b1, ds_in, gsel, bnv, flag, nm, **kw)
+    _require_cuda(y_prev)
+    R, _, D = y_prev.shape
+    Fd = feats.shape[-1]
+    C = 2 * D + Fd + 1
+    Bl, W = _check_bf16_blocks(adj_loop, adj_dep, R, D, Fd, "K15_bf16", _smem2_bf16("K15_bf16"))
+    dev = y_prev.device
+    H1 = _check_weights2(w0_aug, w1, b1, D, Fd, dev)
+    keep, (ds, dagg, red) = _backward_operands(y_prev, y_k, agg, keep, feats, ds_in, gsel, bnv,
+                                               flag, nm, W, rate)
+    dw0, dw1, db1 = _two_layer_partials(R, D, C, H1, dev)
+    mode, a, b = _drop_args(alpha_drop, rate)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gnn_bn2_backward_bf16(
+            _ptr(adj_loop), _ptr(adj_dep), _ptr(y_prev), _ptr(y_k), _ptr(agg), _ptr(keep),
+            _ptr(feats), _ptr(w0_aug), _ptr(w1), _ptr(b1), _ptr(ds_in), _ptr(gsel), _ptr(bnv),
+            _ptr(flag), _ptr(nm), _ptr(ds), _ptr(dw0), _ptr(dw1), _ptr(db1), _ptr(dagg),
+            _ptr(red), R, Bl, W, D, Fd, H1, _ACT_CODE[act0], _ACT_CODE[act1], mode, a, b,
+            _stream(dev))
+    _build.check(err, "bn2_backward_step_bf16 (K15_bf16)")
+    launches["bn2_backward_step_bf16"] += 1
     return ds, dw0, dw1, db1, dagg, red
 
 
@@ -841,7 +974,7 @@ class BNLoopOperands:
 
     @property
     def bf16(self) -> bool:
-        """Whether the block adjacency is bf16 (K1_bf16 / K2_bf16)."""
+        """Whether the block adjacency is bf16 (the kernels' bf16 variants)."""
         adj = self.adj_loop if self.adj_loop is not None else self.adj_dep
         return adj.dtype == torch.bfloat16
 
@@ -855,21 +988,22 @@ class BNLoopOperands:
         return x.double() if self.bf16 else x
 
     def forward_step(self, k, y1, y2, aff, rT, weights):
-        """Iteration k: K1 (K1_bf16 on a bf16 adjacency) for the weights
-        (w_aug,), K14 for (w0_aug, w1, b1). aff [2, 2, 1, D]; returns (y, agg,
-        marg, msum [R, 1, D])."""
-        step = ((bn_forward_step_bf16 if self.bf16 else bn_forward_step) if len(weights) == 1
-                else bn2_forward_step)
+        """Iteration k: K1 for the weights (w_aug,), K14 for (w0_aug, w1, b1)
+        (K1_bf16, K14_bf16 on a bf16 adjacency). aff [2, 2, 1, D]; returns
+        (y, agg, marg, msum [R, 1, D])."""
+        step = ((bn_forward_step_bf16, bn2_forward_step_bf16) if self.bf16 else
+                (bn_forward_step, bn2_forward_step))[len(weights) != 1]
         y, agg, marg, msum = step(self.adj_loop, self.adj_dep, y1, y2, aff.reshape(2, 2, -1),
                                   self.keep_k(k), rT, self.feats, *weights, self.nm,
                                   threshold=self.threshold, **self.step_kw())
         return y, agg, marg, msum[:, None]
 
     def backward_step(self, k, y_prev, y_k, agg, weights, ds_in, gsel, bnv, flag):
-        """The reverse of iteration k, K2 (K2_bf16) or K15, with bnv [1, 9, D]:
-        (ds, the weights' per-block cotangents, dagg, red [R, 1, 2, D])."""
-        step = ((bn_backward_step_bf16 if self.bf16 else bn_backward_step) if len(weights) == 1
-                else bn2_backward_step)
+        """The reverse of iteration k, K2 or K15 (K2_bf16, K15_bf16), with bnv
+        [1, 9, D]: (ds, the weights' per-block cotangents, dagg, red
+        [R, 1, 2, D])."""
+        step = ((bn_backward_step_bf16, bn2_backward_step_bf16) if self.bf16 else
+                (bn_backward_step, bn2_backward_step))[len(weights) != 1]
         ds, *dweights, dagg, red = step(self.adj_loop, self.adj_dep, y_prev, y_k, agg,
                                         self.keep_k(k), self.feats, *weights, ds_in, gsel,
                                         bnv[0], flag, self.nm, **self.step_kw())

@@ -3,8 +3,10 @@
 // eval_loop2_bwd_bf16.cu: K11_bf16), gnn_tpu's `hp = False` branch
 // (pallas_fused.py:104-217, :1127-1169, :1390-1470); its rounding, the
 // activations and the dropout also serve eval_loop_bf16.cu (K3_bf16,
-// K4_bf16), eval_loop_bwd_bf16.cu (K5_bf16), bn_bf16.cu (K1_bf16, K2_bf16)
-// and train_loop2_bf16.cu (K12_bf16, K13_bf16).
+// K4_bf16), eval_loop_bwd_bf16.cu (K5_bf16), train_loop_bf16.cu (K6-K8_bf16)
+// and train_loop2_bf16.cu (K12_bf16, K13_bf16), and its BatchNorm-row
+// helpers (bn_*) bn_bf16.cu (K1_bf16, K2_bf16), bn2_bf16.cu (K14_bf16,
+// K15_bf16) and bn_typed_bf16.cu (K16_bf16, K17_bf16).
 //
 // Write bf(x) for x rounded to bf16 to nearest even and used as f32. One
 // iteration on a block of W nodes, node-major, w20 = [W0s; W0a] [2H1, D]:
@@ -235,6 +237,151 @@ __device__ inline void bf16_iteration(const Bf16Smem& m, const float* __restrict
     m.h1[i] = __fadd_rn(__fmul_rn(act64(act1, h), __ldg(aff + d)), __ldg(aff + D + d));
   }
   __syncthreads();
+}
+
+// ---- the BatchNorm kernels' block rows (bn_bf16.cu, bn2_bf16.cu,
+// bn_typed_bf16.cu): one CTA a block row, x3 = [s | agg | feats] [W][C1]
+// node-major in shared memory, C1 = 2D + F.
+
+// Stage block row blockIdx.x's bf16 adjacency into adj [W][W]: row r < Bl
+// reads adj_loop[r], the rest adj_dep[r - Bl], where they lie (16-byte
+// copies).
+__device__ inline void bn_stage_adj(uint16_t* adj, const uint16_t* __restrict__ adj_loop,
+                                    const uint16_t* __restrict__ adj_dep, int Bl, int W) {
+  const int r = blockIdx.x;
+  const uint16_t* a =
+      r < Bl ? adj_loop + (size_t)r * W * W : adj_dep + (size_t)(r - Bl) * W * W;
+  const int4* src = reinterpret_cast<const int4*>(a);
+  int4* dst = reinterpret_cast<int4*>(adj);
+  for (int i = threadIdx.x; i < W * W / 8; i += blockDim.x) dst[i] = src[i];
+}
+
+// x3's feature slice of block row blockIdx.x, through the dropout.
+__device__ inline void bn_stage_feats(float* x3, const float* __restrict__ feats,
+                                      const uint8_t* __restrict__ keep, int W, int D, int F,
+                                      int mode, float da, float db) {
+  const int C1 = 2 * D + F;
+  const size_t row = (size_t)blockIdx.x * W;
+  for (int i = threadIdx.x; i < W * F; i += blockDim.x) {
+    const int n = i / F, f = i % F;
+    x3[n * C1 + 2 * D + f] =
+        drop_rn(mode, da, db, __ldg(feats + row * F + i), keep, (row + n) * C1 + 2 * D + f);
+  }
+}
+
+// The movement flags of block row blockIdx.x, a thread a node, d ascending:
+// marg = nm where ||s - s_old|| > thr * ||s_old||; s [W][D] in shared
+// memory, old(n, d) s_old's entry.
+template <typename Old>
+__device__ inline void bn_margins(const float* s, Old old, const float* __restrict__ nm,
+                                  float* __restrict__ marg, int W, int D, float thr) {
+  const size_t row = (size_t)blockIdx.x * W;
+  for (int n = threadIdx.x; n < W; n += blockDim.x) {
+    float dist = 0.0f, norm = 0.0f;
+    for (int d = 0; d < D; ++d) {
+      const float o = old(n, d);
+      const float e = s[n * D + d] - o;
+      dist += e * e;
+      norm += o * o;
+    }
+    marg[row + n] = sqrtf(dist) > thr * sqrtf(norm) ? __ldg(nm + row + n) : 0.0f;
+  }
+}
+
+// agg = adjT^T @ bf(s) (+ rT) over the sources ascending, into agg_out and
+// x3's aggregated slice (through the dropout).
+__device__ inline void bn_aggregate(const uint16_t* adj, const float* s, float* x3,
+                                    const float* __restrict__ rT, float* __restrict__ agg_out,
+                                    const uint8_t* __restrict__ keep, int W, int D, int C1,
+                                    int mode, float da, float db) {
+  const size_t row = (size_t)blockIdx.x * W;
+  for (int i = threadIdx.x; i < W * D; i += blockDim.x) {
+    const int dst = i / D, d = i % D;
+    float acc = 0.0f;
+    for (int src = 0; src < W; ++src)
+      acc = fmaf(bf16_value(adj[src * W + dst]), bf(s[src * D + d]), acc);
+    if (rT != nullptr) acc = __fadd_rn(acc, __ldg(rT + row * D + i));
+    agg_out[row * D + i] = acc;
+    x3[dst * C1 + D + d] = drop_rn(mode, da, db, acc, keep, (row + dst) * C1 + D + d);
+  }
+}
+
+// bf([x3 | 1]) . bf(w) of one node: x its x3 row [C1], w a weight row
+// [C1 + 1] ([Ws | Wa | Wf | b]), c ascending, the bias last.
+__device__ __forceinline__ float bn_dense_row(const float* x, const float* __restrict__ w,
+                                              int C1) {
+  float acc = 0.0f;
+  for (int c = 0; c < C1; ++c) acc = fmaf(bf(x[c]), bf(__ldg(w + c)), acc);
+  return __fadd_rn(acc, bf(__ldg(w + C1)));
+}
+
+// The pre-activation's cotangent of node n, entry d, from the BatchNorm
+// coefficients `bnv` [9][D] (ops/bn.py::BNV_ROWS) of its type:
+// gamma_rstd * (ds_in + flag * gsel) - nm * (b2 + x_hat_k * c2).
+__device__ __forceinline__ float bn_gy(const float* __restrict__ bnv, float ds_in, float gsel,
+                                       float y_k, float flag, float nm, int D, int d) {
+  const float gs = __fadd_rn(ds_in, __fmul_rn(flag, gsel));
+  const float xk = __fmul_rn(__fsub_rn(y_k, __ldg(bnv + 2 * D + d)), __ldg(bnv + 3 * D + d));
+  const float t = __fadd_rn(__ldg(bnv + 5 * D + d), __fmul_rn(xk, __ldg(bnv + 6 * D + d)));
+  return __fsub_rn(__fmul_rn(__ldg(bnv + 4 * D + d), gs), __fmul_rn(nm, t));
+}
+
+// dx2 entry (n, c) of block row blockIdx.x through the dropout's
+// derivative: the state slice (c < D) into ds [W][D], the aggregated one
+// into dagg_out and bf(dagg) into dg [W][D].
+__device__ __forceinline__ void bn_split_dx2(float v, int n, int c, float* ds, float* dg,
+                                             float* __restrict__ dagg_out,
+                                             const uint8_t* __restrict__ keep, int W, int D,
+                                             int C1, int mode, float da) {
+  const size_t row = (size_t)blockIdx.x * W;
+  if (mode != kNoDrop) v = __fmul_rn(v, keep[(row + n) * C1 + c] != 0 ? da : 0.0f);
+  if (c < D) {
+    ds[n * D + c] = v;
+  } else {
+    dagg_out[row * D + n * D + c - D] = v;
+    dg[n * D + c - D] = bf(v);
+  }
+}
+
+// ds += adjT @ bf(dagg) over the destinations ascending (dg holding
+// bf(dagg)), into ds and ds_out.
+__device__ inline void bn_contract(const uint16_t* adj, const float* dg, float* ds,
+                                   float* __restrict__ ds_out, int W, int D) {
+  const size_t row = (size_t)blockIdx.x * W;
+  for (int i = threadIdx.x; i < W * D; i += blockDim.x) {
+    const int src = i / D, d = i % D;
+    float acc = 0.0f;
+    for (int dst = 0; dst < W; ++dst)
+      acc = fmaf(bf16_value(adj[src * W + dst]), dg[dst * D + d], acc);
+    const float v = __fadd_rn(ds[i], acc);
+    ds[i] = v;
+    ds_out[row * D + i] = v;
+  }
+}
+
+// red [2][D] of block row blockIdx.x: (sum ds, sum ds * x_hat_prev) over
+// the nodes in order, x_hat_prev = (y_prev - bnv[7]) * bnv[8].
+__device__ inline void bn_reductions(const float* ds, const float* __restrict__ y_prev,
+                                     const float* __restrict__ bnv, float* __restrict__ red,
+                                     int W, int D) {
+  const size_t row = (size_t)blockIdx.x * W;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float s1 = 0.0f, s2 = 0.0f;
+    for (int n = 0; n < W; ++n) {
+      const float v = ds[n * D + d];
+      const float xp = __fmul_rn(
+          __fsub_rn(__ldg(y_prev + (row + n) * D + d), __ldg(bnv + 7 * D + d)),
+          __ldg(bnv + 8 * D + d));
+      s1 = __fadd_rn(s1, v);
+      s2 = __fadd_rn(s2, __fmul_rn(v, xp));
+    }
+    red[((size_t)blockIdx.x * 2) * D + d] = s1;
+    red[((size_t)blockIdx.x * 2 + 1) * D + d] = s2;
+  }
+}
+
+inline bool bn_bf16_ok(int R, int Bl, int W, int D, int F) {
+  return R > 0 && Bl >= 0 && Bl <= R && block_ok(R, W) && D > 0 && F >= 0;
 }
 
 }  // namespace gnn

@@ -76,39 +76,6 @@ __device__ BnBf16Smem bn_bf16_layout(void* base, int W, int D, int C1) {
   return m;
 }
 
-// Stage block row r's bf16 adjacency (16-byte copies).
-__device__ void stage_adj(const BnBf16Smem& m, const uint16_t* __restrict__ adj_loop,
-                          const uint16_t* __restrict__ adj_dep, int Bl, int W) {
-  const int r = blockIdx.x;
-  const uint16_t* a =
-      r < Bl ? adj_loop + (size_t)r * W * W : adj_dep + (size_t)(r - Bl) * W * W;
-  const int4* src = reinterpret_cast<const int4*>(a);
-  int4* dst = reinterpret_cast<int4*>(m.adj);
-  for (int i = threadIdx.x; i < W * W / 8; i += blockDim.x) dst[i] = src[i];
-}
-
-// x3's feature slice of block row r.
-__device__ void stage_feats(const BnBf16Smem& m, const float* __restrict__ feats,
-                            const uint8_t* __restrict__ keep, int W, int D, int F, int C1,
-                            int mode, float da, float db) {
-  const size_t row = (size_t)blockIdx.x * W;
-  for (int i = threadIdx.x; i < W * F; i += blockDim.x) {
-    const int n = i / F, f = i % F;
-    m.x3[n * C1 + 2 * D + f] =
-        drop_rn(mode, da, db, __ldg(feats + row * F + i), keep, (row + n) * C1 + 2 * D + f);
-  }
-}
-
-// h = bf([x3 | 1]) @ bf(w_aug)^T of node n, output o: c ascending, the bias last.
-__device__ __forceinline__ float dense_h(const BnBf16Smem& m, const float* __restrict__ w_aug,
-                                        int n, int o, int C1) {
-  const float* w = w_aug + (size_t)o * (C1 + 1);
-  const float* x = m.x3 + n * C1;
-  float acc = 0.0f;
-  for (int c = 0; c < C1; ++c) acc = fmaf(bf(x[c]), bf(__ldg(w + c)), acc);
-  return __fadd_rn(acc, bf(__ldg(w + C1)));
-}
-
 __global__ void __launch_bounds__(kBf16Threads)
 bn_fwd_bf16_kernel(const uint16_t* __restrict__ adj_loop, const uint16_t* __restrict__ adj_dep,
                    const float* __restrict__ y1, const float* __restrict__ y2,
@@ -124,7 +91,7 @@ bn_fwd_bf16_kernel(const uint16_t* __restrict__ adj_loop, const uint16_t* __rest
   const size_t row = (size_t)blockIdx.x * W;
   float* s = m.r0;
   float* y = m.r1;
-  stage_adj(m, adj_loop, adj_dep, Bl, W);
+  bn_stage_adj(m.adj, adj_loop, adj_dep, Bl, W);
   for (int i = threadIdx.x; i < WD; i += blockDim.x) {
     const int n = i / D, d = i % D;
     const float v = __fadd_rn(__fmul_rn(__ldg(y1 + row * D + i), __ldg(aff + d)),
@@ -132,33 +99,17 @@ bn_fwd_bf16_kernel(const uint16_t* __restrict__ adj_loop, const uint16_t* __rest
     s[i] = v;
     m.x3[n * C1 + d] = drop_rn(mode, da, db, v, keep, (row + n) * C1 + d);
   }
-  stage_feats(m, feats, keep, W, D, F, C1, mode, da, db);
+  bn_stage_feats(m.x3, feats, keep, W, D, F, mode, da, db);
   __syncthreads();
-  // the movement test, a thread a node, d ascending
-  for (int n = threadIdx.x; n < W; n += blockDim.x) {
-    float dist = 0.0f, norm = 0.0f;
-    for (int d = 0; d < D; ++d) {
-      const float o = __fadd_rn(__fmul_rn(__ldg(y2 + (row + n) * D + d), __ldg(aff + 2 * D + d)),
-                                __ldg(aff + 3 * D + d));
-      const float e = s[n * D + d] - o;
-      dist += e * e;
-      norm += o * o;
-    }
-    marg[row + n] = sqrtf(dist) > thr * sqrtf(norm) ? __ldg(nm + row + n) : 0.0f;
-  }
-  // agg = adjT^T @ bf(s) (+ rT) over the sources ascending
-  for (int i = threadIdx.x; i < WD; i += blockDim.x) {
-    const int dst = i / D, d = i % D;
-    float acc = 0.0f;
-    for (int src = 0; src < W; ++src)
-      acc = fmaf(bf16_value(m.adj[src * W + dst]), bf(s[src * D + d]), acc);
-    if (rT != nullptr) acc = __fadd_rn(acc, __ldg(rT + row * D + i));
-    agg_out[row * D + i] = acc;
-    m.x3[dst * C1 + D + d] = drop_rn(mode, da, db, acc, keep, (row + dst) * C1 + D + d);
-  }
+  bn_margins(s, [&](int n, int d) {
+    return __fadd_rn(__fmul_rn(__ldg(y2 + (row + n) * D + d), __ldg(aff + 2 * D + d)),
+                     __ldg(aff + 3 * D + d));
+  }, nm, marg, W, D, thr);
+  bn_aggregate(m.adj, s, m.x3, rT, agg_out, keep, W, D, C1, mode, da, db);
   __syncthreads();
   for (int i = threadIdx.x; i < WD; i += blockDim.x) {
-    const float v = act64(act, dense_h(m, w_aug, i / D, i % D, C1));
+    const int n = i / D, o = i % D;
+    const float v = act64(act, bn_dense_row(m.x3 + n * C1, w_aug + (size_t)o * (C1 + 1), C1));
     y[i] = v;
     y_out[row * D + i] = v;
   }
@@ -189,23 +140,23 @@ bn_bwd_bf16_kernel(const uint16_t* __restrict__ adj_loop, const uint16_t* __rest
   float* ds = m.r1;   // dx2's state slice, then ds
   float* dg = m.r2;   // bf(dagg)
   const float f = *flag;
-  stage_adj(m, adj_loop, adj_dep, Bl, W);
+  bn_stage_adj(m.adj, adj_loop, adj_dep, Bl, W);
   for (int i = threadIdx.x; i < WD; i += blockDim.x) {
     const int n = i / D, d = i % D;
     const size_t g = row * D + i;
     const float sp = __fadd_rn(__fmul_rn(__ldg(y_prev + g), __ldg(bnv + d)), __ldg(bnv + D + d));
     m.x3[n * C1 + d] = drop_rn(mode, da, db, sp, keep, (row + n) * C1 + d);
     m.x3[n * C1 + D + d] = drop_rn(mode, da, db, __ldg(agg + g), keep, (row + n) * C1 + D + d);
-    const float gs = __fadd_rn(__ldg(ds_in + g), __fmul_rn(f, __ldg(gsel + g)));
-    const float xk = __fmul_rn(__fsub_rn(__ldg(y_k + g), __ldg(bnv + 2 * D + d)),
-                               __ldg(bnv + 3 * D + d));
-    const float t = __fadd_rn(__ldg(bnv + 5 * D + d), __fmul_rn(xk, __ldg(bnv + 6 * D + d)));
-    dh[i] = __fsub_rn(__fmul_rn(__ldg(bnv + 4 * D + d), gs), __fmul_rn(__ldg(nm + row + n), t));
+    dh[i] = bn_gy(bnv, __ldg(ds_in + g), __ldg(gsel + g), __ldg(y_k + g), f,
+                  __ldg(nm + row + n), D, d);
   }
-  stage_feats(m, feats, keep, W, D, F, C1, mode, da, db);
+  bn_stage_feats(m.x3, feats, keep, W, D, F, mode, da, db);
   __syncthreads();
-  for (int i = threadIdx.x; i < WD; i += blockDim.x)
-    dh[i] = __fmul_rn(dh[i], act_grad64(act, dense_h(m, w_aug, i / D, i % D, C1)));
+  for (int i = threadIdx.x; i < WD; i += blockDim.x) {
+    const int n = i / D, o = i % D;
+    dh[i] = __fmul_rn(dh[i], act_grad64(act, bn_dense_row(m.x3 + n * C1,
+                                                          w_aug + (size_t)o * C, C1)));
+  }
   __syncthreads();
   // dw = dh^T @ [x3 | 1], the nodes ascending (per-block partials)
   float* dw_r = dw + (size_t)blockIdx.x * D * C;
@@ -222,43 +173,12 @@ bn_bwd_bf16_kernel(const uint16_t* __restrict__ adj_loop, const uint16_t* __rest
     float acc = 0.0f;
     for (int o = 0; o < D; ++o)
       acc = fmaf(bf(dh[n * D + o]), bf(__ldg(w_aug + (size_t)o * C + c)), acc);
-    if (mode != kNoDrop) acc = __fmul_rn(acc, keep[(row + n) * C1 + c] != 0 ? da : 0.0f);
-    if (c < D) {
-      ds[n * D + c] = acc;
-    } else {
-      dagg_out[row * D + n * D + c - D] = acc;
-      dg[n * D + c - D] = bf(acc);
-    }
+    bn_split_dx2(acc, n, c, ds, dg, dagg_out, keep, W, D, C1, mode, da);
   }
   __syncthreads();
-  // ds = dx2_s + adjT @ bf(dagg), over the destinations ascending
-  for (int i = threadIdx.x; i < WD; i += blockDim.x) {
-    const int src = i / D, d = i % D;
-    float acc = 0.0f;
-    for (int dst = 0; dst < W; ++dst)
-      acc = fmaf(bf16_value(m.adj[src * W + dst]), dg[dst * D + d], acc);
-    const float v = __fadd_rn(ds[i], acc);
-    ds[i] = v;
-    ds_out[row * D + i] = v;
-  }
+  bn_contract(m.adj, dg, ds, ds_out, W, D);  // ds = dx2_s + adjT @ bf(dagg)
   __syncthreads();
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float s1 = 0.0f, s2 = 0.0f;
-    for (int n = 0; n < W; ++n) {
-      const float v = ds[n * D + d];
-      const float xp = __fmul_rn(
-          __fsub_rn(__ldg(y_prev + (row + n) * D + d), __ldg(bnv + 7 * D + d)),
-          __ldg(bnv + 8 * D + d));
-      s1 = __fadd_rn(s1, v);
-      s2 = __fadd_rn(s2, __fmul_rn(v, xp));
-    }
-    red[((size_t)blockIdx.x * 2) * D + d] = s1;
-    red[((size_t)blockIdx.x * 2 + 1) * D + d] = s2;
-  }
-}
-
-bool bn_bf16_ok(int R, int Bl, int W, int D, int F) {
-  return R > 0 && Bl >= 0 && Bl <= R && block_ok(R, W) && D > 0 && F >= 0;
+  bn_reductions(ds, y_prev, bnv, red, W, D);
 }
 
 }  // namespace

@@ -27,15 +27,23 @@ type's weights, so the dense work is K1's whatever T is. Moments, margins
 and the BatchNorm's moment term mask padded nodes with nm; the reduction
 partials red group ds by the raw type, pads in type 0, as gnn_tpu's do.
 
+On a bf16 block adjacency (gnn_tpu's `hp = False` branch) the loop runs
+K16_bf16 (`bnT_forward_step_bf16`) and K17_bf16 (`bnT_backward_step_bf16`,
+ops/csrc/bn_typed_bf16.cu): K1_bf16's and K2_bf16's rounding (ops/bn.py)
+with each node's own type's weights, the per-type sums node by node.
+
 The K-loop is ops/bn.py's `_BNTrainLoop` with per-type moments
-(`TypedLoopOperands`); `bn_typed_train_propagate` drives it in training and
+(`TypedLoopOperands`, which picks the bf16 variants by the adjacency's
+dtype); `bn_typed_train_propagate` drives it in training and
 `typed_eval_propagate` runs K16 once an iteration with the fixed per-type
 inference affine at eval (rate 0, the moment sums ignored).
 
 Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
-launches the CUDA kernel (ops/csrc/bn_typed.cu) for CUDA tensors; it never
-falls back from one to the other. `launches` counts kernel launches. The
-kernels take every D, F and number of types T: the first of their staged
+launches the CUDA kernel (ops/csrc/bn_typed.cu, bn_typed_bf16.cu) for CUDA
+tensors; it never falls back from one to the other. `launches` counts kernel
+launches. The bf16 variants take the widths whose CTA fits shared memory
+(`bnT_bf16_smem_bytes`, any T); the f32 kernels take every D, F and number
+of types T: the first of their staged
 shared-memory plans that fits a CTA (D up to 64, T up to MAX_TYPES; the
 stacked weights staged there when they fit, else read through the L1/L2
 caches), else their wide plan, which keeps x3 and the [W][D]-sized rows in a
@@ -53,22 +61,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gnn_tpu_torch.ops import _build
+from gnn_tpu_torch.ops import _build, fused2
 from gnn_tpu_torch.ops.fold import fold_features, initial_state, kernel_columns
-from gnn_tpu_torch.ops.bn import (BNV_ROWS, BNLoopOperands, _agg_blocks, _bn_ds, _bn_gy,
-                                  _check_blocks, _ident_aff, _ones_col, _require_cuda, _res_term,
-                                  _x3, augmented, block_keep, block_rows, bn_train_loop,
-                                  input_rate, moving_stats)
+from gnn_tpu_torch.ops.bn import (BNV_ROWS, BNLoopOperands, _affine, _agg_blocks, _agg_bf16,
+                                  _bn_ds, _bn_gy, _check_bf16_blocks, _check_blocks,
+                                  _contract_bf16, _dense_bf16, _ident_aff, _ones_col,
+                                  _require_cuda, _res_term, _x3, augmented, block_keep,
+                                  block_rows, bn_train_loop, input_rate, moving_stats)
 from gnn_tpu_torch.ops.fused import (_ACT_CODE, _ACTS, FUSABLE_ACTIVATIONS, SMEM_BYTES,
                                      _act_grad, _check, _check_keep, _drop_args, _first_plan,
-                                     _plan_info, _ptr, _r4, _stream, _Workspace,
-                                     bn_inference_affine, moved)
+                                     _plan_info, _ptr, _r4, _stream, _Workspace, moved)
 
 MAX_TYPES = 32   # the most node types the staged plans take (their design range;
                  # the wide plan takes any number)
 
 # kernel launches since the last reset, by wrapper
-launches = {"bnT_forward_step": 0, "bnT_backward_step": 0}
+launches = {"bnT_forward_step": 0, "bnT_backward_step": 0, "bnT_forward_step_bf16": 0,
+            "bnT_backward_step_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -170,6 +179,73 @@ def bnT_backward_step_ref(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feat
                       alpha_drop, rate)
     red = torch.stack([_type_sums(onehot, ds), _type_sums(onehot, ds * ((y_prev - v[7]) * v[8]))],
                       dim=2)
+    return ds, dw, dagg, red
+
+
+# ------------------------------------------- bf16 adjacency: plain versions
+def _own_dense_bf16(x3, w_stk, ti, T):
+    """h [R, W, D]: each node's own type's rows of w_stk applied to
+    bf([x3 | 1]) as bn._dense_bf16 (the columns ascending, the bias last);
+    every type's product is exact term by term, so selecting after the sums
+    gives the kernel's per-node sum."""
+    D = w_stk.shape[0] // T
+    h_all = _dense_bf16(x3, w_stk, D).unflatten(-1, (T, D))
+    return torch.gather(h_all, -2, ti[..., None, None].expand(*ti.shape, 1, D))[..., 0, :]
+
+
+def _type_node_sums(onehot, x):
+    """[R, T, D] per-block sums of x [R, W, D] over each type's nodes in node
+    order, one f32 add a node (fused2.node_sum; another type's node adds a
+    zero, which keeps the sum's bits)."""
+    return fused2.node_sum(onehot[..., None] * x[..., None, :])
+
+
+def bnT_forward_step_bf16_ref(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_stk, nm,
+                              *, activations, alpha_drop: bool, rate: float, threshold: float):
+    """Plain PyTorch K16_bf16 (gnn_tpu's _bnT_fwd_kernel with hp false): K16
+    with K1_bf16's rounding, the aggregation over bf(s) and each node's own
+    type's dense layer over bf([x3 | 1]) and bf(w_stk), the bias column
+    through bf16; every sum in the kernel's order, the activations in
+    float64 (fused2.act64), msum node by node. Returns as
+    bnT_forward_step_ref."""
+    T = len(activations)
+    ti = types.long()
+    s = y1 * aff[0, 0][ti] + aff[0, 1][ti]
+    s_old = y2 * aff[1, 0][ti] + aff[1, 1][ti]
+    marg = moved(s, s_old, threshold) * nm
+    agg = _agg_bf16(adj_loop, adj_dep, s)
+    if rT is not None:
+        agg = agg + rT
+    h = _own_dense_bf16(_x3(s, agg, feats, keep, alpha_drop, rate), w_stk, ti, T)
+    y = _per_type(fused2.act64, activations, h, ti)
+    return y, agg, marg, _type_node_sums(F.one_hot(ti, T).to(y.dtype), y * nm[..., None])
+
+
+def bnT_backward_step_bf16_ref(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats, w_stk,
+                               ds_in, gsel, bnv, flag, nm, *, activations, alpha_drop: bool,
+                               rate: float):
+    """Plain PyTorch K17_bf16 (gnn_tpu's _bnT_bwd_kernel with hp false): h
+    recomputed with K16_bf16's rounding, dh with each node's own type's
+    BatchNorm coefficients, dw the unrounded f32 product into the node's
+    type's rows (gnn_tpu's _BDT_HI), dx2 = bf(dh) @ bf(w_own[:, :2D]) and the
+    aggregation's reverse over bf(dagg); dw and red summed node by node.
+    Returns as bnT_backward_step_ref."""
+    T = len(activations)
+    D = y_prev.shape[-1]
+    ti = types.long()
+    v = bnv[ti].movedim(-2, 0)                              # [9, R, W, D] own type's rows
+    x3 = _x3(y_prev * v[0] + v[1], agg, feats, keep, alpha_drop, rate)
+    h = _own_dense_bf16(x3, w_stk, ti, T)
+    dh = _bn_gy(y_k, ds_in, gsel, v, flag, nm) * _per_type(fused2.act_grad64, activations, h, ti)
+    onehot = F.one_hot(ti, T).to(dh.dtype)
+    dw = fused2.node_outer((onehot[..., None] * dh[..., None, :]).flatten(-2), _ones_col(x3))
+    dhb = fused2._bf("dh", dh)
+    dx_all = torch.stack([fused2._exact_dot(dhb, fused2._bf("w", w_stk[t * D:(t + 1) * D, :2 * D])
+                                            .t()) for t in range(T)], dim=-2)
+    dx2 = torch.gather(dx_all, -2, ti[..., None, None].expand(*ti.shape, 1, 2 * D))[..., 0, :]
+    ds, dagg = _bn_ds(adj_loop, adj_dep, dx2, keep, alpha_drop, rate, _contract_bf16)
+    red = torch.stack([_type_node_sums(onehot, ds),
+                       _type_node_sums(onehot, ds * ((y_prev - v[7]) * v[8]))], dim=2)
     return ds, dw, dagg, red
 
 
@@ -276,6 +352,12 @@ def _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations):
     """(Bl, W, T) after checking the block rows and widths, the node types
     and the stacked weights (every D, F and T has a plan at W <= 128)."""
     Bl, W = _check_blocks(adj_loop, adj_dep, R)
+    return Bl, W, _check_types(R, W, D, Fd, types, w_stk, activations)
+
+
+def _check_types(R, W, D, Fd, types, w_stk, activations):
+    """T after checking the node types (int32 [R, W]) and the stacked weights
+    [T*D, 2D+F+1]."""
     T = len(activations)
     if T < 1:
         raise ValueError("the typed kernels need at least one node type")
@@ -285,7 +367,7 @@ def _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations):
         raise ValueError(f"types must be a contiguous int32 tensor of shape {(R, W)} on {dev}, "
                          f"got {types.dtype} {tuple(types.shape)} on {types.device}")
     _check("w_stk", w_stk, (T * D, 2 * D + Fd + 1), dev)
-    return Bl, W, T
+    return T
 
 
 _CODES = {}   # (activations, device) -> uint8 [T] activation codes on the device
@@ -327,17 +409,7 @@ def bnT_forward_step(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_s
     Fd = feats.shape[-1]
     Bl, W, T = _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations)
     dev = y1.device
-    for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
-        if t is not None:
-            _check(name, t, (R, W, D), dev)
-    _check("aff", aff, (2, 2, T, D), dev)
-    _check("feats", feats, (R, W, Fd), dev)
-    _check("nm", nm, (R, W), dev)
-    keep = _check_keep(keep, (R, W, 2 * D + Fd), dev, rate)
-    y = torch.empty((R, W, D), dtype=torch.float32, device=dev)
-    agg = torch.empty_like(y)
-    marg = torch.empty((R, W), dtype=torch.float32, device=dev)
-    msum = torch.empty((R, T, D), dtype=torch.float32, device=dev)
+    keep, (y, agg, marg, msum) = _fwdT_operands(y1, y2, aff, keep, rT, feats, nm, W, T, rate)
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -350,6 +422,25 @@ def bnT_forward_step(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_s
     _build.check(err, "bnT_forward_step (K16)")
     launches["bnT_forward_step"] += 1
     return y, agg, marg, msum
+
+
+def _fwdT_operands(y1, y2, aff, keep, rT, feats, nm, W: int, T: int, rate: float):
+    """K16's (K16_bf16's) operands but the adjacency, the types and the
+    weights checked: (the keep-mask, the outputs (y, agg, marg, msum)
+    allocated)."""
+    R, _, D = y1.shape
+    Fd = feats.shape[-1]
+    dev = y1.device
+    for name, t in (("y1", y1), ("y2", y2), ("rT", rT)):
+        if t is not None:
+            _check(name, t, (R, W, D), dev)
+    _check("aff", aff, (2, 2, T, D), dev)
+    _check("feats", feats, (R, W, Fd), dev)
+    _check("nm", nm, (R, W), dev)
+    keep = _check_keep(keep, (R, W, 2 * D + Fd), dev, rate)
+    y = torch.empty((R, W, D), dtype=torch.float32, device=dev)
+    return keep, (y, torch.empty_like(y), torch.empty((R, W), dtype=torch.float32, device=dev),
+                  torch.empty((R, T, D), dtype=torch.float32, device=dev))
 
 
 def bnT_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats, w_stk, ds_in, gsel,
@@ -375,18 +466,8 @@ def bnT_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats, w
     C = 2 * D + Fd + 1
     Bl, W, T = _check_typed(adj_loop, adj_dep, R, D, Fd, types, w_stk, activations)
     dev = y_prev.device
-    for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
-                    ("gsel", gsel)):
-        _check(name, t, (R, W, D), dev)
-    _check("feats", feats, (R, W, Fd), dev)
-    _check("bnv", bnv, (T, len(BNV_ROWS), D), dev)
-    _check("flag", flag, (), dev)
-    _check("nm", nm, (R, W), dev)
-    keep = _check_keep(keep, (R, W, C - 1), dev, rate)
-    ds = torch.empty((R, W, D), dtype=torch.float32, device=dev)
-    dagg = torch.empty_like(ds)
-    dw = torch.empty((R, T * D, C), dtype=torch.float32, device=dev)
-    red = torch.empty((R, T, 2, D), dtype=torch.float32, device=dev)
+    keep, (ds, dw, dagg, red) = _bwdT_operands(y_prev, y_k, agg, keep, feats, ds_in, gsel, bnv,
+                                               flag, nm, W, T, rate)
     mode, a, b = _drop_args(alpha_drop, rate)
     lib = _build.library()
     with torch.cuda.device(dev):
@@ -401,21 +482,114 @@ def bnT_backward_step(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats, w
     return ds, dw, dagg, red
 
 
+def _bwdT_operands(y_prev, y_k, agg, keep, feats, ds_in, gsel, bnv, flag, nm, W: int, T: int,
+                   rate: float):
+    """K17's (K17_bf16's) operands but the adjacency, the types and the
+    weights checked: (the keep-mask, the outputs (ds, dw, dagg, red)
+    allocated)."""
+    R, _, D = y_prev.shape
+    Fd = feats.shape[-1]
+    C = 2 * D + Fd + 1
+    dev = y_prev.device
+    for name, t in (("y_prev", y_prev), ("y_k", y_k), ("agg", agg), ("ds_in", ds_in),
+                    ("gsel", gsel)):
+        _check(name, t, (R, W, D), dev)
+    _check("feats", feats, (R, W, Fd), dev)
+    _check("bnv", bnv, (T, len(BNV_ROWS), D), dev)
+    _check("flag", flag, (), dev)
+    _check("nm", nm, (R, W), dev)
+    keep = _check_keep(keep, (R, W, C - 1), dev, rate)
+
+    def out(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+    return keep, (out(R, W, D), out(R, T * D, C), out(R, W, D), out(R, T, 2, D))
+
+
+def bnT_bf16_smem_bytes(W: int, D: int, F: int) -> int:
+    """Shared memory of a K16_bf16 / K17_bf16 CTA (ops/csrc/bn_typed_bf16.cu::
+    bnT_bf16_smem): K1_bf16's (bn.bn_bf16_smem_bytes: the bf16 adjacency
+    [W][W], x3 [W][2D+F] and three rows [W][D] of floats) and the node types
+    [W] as ints. The number of types takes no room."""
+    return 2 * W * W + 4 * W * (5 * D + F + 1)
+
+
+def bnT_forward_step_bf16(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats, w_stk, nm, *,
+                          activations, alpha_drop: bool, rate: float, threshold: float):
+    """K16_bf16: one typed BN-training iteration over every block row of a
+    bf16 adjacency (gnn_tpu's _bnT_fwd_kernel with hp false). Arguments and
+    result as bnT_forward_step's, adj_loop / adj_dep bf16."""
+    kw = dict(activations=tuple(activations), alpha_drop=alpha_drop, rate=rate,
+              threshold=threshold)
+    if y1.device.type == "cpu":
+        return bnT_forward_step_bf16_ref(adj_loop, adj_dep, y1, y2, aff, types, keep, rT, feats,
+                                         w_stk, nm, **kw)
+    _require_cuda(y1)
+    R, _, D = y1.shape
+    Fd = feats.shape[-1]
+    Bl, W = _check_bf16_blocks(adj_loop, adj_dep, R, D, Fd, "K16_bf16", bnT_bf16_smem_bytes)
+    T = _check_types(R, W, D, Fd, types, w_stk, activations)
+    dev = y1.device
+    keep, (y, agg, marg, msum) = _fwdT_operands(y1, y2, aff, keep, rT, feats, nm, W, T, rate)
+    mode, a, b = _drop_args(alpha_drop, rate)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gnn_bnT_forward_bf16(
+            _ptr(adj_loop), _ptr(adj_dep), _ptr(y1), _ptr(y2), _ptr(aff), _ptr(types), _ptr(keep),
+            _ptr(rT), _ptr(feats), _ptr(w_stk), _ptr(nm), _ptr(y), _ptr(agg), _ptr(marg),
+            _ptr(msum), R, Bl, W, D, Fd, T, float(threshold), _ptr(_act_codes(activations, dev)),
+            mode, a, b, _stream(dev))
+    _build.check(err, "bnT_forward_step_bf16 (K16_bf16)")
+    launches["bnT_forward_step_bf16"] += 1
+    return y, agg, marg, msum
+
+
+def bnT_backward_step_bf16(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats, w_stk, ds_in,
+                           gsel, bnv, flag, nm, *, activations, alpha_drop: bool, rate: float):
+    """K17_bf16: one reverse typed BN-training iteration over every block row
+    of a bf16 adjacency (gnn_tpu's _bnT_bwd_kernel with hp false). Arguments
+    and result as bnT_backward_step's, adj_loop / adj_dep bf16."""
+    kw = dict(activations=tuple(activations), alpha_drop=alpha_drop, rate=rate)
+    if y_prev.device.type == "cpu":
+        return bnT_backward_step_bf16_ref(adj_loop, adj_dep, y_prev, y_k, agg, types, keep, feats,
+                                          w_stk, ds_in, gsel, bnv, flag, nm, **kw)
+    _require_cuda(y_prev)
+    R, _, D = y_prev.shape
+    Fd = feats.shape[-1]
+    Bl, W = _check_bf16_blocks(adj_loop, adj_dep, R, D, Fd, "K17_bf16", bnT_bf16_smem_bytes)
+    T = _check_types(R, W, D, Fd, types, w_stk, activations)
+    dev = y_prev.device
+    keep, (ds, dw, dagg, red) = _bwdT_operands(y_prev, y_k, agg, keep, feats, ds_in, gsel, bnv,
+                                               flag, nm, W, T, rate)
+    mode, a, b = _drop_args(alpha_drop, rate)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        err = lib.gnn_bnT_backward_bf16(
+            _ptr(adj_loop), _ptr(adj_dep), _ptr(y_prev), _ptr(y_k), _ptr(agg), _ptr(types),
+            _ptr(keep), _ptr(feats), _ptr(w_stk), _ptr(ds_in), _ptr(gsel), _ptr(bnv), _ptr(flag),
+            _ptr(nm), _ptr(ds), _ptr(dw), _ptr(dagg), _ptr(red), R, Bl, W, D, Fd, T,
+            _ptr(_act_codes(activations, dev)), mode, a, b, _stream(dev))
+    _build.check(err, "bnT_backward_step_bf16 (K17_bf16)")
+    launches["bnT_backward_step_bf16"] += 1
+    return ds, dw, dagg, red
+
+
 # ------------------------------------------------------------- the K-loop
 @dataclasses.dataclass
 class TypedLoopOperands(BNLoopOperands):
     """bn_train_loop's operands of a typed loop: `types` set, `activations`
-    one per type, the weights (w_stk,); iterations run K16 and K17."""
+    one per type, the weights (w_stk,); iterations run K16 and K17 (K16_bf16
+    and K17_bf16 on a bf16 adjacency)."""
 
     def forward_step(self, k, y1, y2, aff, rT, weights):
-        return bnT_forward_step(self.adj_loop, self.adj_dep, y1, y2, aff, self.types,
-                                self.keep_k(k), rT, self.feats, *weights, self.nm,
-                                threshold=self.threshold, **self.step_kw())
+        step = bnT_forward_step_bf16 if self.bf16 else bnT_forward_step
+        return step(self.adj_loop, self.adj_dep, y1, y2, aff, self.types, self.keep_k(k), rT,
+                    self.feats, *weights, self.nm, threshold=self.threshold, **self.step_kw())
 
     def backward_step(self, k, y_prev, y_k, agg, weights, ds_in, gsel, bnv, flag):
-        ds, dw, dagg, red = bnT_backward_step(self.adj_loop, self.adj_dep, y_prev, y_k, agg,
-                                              self.types, self.keep_k(k), self.feats, *weights,
-                                              ds_in, gsel, bnv, flag, self.nm, **self.step_kw())
+        step = bnT_backward_step_bf16 if self.bf16 else bnT_backward_step
+        ds, dw, dagg, red = step(self.adj_loop, self.adj_dep, y_prev, y_k, agg, self.types,
+                                 self.keep_k(k), self.feats, *weights, ds_in, gsel, bnv, flag,
+                                 self.nm, **self.step_kw())
         return ds, [dw], dagg, red
 
     def step_kw(self):
@@ -486,7 +660,8 @@ def typed_eval_propagate(spec, params_state, bn_state, gb, init=None):
     """Typed inference propagation (gnn_tpu's typed_eval_propagate): K16 once
     an iteration with rate 0, the first with the identity affine, the later
     ones with each type's fixed inference affine (identity without
-    BatchNorm); the moment sums are not used. The early stop and snapshot
+    BatchNorm; on a bf16 adjacency evaluated in float64 and rounded once, as
+    core.inference_affine); the moment sums are not used. The early stop and snapshot
     as the training loop's, the snapshot normalized by each node's own
     type's affine. Returns (iters, state [Np, D], bn_state unchanged)."""
     s0, w_stk, op = typed_operands(spec, params_state, gb, False, init=init)
@@ -494,8 +669,8 @@ def typed_eval_propagate(spec, params_state, bn_state, gb, init=None):
     T = spec.n_types
     ident = _ident_aff(D, s0)[:, None].expand(2, T, D)
     if spec.state_specs[0].batch_normalization:
-        aff1 = torch.stack([bn_inference_affine(p["bn"]["gamma"], p["bn"]["beta"], b["mean"],
-                                                b["var"])
+        aff1 = torch.stack([_affine(p["bn"]["gamma"], p["bn"]["beta"], b["mean"], b["var"],
+                                    op.bf16)
                             for p, b in zip(params_state, bn_state)], dim=1)      # [2, T, D]
     else:
         aff1 = ident

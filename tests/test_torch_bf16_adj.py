@@ -304,42 +304,45 @@ def one_layer(rate, bn, act="selu"):
                  batch_normalization=bn, **drop)
 
 
-# each route's state net, whether it trains, and its aggregation name. The
-# one-layer dropout route runs on a bf16 batch (tests/test_torch_bf16_dropout.py);
+# each case's state net, whether it trains, its aggregation name and grad
+# mode. Every kernel route runs on a bf16 batch (tests/test_torch_bf16_*.py);
 # the dropout nets here leave the kernels for the plain body: one with an
 # activation the kernels do not take ("dropout"), the two-layer one on the
-# all-dep layout ("dropout_flat"), as gnn_tpu sends both to its XLA body.
-ROUTES = {"plain_train": (lambda: one_layer(0.0, False), True, "segment"),
-          "dropout_flat": (lambda: h150_specs(0.1)[2], True, "fused"),
-          "dropout": (lambda: one_layer(0.1, False, "elu"), True, "auto"),
-          "ift1": (lambda: one_layer(0.0, False), True, "auto"),
-          "bn2_flat": (lambda: dataclasses.replace(TSpec(**h150_specs(0.1)[2]),
-                                                   batch_normalization=True), True, "fused"),
-          "bn2": (lambda: dataclasses.replace(TSpec(**h150_specs(0.1)[2]),
-                                              batch_normalization=True), True, "auto"),
-          "plain": (lambda: one_layer(0.0, False), False, "segment"),
-          "ift": (lambda: h150_specs(0.0)[2], True, "auto")}
+# all-dep layout ("dropout_flat"), as gnn_tpu sends both to its XLA body;
+# the two-layer BatchNorm nets on either layout ("bn2", "bn2_flat") train
+# with the implicit adjoint (dropout-free, as it requires).
+def bn2_net():
+    return dataclasses.replace(TSpec(**h150_specs(0.0)[2]), batch_normalization=True)
+
+
+ROUTES = {"plain_train": (lambda: one_layer(0.0, False), True, "segment", "unroll"),
+          "dropout_flat": (lambda: h150_specs(0.1)[2], True, "fused", "unroll"),
+          "dropout": (lambda: one_layer(0.1, False, "elu"), True, "auto", "unroll"),
+          "ift1": (lambda: one_layer(0.0, False), True, "auto", "ift"),
+          "bn2_flat": (bn2_net, True, "fused", "ift"),
+          "bn2": (bn2_net, True, "auto", "ift"),
+          "plain": (lambda: one_layer(0.0, False), False, "segment", "unroll"),
+          "ift": (lambda: h150_specs(0.0)[2], True, "auto", "ift")}
 
 
 @pytest.mark.parametrize("route", list(ROUTES))
 def test_other_routes_raise_on_bf16_batch(route):
     """Every route not yet ported to a bf16 batch (the plain body in training,
-    dropout nets among them, and at eval, the two-layer BatchNorm kernels on
-    either layout, the implicit adjoint of a one- or two-layer net) raises
-    NotImplementedError on it, naming the ROADMAP entry that ports it; none
-    casts the batch to f32. ('hybrid', the one-layer 'bn', 'hybrid2',
-    'dropout2' and 'dropout' run: tests/test_torch_bf16_flagship.py,
-    test_torch_bf16_train.py, test_torch_bf16_dropout.py and the tests
-    above.)"""
+    dropout nets among them, and at eval, the implicit adjoint of a one- or
+    two-layer net, the two-layer BatchNorm nets on either layout among them)
+    raises NotImplementedError on it, naming the ROADMAP entry that ports
+    it; none casts the batch to f32. (Every kernel route runs:
+    tests/test_torch_bf16_flagship.py, test_torch_bf16_train.py,
+    test_torch_bf16_dropout.py, test_torch_bf16_bn2.py,
+    test_torch_bf16_composite.py and the tests above.)"""
     _, tgs = graphs(5)
-    net, training, aggregation = ROUTES[route]
+    net, training, aggregation, grad_mode = ROUTES[route]
     _, tb = batches(tgs, tgs, fused_layout=not route.endswith("_flat"))
     ss = net()
     ss = ss if isinstance(ss, TSpec) else TSpec(**ss)
     spec = tcore.GNNSpec(focus="g", state_spec=ss,
                          output_spec=TSpec(input_dim=NL, units=(DT,), activations="softmax"),
-                         max_iteration=K, aggregation=aggregation,
-                         grad_mode="ift" if route.startswith("ift") else "unroll")
+                         max_iteration=K, aggregation=aggregation, grad_mode=grad_mode)
     route_of = tcore._train_route if training else tcore._eval_route
     assert route_of(spec, tb) == {"ift1": "hybrid", "ift": "hybrid2", "bn2": "bn",
                                   "bn2_flat": "bn", "plain_train": "plain",
@@ -352,16 +355,20 @@ def test_other_routes_raise_on_bf16_batch(route):
 
 @pytest.mark.parametrize("training", [False, True])
 def test_composite_routes_raise_on_bf16_batch(training):
-    """The composite routes (K16, K16/K17, the plain body) raise on a bf16
-    batch."""
+    """A composite model whose per-type nets leave the typed kernels for the
+    plain body raises on a bf16 batch: two dense layers a type at eval, the
+    implicit adjoint in training. (The typed routes run:
+    tests/test_torch_bf16_composite.py.)"""
     from test_torch_state_dim import graphs as typed
     _, tgs = typed(6, types=2)
     tb = tbatch.from_graphs_blocked(tgs, block_w=32, fused_layout=True, adj_dtype=BF16)
-    ss = TSpec(input_dim=2 * NL + AL, units=(NL,), activations="selu", batch_normalization=True,
-               dropout_rate=(0.1,), dropout_pos=(0,), alphadropout=True)
+    drop = {} if training else dict(dropout_rate=(0.1,), dropout_pos=(0,), alphadropout=True)
+    ss = TSpec(input_dim=2 * NL + AL, units=(NL,) if training else (H1, NL),
+               activations="selu", batch_normalization=True, **drop)
     m = CompositeGNNgraphBased([ss, ss], TSpec(input_dim=NL, units=(DT,),
-                                               activations="softmax"), device="cpu")
-    assert tcomp._route(m.spec, tb, training) == ("typed_bn" if training else "typed_eval")
+                                               activations="softmax"),
+                               grad_mode="ift" if training else "unroll", device="cpu")
+    assert tcomp._route(m.spec, tb, training) == "plain"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if training:
             m.training_step(tb)

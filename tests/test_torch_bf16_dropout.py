@@ -224,20 +224,19 @@ def test_bf16_dropout_wrappers_check_their_operands():
 
 def test_check_adj_dtype_admits_the_dropout_route():
     """On a bf16 batch check_adj_dtype admits route 'dropout' unrolled, as
-    it does 'hybrid', 'hybrid2', 'dropout2' and the one-layer 'bn', and
-    still raises NotImplementedError naming the ROADMAP entry for the
-    two-layer 'bn', the plain body, grad_mode='ift' (the dropout route's
-    too) and the composite routes; an f32 batch passes every route."""
+    it does every kernel route ('hybrid', 'hybrid2', 'dropout2', 'bn' of
+    either depth, the composite 'typed_bn' and 'typed_eval'), and still
+    raises NotImplementedError naming the ROADMAP entry for the plain body
+    and grad_mode='ift' (the dropout, two-layer BatchNorm and typed routes'
+    too); an f32 batch passes every route."""
     _, tgs = graphs(9)
     _, tb = batches(tgs, tgs)
-    for route, layers in (("dropout", 1), ("hybrid", 1), ("hybrid2", 2), ("dropout2", 2),
-                          ("bn", 1)):
-        tcore.check_adj_dtype(tb, route, True, "unroll", layers)
+    for route in ("dropout", "hybrid", "hybrid2", "dropout2", "bn", "typed_bn", "typed_eval"):
+        tcore.check_adj_dtype(tb, route, True, "unroll")
     # composite.py's routes take the same check
-    for route, layers, mode in (("bn", 2, "unroll"), ("plain", 1, "unroll"),
-                                ("dropout", 1, "ift"), ("hybrid", 1, "ift"),
-                                ("typed_bn", 1, "unroll"), ("typed_eval", 1, "unroll")):
+    for route, mode in (("bn", "ift"), ("plain", "unroll"), ("dropout", "ift"),
+                        ("hybrid", "ift"), ("typed_bn", "ift"), ("typed_eval", "ift")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tcore.check_adj_dtype(tb, route, True, mode, layers)
+            tcore.check_adj_dtype(tb, route, True, mode)
     f32 = tbatch.from_graphs_blocked(tgs, block_w=32, focus="g", fused_layout=True)
-    tcore.check_adj_dtype(f32, "plain", True, "ift", 2)
+    tcore.check_adj_dtype(f32, "plain", True, "ift")

@@ -3,15 +3,16 @@
 (the implicit adjoint), 23 (state_dim > 0 and the bf16 adjacency of the
 hidden-150 recipe), 24 (the flagship on the bf16 adjacency), 25
 (training on the bf16 adjacency: the recipe with its dropout and the clean
-flagship) and 26 (the flagship's BatchNorm-free dropout route on the bf16
-adjacency); the bf16 variants' f32 twins' times, which the earlier phases
-measure, are not taken here. On the MUTAG-shaped set. The output and the checks are
+flagship), 26 (the flagship's BatchNorm-free dropout route on the bf16
+adjacency) and 27 (the two-layer BatchNorm route and composite models on
+the bf16 adjacency); the bf16 variants' f32 twins' times, which the earlier
+phases measure, are not taken here. On the MUTAG-shaped set. The output and the checks are
 chip_smoke.py's; its last-line contract is not. The kernels are built
 unless the build folder holds a current library.
 
 Usage, from the repository root:
     python3 tools/smoke_phases.py [phases=lgnn,ift,state_bf16,flagship_bf16,train_bf16,
-                                          dropout_bf16]
+                                          dropout_bf16,bn2_typed_bf16]
 """
 
 import os
@@ -28,7 +29,7 @@ def main():
     args = dict(a.split("=", 1) for a in sys.argv[1:])
     phases = args.pop("phases", "lgnn,ift").split(",")
     if args or not set(phases) <= {"lgnn", "ift", "state_bf16", "flagship_bf16", "train_bf16",
-                                   "dropout_bf16"}:
+                                   "dropout_bf16", "bn2_typed_bf16"}:
         cs.fail(f"unknown arguments {sorted(args)} or phases {phases}")
     cs.phase_device(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -66,6 +67,11 @@ def main():
         twins = {k: {"ms": None, "replaces": f"gnn_tpu/ops/pallas_fused.py ({k})"}
                  for k in ("K6", "K7", "K8")}
         for entry in cs.phase_dropout_bf16(torch, graphs, n_arcs, twins).values():
+            cs.say(str(entry))
+    if "bn2_typed_bf16" in phases:
+        twins = {k: {"ms": None, "replaces": f"gnn_tpu/ops/pallas_*.py ({k})"}
+                 for k in ("K14", "K15", "K16", "K17")}
+        for entry in cs.phase_bn2_typed_bf16(torch, graphs, n_arcs, twins).values():
             cs.say(str(entry))
     cs.say(f"done ({cs.elapsed()})")
 
