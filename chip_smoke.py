@@ -319,7 +319,11 @@
    of the entries within 1e-5, grads within rtol 2e-4 with a floor of 2e-5
    of the largest entry, and every entry within the change one flip of
    bf(U_a) an iteration makes, a bound run and printed only where an entry
-   misses the tolerance), timed beside
+   misses the tolerance; K10_bf16, redesigned with its aggregation
+   on bf16 tensor-core tiles, which add in the tensor cores' order: its
+   movement flags equal or, where one differs, the plain version's node at
+   the threshold within the f32 rounding of the two norms,
+   `near_threshold_flags`, and a repeat launch bit for bit), timed beside
    their f32 twins; (c) h150 served on a bf16 full-set batch (K10_bf16 and
    K9_bf16, no other kernel) and 3 h150_clean steps on a bf16 training batch
    (K10_bf16, K11_bf16, K9_bf16 K times): the outputs and the first step's
@@ -381,8 +385,12 @@
    the composite flagship's 'composite_bn' step (T = 4, 1214 rows) and
    K16_bf16 at the composite serving batch's (1550 rows, rate 0), against
    their plain versions on the card, bit for bit (the per-block partials
-   msum, red, dw0, dw1, db1 and dw included; Part B's gate prints the
-   largest difference), movement flags equal, timed beside their f32 twins;
+   msum, red and dw included; Part B's gate prints the largest difference),
+   but K15_bf16, redesigned with its contraction on bf16 tensor-core
+   tiles: ds and the per-block partials red held by Part B's gate
+   (unsummed, the bound from one flip of bf(dh0)), dagg and the partials
+   dw0, dw1 and db1 bit for bit, a repeat launch bit for bit; movement flags
+   equal, timed beside their f32 twins;
    (b) 3 'h150_bn' steps on the bf16 training batch (K14_bf16 and K15_bf16 K
    times a step, no other kernel), the composite flagship served on a bf16
    full-set batch (8 requests, K16_bf16 K times a request) and 3
@@ -417,6 +425,9 @@ T_START = time.perf_counter()
 BUILD_S = [0.0]         # the kernels' build, seconds
 PORT_KERNELS = set()    # the names of the port's __global__ functions (port_kernel)
 CARD = ""               # nvidia-smi's "name, power limit" of the card
+# the bf16 variants redesigned on tensor-core tiles, marked in their lines
+REDESIGNED = {"K10_bf16": " (redesigned)", "K15_bf16": " (redesigned)"}
+BF16_OUT_ERR = {}       # {(kernel, output): largest difference}, check_bf16_kernels'
 
 
 def fail(msg):
@@ -4764,7 +4775,9 @@ def check_bf16_kernels(torch, cases):
     """Each bf16 variant against its plain version on the card on the same
     inputs, by Part B's gate (hold_bf16, the bound from the plain version
     with one flip at the case's rounding point); movement flags equal.
-    Per-block partials are summed over the blocks. `cases`: (kernel, module,
+    The outputs named summed are summed over the blocks (K11_bf16's
+    per-block partials); each output's largest difference goes into
+    BF16_OUT_ERR. `cases`: (kernel, module,
     wrapper, operands, output names, rounding point, the summed outputs,
     whether its outputs are gradients). Returns {kernel: largest
     difference}."""
@@ -4783,7 +4796,8 @@ def check_bf16_kernels(torch, cases):
             if a is None:
                 continue
             if o in ("margins", "flags"):
-                if not bool((a == b).all()):
+                if not bool((a == b).all()) and not (
+                        k == "K10_bf16" and near_threshold_flags(torch, x, got, want)):
                     fail(f"{k}: {o} disagree with its plain version")
                 continue
             if o in summed:
@@ -4791,10 +4805,41 @@ def check_bf16_kernels(torch, cases):
             err = hold_bf16(f"{k} {o} vs its plain version", a, b,
                             lambda i=i, s=o in summed: flipped()[i].sum(0) if s else flipped()[i],
                             grads=grads)
+            BF16_OUT_ERR[k, o] = err
             worst[k] = max(worst[k], err)
         say(f"{k}: largest difference from its plain version {worst[k]:.3e}"
             f"{' (bit for bit)' if worst[k] == 0.0 else ''}")
     return worst
+
+
+def near_threshold_flags(torch, x, got, want):
+    """Whether every movement flag in which K10_bf16's margins (got[1])
+    differ from its plain version's (want[1]) belong to a node the plain
+    version puts at the threshold: its ||s_k - s_{k-1}|| and thr *
+    ||s_{k-1}||, evaluated in float64 on the plain version's states, apart
+    by no more than the f32 rounding of the two norms ((D / 2 + 2) f32
+    units of their sum: a D-term sum of squares, its square root and the
+    product with thr). The tensor cores add in another order than the plain
+    version, so such a node may fall on either side. Prints each such node
+    and its distance."""
+    wtraj, wmarg = (t.double() for t in want)
+    marg = got[1].double()
+    s0 = x["s0"].double()
+    eps = 2.0 ** -24 * (s0.shape[-1] / 2 + 2)
+
+    def states(tr, k):     # (s_k, s_{k-1}) that margins[k] compares, s_{-1} = 1
+        s = s0 if k == 0 else tr[k - 1]
+        return s, torch.ones_like(s0) if k == 0 else s0 if k == 1 else tr[k - 2]
+    ok = True
+    for k, b, n in (marg != wmarg).nonzero().tolist():
+        s, s_old = (v[b, n] for v in states(wtraj, k))
+        dist, lim = float((s - s_old).norm()), float(x["threshold"] * s_old.norm())
+        band = eps * (dist + lim)
+        say(f"K10_bf16: movement flag of node {n} of block {b} before iteration {k} differs "
+            f"from its plain version's: ||s_k - s_k-1|| - thr ||s_k-1|| = {dist - lim:.3e} in "
+            f"float64 on the plain version's states, the f32 rounding there {band:.3e}")
+        ok = ok and abs(dist - lim) <= band
+    return ok
 
 
 def bf16_flip_adj(torch, x):
@@ -4955,6 +5000,7 @@ def phase_state_bf16(torch, graphs, requests, gb, gb_train, gb_train_typed, n_ar
                   ("gs", "dw20", "dw1", "db1", "dfT", "daff"), "ua",
                   ("dw20", "dw1", "db1", "daff"), True))
         errs = check_bf16_kernels(torch, cases)
+        check_repeat(torch, "K10_bf16", fused2.propagation_loop2_bf16, k10, "full set")
         timed, bounds = time_bf16_kernels(torch, cases, kernels, ("K9", "K10", "K11"))
     served = phase_serving(
         torch, "h150_bf16", flagship(torch, "cuda", "h150"), flagship(torch, "cpu", "h150"), gb16,
@@ -5223,13 +5269,21 @@ def phase_bn2_typed_bf16(torch, graphs, n_arcs, kernels):
                   "agg", (), False),
                  ("K17_bf16", typed, "bnT_backward_step_bf16", k17, ("ds", "dw", "dagg", "red"),
                   "dh", (), True))
-        # the per-block partials (msum, red, dw0, dw1, db1, dw) unsummed: bit for bit
+        # every output unsummed, the per-block partials (msum, red, dw0, dw1,
+        # db1, dw) too: bit for bit, but K15_bf16's ds and red, which read
+        # the contraction, a product the tensor cores add in their own order
+        # (Part B's gate)
         errs = check_bf16_kernels(torch, cases + (
             ("K16_bf16 serving", typed, "bnT_forward_step_bf16", k16s,
              ("y", "agg", "flags", "msum"), "agg", (), False),))
         for k, err in errs.items():
-            if err != 0.0:
+            if err != 0.0 and k != "K15_bf16":
                 fail(f"{k}: {err:.3e} from its plain version, not bit for bit")
+        for o in ("dw0", "dw1", "db1", "dagg"):
+            if BF16_OUT_ERR["K15_bf16", o] != 0.0:
+                fail(f"K15_bf16: {o} {BF16_OUT_ERR['K15_bf16', o]:.3e} from its plain version, "
+                     f"not bit for bit")
+        check_repeat(torch, "K15_bf16", bn.bn2_backward_step_bf16, k15, "full set")
         timed, bounds = time_bf16_kernels(torch, cases, kernels, ("K14", "K15", "K16", "K17"))
         serve_ms = device_ms(torch, lambda: typed.bnT_forward_step_bf16(**k16s), launches=1,
                              runs=20)
@@ -5267,7 +5321,7 @@ def time_bf16_kernels(torch, cases, kernels, twins):
         timed[k] = (ms, plain)
         b, by = bounds[k]
         t32 = kernels[twin]["ms"]
-        say(f"{k}: {ms:.4f} ms a call (device time), its f32 twin {twin} "
+        say(f"{k}{REDESIGNED.get(k, '')}: {ms:.4f} ms a call (device time), its f32 twin {twin} "
             f"{'not measured' if t32 is None else f'{t32:.4f} ms'} on the f32 batch's same "
             f"blocks; plain version {plain:.3f} ms; bound {b:.4f} ms ({by}); {CARD}")
     return timed, bounds
@@ -5281,7 +5335,8 @@ def kernel_rows(kernels, src, errs, timed, bounds):
     for k, (cu, twin, counts, key) in src.items():
         if not counts[key]:
             fail(f"{k}: launched 0 times on its main path")
-        out[k] = {"name": k, "route": "cuda", "source": f"gnn_tpu_torch/ops/csrc/{cu}",
+        out[k] = {"name": k + REDESIGNED.get(k, ""), "route": "cuda",
+                  "source": f"gnn_tpu_torch/ops/csrc/{cu}",
                   "replaces": kernels[twin]["replaces"],
                   "launches": counts[key], "max_abs_err": errs[k], "ms": timed[k][0],
                   "plain_ms": timed[k][1], "bound_ms": bounds[k][0], "bound_by": bounds[k][1],

@@ -43,10 +43,14 @@ runs K14_bf16 (`bn2_forward_step_bf16`) and K15_bf16
 (`bn2_backward_step_bf16`, ops/csrc/bn2_bf16.cu): the first layer as
 K1_bf16's H1 wide, then h1 = bf(y0) @ bf(w1) + b1; in the reverse dy0 =
 bf(dh1) @ bf(w1), dx2 = bf(dh0) @ bf(w0_aug[:, :2D]), dw0 and dw1 the
-unrounded f32 products. Their plain versions sum in the kernel's order
-(ops/fused2.py's bf16 helpers, the block sums node by node), and
-BNLoopOperands picks them by the adjacency's dtype. The moment glue and the
-residual term run in float64 rounded once (`BNLoopOperands.acc`).
+unrounded f32 products. Their plain versions sum in the CUDA-core kernels'
+order (ops/fused2.py's bf16 helpers, the block sums node by node);
+K15_bf16 runs its contraction on bf16 tensor-core tiles (ops/csrc/
+mma_bf16.cuh; the weights rounded and zero-padded once a call by
+`bn2_bf16_tiles`), which add in their own order, so it is held to its
+plain version by Part B's gate and not bit for bit. BNLoopOperands picks
+them by the adjacency's dtype. The moment glue and the residual term run
+in float64 rounded once (`BNLoopOperands.acc`).
 
 Each wrapper runs its plain PyTorch version (`*_ref`) for CPU tensors and
 launches the CUDA kernel (ops/csrc/bn_fwd.cu, bn_train.cu, bn2_fwd.cu,
@@ -632,17 +636,36 @@ def bn_bf16_smem_bytes(W: int, D: int, F: int) -> int:
     return 2 * W * W + 4 * W * (5 * D + F)
 
 
+def bn2_bf16_layout(W: int, D: int, F: int):
+    """(SC, dg_in_x3, bytes) of K15_bf16's CTA (ops/csrc/bn2_bf16.cu::
+    bn2_bwd_bf16_layout): f32 x3a = [x3 | 1] [W][C | 1] (C = 2D + F + 1, the
+    row stride made odd), h1 then dh1 [W][D] and dx2 [W][2D], then a region
+    that holds y0 and dh0 of a sub-chunk of SC hidden units [W][SC] in f32
+    and, at the end, the bf16 adjacency [W][W+8] and bf(dagg)
+    [W][pad16(D)+8] (the latter in x3a's region where it fits there); SC is
+    32 where the CTA then fits SMEM_BYTES, else 16."""
+    xs = (2 * D + F + 1) | 1
+    rows = 4 * W * (xs + 3 * D)
+    dg, adj = 2 * W * (fused2.pad16(D) + 8), 2 * W * (W + 8)
+    dg_in_x3 = dg <= 4 * W * xs
+    tail = adj + (0 if dg_in_x3 else dg)
+    for sc in (32, 16):
+        nbytes = rows + max(8 * W * sc, tail)
+        if nbytes <= SMEM_BYTES:
+            break
+    return sc, dg_in_x3, nbytes
+
+
 def bn2_bf16_smem_bytes(kernel: str, W: int, D: int, F: int) -> int:
     """Shared memory of a K14_bf16 or K15_bf16 CTA (ops/csrc/bn2_bf16.cu::
-    bn2_bf16_smem): the bf16 adjacency [W][W] and x3 [W][2D+F] of floats;
-    K14_bf16 two rows [W][D] (s, h1) and a hidden chunk [W][32] (bf(y0));
-    K15_bf16 three rows (gy and dh1, h1 and ds, bf(dagg)), dx2 [W][2D] and
-    two chunks (y0, dh0). The hidden width runs in chunks, so it takes no
-    room."""
+    bn2_bf16_smem and bn2_bwd_bf16_layout): K14_bf16 the bf16 adjacency [W][W]
+    and, of floats, x3 [W][2D+F], two rows [W][D] (s, h1) and a hidden chunk
+    [W][32] (bf(y0)); K15_bf16 its tensor-core layout (bn2_bf16_layout). The
+    hidden width runs in chunks, so it takes no room."""
     C1 = 2 * D + F
     if kernel == "K14_bf16":
         return 2 * W * W + 4 * W * (C1 + 2 * D + fused2.BF16_CHUNK)
-    return 2 * W * W + 4 * W * (C1 + 5 * D + 2 * fused2.BF16_CHUNK)
+    return bn2_bf16_layout(W, D, F)[2]
 
 
 def _check_bf16_blocks(adj_loop, adj_dep, R: int, D: int, F: int, kernel: str,
@@ -868,6 +891,19 @@ def bn2_forward_step_bf16(adj_loop, adj_dep, y1, y2, aff, keep, rT, feats, w0_au
     return y, agg, marg, msum
 
 
+def bn2_bf16_tiles(w0_aug, w1):
+    """K15_bf16's weights as bf16 tiles (fused2.tile_bf16; Cp, H1p, Dp: C =
+    2D + F + 1, H1 and D up to a multiple of 16): [bf(w0_aug)^T [Cp, H1p] |
+    bf(w0_aug) [H1p, Cp]] flat (h0's and dx2's, the first 2D columns of the
+    second dx2's) and bf(w1)^T [H1p, Dp]."""
+    D, H1 = w1.shape
+    p16 = fused2.pad16
+    Cp, H1p = p16(w0_aug.shape[1]), p16(H1)
+    return (torch.cat([fused2.tile_bf16(w0_aug.t(), Cp, H1p).reshape(-1),
+                       fused2.tile_bf16(w0_aug, H1p, Cp).reshape(-1)]),
+            fused2.tile_bf16(w1.t(), H1p, p16(D)))
+
+
 def bn2_backward_step_bf16(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_aug, w1, b1,
                            ds_in, gsel, bnv, flag, nm, *, act0: str, act1: str, alpha_drop: bool,
                            rate: float):
@@ -889,11 +925,12 @@ def bn2_backward_step_bf16(adj_loop, adj_dep, y_prev, y_k, agg, keep, feats, w0_
                                                flag, nm, W, rate)
     dw0, dw1, db1 = _two_layer_partials(R, D, C, H1, dev)
     mode, a, b = _drop_args(alpha_drop, rate)
+    w0t, w1t = bn2_bf16_tiles(w0_aug, w1)
     lib = _build.library()
     with torch.cuda.device(dev):
         err = lib.gnn_bn2_backward_bf16(
             _ptr(adj_loop), _ptr(adj_dep), _ptr(y_prev), _ptr(y_k), _ptr(agg), _ptr(keep),
-            _ptr(feats), _ptr(w0_aug), _ptr(w1), _ptr(b1), _ptr(ds_in), _ptr(gsel), _ptr(bnv),
+            _ptr(feats), _ptr(w0t), _ptr(w1t), _ptr(b1), _ptr(ds_in), _ptr(gsel), _ptr(bnv),
             _ptr(flag), _ptr(nm), _ptr(ds), _ptr(dw0), _ptr(dw1), _ptr(db1), _ptr(dagg),
             _ptr(red), R, Bl, W, D, Fd, H1, _ACT_CODE[act0], _ACT_CODE[act1], mode, a, b,
             _stream(dev))

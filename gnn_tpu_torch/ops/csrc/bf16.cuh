@@ -1,6 +1,6 @@
 // Device code shared by the bf16-adjacency variants of the two-layer eval
-// kernels (loop2_bf16.cu: K10_bf16, fused2_bf16.cu: K9_bf16,
-// eval_loop2_bwd_bf16.cu: K11_bf16), gnn_tpu's `hp = False` branch
+// kernels (fused2_bf16.cu: K9_bf16, eval_loop2_bwd_bf16.cu: K11_bf16; its
+// rounding and activations also loop2_bf16.cu: K10_bf16), gnn_tpu's `hp = False` branch
 // (pallas_fused.py:104-217, :1127-1169, :1390-1470); its rounding, the
 // activations and the dropout also serve eval_loop_bf16.cu (K3_bf16,
 // K4_bf16), eval_loop_bwd_bf16.cu (K5_bf16), train_loop_bf16.cu (K6-K8_bf16)
@@ -15,19 +15,28 @@
 //   h0 = (U_s + A) + fT (+ rT)              fT, rT f32 [W, H1]
 //   h1 = bf(act0(h0)) @ bf(w1)^T + b1       w1 [D, H1]
 //   s' = act1(h1) * scale + shift
-// Every product is of two bf values, so exact in f32, and each sum runs over
-// its contracted index ascending (A over the sources, h1 over the hidden
-// units chunk by chunk), one f32 add a term: the order of the plain versions
-// (ops/fused2.py), so a kernel gives their bits. The activations are
-// evaluated in float64 and rounded to f32 once (fused2.act64): the card and
-// the CPU then take the same bf16 rounding of y0.
+// Every product is of two bf values, so exact in f32, and in the kernels
+// built on this header each sum runs over its contracted index ascending (A
+// over the sources, h1 over the hidden units chunk by chunk), one f32 add a
+// term: the order of the plain versions (ops/fused2.py), so such a kernel
+// gives their bits. K10_bf16 (loop2_bf16.cu) and K15_bf16 (bn2_bf16.cu's
+// reverse kernel) take only the rounding, the activations and the BatchNorm
+// helpers from here: their aggregation (K10_bf16's adjT^T @ bf(U_a),
+// K15_bf16's adjT @ bf(dagg)) runs on bf16 tensor-core tiles
+// (mma_bf16.cuh), which add in the tensor cores' own order, so they are
+// held to their plain versions by Part B's gate and not bit for bit; their
+// dense layers keep the plain order. The
+// activations are evaluated in float64 and rounded to f32 once
+// (fused2.act64): the card and the CPU then take the same bf16 rounding of
+// y0.
 //
-// Design (simple, not yet tuned): one CTA of 256 threads a block. The bf16
-// adjacency is staged in shared memory once (2*W*W bytes, 32 KiB at
-// W = 128), beside the state and h1 rows [W][D]; the hidden units run in
-// chunks of kBf16Chunk = 32: U's two halves of the chunk, then A and y0,
-// then the chunk's terms of h1. Weights are read through the read-only
-// cache. No atomics: a repeat launch is bit-identical.
+// Design of the CUDA-core iteration (simple, not yet tuned; K9_bf16 and
+// K11_bf16): one CTA of 256 threads a block. The bf16 adjacency is staged in
+// shared memory once (2*W*W bytes, 32 KiB at W = 128), beside the state and
+// h1 rows [W][D]; the hidden units run in chunks of kBf16Chunk = 32: U's two
+// halves of the chunk, then A and y0, then the chunk's terms of h1. Weights
+// are read through the read-only cache. No atomics: a repeat launch is
+// bit-identical.
 
 #pragma once
 
@@ -67,6 +76,18 @@ __device__ __forceinline__ float act64(int act, float x) {
     default:
       return x;
   }
+}
+
+// bf(act64(act, x)), the float64 evaluation only where the f32 one
+// (common.cuh::activate: tanhf and expf within 2 f32 ulps, selu's e - 1 within
+// 2^-22 absolute; e = 2^-20 |y| + 2^-21 covers both) lies within e of a bf16
+// rounding midpoint; elsewhere the two round alike (K10_bf16's and
+// K15_bf16's bf(y0); about 0.2% of selu and tanh values of unit scale fall
+// back).
+__device__ __forceinline__ float bf_act64(int act, float x) {
+  const float y = activate(act, x), e = fmaf(9.5367431640625e-07f, fabsf(y), 4.76837158203125e-07f);
+  const float lo = bf(y - e);
+  return lo == bf(y + e) ? lo : bf(act64(act, x));
 }
 
 // d act / d h in float64, rounded to f32 once (fused2.act_grad64).

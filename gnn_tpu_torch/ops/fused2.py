@@ -50,7 +50,9 @@ with fT = W0fold @ feats + b0 and the residual term rT = W0a @ Σres H1
 wide, both f32, outside the rounding.
 
 * `propagation_loop2_bf16` (K10_bf16, ops/csrc/loop2_bf16.cu, replaces
-  `_loop2_kernel_T` with hp false): all K iterations of residual-free blocks.
+  `_loop2_kernel_T` with hp false): all K iterations of residual-free blocks,
+  the aggregation on bf16 tensor-core tiles (ops/csrc/mma_bf16.cuh), the
+  weights rounded and zero-padded once a call (`tile_bf16`).
 * `propagation_loop2_bwd_bf16` (K11_bf16, eval_loop2_bwd_bf16.cu, replaces
   `_loop2_bwd_kernel` with hp false): its K reverse iterations, the forward
   recomputed with the same rounding and the reverse products on bf16
@@ -76,10 +78,16 @@ f32, h0 = bf(x3) @ bf(w0)^T + b0, then the second layer as above:
   operands node by node, a block each.
 
 Their plain versions sum every product in a fixed order (`_seq_dot`: the
-contracted index ascending), which their kernels follow, so on the card a
-kernel and its plain version differ only where the activations' last bits
-do; against gnn_tpu's XLA products an f32 sum in another order can move a
-value across a bf16 rounding boundary. The f32 kernels aggregate the D-wide
+contracted index ascending), which the CUDA-core kernels follow, so on the
+card such a kernel and its plain version differ only where the activations'
+last bits do. K10_bf16 adds its aggregation on the tensor cores in their
+own order (as gnn_tpu's MXU dots do, in an order of their own): those sums
+of a destination's few arcs are exact in f32 on the sets served here, and
+its dense layers keep the plain version's order, since in another order
+about 2^-14 of their bf16 roundings flip and at full scale the flips
+compound past Part B's one-flip bound (tools/bf16_order.py); it is held to
+its plain version by Part B's gate. Against gnn_tpu's XLA products, too, an
+f32 sum in another order can move a value across a bf16 rounding boundary. The f32 kernels aggregate the D-wide
 state first; the bf16 ones contract bf(U_a), H1/D of those operations.
 
 The differentiable ops are torch.autograd.Functions: `fused_propagation_loop2`
@@ -907,20 +915,59 @@ def train_loop2_bwd(adjT, s0, traj, agg, ms, ma, fd, w0, b0, w1, b1, g_traj, act
 
 
 # ------------------------------------------------- bf16 adjacency: wrappers
-BF16_CHUNK = 32     # hidden units a chunk of the bf16 kernels (kBf16Chunk)
+BF16_CHUNK = 32     # hidden units a chunk of the CUDA-core bf16 kernels (kBf16Chunk)
+TWO_CTAS_BYTES = 233472 // 2 - 1024   # shared memory a CTA may take with two an SM
+
+
+def pad16(x: int) -> int:
+    """x rounded up to a multiple of 16, the bf16 tensor-core tiles' depth
+    (ops/csrc/mma_bf16.cuh::pad16)."""
+    return (x + 15) // 16 * 16
+
+
+def tile_bf16(w, rows: int, cols: int):
+    """bf(w) [r, c] in a zero-padded bf16 tile [rows, cols] (rows >= r, cols
+    >= c): the weights of the redesigned bf16 kernels (K10_bf16, K15_bf16),
+    rounded once a call in place of once a term. Its values are
+    round_bf16's, its padding exact zeros, so padded hidden units and
+    columns add exact zeros."""
+    out = torch.zeros((rows, cols), dtype=torch.bfloat16, device=w.device)
+    out[:w.shape[0], :w.shape[1]] = w.to(torch.bfloat16)
+    return out
+
+
+def loop2_bf16_layout(W: int, D: int, H1: int):
+    """(HC, bytes) of K10_bf16's CTA (ops/csrc/loop2_bf16.cu::
+    loop2_bf16_layout): the bf16 adjacency [W][W+8], bf(s) [W][pad16(D)+8],
+    bf(U_a) of a chunk of HC hidden units [W][HC+8], bf(y0) of the chunk
+    [W][HC] and h1's f32 sums [W][D]; HC is the widest multiple of 16, up to
+    pad16(H1), that leaves two CTAs an SM (TWO_CTAS_BYTES), else that fits
+    SMEM_BYTES (below 16: the widths do not fit, and bytes are those of a
+    16-unit chunk)."""
+    fixed = 2 * W * (W + 8 + pad16(D) + 8 + 8) + 4 * W * D
+    hc = (TWO_CTAS_BYTES - fixed) // (4 * W) // 16 * 16
+    if hc < 16:
+        hc = max(SMEM_BYTES - fixed, 0) // (4 * W) // 16 * 16
+    hc = min(hc, pad16(H1))
+    return hc, fixed + 4 * W * max(hc, 16)
 
 
 def bf16_smem_bytes(kernel: str, W: int, D: int, AL: int = 0) -> int:
-    """Shared memory of a bf16 kernel's CTA (ops/csrc/bf16.cuh::bf16_smem and
-    train_loop2_bf16.cu::train2_bf16_smem, train_loop_bf16.cu::train_bf16_smem):
-    the bf16 adjacency [W][W], then floats: the eval kernels' state and h1
-    rows [W][D] and the U_a and y0 chunks [W][CH]; K11_bf16 and K5_bf16 also
-    a [W][D] gs row and the dh0 and dua chunks; K12_bf16 the state and h1
-    rows, bf(x3) [W][C] (C = 2D + AL) and a y0 chunk; K13_bf16 two rows
-    [W][D], x3, bf(x3) and dx3 [W][C] and three chunks; the one-layer
-    dropout kernels (AL = 0, C = 2D): K7_bf16 the state and its successor
-    [W][D] and bf(x2) [W][C], K8_bf16 gs and dh [W][D], x2 and bf(x2) [W][C],
-    K6_bf16 the state [W][D] and bf(x2)."""
+    """Shared memory of a bf16 kernel's CTA (ops/csrc/bf16.cuh::bf16_smem,
+    loop2_bf16.cu::loop2_bf16_layout, train_loop2_bf16.cu::train2_bf16_smem,
+    train_loop_bf16.cu::train_bf16_smem): K10_bf16's tensor-core layout with
+    the least hidden chunk, 16 units (loop2_bf16_layout), which is what its
+    widths need to launch; else the bf16
+    adjacency [W][W], then floats: K9_bf16's state and h1 rows [W][D] and the
+    U_a and y0 chunks [W][CH]; K11_bf16 and K5_bf16 also a [W][D] gs row and
+    the dh0 and dua chunks; K12_bf16 the state and h1 rows, bf(x3) [W][C] (C
+    = 2D + AL) and a y0 chunk; K13_bf16 two rows [W][D], x3, bf(x3) and dx3
+    [W][C] and three chunks; the one-layer dropout kernels (AL = 0, C = 2D):
+    K7_bf16 the state and its successor [W][D] and bf(x2) [W][C], K8_bf16 gs
+    and dh [W][D], x2 and bf(x2) [W][C], K6_bf16 the state [W][D] and
+    bf(x2)."""
+    if kernel == "K10_bf16":
+        return loop2_bf16_layout(W, D, 16)[1]
     C = 2 * D + AL
     rows, chunks, wide = {"K11_bf16": (3, 4, 0), "K5_bf16": (3, 4, 0), "K12_bf16": (2, 1, 1),
                           "K13_bf16": (2, 3, 3), "K7_bf16": (2, 0, 1), "K8_bf16": (2, 0, 2),
@@ -1016,8 +1063,11 @@ def propagation_loop2_bf16(adjT, s0, fT, w20, w1, b1, affine, nm, K: int, thresh
     margins = torch.empty((K, B, W), dtype=torch.float32, device=dev)
     if B == 0 or K == 0:
         return traj, margins
+    Dp, H1p = pad16(D), pad16(H1)
+    w20t = torch.stack([tile_bf16(w20[:H1].t(), Dp, H1p), tile_bf16(w20[H1:].t(), Dp, H1p)])
+    w1t = tile_bf16(w1.t(), H1p, Dp)
     _launch("propagation_loop2_bf16", dev,
-            _ptr(adjT), _ptr(s0), _ptr(fT), _ptr(w20), _ptr(w1), _ptr(b1), _ptr(aff), _ptr(nm),
+            _ptr(adjT), _ptr(s0), _ptr(fT), _ptr(w20t), _ptr(w1t), _ptr(b1), _ptr(aff), _ptr(nm),
             _ptr(traj), _ptr(margins), B, W, D, H1, int(K), float(threshold), _ACT_CODE[act0],
             _ACT_CODE[act1])
     return traj, margins

@@ -155,6 +155,55 @@ def kernel_operands(seed, act0, act1, affine):
     return ops, dep, dict(act0=act0, act1=act1)
 
 
+@pytest.mark.parametrize("node,accepted", [(0, True), (1, False)])
+def test_near_threshold_flags_accepts_only_a_node_at_the_threshold(node, accepted):
+    """chip_smoke.py::near_threshold_flags, the rule for a K10_bf16 movement
+    flag that differs from its plain version's: accepted where the plain
+    version's ||s_k - s_k-1|| equals thr * ||s_k-1|| within the f32 rounding
+    of the two norms (node 0: 0.25 against 0.25, exactly), refused elsewhere
+    (node 1: 1 against 0.25)."""
+    s0 = torch.tensor([[[1.0, 0.0, 0.0], [1.0, 0.0, 0.0]]])
+    traj = torch.tensor([[[[1.25, 0.0, 0.0], [2.0, 0.0, 0.0]]]]).expand(2, 1, 2, 3)
+    want = (traj, torch.zeros(2, 1, 2))
+    got = (traj, want[1].clone())
+    got[1][1, 0, node] = 1.0
+    assert chip_smoke.near_threshold_flags(torch, {"s0": s0, "threshold": 0.25}, got,
+                                           want) is accepted
+
+
+@pytest.mark.parametrize("rows,cols,shape", [(16, 16, (7, 5)), (160, 16, (150, 14)),
+                                             (32, 48, (32, 33))])
+def test_tile_bf16_rounds_once_and_pads_with_zeros(rows, cols, shape):
+    """tile_bf16, the tensor-core kernels' weights: round_bf16's values in
+    the top-left corner, exact zeros elsewhere, bf16."""
+    w = torch.tensor(np.random.default_rng(rows + cols).standard_normal(shape),
+                     dtype=torch.float32)
+    t = tf2.tile_bf16(w, rows, cols)
+    assert t.dtype == BF16 and t.shape == (rows, cols)
+    full = torch.zeros(rows, cols)
+    full[:shape[0], :shape[1]] = tf2.round_bf16("w", w)
+    assert torch.equal(t.float(), full)
+
+
+@pytest.mark.parametrize("act0,act1,affine", [("selu", "selu", False), ("tanh", "selu", True)])
+def test_k10_bf16_plain_version_on_padded_weights(act0, act1, affine):
+    """The zero padding of K10_bf16's tiles adds exact zeros: its plain
+    version with the hidden width padded to 16 (zero rows of both halves of
+    w20, zero columns of w1 and fT, as tile_bf16 pads them) gives the
+    unpadded trajectory and margins bit for bit."""
+    ops, _, acts = kernel_operands(3, act0, act1, affine)
+    w20, w1, fT = ops["w20"], ops["w1"], ops["fT"]
+    H = w1.shape[1]
+    P = tf2.pad16(H + 1) - H        # H1 = 16 here: pad it to 32
+    z = w20.new_zeros(P, w20.shape[1])
+    pad = dict(ops, w20=torch.cat([w20[:H], z, w20[H:], z]),
+               w1=torch.cat([w1, w1.new_zeros(w1.shape[0], P)], 1),
+               fT=torch.cat([fT, fT.new_zeros(fT.shape[:-1] + (P,))], -1))
+    for a, b in zip(tf2.propagation_loop2_bf16_ref(**pad, K=K, threshold=0.01, **acts),
+                    tf2.propagation_loop2_bf16_ref(**ops, K=K, threshold=0.01, **acts)):
+        assert torch.equal(a, b)
+
+
 def fm(x):
     """Node-major [.., B, W, C] -> gnn_tpu's feature-major [.., B, C, W]."""
     return jnp.asarray(np.swapaxes(np.asarray(x), -1, -2))

@@ -25,6 +25,7 @@ from gnn_tpu.ops.mlp import MLPSpec as JSpec
 from gnn_tpu_torch.convert import flatten
 from gnn_tpu_torch.models import core as tcore
 from gnn_tpu_torch.ops import bn as tbn
+from gnn_tpu_torch.ops import fused2 as tf2
 from gnn_tpu_torch.ops.mlp import MLPSpec as TSpec
 from test_torch_bf16_adj import fm, grad_tol, hold, state_tol
 from test_torch_bf16_flagship import arrays, batches, init, jadj, model_of, one_flip
@@ -115,7 +116,8 @@ def test_bn2_bf16_wrappers_check_their_operands():
     """The K14_bf16/K15_bf16 wrappers launch nothing on the CPU, count no
     launch there, and mirror the shared memory of their CTAs: the widths
     whose CTA does not fit raise ValueError naming the limit (no wide plan,
-    no fallback); the hidden width takes no room (hidden chunks)."""
+    no fallback); the hidden width takes no room (hidden chunks, K15_bf16's
+    sub-chunks of its tensor-core layout)."""
     fwd, bwd, _ = bn2_operands(3, 0.1, True)
     tbn.reset_launches()
     tbn.bn2_forward_step_bf16(**fwd, act0="selu", act1="selu", alpha_drop=True, rate=0.1,
@@ -123,9 +125,13 @@ def test_bn2_bf16_wrappers_check_their_operands():
     tbn.bn2_backward_step_bf16(**bwd, act0="selu", act1="selu", alpha_drop=True, rate=0.1)
     assert not any(tbn.launches.values())
     assert tbn.bn2_bf16_smem_bytes("K14_bf16", 128, 14, 3) == 2 * 128 * 128 + 4 * 128 * 91
-    assert tbn.bn2_bf16_smem_bytes("K15_bf16", 128, 14, 3) == 2 * 128 * 128 + 4 * 128 * 165
+    # x3a [W][33] (C = 32, the stride made odd), dh1 [W][14], dx2 [W][28],
+    # then the bf16 adjacency [W][136] (more than y0 and dh0 [W][32] in f32
+    # need); bf(dagg) in x3a's region
+    assert tbn.bn2_bf16_layout(128, 14, 3) == (32, True, 4 * 128 * (33 + 42) + 2 * 128 * 136)
+    assert tbn.bn2_bf16_smem_bytes("K15_bf16", 128, 14, 3) == 73216
     meta = torch.empty((2, 128, 128), dtype=torch.bfloat16, device="meta")
-    for k, fits in (("K14_bf16", 88), ("K15_bf16", 46)):
+    for k, fits in (("K14_bf16", 88), ("K15_bf16", 76)):
         smem = tbn._smem2_bf16(k)
         assert tbn._check_bf16_blocks(meta, None, 2, fits, 3, k, smem) == (2, 128)
         with pytest.raises(ValueError, match="shared memory"):
@@ -136,6 +142,71 @@ def test_bn2_bf16_wrappers_check_their_operands():
     with pytest.raises(ValueError, match="shape"):
         tbn._check_weights2(torch.zeros(8, 32), torch.zeros(14, 9), torch.zeros(14), 14, 3,
                             torch.device("cpu"))
+
+
+@pytest.mark.parametrize("W", [32, 64, 96, 128])
+def test_tensor_core_layouts_take_every_width_the_old_ones_did(W):
+    """K10_bf16's and K15_bf16's tensor-core layouts (fused2.loop2_bf16_layout,
+    bn.bn2_bf16_layout) launch at every width the CUDA-core layouts they
+    replaced took at block width W: those took K10_bf16 at 2W^2 + 4W(2D +
+    64) bytes (every hidden width, in chunks of 32) and K15_bf16 at 2W^2 +
+    4W(7D + F + 64), within SMEM_BYTES (at W 128: D to 163, 7D + F to 326)."""
+    S = tf2.SMEM_BYTES
+    d10 = [D for D in range(1, 1000) if 2 * W * W + 4 * W * (2 * D + 64) <= S]
+    assert d10 and all(tf2.bf16_smem_bytes("K10_bf16", W, D) <= S for D in d10)
+    for D in d10[::7] + d10[-1:]:
+        for H1 in (1, 7, 150, 512, 4096):
+            hc, nbytes = tf2.loop2_bf16_layout(W, D, H1)
+            assert 16 <= hc <= tf2.pad16(H1) and hc % 16 == 0 and nbytes <= S
+    taken = [(D, F) for D in range(1, 400) for F in range(0, 2000)
+             if 2 * W * W + 4 * W * (7 * D + F + 64) <= S]
+    assert taken and all(tbn.bn2_bf16_smem_bytes("K15_bf16", W, D, F) <= S for D, F in taken)
+    if W == 128:
+        assert max(d10) == 163 and max(7 * D + F for D, F in taken) == 326
+        assert tf2.loop2_bf16_layout(128, 14, 150) == (128, 115712)   # two CTAs an SM
+
+
+def test_bn2_bf16_tiles_round_and_pad_the_weights():
+    """K15_bf16's weight tiles hold bf(w0_aug)^T, bf(w0_aug) and bf(w1)^T
+    exactly as fused2.round_bf16 rounds them, zero-padded to multiples of
+    16."""
+    fwd, _, _ = bn2_operands(4, 0.1, True, H=23)
+    w0, w1 = fwd["w0_aug"], fwd["w1"]
+    p = tf2.pad16
+    w0t, w1t = tbn.bn2_bf16_tiles(w0, w1)
+    n0 = p(w0.shape[1]) * p(w0.shape[0])
+    assert w0t.shape == (2 * n0,)
+    tiles = (w0t[:n0].reshape(p(w0.shape[1]), -1), w0t[n0:].reshape(p(w0.shape[0]), -1), w1t)
+    for tile, w in zip(tiles, (w0.t(), w0, w1.t())):
+        assert tile.dtype == torch.bfloat16 and tile.shape == (p(w.shape[0]), p(w.shape[1]))
+        full = torch.zeros(tile.shape)
+        full[:w.shape[0], :w.shape[1]] = tf2.round_bf16("w", w)
+        assert torch.equal(tile.float(), full)
+
+
+@pytest.mark.parametrize("act0,act1", [("selu", "tanh"), ("tanh", "selu")])
+def test_k15_bf16_plain_version_on_padded_weights(act0, act1):
+    """The zero padding of the tensor-core tiles adds exact zeros: K15_bf16's
+    plain version with the hidden width padded to 16 (zero rows of w0_aug,
+    zero columns of w1, as bn2_bf16_tiles pads them) gives the unpadded
+    result bit for bit (the padded units' weight partials zero)."""
+    _, bwd, _ = bn2_operands(5, 0.1, True, H=7)
+    kw = dict(act0=act0, act1=act1, alpha_drop=True, rate=0.1)
+    w0, w1 = bwd["w0_aug"], bwd["w1"]
+    Hp = tf2.pad16(w0.shape[0])
+    pad = dict(bwd, w0_aug=torch.cat([w0, w0.new_zeros(Hp - w0.shape[0], w0.shape[1])]),
+               w1=torch.cat([w1, w1.new_zeros(w1.shape[0], Hp - w1.shape[1])], 1))
+    want = tbn.bn2_backward_step_bf16_ref(**bwd, **kw)
+    got = tbn.bn2_backward_step_bf16_ref(**pad, **kw)
+    H = w0.shape[0]
+    for i, (a, b) in enumerate(zip(got, want)):
+        if i == 1:      # dw0 [R, H1, C]
+            assert not a[:, H:].any()
+            a = a[:, :H]
+        if i == 2:      # dw1 [R, D, H1]
+            assert not a[..., H:].any()
+            a = a[..., :H]
+        assert torch.equal(a, b), i
 
 
 # ------------------------------------------------------------------ the step

@@ -55,6 +55,16 @@ gnn_*_force_plan entry, where it has one and the plan fits. `only=K6,K18` limits
 operands, checks and times) to those kernels.
 ptxas's report of each build goes to build/tiled_ab/ptxas.log.
 
+The bf16 variants on tensor-core tiles (K10_bf16, K15_bf16;
+`only=K10_bf16,K15_bf16`) are called in each tree through that tree's own
+Python wrapper (its ops/fused2.py or ops/bn.py beside csrc/, which forms the
+weights its kernel takes) and held instead by chip_smoke.py's Part B gate
+against the current tree's plain version, every output unsummed, and a
+repeat launch bit for bit, at their main paths' full-set operands (K15_bf16
+at three operand seeds) and at the widest and narrowest widths the
+CUDA-core layouts took, and timed a, b, b, a by CUDA events and by the
+profiler's device time a call beside their bound.
+
 Usage, from the repository root, with a parent checkout unpacked under build/:
     python3 tools/tiled_ab.py [only=K6,K18] parent=build/parent/gnn_tpu_torch/ops/csrc \\
         new=gnn_tpu_torch/ops/csrc
@@ -67,6 +77,7 @@ import re
 import subprocess
 import sys
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -91,6 +102,11 @@ WIDE = ("K1", "K2", "K3", "K4", "K5", "K6", "K7", "K8", "K9", "K10", "K11", "K12
 # the typed entries' argument positions of the node types and of the
 # activation codes (the same in both interfaces)
 TYPED_ARGS = {"gnn_bnT_forward": (5, 22), "gnn_bnT_backward": (5, 24)}
+# the bf16 variants on tensor-core tiles, held to their plain versions by
+# chip_smoke.py's Part B gate (not bit for bit across trees): kernel: (C
+# entry, the wrapper's module, the wrapper)
+BF16_TILED = {"K10_bf16": ("gnn_propagation_loop2_bf16", "fused2", "propagation_loop2_bf16"),
+              "K15_bf16": ("gnn_bn2_backward_bf16", "bn", "bn2_backward_step_bf16")}
 
 
 def has_wide(src):
@@ -125,8 +141,10 @@ def main():
     cs.phase_device(torch)
     torch.backends.cuda.matmul.allow_tf32 = False
     args = dict(a.split("=", 1) for a in sys.argv[1:])
-    only = args.pop("only", ",".join(KERNELS)).split(",")
+    only = args.pop("only", ",".join(list(KERNELS) + list(BF16_TILED))).split(",")
     kernels = {k: v for k, v in KERNELS.items() if k in only}
+    kernels.update({k: (v[0], False) for k, v in BF16_TILED.items() if k in only})
+    ops = {"fused2": fused2, "bn": bn}
     trees = args
     if len(trees) < 2:
         cs.fail("name two or more source trees as name=path")
@@ -502,10 +520,131 @@ def main():
     def outputs(r):
         return r if isinstance(r, tuple) else (r,)
 
+    def bf16_adj(g, B, W):
+        arcs = torch.rand(B, W, W, generator=g) < 0.05
+        return (arcs / arcs.sum(1, keepdim=True).clamp_min(1)).to(torch.bfloat16).to("cuda")
+
+    def bf16_tiled(k):
+        """K10_bf16 at the bf16 h150 serving batch's 1440 loop rows; K15_bf16
+        at the bf16 h150_bn training batch's 1214 block rows (iteration 2's
+        reverse), its operands at three seeds (weights, masks and
+        cotangents; chip_smoke.SEED 0, 1, 2); then each at random operands
+        of the widest and narrowest widths the CUDA-core layouts took (K10_bf16
+        D 163 at W 128, and a hidden width in two chunks; K15_bf16 7D + F =
+        326 at W 128 both ways, and W 32 at D 1, F 0), untimed: [(label,
+        operands, outputs, rounding point, grads, timed)]."""
+        bf16 = torch.bfloat16
+        g = torch.Generator().manual_seed(cs.SEED + 50)
+
+        def r(*shape, scale=1.0):
+            return (scale * torch.randn(*shape, generator=g)).to("cuda")
+
+        def mask(*shape):
+            return (torch.rand(*shape, generator=g) < 0.85).float().to("cuda")
+        if k == "K10_bf16":
+            gb16 = Predictor(cs.flagship(torch, "cpu", "h150"), adj_dtype=bf16).build_batch(
+                graphs).to("cuda")
+            gbt16 = cs.flagship(torch, "cuda", "h150_clean").to_batch(graphs, adj_dtype=bf16)
+            k10 = cs.bf16_kernel_inputs(torch, gb16, gbt16)[1]
+            out = [(f"loop rows ({k10['adjT'].shape[0]})", k10, True)]
+            for B, W, D, H1, K, acts in ((3, 128, 163, 150, 2, ("tanh", "tanh")),
+                                         (3, 128, 14, 1000, 2, ("selu", "selu")),
+                                         (4, 32, 5, 7, 3, ("relu", "selu"))):
+                x = dict(adjT=bf16_adj(g, B, W), s0=r(B, W, D, scale=0.5),
+                         fT=r(B, W, H1, scale=0.3), w20=r(2 * H1, D, scale=D ** -0.5),
+                         w1=r(D, H1, scale=H1 ** -0.5), b1=r(D, scale=0.1),
+                         affine=torch.stack([1 + r(D, scale=0.1), r(D, scale=0.1)]),
+                         nm=mask(B, W), K=K, threshold=0.01, act0=acts[0], act1=acts[1])
+                out.append((f"W {W}, D {D}, H1 {H1} (hidden chunk "
+                            f"{fused2.loop2_bf16_layout(W, D, H1)[0]})", x, False))
+            return [(label, x, ("traj", "margins"), "ua", False, timed) for label, x, timed in out]
+        out, seed = [], cs.SEED
+        try:
+            for cs.SEED in (0, 1, 2):
+                m = cs.flagship(torch, "cuda", "h150_bn")
+                gbt16 = m.to_batch(graphs, adj_dtype=bf16)
+                _, _, x15, kwb = cs.train_kernel_inputs(torch, m, gbt16)
+                out.append((f"block rows ({gbt16.adj_loop.shape[0] + gbt16.adj_dep.shape[0]}), "
+                            f"seed {cs.SEED}", dict(x15, **kwb), True))
+        finally:
+            cs.SEED = seed
+        for R, Bl, W, D, F, H1 in ((3, 2, 128, 46, 4, 150), (3, 2, 128, 1, 319, 33),
+                                   (3, 1, 32, 1, 0, 20)):
+            C = 2 * D + F + 1
+            adj = bf16_adj(g, R, W)
+            x = dict(adj_loop=adj[:Bl].contiguous(), adj_dep=adj[Bl:].contiguous(),
+                     y_prev=r(R, W, D), y_k=r(R, W, D), agg=r(R, W, D),
+                     keep=(torch.rand(R, W, C - 1, generator=g) > 0.1).to(torch.uint8).cuda(),
+                     feats=r(R, W, F, scale=0.5), w0_aug=r(H1, C, scale=0.6 / C ** 0.5),
+                     w1=r(D, H1, scale=H1 ** -0.5), b1=r(D, scale=0.1),
+                     ds_in=r(R, W, D, scale=0.1), gsel=r(R, W, D, scale=0.1),
+                     bnv=0.5 + r(9, D).abs(), flag=torch.ones((), device="cuda"), nm=mask(R, W),
+                     act0="selu", act1="tanh", alpha_drop=True, rate=0.1)
+            out.append((f"W {W}, D {D}, F {F}, H1 {H1} (layout "
+                        f"{bn.bn2_bf16_layout(W, D, F)})", x, False))
+        return [(label, x, ("ds", "dw0", "dw1", "db1", "dagg", "red"), "dh0", True, timed)
+                for label, x, timed in out]
+
+    def tree_wrapper(t, k):
+        """Tree t's own Python wrapper of bf16 kernel k (the tree's
+        ops/fused2.py or ops/bn.py, loaded as a module of its own; it launches
+        through _build._lib) beside the current tree's plain version."""
+        _, mod, name = BF16_TILED[k]
+        path = os.path.join(os.path.dirname(os.path.abspath(trees[t])), mod + ".py")
+        spec = importlib.util.spec_from_file_location(f"tiled_ab_{t}_{mod}", path)
+        m = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = m     # dataclasses look their module up there
+        spec.loader.exec_module(m)
+        return types.SimpleNamespace(**{name: getattr(m, name),
+                                        name + "_ref": getattr(ops[mod], name + "_ref")})
+
+    def run_bf16_tiled(failed):
+        """Each tree's bf16 tile kernel held to the plain version by Part B's
+        gate (chip_smoke.check_bf16_kernels) and a repeat launch bit for bit
+        (a tree that fails goes into `failed`, and the others go on), then
+        timed in turn (a, b, b, a) by CUDA events and by the profiler's device
+        time a call."""
+        for k in BF16_TILED:
+            if k not in kernels:
+                continue
+            name = BF16_TILED[k][2]
+            names = [t for t in trees if (t, k) in libs]
+            wrappers = {t: tree_wrapper(t, k) for t in names}
+            for label, x, outs_, point, grads, timed in bf16_tiled(k):
+
+                def use(t):
+                    _build._lib = One(libs[t, k])
+                    return getattr(wrappers[t], name)
+                for t in names:
+                    fn = use(t)
+                    cs.say(f"{k} {label}, {t}:")
+                    try:
+                        err = cs.check_bf16_kernels(
+                            torch, [(k, wrappers[t], name, x, outs_, point, (), grads)])[k]
+                        cs.check_repeat(torch, f"{k} {t}", fn, x, label)
+                    except SystemExit:   # chip_smoke.fail: this tree fails, the others go on
+                        failed.append(f"{k} {label}: {t} fails against the plain version")
+                        continue
+                    cs.say(f"{k} {label}, {t}: largest difference from the plain version "
+                           f"{err:.3e}; a repeat launch bit-identical")
+                if not timed:
+                    continue
+                times = []
+                for t in names + names[::-1]:
+                    fn = use(t)
+                    times.append((t, round(cs.timed_ms(torch, lambda: fn(**x)), 4)))
+                    times.append((t + " device",
+                                  round(cs.device_ms(torch, lambda: fn(**x), 1, runs=20), 4)))
+                b, by = cs.bf16_bounds({k: x})[k]
+                cs.say(f"{k} {label}, ms in turn: {times}; bound {b:.4f} ms ({by}); {cs.CARD}")
+
     with torch.no_grad():
         failed = []
         try:
+            run_bf16_tiled(failed)
             for k in kernels:
+                if k in BF16_TILED:
+                    continue
                 mod, name, cases, plan_list, dims_of = setups[k]()
                 fn = getattr(mod, name)
                 entry, exact = kernels[k]
